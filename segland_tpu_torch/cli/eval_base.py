@@ -1,0 +1,124 @@
+"""Base-model evaluation/inference entry point (reference eval_base.py).  Port of
+segland_tpu/cli/eval_base.py.
+
+With GT labels: 12-class confusion matrix -> base/novel/total mIoU + saved
+cmatrix_<seed>.npy.  Without GT: colormapped GTiff predictions + per-tile
+probability .mat maps for ensemble fusion.  Tiles are read through
+segland_tpu.data, imported here only when ``main`` runs.
+
+    python -m segland_tpu_torch.cli.eval_base --data-dir DATA --val-list LIST \\
+        --model convnext_pop --restore-from model.pth --dtype bfloat16 --eval-batch 8
+"""
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+from .common import add_common_args, full_fp32, model_dtype, parse_hw, resolve_fused, str2bool
+from ..evallib.infer import Evaluator
+from ..models import build_model
+
+
+def get_parser():
+    p = argparse.ArgumentParser(description="segland_tpu_torch base evaluation")
+    add_common_args(p)
+    p.add_argument("--save-path", type=str, default="output")
+    p.add_argument("--is-ft", action="store_true", help="evaluate a fine-tuned (base+novel) model")
+    p.add_argument("--eval-batch", type=int, default=None,
+                   help="tiles per batch (default: 1)")
+    p.add_argument("--save", type=str2bool, default=True,
+                   help="write colormapped GTiff predictions for unlabeled tiles")
+    p.add_argument("--save-prob", type=str2bool, default=True,
+                   help="write per-tile .mat probability maps (for ensemble fusion)")
+    p.add_argument("--device-normalize", action="store_true",
+                   help="transfer raw uint8 tiles and normalize on device "
+                        "(4x less host->device traffic)")
+    p.add_argument("--int8", action="store_true",
+                   help="int8 PTQ inference (not ported yet)")
+    p.add_argument("--calib-batches", type=int, default=4,
+                   help="batches used for int8 activation calibration")
+    p.add_argument("--calib-percentile", type=float, default=None,
+                   help="percentile activation calibration for int8 (e.g. 99.9)")
+    return p
+
+
+def load_state_dict(model, path: str, logger):
+    """Load an upstream-keyed .pth (raw, or nested under 'state_dict' or
+    'model'; DDP 'module.' prefix stripped), non-strict like the reference's
+    load_model."""
+    if not path.endswith(".pth"):
+        raise NotImplementedError(
+            f"{path}: the port restores .pth state dicts only; flax .ckpt files "
+            "are read by the JAX package")
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(blob, dict) and "state_dict" in blob:
+        blob = blob["state_dict"]
+    elif isinstance(blob, dict) and "model" in blob:
+        blob = blob["model"]
+    sd = {(k[7:] if k.startswith("module.") else k): v for k, v in blob.items()}
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    logger.info(f"restored torch ckpt {path}: {len(sd) - len(unexpected)} tensors, "
+                f"{len(missing)} missing, {len(unexpected)} unexpected")
+
+
+def main(argv=None):
+    args = get_parser().parse_args(argv)
+    if args.int8:
+        raise NotImplementedError("--int8 serving is not ported yet (ROADMAP item A11)")
+    from segland_tpu.data import Loader, OEMValDataset
+    from segland_tpu.data import augment as A
+    from segland_tpu.data.tileio import OEM_COLORMAP, OEM_COLORMAP_FT
+    from segland_tpu.utils import get_logger
+
+    logger = get_logger()
+    device = torch.device(args.device)
+    if args.dtype == "float32":
+        full_fp32()
+    crop = parse_hw(args.base_size)
+    n_base = args.base_classes
+    model = build_model(
+        args.model, backbone=args.backbone, n_base=n_base,
+        n_novel=args.novel_classes if args.is_ft else 0, is_ft=args.is_ft,
+        os=args.output_stride, dtype=model_dtype(args), fused_mlp=resolve_fused(args),
+        fused_attn=resolve_fused(args), packed_train=args.packed_train, device=device,
+        generator=torch.Generator().manual_seed(0))
+    valset = OEMValDataset(args.data_dir, args.val_list, base_size=crop,
+                           use_novel=True, use_base=True,
+                           device_normalize=args.device_normalize, stats=args.norm_stats)
+    loader = Loader(valset, args.eval_batch or 1, shuffle=False, drop_last=False,
+                    num_workers=args.num_workers)
+    ev_mean, ev_std = A.STATS[args.norm_stats]
+
+    results = {}
+    for seed_str in args.random_seed.split(","):
+        seed = int(seed_str)
+        if args.restore_from:
+            load_state_dict(model, args.restore_from, logger)
+        evaluator = Evaluator(model, device, num_classes=args.num_classes, n_base=n_base,
+                              ignore_label=args.ignore_label,
+                              normalize_on_device=args.device_normalize,
+                              mean=ev_mean, std=ev_std)
+        save_path = args.save_path if args.save else None
+        prob_path = (os.path.join(args.save_path, "prob")
+                     if (args.save_prob and not args.is_ft) else None)
+        os.makedirs(args.save_path, exist_ok=True)
+        if prob_path:
+            os.makedirs(prob_path, exist_ok=True)
+        cm, (base, novel, total, iou), tps = evaluator.run(
+            loader, save_path=save_path, prob_path=prob_path, data_root=args.data_dir,
+            colormap=OEM_COLORMAP_FT if args.is_ft else OEM_COLORMAP,
+            square_pad_eval=args.is_ft, logger=logger)
+        np.save(os.path.join(args.save_path, f"cmatrix_{seed}.npy"), cm)
+        logger.info(f">>>>>>> Current Seed {seed}: <<<<<<<")
+        logger.info(f"meanIoU---base: mIoU {base:.4f}.")
+        logger.info(f"meanIoU---novel: mIoU {novel:.4f}.")
+        logger.info(f"meanIoU---total: mIoU {total:.4f}.")
+        logger.info(f"throughput: {tps:.2f} tiles/sec")
+        results[seed] = (base, novel, total, tps)
+    return results
+
+
+if __name__ == "__main__":
+    main()

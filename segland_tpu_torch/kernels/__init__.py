@@ -1,0 +1,109 @@
+"""Builds and loads the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``.  The build
+happens at the first CUDA call, never at import, so the package imports on a
+machine without ``nvcc``.  The library is cached under ``build/`` by a hash
+of the sources and flags; a changed source builds a new library.
+
+Each C entry returns a ``cudaError_t``; :func:`check` raises on a non-zero
+one.  Pointers and the stream are passed as ``ctypes.c_void_p`` (a bare
+Python int would be cut to 32 bits).
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ENTRIES = {
+    # dtype, x, res, gamma, beta, w1, b1, w2, b2, ls, out, M, C, H, eps, device, stream
+    "segland_ln_mlp": [_I] + [_P] * 10 + [ctypes.c_longlong, _I, _I, ctypes.c_float,
+                                          _I, _P],
+    # logits, rlo, rhi, rw, clo, chi, cw, out, B, h, w, K, oh, ow, device, stream
+    "segland_upsample_argmax": [_P] * 8 + [_I] * 7 + [_P],
+}
+
+
+def nvcc_path() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: set CUDA_HOME to build the kernels")
+    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
+    if not os.path.exists(nvcc):
+        raise RuntimeError(f"nvcc not found at {nvcc}")
+    return nvcc
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD / f"libsegland_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> dict:
+    """Compile the kernels if this source hash has no library yet.  Returns
+    {"path", "seconds", "built", "log"}; ``log`` holds nvcc's ptxas report
+    (registers, shared memory, spills per kernel) when it built."""
+    so = library_path()
+    if so.exists():
+        return {"path": str(so), "seconds": 0.0, "built": False, "log": ""}
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, so)  # atomic: a concurrent build never sees a partial file
+    log = proc.stdout + proc.stderr
+    (BUILD / "build.log").write_text(log)
+    return {"path": str(so), "seconds": time.perf_counter() - t0, "built": True,
+            "log": log}
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build()["path"])
+    for name, argtypes in _ENTRIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.segland_error_string.argtypes = [ctypes.c_int]
+    lib.segland_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, what: str):
+    if err != 0:
+        msg = library().segland_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """Device pointer of a tensor, or NULL for None."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    """The current PyTorch stream on ``t``'s device."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

@@ -1,0 +1,47 @@
+"""Model registry with the JAX package's keys (segland_tpu/models/__init__.py).
+Only ``convnext_pop`` builds so far; the rest raise NotImplementedError
+naming their ROADMAP item."""
+
+import torch
+
+from .pop import GFSSModel
+
+# model name -> (decoder_name, default_backbone)
+_POP_CONFIGS = {
+    "pspnet_pop": ("psp", "resnet50"),
+    "pspplus_pop": ("pspplus", "resnet50v2"),
+    "deeplab_pop": ("aspp", "resnet50"),
+    "swin_pop": ("upernetplus", "swin-s"),
+    "convnext_pop": ("fpn_ocr", "convnext-t"),
+    "lsk_pop": ("simple", "lsk-t"),
+    "seghr_pop": ("hrfpn", "hr-w32"),
+    "vggunet_pop": ("identity", "vgg16bn-unet"),
+}
+_NOT_PORTED = {"pspnet_pop": "A7", "pspplus_pop": "A7", "deeplab_pop": "A7",
+               "pspnet": "A7", "swin_pop": "A6", "lsk_pop": "A9", "seghr_pop": "A8",
+               "vggunet_pop": "A9"}
+
+
+def build_model(model: str, backbone: str | None = None, n_base: int = 7,
+                n_novel: int = 0, is_ft: bool = False, os: int = 8,
+                dilated: bool = True, dtype: torch.dtype = torch.float32,
+                fused_mlp: bool = False, fused_attn: bool = False, packed_train=None,
+                device: torch.device | str = "cpu",
+                generator: torch.Generator | None = None):
+    """Build ``model`` on ``device`` in eval mode, its weights drawn from
+    ``generator`` (a CPU generator)."""
+    if model in _NOT_PORTED:
+        raise NotImplementedError(
+            f"model {model!r} is not ported yet (ROADMAP item {_NOT_PORTED[model]})")
+    if model not in _POP_CONFIGS:
+        raise ValueError(f"unknown model: {model!r}; known: {MODEL_NAMES}")
+    decoder, default_bk = _POP_CONFIGS[model]
+    net = GFSSModel(
+        backbone_name=backbone or default_bk, decoder_name=decoder,
+        n_base=n_base, n_novel=n_novel, is_ft=is_ft, os=os, dilated=dilated,
+        fused_mlp=fused_mlp, fused_attn=fused_attn, packed_train=packed_train,
+        dtype=dtype, generator=generator)
+    return net.to(device).eval()
+
+
+MODEL_NAMES = sorted(_POP_CONFIGS) + ["pspnet"]

@@ -1,0 +1,49 @@
+"""Backbone factory with the JAX package's string keys
+(segland_tpu/models/backbones/__init__.py).  Backbones not ported yet raise
+NotImplementedError naming their ROADMAP item."""
+
+import torch
+
+_NOT_PORTED = {
+    **{k: "A7" for k in ("resnet10", "resnet50", "resnet101", "resnet50v2", "resnet101v2")},
+    **{k: "A6" for k in ("swin-t", "swin-s", "swin-b", "swin-l")},
+    **{k: "A8" for k in ("hr-w18", "hr-w32", "hr-w48")},
+    "lsk-t": "A9",
+    "vgg16bn-unet": "A9",
+}
+
+_FILTERS = {
+    "swin-t": (96, 192, 384, 768),
+    "swin-s": (96, 192, 384, 768),
+    "swin-b": (128, 256, 512, 1024),
+    "swin-l": (192, 384, 768, 1536),
+    "hr-w18": (18, 36, 72, 144),
+    "hr-w32": (32, 64, 128, 256),
+    "hr-w48": (48, 96, 192, 384),
+    "convnext-t": (96, 192, 384, 768),
+    "lsk-t": (32, 64, 160, 256),
+    "vgg16bn-unet": (64,),
+}
+
+
+def get_backbone(name: str, dtype=torch.float32, fused_mlp: bool = False,
+                 fused_attn: bool = False, **kw):
+    """``fused_mlp`` routes each ConvNeXt block's LN+MLP section through the
+    fused kernel; ``fused_attn`` belongs to swin, which is not ported yet."""
+    if name == "convnext-t":
+        from .convnext import convnext_tiny
+
+        return convnext_tiny(dtype=dtype, fused_mlp=fused_mlp)
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"backbone {name!r} is not ported yet (ROADMAP item {_NOT_PORTED[name]})")
+    raise ValueError(f"unknown backbone: {name}")
+
+
+def backbone_filters(name: str):
+    """Per-level channel counts (reference get_filters()/.filters)."""
+    if name.startswith("resnet"):
+        return (2048, 1024, 512, 256)  # coarse->fine [x4,x3,x2,x1]
+    if name in _FILTERS:
+        return _FILTERS[name]
+    raise ValueError(f"unknown backbone: {name}")

@@ -1,0 +1,127 @@
+"""GFSSModel, the POP segmentation head over a backbone and a decoder.
+
+Port of segland_tpu/models/pop.py with upstream SegLand's parameter names
+(networks/convnext_pop.py GFSS_Model), so ``state_dict()`` keys are the
+upstream keys.  The backbone and decoder run in the compute dtype; the
+decoder output is cast to fp32 and the POP head runs in fp32 through the
+rank-1 collapse of ops/pop.py.  Logits come out NCHW, [B, K, h, w], as
+upstream returns them; they are a view of channels-last storage, so
+``permute(0, 2, 3, 1)`` gives the ops' (B, h, w, K) layout without a copy.
+"""
+
+import math
+
+import torch
+import torch.nn as nn
+
+from .backbones import get_backbone, backbone_filters
+from . import decoders as D
+from ..ops import pop as pop_ops
+
+
+class Classifier(nn.Sequential):
+    """The shared bias-free 3-layer 1x1-conv classifier (upstream
+    ``classifier.{0,2,4}``)."""
+
+    def __init__(self, d_model: int):
+        super().__init__(
+            nn.Conv2d(d_model, d_model, 1, bias=False), nn.ReLU(),
+            nn.Conv2d(d_model, d_model, 1, bias=False), nn.ReLU(),
+            nn.Conv2d(d_model, 1, 1, bias=False))
+
+    def weights(self):
+        """(w1 [C,C], w2 [C,C], w3 [C]) as input-major dense mats."""
+        return (self[0].weight[:, :, 0, 0].T, self[2].weight[:, :, 0, 0].T,
+                self[4].weight[0, :, 0, 0])
+
+
+class GFSSModel(nn.Module):
+    def __init__(self, backbone_name: str = "resnet50", decoder_name: str = "psp",
+                 n_base: int = 7, n_novel: int = 0, is_ft: bool = False, os: int = 8,
+                 dilated: bool = True, fused_mlp: bool = False, fused_attn: bool = False,
+                 packed_train=None, dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.backbone_name = backbone_name
+        self.decoder_name = decoder_name
+        self.is_ft = is_ft
+        if packed_train is not None:
+            raise ValueError(
+                f"packed_train is only supported by hrnet/lsknet/vggunet "
+                f"backbones, not {backbone_name!r}")
+        if decoder_name in D.NOT_PORTED:
+            raise NotImplementedError(
+                f"decoder {decoder_name!r} is not ported yet "
+                f"(ROADMAP item {D.NOT_PORTED[decoder_name]})")
+        if decoder_name not in D.DECODERS:
+            raise ValueError(decoder_name)
+        self.backbone = get_backbone(backbone_name, dtype=dtype, fused_mlp=fused_mlp,
+                                     fused_attn=fused_attn)
+        dm = self.d_model
+        self.decoder = D.DECODERS[decoder_name](
+            backbone_filters(backbone_name), out_features=dm, dtype=dtype)
+        self.base_emb = nn.Parameter(torch.empty(n_base, dm))
+        self.classifier = Classifier(dm)
+        if is_ft:
+            if n_novel <= 0:
+                raise ValueError("is_ft needs n_novel > 0")
+            self.novel_emb = nn.Parameter(torch.empty(n_novel, dm))
+            self.classifier_n = Classifier(dm)
+        self.reset_parameters(generator)
+
+    @property
+    def d_model(self) -> int:
+        filters = backbone_filters(self.backbone_name)
+        if self.decoder_name in ("psp", "pspplus"):
+            return 512
+        if self.decoder_name == "aspp":
+            return 256
+        if self.decoder_name == "upernetplus":
+            return min(filters)
+        if self.decoder_name in ("fpn_ocr", "simple"):
+            return 192
+        if self.decoder_name == "hrfpn":
+            return sum(filters)
+        if self.decoder_name == "identity":
+            return filters[0]
+        raise ValueError(self.decoder_name)
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """Upstream init, every draw from ``generator``: the backbone's own
+        scheme, torch's Conv2d default for the decoder conv and classifiers,
+        orthogonal prototypes."""
+        self.backbone.reset_parameters(generator)
+        heads = [self.classifier] + ([self.classifier_n] if self.is_ft else [])
+        convs = [self.decoder.conv] + [m for h in heads for m in h
+                                       if isinstance(m, nn.Conv2d)]
+        for conv in convs:
+            nn.init.kaiming_uniform_(conv.weight, a=math.sqrt(5), generator=generator)
+            if conv.bias is not None:
+                bound = 1.0 / math.sqrt(conv.weight[0].numel())
+                nn.init.uniform_(conv.bias, -bound, bound, generator=generator)
+        nn.init.ones_(self.decoder.norm.weight)
+        nn.init.zeros_(self.decoder.norm.bias)
+        nn.init.orthogonal_(self.base_emb, generator=generator)
+        if self.is_ft:
+            nn.init.orthogonal_(self.novel_emb, generator=generator)
+
+    def extract_features(self, img):
+        """backbone + decoder -> [B, h, w, d_model] fp32 (channels-last view)."""
+        feats = self.decoder(self.backbone(img))
+        return feats.float().permute(0, 2, 3, 1)
+
+    def forward_base(self, img):
+        """[B, 1+n_base, h, w] logits."""
+        logits = pop_ops.pop_logits_base(
+            self.extract_features(img), self.base_emb, *self.classifier.weights())
+        return logits.permute(0, 3, 1, 2)
+
+    def forward_all(self, img):
+        """[B, 1+n_base+n_novel, h, w] logits for fine-tuned eval."""
+        logits, _ = pop_ops.pop_logits_all(
+            self.extract_features(img), self.base_emb, self.novel_emb,
+            self.classifier.weights(), self.classifier_n.weights())
+        return logits.permute(0, 3, 1, 2)
+
+    def forward(self, img):
+        return self.forward_all(img) if self.is_ft else self.forward_base(img)

@@ -1,0 +1,74 @@
+"""Weights carried between the packages, both ways: from_jax_variables
+(JAX tree -> port state_dict) and the JAX package's own converter
+(port state_dict -> JAX tree) must round-trip the full-width convnext_pop
+tree leaf for leaf."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_helpers import load_port, random_variables
+from segland_tpu.ckpt.torch_convert import (convert_torch_state_dict, load_torch_checkpoint,
+                                            merge_variables)
+from segland_tpu.models import build_model as j_build
+from segland_tpu_torch.ckpt import from_jax_variables
+from segland_tpu_torch.models import build_model
+
+
+@pytest.fixture(scope="module")
+def trees():
+    jm = j_build("convnext_pop", "convnext-t", n_base=7, n_novel=4, is_ft=True,
+                 fused_mlp=True)
+    v = random_variables(jm, jnp.zeros((1, 64, 64, 3)), seed=0)
+    port = load_port(build_model("convnext_pop", "convnext-t", n_base=7, n_novel=4,
+                                 is_ft=True, fused_mlp=True), v)
+    return v, port
+
+
+def _assert_same_tree(a, b):
+    fa = jax.tree_util.tree_leaves_with_path(a)
+    fb = dict(jax.tree_util.tree_leaves_with_path(b))
+    assert len(fa) == len(fb)
+    for path, leaf in fa:
+        np.testing.assert_array_equal(np.asarray(fb[path]), leaf, err_msg=str(path))
+
+
+def test_round_trip_through_the_jax_converter(trees):
+    v, port = trees
+    sd = {k: x.detach().numpy() for k, x in port.state_dict().items()}
+    converted, unexpected = convert_torch_state_dict(sd, arch="convnext")
+    assert not unexpected
+    merged, missing, _ = merge_variables(jax.tree_util.tree_map(np.zeros_like, v), converted)
+    assert not missing
+    _assert_same_tree(v, merged)
+
+
+def test_state_dict_keys_are_upstream_keys(trees):
+    v, port = trees
+    keys = set(from_jax_variables(v))
+    assert keys == set(port.state_dict())
+    assert {"backbone.downsample_layers.0.0.weight", "backbone.stages.2.8.gamma",
+            "backbone.stages.3.2.pwconv2.weight", "decoder.conv.weight", "decoder.norm.bias",
+            "base_emb", "novel_emb", "classifier.4.weight", "classifier_n.0.weight"} <= keys
+    assert port.state_dict()["backbone.stages.0.0.dwconv.weight"].shape == (96, 1, 7, 7)
+    assert port.state_dict()["classifier.4.weight"].shape == (1, 192, 1, 1)
+
+
+def test_pth_loads_into_the_jax_package(trees, tmp_path):
+    v, port = trees
+    path = str(tmp_path / "port.pth")
+    torch.save({"state_dict": {"module." + k: x for k, x in port.state_dict().items()}}, path)
+    got, info = load_torch_checkpoint(path, jax.tree_util.tree_map(np.zeros_like, v),
+                                      is_restore=True, arch="convnext")
+    assert not info["missing"] and not info["unexpected"]
+    _assert_same_tree(v, got)
+
+
+def test_unknown_leaf_raises():
+    with pytest.raises(KeyError):
+        from_jax_variables({"params": {"backbone": {"layer1_0": {"conv1": {
+            "kernel": np.zeros((1, 1, 2, 2), np.float32)}}}}})
+    with pytest.raises(KeyError):
+        from_jax_variables({"batch_stats": {"x": {"mean": np.zeros(2, np.float32)}}})

@@ -1,0 +1,92 @@
+"""The port's eval_base CLI on tiny 64x64 GeoTIFF tiles: one upstream-keyed
+.pth evaluated by both packages' CLIs gives the same cmatrix_<seed>.npy
+(up to pixels whose top-2 logits lie within 1e-3), and unlabeled tiles
+export a GTiff and an NCHW .mat per tile."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from torch_helpers import near_tie_pixels
+from segland_tpu_torch.models import build_model
+from segland_tpu_torch.models.backbones.convnext import ConvNeXtBlock
+
+COMMON = ["--model", "convnext_pop", "--backbone", "convnext-t", "--num-workers", "0",
+          "--base-size", "64,64", "--eval-batch", "2"]
+
+
+@pytest.fixture(scope="module")
+def data_root(tmp_path_factory):
+    root = tmp_path_factory.mktemp("oem_port")
+    for d in ("images", "labels", "list"):
+        (root / d).mkdir()
+    rng = np.random.RandomState(7)
+    ids = [f"tile_{i}" for i in range(3)]
+    for tid in ids:
+        Image.fromarray(rng.randint(0, 255, (64, 64, 3), np.uint8)).save(root / "images" / f"{tid}.tif")
+        Image.fromarray(rng.randint(1, 8, (64, 64)).astype(np.uint8)).save(root / "labels" / f"{tid}.tif")
+    for tid in ("test_0", "test_1"):
+        Image.fromarray(rng.randint(0, 255, (64, 64, 3), np.uint8)).save(root / "images" / f"{tid}.tif")
+    (root / "list" / "val.txt").write_text("\n".join(ids) + "\n")
+    (root / "list" / "test.txt").write_text("test_0\ntest_1\n")
+    return root
+
+
+@pytest.fixture(scope="module")
+def pth(tmp_path_factory):
+    g = torch.Generator().manual_seed(3)
+    model = build_model("convnext_pop", "convnext-t", n_base=7, generator=g)
+    with torch.no_grad():
+        for blk in model.modules():
+            if isinstance(blk, ConvNeXtBlock):
+                blk.gamma.uniform_(0.1, 0.5, generator=g)
+    path = str(tmp_path_factory.mktemp("ckpt") / "convnext_pop.pth")
+    torch.save(model.state_dict(), path)
+    return path, model
+
+
+def _args(root, lst, pth, out):
+    return ["--data-dir", str(root), "--val-list", str(root / "list" / lst),
+            "--restore-from", pth, "--save-path", out] + COMMON
+
+
+def test_cmatrix_matches_the_jax_cli(data_root, pth, tmp_path):
+    from segland_tpu.cli.eval_base import main as j_main
+    from segland_tpu.data import OEMValDataset
+    from segland_tpu_torch.cli.eval_base import main
+    from segland_tpu_torch.evallib import Evaluator
+
+    path, model = pth
+    out_t, out_j = str(tmp_path / "port"), str(tmp_path / "jax")
+    base, novel, total, tps = main(_args(data_root, "val.txt", path, out_t) + ["--device", "cpu"])[123]
+    j_main(_args(data_root, "val.txt", path, out_j))
+    cm_t = np.load(os.path.join(out_t, "cmatrix_123.npy"))
+    cm_j = np.load(os.path.join(out_j, "cmatrix_123.npy"))
+    assert cm_t.sum() == 3 * 64 * 64 and 0.0 <= base <= 1.0 and tps > 0
+    ds = OEMValDataset(str(data_root), str(data_root / "list" / "val.txt"), base_size=(64, 64))
+    imgs = np.stack([ds[i][0] for i in range(len(ds))])
+    logits, _ = Evaluator(model, "cpu").predict_batch(imgs, (64, 64))
+    ties = int(near_tie_pixels(logits.numpy()).sum())
+    assert np.abs(cm_t - cm_j).sum() <= 2 * ties
+
+
+def test_unlabeled_tiles_export_tiff_and_mat(data_root, pth, tmp_path):
+    from segland_tpu.data.tileio import read_prob_mat
+    from segland_tpu_torch.cli.eval_base import main
+
+    out = str(tmp_path / "pred")
+    main(_args(data_root, "test.txt", pth[0], out) + ["--device", "cpu", "--device-normalize"])
+    for tid in ("test_0", "test_1"):
+        assert os.path.exists(os.path.join(out, f"{tid}.tif"))
+        assert read_prob_mat(os.path.join(out, "prob", f"{tid}.mat")).shape == (1, 8, 64, 64)
+
+
+@pytest.mark.parametrize("extra", [["--int8"], ["--model", "swin_pop"]])
+def test_unported_paths_raise(data_root, pth, tmp_path, extra):
+    from segland_tpu_torch.cli.eval_base import main
+
+    with pytest.raises(NotImplementedError):
+        main(_args(data_root, "val.txt", pth[0], str(tmp_path)) + ["--device", "cpu"] + extra)
