@@ -10,15 +10,29 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      shapes of a batch of 8 1024^2 tiles plus two ragged M, and fp32 at one
      shape (TF32 off);
   4. K2 upsample_argmax vs its plain version at (8,256,256,8) -> (8,1024,1024);
-  5. the slice: convnext_pop / convnext-t in bf16 with the fused kernels,
-     random weights from a seeded torch.Generator, through Evaluator.run on
-     3 batches of 8 synthetic 1024^2 tiles; the launch counts of that run,
-     its mIoU and tiles/s; the same batches with the kernels' plain versions
-     (>= 99% argmax agreement); an fp32 forward on the card against the same
-     model on the CPU.
-The second-to-last line is a JSON object of per-kernel numbers and the last
-line is {"ok": true, "device": {...}}.  Without a CUDA device, or without the
-rest of the repo beside it, it fails before printing any result.
+  5. K3 attn_section vs its plain version, bf16 at the four swin-s stage
+     shapes of a batch of 8 1024^2 tiles, each with shift 0 and 3, and fp32 at
+     one shape;
+  6. K6 window_attention vs its plain version at the stage-2 shape, with a
+     shared bias and with a per-window bias + shift mask, beside the time of
+     F.scaled_dot_product_attention on the same inputs (timed only);
+  7. the convnext slice: convnext_pop / convnext-t in bf16 with the fused
+     kernels, random weights from a seeded torch.Generator, through
+     Evaluator.run on 2 batches of 8 synthetic 1024^2 tiles; the launch
+     counts of that run, its mIoU and tiles/s; the same batches with the
+     kernels' plain versions (>= 99% argmax agreement); an fp32 forward on
+     the card against the same model on the CPU;
+  8. the swin slice: swin_pop / swin-s at full width and depth the same way,
+     once as eval_base runs it (K = 8) and once as eval_ft does (4 novel
+     classes, K = 12, square_pad_eval), plus the unfused model's tiles/s and
+     one batch through the use_pallas route (K6 in every block).
+Every launch count is set to 0 just before a path is driven and read just
+after.  The second-to-last line is a JSON object of per-kernel numbers (time,
+plain version's time, bound, library call's time) and the last line is
+{"ok": true, "device": {...}}.  Without a CUDA device, or without the rest of
+the repo beside it, it fails before printing any result.
+
+    python3 chip_smoke.py --phases k3,k6    # a subset, while working on a kernel
 """
 
 import json
@@ -28,8 +42,26 @@ import time
 
 import numpy as np
 
-BATCH, TILE, N_BATCHES = 8, 1024, 3
+BATCH, TILE, N_BATCHES = 8, 1024, 2
 STAGES = ((3, 96, 256), (3, 192, 128), (9, 384, 64), (3, 768, 32))  # (blocks, C, side)
+# swin-s stages of a batch of 8 1024^2 tiles: (blocks, C, heads, side, padded side)
+SWIN_STAGES = ((2, 96, 3, 256, 259), (2, 192, 6, 128, 133), (18, 384, 12, 64, 70),
+               (2, 768, 24, 32, 35))
+# data-sheet peaks of an H100 SXM at its 700 W limit
+PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+
+
+def bound(flops, nbytes, peak=PEAK_BF16):
+    """(least ms the card could take, what bounds it)."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def sum_bounds(items):
+    """Bound of a sequence of calls: the sum of theirs, named by the larger share."""
+    ms = sum(b for b, _ in items)
+    ops = sum(b for b, by in items if by == "operations")
+    return ms, "operations" if ops >= ms - ops else "bytes"
 
 
 def fail(msg):
@@ -89,20 +121,25 @@ def check_k1(dev, m, c, dtype, atol, rtol, seed, with_res=True, with_ls=True):
 def phase_k1(dev):
     import torch
 
-    worst, ms, plain_ms = 0.0, 0.0, 0.0
+    worst, ms, plain_ms, bounds = 0.0, 0.0, 0.0, []
     for i, (blocks, c, side) in enumerate(STAGES):
-        e, t, tp = check_k1(dev, BATCH * side * side, c, torch.bfloat16, 2e-2, 1e-2, i)
+        m = BATCH * side * side
+        e, t, tp = check_k1(dev, m, c, torch.bfloat16, 2e-2, 1e-2, i)
         worst = max(worst, e)
         ms += blocks * t
         plain_ms += blocks * tp
+        # x, res read and out written once; w1, w2 once; 16*M*C^2 flops
+        bounds += [bound(16 * m * c * c, 3 * m * c * 2 + 8 * c * c * 2)] * blocks
     for m, c in ((BATCH * 64 * 64 - 19, 384), (BATCH * 32 * 32 - 19, 768)):  # ragged M
         e, _, _ = check_k1(dev, m, c, torch.bfloat16, 2e-2, 1e-2, 7,
                            with_res=False, with_ls=False)
         worst = max(worst, e)
     check_k1(dev, BATCH * 128 * 128, 192, torch.float32, 1e-4, 1e-4, 8)
+    b_ms, b_by = sum_bounds(bounds)
     print(f"K1 per forward of {BATCH} tiles (18 blocks): kernel_ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f}", flush=True)
-    return worst, ms, plain_ms
+          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
 
 
 def phase_k2(dev):
@@ -130,7 +167,122 @@ def phase_k2(dev):
           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
     if bad:
         fail(f"K2: {bad} pixels differ where the top-2 gap exceeds 1e-3")
-    return err, ms, plain_ms
+    # logits read and classes written once; per pixel and class 3 lerps and a compare
+    b_ms, b_by = bound(10 * 8 * BATCH * TILE * TILE, logits.numel() * 4 + BATCH * TILE * TILE,
+                       PEAK_FP32)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def section_inputs(nw, c, nh, dtype, dev, seed):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, device=dev, generator=g)
+    return dict(
+        x=rn(nw, 49, c).to(dtype), gamma=1.0 + 0.1 * rn(c), beta=0.1 * rn(c),
+        wqkv=(rn(c, 3 * c) / c ** 0.5).to(dtype), bqkv=0.1 * rn(3 * c),
+        wproj=(rn(c, c) / c ** 0.5).to(dtype), bproj=0.1 * rn(c),
+        bias=rn(1, nh, 49, 49).to(dtype))
+
+
+def check_k3(dev, b, c, nh, side, pside, shift, dtype, atol, rtol, seed):
+    import torch
+    from segland_tpu_torch.models.backbones.swin import _pad_token_mask, _shift_regions
+    from segland_tpu_torch.ops.fused_attn import attn_section, attn_section_reference
+
+    nw = b * (pside // 7) ** 2
+    geom = (side, side, pside, pside, 7, shift)
+    a = section_inputs(nw, c, nh, dtype, dev, seed)
+    mask = torch.from_numpy(_pad_token_mask(*geom)).to(dev)
+    regions = torch.from_numpy(_shift_regions(pside, pside, 7, shift)).to(dev) if shift else None
+    w = (a["gamma"], a["beta"], a["wqkv"], a["bqkv"], a["wproj"], a["bproj"], a["bias"], nh)
+    run = lambda: attn_section(a["x"], geom, *w)
+    plain = lambda: attn_section_reference(a["x"], mask, *w, regions=regions)
+    got, want = run().float(), plain().float()
+    torch.cuda.synchronize()
+    if not bool(got.isfinite().all()):
+        fail(f"K3 {dtype} NW={nw} C={c} shift={shift}: non-finite output")
+    err = (got - want).abs()
+    bad = int((err > atol + rtol * want.abs()).sum())
+    worst = float(err.max())
+    del got, want, err
+    ms, plain_ms = cuda_ms(run, iters=5, warmup=1), cuda_ms(plain, iters=3, warmup=1)
+    print(f"K3 {str(dtype)[6:]} NW={nw} C={c} heads={nh} geom={geom}: max_abs_err={worst:.6g} "
+          f"tol=|d|<={atol}+{rtol}*|ref| out_of_tol={bad} kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f}", flush=True)
+    if bad:
+        fail(f"K3 {dtype} NW={nw} C={c} shift={shift}: {bad} elements out of tolerance")
+    return worst, ms, plain_ms
+
+
+def phase_k3(dev):
+    import torch
+
+    worst, ms, plain_ms, bounds = 0.0, 0.0, 0.0, []
+    for i, (blocks, c, nh, side, pside) in enumerate(SWIN_STAGES):
+        nw = BATCH * (pside // 7) ** 2
+        for shift in (0, 3):  # the blocks of a stage alternate
+            e, t, tp = check_k3(dev, BATCH, c, nh, side, pside, shift, torch.bfloat16,
+                                2e-2, 1e-2, 20 + i)
+            worst = max(worst, e)
+            ms += blocks / 2 * t
+            plain_ms += blocks / 2 * tp
+        # real tokens: x read and out written once, the weights and bias once
+        bounds += [bound(2 * nw * 49 * c * (4 * c + 2 * 49),
+                         2 * nw * 49 * c * 2 + 4 * c * c * 2 + nh * 49 * 49 * 4)] * blocks
+    check_k3(dev, 2, 192, 6, 128, 133, 3, torch.float32, 1e-4, 1e-4, 29)
+    b_ms, b_by = sum_bounds(bounds)
+    print(f"K3 per forward of {BATCH} tiles (24 blocks): kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def phase_k6(dev):
+    """Stage-2 shape: 800 windows, C=384, 12 heads; per block of the stage."""
+    import torch
+    import torch.nn.functional as F
+    from segland_tpu_torch.models.backbones.swin import _shift_attn_mask
+    from segland_tpu_torch.ops.fused_attn import window_attention, window_attention_reference
+
+    _, c, nh, _, pside = SWIN_STAGES[2]
+    nw_img = (pside // 7) ** 2
+    nw = BATCH * nw_img
+    g = torch.Generator(device=dev).manual_seed(31)
+    qkv = torch.randn(nw, 49, 3 * c, device=dev, generator=g).to(torch.bfloat16)
+    rel = torch.randn(1, nh, 49, 49, device=dev, generator=g)
+    mask = torch.from_numpy(_shift_attn_mask(pside, pside, 7, 3)).to(dev)
+    biases = {"shared": rel.to(torch.bfloat16),
+              "per-window+mask": (rel + mask[:, None]).to(torch.bfloat16)}
+    out = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
+    q, k, v = (t.reshape(nw, 49, nh, 32).transpose(1, 2) for t in qkv.split(c, dim=-1))
+    for name, bias in biases.items():
+        got = window_attention(qkv, bias, nh).float()
+        want = window_attention_reference(qkv, bias, nh).float()
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        bad = int((err > 2e-2 + 1e-2 * want.abs()).sum())
+        ms = cuda_ms(lambda: window_attention(qkv, bias, nh))
+        plain_ms = cuda_ms(lambda: window_attention_reference(qkv, bias, nh), iters=5)
+        # the library call: one fused attention with the same bias as its mask
+        am = bias if bias.shape[0] == 1 else bias.repeat(BATCH, 1, 1, 1)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am))
+        lib = F.scaled_dot_product_attention(q, k, v, attn_mask=am).transpose(1, 2)
+        lib_err = float((lib.reshape(nw, 49, c).float() - want).abs().max())
+        print(f"K6 bf16 NW={nw} C={c} heads={nh} bias={name} {tuple(bias.shape)}: "
+              f"max_abs_err={float(err.max()):.6g} tol=|d|<=0.02+0.01*|ref| out_of_tol={bad} "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
+              f"sdpa_max_abs_err={lib_err:.6g}", flush=True)
+        if bad or not bool(got.isfinite().all()):
+            fail(f"K6 bias={name}: {bad} elements out of tolerance")
+        out["max_abs_err"] = max(out["max_abs_err"], float(err.max()))
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms)):
+            out[key] += val / len(biases)
+    # qkv read, out written, the shared bias once; QK^T and PV over real tokens
+    out["bound_ms"], out["bound_by"] = bound(
+        4 * nw * 49 * 49 * c, nw * 49 * 4 * c * 2 + nh * 49 * 49 * 4)
+    return out
 
 
 def synthetic_batches():
@@ -144,86 +296,232 @@ def synthetic_batches():
     return out
 
 
-def build(dtype, seed=0):
+def build(name, dtype, seed=0, fused=True, is_ft=False):
+    """convnext_pop/convnext-t or swin_pop/swin-s with seeded random weights,
+    drawn so that every block's kernel reaches the output."""
     import torch
+    import torch.nn as nn
     from segland_tpu_torch.models import build_model
     from segland_tpu_torch.models.backbones.convnext import ConvNeXtBlock
+    from segland_tpu_torch.models.backbones.swin import SwinBlock
 
     g = torch.Generator().manual_seed(seed)
-    model = build_model("convnext_pop", "convnext-t", n_base=7, fused_mlp=True,
-                        dtype=dtype, generator=g)
-    # upstream's 1e-6 layer-scale would hide every block's MLP from the output
+    model = build_model(name, None, n_base=7, n_novel=4 if is_ft else 0, is_ft=is_ft,
+                        fused_mlp=fused, fused_attn=fused, dtype=dtype, generator=g)
     with torch.no_grad():
         for blk in model.modules():
             if isinstance(blk, ConvNeXtBlock):
+                # upstream's 1e-6 layer-scale would hide every block's MLP from the output
                 blk.gamma.copy_(torch.empty_like(blk.gamma).uniform_(0.1, 0.5, generator=g))
+            elif isinstance(blk, SwinBlock):
+                # upstream's 0.02-scale weights and rel-pos table make every softmax
+                # near-uniform and every branch small beside the residual
+                for m in blk.modules():
+                    if isinstance(m, nn.Linear):
+                        m.weight.normal_(0.0, m.in_features ** -0.5, generator=g)
+                        m.bias.normal_(0.0, 0.1, generator=g)
+                    elif isinstance(m, nn.LayerNorm):
+                        m.weight.uniform_(0.5, 1.5, generator=g)
+                        m.bias.normal_(0.0, 0.1, generator=g)
+                blk.attn.relative_position_bias_table.normal_(0.0, 1.0, generator=g)
     return model
 
 
-def phase_slice(dev):
-    import torch
-    from segland_tpu_torch.evallib import Evaluator
+COUNTED = ("ln_mlp", "upsample_argmax", "attn_section", "window_attention")
+
+
+def counters():
+    from segland_tpu_torch.ops.fused_attn import attn_section, window_attention
     from segland_tpu_torch.ops.fused_epilogue import upsample_argmax
     from segland_tpu_torch.ops.fused_mlp import ln_mlp
 
-    model = build(torch.bfloat16).to(dev)
+    return dict(zip(COUNTED, (ln_mlp, upsample_argmax, attn_section, window_attention)))
+
+
+def counted_run(ev, batches, **kw):
+    """Evaluator.run with every launch count set to 0 just before and read
+    just after."""
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    result = ev.run(batches, **kw)
+    return result, {k: f.launches for k, f in fns.items() if f.launches}
+
+
+def phase_slice(dev, name, want_per_batch, is_ft=False, fp32_check=True):
+    """One model through Evaluator.run: the kernel path (launch counts, mIoU,
+    tiles/s), the same batches with the kernels' plain versions, and an fp32
+    forward on the card against the CPU."""
+    import torch
+    from segland_tpu_torch.evallib import Evaluator
+
+    tag = f"{name}{' ft' if is_ft else ''}"
+    k = 12 if is_ft else 8
+    model = build(name, torch.bfloat16, is_ft=is_ft).to(dev)
     batches = synthetic_batches()
-    ev = Evaluator(model, dev, num_classes=12, n_base=7, normalize_on_device=True)
-    ev.run(batches)  # warm-up: cuDNN plans, device and pinned-host allocators
+    kw = dict(num_classes=12, n_base=7, normalize_on_device=True)
+    run_kw = dict(square_pad_eval=is_ft)
+    ev = Evaluator(model, dev, **kw)
+    ev.run(batches, **run_kw)  # warm-up: cuDNN plans, device and pinned-host allocators
     torch.cuda.synchronize()
-    ln_mlp.launches = 0
-    upsample_argmax.launches = 0
-    cm, (base, novel, total, _), tps = ev.run(batches)
-    launches = {"ln_mlp": ln_mlp.launches, "upsample_argmax": upsample_argmax.launches}
-    print(f"slice: convnext_pop/convnext-t bf16 fused, {N_BATCHES}x{BATCH} tiles "
-          f"{TILE}^2: launches={launches} mIoU base={base:.4f} total={total:.4f} "
-          f"tiles_per_s={tps:.2f} pixels={int(cm.sum())}", flush=True)
-    if launches != {"ln_mlp": 18 * N_BATCHES, "upsample_argmax": N_BATCHES}:
-        fail(f"slice launch counts {launches}, want ln_mlp={18 * N_BATCHES} "
-             f"upsample_argmax={N_BATCHES}")
+    (cm, (base, novel, total, _), tps), launches = counted_run(ev, batches, **run_kw)
+    print(f"slice {tag}: bf16 fused, {N_BATCHES}x{BATCH} tiles {TILE}^2: launches={launches} "
+          f"mIoU base={base:.4f} total={total:.4f} tiles_per_s={tps:.2f} "
+          f"pixels={int(cm.sum())}", flush=True)
+    want = {key: n * N_BATCHES for key, n in want_per_batch.items()}
+    if launches != want:
+        fail(f"slice {tag} launch counts {launches}, want {want}")
     if int(cm.sum()) != N_BATCHES * BATCH * (TILE - 16) * TILE:
         fail("confusion matrix does not count every labelled pixel")
 
-    ev_plain = Evaluator(model, dev, num_classes=12, n_base=7, normalize_on_device=True,
-                         plain_kernels=True)
-    cm_p, (base_p, _, total_p, _), tps_p = ev_plain.run(batches)
-    if (ln_mlp.launches, upsample_argmax.launches) != tuple(launches.values()):
-        fail("the plain run launched a kernel")
+    ev_plain = Evaluator(model, dev, plain_kernels=True, **kw)
+    ev_plain.run(batches, **run_kw)
+    (cm_p, (base_p, _, total_p, _), tps_p), plain_launches = counted_run(
+        ev_plain, batches, **run_kw)
+    if plain_launches:
+        fail(f"the plain run launched a kernel: {plain_launches}")
     agree = n = 0
-    for imgs, _, _ in batches:
+    for imgs, _, _ in batches[:1]:
         logits, pred = ev.predict_batch(imgs, (TILE, TILE), want_logits=True)
-        if logits.shape != (BATCH, TILE, TILE, 8) or not bool(logits.isfinite().all()):
-            fail(f"slice logits {tuple(logits.shape)} not finite (B,{TILE},{TILE},8)")
+        if logits.shape != (BATCH, TILE, TILE, k) or not bool(logits.isfinite().all()):
+            fail(f"slice {tag} logits {tuple(logits.shape)} not finite (B,{TILE},{TILE},{k})")
         _, pk = ev.predict_batch(imgs, (TILE, TILE), want_logits=False)
-        _, pp = ev_plain.predict_batch(imgs, (TILE, TILE), want_logits=False)
         top2 = logits.topk(2, dim=-1).values
         if int(((pk != pred) & (top2[..., 0] - top2[..., 1] > 1e-3)).sum()):
             fail("fused epilogue and the logits path disagree beyond near-ties")
+        del logits, top2, pred
+    for imgs, _, _ in batches:
+        _, pk = ev.predict_batch(imgs, (TILE, TILE), want_logits=False)
+        _, pp = ev_plain.predict_batch(imgs, (TILE, TILE), want_logits=False)
         agree += int((pk == pp).sum())
         n += pp.numel()
     frac = agree / n
-    print(f"slice plain versions on the card: mIoU base={base_p:.4f} total={total_p:.4f} "
-          f"tiles_per_s={tps_p:.2f} argmax_agreement={frac:.6f} "
+    print(f"slice {tag} plain versions on the card: mIoU base={base_p:.4f} "
+          f"total={total_p:.4f} tiles_per_s={tps_p:.2f} argmax_agreement={frac:.6f} "
           f"dmIoU_total={abs(total - total_p):.6f}", flush=True)
     if frac < 0.99:
-        fail(f"kernel vs plain argmax agreement {frac:.4f} < 0.99")
+        fail(f"slice {tag}: kernel vs plain argmax agreement {frac:.4f} < 0.99")
 
-    # fp32 on the card (the fp32 K1 build) vs the CPU's plain versions, small input
-    m32 = build(torch.float32, seed=1)
-    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(2))
-    with torch.inference_mode():
-        want = m32(x)
-        got = m32.to(dev)(x.to(dev)).cpu()
-    err = float((got - want).abs().max())
-    print(f"slice fp32 2x64x64 card vs CPU: max_abs_err={err:.6g} tol=1e-3", flush=True)
-    if err > 1e-3:
-        fail("fp32 forward on the card disagrees with the CPU")
-    return launches, tps
+    if fp32_check:
+        # fp32 on the card (the fp32 kernel builds) vs the CPU's plain versions, small input
+        m32 = build(name, torch.float32, seed=1, is_ft=is_ft)
+        x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(2))
+        with torch.inference_mode():
+            want32 = m32(x)
+            got32 = m32.to(dev)(x.to(dev)).cpu()
+        err = float((got32 - want32).abs().max())
+        print(f"slice {tag} fp32 2x64x64 card vs CPU: max_abs_err={err:.6g} tol=1e-3",
+              flush=True)
+        if not err <= 1e-3:
+            fail(f"slice {tag}: fp32 forward on the card disagrees with the CPU")
+    return launches, tps, tps_p
 
 
-def main():
+def phase_unfused(dev, name):
+    """The unfused model (stock torch blocks, --no-fused): what the eval
+    default of --fused is set against.  Returns (model, evaluator, tiles/s)."""
+    import torch
+    from segland_tpu_torch.evallib import Evaluator
+
+    batches = synthetic_batches()
+    model = build(name, torch.bfloat16, fused=False).to(dev)
+    ev = Evaluator(model, dev, num_classes=12, n_base=7, normalize_on_device=True)
+    ev.run(batches)
+    (_, (_, _, total_u, _), tps_u), launches = counted_run(ev, batches)
+    print(f"slice {name} unfused (--no-fused): mIoU total={total_u:.4f} "
+          f"tiles_per_s={tps_u:.2f} launches={launches}", flush=True)
+    if launches != {"upsample_argmax": N_BATCHES}:
+        fail(f"unfused {name} launch counts {launches}")
+    return model, ev, tps_u
+
+
+def phase_swin_routes(dev):
+    """The unfused swin_pop model, then one batch of it through the use_pallas
+    route, which runs K6 in every block."""
+    from segland_tpu_torch.models.backbones.swin import WindowAttention
+
+    batches = synthetic_batches()
+    model, ev, tps_u = phase_unfused(dev, "swin_pop")
+    _, pu = ev.predict_batch(batches[0][0], (TILE, TILE), want_logits=False)
+    for m in model.modules():
+        if isinstance(m, WindowAttention):
+            m.use_pallas = True
+    (_, (_, _, total_p, _), tps_p), launches = counted_run(ev, batches[:1])
+    _, pp = ev.predict_batch(batches[0][0], (TILE, TILE), want_logits=False)
+    frac = float((pu == pp).float().mean())
+    print(f"slice swin_pop use_pallas: launches={launches} mIoU total={total_p:.4f} "
+          f"tiles_per_s={tps_p:.2f} argmax_agreement_with_unfused={frac:.6f}", flush=True)
+    if launches != {"window_attention": 24, "upsample_argmax": 1}:
+        fail(f"use_pallas launch counts {launches}, want window_attention=24")
+    if frac < 0.99:
+        fail(f"use_pallas vs unfused argmax agreement {frac:.4f} < 0.99")
+    return launches, tps_u
+
+
+GROUPS = (("K3 attn_section", ("attn_section",)), ("K1 ln_mlp", ("ln_mlp",)),
+          ("K6 window_attention", ("window_attention",)), ("K2 upsample_argmax", ("upsample_argmax",)),
+          ("conv, cuDNN", ("conv", "cudnn", "implicit", "wgrad", "dgrad")),
+          ("gemm, cuBLAS", ("gemm", "cutlass", "cublas", "xmma", "nvjet")),
+          ("layer_norm / batch_norm", ("layer_norm", "batch_norm", "LayerNorm", "bn_fw")),
+          ("softmax", ("softmax",)), ("interpolate", ("upsample", "interpolate", "bilinear")),
+          ("roll / pad / copy / cast", ("copy", "roll", "pad", "Memcpy DtoD", "CatArray")),
+          ("H2D memcpy", ("Memcpy HtoD",)), ("bincount", ("bincount", "histogram", "Histogram")))
+
+
+def phase_profile(dev):
+    """torch.profiler over one Evaluator.run of the swin slice, fused and
+    unfused: device time per batch grouped by kernel name, and the idle share
+    of the traced wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from segland_tpu_torch.evallib import Evaluator
+
+    batches = synthetic_batches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.zeros(1, device=dev)  # the tracer's start-up, outside the timed windows
+    for fused in (True, False):
+        model = build("swin_pop", torch.bfloat16, fused=fused).to(dev)
+        ev = Evaluator(model, dev, num_classes=12, n_base=7, normalize_on_device=True)
+        ev.run(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ev.run(batches)
+            torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        sums = {}
+        for evt in prof.key_averages():
+            dev_us = getattr(evt, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = evt.self_cuda_time_total
+            if dev_us <= 0 or evt.device_type != DeviceType.CUDA:
+                continue  # kernels only: an operator's entry repeats its kernels' time
+            group = next((g for g, keys in GROUPS if any(k in evt.key for k in keys)),
+                         "elementwise / other")
+            sums[group] = sums.get(group, 0.0) + dev_us / 1e3
+        busy = sum(sums.values())
+        if busy <= 0:
+            fail("the profiler recorded no device time")
+        print(f"profile swin_pop {'fused' if fused else 'unfused'}: traced wall "
+              f"{wall_ms:.2f} ms for {N_BATCHES} batches, device busy {busy:.2f} ms, "
+              f"idle share {1 - busy / wall_ms:.3f}", flush=True)
+        for group, ms in sorted(sums.items(), key=lambda kv: -kv[1]):
+            print(f"  {group}: {ms / N_BATCHES:.3f} ms per batch", flush=True)
+        del model, ev
+        torch.cuda.empty_cache()
+
+
+def main(argv=None):
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default="k1,k2,k3,k6,convnext,swin",
+                    help="comma list of k1,k2,k3,k6,convnext,swin (default: all six), "
+                         "or profile: a torch.profiler breakdown of the swin slice")
+    phases = set(ap.parse_args(argv).phases.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -247,24 +545,57 @@ def main():
     for line in ptxas:
         print(f"  ptxas: {line}")
 
-    k1_err, k1_ms, k1_plain = phase_k1(dev)
-    k2_err, k2_ms, k2_plain = phase_k2(dev)
-    launches, _ = phase_slice(dev)
+    csrc = "segland_tpu_torch/kernels/csrc/"
+    kern = {
+        "ln_mlp": dict(source=csrc + "ln_mlp.cu", replaces="segland_tpu/ops/pallas_mlp.py:148"),
+        "upsample_argmax": dict(source=csrc + "upsample_argmax.cu",
+                                replaces="segland_tpu/ops/fused_epilogue.py:143"),
+        "attn_section": dict(source=csrc + "attn_section.cu",
+                             replaces="segland_tpu/ops/pallas_attn.py:524"),
+        "window_attention": dict(source=csrc + "attn_section.cu",
+                                 replaces="segland_tpu/ops/pallas_attn.py:65"),
+    }
+    for key, phase in (("ln_mlp", phase_k1), ("upsample_argmax", phase_k2),
+                       ("attn_section", phase_k3), ("window_attention", phase_k6)):
+        if {"ln_mlp": "k1", "upsample_argmax": "k2", "attn_section": "k3",
+                "window_attention": "k6"}[key] in phases:
+            kern[key].update(phase(dev))
+            torch.cuda.empty_cache()
 
-    kern = [
-        {"name": "ln_mlp", "route": "cuda",
-         "source": "segland_tpu_torch/kernels/csrc/ln_mlp.cu",
-         "replaces": "segland_tpu/ops/pallas_mlp.py:148",
-         "launches": launches["ln_mlp"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "upsample_argmax", "route": "cuda",
-         "source": "segland_tpu_torch/kernels/csrc/upsample_argmax.cu",
-         "replaces": "segland_tpu/ops/fused_epilogue.py:143",
-         "launches": launches["upsample_argmax"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain},
-    ]
+    paths = {}
+    if "convnext" in phases:
+        paths["convnext_pop"], tps_f, tps_p = phase_slice(
+            dev, "convnext_pop", {"ln_mlp": 18, "upsample_argmax": 1})
+        torch.cuda.empty_cache()
+        _, _, tps_u = phase_unfused(dev, "convnext_pop")
+        print(f"convnext_pop eval default: fused {tps_f:.2f} tiles/s, plain versions "
+              f"{tps_p:.2f}, unfused {tps_u:.2f}", flush=True)
+        torch.cuda.empty_cache()
+    if "swin" in phases:
+        per_batch = {"ln_mlp": 24, "upsample_argmax": 1, "attn_section": 24}
+        paths["swin_pop eval_base"], tps_f, tps_p = phase_slice(dev, "swin_pop", per_batch)
+        torch.cuda.empty_cache()
+        paths["swin_pop eval_ft"], _, _ = phase_slice(dev, "swin_pop", per_batch, is_ft=True,
+                                                      fp32_check=False)
+        torch.cuda.empty_cache()
+        paths["swin_pop use_pallas"], tps_u = phase_swin_routes(dev)
+        print(f"swin_pop eval default: fused {tps_f:.2f} tiles/s, plain versions {tps_p:.2f}, "
+              f"unfused {tps_u:.2f}", flush=True)
+
+    if "profile" in phases:
+        phase_profile(dev)
+    if phases != set(ap.get_default("phases").split(",")):
+        print(f"chip_smoke: phases {sorted(phases)} only; no result line", file=sys.stderr)
+        return 3
+    rows = []
+    for key, row in kern.items():
+        by_path = {p: n[key] for p, n in paths.items() if key in n}
+        if not by_path:
+            fail(f"no driven path launched {key}")
+        rows.append(dict(name=key, route="cuda", launches=sum(by_path.values()),
+                         launches_by_path=by_path, **row))
     print(smi)
-    print(json.dumps({"kernels": kern}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

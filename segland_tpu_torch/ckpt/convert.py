@@ -1,10 +1,13 @@
 """JAX variable tree -> the port's state_dict, importing only numpy.
 
-The inverse of the convnext_pop rules of segland_tpu/ckpt/torch_convert.py:
-flax paths map to upstream SegLand keys, dense kernels are transposed, conv
-kernels go HWIO -> OIHW (the depthwise (7,7,1,C) kernel becomes (C,1,7,7)),
-LayerNorm ``scale`` becomes ``weight``, and the POP classifier's dense mats
-w1/w2/w3 become the 1x1 convs ``classifier.{0,2,4}.weight``.
+The inverse of the convnext_pop and swin_pop rules of
+segland_tpu/ckpt/torch_convert.py: flax paths map to upstream SegLand keys,
+dense kernels are transposed, conv kernels go HWIO -> OIHW (the depthwise
+(7,7,1,C) kernel becomes (C,1,7,7)), LayerNorm and BatchNorm ``scale``
+becomes ``weight``, BatchNorm ``batch_stats`` mean/var become
+``running_mean``/``running_var`` (with a zero ``num_batches_tracked``, which
+upstream state dicts carry), and the POP classifier's dense mats w1/w2/w3
+become the 1x1 convs ``classifier.{0,2,4}.weight``.
 """
 
 import re
@@ -20,11 +23,32 @@ _MODULES = [
     (r"backbone/stages_(\d)_(\d+)/(dwconv|norm|pwconv1|pwconv2)", "backbone.stages.{0}.{1}.{2}"),
     (r"backbone/stages_(\d)_(\d+)", "backbone.stages.{0}.{1}"),
     (r"decoder/(conv|norm)", "decoder.{0}"),
+    # swin backbone
+    (r"backbone/patch_embed_(proj|norm)", "backbone.patch_embed.{0}"),
+    (r"backbone/layers_(\d)_blocks_(\d+)/(norm1|norm2)", "backbone.layers.{0}.blocks.{1}.{2}"),
+    (r"backbone/layers_(\d)_blocks_(\d+)/attn/(qkv|proj)",
+     "backbone.layers.{0}.blocks.{1}.attn.{2}"),
+    (r"backbone/layers_(\d)_blocks_(\d+)/attn", "backbone.layers.{0}.blocks.{1}.attn"),
+    (r"backbone/layers_(\d)_blocks_(\d+)/mlp_(fc1|fc2)", "backbone.layers.{0}.blocks.{1}.mlp.{2}"),
+    (r"backbone/layers_(\d)_downsample/(norm|reduction)", "backbone.layers.{0}.downsample.{1}"),
+    (r"backbone/out_norm(\d)", "backbone.norm{0}"),
+    # UperNet+ decoder: Sequential(conv, bn, relu) blocks; the PSP stages are
+    # Sequential(pool, conv, bn); scale-head block r sits at index 2r
+    (r"decoder/psp/stages_(\d)_conv", "decoder.psp.stages.{0}.1"),
+    (r"decoder/psp/stages_(\d)_bn", "decoder.psp.stages.{0}.2"),
+    (r"decoder/psp/bottleneck_conv", "decoder.psp.bottleneck.0"),
+    (r"decoder/psp/bottleneck_bn", "decoder.psp.bottleneck.1"),
+    (r"decoder/lateral_(\d)_conv", "decoder.lateral_convs.{0}.0"),
+    (r"decoder/lateral_(\d)_bn", "decoder.lateral_convs.{0}.1"),
+    (r"decoder/fpn_convs_(\d)_(\d)_conv", "decoder.fpn_convs.{0}.{1}*2.0"),
+    (r"decoder/fpn_convs_(\d)_(\d)_bn", "decoder.fpn_convs.{0}.{1}*2.1"),
     (r"(classifier(?:_n)?)", "{0}"),
     (r"", ""),
 ]
 _LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias", "gamma": "gamma",
-           "base_emb": "base_emb", "novel_emb": "novel_emb"}
+           "base_emb": "base_emb", "novel_emb": "novel_emb",
+           "relative_position_bias_table": "relative_position_bias_table",
+           "mean": "running_mean", "var": "running_var"}
 _CLASSIFIER = {"w1": "0.weight", "w2": "2.weight", "w3": "4.weight"}
 
 
@@ -51,7 +75,9 @@ def from_jax_variables(variables) -> dict:
     Raises KeyError on a leaf it has no rule for."""
     out = {}
     for path, value in _flatten(dict(variables)):
-        if path[0] != "params":
+        stats = path[0] == "batch_stats"
+        if path[0] != "params" and not (stats and path[-1] in ("mean", "var")
+                                        and path[-2].endswith("_bn")):
             raise KeyError(f"no port rule for {'/'.join(path)}")
         mod_path, name = "/".join(path[1:-1]), path[-1]
         for pat, tmpl in _MODULES:
@@ -60,6 +86,9 @@ def from_jax_variables(variables) -> dict:
                 break
         else:
             raise KeyError(f"no port rule for {'/'.join(path)}")
-        key, arr = _leaf(tmpl.format(*m.groups()), name, np.asarray(value))
+        module = re.sub(r"(\d+)\*2", lambda d: str(2 * int(d[1])), tmpl.format(*m.groups()))
+        key, arr = _leaf(module, name, np.asarray(value))
         out[key] = np.ascontiguousarray(arr)
+        if stats and name == "mean":
+            out[f"{module}.num_batches_tracked"] = np.zeros((), np.int64)
     return out

@@ -39,8 +39,9 @@ def add_common_args(p: argparse.ArgumentParser):
                    help="val/ft normalization stats ('imagenet' keeps the "
                         "reference's train/val asymmetry)")
     p.add_argument("--fused", action=argparse.BooleanOptionalAction, default=None,
-                   help="fused LN+MLP kernel in transformer backbones (default: "
-                        "on for convnext_pop eval). bfloat16 uses tanh-GELU, so "
+                   help="fused LN+MLP and attention-section kernels in transformer "
+                        "backbones (default: off, see EVAL_FUSED_DEFAULTS). "
+                        "bfloat16 uses tanh-GELU, so "
                         "bf16 fused-vs-unfused is not bit-identical by design")
     p.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"],
                    help="backbone/decoder compute dtype (POP head always fp32)")
@@ -52,9 +53,16 @@ def add_common_args(p: argparse.ArgumentParser):
     return p
 
 
-# The port's eval default is the fused path for convnext_pop, the only
-# family it has; other families get theirs when they are ported.
-EVAL_FUSED_DEFAULTS = {"convnext_pop": True}
+# Eval defaults of --fused, from chip_smoke.py on the card (NVIDIA H100 80GB
+# HBM3, 700.00 W; bf16, 2 batches of 8 1024^2 tiles after a warm-up run), which
+# runs each model three ways: fused kernels, the kernels' plain versions, and
+# unfused (stock torch blocks: cuBLAS products, torch's LayerNorm and softmax).
+#   convnext_pop / convnext-t: 191.49 tiles/s fused, 155.71 plain versions, 262.71 unfused
+#   swin_pop / swin-s:          91.71 tiles/s fused,  75.53 plain versions, 107.38 unfused
+# The fused kernels beat their plain versions and lose to the unfused model
+# (K1 reaches 58-82 TFLOP/s and K3 29-41, cuBLAS about 250 on the same products), so
+# both defaults are off until the kernels catch up; --fused turns them on.
+EVAL_FUSED_DEFAULTS = {"convnext_pop": False, "swin_pop": False}
 
 
 def resolve_fused(args) -> bool:

@@ -3,11 +3,13 @@ segland_tpu/cli/eval_base.py.
 
 With GT labels: 12-class confusion matrix -> base/novel/total mIoU + saved
 cmatrix_<seed>.npy.  Without GT: colormapped GTiff predictions + per-tile
-probability .mat maps for ensemble fusion.  Tiles are read through
-segland_tpu.data, imported here only when ``main`` runs.
+probability .mat maps for ensemble fusion.
 
     python -m segland_tpu_torch.cli.eval_base --data-dir DATA --val-list LIST \\
         --model convnext_pop --restore-from model.pth --dtype bfloat16 --eval-batch 8
+
+``--is-ft`` (what ``cli.eval_ft`` appends) evaluates a fine-tuned base+novel
+model: a run per seed, square-longside logits against ignore-padded labels, the saturated novel colormap, no .mat export.
 """
 
 import argparse
@@ -17,8 +19,12 @@ import numpy as np
 import torch
 
 from .common import add_common_args, full_fp32, model_dtype, parse_hw, resolve_fused, str2bool
+from ..data import Loader, OEMValDataset
+from ..data import augment as A
+from ..data.tileio import OEM_COLORMAP, OEM_COLORMAP_FT
 from ..evallib.infer import Evaluator
 from ..models import build_model
+from ..utils import get_logger
 
 
 def get_parser():
@@ -67,11 +73,6 @@ def main(argv=None):
     args = get_parser().parse_args(argv)
     if args.int8:
         raise NotImplementedError("--int8 serving is not ported yet (ROADMAP item A11)")
-    from segland_tpu.data import Loader, OEMValDataset
-    from segland_tpu.data import augment as A
-    from segland_tpu.data.tileio import OEM_COLORMAP, OEM_COLORMAP_FT
-    from segland_tpu.utils import get_logger
-
     logger = get_logger()
     device = torch.device(args.device)
     if args.dtype == "float32":

@@ -1,0 +1,82 @@
+"""Host-side numpy transforms of the eval path, matching reference
+dataset/base_dataset.py.  Own copy of the val-side part of
+segland_tpu/data/augment.py; the train-side augmentations come with
+training.  Resizes use PIL (imported at the call) in place of cv2: both
+implement the standard half-pixel bilinear, so results agree to rounding.
+"""
+
+from typing import Sequence
+
+import numpy as np
+
+IGNORE_LABEL = 255
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+OEM_TRAIN_MEAN = (0.5, 0.5, 0.5)  # reference dataset/oem.py:26-27
+OEM_TRAIN_STD = (0.5, 0.5, 0.5)
+
+# Named normalization-stat sets: the reference trains base models with
+# 0.5-stats but normalizes val/ft with ImageNet stats (dataset/oem.py:26-27
+# vs base_dataset.py defaults), a deliberate asymmetry preserved by default.
+# ``--norm-stats train`` lets a consistent-stats run opt out.
+STATS = {
+    "imagenet": (IMAGENET_MEAN, IMAGENET_STD),
+    "train": (OEM_TRAIN_MEAN, OEM_TRAIN_STD),
+}
+
+
+def normalize(image: np.ndarray, mean: Sequence[float], std: Sequence[float]) -> np.ndarray:
+    """BGR->RGB channel flip, /255, -mean, /std (base_dataset.py:29-34)."""
+    image = image.astype(np.float32)[:, :, ::-1]
+    image = image / 255.0
+    image = image - np.asarray(mean, np.float32)
+    image = image / np.asarray(std, np.float32)
+    return image
+
+
+def pad(output_size, image, label=None, ignore_label: int = IGNORE_LABEL):
+    """Bottom/right zero-pad image, ignore-pad label (base_dataset.py:88-104)."""
+    pad_h = max(output_size[0] - image.shape[0], 0)
+    pad_w = max(output_size[1] - image.shape[1], 0)
+    if pad_h > 0 or pad_w > 0:
+        image = np.pad(image, ((0, pad_h), (0, pad_w), (0, 0)), constant_values=0.0)
+        if label is not None:
+            label = np.pad(label, ((0, pad_h), (0, pad_w)), constant_values=ignore_label)
+    return (image, label) if label is not None else image
+
+
+def crop_val(image, label, crop_size):
+    """Center crop (base_dataset.py:170-174)."""
+    img_h, img_w = label.shape
+    crop_h, crop_w = crop_size
+    h_off = int(round(max(img_h - crop_h, 0) / 2.0))
+    w_off = int(round(max(img_w - crop_w, 0) / 2.0))
+    return (
+        image[h_off : h_off + crop_h, w_off : w_off + crop_w],
+        label[h_off : h_off + crop_h, w_off : w_off + crop_w],
+    )
+
+
+def _pil_resize(arr: np.ndarray, dsize_wh, bilinear: bool) -> np.ndarray:
+    from PIL import Image
+
+    resample = Image.BILINEAR if bilinear else Image.NEAREST
+    if arr.ndim == 3:
+        return np.stack(
+            [np.asarray(Image.fromarray(arr[..., c]).resize(dsize_wh, resample))
+             for c in range(arr.shape[2])], axis=-1)
+    return np.asarray(Image.fromarray(arr).resize(dsize_wh, resample))
+
+
+def resize_to_base(image, label=None, base_size=(1024, 1024)):
+    """Aspect-preserving resize to fit base_size (base_dataset.py:52-63):
+    linear for image, nearest for label."""
+    output_size = base_size
+    scale = min(max(output_size) / max(image.shape[:2]), min(output_size) / min(image.shape[:2]))
+    new_w = int(image.shape[1] * scale + 0.5)
+    new_h = int(image.shape[0] * scale + 0.5)
+    image = _pil_resize(image, (new_w, new_h), bilinear=True)
+    if label is not None:
+        label = _pil_resize(label, (new_w, new_h), bilinear=False)
+        return image, label
+    return image

@@ -176,8 +176,7 @@ class Evaluator:
                 _, pred = self.predict_batch(staged, gt.shape[-2:], want_logits=False)
                 cm_dev += confusion_matrix(gt, pred, self.num_classes, self.ignore_label)
             else:
-                from segland_tpu.data.tileio import (OEM_COLORMAP, write_pred_tiff,
-                                                     write_prob_mat)
+                from ..data.tileio import OEM_COLORMAP, write_pred_tiff, write_prob_mat
 
                 lh, lw = staged[0].shape[1:3]
                 logits, pred = self.predict_batch(staged, (lh, lw),

@@ -1,9 +1,10 @@
 """Builds and loads the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``.  The build
-happens at the first CUDA call, never at import, so the package imports on a
-machine without ``nvcc``.  The library is cached under ``build/`` by a hash
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one ``nvcc``
+a source, all started together) and linked into one shared library with a
+plain C interface, loaded with ``ctypes``.  The build happens at the first
+CUDA call, never at import, so the package imports on a machine without
+``nvcc``.  The library is cached under ``build/`` by a hash
 of the sources and flags; a changed source builds a new library.
 
 Each C entry returns a ``cudaError_t``; :func:`check` raises on a non-zero
@@ -22,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,6 +33,12 @@ _ENTRIES = {
                                           _I, _P],
     # logits, rlo, rhi, rw, clo, chi, cw, out, B, h, w, K, oh, ow, device, stream
     "segland_upsample_argmax": [_P] * 8 + [_I] * 7 + [_P],
+    # dtype, x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, out, NW, C, nh,
+    # h, w, hp, wp, ws, shift, eps, device, stream
+    "segland_attn_section": [_I] + [_P] * 9 + [ctypes.c_longlong] + [_I] * 8
+                            + [ctypes.c_float, _I, _P],
+    # dtype, qkv, bias, out, NW, C, nh, nw_img, device, stream
+    "segland_window_attention": [_I] + [_P] * 3 + [ctypes.c_longlong] + [_I] * 4 + [_P],
 }
 
 
@@ -66,14 +73,28 @@ def build() -> dict:
     if so.exists():
         return {"path": str(so), "seconds": 0.0, "built": False, "log": ""}
     BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, so)  # atomic: a concurrent build never sees a partial file
-    log = proc.stdout + proc.stderr
+    objs = [BUILD / f"{tag}.{src.stem}.o" for src in sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources(), objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    try:
+        for src, proc, out in zip(sources(), procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{out}")
+        tmp = BUILD / f"{tag}.tmp"
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        os.replace(tmp, so)  # atomic: a concurrent build never sees a partial file
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    log = "".join(logs)
     (BUILD / "build.log").write_text(log)
     return {"path": str(so), "seconds": time.perf_counter() - t0, "built": True,
             "log": log}

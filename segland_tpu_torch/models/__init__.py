@@ -1,6 +1,6 @@
 """Model registry with the JAX package's keys (segland_tpu/models/__init__.py).
-Only ``convnext_pop`` builds so far; the rest raise NotImplementedError
-naming their ROADMAP item."""
+``convnext_pop`` and ``swin_pop`` build so far; the rest raise
+NotImplementedError naming their ROADMAP item."""
 
 import torch
 
@@ -18,7 +18,7 @@ _POP_CONFIGS = {
     "vggunet_pop": ("identity", "vgg16bn-unet"),
 }
 _NOT_PORTED = {"pspnet_pop": "A7", "pspplus_pop": "A7", "deeplab_pop": "A7",
-               "pspnet": "A7", "swin_pop": "A6", "lsk_pop": "A9", "seghr_pop": "A8",
+               "pspnet": "A7", "lsk_pop": "A9", "seghr_pop": "A8",
                "vggunet_pop": "A9"}
 
 

@@ -6,7 +6,6 @@ import torch
 
 _NOT_PORTED = {
     **{k: "A7" for k in ("resnet10", "resnet50", "resnet101", "resnet50v2", "resnet101v2")},
-    **{k: "A6" for k in ("swin-t", "swin-s", "swin-b", "swin-l")},
     **{k: "A8" for k in ("hr-w18", "hr-w32", "hr-w48")},
     "lsk-t": "A9",
     "vgg16bn-unet": "A9",
@@ -28,12 +27,17 @@ _FILTERS = {
 
 def get_backbone(name: str, dtype=torch.float32, fused_mlp: bool = False,
                  fused_attn: bool = False, **kw):
-    """``fused_mlp`` routes each ConvNeXt block's LN+MLP section through the
-    fused kernel; ``fused_attn`` belongs to swin, which is not ported yet."""
+    """``fused_mlp`` routes each ConvNeXt or Swin block's LN+MLP section
+    through the fused kernel, ``fused_attn`` each Swin block's attention
+    section."""
     if name == "convnext-t":
         from .convnext import convnext_tiny
 
         return convnext_tiny(dtype=dtype, fused_mlp=fused_mlp)
+    if name in ("swin-t", "swin-s", "swin-b", "swin-l"):
+        from .swin import get_swin
+
+        return get_swin(name, dtype=dtype, fused_mlp=fused_mlp, fused_attn=fused_attn)
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"backbone {name!r} is not ported yet (ROADMAP item {_NOT_PORTED[name]})")

@@ -1,15 +1,140 @@
-"""Decoders, NCHW PyTorch.  Port of segland_tpu/models/decoders.py; only
-the convnext_pop decoder is ported so far (the others are ROADMAP items
-A6-A9)."""
+"""Decoders, NCHW PyTorch.  Port of segland_tpu/models/decoders.py with
+upstream SegLand's module names: the convnext_pop decoder (FPN-OCR) and the
+swin_pop decoder (UperNet+ over a PSP-v2 top); the others are ROADMAP items
+A7-A9.  Pyramid decoders take fine -> coarse lists (x[0] the finest).
+BatchNorm runs on its running statistics: the port is eval only so far."""
 
+import math
 from typing import Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.pooling import adaptive_avg_pool
 from ..ops.resize import resize_bilinear
-from .backbones.convnext import layer_norm_nhwc
+from .backbones.convnext import conv2d, layer_norm_nhwc
+
+
+def _init_conv(conv: nn.Conv2d, generator=None):
+    """torch's Conv2d default init, drawn from ``generator``."""
+    nn.init.kaiming_uniform_(conv.weight, a=math.sqrt(5), generator=generator)
+    if conv.bias is not None:
+        bound = 1.0 / math.sqrt(conv.weight[0].numel())
+        nn.init.uniform_(conv.bias, -bound, bound, generator=generator)
+
+
+def _resize(x, hw):
+    """align_corners=True bilinear resize of an NCHW map."""
+    return resize_bilinear(x.permute(0, 2, 3, 1), hw, align_corners=True).permute(0, 3, 1, 2)
+
+
+def batch_norm(m: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """Eval-mode BatchNorm on the running statistics (fp32 parameters, output
+    in x's dtype)."""
+    return F.batch_norm(x, m.running_mean, m.running_var, m.weight, m.bias, False, 0.0, m.eps)
+
+
+class ConvBNReLU(nn.Sequential):
+    """Sequential(conv, bn, relu) as upstream indexes it (``.0``, ``.1``)."""
+
+    def __init__(self, cin: int, cout: int, k: int, bias: bool = True):
+        super().__init__(nn.Conv2d(cin, cout, k, padding=k // 2, bias=bias),
+                         nn.BatchNorm2d(cout, eps=1e-5), nn.ReLU())
+
+    def forward(self, x):
+        return F.relu(batch_norm(self[1], conv2d(self[0], x)))
+
+
+class _PSPStage(nn.Sequential):
+    """Sequential(pool, conv, bn) of one pyramid size (``.1``, ``.2``)."""
+
+    def __init__(self, cin: int, cout: int, size: int):
+        super().__init__(nn.AdaptiveAvgPool2d(size), nn.Conv2d(cin, cout, 1, bias=False),
+                         nn.BatchNorm2d(cout, eps=1e-5))
+        self.size = size
+
+    def forward(self, x):
+        p = adaptive_avg_pool(x.permute(0, 2, 3, 1), self.size).permute(0, 3, 1, 2)
+        return F.relu(batch_norm(self[2], conv2d(self[1], p)))
+
+
+class PSPModuleV2(nn.Module):
+    """swin/upernet-style PSP (reference networks/swin_pop.py:7-35): pooled
+    priors through 1x1 conv + BN + ReLU, upsampled with align_corners=True,
+    concatenated with the input, then a 1x1 bottleneck conv (no bias) + BN +
+    ReLU (+ Dropout2d(0.1), the identity at eval)."""
+
+    def __init__(self, features: int, out_features: int = 512,
+                 sizes: Sequence[int] = (1, 2, 3, 6)):
+        super().__init__()
+        self.stages = nn.ModuleList(_PSPStage(features, out_features, s) for s in sizes)
+        self.bottleneck = ConvBNReLU(features + len(sizes) * out_features, out_features, 1,
+                                     bias=False)
+
+    def forward(self, feats):
+        hw = tuple(feats.shape[-2:])
+        priors = [_resize(stage(feats), hw) for stage in self.stages] + [feats]
+        return self.bottleneck(torch.cat(priors, dim=1))
+
+
+class _Upsample2x(nn.Module):
+    def forward(self, x):
+        return _resize(x, (x.shape[-2] * 2, x.shape[-1] * 2))
+
+
+def _scale_head(dim: int, n_ups: int) -> nn.Sequential:
+    """log2 scale head: (conv3x3+BN+ReLU [+2x up align_True]) x max(1, n_ups)
+    (reference swin_pop.py:121-140); the blocks sit at the even indices."""
+    mods = []
+    for _ in range(max(1, n_ups)):
+        mods.append(ConvBNReLU(dim, dim, 3))
+        if n_ups > 0:
+            mods.append(_Upsample2x())
+    return nn.Sequential(*mods)
+
+
+class UperNetPlusDecoder(nn.Module):
+    """UperNet_Decoder_Plus (reference networks/swin_pop.py:104-173).
+
+    Laterals (3x3 conv+BN+ReLU) on the three fine levels, PSP-v2 on the top;
+    top-down sum with align_corners=True; per-level scale heads upsampling
+    back to level-0 resolution; summed."""
+
+    def __init__(self, in_channels: Sequence[int], out_features: int = 96,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        filters = tuple(in_channels)
+        dim = out_features
+        self.psp = PSPModuleV2(filters[-1], dim)
+        self.lateral_convs = nn.ModuleList(ConvBNReLU(f, dim, 3) for f in filters[:-1])
+        n_ups = [0 if f == filters[0] else
+                 max(1, int(math.log2(f) - math.log2(filters[0]))) for f in filters]
+        self.fpn_convs = nn.ModuleList(_scale_head(dim, n) for n in n_ups)
+
+    def reset_parameters(self, generator=None):
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                _init_conv(m, generator)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+
+    def forward(self, feats):
+        feats = [f.to(self.dtype) for f in feats]
+        laterals = [conv(f) for conv, f in zip(self.lateral_convs, feats[:-1])]
+        laterals.append(self.psp(feats[-1]))
+        for i in range(len(laterals) - 1, 0, -1):
+            laterals[i - 1] = laterals[i - 1] + _resize(laterals[i],
+                                                        tuple(laterals[i - 1].shape[-2:]))
+        target = tuple(feats[0].shape[-2:])
+        out = None
+        for head, lat in zip(self.fpn_convs, laterals):
+            y = head(lat)
+            if tuple(y.shape[-2:]) != target:
+                y = _resize(y, target)
+            out = y if out is None else out + y
+        return out
 
 
 class FPNOCRDecoder(nn.Module):
@@ -31,6 +156,11 @@ class FPNOCRDecoder(nn.Module):
         self.conv = nn.Conv2d(sum(in_channels), out_features, 1)
         self.norm = nn.LayerNorm(out_features, eps=1e-5)
 
+    def reset_parameters(self, generator=None):
+        _init_conv(self.conv, generator)
+        nn.init.ones_(self.norm.weight)
+        nn.init.zeros_(self.norm.bias)
+
     def forward(self, feats):
         dt = self.dtype
         target = tuple(feats[0].shape[-2:])
@@ -47,6 +177,5 @@ class FPNOCRDecoder(nn.Module):
         return layer_norm_nhwc(self.norm, x).permute(0, 3, 1, 2)
 
 
-DECODERS = {"fpn_ocr": FPNOCRDecoder}
-NOT_PORTED = {"psp": "A7", "pspplus": "A7", "aspp": "A7", "upernetplus": "A6",
-              "simple": "A9", "hrfpn": "A8"}
+DECODERS = {"fpn_ocr": FPNOCRDecoder, "upernetplus": UperNetPlusDecoder}
+NOT_PORTED = {"psp": "A7", "pspplus": "A7", "aspp": "A7", "simple": "A9", "hrfpn": "A8"}

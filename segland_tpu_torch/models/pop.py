@@ -87,20 +87,14 @@ class GFSSModel(nn.Module):
         raise ValueError(self.decoder_name)
 
     def reset_parameters(self, generator: torch.Generator | None = None):
-        """Upstream init, every draw from ``generator``: the backbone's own
-        scheme, torch's Conv2d default for the decoder conv and classifiers,
+        """Upstream init, every draw from ``generator``: the backbone's and the
+        decoder's own schemes, torch's Conv2d default for the classifiers,
         orthogonal prototypes."""
         self.backbone.reset_parameters(generator)
+        self.decoder.reset_parameters(generator)
         heads = [self.classifier] + ([self.classifier_n] if self.is_ft else [])
-        convs = [self.decoder.conv] + [m for h in heads for m in h
-                                       if isinstance(m, nn.Conv2d)]
-        for conv in convs:
+        for conv in (m for h in heads for m in h if isinstance(m, nn.Conv2d)):
             nn.init.kaiming_uniform_(conv.weight, a=math.sqrt(5), generator=generator)
-            if conv.bias is not None:
-                bound = 1.0 / math.sqrt(conv.weight[0].numel())
-                nn.init.uniform_(conv.bias, -bound, bound, generator=generator)
-        nn.init.ones_(self.decoder.norm.weight)
-        nn.init.zeros_(self.decoder.norm.bias)
         nn.init.orthogonal_(self.base_emb, generator=generator)
         if self.is_ft:
             nn.init.orthogonal_(self.novel_emb, generator=generator)

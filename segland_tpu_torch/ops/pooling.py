@@ -1,0 +1,11 @@
+"""Pooling with the JAX package's layout.  Port of segland_tpu/ops/pooling.py:
+that module reproduces torch's AdaptiveAvgPool2d bins (start = floor(i*H/s),
+end = ceil((i+1)*H/s)), so here the torch operator itself is the port."""
+
+import torch
+import torch.nn.functional as F
+
+
+def adaptive_avg_pool(x: torch.Tensor, out_size: int) -> torch.Tensor:
+    """x: [B,H,W,C] -> [B,out,out,C]."""
+    return F.adaptive_avg_pool2d(x.permute(0, 3, 1, 2), int(out_size)).permute(0, 2, 3, 1)

@@ -1,7 +1,8 @@
 """Weights carried between the packages, both ways: from_jax_variables
 (JAX tree -> port state_dict) and the JAX package's own converter
 (port state_dict -> JAX tree) must round-trip the full-width convnext_pop
-tree leaf for leaf."""
+tree and the swin_pop tree (swin-t with the UperNet+ decoder and its
+BatchNorm statistics) leaf for leaf."""
 
 import jax
 import jax.numpy as jnp
@@ -66,9 +67,60 @@ def test_pth_loads_into_the_jax_package(trees, tmp_path):
     _assert_same_tree(v, got)
 
 
+@pytest.fixture(scope="module")
+def swin_trees():
+    kw = dict(n_base=7, n_novel=4, is_ft=True, fused_mlp=True, fused_attn=True)
+    jm = j_build("swin_pop", "swin-t", **kw)
+    v = random_variables(jm, jnp.zeros((1, 64, 64, 3)), seed=1)
+    return v, load_port(build_model("swin_pop", "swin-t", **kw), v)
+
+
+def test_swin_round_trip_through_the_jax_converter(swin_trees):
+    """swin backbone + UperNet+ decoder, BatchNorm running statistics included."""
+    v, port = swin_trees
+    assert "batch_stats" in v and "psp" in v["batch_stats"]["decoder"]
+    sd = {k: x.detach().numpy() for k, x in port.state_dict().items()}
+    converted, unexpected = convert_torch_state_dict(sd)
+    assert not unexpected
+    merged, missing, _ = merge_variables(jax.tree_util.tree_map(np.zeros_like, v), converted)
+    assert not missing
+    _assert_same_tree(v, merged)
+
+
+def test_swin_state_dict_keys_are_upstream_keys(swin_trees):
+    v, port = swin_trees
+    keys = set(from_jax_variables(v))
+    assert keys == set(port.state_dict())
+    assert {"backbone.patch_embed.proj.weight", "backbone.layers.2.blocks.5.attn.qkv.weight",
+            "backbone.layers.0.blocks.1.attn.relative_position_bias_table",
+            "backbone.layers.1.downsample.reduction.weight", "backbone.norm3.weight",
+            "decoder.psp.stages.3.1.weight", "decoder.psp.stages.0.2.running_var",
+            "decoder.psp.bottleneck.1.running_mean", "decoder.lateral_convs.2.0.bias",
+            "decoder.fpn_convs.3.4.0.weight", "decoder.fpn_convs.0.0.1.num_batches_tracked",
+            "classifier_n.4.weight"} <= keys
+    sd = port.state_dict()
+    assert sd["backbone.layers.0.blocks.0.attn.qkv.weight"].shape == (288, 96)
+    assert sd["backbone.layers.0.blocks.0.attn.relative_position_bias_table"].shape == (169, 3)
+    assert sd["decoder.psp.bottleneck.0.weight"].shape == (96, 768 + 4 * 96, 1, 1)
+    assert float(sd["decoder.psp.stages.0.2.running_var"].min()) >= 0.5
+
+
+def test_swin_pth_loads_into_the_jax_package(swin_trees, tmp_path):
+    v, port = swin_trees
+    path = str(tmp_path / "swin.pth")
+    torch.save({"state_dict": {"module." + k: x for k, x in port.state_dict().items()}}, path)
+    got, info = load_torch_checkpoint(path, jax.tree_util.tree_map(np.zeros_like, v),
+                                      is_restore=True)
+    assert not info["missing"] and not info["unexpected"]
+    _assert_same_tree(v, got)
+
+
 def test_unknown_leaf_raises():
     with pytest.raises(KeyError):
         from_jax_variables({"params": {"backbone": {"layer1_0": {"conv1": {
             "kernel": np.zeros((1, 1, 2, 2), np.float32)}}}}})
     with pytest.raises(KeyError):
         from_jax_variables({"batch_stats": {"x": {"mean": np.zeros(2, np.float32)}}})
+    with pytest.raises(KeyError):
+        from_jax_variables({"batch_stats": {"backbone": {"bn1": {
+            "mean": np.zeros(2, np.float32)}}}})

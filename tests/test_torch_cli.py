@@ -1,7 +1,8 @@
-"""The port's eval_base CLI on tiny 64x64 GeoTIFF tiles: one upstream-keyed
-.pth evaluated by both packages' CLIs gives the same cmatrix_<seed>.npy
-(up to pixels whose top-2 logits lie within 1e-3), and unlabeled tiles
-export a GTiff and an NCHW .mat per tile."""
+"""The port's eval_base and eval_ft CLIs on tiny 64x64 GeoTIFF tiles: one
+upstream-keyed .pth evaluated by both packages' CLIs gives the same
+cmatrix_<seed>.npy (up to pixels whose top-2 logits lie within 1e-3), for
+convnext_pop and for swin_pop / swin-t, and unlabeled tiles export a GTiff
+and an NCHW .mat per tile (no .mat from eval_ft)."""
 
 import os
 
@@ -84,7 +85,70 @@ def test_unlabeled_tiles_export_tiff_and_mat(data_root, pth, tmp_path):
         assert read_prob_mat(os.path.join(out, "prob", f"{tid}.mat")).shape == (1, 8, 64, 64)
 
 
-@pytest.mark.parametrize("extra", [["--int8"], ["--model", "swin_pop"]])
+def _swin_pth(tmp_path_factory, is_ft):
+    import torch.nn as nn
+
+    g = torch.Generator().manual_seed(4)
+    model = build_model("swin_pop", "swin-t", n_base=7, n_novel=4 if is_ft else 0, is_ft=is_ft,
+                        generator=g)
+    with torch.no_grad():  # upstream's 0.02-scale init gives near-constant logits
+        for m in model.backbone.modules():
+            if isinstance(m, nn.Linear):
+                m.weight.normal_(0.0, m.in_features ** -0.5, generator=g)
+        for name, p in model.named_parameters():
+            if name.endswith("relative_position_bias_table"):
+                p.normal_(0.0, 1.0, generator=g)
+    path = str(tmp_path_factory.mktemp("ckpt") / f"swin_pop_{int(is_ft)}.pth")
+    torch.save({"state_dict": model.state_dict()}, path)
+    return path, model
+
+
+SWIN = ["--model", "swin_pop", "--backbone", "swin-t", "--num-workers", "0",
+        "--base-size", "64,64", "--eval-batch", "2", "--device-normalize"]
+
+
+@pytest.mark.parametrize("cli,fused", [("eval_base", "--fused"), ("eval_ft", "--no-fused"),
+                                       ("eval_ft", "--fused")])
+def test_swin_cmatrix_matches_the_jax_cli(data_root, tmp_path_factory, tmp_path, cli, fused):
+    import importlib
+
+    from segland_tpu_torch.evallib import Evaluator
+
+    is_ft = cli == "eval_ft"
+    path, model = _swin_pth(tmp_path_factory, is_ft)
+    args = ["--data-dir", str(data_root), "--val-list", str(data_root / "list" / "val.txt"),
+            "--restore-from", path, fused] + SWIN
+    out_t, out_j = str(tmp_path / "port"), str(tmp_path / "jax")
+    main = importlib.import_module(f"segland_tpu_torch.cli.{cli}").main
+    j_main = importlib.import_module(f"segland_tpu.cli.{cli}").main
+    base, novel, total, tps = main(args + ["--save-path", out_t, "--device", "cpu"])[123]
+    j_main(args + ["--save-path", out_j])
+    cm_t = np.load(os.path.join(out_t, "cmatrix_123.npy"))
+    cm_j = np.load(os.path.join(out_j, "cmatrix_123.npy"))
+    assert cm_t.sum() == 3 * 64 * 64 and 0.0 <= total <= 1.0 and tps > 0
+    assert (cm_t[:, 8:].sum() > 0) == is_ft  # novel classes predicted only by the ft head
+    imgs = np.stack([np.asarray(Image.open(data_root / "images" / f"tile_{i}.tif"))
+                     for i in range(3)])
+    ev = Evaluator(model, "cpu", normalize_on_device=True)
+    ties = int(near_tie_pixels(ev.predict_batch(imgs, (64, 64))[0].numpy()).sum())
+    assert np.abs(cm_t - cm_j).sum() <= 2 * ties
+
+
+def test_swin_eval_ft_exports_tiff_without_mat(data_root, tmp_path_factory, tmp_path):
+    from segland_tpu_torch.cli.eval_ft import main
+    from segland_tpu_torch.data.tileio import OEM_COLORMAP_FT, read_image
+
+    path, _ = _swin_pth(tmp_path_factory, True)
+    out = str(tmp_path / "pred")
+    main(["--data-dir", str(data_root), "--val-list", str(data_root / "list" / "test.txt"),
+          "--restore-from", path, "--save-path", out, "--device", "cpu"] + SWIN)
+    for tid in ("test_0", "test_1"):
+        assert read_image(os.path.join(out, f"{tid}.tif")).shape[:2] == (64, 64)
+    assert not os.path.exists(os.path.join(out, "prob"))
+    assert OEM_COLORMAP_FT[8] == (255, 0, 255)
+
+
+@pytest.mark.parametrize("extra", [["--int8"], ["--model", "pspnet_pop"]])
 def test_unported_paths_raise(data_root, pth, tmp_path, extra):
     from segland_tpu_torch.cli.eval_base import main
 

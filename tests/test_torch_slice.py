@@ -101,3 +101,57 @@ def test_loader_error_is_raised_not_swallowed(models):
 
     with pytest.raises(OSError, match="tile 7"):
         ev.run(loader())
+
+
+# ---- swin_pop / swin-s at full width and depth ------------------------------
+@pytest.fixture(scope="module")
+def swin_models():
+    kw = dict(n_base=7, n_novel=4, is_ft=True)
+    fused = dict(fused_mlp=True, fused_attn=True)
+    jm = {"unfused": j_build("swin_pop", "swin-s", **kw),
+          "fused": j_build("swin_pop", "swin-s", **kw, **fused)}
+    v = random_variables(jm["fused"], jnp.zeros((1, 64, 64, 3)), seed=5)
+    port = {"unfused": load_port(build_model("swin_pop", "swin-s", **kw), v),
+            "fused": load_port(build_model("swin_pop", "swin-s", **kw, **fused), v)}
+    return jm, v, port
+
+
+@pytest.fixture(scope="module")
+def swin_image():
+    # 60x44 -> 15x11 tokens: every stage pads its windows
+    return np.random.RandomState(6).randn(2, 60, 44, 3).astype(np.float32)
+
+
+@pytest.mark.parametrize("route", ["fused", "unfused"])
+def test_swin_forward_base_parity(swin_models, swin_image, route):
+    jm, v, port = swin_models
+    want = np.asarray(jm[route].apply(v, jnp.asarray(swin_image), method=JGFSS.forward_base))
+    got = _port_logits(port[route], swin_image, "forward_base")
+    assert got.shape == want.shape == (2, 15, 11, 8)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("route", ["fused", "unfused"])
+def test_swin_forward_all_parity_ft(swin_models, swin_image, route):
+    jm, v, port = swin_models
+    want = np.asarray(jm[route].apply(v, jnp.asarray(swin_image)))
+    got = _port_logits(port[route], swin_image, "forward_all")
+    assert got.shape == want.shape == (2, 15, 11, 12)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+def test_swin_evaluator_square_pad_matches_jax(swin_models):
+    """The eval_ft protocol: logits upsampled to (longside, longside) against
+    ignore-padded labels, on non-square tiles."""
+    jm, v, port = swin_models
+    rng = np.random.RandomState(7)
+    imgs = rng.randint(0, 256, (2, 48, 64, 3)).astype(np.uint8)
+    labels = rng.randint(0, 12, (2, 48, 64)).astype(np.uint8)
+    batches = [(imgs, labels, ["a", "b"])]
+    jcm, _, _ = JEvaluator(jm["fused"], v, num_classes=12, n_base=7,
+                           normalize_on_device=True).run(batches, square_pad_eval=True)
+    ev = Evaluator(port["fused"], "cpu", num_classes=12, n_base=7, normalize_on_device=True)
+    cm, _, _ = ev.run(batches, square_pad_eval=True)
+    assert cm.sum() == 2 * 48 * 64
+    ties = int(near_tie_pixels(ev.predict_batch(imgs, (64, 64))[0].numpy()).sum())
+    assert np.abs(cm - np.asarray(jcm)).sum() <= 2 * ties

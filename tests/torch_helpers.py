@@ -20,8 +20,10 @@ def random_variables(module, *args, seed: int = 0, **kwargs):
     """A variable tree of numpy arrays with ``module``'s structure (shapes
     from jax.eval_shape, so nothing compiles) and weights drawn from numpy:
     fan-in scaled kernels, small biases, near-unit norm scales, layer-scales
-    in [0.1, 0.5] so every ConvNeXt block moves the output, and normal
-    prototypes and classifier mats."""
+    in [0.1, 0.5] so every ConvNeXt block moves the output, unit-normal
+    rel-pos tables so no window softmax is uniform, BatchNorm running means
+    near 0 and variances in [0.5, 1.5], and normal prototypes and classifier
+    mats."""
     import jax
 
     shapes = jax.eval_shape(lambda *a: module.init(jax.random.PRNGKey(0), *a, **kwargs),
@@ -40,6 +42,10 @@ def random_variables(module, *args, seed: int = 0, **kwargs):
             v = 0.1 * rng.randn(*shape)
         elif name == "gamma":
             v = rng.uniform(0.1, 0.5, shape)
+        elif name == "mean":
+            v = 0.1 * rng.randn(*shape)
+        elif name == "var":
+            v = rng.uniform(0.5, 1.5, shape)
         elif name in ("w1", "w2", "w3"):
             v = rng.randn(*shape) / np.sqrt(shape[0])
         else:
