@@ -16,6 +16,13 @@ Phases, each printing its result on its own line; any failure exits non-zero:
   6. K6 window_attention vs its plain version at the stage-2 shape, with a
      shared bias and with a per-window bias + shift mask, beside the time of
      F.scaled_dot_product_attention on the same inputs (timed only);
+  6a. K4 swin_block vs its plain version at the same shapes and shifts as K3,
+     and fp32 at one shape, beside the two-launch route (K3 then K1) on the
+     same input;
+  6b. K5 attn_section_v1 vs its plain version for group in 1, 2, 4, 8 at the
+     same shapes and shifts, with broadcast and per-window mask rows, with and
+     without regions, a window count that no group divides, fp32 at one
+     shape, and group = 1 against K3 on the same input;
   7. the convnext slice: convnext_pop / convnext-t in bf16 with the fused
      kernels, random weights from a seeded torch.Generator, through
      Evaluator.run on 2 batches of 8 synthetic 1024^2 tiles; the launch
@@ -25,17 +32,23 @@ Phases, each printing its result on its own line; any failure exits non-zero:
   8. the swin slice: swin_pop / swin-s at full width and depth the same way,
      once as eval_base runs it (K = 8) and once as eval_ft does (4 novel
      classes, K = 12, square_pad_eval), plus the unfused model's tiles/s and
-     one batch through the use_pallas route (K6 in every block).
+     one batch through the use_pallas route (K6 in every block); then the
+     three other fused routes the same way: SEGLAND_SWIN_V3_STAGES=all (K4 in
+     every block; also as eval_ft), attn_group = 2 (K5 and K1 in every block)
+     and SEGLAND_SWIN_WR=1 (window-resident stages, K3 and K1).
 Every launch count is set to 0 just before a path is driven and read just
 after.  The second-to-last line is a JSON object of per-kernel numbers (time,
 plain version's time, bound, library call's time) and the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the rest of
 the repo beside it, it fails before printing any result.
 
-    python3 chip_smoke.py --phases k3,k6    # a subset, while working on a kernel
+    python3 chip_smoke.py --phases k4,k5    # a subset, while working on a kernel
 """
 
+import contextlib
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -239,6 +252,175 @@ def phase_k3(dev):
                 library_ms=None)
 
 
+def masks_on(dev, geom):
+    """(mask_tok, regions or None) of a padded geometry, as the backbone ships them."""
+    import torch
+    from segland_tpu_torch.models.backbones.swin import _pad_token_mask, _shift_regions
+
+    _, _, hp, wp, ws, shift = geom
+    mask = torch.from_numpy(_pad_token_mask(*geom)).to(dev)
+    regions = torch.from_numpy(_shift_regions(hp, wp, ws, shift)).to(dev) if shift else None
+    return mask, regions
+
+
+def compare(tag, got, want, atol, rtol, addend=None, stragglers=0.0):
+    """Max abs error of got against want; fails outside |d| <= atol + rtol *
+    |ref|.  With ``addend``, a tensor that was added to make ``want``, |ref| is
+    the larger of |want| and |addend|: one rounding step of a large addend
+    survives a sum that cancels to a small value.  ``stragglers`` is the share
+    of elements that may lie outside that bound, though within twice it."""
+    import torch
+
+    got, want = got.float(), want.float()
+    torch.cuda.synchronize()
+    if not bool(got.isfinite().all()):
+        fail(f"{tag}: non-finite output")
+    err = (got - want).abs()
+    ref = want.abs() if addend is None else torch.maximum(want.abs(), addend.float().abs())
+    tol = atol + rtol * ref
+    bad, far = int((err > tol).sum()), int((err > 2 * tol).sum())
+    worst = float(err.max())
+    if far or bad > stragglers * err.numel():
+        fail(f"{tag}: {bad} elements out of tolerance |d|<={atol}+{rtol}*|ref|, {far} beyond "
+             f"twice it (max_abs_err={worst:.6g})")
+    return worst, bad
+
+
+def check_k4(dev, b, c, nh, side, pside, shift, dtype, atol, rtol, seed):
+    import torch
+    from segland_tpu_torch.ops.fused_attn import (attn_section, attn_section_reference,
+                                                  block_reference, swin_block)
+    from segland_tpu_torch.ops.fused_mlp import ln_mlp
+
+    nw = b * (pside // 7) ** 2
+    geom = (side, side, pside, pside, 7, shift)
+    a = section_inputs(nw, c, nh, dtype, dev, seed)
+    m = mlp_inputs(1, c, dtype, dev, seed + 100, with_res=False, with_ls=False)
+    mask, regions = masks_on(dev, geom)
+    sec = (a["gamma"], a["beta"], a["wqkv"], a["bqkv"], a["wproj"], a["bproj"], a["bias"])
+    mlp = (m["gamma"], m["beta"], m["w1"], m["b1"], m["w2"], m["b2"])
+    run = lambda: swin_block(a["x"], geom, *sec, *mlp, nh)
+    two = lambda: ln_mlp(attn_section(a["x"], geom, *sec, nh).view(-1, c), *mlp)
+    plain = lambda: block_reference(a["x"], mask, *sec, *mlp, nh, regions=regions)
+    tag = f"K4 {str(dtype)[6:]} NW={nw} C={c} heads={nh} geom={geom}"
+    # out = a + mlp(a): |ref| is the larger of |out| and the section's |a|.  The block
+    # chains the roundings of two kernels (a's 1-ulp differences pass through LN2 and
+    # three more rounded products), so in bf16 about one element in 10^7 lands past the
+    # bound; the two-launch route K3 then K1, held to the same bound, shows the same tail
+    a_ref = attn_section_reference(a["x"], mask, *sec, nh, regions=regions)
+    want = plain()
+    lax = 1e-6 if dtype == torch.bfloat16 else 0.0
+    worst, bad = compare(tag, run(), want, atol, rtol, addend=a_ref, stragglers=lax)
+    _, bad2 = compare(tag + " K3 then K1", two().view_as(want), want, atol, rtol, addend=a_ref,
+                      stragglers=lax)
+    del a_ref, want
+    ms, two_ms = cuda_ms(run, iters=5, warmup=1), cuda_ms(two, iters=5, warmup=1)
+    plain_ms = cuda_ms(plain, iters=3, warmup=1)
+    print(f"{tag}: max_abs_err={worst:.6g} tol=|d|<={atol}+{rtol}*max(|ref|,|a|) "
+          f"out_of_tol={bad} (K3 then K1: {bad2}) kernel_ms={ms:.4f} "
+          f"k3_then_k1_ms={two_ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
+    return worst, ms, two_ms, plain_ms
+
+
+def phase_k4(dev):
+    import torch
+
+    worst, ms, two_ms, plain_ms, bounds = 0.0, 0.0, 0.0, 0.0, []
+    for i, (blocks, c, nh, side, pside) in enumerate(SWIN_STAGES):
+        nw = BATCH * (pside // 7) ** 2
+        for shift in (0, 3):  # the blocks of a stage alternate
+            e, t, t2, tp = check_k4(dev, BATCH, c, nh, side, pside, shift, torch.bfloat16,
+                                    2e-2, 1e-2, 40 + i)
+            worst = max(worst, e)
+            ms += blocks / 2 * t
+            two_ms += blocks / 2 * t2
+            plain_ms += blocks / 2 * tp
+        # x read and out written once, the section's and the MLP's weights and the bias once
+        bounds += [bound(2 * nw * 49 * c * (4 * c + 2 * 49) + 16 * nw * 49 * c * c,
+                         2 * nw * 49 * c * 2 + 24 * c * c + nh * 49 * 49 * 4)] * blocks
+    check_k4(dev, 2, 192, 6, 128, 133, 3, torch.float32, 1e-4, 1e-4, 49)
+    b_ms, b_by = sum_bounds(bounds)
+    print(f"K4 per forward of {BATCH} tiles (24 blocks): kernel_ms={ms:.4f} "
+          f"k3_then_k1_ms={two_ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})",
+          flush=True)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, k3_then_k1_ms=two_ms)
+
+
+K5_GROUPS = (1, 2, 4, 8)
+K5_MAIN_GROUP = 2  # the group of the main path's attn_group route
+
+
+def check_k5(dev, b, c, nh, side, pside, shift, dtype, atol, rtol, seed, groups=K5_GROUPS,
+             timed=False, against_k3=False):
+    """K5 for every group on one input; returns (worst error, {group: ms}, plain ms)."""
+    from segland_tpu_torch.ops.fused_attn import (attn_section, attn_section_reference,
+                                                  attn_section_v1)
+
+    nw = b * (pside // 7) ** 2
+    geom = (side, side, pside, pside, 7, shift)
+    a = section_inputs(nw, c, nh, dtype, dev, seed)
+    mask, regions = masks_on(dev, geom)
+    w = (a["gamma"], a["beta"], a["wqkv"], a["bqkv"], a["wproj"], a["bproj"], a["bias"], nh)
+    plain = lambda: attn_section_reference(a["x"], mask, *w, regions=regions)
+    want = plain()
+    tag = (f"K5 {str(dtype)[6:]} NW={nw} C={c} heads={nh} mask_rows={mask.shape[0]} "
+           f"region_rows={0 if regions is None else regions.shape[0]} shift={shift}")
+    worst, times = 0.0, {}
+    for g in groups:
+        run = lambda: attn_section_v1(a["x"], mask, *w, regions=regions, group=g)
+        worst = max(worst, compare(f"{tag} group={g}", run(), want, atol, rtol)[0])
+        if timed:
+            times[g] = cuda_ms(run, iters=5, warmup=1)
+    k3 = ""
+    if against_k3:
+        got = attn_section_v1(a["x"], mask, *w, regions=regions, group=1)
+        e3, _ = compare(f"{tag} group=1 vs K3", got, attn_section(a["x"], geom, *w), atol, rtol)
+        k3 = f" group1_vs_k3_max_abs_err={e3:.6g}"
+    plain_ms = cuda_ms(plain, iters=3, warmup=1) if timed else 0.0
+    ms = " ".join(f"g{g}_ms={t:.4f}" for g, t in times.items())
+    print(f"{tag} groups={groups}: max_abs_err={worst:.6g} tol=|d|<={atol}+{rtol}*|ref|{k3} "
+          f"{ms}{f' plain_ms={plain_ms:.4f}' if timed else ''}", flush=True)
+    return worst, times, plain_ms
+
+
+def phase_k5(dev):
+    import torch
+
+    bf = torch.bfloat16
+    worst, plain_ms, bounds = 0.0, 0.0, []
+    per_group = {g: 0.0 for g in K5_GROUPS}
+    for i, (blocks, c, nh, side, pside) in enumerate(SWIN_STAGES):
+        nw = BATCH * (pside // 7) ** 2
+        for shift in (0, 3):  # per-window mask rows; regions with the shift
+            e, times, tp = check_k5(dev, BATCH, c, nh, side, pside, shift, bf, 2e-2, 1e-2,
+                                    60 + i, timed=True, against_k3=True)
+            worst = max(worst, e)
+            plain_ms += blocks / 2 * tp
+            for g, t in times.items():
+                per_group[g] += blocks / 2 * t
+        g = K5_MAIN_GROUP
+        rows = (pside // 7) ** 2 * 49 * 4
+        bounds += [bound(2 * nw * 49 * c * (4 * c + 2 * g * 49),
+                         2 * nw * 49 * c * 2 + 8 * c * c + nh * 49 * 49 * 4 + 2 * rows)] * blocks
+    # a broadcast mask row (no padding), without and with regions
+    for shift in (0, 3):
+        worst = max(worst, check_k5(dev, 2, 192, 6, 126, 126, shift, bf, 2e-2, 1e-2, 70)[0])
+    # 361 windows: no group but 1 divides them
+    worst = max(worst, check_k5(dev, 1, 192, 6, 128, 133, 3, bf, 2e-2, 1e-2, 71)[0])
+    worst = max(worst, check_k5(dev, 1, 768, 24, 32, 35, 3, bf, 2e-2, 1e-2, 72)[0])
+    check_k5(dev, 1, 192, 6, 128, 133, 3, torch.float32, 1e-4, 1e-4, 73)
+    b_ms, b_by = sum_bounds(bounds)
+    groups = " ".join(f"group{g}_ms={t:.4f}" for g, t in per_group.items())
+    print(f"K5 per forward of {BATCH} tiles (24 blocks): {groups} plain_ms={plain_ms:.4f} "
+          f"bound_ms(group={K5_MAIN_GROUP})={b_ms:.4f} ({b_by})", flush=True)
+    if len({round(t, 3) for t in per_group.values()}) != len(per_group):
+        fail(f"K5: two groups ran in the same time, {per_group}: is group a no-op?")
+    return dict(max_abs_err=worst, ms=per_group[K5_MAIN_GROUP], plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None,
+                ms_by_group={str(g): t for g, t in per_group.items()})
+
+
 def phase_k6(dev):
     """Stage-2 shape: 800 windows, C=384, 12 heads; per block of the stage."""
     import torch
@@ -296,7 +478,23 @@ def synthetic_batches():
     return out
 
 
-def build(name, dtype, seed=0, fused=True, is_ft=False):
+@contextlib.contextmanager
+def environ(**env):
+    """The JAX package's route switches (SEGLAND_SWIN_V3_STAGES, read when the
+    model is built; SEGLAND_SWIN_WR, read at every forward), set for a while."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def build(name, dtype, seed=0, fused=True, is_ft=False, attn_group=1):
     """convnext_pop/convnext-t or swin_pop/swin-s with seeded random weights,
     drawn so that every block's kernel reaches the output."""
     import torch
@@ -308,6 +506,9 @@ def build(name, dtype, seed=0, fused=True, is_ft=False):
     g = torch.Generator().manual_seed(seed)
     model = build_model(name, None, n_base=7, n_novel=4 if is_ft else 0, is_ft=is_ft,
                         fused_mlp=fused, fused_attn=fused, dtype=dtype, generator=g)
+    for blk in model.modules():
+        if isinstance(blk, SwinBlock):
+            blk.attn_group = attn_group  # SwinTransformer(attn_group=): no CLI switch has it
     with torch.no_grad():
         for blk in model.modules():
             if isinstance(blk, ConvNeXtBlock):
@@ -327,15 +528,18 @@ def build(name, dtype, seed=0, fused=True, is_ft=False):
     return model
 
 
-COUNTED = ("ln_mlp", "upsample_argmax", "attn_section", "window_attention")
+COUNTED = ("ln_mlp", "upsample_argmax", "attn_section", "window_attention", "swin_block",
+           "attn_section_v1")
 
 
 def counters():
-    from segland_tpu_torch.ops.fused_attn import attn_section, window_attention
+    from segland_tpu_torch.ops.fused_attn import (attn_section, attn_section_v1, swin_block,
+                                                  window_attention)
     from segland_tpu_torch.ops.fused_epilogue import upsample_argmax
     from segland_tpu_torch.ops.fused_mlp import ln_mlp
 
-    return dict(zip(COUNTED, (ln_mlp, upsample_argmax, attn_section, window_attention)))
+    return dict(zip(COUNTED, (ln_mlp, upsample_argmax, attn_section, window_attention,
+                              swin_block, attn_section_v1)))
 
 
 def counted_run(ev, batches, **kw):
@@ -348,16 +552,18 @@ def counted_run(ev, batches, **kw):
     return result, {k: f.launches for k, f in fns.items() if f.launches}
 
 
-def phase_slice(dev, name, want_per_batch, is_ft=False, fp32_check=True):
+def phase_slice(dev, name, want_per_batch, is_ft=False, fp32_check=True, route="",
+                attn_group=1):
     """One model through Evaluator.run: the kernel path (launch counts, mIoU,
     tiles/s), the same batches with the kernels' plain versions, and an fp32
-    forward on the card against the CPU."""
+    forward on the card against the CPU.  The caller sets the environment
+    switches of ``route``; ``attn_group`` goes to every swin block."""
     import torch
     from segland_tpu_torch.evallib import Evaluator
 
-    tag = f"{name}{' ft' if is_ft else ''}"
+    tag = f"{name}{' ft' if is_ft else ''}{' ' + route if route else ''}"
     k = 12 if is_ft else 8
-    model = build(name, torch.bfloat16, is_ft=is_ft).to(dev)
+    model = build(name, torch.bfloat16, is_ft=is_ft, attn_group=attn_group).to(dev)
     batches = synthetic_batches()
     kw = dict(num_classes=12, n_base=7, normalize_on_device=True)
     run_kw = dict(square_pad_eval=is_ft)
@@ -404,7 +610,7 @@ def phase_slice(dev, name, want_per_batch, is_ft=False, fp32_check=True):
 
     if fp32_check:
         # fp32 on the card (the fp32 kernel builds) vs the CPU's plain versions, small input
-        m32 = build(name, torch.float32, seed=1, is_ft=is_ft)
+        m32 = build(name, torch.float32, seed=1, is_ft=is_ft, attn_group=attn_group)
         x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(2))
         with torch.inference_mode():
             want32 = m32(x)
@@ -458,8 +664,10 @@ def phase_swin_routes(dev):
     return launches, tps_u
 
 
-GROUPS = (("K3 attn_section", ("attn_section",)), ("K1 ln_mlp", ("ln_mlp",)),
-          ("K6 window_attention", ("window_attention",)), ("K2 upsample_argmax", ("upsample_argmax",)),
+GROUPS = (("K4 swin_block", ("swin_block",)), ("K5 attn_section_v1", ("attn_section_v1",)),
+          ("K3 attn_section", ("attn_section",)), ("K1 ln_mlp", ("ln_mlp",)),
+          ("K6 window_attention", ("window_attention",)),
+          ("K2 upsample_argmax", ("upsample_argmax",)),
           ("conv, cuDNN", ("conv", "cudnn", "implicit", "wgrad", "dgrad")),
           ("gemm, cuBLAS", ("gemm", "cutlass", "cublas", "xmma", "nvjet")),
           ("layer_norm / batch_norm", ("layer_norm", "batch_norm", "LayerNorm", "bn_fw")),
@@ -518,8 +726,8 @@ def main(argv=None):
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="k1,k2,k3,k6,convnext,swin",
-                    help="comma list of k1,k2,k3,k6,convnext,swin (default: all six), "
+    ap.add_argument("--phases", default="k1,k2,k3,k6,k4,k5,convnext,swin",
+                    help="comma list of k1,k2,k3,k6,k4,k5,convnext,swin (default: all eight), "
                          "or profile: a torch.profiler breakdown of the swin slice")
     phases = set(ap.parse_args(argv).phases.split(","))
     if not torch.cuda.is_available():
@@ -540,7 +748,17 @@ def main(argv=None):
 
     info = kernels.build()
     kernels.library()
-    ptxas = [l.strip() for l in info["log"].splitlines() if "registers" in l or "spill" in l]
+    ptxas = []
+    for line in info["log"].splitlines():
+        if "Compiling entry function" in line:  # the kernel's name and its template integers
+            end = line.find("_kernel") + len("_kernel")
+            # a mangled name carries its length in front
+            kname = next((line[end - n:end] for n in range(8, 60)
+                          if line[end - n - 2:end - n] == str(n)), line)
+            ints = re.findall(r"Li(\d+)E", line[end:].split("EEv")[0]) if "_kernelI" in line else []
+            ptxas.append(f"{kname}<{','.join(ints)}>")
+        elif "registers" in line or "spill" in line:
+            ptxas.append("  " + line.strip().replace("ptxas info    : ", ""))
     print(f"build: {info['seconds']:.1f}s built={info['built']} {info['path']}", flush=True)
     for line in ptxas:
         print(f"  ptxas: {line}")
@@ -554,11 +772,16 @@ def main(argv=None):
                              replaces="segland_tpu/ops/pallas_attn.py:524"),
         "window_attention": dict(source=csrc + "attn_section.cu",
                                  replaces="segland_tpu/ops/pallas_attn.py:65"),
+        "swin_block": dict(source=csrc + "swin_block.cu",
+                           replaces="segland_tpu/ops/pallas_attn.py:773"),
+        "attn_section_v1": dict(source=csrc + "attn_section_v1.cu",
+                                replaces="segland_tpu/ops/pallas_attn.py:200"),
     }
-    for key, phase in (("ln_mlp", phase_k1), ("upsample_argmax", phase_k2),
-                       ("attn_section", phase_k3), ("window_attention", phase_k6)):
-        if {"ln_mlp": "k1", "upsample_argmax": "k2", "attn_section": "k3",
-                "window_attention": "k6"}[key] in phases:
+    for key, tag, phase in (("ln_mlp", "k1", phase_k1), ("upsample_argmax", "k2", phase_k2),
+                            ("attn_section", "k3", phase_k3),
+                            ("window_attention", "k6", phase_k6),
+                            ("swin_block", "k4", phase_k4), ("attn_section_v1", "k5", phase_k5)):
+        if tag in phases:
             kern[key].update(phase(dev))
             torch.cuda.empty_cache()
 
@@ -579,8 +802,27 @@ def main(argv=None):
                                                       fp32_check=False)
         torch.cuda.empty_cache()
         paths["swin_pop use_pallas"], tps_u = phase_swin_routes(dev)
-        print(f"swin_pop eval default: fused {tps_f:.2f} tiles/s, plain versions {tps_p:.2f}, "
-              f"unfused {tps_u:.2f}", flush=True)
+        torch.cuda.empty_cache()
+        # the other fused routes: the whole-block kernel, super-window groups, window-resident
+        block = {"swin_block": 24, "upsample_argmax": 1}
+        with environ(SEGLAND_SWIN_V3_STAGES="all"):
+            paths["swin_pop whole-block"], tps_b, _ = phase_slice(
+                dev, "swin_pop", block, route="SEGLAND_SWIN_V3_STAGES=all")
+            torch.cuda.empty_cache()
+            paths["swin_pop whole-block eval_ft"], _, _ = phase_slice(
+                dev, "swin_pop", block, is_ft=True, fp32_check=False,
+                route="SEGLAND_SWIN_V3_STAGES=all")
+        torch.cuda.empty_cache()
+        paths["swin_pop attn_group"], tps_g, _ = phase_slice(
+            dev, "swin_pop", {"attn_section_v1": 24, "ln_mlp": 24, "upsample_argmax": 1},
+            route=f"attn_group={K5_MAIN_GROUP}", attn_group=K5_MAIN_GROUP)
+        torch.cuda.empty_cache()
+        with environ(SEGLAND_SWIN_WR="1"):
+            paths["swin_pop window-resident"], tps_w, _ = phase_slice(
+                dev, "swin_pop", per_batch, fp32_check=False, route="SEGLAND_SWIN_WR=1")
+        print(f"swin_pop eval default: fused {tps_f:.2f} tiles/s, whole-block {tps_b:.2f}, "
+              f"attn_group={K5_MAIN_GROUP} {tps_g:.2f}, window-resident {tps_w:.2f}, "
+              f"plain versions {tps_p:.2f}, unfused {tps_u:.2f}", flush=True)
 
     if "profile" in phases:
         phase_profile(dev)

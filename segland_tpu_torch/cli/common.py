@@ -57,11 +57,14 @@ def add_common_args(p: argparse.ArgumentParser):
 # HBM3, 700.00 W; bf16, 2 batches of 8 1024^2 tiles after a warm-up run), which
 # runs each model three ways: fused kernels, the kernels' plain versions, and
 # unfused (stock torch blocks: cuBLAS products, torch's LayerNorm and softmax).
-#   convnext_pop / convnext-t: 191.49 tiles/s fused, 155.71 plain versions, 262.71 unfused
-#   swin_pop / swin-s:          91.71 tiles/s fused,  75.53 plain versions, 107.38 unfused
+#   convnext_pop / convnext-t: 184.12 tiles/s fused, 153.64 plain versions, 265.68 unfused
+#   swin_pop / swin-s:          91.35 tiles/s fused,  75.32 plain versions, 129.76 unfused;
+#     under --fused, SEGLAND_SWIN_V3_STAGES=all 78.46, SEGLAND_SWIN_WR=1 88.27, and
+#     SwinTransformer(attn_group=2) 83.16
 # The fused kernels beat their plain versions and lose to the unfused model
 # (K1 reaches 58-82 TFLOP/s and K3 29-41, cuBLAS about 250 on the same products), so
-# both defaults are off until the kernels catch up; --fused turns them on.
+# both defaults are off until the kernels catch up; --fused turns them on, and none of
+# the three swin switches beats plain --fused.
 EVAL_FUSED_DEFAULTS = {"convnext_pop": False, "swin_pop": False}
 
 

@@ -1,8 +1,9 @@
 """Builds and loads the port's CUDA kernels.
 
 Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one ``nvcc``
-a source, all started together) and linked into one shared library with a
-plain C interface, loaded with ``ctypes``.  The build happens at the first
+a source, all started together; ``csrc/*.cuh`` are their shared headers) and
+linked into one shared library with a plain C interface, loaded with
+``ctypes``.  The build happens at the first
 CUDA call, never at import, so the package imports on a machine without
 ``nvcc``.  The library is cached under ``build/`` by a hash
 of the sources and flags; a changed source builds a new library.
@@ -39,6 +40,14 @@ _ENTRIES = {
                             + [ctypes.c_float, _I, _P],
     # dtype, qkv, bias, out, NW, C, nh, nw_img, device, stream
     "segland_window_attention": [_I] + [_P] * 3 + [ctypes.c_longlong] + [_I] * 4 + [_P],
+    # dtype, x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2, beta2, w1, b1, w2, b2,
+    # out, NW, C, nh, H, h, w, hp, wp, ws, shift, eps, device, stream
+    "segland_swin_block": [_I] + [_P] * 15 + [ctypes.c_longlong] + [_I] * 9
+                          + [ctypes.c_float, _I, _P],
+    # dtype, x, mask_tok, rows_m, regions, rows_r, gamma, beta, wqkv, bqkv, wproj, bproj,
+    # bias, scratch, out, NW, C, nh, group, eps, device, stream
+    "segland_attn_section_v1": [_I, _P, _P, _I, _P, _I] + [_P] * 9 + [ctypes.c_longlong]
+                               + [_I] * 3 + [ctypes.c_float, _I, _P],
 }
 
 
@@ -59,7 +68,7 @@ def sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # the headers too
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD / f"libsegland_kernels_{h.hexdigest()[:16]}.so"

@@ -12,12 +12,19 @@ compute dtype at use.  The shifted-window mask, the pad-token mask and the
 region ids are static numpy tables of the map size, cached per device.
 DropPath is the identity at eval and comes with training.
 
-Three routes through a block's attention, as in the JAX package:
+The routes through a block, as in the JAX package:
   * unfused: LN, pad, roll, partition, WindowAttention (stock torch);
   * ``use_pallas``: the same, with WindowAttention's core through
     ``ops.fused_attn.window_attention_fused`` (bias and mask in bf16);
   * ``fused_attn``: raw windows through ``swin_attn_section_fused`` with
-    ``geom`` set (LN, qkv, attention, proj and residual in one kernel).
+    ``geom`` set (LN, qkv, attention, proj and residual in one kernel), in
+    the stages of ``fused_attn_stages``;
+  * ``attn_group != 1``: the same through the v1 kernel (``geom=None``: masks
+    shipped in, ``attn_group`` windows a super-window);
+  * ``fused_block_stages``: with ``fused_attn`` and ``fused_mlp``, the whole
+    block of those stages through ``swin_block_fused``, one kernel;
+  * ``SEGLAND_SWIN_WR=1`` with ``fused_attn`` and ``fused_mlp``: window-
+    resident stages (partition once a stage, the MLP in window layout).
 ``fused_mlp`` routes LN2 + MLP + residual through ``fused_ln_mlp``.
 """
 
@@ -30,7 +37,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...ops.fused_attn import swin_attn_section_fused, window_attention_fused
+from ...ops.fused_attn import (swin_attn_section_fused, swin_block_fused,
+                                window_attention_fused)
 from ...ops.fused_mlp import fused_ln_mlp
 from .convnext import conv2d, layer_norm_nhwc
 
@@ -172,19 +180,22 @@ class Mlp(nn.Module):
 
 
 class SwinBlock(nn.Module):
+    """``attn_group``: windows fused into one super-window by the v1
+    attention-section kernel (1 = the index-math kernel).  ``fused_block``:
+    attention section and MLP in one kernel; engages only with ``fused_attn``,
+    ``fused_mlp`` and ``attn_group == 1``."""
+
     def __init__(self, dim: int, num_heads: int, window_size: int = 7, shift_size: int = 0,
                  mlp_ratio: float = 4.0, use_pallas: bool = False, fused_mlp: bool = False,
-                 fused_attn: bool = False, attn_group: int = 1):
+                 fused_attn: bool = False, attn_group: int = 1, fused_block: bool = False):
         super().__init__()
-        if attn_group != 1:
-            raise NotImplementedError(
-                "attn_group != 1 (the v1 attention-section kernel) is not ported yet "
-                "(ROADMAP item B5)")
         self.num_heads = num_heads
         self.window_size = window_size
         self.shift_size = shift_size
         self.fused_mlp = fused_mlp
         self.fused_attn = fused_attn
+        self.attn_group = attn_group
+        self.fused_block = fused_block
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention(dim, num_heads, window_size, use_pallas)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
@@ -204,38 +215,82 @@ class SwinBlock(nn.Module):
             x = torch.roll(x, (self.shift_size, self.shift_size), dims=(1, 2))
         return x[:, :h, :w, :] if (hp != h or wp != w) else x
 
-    def forward(self, x):
-        """x: [B,H,W,C] -> [B,H,W,C]."""
+    def _section_args(self, x, h, w, hp, wp):
+        """(mask_tok, the section's parameters, bias, heads) and the keywords
+        of the fused section ops for a map of (h, w) padded to (hp, wp)."""
+        a, ws, shift, dev = self.attn, self.window_size, self.shift_size, x.device
+        bias_dt = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+        bias = a.rel_pos_bias()[None].to(bias_dt)  # rel-pos only [1,nh,N,N]
+        regions = _table("shift_regions", dev, hp, wp, ws, shift) if shift > 0 else None
+        mask_tok = _table("pad_token_mask", dev, h, w, hp, wp, ws, shift)
+        args = (mask_tok, self.norm1.weight, self.norm1.bias, a.qkv.weight.T, a.qkv.bias,
+                a.proj.weight.T, a.proj.bias, bias)
+        return args, dict(eps=1e-5, regions=regions), (h, w, hp, wp, ws, shift)
+
+    def _mlp_args(self):
+        m = self.mlp
+        return (self.norm2.weight, self.norm2.bias, m.fc1.weight.T, m.fc1.bias, m.fc2.weight.T,
+                m.fc2.bias)
+
+    def _attn_section(self, wins, args, kw, geom):
+        """The fused section by the kernel that ``attn_group`` picks."""
+        return swin_attn_section_fused(wins, *args, self.num_heads, group=self.attn_group,
+                                       geom=geom if self.attn_group == 1 else None, **kw)
+
+    def forward(self, x, win_shape=None):
+        """x: [B,H,W,C] -> [B,H,W,C].  With ``win_shape = (b, h, w, hp, wp)``
+        x is already window-partitioned, [B*nW, ws*ws, C] on the padded
+        unshifted domain, and comes back in that layout (window-resident
+        serving, see :meth:`_win_resident`)."""
+        if win_shape is not None:
+            return self._win_resident(x, win_shape)
         b, h, w, c = x.shape
-        ws, shift = self.window_size, self.shift_size
+        ws = self.window_size
         pad_b, pad_r = (-h) % ws, (-w) % ws
         hp, wp = h + pad_b, w + pad_r
-        dev = x.device
         if self.fused_attn:
-            a = self.attn
-            bias_dt = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
-            bias = a.rel_pos_bias()[None].to(bias_dt)  # rel-pos only [1,nh,N,N]
-            regions = _table("shift_regions", dev, hp, wp, ws, shift) if shift > 0 else None
-            mask_tok = _table("pad_token_mask", dev, h, w, hp, wp, ws, shift)
-            wins = swin_attn_section_fused(
-                self._windows(x, pad_b, pad_r).contiguous(), mask_tok,
-                self.norm1.weight, self.norm1.bias, a.qkv.weight.T, a.qkv.bias,
-                a.proj.weight.T, a.proj.bias, bias, self.num_heads, eps=1e-5,
-                regions=regions, geom=(h, w, hp, wp, ws, shift))
+            args, kw, geom = self._section_args(x, h, w, hp, wp)
+            wins = self._windows(x, pad_b, pad_r).contiguous()
+            use_block = self.fused_block and self.fused_mlp and self.attn_group == 1
+            if use_block:
+                wins = swin_block_fused(wins, *args, *self._mlp_args(), self.num_heads,
+                                        geom=geom, **kw)
+            else:
+                wins = self._attn_section(wins, args, kw, geom)
             # the residual was added inside, on the padded and rolled domain,
             # where it commutes with reverse, unroll and unpad
             x = self._unwindows(wins, b, h, w, hp, wp)
+            if use_block:
+                return x  # attention and MLP both done
         else:
             y = layer_norm_nhwc(self.norm1, x)
-            mask = _table("shift_attn_mask", dev, hp, wp, ws, shift) if shift > 0 else None
+            mask = (_table("shift_attn_mask", x.device, hp, wp, ws, self.shift_size)
+                    if self.shift_size > 0 else None)
             wins = self.attn(self._windows(y, pad_b, pad_r), mask)
             x = x + self._unwindows(wins, b, h, w, hp, wp)
         if self.fused_mlp:
-            m = self.mlp
-            return fused_ln_mlp(x.contiguous(), self.norm2.weight, self.norm2.bias,
-                                m.fc1.weight.T, m.fc1.bias, m.fc2.weight.T, m.fc2.bias,
-                                eps=1e-5)
+            return fused_ln_mlp(x.contiguous(), *self._mlp_args(), eps=1e-5)
         return x + self.mlp(layer_norm_nhwc(self.norm2, x))
+
+    def _win_resident(self, wins, win_shape):
+        """Eval-only window-resident body; needs ``fused_attn`` and
+        ``fused_mlp``.  Every op of a block is token-local except attention,
+        so an unshifted block runs with no layout change and a shifted one
+        with two windows-to-windows permutations (reverse, roll, partition).
+        Pad tokens ride through the MLP, masked in attention by ``mask_tok``,
+        and are dropped at stage exit."""
+        b, h, w, hp, wp = win_shape
+        ws, s = self.window_size, self.shift_size
+        args, kw, geom = self._section_args(wins, h, w, hp, wp)
+        if s > 0:  # canonical (unshifted) windows -> shifted windows
+            x = torch.roll(_window_reverse(wins, ws, b, hp, wp), (-s, -s), dims=(1, 2))
+            wins = _window_partition(x, ws)
+        wins = self._attn_section(wins.contiguous(), args, kw, geom)
+        out = fused_ln_mlp(wins, *self._mlp_args(), eps=1e-5)
+        if s > 0:  # back to canonical windows for the next block
+            x = torch.roll(_window_reverse(out, ws, b, hp, wp), (s, s), dims=(1, 2))
+            out = _window_partition(x, ws)
+        return out
 
 
 class PatchMerging(nn.Module):
@@ -280,26 +335,32 @@ class BasicLayer(nn.Module):
 
 
 class SwinTransformer(nn.Module):
+    """``fused_attn_stages``: stages where ``fused_attn`` engages (None = all).
+    ``fused_block_stages``: stages where the whole-block kernel engages (None
+    = none); needs ``fused_attn`` and ``fused_mlp`` at that stage.  Parameters
+    and state-dict keys are the same on every route."""
+
     def __init__(self, depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), embed_dim: int = 96,
                  window_size: int = 7, patch_size: int = 4, use_pallas: bool = False,
-                 fused_mlp: bool = False, fused_attn: bool = False, fused_block_stages=None,
-                 attn_group: int = 1,
+                 fused_mlp: bool = False, fused_attn: bool = False, fused_attn_stages=None,
+                 fused_block_stages=None, attn_group: int = 1,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if fused_block_stages and fused_attn and fused_mlp:  # where the JAX package engages it
-            raise NotImplementedError(
-                "fused_block_stages (the whole-block attention + MLP kernel) is not "
-                "ported yet (ROADMAP item B4)")
         self.dtype = dtype
+        self.window_size = window_size
+        self.fused_mlp = fused_mlp
         self.patch_embed = PatchEmbed(patch_size, embed_dim)
         layers = []
         for i, depth in enumerate(depths):
             dim = int(embed_dim * 2 ** i)
+            fa = fused_attn and (fused_attn_stages is None or i in fused_attn_stages)
+            fb = (fa and fused_mlp and fused_block_stages is not None
+                  and i in fused_block_stages)
             blocks = [SwinBlock(dim, num_heads[i], window_size,
                                 shift_size=0 if j % 2 == 0 else window_size // 2,
                                 use_pallas=use_pallas, fused_mlp=fused_mlp,
-                                fused_attn=fused_attn, attn_group=attn_group)
+                                fused_attn=fa, attn_group=attn_group, fused_block=fb)
                       for j in range(depth)]
             layers.append(BasicLayer(blocks,
                                      PatchMerging(dim) if i < len(depths) - 1 else None))
@@ -329,9 +390,23 @@ class SwinTransformer(nn.Module):
         """[B,3,H,W] -> 4-level pyramid, fine -> coarse, NCHW."""
         x = self.patch_embed(x.to(self.dtype))
         outs = []
+        # read at call time, as the JAX package reads it at trace time
+        wr_env = os.environ.get("SEGLAND_SWIN_WR", "0") == "1"
         for i, layer in enumerate(self.layers):
-            for blk in layer.blocks:
-                x = blk(x)
+            if wr_env and self.fused_mlp and layer.blocks[0].fused_attn:
+                # window-resident serving: partition once a stage
+                ws = self.window_size
+                b, h, w, _ = x.shape
+                hp, wp = h + (-h) % ws, w + (-w) % ws
+                if hp != h or wp != w:
+                    x = F.pad(x, (0, 0, 0, wp - w, 0, hp - h))
+                wins = _window_partition(x, ws)
+                for blk in layer.blocks:
+                    wins = blk(wins, win_shape=(b, h, w, hp, wp))
+                x = _window_reverse(wins, ws, b, hp, wp)[:, :h, :w, :]
+            else:
+                for blk in layer.blocks:
+                    x = blk(x)
             outs.append(layer_norm_nhwc(getattr(self, f"norm{i}"), x).permute(0, 3, 1, 2))
             if layer.downsample is not None:
                 x = layer.downsample(x)
@@ -339,7 +414,7 @@ class SwinTransformer(nn.Module):
 
 
 def get_swin(name: str, dtype=torch.float32, use_pallas: bool = False,
-             fused_mlp: bool = False, fused_attn: bool = False,
+             fused_mlp: bool = False, fused_attn: bool = False, fused_attn_stages="auto",
              fused_block_stages="auto") -> SwinTransformer:
     cfg = _CONFIGS[name]
     if (fused_attn or fused_mlp) and cfg["embed_dim"] != 96:
@@ -347,7 +422,7 @@ def get_swin(name: str, dtype=torch.float32, use_pallas: bool = False,
             f"fused kernels for {name}: the LN+MLP kernel has no build for widths "
             f"{[cfg['embed_dim'] * 2 ** i for i in range(4)]} (ROADMAP item A6)")
     if fused_block_stages == "auto":
-        # the JAX package's switch for its whole-block kernel
+        # the JAX package's switch for its whole-block kernel: "all", "none" or "0,1,2"
         env = os.environ.get("SEGLAND_SWIN_V3_STAGES", "")
         if env == "all":
             fused_block_stages = (0, 1, 2, 3)
@@ -355,9 +430,8 @@ def get_swin(name: str, dtype=torch.float32, use_pallas: bool = False,
             fused_block_stages = None
         else:
             fused_block_stages = tuple(int(s) for s in env.split(","))
-    if fused_attn and fused_mlp and os.environ.get("SEGLAND_SWIN_WR", "0") == "1":
-        raise NotImplementedError(
-            "SEGLAND_SWIN_WR=1 (window-resident serving) is not ported yet "
-            "(ROADMAP item A6)")
+    if fused_attn_stages == "auto":
+        fused_attn_stages = (0, 1, 2, 3)
     return SwinTransformer(dtype=dtype, use_pallas=use_pallas, fused_mlp=fused_mlp,
-                           fused_attn=fused_attn, fused_block_stages=fused_block_stages, **cfg)
+                           fused_attn=fused_attn, fused_attn_stages=fused_attn_stages,
+                           fused_block_stages=fused_block_stages, **cfg)

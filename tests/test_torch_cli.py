@@ -134,6 +134,44 @@ def test_swin_cmatrix_matches_the_jax_cli(data_root, tmp_path_factory, tmp_path,
     assert np.abs(cm_t - cm_j).sum() <= 2 * ties
 
 
+@pytest.mark.parametrize("env,value", [("SEGLAND_SWIN_V3_STAGES", "all"),
+                                       ("SEGLAND_SWIN_WR", "1")])
+def test_swin_route_switches_give_the_plain_cmatrix(data_root, tmp_path_factory, tmp_path,
+                                                    monkeypatch, env, value):
+    """eval_base --fused under the JAX package's route switches (the whole-block
+    kernel in every stage; window-resident stages) gives the confusion matrix of
+    the --no-fused run up to near-ties, and the switch reaches the blocks."""
+    from segland_tpu_torch.cli.eval_base import main
+    from segland_tpu_torch.evallib import Evaluator
+    from segland_tpu_torch.models.backbones import swin
+
+    path, model = _swin_pth(tmp_path_factory, False)
+    args = ["--data-dir", str(data_root), "--val-list", str(data_root / "list" / "val.txt"),
+            "--restore-from", path, "--device", "cpu"] + SWIN
+    calls = {"block": 0, "section": 0}
+    for name, key in (("swin_block_fused", "block"), ("swin_attn_section_fused", "section")):
+        def counted(*a, _fn=getattr(swin, name), _key=key, **kw):
+            calls[_key] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(swin, name, counted)
+    out_p, out_r = str(tmp_path / "plain"), str(tmp_path / "route")
+    main(args + ["--no-fused", "--save-path", out_p])
+    assert calls == {"block": 0, "section": 0}
+    monkeypatch.setenv(env, value)
+    main(args + ["--fused", "--save-path", out_r])
+    batches = 2  # 3 tiles in batches of 2; swin-t has 12 blocks
+    assert calls == ({"block": 12 * batches, "section": 0} if env.endswith("STAGES")
+                     else {"block": 0, "section": 12 * batches})
+    cm_p = np.load(os.path.join(out_p, "cmatrix_123.npy"))
+    cm_r = np.load(os.path.join(out_r, "cmatrix_123.npy"))
+    assert cm_r.sum() == cm_p.sum() == 3 * 64 * 64
+    imgs = np.stack([np.asarray(Image.open(data_root / "images" / f"tile_{i}.tif"))
+                     for i in range(3)])
+    ev = Evaluator(model, "cpu", normalize_on_device=True)
+    ties = int(near_tie_pixels(ev.predict_batch(imgs, (64, 64))[0].numpy()).sum())
+    assert np.abs(cm_r - cm_p).sum() <= 2 * ties
+
+
 def test_swin_eval_ft_exports_tiff_without_mat(data_root, tmp_path_factory, tmp_path):
     from segland_tpu_torch.cli.eval_ft import main
     from segland_tpu_torch.data.tileio import OEM_COLORMAP_FT, read_image

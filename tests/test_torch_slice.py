@@ -2,7 +2,10 @@
 on the CPU, with the same weights (carried by from_jax_variables) and the
 same inputs: forward_base and forward_all logits within atol 5e-4 (the
 repo's parity bar), and Evaluator.run confusion matrices equal except for
-pixels whose top-2 logits lie within 1e-3."""
+pixels whose top-2 logits lie within 1e-3.  The same for swin_pop / swin-s,
+fused and unfused, and by the whole-block route (SEGLAND_SWIN_V3_STAGES=all on
+both sides, both on their plain references) at full width with the third
+stage cut to 2 blocks; at full depth that case is marked slow."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -138,6 +141,57 @@ def test_swin_forward_all_parity_ft(swin_models, swin_image, route):
     got = _port_logits(port[route], swin_image, "forward_all")
     assert got.shape == want.shape == (2, 15, 11, 12)
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+def _block_route_models(monkeypatch, depth_cut):
+    """swin_pop / swin-s on both sides with the whole-block kernel's switch on
+    while the models are built; with ``depth_cut`` the 18-block stage has 2."""
+    from segland_tpu.models.backbones import swin as j_swin
+    from segland_tpu_torch.models.backbones import swin as p_swin
+
+    monkeypatch.setenv("SEGLAND_SWIN_V3_STAGES", "all")
+    if depth_cut:
+        cut = dict(depths=(2, 2, 2, 2), num_heads=(3, 6, 12, 24), embed_dim=96)
+        monkeypatch.setitem(j_swin._CONFIGS, "swin-s", cut)
+        monkeypatch.setitem(p_swin._CONFIGS, "swin-s", cut)
+    kw = dict(n_base=7, n_novel=4, is_ft=True, fused_mlp=True, fused_attn=True)
+    # the JAX model builds its backbone, and reads the switch, when traced
+    jm = j_build("swin_pop", "swin-s", **kw)
+    v = random_variables(jm, jnp.zeros((1, 64, 64, 3)), seed=8)
+    port = load_port(build_model("swin_pop", "swin-s", **kw), v)
+    blocks = [b for layer in port.backbone.layers for b in layer.blocks]
+    assert len(blocks) == (8 if depth_cut else 24) and all(b.fused_block for b in blocks)
+    return jm, v, port
+
+
+def _check_block_route(monkeypatch, swin_image, depth_cut):
+    from segland_tpu.ops import pallas_attn as J
+
+    jm, v, port = _block_route_models(monkeypatch, depth_cut)
+    j_calls = []
+
+    def counted(*a, _fn=J.swin_block_fused, **kw):
+        j_calls.append(1)
+        return _fn(*a, **kw)
+
+    monkeypatch.setattr(J, "swin_block_fused", counted)
+    for method, j_method, k in (("forward_base", JGFSS.forward_base, 8),
+                                ("forward_all", None, 12)):
+        kw = {} if j_method is None else dict(method=j_method)
+        want = np.asarray(jm.apply(v, jnp.asarray(swin_image), **kw))
+        got = _port_logits(port, swin_image, method)
+        assert got.shape == want.shape == (2, 15, 11, k)
+        np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    assert len(j_calls) == 2 * (8 if depth_cut else 24)  # the JAX side went the same way
+
+
+def test_swin_whole_block_route_parity_depth_cut(monkeypatch, swin_image):
+    _check_block_route(monkeypatch, swin_image, depth_cut=True)
+
+
+@pytest.mark.slow
+def test_swin_whole_block_route_parity_full_depth(monkeypatch, swin_image):
+    _check_block_route(monkeypatch, swin_image, depth_cut=False)
 
 
 def test_swin_evaluator_square_pad_matches_jax(swin_models):
