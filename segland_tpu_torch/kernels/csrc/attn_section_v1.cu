@@ -18,9 +18,11 @@
 // value is that of group = 1 up to the order of the sums; the products with
 // the other windows' keys and values are computed all the same.
 //
-// What bounds it on an H100: operations, 2*NW*N*C*(4C + 2*group*N) of them
-// against one read and one write of [NW, N, C], the mask and region rows and
-// 8*C^2 bytes of weights.
+// What bounds it on an H100: operations.  The function needs 2*NW*N*C*(4C + 2N)
+// of them whatever the group (the cross-window terms are exact zeros), against
+// one read and one write of [NW, N, C], the mask and region rows and 8*C^2
+// bytes of weights.  This tiling runs 2*NW*N*C*(4C + 2*group*N): the excess is
+// the super-window's own cost, not part of the bound.
 //
 // Design (bf16): one block of 8 warps owns one super-window and works in three
 // phases, with q, k, v of its windows parked in a [NW, N, 3C] scratch tensor in

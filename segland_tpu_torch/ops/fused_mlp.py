@@ -94,10 +94,12 @@ def ln_mlp(x2, gamma, beta, w1, b1, w2, b2, res2=None, ls=None, eps=1e-5):
         P(l), P(out), m, c, hidden, eps, dev.index, kernels.stream_of(x2))
     kernels.check(err, "ln_mlp")
     ln_mlp.launches += 1
+    ln_mlp.rows += m
     return out
 
 
 ln_mlp.launches = 0
+ln_mlp.rows = 0  # M summed over those launches: more where pad tokens ride along
 
 
 def fused_ln_mlp(x, gamma, beta, w1, b1, w2, b2, *, res=None, ls=None, eps=1e-5):

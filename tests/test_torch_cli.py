@@ -148,20 +148,22 @@ def test_swin_route_switches_give_the_plain_cmatrix(data_root, tmp_path_factory,
     path, model = _swin_pth(tmp_path_factory, False)
     args = ["--data-dir", str(data_root), "--val-list", str(data_root / "list" / "val.txt"),
             "--restore-from", path, "--device", "cpu"] + SWIN
-    calls = {"block": 0, "section": 0}
-    for name, key in (("swin_block_fused", "block"), ("swin_attn_section_fused", "section")):
-        def counted(*a, _fn=getattr(swin, name), _key=key, **kw):
+    calls = {"block": 0, "section": 0, "resident": 0}
+    for owner, name, key in ((swin, "swin_block_fused", "block"),
+                             (swin, "swin_attn_section_fused", "section"),
+                             (swin.SwinBlock, "_win_resident", "resident")):
+        def counted(*a, _fn=getattr(owner, name), _key=key, **kw):
             calls[_key] += 1
             return _fn(*a, **kw)
-        monkeypatch.setattr(swin, name, counted)
+        monkeypatch.setattr(owner, name, counted)
     out_p, out_r = str(tmp_path / "plain"), str(tmp_path / "route")
     main(args + ["--no-fused", "--save-path", out_p])
-    assert calls == {"block": 0, "section": 0}
+    assert calls == {"block": 0, "section": 0, "resident": 0}
     monkeypatch.setenv(env, value)
     main(args + ["--fused", "--save-path", out_r])
-    batches = 2  # 3 tiles in batches of 2; swin-t has 12 blocks
-    assert calls == ({"block": 12 * batches, "section": 0} if env.endswith("STAGES")
-                     else {"block": 0, "section": 12 * batches})
+    n = 12 * 2  # swin-t has 12 blocks; 3 tiles in batches of 2
+    assert calls == ({"block": n, "section": 0, "resident": 0} if env.endswith("STAGES")
+                     else {"block": 0, "section": n, "resident": n})
     cm_p = np.load(os.path.join(out_p, "cmatrix_123.npy"))
     cm_r = np.load(os.path.join(out_r, "cmatrix_123.npy"))
     assert cm_r.sum() == cm_p.sum() == 3 * 64 * 64

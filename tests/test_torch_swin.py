@@ -87,6 +87,35 @@ def test_new_routes_match_the_unfused_port(route, monkeypatch):
         torch.testing.assert_close(g, w_, rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("env,kw,calls", [("1", FUSED, 4), ("0", FUSED, 0), (None, FUSED, 0),
+                                          ("1", dict(fused_attn=True), 0),
+                                          ("1", dict(fused_attn_stages=(1,), **FUSED), 2)])
+def test_window_resident_switch_engages_the_resident_body(env, kw, calls, monkeypatch):
+    """SEGLAND_SWIN_WR=1 under fused_attn and fused_mlp sends every block of a
+    fused stage through SwinBlock._win_resident, on all the tokens of the
+    padded windows; any other setting sends none."""
+    seen = []
+
+    def counted(self, wins, win_shape, _fn=SwinBlock._win_resident):
+        seen.append((tuple(wins.shape), win_shape))
+        return _fn(self, wins, win_shape)
+
+    monkeypatch.setattr(SwinBlock, "_win_resident", counted)
+    if env is None:
+        monkeypatch.delenv("SEGLAND_SWIN_WR", raising=False)
+    else:
+        monkeypatch.setenv("SEGLAND_SWIN_WR", env)
+    model = SwinTransformer(**CFG, **kw).eval()
+    with torch.no_grad():
+        model(torch.zeros(2, 3, 40, 40))  # 10x10 and 5x5 token maps, padded to 14 and 7
+    assert len(seen) == calls
+    stage1 = ((2, 49, 64), (2, 5, 5, 7, 7))
+    if calls == 4:
+        assert seen == [((8, 49, 32), (2, 10, 10, 14, 14))] * 2 + [stage1] * 2
+    elif calls:
+        assert seen == [stage1] * 2
+
+
 def test_fused_attn_stages_gates_the_section_per_stage():
     """Stages outside the tuple run the unfused attention with fused_mlp still
     on; get_swin resolves "auto" to all four stages."""
