@@ -37,6 +37,22 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      every block; also as eval_ft), attn_group = 2 (K5 and K1 in every block)
      and SEGLAND_SWIN_WR=1 (window-resident stages, K3 and K1, K1 over every
      token of the padded windows: the rows it was given are checked).
+  9. K8 conv3_residual vs its plain version at the conv3 probe's two shapes
+     (layer4 and layer3 of resnet50), M = 8*128^2 and 16*128^2 and a ragged M,
+     with and without the ReLU, to 1 bf16 ulp (the count of elements that are
+     not bit-equal is printed), beside torch._int_mm + the epilogue in torch;
+     then the probe's own entry point (benchmarks/conv3_probe.py), K8's path;
+ 10. K7 bottleneck_int8 vs its plain version at the four layer shapes of
+     resnet50 at output stride 8 for a batch of 8 1024^2 tiles, both last_relu,
+     and at images no tile divides with d in 1, 2, 4, the same bar; the tile
+     each shape gets and what its halo recomputes; beside each shape the same
+     block as a Bottleneck module: bf16 unquantized, int8 conv by conv, and
+     int8 through K7, the comparison that decides the --fused default;
+ 11. the int8 slices: deeplab_pop / resnet50 (2 batches) and pspnet_pop /
+     resnet50 (1 batch) at full width and depth through Evaluator.run four
+     ways: bf16 unquantized, --int8, --int8 --fused (K7 12 and K2 1 a batch,
+     any other count fails) and --int8 --fused with the plain versions
+     (>= 99% argmax agreement with the K7 route; int8 vs bf16 is printed).
 Every launch count is set to 0 just before a path is driven and read just
 after.  The second-to-last line is a JSON object of per-kernel numbers (time,
 plain version's time, bound, library call's time) and the last line is
@@ -44,6 +60,8 @@ plain version's time, bound, library call's time) and the last line is
 the repo beside it, it fails before printing any result.
 
     python3 chip_smoke.py --phases k4,k5    # a subset, while working on a kernel
+    python3 chip_smoke.py --phases profile  # torch.profiler over the swin and deeplab_pop slices
+    python3 chip_smoke.py --phases dilated  # cuDNN's 3x3 at ASPP's dilations vs nine 1x1 taps
 """
 
 import contextlib
@@ -61,7 +79,7 @@ STAGES = ((3, 96, 256), (3, 192, 128), (9, 384, 64), (3, 768, 32))  # (blocks, C
 SWIN_STAGES = ((2, 96, 3, 256, 259), (2, 192, 6, 128, 133), (18, 384, 12, 64, 70),
                (2, 768, 24, 32, 35))
 # data-sheet peaks of an H100 SXM at its 700 W limit
-PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+PEAK_BF16, PEAK_FP32, PEAK_INT8, PEAK_BYTES = 989e12, 67e12, 1979e12, 3.35e12
 
 
 def bound(flops, nbytes, peak=PEAK_BF16):
@@ -484,6 +502,250 @@ def phase_k6(dev):
     return out
 
 
+def ulp_distance(got, want):
+    """Steps between two bf16 tensors along the ordered line of bf16 values."""
+    import torch
+
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    return (ordered(got) - ordered(want)).abs()
+
+
+def compare_exact(tag, got, want, explain=None):
+    """Integer sums are exact and the fp32 steps are the plain version's, so
+    the bar is 1 bf16 ulp with no element outside; returns (max abs error,
+    elements that are not bit-equal).  ``explain(index)`` adds what it knows
+    about the farthest element to the failure."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not bool(got.float().isfinite().all()):
+        fail(f"{tag}: shape {tuple(got.shape)} or non-finite output")
+    dist = ulp_distance(got, want)
+    differ, outside = int((dist > 0).sum()), int((dist > 1).sum())
+    err = float((got.float() - want.float()).abs().max())
+    if outside:
+        j = int(dist.view(-1).argmax())
+        idx = [int(i) for i in torch.unravel_index(torch.tensor(j), got.shape)]
+        fail(f"{tag}: {outside} elements more than 1 bf16 ulp from the plain version "
+             f"({differ} not bit-equal); farthest at {idx}: got {float(got.view(-1)[j])} "
+             f"want {float(want.view(-1)[j])}" + (f"; {explain(idx)}" if explain else ""))
+    return err, differ
+
+
+K8_SHAPES = ((512, 2048), (256, 1024))  # (P, C) of layer4 and layer3, as conv3_probe has them
+
+
+def conv3_inputs(m, p, c, dev, seed):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ri = lambda *s: torch.randint(-127, 128, s, device=dev, generator=g, dtype=torch.int8)
+    return dict(h2q=ri(m, p), res=torch.randn(m, c, device=dev, generator=g).bfloat16(),
+                w3=ri(p, c), a3=torch.rand(c, device=dev, generator=g) * 1e-4 + 1e-5,
+                b3=torch.randn(c, device=dev, generator=g) * 0.1)
+
+
+def phase_k8(dev):
+    """K8 at the probe's two shapes, M = 8*128^2 and 16*128^2, with and
+    without the ReLU, and a ragged M."""
+    import torch
+    from segland_tpu_torch.ops.fused_bottleneck import conv3_residual, conv3_residual_reference
+
+    out = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, not_bit_equal=0)
+    bounds = []
+    for i, (p, c) in enumerate(K8_SHAPES):
+        for m in (8 * 128 * 128, 16 * 128 * 128, 8 * 128 * 128 - 37):
+            a = conv3_inputs(m, p, c, dev, 80 + i)
+            args = (a["h2q"], a["res"], a["w3"], a["a3"], a["b3"])
+            differ = 0
+            for relu in (True, False):
+                e, n = compare_exact(f"K8 M={m} P={p} C={c} relu={relu}",
+                                     conv3_residual(*args, last_relu=relu),
+                                     conv3_residual_reference(*args, last_relu=relu))
+                out["max_abs_err"] = max(out["max_abs_err"], e)
+                differ += n
+            out["not_bit_equal"] += differ
+            ms = cuda_ms(lambda: conv3_residual(*args), iters=5, warmup=1)
+            plain_ms = cuda_ms(lambda: conv3_residual_reference(*args), iters=3, warmup=1)
+            w3t = a["w3"].t().contiguous()
+
+            def library():  # one cuBLASLt int8 product, then the epilogue in torch
+                acc = torch._int_mm(a["h2q"], w3t.t())
+                return torch.relu(acc.float() * a["a3"] + a["b3"] + a["res"].float()).bfloat16()
+
+            lib_ms = cuda_ms(library, iters=3, warmup=1)
+            # h2q and res read and out written once, the weight and the vectors once
+            b_ms, b_by = bound(2 * m * p * c, m * p + 2 * m * c * 2 + p * c + 8 * c, PEAK_INT8)
+            print(f"K8 M={m} P={p} C={c}: max_abs_err={out['max_abs_err']:.6g} tol=1 bf16 ulp "
+                  f"out_of_tol=0 not_bit_equal={differ} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"int_mm_plus_epilogue_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+            if m == 16 * 128 * 128:  # the probe's own M: the kernel row sums its two shapes
+                out["ms"] += ms
+                out["plain_ms"] += plain_ms
+                out["library_ms"] += lib_ms
+                bounds.append((b_ms, b_by))
+            del a, args, w3t
+            torch.cuda.empty_cache()
+    out["bound_ms"], out["bound_by"] = sum_bounds(bounds)
+    return out
+
+
+# the 12 fused-eligible bottlenecks of resnet50 at output stride 8, a batch of 8 1024^2
+# tiles: (blocks, side, C, P, dilation)
+K7_LAYERS = ((2, 256, 256, 64, 1), (3, 128, 512, 128, 1), (5, 128, 1024, 256, 2),
+             (2, 128, 2048, 512, 4))
+
+
+def bottleneck_inputs(b, h, w, c, p, dev, seed):
+    """Random int8 weights and affines sized so that h1 and h2 are of order 1
+    and the activation scales 4/127 clip their tails."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ri = lambda *s: torch.randint(-127, 128, s, device=dev, generator=g, dtype=torch.int8)
+    rn = lambda *s: torch.randn(*s, device=dev, generator=g)
+    aff = lambda n, k: ((0.5 + torch.rand(n, device=dev, generator=g)) / (k ** 0.5 * 30 * 73),
+                        0.1 * rn(n))
+    a1, b1 = aff(p, c)
+    a2, b2 = aff(p, 9 * p)
+    a3, b3 = aff(c, p)
+    s = 4.0 / 127.0
+    return (rn(b, h, w, c).bfloat16(), ri(c, p), ri(3, 3, p, p), ri(p, c), a1, b1, a2, b2, a3, b3,
+            s, s, s)
+
+
+def requant_margins(args, d, idx):
+    """For output element idx = [b, y, x, c] of a bottleneck: how near each of
+    the three requantizations that feed it comes to a rounding tie in the
+    plain version (the least distance of value / scale from a half-integer,
+    clipped values left out).  The step with a margin near 0 is the one a
+    kernel can round the other way."""
+    import torch
+
+    x, w1, w2, w3, a1, b1, a2, b2, a3, b3, s_x, s_h1, s_h2 = args
+    b, y, xx = idx[:3]
+    crop = x[b:b + 1, max(0, y - d):y + d + 1, max(0, xx - d):xx + d + 1].float()
+    cy, cx = y - max(0, y - d), xx - max(0, xx - d)
+    from segland_tpu_torch.ops.int8 import int8_conv2d, quantize_sym
+
+    def margin(t):
+        t = t[t.abs() < 127.0]
+        return float(((t - t.floor()) - 0.5).abs().min()) if t.numel() else float("inf")
+
+    sc = lambda v: torch.tensor(v, dtype=torch.float32, device=x.device)
+    t_x = crop / sc(s_x)
+    h1 = torch.relu(int8_conv2d(quantize_sym(crop, sc(s_x)), w1.t()[None, None]).float() * a1 + b1)
+    acc2 = int8_conv2d(quantize_sym(h1, sc(s_h1)), w2.permute(0, 1, 3, 2), padding=(d, d),
+                       dilation=(d, d))
+    h2 = torch.relu(acc2[:, cy, cx].float() * a2 + b2)
+    return (f"margin to a rounding tie: x/s_x {margin(t_x):.2e}, h1/s_h1 "
+            f"{margin(h1 / sc(s_h1)):.2e}, h2/s_h2 {margin(h2 / sc(s_h2)):.2e}")
+
+
+def block_routes_ms(c, p, d, side, dev, seed):
+    """One eligible Bottleneck of these widths as the model runs it, NCHW
+    channels-last bf16, He-normal weights: unquantized, int8 conv by conv, and
+    int8 through K7 (layout views and weight hand-over included).  Returns
+    (bf16 ms, per-conv int8 ms, fused-route ms)."""
+    import torch
+    import torch.nn as nn
+    from segland_tpu_torch.models.backbones.resnet import Bottleneck
+    from segland_tpu_torch.quant import QuantConfig, calibrate, quantized_apply
+
+    g = torch.Generator().manual_seed(seed)
+    blk = Bottleneck(c, p, 1, d).eval()
+    with torch.no_grad():
+        for m in blk.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+                m.weight.normal_(0.0, (2.0 / fan_in) ** 0.5, generator=g)
+    blk = blk.to(dev)
+    x = torch.randn(BATCH, c, side, side, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed)).bfloat16()
+    x = x.contiguous(memory_format=torch.channels_last)
+    quant = calibrate(blk, [x])
+    per_conv = quantized_apply(blk)
+    fused = quantized_apply(blk, QuantConfig(fused_blocks=True))
+    with torch.inference_mode():
+        return (cuda_ms(lambda: blk(x), iters=3, warmup=1),
+                cuda_ms(lambda: per_conv(quant, x), iters=3, warmup=1),
+                cuda_ms(lambda: fused(quant, x), iters=3, warmup=1))
+
+
+def phase_k7(dev):
+    """K7 at the four layer shapes of resnet50 OS 8, batch 8, both last_relu,
+    plus an image that no tile divides."""
+    import torch
+    from segland_tpu_torch.ops.fused_bottleneck import (bottleneck_int8,
+                                                        bottleneck_int8_reference,
+                                                        bottleneck_tile)
+
+    out = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, not_bit_equal=0,
+               bf16_block_ms=0.0, per_conv_int8_ms=0.0, fused_route_ms=0.0)
+    bounds = []
+    for i, (blocks, side, c, p, d) in enumerate(K7_LAYERS):
+        args = bottleneck_inputs(BATCH, side, side, c, p, dev, 90 + i)
+        th, tw, smem = bottleneck_tile(c, p, d)
+        differ = 0
+        for relu in (True, False):
+            e, n = compare_exact(
+                f"K7 side={side} C={c} P={p} d={d} relu={relu}",
+                bottleneck_int8(*args, dilation=d, last_relu=relu),
+                bottleneck_int8_reference(*args, dilation=d, last_relu=relu),
+                explain=lambda idx: requant_margins(args, d, idx))
+            out["max_abs_err"] = max(out["max_abs_err"], e)
+            differ += n
+        out["not_bit_equal"] += differ
+        ms = cuda_ms(lambda: bottleneck_int8(*args, dilation=d), iters=5, warmup=1)
+        plain_ms = cuda_ms(lambda: bottleneck_int8_reference(*args, dilation=d), iters=2, warmup=1)
+        m = BATCH * side * side
+        # x read and out written once, the three weights and the vectors once
+        b_ms, b_by = bound(2 * m * (2 * c * p + 9 * p * p),
+                           2 * m * c * 2 + 2 * c * p + 9 * p * p + 16 * p + 8 * c, PEAK_INT8)
+        halo = (th + 2 * d) * (tw + 2 * d) / (th * tw)
+        print(f"K7 {BATCH}x{side}x{side} C={c} P={p} d={d}: tile={th}x{tw} smem={smem} "
+              f"conv1_recompute={halo:.3f}x max_abs_err={out['max_abs_err']:.6g} tol=1 bf16 ulp "
+              f"out_of_tol=0 not_bit_equal={differ} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) tops={2e-9 * m * (2 * c * p + 9 * p * p) / ms:.1f}",
+              flush=True)
+        out["ms"] += blocks * ms
+        out["plain_ms"] += blocks * plain_ms
+        bounds += [(b_ms, b_by)] * blocks
+        del args
+        torch.cuda.empty_cache()
+        # the same block as the model runs it: what decides the --fused default
+        bf16_ms, conv_ms, route_ms = block_routes_ms(c, p, d, side, dev, 110 + i)
+        print(f"K7 {BATCH}x{side}x{side} C={c} P={p} d={d} as a Bottleneck module: "
+              f"bf16_unquantized_ms={bf16_ms:.4f} int8_per_conv_ms={conv_ms:.4f} "
+              f"int8_fused_route_ms={route_ms:.4f}", flush=True)
+        out["bf16_block_ms"] += blocks * bf16_ms
+        out["per_conv_int8_ms"] += blocks * conv_ms
+        out["fused_route_ms"] += blocks * route_ms
+        torch.cuda.empty_cache()
+    # tiles on all four borders of an image that no tile divides, every dilation
+    for j, (h, w, c, p, d) in enumerate(((37, 53, 256, 64, 1), (21, 19, 512, 128, 2),
+                                         (9, 30, 1024, 256, 4), (13, 11, 2048, 512, 4),
+                                         (5, 7, 192, 64, 2))):
+        args = bottleneck_inputs(3, h, w, c, p, dev, 100 + j)
+        e, n = compare_exact(f"K7 ragged {h}x{w} C={c} P={p} d={d}",
+                             bottleneck_int8(*args, dilation=d, last_relu=bool(j % 2)),
+                             bottleneck_int8_reference(*args, dilation=d, last_relu=bool(j % 2)))
+        out["max_abs_err"] = max(out["max_abs_err"], e)
+        out["not_bit_equal"] += n
+        print(f"K7 ragged 3x{h}x{w} C={c} P={p} d={d}: max_abs_err={e:.6g} out_of_tol=0 "
+              f"not_bit_equal={n}", flush=True)
+    out["bound_ms"], out["bound_by"] = sum_bounds(bounds)
+    print(f"K7 per forward of {BATCH} tiles (12 blocks): kernel_ms={out['ms']:.4f} "
+          f"plain_ms={out['plain_ms']:.4f} bound_ms={out['bound_ms']:.4f} ({out['bound_by']}); "
+          f"as Bottleneck modules: bf16_unquantized_ms={out['bf16_block_ms']:.4f} "
+          f"int8_per_conv_ms={out['per_conv_int8_ms']:.4f} "
+          f"int8_fused_route_ms={out['fused_route_ms']:.4f}", flush=True)
+    return out
+
+
 def synthetic_batches():
     rng = np.random.RandomState(0)
     out = []
@@ -552,28 +814,32 @@ def build(name, dtype, seed=0, fused=True, is_ft=False, attn_group=1):
 
 
 COUNTED = ("ln_mlp", "upsample_argmax", "attn_section", "window_attention", "swin_block",
-           "attn_section_v1")
+           "attn_section_v1", "bottleneck_int8", "conv3_residual")
 
 
 def counters():
     from segland_tpu_torch.ops.fused_attn import (attn_section, attn_section_v1, swin_block,
                                                   window_attention)
+    from segland_tpu_torch.ops.fused_bottleneck import bottleneck_int8, conv3_residual
     from segland_tpu_torch.ops.fused_epilogue import upsample_argmax
     from segland_tpu_torch.ops.fused_mlp import ln_mlp
 
     return dict(zip(COUNTED, (ln_mlp, upsample_argmax, attn_section, window_attention,
-                              swin_block, attn_section_v1)))
+                              swin_block, attn_section_v1, bottleneck_int8, conv3_residual)))
 
 
-def counted_run(ev, batches, **kw):
-    """Evaluator.run with every launch count set to 0 just before and read
-    just after."""
+def counted(fn):
+    """fn() with every launch count set to 0 just before and read just after."""
     fns = counters()
     for f in fns.values():
         f.launches = 0
     fns["ln_mlp"].rows = 0
-    result = ev.run(batches, **kw)
+    result = fn()
     return result, {k: f.launches for k, f in fns.items() if f.launches}
+
+
+def counted_run(ev, batches, **kw):
+    return counted(lambda: ev.run(batches, **kw))
 
 
 def phase_slice(dev, name, want_per_batch, is_ft=False, fp32_check=True, route="",
@@ -652,6 +918,125 @@ def phase_slice(dev, name, want_per_batch, is_ft=False, fp32_check=True, route="
     return launches, tps, tps_p
 
 
+def build_resnet(name, dtype, dev, seed=0):
+    """deeplab_pop or pspnet_pop over resnet50 on ``dev`` with seeded random
+    weights that keep activations in a sane range through the 16 blocks:
+    He-normal conv weights (std sqrt(2 / fan_in)) hold the second moment
+    through each conv + ReLU; BatchNorm statistics near the identity (mean
+    0.1 * randn, variance in [0.8, 1.2], bias 0.1 * randn); and a bn3 scale in
+    [0.2, 0.4], so that a block adds under a tenth of the residual stream's
+    variance and the stream grows by about 4x over the backbone, not by 2^16.
+
+    The POP head then sees features with a large common mean, which random
+    prototypes hand to the background logit at every pixel.  So the prototypes
+    are made orthogonal to the mean feature of one seeded 256^2 tile, and the
+    classifier's last layer takes the sign that makes the background logit of
+    that mean negative: the seven base classes then compete pixel by pixel."""
+    import torch
+    import torch.nn as nn
+    from segland_tpu_torch.models import build_model
+    from segland_tpu_torch.models.backbones.resnet import Bottleneck
+    from segland_tpu_torch.ops import pop as pop_ops
+
+    g = torch.Generator().manual_seed(seed)
+    model = build_model(name, None, n_base=7, dtype=dtype, generator=g)
+    with torch.no_grad():
+        for part in (model.backbone, model.decoder):
+            for m in part.modules():
+                if isinstance(m, nn.Conv2d):
+                    fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+                    m.weight.normal_(0.0, (2.0 / fan_in) ** 0.5, generator=g)
+                elif isinstance(m, nn.BatchNorm2d):
+                    m.running_mean.normal_(0.0, 0.1, generator=g)
+                    m.running_var.uniform_(0.8, 1.2, generator=g)
+                    m.bias.normal_(0.0, 0.1, generator=g)
+        for blk in model.backbone.modules():
+            if isinstance(blk, Bottleneck):
+                blk.bn3.weight.uniform_(0.2, 0.4, generator=g)
+        model = model.to(dev)
+        tile = torch.randn(1, 3, 256, 256, generator=g).to(dev)
+        mean = model.extract_features(tile).mean(dim=(0, 1, 2))
+        unit = mean / mean.norm()
+        model.base_emb.sub_((model.base_emb @ unit)[:, None] * unit)
+        if float(pop_ops.classifier_apply(mean, *model.classifier.weights())) > 0:
+            model.classifier[4].weight.neg_()
+    return model
+
+
+def phase_int8_slice(dev, name, n_batches=N_BATCHES):
+    """deeplab_pop or pspnet_pop / resnet50 at output stride 8 through
+    Evaluator.run four ways: bf16 unquantized, --int8 (conv by conv), --int8
+    --fused (K7 in the 12 eligible bottlenecks), and the last with the
+    kernels' plain versions.  One calibration batch, taken in the warm-up run."""
+    import torch
+    from segland_tpu_torch.evallib import Evaluator
+    from segland_tpu_torch.quant import QuantConfig
+
+    model = build_resnet(name, torch.bfloat16, dev)
+    batches = synthetic_batches()[:n_batches]
+    kw = dict(num_classes=12, n_base=7, normalize_on_device=True)
+    q = dict(int8=True, calib_batches=1)
+    fused_cfg = QuantConfig(fused_blocks=True)
+    routes = {
+        "bf16": (Evaluator(model, dev, **kw), {"upsample_argmax": 1}),
+        "int8": (Evaluator(model, dev, **q, **kw), {"upsample_argmax": 1}),
+        "int8 fused": (Evaluator(model, dev, quant_cfg=fused_cfg, **q, **kw),
+                       {"bottleneck_int8": 12, "upsample_argmax": 1}),
+        "int8 fused, plain versions": (Evaluator(model, dev, quant_cfg=fused_cfg,
+                                                 plain_kernels=True, **q, **kw), {}),
+    }
+    tps, launches, preds = {}, {}, {}
+    for route, (ev, per_batch) in routes.items():
+        ev.run(batches)  # warm-up: calibration, cuDNN plans, allocators
+        torch.cuda.synchronize()
+        (cm, (base, _, total, _), tps[route]), launches[route] = counted_run(ev, batches)
+        print(f"slice {name} {route}: {n_batches}x{BATCH} tiles {TILE}^2: "
+              f"launches={launches[route]} mIoU base={base:.4f} total={total:.4f} "
+              f"tiles_per_s={tps[route]:.2f} pixels={int(cm.sum())}", flush=True)
+        want = {key: n * n_batches for key, n in per_batch.items()}
+        if launches[route] != want:
+            fail(f"slice {name} {route} launch counts {launches[route]}, want {want}")
+        if int(cm.sum()) != n_batches * BATCH * (TILE - 16) * TILE:
+            fail("confusion matrix does not count every labelled pixel")
+        preds[route] = [ev.predict_batch(imgs, (TILE, TILE), want_logits=False)[1]
+                        for imgs, _, _ in batches]
+    logits, _ = routes["int8 fused"][0].predict_batch(batches[0][0], (TILE, TILE))
+    if logits.shape != (BATCH, TILE, TILE, 8) or not bool(logits.isfinite().all()):
+        fail(f"slice {name} int8 fused logits {tuple(logits.shape)} not finite")
+    classes = int(torch.unique(preds["bf16"][0]).numel())
+    del logits
+    agree = lambda a, b: float(torch.stack([(x == y).float().mean() for x, y in
+                                            zip(preds[a], preds[b])]).mean())
+    k_vs_plain = agree("int8 fused", "int8 fused, plain versions")
+    ev = routes["int8 fused"][0]
+    preds["again"] = [ev.predict_batch(imgs, (TILE, TILE), want_logits=False)[1]
+                      for imgs, _, _ in batches]
+    print(f"slice {name} argmax agreement: K7 route vs its plain versions {k_vs_plain:.6f} "
+          f"(K7 route run twice {agree('int8 fused', 'again'):.6f}); "
+          f"int8 vs bf16 {agree('int8', 'bf16'):.6f}; int8 fused vs bf16 "
+          f"{agree('int8 fused', 'bf16'):.6f}; int8 fused vs int8 "
+          f"{agree('int8 fused', 'int8'):.6f}; classes predicted in bf16: {classes}", flush=True)
+    if k_vs_plain < 0.99:
+        fail(f"slice {name}: K7 route vs plain versions argmax agreement {k_vs_plain:.4f} < 0.99")
+    print(f"{name} eval default: bf16 {tps['bf16']:.2f} tiles/s, --int8 {tps['int8']:.2f}, "
+          f"--int8 --fused {tps['int8 fused']:.2f}, with plain versions "
+          f"{tps['int8 fused, plain versions']:.2f}", flush=True)
+    return launches["int8 fused"]
+
+
+def phase_conv3_probe():
+    """K8's path: the conv3 probe's entry point, at its own shapes."""
+    from segland_tpu_torch.benchmarks import conv3_probe
+
+    iters = 3
+    rows, launches = counted(lambda: conv3_probe.main(["--iters", str(iters)]))
+    # a shape: one launch compared with the per-conv path, a warm-up, the timed ones
+    want = {"conv3_residual": len(rows) * (2 + iters)}
+    if launches != want:
+        fail(f"conv3_probe launch counts {launches}, want {want}")
+    return launches
+
+
 def phase_unfused(dev, name):
     """The unfused model (stock torch blocks, --no-fused): what the eval
     default of --fused is set against.  Returns (model, evaluator, tiles/s)."""
@@ -693,7 +1078,9 @@ def phase_swin_routes(dev):
     return launches, tps_u
 
 
-GROUPS = (("K4 swin_block", ("swin_block",)), ("K5 attn_section_v1", ("attn_section_v1",)),
+GROUPS = (("K7 bottleneck_int8", ("bottleneck_kernel",)),
+          ("K8 conv3_residual", ("conv3_residual_kernel",)),
+          ("K4 swin_block", ("swin_block",)), ("K5 attn_section_v1", ("attn_section_v1",)),
           ("K3 attn_section", ("attn_section",)), ("K1 ln_mlp", ("ln_mlp",)),
           ("K6 window_attention", ("window_attention",)),
           ("K2 upsample_argmax", ("upsample_argmax",)),
@@ -705,48 +1092,90 @@ GROUPS = (("K4 swin_block", ("swin_block",)), ("K5 attn_section_v1", ("attn_sect
           ("H2D memcpy", ("Memcpy HtoD",)), ("bincount", ("bincount", "histogram", "Histogram")))
 
 
-def phase_profile(dev):
-    """torch.profiler over one Evaluator.run of the swin slice, fused and
-    unfused: device time per batch grouped by kernel name, and the idle share
-    of the traced wall time."""
+def profiled_run(ev, batches, label):
+    """torch.profiler over one Evaluator.run: device time per batch grouped by
+    kernel name, and the idle share of the traced wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    ev.run(batches)  # warm-up (and the calibration of an int8 route)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ev.run(batches)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    sums = {}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = evt.self_cuda_time_total
+        if dev_us <= 0 or evt.device_type != DeviceType.CUDA:
+            continue  # kernels only: an operator's entry repeats its kernels' time
+        group = next((g for g, keys in GROUPS if any(k in evt.key for k in keys)),
+                     "elementwise / other")
+        sums[group] = sums.get(group, 0.0) + dev_us / 1e3
+    busy = sum(sums.values())
+    if busy <= 0:
+        fail("the profiler recorded no device time")
+    print(f"profile {label}: traced wall {wall_ms:.2f} ms for {len(batches)} batches, "
+          f"device busy {busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}", flush=True)
+    for group, ms in sorted(sums.items(), key=lambda kv: -kv[1]):
+        print(f"  {group}: {ms / len(batches):.3f} ms per batch", flush=True)
+
+
+def phase_profile(dev):
+    """The swin slice fused and unfused, then the deeplab_pop slice in bf16,
+    --int8 and --int8 --fused, each through :func:`profiled_run`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     from segland_tpu_torch.evallib import Evaluator
+    from segland_tpu_torch.quant import QuantConfig
 
     batches = synthetic_batches()
+    kw = dict(num_classes=12, n_base=7, normalize_on_device=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         torch.zeros(1, device=dev)  # the tracer's start-up, outside the timed windows
     for fused in (True, False):
         model = build("swin_pop", torch.bfloat16, fused=fused).to(dev)
-        ev = Evaluator(model, dev, num_classes=12, n_base=7, normalize_on_device=True)
-        ev.run(batches)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            ev.run(batches)
-            torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-        sums = {}
-        for evt in prof.key_averages():
-            dev_us = getattr(evt, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = evt.self_cuda_time_total
-            if dev_us <= 0 or evt.device_type != DeviceType.CUDA:
-                continue  # kernels only: an operator's entry repeats its kernels' time
-            group = next((g for g, keys in GROUPS if any(k in evt.key for k in keys)),
-                         "elementwise / other")
-            sums[group] = sums.get(group, 0.0) + dev_us / 1e3
-        busy = sum(sums.values())
-        if busy <= 0:
-            fail("the profiler recorded no device time")
-        print(f"profile swin_pop {'fused' if fused else 'unfused'}: traced wall "
-              f"{wall_ms:.2f} ms for {N_BATCHES} batches, device busy {busy:.2f} ms, "
-              f"idle share {1 - busy / wall_ms:.3f}", flush=True)
-        for group, ms in sorted(sums.items(), key=lambda kv: -kv[1]):
-            print(f"  {group}: {ms / N_BATCHES:.3f} ms per batch", flush=True)
-        del model, ev
+        profiled_run(Evaluator(model, dev, **kw), batches,
+                     f"swin_pop {'fused' if fused else 'unfused'}")
+        del model
         torch.cuda.empty_cache()
+    model = build_resnet("deeplab_pop", torch.bfloat16, dev)
+    q = dict(int8=True, calib_batches=1)
+    profiled_run(Evaluator(model, dev, **kw), batches, "deeplab_pop bf16")
+    profiled_run(Evaluator(model, dev, **q, **kw), batches, "deeplab_pop --int8")
+    profiled_run(Evaluator(model, dev, quant_cfg=QuantConfig(fused_blocks=True), **q, **kw),
+                 batches, "deeplab_pop --int8 --fused")
+
+
+def phase_dilated(dev):
+    """A 3x3 convolution [8,2048,128,128] -> 256 in bf16, channels-last, at
+    ASPP's dilations: cuDNN (F.conv2d) beside the nine-tap form that
+    ops/layers.py takes above TAPS_ABOVE_DILATION.  One run each, after one
+    warm-up at the small dilation only: cuDNN takes seconds at 12 and 18."""
+    import torch
+    import torch.nn as nn
+    import torch.nn.functional as F
+    from segland_tpu_torch.ops.layers import TAPS_ABOVE_DILATION, _conv_by_taps
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(BATCH, 2048, 128, 128, device=dev, generator=g).bfloat16()
+    x = x.contiguous(memory_format=torch.channels_last)
+    for d in (6, 12, 18):
+        conv = nn.Conv2d(2048, 256, 3, padding=d, dilation=d, bias=False).to(dev)
+        conv.requires_grad_(False)
+        w = conv.weight.bfloat16()
+        iters = 5 if d <= TAPS_ABOVE_DILATION else 1
+        cudnn_ms = cuda_ms(lambda: F.conv2d(x, w, None, 1, d, d), iters=iters, warmup=iters - 1)
+        taps_ms = cuda_ms(lambda: _conv_by_taps(conv, x), iters=5, warmup=1)
+        err = float((F.conv2d(x, w, None, 1, d, d).float() - _conv_by_taps(conv, x).float())
+                    .abs().max())
+        print(f"dilated 3x3 d={d}: cudnn_ms={cudnn_ms:.2f} nine_taps_ms={taps_ms:.2f} "
+              f"max_abs_diff={err:.4f} taps_taken_by_the_port={d > TAPS_ABOVE_DILATION}",
+              flush=True)
 
 
 def main(argv=None):
@@ -755,9 +1184,10 @@ def main(argv=None):
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="k1,k2,k3,k6,k4,k5,convnext,swin",
-                    help="comma list of k1,k2,k3,k6,k4,k5,convnext,swin (default: all eight), "
-                         "or profile: a torch.profiler breakdown of the swin slice")
+    ap.add_argument("--phases", default="k1,k2,k3,k6,k4,k5,k8,k7,convnext,swin,deeplab,pspnet",
+                    help="comma list of k1,k2,k3,k6,k4,k5,k8,k7,convnext,swin,deeplab,pspnet "
+                         "(default: all twelve); profile: a torch.profiler breakdown of "
+                         "the swin and deeplab_pop slices; dilated: cuDNN vs the nine-tap 3x3 at large dilations")
     phases = set(ap.parse_args(argv).phases.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -800,11 +1230,17 @@ def main(argv=None):
                            replaces="segland_tpu/ops/pallas_attn.py:773"),
         "attn_section_v1": dict(source=csrc + "attn_section_v1.cu",
                                 replaces="segland_tpu/ops/pallas_attn.py:200"),
+        "bottleneck_int8": dict(source=csrc + "bottleneck_int8.cu",
+                                replaces="segland_tpu/ops/pallas_bottleneck.py:155"),
+        "conv3_residual": dict(source=csrc + "bottleneck_int8.cu",
+                               replaces="segland_tpu/ops/pallas_bottleneck.py:269"),
     }
     for key, tag, phase in (("ln_mlp", "k1", phase_k1), ("upsample_argmax", "k2", phase_k2),
                             ("attn_section", "k3", phase_k3),
                             ("window_attention", "k6", phase_k6),
-                            ("swin_block", "k4", phase_k4), ("attn_section_v1", "k5", phase_k5)):
+                            ("swin_block", "k4", phase_k4), ("attn_section_v1", "k5", phase_k5),
+                            ("conv3_residual", "k8", phase_k8),
+                            ("bottleneck_int8", "k7", phase_k7)):
         if tag in phases:
             kern[key].update(phase(dev))
             torch.cuda.empty_cache()
@@ -853,8 +1289,20 @@ def main(argv=None):
               f"attn_group={K5_MAIN_GROUP} {tps_g:.2f}, window-resident {tps_w:.2f}, "
               f"plain versions {tps_p:.2f}, unfused {tps_u:.2f}", flush=True)
 
+    if "k8" in phases:
+        paths["conv3_probe"] = phase_conv3_probe()
+        torch.cuda.empty_cache()
+    if "deeplab" in phases:
+        paths["deeplab_pop int8 fused"] = phase_int8_slice(dev, "deeplab_pop")
+        torch.cuda.empty_cache()
+    if "pspnet" in phases:
+        paths["pspnet_pop int8 fused"] = phase_int8_slice(dev, "pspnet_pop", n_batches=1)
+        torch.cuda.empty_cache()
+
     if "profile" in phases:
         phase_profile(dev)
+    if "dilated" in phases:
+        phase_dilated(dev)
     if phases != set(ap.get_default("phases").split(",")):
         print(f"chip_smoke: phases {sorted(phases)} only; no result line", file=sys.stderr)
         return 3

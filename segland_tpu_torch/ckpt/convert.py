@@ -1,13 +1,17 @@
 """JAX variable tree -> the port's state_dict, importing only numpy.
 
-The inverse of the convnext_pop and swin_pop rules of
-segland_tpu/ckpt/torch_convert.py: flax paths map to upstream SegLand keys,
-dense kernels are transposed, conv kernels go HWIO -> OIHW (the depthwise
-(7,7,1,C) kernel becomes (C,1,7,7)), LayerNorm and BatchNorm ``scale``
-becomes ``weight``, BatchNorm ``batch_stats`` mean/var become
+The inverse of the convnext_pop, swin_pop, pspnet_pop and deeplab_pop rules
+of segland_tpu/ckpt/torch_convert.py (ResNet backbone, PSPModule, ASPP): flax
+paths map to upstream SegLand keys, dense kernels are transposed, conv
+kernels go HWIO -> OIHW (the depthwise (7,7,1,C) kernel becomes (C,1,7,7)),
+LayerNorm and BatchNorm ``scale`` becomes ``weight``, BatchNorm ``batch_stats`` mean/var become
 ``running_mean``/``running_var`` (with a zero ``num_batches_tracked``, which
 upstream state dicts carry), and the POP classifier's dense mats w1/w2/w3
 become the 1x1 convs ``classifier.{0,2,4}.weight``.
+
+The int8 activation scales travel apart from the weights: the ``"quant"``
+collection's ``act_amax`` leaves map to ``{module name: scalar}`` with
+:func:`quant_from_jax` and back with :func:`quant_to_jax`.
 """
 
 import re
@@ -42,6 +46,22 @@ _MODULES = [
     (r"decoder/lateral_(\d)_bn", "decoder.lateral_convs.{0}.1"),
     (r"decoder/fpn_convs_(\d)_(\d)_conv", "decoder.fpn_convs.{0}.{1}*2.0"),
     (r"decoder/fpn_convs_(\d)_(\d)_bn", "decoder.fpn_convs.{0}.{1}*2.1"),
+    # ResNet backbone: stem, then layerN_i blocks with downsample.{0,1}
+    (r"backbone/((?:conv|bn)[123])", "backbone.{0}"),
+    (r"backbone/layer([1-4])_(\d+)/((?:conv|bn)[123])", "backbone.layer{0}.{1}.{2}"),
+    (r"backbone/layer([1-4])_(\d+)/downsample_conv", "backbone.layer{0}.{1}.downsample.0"),
+    (r"backbone/layer([1-4])_(\d+)/downsample_bn", "backbone.layer{0}.{1}.downsample.1"),
+    # PSPModule (v1): stages Sequential(pool, conv, bn); bottleneck
+    # Sequential(conv3x3, bn, relu, conv1x1)
+    (r"decoder/stages_(\d)_conv", "decoder.stages.{0}.1"),
+    (r"decoder/stages_(\d)_bn", "decoder.stages.{0}.2"),
+    (r"decoder/bottleneck_conv", "decoder.bottleneck.0"),
+    (r"decoder/bottleneck_bn", "decoder.bottleneck.1"),
+    (r"decoder/bottleneck_out", "decoder.bottleneck.3"),
+    # ASPP: stages.cN.{conv,bn}, stages.imagepool.conv.{conv,bn}, fc.{conv,bn}
+    (r"decoder/(c\d)_(conv|bn)", "decoder.stages.{0}.{1}"),
+    (r"decoder/imagepool_(conv|bn)", "decoder.stages.imagepool.conv.{0}"),
+    (r"decoder/fc_(conv|bn)", "decoder.fc.{0}"),
     (r"(classifier(?:_n)?)", "{0}"),
     (r"", ""),
 ]
@@ -70,25 +90,61 @@ def _leaf(module: str, name: str, value: np.ndarray):
     return (f"{module}.{key}" if module else key), value
 
 
+def _module_name(mod_path: str) -> str:
+    """flax module path ('backbone/layer1_0/conv1') -> the port's dotted
+    module name; KeyError where no rule matches."""
+    for pat, tmpl in _MODULES:
+        m = re.fullmatch(pat, mod_path)
+        if m:
+            return re.sub(r"(\d+)\*2", lambda d: str(2 * int(d[1])), tmpl.format(*m.groups()))
+    raise KeyError(f"no port rule for {mod_path}")
+
+
 def from_jax_variables(variables) -> dict:
     """{'params': ...[, 'batch_stats': ...]} of numpy arrays -> {key: array}.
-    Raises KeyError on a leaf it has no rule for."""
+    A ``"quant"`` collection is left to :func:`quant_from_jax`.  Raises
+    KeyError on a leaf it has no rule for."""
     out = {}
-    for path, value in _flatten(dict(variables)):
+    for path, value in _flatten({k: v for k, v in dict(variables).items() if k != "quant"}):
         stats = path[0] == "batch_stats"
         if path[0] != "params" and not (stats and path[-1] in ("mean", "var")
-                                        and path[-2].endswith("_bn")):
+                                        and re.fullmatch(r"(.*_)?bn\d?", path[-2])):
             raise KeyError(f"no port rule for {'/'.join(path)}")
-        mod_path, name = "/".join(path[1:-1]), path[-1]
-        for pat, tmpl in _MODULES:
-            m = re.fullmatch(pat, mod_path)
-            if m:
-                break
-        else:
-            raise KeyError(f"no port rule for {'/'.join(path)}")
-        module = re.sub(r"(\d+)\*2", lambda d: str(2 * int(d[1])), tmpl.format(*m.groups()))
+        name = path[-1]
+        module = _module_name("/".join(path[1:-1]))
         key, arr = _leaf(module, name, np.asarray(value))
         out[key] = np.ascontiguousarray(arr)
         if stats and name == "mean":
             out[f"{module}.num_batches_tracked"] = np.zeros((), np.int64)
+    return out
+
+
+def quant_from_jax(quant) -> dict:
+    """The JAX package's ``"quant"`` collection ({... module path: {'act_amax':
+    scalar}}) -> {the port's module name: fp32 scalar array}."""
+    out = {}
+    for path, value in _flatten(dict(quant)):
+        if path[-1] != "act_amax":
+            raise KeyError(f"no port rule for quant/{'/'.join(path)}")
+        out[_module_name("/".join(path[:-1]))] = np.asarray(value, np.float32)
+    return out
+
+
+def quant_to_jax(quant: dict, params) -> dict:
+    """The inverse: the port's {module name: act_amax} as a ``"quant"``
+    collection shaped after ``params`` (the JAX 'params' tree, which names the
+    modules); scales of modules that tree lacks raise KeyError."""
+    out, used = {}, set()
+    for path, _ in _flatten(dict(params)):
+        if path[-1] != "kernel":
+            continue
+        name = _module_name("/".join(path[:-1]))
+        if name in quant:
+            node = out
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node["act_amax"] = np.asarray(quant[name], np.float32)
+            used.add(name)
+    if used != set(quant):
+        raise KeyError(f"no module of the tree for {sorted(set(quant) - used)}")
     return out

@@ -40,7 +40,8 @@ def add_common_args(p: argparse.ArgumentParser):
                         "reference's train/val asymmetry)")
     p.add_argument("--fused", action=argparse.BooleanOptionalAction, default=None,
                    help="fused LN+MLP and attention-section kernels in transformer "
-                        "backbones (default: off, see EVAL_FUSED_DEFAULTS). "
+                        "backbones; with --int8, the fused int8 bottleneck kernel in "
+                        "resnet backbones (default: off, see EVAL_FUSED_DEFAULTS). "
                         "bfloat16 uses tanh-GELU, so "
                         "bf16 fused-vs-unfused is not bit-identical by design")
     p.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"],
@@ -65,7 +66,10 @@ def add_common_args(p: argparse.ArgumentParser):
 # (K1 reaches 58-82 TFLOP/s and K3 29-41, cuBLAS about 250 on the same products), so
 # both defaults are off until the kernels catch up; --fused turns them on, and none of
 # the three swin switches beats plain --fused.
-EVAL_FUSED_DEFAULTS = {"convnext_pop": False, "swin_pop": False}
+# For the ResNet models --fused acts with --int8 only: the 12 stride-1 bottlenecks without
+# a downsample run through the fused int8 block kernel.  Off, see PERF.md section 5.
+EVAL_FUSED_DEFAULTS = {"convnext_pop": False, "swin_pop": False, "deeplab_pop": False,
+                       "pspnet_pop": False}
 
 
 def resolve_fused(args) -> bool:

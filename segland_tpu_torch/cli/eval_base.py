@@ -7,9 +7,16 @@ probability .mat maps for ensemble fusion.
 
     python -m segland_tpu_torch.cli.eval_base --data-dir DATA --val-list LIST \\
         --model convnext_pop --restore-from model.pth --dtype bfloat16 --eval-batch 8
+    python -m segland_tpu_torch.cli.eval_base --data-dir DATA --val-list LIST \\
+        --model deeplab_pop --backbone resnet50 --restore-from model.pth --int8 --fused \\
+        --dtype bfloat16 --eval-batch 8 --device-normalize
 
+``--int8`` calibrates on the first ``--calib-batches`` batches and serves
+every large conv in int8 (``quant/ptq.py``); with ``--fused`` the stride-1
+ResNet bottlenecks without a downsample each run as one kernel launch.
 ``--is-ft`` (what ``cli.eval_ft`` appends) evaluates a fine-tuned base+novel
-model: a run per seed, square-longside logits against ignore-padded labels, the saturated novel colormap, no .mat export.
+model: a run per seed, square-longside logits against ignore-padded labels,
+the saturated novel colormap, no .mat export.
 """
 
 import argparse
@@ -42,11 +49,14 @@ def get_parser():
                    help="transfer raw uint8 tiles and normalize on device "
                         "(4x less host->device traffic)")
     p.add_argument("--int8", action="store_true",
-                   help="int8 PTQ inference (not ported yet)")
+                   help="int8 PTQ inference (backbone/decoder convs and linears in int8 "
+                        "with int32 sums; POP head stays fp32); with --fused, eligible "
+                        "resnet bottlenecks run through the fused block kernel")
     p.add_argument("--calib-batches", type=int, default=4,
                    help="batches used for int8 activation calibration")
     p.add_argument("--calib-percentile", type=float, default=None,
-                   help="percentile activation calibration for int8 (e.g. 99.9)")
+                   help="use outlier-robust percentile activation calibration "
+                        "(e.g. 99.9) instead of abs-max")
     return p
 
 
@@ -71,8 +81,7 @@ def load_state_dict(model, path: str, logger):
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
-    if args.int8:
-        raise NotImplementedError("--int8 serving is not ported yet (ROADMAP item A11)")
+    fused = resolve_fused(args)
     logger = get_logger()
     device = torch.device(args.device)
     if args.dtype == "float32":
@@ -82,8 +91,8 @@ def main(argv=None):
     model = build_model(
         args.model, backbone=args.backbone, n_base=n_base,
         n_novel=args.novel_classes if args.is_ft else 0, is_ft=args.is_ft,
-        os=args.output_stride, dtype=model_dtype(args), fused_mlp=resolve_fused(args),
-        fused_attn=resolve_fused(args), packed_train=args.packed_train, device=device,
+        os=args.output_stride, dtype=model_dtype(args), fused_mlp=fused,
+        fused_attn=fused, packed_train=args.packed_train, device=device,
         generator=torch.Generator().manual_seed(0))
     valset = OEMValDataset(args.data_dir, args.val_list, base_size=crop,
                            use_novel=True, use_base=True,
@@ -91,6 +100,17 @@ def main(argv=None):
     loader = Loader(valset, args.eval_batch or 1, shuffle=False, drop_last=False,
                     num_workers=args.num_workers)
     ev_mean, ev_std = A.STATS[args.norm_stats]
+    quant_cfg = None
+    if args.int8 and (args.calib_percentile is not None or fused):
+        from ..quant import QuantConfig
+
+        quant_cfg = QuantConfig(
+            act_estimator="percentile" if args.calib_percentile is not None else "absmax",
+            percentile=args.calib_percentile or 99.9,
+            # --fused + --int8: eligible resnet bottlenecks run through the
+            # fused block kernel (ops/fused_bottleneck.py); asked for the CPU,
+            # through its plain version
+            fused_blocks=fused, fused_interpret=device.type == "cpu")
 
     results = {}
     for seed_str in args.random_seed.split(","):
@@ -100,7 +120,8 @@ def main(argv=None):
         evaluator = Evaluator(model, device, num_classes=args.num_classes, n_base=n_base,
                               ignore_label=args.ignore_label,
                               normalize_on_device=args.device_normalize,
-                              mean=ev_mean, std=ev_std)
+                              mean=ev_mean, std=ev_std, int8=args.int8,
+                              calib_batches=args.calib_batches, quant_cfg=quant_cfg)
         save_path = args.save_path if args.save else None
         prob_path = (os.path.join(args.save_path, "prob")
                      if (args.save_prob and not args.is_ft) else None)

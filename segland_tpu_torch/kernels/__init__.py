@@ -1,7 +1,7 @@
 """Builds and loads the port's CUDA kernels.
 
 Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one ``nvcc``
-a source, all started together; ``csrc/*.cuh`` are their shared headers) and
+a source, all started together; ``csrc/*.cuh`` are shared headers) and
 linked into one shared library with a plain C interface, loaded with
 ``ctypes``.  The build happens at the first
 CUDA call, never at import, so the package imports on a machine without
@@ -48,6 +48,11 @@ _ENTRIES = {
     # bias, scratch, out, NW, C, nh, group, eps, device, stream
     "segland_attn_section_v1": [_I, _P, _P, _I, _P, _I] + [_P] * 9 + [ctypes.c_longlong]
                                + [_I] * 3 + [ctypes.c_float, _I, _P],
+    # x, w1t, w2t, w3t, a1, b1, a2, b2, a3, b3, out, B, H, W, C, P, d, relu,
+    # s_x, s_h1, s_h2, device, stream
+    "segland_bottleneck_int8": [_P] * 11 + [_I] * 7 + [ctypes.c_float] * 3 + [_I, _P],
+    # h2q, res, w3t, a3, b3, out, M, P, C, relu, device, stream
+    "segland_conv3_residual_int8": [_P] * 6 + [ctypes.c_longlong] + [_I] * 4 + [_P],
 }
 
 
@@ -116,6 +121,9 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    # C, P, d -> th, tw, smem bytes; returns 0 when no tile fits
+    lib.segland_bottleneck_int8_tile.argtypes = [_I] * 3 + [ctypes.POINTER(_I)] * 3
+    lib.segland_bottleneck_int8_tile.restype = ctypes.c_int
     lib.segland_error_string.argtypes = [ctypes.c_int]
     lib.segland_error_string.restype = ctypes.c_char_p
     return lib

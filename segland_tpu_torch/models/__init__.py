@@ -1,6 +1,6 @@
 """Model registry with the JAX package's keys (segland_tpu/models/__init__.py).
-``convnext_pop`` and ``swin_pop`` build so far; the rest raise
-NotImplementedError naming their ROADMAP item."""
+``convnext_pop``, ``swin_pop``, ``pspnet_pop`` and ``deeplab_pop`` build so
+far; the rest raise NotImplementedError naming their ROADMAP item."""
 
 import torch
 
@@ -17,8 +17,7 @@ _POP_CONFIGS = {
     "seghr_pop": ("hrfpn", "hr-w32"),
     "vggunet_pop": ("identity", "vgg16bn-unet"),
 }
-_NOT_PORTED = {"pspnet_pop": "A7", "pspplus_pop": "A7", "deeplab_pop": "A7",
-               "pspnet": "A7", "lsk_pop": "A9", "seghr_pop": "A8",
+_NOT_PORTED = {"pspplus_pop": "A7", "pspnet": "A7", "lsk_pop": "A9", "seghr_pop": "A8",
                "vggunet_pop": "A9"}
 
 

@@ -5,7 +5,6 @@ NotImplementedError naming their ROADMAP item."""
 import torch
 
 _NOT_PORTED = {
-    **{k: "A7" for k in ("resnet10", "resnet50", "resnet101", "resnet50v2", "resnet101v2")},
     **{k: "A8" for k in ("hr-w18", "hr-w32", "hr-w48")},
     "lsk-t": "A9",
     "vgg16bn-unet": "A9",
@@ -29,7 +28,12 @@ def get_backbone(name: str, dtype=torch.float32, fused_mlp: bool = False,
                  fused_attn: bool = False, **kw):
     """``fused_mlp`` routes each ConvNeXt or Swin block's LN+MLP section
     through the fused kernel, ``fused_attn`` each Swin block's attention
-    section."""
+    section; conv-only families take neither.  ``kw`` goes to the ResNet
+    family (``os``, ``dilated``, ...)."""
+    if name in ("resnet10", "resnet50", "resnet101", "resnet50v2", "resnet101v2"):
+        from .resnet import get_resnet
+
+        return get_resnet(name, dtype=dtype, **kw)
     if name == "convnext-t":
         from .convnext import convnext_tiny
 

@@ -18,12 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.fused_mlp import fused_ln_mlp
-
-
-def conv2d(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """``m`` applied in x's dtype (fp32 params cast at use)."""
-    b = None if m.bias is None else m.bias.to(x.dtype)
-    return F.conv2d(x, m.weight.to(x.dtype), b, m.stride, m.padding, m.dilation, m.groups)
+from ...ops.layers import conv2d, linear
 
 
 def layer_norm_nhwc(m: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -60,9 +55,9 @@ class ConvNeXtBlock(nn.Module):
             return y.permute(0, 3, 1, 2)
         dt = x.dtype
         x = layer_norm_nhwc(self.norm, x)
-        x = F.linear(x, self.pwconv1.weight.to(dt), self.pwconv1.bias.to(dt))
+        x = linear(self.pwconv1, x)
         x = F.gelu(x)
-        x = F.linear(x, self.pwconv2.weight.to(dt), self.pwconv2.bias.to(dt))
+        x = linear(self.pwconv2, x)
         # layer-scale cast to the compute dtype: a bare fp32 gamma would
         # promote every block output to fp32 in bf16 mode
         return inp + (self.gamma.to(dt) * x).permute(0, 3, 1, 2)

@@ -40,7 +40,8 @@ import torch.nn.functional as F
 from ...ops.fused_attn import (swin_attn_section_fused, swin_block_fused,
                                 window_attention_fused)
 from ...ops.fused_mlp import fused_ln_mlp
-from .convnext import conv2d, layer_norm_nhwc
+from ...ops.layers import conv2d, linear
+from .convnext import layer_norm_nhwc
 
 _CONFIGS = {
     "swin-t": dict(depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24), embed_dim=96),
@@ -116,11 +117,6 @@ def _window_reverse(x, ws, b, hp, wp):
     c = x.shape[-1]
     x = x.reshape(b, hp // ws, wp // ws, ws, ws, c)
     return x.permute(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, c)
-
-
-def linear(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """``m`` applied in x's dtype (fp32 params cast at use)."""
-    return F.linear(x, m.weight.to(x.dtype), None if m.bias is None else m.bias.to(x.dtype))
 
 
 class WindowAttention(nn.Module):

@@ -1,8 +1,10 @@
 """Decoders, NCHW PyTorch.  Port of segland_tpu/models/decoders.py with
-upstream SegLand's module names: the convnext_pop decoder (FPN-OCR) and the
-swin_pop decoder (UperNet+ over a PSP-v2 top); the others are ROADMAP items
-A7-A9.  Pyramid decoders take fine -> coarse lists (x[0] the finest).
-BatchNorm runs on its running statistics: the port is eval only so far."""
+upstream SegLand's module names: the convnext_pop decoder (FPN-OCR), the
+swin_pop decoder (UperNet+ over a PSP-v2 top), the pspnet_pop decoder
+(PSPModule) and the deeplab_pop decoder (ASPP); the others are ROADMAP items
+A7-A9.  Pyramid decoders take fine -> coarse lists (x[0] the finest); PSPModule
+and ASPP take the backbone's last map.  BatchNorm runs on its running
+statistics: the port is eval only so far."""
 
 import math
 from typing import Sequence
@@ -13,7 +15,8 @@ import torch.nn.functional as F
 
 from ..ops.pooling import adaptive_avg_pool
 from ..ops.resize import resize_bilinear
-from .backbones.convnext import conv2d, layer_norm_nhwc
+from ..ops.layers import batch_norm, conv2d
+from .backbones.convnext import layer_norm_nhwc
 
 
 def _init_conv(conv: nn.Conv2d, generator=None):
@@ -29,10 +32,13 @@ def _resize(x, hw):
     return resize_bilinear(x.permute(0, 2, 3, 1), hw, align_corners=True).permute(0, 3, 1, 2)
 
 
-def batch_norm(m: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """Eval-mode BatchNorm on the running statistics (fp32 parameters, output
-    in x's dtype)."""
-    return F.batch_norm(x, m.running_mean, m.running_var, m.weight, m.bias, False, 0.0, m.eps)
+def _reset(module: nn.Module, generator=None):
+    """torch's default init of every conv and BatchNorm under ``module``."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            _init_conv(m, generator)
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
 
 
 class ConvBNReLU(nn.Sequential):
@@ -78,6 +84,91 @@ class PSPModuleV2(nn.Module):
         return self.bottleneck(torch.cat(priors, dim=1))
 
 
+class PSPModule(nn.Module):
+    """pspnet_pop-style PSP (reference networks/pspnet_pop.py:8-35) over the
+    backbone's last map: pooled priors through 1x1 conv + BN + ReLU, upsampled
+    with align_corners=False, concatenated with the input; ``bottleneck`` is
+    Sequential(3x3 conv no bias, BN, ReLU, 1x1 conv with bias)."""
+
+    def __init__(self, in_channels: Sequence[int], out_features: int = 512,
+                 sizes: Sequence[int] = (1, 2, 3, 6), dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        features = in_channels[0]  # resnet filters run coarse -> fine
+        self.stages = nn.ModuleList(_PSPStage(features, out_features, s) for s in sizes)
+        self.bottleneck = nn.Sequential(
+            nn.Conv2d(features + len(sizes) * out_features, out_features, 3, padding=1,
+                      bias=False),
+            nn.BatchNorm2d(out_features, eps=1e-5), nn.ReLU(),
+            nn.Conv2d(out_features, out_features, 1))
+
+    def reset_parameters(self, generator=None):
+        _reset(self, generator)
+
+    def forward(self, feats):
+        feats = feats.to(self.dtype)
+        hw = tuple(feats.shape[-2:])
+        priors = [resize_bilinear(stage(feats).permute(0, 2, 3, 1), hw,
+                                  align_corners=False).permute(0, 3, 1, 2)
+                  for stage in self.stages] + [feats]
+        b = self.bottleneck
+        x = F.relu(batch_norm(b[1], conv2d(b[0], torch.cat(priors, dim=1))))
+        return conv2d(b[3], x)
+
+
+class _ConvBN(nn.Module):
+    """``conv`` (no bias) + ``bn`` + ReLU of the ASPP, under upstream's names.
+    BatchNorm momentum 0.999 as upstream sets it (networks/deeplab_pop.py:27);
+    it matters in training only."""
+
+    def __init__(self, cin: int, cout: int, k: int, dilation: int = 1):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, k, padding=dilation * (k // 2), dilation=dilation,
+                              bias=False)
+        self.bn = nn.BatchNorm2d(cout, eps=1e-5, momentum=0.999)
+
+    def forward(self, x):
+        return F.relu(batch_norm(self.bn, conv2d(self.conv, x)))
+
+
+class _ImagePool(nn.Module):
+    """Global average pool -> 1x1 conv + BN + ReLU (``conv.conv``, ``conv.bn``)."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.conv = _ConvBN(cin, cout, 1)
+
+    def forward(self, x):
+        return self.conv(x.mean(dim=(2, 3), keepdim=True))
+
+
+class ASPP(nn.Module):
+    """Atrous spatial pyramid pooling (reference networks/deeplab_pop.py:12-67)
+    over the backbone's last map: a 1x1 branch, three 3x3 branches at rates
+    6/12/18, the image pool broadcast over the map, concatenated into ``fc``."""
+
+    def __init__(self, in_channels: Sequence[int], out_features: int = 256,
+                 rates: Sequence[int] = (6, 12, 18), dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        cin = in_channels[0]
+        stages = {"c0": _ConvBN(cin, out_features, 1)}
+        for i, r in enumerate(rates):
+            stages[f"c{i + 1}"] = _ConvBN(cin, out_features, 3, r)
+        stages["imagepool"] = _ImagePool(cin, out_features)
+        self.stages = nn.ModuleDict(stages)
+        self.fc = _ConvBN((len(rates) + 2) * out_features, out_features, 1)
+
+    def reset_parameters(self, generator=None):
+        _reset(self, generator)
+
+    def forward(self, feats):
+        feats = feats.to(self.dtype)
+        branches = [stage(feats) for stage in self.stages.values()]
+        branches[-1] = branches[-1].expand(-1, -1, *feats.shape[-2:])
+        return self.fc(torch.cat(branches, dim=1))
+
+
 class _Upsample2x(nn.Module):
     def forward(self, x):
         return _resize(x, (x.shape[-2] * 2, x.shape[-1] * 2))
@@ -114,11 +205,7 @@ class UperNetPlusDecoder(nn.Module):
         self.fpn_convs = nn.ModuleList(_scale_head(dim, n) for n in n_ups)
 
     def reset_parameters(self, generator=None):
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                _init_conv(m, generator)
-            elif isinstance(m, nn.BatchNorm2d):
-                m.reset_parameters()
+        _reset(self, generator)
 
     def forward(self, feats):
         feats = [f.to(self.dtype) for f in feats]
@@ -177,5 +264,6 @@ class FPNOCRDecoder(nn.Module):
         return layer_norm_nhwc(self.norm, x).permute(0, 3, 1, 2)
 
 
-DECODERS = {"fpn_ocr": FPNOCRDecoder, "upernetplus": UperNetPlusDecoder}
-NOT_PORTED = {"psp": "A7", "pspplus": "A7", "aspp": "A7", "simple": "A9", "hrfpn": "A8"}
+DECODERS = {"fpn_ocr": FPNOCRDecoder, "upernetplus": UperNetPlusDecoder, "psp": PSPModule,
+            "aspp": ASPP}
+NOT_PORTED = {"pspplus": "A7", "simple": "A9", "hrfpn": "A8"}

@@ -55,8 +55,9 @@ class GFSSModel(nn.Module):
                 f"(ROADMAP item {D.NOT_PORTED[decoder_name]})")
         if decoder_name not in D.DECODERS:
             raise ValueError(decoder_name)
+        bk = dict(os=os, dilated=dilated) if backbone_name.startswith("resnet") else {}
         self.backbone = get_backbone(backbone_name, dtype=dtype, fused_mlp=fused_mlp,
-                                     fused_attn=fused_attn)
+                                     fused_attn=fused_attn, **bk)
         dm = self.d_model
         self.decoder = D.DECODERS[decoder_name](
             backbone_filters(backbone_name), out_features=dm, dtype=dtype)
@@ -86,6 +87,10 @@ class GFSSModel(nn.Module):
             return filters[0]
         raise ValueError(self.decoder_name)
 
+    @property
+    def needs_pyramid(self) -> bool:
+        return self.decoder_name not in ("psp", "aspp", "identity")
+
     def reset_parameters(self, generator: torch.Generator | None = None):
         """Upstream init, every draw from ``generator``: the backbone's and the
         decoder's own schemes, torch's Conv2d default for the classifiers,
@@ -101,8 +106,11 @@ class GFSSModel(nn.Module):
 
     def extract_features(self, img):
         """backbone + decoder -> [B, h, w, d_model] fp32 (channels-last view)."""
-        feats = self.decoder(self.backbone(img))
-        return feats.float().permute(0, 2, 3, 1)
+        if self.backbone_name.startswith("resnet"):
+            feats = self.backbone(img, return_list=self.needs_pyramid)
+        else:
+            feats = self.backbone(img)
+        return self.decoder(feats).float().permute(0, 2, 3, 1)
 
     def forward_base(self, img):
         """[B, 1+n_base, h, w] logits."""

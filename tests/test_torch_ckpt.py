@@ -2,7 +2,8 @@
 (JAX tree -> port state_dict) and the JAX package's own converter
 (port state_dict -> JAX tree) must round-trip the full-width convnext_pop
 tree and the swin_pop tree (swin-t with the UperNet+ decoder and its
-BatchNorm statistics) leaf for leaf."""
+BatchNorm statistics) leaf for leaf, and the deeplab_pop and pspnet_pop trees
+(resnet50, ASPP, PSPModule) with the int8 activation scales beside them."""
 
 import jax
 import jax.numpy as jnp
@@ -117,10 +118,84 @@ def test_swin_pth_loads_into_the_jax_package(swin_trees, tmp_path):
 
 def test_unknown_leaf_raises():
     with pytest.raises(KeyError):
-        from_jax_variables({"params": {"backbone": {"layer1_0": {"conv1": {
-            "kernel": np.zeros((1, 1, 2, 2), np.float32)}}}}})
+        from_jax_variables({"params": {"backbone": {"stage2_0_branches_0_0_c1_conv": {
+            "kernel": np.zeros((1, 1, 2, 2), np.float32)}}}})
     with pytest.raises(KeyError):
         from_jax_variables({"batch_stats": {"x": {"mean": np.zeros(2, np.float32)}}})
     with pytest.raises(KeyError):
-        from_jax_variables({"batch_stats": {"backbone": {"bn1": {
+        from_jax_variables({"batch_stats": {"backbone": {"norm1": {
             "mean": np.zeros(2, np.float32)}}}})
+    with pytest.raises(KeyError):
+        from_jax_variables({"params": {"backbone": {"layer1_0": {"conv4": {
+            "kernel": np.zeros((1, 1, 2, 2), np.float32)}}}}})
+
+
+@pytest.fixture(scope="module", params=["deeplab_pop", "pspnet_pop"])
+def resnet_trees(request):
+    kw = dict(n_base=7, n_novel=4, is_ft=True)
+    jm = j_build(request.param, "resnet50", **kw)
+    v = random_variables(jm, jnp.zeros((1, 64, 64, 3)), seed=2)
+    return request.param, jm, v, load_port(build_model(request.param, "resnet50", **kw), v)
+
+
+def test_resnet_round_trip_through_the_jax_converter(resnet_trees):
+    """resnet50 backbone with the ASPP or PSPModule decoder, BatchNorm running
+    statistics included."""
+    _, _, v, port = resnet_trees
+    assert "layer3_5" in v["batch_stats"]["backbone"]
+    sd = {k: x.detach().numpy() for k, x in port.state_dict().items()}
+    converted, unexpected = convert_torch_state_dict(sd)
+    assert not unexpected
+    merged, missing, _ = merge_variables(jax.tree_util.tree_map(np.zeros_like, v), converted)
+    assert not missing
+    _assert_same_tree(v, merged)
+
+
+def test_resnet_state_dict_keys_are_upstream_keys(resnet_trees):
+    name, _, v, port = resnet_trees
+    keys = set(from_jax_variables(v))
+    assert keys == set(port.state_dict())
+    assert {"backbone.conv1.weight", "backbone.bn1.running_mean",
+            "backbone.layer1.0.downsample.0.weight", "backbone.layer1.0.downsample.1.running_var",
+            "backbone.layer3.5.conv2.weight", "backbone.layer4.2.bn3.num_batches_tracked",
+            "classifier_n.4.weight", "base_emb"} <= keys
+    own = ({"decoder.stages.c0.conv.weight", "decoder.stages.c3.bn.running_mean",
+            "decoder.stages.imagepool.conv.conv.weight", "decoder.fc.bn.weight"}
+           if name == "deeplab_pop" else
+           {"decoder.stages.0.1.weight", "decoder.stages.3.2.running_var",
+            "decoder.bottleneck.0.weight", "decoder.bottleneck.1.bias",
+            "decoder.bottleneck.3.bias"})
+    assert own <= keys
+    sd = port.state_dict()
+    assert sd["backbone.conv1.weight"].shape == (64, 3, 7, 7)
+    assert sd["backbone.layer4.0.conv2.weight"].shape == (512, 512, 3, 3)
+
+
+def test_resnet_pth_loads_into_the_jax_package(resnet_trees, tmp_path):
+    name, _, v, port = resnet_trees
+    path = str(tmp_path / f"{name}.pth")
+    torch.save({"state_dict": {"module." + k: x for k, x in port.state_dict().items()}}, path)
+    got, info = load_torch_checkpoint(path, jax.tree_util.tree_map(np.zeros_like, v),
+                                      is_restore=True)
+    assert not info["missing"] and not info["unexpected"]
+    _assert_same_tree(v, got)
+
+
+def test_quant_collection_round_trip(resnet_trees):
+    """The JAX package's calibrated ``"quant"`` collection -> the port's
+    {module name: act_amax} -> the same collection, leaf for leaf; every name
+    is a module of the port."""
+    from segland_tpu.quant import calibrate as j_calibrate
+    from segland_tpu_torch.ckpt import quant_from_jax, quant_to_jax
+
+    name, jm, v, port = resnet_trees
+    img = np.random.RandomState(3).randn(1, 32, 32, 3).astype(np.float32)
+    quant = jax.tree_util.tree_map(np.asarray, j_calibrate(jm, v, [jnp.asarray(img)])["quant"])
+    flat = quant_from_jax(quant)
+    modules = dict(port.named_modules())
+    assert len(flat) == len(jax.tree_util.tree_leaves(quant)) >= 52
+    assert all(isinstance(modules[k], torch.nn.Conv2d) for k in flat)
+    assert {"backbone.layer1.0.downsample.0", "backbone.layer4.2.conv3"} <= set(flat)
+    assert "backbone.conv1" not in flat and not any(k.startswith("classifier") for k in flat)
+    _assert_same_tree(quant, quant_to_jax(flat, v["params"]))
+    assert "quant" not in "".join(from_jax_variables({**v, "quant": quant}))

@@ -23,7 +23,10 @@ MODULES = ["segland_tpu_torch", "segland_tpu_torch.ops.fused_mlp",
            "segland_tpu_torch.data.geotiff", "segland_tpu_torch.data.augment",
            "segland_tpu_torch.data.oem", "segland_tpu_torch.data.loader",
            "segland_tpu_torch.native", "segland_tpu_torch.utils",
-           "segland_tpu_torch.kernels"]
+           "segland_tpu_torch.kernels", "segland_tpu_torch.ops.fused_bottleneck",
+           "segland_tpu_torch.ops.int8", "segland_tpu_torch.ops.layers",
+           "segland_tpu_torch.models.backbones.resnet", "segland_tpu_torch.quant",
+           "segland_tpu_torch.quant.ptq", "segland_tpu_torch.benchmarks.conv3_probe"]
 FOREIGN = ("jax", "flax", "PIL", "segland_tpu")
 
 PROBE = """
@@ -47,6 +50,13 @@ res = eval_base.main(common + ["--val-list", {root!r} + "/val.txt", "--save-path
 assert 0.0 <= res[123][2] <= 1.0
 eval_ft.main(common + ["--val-list", {root!r} + "/test.txt", "--save-path", {out!r} + "/b",
                        "--device-normalize"])
+int8 = ["--data-dir", {root!r}, "--model", "deeplab_pop", "--backbone", "resnet10", "--device",
+        "cpu", "--base-size", "32,32", "--eval-batch", "2", "--num-workers", "0", "--int8",
+        "--calib-batches", "1", "--val-list", {root!r} + "/val.txt"]
+res = eval_base.main(int8 + ["--save-path", {out!r} + "/c"])
+assert 0.0 <= res[123][2] <= 1.0
+res = eval_base.main(int8 + ["--fused", "--dtype", "bfloat16", "--save-path", {out!r} + "/d"])
+assert 0.0 <= res[123][2] <= 1.0
 print(sorted(m for m in sys.modules if m.split('.')[0] in {foreign!r}))
 """
 

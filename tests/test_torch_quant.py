@@ -1,0 +1,467 @@
+"""The port's int8 PTQ (segland_tpu_torch/quant) against the JAX package's
+(segland_tpu/quant), from the same numpy weights and inputs, and the port's
+mirrors of tests/test_quant.py's rules.
+
+Bars: ``_wq``, ``_fold_bn`` and ``build_fused_block_inputs`` give the JAX
+values exactly (integers) or to 1e-6 relative (fp32 products of the same
+factors); calibrated scales agree to 1e-6 relative; int8 logits agree within
+5% of the largest logit (tests/test_quant.py's own bar; a scale that differs
+in its last bit flips single roundings), and within 1% when the scales are
+carried across."""
+
+import logging
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn as nn
+
+from torch_helpers import load_port, random_variables, t
+from segland_tpu.models import build_model as j_build
+from segland_tpu.models.backbones.resnet import _make_layer as j_make_layer
+from segland_tpu.quant import QuantConfig as JQuantConfig
+from segland_tpu.quant import calibrate as j_calibrate
+from segland_tpu.quant import quantized_apply as j_quantized_apply
+from segland_tpu.quant import ptq as JP
+from segland_tpu_torch.ckpt import quant_from_jax, quant_to_jax
+from segland_tpu_torch.models import build_model
+from segland_tpu_torch.models.backbones.resnet import _make_layer
+from segland_tpu_torch.quant import (ActScales, QuantConfig, build_fused_block_inputs, calibrate,
+                                     quant_interceptor, quantized_apply)
+from segland_tpu_torch.quant import ptq as P
+
+import flax.linen as fnn
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _nchw(a):
+    return t(a).permute(0, 3, 1, 2)
+
+
+# ---- the pieces ------------------------------------------------------------
+def test_wq_matches_jax_exactly():
+    rng = np.random.RandomState(0)
+    for shape, axes in (((3, 3, 16, 24), (0, 1, 2)), ((40, 12), (0,))):
+        k = rng.randn(*shape).astype(np.float32)
+        k[..., 0] = 0.0  # an all-zero channel takes the 1e-8 floor
+        jq, js = JP._wq(jnp.asarray(k), axes)
+        q, s = P._wq(t(k), axes)
+        assert q.dtype == torch.int8
+        np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+        np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-7, atol=0)
+
+
+def test_fold_bn_matches_jax():
+    rng = np.random.RandomState(1)
+    p = dict(scale=rng.rand(8).astype(np.float32) + 0.5, bias=rng.randn(8).astype(np.float32))
+    st = dict(mean=rng.randn(8).astype(np.float32), var=rng.rand(8).astype(np.float32) + 0.1)
+    bn = nn.BatchNorm2d(8, eps=1e-5)
+    bn.load_state_dict(dict(weight=t(p["scale"]), bias=t(p["bias"]), running_mean=t(st["mean"]),
+                            running_var=t(st["var"]), num_batches_tracked=torch.tensor(0)))
+    js, jb = JP._fold_bn({k: jnp.asarray(v) for k, v in p.items()},
+                         {k: jnp.asarray(v) for k, v in st.items()})
+    s, b = P._fold_bn(bn)
+    np.testing.assert_allclose(s.detach().numpy(), np.asarray(js), rtol=1e-6, atol=0)
+    np.testing.assert_allclose(b.detach().numpy(), np.asarray(jb), rtol=1e-6, atol=1e-7)
+
+
+class JStage(fnn.Module):
+    """A resnet layer as benchmarks/resnet_stage_probe.py stacks it, in bf16."""
+    planes: int
+    blocks: int
+    in_planes: int
+    stride: int = 1
+    dilation: int = 1
+
+    @fnn.compact
+    def __call__(self, x, train: bool = False):
+        for blk in j_make_layer(self.planes, self.blocks, self.in_planes, stride=self.stride,
+                                dilation=self.dilation, dtype=jnp.bfloat16):
+            x = blk(x, train)
+        return x
+
+
+class Stage(nn.Module):
+    def __init__(self, planes, blocks, in_planes, stride=1, dilation=1):
+        super().__init__()
+        self.layer1 = _make_layer(planes, blocks, in_planes, stride=stride, dilation=dilation)
+
+    def forward(self, x):
+        return self.layer1(x.contiguous(memory_format=torch.channels_last))
+
+
+def _as_backbone(tree):
+    """A JStage collection ({layer_i: ...}) under the names the converter
+    knows ({backbone: {layer1_i: ...}})."""
+    return {"backbone": {k.replace("layer_", "layer1_"): v for k, v in tree.items()}}
+
+
+@pytest.fixture(scope="module")
+def stage():
+    jm = JStage(32, 2, 128, 1, 2)
+    x = (np.random.RandomState(2).randn(1, 32, 16, 128) * 2).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    v = _np_tree(random_variables(jm, xb, seed=6))
+    vq = j_calibrate(jm, v, [xb])
+    port = Stage(32, 2, 128, 1, 2).eval()
+    load_port(port, {k: _as_backbone(v[k]) for k in ("params", "batch_stats")},
+              prefix="backbone.")
+    quant = ActScales({k[len("backbone."):]: t(a) for k, a in
+                       quant_from_jax(_as_backbone(_np_tree(vq["quant"]))).items()})
+    return jm, vq, xb, port, quant, _nchw(x).bfloat16()
+
+
+def test_stage_calibration_matches_jax(stage):
+    _, _, _, port, carried, x = stage
+    own = calibrate(port, [x])
+    assert set(own) == set(carried) and len(own) == 6  # 2 blocks x 3 convs, no downsample
+    for k in own:
+        np.testing.assert_allclose(float(own[k]), float(carried[k]), rtol=1e-6)
+
+
+def test_build_fused_block_inputs_matches_jax(stage):
+    jm, vq, _, port, quant, _ = stage
+    jmap = JP.build_fused_block_inputs(vq, JQuantConfig(fused_blocks=True))
+    pmap = build_fused_block_inputs(port, quant, QuantConfig(fused_blocks=True))
+    assert sorted(jmap) == ["layer_0", "layer_1"] and sorted(pmap) == ["layer1.0", "layer1.1"]
+    with_ds = Stage(32, 2, 64, 1, 2)  # 64 != 4 * 32: the first block gets a downsample
+    scales = {f"layer1.{i}.conv{j}": 1.0 for i in (0, 1) for j in (1, 2, 3)}
+    assert sorted(build_fused_block_inputs(with_ds, scales)) == ["layer1.1"]
+    del scales["layer1.1.conv2"]  # a block lacking a scale is left out
+    assert build_fused_block_inputs(with_ds, scales) == {}
+    for jname, name in (("layer_0", "layer1.0"), ("layer_1", "layer1.1")):
+        _assert_same_pre(jmap[jname], pmap[name])
+
+
+def _assert_same_pre(jpre, pre):
+    assert set(pre) == set(jpre)
+    for k in ("w1", "w2", "w3"):
+        assert pre[k].dtype == torch.int8 and pre[k].shape == jpre[k].shape
+        np.testing.assert_array_equal(pre[k].numpy(), np.asarray(jpre[k]))
+    for k in ("a1", "b1", "a2", "b2", "a3", "b3"):
+        np.testing.assert_allclose(pre[k].detach().numpy(), np.asarray(jpre[k]), rtol=1e-6,
+                                   atol=1e-9)
+    for k in ("s_x", "s_h1", "s_h2"):
+        assert isinstance(pre[k], float)
+        np.testing.assert_allclose(pre[k], float(jpre[k]), rtol=1e-6)
+
+
+@pytest.mark.parametrize("route", ["per_conv", "fused_blocks", "fused_conv3"])
+def test_stage_int8_matches_jax_with_carried_scales(stage, route):
+    """Scales calibrated in JAX, carried over; each route against the same
+    route of the JAX package (its fused routes through the interpreter)."""
+    jm, vq, xb, port, quant, x = stage
+    flags = {} if route == "per_conv" else {route: True, "fused_interpret": True}
+    want = np.asarray(j_quantized_apply(jm, JQuantConfig(**flags))(vq, xb), np.float32)
+    with torch.no_grad():
+        got = quantized_apply(port, QuantConfig(**flags))(quant, x)
+    assert got.dtype == torch.bfloat16
+    got = got.float().permute(0, 2, 3, 1).numpy()
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() < 0.05 * scale
+    assert np.abs(got - want).mean() < 0.002 * scale
+
+
+def test_fused_routes_stay_close_to_per_conv_and_are_taken(stage, monkeypatch):
+    _, _, _, port, quant, x = stage
+    from segland_tpu_torch.ops import fused_bottleneck as FB
+
+    calls = []
+    monkeypatch.setattr(FB, "bottleneck_int8_reference",
+                        lambda *a, _fn=FB.bottleneck_int8_reference, **kw:
+                        calls.append(kw["dilation"]) or _fn(*a, **kw))
+    with torch.no_grad():
+        plain = quantized_apply(port)(quant, x).float()
+        blocks = quantized_apply(port, QuantConfig(fused_blocks=True, fused_interpret=True))(
+            quant, x).float()
+        assert calls == [2, 2]  # two eligible blocks, dilation 2
+        conv3 = quantized_apply(port, QuantConfig(fused_conv3=True, fused_interpret=True))(
+            quant, x).float()
+        assert calls == [2, 2]  # fused_conv3 is stock torch, no fused op
+        both = quantized_apply(port, QuantConfig(fused_blocks=True, fused_conv3=True,
+                                                 fused_interpret=True))(quant, x).float()
+        assert calls == [2] * 4  # fused_blocks wins
+        fp32_in = quantized_apply(port, QuantConfig(fused_blocks=True, fused_interpret=True))(
+            quant, x.float())
+        assert calls == [2] * 4 and fp32_in.dtype == torch.float32  # bfloat16 input only
+    scale = plain.abs().max()
+    assert (plain - blocks).abs().max() < 0.05 * scale
+    assert (plain - conv3).abs().max() < 0.05 * scale
+    assert torch.equal(both, blocks)
+    assert not torch.equal(blocks, plain) and not torch.equal(conv3, blocks)
+
+
+def test_fused_request_that_cannot_take_effect_warns(stage, caplog):
+    _, _, _, port, quant, x = stage
+    with caplog.at_level(logging.WARNING, logger="segland_tpu_torch.quant.ptq"):
+        with torch.no_grad():
+            out = quantized_apply(port, QuantConfig(fused_blocks=True))(quant, x)
+            ref = quantized_apply(port)(quant, x)
+    assert "needs CUDA" in caplog.text and torch.equal(out, ref)
+    caplog.clear()
+    mlp = nn.Sequential(nn.Linear(64, 64))
+    q = calibrate(mlp, [torch.randn(2, 64)])
+    with caplog.at_level(logging.WARNING, logger="segland_tpu_torch.quant.ptq"):
+        quantized_apply(mlp, QuantConfig(fused_conv3=True, fused_interpret=True))(
+            q, torch.randn(2, 64))
+    assert "no Bottleneck has a fused-eligible weight set" in caplog.text
+
+
+# ---- narrow deeplab_pop, scales carried both ways --------------------------
+@pytest.fixture(scope="module")
+def deeplab():
+    jm = j_build("deeplab_pop", "resnet10", n_base=7)
+    v = _np_tree(random_variables(jm, jnp.zeros((1, 64, 64, 3)), seed=0))
+    port = load_port(build_model("deeplab_pop", "resnet10", n_base=7), v)
+    img = np.random.RandomState(1).randn(2, 64, 64, 3).astype(np.float32)
+    return jm, v, port, img
+
+
+@pytest.mark.parametrize("estimator", ["absmax", "percentile"])
+def test_calibrate_scales_match_jax(deeplab, estimator):
+    jm, v, port, img = deeplab
+    vq = j_calibrate(jm, v, [jnp.asarray(img)], cfg=JQuantConfig(act_estimator=estimator))
+    want = quant_from_jax(_np_tree(vq["quant"]))
+    got = calibrate(port, [_nchw(img)], QuantConfig(act_estimator=estimator))
+    assert set(got) == set(want) and len(got) == 22
+    assert "backbone.conv1" not in got  # 3 input channels: skipped
+    assert all(a.shape == () and float(a) > 0 for a in got.values())
+    for k in got:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_int8_logits_match_jax_with_scales_carried_across(deeplab, direction):
+    jm, v, port, img = deeplab
+    if direction == "jax_to_port":
+        vq = j_calibrate(jm, v, [jnp.asarray(img)])
+        quant = ActScales({k: t(a) for k, a in quant_from_jax(_np_tree(vq["quant"])).items()})
+    else:
+        quant = calibrate(port, [_nchw(img)])
+        tree = quant_to_jax({k: a.numpy() for k, a in quant.items()}, v["params"])
+        vq = {**v, "quant": tree}
+        assert len(jax.tree_util.tree_leaves(tree)) == len(quant)
+    want = np.asarray(j_quantized_apply(jm)(vq, jnp.asarray(img)))
+    with torch.no_grad():
+        got = quantized_apply(port)(quant, _nchw(img)).permute(0, 2, 3, 1).numpy()
+        fp32 = port(_nchw(img)).permute(0, 2, 3, 1).numpy()
+    scale = np.abs(want).max()
+    assert got.shape == want.shape == (2, 8, 8, 8)
+    assert np.abs(got - want).max() < 0.01 * scale
+    assert 0 < np.abs(got - fp32).max() < 0.1 * scale  # quantized, and still the same model
+
+
+def test_quant_to_jax_refuses_an_unknown_module(deeplab):
+    _, v, _, _ = deeplab
+    with pytest.raises(KeyError, match="nowhere"):
+        quant_to_jax({"backbone.nowhere": np.float32(1.0)}, v["params"])
+    with pytest.raises(KeyError):
+        quant_from_jax({"backbone": {"conv1": {"other": np.float32(1.0)}}})
+
+
+def test_int8_forward_tracks_fp32(deeplab):
+    """The port's mirror of test_calibrate_and_int8_forward_close."""
+    _, _, port, img = deeplab
+    x = _nchw(img)
+    quant = calibrate(port, [x])
+    with torch.no_grad():
+        ref = port(x)
+        out = quantized_apply(port)(quant, x)
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    a = ref.permute(0, 2, 3, 1).reshape(-1, 8).double().numpy()
+    b = out.permute(0, 2, 3, 1).reshape(-1, 8).double().numpy()
+    cos = (a * b).sum(-1) / np.maximum(np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1),
+                                       1e-9)
+    assert cos.mean() > 0.98 and (a.argmax(-1) == b.argmax(-1)).mean() > 0.90
+
+
+def test_running_max_and_state_dict_untouched(deeplab):
+    _, _, port, img = deeplab
+    before = {k: v.clone() for k, v in port.state_dict().items()}
+    small, big = _nchw(img[:1] * 0.1), _nchw(img[:1] * 3.0)
+    q1 = calibrate(port, [small])
+    a1 = {k: float(v) for k, v in q1.items()}
+    v1 = q1.version
+    q2 = calibrate(port, [big], quant=q1)
+    assert q2 is q1 and q2.version == v1 + 1
+    assert all(float(q2[k]) >= a1[k] - 1e-6 for k in a1)
+    assert any(float(q2[k]) > a1[k] for k in a1)
+    after = port.state_dict()
+    assert list(after) == list(before)
+    assert all(torch.equal(after[k], before[k]) for k in before)
+    assert not any("forward" in m.__dict__ for m in port.modules())  # nothing left taken
+
+
+# ---- skip rules, dense layers, errors --------------------------------------
+class SkipNet(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.big = nn.Conv2d(64, 64, 3, padding=1)
+        self.dw = nn.Conv2d(64, 64, 3, padding=1, groups=64)   # depthwise: skip
+        self.grouped = nn.Conv2d(64, 64, 1, groups=2)          # grouped: skip
+        self.narrow_in = nn.Conv2d(64, 16, 1)                  # < 32 out: skip
+        self.widen = nn.Conv2d(16, 64, 1)                      # < 32 in: skip
+        self.same = nn.Conv2d(64, 64, 3, padding="same", dilation=2)
+        self.reflect = nn.Conv2d(64, 64, 3, padding=1, padding_mode="reflect")  # skip
+        self.tiny_head = nn.Conv2d(64, 8, 1)                   # < 32 out: skip
+
+    def forward(self, x):
+        x = self.grouped(self.dw(self.big(x)))
+        x = self.reflect(self.same(self.widen(self.narrow_in(x))))
+        return self.tiny_head(x)
+
+
+def test_skip_rules():
+    net = SkipNet().eval()
+    x = torch.randn(1, 64, 16, 16, generator=torch.Generator().manual_seed(0))
+    quant = calibrate(net, [x])
+    assert set(quant) == {"big", "same"}
+    assert set(calibrate(net, [x], QuantConfig(skip_paths=("sam",)))) == {"big"}
+    assert set(calibrate(net, [x], QuantConfig(min_in=16, min_out=8))) == {
+        "big", "same", "narrow_in", "widen", "tiny_head"}
+    with torch.no_grad():
+        ref, out = net(x), quantized_apply(net)(quant, x)
+    assert (out - ref).abs().max() < 0.05 * ref.abs().max()
+
+
+class MLP(nn.Sequential):
+    def __init__(self):
+        super().__init__(nn.Linear(64, 128), nn.ReLU(), nn.Linear(128, 64))
+
+
+def test_dense_quantization():
+    net = MLP().eval()
+    x = t(np.random.RandomState(2).randn(4, 17, 64).astype(np.float32))
+    quant = calibrate(net, [x])
+    assert set(quant) == {"0", "2"}
+    with torch.no_grad():
+        ref, out = net(x), quantized_apply(net)(quant, x)
+    assert out.shape == ref.shape
+    assert (out - ref).abs().max() / (ref.abs().max() + 1e-9) < 0.05
+    assert not torch.equal(out, ref)
+    assert set(calibrate(net, [x], QuantConfig(quantize_dense=False))) == set()
+
+
+def test_dense_matches_jax_with_the_same_weights():
+    class JMLP(fnn.Module):
+        @fnn.compact
+        def __call__(self, x, train: bool = False):
+            return fnn.Dense(64, name="fc2")(fnn.relu(fnn.Dense(128, name="fc1")(x)))
+
+    rng = np.random.RandomState(3)
+    x = rng.randn(4, 17, 64).astype(np.float32)
+    jm, net = JMLP(), MLP().eval()
+    v = _np_tree(random_variables(jm, jnp.asarray(x), seed=7))
+    for name, mod in (("fc1", net[0]), ("fc2", net[2])):
+        mod.load_state_dict(dict(weight=t(v["params"][name]["kernel"].T),
+                                 bias=t(v["params"][name]["bias"])))
+    vq = j_calibrate(jm, v, [jnp.asarray(x)])
+    want = np.asarray(j_quantized_apply(jm)(vq, jnp.asarray(x)))
+    quant = calibrate(net, [t(x)])
+    np.testing.assert_allclose(float(quant["0"]), float(vq["quant"]["fc1"]["act_amax"]), rtol=1e-6)
+    np.testing.assert_allclose(float(quant["2"]), float(vq["quant"]["fc2"]["act_amax"]), rtol=1e-6)
+    with torch.no_grad():
+        got = quantized_apply(net)(quant, t(x)).numpy()
+    assert np.abs(got - want).max() < 0.01 * np.abs(want).max()
+
+
+def test_int8_without_calibration_raises():
+    net = MLP().eval()
+    x = torch.ones(1, 4, 64)
+    with pytest.raises(ValueError, match="calibrate"):
+        quantized_apply(net)(ActScales(), x)
+    with pytest.raises(ValueError, match="calibrate"):
+        quantized_apply(net)(None, x)
+    with pytest.raises(ValueError, match="no batches"):
+        calibrate(net, [])
+    with pytest.raises(ValueError, match="no activation scale"):
+        quantized_apply(net)(ActScales({"0": torch.tensor(1.0)}), x)  # "2" was never seen
+    with pytest.raises(ValueError, match="unknown quant mode"):
+        quant_interceptor(net, "fp4", quant=ActScales())
+
+
+def test_percentile_calibration_outlier_robust():
+    net = MLP().eval()
+    x = np.random.RandomState(7).randn(4, 32, 64).astype(np.float32)
+    x[0, 0, 0] = 500.0
+    x = t(x)
+    with torch.no_grad():
+        ref = net(x)
+        errs = {}
+        for est in ("absmax", "percentile"):
+            cfg = QuantConfig(act_estimator=est, percentile=99.9)
+            out = quantized_apply(net, cfg)(calibrate(net, [x], cfg), x)
+            errs[est] = float((out - ref)[1:].abs().mean())
+    assert errs["percentile"] < errs["absmax"] * 0.5, errs
+
+
+def test_weights_are_requantized_when_they_change():
+    net = MLP().eval()
+    x = torch.randn(3, 64, generator=torch.Generator().manual_seed(1))
+    quant = calibrate(net, [x])
+    apply = quantized_apply(net)
+    with torch.no_grad():
+        a = apply(quant, x)
+        assert torch.equal(apply(quant, x), a)
+        net[2].weight.mul_(2.0)
+        net[2].bias.zero_()
+        b = apply(quant, x)
+    ref = (a - net[2].bias) * 2.0
+    assert not torch.equal(a, b)
+    with torch.no_grad():
+        fresh = quantized_apply(net)(quant, x)
+    assert torch.equal(b, fresh)
+
+
+def test_interceptor_is_exclusive_and_restores_on_error():
+    net = MLP().eval()
+    quant = ActScales()
+    with quant_interceptor(net, "calibrate", quant=quant):
+        with pytest.raises(RuntimeError, match="another quant_interceptor"):
+            quant_interceptor(net, "calibrate", quant=quant).__enter__()
+    with pytest.raises(ZeroDivisionError):
+        with quant_interceptor(net, "calibrate", quant=quant):
+            1 / 0
+    assert not any("forward" in m.__dict__ for m in net.modules())
+
+
+# ---- the Evaluator's int8 mode ---------------------------------------------
+def test_evaluator_int8_calibrates_then_predicts(deeplab):
+    from segland_tpu_torch.evallib import Evaluator
+
+    _, _, port, img = deeplab
+    ev = Evaluator(port, "cpu", num_classes=8, int8=True, calib_batches=2)
+    scales = []
+    for gain in (1.0, 2.0, 1.5):
+        logits, pred = ev.predict_batch(img * gain, (64, 64))
+        scales.append({k: float(v) for k, v in ev._quant.items()})
+    assert logits.shape == (2, 64, 64, 8) and pred.dtype == torch.uint8
+    assert ev._calib_seen == 2 and len(scales[0]) == 22
+    assert any(scales[1][k] > scales[0][k] for k in scales[0])  # the second batch raised them
+    assert scales[2] == scales[1]                               # the third calibrates nothing
+    fp32 = Evaluator(port, "cpu", num_classes=8).predict_batch(img * 1.5, (64, 64))[0]
+    assert 0 < (logits - fp32).abs().max() < 0.1 * fp32.abs().max()
+    with pytest.raises(ValueError, match="calib_batches"):
+        Evaluator(port, "cpu", int8=True, calib_batches=0)
+
+
+def test_evaluator_precalibrated_scales_skip_the_warm_up(deeplab):
+    from segland_tpu.evallib import Evaluator as JEvaluator
+    from segland_tpu_torch.evallib import Evaluator
+
+    jm, v, port, img = deeplab
+    vq = j_calibrate(jm, v, [jnp.asarray(img)])
+    quant = quant_from_jax(_np_tree(vq["quant"]))
+    ev = Evaluator(port, "cpu", num_classes=8, int8=True, quant=quant)
+    assert ev.calib_batches == 0
+    logits, pred = ev.predict_batch(img * 5.0, (64, 64))  # would raise the scales if it calibrated
+    assert all(float(ev._quant[k]) == float(quant[k]) for k in quant)
+    jlogits, jpred = JEvaluator(jm, vq, num_classes=8, int8=True,
+                                fused_epilogue=False).predict_batch(img * 5.0, (64, 64))
+    assert np.abs(logits.numpy() - np.asarray(jlogits)).max() < 0.01 * np.abs(jlogits).max()
+    assert (pred.numpy() == np.asarray(jpred)).mean() > 0.97

@@ -5,7 +5,10 @@ repo's parity bar), and Evaluator.run confusion matrices equal except for
 pixels whose top-2 logits lie within 1e-3.  The same for swin_pop / swin-s,
 fused and unfused, and by the whole-block route (SEGLAND_SWIN_V3_STAGES=all on
 both sides, both on their plain references) at full width with the third
-stage cut to 2 blocks; at full depth that case is marked slow."""
+stage cut to 2 blocks; at full depth that case is marked slow.  The same for
+deeplab_pop and pspnet_pop over resnet50 at full width and depth, with an
+Evaluator run in int8 whose scales were calibrated by the JAX package; a
+1024^2 tile is marked slow."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -209,3 +212,82 @@ def test_swin_evaluator_square_pad_matches_jax(swin_models):
     assert cm.sum() == 2 * 48 * 64
     ties = int(near_tie_pixels(ev.predict_batch(imgs, (64, 64))[0].numpy()).sum())
     assert np.abs(cm - np.asarray(jcm)).sum() <= 2 * ties
+
+
+# ---- deeplab_pop and pspnet_pop / resnet50 at full width and depth ----------
+@pytest.fixture(scope="module", params=["deeplab_pop", "pspnet_pop"])
+def resnet_models(request):
+    kw = dict(n_base=7, n_novel=4, is_ft=True)
+    jm = j_build(request.param, "resnet50", **kw)
+    v = random_variables(jm, jnp.zeros((1, 64, 64, 3)), seed=9)
+    return request.param, jm, v, load_port(build_model(request.param, "resnet50", **kw), v)
+
+
+@pytest.fixture(scope="module")
+def resnet_image():
+    return np.random.RandomState(10).randn(2, 72, 56, 3).astype(np.float32)
+
+
+def test_resnet_forward_base_parity(resnet_models, resnet_image):
+    name, jm, v, port = resnet_models
+    want = np.asarray(jm.apply(v, jnp.asarray(resnet_image), method=JGFSS.forward_base))
+    got = _port_logits(port, resnet_image, "forward_base")
+    assert got.shape == want.shape == (2, 9, 7, 8)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    assert port.d_model == (256 if name == "deeplab_pop" else 512) and not port.needs_pyramid
+
+
+def test_resnet_forward_all_parity_ft(resnet_models, resnet_image):
+    _, jm, v, port = resnet_models
+    want = np.asarray(jm.apply(v, jnp.asarray(resnet_image)))
+    got = _port_logits(port, resnet_image, "forward_all")
+    assert got.shape == want.shape == (2, 9, 7, 12)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.slow
+def test_resnet_forward_parity_at_1024(resnet_models):
+    _, jm, v, port = resnet_models
+    image = np.random.RandomState(11).randn(1, 1024, 1024, 3).astype(np.float32)
+    want = np.asarray(jm.apply(v, jnp.asarray(image)))
+    got = _port_logits(port, image, "forward_all")
+    assert got.shape == want.shape == (1, 128, 128, 12)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+def test_resnet_os16_and_undilated_reach_the_backbone():
+    for kw, side in ((dict(os=16), 4), (dict(dilated=False), 2)):
+        jm = j_build("deeplab_pop", "resnet10", n_base=7, **kw)
+        v = random_variables(jm, jnp.zeros((1, 64, 64, 3)), seed=12)
+        port = load_port(build_model("deeplab_pop", "resnet10", n_base=7, **kw), v)
+        image = np.random.RandomState(13).randn(1, 64, 64, 3).astype(np.float32)
+        want = np.asarray(jm.apply(v, jnp.asarray(image)))
+        got = _port_logits(port, image, "forward_base")
+        assert got.shape == want.shape == (1, side, side, 8)
+        np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+def test_resnet_evaluator_run_matches_jax_fp32_and_int8(resnet_models):
+    """Evaluator.run in fp32, and in int8 with the scales the JAX package
+    calibrated on the first batch: confusion matrices equal up to near-ties
+    (fp32) and on 98% of the pixels (int8, where single roundings flip)."""
+    from segland_tpu.quant import calibrate as j_calibrate
+    from segland_tpu_torch.ckpt import quant_from_jax
+    import jax
+
+    _, jm, v, port = resnet_models
+    batches = _batches()
+    kw = dict(num_classes=12, n_base=7, normalize_on_device=True)
+    jcm, _, _ = JEvaluator(jm, v, **kw).run(batches)
+    ev = Evaluator(port, "cpu", **kw)
+    cm, _, _ = ev.run(batches)
+    ties = sum(int(near_tie_pixels(ev.predict_batch(imgs, (64, 64))[0].numpy()).sum())
+               for imgs, _, _ in batches)
+    assert cm.sum() == 2 * 2 * 60 * 64 and np.abs(cm - np.asarray(jcm)).sum() <= 2 * ties
+
+    jev = JEvaluator(jm, v, int8=True, calib_batches=1, fused_epilogue=False, **kw)
+    jqcm, _, _ = jev.run(batches, device_prefetch=0)
+    quant = quant_from_jax(jax.tree_util.tree_map(np.asarray, jev._quant))
+    qcm, _, _ = Evaluator(port, "cpu", int8=True, quant=quant, **kw).run(batches)
+    assert qcm.sum() == cm.sum()
+    assert np.abs(qcm - np.asarray(jqcm)).sum() <= 2 * 0.02 * cm.sum()
