@@ -52,7 +52,16 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      resnet50 (1 batch) at full width and depth through Evaluator.run four
      ways: bf16 unquantized, --int8, --int8 --fused (K7 12 and K2 1 a batch,
      any other count fails) and --int8 --fused with the plain versions
-     (>= 99% argmax agreement with the K7 route; int8 vs bf16 is printed).
+     (>= 99% argmax agreement with the K7 route; int8 vs bf16 is printed);
+ 12. K10 hg2_section (head groups, masks from the window index) vs its plain
+     version at the four swin-s stage shapes, shift 0 and 3, every built hg,
+     beside K3 on the same input; each ablation (ioraw, io, attn, softmax) at
+     hg = 1 and the default hg, and the phase split they give; then the
+     head-group probe's entry point (benchmarks/swin_attn_hg.py), the path
+     of K9 and K10;
+ 13. K9 hg_section (head groups, masks shipped in) the same way with
+     per-window mask rows (shift 0 without, shift 3 with regions) and with
+     broadcast mask rows, beside K5 at group 1 on the same input.
 Every launch count is set to 0 just before a path is driven and read just
 after.  The second-to-last line is a JSON object of per-kernel numbers (time,
 plain version's time, bound, library call's time) and the last line is
@@ -60,6 +69,7 @@ plain version's time, bound, library call's time) and the last line is
 the repo beside it, it fails before printing any result.
 
     python3 chip_smoke.py --phases k4,k5    # a subset, while working on a kernel
+    python3 chip_smoke.py --phases k9,k10   # the head-group kernels and their probe
     python3 chip_smoke.py --phases profile  # torch.profiler over the swin and deeplab_pop slices
     python3 chip_smoke.py --phases dilated  # cuDNN's 3x3 at ASPP's dilations vs nine 1x1 taps
 """
@@ -456,6 +466,200 @@ def phase_k5(dev):
                 ms_by_group={str(g): t for g, t in per_group.items()})
 
 
+def hg_builds(c):
+    """{hg: W} of the builds of K9 and K10 at width C (W, the windows a pass,
+    is the wblk that gives K3's grid), and the JAX package's production hg."""
+    from segland_tpu_torch.ops.hg_attn import HG_BUILDS, V2_HG
+
+    return {hg: b.w for (cc, hg), b in sorted(HG_BUILDS.items()) if cc == c}, V2_HG[c // 32]
+
+
+HG_WBLK = 32  # the JAX probe's default windows a thread block
+
+
+def section_bound(nw, c, nh, extra_bytes=0):
+    """K3's count over real tokens (the head-grouped kernels multiply nothing
+    on zeros): x read and out written once, the weights and the bf16 bias once."""
+    return bound(2 * nw * 49 * c * (4 * c + 2 * 49),
+                 2 * nw * 49 * c * 2 + 4 * c * c * 2 + nh * 49 * 49 * 2 + extra_bytes)
+
+
+def hg_input(dev, b, c, nh, side, pside, shift, seed):
+    """(inputs, weights tuple, geom, mask, regions) of one section call in bf16."""
+    import torch
+
+    nw = b * (pside // 7) ** 2
+    geom = (side, side, pside, pside, 7, shift)
+    a = section_inputs(nw, c, nh, torch.bfloat16, dev, seed)
+    w = (a["gamma"], a["beta"], a["wqkv"], a["bqkv"], a["wproj"], a["bproj"], a["bias"], nh)
+    mask, regions = masks_on(dev, geom)
+    return a, w, geom, mask, regions
+
+
+def phase_k10(dev):
+    """K10 hg2_section at the four swin-s stage shapes, shift 0 and 3, every
+    built hg, against its plain version, beside K3 on the same input; then each
+    ablation at hg = 1 and the default hg (shift 3), and the phase split."""
+    from segland_tpu_torch.ops.fused_attn import attn_section
+    from segland_tpu_torch.ops.hg_attn import hg2_section, hg2_section_reference
+
+    worst, plain_ms, bounds, by_hg, by_hg32, k3_ms, split = 0.0, 0.0, [], {}, {}, 0.0, {}
+    main_ms = 0.0
+    for i, (blocks, c, nh, side, pside) in enumerate(SWIN_STAGES):
+        nw = BATCH * (pside // 7) ** 2
+        hgs, hg_main = hg_builds(c)
+        stage_t = {hg: 0.0 for hg in hgs}
+        for shift in (0, 3):
+            a, w, geom, _, _ = hg_input(dev, BATCH, c, nh, side, pside, shift, 120 + i)
+            x = a["x"]
+            k3 = attn_section(x, geom, *w)
+            t3 = cuda_ms(lambda: attn_section(x, geom, *w), iters=5, warmup=1)
+            k3_ms += blocks / 2 * t3
+            for hg, wb in hgs.items():
+                tag = f"K10 bf16 NW={nw} C={c} heads={nh} geom={geom} hg={hg} wblk={wb}"
+                got = hg2_section(x, geom, *w, hg=hg, wblk=wb)
+                e = compare(tag, got, hg2_section_reference(x, geom, *w, hg=hg), 2e-2, 1e-2)
+                worst = max(worst, e)
+                d3 = float((got.float() - k3.float()).abs().max())
+                del got
+                t = cuda_ms(lambda: hg2_section(x, geom, *w, hg=hg, wblk=wb), iters=5, warmup=1)
+                t32 = cuda_ms(lambda: hg2_section(x, geom, *w, hg=hg, wblk=HG_WBLK), iters=3,
+                              warmup=1)
+                tp = cuda_ms(lambda: hg2_section_reference(x, geom, *w, hg=hg), iters=2, warmup=0)
+                by_hg32[f"C={c} hg={hg}"] = by_hg32.get(f"C={c} hg={hg}", 0.0) + blocks / 2 * t32
+                stage_t[hg] += blocks / 2 * t
+                by_hg[f"C={c} hg={hg}"] = by_hg.get(f"C={c} hg={hg}", 0.0) + blocks / 2 * t
+                if hg == hg_main:
+                    plain_ms += blocks / 2 * tp
+                    main_ms += blocks / 2 * t
+                b_ms = section_bound(nw, c, nh)[0]
+                print(f"{tag}: max_abs_err={e:.6g} tol=|d|<=0.02+0.01*|ref| out_of_tol=0 "
+                      f"kernel_ms={t:.4f} wblk{HG_WBLK}_ms={t32:.4f} ({-(-nw // HG_WBLK)} blocks) "
+                      f"plain_ms={tp:.4f} k3_ms={t3:.4f} "
+                      f"max_abs_diff_vs_k3={d3:.6g} bound_ms={b_ms:.4f}", flush=True)
+            del k3
+        bounds += [section_bound(nw, c, nh)] * blocks
+        if len(hgs) > 1 and len({round(t, 3) for t in stage_t.values()}) == 1:
+            fail(f"K10 C={c}: every hg ran in the same time, {stage_t}: is hg a no-op?")
+        # the ablations at shift 3 (the full path: pad mask and regions)
+        a, w, geom, _, _ = hg_input(dev, BATCH, c, nh, side, pside, 3, 130 + i)
+        x = a["x"]
+        for hg in sorted({1, hg_main}):
+            times, wb = {}, hgs[hg]
+            for ab in ("none", "ioraw", "io", "attn", "softmax"):
+                tag = f"K10 bf16 NW={nw} C={c} hg={hg} wblk={wb} ablate={ab}"
+                sums = []
+                want = hg2_section_reference(x, geom, *w, hg=hg, ablate=ab,
+                                             sums=sums if ab == "softmax" else None)
+                got = hg2_section(x, geom, *w, hg=hg, ablate=ab, wblk=wb)
+                held = ""
+                if ab == "softmax":  # rows whose every per-head sum has |s| > 0.05
+                    rows = (sums[0].abs() > 0.05).all(-1)
+                    held = f" rows_held={int(rows.sum())}/{rows.numel()}"
+                    got, want = got[rows], want[rows]
+                worst = max(worst, compare(tag, got, want, 2e-2, 1e-2))
+                del got, want, sums
+                times[ab] = cuda_ms(lambda: hg2_section(x, geom, *w, hg=hg, ablate=ab, wblk=wb),
+                                    iters=5, warmup=1)
+                print(f"{tag}: out_of_tol=0{held} kernel_ms={times[ab]:.4f}", flush=True)
+            split[f"C={c} hg={hg}"] = sp = {
+                "ioraw": times["ioraw"], "io-ioraw": times["io"] - times["ioraw"],
+                "attn-io": times["attn"] - times["io"], "none-attn": times["none"] - times["attn"],
+                "none-softmax (exp, max)": times["none"] - times["softmax"]}
+            print(f"K10 C={c} hg={hg} phase split, ms a call: "
+                  + " ".join(f"{k}={v:.4f}" for k, v in sp.items()), flush=True)
+        del a, x, w
+    b_ms, b_by = sum_bounds(bounds)
+    print(f"K10 per forward of {BATCH} tiles (24 blocks) at the default hg: "
+          f"kernel_ms={main_ms:.4f} "
+          f"plain_ms={plain_ms:.4f} k3_ms={k3_ms:.4f} bound_ms={b_ms:.4f} ({b_by}); by hg: "
+          + " ".join(f"{k}={v:.4f}" for k, v in by_hg.items()), flush=True)
+    print(f"K10 per forward at wblk={HG_WBLK} by hg: "
+          + " ".join(f"{k}={v:.4f}" for k, v in by_hg32.items()), flush=True)
+    return dict(max_abs_err=worst, ms=main_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, k3_ms=k3_ms, ms_by_hg=by_hg, ms_by_hg_wblk32=by_hg32,
+                phase_split=split)
+
+
+def phase_k9(dev):
+    """K9 hg_section at the four swin-s stage shapes (per-window mask rows),
+    shift 0 without and shift 3 with regions, every built hg, against its plain
+    version, beside K5 at group 1 on the same input; then broadcast mask rows."""
+    from segland_tpu_torch.ops.fused_attn import attn_section_v1
+    from segland_tpu_torch.ops.hg_attn import hg_section, hg_section_reference
+
+    worst, plain_ms, bounds, by_hg, k5_ms, main_ms = 0.0, 0.0, [], {}, 0.0, 0.0
+    cases = [(BATCH,) + s[1:] + (s[0], shift) for s in SWIN_STAGES for shift in (0, 3)]
+    cases += [(2, 192, 6, 126, 126, 0, shift) for shift in (0, 3)]  # broadcast mask rows
+    for i, (b, c, nh, side, pside, blocks, shift) in enumerate(cases):
+        nw = b * (pside // 7) ** 2
+        hgs, hg_main = hg_builds(c)
+        a, w, geom, mask, regions = hg_input(dev, b, c, nh, side, pside, shift, 140 + i)
+        x = a["x"]
+        k5 = attn_section_v1(x, mask, *w, regions=regions)
+        t5 = cuda_ms(lambda: attn_section_v1(x, mask, *w, regions=regions), iters=5, warmup=1)
+        k5_ms += blocks / 2 * t5
+        rows_bytes = (mask.numel() + (0 if regions is None else regions.numel())) * 4
+        stage_t = {}
+        for hg, wb in hgs.items():
+            tag = (f"K9 bf16 NW={nw} C={c} heads={nh} mask_rows={mask.shape[0]} "
+                   f"region_rows={0 if regions is None else regions.shape[0]} shift={shift} "
+                   f"hg={hg} wblk={wb}")
+            got = hg_section(x, mask, regions, *w, hg=hg, wblk=wb)
+            want = hg_section_reference(x, mask, regions, *w, hg=hg)
+            e = compare(tag, got, want, 2e-2, 1e-2)
+            worst = max(worst, e)
+            d5 = float((got.float() - k5.float()).abs().max())
+            del got, want
+            t = cuda_ms(lambda: hg_section(x, mask, regions, *w, hg=hg, wblk=wb), iters=5,
+                        warmup=1)
+            tp = cuda_ms(lambda: hg_section_reference(x, mask, regions, *w, hg=hg), iters=2,
+                         warmup=0)
+            stage_t[hg] = t
+            b_ms = section_bound(nw, c, nh, rows_bytes)[0]
+            if blocks:
+                by_hg[f"C={c} hg={hg}"] = by_hg.get(f"C={c} hg={hg}", 0.0) + blocks / 2 * t
+                if hg == hg_main:
+                    plain_ms += blocks / 2 * tp
+                    main_ms += blocks / 2 * t
+            print(f"{tag}: max_abs_err={e:.6g} tol=|d|<=0.02+0.01*|ref| out_of_tol=0 "
+                  f"kernel_ms={t:.4f} plain_ms={tp:.4f} k5_group1_ms={t5:.4f} "
+                  f"max_abs_diff_vs_k5={d5:.6g} bound_ms={b_ms:.4f}", flush=True)
+        if blocks:
+            bounds += [section_bound(nw, c, nh, rows_bytes)] * (blocks // 2)
+        if len(hgs) > 1 and len({round(t, 3) for t in stage_t.values()}) == 1:
+            fail(f"K9 C={c}: every hg ran in the same time, {stage_t}: is hg a no-op?")
+        del a, x, w, k5
+    b_ms, b_by = sum_bounds(bounds)
+    print(f"K9 per forward of {BATCH} tiles (24 blocks) at the default hg: "
+          f"kernel_ms={main_ms:.4f} "
+          f"plain_ms={plain_ms:.4f} k5_group1_ms={k5_ms:.4f} bound_ms={b_ms:.4f} ({b_by}); by hg: "
+          + " ".join(f"{k}={v:.4f}" for k, v in by_hg.items()), flush=True)
+    return dict(max_abs_err=worst, ms=main_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, k5_group1_ms=k5_ms, ms_by_hg=by_hg)
+
+
+HG_PROBE_STAGE, HG_PROBE_ITERS = "stage2", 3
+
+
+def phase_hg_probe():
+    """The probe's path: benchmarks/swin_attn_hg.py's entry point at one stage
+    of a batch of 8 with its default specs (two of each version)."""
+    from segland_tpu_torch.benchmarks import swin_attn_hg
+
+    rows, launches = counted(lambda: swin_attn_hg.main(
+        [HG_PROBE_STAGE, str(BATCH), "--iters", str(HG_PROBE_ITERS)]))
+    # a spec: a warm-up pair and the timed pairs, two launches a pair
+    per_spec = 2 * (1 + HG_PROBE_ITERS)
+    want = {}
+    for r in rows:
+        key = "hg_section" if r["ver"] == 1 else "hg2_section"
+        want[key] = want.get(key, 0) + per_spec
+    if launches != want or set(want) != {"hg_section", "hg2_section"}:
+        fail(f"swin_attn_hg probe launch counts {launches}, want {want} with both versions")
+    return launches
+
+
 def phase_k6(dev):
     """Stage-2 shape: 800 windows, C=384, 12 heads; per block of the stage."""
     import torch
@@ -814,7 +1018,7 @@ def build(name, dtype, seed=0, fused=True, is_ft=False, attn_group=1):
 
 
 COUNTED = ("ln_mlp", "upsample_argmax", "attn_section", "window_attention", "swin_block",
-           "attn_section_v1", "bottleneck_int8", "conv3_residual")
+           "attn_section_v1", "bottleneck_int8", "conv3_residual", "hg_section", "hg2_section")
 
 
 def counters():
@@ -823,9 +1027,11 @@ def counters():
     from segland_tpu_torch.ops.fused_bottleneck import bottleneck_int8, conv3_residual
     from segland_tpu_torch.ops.fused_epilogue import upsample_argmax
     from segland_tpu_torch.ops.fused_mlp import ln_mlp
+    from segland_tpu_torch.ops.hg_attn import hg2_section, hg_section
 
     return dict(zip(COUNTED, (ln_mlp, upsample_argmax, attn_section, window_attention,
-                              swin_block, attn_section_v1, bottleneck_int8, conv3_residual)))
+                              swin_block, attn_section_v1, bottleneck_int8, conv3_residual,
+                              hg_section, hg2_section)))
 
 
 def counted(fn):
@@ -1184,9 +1390,10 @@ def main(argv=None):
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="k1,k2,k3,k6,k4,k5,k8,k7,convnext,swin,deeplab,pspnet",
-                    help="comma list of k1,k2,k3,k6,k4,k5,k8,k7,convnext,swin,deeplab,pspnet "
-                         "(default: all twelve); profile: a torch.profiler breakdown of "
+    ap.add_argument("--phases",
+                    default="k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,convnext,swin,deeplab,pspnet",
+                    help="comma list of k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,convnext,swin,deeplab,"
+                         "pspnet (default: all fourteen); profile: a torch.profiler breakdown of "
                          "the swin and deeplab_pop slices; dilated: cuDNN vs the nine-tap 3x3 at large dilations")
     phases = set(ap.parse_args(argv).phases.split(","))
     if not torch.cuda.is_available():
@@ -1234,13 +1441,18 @@ def main(argv=None):
                                 replaces="segland_tpu/ops/pallas_bottleneck.py:155"),
         "conv3_residual": dict(source=csrc + "bottleneck_int8.cu",
                                replaces="segland_tpu/ops/pallas_bottleneck.py:269"),
+        "hg_section": dict(source=csrc + "attn_section_hg.cu",
+                           replaces="benchmarks/swin_attn_hg.py:125"),
+        "hg2_section": dict(source=csrc + "attn_section_hg.cu",
+                            replaces="benchmarks/swin_attn_hg.py:354"),
     }
     for key, tag, phase in (("ln_mlp", "k1", phase_k1), ("upsample_argmax", "k2", phase_k2),
                             ("attn_section", "k3", phase_k3),
                             ("window_attention", "k6", phase_k6),
                             ("swin_block", "k4", phase_k4), ("attn_section_v1", "k5", phase_k5),
                             ("conv3_residual", "k8", phase_k8),
-                            ("bottleneck_int8", "k7", phase_k7)):
+                            ("bottleneck_int8", "k7", phase_k7),
+                            ("hg2_section", "k10", phase_k10), ("hg_section", "k9", phase_k9)):
         if tag in phases:
             kern[key].update(phase(dev))
             torch.cuda.empty_cache()
@@ -1291,6 +1503,9 @@ def main(argv=None):
 
     if "k8" in phases:
         paths["conv3_probe"] = phase_conv3_probe()
+        torch.cuda.empty_cache()
+    if "k10" in phases:
+        paths["swin_attn_hg probe"] = phase_hg_probe()
         torch.cuda.empty_cache()
     if "deeplab" in phases:
         paths["deeplab_pop int8 fused"] = phase_int8_slice(dev, "deeplab_pop")

@@ -116,7 +116,13 @@ def main(argv=None):
     for seed_str in args.random_seed.split(","):
         seed = int(seed_str)
         if args.restore_from:
-            load_state_dict(model, args.restore_from, logger)
+            path = args.restore_from
+            if args.is_ft:
+                # reference eval_ft.py:154: restore_from[:-4] + '_<seed>.pth' when it exists
+                seeded = f"{os.path.splitext(path)[0]}_{seed}.pth"
+                if os.path.exists(seeded):
+                    path = seeded
+            load_state_dict(model, path, logger)  # logs the file it loaded
         evaluator = Evaluator(model, device, num_classes=args.num_classes, n_base=n_base,
                               ignore_label=args.ignore_label,
                               normalize_on_device=args.device_normalize,

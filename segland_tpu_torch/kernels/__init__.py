@@ -1,7 +1,9 @@
 """Builds and loads the port's CUDA kernels.
 
 Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one ``nvcc``
-a source, all started together; ``csrc/*.cuh`` are shared headers) and
+a source, all started together; ``csrc/*.cuh`` are shared headers; a source
+with a line ``// segland-parts: N`` is compiled N times, with
+``-DSEGLAND_PART=0..N-1``, each part instantiating its share) and
 linked into one shared library with a plain C interface, loaded with
 ``ctypes``.  The build happens at the first
 CUDA call, never at import, so the package imports on a machine without
@@ -17,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -51,6 +54,11 @@ _ENTRIES = {
     # x, w1t, w2t, w3t, a1, b1, a2, b2, a3, b3, out, B, H, W, C, P, d, relu,
     # s_x, s_h1, s_h2, device, stream
     "segland_bottleneck_int8": [_P] * 11 + [_I] * 7 + [ctypes.c_float] * 3 + [_I, _P],
+    # x, mask_tok, rows_m, regions, rows_r, gamma, beta, wqkv, bqkv, wproj, bproj, bias, out,
+    # NW, C, nh, hg, wblk, h, w, hp, wp, ws, shift, eps, ablate, score_f32, device, stream
+    **{name: [_P, _P, _I, _P, _I] + [_P] * 8 + [ctypes.c_longlong] + [_I] * 10
+       + [ctypes.c_float] + [_I] * 3 + [_P]
+       for name in ("segland_hg_section", "segland_hg2_section")},
     # h2q, res, w3t, a3, b3, out, M, P, C, relu, device, stream
     "segland_conv3_residual_int8": [_P] * 6 + [ctypes.c_longlong] + [_I] * 4 + [_P],
 }
@@ -69,6 +77,17 @@ def nvcc_path() -> str:
 
 def sources():
     return sorted(CSRC.glob("*.cu"))
+
+
+def compile_units():
+    """(source, extra nvcc flags) of each nvcc process: one a source, or one a
+    part of a source that declares ``// segland-parts: N``."""
+    units = []
+    for src in sources():
+        m = re.search(r"^// segland-parts: (\d+)$", src.read_text(), re.M)
+        units += ([(src, (f"-DSEGLAND_PART={i}",)) for i in range(int(m.group(1)))] if m
+                  else [(src, ())])
+    return units
 
 
 def library_path() -> Path:
@@ -90,15 +109,17 @@ def build() -> dict:
     tag = f"{so.stem}.{os.getpid()}"
     nvcc = nvcc_path()
     t0 = time.perf_counter()
-    objs = [BUILD / f"{tag}.{src.stem}.o" for src in sources()]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+    units = compile_units()
+    objs = [BUILD / f"{tag}.{src.stem}.{i}.o" for i, (src, _) in enumerate(units)]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(obj), str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for src, obj in zip(sources(), objs)]
+             for (src, flags), obj in zip(units, objs)]
     logs = [proc.communicate()[0] for proc in procs]
     try:
-        for src, proc, out in zip(sources(), procs, logs):
+        for (src, flags), proc, out in zip(units, procs, logs):
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{out}")
+                raise RuntimeError(f"nvcc failed on {src.name} {' '.join(flags)} "
+                                   f"({proc.returncode}):\n{out}")
         tmp = BUILD / f"{tag}.tmp"
         link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
                               capture_output=True, text=True)

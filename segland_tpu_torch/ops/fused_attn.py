@@ -360,8 +360,10 @@ def swin_block_fused(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bia
     partitioned windows in one kernel; x_win [NW, N, C] -> [NW, N, C].
 
     The contract of :func:`swin_attn_section_fused` plus the MLP's parameters;
-    ``geom`` is required.  The JAX function's ``hg`` (head groups packed into
-    the TPU's 128 lanes) has no counterpart on this card and is not taken."""
+    ``geom`` is required.  The JAX function's ``hg`` is not taken here.  Its
+    counterpart on this card, hg heads a pass, is the head-grouped section
+    of ``ops/hg_attn.py`` (K10); on an H100 it pays at C >= 192 and costs at
+    C = 96 (PERF.md), and no block or section route of a model runs it yet."""
     if geom is None:
         raise ValueError("swin_block_fused requires geom = (h, w, hp, wp, ws, shift)")
     if use_kernel(x_win):

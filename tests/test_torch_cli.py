@@ -302,3 +302,32 @@ def test_unported_paths_raise(data_root, pth, tmp_path, extra):
 
     with pytest.raises(NotImplementedError):
         main(_args(data_root, "val.txt", pth[0], str(tmp_path)) + ["--device", "cpu"] + extra)
+
+
+def test_eval_ft_two_seeds_load_their_own_checkpoints(data_root, tmp_path_factory, tmp_path):
+    """Under --is-ft each seed loads <stem>_<seed>.pth when it exists (reference
+    eval_ft.py:154: restore_from[:-4]+'_<seed>.pth'), else the given file.
+    Seed 456's file has zeroed novel prototypes (as tests/test_e2e.py's mirror
+    of this test), so its confusion matrix must differ from seed 123's; without
+    seeded files both seeds score the given file."""
+    from segland_tpu_torch.cli.eval_ft import main
+
+    path, model = _swin_pth(tmp_path_factory, True)
+    seeded, alone = tmp_path / "seeded", tmp_path / "alone"
+    seeded.mkdir()
+    alone.mkdir()
+    sd = model.state_dict()
+    for d in (seeded, alone):
+        torch.save(sd, d / "best.pth")
+    torch.save(sd, seeded / "best_123.pth")
+    torch.save({**sd, "novel_emb": torch.zeros_like(sd["novel_emb"])}, seeded / "best_456.pth")
+    cms = {}
+    for d in (seeded, alone):
+        out = str(tmp_path / f"out_{d.name}")
+        res = main(["--data-dir", str(data_root), "--val-list", str(data_root / "list" / "val.txt"),
+                    "--restore-from", str(d / "best.pth"), "--save-path", out, "--device", "cpu",
+                    "--random-seed", "123,456"] + SWIN)
+        assert set(res) == {123, 456}
+        cms[d.name] = [np.load(os.path.join(out, f"cmatrix_{s}.npy")) for s in (123, 456)]
+    assert not np.array_equal(*cms["seeded"])
+    assert np.array_equal(*cms["alone"]) and np.array_equal(cms["alone"][0], cms["seeded"][0])

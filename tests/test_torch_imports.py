@@ -26,7 +26,8 @@ MODULES = ["segland_tpu_torch", "segland_tpu_torch.ops.fused_mlp",
            "segland_tpu_torch.kernels", "segland_tpu_torch.ops.fused_bottleneck",
            "segland_tpu_torch.ops.int8", "segland_tpu_torch.ops.layers",
            "segland_tpu_torch.models.backbones.resnet", "segland_tpu_torch.quant",
-           "segland_tpu_torch.quant.ptq", "segland_tpu_torch.benchmarks.conv3_probe"]
+           "segland_tpu_torch.quant.ptq", "segland_tpu_torch.benchmarks.conv3_probe",
+           "segland_tpu_torch.ops.hg_attn", "segland_tpu_torch.benchmarks.swin_attn_hg"]
 FOREIGN = ("jax", "flax", "PIL", "segland_tpu")
 
 PROBE = """
