@@ -56,12 +56,21 @@ Phases, each printing its result on its own line; any failure exits non-zero:
  12. K10 hg2_section (head groups, masks from the window index) vs its plain
      version at the four swin-s stage shapes, shift 0 and 3, every built hg,
      beside K3 on the same input; each ablation (ioraw, io, attn, softmax) at
-     hg = 1 and the default hg, and the phase split they give; then the
+     hg = 1 and the default hg, eager and by CUDA graph, and the phase split
+     they give; then the
      head-group probe's entry point (benchmarks/swin_attn_hg.py), the path
      of K9 and K10;
  13. K9 hg_section (head groups, masks shipped in) the same way with
      per-window mask rows (shift 0 without, shift 3 with regions) and with
-     broadcast mask rows, beside K5 at group 1 on the same input.
+     broadcast mask rows, beside K5 at group 1 on the same input;
+ 14. K11 section (the variants probe's section) vs its plain version in all 8
+     modes and both score dtypes at C = 96, 192, 384, shift 0 and 3, one
+     image's windows; its full mode at a batch of 8 beside its plain version,
+     K5 at group 1 and K9 at hg = 1, every mode timed by CUDA graph; then the
+     variants probe's entry point (benchmarks/swin_attn_variants.py) at its
+     three stages through chain_time, its launch count checked;
+ 15. f32: K9, K10 and K11 on fp32 windows (the fp32 body) vs their plain
+     versions at C = 96..768 in every mode, and both probes' check on the card.
 Every launch count is set to 0 just before a path is driven and read just
 after.  The second-to-last line is a JSON object of per-kernel numbers (time,
 plain version's time, bound, library call's time) and the last line is
@@ -70,6 +79,7 @@ the repo beside it, it fails before printing any result.
 
     python3 chip_smoke.py --phases k4,k5    # a subset, while working on a kernel
     python3 chip_smoke.py --phases k9,k10   # the head-group kernels and their probe
+    python3 chip_smoke.py --phases k11,f32  # the variants probe's kernel, the fp32 body
     python3 chip_smoke.py --phases profile  # torch.profiler over the swin and deeplab_pop slices
     python3 chip_smoke.py --phases dilated  # cuDNN's 3x3 at ASPP's dilations vs nine 1x1 taps
 """
@@ -545,7 +555,7 @@ def phase_k10(dev):
         a, w, geom, _, _ = hg_input(dev, BATCH, c, nh, side, pside, 3, 130 + i)
         x = a["x"]
         for hg in sorted({1, hg_main}):
-            times, wb = {}, hgs[hg]
+            times, gtimes, wb = {}, {}, hgs[hg]
             for ab in ("none", "ioraw", "io", "attn", "softmax"):
                 tag = f"K10 bf16 NW={nw} C={c} hg={hg} wblk={wb} ablate={ab}"
                 sums = []
@@ -561,13 +571,17 @@ def phase_k10(dev):
                 del got, want, sums
                 times[ab] = cuda_ms(lambda: hg2_section(x, geom, *w, hg=hg, ablate=ab, wblk=wb),
                                     iters=5, warmup=1)
-                print(f"{tag}: out_of_tol=0{held} kernel_ms={times[ab]:.4f}", flush=True)
-            split[f"C={c} hg={hg}"] = sp = {
-                "ioraw": times["ioraw"], "io-ioraw": times["io"] - times["ioraw"],
-                "attn-io": times["attn"] - times["io"], "none-attn": times["none"] - times["attn"],
-                "none-softmax (exp, max)": times["none"] - times["softmax"]}
-            print(f"K10 C={c} hg={hg} phase split, ms a call: "
-                  + " ".join(f"{k}={v:.4f}" for k, v in sp.items()), flush=True)
+                gtimes[ab] = chain_ms(
+                    lambda a: hg2_section(a, geom, *w, hg=hg, ablate=ab, wblk=wb), x)
+                print(f"{tag}: out_of_tol=0{held} kernel_ms={times[ab]:.4f} "
+                      f"graph_ms={gtimes[ab]:.4f}", flush=True)
+            for how, tt in (("eager", times), ("graph", gtimes)):
+                sp = {"ioraw": tt["ioraw"], "io-ioraw": tt["io"] - tt["ioraw"],
+                      "attn-io": tt["attn"] - tt["io"], "none-attn": tt["none"] - tt["attn"],
+                      "none-softmax (exp, max)": tt["none"] - tt["softmax"]}
+                split[f"C={c} hg={hg} {how}"] = sp
+                print(f"K10 C={c} hg={hg} phase split, ms a call ({how}): "
+                      + " ".join(f"{k}={v:.4f}" for k, v in sp.items()), flush=True)
         del a, x, w
     b_ms, b_by = sum_bounds(bounds)
     print(f"K10 per forward of {BATCH} tiles (24 blocks) at the default hg: "
@@ -647,17 +661,189 @@ def phase_hg_probe():
     of a batch of 8 with its default specs (two of each version)."""
     from segland_tpu_torch.benchmarks import swin_attn_hg
 
-    rows, launches = counted(lambda: swin_attn_hg.main(
+    rows, seen = counted(lambda: swin_attn_hg.main(
         [HG_PROBE_STAGE, str(BATCH), "--iters", str(HG_PROBE_ITERS)]))
-    # a spec: a warm-up pair and the timed pairs, two launches a pair
-    per_spec = 2 * (1 + HG_PROBE_ITERS)
-    want = {}
+    per_spec = chain_launches(HG_PROBE_ITERS)
+    want, ran = {}, {}
     for r in rows:
         key = "hg_section" if r["ver"] == 1 else "hg2_section"
         want[key] = want.get(key, 0) + per_spec
-    if launches != want or set(want) != {"hg_section", "hg2_section"}:
-        fail(f"swin_attn_hg probe launch counts {launches}, want {want} with both versions")
-    return launches
+        for k, n in r["launches"].items():
+            ran[k] = ran.get(k, 0) + n
+    ran = {k: n for k, n in ran.items() if n}
+    if ran != want or set(want) != {"hg_section", "hg2_section"} or set(seen) != set(want):
+        fail(f"swin_attn_hg probe launch counts {ran} (counters {seen}), want {want} with "
+             "both versions")
+    return ran
+
+
+def chain_launches(iters):
+    """Launches of one section wrapper that the probes' chain_time runs for a
+    variant, two sections a link: the eager chain (warm-up and timed rounds),
+    then the graph's eager round before capture and its replays."""
+    from segland_tpu_torch.benchmarks.swin_attn_variants import CHAIN, WARMUP
+
+    return 2 * CHAIN * (WARMUP + iters) + 2 * CHAIN * (1 + WARMUP + iters)
+
+
+def chain_ms(op, x):
+    """ms a call of op by the probes' chain_time, CUDA graph minus its baseline."""
+    from segland_tpu_torch.benchmarks.swin_attn_variants import baseline, chain_time
+
+    return chain_time(op, x, graph=True)[0] - baseline(x, graph=True)
+
+
+K11_WBLK = 32  # the JAX probe's default windows a thread block
+
+
+def phase_k11(dev):
+    """K11 section against its plain version in all 8 modes and both score
+    dtypes at C = 96, 192, 384 (one image's windows), shift 0 and 3 (with
+    regions); then its full mode at a batch of 8 at the three stage shapes,
+    timed beside its plain version, K5 at group 1 and K9 at hg = 1 on the same
+    inputs."""
+    from segland_tpu_torch.ops.fused_attn import attn_section_v1
+    from segland_tpu_torch.ops.hg_attn import hg_section
+    from segland_tpu_torch.ops.section_variants import (ABLATIONS, SECTION_BUILDS, section,
+                                                        section_reference)
+
+    worst = {}
+    for i, (blocks, c, nh, side, pside) in enumerate(SWIN_STAGES[:3]):
+        for shift in (0, 3):
+            a, w, geom, mask, regions = hg_input(dev, 1, c, nh, side, pside, shift, 160 + i)
+            x = a["x"]
+            for ab in ABLATIONS:
+                for sf, wb in ((True, K11_WBLK), (False, 7)):  # 7: ragged passes and blocks
+                    tag = (f"K11 bf16 NW={x.shape[0]} C={c} shift={shift} ablate={ab} "
+                           f"score_f32={sf} wblk={wb}")
+                    got = section(x, mask, regions, *w, wblk=wb, score_f32=sf, ablate=ab)
+                    want = section_reference(x, mask, regions, *w, score_f32=sf, ablate=ab)
+                    worst[ab] = max(worst.get(ab, 0.0), compare(tag, got, want, 2e-2, 1e-2))
+                    del got, want
+            del a, x, w
+    print("K11 bf16 largest error by mode (|d|<=0.02+0.01*|ref|, no element outside): "
+          + " ".join(f"{k}={v:.6g}" for k, v in worst.items()), flush=True)
+
+    ms = plain_ms = k5_ms = k9_ms = 0.0
+    bounds, modes = [], {}
+    for i, (blocks, c, nh, side, pside) in enumerate(SWIN_STAGES[:3]):
+        nw = BATCH * (pside // 7) ** 2
+        wb = SECTION_BUILDS[c].w
+        for shift in (0, 3):
+            a, w, geom, mask, regions = hg_input(dev, BATCH, c, nh, side, pside, shift, 170 + i)
+            x = a["x"]
+            tag = f"K11 bf16 NW={nw} C={c} shift={shift} wblk={wb}"
+            compare(tag, section(x, mask, regions, *w, wblk=wb),
+                    section_reference(x, mask, regions, *w), 2e-2, 1e-2)
+            t = cuda_ms(lambda: section(x, mask, regions, *w, wblk=wb), iters=5, warmup=1)
+            t32 = cuda_ms(lambda: section(x, mask, regions, *w, wblk=K11_WBLK), iters=3, warmup=1)
+            tp = cuda_ms(lambda: section_reference(x, mask, regions, *w), iters=2, warmup=0)
+            t5 = cuda_ms(lambda: attn_section_v1(x, mask, *w, regions=regions), iters=5, warmup=1)
+            t9 = cuda_ms(lambda: hg_section(x, mask, regions, *w, hg=1,
+                                            wblk=hg_builds(c)[0][1]), iters=5, warmup=1)
+            rows_bytes = (mask.numel() + (0 if regions is None else regions.numel())) * 4
+            b_ms, b_by = section_bound(nw, c, nh, rows_bytes)
+            print(f"{tag}: kernel_ms={t:.4f} wblk{K11_WBLK}_ms={t32:.4f} "
+                  f"({-(-nw // K11_WBLK)} blocks) plain_ms={tp:.4f} k5_group1_ms={t5:.4f} "
+                  f"k9_hg1_ms={t9:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+            if shift:  # every mode at the full grid, ms a call by CUDA graph
+                modes[c] = {ab: chain_ms(lambda a: section(a, mask, regions, *w, wblk=wb,
+                                                           ablate=ab), x) for ab in ABLATIONS}
+                print(f"K11 C={c} wblk={wb} by mode, graph ms a call: "
+                      + " ".join(f"{k}={v:.4f}" for k, v in modes[c].items()), flush=True)
+            ms += blocks / 2 * t
+            plain_ms += blocks / 2 * tp
+            k5_ms += blocks / 2 * t5
+            k9_ms += blocks / 2 * t9
+            bounds += [(b_ms, b_by)] * (blocks // 2)
+            del a, x, w
+    b_ms, b_by = sum_bounds(bounds)
+    print(f"K11 per forward of {BATCH} tiles, stages 0-2 (22 blocks): kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} k5_group1_ms={k5_ms:.4f} k9_hg1_ms={k9_ms:.4f} "
+          f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+    return dict(max_abs_err=max(worst.values()), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, k5_group1_ms=k5_ms, k9_hg1_ms=k9_ms,
+                max_abs_err_by_mode=worst, graph_ms_by_mode=modes)
+
+
+def phase_f32(dev):
+    """The fp32 body: K9, K10 and K11 on fp32 windows against their plain
+    versions (|d| <= 1e-5 + 1e-5 * |ref|; K11's softmax ablation, whose
+    output reaches 1e6, at 1e-5 of its largest |ref|; bf16sm, which rounds
+    its exponentials to bf16, at the bf16 bar) at C = 96, 192, 384, 768 with
+    one image's windows, every mode; then both probes' own check on the card."""
+    import torch
+    from segland_tpu_torch.benchmarks import swin_attn_hg, swin_attn_variants
+    from segland_tpu_torch.ops.hg_attn import (ABLATIONS as HG_ABLATIONS, V2_HG, hg2_section,
+                                               hg2_section_reference, hg_section,
+                                               hg_section_reference)
+    from segland_tpu_torch.ops.section_variants import (ABLATIONS, section, section_reference)
+
+    worst = {"hg_section": 0.0, "hg2_section": 0.0, "section": 0.0}
+
+    def held(key, tag, got, want, ab="none"):
+        if ab == "bf16sm":
+            e = compare(tag, got, want, 2e-2, 1e-2)
+        elif ab == "softmax" and key == "section":
+            e = compare(tag, got, want, 1e-5 * float(want.abs().max()), 0.0)
+        else:
+            e = compare(tag, got, want, 1e-5, 1e-5)
+        worst[key] = max(worst[key], e)
+        print(f"{tag}: max_abs_err={e:.6g}", flush=True)
+
+    for i, (blocks, c, nh, side, pside) in enumerate(SWIN_STAGES):
+        for shift in (0, 3):
+            nw = (pside // 7) ** 2
+            geom = (side, side, pside, pside, 7, shift)
+            a = section_inputs(nw, c, nh, torch.float32, dev, 180 + i)
+            w = (a["gamma"], a["beta"], a["wqkv"], a["bqkv"], a["wproj"], a["bproj"], a["bias"],
+                 nh)
+            mask, regions = masks_on(dev, geom)
+            x = a["x"]
+            for hg in sorted({1, V2_HG[nh]}):
+                tag = f"K9 fp32 NW={nw} C={c} shift={shift} hg={hg}"
+                held("hg_section", tag, hg_section(x, mask, regions, *w, hg=hg, wblk=5),
+                     hg_section_reference(x, mask, regions, *w, hg=hg))
+                for ab in HG_ABLATIONS if shift else ("none",):
+                    tag = f"K10 fp32 NW={nw} C={c} shift={shift} hg={hg} ablate={ab}"
+                    held("hg2_section", tag, hg2_section(x, geom, *w, hg=hg, wblk=5, ablate=ab),
+                         hg2_section_reference(x, geom, *w, hg=hg, ablate=ab))
+            if c <= 384 or shift:
+                for ab in ABLATIONS:
+                    tag = f"K11 fp32 NW={nw} C={c} shift={shift} ablate={ab}"
+                    held("section", tag, section(x, mask, regions, *w, wblk=5, ablate=ab),
+                         section_reference(x, mask, regions, *w, ablate=ab), ab)
+            del a, x, w
+    swin_attn_hg.main(["check", "--device", "cuda"])
+    swin_attn_variants.main(["check", "--device", "cuda"])
+    print("fp32 largest error: " + " ".join(f"{k}={v:.6g}" for k, v in worst.items()),
+          flush=True)
+    return worst
+
+
+VARIANTS_ITERS = 3
+
+
+def phase_variants_probe():
+    """The variants probe's path: benchmarks/swin_attn_variants.py's entry
+    point at each of its stages for a batch of 8, its 15 variants through
+    chain_time (CUDA graph and eager)."""
+    import torch
+    from segland_tpu_torch.benchmarks import swin_attn_variants
+
+    want, ran = chain_launches(VARIANTS_ITERS), 0
+    for stage in swin_attn_variants.STAGES:
+        rows, seen = counted(lambda: swin_attn_variants.main(
+            [stage, str(BATCH), "--iters", str(VARIANTS_ITERS)]))
+        if len(rows) != len(swin_attn_variants.VARIANTS) or set(seen) != {"section"}:
+            fail(f"swin_attn_variants {stage}: {len(rows)} variants, counters {seen}")
+        for r in rows:
+            if r["launches"] != want:
+                fail(f"swin_attn_variants {stage} v{r['variant']}: {r['launches']} launches, "
+                     f"want {want}")
+            ran += r["launches"]
+        torch.cuda.empty_cache()
+    return {"section": ran}
 
 
 def phase_k6(dev):
@@ -1018,7 +1204,8 @@ def build(name, dtype, seed=0, fused=True, is_ft=False, attn_group=1):
 
 
 COUNTED = ("ln_mlp", "upsample_argmax", "attn_section", "window_attention", "swin_block",
-           "attn_section_v1", "bottleneck_int8", "conv3_residual", "hg_section", "hg2_section")
+           "attn_section_v1", "bottleneck_int8", "conv3_residual", "hg_section", "hg2_section",
+           "section")
 
 
 def counters():
@@ -1028,10 +1215,11 @@ def counters():
     from segland_tpu_torch.ops.fused_epilogue import upsample_argmax
     from segland_tpu_torch.ops.fused_mlp import ln_mlp
     from segland_tpu_torch.ops.hg_attn import hg2_section, hg_section
+    from segland_tpu_torch.ops.section_variants import section
 
     return dict(zip(COUNTED, (ln_mlp, upsample_argmax, attn_section, window_attention,
                               swin_block, attn_section_v1, bottleneck_int8, conv3_residual,
-                              hg_section, hg2_section)))
+                              hg_section, hg2_section, section)))
 
 
 def counted(fn):
@@ -1391,10 +1579,12 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,convnext,swin,deeplab,pspnet",
-                    help="comma list of k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,convnext,swin,deeplab,"
-                         "pspnet (default: all fourteen); profile: a torch.profiler breakdown of "
-                         "the swin and deeplab_pop slices; dilated: cuDNN vs the nine-tap 3x3 at large dilations")
+                    default="k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,swin,deeplab,"
+                            "pspnet",
+                    help="comma list of k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,swin,"
+                         "deeplab,pspnet (default: all sixteen); profile: a torch.profiler "
+                         "breakdown of the swin and deeplab_pop slices; dilated: cuDNN vs the "
+                         "nine-tap 3x3 at large dilations")
     phases = set(ap.parse_args(argv).phases.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1445,6 +1635,8 @@ def main(argv=None):
                            replaces="benchmarks/swin_attn_hg.py:125"),
         "hg2_section": dict(source=csrc + "attn_section_hg.cu",
                             replaces="benchmarks/swin_attn_hg.py:354"),
+        "section": dict(source=csrc + "attn_section_variants.cu",
+                        replaces="benchmarks/swin_attn_variants.py:135"),
     }
     for key, tag, phase in (("ln_mlp", "k1", phase_k1), ("upsample_argmax", "k2", phase_k2),
                             ("attn_section", "k3", phase_k3),
@@ -1452,10 +1644,15 @@ def main(argv=None):
                             ("swin_block", "k4", phase_k4), ("attn_section_v1", "k5", phase_k5),
                             ("conv3_residual", "k8", phase_k8),
                             ("bottleneck_int8", "k7", phase_k7),
-                            ("hg2_section", "k10", phase_k10), ("hg_section", "k9", phase_k9)):
+                            ("hg2_section", "k10", phase_k10), ("hg_section", "k9", phase_k9),
+                            ("section", "k11", phase_k11)):
         if tag in phases:
             kern[key].update(phase(dev))
             torch.cuda.empty_cache()
+    if "f32" in phases:
+        for key, err in phase_f32(dev).items():
+            kern[key]["fp32_max_abs_err"] = err
+        torch.cuda.empty_cache()
 
     paths = {}
     if "convnext" in phases:
@@ -1506,6 +1703,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "k10" in phases:
         paths["swin_attn_hg probe"] = phase_hg_probe()
+        torch.cuda.empty_cache()
+    if "k11" in phases:
+        paths["swin_attn_variants probe"] = phase_variants_probe()
         torch.cuda.empty_cache()
     if "deeplab" in phases:
         paths["deeplab_pop int8 fused"] = phase_int8_slice(dev, "deeplab_pop")

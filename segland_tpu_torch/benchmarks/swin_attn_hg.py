@@ -5,7 +5,7 @@ pair of a stage's blocks (shift 0, then shift 3).  Port of
 benchmarks/swin_attn_hg.py.
 
     python -m segland_tpu_torch.benchmarks.swin_attn_hg [stage] [batch] [specs]
-    python -m segland_tpu_torch.benchmarks.swin_attn_hg check     # exactness, on the CPU
+    python -m segland_tpu_torch.benchmarks.swin_attn_hg check [--device cuda]  # exactness
     python -m segland_tpu_torch.benchmarks.swin_attn_hg stage1 2 1-1-8,2-6-8 --device cpu
 
 stage is stage0..stage3 (C = 96, 192, 384, 768), batch defaults to 16, and a
@@ -14,18 +14,19 @@ heads a pass, wblk windows a thread block, bf16 scores instead of fp32, and
 for ver 2 an ablation (ioraw, io, attn, softmax).  The default specs take the
 JAX package's production head group for the stage's head count (``V2_HG``).
 
-Times are CUDA events around ``--iters`` pairs after one warm-up pair (the
-host clock with ``--device cpu``, where the plain versions run).  The JAX
-script's ``chain_time`` and its baseline subtraction exist to hide the TPU's
-dispatch behind a ``lax.scan``; a CUDA launch needs neither.  The TPU layout
-devices of the JAX script raise ValueError: the tokens ``par`` and ``vm<N>``,
-``flat``, ``prepad`` with the stages ``stage0p`` / ``stage1p``, and the
-ablation ``build``.  Errors propagate: nothing is reported as FAILED and
-skipped.
+Times come from the variants probe's ``chain_time``, as the JAX script's
+do: a chain of 6 pairs captured once in a CUDA graph and replayed, minus the
+same chain of an op that only slices, ms a pair (``--iters`` timed rounds).
+Eager launches timed by CUDA events hold the launchers' host cost wherever
+a call is shorter than it (about 0.1 ms a call on an H100), which the graph
+takes out; the eager time is printed beside.  With ``--device cpu`` only the eager chain runs, on
+the host clock, through the plain versions.  The TPU layout devices of the
+JAX script raise ValueError: the tokens ``par`` and ``vm<N>``, ``flat``,
+``prepad`` with the stages ``stage0p`` / ``stage1p``, and the ablation
+``build``.  Errors propagate: nothing is reported as FAILED and skipped.
 """
 
 import argparse
-import time
 
 import numpy as np
 import torch
@@ -84,11 +85,13 @@ def _weights(inp):
             inp["bias"], inp["nh"])
 
 
-def check(bar=2e-5):
-    """Both sections' plain versions against attn_section_reference in fp32 on
-    the CPU (the JAX script's check, which runs its kernels in interpret mode)."""
+def check(bar=2e-5, device="cpu"):
+    """Both sections in fp32 against attn_section_reference (the JAX script's
+    check, which runs its kernels in interpret mode): on a CUDA device the
+    fp32 kernels, on the CPU the plain versions."""
+    dev = torch.device(device)
     for stage, hgs in (("stage0", (1, 3)), ("stage2", (2, 4, 6))):
-        inp = make_inputs(stage, 1, dtype=torch.float32, h_override=26)
+        inp = make_inputs(stage, 1, dtype=torch.float32, h_override=26, device=dev)
         x, w = inp["wins"], _weights(inp)
         for shifted in (False, True):
             mask = inp["mask1"] if shifted else inp["mask0"]
@@ -99,7 +102,8 @@ def check(bar=2e-5):
                 for ver, got in ((1, hg_section(x, mask, reg, *w, wblk=4, hg=hg)),
                                  (2, hg2_section(x, geom, *w, wblk=4, hg=hg))):
                     d = float((got - ref).abs().max())
-                    print(f"{stage} shifted={shifted} hg={hg} v{ver}: max|d|={d:.2e}", flush=True)
+                    print(f"{stage} shifted={shifted} hg={hg} v{ver} ({dev.type}): "
+                          f"max|d|={d:.2e}", flush=True)
                     if not d < bar:
                         raise AssertionError(f"{stage} shifted={shifted} hg={hg} v{ver}: "
                                              f"max|d| {d:.3g} >= {bar}")
@@ -134,22 +138,6 @@ def parse_spec(spec):
     return out
 
 
-def _ms(fn, iters, dev):
-    fn()  # warm-up
-    if dev.type == "cuda":
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize(dev)
-        return start.elapsed_time(end) / iters
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    return 1e3 * (time.perf_counter() - t0) / iters
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description="head-grouped attention-section probe")
     ap.add_argument("stage", nargs="?", default="stage0", help="stage0..stage3, or check")
@@ -157,11 +145,11 @@ def main(argv=None):
     ap.add_argument("specs", nargs="?", default=None, help="comma list of specs")
     ap.add_argument("layout", nargs="?", default=None, help="prepad (TPU only: raises)")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.stage == "check":
-        check()
+        check(device=args.device)
         return []
     if args.layout is not None:
         raise ValueError(f"{args.layout!r}: {TPU_ONLY.get(args.layout, 'unknown layout')}")
@@ -172,27 +160,40 @@ def main(argv=None):
     specs = (args.specs.split(",") if args.specs
              else ["1-1-32", f"1-{hg}-32", f"2-{hg}-32", f"2-{hg}-64"])
     parsed = [(spec, parse_spec(spec)) for spec in specs]  # every spec is checked first
+    from .swin_attn_variants import baseline, chain_time
+
     w = _weights(inp)
+    graph = dev.type == "cuda"
+    base_e = baseline(inp["wins"], graph=False)
+    base_g = baseline(inp["wins"], graph=True) if graph else None
     rows = []
     for spec, s in parsed:
         kw = dict(wblk=s["wblk"], hg=s["hg"], score_f32=s["score_f32"])
         if s["ver"] == 1:
-            def pair(kw=kw):
-                y = hg_section(inp["wins"], inp["mask0"], None, *w, **kw)
+            def pair(x, kw=kw):
+                y = hg_section(x, inp["mask0"], None, *w, **kw)
                 return hg_section(y, inp["mask1"], inp["regions"], *w, **kw)
         else:
             kw["ablate"] = s["ablate"]
 
-            def pair(kw=kw):
-                y = hg2_section(inp["wins"], inp["geom"] + (0,), *w, **kw)
+            def pair(x, kw=kw):
+                y = hg2_section(x, inp["geom"] + (0,), *w, **kw)
                 return hg2_section(y, inp["geom"] + (WS // 2,), *w, **kw)
-        ms = _ms(pair, args.iters, dev)
+        counted = (hg_section, hg2_section)
+        eager, n = chain_time(pair, inp["wins"], iters=args.iters, graph=False, counted=counted)
+        row = dict(spec=spec, stage=args.stage, batch=args.batch, eager_ms=eager - base_e,
+                   ms=eager - base_e, launches=n, **s)
+        if graph:
+            ms, ng = chain_time(pair, inp["wins"], iters=args.iters, graph=True, counted=counted)
+            row.update(ms=ms - base_g, launches={k: v + ng[k] for k, v in n.items()})
         name = (f"v{s['ver']} hg={s['hg']} wblk={s['wblk']} "
                 f"{'f32' if s['score_f32'] else 'bf16'} scores"
                 + (f" ablate={s['ablate']}" if s["ablate"] != "none" else ""))
-        print(f"{args.stage} b{args.batch} {name}: {ms:8.3f} ms a pair ({nw} windows, "
-              f"{-(-nw // s['wblk'])} blocks, {dev.type})", flush=True)
-        rows.append(dict(spec=spec, stage=args.stage, batch=args.batch, ms=ms, **s))
+        times = (f"graph {row['ms']:8.4f} ms, eager {eager - base_e:8.4f}" if graph
+                 else f"eager {row['ms']:8.4f} ms (host clock, plain versions)")
+        print(f"{args.stage} b{args.batch} {name}: {times} a pair ({nw} windows, "
+              f"{-(-nw // s['wblk'])} blocks)", flush=True)
+        rows.append(row)
     return rows
 
 

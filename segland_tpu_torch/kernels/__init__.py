@@ -59,6 +59,14 @@ _ENTRIES = {
     **{name: [_P, _P, _I, _P, _I] + [_P] * 8 + [ctypes.c_longlong] + [_I] * 10
        + [ctypes.c_float] + [_I] * 3 + [_P]
        for name in ("segland_hg_section", "segland_hg2_section")},
+    # x, mask_tok, rows_m, regions, rows_r, gamma, beta, wqkv, bqkv, wproj, bproj, bias, out,
+    # NW, C, nh, wblk, eps, mode, score_f32, device, stream
+    "segland_section_variants": [_P, _P, _I, _P, _I] + [_P] * 8 + [ctypes.c_longlong]
+                                + [_I] * 3 + [ctypes.c_float] + [_I] * 3 + [_P],
+    # x, mask_tok, rows_m, regions, rows_r, gamma, beta, wqkv, bqkv, wproj, bproj, bias, out,
+    # NW, C, nh, wblk, h, w, hp, wp, ws, shift, eps, mode, norm_first, group, device, stream
+    "segland_section_f32": [_P, _P, _I, _P, _I] + [_P] * 8 + [ctypes.c_longlong] + [_I] * 9
+                           + [ctypes.c_float] + [_I] * 4 + [_P],
     # h2q, res, w3t, a3, b3, out, M, P, C, relu, device, stream
     "segland_conv3_residual_int8": [_P] * 6 + [ctypes.c_longlong] + [_I] * 4 + [_P],
 }

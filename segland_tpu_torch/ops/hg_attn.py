@@ -3,10 +3,10 @@ probe.  Port of benchmarks/swin_attn_hg.py's ``hg_section`` (masks shipped in
 as ``[rows, 49]`` tables) and ``hg2_section`` (masks from the window index,
 plus timing ablations), with their names.
 
-A CUDA tensor goes to ``kernels/csrc/attn_section_hg.cu`` (K9, K10) or
-raises; a CPU tensor, or any tensor inside ``ops.plain_versions()``, goes to
-the plain versions :func:`hg_section_reference` and
-:func:`hg2_section_reference`.  Both follow the JAX bodies' order of
+A CUDA tensor goes to ``kernels/csrc/attn_section_hg.cu`` (K9, K10, bf16)
+or ``kernels/csrc/attn_section_f32.cu`` (fp32), or raises; a CPU tensor, or
+any tensor inside ``ops.plain_versions()``, goes to the plain versions
+:func:`hg_section_reference` and :func:`hg2_section_reference`.  Both follow the JAX bodies' order of
 arithmetic (T is x's dtype, bf16 or fp32):
 
     y    = T((LN(x) * gamma + beta) * mask)               fp32 stats, fast variance
@@ -101,12 +101,72 @@ def _fmt(layout):
     return f"{parts} = {layout['smem']:,} B"
 
 
+# ---- the fp32 body of K9, K10 and K11 -----------------------------------------------
+# attn_section_f32.cu: exact FMA loops, one window a pass, its fp32 rows y [49, C], q, k, v
+# [56, 33] (the 7 pad tokens of the JAX wrappers' fp32 layout included), scores [49, 57],
+# 7 rows of context for the projection [7, C] and the token tables in shared memory.
+F32_WIDTHS = (96, 192, 384, 768)
+
+
+def f32_layout(c: int) -> dict:
+    """Shared memory of the fp32 body at width C, by buffer in bytes: the
+    arithmetic of f32_smem_floats in attn_section_f32.cu."""
+    parts = dict(y=49 * c * 4, qkv=3 * 56 * 33 * 4, scores=49 * 57 * 4, rows=7 * c * 4,
+                 tokens=2 * 56 * 4)
+    return dict(parts, smem=sum(parts.values()))
+
+
+def check_f32_width(c: int):
+    """Raise ValueError unless the fp32 body is built at width C, with the
+    arithmetic of a width that does not fit."""
+    if c in F32_WIDTHS:
+        return
+    lay = f32_layout(c)
+    parts = " + ".join(f"{k} {v:,}" for k, v in lay.items() if k != "smem")
+    why = (f"one window needs {parts} = {lay['smem']:,} B > {SMEM_MAX:,}"
+           if lay["smem"] > SMEM_MAX else f"built at C in {F32_WIDTHS} only")
+    raise ValueError(f"no float32 build for C={c}: {why}")
+
+
+# the fp32 body's modes; ``norm_first`` picks K11's order (normalise before PV, the
+# softmax ablation undivided) over the head-grouped kernels' (divide after PV)
+_F32_MODES = {"none": 0, "ioraw": 1, "io": 2, "ln": 3, "attn": 4, "attn_scaled": 5,
+              "softmax": 6, "nomax": 7, "bf16sm": 8, "proj1": 0}
+
+
+def launch_f32(entry, x_win, mask, regions, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+               num_heads, eps, wblk, hg, ablate, norm_first):
+    """Launch the fp32 body on fp32 CUDA windows (checks done by the caller):
+    mask and regions [rows, 49] fp32 tables (K9, K11) or None with geom (K10).
+    The projection sums the heads of a group (hg), of a head (K11) or all of
+    them (K11's proj1) before adding to the accumulator, as the JAX bodies do."""
+    nw, _, c = x_win.shape
+    dev = x_win.device
+    b = bias.float().contiguous()
+    if b.device != dev or tuple(b.shape) != (1, num_heads, _N, _N):
+        raise ValueError(f"bias {tuple(bias.shape)} on {bias.device}; want "
+                         f"[1, {num_heads}, 49, 49] on {dev}")
+    mode = "attn_scaled" if ablate == "attn" and not norm_first else ablate
+    group = c if ablate == "proj1" else hg * _HEAD_DIM
+    args = (_vec(gamma, c, dev), _vec(beta, c, dev), _mat(entry, wqkv, (c, 3 * c), x_win),
+            _vec(bqkv, 3 * c, dev), _mat(entry, wproj, (c, c), x_win), _vec(bproj, c, dev), b)
+    out = torch.empty_like(x_win)
+    P = kernels.ptr
+    rows = lambda t: 0 if t is None else t.shape[0]
+    err = kernels.library().segland_section_f32(
+        P(x_win), P(mask), rows(mask), P(regions), rows(regions), *(P(a) for a in args), P(out),
+        nw, c, num_heads, wblk, *geom, eps, _F32_MODES[mode], int(bool(norm_first)), group,
+        dev.index, kernels.stream_of(x_win))
+    kernels.check(err, f"{entry} (float32)")
+    return out
+
+
 def check_hg_build(c: int, num_heads: int, hg: int, dtype, wblk: int, ablate: str = "none"):
     """The launchers' host-side checks, on the CPU too: heads of 32, ``hg``
-    dividing ``num_heads``, a build for (C, hg), ``wblk >= 1``, bf16, a known
-    ablation.  Returns the HgBuild; raises ValueError with the reason (for a
-    pair with no build, the shared-memory and register arithmetic of its
-    leanest layout)."""
+    dividing ``num_heads``, ``wblk >= 1``, a known ablation, a build for (C,
+    hg) in bf16 or for C in fp32.  Returns the HgBuild (bf16) or None (fp32);
+    raises ValueError with the reason (for a pair with no build, the
+    shared-memory and register arithmetic of its leanest layout)."""
     if c != num_heads * _HEAD_DIM:
         raise ValueError(f"heads of {_HEAD_DIM} only: C={c} with {num_heads} heads")
     if hg < 1 or num_heads % hg:
@@ -114,9 +174,12 @@ def check_hg_build(c: int, num_heads: int, hg: int, dtype, wblk: int, ablate: st
     if wblk < 1:
         raise ValueError(f"wblk must be >= 1, got {wblk}")
     check_ablate(ablate)
+    if dtype == torch.float32:
+        check_f32_width(c)
+        return None
     if dtype != torch.bfloat16:
-        raise ValueError(f"the head-grouped kernels are built for bfloat16 only, not {dtype} "
-                         "(fp32 runs on the CPU through the plain versions)")
+        raise ValueError(f"the head-grouped kernels are built for bfloat16 and float32, "
+                         f"not {dtype}")
     b = HG_BUILDS.get((c, hg))
     if b is None:
         lean = hg_layout(c, hg, HgBuild(1, 8 if 6 * hg % 8 == 0 else 2, 16, 3, False, False))
@@ -278,6 +341,9 @@ def _launch(entry, x_win, mask, regions, geom, gamma, beta, wqkv, bqkv, wproj, b
     if n != _N:
         raise ValueError(f"{entry} takes 7x7 windows, got N={n}")
     check_hg_build(c, num_heads, hg, x_win.dtype, wblk, ablate)
+    if x_win.dtype == torch.float32:
+        return launch_f32(entry, x_win, mask, regions, geom, gamma, beta, wqkv, bqkv, wproj,
+                          bproj, bias, num_heads, eps, wblk, hg, ablate, norm_first=False)
     dev = x_win.device
     b = bias.float().to(torch.bfloat16).contiguous()  # rounded to T, as the JAX wrapper does
     if b.device != dev or tuple(b.shape) != (1, num_heads, _N, _N):

@@ -150,7 +150,9 @@ def test_tpu_layout_devices_raise(argv, match):
 
 @pytest.mark.parametrize("c,nh,hg,dtype,wblk,ablate,match", [
     (384, 12, 5, torch.bfloat16, 32, "none", "does not divide"),
-    (384, 12, 4, torch.float32, 32, "none", "bfloat16 only"),
+    (384, 12, 4, torch.float16, 32, "none", "bfloat16 and float32"),
+    (1536, 48, 4, torch.float32, 32, "none",
+     r"no float32 build for C=1536: one window needs .* = 377,860 B > 232,448"),
     (384, 12, 4, torch.bfloat16, 0, "none", "wblk"),
     (384, 12, 4, torch.bfloat16, 32, "build", "block-diagonal"),
     (384, 12, 6, torch.bfloat16, 32, "none", r"no build for C=384 hg=6: .* = 240,512 B > 232,448"),
@@ -159,6 +161,14 @@ def test_tpu_layout_devices_raise(argv, match):
 def test_host_checks_raise(c, nh, hg, dtype, wblk, ablate, match):
     with pytest.raises(ValueError, match=match):
         H.check_hg_build(c, nh, hg, dtype, wblk, ablate)
+
+
+@pytest.mark.parametrize("c,hg", [(96, 3), (384, 6), (768, 8)])
+def test_fp32_is_accepted_at_every_built_width(c, hg):
+    """fp32 goes to the fp32 body, which takes any hg and every ablation at
+    C = 96..768, pairs that have no bf16 build included."""
+    for ablate in H.ABLATIONS:
+        assert H.check_hg_build(c, c // 32, hg, torch.float32, 32, ablate) is None
 
 
 def test_builds_match_the_source_and_fit():
