@@ -8,11 +8,15 @@ Phases, each printing its result on its own line; any failure exits non-zero:
   2. build: nvcc builds the kernels from segland_tpu_torch/kernels/csrc;
   3. K1 ln_mlp vs its plain version on the card, bf16 at the ConvNeXt-T stage
      shapes of a batch of 8 1024^2 tiles plus two ragged M, and fp32 at one
-     shape (TF32 off);
+     shape (TF32 off); per bf16 build its registers and local bytes (a spill
+     fails) and its functions' HGMMA and UTMALDG counts in the built SASS (a 0
+     fails); per shape TFLOP/s, the stock-torch route's time on the same inputs
+     (torch_route_ms) and the clock build's phase split;
   4. K2 upsample_argmax vs its plain version at (8,256,256,8) -> (8,1024,1024);
   5. K3 attn_section vs its plain version, bf16 at the four swin-s stage
-     shapes of a batch of 8 1024^2 tiles, each with shift 0 and 3, and fp32 at
-     one shape;
+     shapes of a batch of 8 1024^2 tiles, each with shift 0 and 3, two window
+     counts that leave a block part-empty, and fp32 at one shape; the same
+     build, SASS, TFLOP/s, torch_route_ms and phase-split lines as K1;
   6. K6 window_attention vs its plain version at the stage-2 shape, with a
      shared bias and with a per-window bias + shift mask, beside the time of
      F.scaled_dot_product_attention on the same inputs (timed only);
@@ -77,6 +81,7 @@ plain version's time, bound, library call's time) and the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the rest of
 the repo beside it, it fails before printing any result.
 
+    python3 chip_smoke.py --phases k1,k3    # K1 and K3 with their build, SASS and phase lines
     python3 chip_smoke.py --phases k4,k5    # a subset, while working on a kernel
     python3 chip_smoke.py --phases k9,k10   # the head-group kernels and their probe
     python3 chip_smoke.py --phases k11,f32  # the variants probe's kernel, the fp32 body
@@ -147,11 +152,62 @@ def mlp_inputs(m, c, dtype, dev, seed, with_res=True, with_ls=True):
         ls=(0.5 + 0.5 * torch.rand(c, device=dev, generator=g)) if with_ls else None)
 
 
+def torch_mlp(x, gamma, beta, w1, b1, w2, b2, res=None, ls=None, eps=1e-6):
+    """The stock-torch route of the same section, as the unfused ConvNeXt
+    block runs it in x's dtype: F.layer_norm, two F.linear (cuBLAS) with the
+    GELU between, the layer-scale and the residual.  Vectors already in x's
+    dtype, weights [in, out] (F.linear reads their transposed view as is)."""
+    import torch.nn.functional as F
+
+    y = F.layer_norm(x, (x.shape[-1],), gamma, beta, eps)
+    o = F.linear(F.gelu(F.linear(y, w1.t(), b1)), w2.t(), b2)
+    if ls is not None:
+        o = o * ls
+    return (x if res is None else res) + o
+
+
+def linear_layout(w, dtype):
+    """In bf16, w [in, out] as an nn.Linear holds it: [out, in] storage seen
+    through .T, the K-major layout that the wgmma bodies of K1 and K3 read
+    without a copy (ops/fused_mlp.py:kmajor), as the models hand it over.  The
+    fp32 bodies read w input-major, as it comes."""
+    import torch
+
+    return w.t().contiguous().t() if dtype == torch.bfloat16 else w
+
+
+def linear_weights(args, dtype):
+    """args with each 2-D tensor (a weight) in linear_layout."""
+    import torch
+
+    return tuple(linear_layout(v, dtype) if torch.is_tensor(v) and v.dim() == 2 else v
+                 for v in args)
+
+
+K1_PHASES = ("ln", "wait", "wgmma", "h", "out")
+K3_PHASES = ("setup", "wait", "wgmma", "qkv", "attn", "ctx", "out")
+
+
+def phase_split(run, names, dev):
+    """run(clocks) launches the kernel's clock build once; the share of its
+    consumer warpgroups' clock64() time that each phase took."""
+    import torch
+
+    clocks = torch.zeros(len(names) + 1, dtype=torch.int64, device=dev)
+    run(clocks)
+    torch.cuda.synchronize()
+    c = clocks.tolist()
+    total = sum(c[:-1])
+    return "phase_clocks " + " ".join(f"{n}={100 * v / total:.1f}%" for n, v in zip(names, c))
+
+
 def check_k1(dev, m, c, dtype, atol, rtol, seed, with_res=True, with_ls=True):
-    from segland_tpu_torch.ops.fused_mlp import ln_mlp, ln_mlp_reference
+    import torch
+    from segland_tpu_torch.ops.fused_mlp import ln_mlp, ln_mlp_clocks, ln_mlp_reference
 
     a = mlp_inputs(m, c, dtype, dev, seed, with_res, with_ls)
-    args = (a["x"], a["gamma"], a["beta"], a["w1"], a["b1"], a["w2"], a["b2"])
+    w1, w2 = linear_layout(a["w1"], dtype), linear_layout(a["w2"], dtype)
+    args = (a["x"], a["gamma"], a["beta"], w1, a["b1"], w2, a["b2"])
     kw = dict(res=a["res2"], ls=a["ls"], eps=1e-6)
     got = ln_mlp(*args, res2=a["res2"], ls=a["ls"], eps=1e-6).float()
     want = ln_mlp_reference(*args, **kw).float()
@@ -161,36 +217,108 @@ def check_k1(dev, m, c, dtype, atol, rtol, seed, with_res=True, with_ls=True):
         fail(f"K1 {dtype} M={m} C={c}: non-finite output")
     ms = cuda_ms(lambda: ln_mlp(*args, res2=a["res2"], ls=a["ls"], eps=1e-6))
     plain_ms = cuda_ms(lambda: ln_mlp_reference(*args, **kw))
+    cast = lambda v: None if v is None else v.to(dtype)
+    targs = (a["x"], *(cast(a[k]) for k in ("gamma", "beta")), a["w1"], cast(a["b1"]), a["w2"],
+             cast(a["b2"]), a["res2"], cast(a["ls"]))
+    torch_ms = cuda_ms(lambda: torch_mlp(*targs))
+    tflops = 16 * m * c * c / ms / 1e9
+    split = "" if dtype != torch.bfloat16 else " " + phase_split(
+        lambda clk: ln_mlp_clocks(clk, *args, res2=a["res2"], ls=a["ls"], eps=1e-6), K1_PHASES,
+        dev)
     print(f"K1 {str(dtype)[6:]} M={m} C={c} res={with_res} ls={with_ls}: "
           f"max_abs_err={float(err.max()):.6g} tol=|d|<={atol}+{rtol}*|ref| "
-          f"out_of_tol={bad} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
+          f"out_of_tol={bad} kernel_ms={ms:.4f} tflops={tflops:.1f} plain_ms={plain_ms:.4f} "
+          f"torch_route_ms={torch_ms:.4f}{split}", flush=True)
     if bad:
         fail(f"K1 {dtype} M={m} C={c}: {bad} elements out of tolerance")
-    return float(err.max()), ms, plain_ms
+    return float(err.max()), ms, plain_ms, torch_ms
+
+
+def build_attrs(entry, widths, what):
+    """Registers at launch, local (spill) bytes and shared memory of each bf16
+    build, by cudaFuncGetAttributes through the kernel's C entry; fails on any
+    local memory."""
+    import ctypes
+    from segland_tpu_torch import kernels
+
+    fn = getattr(kernels.library(), entry)
+    for c in widths:
+        regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        kernels.check(fn(c, ctypes.byref(regs), ctypes.byref(local), ctypes.byref(smem)), entry)
+        print(f"{what} bf16 build C={c}: registers={regs.value} local_bytes={local.value} "
+              f"smem={smem.value}", flush=True)
+        if local.value:
+            fail(f"{what} bf16 build C={c} spills: {local.value} bytes of local memory")
+
+
+_SASS = {}
+
+
+def sass_counts(kernel_name):
+    """{mangled function: (HGMMA count, UTMALDG count)} of every function of
+    the built library whose name holds ``kernel_name``, by cuobjdump -sass;
+    fails if a count is 0."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    from segland_tpu_torch import kernels
+
+    if not _SASS:
+        out = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
+                              str(kernels.library_path())], capture_output=True, text=True,
+                             check=True).stdout
+        fn = None
+        for line in out.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :", 1)[1].strip()
+                _SASS[fn] = [0, 0]
+            elif fn is not None:
+                _SASS[fn][0] += "HGMMA" in line
+                _SASS[fn][1] += "UTMALDG" in line
+    found = {f: tuple(n) for f, n in _SASS.items() if kernel_name in f}
+    if not found:
+        fail(f"no function {kernel_name} in the library's SASS")
+    for f, (hgmma, utmaldg) in sorted(found.items()):
+        print(f"SASS {f}: HGMMA={hgmma} UTMALDG={utmaldg}", flush=True)
+        if not hgmma or not utmaldg:
+            fail(f"{f} has {hgmma} HGMMA and {utmaldg} UTMALDG instructions")
+    return found
 
 
 def phase_k1(dev):
     import torch
+    from segland_tpu_torch.ops.fused_mlp import MLP_BUILDS, ln_mlp_plan
 
-    worst, ms, plain_ms, bounds = 0.0, 0.0, 0.0, []
+    build_attrs("segland_ln_mlp_attrs", MLP_BUILDS, "K1")
+    sass_counts("ln_mlp_wgmma_kernel")
+    worst, ms, plain_ms, torch_ms, bounds, by_c = 0.0, 0.0, 0.0, 0.0, [], {}
     for i, (blocks, c, side) in enumerate(STAGES):
         m = BATCH * side * side
-        e, t, tp = check_k1(dev, m, c, torch.bfloat16, 2e-2, 1e-2, i)
+        plan = ln_mlp_plan(c, 4 * c)
+        print(f"K1 plan C={c}: rows {plan['rows']} a tile, warpgroups {plan['rg']} x "
+              f"{plan['cg']}, passes {plan['np']}, hidden chunk {plan['hc']}, ring "
+              f"{plan['s']} x 8 KB, smem {plan['smem']:,} B, accumulator and fragment "
+              f"registers {plan['acc_regs']}", flush=True)
+        e, t, tp, tt = check_k1(dev, m, c, torch.bfloat16, 2e-2, 1e-2, i)
         worst = max(worst, e)
         ms += blocks * t
         plain_ms += blocks * tp
+        torch_ms += blocks * tt
+        by_c[c] = t
         # x, res read and out written once; w1, w2 once; 16*M*C^2 flops
         bounds += [bound(16 * m * c * c, 3 * m * c * 2 + 8 * c * c * 2)] * blocks
     for m, c in ((BATCH * 64 * 64 - 19, 384), (BATCH * 32 * 32 - 19, 768)):  # ragged M
-        e, _, _ = check_k1(dev, m, c, torch.bfloat16, 2e-2, 1e-2, 7,
-                           with_res=False, with_ls=False)
+        e, _, _, _ = check_k1(dev, m, c, torch.bfloat16, 2e-2, 1e-2, 7,
+                              with_res=False, with_ls=False)
         worst = max(worst, e)
     check_k1(dev, BATCH * 128 * 128, 192, torch.float32, 1e-4, 1e-4, 8)
     b_ms, b_by = sum_bounds(bounds)
+    # a swin-s forward: the same M * C^2 a call, 2 / 2 / 18 / 2 calls a stage
+    swin_ms = sum(blocks * by_c[c] for blocks, c, _, _, _ in SWIN_STAGES)
     print(f"K1 per forward of {BATCH} tiles (18 blocks): kernel_ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+          f"plain_ms={plain_ms:.4f} torch_route_ms={torch_ms:.4f} bound_ms={b_ms:.4f} "
+          f"({b_by}); swin-s forward (24 blocks, by the stage times above) "
+          f"kernel_ms={swin_ms:.4f}", flush=True)
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                library_ms=None, torch_route_ms=torch_ms)
 
 
 def phase_k2(dev):
@@ -240,14 +368,16 @@ def section_inputs(nw, c, nh, dtype, dev, seed):
 def check_k3(dev, b, c, nh, side, pside, shift, dtype, atol, rtol, seed):
     import torch
     from segland_tpu_torch.models.backbones.swin import _pad_token_mask, _shift_regions
-    from segland_tpu_torch.ops.fused_attn import attn_section, attn_section_reference
+    from segland_tpu_torch.ops.fused_attn import (attn_section, attn_section_clocks,
+                                                  attn_section_reference)
 
     nw = b * (pside // 7) ** 2
     geom = (side, side, pside, pside, 7, shift)
     a = section_inputs(nw, c, nh, dtype, dev, seed)
     mask = torch.from_numpy(_pad_token_mask(*geom)).to(dev)
     regions = torch.from_numpy(_shift_regions(pside, pside, 7, shift)).to(dev) if shift else None
-    w = (a["gamma"], a["beta"], a["wqkv"], a["bqkv"], a["wproj"], a["bproj"], a["bias"], nh)
+    w = (a["gamma"], a["beta"], linear_layout(a["wqkv"], dtype), a["bqkv"],
+         linear_layout(a["wproj"], dtype), a["bproj"], a["bias"], nh)
     run = lambda: attn_section(a["x"], geom, *w)
     plain = lambda: attn_section_reference(a["x"], mask, *w, regions=regions)
     got, want = run().float(), plain().float()
@@ -259,35 +389,87 @@ def check_k3(dev, b, c, nh, side, pside, shift, dtype, atol, rtol, seed):
     worst = float(err.max())
     del got, want, err
     ms, plain_ms = cuda_ms(run, iters=5, warmup=1), cuda_ms(plain, iters=3, warmup=1)
+    torch_ms = cuda_ms(torch_section_route(a, mask, regions, nh), iters=5, warmup=1)
+    tflops = 2 * nw * 49 * c * (4 * c + 2 * 49) / ms / 1e9
+    split = "" if dtype != torch.bfloat16 else " " + phase_split(
+        lambda clk: attn_section_clocks(clk, a["x"], geom, *w), K3_PHASES, dev)
     print(f"K3 {str(dtype)[6:]} NW={nw} C={c} heads={nh} geom={geom}: max_abs_err={worst:.6g} "
           f"tol=|d|<={atol}+{rtol}*|ref| out_of_tol={bad} kernel_ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f}", flush=True)
+          f"tflops={tflops:.1f} plain_ms={plain_ms:.4f} torch_route_ms={torch_ms:.4f}{split}",
+          flush=True)
     if bad:
         fail(f"K3 {dtype} NW={nw} C={c} shift={shift}: {bad} elements out of tolerance")
-    return worst, ms, plain_ms
+    return worst, ms, plain_ms, torch_ms
+
+
+def torch_section_route(a, mask, regions, nh):
+    """The stock-torch route of the same section on the same windows, as the
+    unfused swin block runs it in x's dtype: F.layer_norm and the pad mask,
+    the qkv F.linear, q k^T with the rel-pos bias and the shift mask, softmax
+    in fp32, P V, the projection F.linear and the residual."""
+    import torch
+    import torch.nn.functional as F
+
+    x = a["x"]
+    dt = x.dtype
+    nw, n, c = x.shape
+    hd = c // nh
+    gamma, beta = a["gamma"].to(dt), a["beta"].to(dt)
+    bqkv, bproj = a["bqkv"].to(dt), a["bproj"].to(dt)
+    m = mask.to(dt)[None, :, :, None] if mask.shape[0] > 1 else mask.to(dt)[0][None, :, None]
+    bias = a["bias"].to(dt)
+    if regions is not None:
+        pen = torch.where(regions[:, :, None] != regions[:, None, :], -100.0, 0.0).to(dt)
+        bias = bias + pen[:, None]  # [nW_img, nh, N, N]
+    nw_img = bias.shape[0]
+
+    def route():
+        y = F.layer_norm(x, (c,), gamma, beta, 1e-5)
+        y = (y.reshape(nw // m.shape[1], m.shape[1], n, c) * m).reshape(nw, n, c) \
+            if m.dim() == 4 else y * m
+        q, k, v = F.linear(y, a["wqkv"].t(), bqkv).reshape(nw, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        s = (q * hd ** -0.5) @ k.transpose(-1, -2)
+        s = (s.reshape(nw // nw_img, nw_img, nh, n, n) + bias).reshape(nw, nh, n, n)
+        p = torch.softmax(s.float(), dim=-1).to(dt)
+        ctx = (p @ v).permute(0, 2, 1, 3).reshape(nw, n, c)
+        return x + F.linear(ctx, a["wproj"].t(), bproj)
+
+    return route
 
 
 def phase_k3(dev):
     import torch
+    from segland_tpu_torch.ops.fused_attn import SECTION_BUILDS, section_plan
 
-    worst, ms, plain_ms, bounds = 0.0, 0.0, 0.0, []
+    build_attrs("segland_attn_section_attrs", SECTION_BUILDS, "K3")
+    sass_counts("attn_section_wgmma_kernel")
+    worst, ms, plain_ms, torch_ms, bounds = 0.0, 0.0, 0.0, 0.0, []
     for i, (blocks, c, nh, side, pside) in enumerate(SWIN_STAGES):
         nw = BATCH * (pside // 7) ** 2
+        plan = section_plan(c)
+        print(f"K3 plan C={c}: {plan['w']} windows a block ({plan['row_tiles']} m64 row tiles, "
+              f"split by {plan['split']}, n{plan['n']}), ring {plan['s']} x 12 KB, smem "
+              f"{plan['smem']:,} B, accumulator registers {plan['acc_regs']}", flush=True)
         for shift in (0, 3):  # the blocks of a stage alternate
-            e, t, tp = check_k3(dev, BATCH, c, nh, side, pside, shift, torch.bfloat16,
-                                2e-2, 1e-2, 20 + i)
+            e, t, tp, tt = check_k3(dev, BATCH, c, nh, side, pside, shift, torch.bfloat16,
+                                    2e-2, 1e-2, 20 + i)
             worst = max(worst, e)
             ms += blocks / 2 * t
             plain_ms += blocks / 2 * tp
+            torch_ms += blocks / 2 * tt
         # real tokens: x read and out written once, the weights and bias once
         bounds += [bound(2 * nw * 49 * c * (4 * c + 2 * 49),
                          2 * nw * 49 * c * 2 + 4 * c * c * 2 + nh * 49 * 49 * 4)] * blocks
+    # window counts that leave the last block of W windows part-empty (W = 4 and 2)
+    check_k3(dev, 1, 96, 3, 45, 49, 3, torch.bfloat16, 2e-2, 1e-2, 27)
+    check_k3(dev, 1, 384, 12, 60, 63, 3, torch.bfloat16, 2e-2, 1e-2, 28)
     check_k3(dev, 2, 192, 6, 128, 133, 3, torch.float32, 1e-4, 1e-4, 29)
     b_ms, b_by = sum_bounds(bounds)
     print(f"K3 per forward of {BATCH} tiles (24 blocks): kernel_ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+          f"plain_ms={plain_ms:.4f} torch_route_ms={torch_ms:.4f} bound_ms={b_ms:.4f} "
+          f"({b_by})", flush=True)
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                library_ms=None, torch_route_ms=torch_ms)
 
 
 def masks_on(dev, geom):
@@ -319,17 +501,22 @@ def compare(tag, got, want, atol, rtol):
     return worst
 
 
+K4_OUTLIERS = 1e-6  # bf16: share of the whole block's elements that may lie past the bound
+
+
 def check_k4(dev, b, c, nh, side, pside, shift, dtype, atol, rtol, seed):
-    """K4 against its plain version half by half, each half at the full
-    tolerance.  block_reference is ln_mlp_reference over attn_section_reference,
-    and in bf16 an element of the section's output ``a`` that rounds the other
-    way passes through LN2 and three more rounded products, which puts 0 to 3
-    elements in 10^7 of the whole block just past the bound (K3 then K1 shows
-    the same ones).  So ``a`` is held to attn_section_reference, and K4's output
-    to the plain MLP half over that very ``a``.  The section's body is shared
-    with K3, whose output stands for K4's on-chip ``a``; were they to differ,
-    the second comparison would chain again and fail.  The whole block against
-    block_reference is printed beside it, and in fp32 it must hold too."""
+    """K4 against its plain version.  block_reference is ln_mlp_reference over
+    attn_section_reference, and in bf16 an element of the section's output
+    ``a`` that rounds the other way passes through LN2 and three more rounded
+    products, which puts 0 to 3 elements in 10^7 of the whole block just past
+    the bound (K3 then K1 shows the same ones).  So K4's whole output is held
+    to block_reference with, in bf16, at most K4_OUTLIERS of its elements past
+    |d| <= atol + rtol * |ref| and none past twice that; in fp32 with none past.
+    Beside it, at the full tolerance with no outlier: K3's section output ``a``
+    against attn_section_reference, and K4's output against the plain MLP half
+    over K3's ``a``.  K4 keeps the WMMA section body, K3 has the wgmma one, so
+    K3's ``a`` stands for K4's on-chip one only to bf16 rounding (the line
+    prints whether K4 equals K3 then K1 bit for bit)."""
     import torch
     from segland_tpu_torch.ops.fused_attn import (attn_section, attn_section_reference,
                                                   block_reference, swin_block)
@@ -342,35 +529,44 @@ def check_k4(dev, b, c, nh, side, pside, shift, dtype, atol, rtol, seed):
     mask, regions = masks_on(dev, geom)
     sec = (a["gamma"], a["beta"], a["wqkv"], a["bqkv"], a["wproj"], a["bproj"], a["bias"])
     mlp = (m["gamma"], m["beta"], m["w1"], m["b1"], m["w2"], m["b2"])
+    # K3 and K1 take the weights as the models hand them
+    sec_l, mlp_l = linear_weights(sec, dtype), linear_weights(mlp, dtype)
     run = lambda: swin_block(a["x"], geom, *sec, *mlp, nh)
-    two = lambda: ln_mlp(attn_section(a["x"], geom, *sec, nh).view(-1, c), *mlp)
+    two = lambda: ln_mlp(attn_section(a["x"], geom, *sec_l, nh).view(-1, c), *mlp_l)
     plain = lambda: block_reference(a["x"], mask, *sec, *mlp, nh, regions=regions)
     tag = f"K4 {str(dtype)[6:]} NW={nw} C={c} heads={nh} geom={geom}"
     got = run()
-    a_k = attn_section(a["x"], geom, *sec, nh)
-    a_ref = attn_section_reference(a["x"], mask, *sec, nh, regions=regions)
-    compare(tag + " section half", a_k, a_ref, atol, rtol)
-    worst = compare(tag + " MLP half", got,
-                    ln_mlp_reference(a_k.view(-1, c), *mlp).view_as(got), atol, rtol)
     want = plain().float()
+    torch.cuda.synchronize()
+    if not bool(got.isfinite().all()):
+        fail(f"{tag}: non-finite output")
     d = (got.float() - want).abs()
-    whole, bad = float(d.max()), int((d > atol + rtol * want.abs()).sum())
+    lim = atol + rtol * want.abs()
+    whole, bad, worse = float(d.max()), int((d > lim).sum()), int((d > 2 * lim).sum())
+    allowed = int(K4_OUTLIERS * d.numel()) if dtype == torch.bfloat16 else 0
+    a_k = attn_section(a["x"], geom, *sec_l, nh)
+    a_ref = attn_section_reference(a["x"], mask, *sec, nh, regions=regions)
     far = ""
     if bad:  # the element farthest past the bound, with the section's value under it
-        j = int((d - rtol * want.abs()).argmax())
+        j = int((d - lim).argmax())
         far = (f" (farthest: d={float(d.view(-1)[j]):.6g} ref={float(want.view(-1)[j]):.6g} "
-               f"a={float(a_k.view(-1)[j]):.6g} plain a={float(a_ref.view(-1)[j]):.6g})")
-    if bad and dtype == torch.float32:
-        fail(f"{tag}: {bad} elements of the whole block out of tolerance{far}")
+               f"k3 a={float(a_k.view(-1)[j]):.6g} plain a={float(a_ref.view(-1)[j]):.6g})")
+    if bad > allowed or worse:
+        fail(f"{tag}: {bad} elements of the whole block past |d|<={atol}+{rtol}*|ref| "
+             f"(at most {allowed}), {worse} past twice it (none){far}")
+    k3 = compare(f"{tag}: K3 section under the MLP half", a_k, a_ref, atol, rtol)
+    mlp_half = compare(tag + " over K3's section", got,
+                       ln_mlp_reference(a_k.view(-1, c), *mlp).view_as(got), atol, rtol)
     same = bool((two().view_as(got) == got).all())
-    del got, a_k, a_ref, want, d
+    del got, a_k, a_ref, want, d, lim
     ms, two_ms = cuda_ms(run, iters=5, warmup=1), cuda_ms(two, iters=5, warmup=1)
     plain_ms = cuda_ms(plain, iters=3, warmup=1)
-    print(f"{tag}: max_abs_err={worst:.6g} tol=|d|<={atol}+{rtol}*|ref| out_of_tol=0 by halves; "
-          f"whole block vs block_reference max_abs_err={whole:.6g} out_of_tol={bad}{far}; "
-          f"equal_to_k3_then_k1={same} kernel_ms={ms:.4f} k3_then_k1_ms={two_ms:.4f} "
-          f"plain_ms={plain_ms:.4f}", flush=True)
-    return worst, ms, two_ms, plain_ms
+    print(f"{tag}: whole block vs block_reference max_abs_err={whole:.6g} "
+          f"tol=|d|<={atol}+{rtol}*|ref| out_of_tol={bad} (at most {allowed}, none past "
+          f"twice){far}; K3 section max_abs_err={k3:.6g} and over it the MLP half "
+          f"max_abs_err={mlp_half:.6g} out_of_tol=0; equal_to_k3_then_k1={same} "
+          f"kernel_ms={ms:.4f} k3_then_k1_ms={two_ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
+    return whole, ms, two_ms, plain_ms
 
 
 def phase_k4(dev):
@@ -510,6 +706,7 @@ def phase_k10(dev):
     """K10 hg2_section at the four swin-s stage shapes, shift 0 and 3, every
     built hg, against its plain version, beside K3 on the same input; then each
     ablation at hg = 1 and the default hg (shift 3), and the phase split."""
+    import torch
     from segland_tpu_torch.ops.fused_attn import attn_section
     from segland_tpu_torch.ops.hg_attn import hg2_section, hg2_section_reference
 
@@ -522,8 +719,9 @@ def phase_k10(dev):
         for shift in (0, 3):
             a, w, geom, _, _ = hg_input(dev, BATCH, c, nh, side, pside, shift, 120 + i)
             x = a["x"]
-            k3 = attn_section(x, geom, *w)
-            t3 = cuda_ms(lambda: attn_section(x, geom, *w), iters=5, warmup=1)
+            w3 = linear_weights(w, torch.bfloat16)
+            k3 = attn_section(x, geom, *w3)
+            t3 = cuda_ms(lambda: attn_section(x, geom, *w3), iters=5, warmup=1)
             k3_ms += blocks / 2 * t3
             for hg, wb in hgs.items():
                 tag = f"K10 bf16 NW={nw} C={c} heads={nh} geom={geom} hg={hg} wblk={wb}"
@@ -1612,6 +1810,8 @@ def main(argv=None):
             spills = line.strip()
         elif "registers" in line:
             print(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}; {spills}")
+        elif "warning" in line or "error" in line or "(C75" in line:
+            print(f"  ptxas: {line.strip()[:160]}")
     print(f"build: {info['seconds']:.1f}s built={info['built']} {info['path']}", flush=True)
 
     csrc = "segland_tpu_torch/kernels/csrc/"

@@ -41,7 +41,8 @@ def add_common_args(p: argparse.ArgumentParser):
     p.add_argument("--fused", action=argparse.BooleanOptionalAction, default=None,
                    help="fused LN+MLP and attention-section kernels in transformer "
                         "backbones; with --int8, the fused int8 bottleneck kernel in "
-                        "resnet backbones (default: off, see EVAL_FUSED_DEFAULTS). "
+                        "resnet backbones (default: per model in bfloat16, see "
+                        "EVAL_FUSED_DEFAULTS). "
                         "bfloat16 uses tanh-GELU, so "
                         "bf16 fused-vs-unfused is not bit-identical by design")
     p.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"],
@@ -58,25 +59,30 @@ def add_common_args(p: argparse.ArgumentParser):
 # HBM3, 700.00 W; bf16, 2 batches of 8 1024^2 tiles after a warm-up run), which
 # runs each model three ways: fused kernels, the kernels' plain versions, and
 # unfused (stock torch blocks: cuBLAS products, torch's LayerNorm and softmax).
-#   convnext_pop / convnext-t: 184.12 tiles/s fused, 153.64 plain versions, 265.68 unfused
-#   swin_pop / swin-s:          91.35 tiles/s fused,  75.32 plain versions, 129.76 unfused;
-#     under --fused, SEGLAND_SWIN_V3_STAGES=all 78.46, SEGLAND_SWIN_WR=1 88.27, and
-#     SwinTransformer(attn_group=2) 83.16
-# The fused kernels beat their plain versions and lose to the unfused model
-# (K1 reaches 58-82 TFLOP/s and K3 29-41, cuBLAS about 250 on the same products), so
-# both defaults are off until the kernels catch up; --fused turns them on, and none of
-# the three swin switches beats plain --fused.
+# With K1 and K3 on WMMA the fused models lost (184.12 against 265.68 tiles/s
+# for convnext, 91.35 against 129.76 for swin).  With K1 and K3 on wgmma fed by
+# TMA, fused bf16 beat unfused bf16 in three whole runs for both models (PERF.md
+# section 5; the first: convnext 282.94 fused, 155.15 plain versions, 263.75
+# unfused; swin 141.47, 75.80, 129.01), so both defaults are on for
+# --dtype bfloat16 (--no-fused turns them off).  The convnext margins (+7%, +4%,
+# +12%) are partly within the 10-20% spread between calls; each run compares the
+# two routes in one process.  The defaults cover bf16 only: the fp32 bodies are exact FMA
+# loops, 2.6-2.8x slower than the stock-torch section at the shapes measured,
+# and no fp32 slice has been timed, so fp32 eval stays unfused unless --fused.
+# The swin switches beyond plain --fused (SEGLAND_SWIN_WR=1, 143.76 in that run;
+# SEGLAND_SWIN_V3_STAGES=all, 76.47; attn_group=2, 95.45) stay opt-in.
 # For the ResNet models --fused acts with --int8 only: the 12 stride-1 bottlenecks without
 # a downsample run through the fused int8 block kernel.  Off, see PERF.md section 5.
-EVAL_FUSED_DEFAULTS = {"convnext_pop": False, "swin_pop": False, "deeplab_pop": False,
+EVAL_FUSED_DEFAULTS = {"convnext_pop": True, "swin_pop": True, "deeplab_pop": False,
                        "pspnet_pop": False}
 
 
 def resolve_fused(args) -> bool:
-    """Explicit --fused/--no-fused wins; otherwise the eval default."""
+    """Explicit --fused/--no-fused wins; otherwise the eval default, which
+    covers --dtype bfloat16 only."""
     if args.fused is not None:
         return bool(args.fused)
-    return EVAL_FUSED_DEFAULTS.get(args.model, False)
+    return args.dtype == "bfloat16" and EVAL_FUSED_DEFAULTS.get(args.model, False)
 
 
 def parse_hw(s: str):

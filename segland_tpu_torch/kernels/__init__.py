@@ -67,6 +67,12 @@ _ENTRIES = {
     # NW, C, nh, wblk, h, w, hp, wp, ws, shift, eps, mode, norm_first, group, device, stream
     "segland_section_f32": [_P, _P, _I, _P, _I] + [_P] * 8 + [ctypes.c_longlong] + [_I] * 9
                            + [ctypes.c_float] + [_I] * 4 + [_P],
+    # the bf16 kernels of segland_ln_mlp and segland_attn_section with phase clocks: their
+    # arguments without dtype, then clocks (uint64) before device and stream
+    "segland_ln_mlp_clocks": [_P] * 10 + [ctypes.c_longlong, _I, _I, ctypes.c_float, _P, _I,
+                                          _P],
+    "segland_attn_section_clocks": [_P] * 9 + [ctypes.c_longlong] + [_I] * 8
+                                   + [ctypes.c_float, _P, _I, _P],
     # h2q, res, w3t, a3, b3, out, M, P, C, relu, device, stream
     "segland_conv3_residual_int8": [_P] * 6 + [ctypes.c_longlong] + [_I] * 4 + [_P],
 }
@@ -153,6 +159,11 @@ def library() -> ctypes.CDLL:
     # C, P, d -> th, tw, smem bytes; returns 0 when no tile fits
     lib.segland_bottleneck_int8_tile.argtypes = [_I] * 3 + [ctypes.POINTER(_I)] * 3
     lib.segland_bottleneck_int8_tile.restype = ctypes.c_int
+    # C -> registers at launch, local (spill) bytes, dynamic shared memory of a bf16 build
+    for name in ("segland_ln_mlp_attrs", "segland_attn_section_attrs"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_I] + [ctypes.POINTER(_I)] * 3
+        fn.restype = ctypes.c_int
     lib.segland_error_string.argtypes = [ctypes.c_int]
     lib.segland_error_string.restype = ctypes.c_char_p
     return lib

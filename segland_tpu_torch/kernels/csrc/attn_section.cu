@@ -4,9 +4,8 @@
 // Replaces: segland_tpu/ops/pallas_attn.py:_attn_section_v2_pallas (body
 // `_v2_attn_body`) as `segland_attn_section`, and
 // segland_tpu/ops/pallas_attn.py:window_attention_fused (body `_attn_kernel`)
-// as `segland_window_attention`.  Both share the per-head core of
-// attn_common.cuh, where the section's body lives too: swin_block.cu runs it
-// as the first half of a whole block.
+// as `segland_window_attention`.  Both use the per-head core of
+// attn_common.cuh (whose WMMA section body is swin_block.cu's first half).
 //
 // attn_section, per window of N = 49 tokens and C channels (heads of 32):
 //   valid, rid = pad-token mask and shift-region id from the window index
@@ -22,50 +21,331 @@
 // What bounds it on an H100: operations.  One call at a swin-s stage shape of
 // a batch of 8 1024^2 tiles is 2*NW*N*C*(4C + 2N) = 47-50 GFLOP against one
 // read and one write of [NW, N, C] (206 MB at C=96, 15 MB at C=768) plus
-// 8*C^2 bytes of weights, which every block re-reads from L2.
+// 8*C^2 bytes of weights, which every block re-reads from L2.  The products
+// (the qkv and the projection, 4*C / (4*C + 2*N) of the operations) set the
+// pace, so they run on wgmma.
 //
-// Design (bf16): one block of 8 warps owns W windows (4 at C=96, 2 at C=192,
-// 1 above: y and ctx of more do not fit) as one flat [W*49, C] row matrix.
-// The normalised rows y and the context ctx stay in shared memory; qkv never
-// exists whole: heads are walked one at a time, each head's q, k, v
-// ([rows, 32] each) made by one [rows, C] x [C, 96] WMMA product.  The
-// projection is the same product over ctx, 96 output columns a pass.  The
-// weight columns of all these products are one stream of chunks of KC rows,
-// copied by cp.async into a ring of S buffers S - 1 chunks ahead, across the
-// boundaries between products and under the attention, one barrier a chunk;
-// a block reads each weight once.  The head's [49, 49] bias is copied to
-// shared memory on the way.  The attention core is warp-local: a warp takes
-// one (window, 16-query-row) tile, writes its 16 x 64 scores to a private
-// strip of shared memory, does the softmax there with two lanes a row (16
-// rows at once, one shuffle a reduction), writes the probabilities over the
-// scores as bf16 and multiplies by v; no block barrier inside a head's
-// attention.  N is padded to 64 only inside the core: phantom keys are masked
-// in the softmax and given zero probability.  Row tiles of 16 may reach past
-// the W*49 real rows of y or ctx into the buffer that follows; a product's
-// output row depends on its own input row only, so that feeds phantom rows
-// alone, which are never stored (q/k/v keep a zeroed tail so phantom keys and
-// values are finite).  On an H100 the kernel reaches 29-41 TFLOP/s: the WMMA
-// loops (one 16-deep step of 3-6 products a warp between shared-memory
-// loads, 8 warps an SM) are about half of a block's time at C >= 384, the
-// attention core and the epilogues, through shared-memory tiles, most of
-// the rest.
+// Design (bf16, sm_90a): one block owns W windows (4 at C=96, 2 at C=192 and
+// 384, 1 at C=768) as one flat [W*49, C] row matrix, cut into m64 row tiles.
+// Two consumer warpgroups and a lone producer warp, 168 registers a thread
+// (ptxas' cap for 9 warps, 3 of them on one SM sub-partition); or, where that
+// spills (C = 96), a producer warpgroup that setmaxnreg leaves 24 registers a
+// thread, its consumers 240 (the same split spills 16 bytes at C = 192 and
+// 384: measured, PERF.md).  The producer streams the weight columns of every
+// product as tiles of [96 rows, 64 K-columns] (12 KB, 128-byte swizzle) by
+// TMA into a ring of S slots (full / empty mbarriers), in the order they are
+// used: a head's q, k, v columns (three boxes of 32 rows), head after head,
+// then the projection's, 96 output columns a pass.  The consumer warpgroups
+// normalise the rows (a batch of rows' loads at once) into shared memory in
+// the swizzled K-major
+// layout of a wgmma A operand and run each product as wgmma.mma_async with B
+// from the ring: with two row tiles or more each warpgroup takes every other
+// row tile at n96; with one (C=768) each takes 48 of the 96 columns.  The
+// q, k, v epilogue goes from the accumulator registers into the per-head
+// q/k/v buffers; the attention core is attn_tile_bf16 (WMMA, one warp a
+// 16-query tile), which writes each head's context to the output rows in
+// device memory.  After the last head, y is dead: the block copies its
+// context back from those rows into y's place in the operand layout, and the
+// projection's epilogue adds bproj and the residual from registers and
+// overwrites the rows.  So the context costs one write and one read of the
+// block's rows (L2-resident) instead of a second [W*49, C] buffer in shared
+// memory, which is what lets two windows a block fit at C=384.  m64 tiles
+// reach past the W*49 real rows into the buffer after y; a product's output
+// row depends on its own input row only, so that feeds phantom rows alone,
+// which are never stored (q/k/v keep a zeroed tail so phantom keys and values
+// are finite).  Weights arrive K-major: wqkv^T [3C, C] and wproj^T [C, C]
+// (nn.Linear's [out, in]).  The attention core and the setup (LN, the token
+// tables, each head's bias copy) now take most of a call (PERF.md, phase
+// clocks).
 // The fp32 build uses exact fp32 FMA loops (no TF32), one window a block,
 // and keeps ctx in the output buffer until the projection overwrites it.
 
+// segland-parts: 2
+// kernels/__init__.py compiles this file twice, -DSEGLAND_PART=0 (the entry
+// points of the served kernels) and 1 (segland_attn_section_clocks, the bf16
+// builds with phase clocks).
+#ifndef SEGLAND_PART
+#define SEGLAND_PART 0
+#endif
+
+#include <type_traits>
+
 #include "attn_common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-template <int C, int W, int P, int KC, int S>
-__global__ void __launch_bounds__(kThreads)
-attn_section_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
-                         const float* __restrict__ beta, const bf16* __restrict__ wqkv,
-                         const float* __restrict__ bqkv, const bf16* __restrict__ wproj,
-                         const float* __restrict__ bproj, const float* __restrict__ bias,
-                         bf16* __restrict__ out, long long NW, Geom g, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  section_bf16<C, W, P, KC, S, false>(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, out, NW, g,
-                                      eps, smem);
+// ---- the section, bf16: wgmma products fed by a TMA ring -------------------------
+// W windows a block, S ring slots.  ops/fused_attn.py:SECTION_BUILDS mirrors the
+// table in segland_attn_section and section_plan this arithmetic.
+template <int C_, int W_, int S_, bool RR_>
+struct SecPlan {
+  static constexpr int C = C_, W = W_, S = S_;
+  static constexpr bool RR = RR_;               // a producer warpgroup and setmaxnreg
+  static constexpr int THREADS = RR ? 384 : 288; // else a lone producer warp
+  static constexpr int R = W * kN;              // real rows
+  static constexpr int RT = (R + 63) / 64;      // m64 row tiles
+  static constexpr int RS = (R + 7) / 8 * 8;    // rows of a K tile of y
+  static constexpr bool ROWS = RT >= 2;         // warpgroups split the rows, else the columns
+  static constexpr int NTW = ROWS ? RT / 2 : 1; // row tiles a warpgroup
+  static constexpr int NB = ROWS ? 96 : 48;     // columns a warpgroup's wgmma
+  static constexpr int ACC = NB / 2;            // accumulator registers a row tile
+  static constexpr int KT = (C + 63) / 64;      // K tiles
+  static constexpr int KS = C / 16;             // k16 steps
+  static constexpr int NH = C / kHD;
+  static constexpr int SLOT = 96 * 128;         // a ring slot: [96 rows, 64 bf16]
+  static constexpr int YK = RS * 128;           // bytes a K tile of y
+  static constexpr int RQ = (R + 15) / 16 * 16 + 16;  // q/k/v rows: a window's tiles reach R + 14
+  static constexpr int NSTRIP = 4 * W < kWarps ? 4 * W : kWarps;  // attention tiles at once
+  static constexpr size_t OFF_Y = (size_t)S * SLOT;
+  static constexpr size_t OFF_Q = OFF_Y + (size_t)KT * YK;
+  static constexpr size_t Q_BYTES = align128((size_t)RQ * kLQ * sizeof(bf16));
+  static constexpr size_t OFF_STRIP = OFF_Q + 3 * Q_BYTES;
+  static constexpr size_t OFF_BIAS = OFF_STRIP + (size_t)NSTRIP * kStrip * sizeof(float);
+  static constexpr size_t OFF_TOK = OFF_BIAS + align128((size_t)kN * kN * sizeof(float));
+  static constexpr size_t OFF_BAR = OFF_TOK + align128(R);
+  static constexpr size_t SMEM = OFF_BAR + 2 * S * sizeof(uint64_t) + 1024;  // + alignment
+  static_assert(RT == 1 || RT % 2 == 0, "row tiles split evenly over two warpgroups");
+  static_assert(C % 96 == 0, "the projection walks 96 columns a pass");
+  static_assert((size_t)(RT * 64 - RS) * 128 <= OFF_BAR - OFF_Q,
+                "a row tile past y must stay inside the block's shared memory");
+  static_assert(SMEM <= kMaxSmem, "over the shared memory a block can have");
+};
+
+template <int NB>
+__device__ __forceinline__ void wgmma_n(float* d, uint64_t da, uint64_t db) {
+  if constexpr (NB == 96)
+    sm90::wgmma_ss_n96(d, da, db, 1);
+  else
+    sm90::wgmma_ss_n48(d, da, db, 1);
+}
+
+// acc[t] = A[row tiles of this warpgroup] @ (the ring's next KT slots, from
+// column cofs of each), taken slot by slot
+// phases of the consumers' clock (the CLK build): LN, token tables and bias
+// copies; waiting for a ring slot; starting and waiting for wgmma; the q, k, v
+// epilogue; the attention core; the context's copy back; the output epilogue
+enum { kClkSetup, kClkWait, kClkMma, kClkQkv, kClkAttn, kClkCtx, kClkOut, kClkPhases };
+
+template <typename Pl, typename Clk>
+__device__ __forceinline__ void section_product(sm90::Ring<Pl::SLOT, Pl::S>& q,
+                                                const unsigned char* a, int g, int cofs,
+                                                float (&acc)[Pl::NTW][Pl::ACC], Clk& clk) {
+#pragma unroll
+  for (int t = 0; t < Pl::NTW; ++t) {
+#pragma unroll
+    for (int i = 0; i < Pl::ACC; ++i) acc[t][i] = 0.0f;
+    sm90::reg_fence(acc[t]);
+  }
+  // whole K tiles, then (C = 96) the half tile of the last 32 columns: the
+  // k-steps of every wgmma are compile-time, none sits in a branch
+  auto k_tile = [&](int kt, auto steps) {
+    clk.template lap<kClkMma>();
+    unsigned char* b = sm90::ring_take(q);
+    clk.template lap<kClkWait>();
+    const uint64_t db = sm90::desc_sw128(b + cofs * 128);
+#pragma unroll
+    for (int t = 0; t < Pl::NTW; ++t) sm90::reg_fence(acc[t]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < Pl::NTW; ++t) {
+      const int rt = Pl::ROWS ? g + 2 * t : 0;
+      const uint64_t da = sm90::desc_sw128(a + kt * Pl::YK + rt * 64 * 128);
+#pragma unroll
+      for (int ks = 0; ks < decltype(steps)::value; ++ks)
+        wgmma_n<Pl::NB>(acc[t], sm90::desc_step(da, ks), sm90::desc_step(db, ks));
+    }
+    sm90::wgmma_commit();
+    sm90::ring_used(q);
+#pragma unroll
+    for (int t = 0; t < Pl::NTW; ++t) sm90::reg_fence(acc[t]);
+    sm90::ring_next(q);
+  };
+#pragma unroll 1
+  for (int kt = 0; kt < Pl::KS / 4; ++kt) k_tile(kt, std::integral_constant<int, 4>());
+  if constexpr (Pl::KS % 4 != 0) k_tile(Pl::KS / 4, std::integral_constant<int, Pl::KS % 4>());
+  sm90::ring_drain(q);
+  clk.template lap<kClkMma>();
+#pragma unroll
+  for (int t = 0; t < Pl::NTW; ++t) sm90::reg_fence(acc[t]);
+}
+
+template <typename Pl, bool CLK>
+__global__ void __launch_bounds__(Pl::THREADS, 1)
+attn_section_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                          const __grid_constant__ CUtensorMap mp, const bf16* __restrict__ x,
+                          const float* __restrict__ gamma, const float* __restrict__ beta,
+                          const float* __restrict__ bqkv, const float* __restrict__ bproj,
+                          const float* __restrict__ bias, bf16* __restrict__ out, long long NW,
+                          Geom geo, float eps, unsigned long long* __restrict__ clocks) {
+  constexpr int C = Pl::C, W = Pl::W, S = Pl::S;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));  // swizzle atoms
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Pl::OFF_BAR);  // then the empty ones
+  uint64_t* empty = full + S;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 2);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- producer: one thread streams every product's weight columns ---------------
+    if constexpr (Pl::RR) sm90::regs_dec<sm90::kProducerRegs>();
+    if (threadIdx.x == 256) {
+      int slot = 0;
+      uint32_t phase = 0;
+      auto next = [&]() -> unsigned char* {
+        sm90::mbar_wait(&empty[slot], phase ^ 1u);
+        sm90::mbar_expect_tx(&full[slot], Pl::SLOT);
+        return smem + (size_t)slot * Pl::SLOT;
+      };
+      auto advance = [&]() {
+        if (++slot == S) {
+          slot = 0;
+          phase ^= 1u;
+        }
+      };
+#pragma unroll 1
+      for (int h = 0; h < Pl::NH; ++h)
+#pragma unroll 1
+        for (int kt = 0; kt < Pl::KT; ++kt) {
+          unsigned char* dst = next();
+          for (int which = 0; which < 3; ++which)  // q, k, v columns of head h: 32 rows each
+            sm90::tma_load_2d(dst + which * 32 * 128, &mq, &full[slot], kt * 64,
+                              which * C + h * kHD);
+          advance();
+        }
+#pragma unroll 1
+      for (int n0 = 0; n0 < C; n0 += 96)
+#pragma unroll 1
+        for (int kt = 0; kt < Pl::KT; ++kt) {
+          sm90::tma_load_2d(next(), &mp, &full[slot], kt * 64, n0);
+          advance();
+        }
+    }
+    return;
+  }
+
+  // ---- consumers: 8 warps --------------------------------------------------------
+  if constexpr (Pl::RR) sm90::regs_inc<sm90::kConsumerRegs>();
+  unsigned char* ys = smem + Pl::OFF_Y;
+  bf16* qb = reinterpret_cast<bf16*>(smem + Pl::OFF_Q);
+  bf16* kb = reinterpret_cast<bf16*>(smem + Pl::OFF_Q + Pl::Q_BYTES);
+  bf16* vb = reinterpret_cast<bf16*>(smem + Pl::OFF_Q + 2 * Pl::Q_BYTES);
+  float* strips = reinterpret_cast<float*>(smem + Pl::OFF_STRIP);
+  float* bias_s = reinterpret_cast<float*>(smem + Pl::OFF_BIAS);
+  uint8_t* rids = smem + Pl::OFF_TOK;
+  const int cw = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = cw / 4, wrow = (cw % 4) * 16;  // warpgroup; the warp's first row of a tile
+  const int cofs = Pl::ROWS ? 0 : 48 * g;      // the warpgroup's first column of a slot
+  const long long win0 = (long long)blockIdx.x * W;
+  const int nwin = (int)((NW - win0) < (long long)W ? (NW - win0) : (long long)W);
+  const int rows = nwin * kN;  // real rows of this block
+  const float scale = rsqrtf((float)kHD);
+  sm90::Ring<Pl::SLOT, S> q = {smem, full, 0, -1, 0u};
+  auto sync = [] { sm90::named_sync(1, 256); };
+  sm90::PhaseClocks<CLK, kClkPhases> clk;
+  clk.start();
+
+  // region id and pad flag (bit 7) of every token; zero tails of q, k, v
+  for (int i = threadIdx.x; i < Pl::R; i += 256) {
+    int valid = 0, rid = 0;
+    if (i < rows) token_geom((int)win0 + i / kN, i % kN, geo, &valid, &rid);
+    rids[i] = (uint8_t)(rid | (valid ? 0 : 128));
+  }
+  for (int i = threadIdx.x; i < (Pl::RQ - Pl::R) * kLQ; i += 256) {
+    const bf16 z = __float2bfloat16(0.0f);
+    qb[Pl::R * kLQ + i] = z;
+    kb[Pl::R * kLQ + i] = z;
+    vb[Pl::R * kLQ + i] = z;
+  }
+  // y = LN(x) * valid, a warp a row; rows past the real ones are zero
+  sm90::ln_rows_sw128<C, sm90::kLnBatch<C>>(
+      [&](int r) -> const bf16* {
+        int valid = 0, rid = 0;
+        if (r < rows) token_geom((int)win0 + r / kN, r % kN, geo, &valid, &rid);
+        return valid ? x + ((size_t)win0 * kN + r) * C : nullptr;
+      },
+      cw, kWarps, Pl::RS, gamma, beta, eps, ys, Pl::YK);
+  sm90::fence_async_smem();
+
+  float acc[Pl::NTW][Pl::ACC];
+  for (int h = 0; h < Pl::NH; ++h) {
+    // this head's bias: the barrier that ended the head before's attention is behind us,
+    // the one before this head's attention shows it
+    for (int i = threadIdx.x; i < kN * kN; i += 256) bias_s[i] = bias[(size_t)h * kN * kN + i];
+    if (h == 0) sync();  // y, the token tables and the tails, whole
+    clk.template lap<kClkSetup>();
+    section_product<Pl>(q, ys, g, cofs, acc, clk);
+    // q, k, v of this head = T(T(acc) + T(bqkv)), rows past the real ones dropped
+#pragma unroll
+    for (int t = 0; t < Pl::NTW; ++t) {
+      const int rt = Pl::ROWS ? g + 2 * t : 0;
+#pragma unroll
+      for (int i = 0; i < Pl::ACC; i += 2) {
+        const int row = rt * 64 + wrow + lane / 4 + 8 * ((i / 2) % 2);
+        const int col = cofs + (i / 4) * 8 + (lane % 4) * 2;  // of q | k | v, 96 in all
+        const int which = col / kHD, d = col % kHD;
+        if (row < Pl::R) {
+          const float2 bb = *reinterpret_cast<const float2*>(bqkv + which * C + h * kHD + d);
+          bf16* dst = (which == 0 ? qb : (which == 1 ? kb : vb)) + row * kLQ + d;
+          *reinterpret_cast<uint32_t*>(dst) = sm90::pack_bf16(bf(acc[t][i]) + bf(bb.x),
+                                                               bf(acc[t][i + 1]) + bf(bb.y));
+        }
+      }
+    }
+    sync();
+    clk.template lap<kClkQkv>();
+    for (int u = cw; u < W * 4; u += kWarps) {
+      const int wl = u / 4, rt = u % 4;
+      if (wl >= nwin) continue;
+      const int r0 = wl * kN;
+      attn_tile_bf16(qb + r0 * kLQ, kb + r0 * kLQ, vb + r0 * kLQ, rt, bias_s,
+                     geo.shift > 0 ? rids + r0 : nullptr, scale, strips + cw * kStrip,
+                     out + ((size_t)win0 * kN + r0) * C + h * kHD, (size_t)C);
+    }
+    sync();  // the context of this head is in `out`; q, k, v and the bias are free
+    clk.template lap<kClkAttn>();
+  }
+
+  // the context, back from the output rows into y's place (y is dead), 16 bytes a copy
+#pragma unroll 4
+  for (int i = threadIdx.x; i < rows * (C / 8); i += 256) {
+    const int r = i / (C / 8), c8 = i % (C / 8);
+    const uint4 v = *reinterpret_cast<const uint4*>(out + ((size_t)win0 * kN + r) * C + c8 * 8);
+    *reinterpret_cast<uint4*>(ys + (c8 / 8) * Pl::YK + r * 128 + (((c8 % 8) ^ (r % 8)) << 4)) = v;
+  }
+  sm90::fence_async_smem();
+  sync();
+  clk.template lap<kClkCtx>();
+
+  // a = x + T(T(ctx @ wproj) + T(bproj)), 96 columns a pass
+  for (int n0 = 0; n0 < C; n0 += 96) {
+    section_product<Pl>(q, ys, g, cofs, acc, clk);
+#pragma unroll
+    for (int t = 0; t < Pl::NTW; ++t) {
+      const int rt = Pl::ROWS ? g + 2 * t : 0;
+#pragma unroll
+      for (int i = 0; i < Pl::ACC; i += 2) {
+        const int row = rt * 64 + wrow + lane / 4 + 8 * ((i / 2) % 2);
+        const int col = n0 + cofs + (i / 4) * 8 + (lane % 4) * 2;
+        if (row < rows) {
+          const float2 bb = *reinterpret_cast<const float2*>(bproj + col);
+          const size_t e = ((size_t)win0 * kN + row) * C + col;
+          const float2 xr = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + e));
+          *reinterpret_cast<__nv_bfloat162*>(out + e) = __floats2bfloat162_rn(
+              xr.x + bf(bf(acc[t][i]) + bf(bb.x)), xr.y + bf(bf(acc[t][i + 1]) + bf(bb.y)));
+        }
+      }
+    }
+    clk.template lap<kClkOut>();
+  }
+  clk.flush(clocks);
 }
 
 // ---- window_attention, bf16: one (window, head) a block of 4 warps ---------
@@ -125,28 +405,41 @@ window_attention_f32_kernel(const float* __restrict__ qkv, const float* __restri
                 out + (size_t)w * kN * C + h * kHD, (size_t)C);
 }
 
-template <int C, int W, int P, int KC, int S>
+template <typename Pl, bool CLK>
 cudaError_t launch_section_bf16(const void* x, const float* gamma, const float* beta,
-                                const void* wqkv, const float* bqkv, const void* wproj,
+                                const void* wqkvt, const float* bqkv, const void* wprojt,
                                 const float* bproj, const float* bias, void* out, long long NW,
-                                Geom g, float eps, cudaStream_t stream) {
-  typedef SecCfg<C, W, P, KC, S> Cf;
-  auto kernel = attn_section_bf16_kernel<C, W, P, KC, S>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)Cf::SMEM);
+                                Geom g, float eps, cudaStream_t stream,
+                                unsigned long long* clocks = nullptr) {
+  CUtensorMap mq, mp;
+  cudaError_t err = sm90::tile_map(&mq, wqkvt, 3 * (uint64_t)Pl::C, Pl::C, 32);
   if (err != cudaSuccess) return err;
-  const unsigned grid = (unsigned)((NW + W - 1) / W);
-  kernel<<<grid, kThreads, Cf::SMEM, stream>>>(
-      (const bf16*)x, gamma, beta, (const bf16*)wqkv, bqkv, (const bf16*)wproj, bproj, bias,
-      (bf16*)out, NW, g, eps);
+  err = sm90::tile_map(&mp, wprojt, Pl::C, Pl::C, 96);
+  if (err != cudaSuccess) return err;
+  auto kernel = attn_section_wgmma_kernel<Pl, CLK>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Pl::SMEM);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = (unsigned)((NW + Pl::W - 1) / Pl::W);
+  kernel<<<grid, Pl::THREADS, Pl::SMEM, stream>>>(mq, mp, (const bf16*)x, gamma, beta, bqkv,
+                                                   bproj, bias, (bf16*)out, NW, g, eps, clocks);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// The bf16 builds, <C, W, S, RR> (ops/fused_attn.py:SECTION_BUILDS).
+#define SEGLAND_SECTION_BUILDS(X) \
+  X(96, 4, 4, 1)                  \
+  X(192, 2, 6, 0)                 \
+  X(384, 2, 4, 0)                 \
+  X(768, 1, 6, 0)
+
+#if SEGLAND_PART == 0
 // dtype: 0 = float32, 1 = bfloat16 (x, wqkv, wproj, out); vectors and bias
-// [nh, N, N] are fp32.  Windows of 7 x 7 tokens and heads of 32 only; bf16
-// has builds for C in {96, 192, 384, 768}.  Returns a cudaError_t.
+// [nh, N, N] are fp32.  fp32 weights are input-major (wqkv [C, 3C], wproj
+// [C, C]); bf16 weights K-major (wqkv^T [3C, C], wproj^T [C, C]: nn.Linear's
+// [out, in]).  Windows of 7 x 7 tokens and heads of 32 only; bf16 has builds
+// for C in {96, 192, 384, 768}.  Returns a cudaError_t.
 extern "C" int segland_attn_section(int dtype, const void* x, const void* gamma,
                                     const void* beta, const void* wqkv, const void* bqkv,
                                     const void* wproj, const void* bproj, const void* bias,
@@ -169,11 +462,10 @@ extern "C" int segland_attn_section(int dtype, const void* x, const void* gamma,
 #define SEGLAND_ARGS x, ga, be, wqkv, bq, wproj, bp, bi, out, NW, g, eps, s
   if (dtype == 1) {
     switch (C) {
-      // <C, W, P, KC, S>
-      case 96: return (int)launch_section_bf16<96, 4, 1, 48, 3>(SEGLAND_ARGS);
-      case 192: return (int)launch_section_bf16<192, 2, 1, 96, 3>(SEGLAND_ARGS);
-      case 384: return (int)launch_section_bf16<384, 1, 2, 96, 4>(SEGLAND_ARGS);
-      case 768: return (int)launch_section_bf16<768, 1, 2, 32, 4>(SEGLAND_ARGS);
+#define SEGLAND_CASE(c, w, st, rr) \
+  case c: return (int)launch_section_bf16<SecPlan<c, w, st, rr>, false>(SEGLAND_ARGS);
+      SEGLAND_SECTION_BUILDS(SEGLAND_CASE)
+#undef SEGLAND_CASE
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -212,3 +504,54 @@ extern "C" int segland_window_attention(int dtype, const void* qkv, const void* 
   }
   return (int)cudaGetLastError();
 }
+
+// Registers a thread at launch, local (spill) bytes and dynamic shared memory
+// of the bf16 build at width C, by cudaFuncGetAttributes.
+extern "C" int segland_attn_section_attrs(int C, int* regs, int* local_bytes, int* smem) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (C) {
+#define SEGLAND_CASE(c, w, st, rr)                                              \
+  case c:                                                                       \
+    err = cudaFuncGetAttributes(&a, attn_section_wgmma_kernel<SecPlan<c, w, st, rr>, false>); \
+    *smem = (int)SecPlan<c, w, st, rr>::SMEM;                                   \
+    break;
+    SEGLAND_SECTION_BUILDS(SEGLAND_CASE)
+#undef SEGLAND_CASE
+    default: break;
+  }
+  if (err != cudaSuccess) return (int)err;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return 0;
+}
+#else
+// The bf16 kernel of segland_attn_section with its consumers' clock64() time by
+// phase (setup, ring wait, wgmma, q/k/v epilogue, attention core, context copy,
+// output epilogue) added to clocks[0..7) and the count of consumer warpgroups
+// to clocks[7].
+extern "C" int segland_attn_section_clocks(const void* x, const void* gamma, const void* beta,
+                                           const void* wqkv, const void* bqkv, const void* wproj,
+                                           const void* bproj, const void* bias, void* out,
+                                           long long NW, int C, int nh, int h, int w, int hp,
+                                           int wp, int ws, int shift, float eps, void* clocks,
+                                           int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (ws * ws != kN || nh * kHD != C || hp % ws || wp % ws || shift < 0 || shift >= ws)
+    return (int)cudaErrorInvalidValue;
+  if (NW <= 0) return (int)cudaSuccess;
+  const Geom g = {h, w, hp, wp, ws, shift};
+  switch (C) {
+#define SEGLAND_CASE(c, w_, st, rr)                                                            \
+  case c:                                                                                      \
+    return (int)launch_section_bf16<SecPlan<c, w_, st, rr>, true>(                             \
+        x, (const float*)gamma, (const float*)beta, wqkv, (const float*)bqkv, wproj,           \
+        (const float*)bproj, (const float*)bias, out, NW, g, eps, (cudaStream_t)stream,        \
+        (unsigned long long*)clocks);
+    SEGLAND_SECTION_BUILDS(SEGLAND_CASE)
+#undef SEGLAND_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+#endif  // SEGLAND_PART

@@ -1,5 +1,5 @@
 // Fused LayerNorm -> fc1 -> GELU -> fc2 -> layer-scale -> +residual over
-// [M, C] rows (the ConvNeXt block's MLP section).
+// [M, C] rows (the ConvNeXt block's MLP section, and the Swin block's).
 //
 // Replaces: segland_tpu/ops/pallas_mlp.py:_pallas_ln_mlp (body `_kernel`).
 // Rounding points, in the compute dtype T (bf16 or fp32), as that kernel:
@@ -14,33 +14,56 @@
 // activations, with the [M, 4C] hidden kept out of device memory.  At the
 // ConvNeXt-T stage shapes of a batch of 8 1024^2 tiles every call is 77
 // GFLOP (M*C^2 is constant) against 300 MB (C=96) to 38 MB (C=768) of
-// activations, so the tensor cores bound it, and the weights, re-read by
-// every block, are the traffic to keep on chip.
+// activations, so the tensor cores bound it, and the weights, re-read for
+// every row tile from L2, are the traffic to keep on chip.
 //
-// Design: one block owns BM rows.  It normalises them into shared memory,
-// then walks the hidden dimension in chunks of HC columns: each chunk of h
-// is produced by WMMA (bf16 in, fp32 accumulate), passed through bias and
-// GELU, stored as bf16 in shared memory, and immediately consumed by the
-// second product, whose [BM, C] fp32 accumulator lives in registers split
-// over the warps (a warp owns RS 16-row slabs and C/WC columns, so each w2
-// fragment it loads feeds RS WMMA ops).  Each chunk's w1 columns and w2 rows
-// are copied to shared memory by cp.async, so weights are read once per
-// block, coalesced, instead of once per warp: into two buffers, the next
-// chunk's copy in flight while this one computes, at C <= 384 (8 warps, RS
-// 2, BM 128 and HC 64 at C=96, BM 64 and HC 32 at C=192 and 384); into one
-// buffer at C=768, where two do not fit beside the normalised rows (BM 32,
-// 16 warps, <= 48 accumulator registers a thread, HC 32).  A chunk of C=768
-// has 4 hidden fragments for 16 warps, so each fragment's k-loop is split 4
-// ways and the partial tiles are summed in shared memory.
-// Rows past M are zero-filled on load and masked on store, so any M works.
+// Design (bf16, sm_90a): warp-specialised, persistent (one block an SM walks
+// row tiles of BM = 64 RG rows).  Three warpgroups: one producer warp starts
+// TMA loads of weight tiles, [64 rows, 64 K-columns] of bf16 (8 KB, 128-byte
+// swizzle), into a ring of S slots guarded by a `full` and an `empty`
+// mbarrier each, in exactly the order the consumers take them, across chunk,
+// pass and row-tile boundaries, so that one tile's epilogue overlaps the next
+// tile's loads.  Two consumer warpgroups (setmaxnreg moves registers to
+// them) run wgmma.mma_async: RG of them down the rows, CG across the output
+// columns.  Each normalises its share of the tile's rows into shared memory
+// in the swizzled K-major layout a wgmma A descriptor reads.  The hidden
+// dimension is walked in chunks of HC = CG * HS columns: the first product
+// h = y @ w1[:, chunk] (m64 n64 k16, A and B from shared memory), the bias and
+// GELU epilogue in registers, then acc2 += h @ w2[chunk, :].  Where one
+// warpgroup owns all of a pass's output columns (CG = 1, C <= 192) h goes
+// from the accumulator straight into the A-register fragments of the second
+// product (the m64 accumulator layout is the k16 A-fragment layout) and never
+// touches shared memory.  At C >= 384 a warpgroup owns 192 of them (96
+// accumulator registers a thread): each computes HS of h's columns, writes
+// them swizzled to a double-buffered h tile, and a named barrier shares them.
+// At C = 768 the 384 output columns a warpgroup pair can hold are half of C,
+// so a tile takes NP = 2 passes, each recomputing h (1.5x the operations of
+// one pass); the blocks walk (row tile, pass) work items.  Every slot's
+// wgmmas sit between operand fences and wgmma.fence and outside any runtime
+// branch (a warpgroup takes the slots of the other's columns and hands them
+// back unread), or ptxas serialises them.  The GELU is evaluated as
+// x / (1 + exp(-2u)) (see gelu_tanh_fast).  What holds each width back, by the
+// measurement build's phase clocks, is in PERF.md.  Weights arrive K-major
+// (w1t = w1^T [H, C], w2t = w2^T [C, H]): the wrapper passes nn.Linear's own
+// [out, in] weights when the caller's [in, out] tensor is their transpose,
+// else a cached K-major copy.  A box that
+// reaches past C (C = 96: K 96 of a 128-column pair of tiles, output rows 96..
+// 127 of w2t) is zero-filled by TMA and skipped by the k-loop, or computed by
+// an n32 product.  Rows past M are zero on load and masked on store, so any M
+// works.
 // The fp32 path has no tensor-core form at fp32 precision and uses FMA loops.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
+// segland-parts: 2
+// kernels/__init__.py compiles this file twice, -DSEGLAND_PART=0 (the entry
+// points of the served kernels) and 1 (segland_ln_mlp_clocks, the bf16 builds
+// with phase clocks), so that the second set does not lengthen the first.
+#ifndef SEGLAND_PART
+#define SEGLAND_PART 0
+#endif
 
-using namespace nvcuda;
+#include "sm90.cuh"
+#include <math.h>
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -57,20 +80,11 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __flo
 // round a float to T and back: the kernel's rounding points
 template <typename T> __device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
 
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float c = 0.7978845608028654f;  // sqrt(2/pi)
-  return 0.5f * x * (1.0f + tanhf(c * (x + 0.044715f * x * x * x)));
-}
-
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.7071067811865476f));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using sm90::warp_sum;
 
 // LayerNorm of rows [row0, row0 + BM) into ys (row stride lds), one warp a
 // row; rows at or past M become zeros.
@@ -106,211 +120,327 @@ __device__ void layer_norm_rows(const T* __restrict__ x, long long M, long long 
   }
 }
 
-// ---- bf16: WMMA tensor cores -------------------------------------------
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
-
-// Second product: WR warps down the rows, each owning RS 16-row slabs, NW
-// warps in all.  HC hidden columns per chunk, whose F1 first-product
-// fragments are dealt round-robin over the warps; where a chunk has fewer
-// fragments than warps, each fragment's k-loop is split KS ways instead.
-// STAGES weight buffers (see the note at the top).
-template <int C, int WR, int RS, int NW, int HC, int STAGES>
-struct Bf16Cfg {
-  static constexpr int BM = 16 * RS * WR;  // rows per block
-  static constexpr int WC = NW / WR;       // warps across the C columns
-  static constexpr int NF = C / 16 / WC;   // output fragments per warp and slab
-  static constexpr int F1 = (BM / 16) * (HC / 16);  // hidden fragments per chunk
-  static constexpr int KS = F1 < NW ? NW / F1 : 1;  // k-split of each of them
-  static constexpr int LDY = C + 8;        // +8: rows start on other banks
-  static constexpr int LDH = HC + 8;
-  static constexpr int LDW1 = HC + 8;      // staged w1[:, chunk], [C, LDW1]
-  static constexpr int LDW2 = C + 8;       // staged w2[chunk, :], [HC, LDW2]
-  static constexpr size_t OFF_H = align128((size_t)BM * LDY * sizeof(bf16));
-  static constexpr size_t OFF_S = OFF_H + align128((size_t)BM * LDH * sizeof(bf16));
-  static constexpr size_t OFF_W = OFF_S + (size_t)NW * 256 * sizeof(float);
-  static constexpr size_t W1_BYTES = align128((size_t)C * LDW1 * sizeof(bf16));
-  static constexpr size_t BUF = W1_BYTES + align128((size_t)HC * LDW2 * sizeof(bf16));
-  static constexpr size_t SMEM = OFF_W + STAGES * BUF;
-  static_assert(C % (16 * WC) == 0, "C must split over the warp columns");
-  static_assert(F1 % NW == 0 || NW % F1 == 0, "chunk must split over the warps");
-  static_assert((C / 16) % KS == 0, "the first product's k must split KS ways");
-  static_assert(STAGES == 1 || STAGES == 2, "one or two weight buffers");
+// ---- bf16: wgmma fed by a TMA ring -------------------------------------------
+// A build: RG consumer warpgroups down the rows, CG across the output columns,
+// NP passes over the output columns, HS hidden columns a warpgroup and chunk,
+// S ring slots.  ops/fused_mlp.py:MLP_BUILDS mirrors the table in
+// segland_ln_mlp and ln_mlp_plan this arithmetic.
+template <int C_, int RG_, int CG_, int NP_, int HS_, int S_>
+struct MlpPlan {
+  static constexpr int C = C_, RG = RG_, CG = CG_, NP = NP_, HS = HS_, S = S_;
+  static constexpr int NWG = RG * CG;            // consumer warpgroups
+  static constexpr int THREADS = 128 * (NWG + 1);
+  static constexpr int BM = 64 * RG;             // rows a tile
+  static constexpr int HC = CG * HS;             // hidden columns a chunk
+  static constexpr int CP = C / NP;              // output columns a pass
+  static constexpr int CS = CP / CG;             // ... a warpgroup
+  static constexpr int KT1 = (C + 63) / 64;      // K tiles of the first product
+  static constexpr int KS1 = C / 16;             // its k16 steps
+  static constexpr int NT1 = HS / 64;            // its n64 tiles a warpgroup
+  static constexpr int KT2 = HC / 64;            // K tiles of the second product
+  static constexpr int NT2 = (CS + 63) / 64;     // its n tiles a warpgroup
+  static constexpr int LW = CS - 64 * (NT2 - 1); // width of the last: 64, or 32 (n32)
+  static constexpr bool HREG = CG == 1;          // h stays in registers
+  static constexpr int TILE = 8192;              // a ring slot: [64 rows, 64 bf16]
+  static constexpr size_t OFF_Y = (size_t)S * TILE;
+  static constexpr size_t OFF_H = OFF_Y + (size_t)RG * KT1 * TILE;
+  static constexpr size_t OFF_BAR = OFF_H + (HREG ? 0 : (size_t)RG * 2 * KT2 * TILE);
+  static constexpr size_t SMEM = OFF_BAR + 2 * S * sizeof(uint64_t) + 1024;  // + alignment
+  static_assert(NWG == 2, "two consumer warpgroups and a producer");
+  static_assert(C % 32 == 0 && HS % 64 == 0 && C % (NP * CG) == 0, "tile shapes");
+  static_assert(LW == 64 || LW == 32, "the last output tile is n64 or n32");
+  static_assert(HREG || LW == 64, "the shared-h path takes whole n64 tiles");
+  static_assert(SMEM <= 232448, "over the shared memory a block can have");
 };
 
-template <typename Cfg, int C, int HC, int NW>
-__device__ __forceinline__ void stage_chunk(unsigned char* buf, const bf16* __restrict__ w1,
-                                            const bf16* __restrict__ w2, int j0, int H) {
-  bf16* sw1 = reinterpret_cast<bf16*>(buf);
-  bf16* sw2 = reinterpret_cast<bf16*>(buf + Cfg::W1_BYTES);
-  constexpr int R1 = HC / 8, R2 = C / 8;  // 16-byte copies per row
-  for (int i = threadIdx.x; i < C * R1; i += NW * 32) {
-    const int r = i / R1, c = (i % R1) * 8;
-    cp_async16(sw1 + r * Cfg::LDW1 + c, w1 + (size_t)r * H + j0 + c);
-  }
-  for (int i = threadIdx.x; i < HC * R2; i += NW * 32) {
-    const int r = i / R2, c = (i % R2) * 8;
-    cp_async16(sw2 + r * Cfg::LDW2 + c, w2 + (size_t)(j0 + r) * C + c);
-  }
-  cp_async_commit();
+// gelu_tanh in the form 0.5 x (1 + tanh(u)) = x / (1 + exp(-2u)): the same
+// function to a few parts in 10^6 (__expf, __fdividef), far inside the bf16
+// rounding that follows, in two MUFU operations where tanhf takes a dozen
+// instructions.  The epilogue is elementwise work beside m64 n64 k16 products
+// of K = C: at C = 96 tanhf's cost exceeded the tensor cores' (PERF.md).
+__device__ __forceinline__ float gelu_tanh_fast(float x) {
+  const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);  // sqrt(2/pi) (...)
+  return __fdividef(x, 1.0f + __expf(-2.0f * u));
 }
 
-// h = T(gelu(T(T(acc) + T(b1)))): the first product's epilogue
-__device__ __forceinline__ bf16 bias_gelu(float acc, float b) {
-  const float h = rnd<bf16>(rnd<bf16>(acc) + rnd<bf16>(b));
-  return __float2bfloat16(gelu_tanh(h));
+// h = T(gelu(T(T(acc) + T(b1)))): the first product's epilogue, before its
+// final rounding
+__device__ __forceinline__ float bias_gelu(float acc, float b) {
+  return gelu_tanh_fast(rnd<bf16>(rnd<bf16>(acc) + rnd<bf16>(b)));
 }
 
-template <int C, int WR, int RS, int NW, int HC, int STAGES>
-__global__ void __launch_bounds__(NW * 32)
-ln_mlp_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
-                   const float* __restrict__ gamma, const float* __restrict__ beta,
-                   const bf16* __restrict__ w1, const float* __restrict__ b1,
-                   const bf16* __restrict__ w2, const float* __restrict__ b2,
-                   const float* __restrict__ ls, bf16* __restrict__ out, long long M,
-                   int H, float eps) {
-  typedef Bf16Cfg<C, WR, RS, NW, HC, STAGES> Cfg;
-  typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-  typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-  typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ys = reinterpret_cast<bf16*>(smem);                 // [BM, LDY]
-  bf16* hb = reinterpret_cast<bf16*>(smem + Cfg::OFF_H);    // [BM, LDH]
-  float* scratch = reinterpret_cast<float*>(smem + Cfg::OFF_S);
+// phases of the consumers' clock (the CLK build): LN, waiting for a ring slot,
+// starting and waiting for wgmma, the h epilogue, the output epilogue
+enum { kClkLn, kClkWait, kClkMma, kClkH, kClkOut, kClkPhases };
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp % WR, wc = warp / WR;
-  const long long row0 = (long long)blockIdx.x * Cfg::BM;
-  float* scr = scratch + warp * 256;
-
-  stage_chunk<Cfg, C, HC, NW>(smem + Cfg::OFF_W, w1, w2, 0, H);
-  layer_norm_rows<bf16, C, Cfg::BM, NW>(x, M, row0, gamma, beta, eps, ys, Cfg::LDY);
+template <typename Pl, bool CLK>
+__global__ void __launch_bounds__(Pl::THREADS, 1)
+ln_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap m1, const __grid_constant__ CUtensorMap m2,
+                    const bf16* __restrict__ x, const bf16* __restrict__ res,
+                    const float* __restrict__ gamma, const float* __restrict__ beta,
+                    const float* __restrict__ b1, const float* __restrict__ b2,
+                    const float* __restrict__ ls, bf16* __restrict__ out, long long M, int H,
+                    float eps, unsigned long long* __restrict__ clocks) {
+  constexpr int C = Pl::C, S = Pl::S, TILE = Pl::TILE;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));  // swizzle atoms
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Pl::OFF_BAR);
+  uint64_t* empty = full + S;
+  const int wg = threadIdx.x / 128;
+  const long long ntiles = (M + Pl::BM - 1) / Pl::BM;
+  const int nch = H / Pl::HC;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], Pl::NWG);
+    }
+    sm90::mbar_init_fence();
+  }
   __syncthreads();
 
-  FragC acc[RS][Cfg::NF];
-#pragma unroll
-  for (int s = 0; s < RS; ++s)
-#pragma unroll
-    for (int f = 0; f < Cfg::NF; ++f) wmma::fill_fragment(acc[s][f], 0.0f);
-
-  const bf16* ha = hb + wr * RS * 16 * Cfg::LDH;
-  for (int j0 = 0, jc = 0; j0 < H; j0 += HC, ++jc) {
-    // this chunk's weights, in shared memory
-    unsigned char* buf = smem + Cfg::OFF_W + (STAGES == 2 ? (jc & 1) : 0) * Cfg::BUF;
-    if (STAGES == 1) {
-      if (jc > 0) stage_chunk<Cfg, C, HC, NW>(buf, w1, w2, j0, H);
-      cp_async_wait<0>();
-    } else if (j0 + HC < H) {
-      stage_chunk<Cfg, C, HC, NW>(smem + Cfg::OFF_W + ((jc + 1) & 1) * Cfg::BUF, w1, w2,
-                                  j0 + HC, H);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* sw1 = reinterpret_cast<const bf16*>(buf);
-    const bf16* sw2 = reinterpret_cast<const bf16*>(buf + Cfg::W1_BYTES);
-
-    // h[:, j0:j0+HC] = gelu(y @ w1[:, chunk] + b1)
-    if constexpr (Cfg::KS > 1) {
-      // one fragment and one k-range per warp; the partial tiles are summed
-      // by the whole block
-      const int f = warp % Cfg::F1, q = warp / Cfg::F1;
-      const int slab = f % (Cfg::BM / 16), n = f / (Cfg::BM / 16) * 16;
-      const bf16* ya = ys + slab * 16 * Cfg::LDY;
-      constexpr int KC = C / Cfg::KS;
-      FragC hacc;
-      wmma::fill_fragment(hacc, 0.0f);
-#pragma unroll 4
-      for (int k = q * KC; k < (q + 1) * KC; k += 16) {
-        FragA a;
-        FragB b;
-        wmma::load_matrix_sync(a, ya + k, Cfg::LDY);
-        wmma::load_matrix_sync(b, sw1 + k * Cfg::LDW1 + n, Cfg::LDW1);
-        wmma::mma_sync(hacc, a, b, hacc);
-      }
-      wmma::store_matrix_sync(scr, hacc, 16, wmma::mem_row_major);
-      __syncthreads();
-      for (int e = threadIdx.x; e < Cfg::F1 * 256; e += NW * 32) {
-        const int ff = e / 256, i = e % 256;
-        float sum = 0.0f;
-#pragma unroll
-        for (int p = 0; p < Cfg::KS; ++p) sum += scratch[(ff + Cfg::F1 * p) * 256 + i];
-        const int sl = ff % (Cfg::BM / 16), nn = ff / (Cfg::BM / 16) * 16 + i % 16;
-        hb[(sl * 16 + i / 16) * Cfg::LDH + nn] = bias_gelu(sum, b1[j0 + nn]);
-      }
-    } else {
-      // whole fragments dealt round-robin, each through its warp's scratch tile
-#pragma unroll
-      for (int g = 0; g < Cfg::F1 / NW; ++g) {
-        const int id = warp + NW * g;
-        const int slab = id % (Cfg::BM / 16), n = id / (Cfg::BM / 16) * 16;
-        const bf16* ya = ys + slab * 16 * Cfg::LDY;
-        FragC hacc;
-        wmma::fill_fragment(hacc, 0.0f);
-        for (int k = 0; k < C; k += 16) {
-          FragA a;
-          FragB b;
-          wmma::load_matrix_sync(a, ya + k, Cfg::LDY);
-          wmma::load_matrix_sync(b, sw1 + k * Cfg::LDW1 + n, Cfg::LDW1);
-          wmma::mma_sync(hacc, a, b, hacc);
+  if (wg == Pl::NWG) {
+    // ---- producer: one thread streams every weight tile through the ring ----
+    sm90::regs_dec<sm90::kProducerRegs>();
+    if (threadIdx.x % 128 == 0) {
+      int slot = 0;
+      uint32_t phase = 0;
+      auto load = [&](const CUtensorMap* m, int c0, int c1) {
+        sm90::mbar_wait(&empty[slot], phase ^ 1u);
+        sm90::mbar_expect_tx(&full[slot], TILE);
+        sm90::tma_load_2d(smem + (size_t)slot * TILE, m, &full[slot], c0, c1);
+        if (++slot == S) {
+          slot = 0;
+          phase ^= 1u;
         }
-        wmma::store_matrix_sync(scr, hacc, 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int c = n + e % 16;
-          hb[(slab * 16 + e / 16) * Cfg::LDH + c] = bias_gelu(scr[e], b1[j0 + c]);
+      };
+#pragma unroll 1
+      for (long long w = blockIdx.x; w < ntiles * Pl::NP; w += gridDim.x) {
+        const int p = (int)(w % Pl::NP);
+#pragma unroll 1
+        for (int j = 0; j < nch; ++j) {
+#pragma unroll 1
+          for (int i = 0; i < Pl::KT1 * Pl::CG * Pl::NT1; ++i) {  // kt, then g, then n
+            const int kt = i / (Pl::CG * Pl::NT1), gn = i % (Pl::CG * Pl::NT1);
+            load(&m1, kt * 64, j * Pl::HC + (gn / Pl::NT1) * Pl::HS + (gn % Pl::NT1) * 64);
+          }
+#pragma unroll 1
+          for (int i = 0; i < Pl::KT2 * Pl::CG * Pl::NT2; ++i) {
+            const int kt = i / (Pl::CG * Pl::NT2), gn = i % (Pl::CG * Pl::NT2);
+            load(&m2, j * Pl::HC + kt * 64,
+                 p * Pl::CP + (gn / Pl::NT2) * Pl::CS + (gn % Pl::NT2) * 64);
+          }
         }
-        __syncwarp();
       }
     }
-    __syncthreads();
-    // acc += h[:, chunk] @ w2[chunk, :]
-#pragma unroll
-    for (int k = 0; k < HC; k += 16) {
-      FragA a[RS];
-#pragma unroll
-      for (int s = 0; s < RS; ++s) wmma::load_matrix_sync(a[s], ha + s * 16 * Cfg::LDH + k, Cfg::LDH);
-#pragma unroll
-      for (int f = 0; f < Cfg::NF; ++f) {
-        FragB b;
-        wmma::load_matrix_sync(b, sw2 + k * Cfg::LDW2 + (wc * Cfg::NF + f) * 16, Cfg::LDW2);
-#pragma unroll
-        for (int s = 0; s < RS; ++s) wmma::mma_sync(acc[s][f], a[s], b, acc[s][f]);
-      }
-    }
-    __syncthreads();  // hb, scratch and this chunk's weight buffer are rewritten next
+    return;
   }
 
-  const bf16* r_src = res ? res : x;
+  // ---- consumers ----------------------------------------------------------------
+  sm90::regs_inc<sm90::kConsumerRegs>();
+  const int rg = wg / Pl::CG, cg = wg % Pl::CG;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  unsigned char* ys = smem + Pl::OFF_Y + (size_t)rg * Pl::KT1 * TILE;
+  unsigned char* hs = smem + Pl::OFF_H + (size_t)rg * 2 * Pl::KT2 * TILE;
+  const int bar_id = 1 + rg, bar_n = 128 * Pl::CG;  // the warpgroups of a row group
+  sm90::Ring<TILE, S> q = {smem, full, 0, -1, 0u};
+  uint32_t hbuf = 0;  // chunks so far: which h buffer is next
+  const bf16* rsrc = res ? res : x;
+  sm90::PhaseClocks<CLK, kClkPhases> clk;
+  clk.start();
+
+  // work items: (row tile, pass over the output columns)
+  for (long long w = blockIdx.x; w < ntiles * Pl::NP; w += gridDim.x) {
+    const long long row0 = (w / Pl::NP) * Pl::BM + rg * 64;
+    const int p = (int)(w % Pl::NP);
+    // y = LN(x) of the row group's 64 rows; its other warpgroups take other rows
+    sm90::ln_rows_sw128<C, sm90::kLnBatch<C>>(
+        [&](int r) { return row0 + r < M ? x + (row0 + r) * C : nullptr; }, cg * 4 + warp,
+        4 * Pl::CG, 64, gamma, beta, eps, ys, TILE);
+    sm90::fence_async_smem();
+    sm90::named_sync(bar_id, bar_n);
+    clk.template lap<kClkLn>();
+
+    float acc2[Pl::NT2][32];
 #pragma unroll
-  for (int sf = 0; sf < RS * Cfg::NF; ++sf) {
-    const int s = sf / Cfg::NF, f = sf % Cfg::NF;
-    const int col0 = (wc * Cfg::NF + f) * 16;
-    wmma::store_matrix_sync(scr, acc[s][f], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const long long row = row0 + (wr * RS + s) * 16 + e / 16;
-      const int col = col0 + e % 16;
-      if (row < M) {
-        float o = rnd<bf16>(scr[e]);
-        o = rnd<bf16>(o + rnd<bf16>(b2[col]));
-        if (ls) o = rnd<bf16>(o * rnd<bf16>(ls[col]));
-        const size_t i = (size_t)row * C + col;
-        out[i] = __float2bfloat16(to_f(r_src[i]) + o);
+    for (int n = 0; n < Pl::NT2; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc2[n][i] = 0.0f;
+
+#pragma unroll 1
+    for (int j = 0; j < nch; ++j) {
+      // h[:, chunk] = y @ w1[:, chunk]
+      float acc1[Pl::NT1][32];
+#pragma unroll
+      for (int n = 0; n < Pl::NT1; ++n) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc1[n][i] = 0.0f;
+        sm90::reg_fence(acc1[n]);
+      }
+      // a K tile's slots hold every warpgroup's n tiles in turn: skip the others'
+#pragma unroll
+      for (int kt = 0; kt < Pl::KT1; ++kt) {
+        const uint64_t da = sm90::desc_sw128(ys + kt * TILE);
+        clk.template lap<kClkMma>();
+        sm90::ring_skip(q, cg * Pl::NT1);
+        clk.template lap<kClkWait>();
+#pragma unroll
+        for (int n = 0; n < Pl::NT1; ++n) {
+          clk.template lap<kClkMma>();
+          unsigned char* b = sm90::ring_take(q);
+          clk.template lap<kClkWait>();
+          const uint64_t db = sm90::desc_sw128(b);
+          sm90::reg_fence(acc1[n]);
+          sm90::wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            if (kt * 4 + ks < Pl::KS1)
+              sm90::wgmma_ss_n64(acc1[n], sm90::desc_step(da, ks), sm90::desc_step(db, ks), 1);
+          sm90::wgmma_commit();
+          sm90::ring_used(q);
+          sm90::reg_fence(acc1[n]);
+          sm90::ring_next(q);
+        }
+        clk.template lap<kClkMma>();
+        sm90::ring_skip(q, (Pl::CG - 1 - cg) * Pl::NT1);
+        clk.template lap<kClkWait>();
+      }
+      sm90::ring_drain(q);
+      clk.template lap<kClkMma>();
+#pragma unroll
+      for (int n = 0; n < Pl::NT1; ++n) sm90::reg_fence(acc1[n]);
+
+      // the bias and GELU epilogue, then acc2 += h[:, chunk] @ w2[chunk, :]
+      const int colh = j * Pl::HC + cg * Pl::HS;  // this warpgroup's first hidden column
+      if constexpr (Pl::HREG) {
+        uint32_t ha[Pl::NT1 * 4][4];
+#pragma unroll
+        for (int n = 0; n < Pl::NT1; ++n)
+#pragma unroll
+          for (int i = 0; i < 32; i += 2) {
+            const int col = colh + n * 64 + (i / 4) * 8 + (lane % 4) * 2;
+            const float2 bb = *reinterpret_cast<const float2*>(b1 + col);
+            ha[n * 4 + i / 8][(i % 8) / 2] =
+                sm90::pack_bf16(bias_gelu(acc1[n][i], bb.x), bias_gelu(acc1[n][i + 1], bb.y));
+          }
+        sm90::reg_fence(ha);
+        clk.template lap<kClkH>();
+#pragma unroll
+        for (int n = 0; n < Pl::NT2; ++n) sm90::reg_fence(acc2[n]);
+#pragma unroll
+        for (int kt = 0; kt < Pl::KT2; ++kt)
+#pragma unroll
+          for (int n = 0; n < Pl::NT2; ++n) {
+            clk.template lap<kClkMma>();
+            unsigned char* b = sm90::ring_take(q);
+            clk.template lap<kClkWait>();
+            const uint64_t db = sm90::desc_sw128(b);
+            sm90::reg_fence(acc2[n]);
+            sm90::wgmma_fence();
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks) {
+              if (n < Pl::NT2 - 1 || Pl::LW == 64)
+                sm90::wgmma_rs_n64(acc2[n], ha[kt * 4 + ks], sm90::desc_step(db, ks), 1);
+              else
+                sm90::wgmma_rs_n32(acc2[n], ha[kt * 4 + ks], sm90::desc_step(db, ks), 1);
+            }
+            sm90::wgmma_commit();
+            sm90::ring_used(q);
+            sm90::reg_fence(acc2[n]);
+            sm90::ring_next(q);
+          }
+        sm90::ring_drain(q);
+        clk.template lap<kClkMma>();
+        sm90::reg_fence(ha);
+      } else {
+        unsigned char* hb = hs + (size_t)(hbuf & 1u) * Pl::KT2 * TILE;
+#pragma unroll
+        for (int n = 0; n < Pl::NT1; ++n)
+#pragma unroll
+          for (int i = 0; i < 32; i += 2) {
+            const int c = cg * Pl::HS + n * 64 + (i / 4) * 8 + (lane % 4) * 2;  // in the chunk
+            const int r = warp * 16 + lane / 4 + 8 * ((i / 2) % 2);
+            const float2 bb = *reinterpret_cast<const float2*>(b1 + j * Pl::HC + c);
+            *reinterpret_cast<uint32_t*>(hb + (c / 64) * TILE + sm90::sw128(r, c % 64)) =
+                sm90::pack_bf16(bias_gelu(acc1[n][i], bb.x), bias_gelu(acc1[n][i + 1], bb.y));
+          }
+        sm90::fence_async_smem();
+        sm90::named_sync(bar_id, bar_n);  // the chunk's h, whole
+        clk.template lap<kClkH>();
+#pragma unroll
+        for (int n = 0; n < Pl::NT2; ++n) sm90::reg_fence(acc2[n]);
+#pragma unroll
+        for (int kt = 0; kt < Pl::KT2; ++kt) {
+          const uint64_t da = sm90::desc_sw128(hb + kt * TILE);
+          clk.template lap<kClkMma>();
+          sm90::ring_skip(q, cg * Pl::NT2);
+          clk.template lap<kClkWait>();
+#pragma unroll
+          for (int n = 0; n < Pl::NT2; ++n) {
+            clk.template lap<kClkMma>();
+            unsigned char* b = sm90::ring_take(q);
+            clk.template lap<kClkWait>();
+            const uint64_t db = sm90::desc_sw128(b);
+            sm90::reg_fence(acc2[n]);
+            sm90::wgmma_fence();
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks)
+              sm90::wgmma_ss_n64(acc2[n], sm90::desc_step(da, ks), sm90::desc_step(db, ks), 1);
+            sm90::wgmma_commit();
+            sm90::ring_used(q);
+            sm90::reg_fence(acc2[n]);
+            sm90::ring_next(q);
+          }
+          clk.template lap<kClkMma>();
+          sm90::ring_skip(q, (Pl::CG - 1 - cg) * Pl::NT2);
+          clk.template lap<kClkWait>();
+        }
+        sm90::ring_drain(q);
+        clk.template lap<kClkMma>();
+        ++hbuf;
+      }
+#pragma unroll
+      for (int n = 0; n < Pl::NT2; ++n) sm90::reg_fence(acc2[n]);
+    }
+
+    // out = T(res + T(T(T(acc2) + T(b2)) * T(ls))), rows past M masked; a
+    // 64-column tile's residual pairs are all loaded before the first is used
+#pragma unroll
+    for (int n = 0; n < Pl::NT2; ++n) {
+      uint32_t rv[16];
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int cl = n * 64 + (i / 4) * 8 + (lane % 4) * 2;
+        const long long row = row0 + warp * 16 + lane / 4 + 8 * ((i / 2) % 2);
+        rv[i / 2] = 0u;
+        if (cl < Pl::CS && row < M)
+          rv[i / 2] = *reinterpret_cast<const uint32_t*>(
+              rsrc + (size_t)row * C + p * Pl::CP + cg * Pl::CS + cl);
+      }
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int cl = n * 64 + (i / 4) * 8 + (lane % 4) * 2;
+        const long long row = row0 + warp * 16 + lane / 4 + 8 * ((i / 2) % 2);
+        if (cl < Pl::CS && row < M) {
+          const int col = p * Pl::CP + cg * Pl::CS + cl;
+          const float2 bb = *reinterpret_cast<const float2*>(b2 + col);
+          float o0 = rnd<bf16>(rnd<bf16>(acc2[n][i]) + rnd<bf16>(bb.x));
+          float o1 = rnd<bf16>(rnd<bf16>(acc2[n][i + 1]) + rnd<bf16>(bb.y));
+          if (ls) {
+            const float2 l = *reinterpret_cast<const float2*>(ls + col);
+            o0 = rnd<bf16>(o0 * rnd<bf16>(l.x));
+            o1 = rnd<bf16>(o1 * rnd<bf16>(l.y));
+          }
+          const float2 r =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rv[i / 2]));
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * C + col) =
+              __floats2bfloat162_rn(r.x + o0, r.y + o1);
+        }
       }
     }
-    __syncwarp();
+    clk.template lap<kClkOut>();
   }
+  clk.flush(clocks);
 }
 
 // ---- fp32: FMA loops -----------------------------------------------------
@@ -386,20 +516,30 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <int C, int WR, int RS, int NW, int HC, int STAGES>
+template <typename Pl, bool CLK>
 cudaError_t launch_bf16(const void* x, const void* res, const float* gamma,
-                        const float* beta, const void* w1, const float* b1,
-                        const void* w2, const float* b2, const float* ls, void* out,
-                        long long M, int H, float eps, cudaStream_t stream) {
-  typedef Bf16Cfg<C, WR, RS, NW, HC, STAGES> Cfg;
-  if (H % HC != 0) return cudaErrorInvalidValue;
-  auto kernel = ln_mlp_bf16_kernel<C, WR, RS, NW, HC, STAGES>;
-  cudaError_t err = allow_smem(kernel, Cfg::SMEM);
+                        const float* beta, const void* w1t, const float* b1,
+                        const void* w2t, const float* b2, const float* ls, void* out,
+                        long long M, int H, float eps, cudaStream_t stream,
+                        unsigned long long* clocks = nullptr) {
+  if (H % Pl::HC != 0) return cudaErrorInvalidValue;
+  CUtensorMap m1, m2;
+  cudaError_t err = sm90::tile_map(&m1, w1t, (uint64_t)H, (uint64_t)Pl::C, 64);
   if (err != cudaSuccess) return err;
-  const unsigned grid = (unsigned)((M + Cfg::BM - 1) / Cfg::BM);
-  kernel<<<grid, NW * 32, Cfg::SMEM, stream>>>(
-      (const bf16*)x, (const bf16*)res, gamma, beta, (const bf16*)w1, b1,
-      (const bf16*)w2, b2, ls, (bf16*)out, M, H, eps);
+  err = sm90::tile_map(&m2, w2t, (uint64_t)Pl::C, (uint64_t)H, 64);
+  if (err != cudaSuccess) return err;
+  auto kernel = ln_mlp_wgmma_kernel<Pl, CLK>;
+  err = allow_smem(kernel, Pl::SMEM);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long items = (M + Pl::BM - 1) / Pl::BM * Pl::NP;  // (row tile, pass)
+  const unsigned grid = (unsigned)(items < sms ? items : sms);
+  kernel<<<grid, Pl::THREADS, Pl::SMEM, stream>>>(
+      m1, m2, (const bf16*)x, (const bf16*)res, gamma, beta, b1, b2, ls, (bf16*)out, M, H, eps,
+      clocks);
   return cudaGetLastError();
 }
 
@@ -422,8 +562,18 @@ cudaError_t launch_f32(const void* x, const void* res, const float* gamma,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  res and ls may be null.  Returns a
-// cudaError_t; cudaErrorInvalidValue for a C or H this build does not take.
+// The bf16 builds, <C, RG, CG, NP, HS, S> (ops/fused_mlp.py:MLP_BUILDS).
+#define SEGLAND_MLP_BUILDS(X)  \
+  X(96, 2, 1, 1, 128, 12)      \
+  X(192, 2, 1, 1, 64, 16)      \
+  X(384, 1, 2, 1, 64, 16)      \
+  X(768, 1, 2, 2, 64, 12)
+
+#if SEGLAND_PART == 0
+// dtype: 0 = float32 (w1 [C, H] and w2 [H, C], input-major), 1 = bfloat16
+// (w1 and w2 K-major: w1t [H, C] and w2t [C, H], nn.Linear's [out, in]).
+// res and ls may be null.  Returns a cudaError_t; cudaErrorInvalidValue for a
+// C or H this build does not take.
 extern "C" int segland_ln_mlp(int dtype, const void* x, const void* res,
                               const void* gamma, const void* beta, const void* w1,
                               const void* b1, const void* w2, const void* b2,
@@ -441,11 +591,10 @@ extern "C" int segland_ln_mlp(int dtype, const void* x, const void* res,
 #define SEGLAND_ARGS x, res, g, bt, w1, bb1, w2, bb2, l, out, M, H, eps, s
   if (dtype == 1) {
     switch (C) {
-      // <C, WR, RS, NW, HC, STAGES>
-      case 96: err = launch_bf16<96, 4, 2, 8, 64, 2>(SEGLAND_ARGS); break;
-      case 192: err = launch_bf16<192, 2, 2, 8, 32, 2>(SEGLAND_ARGS); break;
-      case 384: err = launch_bf16<384, 2, 2, 8, 32, 2>(SEGLAND_ARGS); break;
-      case 768: err = launch_bf16<768, 2, 1, 16, 32, 1>(SEGLAND_ARGS); break;
+#define SEGLAND_CASE(c, rg, cg, np, hs, st) \
+  case c: err = launch_bf16<MlpPlan<c, rg, cg, np, hs, st>, false>(SEGLAND_ARGS); break;
+      SEGLAND_MLP_BUILDS(SEGLAND_CASE)
+#undef SEGLAND_CASE
       default: return (int)cudaErrorInvalidValue;
     }
   } else if (dtype == 0) {
@@ -463,6 +612,52 @@ extern "C" int segland_ln_mlp(int dtype, const void* x, const void* res,
   return (int)err;
 }
 
+// Registers a thread at launch, local (spill) bytes and dynamic shared memory
+// of the bf16 build at width C, by cudaFuncGetAttributes.
+extern "C" int segland_ln_mlp_attrs(int C, int* regs, int* local_bytes, int* smem) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (C) {
+#define SEGLAND_CASE(c, rg, cg, np, hs, st)                                   \
+  case c:                                                                     \
+    err = cudaFuncGetAttributes(&a, ln_mlp_wgmma_kernel<MlpPlan<c, rg, cg, np, hs, st>, false>); \
+    *smem = (int)MlpPlan<c, rg, cg, np, hs, st>::SMEM;                        \
+    break;
+    SEGLAND_MLP_BUILDS(SEGLAND_CASE)
+#undef SEGLAND_CASE
+    default: break;
+  }
+  if (err != cudaSuccess) return (int)err;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return 0;
+}
+
 extern "C" const char* segland_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
+#else
+// The bf16 kernel of segland_ln_mlp with its consumers' clock64() time by phase
+// (LN, ring wait, wgmma, h epilogue, output epilogue) added to clocks[0..5)
+// and the count of consumer warpgroups to clocks[5].
+extern "C" int segland_ln_mlp_clocks(const void* x, const void* res, const void* gamma,
+                                     const void* beta, const void* w1, const void* b1,
+                                     const void* w2, const void* b2, const void* ls, void* out,
+                                     long long M, int C, int H, float eps, void* clocks,
+                                     int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (M <= 0) return (int)cudaSuccess;
+  switch (C) {
+#define SEGLAND_CASE(c, rg, cg, np, hs, st)                                                     \
+  case c:                                                                                       \
+    return (int)launch_bf16<MlpPlan<c, rg, cg, np, hs, st>, true>(                              \
+        x, res, (const float*)gamma, (const float*)beta, w1, (const float*)b1, w2,              \
+        (const float*)b2, (const float*)ls, out, M, H, eps, (cudaStream_t)stream,               \
+        (unsigned long long*)clocks);
+    SEGLAND_MLP_BUILDS(SEGLAND_CASE)
+#undef SEGLAND_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+#endif  // SEGLAND_PART

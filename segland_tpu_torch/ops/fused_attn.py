@@ -28,12 +28,59 @@ as a key, as the reference backbone pads after norm1.
 import numpy as np
 import torch
 
+import collections
+
 from . import use_kernel
-from .fused_mlp import contiguous_as, ln_mlp_reference
+from .fused_mlp import SMEM_MAX, contiguous_as, kmajor, ln_mlp_reference
 from .. import kernels
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SECTION_CHANNELS = (96, 192, 384, 768)
+
+# ---- the bf16 section kernel's builds (SEGLAND_SECTION_BUILDS in attn_section.cu) --------
+# w windows a block, s ring slots of one [96, 64] bf16 weight tile each, rr: a producer
+# warpgroup and setmaxnreg (240 registers a consumer thread), else a lone producer warp
+# (168 a thread, ptxas' cap for 9 warps): whichever the build compiles without spills.
+SectionBuild = collections.namedtuple("SectionBuild", "w s rr")
+SECTION_BUILDS = {96: SectionBuild(4, 4, True), 192: SectionBuild(2, 6, False),
+                  384: SectionBuild(2, 4, False), 768: SectionBuild(1, 6, False)}
+_N = 49
+_LQ, _STRIP = 48, 16 * 68 * 4  # q/k/v row stride (bf16), an attention strip (bytes)
+
+
+def _al128(n):
+    return (n + 127) // 128 * 128
+
+
+def section_plan(c: int) -> dict:
+    """The bf16 section kernel's plan at width C: the arithmetic of SecPlan in
+    attn_section.cu.  Windows a block, m64 row tiles and how the two consumer
+    warpgroups split them, ring depth, shared memory by buffer and in all
+    (bytes), and the accumulator registers a consumer thread holds.  Raises
+    ValueError, with the arithmetic, for a width that has no build."""
+    if c not in SECTION_BUILDS:
+        raise ValueError(f"attn_section has no bfloat16 build for C={c}: built at C in "
+                         f"{tuple(SECTION_BUILDS)} (heads of 32, the projection 96 columns "
+                         f"a pass)")
+    b = SECTION_BUILDS[c]
+    rows = b.w * _N
+    rt = -(-rows // 64)
+    rs = -(-rows // 8) * 8
+    split_rows = rt >= 2
+    nb = 96 if split_rows else 48
+    kt = -(-c // 64)
+    rq = -(-rows // 16) * 16 + 16
+    parts = dict(ring=b.s * 96 * 128, y=kt * rs * 128, qkv=3 * _al128(rq * _LQ * 2),
+                 strips=min(4 * b.w, 8) * _STRIP, bias=_al128(_N * _N * 4), tokens=_al128(rows),
+                 barriers=2 * b.s * 8, align=1024)
+    plan = dict(b._asdict(), c=c, rows=rows, row_tiles=rt, split="rows" if split_rows else
+                "columns", n=nb, k_tiles=kt, slot_bytes=96 * 128, smem_parts=parts,
+                smem=sum(parts.values()), acc_regs=(rt // 2 if split_rows else 1) * nb // 2,
+                slots_per_block=(c // 32 + c // 96) * kt)
+    if plan["smem"] > SMEM_MAX:
+        raise ValueError(f"attn_section at C={c}: " + " + ".join(
+            f"{k} {v:,}" for k, v in parts.items()) + f" = {plan['smem']:,} B > {SMEM_MAX:,}")
+    return plan
 _GROUPS = (1, 2, 4, 8)
 _HEAD_DIM = 32
 _WINDOW = 7
@@ -156,7 +203,7 @@ def _vec(a, k, dev):
     a = a.reshape(-1).float().contiguous()
     if a.numel() != k or a.device != dev:
         raise ValueError(f"vector of {a.numel()} on {a.device}; want {k} on {dev}")
-    return a
+    return a if a.data_ptr() % 16 == 0 else a.clone()  # kernels read pairs
 
 
 def _mat(name, a, shape, like):
@@ -168,9 +215,19 @@ def _mat(name, a, shape, like):
     return a
 
 
-def _section_args(name, x_win, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads):
+def _kmat(name, a, shape, like):
+    """A weight of ``shape`` (input-major) as the wgmma body reads it: K-major
+    in x's dtype."""
+    if a.device != like.device or tuple(a.shape) != shape:
+        raise ValueError(f"weight {tuple(a.shape)} on {a.device}; want {shape} on {like.device}")
+    return kmajor(a, like.dtype)
+
+
+def _section_args(name, x_win, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads,
+                  k_major=False):
     """Checks shared by the three section kernels; returns the section's
-    vectors in fp32, its weights in x's dtype and the shared bias in fp32."""
+    vectors in fp32, its weights in x's dtype (K-major with ``k_major``) and
+    the shared bias in fp32."""
     _check_rows(name, x_win)
     _, n, c = x_win.shape
     if n != _WINDOW * _WINDOW or c != num_heads * _HEAD_DIM:
@@ -182,8 +239,9 @@ def _section_args(name, x_win, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_
     b = _bias_f32(bias, dev, num_heads, n)
     if b.shape[0] != 1:
         raise ValueError(f"{name} takes a shared bias [1, nh, N, N], got {tuple(bias.shape)}")
-    return (_vec(gamma, c, dev), _vec(beta, c, dev), _mat(name, wqkv, (c, 3 * c), x_win),
-            _vec(bqkv, 3 * c, dev), _mat(name, wproj, (c, c), x_win), _vec(bproj, c, dev), b)
+    mat = _kmat if k_major else _mat
+    return (_vec(gamma, c, dev), _vec(beta, c, dev), mat(name, wqkv, (c, 3 * c), x_win),
+            _vec(bqkv, 3 * c, dev), mat(name, wproj, (c, c), x_win), _vec(bproj, c, dev), b)
 
 
 def _check_geom(geom, nw):
@@ -194,6 +252,25 @@ def _check_geom(geom, nw):
     return h, w, hp, wp, ws, shift
 
 
+def _section_launch_args(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads,
+                         eps):
+    """Checks the section kernel's inputs; returns its output buffer and the
+    arguments that its C entries share (without dtype, device and stream)."""
+    _check_rows("attn_section", x_win)
+    bf16 = x_win.dtype == torch.bfloat16
+    if bf16:
+        section_plan(x_win.shape[-1])  # raises for a width the kernel has no build for
+    # the bf16 (wgmma) body reads its weights K-major
+    g, be, wq, bq, wp_, bp, b = _section_args("attn_section", x_win, gamma, beta, wqkv, bqkv,
+                                               wproj, bproj, bias, num_heads, k_major=bf16)
+    nw, _, c = x_win.shape
+    h, w, hp, wp, ws, shift = _check_geom(geom, nw)
+    out = torch.empty_like(x_win)
+    P = kernels.ptr
+    return out, (P(x_win), P(g), P(be), P(wq), P(bq), P(wp_), P(bp), P(b), P(out), nw, c,
+                 num_heads, h, w, hp, wp, ws, shift, eps)
+
+
 def attn_section(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads: int,
                  eps: float = 1e-5):
     """Launch the attention-section kernel on CUDA windows x_win [NW, 49, C]
@@ -201,22 +278,34 @@ def attn_section(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_h
     mask and the shift regions; bias [1, nh, 49, 49] is the rel-pos bias.
     Weights are cast to x's dtype and vectors to fp32; what the kernel does
     not take raises."""
-    g, be, wq, bq, wp_, bp, b = _section_args("attn_section", x_win, gamma, beta, wqkv, bqkv,
-                                               wproj, bproj, bias, num_heads)
-    nw, _, c = x_win.shape
-    h, w, hp, wp, ws, shift = _check_geom(geom, nw)
-    out = torch.empty_like(x_win)
-    P = kernels.ptr
+    out, args = _section_launch_args(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                                     num_heads, eps)
     err = kernels.library().segland_attn_section(
-        _DTYPES[x_win.dtype], P(x_win), P(g), P(be), P(wq), P(bq), P(wp_), P(bp), P(b), P(out),
-        nw, c, num_heads, h, w, hp, wp, ws, shift, eps, x_win.device.index,
-        kernels.stream_of(x_win))
+        _DTYPES[x_win.dtype], *args, x_win.device.index, kernels.stream_of(x_win))
     kernels.check(err, "attn_section")
     attn_section.launches += 1
     return out
 
 
 attn_section.launches = 0
+
+
+def attn_section_clocks(clocks, x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                        num_heads: int, eps: float = 1e-5):
+    """A measurement, not the served kernel: the section kernel's bf16 body
+    built to add its consumers' clock64() time by phase (setup, ring wait,
+    wgmma, q/k/v epilogue, attention core, context copy, output epilogue) and
+    their count into ``clocks``, a CUDA int64 tensor of 8.  Takes
+    attn_section's arguments; not counted in ``attn_section.launches``."""
+    if x_win.dtype != torch.bfloat16 or clocks.dtype != torch.int64 or clocks.numel() < 8 \
+            or clocks.device != x_win.device:
+        raise ValueError("clocks: an int64 tensor of 8 on the device, bf16 windows only")
+    out, args = _section_launch_args(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                                     num_heads, eps)
+    err = kernels.library().segland_attn_section_clocks(
+        *args, kernels.ptr(clocks), x_win.device.index, kernels.stream_of(x_win))
+    kernels.check(err, "attn_section_clocks")
+    return out
 
 
 def _mask_rows(name, t, nw, dev):

@@ -10,8 +10,13 @@ device (see ``ops/__init__.py``): CUDA tensors go to the kernel K1
     o   = (h @ w2 + b2) * ls              (ls optional: ConvNeXt layer-scale)
     out = res + o                         (res defaults to x)
 
-Weights are input-major as in the JAX package: w1 [C, H], w2 [H, C].
+Weights are input-major as in the JAX package: w1 [C, H], w2 [H, C].  The
+bf16 kernel reads them K-major (w1^T [H, C], w2^T [C, H]: nn.Linear's own
+[out, in] layout); :func:`kmajor` hands it a caller's transposed view as it
+is and copies anything else.
 """
+
+import collections
 
 import torch
 import torch.nn.functional as F
@@ -48,11 +53,66 @@ def contiguous_as(a: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CHANNELS = (96, 192, 384, 768)
 
+# ---- the bf16 kernel's builds (SEGLAND_MLP_BUILDS in kernels/csrc/ln_mlp.cu) ----------
+# rg consumer warpgroups down the rows and cg across the output columns (two in all),
+# np passes over the output columns, hs hidden columns a warpgroup and chunk, s ring
+# slots of one [64, 64] bf16 weight tile each.
+MlpBuild = collections.namedtuple("MlpBuild", "rg cg np hs s")
+MLP_BUILDS = {
+    96: MlpBuild(2, 1, 1, 128, 12),
+    192: MlpBuild(2, 1, 1, 64, 16),
+    384: MlpBuild(1, 2, 1, 64, 16),
+    768: MlpBuild(1, 2, 2, 64, 12),
+}
+SMEM_MAX = 232448  # shared memory a block can have on sm_90
+CONSUMER_REGS = 240  # registers a consumer thread gets by setmaxnreg (sm90.cuh)
+TILE_BYTES = 64 * 64 * 2  # a ring slot
 
-def ln_mlp(x2, gamma, beta, w1, b1, w2, b2, res2=None, ls=None, eps=1e-5):
-    """Launch kernel K1 on CUDA rows x2 [M, C] (contiguous bf16 or fp32).
-    Weights are cast to x2's dtype and vectors to fp32, as the JAX wrapper
-    does; anything else the kernel does not take raises."""
+
+def ln_mlp_plan(c: int, hidden: int) -> dict:
+    """The bf16 kernel's plan at width C and hidden width H: the arithmetic of
+    MlpPlan in ln_mlp.cu.  Tile sizes, ring depth, shared memory by buffer and
+    in all (bytes), and the accumulator and fragment registers a consumer
+    thread holds.  Raises ValueError, with the arithmetic, for a shape that has
+    no build."""
+    if c not in MLP_BUILDS:
+        raise ValueError(f"ln_mlp has no bfloat16 build for C={c}: built at C in "
+                         f"{tuple(MLP_BUILDS)} (two warpgroups of m64 wgmma hold at most "
+                         f"2 x 192 output columns a pass)")
+    b = MLP_BUILDS[c]
+    hc = b.cg * b.hs  # hidden columns a chunk
+    if hidden <= 0 or hidden % hc:
+        raise ValueError(f"ln_mlp at C={c} walks the hidden width in chunks of {b.cg} x "
+                         f"{b.hs} = {hc} columns; H={hidden} is not a multiple of {hc}")
+    cs = c // b.np // b.cg  # output columns a warpgroup and pass
+    kt1, nt1, kt2, nt2 = -(-c // 64), b.hs // 64, hc // 64, -(-cs // 64)
+    parts = dict(ring=b.s * TILE_BYTES, y=b.rg * kt1 * TILE_BYTES,
+                 h=0 if b.cg == 1 else b.rg * 2 * kt2 * TILE_BYTES,
+                 barriers=2 * b.s * 8, align=1024)
+    regs = dict(acc1=nt1 * 32, acc2=nt2 * 32, h_frags=b.hs // 4 if b.cg == 1 else 0)
+    plan = dict(b._asdict(), c=c, hidden=hidden, rows=64 * b.rg, hc=hc, cs=cs,
+                chunks=hidden // hc, tiles_per_chunk=kt1 * b.cg * nt1 + kt2 * b.cg * nt2,
+                smem_parts=parts, smem=sum(parts.values()), regs=regs,
+                acc_regs=sum(regs.values()))
+    if plan["smem"] > SMEM_MAX:
+        raise ValueError(f"ln_mlp at C={c}: " + " + ".join(f"{k} {v:,}" for k, v in parts.items())
+                         + f" = {plan['smem']:,} B > {SMEM_MAX:,}")
+    return plan
+
+
+def kmajor(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``w.T`` contiguous in ``dtype``: ``w.T`` itself when it already is (the
+    models pass ``weight.T`` of an nn.Linear, whose [out, in] layout is the
+    K-major one), else a copy."""
+    t = w.t()
+    if t.dtype == dtype and t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return contiguous_as(t, dtype)
+
+
+def _launch_args(x2, gamma, beta, w1, b1, w2, b2, res2, ls, eps):
+    """Checks K1's inputs; returns its output buffer and the arguments that
+    its C entries share (without dtype, device and stream)."""
     if not x2.is_cuda:
         raise ValueError("ln_mlp launches a CUDA kernel; got a tensor on " + str(x2.device))
     if x2.dtype not in _DTYPES:
@@ -61,8 +121,10 @@ def ln_mlp(x2, gamma, beta, w1, b1, w2, b2, res2=None, ls=None, eps=1e-5):
         raise ValueError("ln_mlp takes contiguous [M, C] rows")
     m, c = x2.shape
     hidden = w1.shape[-1]
-    if c not in _CHANNELS or hidden % 64:
-        raise ValueError(f"ln_mlp has no build for C={c}, H={hidden}")
+    if x2.dtype == torch.bfloat16:
+        ln_mlp_plan(c, hidden)  # raises for a shape the kernel has no build for
+    elif c not in _CHANNELS or hidden % 64:
+        raise ValueError(f"ln_mlp has no float32 build for C={c}, H={hidden}")
     if tuple(w1.shape) != (c, hidden) or tuple(w2.shape) != (hidden, c):
         raise ValueError(f"weight shapes {tuple(w1.shape)}, {tuple(w2.shape)} "
                          f"do not match C={c}, H={hidden}")
@@ -75,12 +137,13 @@ def ln_mlp(x2, gamma, beta, w1, b1, w2, b2, res2=None, ls=None, eps=1e-5):
         a = a.reshape(-1).float().contiguous()
         if a.numel() != n or a.device != dev:
             raise ValueError(f"vector of {a.numel()} on {a.device}; want {n} on {dev}")
-        return a
+        return a if a.data_ptr() % 16 == 0 else a.clone()  # the kernel reads pairs
 
     def mat(a):
         if a.device != dev:
             raise ValueError(f"weight on {a.device}; want {dev}")
-        return contiguous_as(a, cdt)
+        # bf16: K-major, as the wgmma B descriptor reads it; fp32: input-major
+        return kmajor(a, cdt) if cdt == torch.bfloat16 else contiguous_as(a, cdt)
 
     g, b, bb1, bb2 = vec(gamma, c), vec(beta, c), vec(b1, hidden), vec(b2, c)
     l = None if ls is None else vec(ls, c)
@@ -89,17 +152,40 @@ def ln_mlp(x2, gamma, beta, w1, b1, w2, b2, res2=None, ls=None, eps=1e-5):
     if any(t.data_ptr() % 16 for t in (x2, res2, ww1, ww2, out) if t is not None):
         raise ValueError("ln_mlp takes 16-byte aligned rows and weights")
     P = kernels.ptr
-    err = kernels.library().segland_ln_mlp(
-        _DTYPES[cdt], P(x2), P(res2), P(g), P(b), P(ww1), P(bb1), P(ww2), P(bb2),
-        P(l), P(out), m, c, hidden, eps, dev.index, kernels.stream_of(x2))
+    return out, (P(x2), P(res2), P(g), P(b), P(ww1), P(bb1), P(ww2), P(bb2), P(l), P(out), m,
+                 c, hidden, eps)
+
+
+def ln_mlp(x2, gamma, beta, w1, b1, w2, b2, res2=None, ls=None, eps=1e-5):
+    """Launch kernel K1 on CUDA rows x2 [M, C] (contiguous bf16 or fp32).
+    Weights are cast to x2's dtype and vectors to fp32, as the JAX wrapper
+    does; anything else the kernel does not take raises."""
+    out, args = _launch_args(x2, gamma, beta, w1, b1, w2, b2, res2, ls, eps)
+    err = kernels.library().segland_ln_mlp(_DTYPES[x2.dtype], *args, x2.device.index,
+                                           kernels.stream_of(x2))
     kernels.check(err, "ln_mlp")
     ln_mlp.launches += 1
-    ln_mlp.rows += m
+    ln_mlp.rows += x2.shape[0]
     return out
 
 
 ln_mlp.launches = 0
 ln_mlp.rows = 0  # M summed over those launches: more where pad tokens ride along
+
+
+def ln_mlp_clocks(clocks, x2, gamma, beta, w1, b1, w2, b2, res2=None, ls=None, eps=1e-5):
+    """A measurement, not the served kernel: K1's bf16 body built to add its
+    consumers' clock64() time by phase (LN, ring wait, wgmma, h epilogue,
+    output epilogue) and their count into ``clocks``, a CUDA int64 tensor of
+    6.  Takes ln_mlp's arguments; not counted in ``ln_mlp.launches``."""
+    if x2.dtype != torch.bfloat16 or clocks.dtype != torch.int64 or clocks.numel() < 6 \
+            or clocks.device != x2.device:
+        raise ValueError("clocks: an int64 tensor of 6 on the device, bf16 rows only")
+    out, args = _launch_args(x2, gamma, beta, w1, b1, w2, b2, res2, ls, eps)
+    err = kernels.library().segland_ln_mlp_clocks(*args, kernels.ptr(clocks), x2.device.index,
+                                                  kernels.stream_of(x2))
+    kernels.check(err, "ln_mlp_clocks")
+    return out
 
 
 def fused_ln_mlp(x, gamma, beta, w1, b1, w2, b2, *, res=None, ls=None, eps=1e-5):

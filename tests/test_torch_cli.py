@@ -295,6 +295,21 @@ def test_fused_defaults_are_off_for_the_resnet_models():
     assert args.calib_batches == 4 and args.calib_percentile is None
 
 
+@pytest.mark.parametrize("model", ["convnext_pop", "swin_pop", "deeplab_pop"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_default_covers_bfloat16_only(model, dtype):
+    """The per-model --fused default was measured in bf16 and applies there
+    only; an explicit --fused / --no-fused wins in either dtype."""
+    from segland_tpu_torch.cli.common import EVAL_FUSED_DEFAULTS, resolve_fused
+    from segland_tpu_torch.cli.eval_base import get_parser
+
+    base = ["--data-dir", "x", "--model", model, "--dtype", dtype]
+    parse = get_parser().parse_args
+    assert resolve_fused(parse(base)) is (dtype == "bfloat16" and EVAL_FUSED_DEFAULTS[model])
+    assert resolve_fused(parse(base + ["--fused"])) is True
+    assert resolve_fused(parse(base + ["--no-fused"])) is False
+
+
 @pytest.mark.parametrize("extra", [["--model", "seghr_pop"], ["--model", "pspplus_pop"],
                                    ["--model", "pspnet"]])
 def test_unported_paths_raise(data_root, pth, tmp_path, extra):

@@ -7,6 +7,9 @@ frameworks: the JAX reference rounds the scores, the port keeps them fp32 as
 the kernels do).  Also the host mirrors of the CUDA kernels' index math and
 row lookup against the backbone's static mask and region tables."""
 
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +22,8 @@ from segland_tpu_torch.models.backbones import swin as p_swin
 from segland_tpu_torch.ops import fused_attn as P
 
 WS, N = 7, 49
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SWIN_S_WIDTHS = (96, 192, 384, 768)  # embed 96, doubled a stage; heads of 32
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
@@ -240,3 +245,35 @@ def test_group_and_geom_are_checked():
         P.attn_section_v1(x, torch.ones(1, N), *[None] * 7, 3, group=3)
     with pytest.raises(ValueError, match="geom"):
         P.swin_block_fused(x, None, *[None] * 13, 3)
+
+
+@pytest.mark.parametrize("c", SWIN_S_WIDTHS)
+def test_every_swin_s_stage_has_a_bf16_section_plan(c):
+    """The wgmma section's plan at each swin-s width fits a block's shared
+    memory, its m64 row tiles split evenly over the two consumer warpgroups
+    (or, with one tile, its columns), and the accumulators leave a consumer
+    thread most of its 168 registers for the attention core."""
+    plan = P.section_plan(c)
+    assert plan["smem"] == sum(plan["smem_parts"].values()) <= P.SMEM_MAX
+    assert plan["rows"] == plan["w"] * N
+    assert plan["row_tiles"] == -(-plan["rows"] // 64)
+    assert (plan["split"] == "rows") == (plan["row_tiles"] % 2 == 0)
+    assert plan["acc_regs"] <= 96
+    # y's last row tile reads past y into the buffer after it, never past the block's memory
+    overrun = (plan["row_tiles"] * 64 - -(-plan["rows"] // 8) * 8) * 128
+    assert overrun <= plan["smem_parts"]["qkv"]
+
+
+@pytest.mark.parametrize("c", [64, 128, 480, 1536])
+def test_section_widths_without_a_build_raise(c):
+    with pytest.raises(ValueError, match="no bfloat16 build"):
+        P.section_plan(c)
+
+
+def test_section_build_table_matches_the_source():
+    src = (ROOT / "segland_tpu_torch/kernels/csrc/attn_section.cu").read_text()
+    table = src[src.index("#define SEGLAND_SECTION_BUILDS"):]
+    table = table[:table.index("\n\n")]
+    built = {int(m[0]): (int(m[1]), int(m[2]), bool(int(m[3])))
+             for m in re.findall(r"X\((\d+), (\d+), (\d+), ([01])\)", table)}
+    assert built == {c: tuple(b) for c, b in P.SECTION_BUILDS.items()}

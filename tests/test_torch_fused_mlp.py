@@ -3,6 +3,9 @@ version against the JAX package's ln_mlp_reference and against the JAX
 Pallas kernel in interpret mode, on the same numpy inputs.  The CUDA kernel
 itself is held against this plain version on the card by chip_smoke.py."""
 
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,7 +14,14 @@ import torch
 from torch_helpers import t
 from segland_tpu.ops.pallas_mlp import _tile_m, fused_ln_mlp as j_fused, ln_mlp_reference as j_ref
 from segland_tpu_torch.ops import plain_versions, use_kernel
-from segland_tpu_torch.ops.fused_mlp import contiguous_as, fused_ln_mlp, ln_mlp, ln_mlp_reference
+from segland_tpu_torch.ops.fused_mlp import (CONSUMER_REGS, MLP_BUILDS, SMEM_MAX, contiguous_as,
+                                             fused_ln_mlp, kmajor, ln_mlp, ln_mlp_plan,
+                                             ln_mlp_reference)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+# stage widths whose LN+MLP sections K1 runs: ConvNeXt-T's (convnext.py: dims) and
+# Swin-S's (embed 96, doubled a stage); both have hidden width 4C
+STAGE_WIDTHS = {"convnext-t": (96, 192, 384, 768), "swin-s": (96, 192, 384, 768)}
 
 
 def _params(c, hid, seed):
@@ -90,3 +100,67 @@ def test_kernel_weights_are_row_major_in_the_compute_dtype(src, dst):
     got = contiguous_as(w.T, dst)
     assert got.is_contiguous() and got.dtype == dst
     torch.testing.assert_close(got, w.T.to(dst), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("model,c", [(m, c) for m, cs in STAGE_WIDTHS.items() for c in cs])
+def test_every_stage_shape_has_a_bf16_plan(model, c):
+    """The wgmma kernel's plan at each stage shape fits a block's shared
+    memory and leaves a consumer thread 64 of its registers beyond the
+    accumulators and h fragments; its chunks tile the hidden width."""
+    plan = ln_mlp_plan(c, 4 * c)
+    assert plan["smem"] == sum(plan["smem_parts"].values()) <= SMEM_MAX
+    assert plan["acc_regs"] <= CONSUMER_REGS - 64
+    assert plan["chunks"] * plan["hc"] == 4 * c
+    assert plan["rg"] * plan["cg"] == 2  # two consumer warpgroups
+    assert plan["np"] * plan["cg"] * plan["cs"] == c
+    assert plan["regs"]["acc2"] <= 96  # the second product's accumulator, a thread
+
+
+@pytest.mark.parametrize("c,hidden,match", [(64, 256, "no bfloat16 build"),
+                                            (128, 512, "no bfloat16 build"),
+                                            (1536, 6144, "no bfloat16 build"),
+                                            (96, 4 * 96 + 64, "multiple of 128"),
+                                            (384, 4 * 384 + 64, "multiple of 128")])
+def test_shapes_without_a_build_raise_with_the_arithmetic(c, hidden, match):
+    with pytest.raises(ValueError, match=match):
+        ln_mlp_plan(c, hidden)
+
+
+def test_the_build_table_matches_the_source():
+    """ln_mlp.cu instantiates exactly MLP_BUILDS, and its plan arithmetic is
+    the one ln_mlp_plan mirrors (ring, y and h buffers of 8 KB tiles)."""
+    src = (ROOT / "segland_tpu_torch/kernels/csrc/ln_mlp.cu").read_text()
+    table = src[src.index("#define SEGLAND_MLP_BUILDS"):]
+    table = table[:table.index("\n\n")]
+    built = {int(m[0]): tuple(int(v) for v in m[1:])
+             for m in re.findall(r"X\((\d+), (\d+), (\d+), (\d+), (\d+), (\d+)\)", table)}
+    assert built == {c: tuple(b) for c, b in MLP_BUILDS.items()}
+    assert ln_mlp_plan(384, 1536)["smem_parts"] == dict(ring=16 * 8192, y=6 * 8192,
+                                                        h=2 * 2 * 8192, barriers=256,
+                                                        align=1024)
+
+
+def test_kmajor_copy_is_the_transpose_and_follows_the_weight():
+    """A weight that is not the transpose of a contiguous tensor gets a fresh
+    K-major copy at every call, so an in-place change of the parameter shows
+    in the next one."""
+    w = torch.randn(16, 64)  # [in, out], contiguous
+    k = kmajor(w, torch.bfloat16)
+    assert k.is_contiguous() and k.dtype == torch.bfloat16 and tuple(k.shape) == (64, 16)
+    torch.testing.assert_close(k, w.t().to(torch.bfloat16), rtol=0, atol=0)
+    p = torch.nn.Parameter(torch.randn(16, 64))
+    kp = kmajor(p, torch.bfloat16)
+    with torch.no_grad():
+        p.copy_(torch.randn(16, 64))
+    torch.testing.assert_close(kmajor(p, torch.bfloat16), p.detach().t().to(torch.bfloat16),
+                               rtol=0, atol=0)
+    assert not torch.equal(kmajor(p, torch.bfloat16), kp)
+
+
+def test_kmajor_takes_a_linear_weight_view_as_it_is():
+    """The blocks pass ``weight.T`` of an nn.Linear: its transpose is the
+    weight itself, K-major already, so no copy is made."""
+    lin = torch.nn.Linear(16, 64).to(torch.bfloat16)
+    k = kmajor(lin.weight.T, torch.bfloat16)
+    assert k.data_ptr() == lin.weight.data_ptr() and k.is_contiguous()
+    assert kmajor(lin.weight.T, torch.float32).dtype == torch.float32  # other dtype: a copy

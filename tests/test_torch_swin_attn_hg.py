@@ -6,9 +6,13 @@ the JAX probe's make_inputs at a 26x26 map; weights, biases and windows are
 numpy draws handed to both packages (nonzero biases, so the pad keys of the
 softmax ablation carry a value)."""
 
+import contextlib
+import ctypes
+import ctypes.util
 import pathlib
 import re
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -18,6 +22,26 @@ from torch_helpers import t
 from segland_tpu_torch.ops import hg_attn as H
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+_LIBM = ctypes.CDLL(ctypes.util.find_library("m"))
+_FE_TONEAREST = 0  # <fenv.h> on x86-64 and aarch64
+
+
+@contextlib.contextmanager
+def _to_nearest(found):
+    """The block runs with the calling thread rounding to nearest; the mode it
+    found there is appended to ``found`` and restored after.  The fp32 cases
+    hold two summation orders to 2e-5, and a thread left rounding down, up or
+    toward zero moves the plain version by 1e-5 in the windows that thread
+    computes (ROADMAP C3)."""
+    mode = _LIBM.fegetround()
+    found.append(mode)
+    _LIBM.fesetround(_FE_TONEAREST)
+    try:
+        yield
+    finally:
+        _LIBM.fesetround(mode)
 
 
 @pytest.fixture(scope="module")
@@ -52,12 +76,12 @@ def _w(d, nh):
     return (d["gamma"], d["beta"], d["wqkv"], d["bqkv"], d["wproj"], d["bproj"], d["bias"], nh)
 
 
-def _compare(got, want, atol, rtol, rows=None):
+def _compare(got, want, atol, rtol, rows=None, note=""):
     got, want = got.float().numpy(), np.asarray(want).astype(np.float32)
     if rows is not None:
         got, want = got[rows], want[rows]
     d = np.abs(got - want)
-    assert (d <= atol + rtol * np.abs(want)).all(), float(d.max())
+    assert (d <= atol + rtol * np.abs(want)).all(), f"{float(d.max())}{note}"
 
 
 @pytest.mark.parametrize("shift", [0, 3])
@@ -65,19 +89,53 @@ def _compare(got, want, atol, rtol, rows=None):
                                       ("stage2", 6)])
 def test_plain_versions_match_the_jax_kernels(jhg, stage, hg, shift):
     """fp32 at the probe's own bar, 2e-5: both sections, every head group of
-    the JAX check; on the CPU no kernel is launched."""
+    the JAX check; on the CPU no kernel is launched.  Each plain version runs
+    rounding to nearest; the mode that its thread was left in is reported on a
+    failure, and a warning names any other than to-nearest (ROADMAP C3)."""
     j, p, tab, nh, geom = _inputs(jhg, stage, torch.float32, 1)
     mask = tab["mask1"] if shift else tab["mask0"]
     reg = tab["regions"] if shift else None
     launches = (H.hg_section.launches, H.hg2_section.launches)
-    got1 = H.hg_section(p["x"], t(mask), None if reg is None else t(reg), *_w(p, nh), wblk=8,
-                        hg=hg)
+    found = []
+    note = lambda: f" (rounding modes found before the plain versions: {found})"
+    with _to_nearest(found):
+        got1 = H.hg_section(p["x"], t(mask), None if reg is None else t(reg), *_w(p, nh),
+                            wblk=8, hg=hg)
     want1 = jhg.hg_section(j["x"], mask, reg, *_w(j, nh), wblk=8, hg=hg, interpret=True)
-    _compare(got1, want1, 2e-5, 0.0)
-    got2 = H.hg2_section(p["x"], geom + (shift,), *_w(p, nh), wblk=8, hg=hg)
+    with _to_nearest(found):
+        got2 = H.hg2_section(p["x"], geom + (shift,), *_w(p, nh), wblk=8, hg=hg)
     want2 = jhg.hg2_section(j["x"], geom + (shift,), *_w(j, nh), wblk=8, hg=hg, interpret=True)
-    _compare(got2, want2, 2e-5, 0.0)
+    if any(m != _FE_TONEAREST for m in found):
+        warnings.warn("ROADMAP C3: a plain version's thread was left rounding other than to "
+                      f"nearest{note()}")
+    _compare(got1, want1, 2e-5, 0.0, note=note())
+    _compare(got2, want2, 2e-5, 0.0, note=note())
     assert (H.hg_section.launches, H.hg2_section.launches) == launches
+
+
+@pytest.mark.parametrize("mode", [0x400, 0x800, 0xC00])  # FE_DOWNWARD, FE_UPWARD, FE_TOWARDZERO
+def test_the_calling_threads_rounding_mode_moves_the_fp32_plain_version(jhg, mode):
+    """ROADMAP C3: a calling thread left rounding other than to nearest moves
+    the fp32 plain version by about 1e-5 in the windows that thread computes,
+    five times the distance between the two packages under round-to-nearest,
+    and past 2e-6 in at least one window: what _to_nearest pins."""
+    j, p, tab, nh, _ = _inputs(jhg, "stage0", torch.float32, 1)
+    mask = t(tab["mask0"])
+    want = np.asarray(jhg.hg_section(j["x"], tab["mask0"], None, *_w(j, nh), wblk=8, hg=1,
+                                     interpret=True))
+    with _to_nearest([]):
+        near = H.hg_section(p["x"], mask, None, *_w(p, nh), wblk=8, hg=1).numpy()
+    _LIBM.fesetround(mode)
+    try:
+        moved = H.hg_section(p["x"], mask, None, *_w(p, nh), wblk=8, hg=1).numpy()
+    finally:
+        _LIBM.fesetround(_FE_TONEAREST)
+    by_window = np.abs(moved - near).max(axis=(1, 2))
+    print(f"mode {mode:#x}: by window {np.round(by_window, 7).tolist()}; "
+          f"port vs JAX under round-to-nearest {float(np.abs(near - want).max()):.3g}")
+    assert float(np.abs(near - want).max()) <= 2e-6
+    assert float(by_window.max()) >= 5 * float(np.abs(near - want).max())
+    assert float(by_window.max()) > 2e-6
 
 
 def test_bf16_scores_match_the_jax_kernels(jhg):
