@@ -22,11 +22,15 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      F.scaled_dot_product_attention on the same inputs (timed only);
   6a. K4 swin_block vs its plain version at the same shapes and shifts as K3,
      and fp32 at one shape, half by half (the section's output, then the MLP
-     over it), beside the two-launch route (K3 then K1) on the same input;
+     over it), beside the two-launch route (K3 then K1) on the same input; the
+     same build, SASS, TFLOP/s and phase-split lines as K3;
   6b. K5 attn_section_v1 vs its plain version for group in 1, 2, 4, 8 at the
      same shapes and shifts, with broadcast and per-window mask rows, with and
      without regions, a window count that no group divides, fp32 at one
-     shape, and group = 1 against K3 on the same input;
+     shape, and group = 1 against K3 on the same input; per build and group
+     the registers, local bytes and shared memory, the SASS lines of both
+     paths (windows, scratch), and per shape and group the path, TFLOP/s and
+     phase split;
   7. the convnext slice: convnext_pop / convnext-t in bf16 with the fused
      kernels, random weights from a seeded torch.Generator, through
      Evaluator.run on 2 batches of 8 synthetic 1024^2 tiles; the launch
@@ -82,7 +86,7 @@ plain version's time, bound, library call's time) and the last line is
 the repo beside it, it fails before printing any result.
 
     python3 chip_smoke.py --phases k1,k3    # K1 and K3 with their build, SASS and phase lines
-    python3 chip_smoke.py --phases k4,k5    # a subset, while working on a kernel
+    python3 chip_smoke.py --phases k4,k5    # K4 and K5 with their build, SASS and phase lines
     python3 chip_smoke.py --phases k9,k10   # the head-group kernels and their probe
     python3 chip_smoke.py --phases k11,f32  # the variants probe's kernel, the fp32 body
     python3 chip_smoke.py --phases profile  # torch.profiler over the swin and deeplab_pop slices
@@ -168,7 +172,7 @@ def torch_mlp(x, gamma, beta, w1, b1, w2, b2, res=None, ls=None, eps=1e-6):
 
 def linear_layout(w, dtype):
     """In bf16, w [in, out] as an nn.Linear holds it: [out, in] storage seen
-    through .T, the K-major layout that the wgmma bodies of K1 and K3 read
+    through .T, the K-major layout that the wgmma bodies of K1, K3, K4 and K5 read
     without a copy (ops/fused_mlp.py:kmajor), as the models hand it over.  The
     fp32 bodies read w input-major, as it comes."""
     import torch
@@ -186,6 +190,8 @@ def linear_weights(args, dtype):
 
 K1_PHASES = ("ln", "wait", "wgmma", "h", "out")
 K3_PHASES = ("setup", "wait", "wgmma", "qkv", "attn", "ctx", "out")
+K4_PHASES = K3_PHASES + ("ln2", "h", "mlp_out")
+K5_PHASES = K3_PHASES  # attn: the super-window's key walk (and, scratch path, its q/k/v loads)
 
 
 def phase_split(run, names, dev):
@@ -234,21 +240,24 @@ def check_k1(dev, m, c, dtype, atol, rtol, seed, with_res=True, with_ls=True):
     return float(err.max()), ms, plain_ms, torch_ms
 
 
-def build_attrs(entry, widths, what):
+def build_attrs(entry, keys, what, names=("C",)):
     """Registers at launch, local (spill) bytes and shared memory of each bf16
-    build, by cudaFuncGetAttributes through the kernel's C entry; fails on any
-    local memory."""
+    build, by cudaFuncGetAttributes through the kernel's C entry (a key: the
+    width, or a tuple of the entry's leading arguments, named by ``names``);
+    fails on any local memory."""
     import ctypes
     from segland_tpu_torch import kernels
 
     fn = getattr(kernels.library(), entry)
-    for c in widths:
+    for key in keys:
+        key = key if isinstance(key, tuple) else (key,)
+        label = " ".join(f"{n}={v}" for n, v in zip(names, key))
         regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        kernels.check(fn(c, ctypes.byref(regs), ctypes.byref(local), ctypes.byref(smem)), entry)
-        print(f"{what} bf16 build C={c}: registers={regs.value} local_bytes={local.value} "
+        kernels.check(fn(*key, ctypes.byref(regs), ctypes.byref(local), ctypes.byref(smem)), entry)
+        print(f"{what} bf16 build {label}: registers={regs.value} local_bytes={local.value} "
               f"smem={smem.value}", flush=True)
         if local.value:
-            fail(f"{what} bf16 build C={c} spills: {local.value} bytes of local memory")
+            fail(f"{what} bf16 build {label} spills: {local.value} bytes of local memory")
 
 
 _SASS = {}
@@ -514,12 +523,14 @@ def check_k4(dev, b, c, nh, side, pside, shift, dtype, atol, rtol, seed):
     |d| <= atol + rtol * |ref| and none past twice that; in fp32 with none past.
     Beside it, at the full tolerance with no outlier: K3's section output ``a``
     against attn_section_reference, and K4's output against the plain MLP half
-    over K3's ``a``.  K4 keeps the WMMA section body, K3 has the wgmma one, so
-    K3's ``a`` stands for K4's on-chip one only to bf16 rounding (the line
-    prints whether K4 equals K3 then K1 bit for bit)."""
+    over K3's ``a``.  K4 runs K3's section body and K1's MLP body in the same
+    k order, so K3's ``a`` is K4's on-chip one where the two agree bit for bit
+    (the line prints whether K4 equals K3 then K1).  Every kernel gets its
+    weights as the models hand them (linear_layout)."""
     import torch
     from segland_tpu_torch.ops.fused_attn import (attn_section, attn_section_reference,
-                                                  block_reference, swin_block)
+                                                  block_reference, swin_block,
+                                                  swin_block_clocks)
     from segland_tpu_torch.ops.fused_mlp import ln_mlp, ln_mlp_reference
 
     nw = b * (pside // 7) ** 2
@@ -529,9 +540,8 @@ def check_k4(dev, b, c, nh, side, pside, shift, dtype, atol, rtol, seed):
     mask, regions = masks_on(dev, geom)
     sec = (a["gamma"], a["beta"], a["wqkv"], a["bqkv"], a["wproj"], a["bproj"], a["bias"])
     mlp = (m["gamma"], m["beta"], m["w1"], m["b1"], m["w2"], m["b2"])
-    # K3 and K1 take the weights as the models hand them
     sec_l, mlp_l = linear_weights(sec, dtype), linear_weights(mlp, dtype)
-    run = lambda: swin_block(a["x"], geom, *sec, *mlp, nh)
+    run = lambda: swin_block(a["x"], geom, *sec_l, *mlp_l, nh)
     two = lambda: ln_mlp(attn_section(a["x"], geom, *sec_l, nh).view(-1, c), *mlp_l)
     plain = lambda: block_reference(a["x"], mask, *sec, *mlp, nh, regions=regions)
     tag = f"K4 {str(dtype)[6:]} NW={nw} C={c} heads={nh} geom={geom}"
@@ -561,20 +571,33 @@ def check_k4(dev, b, c, nh, side, pside, shift, dtype, atol, rtol, seed):
     del got, a_k, a_ref, want, d, lim
     ms, two_ms = cuda_ms(run, iters=5, warmup=1), cuda_ms(two, iters=5, warmup=1)
     plain_ms = cuda_ms(plain, iters=3, warmup=1)
+    tflops = (2 * nw * 49 * c * (4 * c + 2 * 49) + 16 * nw * 49 * c * c) / ms / 1e9
+    split = "" if dtype != torch.bfloat16 else " " + phase_split(
+        lambda clk: swin_block_clocks(clk, a["x"], geom, *sec_l, *mlp_l, nh), K4_PHASES, dev)
     print(f"{tag}: whole block vs block_reference max_abs_err={whole:.6g} "
           f"tol=|d|<={atol}+{rtol}*|ref| out_of_tol={bad} (at most {allowed}, none past "
           f"twice){far}; K3 section max_abs_err={k3:.6g} and over it the MLP half "
           f"max_abs_err={mlp_half:.6g} out_of_tol=0; equal_to_k3_then_k1={same} "
-          f"kernel_ms={ms:.4f} k3_then_k1_ms={two_ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
+          f"kernel_ms={ms:.4f} tflops={tflops:.1f} k3_then_k1_ms={two_ms:.4f} "
+          f"plain_ms={plain_ms:.4f}{split}", flush=True)
     return whole, ms, two_ms, plain_ms
 
 
 def phase_k4(dev):
     import torch
+    from segland_tpu_torch.ops.fused_attn import BLOCK_BUILDS, block_plan
 
+    build_attrs("segland_swin_block_attrs", BLOCK_BUILDS, "K4")
+    sass_counts("swin_block_wgmma_kernel")
     worst, ms, two_ms, plain_ms, bounds = 0.0, 0.0, 0.0, 0.0, []
     for i, (blocks, c, nh, side, pside) in enumerate(SWIN_STAGES):
         nw = BATCH * (pside // 7) ** 2
+        plan = block_plan(c)
+        print(f"K4 plan C={c}: {plan['w']} windows a block ({plan['row_tiles']} m64 row tiles), "
+              f"ring {plan['s']} x 12 KB ({plan['slots_per_block']} slots a block), MLP "
+              f"warpgroups {plan['rg']} x {plan['cg']}, passes {plan['np']}, hidden chunk "
+              f"{plan['hc']}, {plan['items']} work items, smem {plan['smem']:,} B",
+              flush=True)
         for shift in (0, 3):  # the blocks of a stage alternate
             e, t, t2, tp = check_k4(dev, BATCH, c, nh, side, pside, shift, torch.bfloat16,
                                     2e-2, 1e-2, 40 + i)
@@ -600,29 +623,41 @@ K5_MAIN_GROUP = 2  # the group of the main path's attn_group route
 
 def check_k5(dev, b, c, nh, side, pside, shift, dtype, atol, rtol, seed, groups=K5_GROUPS,
              timed=False, against_k3=False):
-    """K5 for every group on one input; returns (worst error, {group: ms}, plain ms)."""
+    """K5 for every group on one input; returns (worst error, {group: ms}, plain ms).
+    Timed, in bf16, each group's line also gives its path (windows or scratch),
+    TFLOP/s (the function's operations, K3's count) and the clock build's
+    phase split.  The kernels get their weights as the models hand them."""
+    import torch
     from segland_tpu_torch.ops.fused_attn import (attn_section, attn_section_reference,
-                                                  attn_section_v1)
+                                                  attn_section_v1, attn_section_v1_clocks,
+                                                  v1_plan)
 
     nw = b * (pside // 7) ** 2
     geom = (side, side, pside, pside, 7, shift)
     a = section_inputs(nw, c, nh, dtype, dev, seed)
     mask, regions = masks_on(dev, geom)
     w = (a["gamma"], a["beta"], a["wqkv"], a["bqkv"], a["wproj"], a["bproj"], a["bias"], nh)
+    w_l = linear_weights(w, dtype)
     plain = lambda: attn_section_reference(a["x"], mask, *w, regions=regions)
     want = plain()
     tag = (f"K5 {str(dtype)[6:]} NW={nw} C={c} heads={nh} mask_rows={mask.shape[0]} "
            f"region_rows={0 if regions is None else regions.shape[0]} shift={shift}")
     worst, times = 0.0, {}
+    flops = 2 * nw * 49 * c * (4 * c + 2 * 49)
     for g in groups:
-        run = lambda: attn_section_v1(a["x"], mask, *w, regions=regions, group=g)
+        run = lambda: attn_section_v1(a["x"], mask, *w_l, regions=regions, group=g)
         worst = max(worst, compare(f"{tag} group={g}", run(), want, atol, rtol))
         if timed:
             times[g] = cuda_ms(run, iters=5, warmup=1)
+            if dtype == torch.bfloat16:
+                split = phase_split(lambda clk: attn_section_v1_clocks(
+                    clk, a["x"], mask, *w_l, regions=regions, group=g), K5_PHASES, dev)
+                print(f"{tag} group={g}: path={v1_plan(c, g)['path']} kernel_ms={times[g]:.4f} "
+                      f"tflops={flops / times[g] / 1e9:.1f} {split}", flush=True)
     k3 = ""
     if against_k3:
-        got = attn_section_v1(a["x"], mask, *w, regions=regions, group=1)
-        e3 = compare(f"{tag} group=1 vs K3", got, attn_section(a["x"], geom, *w), atol, rtol)
+        got = attn_section_v1(a["x"], mask, *w_l, regions=regions, group=1)
+        e3 = compare(f"{tag} group=1 vs K3", got, attn_section(a["x"], geom, *w_l), atol, rtol)
         k3 = f" group1_vs_k3_max_abs_err={e3:.6g}"
     plain_ms = cuda_ms(plain, iters=3, warmup=1) if timed else 0.0
     ms = " ".join(f"g{g}_ms={t:.4f}" for g, t in times.items())
@@ -633,12 +668,23 @@ def check_k5(dev, b, c, nh, side, pside, shift, dtype, atol, rtol, seed, groups=
 
 def phase_k5(dev):
     import torch
+    from segland_tpu_torch.ops.fused_attn import V1_BUILDS, v1_plan
 
+    build_attrs("segland_attn_section_v1_attrs", [(c, g) for c in V1_BUILDS for g in K5_GROUPS],
+                "K5", names=("C", "group"))
+    sass_counts("attn_section_v1_windows_kernel")
+    sass_counts("attn_section_v1_scratch_kernel")
     bf = torch.bfloat16
     worst, plain_ms, bounds, tiling = 0.0, 0.0, [], []
     per_group = {g: 0.0 for g in K5_GROUPS}
     for i, (blocks, c, nh, side, pside) in enumerate(SWIN_STAGES):
         nw = BATCH * (pside // 7) ** 2
+        for g in K5_GROUPS:
+            plan = v1_plan(c, g)
+            print(f"K5 plan C={c} group={g}: {plan['path']} path, {plan['windows_a_block']} "
+                  f"windows a block ({-(-nw // plan['windows_a_block'])} blocks), ring "
+                  f"{plan['s']} x 12 KB, smem {plan['smem']:,} B, scratch tensor "
+                  f"{'yes' if plan['scratch'] else 'no'}", flush=True)
         for shift in (0, 3):  # per-window mask rows; regions with the shift
             e, times, tp = check_k5(dev, BATCH, c, nh, side, pside, shift, bf, 2e-2, 1e-2,
                                     60 + i, timed=True, against_k3=True)

@@ -67,12 +67,17 @@ _ENTRIES = {
     # NW, C, nh, wblk, h, w, hp, wp, ws, shift, eps, mode, norm_first, group, device, stream
     "segland_section_f32": [_P, _P, _I, _P, _I] + [_P] * 8 + [ctypes.c_longlong] + [_I] * 9
                            + [ctypes.c_float] + [_I] * 4 + [_P],
-    # the bf16 kernels of segland_ln_mlp and segland_attn_section with phase clocks: their
-    # arguments without dtype, then clocks (uint64) before device and stream
+    # the bf16 kernels of segland_ln_mlp, segland_attn_section, segland_swin_block and
+    # segland_attn_section_v1 with phase clocks: their arguments without dtype, then
+    # clocks (uint64) before device and stream
     "segland_ln_mlp_clocks": [_P] * 10 + [ctypes.c_longlong, _I, _I, ctypes.c_float, _P, _I,
                                           _P],
     "segland_attn_section_clocks": [_P] * 9 + [ctypes.c_longlong] + [_I] * 8
                                    + [ctypes.c_float, _P, _I, _P],
+    "segland_swin_block_clocks": [_P] * 15 + [ctypes.c_longlong] + [_I] * 9
+                                 + [ctypes.c_float, _P, _I, _P],
+    "segland_attn_section_v1_clocks": [_P, _P, _I, _P, _I] + [_P] * 9 + [ctypes.c_longlong]
+                                      + [_I] * 3 + [ctypes.c_float, _P, _I, _P],
     # h2q, res, w3t, a3, b3, out, M, P, C, relu, device, stream
     "segland_conv3_residual_int8": [_P] * 6 + [ctypes.c_longlong] + [_I] * 4 + [_P],
 }
@@ -159,10 +164,12 @@ def library() -> ctypes.CDLL:
     # C, P, d -> th, tw, smem bytes; returns 0 when no tile fits
     lib.segland_bottleneck_int8_tile.argtypes = [_I] * 3 + [ctypes.POINTER(_I)] * 3
     lib.segland_bottleneck_int8_tile.restype = ctypes.c_int
-    # C -> registers at launch, local (spill) bytes, dynamic shared memory of a bf16 build
-    for name in ("segland_ln_mlp_attrs", "segland_attn_section_attrs"):
+    # C (and K5's group) -> registers at launch, local (spill) bytes, dynamic shared memory
+    # of a bf16 build
+    for name, keys in (("segland_ln_mlp_attrs", 1), ("segland_attn_section_attrs", 1),
+                       ("segland_swin_block_attrs", 1), ("segland_attn_section_v1_attrs", 2)):
         fn = getattr(lib, name)
-        fn.argtypes = [_I] + [ctypes.POINTER(_I)] * 3
+        fn.argtypes = [_I] * keys + [ctypes.POINTER(_I)] * 3
         fn.restype = ctypes.c_int
     lib.segland_error_string.argtypes = [ctypes.c_int]
     lib.segland_error_string.restype = ctypes.c_char_p

@@ -1,7 +1,8 @@
-// Device code shared by the Swin attention kernels: attn_section.cu (the
-// attention section with index-math masks, and the window-attention core),
-// swin_block.cu (the whole block) and attn_section_v1.cu (the section with
-// shipped masks and super-window grouping).  Everything lives in an
+// Device code shared by the Swin attention kernels: the token geometry, the
+// WMMA attention core of K3, K4 and K6 (attn_tile_bf16), the WMMA section
+// products of the variants probe (SecCfg, gemm96), the row LayerNorm of the
+// probes, and the fp32 bodies (exact FMA loops) of K3, K4 and K5.  The wgmma
+// section body of K3, K4 and K5 is section_sm90.cuh.  Everything lives in an
 // anonymous namespace, so each source gets its own copy.
 //
 // Shapes: windows of N = 49 tokens (7 x 7), heads of 32 channels, 8 warps a
@@ -47,10 +48,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float c = 0.7978845608028654f;  // sqrt(2/pi)
-  return 0.5f * x * (1.0f + tanhf(c * (x + 0.044715f * x * x * x)));
-}
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.7071067811865476f));
 }
@@ -343,147 +340,6 @@ __device__ __forceinline__ void ln_row_bf16(Load load, const float* __restrict__
   for (int i = 0; i < C / 32; ++i) {
     const int c = lane + 32 * i;
     dst[c] = __float2bfloat16((((xv[i] - mu) * rs) * gamma[c] + beta[c]) * m);
-  }
-}
-
-// ---- the attention section with index-math masks, bf16 ----------------------
-// The windows win0.. of this block: LN, pad zeroing, qkv, attention, proj,
-// +residual (the note at the top of attn_section.cu).  With KEEP the result
-// a = T(x + proj) of every row stays in shared memory, over y (row stride
-// LDY); otherwise it goes to `out`.  Every thread of the block calls it.
-template <int C, int W, int P, int KC, int S, bool KEEP>
-__device__ __forceinline__ void section_bf16(
-    const bf16* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
-    const bf16* __restrict__ wqkv, const float* __restrict__ bqkv,
-    const bf16* __restrict__ wproj, const float* __restrict__ bproj,
-    const float* __restrict__ bias, bf16* __restrict__ out, long long NW, const Geom& g,
-    float eps, unsigned char* smem) {
-  typedef SecCfg<C, W, P, KC, S> Cf;
-  bf16* ys = reinterpret_cast<bf16*>(smem);
-  bf16* ctx = reinterpret_cast<bf16*>(smem + Cf::OFF_CTX);
-  bf16* qb = reinterpret_cast<bf16*>(smem + Cf::OFF_Q);
-  bf16* kb = reinterpret_cast<bf16*>(smem + Cf::OFF_Q + Cf::Q_BYTES);
-  bf16* vb = reinterpret_cast<bf16*>(smem + Cf::OFF_Q + 2 * Cf::Q_BYTES);
-  float* strips = reinterpret_cast<float*>(smem + Cf::OFF_STRIP);
-  bf16* stage = reinterpret_cast<bf16*>(smem + Cf::OFF_STAGE);
-  float* bias_s = reinterpret_cast<float*>(smem + Cf::OFF_BIAS);
-  uint8_t* rids = smem + Cf::OFF_TOK;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long win0 = (long long)blockIdx.x * W;
-  const int nwin = (int)((NW - win0) < (long long)W ? (NW - win0) : (long long)W);
-  const int rows = nwin * kN;  // real rows of this block
-  const float scale = rsqrtf((float)kHD);
-  float* strip = strips + warp * kStrip;   // this warp's attention tile (warps below NSTRIP)
-  float* scratch = strips + warp * 256;    // this warp's 16 x 16 tile for the epilogues
-  constexpr int PP = P;
-  const Stream st = {Cf::NCALL * Cf::NCH, 0, Cf::NCALL};
-
-  // the first weight chunks travel while the rows are normalised
-  for (int c = 0; c < S - 1; ++c) fetch_chunk<C, KC, S, Cf>(c, st, stage, wqkv, wproj);
-
-  // region id and pad flag (bit 7) of every token; zero tails of q, k, v
-  for (int i = threadIdx.x; i < Cf::R; i += kThreads) {
-    int valid = 0, rid = 0;
-    if (i < rows) token_geom((int)win0 + i / kN, i % kN, g, &valid, &rid);
-    rids[i] = (uint8_t)(rid | (valid ? 0 : 128));
-  }
-  for (int i = threadIdx.x; i < (Cf::RQ - Cf::R) * kLQ; i += kThreads) {
-    const bf16 z = __float2bfloat16(0.0f);
-    qb[Cf::R * kLQ + i] = z;
-    kb[Cf::R * kLQ + i] = z;
-    vb[Cf::R * kLQ + i] = z;
-  }
-  __syncthreads();
-  // y = LN(x) * valid, one warp a row
-  for (int r = warp; r < Cf::R; r += kWarps) {
-    bf16* dst = ys + r * Cf::LDY;
-    const bool valid = r < rows && !(rids[r] & 128);
-    if (!valid) {  // warp-uniform
-      for (int c = lane; c < C; c += 32) dst[c] = __float2bfloat16(0.0f);
-      continue;
-    }
-    const bf16* src = x + ((size_t)win0 * kN + r) * C;
-    ln_row_bf16<C>([&](int c) { return __bfloat162float(src[c]); }, gamma, beta, eps, 1.0f, dst);
-  }
-  // the first product's first barrier shows y, the region ids and the tails
-
-  FragC acc[Cf::ROUNDS][Cf::NFR];
-  for (int h = 0; h < Cf::NH; ++h) {
-    gemm96<C, KC, S, Cf>(ys, h * Cf::NCH, st, stage, wqkv, wproj, acc,
-                         bias + (size_t)h * kN * kN, bias_s);
-    // q, k, v of this head = T(T(acc) + T(bqkv))
-#pragma unroll
-    for (int rd = 0; rd < Cf::ROUNDS; ++rd) {
-      const int u = warp + kWarps * rd;
-      if (u < Cf::UNITS) {
-#pragma unroll
-        for (int f = 0; f < Cf::NFR; ++f) {
-          const int rt = u / PP, colt = (u % PP) * Cf::NFR + f;
-          wmma::store_matrix_sync(scratch, acc[rd][f], 16, wmma::mem_row_major);
-          // a lane keeps one column of the tile: e % 16 == lane % 16
-          const int col = colt * 16 + lane % 16;
-          const int which = col / kHD, d = col % kHD;
-          const float bcol = bf(bqkv[which * C + h * kHD + d]);
-          bf16* dstb = (which == 0 ? qb : (which == 1 ? kb : vb)) + d;
-          __syncwarp();
-#pragma unroll
-          for (int e = lane; e < 256; e += 32) {
-            const int row = rt * 16 + e / 16;
-            if (row < Cf::R) dstb[row * kLQ] = __float2bfloat16(bf(scratch[e]) + bcol);
-          }
-          __syncwarp();
-        }
-      }
-    }
-    __syncthreads();
-    for (int u = warp; u < W * 4; u += kWarps) {
-      const int wl = u / 4, rt = u % 4;
-      if (wl >= nwin) continue;
-      const int r0 = wl * kN;
-      attn_tile_bf16(qb + r0 * kLQ, kb + r0 * kLQ, vb + r0 * kLQ, rt,
-                     bias_s, g.shift > 0 ? rids + r0 : nullptr, scale, strip,
-                     ctx + r0 * Cf::LDY + h * kHD, Cf::LDY);
-    }
-    // the next product's first barrier comes before q, k, v or ctx are touched again
-  }
-
-  // a = x + T(T(ctx @ wproj) + T(bproj)), 96 columns a pass
-  for (int n0 = 0; n0 < C; n0 += 96) {
-    gemm96<C, KC, S, Cf>(ctx, (Cf::NH + n0 / 96) * Cf::NCH, st, stage, wqkv, wproj, acc,
-                         nullptr, nullptr);
-#pragma unroll
-    for (int rd = 0; rd < Cf::ROUNDS; ++rd) {
-      const int u = warp + kWarps * rd;
-      if (u < Cf::UNITS) {
-#pragma unroll
-        for (int f = 0; f < Cf::NFR; ++f) {
-          const int rt = u / PP, colt = (u % PP) * Cf::NFR + f;
-          wmma::store_matrix_sync(scratch, acc[rd][f], 16, wmma::mem_row_major);
-          const int col = n0 + colt * 16 + lane % 16;  // this lane's column of the tile
-          const float bcol = bf(bproj[col]);
-          float xr[8];  // the residual, fetched before the tile is read back
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const int row = rt * 16 + lane / 16 + 2 * i;
-            xr[i] = row < rows ? __bfloat162float(x[((size_t)win0 * kN + row) * C + col]) : 0.0f;
-          }
-          __syncwarp();
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const int row = rt * 16 + lane / 16 + 2 * i;
-            const bf16 a = __float2bfloat16(xr[i] + bf(bf(scratch[lane + 32 * i]) + bcol));
-            if (KEEP) {
-              // y is dead since the last head's product; rows past R belong to ctx
-              if (row < Cf::R) ys[row * Cf::LDY + col] = a;
-            } else if (row < rows) {
-              out[((size_t)win0 * kN + row) * C + col] = a;
-            }
-          }
-          __syncwarp();
-        }
-      }
-    }
   }
 }
 

@@ -68,108 +68,16 @@
 #define SEGLAND_PART 0
 #endif
 
-#include <type_traits>
-
 #include "attn_common.cuh"
+#include "section_sm90.cuh"
 #include "sm90.cuh"
 
 namespace {
 
-// ---- the section, bf16: wgmma products fed by a TMA ring -------------------------
-// W windows a block, S ring slots.  ops/fused_attn.py:SECTION_BUILDS mirrors the
-// table in segland_attn_section and section_plan this arithmetic.
-template <int C_, int W_, int S_, bool RR_>
-struct SecPlan {
-  static constexpr int C = C_, W = W_, S = S_;
-  static constexpr bool RR = RR_;               // a producer warpgroup and setmaxnreg
-  static constexpr int THREADS = RR ? 384 : 288; // else a lone producer warp
-  static constexpr int R = W * kN;              // real rows
-  static constexpr int RT = (R + 63) / 64;      // m64 row tiles
-  static constexpr int RS = (R + 7) / 8 * 8;    // rows of a K tile of y
-  static constexpr bool ROWS = RT >= 2;         // warpgroups split the rows, else the columns
-  static constexpr int NTW = ROWS ? RT / 2 : 1; // row tiles a warpgroup
-  static constexpr int NB = ROWS ? 96 : 48;     // columns a warpgroup's wgmma
-  static constexpr int ACC = NB / 2;            // accumulator registers a row tile
-  static constexpr int KT = (C + 63) / 64;      // K tiles
-  static constexpr int KS = C / 16;             // k16 steps
-  static constexpr int NH = C / kHD;
-  static constexpr int SLOT = 96 * 128;         // a ring slot: [96 rows, 64 bf16]
-  static constexpr int YK = RS * 128;           // bytes a K tile of y
-  static constexpr int RQ = (R + 15) / 16 * 16 + 16;  // q/k/v rows: a window's tiles reach R + 14
-  static constexpr int NSTRIP = 4 * W < kWarps ? 4 * W : kWarps;  // attention tiles at once
-  static constexpr size_t OFF_Y = (size_t)S * SLOT;
-  static constexpr size_t OFF_Q = OFF_Y + (size_t)KT * YK;
-  static constexpr size_t Q_BYTES = align128((size_t)RQ * kLQ * sizeof(bf16));
-  static constexpr size_t OFF_STRIP = OFF_Q + 3 * Q_BYTES;
-  static constexpr size_t OFF_BIAS = OFF_STRIP + (size_t)NSTRIP * kStrip * sizeof(float);
-  static constexpr size_t OFF_TOK = OFF_BIAS + align128((size_t)kN * kN * sizeof(float));
-  static constexpr size_t OFF_BAR = OFF_TOK + align128(R);
-  static constexpr size_t SMEM = OFF_BAR + 2 * S * sizeof(uint64_t) + 1024;  // + alignment
-  static_assert(RT == 1 || RT % 2 == 0, "row tiles split evenly over two warpgroups");
-  static_assert(C % 96 == 0, "the projection walks 96 columns a pass");
-  static_assert((size_t)(RT * 64 - RS) * 128 <= OFF_BAR - OFF_Q,
-                "a row tile past y must stay inside the block's shared memory");
-  static_assert(SMEM <= kMaxSmem, "over the shared memory a block can have");
-};
-
-template <int NB>
-__device__ __forceinline__ void wgmma_n(float* d, uint64_t da, uint64_t db) {
-  if constexpr (NB == 96)
-    sm90::wgmma_ss_n96(d, da, db, 1);
-  else
-    sm90::wgmma_ss_n48(d, da, db, 1);
-}
-
-// acc[t] = A[row tiles of this warpgroup] @ (the ring's next KT slots, from
-// column cofs of each), taken slot by slot
-// phases of the consumers' clock (the CLK build): LN, token tables and bias
-// copies; waiting for a ring slot; starting and waiting for wgmma; the q, k, v
-// epilogue; the attention core; the context's copy back; the output epilogue
-enum { kClkSetup, kClkWait, kClkMma, kClkQkv, kClkAttn, kClkCtx, kClkOut, kClkPhases };
-
-template <typename Pl, typename Clk>
-__device__ __forceinline__ void section_product(sm90::Ring<Pl::SLOT, Pl::S>& q,
-                                                const unsigned char* a, int g, int cofs,
-                                                float (&acc)[Pl::NTW][Pl::ACC], Clk& clk) {
-#pragma unroll
-  for (int t = 0; t < Pl::NTW; ++t) {
-#pragma unroll
-    for (int i = 0; i < Pl::ACC; ++i) acc[t][i] = 0.0f;
-    sm90::reg_fence(acc[t]);
-  }
-  // whole K tiles, then (C = 96) the half tile of the last 32 columns: the
-  // k-steps of every wgmma are compile-time, none sits in a branch
-  auto k_tile = [&](int kt, auto steps) {
-    clk.template lap<kClkMma>();
-    unsigned char* b = sm90::ring_take(q);
-    clk.template lap<kClkWait>();
-    const uint64_t db = sm90::desc_sw128(b + cofs * 128);
-#pragma unroll
-    for (int t = 0; t < Pl::NTW; ++t) sm90::reg_fence(acc[t]);
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int t = 0; t < Pl::NTW; ++t) {
-      const int rt = Pl::ROWS ? g + 2 * t : 0;
-      const uint64_t da = sm90::desc_sw128(a + kt * Pl::YK + rt * 64 * 128);
-#pragma unroll
-      for (int ks = 0; ks < decltype(steps)::value; ++ks)
-        wgmma_n<Pl::NB>(acc[t], sm90::desc_step(da, ks), sm90::desc_step(db, ks));
-    }
-    sm90::wgmma_commit();
-    sm90::ring_used(q);
-#pragma unroll
-    for (int t = 0; t < Pl::NTW; ++t) sm90::reg_fence(acc[t]);
-    sm90::ring_next(q);
-  };
-#pragma unroll 1
-  for (int kt = 0; kt < Pl::KS / 4; ++kt) k_tile(kt, std::integral_constant<int, 4>());
-  if constexpr (Pl::KS % 4 != 0) k_tile(Pl::KS / 4, std::integral_constant<int, Pl::KS % 4>());
-  sm90::ring_drain(q);
-  clk.template lap<kClkMma>();
-#pragma unroll
-  for (int t = 0; t < Pl::NTW; ++t) sm90::reg_fence(acc[t]);
-}
-
+// ---- the section, bf16: wgmma products fed by a TMA ring (section_sm90.cuh) ----------
+// A build is SecPlan<C, W, S, RR>: W windows a block, S ring slots.
+// ops/fused_attn.py:SECTION_BUILDS mirrors the table in segland_attn_section
+// and section_plan the arithmetic.
 template <typename Pl, bool CLK>
 __global__ void __launch_bounds__(Pl::THREADS, 1)
 attn_section_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
@@ -178,16 +86,15 @@ attn_section_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
                           const float* __restrict__ bqkv, const float* __restrict__ bproj,
                           const float* __restrict__ bias, bf16* __restrict__ out, long long NW,
                           Geom geo, float eps, unsigned long long* __restrict__ clocks) {
-  constexpr int C = Pl::C, W = Pl::W, S = Pl::S;
+  constexpr int W = Pl::W, S = Pl::S;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));  // swizzle atoms
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + Pl::OFF_BAR);  // then the empty ones
-  uint64_t* empty = full + S;
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
       sm90::mbar_init(&full[s], 1);
-      sm90::mbar_init(&empty[s], 2);
+      sm90::mbar_init(&full[S + s], 2);
     }
     sm90::mbar_init_fence();
   }
@@ -197,154 +104,21 @@ attn_section_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
     // ---- producer: one thread streams every product's weight columns ---------------
     if constexpr (Pl::RR) sm90::regs_dec<sm90::kProducerRegs>();
     if (threadIdx.x == 256) {
-      int slot = 0;
-      uint32_t phase = 0;
-      auto next = [&]() -> unsigned char* {
-        sm90::mbar_wait(&empty[slot], phase ^ 1u);
-        sm90::mbar_expect_tx(&full[slot], Pl::SLOT);
-        return smem + (size_t)slot * Pl::SLOT;
-      };
-      auto advance = [&]() {
-        if (++slot == S) {
-          slot = 0;
-          phase ^= 1u;
-        }
-      };
-#pragma unroll 1
-      for (int h = 0; h < Pl::NH; ++h)
-#pragma unroll 1
-        for (int kt = 0; kt < Pl::KT; ++kt) {
-          unsigned char* dst = next();
-          for (int which = 0; which < 3; ++which)  // q, k, v columns of head h: 32 rows each
-            sm90::tma_load_2d(dst + which * 32 * 128, &mq, &full[slot], kt * 64,
-                              which * C + h * kHD);
-          advance();
-        }
-#pragma unroll 1
-      for (int n0 = 0; n0 < C; n0 += 96)
-#pragma unroll 1
-        for (int kt = 0; kt < Pl::KT; ++kt) {
-          sm90::tma_load_2d(next(), &mp, &full[slot], kt * 64, n0);
-          advance();
-        }
+      sm90::RingFill<Pl::SLOT, S> fill = {smem, full, 0, 0u};
+      produce_section<Pl>(fill, &mq, &mp);
     }
     return;
   }
 
   // ---- consumers: 8 warps --------------------------------------------------------
   if constexpr (Pl::RR) sm90::regs_inc<sm90::kConsumerRegs>();
-  unsigned char* ys = smem + Pl::OFF_Y;
-  bf16* qb = reinterpret_cast<bf16*>(smem + Pl::OFF_Q);
-  bf16* kb = reinterpret_cast<bf16*>(smem + Pl::OFF_Q + Pl::Q_BYTES);
-  bf16* vb = reinterpret_cast<bf16*>(smem + Pl::OFF_Q + 2 * Pl::Q_BYTES);
-  float* strips = reinterpret_cast<float*>(smem + Pl::OFF_STRIP);
-  float* bias_s = reinterpret_cast<float*>(smem + Pl::OFF_BIAS);
-  uint8_t* rids = smem + Pl::OFF_TOK;
-  const int cw = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = cw / 4, wrow = (cw % 4) * 16;  // warpgroup; the warp's first row of a tile
-  const int cofs = Pl::ROWS ? 0 : 48 * g;      // the warpgroup's first column of a slot
   const long long win0 = (long long)blockIdx.x * W;
   const int nwin = (int)((NW - win0) < (long long)W ? (NW - win0) : (long long)W);
-  const int rows = nwin * kN;  // real rows of this block
-  const float scale = rsqrtf((float)kHD);
   sm90::Ring<Pl::SLOT, S> q = {smem, full, 0, -1, 0u};
-  auto sync = [] { sm90::named_sync(1, 256); };
   sm90::PhaseClocks<CLK, kClkPhases> clk;
   clk.start();
-
-  // region id and pad flag (bit 7) of every token; zero tails of q, k, v
-  for (int i = threadIdx.x; i < Pl::R; i += 256) {
-    int valid = 0, rid = 0;
-    if (i < rows) token_geom((int)win0 + i / kN, i % kN, geo, &valid, &rid);
-    rids[i] = (uint8_t)(rid | (valid ? 0 : 128));
-  }
-  for (int i = threadIdx.x; i < (Pl::RQ - Pl::R) * kLQ; i += 256) {
-    const bf16 z = __float2bfloat16(0.0f);
-    qb[Pl::R * kLQ + i] = z;
-    kb[Pl::R * kLQ + i] = z;
-    vb[Pl::R * kLQ + i] = z;
-  }
-  // y = LN(x) * valid, a warp a row; rows past the real ones are zero
-  sm90::ln_rows_sw128<C, sm90::kLnBatch<C>>(
-      [&](int r) -> const bf16* {
-        int valid = 0, rid = 0;
-        if (r < rows) token_geom((int)win0 + r / kN, r % kN, geo, &valid, &rid);
-        return valid ? x + ((size_t)win0 * kN + r) * C : nullptr;
-      },
-      cw, kWarps, Pl::RS, gamma, beta, eps, ys, Pl::YK);
-  sm90::fence_async_smem();
-
-  float acc[Pl::NTW][Pl::ACC];
-  for (int h = 0; h < Pl::NH; ++h) {
-    // this head's bias: the barrier that ended the head before's attention is behind us,
-    // the one before this head's attention shows it
-    for (int i = threadIdx.x; i < kN * kN; i += 256) bias_s[i] = bias[(size_t)h * kN * kN + i];
-    if (h == 0) sync();  // y, the token tables and the tails, whole
-    clk.template lap<kClkSetup>();
-    section_product<Pl>(q, ys, g, cofs, acc, clk);
-    // q, k, v of this head = T(T(acc) + T(bqkv)), rows past the real ones dropped
-#pragma unroll
-    for (int t = 0; t < Pl::NTW; ++t) {
-      const int rt = Pl::ROWS ? g + 2 * t : 0;
-#pragma unroll
-      for (int i = 0; i < Pl::ACC; i += 2) {
-        const int row = rt * 64 + wrow + lane / 4 + 8 * ((i / 2) % 2);
-        const int col = cofs + (i / 4) * 8 + (lane % 4) * 2;  // of q | k | v, 96 in all
-        const int which = col / kHD, d = col % kHD;
-        if (row < Pl::R) {
-          const float2 bb = *reinterpret_cast<const float2*>(bqkv + which * C + h * kHD + d);
-          bf16* dst = (which == 0 ? qb : (which == 1 ? kb : vb)) + row * kLQ + d;
-          *reinterpret_cast<uint32_t*>(dst) = sm90::pack_bf16(bf(acc[t][i]) + bf(bb.x),
-                                                               bf(acc[t][i + 1]) + bf(bb.y));
-        }
-      }
-    }
-    sync();
-    clk.template lap<kClkQkv>();
-    for (int u = cw; u < W * 4; u += kWarps) {
-      const int wl = u / 4, rt = u % 4;
-      if (wl >= nwin) continue;
-      const int r0 = wl * kN;
-      attn_tile_bf16(qb + r0 * kLQ, kb + r0 * kLQ, vb + r0 * kLQ, rt, bias_s,
-                     geo.shift > 0 ? rids + r0 : nullptr, scale, strips + cw * kStrip,
-                     out + ((size_t)win0 * kN + r0) * C + h * kHD, (size_t)C);
-    }
-    sync();  // the context of this head is in `out`; q, k, v and the bias are free
-    clk.template lap<kClkAttn>();
-  }
-
-  // the context, back from the output rows into y's place (y is dead), 16 bytes a copy
-#pragma unroll 4
-  for (int i = threadIdx.x; i < rows * (C / 8); i += 256) {
-    const int r = i / (C / 8), c8 = i % (C / 8);
-    const uint4 v = *reinterpret_cast<const uint4*>(out + ((size_t)win0 * kN + r) * C + c8 * 8);
-    *reinterpret_cast<uint4*>(ys + (c8 / 8) * Pl::YK + r * 128 + (((c8 % 8) ^ (r % 8)) << 4)) = v;
-  }
-  sm90::fence_async_smem();
-  sync();
-  clk.template lap<kClkCtx>();
-
-  // a = x + T(T(ctx @ wproj) + T(bproj)), 96 columns a pass
-  for (int n0 = 0; n0 < C; n0 += 96) {
-    section_product<Pl>(q, ys, g, cofs, acc, clk);
-#pragma unroll
-    for (int t = 0; t < Pl::NTW; ++t) {
-      const int rt = Pl::ROWS ? g + 2 * t : 0;
-#pragma unroll
-      for (int i = 0; i < Pl::ACC; i += 2) {
-        const int row = rt * 64 + wrow + lane / 4 + 8 * ((i / 2) % 2);
-        const int col = n0 + cofs + (i / 4) * 8 + (lane % 4) * 2;
-        if (row < rows) {
-          const float2 bb = *reinterpret_cast<const float2*>(bproj + col);
-          const size_t e = ((size_t)win0 * kN + row) * C + col;
-          const float2 xr = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + e));
-          *reinterpret_cast<__nv_bfloat162*>(out + e) = __floats2bfloat162_rn(
-              xr.x + bf(bf(acc[t][i]) + bf(bb.x)), xr.y + bf(bf(acc[t][i + 1]) + bf(bb.y)));
-        }
-      }
-    }
-    clk.template lap<kClkOut>();
-  }
+  geom_section<Pl>(q, smem, x + (size_t)win0 * kN * Pl::C, out + (size_t)win0 * kN * Pl::C,
+                   nwin * kN, win0, geo, gamma, beta, bqkv, bproj, bias, eps, clk);
   clk.flush(clocks);
 }
 

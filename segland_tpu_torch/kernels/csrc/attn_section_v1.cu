@@ -24,38 +24,50 @@
 // bytes of weights.  This tiling runs 2*NW*N*C*(4C + 2*group*N): the excess is
 // the super-window's own cost, not part of the bound.
 //
-// Design (bf16): one block of 8 warps owns one super-window and works in three
-// phases, with q, k, v of its windows parked in a [NW, N, 3C] scratch tensor in
-// device memory between them (written and read back by the same block, so the
-// reads hit L2): y and ctx of 8 windows at C=768 would be 1.2 MB, five times
-// what a block can hold.
-//   1. a window at a time: LN and mask into shared memory, then a head's q, k,
-//      v by one [64, C] x [C, 96] WMMA product, the weight chunks streamed by
-//      cp.async through the ring of attn_common.cuh, across heads and windows;
-//   2. a head at a time: q, k, v of the whole super-window from the scratch
-//      tensor into shared memory ([group * 49, 32] each); a warp takes 16 query
-//      rows of one window and walks the key windows with a running maximum and
-//      sum: 16 x 64 scores by WMMA into its strip, two lanes a row rescale
-//      their half of the fp32 output row (kept in registers) and the sum,
-//      write exp(s - max) over the scores as bf16, and add that tile's product
-//      with v.  ctx goes over the head's q columns of the scratch tensor;
-//   3. a window at a time: ctx into shared memory, the projection 96 columns a
-//      pass through the same ring, +residual, out.
-// So `group` sets the rows a block owns, the q/k/v rows it holds and the key
-// tiles a query row walks: the score and context work grows with it.  The
-// probabilities are rounded to bf16 before the row sum divides (the division
-// follows the product with v), which stays inside the bf16 tolerance.
-// The fp32 build (exact FMA loops, no TF32) has the same three phases with a
-// full [49, group * 49] score matrix a query window instead of the walk.
+// Design (bf16, sm_90a): K3's body (section_sm90.cuh: LN into the swizzled
+// A operand, the products on wgmma with B from a TMA ring, the context through
+// the output rows) with two changes.  The pad mask scales each row of y and
+// the region ids go into the block's token table, both read from the shipped
+// rows mask_tok[w % rows_m] and regions[w % rows_r].  And the attention core
+// (attn_tile_group_bf16, WMMA, one warp a 16-query tile) walks the keys of
+// every window of the query's super-window with a running maximum and sum,
+// a 64-key tile at a time: the score work grows with `group`.
+//   - windows (group <= W, the build's windows a block: group 1 and 2 at C <=
+//     384): the block owns W / group whole super-windows and runs K3's body
+//     over them, q, k and v of every window in shared memory.  W is 2 at C =
+//     96, not K3's 4: two row tiles a warpgroup and the walk spill under the
+//     168 registers ptxas gives a thread of a 288- or 384-thread block.
+//   - scratch (the other groups): the block owns one super-window, in chunks
+//     of W windows.  1. a chunk at a time, LN and q, k, v on the ring, into a
+//     [NW, 49, 3C] scratch tensor in device memory (this block's rows: the
+//     reads hit L2); 2. a head at a time, q, k, v of the super-window from
+//     the scratch tensor into shared memory over y, the walk, the context into
+//     the output rows; 3. a chunk at a time, the context back into y and the
+//     projection on the ring, a = x + proj over it.
+// The producer streams one ring schedule in consumption order (the windows
+// path: K3's; scratch: every chunk's heads, then every chunk's projection).
+// Weights arrive K-major: wqkv^T [3C, C] and wproj^T [C, C] (nn.Linear's
+// [out, in]).  The probabilities are rounded to bf16 before the row sum
+// divides (the division follows the product with v), which stays inside the
+// bf16 tolerance.  ops/fused_attn.py:V1_BUILDS mirrors the build table and
+// v1_plan the arithmetic of both paths.
+// The fp32 build (exact FMA loops, no TF32) has the three phases with a full
+// [49, group * 49] score matrix a query window instead of the walk, q, k, v
+// always in the scratch tensor.  Its weights are input-major.
 //
-// Measured on an H100 (nvcc 12.8 -Xptxas -v; times from chip_smoke.py --phases
-// k5): bf16 223 registers and no spills at C=96, 128 registers and 20 bytes of
-// spills at C = 192, 384 and 768; fp32 80 registers, no spills.  Over the 24
-// blocks of a swin-s forward of 8 1024^2 tiles, 42.0 / 46.5 / 56.0 / 79.1 ms at
-// group 1 / 2 / 4 / 8, against 38.5 ms for attn_section: on this card a larger
-// super-window only adds score and context work.
+// Registers, spills, TFLOP/s and the phase split of each build and path:
+// chip_smoke.py --phases k5 (PERF.md).
+
+// segland-parts: 2
+// kernels/__init__.py compiles this file twice, -DSEGLAND_PART=0 (the entry
+// points of the served kernels) and 1 (segland_attn_section_v1_clocks, the
+// bf16 builds with phase clocks).
+#ifndef SEGLAND_PART
+#define SEGLAND_PART 0
+#endif
 
 #include "attn_common.cuh"
+#include "section_sm90.cuh"
 
 namespace {
 
@@ -70,35 +82,31 @@ __device__ __forceinline__ float table_at(const float* __restrict__ table, int r
 }
 
 // ---- bf16 -------------------------------------------------------------------
-// Phases 1 and 3 use the section's products with one window (a 64-row tile) at
-// a time; phase 2 overlays everything with q, k, v of the super-window.
-template <int C, int KC, int S>
-struct V1Cfg {
-  typedef SecCfg<C, 1, 2, KC, S> Sec;  // for its products: ROUNDS 1, 3 fragments a warp
-  static constexpr int LDY = Sec::LDY;
-  // phases 1 and 3: y or ctx of one window, 64 rows so that no row tile leaves it
-  static constexpr size_t Y_BYTES = align128((size_t)64 * LDY * sizeof(bf16));
-  static constexpr size_t OFF_SCR = Y_BYTES;  // a 16 x 16 fp32 tile a warp
-  static constexpr size_t OFF_STAGE = OFF_SCR + (size_t)kWarps * 256 * sizeof(float);
-  static constexpr size_t SMEM13 = OFF_STAGE + S * Sec::STAGE_ELEMS * sizeof(bf16);
-  // phase 2: strips, bias, then q, k, v of `group` windows
-  static constexpr size_t OFF_BIAS = (size_t)kWarps * kStrip * sizeof(float);
-  static constexpr size_t OFF_QKV = OFF_BIAS + align128((size_t)kN * kN * sizeof(float));
-  __host__ __device__ static constexpr size_t q_bytes(int group) {
-    return align128((size_t)(group * kN + 16) * kLQ * sizeof(bf16));
-  }
-  // the region ids of the super-window sit behind both layouts
-  __host__ __device__ static constexpr size_t off_rid(int group) {
-    return max_size(SMEM13, OFF_QKV + 3 * q_bytes(group));
-  }
-  __host__ __device__ static constexpr size_t smem(int group) {
-    return off_rid(group) + align128((size_t)group * kN * sizeof(float));
-  }
+// A build: K3's SecPlan with the region ids as fp32 (the windows path), and
+// the scratch path's phase-2 layout behind the ring, over y: the score strips,
+// the bias, q, k and v of a super-window of up to kMaxGroup windows and its
+// region ids.
+template <int C_, int W_, int S_>
+struct V1Plan {
+  typedef SecPlan<C_, W_, S_, false, sizeof(float)> Sec;  // a lone producer warp
+  static constexpr int RQ2 = kMaxGroup * kN + 16;  // q/k/v rows: the last window's tiles
+  static constexpr size_t Q2_BYTES = align128((size_t)RQ2 * kLQ * sizeof(bf16));
+  static constexpr size_t OFF2_STRIP = Sec::OFF_Y;
+  static constexpr size_t OFF2_BIAS = OFF2_STRIP + (size_t)kWarps * kStrip * sizeof(float);
+  static constexpr size_t OFF2_Q = OFF2_BIAS + align128((size_t)kN * kN * sizeof(float));
+  static constexpr size_t OFF2_RID = OFF2_Q + 3 * Q2_BYTES;
+  static constexpr size_t END2 = OFF2_RID + align128((size_t)kMaxGroup * kN * sizeof(float));
+  // phases 1 and 3: y of a chunk, whose last row tile reads past it
+  static constexpr size_t END13 =
+      Sec::OFF_Y + (size_t)Sec::KT * Sec::YK + (size_t)(Sec::RT * 64 - Sec::RS) * 128;
+  static constexpr size_t OFF2_BAR = END2 > END13 ? END2 : END13;
+  static constexpr size_t SMEM2 = OFF2_BAR + 2 * S_ * sizeof(uint64_t) + 1024;  // + alignment
+  static_assert(SMEM2 <= kMaxSmem, "over the shared memory a block can have");
 };
 
 // 16 query rows (tile rt) of window i of a super-window of nwin windows, one
 // head, by one warp.  q, k, v: row 0 of the super-window, [nwin * 49 + 16,
-// kLQ], rows past nwin * 49 zero.  rid: the super-window's region ids or null.
+// kLQ], rows past nwin * 49 finite.  rid: the super-window's region ids or null.
 // sink: row 0 of the super-window's output at this head's columns.
 __device__ __forceinline__ void attn_tile_group_bf16(const bf16* q, const bf16* k, const bf16* v,
                                                      int i, int rt, int nwin, const float* bias,
@@ -122,9 +130,15 @@ __device__ __forceinline__ void attn_tile_group_bf16(const bf16* q, const bf16* 
 #pragma unroll
   for (int t = 0; t < 16; ++t) o[t] = 0.0f;
 
+#pragma unroll 1
   for (int j = 0; j < nwin; ++j) {
     const bf16* kj = k + j * kN * kLQ;
     const bf16* vj = v + j * kN * kLQ;
+    // the rotation, opaque in each key tile: the 32 column offsets, key masks
+    // and bias loads derived from it are loop-invariant, and hoisted out of
+    // the walk they held registers the section's products need (spills)
+    int rj = rot;
+    asm volatile("" : "+r"(rj));
     {
       FragC s[4];
 #pragma unroll
@@ -147,7 +161,7 @@ __device__ __forceinline__ void attn_tile_group_bf16(const bf16* q, const bf16* 
     float bm = -INFINITY;
 #pragma unroll
     for (int c = 0; c < 32; ++c) {
-      const int col = (c + rot) & 31;
+      const int col = (c + rj) & 31;
       const int key = hf * 32 + col;
       float sc = srow[col] * scale;
       sc += (j == i && key < kN) ? brow[col] : kOff;
@@ -170,7 +184,7 @@ __device__ __forceinline__ void attn_tile_group_bf16(const bf16* q, const bf16* 
     __syncwarp();  // every score is in a register: the rows may be overwritten
     bf16* prow = p + r * 2 * kLS + hf * 32;
 #pragma unroll
-    for (int c = 0; c < 32; ++c) prow[(c + rot) & 31] = __float2bfloat16(e[c]);
+    for (int c = 0; c < 32; ++c) prow[(c + rj) & 31] = __float2bfloat16(e[c]);
     __syncwarp();
     FragC pv[2];
     wmma::fill_fragment(pv[0], 0.0f);
@@ -202,153 +216,208 @@ __device__ __forceinline__ void attn_tile_group_bf16(const bf16* q, const bf16* 
   }
 }
 
-template <int C, int KC, int S>
-__global__ void __launch_bounds__(kThreads)
-attn_section_v1_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ mask_tok,
-                            int rows_m, const float* __restrict__ regions, int rows_r,
-                            const float* __restrict__ gamma, const float* __restrict__ beta,
-                            const bf16* __restrict__ wqkv, const float* __restrict__ bqkv,
-                            const bf16* __restrict__ wproj, const float* __restrict__ bproj,
-                            const float* __restrict__ bias, bf16* scratch_qkv,
-                            bf16* __restrict__ out, long long NW, int group, float eps) {
-  typedef V1Cfg<C, KC, S> Cfg;
-  typedef typename Cfg::Sec Sec;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ys = reinterpret_cast<bf16*>(smem);                       // phases 1, 3
-  float* scr_all = reinterpret_cast<float*>(smem + Cfg::OFF_SCR);
-  bf16* stage = reinterpret_cast<bf16*>(smem + Cfg::OFF_STAGE);
-  float* strips = reinterpret_cast<float*>(smem);                 // phase 2
-  float* bias_s = reinterpret_cast<float*>(smem + Cfg::OFF_BIAS);
-  const size_t qbytes = Cfg::q_bytes(group);
-  bf16* qb = reinterpret_cast<bf16*>(smem + Cfg::OFF_QKV);
-  bf16* kb = reinterpret_cast<bf16*>(smem + Cfg::OFF_QKV + qbytes);
-  bf16* vb = reinterpret_cast<bf16*>(smem + Cfg::OFF_QKV + 2 * qbytes);
-  float* rid_s = reinterpret_cast<float*>(smem + Cfg::off_rid(group));
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long win0 = (long long)blockIdx.x * group;
-  const int nwin = (int)((NW - win0) < (long long)group ? (NW - win0) : (long long)group);
-  const int rows = nwin * kN;  // real rows of this block
-  const float scale = rsqrtf((float)kHD);
-  float* scr = scr_all + warp * 256;
-  constexpr int NFR = Sec::NFR;  // 3 fragments a warp: row tile warp / 2, column half warp % 2
-  const int rt = warp / 2, part = warp % 2;
-  bf16* sq = scratch_qkv + (size_t)win0 * kN * 3 * C;  // this block's rows of the scratch tensor
-  FragC acc[1][NFR];
-
-  if (regions)
-    for (int i = threadIdx.x; i < rows; i += kThreads)
-      rid_s[i] = table_at(regions, rows_r, win0, i);
-
-  // ---- phase 1: q, k, v of every window and head into the scratch tensor ----
-  {
-    const Stream st = {nwin * Sec::NH * Sec::NCH, 0, Sec::NH};
-    for (int c = 0; c < S - 1; ++c) fetch_chunk<C, KC, S, Sec>(c, st, stage, wqkv, wproj);
-    for (int wi = 0; wi < nwin; ++wi) {
-      __syncthreads();  // the window before's last product has read y
-      for (int r = warp; r < 64; r += kWarps) {
-        bf16* dst = ys + r * Cfg::LDY;
-        if (r >= kN) {  // warp-uniform: the phantom rows of the tile
-          for (int c = lane; c < C; c += 32) dst[c] = __float2bfloat16(0.0f);
-          continue;
-        }
-        const bf16* src = x + ((size_t)(win0 + wi) * kN + r) * C;
-        const float mk = table_at(mask_tok, rows_m, win0, wi * kN + r);
-        ln_row_bf16<C>([&](int c) { return __bfloat162float(src[c]); }, gamma, beta, eps, mk,
-                       dst);
-      }
-      // the first product's first barrier shows y
-      for (int h = 0; h < Sec::NH; ++h) {
-        gemm96<C, KC, S, Sec>(ys, (wi * Sec::NH + h) * Sec::NCH, st, stage, wqkv, wproj, acc,
-                              nullptr, nullptr);
-#pragma unroll
-        for (int f = 0; f < NFR; ++f) {
-          wmma::store_matrix_sync(scr, acc[0][f], 16, wmma::mem_row_major);
-          const int col = (part * NFR + f) * 16 + lane % 16;  // this lane's column of the tile
-          const int which = col / kHD, d = col % kHD;
-          const float bcol = bf(bqkv[which * C + h * kHD + d]);
-          bf16* dstq = sq + (size_t)wi * kN * 3 * C + which * C + h * kHD + d;
-          __syncwarp();
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const int row = rt * 16 + lane / 16 + 2 * i;
-            if (row < kN)
-              dstq[(size_t)row * 3 * C] = __float2bfloat16(bf(scr[lane + 32 * i]) + bcol);
-          }
-          __syncwarp();
-        }
-      }
+// barriers and both warp roles of a K5 block; returns the aligned shared memory
+template <typename Sec>
+__device__ __forceinline__ unsigned char* v1_smem(unsigned char* raw, size_t off_bar) {
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));  // swizzle atoms
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + off_bar);  // then the empty ones
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Sec::S; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&full[Sec::S + s], 2);
     }
-    cp_async_wait<0>();
-    __syncthreads();  // q, k, v of the super-window are written; phase 2 takes the memory
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+  return smem;
+}
+
+// The windows path: the block owns W windows, W / group whole super-windows.
+template <typename Pl, bool CLK>
+__global__ void __launch_bounds__(Pl::Sec::THREADS, 1)
+attn_section_v1_windows_kernel(const __grid_constant__ CUtensorMap mq,
+                               const __grid_constant__ CUtensorMap mp, const bf16* __restrict__ x,
+                               const float* __restrict__ mask_tok, int rows_m,
+                               const float* __restrict__ regions, int rows_r,
+                               const float* __restrict__ gamma, const float* __restrict__ beta,
+                               const float* __restrict__ bqkv, const float* __restrict__ bproj,
+                               const float* __restrict__ bias, bf16* __restrict__ out,
+                               long long NW, int group, float eps,
+                               unsigned long long* __restrict__ clocks) {
+  typedef typename Pl::Sec Sec;
+  constexpr int C = Sec::C, W = Sec::W, S = Sec::S;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = v1_smem<Sec>(smem_raw, Sec::OFF_BAR);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Sec::OFF_BAR);
+
+  if (threadIdx.x >= 256) {
+    // ---- producer: K3's stream --------------------------------------------------
+    if (threadIdx.x == 256) {
+      sm90::RingFill<Sec::SLOT, S> fill = {smem, full, 0, 0u};
+      produce_section<Sec>(fill, &mq, &mp);
+    }
+    return;
   }
 
-  // ---- phase 2: attention over the super-window, a head at a time -----------
-  for (int i = threadIdx.x; i < (group * kN + 16 - rows) * kLQ; i += kThreads) {
+  // ---- consumers: 8 warps --------------------------------------------------------
+  const long long win0 = (long long)blockIdx.x * W;
+  const int nwin = (int)((NW - win0) < (long long)W ? (NW - win0) : (long long)W);
+  const int rows = nwin * kN;  // real rows of this block
+  const bf16* xb = x + (size_t)win0 * kN * C;
+  bf16* ob = out + (size_t)win0 * kN * C;
+  float* rid_s = reinterpret_cast<float*>(smem + Sec::OFF_TOK);
+  sm90::Ring<Sec::SLOT, S> q = {smem, full, 0, -1, 0u};
+  sm90::PhaseClocks<CLK, kClkPhases> clk;
+  clk.start();
+  section_rows<Sec>(
+      q, smem, xb, ob, rows, gamma, beta, bqkv, bproj, bias, eps,
+      [&] {
+        if (regions)
+          for (int i = threadIdx.x; i < rows; i += 256)
+            rid_s[i] = table_at(regions, rows_r, win0, i);
+      },
+      [&](int r) -> const bf16* { return xb + (size_t)r * C; },
+      [&](int r) { return table_at(mask_tok, rows_m, win0, r); },
+      [&](int h, const bf16* qb, const bf16* kb, const bf16* vb, const float* bias_s,
+          float* strips) {
+        const int cw = threadIdx.x / 32;
+        for (int u = cw; u < W * 4; u += kWarps) {
+          const int wl = u / 4, rt = u % 4;
+          if (wl >= nwin) continue;
+          const int s0 = wl / group * group;  // the first window of its super-window
+          const int ns = nwin - s0 < group ? nwin - s0 : group;
+          const int r0 = s0 * kN;
+          attn_tile_group_bf16(qb + r0 * kLQ, kb + r0 * kLQ, vb + r0 * kLQ, wl - s0, rt, ns,
+                               bias_s, regions ? rid_s + r0 : nullptr, rsqrtf((float)kHD),
+                               strips + cw * kStrip, ob + (size_t)r0 * C + h * kHD, (size_t)C);
+        }
+      },
+      clk);
+  clk.flush(clocks);
+}
+
+// The scratch path: the block owns one super-window of up to kMaxGroup
+// windows, in chunks of W, with q, k, v in the scratch tensor between phases.
+template <typename Pl, bool CLK>
+__global__ void __launch_bounds__(Pl::Sec::THREADS, 1)
+attn_section_v1_scratch_kernel(const __grid_constant__ CUtensorMap mq,
+                               const __grid_constant__ CUtensorMap mp, const bf16* __restrict__ x,
+                               const float* __restrict__ mask_tok, int rows_m,
+                               const float* __restrict__ regions, int rows_r,
+                               const float* __restrict__ gamma, const float* __restrict__ beta,
+                               const float* __restrict__ bqkv, const float* __restrict__ bproj,
+                               const float* __restrict__ bias, bf16* scratch, bf16* out,
+                               long long NW, int group, float eps,
+                               unsigned long long* __restrict__ clocks) {
+  typedef typename Pl::Sec Sec;
+  constexpr int C = Sec::C, W = Sec::W, S = Sec::S, CR = W * kN;  // rows a chunk
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = v1_smem<Sec>(smem_raw, Pl::OFF2_BAR);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Pl::OFF2_BAR);
+  const long long win0 = (long long)blockIdx.x * group;
+  const int nwin = (int)((NW - win0) < (long long)group ? (NW - win0) : (long long)group);
+  const int rows = nwin * kN;  // real rows of the super-window
+  const int nchunk = (nwin + W - 1) / W;
+
+  if (threadIdx.x >= 256) {
+    // ---- producer: every chunk's heads, then every chunk's projection ---------------
+    if (threadIdx.x == 256) {
+      sm90::RingFill<Sec::SLOT, S> fill = {smem, full, 0, 0u};
+#pragma unroll 1
+      for (int c = 0; c < nchunk; ++c)
+#pragma unroll 1
+        for (int h = 0; h < Sec::NH; ++h) produce_qkv<Sec>(fill, &mq, h);
+#pragma unroll 1
+      for (int c = 0; c < nchunk; ++c)
+#pragma unroll 1
+        for (int n0 = 0; n0 < C; n0 += 96) produce_proj<Sec>(fill, &mp, n0);
+    }
+    return;
+  }
+
+  // ---- consumers: 8 warps --------------------------------------------------------
+  const bf16* xb = x + (size_t)win0 * kN * C;
+  bf16* ob = out + (size_t)win0 * kN * C;
+  bf16* sq = scratch + (size_t)win0 * kN * 3 * C;  // the super-window's rows of q | k | v
+  unsigned char* ys = smem + Sec::OFF_Y;
+  const int cw = threadIdx.x / 32, g = cw / 4;
+  const int cofs = Sec::ROWS ? 0 : 48 * g;  // the warpgroup's first column of a slot
+  sm90::Ring<Sec::SLOT, S> q = {smem, full, 0, -1, 0u};
+  sm90::PhaseClocks<CLK, kClkPhases> clk;
+  clk.start();
+  float acc[Sec::NTW][Sec::ACC];
+
+  // ---- phase 1: q, k, v of every chunk and head into the scratch tensor ----------
+  for (int c = 0; c < nchunk; ++c) {
+    const int r0 = c * CR, crows = rows - r0 < CR ? rows - r0 : CR;
+    if (c > 0) consumers_sync();  // both warpgroups are done with the chunk before's y
+    sm90::ln_rows_sw128<C, sm90::kLnBatch<C>>(
+        [&](int r) -> const bf16* { return r < crows ? xb + (size_t)(r0 + r) * C : nullptr; },
+        cw, kWarps, Sec::RS, gamma, beta, eps, ys, Sec::YK,
+        [&](int r) { return table_at(mask_tok, rows_m, win0, r0 + r); });
+    sm90::fence_async_smem();
+    consumers_sync();
+    clk.template lap<kClkSetup>();
+    for (int h = 0; h < Sec::NH; ++h) {
+      section_product<Sec>(q, ys, g, cofs, acc, clk);
+      qkv_epilogue<Sec>(acc, g, cofs, h, crows, bqkv, [&](int which, int row, int d, uint32_t v) {
+        *reinterpret_cast<uint32_t*>(sq + (size_t)(r0 + row) * 3 * C + which * C + h * kHD + d) =
+            v;
+      });
+      clk.template lap<kClkQkv>();
+    }
+  }
+
+  // ---- phase 2: attention over the super-window, a head at a time, over y ----------
+  consumers_sync();  // q, k, v are in the scratch tensor; y is free
+  float* strips = reinterpret_cast<float*>(smem + Pl::OFF2_STRIP);
+  float* bias_s = reinterpret_cast<float*>(smem + Pl::OFF2_BIAS);
+  bf16* qb = reinterpret_cast<bf16*>(smem + Pl::OFF2_Q);
+  bf16* kb = reinterpret_cast<bf16*>(smem + Pl::OFF2_Q + Pl::Q2_BYTES);
+  bf16* vb = reinterpret_cast<bf16*>(smem + Pl::OFF2_Q + 2 * Pl::Q2_BYTES);
+  float* rid_s = reinterpret_cast<float*>(smem + Pl::OFF2_RID);
+  if (regions)
+    for (int i = threadIdx.x; i < rows; i += 256) rid_s[i] = table_at(regions, rows_r, win0, i);
+  for (int i = threadIdx.x; i < 16 * kLQ; i += 256) {  // the last window's tiles reach rows + 14
     const bf16 z = __float2bfloat16(0.0f);
     qb[rows * kLQ + i] = z;
     kb[rows * kLQ + i] = z;
     vb[rows * kLQ + i] = z;
   }
+  clk.template lap<kClkSetup>();
   for (int h = 0; h < Sec::NH; ++h) {
-    for (int i = threadIdx.x; i < kN * kN; i += kThreads)
-      bias_s[i] = bias[(size_t)h * kN * kN + i];
-    for (int i = threadIdx.x; i < rows * 12; i += kThreads) {
+    for (int i = threadIdx.x; i < kN * kN; i += 256) bias_s[i] = bias[(size_t)h * kN * kN + i];
+    for (int i = threadIdx.x; i < rows * 12; i += 256) {
       const int r = i / 12, which = (i % 12) / 4, piece = i % 4;
       const uint4 val = *reinterpret_cast<const uint4*>(sq + (size_t)r * 3 * C + which * C +
                                                         h * kHD + piece * 8);
       bf16* dst = which == 0 ? qb : (which == 1 ? kb : vb);
       *reinterpret_cast<uint4*>(dst + r * kLQ + piece * 8) = val;
     }
-    __syncthreads();
-    for (int u = warp; u < nwin * 4; u += kWarps)
+    consumers_sync();
+    for (int u = cw; u < nwin * 4; u += kWarps)
       attn_tile_group_bf16(qb, kb, vb, u / 4, u % 4, nwin, bias_s, regions ? rid_s : nullptr,
-                           scale, strips + warp * kStrip, sq + h * kHD, (size_t)3 * C);
-    __syncthreads();  // ctx of this head is written; q, k, v and the bias are free
+                           rsqrtf((float)kHD), strips + cw * kStrip, ob + h * kHD, (size_t)C);
+    consumers_sync();  // the head's context is in `out`; q, k, v and the bias are free
+    clk.template lap<kClkAttn>();
   }
 
-  // ---- phase 3: projection and residual, a window at a time -----------------
-  {
-    const Stream st = {nwin * (C / 96) * Sec::NCH, Sec::NH, C / 96};
-    for (int c = 0; c < S - 1; ++c) fetch_chunk<C, KC, S, Sec>(c, st, stage, wqkv, wproj);
-    for (int wi = 0; wi < nwin; ++wi) {
-      __syncthreads();  // the window before's last product has read ctx
-      for (int i = threadIdx.x; i < 64 * (C / 8); i += kThreads) {
-        const int r = i / (C / 8), c = (i % (C / 8)) * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (r < kN)
-          val = *reinterpret_cast<const uint4*>(sq + (size_t)(wi * kN + r) * 3 * C + c);
-        *reinterpret_cast<uint4*>(ys + r * Cfg::LDY + c) = val;
-      }
-      for (int n0 = 0; n0 < C; n0 += 96) {
-        gemm96<C, KC, S, Sec>(ys, (wi * (C / 96) + n0 / 96) * Sec::NCH, st, stage, wqkv, wproj,
-                              acc, nullptr, nullptr);
-#pragma unroll
-        for (int f = 0; f < NFR; ++f) {
-          wmma::store_matrix_sync(scr, acc[0][f], 16, wmma::mem_row_major);
-          const int col = n0 + (part * NFR + f) * 16 + lane % 16;
-          const float bcol = bf(bproj[col]);
-          const size_t base = ((size_t)(win0 + wi) * kN) * C + col;
-          float xr[8];  // the residual, fetched before the tile is read back
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const int row = rt * 16 + lane / 16 + 2 * i;
-            xr[i] = row < kN ? __bfloat162float(x[base + (size_t)row * C]) : 0.0f;
-          }
-          __syncwarp();
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const int row = rt * 16 + lane / 16 + 2 * i;
-            if (row < kN)
-              out[base + (size_t)row * C] =
-                  __float2bfloat16(xr[i] + bf(bf(scr[lane + 32 * i]) + bcol));
-          }
-          __syncwarp();
-        }
-      }
+  // ---- phase 3: the projection and the residual, a chunk at a time ----------------
+  for (int c = 0; c < nchunk; ++c) {
+    const int r0 = c * CR, crows = rows - r0 < CR ? rows - r0 : CR;
+    if (c > 0) consumers_sync();  // both warpgroups are done with the chunk before's y
+    ctx_to_operand<Sec>(ob + (size_t)r0 * C, crows, ys);
+    consumers_sync();
+    clk.template lap<kClkCtx>();
+    for (int n0 = 0; n0 < C; n0 += 96) {
+      section_product<Sec>(q, ys, g, cofs, acc, clk);
+      proj_epilogue<Sec>(acc, g, cofs, n0, crows, bproj, xb + (size_t)r0 * C,
+                         ob + (size_t)r0 * C);
+      clk.template lap<kClkOut>();
     }
-    cp_async_wait<0>();
   }
+  clk.flush(clocks);
 }
 
 // ---- fp32: exact FMA loops --------------------------------------------------
@@ -483,61 +552,103 @@ struct V1Args {
   cudaStream_t stream;
 };
 
-template <int C, int KC, int S>
-cudaError_t launch_v1_bf16(const V1Args& a) {
-  typedef V1Cfg<C, KC, S> Cfg;
-  static_assert(Cfg::smem(kMaxGroup) <= kMaxSmem, "over the shared memory a block can have");
-  auto kernel = attn_section_v1_bf16_kernel<C, KC, S>;
-  const size_t smem = Cfg::smem(a.group);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+// whether a bf16 build at `group` takes the scratch path
+template <typename Pl>
+bool v1_scratch(int group) {
+  return group > Pl::Sec::W;
+}
+
+template <typename Pl, bool CLK>
+cudaError_t launch_v1_bf16(const V1Args& a, unsigned long long* clocks = nullptr) {
+  typedef typename Pl::Sec Sec;
+  constexpr int C = Sec::C;
+  CUtensorMap mq, mp;
+  cudaError_t err = sm90::tile_map(&mq, a.wqkv, 3 * (uint64_t)C, C, 32);
+  if (err == cudaSuccess) err = sm90::tile_map(&mp, a.wproj, C, C, 96);
   if (err != cudaSuccess) return err;
-  const unsigned grid = (unsigned)((a.NW + a.group - 1) / a.group);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
-      (const bf16*)a.x, a.mask_tok, a.rows_m, a.regions, a.rows_r, a.gamma, a.beta,
-      (const bf16*)a.wqkv, a.bqkv, (const bf16*)a.wproj, a.bproj, a.bias, (bf16*)a.scratch,
-      (bf16*)a.out, a.NW, a.group, a.eps);
+  if (!v1_scratch<Pl>(a.group)) {
+    auto kernel = attn_section_v1_windows_kernel<Pl, CLK>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)Sec::SMEM);
+    if (err != cudaSuccess) return err;
+    const unsigned grid = (unsigned)((a.NW + Sec::W - 1) / Sec::W);
+    kernel<<<grid, Sec::THREADS, Sec::SMEM, a.stream>>>(
+        mq, mp, (const bf16*)a.x, a.mask_tok, a.rows_m, a.regions, a.rows_r, a.gamma, a.beta,
+        a.bqkv, a.bproj, a.bias, (bf16*)a.out, a.NW, a.group, a.eps, clocks);
+  } else {
+    if (!a.scratch) return cudaErrorInvalidValue;
+    auto kernel = attn_section_v1_scratch_kernel<Pl, CLK>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)Pl::SMEM2);
+    if (err != cudaSuccess) return err;
+    const unsigned grid = (unsigned)((a.NW + a.group - 1) / a.group);
+    kernel<<<grid, Sec::THREADS, Pl::SMEM2, a.stream>>>(
+        mq, mp, (const bf16*)a.x, a.mask_tok, a.rows_m, a.regions, a.rows_r, a.gamma, a.beta,
+        a.bqkv, a.bproj, a.bias, (bf16*)a.scratch, (bf16*)a.out, a.NW, a.group, a.eps, clocks);
+  }
   return cudaGetLastError();
+}
+
+// the checks and arguments shared by the entry points
+int v1_args(V1Args* a, const void* x, const void* mask_tok, int rows_m, const void* regions,
+            int rows_r, const void* gamma, const void* beta, const void* wqkv, const void* bqkv,
+            const void* wproj, const void* bproj, const void* bias, void* scratch, void* out,
+            long long NW, int C, int nh, int group, float eps, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (nh * kHD != C || group < 1 || group > kMaxGroup || rows_m < 1 || (regions && rows_r < 1))
+    return (int)cudaErrorInvalidValue;
+  if (NW > 2147483647LL / kN) return (int)cudaErrorInvalidValue;
+  *a = {x, wqkv, wproj,
+        (const float*)mask_tok, (const float*)regions, (const float*)gamma,
+        (const float*)beta, (const float*)bqkv, (const float*)bproj,
+        (const float*)bias, rows_m, rows_r, scratch, out, NW, group, eps,
+        (cudaStream_t)stream};
+  return 0;
 }
 
 }  // namespace
 
+// The bf16 builds, <C, W, S> (ops/fused_attn.py:V1_BUILDS).
+#define SEGLAND_V1_BUILDS(X) \
+  X(96, 2, 5)                \
+  X(192, 2, 5)               \
+  X(384, 2, 5)               \
+  X(768, 1, 5)
+
+#if SEGLAND_PART == 0
 // dtype: 0 = float32, 1 = bfloat16 (x, wqkv, wproj, scratch [NW, N, 3C], out);
 // vectors, bias [nh, N, N], mask_tok [rows_m, N] and regions [rows_r, N] (or
-// null) are fp32.  Windows of 7 x 7 tokens and heads of 32; group in 1..8;
-// bf16 has builds for C in {96, 192, 384, 768}.  Returns a cudaError_t.
+// null) are fp32.  fp32 weights are input-major (wqkv [C, 3C], wproj [C, C]);
+// bf16 weights K-major (wqkv^T [3C, C], wproj^T [C, C]: nn.Linear's [out,
+// in]).  Windows of 7 x 7 tokens and heads of 32; group in 1..8; bf16 has
+// builds for C in {96, 192, 384, 768} and reads `scratch` (which may be null
+// otherwise) only where group exceeds the build's windows a block.  Returns a
+// cudaError_t.
 extern "C" int segland_attn_section_v1(int dtype, const void* x, const void* mask_tok, int rows_m,
                                        const void* regions, int rows_r, const void* gamma,
                                        const void* beta, const void* wqkv, const void* bqkv,
                                        const void* wproj, const void* bproj, const void* bias,
                                        void* scratch, void* out, long long NW, int C, int nh,
                                        int group, float eps, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (nh * kHD != C || group < 1 || group > kMaxGroup || rows_m < 1 || (regions && rows_r < 1))
-    return (int)cudaErrorInvalidValue;
-  if (NW <= 0) return (int)cudaSuccess;
-  if (NW > 2147483647LL / kN) return (int)cudaErrorInvalidValue;
-  const V1Args a = {x, wqkv, wproj,
-                    (const float*)mask_tok, (const float*)regions, (const float*)gamma,
-                    (const float*)beta, (const float*)bqkv, (const float*)bproj,
-                    (const float*)bias, rows_m, rows_r, scratch, out, NW, group, eps,
-                    (cudaStream_t)stream};
+  V1Args a;
+  const int e = v1_args(&a, x, mask_tok, rows_m, regions, rows_r, gamma, beta, wqkv, bqkv, wproj,
+                        bproj, bias, scratch, out, NW, C, nh, group, eps, device, stream);
+  if (e || NW <= 0) return e;
   if (dtype == 1) {
     switch (C) {
-      // <C, KC, S>
-      case 96: return (int)launch_v1_bf16<96, 48, 3>(a);
-      case 192: return (int)launch_v1_bf16<192, 96, 3>(a);
-      case 384: return (int)launch_v1_bf16<384, 96, 4>(a);
-      case 768: return (int)launch_v1_bf16<768, 32, 4>(a);
+#define SEGLAND_CASE(c, w, st) \
+  case c: return (int)launch_v1_bf16<V1Plan<c, w, st>, false>(a);
+      SEGLAND_V1_BUILDS(SEGLAND_CASE)
+#undef SEGLAND_CASE
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 || !scratch) return (int)cudaErrorInvalidValue;
   const size_t smem = v1_f32_floats(C, group) * sizeof(float);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(attn_section_v1_f32_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(attn_section_v1_f32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)((NW + group - 1) / group);
   attn_section_v1_f32_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
@@ -546,3 +657,59 @@ extern "C" int segland_attn_section_v1(int dtype, const void* x, const void* mas
       (float*)out, NW, C, group, eps);
   return (int)cudaGetLastError();
 }
+
+// Registers a thread at launch, local (spill) bytes and dynamic shared memory
+// of the bf16 kernel that width C and `group` launch, by cudaFuncGetAttributes.
+extern "C" int segland_attn_section_v1_attrs(int C, int group, int* regs, int* local_bytes,
+                                             int* smem) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (C) {
+#define SEGLAND_CASE(c, w, st)                                                         \
+  case c:                                                                                  \
+    if (v1_scratch<V1Plan<c, w, st>>(group)) {                                         \
+      err = cudaFuncGetAttributes(&fa, attn_section_v1_scratch_kernel<V1Plan<c, w, st>, \
+                                                                      false>);             \
+      *smem = (int)V1Plan<c, w, st>::SMEM2;                                            \
+    } else {                                                                               \
+      err = cudaFuncGetAttributes(&fa, attn_section_v1_windows_kernel<V1Plan<c, w, st>, \
+                                                                      false>);             \
+      *smem = (int)V1Plan<c, w, st>::Sec::SMEM;                                        \
+    }                                                                                      \
+    break;
+    SEGLAND_V1_BUILDS(SEGLAND_CASE)
+#undef SEGLAND_CASE
+    default: break;
+  }
+  if (err != cudaSuccess) return (int)err;
+  *regs = fa.numRegs;
+  *local_bytes = (int)fa.localSizeBytes;
+  return 0;
+}
+#else
+// The bf16 kernel of segland_attn_section_v1 with its consumers' clock64() time
+// by phase (setup, ring wait, wgmma, q/k/v epilogue, attention core with the
+// super-window's key walk, context copy, output epilogue) added to
+// clocks[0..7) and the count of consumer warpgroups to clocks[7].
+extern "C" int segland_attn_section_v1_clocks(const void* x, const void* mask_tok, int rows_m,
+                                              const void* regions, int rows_r, const void* gamma,
+                                              const void* beta, const void* wqkv,
+                                              const void* bqkv, const void* wproj,
+                                              const void* bproj, const void* bias, void* scratch,
+                                              void* out, long long NW, int C, int nh, int group,
+                                              float eps, void* clocks, int device, void* stream) {
+  V1Args a;
+  const int e = v1_args(&a, x, mask_tok, rows_m, regions, rows_r, gamma, beta, wqkv, bqkv, wproj,
+                        bproj, bias, scratch, out, NW, C, nh, group, eps, device, stream);
+  if (e || NW <= 0) return e;
+  switch (C) {
+#define SEGLAND_CASE(c, w, st)                                   \
+  case c:                                                            \
+    return (int)launch_v1_bf16<V1Plan<c, w, st>, true>(          \
+        a, (unsigned long long*)clocks);
+    SEGLAND_V1_BUILDS(SEGLAND_CASE)
+#undef SEGLAND_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+#endif  // SEGLAND_PART

@@ -42,7 +42,9 @@
 // wgmmas sit between operand fences and wgmma.fence and outside any runtime
 // branch (a warpgroup takes the slots of the other's columns and hands them
 // back unread), or ptxas serialises them.  The GELU is evaluated as
-// x / (1 + exp(-2u)) (see gelu_tanh_fast).  What holds each width back, by the
+// x / (1 + exp(-2u)) (mlp_sm90.cuh:gelu_tanh_fast).  The body is
+// mlp_sm90.cuh, which swin_block.cu (K4) runs after its attention section.
+// What holds each width back, by the
 // measurement build's phase clocks, is in PERF.md.  Weights arrive K-major
 // (w1t = w1^T [H, C], w2t = w2^T [C, H]): the wrapper passes nn.Linear's own
 // [out, in] weights when the caller's [in, out] tensor is their transpose,
@@ -61,7 +63,7 @@
 #define SEGLAND_PART 0
 #endif
 
-#include "sm90.cuh"
+#include "mlp_sm90.cuh"
 #include <math.h>
 
 typedef __nv_bfloat16 bf16;
@@ -77,8 +79,6 @@ __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
-// round a float to T and back: the kernel's rounding points
-template <typename T> __device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
 
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.7071067811865476f));
@@ -120,58 +120,27 @@ __device__ void layer_norm_rows(const T* __restrict__ x, long long M, long long 
   }
 }
 
-// ---- bf16: wgmma fed by a TMA ring -------------------------------------------
+// ---- bf16: wgmma fed by a TMA ring (the body is mlp_sm90.cuh) ---------------
 // A build: RG consumer warpgroups down the rows, CG across the output columns,
 // NP passes over the output columns, HS hidden columns a warpgroup and chunk,
 // S ring slots.  ops/fused_mlp.py:MLP_BUILDS mirrors the table in
 // segland_ln_mlp and ln_mlp_plan this arithmetic.
 template <int C_, int RG_, int CG_, int NP_, int HS_, int S_>
-struct MlpPlan {
-  static constexpr int C = C_, RG = RG_, CG = CG_, NP = NP_, HS = HS_, S = S_;
-  static constexpr int NWG = RG * CG;            // consumer warpgroups
-  static constexpr int THREADS = 128 * (NWG + 1);
-  static constexpr int BM = 64 * RG;             // rows a tile
-  static constexpr int HC = CG * HS;             // hidden columns a chunk
-  static constexpr int CP = C / NP;              // output columns a pass
-  static constexpr int CS = CP / CG;             // ... a warpgroup
-  static constexpr int KT1 = (C + 63) / 64;      // K tiles of the first product
-  static constexpr int KS1 = C / 16;             // its k16 steps
-  static constexpr int NT1 = HS / 64;            // its n64 tiles a warpgroup
-  static constexpr int KT2 = HC / 64;            // K tiles of the second product
-  static constexpr int NT2 = (CS + 63) / 64;     // its n tiles a warpgroup
-  static constexpr int LW = CS - 64 * (NT2 - 1); // width of the last: 64, or 32 (n32)
-  static constexpr bool HREG = CG == 1;          // h stays in registers
-  static constexpr int TILE = 8192;              // a ring slot: [64 rows, 64 bf16]
-  static constexpr size_t OFF_Y = (size_t)S * TILE;
-  static constexpr size_t OFF_H = OFF_Y + (size_t)RG * KT1 * TILE;
-  static constexpr size_t OFF_BAR = OFF_H + (HREG ? 0 : (size_t)RG * 2 * KT2 * TILE);
+struct MlpPlan : mlp90::MlpTiles<C_, RG_, CG_, NP_, HS_> {
+  typedef mlp90::MlpTiles<C_, RG_, CG_, NP_, HS_> Tiles;
+  static constexpr int S = S_;
+  static constexpr int THREADS = 128 * (Tiles::NWG + 1);
+  static constexpr size_t OFF_Y = (size_t)S * Tiles::TILE;
+  static constexpr size_t OFF_H = OFF_Y + (size_t)Tiles::RG * Tiles::KT1 * Tiles::TILE;
+  static constexpr size_t OFF_BAR = OFF_H + Tiles::H_BYTES;
   static constexpr size_t SMEM = OFF_BAR + 2 * S * sizeof(uint64_t) + 1024;  // + alignment
-  static_assert(NWG == 2, "two consumer warpgroups and a producer");
-  static_assert(C % 32 == 0 && HS % 64 == 0 && C % (NP * CG) == 0, "tile shapes");
-  static_assert(LW == 64 || LW == 32, "the last output tile is n64 or n32");
-  static_assert(HREG || LW == 64, "the shared-h path takes whole n64 tiles");
   static_assert(SMEM <= 232448, "over the shared memory a block can have");
 };
-
-// gelu_tanh in the form 0.5 x (1 + tanh(u)) = x / (1 + exp(-2u)): the same
-// function to a few parts in 10^6 (__expf, __fdividef), far inside the bf16
-// rounding that follows, in two MUFU operations where tanhf takes a dozen
-// instructions.  The epilogue is elementwise work beside m64 n64 k16 products
-// of K = C: at C = 96 tanhf's cost exceeded the tensor cores' (PERF.md).
-__device__ __forceinline__ float gelu_tanh_fast(float x) {
-  const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);  // sqrt(2/pi) (...)
-  return __fdividef(x, 1.0f + __expf(-2.0f * u));
-}
-
-// h = T(gelu(T(T(acc) + T(b1)))): the first product's epilogue, before its
-// final rounding
-__device__ __forceinline__ float bias_gelu(float acc, float b) {
-  return gelu_tanh_fast(rnd<bf16>(rnd<bf16>(acc) + rnd<bf16>(b)));
-}
 
 // phases of the consumers' clock (the CLK build): LN, waiting for a ring slot,
 // starting and waiting for wgmma, the h epilogue, the output epilogue
 enum { kClkLn, kClkWait, kClkMma, kClkH, kClkOut, kClkPhases };
+typedef mlp90::ItemClocks<kClkWait, kClkMma, kClkH, kClkOut> ItemPh;
 
 template <typename Pl, bool CLK>
 __global__ void __launch_bounds__(Pl::THREADS, 1)
@@ -203,35 +172,10 @@ ln_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap m1, const __grid_constan
     // ---- producer: one thread streams every weight tile through the ring ----
     sm90::regs_dec<sm90::kProducerRegs>();
     if (threadIdx.x % 128 == 0) {
-      int slot = 0;
-      uint32_t phase = 0;
-      auto load = [&](const CUtensorMap* m, int c0, int c1) {
-        sm90::mbar_wait(&empty[slot], phase ^ 1u);
-        sm90::mbar_expect_tx(&full[slot], TILE);
-        sm90::tma_load_2d(smem + (size_t)slot * TILE, m, &full[slot], c0, c1);
-        if (++slot == S) {
-          slot = 0;
-          phase ^= 1u;
-        }
-      };
+      sm90::RingFill<TILE, S> fill = {smem, full, 0, 0u};
 #pragma unroll 1
-      for (long long w = blockIdx.x; w < ntiles * Pl::NP; w += gridDim.x) {
-        const int p = (int)(w % Pl::NP);
-#pragma unroll 1
-        for (int j = 0; j < nch; ++j) {
-#pragma unroll 1
-          for (int i = 0; i < Pl::KT1 * Pl::CG * Pl::NT1; ++i) {  // kt, then g, then n
-            const int kt = i / (Pl::CG * Pl::NT1), gn = i % (Pl::CG * Pl::NT1);
-            load(&m1, kt * 64, j * Pl::HC + (gn / Pl::NT1) * Pl::HS + (gn % Pl::NT1) * 64);
-          }
-#pragma unroll 1
-          for (int i = 0; i < Pl::KT2 * Pl::CG * Pl::NT2; ++i) {
-            const int kt = i / (Pl::CG * Pl::NT2), gn = i % (Pl::CG * Pl::NT2);
-            load(&m2, j * Pl::HC + kt * 64,
-                 p * Pl::CP + (gn / Pl::NT2) * Pl::CS + (gn % Pl::NT2) * 64);
-          }
-        }
-      }
+      for (long long w = blockIdx.x; w < ntiles * Pl::NP; w += gridDim.x)
+        mlp90::produce_item<Pl>(fill, &m1, &m2, (int)(w % Pl::NP), nch);
     }
     return;
   }
@@ -239,7 +183,7 @@ ln_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap m1, const __grid_constan
   // ---- consumers ----------------------------------------------------------------
   sm90::regs_inc<sm90::kConsumerRegs>();
   const int rg = wg / Pl::CG, cg = wg % Pl::CG;
-  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int warp = (threadIdx.x % 128) / 32;
   unsigned char* ys = smem + Pl::OFF_Y + (size_t)rg * Pl::KT1 * TILE;
   unsigned char* hs = smem + Pl::OFF_H + (size_t)rg * 2 * Pl::KT2 * TILE;
   const int bar_id = 1 + rg, bar_n = 128 * Pl::CG;  // the warpgroups of a row group
@@ -260,185 +204,8 @@ ln_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap m1, const __grid_constan
     sm90::fence_async_smem();
     sm90::named_sync(bar_id, bar_n);
     clk.template lap<kClkLn>();
-
-    float acc2[Pl::NT2][32];
-#pragma unroll
-    for (int n = 0; n < Pl::NT2; ++n)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc2[n][i] = 0.0f;
-
-#pragma unroll 1
-    for (int j = 0; j < nch; ++j) {
-      // h[:, chunk] = y @ w1[:, chunk]
-      float acc1[Pl::NT1][32];
-#pragma unroll
-      for (int n = 0; n < Pl::NT1; ++n) {
-#pragma unroll
-        for (int i = 0; i < 32; ++i) acc1[n][i] = 0.0f;
-        sm90::reg_fence(acc1[n]);
-      }
-      // a K tile's slots hold every warpgroup's n tiles in turn: skip the others'
-#pragma unroll
-      for (int kt = 0; kt < Pl::KT1; ++kt) {
-        const uint64_t da = sm90::desc_sw128(ys + kt * TILE);
-        clk.template lap<kClkMma>();
-        sm90::ring_skip(q, cg * Pl::NT1);
-        clk.template lap<kClkWait>();
-#pragma unroll
-        for (int n = 0; n < Pl::NT1; ++n) {
-          clk.template lap<kClkMma>();
-          unsigned char* b = sm90::ring_take(q);
-          clk.template lap<kClkWait>();
-          const uint64_t db = sm90::desc_sw128(b);
-          sm90::reg_fence(acc1[n]);
-          sm90::wgmma_fence();
-#pragma unroll
-          for (int ks = 0; ks < 4; ++ks)
-            if (kt * 4 + ks < Pl::KS1)
-              sm90::wgmma_ss_n64(acc1[n], sm90::desc_step(da, ks), sm90::desc_step(db, ks), 1);
-          sm90::wgmma_commit();
-          sm90::ring_used(q);
-          sm90::reg_fence(acc1[n]);
-          sm90::ring_next(q);
-        }
-        clk.template lap<kClkMma>();
-        sm90::ring_skip(q, (Pl::CG - 1 - cg) * Pl::NT1);
-        clk.template lap<kClkWait>();
-      }
-      sm90::ring_drain(q);
-      clk.template lap<kClkMma>();
-#pragma unroll
-      for (int n = 0; n < Pl::NT1; ++n) sm90::reg_fence(acc1[n]);
-
-      // the bias and GELU epilogue, then acc2 += h[:, chunk] @ w2[chunk, :]
-      const int colh = j * Pl::HC + cg * Pl::HS;  // this warpgroup's first hidden column
-      if constexpr (Pl::HREG) {
-        uint32_t ha[Pl::NT1 * 4][4];
-#pragma unroll
-        for (int n = 0; n < Pl::NT1; ++n)
-#pragma unroll
-          for (int i = 0; i < 32; i += 2) {
-            const int col = colh + n * 64 + (i / 4) * 8 + (lane % 4) * 2;
-            const float2 bb = *reinterpret_cast<const float2*>(b1 + col);
-            ha[n * 4 + i / 8][(i % 8) / 2] =
-                sm90::pack_bf16(bias_gelu(acc1[n][i], bb.x), bias_gelu(acc1[n][i + 1], bb.y));
-          }
-        sm90::reg_fence(ha);
-        clk.template lap<kClkH>();
-#pragma unroll
-        for (int n = 0; n < Pl::NT2; ++n) sm90::reg_fence(acc2[n]);
-#pragma unroll
-        for (int kt = 0; kt < Pl::KT2; ++kt)
-#pragma unroll
-          for (int n = 0; n < Pl::NT2; ++n) {
-            clk.template lap<kClkMma>();
-            unsigned char* b = sm90::ring_take(q);
-            clk.template lap<kClkWait>();
-            const uint64_t db = sm90::desc_sw128(b);
-            sm90::reg_fence(acc2[n]);
-            sm90::wgmma_fence();
-#pragma unroll
-            for (int ks = 0; ks < 4; ++ks) {
-              if (n < Pl::NT2 - 1 || Pl::LW == 64)
-                sm90::wgmma_rs_n64(acc2[n], ha[kt * 4 + ks], sm90::desc_step(db, ks), 1);
-              else
-                sm90::wgmma_rs_n32(acc2[n], ha[kt * 4 + ks], sm90::desc_step(db, ks), 1);
-            }
-            sm90::wgmma_commit();
-            sm90::ring_used(q);
-            sm90::reg_fence(acc2[n]);
-            sm90::ring_next(q);
-          }
-        sm90::ring_drain(q);
-        clk.template lap<kClkMma>();
-        sm90::reg_fence(ha);
-      } else {
-        unsigned char* hb = hs + (size_t)(hbuf & 1u) * Pl::KT2 * TILE;
-#pragma unroll
-        for (int n = 0; n < Pl::NT1; ++n)
-#pragma unroll
-          for (int i = 0; i < 32; i += 2) {
-            const int c = cg * Pl::HS + n * 64 + (i / 4) * 8 + (lane % 4) * 2;  // in the chunk
-            const int r = warp * 16 + lane / 4 + 8 * ((i / 2) % 2);
-            const float2 bb = *reinterpret_cast<const float2*>(b1 + j * Pl::HC + c);
-            *reinterpret_cast<uint32_t*>(hb + (c / 64) * TILE + sm90::sw128(r, c % 64)) =
-                sm90::pack_bf16(bias_gelu(acc1[n][i], bb.x), bias_gelu(acc1[n][i + 1], bb.y));
-          }
-        sm90::fence_async_smem();
-        sm90::named_sync(bar_id, bar_n);  // the chunk's h, whole
-        clk.template lap<kClkH>();
-#pragma unroll
-        for (int n = 0; n < Pl::NT2; ++n) sm90::reg_fence(acc2[n]);
-#pragma unroll
-        for (int kt = 0; kt < Pl::KT2; ++kt) {
-          const uint64_t da = sm90::desc_sw128(hb + kt * TILE);
-          clk.template lap<kClkMma>();
-          sm90::ring_skip(q, cg * Pl::NT2);
-          clk.template lap<kClkWait>();
-#pragma unroll
-          for (int n = 0; n < Pl::NT2; ++n) {
-            clk.template lap<kClkMma>();
-            unsigned char* b = sm90::ring_take(q);
-            clk.template lap<kClkWait>();
-            const uint64_t db = sm90::desc_sw128(b);
-            sm90::reg_fence(acc2[n]);
-            sm90::wgmma_fence();
-#pragma unroll
-            for (int ks = 0; ks < 4; ++ks)
-              sm90::wgmma_ss_n64(acc2[n], sm90::desc_step(da, ks), sm90::desc_step(db, ks), 1);
-            sm90::wgmma_commit();
-            sm90::ring_used(q);
-            sm90::reg_fence(acc2[n]);
-            sm90::ring_next(q);
-          }
-          clk.template lap<kClkMma>();
-          sm90::ring_skip(q, (Pl::CG - 1 - cg) * Pl::NT2);
-          clk.template lap<kClkWait>();
-        }
-        sm90::ring_drain(q);
-        clk.template lap<kClkMma>();
-        ++hbuf;
-      }
-#pragma unroll
-      for (int n = 0; n < Pl::NT2; ++n) sm90::reg_fence(acc2[n]);
-    }
-
-    // out = T(res + T(T(T(acc2) + T(b2)) * T(ls))), rows past M masked; a
-    // 64-column tile's residual pairs are all loaded before the first is used
-#pragma unroll
-    for (int n = 0; n < Pl::NT2; ++n) {
-      uint32_t rv[16];
-#pragma unroll
-      for (int i = 0; i < 32; i += 2) {
-        const int cl = n * 64 + (i / 4) * 8 + (lane % 4) * 2;
-        const long long row = row0 + warp * 16 + lane / 4 + 8 * ((i / 2) % 2);
-        rv[i / 2] = 0u;
-        if (cl < Pl::CS && row < M)
-          rv[i / 2] = *reinterpret_cast<const uint32_t*>(
-              rsrc + (size_t)row * C + p * Pl::CP + cg * Pl::CS + cl);
-      }
-#pragma unroll
-      for (int i = 0; i < 32; i += 2) {
-        const int cl = n * 64 + (i / 4) * 8 + (lane % 4) * 2;
-        const long long row = row0 + warp * 16 + lane / 4 + 8 * ((i / 2) % 2);
-        if (cl < Pl::CS && row < M) {
-          const int col = p * Pl::CP + cg * Pl::CS + cl;
-          const float2 bb = *reinterpret_cast<const float2*>(b2 + col);
-          float o0 = rnd<bf16>(rnd<bf16>(acc2[n][i]) + rnd<bf16>(bb.x));
-          float o1 = rnd<bf16>(rnd<bf16>(acc2[n][i + 1]) + rnd<bf16>(bb.y));
-          if (ls) {
-            const float2 l = *reinterpret_cast<const float2*>(ls + col);
-            o0 = rnd<bf16>(o0 * rnd<bf16>(l.x));
-            o1 = rnd<bf16>(o1 * rnd<bf16>(l.y));
-          }
-          const float2 r =
-              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rv[i / 2]));
-          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * C + col) =
-              __floats2bfloat162_rn(r.x + o0, r.y + o1);
-        }
-      }
-    }
-    clk.template lap<kClkOut>();
+    mlp90::mlp_item<Pl, TILE, ItemPh>(q, ys, hs, hbuf, cg, bar_id, bar_n, nch, p, b1, b2, ls,
+                                      rsrc, out, row0, M, clk);
   }
   clk.flush(clocks);
 }

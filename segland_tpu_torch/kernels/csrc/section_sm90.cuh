@@ -1,0 +1,339 @@
+// K3's attention-section body on wgmma fed by a TMA ring, shared by
+// attn_section.cu (K3, masks from the window index), swin_block.cu (K4, the
+// section then the MLP) and attn_section_v1.cu (K5, masks shipped in and
+// super-windows).  The design is described at the top of attn_section.cu.
+//
+// A block owns W windows as one flat [W*49, C] row matrix cut into m64 row
+// tiles.  Two consumer warpgroups (threads 0..255) run the products; a
+// producer (thread 256) streams the weight columns of every product through a
+// ring of [96 rows, 64 K-columns] tiles in the order they are used:
+// produce_qkv (a head's q, k, v columns) and produce_proj (96 of the
+// projection's output columns).  The consumers' pieces: section_product (one
+// product over the ring's next K tiles), qkv_epilogue, ctx_to_operand,
+// proj_epilogue; section_rows composes them into K3's body.
+
+#pragma once
+
+#include <type_traits>
+
+#include "attn_common.cuh"
+#include "sm90.cuh"
+
+namespace {
+
+// W windows a block, S ring slots, RR a producer warpgroup and setmaxnreg,
+// TOK bytes a token of the token table (K3 and K4: a region id and pad flag in
+// one byte; K5: the region id as fp32).  ops/fused_attn.py:section_plan
+// mirrors this arithmetic.
+template <int C_, int W_, int S_, bool RR_, int TOK_ = 1>
+struct SecPlan {
+  static constexpr int C = C_, W = W_, S = S_;
+  static constexpr bool RR = RR_;               // a producer warpgroup and setmaxnreg
+  static constexpr int THREADS = RR ? 384 : 288; // else a lone producer warp
+  static constexpr int R = W * kN;              // real rows
+  static constexpr int RT = (R + 63) / 64;      // m64 row tiles
+  static constexpr int RS = (R + 7) / 8 * 8;    // rows of a K tile of y
+  static constexpr bool ROWS = RT >= 2;         // warpgroups split the rows, else the columns
+  static constexpr int NTW = ROWS ? RT / 2 : 1; // row tiles a warpgroup
+  static constexpr int NB = ROWS ? 96 : 48;     // columns a warpgroup's wgmma
+  static constexpr int ACC = NB / 2;            // accumulator registers a row tile
+  static constexpr int KT = (C + 63) / 64;      // K tiles
+  static constexpr int KS = C / 16;             // k16 steps
+  static constexpr int NH = C / kHD;
+  static constexpr int SLOT = 96 * 128;         // a ring slot: [96 rows, 64 bf16]
+  static constexpr int YK = RS * 128;           // bytes a K tile of y
+  static constexpr int RQ = (R + 15) / 16 * 16 + 16;  // q/k/v rows: a window's tiles reach R + 14
+  static constexpr int NSTRIP = 4 * W < kWarps ? 4 * W : kWarps;  // attention tiles at once
+  static constexpr size_t OFF_Y = (size_t)S * SLOT;
+  static constexpr size_t OFF_Q = OFF_Y + (size_t)KT * YK;
+  static constexpr size_t Q_BYTES = align128((size_t)RQ * kLQ * sizeof(bf16));
+  static constexpr size_t OFF_STRIP = OFF_Q + 3 * Q_BYTES;
+  static constexpr size_t OFF_BIAS = OFF_STRIP + (size_t)NSTRIP * kStrip * sizeof(float);
+  static constexpr size_t OFF_TOK = OFF_BIAS + align128((size_t)kN * kN * sizeof(float));
+  static constexpr size_t OFF_BAR = OFF_TOK + align128((size_t)R * TOK_);
+  static constexpr size_t SMEM = OFF_BAR + 2 * S * sizeof(uint64_t) + 1024;  // + alignment
+  static_assert(RT == 1 || RT % 2 == 0, "row tiles split evenly over two warpgroups");
+  static_assert(C % 96 == 0, "the projection walks 96 columns a pass");
+  static_assert((size_t)(RT * 64 - RS) * 128 <= OFF_BAR - OFF_Q,
+                "a row tile past y must stay inside the block's shared memory");
+  static_assert(SMEM <= kMaxSmem, "over the shared memory a block can have");
+};
+
+// phases of the consumers' clock (the CLK builds): LN, token tables and bias
+// copies; waiting for a ring slot; starting and waiting for wgmma; the q, k, v
+// epilogue; the attention core; the context's copy back; the output epilogue.
+// K4 adds its LN2, h epilogue and MLP output epilogue.
+enum { kClkSetup, kClkWait, kClkMma, kClkQkv, kClkAttn, kClkCtx, kClkOut, kClkPhases };
+
+// the block's 256 consumer threads
+__device__ __forceinline__ void consumers_sync() { sm90::named_sync(1, 256); }
+
+// ---- the producer -------------------------------------------------------------------
+// head h's q, k, v columns, one slot a K tile (three boxes of 32 rows)
+template <typename Pl, typename Fill>
+__device__ __forceinline__ void produce_qkv(Fill& f, const CUtensorMap* mq, int h) {
+#pragma unroll 1
+  for (int kt = 0; kt < Pl::KT; ++kt) {
+    unsigned char* dst = f.next(Pl::SLOT);
+    for (int which = 0; which < 3; ++which)  // q, k, v columns of head h: 32 rows each
+      sm90::tma_load_2d(dst + which * 32 * 128, mq, f.bar(), kt * 64, which * Pl::C + h * kHD);
+    f.advance();
+  }
+}
+
+// the projection's output columns n0..n0+95, one slot a K tile
+template <typename Pl, typename Fill>
+__device__ __forceinline__ void produce_proj(Fill& f, const CUtensorMap* mp, int n0) {
+#pragma unroll 1
+  for (int kt = 0; kt < Pl::KT; ++kt) f.load(mp, kt * 64, n0, Pl::SLOT);
+}
+
+// section_rows' stream: every head's q, k, v, then the projection
+template <typename Pl, typename Fill>
+__device__ __forceinline__ void produce_section(Fill& f, const CUtensorMap* mq,
+                                                const CUtensorMap* mp) {
+#pragma unroll 1
+  for (int h = 0; h < Pl::NH; ++h) produce_qkv<Pl>(f, mq, h);
+#pragma unroll 1
+  for (int n0 = 0; n0 < Pl::C; n0 += 96) produce_proj<Pl>(f, mp, n0);
+}
+
+// ---- the consumers' pieces ----------------------------------------------------------
+template <int NB>
+__device__ __forceinline__ void wgmma_n(float* d, uint64_t da, uint64_t db) {
+  if constexpr (NB == 96)
+    sm90::wgmma_ss_n96(d, da, db, 1);
+  else
+    sm90::wgmma_ss_n48(d, da, db, 1);
+}
+
+// acc[t] = A[row tiles of this warpgroup] @ (the ring's next KT slots, from
+// column cofs of each), taken slot by slot
+template <typename Pl, typename Clk>
+__device__ __forceinline__ void section_product(sm90::Ring<Pl::SLOT, Pl::S>& q,
+                                                const unsigned char* a, int g, int cofs,
+                                                float (&acc)[Pl::NTW][Pl::ACC], Clk& clk) {
+#pragma unroll
+  for (int t = 0; t < Pl::NTW; ++t) {
+#pragma unroll
+    for (int i = 0; i < Pl::ACC; ++i) acc[t][i] = 0.0f;
+    sm90::reg_fence(acc[t]);
+  }
+  // whole K tiles, then (C = 96) the half tile of the last 32 columns: the
+  // k-steps of every wgmma are compile-time, none sits in a branch
+  auto k_tile = [&](int kt, auto steps) {
+    clk.template lap<kClkMma>();
+    unsigned char* b = sm90::ring_take(q);
+    clk.template lap<kClkWait>();
+    const uint64_t db = sm90::desc_sw128(b + cofs * 128);
+#pragma unroll
+    for (int t = 0; t < Pl::NTW; ++t) sm90::reg_fence(acc[t]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < Pl::NTW; ++t) {
+      const int rt = Pl::ROWS ? g + 2 * t : 0;
+      const uint64_t da = sm90::desc_sw128(a + kt * Pl::YK + rt * 64 * 128);
+#pragma unroll
+      for (int ks = 0; ks < decltype(steps)::value; ++ks)
+        wgmma_n<Pl::NB>(acc[t], sm90::desc_step(da, ks), sm90::desc_step(db, ks));
+    }
+    sm90::wgmma_commit();
+    sm90::ring_used(q);
+#pragma unroll
+    for (int t = 0; t < Pl::NTW; ++t) sm90::reg_fence(acc[t]);
+    sm90::ring_next(q);
+  };
+#pragma unroll 1
+  for (int kt = 0; kt < Pl::KS / 4; ++kt) k_tile(kt, std::integral_constant<int, 4>());
+  if constexpr (Pl::KS % 4 != 0) k_tile(Pl::KS / 4, std::integral_constant<int, Pl::KS % 4>());
+  sm90::ring_drain(q);
+  clk.template lap<kClkMma>();
+#pragma unroll
+  for (int t = 0; t < Pl::NTW; ++t) sm90::reg_fence(acc[t]);
+}
+
+// q, k, v of head h = T(T(acc) + T(bqkv)): sink(which, row, d, two packed bf16)
+// for each pair of this warpgroup's rows below rmax (q = 0, k = 1, v = 2)
+template <typename Pl, typename Sink>
+__device__ __forceinline__ void qkv_epilogue(const float (&acc)[Pl::NTW][Pl::ACC], int g, int cofs,
+                                             int h, int rmax, const float* __restrict__ bqkv,
+                                             Sink sink) {
+  const int lane = threadIdx.x % 32, wrow = ((threadIdx.x / 32) % 4) * 16;
+#pragma unroll
+  for (int t = 0; t < Pl::NTW; ++t) {
+    const int rt = Pl::ROWS ? g + 2 * t : 0;
+#pragma unroll
+    for (int i = 0; i < Pl::ACC; i += 2) {
+      const int row = rt * 64 + wrow + lane / 4 + 8 * ((i / 2) % 2);
+      const int col = cofs + (i / 4) * 8 + (lane % 4) * 2;  // of q | k | v, 96 in all
+      const int which = col / kHD, d = col % kHD;
+      if (row < rmax) {
+        const float2 bb = *reinterpret_cast<const float2*>(bqkv + which * Pl::C + h * kHD + d);
+        sink(which, row, d,
+             sm90::pack_bf16(bf(acc[t][i]) + bf(bb.x), bf(acc[t][i + 1]) + bf(bb.y)));
+      }
+    }
+  }
+}
+
+// the context of `rows` rows (row stride C, in device memory) into y's place
+// in the operand layout, 16 bytes a copy; fenced for wgmma
+template <typename Pl>
+__device__ __forceinline__ void ctx_to_operand(const bf16* ctx, int rows, unsigned char* ys) {
+  constexpr int C = Pl::C;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < rows * (C / 8); i += 256) {
+    const int r = i / (C / 8), c8 = i % (C / 8);
+    const uint4 v = *reinterpret_cast<const uint4*>(ctx + (size_t)r * C + c8 * 8);
+    *reinterpret_cast<uint4*>(ys + (c8 / 8) * Pl::YK + r * 128 + (((c8 % 8) ^ (r % 8)) << 4)) = v;
+  }
+  sm90::fence_async_smem();
+}
+
+// out = x + T(T(acc) + T(bproj)) at the projection's columns n0.., this
+// warpgroup's rows below `rows` (x and out: the block's first row, stride C)
+template <typename Pl>
+__device__ __forceinline__ void proj_epilogue(const float (&acc)[Pl::NTW][Pl::ACC], int g,
+                                              int cofs, int n0, int rows,
+                                              const float* __restrict__ bproj, const bf16* x,
+                                              bf16* out) {
+  const int lane = threadIdx.x % 32, wrow = ((threadIdx.x / 32) % 4) * 16;
+#pragma unroll
+  for (int t = 0; t < Pl::NTW; ++t) {
+    const int rt = Pl::ROWS ? g + 2 * t : 0;
+#pragma unroll
+    for (int i = 0; i < Pl::ACC; i += 2) {
+      const int row = rt * 64 + wrow + lane / 4 + 8 * ((i / 2) % 2);
+      const int col = n0 + cofs + (i / 4) * 8 + (lane % 4) * 2;
+      if (row < rows) {
+        const float2 bb = *reinterpret_cast<const float2*>(bproj + col);
+        const size_t e = (size_t)row * Pl::C + col;
+        const float2 xr = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + e));
+        *reinterpret_cast<__nv_bfloat162*>(out + e) = __floats2bfloat162_rn(
+            xr.x + bf(bf(acc[t][i]) + bf(bb.x)), xr.y + bf(bf(acc[t][i + 1]) + bf(bb.y)));
+      }
+    }
+  }
+}
+
+// ---- the section of a block's rows, K3's body ------------------------------------------
+// The consumers' side of produce_section over the block's W windows (`rows`
+// real rows; x and out at the block's first row).  tables() fills the token
+// tables; y = LN(src(r)) scaled by scale(r) (src null: a zero row); per head
+// the q, k, v product and its epilogue into shared memory, then attend(h, q, k,
+// v, bias, strips), which writes the head's context into out at its columns;
+// after the last head the context goes back into y's place and the projection
+// writes a = x + T(T(ctx @ wproj) + T(bproj)) over it.  Ends with each
+// warpgroup's wgmma drained; y is free once both warpgroups are past a barrier.
+template <typename Pl, typename Clk, typename Tables, typename Src, typename Scale,
+          typename Attend>
+__device__ __forceinline__ void section_rows(sm90::Ring<Pl::SLOT, Pl::S>& q, unsigned char* smem,
+                                             const bf16* x, bf16* out, int rows,
+                                             const float* __restrict__ gamma,
+                                             const float* __restrict__ beta,
+                                             const float* __restrict__ bqkv,
+                                             const float* __restrict__ bproj,
+                                             const float* __restrict__ bias, float eps,
+                                             Tables tables, Src src, Scale scale, Attend attend,
+                                             Clk& clk) {
+  constexpr int C = Pl::C;
+  unsigned char* ys = smem + Pl::OFF_Y;
+  bf16* qb = reinterpret_cast<bf16*>(smem + Pl::OFF_Q);
+  bf16* kb = reinterpret_cast<bf16*>(smem + Pl::OFF_Q + Pl::Q_BYTES);
+  bf16* vb = reinterpret_cast<bf16*>(smem + Pl::OFF_Q + 2 * Pl::Q_BYTES);
+  float* strips = reinterpret_cast<float*>(smem + Pl::OFF_STRIP);
+  float* bias_s = reinterpret_cast<float*>(smem + Pl::OFF_BIAS);
+  const int cw = threadIdx.x / 32;
+  const int g = cw / 4;                    // warpgroup
+  const int cofs = Pl::ROWS ? 0 : 48 * g;  // the warpgroup's first column of a slot
+
+  tables();
+  // zero tails of q, k, v
+  for (int i = threadIdx.x; i < (Pl::RQ - Pl::R) * kLQ; i += 256) {
+    const bf16 z = __float2bfloat16(0.0f);
+    qb[Pl::R * kLQ + i] = z;
+    kb[Pl::R * kLQ + i] = z;
+    vb[Pl::R * kLQ + i] = z;
+  }
+  // y = LN(x) * mask, a warp a row; rows past the real ones are zero
+  sm90::ln_rows_sw128<C, sm90::kLnBatch<C>>(
+      [&](int r) -> const bf16* { return r < rows ? src(r) : nullptr; }, cw, kWarps, Pl::RS,
+      gamma, beta, eps, ys, Pl::YK, scale);
+  sm90::fence_async_smem();
+
+  float acc[Pl::NTW][Pl::ACC];
+  for (int h = 0; h < Pl::NH; ++h) {
+    // this head's bias: the barrier that ended the head before's attention is behind us,
+    // the one before this head's attention shows it
+    for (int i = threadIdx.x; i < kN * kN; i += 256) bias_s[i] = bias[(size_t)h * kN * kN + i];
+    if (h == 0) consumers_sync();  // y, the token tables and the tails, whole
+    clk.template lap<kClkSetup>();
+    section_product<Pl>(q, ys, g, cofs, acc, clk);
+    // q, k, v of this head, rows past the real ones dropped
+    qkv_epilogue<Pl>(acc, g, cofs, h, Pl::R, bqkv, [&](int which, int row, int d, uint32_t v) {
+      bf16* dst = (which == 0 ? qb : (which == 1 ? kb : vb)) + row * kLQ + d;
+      *reinterpret_cast<uint32_t*>(dst) = v;
+    });
+    consumers_sync();
+    clk.template lap<kClkQkv>();
+    attend(h, qb, kb, vb, bias_s, strips);
+    consumers_sync();  // the context of this head is in `out`; q, k, v and the bias are free
+    clk.template lap<kClkAttn>();
+  }
+
+  // the context, back from the output rows into y's place (y is dead)
+  ctx_to_operand<Pl>(out, rows, ys);
+  consumers_sync();
+  clk.template lap<kClkCtx>();
+
+  // a = x + T(T(ctx @ wproj) + T(bproj)), 96 columns a pass
+  for (int n0 = 0; n0 < C; n0 += 96) {
+    section_product<Pl>(q, ys, g, cofs, acc, clk);
+    proj_epilogue<Pl>(acc, g, cofs, n0, rows, bproj, x, out);
+    clk.template lap<kClkOut>();
+  }
+}
+
+// section_rows with K3's masks: the region id and pad flag (bit 7) of every
+// token from the window index, a pad token's row zero, and K3's attention core
+// (16 query rows of one window a warp); K3's section and K4's first half
+template <typename Pl, typename Clk>
+__device__ __forceinline__ void geom_section(sm90::Ring<Pl::SLOT, Pl::S>& q, unsigned char* smem,
+                                             const bf16* x, bf16* out, int rows, long long win0,
+                                             const Geom& geo, const float* __restrict__ gamma,
+                                             const float* __restrict__ beta,
+                                             const float* __restrict__ bqkv,
+                                             const float* __restrict__ bproj,
+                                             const float* __restrict__ bias, float eps, Clk& clk) {
+  uint8_t* rids = smem + Pl::OFF_TOK;
+  section_rows<Pl>(
+      q, smem, x, out, rows, gamma, beta, bqkv, bproj, bias, eps,
+      [&] {
+        for (int i = threadIdx.x; i < Pl::R; i += 256) {
+          int valid = 0, rid = 0;
+          if (i < rows) token_geom((int)win0 + i / kN, i % kN, geo, &valid, &rid);
+          rids[i] = (uint8_t)(rid | (valid ? 0 : 128));
+        }
+      },
+      [&](int r) -> const bf16* {
+        int valid = 0, rid = 0;
+        token_geom((int)win0 + r / kN, r % kN, geo, &valid, &rid);
+        return valid ? x + (size_t)r * Pl::C : nullptr;
+      },
+      sm90::Unscaled(),
+      [&](int h, const bf16* qb, const bf16* kb, const bf16* vb, const float* bias_s,
+          float* strips) {
+        const int cw = threadIdx.x / 32;
+        for (int u = cw; u < Pl::W * 4; u += kWarps) {
+          const int wl = u / 4, rt = u % 4;
+          if (wl >= rows / kN) continue;
+          const int r0 = wl * kN;
+          attn_tile_bf16(qb + r0 * kLQ, kb + r0 * kLQ, vb + r0 * kLQ, rt, bias_s,
+                         geo.shift > 0 ? rids + r0 : nullptr, rsqrtf((float)kHD),
+                         strips + cw * kStrip, out + (size_t)r0 * Pl::C + h * kHD, (size_t)Pl::C);
+        }
+      },
+      clk);
+}
+
+}  // namespace

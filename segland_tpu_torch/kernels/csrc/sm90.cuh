@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks of the port's wgmma kernels: K1's body in
-// ln_mlp.cu and K3's bf16 body in attn_section.cu.
+// Hopper (sm_90a) building blocks of the port's wgmma kernels: K1 (ln_mlp.cu),
+// K3 (attn_section.cu), K4 (swin_block.cu) and K5 (attn_section_v1.cu), whose
+// shared bodies are mlp_sm90.cuh and section_sm90.cuh.
 //
 //  - mbarrier init, arrive, expect-tx and wait with phase parity;
 //  - the TMA 2-D tile load, and the host-side tensor-map encoding
@@ -26,6 +27,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 namespace sm90 {
 
@@ -38,6 +41,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // byte offset of element (r, c), c < 64, of a swizzled [rows, 64] bf16 tile
 __device__ __forceinline__ uint32_t sw128(int r, int c) {
   return (uint32_t)(r * 128 + ((((c >> 3) ^ r) & 7) << 4) + ((c & 7) << 1));
+}
+
+// round to bf16 and back: the kernels' rounding points
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -154,17 +162,23 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// ln_rows_sw128's default row scale: none
+struct Unscaled {};
+
 // One warp, NR rows at a time: row r0 + k * step (k < NR; those at or past
-// `rows` skipped) gets T(LN(src(r)) * gamma + beta), fp32 statistics and fast
+// `rows` skipped) gets T(LN(src(r)) * gamma + beta), or with a row scale
+// T((LN(src(r)) * gamma + beta) * scale(r)), fp32 statistics and fast
 // variance, into its row of a swizzled operand of C columns whose 64-column
 // tiles lie `tile_bytes` apart; src(r) null writes zeros.  Every load of a
 // batch is in flight before its first reduction, so a warp waits on memory once
 // a batch, not once a row.
-template <int C, int NR, typename Src>
+template <int C, int NR, typename Src, typename Scale = Unscaled>
 __device__ __forceinline__ void ln_rows_sw128(Src src, int r0, int step, int rows,
                                               const float* __restrict__ gamma,
                                               const float* __restrict__ beta, float eps,
-                                              unsigned char* dst, int tile_bytes) {
+                                              unsigned char* dst, int tile_bytes,
+                                              Scale scale = Scale()) {
+  constexpr bool SCALED = !std::is_same<Scale, Unscaled>::value;
   const int lane = threadIdx.x % 32;
   constexpr int NPAIR = C / 2, NI = (NPAIR + 31) / 32;
   for (int rb = r0; rb < rows; rb += NR * step) {
@@ -197,14 +211,22 @@ __device__ __forceinline__ void ln_rows_sw128(Src src, int r0, int step, int row
       const float mu = s / C;
       const float var = fmaxf(ss / C - mu * mu, 0.0f);
       const float rs = rsqrtf(var + eps);
+      float m = 1.0f;
+      if constexpr (SCALED) m = p[k] ? scale(r) : 0.0f;
 #pragma unroll
       for (int i = 0; i < NI; ++i) {
         const int c = 2 * (lane + 32 * i);
         if (c < C) {
           uint32_t val = 0u;
-          if (p[k])
-            val = pack_bf16(((v[k][i].x - mu) * rs) * gamma[c] + beta[c],
-                            ((v[k][i].y - mu) * rs) * gamma[c + 1] + beta[c + 1]);
+          if (p[k]) {
+            float lo = ((v[k][i].x - mu) * rs) * gamma[c] + beta[c];
+            float hi = ((v[k][i].y - mu) * rs) * gamma[c + 1] + beta[c + 1];
+            if constexpr (SCALED) {
+              lo *= m;
+              hi *= m;
+            }
+            val = pack_bf16(lo, hi);
+          }
           *reinterpret_cast<uint32_t*>(dst + (c / kTileCols) * tile_bytes +
                                        sw128(r, c % kTileCols)) = val;
         }
@@ -310,6 +332,38 @@ __device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
+
+// ---- a ring of weight tiles, as its producer sees it ---------------------------------
+// One thread fills slot after slot in the order the consumers take them: it
+// waits for the slot's `empty` barrier, expects the bytes of the slot's TMA
+// loads on its `full` barrier and starts them.  A slot may hold less than
+// BYTES (K4's section tiles are 12 KB, its MLP tiles 8 KB).
+template <int BYTES, int SLOTS>
+struct RingFill {
+  unsigned char* base;  // slot 0
+  uint64_t* full;       // SLOTS full barriers, then SLOTS empty ones
+  int slot;
+  uint32_t phase;
+  // the next slot, once its consumers have handed it back, expecting `bytes`
+  __device__ __forceinline__ unsigned char* next(uint32_t bytes) {
+    mbar_wait(&full[SLOTS + slot], phase ^ 1u);
+    mbar_expect_tx(&full[slot], bytes);
+    return base + (size_t)slot * BYTES;
+  }
+  __device__ __forceinline__ uint64_t* bar() { return &full[slot]; }
+  __device__ __forceinline__ void advance() {
+    if (++slot == SLOTS) {
+      slot = 0;
+      phase ^= 1u;
+    }
+  }
+  // one box of `map` at (c0 = column, c1 = row), `bytes` long, as a slot of its own
+  __device__ __forceinline__ void load(const CUtensorMap* map, int c0, int c1, uint32_t bytes) {
+    unsigned char* dst = next(bytes);
+    tma_load_2d(dst, map, bar(), c0, c1);
+    advance();
+  }
+};
 
 // ---- a ring of weight tiles, as its consumer warpgroups see it --------------------
 // One producer thread fills slot after slot (wait `empty`, expect the bytes on

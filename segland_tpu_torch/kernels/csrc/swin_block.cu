@@ -21,256 +21,163 @@
 // GFLOP against one read and one write of [NW, N, C] (206 MB at C=96, 15 MB
 // at C=768) plus 24*C^2 bytes of weights, which every block re-reads from L2.
 //
-// Design (bf16): the block of 8 warps that owns W windows (4 at C=96, 2 at
-// C=192, 1 above) runs the section body shared with attn_section.cu
-// (attn_common.cuh:section_bf16) with its last epilogue turned inwards: `a`
-// lands as bf16 over the dead y buffer instead of in device memory.  The ring
-// of wqkv/wproj chunks is drained; the shared memory behind y and ctx (q, k,
-// v, the score strips, the ring, the bias) becomes the MLP's: a scratch tile
-// a warp, the hidden chunk and STAGES buffers of w1 columns and w2 rows.
-// LN2 goes from `a` to the dead ctx buffer, one warp a row.  The MLP then
-// walks the block's rows in groups of MR (64, or 32 at C=768) and, inside a
-// group, the hidden dimension in chunks of HC, as ln_mlp.cu does: a chunk of
-// h by WMMA through bias and GELU into shared memory, at once consumed by the
-// second product, whose [MR, C] fp32 accumulator lives in registers (a warp
-// owns RS 16-row slabs and C / (16 * WC) column fragments).  Weight chunks
-// are copied by cp.async, the next one in flight under this one's products
-// where two buffers fit (C <= 384).  At C=768 `a` and y2 of one window are
-// 152 KB of the 227 KB a block can have, so the group is 32 rows (96
-// accumulator registers a thread instead of 192), the chunk 16 hidden
-// columns in one buffer (62 KB), and each of its 2 hidden fragments is split
-// 4 ways along k over the 8 warps and summed in shared memory.  Every group
-// streams w1 and w2 again from L2.  A row tile of y2 past the block's real
-// rows reads whatever follows the buffer: an output row depends on its own
-// input row only, and those rows are never stored.
+// Design (bf16, sm_90a): K3's section body (section_sm90.cuh) and K1's MLP
+// body (mlp_sm90.cuh) in one warp-specialised block.  A block owns W windows
+// (4 at C=96, 2 at C=192 and 384, 1 at C=768: K3's) as one flat [W*49, C] row
+// matrix cut into m64 row tiles across window boundaries.  A producer
+// warpgroup (one thread issuing TMA) streams one ring schedule in consumption
+// order: every head's q, k, v columns and the projection's as [96, 64] tiles,
+// then straight on the MLP's w1^T and w2^T tiles ([64, 64], 8 KB in the same
+// 12 KB slots) of every (row group, pass) work item, so the first MLP tiles
+// travel while the projection runs.  The two consumer warpgroups run the
+// section as K3 does (LN into the swizzled A operand, q, k, v then the
+// projection on wgmma with B from the ring, the context through the output
+// rows), whose projection epilogue writes a = x + proj to the output rows in
+// device memory (L2-resident: this block wrote them).  LN2 reads those rows
+// into y's dead operand buffer, and the MLP runs as K1 does on the block's row
+// tiles: at C <= 192 each warpgroup owns a row tile and h goes from the first
+// product's accumulator into the A-register fragments of the second (at C =
+// 96 in chunks of 64 hidden columns, not K1's 128); at
+// C >= 384 the warpgroups split each row tile's output columns and share an h
+// tile (double-buffered over the dead q/k/v buffers); at C = 768 two passes
+// over the output columns, each recomputing h.  The final epilogue reads the
+// residual a back from the output rows and overwrites them.  So the products
+// and their rounding points are K3's then K1's, in the same k order: the
+// output equals K3 then K1 (chip_smoke.py --phases k4 prints whether it is
+// bit for bit).  A block's 49 * W rows fill its m64 tiles to 77%, where K1
+// tiles the flat rows: the MLP half streams its weights (2 * C * H bytes a
+// row group, from L2) and runs its products for the phantom rows too, and
+// that stream bounds it at C >= 384 (PERF.md: a ring of its own 12-22 slots
+// deep over the section's dead buffers gained 3% at C = 384).  Weights arrive
+// K-major: wqkv^T [3C, C], wproj^T [C, C], w1^T [H, C], w2^T [C, H]
+// (nn.Linear's [out, in]).  ops/fused_attn.py:BLOCK_BUILDS mirrors the build
+// table and block_plan the arithmetic.
 // The fp32 build (exact FMA loops, no TF32) runs one window a block: the fp32
 // section with `a` kept over y, then LN2 and the MLP 16 rows at a time with
-// w1 and w2 read from device memory.
+// w1 and w2 read from device memory.  Its weights are input-major.
 //
-// Measured on an H100 (nvcc 12.8 -Xptxas -v; times from chip_smoke.py --phases
-// k4): bf16 176 / 128 / 255 / 212 registers at C = 96 / 192 / 384 / 768, no
-// spills but 40 bytes at C=192; fp32 80 / 126 / 234 / 255 registers, 420 bytes
-// of spills at C=768 only.  3.86 / 2.75 / 3.07 / 4.26 ms a call at the swin-s
-// stage shapes, 37-52 TFLOP/s, against 2.78 / 2.03 / 2.78 / 3.27 ms for
-// attn_section then ln_mlp as two launches: the MLP phase runs at one block
-// of 8 warps an SM beside the section's shared memory, where ln_mlp alone has
-// two to four blocks an SM to hide its loads behind, and it spends 64 rows on
-// every 49-token window.
+// Registers, spills, TFLOP/s and the phase split of each build: chip_smoke.py
+// --phases k4 (PERF.md).
+
+// segland-parts: 2
+// kernels/__init__.py compiles this file twice, -DSEGLAND_PART=0 (the entry
+// points of the served kernels) and 1 (segland_swin_block_clocks, the bf16
+// builds with phase clocks).
+#ifndef SEGLAND_PART
+#define SEGLAND_PART 0
+#endif
 
 #include "attn_common.cuh"
+#include "mlp_sm90.cuh"
+#include "section_sm90.cuh"
 
 namespace {
 
-// The section's <C, W, P, KC, S> and the MLP's: WR warps down a group's rows
-// with RS slabs each, HC hidden columns a chunk, STAGES weight buffers.
-template <int C, int W, int P, int KC, int S, int WR, int RS, int HC, int STAGES>
-struct BlockCfg {
-  typedef SecCfg<C, W, P, KC, S> Sec;
-  static constexpr int R = Sec::R;
-  static constexpr int LDY = Sec::LDY;
-  static constexpr int MR = 16 * RS * WR;           // rows a group
-  static constexpr int NG = (R + MR - 1) / MR;      // groups a block
-  static constexpr int WC = kWarps / WR;            // warps across the C columns
-  static constexpr int NF = C / 16 / WC;            // output fragments a warp and slab
-  static constexpr int F1 = (MR / 16) * (HC / 16);  // hidden fragments a chunk
-  static constexpr int KS = F1 < kWarps ? kWarps / F1 : 1;  // k-split of each of them
-  static constexpr int LDH = HC + 8;
-  static constexpr int LDW1 = HC + 8;               // staged w1[:, chunk], [C, LDW1]
-  static constexpr int LDW2 = C + 8;                // staged w2[chunk, :], [HC, LDW2]
-  // the MLP phase keeps `a` over y and y2 over ctx, and takes the rest
-  static constexpr size_t OFF_S = Sec::OFF_Q;       // a 16 x 16 fp32 tile a warp
-  static constexpr size_t OFF_H = OFF_S + (size_t)kWarps * 256 * sizeof(float);
-  static constexpr size_t OFF_W = OFF_H + align128((size_t)MR * LDH * sizeof(bf16));
-  static constexpr size_t W1_BYTES = align128((size_t)C * LDW1 * sizeof(bf16));
-  static constexpr size_t BUF = W1_BYTES + align128((size_t)HC * LDW2 * sizeof(bf16));
-  static constexpr size_t SMEM = max_size(Sec::SMEM, OFF_W + STAGES * BUF);
-  static_assert(kWarps % WR == 0 && C % (16 * WC) == 0, "C must split over the warp columns");
-  static_assert(F1 % kWarps == 0 || kWarps % F1 == 0, "a chunk must split over the warps");
-  static_assert((C / 16) % KS == 0, "the first product's k must split KS ways");
-  static_assert(STAGES == 1 || STAGES == 2, "one or two weight buffers");
-  static_assert(Sec::OFF_CTX + (size_t)NG * MR * LDY * sizeof(bf16) <= SMEM,
-                "a row tile past y2 must stay inside the block's shared memory");
-  static_assert(SMEM <= kMaxSmem, "over the shared memory a block can have");
+// A build: the section's W windows a block and S ring slots (its producer a
+// warpgroup), the MLP's RG warpgroups down the rows, CG across the output
+// columns, NP passes and HS hidden columns a warpgroup and chunk (K1's).
+template <int C_, int W_, int S_, int RG_, int CG_, int NP_, int HS_>
+struct BlockPlan {
+  typedef SecPlan<C_, W_, S_, true> Sec;
+  typedef mlp90::MlpTiles<C_, RG_, CG_, NP_, HS_> Mlp;
+  static constexpr size_t OFF_H = Sec::OFF_Q;    // h over the dead q, k, v buffers
+  static_assert(Sec::RT % RG_ == 0, "row tiles split evenly into row groups");
+  static_assert(Mlp::TILE <= Sec::SLOT, "an MLP tile fits a ring slot");
+  static_assert(OFF_H + Mlp::H_BYTES <= Sec::OFF_BAR, "h fits behind y");
 };
 
-template <typename Cfg, int C, int HC>
-__device__ __forceinline__ void stage_mlp_chunk(unsigned char* buf, const bf16* __restrict__ w1,
-                                                const bf16* __restrict__ w2, int j0, int H) {
-  bf16* sw1 = reinterpret_cast<bf16*>(buf);
-  bf16* sw2 = reinterpret_cast<bf16*>(buf + Cfg::W1_BYTES);
-  constexpr int R1 = HC / 8, R2 = C / 8;  // 16-byte copies a row
-  for (int i = threadIdx.x; i < C * R1; i += kThreads) {
-    const int r = i / R1, c = (i % R1) * 8;
-    cp_async16(sw1 + r * Cfg::LDW1 + c, w1 + (size_t)r * H + j0 + c);
+// phases of the consumers' clock (the CLK build): the section's, then LN2,
+// the h epilogue and the MLP's output epilogue (its ring waits and wgmma add
+// to the section's)
+enum { kClkLn2 = kClkPhases, kClkH, kClkMlpOut, kBlockPhases };
+typedef mlp90::ItemClocks<kClkWait, kClkMma, kClkH, kClkMlpOut> BlockItemPh;
+
+template <typename Pl, bool CLK>
+__global__ void __launch_bounds__(Pl::Sec::THREADS, 1)
+swin_block_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                        const __grid_constant__ CUtensorMap mp,
+                        const __grid_constant__ CUtensorMap m1,
+                        const __grid_constant__ CUtensorMap m2, const bf16* __restrict__ x,
+                        const float* __restrict__ gamma, const float* __restrict__ beta,
+                        const float* __restrict__ bqkv, const float* __restrict__ bproj,
+                        const float* __restrict__ bias, const float* __restrict__ gamma2,
+                        const float* __restrict__ beta2, const float* __restrict__ b1,
+                        const float* __restrict__ b2, bf16* out, long long NW, int H, Geom geo,
+                        float eps, unsigned long long* __restrict__ clocks) {
+  typedef typename Pl::Sec Sec;
+  typedef typename Pl::Mlp Ml;
+  constexpr int C = Sec::C, W = Sec::W, S = Sec::S;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));  // swizzle atoms
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Sec::OFF_BAR);  // then the empty ones
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&full[S + s], 2);
+    }
+    sm90::mbar_init_fence();
   }
-  for (int i = threadIdx.x; i < HC * R2; i += kThreads) {
-    const int r = i / R2, c = (i % R2) * 8;
-    cp_async16(sw2 + r * Cfg::LDW2 + c, w2 + (size_t)(j0 + r) * C + c);
+  __syncthreads();
+  // the block's real rows and its MLP work items (row group, pass)
+  auto block_rows = [&](long long b) {
+    const long long win0 = b * W;
+    return (int)((NW - win0) < (long long)W ? (NW - win0) : (long long)W) * kN;
+  };
+  auto mlp_items = [](int rows) { return (rows + Ml::BM - 1) / Ml::BM * Ml::NP; };
+
+  if (threadIdx.x >= 256) {
+    // ---- producer: the section's weight tiles, then every MLP item's -------------
+    sm90::regs_dec<sm90::kProducerRegs>();
+    if (threadIdx.x == 256) {
+      sm90::RingFill<Sec::SLOT, S> fill = {smem, full, 0, 0u};
+      produce_section<Sec>(fill, &mq, &mp);
+      // the items, counted only now: a count kept from before the section's
+      // stream stayed live across it and spilled this thread's 24 registers
+      long long b = blockIdx.x;
+      asm volatile("" : "+l"(b));
+      const int items = mlp_items(block_rows(b)), nch = H / Ml::HC;
+#pragma unroll 1
+      for (int w = 0; w < items; ++w) mlp90::produce_item<Ml>(fill, &m1, &m2, w % Ml::NP, nch);
+    }
+    return;
   }
-  cp_async_commit();
-}
 
-// h = T(gelu(T(T(acc) + T(b1)))): the first product's epilogue
-__device__ __forceinline__ bf16 bias_gelu(float acc, float b) {
-  return __float2bfloat16(gelu_tanh(bf(bf(acc) + bf(b))));
-}
-
-template <int C, int W, int P, int KC, int S, int WR, int RS, int HC, int STAGES>
-__global__ void __launch_bounds__(kThreads)
-swin_block_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
-                       const float* __restrict__ beta, const bf16* __restrict__ wqkv,
-                       const float* __restrict__ bqkv, const bf16* __restrict__ wproj,
-                       const float* __restrict__ bproj, const float* __restrict__ bias,
-                       const float* __restrict__ gamma2, const float* __restrict__ beta2,
-                       const bf16* __restrict__ w1, const float* __restrict__ b1,
-                       const bf16* __restrict__ w2, const float* __restrict__ b2,
-                       bf16* __restrict__ out, long long NW, int H, Geom g, float eps) {
-  typedef BlockCfg<C, W, P, KC, S, WR, RS, HC, STAGES> Cfg;
-  extern __shared__ __align__(128) unsigned char smem[];
-  section_bf16<C, W, P, KC, S, true>(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, nullptr, NW,
-                                     g, eps, smem);
-  cp_async_wait<0>();
-  __syncthreads();  // `a` is whole, and everything behind y and ctx is free
-
-  const bf16* as = reinterpret_cast<const bf16*>(smem);               // a, [R, LDY]
-  bf16* y2 = reinterpret_cast<bf16*>(smem + Cfg::Sec::OFF_CTX);       // [R, LDY]
-  float* scratch = reinterpret_cast<float*>(smem + Cfg::OFF_S);
-  bf16* hb = reinterpret_cast<bf16*>(smem + Cfg::OFF_H);              // [MR, LDH]
-  unsigned char* wbuf = smem + Cfg::OFF_W;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp % WR, wc = warp / WR;
+  // ---- consumers: 8 warps --------------------------------------------------------
+  sm90::regs_inc<sm90::kConsumerRegs>();
   const long long win0 = (long long)blockIdx.x * W;
-  const int nwin = (int)((NW - win0) < (long long)W ? (NW - win0) : (long long)W);
-  const int rows = nwin * kN;
-  float* scr = scratch + warp * 256;
-  const int nchk = H / HC;
-  const int total = ((rows + Cfg::MR - 1) / Cfg::MR) * nchk;  // chunks over this block's groups
+  const int rows = block_rows(blockIdx.x);  // real rows of this block
+  const bf16* xb = x + (size_t)win0 * kN * C;
+  bf16* ob = out + (size_t)win0 * kN * C;
+  unsigned char* ys = smem + Sec::OFF_Y;
+  sm90::Ring<Sec::SLOT, S> q = {smem, full, 0, -1, 0u};
+  sm90::PhaseClocks<CLK, kBlockPhases> clk;
+  clk.start();
+  geom_section<Sec>(q, smem, xb, ob, rows, win0, geo, gamma, beta, bqkv, bproj, bias, eps, clk);
+  consumers_sync();  // a is in the output rows; neither warpgroup reads y any more
 
-  stage_mlp_chunk<Cfg, C, HC>(wbuf, w1, w2, 0, H);
-  for (int r = warp; r < Cfg::R; r += kWarps) {
-    const bf16* src = as + r * Cfg::LDY;
-    ln_row_bf16<C>([&](int c) { return __bfloat162float(src[c]); }, gamma2, beta2, eps, 1.0f,
-                   y2 + r * Cfg::LDY);
+  // y2 = LN2(a) over y, a warp a row; rows past the real ones are zero
+  const int cw = threadIdx.x / 32;
+  sm90::ln_rows_sw128<C, sm90::kLnBatch<C>>(
+      [&](int r) -> const bf16* { return r < rows ? ob + (size_t)r * C : nullptr; }, cw, kWarps,
+      Sec::RS, gamma2, beta2, eps, ys, Sec::YK);
+  sm90::fence_async_smem();
+  consumers_sync();
+  clk.template lap<kClkLn2>();
+
+  // out = a + T(T(h @ w2) + T(b2)), work item by work item, as K1; the ring's
+  // slots now carry the MLP's tiles
+  const int g = cw / 4, rg = g / Ml::CG, cg = g % Ml::CG;
+  unsigned char* hs = smem + Pl::OFF_H + (size_t)rg * 2 * Ml::KT2 * Ml::TILE;
+  uint32_t hbuf = 0;
+  const int items = mlp_items(rows), nch = H / Ml::HC;
+  for (int w = 0; w < items; ++w) {
+    const int rt = (w / Ml::NP) * Ml::RG + rg;
+    mlp90::mlp_item<Ml, Sec::YK, BlockItemPh>(q, ys + rt * 64 * 128, hs, hbuf, cg, 2 + rg,
+                                              128 * Ml::CG, nch, w % Ml::NP, b1, b2, nullptr,
+                                              ob, ob, rt * 64, rows, clk);
   }
-
-  FragC acc[RS][Cfg::NF];
-  for (int t = 0; t < total; ++t) {
-    const int grp = t / nchk, j0 = (t % nchk) * HC;
-    unsigned char* buf = wbuf + (STAGES == 2 ? (t & 1) : 0) * Cfg::BUF;
-    if (STAGES == 1) {
-      if (t > 0) stage_mlp_chunk<Cfg, C, HC>(buf, w1, w2, j0, H);
-      cp_async_wait<0>();
-    } else if (t + 1 < total) {
-      stage_mlp_chunk<Cfg, C, HC>(wbuf + ((t + 1) & 1) * Cfg::BUF, w1, w2,
-                                  ((t + 1) % nchk) * HC, H);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // this chunk's weights (and, at t = 0, y2) are visible
-    const bf16* sw1 = reinterpret_cast<const bf16*>(buf);
-    const bf16* sw2 = reinterpret_cast<const bf16*>(buf + Cfg::W1_BYTES);
-    const bf16* yg = y2 + grp * Cfg::MR * Cfg::LDY;
-    if (j0 == 0) {
-#pragma unroll
-      for (int s = 0; s < RS; ++s)
-#pragma unroll
-        for (int f = 0; f < Cfg::NF; ++f) wmma::fill_fragment(acc[s][f], 0.0f);
-    }
-
-    // h[:, j0:j0+HC] = gelu(y2 @ w1[:, chunk] + b1)
-    if constexpr (Cfg::KS > 1) {
-      // one fragment and one k-range a warp; the partial tiles are summed by the block
-      const int f = warp % Cfg::F1, q = warp / Cfg::F1;
-      const int slab = f % (Cfg::MR / 16), n = f / (Cfg::MR / 16) * 16;
-      const bf16* ya = yg + slab * 16 * Cfg::LDY;
-      constexpr int KR = C / Cfg::KS;
-      FragC hacc;
-      wmma::fill_fragment(hacc, 0.0f);
-#pragma unroll 4
-      for (int k = q * KR; k < (q + 1) * KR; k += 16) {
-        FragA a;
-        FragB b;
-        wmma::load_matrix_sync(a, ya + k, Cfg::LDY);
-        wmma::load_matrix_sync(b, sw1 + k * Cfg::LDW1 + n, Cfg::LDW1);
-        wmma::mma_sync(hacc, a, b, hacc);
-      }
-      wmma::store_matrix_sync(scr, hacc, 16, wmma::mem_row_major);
-      __syncthreads();
-      for (int e = threadIdx.x; e < Cfg::F1 * 256; e += kThreads) {
-        const int ff = e / 256, i = e % 256;
-        float sum = 0.0f;
-#pragma unroll
-        for (int p = 0; p < Cfg::KS; ++p) sum += scratch[(ff + Cfg::F1 * p) * 256 + i];
-        const int sl = ff % (Cfg::MR / 16), nn = ff / (Cfg::MR / 16) * 16 + i % 16;
-        hb[(sl * 16 + i / 16) * Cfg::LDH + nn] = bias_gelu(sum, b1[j0 + nn]);
-      }
-    } else {
-      // whole fragments dealt round-robin, each through its warp's scratch tile
-#pragma unroll
-      for (int q = 0; q < Cfg::F1 / kWarps; ++q) {
-        const int id = warp + kWarps * q;
-        const int slab = id % (Cfg::MR / 16), n = id / (Cfg::MR / 16) * 16;
-        const bf16* ya = yg + slab * 16 * Cfg::LDY;
-        FragC hacc;
-        wmma::fill_fragment(hacc, 0.0f);
-        for (int k = 0; k < C; k += 16) {
-          FragA a;
-          FragB b;
-          wmma::load_matrix_sync(a, ya + k, Cfg::LDY);
-          wmma::load_matrix_sync(b, sw1 + k * Cfg::LDW1 + n, Cfg::LDW1);
-          wmma::mma_sync(hacc, a, b, hacc);
-        }
-        wmma::store_matrix_sync(scr, hacc, 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int c = n + e % 16;
-          hb[(slab * 16 + e / 16) * Cfg::LDH + c] = bias_gelu(scr[e], b1[j0 + c]);
-        }
-        __syncwarp();
-      }
-    }
-    __syncthreads();
-    // acc += h[:, chunk] @ w2[chunk, :]
-    const bf16* ha = hb + wr * RS * 16 * Cfg::LDH;
-#pragma unroll
-    for (int k = 0; k < HC; k += 16) {
-      FragA a[RS];
-#pragma unroll
-      for (int s = 0; s < RS; ++s)
-        wmma::load_matrix_sync(a[s], ha + s * 16 * Cfg::LDH + k, Cfg::LDH);
-#pragma unroll
-      for (int f = 0; f < Cfg::NF; ++f) {
-        FragB b;
-        wmma::load_matrix_sync(b, sw2 + k * Cfg::LDW2 + (wc * Cfg::NF + f) * 16, Cfg::LDW2);
-#pragma unroll
-        for (int s = 0; s < RS; ++s) wmma::mma_sync(acc[s][f], a[s], b, acc[s][f]);
-      }
-    }
-    if (j0 + HC >= H) {
-      // out = T(a + T(T(acc) + T(b2))) for this group's real rows
-#pragma unroll
-      for (int sf = 0; sf < RS * Cfg::NF; ++sf) {
-        const int s = sf / Cfg::NF, f = sf % Cfg::NF;
-        const int col = (wc * Cfg::NF + f) * 16 + lane % 16;  // this lane's column of the tile
-        const float bcol = bf(b2[col]);
-        wmma::store_matrix_sync(scr, acc[s][f], 16, wmma::mem_row_major);
-        __syncwarp();
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int row = grp * Cfg::MR + (wr * RS + s) * 16 + lane / 16 + 2 * i;
-          if (row < rows) {
-            const float o = bf(bf(scr[lane + 32 * i]) + bcol);
-            out[((size_t)win0 * kN + row) * C + col] =
-                __float2bfloat16(__bfloat162float(as[row * Cfg::LDY + col]) + o);
-          }
-        }
-        __syncwarp();
-      }
-    }
-    __syncthreads();  // hb, the scratch tiles and this chunk's weight buffer are rewritten next
-  }
+  clk.flush(clocks);
 }
 
 // ---- fp32: exact FMA loops --------------------------------------------------
@@ -364,19 +271,24 @@ struct BlockArgs {
   cudaStream_t stream;
 };
 
-template <int C, int W, int P, int KC, int S, int WR, int RS, int HC, int STAGES>
-cudaError_t launch_block_bf16(const BlockArgs& a) {
-  typedef BlockCfg<C, W, P, KC, S, WR, RS, HC, STAGES> Cfg;
-  if (a.H % HC != 0) return cudaErrorInvalidValue;
-  auto kernel = swin_block_bf16_kernel<C, W, P, KC, S, WR, RS, HC, STAGES>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)Cfg::SMEM);
+template <typename Pl, bool CLK>
+cudaError_t launch_block_bf16(const BlockArgs& a, unsigned long long* clocks = nullptr) {
+  typedef typename Pl::Sec Sec;
+  constexpr int C = Sec::C;
+  if (a.H % Pl::Mlp::HC != 0) return cudaErrorInvalidValue;
+  CUtensorMap mq, mp, m1, m2;
+  cudaError_t err = sm90::tile_map(&mq, a.wqkv, 3 * (uint64_t)C, C, 32);
+  if (err == cudaSuccess) err = sm90::tile_map(&mp, a.wproj, C, C, 96);
+  if (err == cudaSuccess) err = sm90::tile_map(&m1, a.w1, (uint64_t)a.H, C, 64);
+  if (err == cudaSuccess) err = sm90::tile_map(&m2, a.w2, C, (uint64_t)a.H, 64);
   if (err != cudaSuccess) return err;
-  const unsigned grid = (unsigned)((a.NW + W - 1) / W);
-  kernel<<<grid, kThreads, Cfg::SMEM, a.stream>>>(
-      (const bf16*)a.x, a.gamma, a.beta, (const bf16*)a.wqkv, a.bqkv, (const bf16*)a.wproj,
-      a.bproj, a.bias, a.gamma2, a.beta2, (const bf16*)a.w1, a.b1, (const bf16*)a.w2, a.b2,
-      (bf16*)a.out, a.NW, a.H, a.g, a.eps);
+  auto kernel = swin_block_wgmma_kernel<Pl, CLK>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sec::SMEM);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = (unsigned)((a.NW + Sec::W - 1) / Sec::W);
+  kernel<<<grid, Sec::THREADS, Sec::SMEM, a.stream>>>(
+      mq, mp, m1, m2, (const bf16*)a.x, a.gamma, a.beta, a.bqkv, a.bproj, a.bias, a.gamma2,
+      a.beta2, a.b1, a.b2, (bf16*)a.out, a.NW, a.H, a.g, a.eps, clocks);
   return cudaGetLastError();
 }
 
@@ -396,11 +308,43 @@ cudaError_t launch_block_f32(const BlockArgs& a) {
   return cudaGetLastError();
 }
 
+// the checks and arguments shared by the entry points
+int block_args(BlockArgs* a, const void* x, const void* gamma, const void* beta,
+               const void* wqkv, const void* bqkv, const void* wproj, const void* bproj,
+               const void* bias, const void* gamma2, const void* beta2, const void* w1,
+               const void* b1, const void* w2, const void* b2, void* out, long long NW, int C,
+               int nh, int H, int h, int w, int hp, int wp, int ws, int shift, float eps,
+               int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (ws * ws != kN || nh * kHD != C || hp % ws || wp % ws || shift < 0 || shift >= ws || H <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (NW > 2147483647LL / kN) return (int)cudaErrorInvalidValue;
+  *a = {x, wqkv, wproj, w1, w2,
+        (const float*)gamma, (const float*)beta, (const float*)bqkv,
+        (const float*)bproj, (const float*)bias, (const float*)gamma2,
+        (const float*)beta2, (const float*)b1, (const float*)b2,
+        out, NW, H, {h, w, hp, wp, ws, shift}, eps, (cudaStream_t)stream};
+  return 0;
+}
+
 }  // namespace
 
+// The bf16 builds, <C, W, S, RG, CG, NP, HS> (ops/fused_attn.py:BLOCK_BUILDS).
+#define SEGLAND_BLOCK_BUILDS(X)    \
+  X(96, 4, 5, 2, 1, 1, 64)         \
+  X(192, 2, 8, 2, 1, 1, 64)        \
+  X(384, 2, 5, 1, 2, 1, 64)        \
+  X(768, 1, 7, 1, 2, 2, 64)
+
+#define SEGLAND_BLOCK_PLAN(c, w, s, rg, cg, np, hs) BlockPlan<c, w, s, rg, cg, np, hs>
+
+#if SEGLAND_PART == 0
 // dtype: 0 = float32, 1 = bfloat16 (x, the four weight matrices, out);
-// vectors and bias [nh, N, N] are fp32; w1 [C, H], w2 [H, C].  Windows of
-// 7 x 7 tokens, heads of 32, C in {96, 192, 384, 768}.  Returns a cudaError_t.
+// vectors and bias [nh, N, N] are fp32.  fp32 weights are input-major (w1 [C,
+// H], w2 [H, C], wqkv [C, 3C], wproj [C, C]); bf16 weights K-major (their
+// transposes: nn.Linear's [out, in]).  Windows of 7 x 7 tokens, heads of 32,
+// C in {96, 192, 384, 768}.  Returns a cudaError_t.
 extern "C" int segland_swin_block(int dtype, const void* x, const void* gamma, const void* beta,
                                   const void* wqkv, const void* bqkv, const void* wproj,
                                   const void* bproj, const void* bias, const void* gamma2,
@@ -408,24 +352,17 @@ extern "C" int segland_swin_block(int dtype, const void* x, const void* gamma, c
                                   const void* w2, const void* b2, void* out, long long NW, int C,
                                   int nh, int H, int h, int w, int hp, int wp, int ws, int shift,
                                   float eps, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (ws * ws != kN || nh * kHD != C || hp % ws || wp % ws || shift < 0 || shift >= ws || H <= 0)
-    return (int)cudaErrorInvalidValue;
-  if (NW <= 0) return (int)cudaSuccess;
-  if (NW > 2147483647LL / kN) return (int)cudaErrorInvalidValue;
-  const BlockArgs a = {x, wqkv, wproj, w1, w2,
-                       (const float*)gamma, (const float*)beta, (const float*)bqkv,
-                       (const float*)bproj, (const float*)bias, (const float*)gamma2,
-                       (const float*)beta2, (const float*)b1, (const float*)b2,
-                       out, NW, H, {h, w, hp, wp, ws, shift}, eps, (cudaStream_t)stream};
+  BlockArgs a;
+  const int err = block_args(&a, x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2, beta2,
+                             w1, b1, w2, b2, out, NW, C, nh, H, h, w, hp, wp, ws, shift, eps,
+                             device, stream);
+  if (err || NW <= 0) return err;
   if (dtype == 1) {
     switch (C) {
-      // <C, W, P, KC, S,  WR, RS, HC, STAGES>
-      case 96: return (int)launch_block_bf16<96, 4, 1, 48, 3, 4, 1, 64, 2>(a);
-      case 192: return (int)launch_block_bf16<192, 2, 1, 96, 3, 2, 2, 32, 2>(a);
-      case 384: return (int)launch_block_bf16<384, 1, 2, 96, 4, 2, 2, 32, 2>(a);
-      case 768: return (int)launch_block_bf16<768, 1, 2, 32, 4, 1, 2, 16, 1>(a);
+#define SEGLAND_CASE(c, ...) \
+  case c: return (int)launch_block_bf16<SEGLAND_BLOCK_PLAN(c, __VA_ARGS__), false>(a);
+      SEGLAND_BLOCK_BUILDS(SEGLAND_CASE)
+#undef SEGLAND_CASE
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -438,3 +375,55 @@ extern "C" int segland_swin_block(int dtype, const void* x, const void* gamma, c
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+// Registers a thread at launch, local (spill) bytes and dynamic shared memory
+// of the bf16 build at width C, by cudaFuncGetAttributes.
+extern "C" int segland_swin_block_attrs(int C, int* regs, int* local_bytes, int* smem) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (C) {
+#define SEGLAND_CASE(c, ...)                                                                \
+  case c:                                                                                   \
+    err = cudaFuncGetAttributes(&fa,                                                        \
+                                swin_block_wgmma_kernel<SEGLAND_BLOCK_PLAN(c, __VA_ARGS__), \
+                                                        false>);                            \
+    *smem = (int)SEGLAND_BLOCK_PLAN(c, __VA_ARGS__)::Sec::SMEM;                             \
+    break;
+    SEGLAND_BLOCK_BUILDS(SEGLAND_CASE)
+#undef SEGLAND_CASE
+    default: break;
+  }
+  if (err != cudaSuccess) return (int)err;
+  *regs = fa.numRegs;
+  *local_bytes = (int)fa.localSizeBytes;
+  return 0;
+}
+#else
+// The bf16 kernel of segland_swin_block with its consumers' clock64() time by
+// phase (setup, ring wait, wgmma, q/k/v epilogue, attention core, context
+// copy, section output epilogue, LN2, h epilogue, MLP output epilogue) added
+// to clocks[0..10) and the count of consumer warpgroups to clocks[10].
+extern "C" int segland_swin_block_clocks(const void* x, const void* gamma, const void* beta,
+                                         const void* wqkv, const void* bqkv, const void* wproj,
+                                         const void* bproj, const void* bias, const void* gamma2,
+                                         const void* beta2, const void* w1, const void* b1,
+                                         const void* w2, const void* b2, void* out, long long NW,
+                                         int C, int nh, int H, int h, int w, int hp, int wp,
+                                         int ws, int shift, float eps, void* clocks, int device,
+                                         void* stream) {
+  BlockArgs a;
+  const int err = block_args(&a, x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2, beta2,
+                             w1, b1, w2, b2, out, NW, C, nh, H, h, w, hp, wp, ws, shift, eps,
+                             device, stream);
+  if (err || NW <= 0) return err;
+  switch (C) {
+#define SEGLAND_CASE(c, ...)                                                \
+  case c:                                                                   \
+    return (int)launch_block_bf16<SEGLAND_BLOCK_PLAN(c, __VA_ARGS__), true>( \
+        a, (unsigned long long*)clocks);
+    SEGLAND_BLOCK_BUILDS(SEGLAND_CASE)
+#undef SEGLAND_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+#endif  // SEGLAND_PART

@@ -44,17 +44,62 @@ _SECTION_CHANNELS = (96, 192, 384, 768)
 SectionBuild = collections.namedtuple("SectionBuild", "w s rr")
 SECTION_BUILDS = {96: SectionBuild(4, 4, True), 192: SectionBuild(2, 6, False),
                   384: SectionBuild(2, 4, False), 768: SectionBuild(1, 6, False)}
+# ---- the bf16 whole-block kernel's builds (SEGLAND_BLOCK_BUILDS in swin_block.cu) --------
+# the section's w windows a block and s ring slots (a producer warpgroup always), then
+# ln_mlp's rg warpgroups down the rows, cg across the output columns, np passes and hs
+# hidden columns a warpgroup and chunk: SECTION_BUILDS' and MLP_BUILDS' at the same
+# width, but at C = 96 a hidden chunk of 64, not 128 (the same k order, so the same
+# result), and more ring slots where the shared memory has room.
+BlockBuild = collections.namedtuple("BlockBuild", "w s rg cg np hs")
+BLOCK_BUILDS = {96: BlockBuild(4, 5, 2, 1, 1, 64), 192: BlockBuild(2, 8, 2, 1, 1, 64),
+                384: BlockBuild(2, 5, 1, 2, 1, 64), 768: BlockBuild(1, 7, 1, 2, 2, 64)}
+# ---- the bf16 v1 kernel's builds (SEGLAND_V1_BUILDS in attn_section_v1.cu) ---------------
+# w windows a block (the windows path takes group <= w, the scratch path the rest in
+# chunks of w), s ring slots, a lone producer warp.  At C = 96 two windows, not
+# SECTION_BUILDS' four: two row tiles a warpgroup beside the super-window walk spilled.
+V1Build = collections.namedtuple("V1Build", "w s")
+V1_BUILDS = {96: V1Build(2, 5), 192: V1Build(2, 5), 384: V1Build(2, 5), 768: V1Build(1, 5)}
 _N = 49
 _LQ, _STRIP = 48, 16 * 68 * 4  # q/k/v row stride (bf16), an attention strip (bytes)
+_SLOT = 96 * 128  # a ring slot of the section kernels
+_MAX_GROUP = 8
 
 
 def _al128(n):
     return (n + 127) // 128 * 128
 
 
+def _check_plan(name, c, parts):
+    smem = sum(parts.values())
+    if smem > SMEM_MAX:
+        raise ValueError(f"{name} at C={c}: " + " + ".join(f"{k} {v:,}" for k, v in parts.items())
+                         + f" = {smem:,} B > {SMEM_MAX:,}")
+    return smem
+
+
+def _section_layout(c, w, s, tok_bytes=1):
+    """SecPlan<C, W, S, RR, TOK> of section_sm90.cuh: rows, row tiles and how the two
+    consumer warpgroups split them, and shared memory by buffer."""
+    rows = w * _N
+    rt = -(-rows // 64)
+    rs = -(-rows // 8) * 8
+    split_rows = rt >= 2
+    nb = 96 if split_rows else 48
+    kt = -(-c // 64)
+    rq = -(-rows // 16) * 16 + 16
+    parts = dict(ring=s * _SLOT, y=kt * rs * 128, qkv=3 * _al128(rq * _LQ * 2),
+                 strips=min(4 * w, 8) * _STRIP, bias=_al128(_N * _N * 4),
+                 tokens=_al128(rows * tok_bytes), barriers=2 * s * 8, align=1024)
+    return dict(w=w, s=s, c=c, rows=rows, row_tiles=rt, y_rows=rs,
+                split="rows" if split_rows else "columns", n=nb, k_tiles=kt,
+                slot_bytes=_SLOT, smem_parts=parts,
+                acc_regs=(rt // 2 if split_rows else 1) * nb // 2,
+                overrun=(rt * 64 - rs) * 128)
+
+
 def section_plan(c: int) -> dict:
     """The bf16 section kernel's plan at width C: the arithmetic of SecPlan in
-    attn_section.cu.  Windows a block, m64 row tiles and how the two consumer
+    section_sm90.cuh.  Windows a block, m64 row tiles and how the two consumer
     warpgroups split them, ring depth, shared memory by buffer and in all
     (bytes), and the accumulator registers a consumer thread holds.  Raises
     ValueError, with the arithmetic, for a width that has no build."""
@@ -63,23 +108,81 @@ def section_plan(c: int) -> dict:
                          f"{tuple(SECTION_BUILDS)} (heads of 32, the projection 96 columns "
                          f"a pass)")
     b = SECTION_BUILDS[c]
-    rows = b.w * _N
-    rt = -(-rows // 64)
-    rs = -(-rows // 8) * 8
-    split_rows = rt >= 2
-    nb = 96 if split_rows else 48
-    kt = -(-c // 64)
-    rq = -(-rows // 16) * 16 + 16
-    parts = dict(ring=b.s * 96 * 128, y=kt * rs * 128, qkv=3 * _al128(rq * _LQ * 2),
-                 strips=min(4 * b.w, 8) * _STRIP, bias=_al128(_N * _N * 4), tokens=_al128(rows),
-                 barriers=2 * b.s * 8, align=1024)
-    plan = dict(b._asdict(), c=c, rows=rows, row_tiles=rt, split="rows" if split_rows else
-                "columns", n=nb, k_tiles=kt, slot_bytes=96 * 128, smem_parts=parts,
-                smem=sum(parts.values()), acc_regs=(rt // 2 if split_rows else 1) * nb // 2,
-                slots_per_block=(c // 32 + c // 96) * kt)
-    if plan["smem"] > SMEM_MAX:
-        raise ValueError(f"attn_section at C={c}: " + " + ".join(
-            f"{k} {v:,}" for k, v in parts.items()) + f" = {plan['smem']:,} B > {SMEM_MAX:,}")
+    plan = _section_layout(c, b.w, b.s)
+    plan.update(rr=b.rr, slots_per_block=(c // 32 + c // 96) * plan["k_tiles"])
+    plan["smem"] = _check_plan("attn_section", c, plan["smem_parts"])
+    return plan
+
+
+def block_plan(c: int, hidden: int = None) -> dict:
+    """The bf16 whole-block kernel's plan at width C (and hidden width H): the
+    arithmetic of BlockPlan in swin_block.cu.  The section's plan with a
+    producer warpgroup, then ln_mlp's tiling over the block's row tiles: work
+    items (row group, pass) a full block, the h tile over the dead q, k, v
+    buffers, ring slots a block (the section's tiles, then the MLP's); shared
+    memory by buffer and in all.  Raises
+    ValueError, with the arithmetic, for a shape that has no build."""
+    if c not in BLOCK_BUILDS:
+        raise ValueError(f"swin_block has no bfloat16 build for C={c}: built at C in "
+                         f"{tuple(BLOCK_BUILDS)}")
+    b = BLOCK_BUILDS[c]
+    plan = _section_layout(c, b.w, b.s)
+    hc = b.cg * b.hs
+    hidden = 4 * c if hidden is None else hidden
+    if hidden <= 0 or hidden % hc:
+        raise ValueError(f"swin_block at C={c} walks the hidden width in chunks of {b.cg} x "
+                         f"{b.hs} = {hc} columns; H={hidden} is not a multiple of {hc}")
+    if plan["row_tiles"] % b.rg:
+        raise ValueError(f"swin_block at C={c}: {plan['row_tiles']} row tiles do not split "
+                         f"into row groups of {b.rg}")
+    cs = c // b.np // b.cg
+    kt1, nt1, kt2, nt2 = -(-c // 64), b.hs // 64, hc // 64, -(-cs // 64)
+    h_bytes = 0 if b.cg == 1 else b.rg * 2 * kt2 * 8192
+    behind_y = sum(plan["smem_parts"][k] for k in ("qkv", "strips", "bias", "tokens"))
+    if h_bytes > behind_y:
+        raise ValueError(f"swin_block at C={c}: the h tile ({h_bytes:,} B) does not fit "
+                         f"behind y ({behind_y:,} B)")
+    items = plan["row_tiles"] // b.rg * b.np
+    plan.update(b._asdict(), rr=True, hidden=hidden, hc=hc, cs=cs, chunks=hidden // hc,
+                items=items, h_bytes=h_bytes,
+                mlp_regs=nt1 * 32 + nt2 * 32 + (b.hs // 4 if b.cg == 1 else 0),
+                slots_per_block=(c // 32 + c // 96) * plan["k_tiles"]
+                + items * (hidden // hc) * (kt1 * b.cg * nt1 + kt2 * b.cg * nt2))
+    plan["smem"] = _check_plan("swin_block", c, plan["smem_parts"])
+    return plan
+
+
+def v1_plan(c: int, group: int) -> dict:
+    """The bf16 v1 kernel's plan at width C and ``group``: the arithmetic of
+    V1Plan in attn_section_v1.cu.  The windows path (group <= the build's
+    windows a block) owns whole super-windows with q, k and v in shared memory,
+    the section's layout with fp32 region ids; the scratch path owns one
+    super-window in chunks and keeps q, k and v in a [NW, 49, 3C] scratch
+    tensor, its phase 2 over y.  Raises ValueError, with the arithmetic, for a
+    width or group that has no build."""
+    if c not in V1_BUILDS:
+        raise ValueError(f"attn_section_v1 has no bfloat16 build for C={c}: built at C in "
+                         f"{tuple(V1_BUILDS)}")
+    if group not in _GROUPS:
+        raise ValueError(f"attn_section_v1 is built for group in {_GROUPS}, not {group}")
+    b = V1_BUILDS[c]
+    plan = _section_layout(c, b.w, b.s, tok_bytes=4)
+    plan.update(rr=False, group=group)
+    if group <= b.w:
+        plan.update(path="windows", scratch=False, windows_a_block=b.w)
+    else:
+        p = plan["smem_parts"]
+        phase2 = (8 * _STRIP + _al128(_N * _N * 4) + 3 * _al128((_MAX_GROUP * _N + 16) * _LQ * 2)
+                  + _al128(_MAX_GROUP * _N * 4))
+        phase13 = p["y"] + plan["overrun"]
+        plan.update(path="scratch", scratch=True, windows_a_block=group, chunks=-(-group // b.w),
+                    smem_parts=dict(ring=p["ring"], phase2=phase2, phase13=phase13,
+                                    barriers=p["barriers"], align=p["align"]))
+        plan["smem"] = _check_plan("attn_section_v1", c, dict(
+            ring=p["ring"], over_y=max(phase2, phase13), barriers=p["barriers"],
+            align=p["align"]))
+        return plan
+    plan["smem"] = _check_plan("attn_section_v1", c, plan["smem_parts"])
     return plan
 _GROUPS = (1, 2, 4, 8)
 _HEAD_DIM = 32
@@ -191,6 +294,12 @@ def _check_rows(name, t):
         raise ValueError(f"{name} takes a contiguous, 16-byte aligned [NW, N, C] tensor")
 
 
+def _check_clocks(clocks, x_win, n):
+    if x_win.dtype != torch.bfloat16 or clocks.dtype != torch.int64 or clocks.numel() < n \
+            or clocks.device != x_win.device:
+        raise ValueError(f"clocks: an int64 tensor of {n} on the device, bf16 windows only")
+
+
 def _bias_f32(bias, dev, num_heads, n):
     b = bias.float().contiguous()
     if b.device != dev or b.dim() != 4 or tuple(b.shape[1:]) != (num_heads, n, n):
@@ -297,9 +406,7 @@ def attn_section_clocks(clocks, x_win, geom, gamma, beta, wqkv, bqkv, wproj, bpr
     wgmma, q/k/v epilogue, attention core, context copy, output epilogue) and
     their count into ``clocks``, a CUDA int64 tensor of 8.  Takes
     attn_section's arguments; not counted in ``attn_section.launches``."""
-    if x_win.dtype != torch.bfloat16 or clocks.dtype != torch.int64 or clocks.numel() < 8 \
-            or clocks.device != x_win.device:
-        raise ValueError("clocks: an int64 tensor of 8 on the device, bf16 windows only")
+    _check_clocks(clocks, x_win, 8)
     out, args = _section_launch_args(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
                                      num_heads, eps)
     err = kernels.library().segland_attn_section_clocks(
@@ -318,6 +425,33 @@ def _mask_rows(name, t, nw, dev):
     return t
 
 
+def _v1_launch_args(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads,
+                    eps, regions, group):
+    """Checks the v1 kernel's inputs; returns its output buffer and the
+    arguments that its C entries share (without dtype, device and stream).
+    The scratch tensor is allocated only for a path that reads it."""
+    if group not in _GROUPS:
+        raise ValueError(f"attn_section_v1 is built for group in {_GROUPS}, not {group}")
+    _check_rows("attn_section_v1", x_win)
+    bf16 = x_win.dtype == torch.bfloat16
+    plan = v1_plan(x_win.shape[-1], group) if bf16 else None  # raises without a build
+    # the bf16 (wgmma) body reads its weights K-major
+    g, be, wq, bq, wp_, bp, b = _section_args("attn_section_v1", x_win, gamma, beta, wqkv, bqkv,
+                                               wproj, bproj, bias, num_heads, k_major=bf16)
+    nw, n, c = x_win.shape
+    dev = x_win.device
+    m = _mask_rows("mask_tok", mask_tok, nw, dev)
+    r = None if regions is None else _mask_rows("regions", regions, nw, dev)
+    out = torch.empty_like(x_win)
+    scratch = None  # q, k, v of the super-windows (fp32: then the context)
+    if plan is None or plan["scratch"]:
+        scratch = torch.empty((nw, n, 3 * c), dtype=x_win.dtype, device=dev)
+    P = kernels.ptr
+    return out, (P(x_win), P(m), m.shape[0], P(r), 0 if r is None else r.shape[0], P(g), P(be),
+                 P(wq), P(bq), P(wp_), P(bp), P(b), P(scratch), P(out), nw, c, num_heads, group,
+                 eps)
+
+
 def attn_section_v1(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
                     num_heads: int, eps: float = 1e-5, regions=None, group: int = 1):
     """Launch the v1 attention-section kernel on CUDA windows x_win [NW, 49, C]
@@ -325,21 +459,10 @@ def attn_section_v1(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias
     the region ids ``regions`` [nW_img, 49] (or None) are read from device
     memory, and ``group`` consecutive windows are attended as one super-window
     (NW need not divide by it).  Builds exist for group in 1, 2, 4, 8."""
-    if group not in _GROUPS:
-        raise ValueError(f"attn_section_v1 is built for group in {_GROUPS}, not {group}")
-    g, be, wq, bq, wp_, bp, b = _section_args("attn_section_v1", x_win, gamma, beta, wqkv, bqkv,
-                                               wproj, bproj, bias, num_heads)
-    nw, n, c = x_win.shape
-    dev = x_win.device
-    m = _mask_rows("mask_tok", mask_tok, nw, dev)
-    r = None if regions is None else _mask_rows("regions", regions, nw, dev)
-    out = torch.empty_like(x_win)
-    scratch = torch.empty((nw, n, 3 * c), dtype=x_win.dtype, device=dev)  # q, k, v, then ctx
-    P = kernels.ptr
+    out, args = _v1_launch_args(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                                num_heads, eps, regions, group)
     err = kernels.library().segland_attn_section_v1(
-        _DTYPES[x_win.dtype], P(x_win), P(m), m.shape[0], P(r), 0 if r is None else r.shape[0],
-        P(g), P(be), P(wq), P(bq), P(wp_), P(bp), P(b), P(scratch), P(out), nw, c, num_heads,
-        group, eps, dev.index, kernels.stream_of(x_win))
+        _DTYPES[x_win.dtype], *args, x_win.device.index, kernels.stream_of(x_win))
     kernels.check(err, "attn_section_v1")
     attn_section_v1.launches += 1
     return out
@@ -348,38 +471,84 @@ def attn_section_v1(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias
 attn_section_v1.launches = 0
 
 
+def attn_section_v1_clocks(clocks, x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                           num_heads: int, eps: float = 1e-5, regions=None, group: int = 1):
+    """A measurement, not the served kernel: the v1 kernel's bf16 body built to
+    add its consumers' clock64() time by phase (setup, ring wait, wgmma, q/k/v
+    epilogue, attention core with the super-window's key walk, context copy,
+    output epilogue) and their count into ``clocks``, a CUDA int64 tensor of 8.
+    Takes attn_section_v1's arguments; not counted in its ``launches``."""
+    _check_clocks(clocks, x_win, 8)
+    out, args = _v1_launch_args(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                                num_heads, eps, regions, group)
+    err = kernels.library().segland_attn_section_v1_clocks(
+        *args, kernels.ptr(clocks), x_win.device.index, kernels.stream_of(x_win))
+    kernels.check(err, "attn_section_v1_clocks")
+    return out
+
+
+def _block_launch_args(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2, beta2,
+                       w1, b1, w2, b2, num_heads, eps):
+    """Checks the whole-block kernel's inputs; returns its output buffer and the
+    arguments that its C entries share (without dtype, device and stream)."""
+    _check_rows("swin_block", x_win)
+    nw, _, c = x_win.shape
+    bf16 = x_win.dtype == torch.bfloat16
+    hidden = w1.shape[-1]
+    if bf16:
+        block_plan(c, hidden)  # raises for a shape the kernel has no build for
+    elif c not in _SECTION_CHANNELS or hidden % 64:
+        raise ValueError(f"swin_block has no float32 build for C={c}, H={hidden}")
+    # the bf16 (wgmma) body reads every weight K-major
+    g, be, wq, bq, wp_, bp, b = _section_args("swin_block", x_win, gamma, beta, wqkv, bqkv,
+                                               wproj, bproj, bias, num_heads, k_major=bf16)
+    dev = x_win.device
+    h, w, hp, wp, ws, shift = _check_geom(geom, nw)
+    g2, be2 = _vec(gamma2, c, dev), _vec(beta2, c, dev)
+    bb1, bb2 = _vec(b1, hidden, dev), _vec(b2, c, dev)
+    mat = _kmat if bf16 else _mat
+    ww1 = mat("swin_block", w1, (c, hidden), x_win)
+    ww2 = mat("swin_block", w2, (hidden, c), x_win)
+    out = torch.empty_like(x_win)
+    P = kernels.ptr
+    return out, (P(x_win), P(g), P(be), P(wq), P(bq), P(wp_), P(bp), P(b), P(g2), P(be2),
+                 P(ww1), P(bb1), P(ww2), P(bb2), P(out), nw, c, num_heads, hidden, h, w, hp, wp,
+                 ws, shift, eps)
+
+
 def swin_block(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2, beta2, w1, b1,
                w2, b2, num_heads: int, eps: float = 1e-5):
     """Launch the whole-block kernel on CUDA windows x_win [NW, 49, C]
     (contiguous bf16 or fp32): the attention section of :func:`attn_section`
     and LN2 + MLP + residual on its output, in one launch.  w1 [C, H],
-    w2 [H, C]."""
-    g, be, wq, bq, wp_, bp, b = _section_args("swin_block", x_win, gamma, beta, wqkv, bqkv,
-                                               wproj, bproj, bias, num_heads)
-    nw, _, c = x_win.shape
-    dev = x_win.device
-    if c not in _SECTION_CHANNELS:
-        raise ValueError(f"swin_block has no build for C={c}")
-    hidden = w1.shape[-1]
-    if hidden % 64:
-        raise ValueError(f"swin_block takes a hidden width that is a multiple of 64, not {hidden}")
-    h, w, hp, wp, ws, shift = _check_geom(geom, nw)
-    g2, be2 = _vec(gamma2, c, dev), _vec(beta2, c, dev)
-    bb1, bb2 = _vec(b1, hidden, dev), _vec(b2, c, dev)
-    ww1 = _mat("swin_block", w1, (c, hidden), x_win)
-    ww2 = _mat("swin_block", w2, (hidden, c), x_win)
-    out = torch.empty_like(x_win)
-    P = kernels.ptr
+    w2 [H, C] (bf16: read K-major, so nn.Linear's ``weight.T`` passes without
+    a copy)."""
+    out, args = _block_launch_args(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                                   gamma2, beta2, w1, b1, w2, b2, num_heads, eps)
     err = kernels.library().segland_swin_block(
-        _DTYPES[x_win.dtype], P(x_win), P(g), P(be), P(wq), P(bq), P(wp_), P(bp), P(b), P(g2),
-        P(be2), P(ww1), P(bb1), P(ww2), P(bb2), P(out), nw, c, num_heads, hidden, h, w, hp, wp,
-        ws, shift, eps, dev.index, kernels.stream_of(x_win))
+        _DTYPES[x_win.dtype], *args, x_win.device.index, kernels.stream_of(x_win))
     kernels.check(err, "swin_block")
     swin_block.launches += 1
     return out
 
 
 swin_block.launches = 0
+
+
+def swin_block_clocks(clocks, x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2,
+                      beta2, w1, b1, w2, b2, num_heads: int, eps: float = 1e-5):
+    """A measurement, not the served kernel: the whole-block kernel's bf16 body
+    built to add its consumers' clock64() time by phase (the section's seven,
+    then LN2, the h epilogue and the MLP's output epilogue) and their count
+    into ``clocks``, a CUDA int64 tensor of 11.  Takes swin_block's arguments;
+    not counted in ``swin_block.launches``."""
+    _check_clocks(clocks, x_win, 11)
+    out, args = _block_launch_args(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                                   gamma2, beta2, w1, b1, w2, b2, num_heads, eps)
+    err = kernels.library().segland_swin_block_clocks(
+        *args, kernels.ptr(clocks), x_win.device.index, kernels.stream_of(x_win))
+    kernels.check(err, "swin_block_clocks")
+    return out
 
 
 def window_attention(qkv, bias, num_heads: int):

@@ -20,6 +20,7 @@ from segland_tpu.models.backbones import swin as j_swin
 from segland_tpu.ops import pallas_attn as J
 from segland_tpu_torch.models.backbones import swin as p_swin
 from segland_tpu_torch.ops import fused_attn as P
+from segland_tpu_torch.ops.fused_mlp import ln_mlp_plan
 
 WS, N = 7, 49
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -277,3 +278,172 @@ def test_section_build_table_matches_the_source():
     built = {int(m[0]): (int(m[1]), int(m[2]), bool(int(m[3])))
              for m in re.findall(r"X\((\d+), (\d+), (\d+), ([01])\)", table)}
     assert built == {c: tuple(b) for c, b in P.SECTION_BUILDS.items()}
+
+
+@pytest.mark.parametrize("c", SWIN_S_WIDTHS)
+def test_every_swin_s_stage_has_a_bf16_block_plan(c):
+    """The whole-block kernel's plan at each swin-s width: the section's
+    layout within a block's shared memory (K3's windows a block), its row
+    tiles cut into ln_mlp's row groups, ln_mlp's MLP tiling
+    at the same width (at C = 96 half its hidden chunk, which keeps the hidden
+    columns in the same k order), the shared h tile behind y, and
+    accumulators and h fragments well inside the 168 registers ptxas gives a
+    thread of a 384-thread block."""
+    plan = P.block_plan(c)
+    assert plan["smem"] == sum(plan["smem_parts"].values()) <= P.SMEM_MAX
+    assert plan["rows"] == plan["w"] * N and plan["rr"] and plan["w"] == P.SECTION_BUILDS[c].w
+    assert plan["row_tiles"] % plan["rg"] == 0
+    assert plan["items"] == plan["row_tiles"] // plan["rg"] * plan["np"]
+    mlp = ln_mlp_plan(c, 4 * c)
+    assert {k: plan[k] for k in ("rg", "cg", "np", "cs")} == \
+        {k: mlp[k] for k in ("rg", "cg", "np", "cs")}
+    assert plan["hs"] == (64 if c == 96 else mlp["hs"]) and plan["hc"] * plan["chunks"] == 4 * c
+    assert plan["mlp_regs"] <= 144  # K1's at C = 192, which compiles without spills
+    kt1, kt2 = -(-c // 64), plan["hc"] // 64
+    nt1, nt2 = plan["hs"] // 64, -(-plan["cs"] // 64)
+    tiles_per_chunk = plan["cg"] * (kt1 * nt1 + kt2 * nt2)
+    behind_y = sum(plan["smem_parts"][k] for k in ("qkv", "strips", "bias", "tokens"))
+    assert plan["h_bytes"] <= behind_y and plan["overrun"] <= behind_y
+    # the ring carries K3's section stream, then every item's MLP tiles
+    assert plan["slots_per_block"] == P.section_plan(c)["slots_per_block"] + plan["items"] * (
+        plan["chunks"] * tiles_per_chunk)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("c", SWIN_S_WIDTHS)
+def test_every_swin_s_stage_has_a_v1_plan(c, group):
+    """The v1 kernel's plan at each swin-s width and built group: the windows
+    path (whole super-windows in a block, q, k, v in shared memory) where the
+    group fits the build's windows, which the attn_group=2 route gets at C <=
+    384, else the scratch path in chunks of the build's windows; either within
+    a block's shared memory, the scratch tensor only on its path."""
+    plan = P.v1_plan(c, group)
+    assert plan["smem"] <= P.SMEM_MAX and plan["group"] == group
+    if group <= plan["w"]:
+        assert plan["path"] == "windows" and not plan["scratch"]
+        assert plan["w"] % group == 0 and plan["windows_a_block"] == plan["w"]
+        assert plan["smem"] == sum(plan["smem_parts"].values())
+        assert plan["smem_parts"]["tokens"] == -(-plan["rows"] * 4 // 128) * 128  # fp32 ids
+    else:
+        assert plan["path"] == "scratch" and plan["scratch"]
+        assert plan["windows_a_block"] == group and plan["chunks"] == -(-group // plan["w"])
+        parts = plan["smem_parts"]
+        assert parts["phase13"] == plan["k_tiles"] * plan["y_rows"] * 128 + plan["overrun"]
+        assert plan["smem"] == (parts["ring"] + max(parts["phase2"], parts["phase13"])
+                                + parts["barriers"] + parts["align"])
+    assert (plan["path"] == "windows") == (group == 1 or (group == 2 and c <= 384))
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda: P.block_plan(128), "no bfloat16 build"),
+    (lambda: P.block_plan(1536), "no bfloat16 build"),
+    (lambda: P.block_plan(96, hidden=352), "not a multiple of 64"),
+    (lambda: P.block_plan(384, hidden=1000), "not a multiple of 128"),
+    (lambda: P.v1_plan(64, 1), "no bfloat16 build"),
+    (lambda: P.v1_plan(480, 2), "no bfloat16 build"),
+    (lambda: P.v1_plan(96, 3), r"\(1, 2, 4, 8\)"),
+    (lambda: P.v1_plan(768, 16), r"\(1, 2, 4, 8\)")])
+def test_block_and_v1_shapes_without_a_build_raise(call, match):
+    with pytest.raises(ValueError, match=match):
+        call()
+
+
+@pytest.mark.parametrize("source,macro,table,fields", [
+    ("swin_block.cu", "SEGLAND_BLOCK_BUILDS", "BLOCK_BUILDS", 7),
+    ("attn_section_v1.cu", "SEGLAND_V1_BUILDS", "V1_BUILDS", 3)])
+def test_block_and_v1_build_tables_match_the_sources(source, macro, table, fields):
+    src = (ROOT / "segland_tpu_torch/kernels/csrc" / source).read_text()
+    text = src[src.index(f"#define {macro}"):]
+    text = text[:text.index("\n\n")]
+    rows = re.findall(r"X\(" + ", ".join([r"(\d+)"] * fields) + r"\)", text)
+    built = {int(m[0]): tuple(int(v) for v in m[1:]) for m in rows}
+    want = {c: tuple(int(v) for v in b) for c, b in getattr(P, table).items()}
+    assert built == want and len(rows) == len(want)
+
+
+class _Recorder:
+    """Stands for the kernels' library: records each entry's arguments."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls[name] = args
+            return 0
+        return entry
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """The ops' launches on CPU tensors, recorded instead of run: the device
+    check passes, ``kernels.ptr`` hands the tensors themselves to the fake
+    library, and the launch counters are put back afterwards."""
+    lib = _Recorder()
+    monkeypatch.setattr(P, "_check_rows", lambda name, t: None)
+    monkeypatch.setattr(P.kernels, "library", lambda: lib)
+    monkeypatch.setattr(P.kernels, "ptr", lambda t: t)
+    monkeypatch.setattr(P.kernels, "stream_of", lambda t: None)
+    for op in (P.swin_block, P.attn_section_v1):
+        monkeypatch.setattr(op, "launches", op.launches)
+    return lib
+
+
+def _linear(rng, n_out, n_in, dtype):
+    """An nn.Linear-style weight [out, in] and the [in, out] view the models pass."""
+    w = t(rng.randn(n_out, n_in).astype(np.float32)).to(dtype)
+    return w, w.T
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_swin_block_hands_k_major_weights_to_the_kernel(recorded, dtype):
+    """In bf16 the whole-block kernel reads every weight K-major: the models'
+    weight.T views reach it as the nn.Linear storage itself, no copy, and an
+    input-major [in, out] tensor as its contiguous transpose.  In fp32 the
+    weights reach it input-major."""
+    rng = np.random.RandomState(3)
+    c, nh, nw = 96, 3, 8
+    x = t(rng.randn(nw, N, c).astype(np.float32)).to(dtype)
+    wqkv, wqkv_v = _linear(rng, 3 * c, c, dtype)
+    wproj, wproj_v = _linear(rng, c, c, dtype)
+    w1, w1_v = _linear(rng, 4 * c, c, dtype)
+    w2_in = t(rng.randn(4 * c, c).astype(np.float32)).to(dtype)  # [in, out], contiguous
+    vec = lambda n: t(rng.randn(n).astype(np.float32))
+    P.swin_block(x, (14, 28, 14, 28, WS, 3), vec(c), vec(c), wqkv_v, vec(3 * c), wproj_v,
+                 vec(c), torch.zeros(1, nh, N, N), vec(c), vec(c), w1_v, vec(4 * c), w2_in,
+                 vec(c), nh)
+    args = recorded.calls["segland_swin_block"]
+    assert args[0] == P._DTYPES[dtype] and P.swin_block.launches == 1
+    got = dict(wqkv=args[4], wproj=args[6], w1=args[11], w2=args[13])
+    if dtype == torch.bfloat16:
+        for name, lin in (("wqkv", wqkv), ("wproj", wproj), ("w1", w1)):
+            assert got[name].data_ptr() == lin.data_ptr() and got[name].is_contiguous(), name
+        assert got["w2"].shape == (c, 4 * c) and got["w2"].is_contiguous()
+        assert torch.equal(got["w2"], w2_in.T)
+    else:
+        for name, want in (("wqkv", wqkv_v), ("wproj", wproj_v), ("w1", w1_v), ("w2", w2_in)):
+            assert got[name].is_contiguous() and torch.equal(got[name], want), name
+    assert args[16:20] == (nw, c, nh, 4 * c)
+
+
+@pytest.mark.parametrize("c,group", [(96, 2), (96, 8), (192, 2), (192, 4), (768, 1),
+                                     (768, 2)])
+def test_v1_allocates_the_scratch_tensor_only_on_its_scratch_path(recorded, c, group):
+    """The bf16 v1 kernel gets a [NW, 49, 3C] scratch tensor only where its
+    plan takes the scratch path (NULL otherwise), and K-major weights."""
+    rng = np.random.RandomState(4)
+    nh, nw = c // 32, 10
+    x = t(rng.randn(nw, N, c).astype(np.float32)).to(torch.bfloat16)
+    wqkv, wqkv_v = _linear(rng, 3 * c, c, torch.bfloat16)
+    wproj, wproj_v = _linear(rng, c, c, torch.bfloat16)
+    vec = lambda n: t(rng.randn(n).astype(np.float32))
+    P.attn_section_v1(x, torch.ones(1, N), vec(c), vec(c), wqkv_v, vec(3 * c), wproj_v, vec(c),
+                      torch.zeros(1, nh, N, N), nh, group=group)
+    args = recorded.calls["segland_attn_section_v1"]
+    scratch = args[13]
+    if P.v1_plan(c, group)["scratch"]:
+        assert scratch.shape == (nw, N, 3 * c) and scratch.dtype == torch.bfloat16
+    else:
+        assert scratch is None
+    assert args[8].data_ptr() == wqkv.data_ptr() and args[10].data_ptr() == wproj.data_ptr()
+    assert args[15:19] == (nw, c, nh, group) and P.attn_section_v1.launches == 1
