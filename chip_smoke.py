@@ -50,12 +50,17 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      with and without the ReLU, to 1 bf16 ulp (the count of elements that are
      not bit-equal is printed), beside torch._int_mm + the epilogue in torch;
      then the probe's own entry point (benchmarks/conv3_probe.py), K8's path;
- 10. K7 bottleneck_int8 vs its plain version at the four layer shapes of
-     resnet50 at output stride 8 for a batch of 8 1024^2 tiles, both last_relu,
-     and at images no tile divides with d in 1, 2, 4, the same bar; the tile
-     each shape gets and what its halo recomputes; beside each shape the same
-     block as a Bottleneck module: bf16 unquantized, int8 conv by conv, and
-     int8 through K7, the comparison that decides the --fused default;
+ 10. K7 bottleneck_int8 (two kernels: conv1, then conv23) vs its plain version
+     at the four layer shapes of resnet50 at output stride 8 for a batch of 8
+     1024^2 tiles, both last_relu, and at images no tile divides with d in 1,
+     2, 4, the same bar; conv1's h1q against conv1_reference (equal); per
+     kernel its registers and local bytes (a spill fails), its IGMMA (int8
+     wgmma) and UTMALDG counts in the built SASS (a 0 fails), and per layer shape its
+     time, TOP/s and the measurement builds' phase split (consumers'
+     clock64() by phase); the plan each shape gets (the library's and
+     bottleneck_plan's must agree); beside each shape the same block as a
+     Bottleneck module: bf16 unquantized, int8 conv by conv, and int8 through
+     K7, the comparison that decides the --fused default;
  11. the int8 slices: deeplab_pop / resnet50 (2 batches) and pspnet_pop /
      resnet50 (1 batch) at full width and depth through Evaluator.run four
      ways: bf16 unquantized, --int8, --int8 --fused (K7 12 and K2 1 a batch,
@@ -87,6 +92,7 @@ the repo beside it, it fails before printing any result.
 
     python3 chip_smoke.py --phases k1,k3    # K1 and K3 with their build, SASS and phase lines
     python3 chip_smoke.py --phases k4,k5    # K4 and K5 with their build, SASS and phase lines
+    python3 chip_smoke.py --phases k8,k7    # K8, and K7 with its build, SASS and per-kernel lines
     python3 chip_smoke.py --phases k9,k10   # the head-group kernels and their probe
     python3 chip_smoke.py --phases k11,f32  # the variants probe's kernel, the fp32 body
     python3 chip_smoke.py --phases profile  # torch.profiler over the swin and deeplab_pop slices
@@ -240,11 +246,11 @@ def check_k1(dev, m, c, dtype, atol, rtol, seed, with_res=True, with_ls=True):
     return float(err.max()), ms, plain_ms, torch_ms
 
 
-def build_attrs(entry, keys, what, names=("C",)):
-    """Registers at launch, local (spill) bytes and shared memory of each bf16
-    build, by cudaFuncGetAttributes through the kernel's C entry (a key: the
-    width, or a tuple of the entry's leading arguments, named by ``names``);
-    fails on any local memory."""
+def build_attrs(entry, keys, what, names=("C",), kind="bf16"):
+    """Registers at launch, local (spill) bytes and shared memory of each
+    build (bf16, or K7's int8), by cudaFuncGetAttributes through the kernel's
+    C entry (a key: the width, or a tuple of the entry's leading arguments,
+    named by ``names``); fails on any local memory."""
     import ctypes
     from segland_tpu_torch import kernels
 
@@ -254,19 +260,23 @@ def build_attrs(entry, keys, what, names=("C",)):
         label = " ".join(f"{n}={v}" for n, v in zip(names, key))
         regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
         kernels.check(fn(*key, ctypes.byref(regs), ctypes.byref(local), ctypes.byref(smem)), entry)
-        print(f"{what} bf16 build {label}: registers={regs.value} local_bytes={local.value} "
+        print(f"{what} {kind} build {label}: registers={regs.value} local_bytes={local.value} "
               f"smem={smem.value}", flush=True)
         if local.value:
-            fail(f"{what} bf16 build {label} spills: {local.value} bytes of local memory")
+            fail(f"{what} {kind} build {label} spills: {local.value} bytes of local memory")
 
 
 _SASS = {}
 
 
-def sass_counts(kernel_name):
-    """{mangled function: (HGMMA count, UTMALDG count)} of every function of
-    the built library whose name holds ``kernel_name``, by cuobjdump -sass;
-    fails if a count is 0."""
+_SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG")
+
+
+def sass_counts(kernel_name, mma="HGMMA"):
+    """{mangled function: {op: count}} of every function of the built library
+    whose name holds ``kernel_name``, by cuobjdump -sass, for the ops of
+    _SASS_OPS (a bf16 wgmma is HGMMA in SASS, an int8 one IGMMA); fails if
+    ``mma`` or UTMALDG is missing from one."""
     from torch.utils.cpp_extension import CUDA_HOME
     from segland_tpu_torch import kernels
 
@@ -278,17 +288,18 @@ def sass_counts(kernel_name):
         for line in out.splitlines():
             if "Function :" in line:
                 fn = line.split("Function :", 1)[1].strip()
-                _SASS[fn] = [0, 0]
+                _SASS[fn] = dict.fromkeys(_SASS_OPS, 0)
             elif fn is not None:
-                _SASS[fn][0] += "HGMMA" in line
-                _SASS[fn][1] += "UTMALDG" in line
-    found = {f: tuple(n) for f, n in _SASS.items() if kernel_name in f}
+                for op in _SASS_OPS:
+                    _SASS[fn][op] += op in line
+    found = {f: n for f, n in _SASS.items() if kernel_name in f}
     if not found:
         fail(f"no function {kernel_name} in the library's SASS")
-    for f, (hgmma, utmaldg) in sorted(found.items()):
-        print(f"SASS {f}: HGMMA={hgmma} UTMALDG={utmaldg}", flush=True)
-        if not hgmma or not utmaldg:
-            fail(f"{f} has {hgmma} HGMMA and {utmaldg} UTMALDG instructions")
+    for f, n in sorted(found.items()):
+        print(f"SASS {f}: " + " ".join(f"{op}={n[op]}" for op in _SASS_OPS
+                                       if n[op] or op in (mma, "UTMALDG")), flush=True)
+        if not n[mma] or not n["UTMALDG"]:
+            fail(f"{f} has {n[mma]} {mma} and {n['UTMALDG']} UTMALDG instructions")
     return found
 
 
@@ -1309,20 +1320,53 @@ def block_routes_ms(c, p, d, side, dev, seed):
                 cuda_ms(lambda: fused(quant, x), iters=3, warmup=1))
 
 
+def k7_plan_line(c, p, d):
+    """K7's plan at these widths, from ops/fused_bottleneck.py:bottleneck_plan; fails
+    unless the built library's plan (segland_bottleneck_int8_plan) is the same."""
+    from segland_tpu_torch.ops.fused_bottleneck import bottleneck_plan, library_plan
+
+    plan, lib = bottleneck_plan(c, p, d), library_plan(c, p, d)
+    for stage, got in (lib or {}).items():
+        if any(plan[stage][k] != v for k, v in got.items()):
+            lib = None
+    if lib is None:
+        fail(f"K7 plan C={c} P={p} d={d}: the library's {library_plan(c, p, d)} is not "
+             f"bottleneck_plan's {plan}")
+    one, two = plan["conv1"], plan["conv23"]
+    return (f"conv1 {one['rows']} rows x m64n{one['nw']} x {one['cg']}, ring {one['slots']} x "
+            f"{one['slot']:,} B, smem {one['smem']:,}; conv23 tile {two['th']}x{two['tw']}, conv2 "
+            f"{two['passes2']} x m64n{two['nw']}, conv3 {two['passes3']} x m64n{two['nw3']}, ring "
+            f"{two['slots']} x {two['slot']:,} B, smem {two['smem']:,}")
+
+
+K7_CONV1_PHASES = ("wait", "quantize", "wgmma", "epilogue")
+K7_CONV23_PHASES = ("c2_wait", "c2_wgmma", "c2_epilogue", "c3_wait", "c3_wgmma", "c3_epilogue")
+K7_RAGGED = ((37, 53, 256, 64, 1), (21, 19, 512, 128, 2), (9, 30, 1024, 256, 4),
+             (13, 11, 2048, 512, 4), (5, 7, 192, 64, 2))
+
+
 def phase_k7(dev):
-    """K7 at the four layer shapes of resnet50 OS 8, batch 8, both last_relu,
-    plus an image that no tile divides."""
+    """K7 (conv1, then conv23) at the four layer shapes of resnet50 OS 8, batch 8,
+    both last_relu, plus images that no tile divides; each kernel's registers,
+    local memory, SASS and time."""
     import torch
     from segland_tpu_torch.ops.fused_bottleneck import (bottleneck_int8,
                                                         bottleneck_int8_reference,
-                                                        bottleneck_tile)
+                                                        bottleneck_operands, conv1_reference,
+                                                        launch_conv1, launch_conv23)
 
+    keys = sorted({(c, p) for _, _, c, p, _ in K7_LAYERS} | {(c, p) for *_, c, p, _ in K7_RAGGED})
+    for stage in ("conv1", "conv23"):
+        build_attrs(f"segland_bottleneck_{stage}_attrs", keys, f"K7 {stage}", ("C", "P"),
+                    kind="int8")
+        sass_counts(f"bottleneck_{stage}_kernel", mma="IGMMA")
     out = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, not_bit_equal=0,
-               bf16_block_ms=0.0, per_conv_int8_ms=0.0, fused_route_ms=0.0)
+               conv1_ms=0.0, conv23_ms=0.0, bf16_block_ms=0.0, per_conv_int8_ms=0.0,
+               fused_route_ms=0.0)
     bounds = []
     for i, (blocks, side, c, p, d) in enumerate(K7_LAYERS):
+        plan = k7_plan_line(c, p, d)
         args = bottleneck_inputs(BATCH, side, side, c, p, dev, 90 + i)
-        th, tw, smem = bottleneck_tile(c, p, d)
         differ = 0
         for relu in (True, False):
             e, n = compare_exact(
@@ -1335,20 +1379,42 @@ def phase_k7(dev):
         out["not_bit_equal"] += differ
         ms = cuda_ms(lambda: bottleneck_int8(*args, dilation=d), iters=5, warmup=1)
         plain_ms = cuda_ms(lambda: bottleneck_int8_reference(*args, dilation=d), iters=2, warmup=1)
+        # each kernel alone, on operands handed over once
+        x, w1, w2, w3, a1, b1, a2, b2, a3, b3, s_x, s_h1, s_h2 = args
+        w1t, w2t, w3t, (va1, vb1, va2, vb2, va3, vb3) = bottleneck_operands(
+            x, w1, w2, w3, a1, b1, a2, b2, a3, b3, dilation=d)
+        h1q = torch.empty(*x.shape[:3], p, dtype=torch.int8, device=dev)
+        launch_conv1(x, w1t, va1, vb1, s_x, s_h1, h1q)
+        if not torch.equal(h1q, conv1_reference(x, w1, a1, b1, s_x, s_h1)):
+            fail(f"K7 conv1 side={side} C={c} P={p}: h1q differs from conv1_reference")
+        y = torch.empty_like(x)
+        ms1 = cuda_ms(lambda: launch_conv1(x, w1t, va1, vb1, s_x, s_h1, h1q), iters=5, warmup=1)
+        ms23 = cuda_ms(lambda: launch_conv23(h1q, x, w2t, w3t, va2, vb2, va3, vb3, s_h2, d, True,
+                                             y), iters=5, warmup=1)
+        split1 = phase_split(lambda clk: launch_conv1(x, w1t, va1, vb1, s_x, s_h1, h1q, clk),
+                             K7_CONV1_PHASES, dev)
+        split23 = phase_split(lambda clk: launch_conv23(h1q, x, w2t, w3t, va2, vb2, va3, vb3, s_h2,
+                                                        d, True, y, clk), K7_CONV23_PHASES, dev)
         m = BATCH * side * side
+        ops1, ops23 = 2 * m * c * p, 2 * m * (9 * p * p + p * c)
         # x read and out written once, the three weights and the vectors once
-        b_ms, b_by = bound(2 * m * (2 * c * p + 9 * p * p),
+        b_ms, b_by = bound(ops1 + ops23,
                            2 * m * c * 2 + 2 * c * p + 9 * p * p + 16 * p + 8 * c, PEAK_INT8)
-        halo = (th + 2 * d) * (tw + 2 * d) / (th * tw)
-        print(f"K7 {BATCH}x{side}x{side} C={c} P={p} d={d}: tile={th}x{tw} smem={smem} "
-              f"conv1_recompute={halo:.3f}x max_abs_err={out['max_abs_err']:.6g} tol=1 bf16 ulp "
-              f"out_of_tol=0 not_bit_equal={differ} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by}) tops={2e-9 * m * (2 * c * p + 9 * p * p) / ms:.1f}",
+        print(f"K7 {BATCH}x{side}x{side} C={c} P={p} d={d}: {plan}", flush=True)
+        print(f"K7 {BATCH}x{side}x{side} C={c} P={p} d={d}: max_abs_err={out['max_abs_err']:.6g} "
+              f"tol=1 bf16 ulp out_of_tol=0 not_bit_equal={differ} kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"tops={1e-9 * (ops1 + ops23) / ms:.1f}; conv1_ms={ms1:.4f} "
+              f"(tops={1e-9 * ops1 / ms1:.1f}) conv23_ms={ms23:.4f} "
+              f"(tops={1e-9 * ops23 / ms23:.1f}) h1q_round_trip_bytes={2 * m * p}", flush=True)
+        print(f"K7 {BATCH}x{side}x{side} C={c} P={p} d={d}: conv1 {split1}; conv23 {split23}",
               flush=True)
         out["ms"] += blocks * ms
         out["plain_ms"] += blocks * plain_ms
+        out["conv1_ms"] += blocks * ms1
+        out["conv23_ms"] += blocks * ms23
         bounds += [(b_ms, b_by)] * blocks
-        del args
+        del args, x, w1t, w2t, w3t, h1q, y
         torch.cuda.empty_cache()
         # the same block as the model runs it: what decides the --fused default
         bf16_ms, conv_ms, route_ms = block_routes_ms(c, p, d, side, dev, 110 + i)
@@ -1360,9 +1426,7 @@ def phase_k7(dev):
         out["fused_route_ms"] += blocks * route_ms
         torch.cuda.empty_cache()
     # tiles on all four borders of an image that no tile divides, every dilation
-    for j, (h, w, c, p, d) in enumerate(((37, 53, 256, 64, 1), (21, 19, 512, 128, 2),
-                                         (9, 30, 1024, 256, 4), (13, 11, 2048, 512, 4),
-                                         (5, 7, 192, 64, 2))):
+    for j, (h, w, c, p, d) in enumerate(K7_RAGGED):
         args = bottleneck_inputs(3, h, w, c, p, dev, 100 + j)
         e, n = compare_exact(f"K7 ragged {h}x{w} C={c} P={p} d={d}",
                              bottleneck_int8(*args, dilation=d, last_relu=bool(j % 2)),
@@ -1370,9 +1434,10 @@ def phase_k7(dev):
         out["max_abs_err"] = max(out["max_abs_err"], e)
         out["not_bit_equal"] += n
         print(f"K7 ragged 3x{h}x{w} C={c} P={p} d={d}: max_abs_err={e:.6g} out_of_tol=0 "
-              f"not_bit_equal={n}", flush=True)
+              f"not_bit_equal={n}; {k7_plan_line(c, p, d)}", flush=True)
     out["bound_ms"], out["bound_by"] = sum_bounds(bounds)
     print(f"K7 per forward of {BATCH} tiles (12 blocks): kernel_ms={out['ms']:.4f} "
+          f"(conv1 {out['conv1_ms']:.4f} + conv23 {out['conv23_ms']:.4f}) "
           f"plain_ms={out['plain_ms']:.4f} bound_ms={out['bound_ms']:.4f} ({out['bound_by']}); "
           f"as Bottleneck modules: bf16_unquantized_ms={out['bf16_block_ms']:.4f} "
           f"int8_per_conv_ms={out['per_conv_int8_ms']:.4f} "
@@ -1716,7 +1781,7 @@ def phase_swin_routes(dev):
     return launches, tps_u
 
 
-GROUPS = (("K7 bottleneck_int8", ("bottleneck_kernel",)),
+GROUPS = (("K7 bottleneck_int8", ("bottleneck_conv1_kernel", "bottleneck_conv23_kernel")),
           ("K8 conv3_residual", ("conv3_residual_kernel",)),
           ("K4 swin_block", ("swin_block",)), ("K5 attn_section_v1", ("attn_section_v1",)),
           ("K3 attn_section", ("attn_section",)), ("K1 ln_mlp", ("ln_mlp",)),

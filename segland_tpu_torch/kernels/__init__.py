@@ -51,9 +51,11 @@ _ENTRIES = {
     # bias, scratch, out, NW, C, nh, group, eps, device, stream
     "segland_attn_section_v1": [_I, _P, _P, _I, _P, _I] + [_P] * 9 + [ctypes.c_longlong]
                                + [_I] * 3 + [ctypes.c_float, _I, _P],
-    # x, w1t, w2t, w3t, a1, b1, a2, b2, a3, b3, out, B, H, W, C, P, d, relu,
-    # s_x, s_h1, s_h2, device, stream
-    "segland_bottleneck_int8": [_P] * 11 + [_I] * 7 + [ctypes.c_float] * 3 + [_I, _P],
+    # x, w1t, a1, b1, h1q, M, C, P, s_x, s_h1, device, stream
+    "segland_bottleneck_conv1": [_P] * 5 + [ctypes.c_longlong, _I, _I] + [ctypes.c_float] * 2
+                                + [_I, _P],
+    # h1q, x, w2t, w3t, a2, b2, a3, b3, out, B, H, W, C, P, d, relu, s_h2, device, stream
+    "segland_bottleneck_conv23": [_P] * 9 + [_I] * 7 + [ctypes.c_float, _I, _P],
     # x, mask_tok, rows_m, regions, rows_r, gamma, beta, wqkv, bqkv, wproj, bproj, bias, out,
     # NW, C, nh, hg, wblk, h, w, hp, wp, ws, shift, eps, ablate, score_f32, device, stream
     **{name: [_P, _P, _I, _P, _I] + [_P] * 8 + [ctypes.c_longlong] + [_I] * 10
@@ -68,8 +70,8 @@ _ENTRIES = {
     "segland_section_f32": [_P, _P, _I, _P, _I] + [_P] * 8 + [ctypes.c_longlong] + [_I] * 9
                            + [ctypes.c_float] + [_I] * 4 + [_P],
     # the bf16 kernels of segland_ln_mlp, segland_attn_section, segland_swin_block and
-    # segland_attn_section_v1 with phase clocks: their arguments without dtype, then
-    # clocks (uint64) before device and stream
+    # segland_attn_section_v1, and K7's two int8 kernels, with phase clocks: their
+    # arguments (without dtype), then clocks (uint64) before device and stream
     "segland_ln_mlp_clocks": [_P] * 10 + [ctypes.c_longlong, _I, _I, ctypes.c_float, _P, _I,
                                           _P],
     "segland_attn_section_clocks": [_P] * 9 + [ctypes.c_longlong] + [_I] * 8
@@ -78,6 +80,9 @@ _ENTRIES = {
                                  + [ctypes.c_float, _P, _I, _P],
     "segland_attn_section_v1_clocks": [_P, _P, _I, _P, _I] + [_P] * 9 + [ctypes.c_longlong]
                                       + [_I] * 3 + [ctypes.c_float, _P, _I, _P],
+    "segland_bottleneck_conv1_clocks": [_P] * 5 + [ctypes.c_longlong, _I, _I]
+                                       + [ctypes.c_float] * 2 + [_P, _I, _P],
+    "segland_bottleneck_conv23_clocks": [_P] * 9 + [_I] * 7 + [ctypes.c_float, _P, _I, _P],
     # h2q, res, w3t, a3, b3, out, M, P, C, relu, device, stream
     "segland_conv3_residual_int8": [_P] * 6 + [ctypes.c_longlong] + [_I] * 4 + [_P],
 }
@@ -161,13 +166,15 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    # C, P, d -> th, tw, smem bytes; returns 0 when no tile fits
-    lib.segland_bottleneck_int8_tile.argtypes = [_I] * 3 + [ctypes.POINTER(_I)] * 3
-    lib.segland_bottleneck_int8_tile.restype = ctypes.c_int
-    # C (and K5's group) -> registers at launch, local (spill) bytes, dynamic shared memory
-    # of a bf16 build
+    # C, P, d -> K7's plan, 10 ints; returns 0 when K7 does not take them
+    lib.segland_bottleneck_int8_plan.argtypes = [_I] * 3 + [ctypes.POINTER(_I)]
+    lib.segland_bottleneck_int8_plan.restype = ctypes.c_int
+    # C (and K5's group, K7's P) -> registers at launch, local (spill) bytes, dynamic
+    # shared memory of a build
     for name, keys in (("segland_ln_mlp_attrs", 1), ("segland_attn_section_attrs", 1),
-                       ("segland_swin_block_attrs", 1), ("segland_attn_section_v1_attrs", 2)):
+                       ("segland_swin_block_attrs", 1), ("segland_attn_section_v1_attrs", 2),
+                       ("segland_bottleneck_conv1_attrs", 2),
+                       ("segland_bottleneck_conv23_attrs", 2)):
         fn = getattr(lib, name)
         fn.argtypes = [_I] * keys + [ctypes.POINTER(_I)] * 3
         fn.restype = ctypes.c_int

@@ -1,6 +1,7 @@
-// int8 ResNet bottleneck kernels: the whole eval-mode block in one launch
-// (segland_bottleneck_int8) and its last stage alone, conv3 + residual
-// (segland_conv3_residual_int8).
+// int8 ResNet bottleneck kernels: the whole eval-mode block as two kernels
+// behind one wrapper call (K7: segland_bottleneck_conv1, then
+// segland_bottleneck_conv23), and its last stage alone, conv3 + residual (K8:
+// segland_conv3_residual_int8).
 //
 // Replaces: segland_tpu/ops/pallas_bottleneck.py:fused_bottleneck_int8 (body
 // `_kernel`) and :conv3_residual_int8 (body `_conv3_kernel`).
@@ -10,50 +11,70 @@
 //   h2q = clip(rint(relu(h1q*w2 * a2 + b2) / s_h2)) 3x3, dilation d, zero padded
 //   out = bf16(relu?(h2q.w3 * a3 + b3 + x))        1x1, [P,C]; the residual is x itself
 //
-// Every product is int8 x int8 -> int32 on the tensor cores
-// (mma.sync.m16n8k32.s8), so every sum is exact, and every fp32 step is the
-// plain version's (ops/fused_bottleneck.py), in its order: multiply and add
-// stay unfused, rounding is half-even, and the requantization takes the
-// plain version's true quotient (see quant()).  The kernel therefore gives
-// the plain version's bits.
+// Every product is int8 x int8 -> int32 on the tensor cores, so every sum is
+// exact, and every fp32 step is the plain version's (ops/fused_bottleneck.py),
+// in its order: multiply and add stay unfused, rounding is half-even, and the
+// requantization takes the plain version's true quotient (see quant_n()).  The
+// kernels therefore give the plain version's bits.
 //
-// What bounds it on an H100: operations at resnet50's layer4 (C 2048, P 512:
-// 1.17 TOP against 1.07 GB of input and output at 8 x 128^2 pixels), bytes
-// at the narrower layers.
+// What bounds K7 on an H100: operations at resnet50's layer4 (C 2048, P 512:
+// 1.17 TOP against 1.07 GB of input and output at 8 x 128^2 pixels), bytes at
+// the narrower layers.
 //
-// Design.  The TPU kernel held th + 2d whole rows of the image and all three
-// weight sets on chip; a block here has 227 KB of shared memory, where one
-// row of layer4's x alone is 512 KB.  So a block owns a TH x TW tile of one image
-// and works in three phases, the intermediates in shared memory:
-//   1. conv1 over the tile's halo'd footprint, (TH+2d) x (TW+2d) pixels:
-//      x streams from global memory 128 pixels x 64 channels at a time, is
-//      quantized on the way into shared memory, and meets w1 chunks that
-//      cp.async keeps in flight; h1q lands in shared memory as int8, zero
-//      where the pixel lies outside the image (the 3x3 pads the activation,
-//      and a zero x would give relu(b1) there).  The halo is recomputed by
-//      every tile that shares it.
-//   2. conv2: nine taps, each a product of a shifted view of h1q with one
-//      [P,P] slice of w2; h2q lands in shared memory.
-//   3. conv3 from h2q, with the residual read from x and the result written
-//      as bf16, both straight from the accumulator registers.
-// The tile is the largest of 16x16, 8x16, 8x8 whose h1q and h2q fit (layer4
-// at d = 4 gets 8x8: 256 footprint pixels for 64 outputs).  Weights arrive
-// transposed, [N][K] with K contiguous, which is the operand order of
-// mma.sync's "col" B; a warp computes 32 x 64 (or 32 x 32) of a 128-row
-// product, fragments loaded with ldmatrix from rows padded by 16 bytes.
-// Any H and W are taken (tails are guarded); C and P must be multiples of 64.
+// K7's design (sm_90a).  The TPU kernel held th + 2d whole rows of the image
+// and all three weight sets on chip.  A block here has 227 KB of shared
+// memory, and one launch that keeps h1q on chip must hold a tile's halo'd
+// footprint of it, which at layer4 (d = 4) leaves 8x8 tiles recomputing conv1
+// 4 times.  So K7 is two kernels, and h1q goes through device memory as int8
+// (2 * M * P bytes there and back, 134 MB at layer4 beside the 1.07 GB of x
+// and out; the int32 sums stay on chip):
+//   conv1   h1q [B,H,W,P] = requant(relu(quant(x) . w1 * a1 + b1)) over
+//           tiles of 64 * RG rows.  A slot of the ring holds a k chunk (64
+//           channels): the tile's x rows as TMA brings them (bf16) and w1's
+//           [P, 64] K-major slice.  The two consumer warpgroups quantize the
+//           rows into the slot's A operand, half each, then multiply, and
+//           quantize the next chunk while the tensor cores run; they keep all
+//           P columns of the rows in int32 accumulators (m64 n <= 256 each)
+//           across the k loop, so x is read and quantized once.
+//   conv23  an 8 x 16 pixel tile: conv2 as an implicit GEMM, one 4-D TMA box
+//           of h1q a tap and 64 input channels, landing at the tap's offset
+//           (y0 + (ti - 1) d, x0 + (tj - 1) d) already swizzled as the A
+//           operand (TMA zero-fills what lies outside the image: the 3x3's
+//           zero padding of h1q, and the ragged edges), beside w2's [NW, 64]
+//           slice for the tap; h2q goes into a swizzled shared tile, and conv3
+//           runs from it against w3's slices.  Its epilogue takes the residual
+//           from a slot that TMA filled with the tile's x, writes the bf16
+//           output over it and has TMA store it (clipped to the image).
+// Both are persistent (a block an SM walks the tiles) and warp-specialised:
+// one thread of a producer warpgroup fills a ring of slots guarded by full /
+// empty mbarriers (sm90.cuh), across tile boundaries, while two consumer
+// warpgroups run wgmma.mma_async m64nNk32.s32.s8.s8 with both operands in
+// shared memory; the epilogues' (a, b) vectors sit in shared memory too.
+// Weights arrive K-major ([P][C], [9][P][P] as (tap, out, in), [C][P]).  Any
+// H and W; C a multiple of 64; P in 64, 128, 256, 512 (bottleneck_plan in
+// ops/fused_bottleneck.py says why).
+//
+// K8 keeps the pre-Hopper form: mma.sync.m16n8k32 with ldmatrix fragments
+// and a cp.async ring.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// segland-parts: 5
+// kernels/__init__.py compiles this file five times, in parallel:
+// -DSEGLAND_PART=0 (K8, K7's conv1, the entry points), 1 and 2 (K7's conv23
+// builds at P = 64, 128 and at P = 256, 512), 3 and 4 (the measurement builds
+// of conv1 and conv23 with phase clocks, segland_bottleneck_conv1_clocks and
+// segland_bottleneck_conv23_clocks), so that those do not lengthen the rest.
+#ifndef SEGLAND_PART
+#define SEGLAND_PART 0
+#endif
+
+#include "sm90.cuh"
 
 namespace {
 
 constexpr int BK = 64;        // bytes of k in a staged chunk
 constexpr int LDS = BK + 16;  // its row stride: ldmatrix rows fall in distinct banks
-constexpr int THREADS = 256;  // 8 warps, 4 along M by 2 along N
+constexpr int THREADS = 256;  // K8: 8 warps, 4 along M by 2 along N
 constexpr int BSTAGES = 3;    // cp.async ring of weight chunks
-constexpr int MAX_SMEM = 232448;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -86,14 +107,43 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// clip(rint(v / s), -127, 127).  v * (1/s) differs from the true quotient by
-// under 3e-5 wherever the result is not clipped, so the two round alike
-// unless the product lies within 1e-3 of a tie; there the division decides.
-__device__ __forceinline__ int quant(float v, float s, float inv) {
-  const float t = __fmul_rn(v, inv);
-  float r = rintf(t);
-  if (fabsf(fabsf(t - r) - 0.5f) < 1e-3f) r = rintf(__fdiv_rn(v, s));
-  return (int)fminf(fmaxf(r, -127.0f), 127.0f);
+// clip(rint(v / s), -127, 127) of N values at once.  v * (1/s) differs from
+// the true quotient by under 3e-5 wherever the result is not clipped, so the
+// two round alike unless the product lies within 1e-3 of a tie; there the
+// division decides.  Clamping to [-127, 127] before rounding gives the same
+// integers, and adding 1.5 * 2^23 rounds a float that small half to even
+// into the low bits of the sum: no conversion instruction (a quarter-rate
+// pipe) on the common path, and no branch, so the N values' arithmetic
+// overlaps; a batch holding a near-tie goes back for it.
+template <int N>
+__device__ __forceinline__ void quant_n(const float (&v)[N], float s, float inv, int (&q)[N]) {
+  constexpr float kMagic = 12582912.0f;  // 1.5 * 2^23
+  bool near = false;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float t = fminf(fmaxf(__fmul_rn(v[i], inv), -127.0f), 127.0f);
+    const float y = __fadd_rn(t, kMagic);
+    near |= fabsf(fabsf(__fsub_rn(t, __fsub_rn(y, kMagic))) - 0.5f) < 1e-3f;
+    q[i] = __float_as_int(y) - __float_as_int(kMagic);
+  }
+  if (near) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float t = fminf(fmaxf(__fmul_rn(v[i], inv), -127.0f), 127.0f);
+      if (fabsf(fabsf(t - (float)q[i]) - 0.5f) < 1e-3f)
+        q[i] = (int)fminf(fmaxf(rintf(__fdiv_rn(v[i], s)), -127.0f), 127.0f);
+    }
+  }
+}
+
+// four int8 in a word, the first in the low byte
+__device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
+  return (uint32_t)(a & 0xff) | ((uint32_t)(b & 0xff) << 8) | ((uint32_t)(c & 0xff) << 16) |
+         ((uint32_t)(d & 0xff) << 24);
+}
+
+__device__ __forceinline__ uint16_t pack2(int a, int b) {
+  return (uint16_t)((a & 0xff) | ((b & 0xff) << 8));
 }
 
 // relu(acc * a + b), multiply and add unfused as in the plain version
@@ -152,33 +202,137 @@ __device__ __forceinline__ void zero_acc(int (&acc)[MT][NT][4]) {
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 }
 
-// A product whose A operand already lies in shared memory.  a_row(i, kc):
-// this lane's ldmatrix row of m-tile i for chunk kc; b_chunk(kc): where the
-// chunk's 16*NT weight rows start in global memory.
-template <int MT, int NT, class AFn, class BFn>
-__device__ __forceinline__ void gemm_smem_a(int (&acc)[MT][NT][4], int nk, AFn a_row, BFn b_chunk,
-                                            int ldb, int8_t* Bs, int tid, int b_lane) {
-  constexpr int NB = 16 * NT;
-  __syncthreads();  // every warp is done with the ring and sees what the last product stored
-#pragma unroll
-  for (int s = 0; s < BSTAGES - 1; ++s) {
-    if (s < nk) load_b_chunk<NB>(Bs + s * NB * LDS, b_chunk(s), ldb, tid);
-    cp_async_commit();
-  }
-  for (int kc = 0; kc < nk; ++kc) {
-    cp_async_wait<BSTAGES - 2>();
-    __syncthreads();
-    const int nx = kc + BSTAGES - 1;
-    if (nx < nk) load_b_chunk<NB>(Bs + (nx % BSTAGES) * NB * LDS, b_chunk(nx), ldb, tid);
-    cp_async_commit();
-    const int8_t* a[MT];
-#pragma unroll
-    for (int i = 0; i < MT; ++i) a[i] = a_row(i, kc);
-    warp_mma_chunk<MT, NT>(acc, a, Bs + (kc % BSTAGES) * NB * LDS + b_lane);
-  }
-  cp_async_wait<0>();
+// four bf16 (two a word, the lower address in the low half) -> four int8
+__device__ __forceinline__ uint32_t quant4_bf16(const uint2& w, float s, float inv) {
+  const float v[4] = {__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                      __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u)};
+  int q[4];
+  quant_n(v, s, inv, q);
+  return pack4(q[0], q[1], q[2], q[3]);
 }
 
+// ---------------------------------------------------------------------------
+// K7: the plans (ops/fused_bottleneck.py:bottleneck_plan mirrors them)
+// ---------------------------------------------------------------------------
+constexpr int kK7Threads = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int kChunk = 64;       // bytes of K (int8 channels) a ring slot holds
+constexpr int kBarBytes = 128;   // room for 8 full and 8 empty mbarriers
+constexpr int kAlign = 1024;     // slack to align the dynamic shared memory
+
+constexpr int cmin(int a, int b) { return a < b ? a : b; }
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// conv1 at P output columns: a warpgroup holds NW = min(P, 256) of them (m64
+// nNW, NW / 2 int32 registers a thread); CG = P / NW warpgroups across P and
+// RG = 2 / CG down the rows.  A slot holds a chunk's x rows as TMA brings them
+// (bf16, 128-byte swizzle), their quantized rows (A) and w1's slice (B).
+template <int P_>
+struct Conv1Plan {
+  static constexpr int P = P_;
+  static constexpr int NW = cmin(P, 256), CG = P / NW, RG = 2 / CG, BM = 64 * RG;
+  static constexpr int A_OFF = BM * 2 * kChunk, B_OFF = A_OFF + BM * kChunk;
+  static constexpr int SLOT = B_OFF + P * kChunk;
+  static constexpr int VEC = P * 8;  // (a1, b1) by column
+  static constexpr int S = cmin(8, (232448 - kAlign - kBarBytes - VEC) / SLOT);
+  static constexpr int OFF_VEC = S * SLOT, OFF_BAR = OFF_VEC + VEC;
+  static constexpr int SMEM = OFF_BAR + kBarBytes + kAlign;
+  static_assert(P % NW == 0 && CG * RG == 2, "P = 64, 128, 256 or 512");
+  static_assert(S >= 2 && SMEM <= 232448, "over the shared memory a block can have");
+};
+
+// conv23 on TH x TW = 8 x 16 pixels (BM = 128 rows, 64 a warpgroup): conv2 in
+// NP2 passes of NW = min(P, 256) output columns, conv3 in C / NW3 passes.  A
+// slot holds a tap's h1q box and w2's slice, or w3's slice, or 64 channels of
+// the tile's residual x (bf16, 128-byte swizzle), which the epilogue
+// overwrites with the output for TMA to store; h2q stays in shared memory
+// (BM x P), and so do a pass's (a, b) columns (VEC bytes a warpgroup).
+template <int P_, int NW3_>
+struct Conv23Plan {
+  static constexpr int P = P_, NW3 = NW3_;
+  static constexpr int TH = 8, TW = 16, BM = TH * TW;
+  static constexpr int NW = cmin(P, 256), NP2 = P / NW, KC = P / kChunk;
+  static constexpr int A_BYTES = BM * kChunk, R_BYTES = BM * 2 * kChunk;
+  static constexpr int SLOT = cmax(cmax(A_BYTES + NW * kChunk, NW3 * kChunk), R_BYTES);
+  static constexpr int H2_BYTES = BM * P, VEC = 256 * 8;
+  static constexpr int S = cmin(8, (232448 - kAlign - kBarBytes - H2_BYTES - 2 * VEC) / SLOT);
+  static constexpr int OFF_H2 = S * SLOT, OFF_VEC = OFF_H2 + H2_BYTES;
+  static constexpr int OFF_BAR = OFF_VEC + 2 * VEC;
+  static constexpr int SMEM = OFF_BAR + kBarBytes + kAlign;
+  static_assert(P % NW == 0 && (NW3 == 64 || NW3 == 128), "tile shapes");
+  static_assert(S >= 2 && SMEM <= 232448, "over the shared memory a block can have");
+};
+
+// the dynamic shared memory from its first kAlign-aligned byte (an offset
+// into the array, so that the compiler still sees shared memory)
+__device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
+  return p + ((kAlign - (sm90::smem_u32(p) & (kAlign - 1))) & (kAlign - 1));
+}
+
+// row and column of accumulator register i (of a pair i, i + 1) of an m64nN
+// wgmma, for thread t of the warpgroup
+__device__ __forceinline__ int acc_row(int t, int i) {
+  return 16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2);
+}
+__device__ __forceinline__ int acc_col(int t, int i) { return 8 * (i / 4) + 2 * (t % 4); }
+
+// one 64-byte k chunk of a warpgroup's m64nN product: both k32 steps, between
+// the operand fences, as one wgmma group; the slot read before goes back
+template <int N, int B, int S>
+__device__ __forceinline__ void mma_chunk(sm90::Ring<B, S>& q, int (&acc)[N / 2], uint64_t da,
+                                          uint64_t db) {
+  sm90::reg_fence(acc);
+  sm90::wgmma_fence();
+  sm90::wgmma_s8<N>(acc, da, db);
+  sm90::wgmma_s8<N>(acc, sm90::desc_step(da, 1), sm90::desc_step(db, 1));
+  sm90::wgmma_commit();
+  sm90::ring_used(q);
+  sm90::reg_fence(acc);
+  sm90::ring_next(q);
+}
+
+template <int R>
+__device__ __forceinline__ void zero_acc(int (&acc)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0;
+  sm90::reg_fence(acc);
+}
+
+// (a[c], b[c]) of N columns into vec, by one warpgroup (barrier 1 + wg):
+// behind the warpgroup's last reads of vec, ahead of its next
+template <int N>
+__device__ __forceinline__ void stage_vec(float2* vec, const float* __restrict__ a,
+                                          const float* __restrict__ b, int wg) {
+  const int t = threadIdx.x % 128;
+  float2 v[(N + 127) / 128];
+#pragma unroll
+  for (int u = 0; u < (N + 127) / 128; ++u)
+    if (t + 128 * u < N) v[u] = make_float2(a[t + 128 * u], b[t + 128 * u]);
+  sm90::named_sync(1 + wg, 128);
+#pragma unroll
+  for (int u = 0; u < (N + 127) / 128; ++u)
+    if (t + 128 * u < N) vec[t + 128 * u] = v[u];
+  sm90::named_sync(1 + wg, 128);
+}
+
+// S full barriers (the producer's arrival with the TMA bytes), then S empty
+// ones (one arrival a consumer warpgroup)
+template <int S>
+__device__ __forceinline__ void init_ring(uint64_t* full) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&full[S + s], 2);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// phases of the consumers' clocks in the measurement builds (PhaseClocks)
+enum { kC1Wait, kC1Quant, kC1Mma, kC1Epi, kC1Phases };
+enum { kC2Wait, kC2Mma, kC2Epi, kC3Wait, kC3Mma, kC3Epi, kC23Phases };
+
+#if SEGLAND_PART == 0
 // ---------------------------------------------------------------------------
 // conv3 + residual: out[M,C] = bf16(relu?(h2q[M,P] . w3 * a3 + b3 + res))
 // ---------------------------------------------------------------------------
@@ -254,316 +408,462 @@ conv3_residual_kernel(const int8_t* __restrict__ h2q, const __nv_bfloat16* __res
     }
 }
 
-// ---------------------------------------------------------------------------
-// the whole bottleneck
-// ---------------------------------------------------------------------------
-struct BottleneckArgs {
-  const __nv_bfloat16* x;
-  const int8_t *w1t, *w2t, *w3t;  // [P][C], [9][P][P] (tap, out, in), [C][P]
-  const float *a1, *b1, *a2, *b2, *a3, *b3;
-  __nv_bfloat16* out;
-  int B, H, W, C, P, d, relu, TH, TW, tiles_y, tiles_x;
-  float s_x, s_h1, s_h2;
-};
+#endif  // SEGLAND_PART == 0
 
-__device__ __forceinline__ uint32_t quant4(uint32_t lo, uint32_t hi, float s, float inv) {
-  // four bf16 (two a word, the lower address in the low half) -> four int8
-  const int q0 = quant(__uint_as_float(lo << 16), s, inv);
-  const int q1 = quant(__uint_as_float(lo & 0xffff0000u), s, inv);
-  const int q2 = quant(__uint_as_float(hi << 16), s, inv);
-  const int q3 = quant(__uint_as_float(hi & 0xffff0000u), s, inv);
-  return (uint32_t)(q0 & 0xff) | ((uint32_t)(q1 & 0xff) << 8) | ((uint32_t)(q2 & 0xff) << 16) |
-         ((uint32_t)(q3 & 0xff) << 24);
+#if SEGLAND_PART == 0 || SEGLAND_PART == 3
+// ---------------------------------------------------------------------------
+// K7 conv1: h1q [M][P] int8 = requant(relu(quant(x) . w1 * a1 + b1))
+// ---------------------------------------------------------------------------
+// Persistent: a block walks row tiles blockIdx.x, + gridDim.x, ...; a k chunk
+// of a tile is a slot: TMA brings the tile's x rows (bf16) and w1's slice,
+// the consumer warpgroups quantize the rows into the slot's A operand, half
+// of them each, and multiply while they quantize the next chunk.
+// CLK builds add the consumers' clock64() time by phase to clocks.
+template <int P, bool CLK>
+__global__ void __launch_bounds__(kK7Threads, 1)
+bottleneck_conv1_kernel(const __grid_constant__ CUtensorMap mx,
+                        const __grid_constant__ CUtensorMap mw1, const float* __restrict__ a1,
+                        const float* __restrict__ b1, int8_t* __restrict__ h1q, long long M,
+                        int C, float s_x, float s_h1, unsigned long long* __restrict__ clocks) {
+  typedef Conv1Plan<P> Pl;
+  constexpr int S = Pl::S, SLOT = Pl::SLOT, NW = Pl::NW, BM = Pl::BM;
+  extern __shared__ unsigned char k7_smem[];
+  unsigned char* smem = align_smem(k7_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Pl::OFF_BAR);
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int ntiles = (int)((M + BM - 1) / BM), nk = C / kChunk;
+  float2* vec = reinterpret_cast<float2*>(smem + Pl::OFF_VEC);  // (a1, b1) by column
+  for (int c = threadIdx.x; c < P; c += kK7Threads) vec[c] = make_float2(a1[c], b1[c]);
+  init_ring<S>(full);
+
+  if (wg == 2) {
+    // ---- producer: one thread streams every slot in the consumers' order ----
+    if (t == 0) {
+      sm90::RingFill<SLOT, S> fill = {smem, full, 0, 0u};
+#pragma unroll 1
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x)
+#pragma unroll 1
+        for (int kc = 0; kc < nk; ++kc) {
+          unsigned char* dst = fill.next(BM * 2 * kChunk + P * kChunk);
+          sm90::tma_load_2d(dst, &mx, fill.bar(), kc * kChunk, tile * BM);
+#pragma unroll
+          for (int cg = 0; cg < Pl::CG; ++cg)
+            sm90::tma_load_2d(dst + Pl::B_OFF + cg * NW * kChunk, &mw1, fill.bar(), kc * kChunk,
+                              cg * NW);
+          fill.advance();
+        }
+    }
+    return;
+  }
+
+  // ---- consumers: rows 64 rg.., columns NW cg.. of each tile ----
+  const int rg = wg / Pl::CG, cg = wg % Pl::CG;
+  // this thread quantizes 4 channels (seg) of rows qr + 8 i of the chunk, in
+  // the warpgroup's half of the rows; with CG = 2 both warpgroups read all BM
+  const int seg = t % 16, qr = wg * (BM / 2) + t / 16;
+  const int bar_id = Pl::CG == 1 ? 1 + wg : 3, bar_n = 128 * Pl::CG;
+  sm90::Ring<SLOT, S> q = {smem, full, 0, -1, 0u};
+  const float inv_x = __fdiv_rn(1.0f, s_x), inv = __fdiv_rn(1.0f, s_h1);
+  sm90::PhaseClocks<CLK, kC1Phases> clk;
+  clk.start();
+#pragma unroll 1
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    int acc[NW / 2];
+    zero_acc(acc);
+#pragma unroll 1
+    for (int kc = 0; kc < nk; ++kc) {
+      unsigned char* s = sm90::ring_take(q);
+      clk.template lap<kC1Wait>();
+#pragma unroll
+      for (int i = 0; i < BM / 16; ++i) {  // 4 values at a time, beside the last chunk's product
+        const uint2 w = *reinterpret_cast<const uint2*>(s + sm90::sw128(qr + 8 * i, seg * 4));
+        *reinterpret_cast<uint32_t*>(s + Pl::A_OFF + sm90::sw64(qr + 8 * i, seg * 4)) =
+            quant4_bf16(w, s_x, inv_x);
+        asm volatile("" ::: "memory");
+      }
+      sm90::fence_async_smem();
+      sm90::named_sync(bar_id, bar_n);  // every row the product reads is quantized
+      clk.template lap<kC1Quant>();
+      mma_chunk<NW>(q, acc, sm90::desc_sw64(s + Pl::A_OFF + rg * 64 * kChunk),
+                    sm90::desc_sw64(s + Pl::B_OFF + cg * NW * kChunk));
+      clk.template lap<kC1Mma>();
+    }
+    sm90::ring_drain(q);
+    sm90::reg_fence(acc);
+    clk.template lap<kC1Mma>();
+    const long long m0 = (long long)tile * BM + rg * 64;
+    const bool in0 = m0 + acc_row(t, 0) < M, in1 = m0 + acc_row(t, 2) < M;
+#pragma unroll
+    for (int g = 0; g < NW / 2; g += 4) {  // a column pair in 2 rows
+      const int col = cg * NW + acc_col(t, g);
+      const float4 ab = *reinterpret_cast<const float4*>(vec + col);
+      const float v[4] = {affine_relu(acc[g], ab.x, ab.y), affine_relu(acc[g + 1], ab.z, ab.w),
+                          affine_relu(acc[g + 2], ab.x, ab.y), affine_relu(acc[g + 3], ab.z, ab.w)};
+      int qv[4];
+      quant_n(v, s_h1, inv, qv);
+      int8_t* dst = h1q + (m0 + acc_row(t, g)) * P + col;
+      if (in0) *reinterpret_cast<uint16_t*>(dst) = pack2(qv[0], qv[1]);
+      if (in1) *reinterpret_cast<uint16_t*>(dst + 8 * P) = pack2(qv[2], qv[3]);
+    }
+    clk.template lap<kC1Epi>();
+  }
+  clk.flush(clocks);
 }
 
-// NT: n-tiles a warp in every product (block columns 16*NT); MT2: m-tiles a
-// warp in conv2 and conv3 (block rows 64*MT2, which divides TH*TW)
-template <int NT, int MT2>
-__global__ void __launch_bounds__(THREADS) bottleneck_kernel(const BottleneckArgs p) {
-  constexpr int NB = 16 * NT;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1, g = lane >> 2, tig = lane & 3;
-  const int C = p.C, P = p.P, d = p.d, TW = p.TW, TP = p.TH * p.TW;
-  const int WP = TW + 2 * d, HP = (p.TH + 2 * d) * WP, LDH = P + 16;
-  const int r2_bytes = max(2 * 128 * LDS, TP * LDH);
-  int8_t* h1q = reinterpret_cast<int8_t*>(smem_raw);  // [HP][LDH]
-  int8_t* h2q = h1q + (size_t)HP * LDH;               // [TP][LDH]; conv1 stages x here first
-  int8_t* As = h2q;                                   // 2 x 128 x LDS
-  int8_t* Bs = h2q + r2_bytes;                        // BSTAGES x NB x LDS
+#else
+// ---------------------------------------------------------------------------
+// K7 conv23: out = bf16(relu?(requant(relu(conv3x3(h1q) * a2 + b2)) . w3 * a3 + b3 + x))
+// ---------------------------------------------------------------------------
+// Persistent: a block walks tiles blockIdx.x, + gridDim.x, ... (image, tile
+// row, tile column; the column fastest, so that neighbouring blocks share
+// h1q's halo rows in L2).  Each tile's slots, in the order the consumers take
+// them: per conv2 pass, 9 taps x KC chunks (h1q box + w2 slice); per conv3
+// pass, KC w3 slices, then NW3 / 64 pieces of the residual.
+// CLK builds add the consumers' clock64() time by phase to clocks.
+template <int P, int NW3, bool CLK>
+__global__ void __launch_bounds__(kK7Threads, 1)
+bottleneck_conv23_kernel(const __grid_constant__ CUtensorMap mh1,
+                         const __grid_constant__ CUtensorMap mw2,
+                         const __grid_constant__ CUtensorMap mw3,
+                         const __grid_constant__ CUtensorMap mx,
+                         const __grid_constant__ CUtensorMap mo, const float* __restrict__ a2,
+                         const float* __restrict__ b2, const float* __restrict__ a3,
+                         const float* __restrict__ b3, int ntiles, int C, int d, int relu,
+                         int tiles_y, int tiles_x, float s_h2,
+                         unsigned long long* __restrict__ clocks) {
+  typedef Conv23Plan<P, NW3> Pl;
+  constexpr int S = Pl::S, SLOT = Pl::SLOT, NW = Pl::NW, BM = Pl::BM, TW = Pl::TW;
+  constexpr int PIECES = NW3 / 64;  // residual pieces of a conv3 pass
+  extern __shared__ unsigned char k7_smem[];
+  unsigned char* smem = align_smem(k7_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Pl::OFF_BAR);
+  unsigned char* h2 = smem + Pl::OFF_H2;  // h2q, KC tiles of [BM rows, 64 bytes]
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  // a pass's (a, b) by column, this warpgroup's
+  float2* vec = reinterpret_cast<float2*>(smem + Pl::OFF_VEC + wg * Pl::VEC);
+  init_ring<S>(full);
 
-  int bid = blockIdx.x;
-  const int tx0 = (bid % p.tiles_x) * TW;
-  bid /= p.tiles_x;
-  const int ty0 = (bid % p.tiles_y) * p.TH;
-  const int img = bid / p.tiles_y;
-  const __nv_bfloat16* ximg = p.x + (size_t)img * p.H * p.W * C;
-  const int b_lane = (wn * NT * 8 + b_lane_row(lane)) * LDS + b_lane_k(lane);
-  const int arow = a_lane_row(lane), akof = a_lane_k(lane);
-  const float inv_x = __fdiv_rn(1.0f, p.s_x), inv_h1 = __fdiv_rn(1.0f, p.s_h1),
-              inv_h2 = __fdiv_rn(1.0f, p.s_h2);
-
-  // ---- phase 1: h1q over the halo'd footprint, 128 pixels at a time ----
-  for (int mc = 0; mc < HP; mc += 128) {
-    // the four rows of the x chunk this thread stages (8 channels of each)
-    const int seg = tid & 7;
-    const __nv_bfloat16* xrow[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int hp = mc + (tid >> 3) + i * 32;
-      xrow[i] = nullptr;
-      if (hp < HP) {
-        const int hy = hp / WP, gy = ty0 - d + hy, gx = tx0 - d + (hp - hy * WP);
-        if (gy >= 0 && gy < p.H && gx >= 0 && gx < p.W)
-          xrow[i] = ximg + ((size_t)gy * p.W + gx) * C + seg * 8;
-      }
-    }
-    // the rows this thread's accumulators hold, and whether they lie in the image
-    int hp_of[2][2];
-    bool inside[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int hp = mc + wm * 32 + i * 16 + g + h * 8;
-        const int hy = hp / WP, gy = ty0 - d + hy, gx = tx0 - d + (hp - hy * WP);
-        hp_of[i][h] = hp;
-        inside[i][h] = hp < HP && gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
-      }
-
-    for (int nc = 0; nc < P; nc += NB) {
-      const int nk = C / BK;
-      uint4 regs[4];
-      auto gload = [&](int kc) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          regs[i] = xrow[i] ? __ldg(reinterpret_cast<const uint4*>(xrow[i] + kc * BK))
-                            : make_uint4(0u, 0u, 0u, 0u);
-      };
-      auto qstore = [&](int st) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          uint2 q;
-          q.x = quant4(regs[i].x, regs[i].y, p.s_x, inv_x);
-          q.y = quant4(regs[i].z, regs[i].w, p.s_x, inv_x);
-          *reinterpret_cast<uint2*>(As + (st * 128 + (tid >> 3) + i * 32) * LDS + seg * 8) = q;
-        }
-      };
-      int acc[2][NT][4];
-      zero_acc<2, NT>(acc);
-      gload(0);
-      __syncthreads();  // every warp is done with the stages of the last product
-      qstore(0);
-#pragma unroll
-      for (int s = 0; s < BSTAGES - 1; ++s) {
-        if (s < nk) load_b_chunk<NB>(Bs + s * NB * LDS, p.w1t + (size_t)nc * C + s * BK, C, tid);
-        cp_async_commit();
-      }
-      for (int kc = 0; kc < nk; ++kc) {
-        if (kc + 1 < nk) gload(kc + 1);  // in flight while this chunk is multiplied
-        cp_async_wait<BSTAGES - 2>();
-        __syncthreads();
-        const int nx = kc + BSTAGES - 1;
-        if (nx < nk)
-          load_b_chunk<NB>(Bs + (nx % BSTAGES) * NB * LDS, p.w1t + (size_t)nc * C + nx * BK, C,
-                           tid);
-        cp_async_commit();
-        const int8_t* abase = As + ((kc & 1) * 128 + wm * 32 + arow) * LDS + akof;
-        const int8_t* a[2] = {abase, abase + 16 * LDS};
-        warp_mma_chunk<2, NT>(acc, a, Bs + (kc % BSTAGES) * NB * LDS + b_lane);
-        if (kc + 1 < nk) qstore((kc + 1) & 1);
-      }
-      cp_async_wait<0>();
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if (hp_of[i][h] >= HP) continue;
-          int8_t* dst = h1q + (size_t)hp_of[i][h] * LDH;
-#pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            const int col = nc + wn * NT * 8 + j * 8 + tig * 2;
-            uint16_t v = 0;
-            if (inside[i][h]) {
-              const float2 a = *reinterpret_cast<const float2*>(p.a1 + col);
-              const float2 b = *reinterpret_cast<const float2*>(p.b1 + col);
-              const int q0 = quant(affine_relu(acc[i][j][2 * h], a.x, b.x), p.s_h1, inv_h1);
-              const int q1 = quant(affine_relu(acc[i][j][2 * h + 1], a.y, b.y), p.s_h1, inv_h1);
-              v = (uint16_t)((q0 & 0xff) | ((q1 & 0xff) << 8));
+  if (wg == 2) {
+    // ---- producer: one thread streams every slot in the consumers' order ----
+    if (t == 0) {
+      sm90::RingFill<SLOT, S> fill = {smem, full, 0, 0u};
+#pragma unroll 1
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const int x0 = (tile % tiles_x) * TW, y0 = (tile / tiles_x % tiles_y) * Pl::TH;
+        const int img = tile / tiles_x / tiles_y;
+#pragma unroll 1
+        for (int n = 0; n < Pl::NP2; ++n)
+#pragma unroll 1
+          for (int tap = 0; tap < 9; ++tap)
+#pragma unroll 1
+            for (int kc = 0; kc < Pl::KC; ++kc) {
+              unsigned char* dst = fill.next(Pl::A_BYTES + NW * kChunk);
+              sm90::tma_load_4d(dst, &mh1, fill.bar(), kc * kChunk, x0 + (tap % 3 - 1) * d,
+                                y0 + (tap / 3 - 1) * d, img);
+              sm90::tma_load_2d(dst + Pl::A_BYTES, &mw2, fill.bar(), kc * kChunk,
+                                tap * P + n * NW);
+              fill.advance();
             }
-            *reinterpret_cast<uint16_t*>(dst + col) = v;
+#pragma unroll 1
+        for (int n = 0; n < C / NW3; ++n) {
+#pragma unroll 1
+          for (int kc = 0; kc < Pl::KC; ++kc)
+            fill.load(&mw3, kc * kChunk, n * NW3, NW3 * kChunk);
+#pragma unroll 1
+          for (int j = 0; j < PIECES; ++j) {
+            unsigned char* dst = fill.next(Pl::R_BYTES);
+            sm90::tma_load_4d(dst, &mx, fill.bar(), n * NW3 + j * 64, x0, y0, img);
+            fill.advance();
           }
         }
+      }
     }
+    return;
   }
 
-  // ---- phase 2: h2q = requant(relu(conv3x3(h1q) * a2 + b2)) ----
-  const int kpt = P / BK;  // chunks a tap
-  for (int mc = 0; mc < TP; mc += 64 * MT2) {
-    int a_pix[MT2];  // this lane's ldmatrix row of each m-tile, as an offset into h1q at tap (0, 0)
+  // ---- consumers: warpgroup wg owns tile rows 64 wg .. 64 wg + 63 ----
+  sm90::Ring<SLOT, S> q = {smem, full, 0, -1, 0u};
+  const float inv2 = __fdiv_rn(1.0f, s_h2);
+  sm90::PhaseClocks<CLK, kC23Phases> clk;
+  clk.start();
+#pragma unroll 1
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+#pragma unroll 1
+    for (int n = 0; n < Pl::NP2; ++n) {
+      int acc[NW / 2];
+      zero_acc(acc);
+#pragma unroll 1
+      for (int k = 0; k < 9 * Pl::KC; ++k) {
+        unsigned char* s = sm90::ring_take(q);
+        clk.template lap<kC2Wait>();
+        mma_chunk<NW>(q, acc, sm90::desc_sw64(s + wg * 64 * kChunk),
+                      sm90::desc_sw64(s + Pl::A_BYTES));
+        clk.template lap<kC2Mma>();
+      }
+      sm90::ring_drain(q);
+      sm90::reg_fence(acc);
+      clk.template lap<kC2Mma>();
+      stage_vec<NW>(vec, a2 + n * NW, b2 + n * NW, wg);
 #pragma unroll
-    for (int i = 0; i < MT2; ++i) {
-      const int r = mc + wm * 16 * MT2 + i * 16 + arow;
-      a_pix[i] = ((r / TW) * WP + r % TW) * LDH + akof;
+      for (int g = 0; g < NW / 2; g += 4) {  // a column pair in 2 rows
+        const float4 ab = *reinterpret_cast<const float4*>(vec + acc_col(t, g));
+        const float v[4] = {affine_relu(acc[g], ab.x, ab.y), affine_relu(acc[g + 1], ab.z, ab.w),
+                            affine_relu(acc[g + 2], ab.x, ab.y),
+                            affine_relu(acc[g + 3], ab.z, ab.w)};
+        int qv[4];
+        quant_n(v, s_h2, inv2, qv);
+        const int col = n * NW + acc_col(t, g);
+        unsigned char* dst = h2 + (col / kChunk) * (BM * kChunk);
+        *reinterpret_cast<uint16_t*>(dst + sm90::sw64(wg * 64 + acc_row(t, g), col % kChunk)) =
+            pack2(qv[0], qv[1]);
+        *reinterpret_cast<uint16_t*>(dst + sm90::sw64(wg * 64 + acc_row(t, g + 2),
+                                                      col % kChunk)) = pack2(qv[2], qv[3]);
+      }
+      clk.template lap<kC2Epi>();
     }
-    for (int nc = 0; nc < P; nc += NB) {
-      int acc[MT2][NT][4];
-      zero_acc<MT2, NT>(acc);
-      gemm_smem_a<MT2, NT>(
-          acc, 9 * kpt,
-          [&](int i, int kc) {
-            const int tap = kc / kpt;
-            return h1q + a_pix[i] + ((tap / 3) * d * WP + (tap % 3) * d) * LDH + (kc % kpt) * BK;
-          },
-          [&](int kc) {
-            return p.w2t + ((size_t)(kc / kpt) * P + nc) * P + (kc % kpt) * BK;
-          },
-          P, Bs, tid, b_lane);
-#pragma unroll
-      for (int i = 0; i < MT2; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          int8_t* dst = h2q + (size_t)(mc + wm * 16 * MT2 + i * 16 + g + h * 8) * LDH;
-#pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            const int col = nc + wn * NT * 8 + j * 8 + tig * 2;
-            const float2 a = *reinterpret_cast<const float2*>(p.a2 + col);
-            const float2 b = *reinterpret_cast<const float2*>(p.b2 + col);
-            const int q0 = quant(affine_relu(acc[i][j][2 * h], a.x, b.x), p.s_h2, inv_h2);
-            const int q1 = quant(affine_relu(acc[i][j][2 * h + 1], a.y, b.y), p.s_h2, inv_h2);
-            *reinterpret_cast<uint16_t*>(dst + col) = (uint16_t)((q0 & 0xff) | ((q1 & 0xff) << 8));
-          }
-        }
-    }
-  }
+    // conv3 reads only this warpgroup's rows of h2q
+    sm90::fence_async_smem();
+    sm90::named_sync(1 + wg, 128);
+    clk.template lap<kC2Epi>();
 
-  // ---- phase 3: out = bf16(relu?(conv1x1(h2q) * a3 + b3 + x)) ----
-  for (int mc = 0; mc < TP; mc += 64 * MT2) {
-    for (int nc = 0; nc < C; nc += NB) {
-      int acc[MT2][NT][4];
-      zero_acc<MT2, NT>(acc);
-      gemm_smem_a<MT2, NT>(
-          acc, kpt,
-          [&](int i, int kc) {
-            return h2q + (size_t)(mc + wm * 16 * MT2 + i * 16 + arow) * LDH + akof + kc * BK;
-          },
-          [&](int kc) { return p.w3t + (size_t)nc * P + kc * BK; }, P, Bs, tid, b_lane);
+    const int x0 = (tile % tiles_x) * TW, y0 = (tile / tiles_x % tiles_y) * Pl::TH;
+    const int img = tile / tiles_x / tiles_y;
+#pragma unroll 1
+    for (int n = 0; n < C / NW3; ++n) {
+      int acc[NW3 / 2];
+      zero_acc(acc);
+      // this thread's column of the pass's (a, b), in flight during the product
+      const float2 ab3 = t < NW3 ? make_float2(a3[n * NW3 + t], b3[n * NW3 + t])
+                                 : make_float2(0.0f, 0.0f);
+#pragma unroll 1
+      for (int kc = 0; kc < Pl::KC; ++kc) {
+        unsigned char* s = sm90::ring_take(q);
+        clk.template lap<kC3Wait>();
+        mma_chunk<NW3>(q, acc, sm90::desc_sw64(h2 + kc * (BM * kChunk) + wg * 64 * kChunk),
+                       sm90::desc_sw64(s));
+        clk.template lap<kC3Mma>();
+      }
+      sm90::ring_drain(q);
+      sm90::reg_fence(acc);
+      clk.template lap<kC3Mma>();
+      sm90::named_sync(1 + wg, 128);  // the last epilogue is done with vec
+      if (t < NW3) vec[t] = ab3;
+      sm90::named_sync(1 + wg, 128);
 #pragma unroll
-      for (int i = 0; i < MT2; ++i)
+      for (int j = 0; j < PIECES; ++j) {
+        clk.template lap<kC3Epi>();
+        // 64 channels of the residual, overwritten in place with the output
+        unsigned char* r = sm90::ring_take(q);
+        clk.template lap<kC3Wait>();
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = mc + wm * 16 * MT2 + i * 16 + g + h * 8;
-          const int gy = ty0 + r / TW, gx = tx0 + r % TW;
-          if (gy >= p.H || gx >= p.W) continue;
-          const size_t off = ((size_t)gy * p.W + gx) * C;
-          const __nv_bfloat16* res = ximg + off;
-          __nv_bfloat16* dst = p.out + (size_t)img * p.H * p.W * C + off;
+        for (int g = 32 * j; g < 32 * j + 32; g += 4) {  // a column pair in 2 rows
+          const int cp = acc_col(t, g) - 64 * j;
+          const float4 ab = *reinterpret_cast<const float4*>(vec + 64 * j + cp);
 #pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            const int col = nc + wn * NT * 8 + j * 8 + tig * 2;
-            const float2 a = *reinterpret_cast<const float2*>(p.a3 + col);
-            const float2 b = *reinterpret_cast<const float2*>(p.b3 + col);
-            const float2 x2 =
-                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(res + col));
-            float o0 = __fadd_rn(__fadd_rn(__fmul_rn((float)acc[i][j][2 * h], a.x), b.x), x2.x);
+          for (int h = 0; h < 2; ++h) {
+            __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(
+                r + sm90::sw128(wg * 64 + acc_row(t, g + 2 * h), cp));
+            const float2 x2 = __bfloat1622float2(*o);
+            float o0 = __fadd_rn(__fadd_rn(__fmul_rn((float)acc[g + 2 * h], ab.x), ab.y), x2.x);
             float o1 =
-                __fadd_rn(__fadd_rn(__fmul_rn((float)acc[i][j][2 * h + 1], a.y), b.y), x2.y);
-            if (p.relu) {
+                __fadd_rn(__fadd_rn(__fmul_rn((float)acc[g + 2 * h + 1], ab.z), ab.w), x2.y);
+            if (relu) {
               o0 = fmaxf(o0, 0.0f);
               o1 = fmaxf(o1, 0.0f);
             }
-            *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(o0, o1);
+            *o = __floats2bfloat162_rn(o0, o1);
           }
         }
+        // the warpgroup's 64 pixels (4 image rows) of the piece go out by TMA, which
+        // clips what lies outside the image; the slot goes back once TMA has read it
+        sm90::fence_async_smem();
+        sm90::named_sync(1 + wg, 128);
+        if (t == 0) {
+          sm90::tma_store_4d(&mo, r + wg * 64 * 128, n * NW3 + 64 * j, x0, y0 + 4 * wg, img);
+          sm90::tma_store_wait<true>();
+        }
+        sm90::ring_release(q, q.slot);
+        sm90::ring_next(q);
+      }
+      clk.template lap<kC3Epi>();
     }
   }
+  if (t == 0) sm90::tma_store_wait<false>();
+  clk.flush(clocks);
 }
 
-size_t bottleneck_smem(int th, int tw, int d, int P, int nb) {
-  const size_t hp = (size_t)(th + 2 * d) * (tw + 2 * d), ldh = P + 16;
-  const size_t r2 = (size_t)th * tw * ldh;
-  return hp * ldh + (r2 > 2 * 128 * LDS ? r2 : 2 * 128 * LDS) + (size_t)BSTAGES * nb * LDS;
-}
-
-int columns_a_warp(int C, int P) { return (P % 128 == 0 && C % 128 == 0) ? 8 : 4; }
-
-// the largest tile whose h1q and h2q fit a block's shared memory
-bool pick_tile(int C, int P, int d, int* th, int* tw, size_t* smem) {
-  const int cand[3][2] = {{16, 16}, {8, 16}, {8, 8}};
-  const int nb = 16 * columns_a_warp(C, P);
-  for (const auto& c : cand) {
-    const size_t need = bottleneck_smem(c[0], c[1], d, P, nb);
-    if (need <= (size_t)MAX_SMEM) {
-      *th = c[0];
-      *tw = c[1];
-      *smem = need;
-      return true;
-    }
-  }
-  return false;
-}
+#endif  // SEGLAND_PART == 0 || SEGLAND_PART == 3
 
 template <class K>
 cudaError_t opt_in(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-}  // namespace
+// NW3 of conv3 at width C: 128 where it divides C, else 64
+inline int conv3_width(int C) { return C % 128 == 0 ? 128 : 64; }
 
-// The tile a bottleneck of these widths gets and the shared memory it
-// takes; 0 when none fits.
-extern "C" int segland_bottleneck_int8_tile(int C, int P, int d, int* th, int* tw, int* smem) {
-  size_t need = 0;
-  if (P < 64 || P % 64 || C < 64 || C % 64 || d < 1 || !pick_tile(C, P, d, th, tw, &need))
-    return 0;
-  *smem = (int)need;
-  return 1;
+inline bool k7_takes(int C, int P) {
+  return C >= 64 && C % 64 == 0 && (P == 64 || P == 128 || P == 256 || P == 512);
 }
 
-// Returns a cudaError_t.  w1t [P][C], w2t [9][P][P] (tap, out, in), w3t [C][P].
-extern "C" int segland_bottleneck_int8(const void* x, const void* w1t, const void* w2t,
-                                       const void* w3t, const void* a1, const void* b1,
-                                       const void* a2, const void* b2, const void* a3,
-                                       const void* b3, void* out, int B, int H, int W, int C,
-                                       int P, int d, int relu, float s_x, float s_h1, float s_h2,
-                                       int device, void* stream) {
+template <class K>
+int kernel_attrs(K kernel, int smem_bytes, int* regs, int* local_bytes, int* smem) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  *smem = smem_bytes;
+  return 0;
+}
+
+// a persistent grid: one block an SM, or one a tile when there are fewer
+inline cudaError_t persistent_grid(long long tiles, unsigned* grid) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *grid = (unsigned)(tiles < sms ? tiles : sms);
+  return err;
+}
+
+// P -> CASE(P) for a P that K7 takes
+#define SEGLAND_K7_P(P, CASE) \
+  switch (P) {                \
+    case 64: CASE(64);        \
+    case 128: CASE(128);      \
+    case 256: CASE(256);      \
+    case 512: CASE(512);      \
+    default: break;           \
+  }
+
+}  // namespace
+
+// conv23's arguments, and the launchers of the builds in parts 1 and 2
+namespace segland_k7 {
+struct Conv23Args {
+  const void *h1q, *x, *w2t, *w3t, *a2, *b2, *a3, *b3;
+  void* out;
+  int B, H, W, C, P, d, relu;
+  float s_h2;
+  cudaStream_t stream;
+  unsigned long long* clocks;  // the measurement builds' phase clocks, else null
+};
+// a cudaError_t, or -1 when P is not among the part's builds
+int conv23_part1(const Conv23Args& a);
+int conv23_part2(const Conv23Args& a);
+int conv23_attrs_part1(int C, int P, int* regs, int* local_bytes, int* smem);
+int conv23_attrs_part2(int C, int P, int* regs, int* local_bytes, int* smem);
+}  // namespace segland_k7
+
+#if SEGLAND_PART == 0 || SEGLAND_PART == 3
+namespace {
+template <int P, bool CLK>
+cudaError_t launch_conv1(const void* x, const void* w1t, const void* a1, const void* b1,
+                         void* h1q, long long M, int C, float s_x, float s_h1,
+                         unsigned long long* clocks, void* stream) {
+  typedef Conv1Plan<P> Pl;
+  CUtensorMap mx, mw1;
+  const uint64_t dx[2] = {(uint64_t)C, (uint64_t)M}, dw[2] = {(uint64_t)C, (uint64_t)P};
+  const uint32_t bx[2] = {64, (uint32_t)Pl::BM}, bw[2] = {64, (uint32_t)Pl::NW};
+  cudaError_t err = sm90::tile_map_nd(&mx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, dx, bx);
+  if (err == cudaSuccess)
+    err = sm90::tile_map_nd(&mw1, w1t, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 2, dw, bw);
+  unsigned grid = 0;
+  if (err == cudaSuccess) err = persistent_grid((M + Pl::BM - 1) / Pl::BM, &grid);
+  auto kernel = bottleneck_conv1_kernel<P, CLK>;
+  if (err == cudaSuccess) err = opt_in(kernel, Pl::SMEM);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kK7Threads, Pl::SMEM, (cudaStream_t)stream>>>(
+      mx, mw1, (const float*)a1, (const float*)b1, (int8_t*)h1q, M, C, s_x, s_h1, clocks);
+  return cudaGetLastError();
+}
+}  // namespace
+#endif
+
+#if SEGLAND_PART == 0
+// K7's plan at widths C, P: out[0..10) = conv1 rows a tile, ring slots, slot
+// bytes, shared memory; conv23 tile rows, tile columns, conv2 columns a
+// warpgroup and pass, conv3's, ring slots, shared memory.  Returns 0 (and
+// leaves out alone) when K7 does not take C, P or d.
+extern "C" int segland_bottleneck_int8_plan(int C, int P, int d, int* out) {
+  if (!k7_takes(C, P) || d < 1) return 0;
+#define SEGLAND_PLAN2(p, nw3)                                               \
+  {                                                                        \
+    typedef Conv23Plan<p, nw3> P2;                                         \
+    const int o2[6] = {P2::TH, P2::TW, P2::NW, P2::NW3, P2::S, P2::SMEM};  \
+    for (int i = 0; i < 6; ++i) out[4 + i] = o2[i];                        \
+  }
+#define SEGLAND_PLAN(p)                                        \
+  {                                                           \
+    typedef Conv1Plan<p> P1;                                  \
+    const int o1[4] = {P1::BM, P1::S, P1::SLOT, P1::SMEM};    \
+    for (int i = 0; i < 4; ++i) out[i] = o1[i];               \
+    if (conv3_width(C) == 128) SEGLAND_PLAN2(p, 128)          \
+    else SEGLAND_PLAN2(p, 64)                                 \
+    return 1;                                                 \
+  }
+  SEGLAND_K7_P(P, SEGLAND_PLAN)
+#undef SEGLAND_PLAN
+#undef SEGLAND_PLAN2
+  return 0;
+}
+
+// K7 stage 1.  x [M][C] bf16, w1t [P][C] int8, a1 and b1 [P] fp32, h1q [M][P]
+// int8 (written).  Returns a cudaError_t.
+extern "C" int segland_bottleneck_conv1(const void* x, const void* w1t, const void* a1,
+                                        const void* b1, void* h1q, long long M, int C, int P,
+                                        float s_x, float s_h1, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  int th = 0, tw = 0;
-  size_t smem = 0;
-  if (P < 64 || P % 64 || C < 64 || C % 64 || d < 1 || !pick_tile(C, P, d, &th, &tw, &smem))
-    return (int)cudaErrorInvalidValue;
+  if (!k7_takes(C, P) || M >= (1ll << 31) - 512) return (int)cudaErrorInvalidValue;
+  if (M == 0) return (int)cudaSuccess;
+#define SEGLAND_CONV1(p) \
+  return (int)launch_conv1<p, false>(x, w1t, a1, b1, h1q, M, C, s_x, s_h1, nullptr, stream);
+  SEGLAND_K7_P(P, SEGLAND_CONV1)
+#undef SEGLAND_CONV1
+  return (int)cudaErrorInvalidValue;
+}
+
+// Registers a thread, local (spill) bytes and dynamic shared memory of the
+// conv1 build K7 gives widths C, P.
+extern "C" int segland_bottleneck_conv1_attrs(int C, int P, int* regs, int* local_bytes,
+                                              int* smem) {
+  if (!k7_takes(C, P)) return (int)cudaErrorInvalidValue;
+#define SEGLAND_ATTRS(p)                                                                   \
+  return kernel_attrs(bottleneck_conv1_kernel<p, false>, Conv1Plan<p>::SMEM, regs, local_bytes, \
+                      smem);
+  SEGLAND_K7_P(P, SEGLAND_ATTRS)
+#undef SEGLAND_ATTRS
+  return (int)cudaErrorInvalidValue;
+}
+
+// K7 stage 2.  h1q [B][H][W][P] int8, x and out [B][H][W][C] bf16, w2t
+// [9][P][P] (tap, out, in) and w3t [C][P] int8, a2 b2 [P] and a3 b3 [C] fp32.
+// Returns a cudaError_t.
+extern "C" int segland_bottleneck_conv23(const void* h1q, const void* x, const void* w2t,
+                                         const void* w3t, const void* a2, const void* b2,
+                                         const void* a3, const void* b3, void* out, int B,
+                                         int H, int W, int C, int P, int d, int relu, float s_h2,
+                                         int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!k7_takes(C, P) || d < 1) return (int)cudaErrorInvalidValue;
   if ((long long)B * H * W == 0) return (int)cudaSuccess;
-  BottleneckArgs a;
-  a.x = (const __nv_bfloat16*)x;
-  a.w1t = (const int8_t*)w1t;
-  a.w2t = (const int8_t*)w2t;
-  a.w3t = (const int8_t*)w3t;
-  a.a1 = (const float*)a1;
-  a.b1 = (const float*)b1;
-  a.a2 = (const float*)a2;
-  a.b2 = (const float*)b2;
-  a.a3 = (const float*)a3;
-  a.b3 = (const float*)b3;
-  a.out = (__nv_bfloat16*)out;
-  a.B = B; a.H = H; a.W = W; a.C = C; a.P = P; a.d = d; a.relu = relu;
-  a.TH = th; a.TW = tw;
-  a.tiles_y = (H + th - 1) / th;
-  a.tiles_x = (W + tw - 1) / tw;
-  a.s_x = s_x; a.s_h1 = s_h1; a.s_h2 = s_h2;
-  const long long blocks = (long long)B * a.tiles_y * a.tiles_x;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const bool wide = columns_a_warp(C, P) == 8, two = (th * tw) % 128 == 0;
-  auto launch = [&](auto kernel) {
-    cudaError_t e = opt_in(kernel, smem);
-    if (e != cudaSuccess) return e;
-    kernel<<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(a);
-    return cudaGetLastError();
-  };
-  if (wide && two) return (int)launch(bottleneck_kernel<8, 2>);
-  if (wide) return (int)launch(bottleneck_kernel<8, 1>);
-  if (two) return (int)launch(bottleneck_kernel<4, 2>);
-  return (int)launch(bottleneck_kernel<4, 1>);
+  const segland_k7::Conv23Args a = {h1q, x, w2t, w3t, a2,   b2,   a3,
+                                    b3,  out, B, H,   W,   C,    P,    d,
+                                    relu, s_h2, (cudaStream_t)stream, nullptr};
+  const int r = P <= 128 ? segland_k7::conv23_part1(a) : segland_k7::conv23_part2(a);
+  return r < 0 ? (int)cudaErrorInvalidValue : r;
+}
+
+// Registers a thread, local (spill) bytes and dynamic shared memory of the
+// conv23 build K7 gives widths C, P.
+extern "C" int segland_bottleneck_conv23_attrs(int C, int P, int* regs, int* local_bytes,
+                                               int* smem) {
+  if (!k7_takes(C, P)) return (int)cudaErrorInvalidValue;
+  const int r = P <= 128 ? segland_k7::conv23_attrs_part1(C, P, regs, local_bytes, smem)
+                         : segland_k7::conv23_attrs_part2(C, P, regs, local_bytes, smem);
+  return r < 0 ? (int)cudaErrorInvalidValue : r;
 }
 
 // Returns a cudaError_t.  h2q [M][P] int8, res and out [M][C] bf16, w3t [C][P].
@@ -590,3 +890,124 @@ extern "C" int segland_conv3_residual_int8(const void* h2q, const void* res, con
   };
   return (int)(wide ? launch(conv3_residual_kernel<8>) : launch(conv3_residual_kernel<4>));
 }
+#elif SEGLAND_PART == 3
+// The measurement build of K7's conv1 (segland_bottleneck_conv1's arguments,
+// then clocks before device and stream): its consumers' clock64() time by
+// phase (slot wait, quantize, wgmma, epilogue) added to clocks[0..4) and the
+// count of consumer warpgroups to clocks[4].
+extern "C" int segland_bottleneck_conv1_clocks(const void* x, const void* w1t, const void* a1,
+                                               const void* b1, void* h1q, long long M, int C,
+                                               int P, float s_x, float s_h1, void* clocks,
+                                               int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!k7_takes(C, P) || M >= (1ll << 31) - 512) return (int)cudaErrorInvalidValue;
+  if (M == 0) return (int)cudaSuccess;
+#define SEGLAND_CONV1(p)                                                                   \
+  return (int)launch_conv1<p, true>(x, w1t, a1, b1, h1q, M, C, s_x, s_h1,                  \
+                                    (unsigned long long*)clocks, stream);
+  SEGLAND_K7_P(P, SEGLAND_CONV1)
+#undef SEGLAND_CONV1
+  return (int)cudaErrorInvalidValue;
+}
+#else
+namespace {
+template <int P, int NW3, bool CLK>
+int launch_conv23(const segland_k7::Conv23Args& a) {
+  typedef Conv23Plan<P, NW3> Pl;
+  const int tiles_y = (a.H + Pl::TH - 1) / Pl::TH, tiles_x = (a.W + Pl::TW - 1) / Pl::TW;
+  CUtensorMap mh1, mw2, mw3, mx, mo;
+  const uint64_t dh[4] = {(uint64_t)P, (uint64_t)a.W, (uint64_t)a.H, (uint64_t)a.B};
+  const uint64_t dx[4] = {(uint64_t)a.C, (uint64_t)a.W, (uint64_t)a.H, (uint64_t)a.B};
+  const uint32_t bh[4] = {64, (uint32_t)Pl::TW, (uint32_t)Pl::TH, 1};
+  const uint64_t d2[2] = {(uint64_t)P, 9 * (uint64_t)P}, d3[2] = {(uint64_t)P, (uint64_t)a.C};
+  const uint32_t b2x[2] = {64, (uint32_t)Pl::NW}, b3x[2] = {64, (uint32_t)NW3};
+  cudaError_t err = sm90::tile_map_nd(&mh1, a.h1q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 4, dh, bh);
+  if (err == cudaSuccess)
+    err = sm90::tile_map_nd(&mw2, a.w2t, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 2, d2, b2x);
+  if (err == cudaSuccess)
+    err = sm90::tile_map_nd(&mw3, a.w3t, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 2, d3, b3x);
+  if (err == cudaSuccess)
+    err = sm90::tile_map_nd(&mx, a.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 4, dx, bh);
+  const uint32_t bo[4] = {64, (uint32_t)Pl::TW, (uint32_t)Pl::TH / 2, 1};  // a warpgroup's half
+  if (err == cudaSuccess)
+    err = sm90::tile_map_nd(&mo, a.out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 4, dx, bo);
+  const long long tiles = (long long)a.B * tiles_y * tiles_x;
+  if (tiles >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  unsigned grid = 0;
+  if (err == cudaSuccess) err = persistent_grid(tiles, &grid);
+  auto kernel = bottleneck_conv23_kernel<P, NW3, CLK>;
+  if (err == cudaSuccess) err = opt_in(kernel, Pl::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kK7Threads, Pl::SMEM, a.stream>>>(
+      mh1, mw2, mw3, mx, mo, (const float*)a.a2, (const float*)a.b2, (const float*)a.a3,
+      (const float*)a.b3, (int)tiles, a.C, a.d, a.relu, tiles_y, tiles_x, a.s_h2, a.clocks);
+  return (int)cudaGetLastError();
+}
+}  // namespace
+
+#if SEGLAND_PART == 4
+// The measurement build of K7's conv23 at C a multiple of 128
+// (segland_bottleneck_conv23's arguments, then clocks before device and
+// stream): its consumers' clock64() time by phase (conv2 slot wait, wgmma,
+// epilogue; conv3 slot wait, wgmma, epilogue) added to clocks[0..6) and the
+// count of consumer warpgroups to clocks[6].
+extern "C" int segland_bottleneck_conv23_clocks(const void* h1q, const void* x, const void* w2t,
+                                                const void* w3t, const void* a2, const void* b2,
+                                                const void* a3, const void* b3, void* out, int B,
+                                                int H, int W, int C, int P, int d, int relu,
+                                                float s_h2, void* clocks, int device,
+                                                void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!k7_takes(C, P) || d < 1 || conv3_width(C) != 128) return (int)cudaErrorInvalidValue;
+  if ((long long)B * H * W == 0) return (int)cudaSuccess;
+  const segland_k7::Conv23Args a = {h1q, x, w2t, w3t, a2,   b2,   a3,
+                                    b3,  out, B, H,   W,   C,    P,    d,
+                                    relu, s_h2, (cudaStream_t)stream,
+                                    (unsigned long long*)clocks};
+#define SEGLAND_LAUNCH(p) return launch_conv23<p, 128, true>(a);
+  SEGLAND_K7_P(P, SEGLAND_LAUNCH)
+#undef SEGLAND_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+#else
+#define SEGLAND_CAT2(a, b) a##b
+#define SEGLAND_CAT(a, b) SEGLAND_CAT2(a, b)
+#if SEGLAND_PART == 1
+#define SEGLAND_K7_PART_P(CASE) \
+  case 64: CASE(64);            \
+  case 128: CASE(128);
+#else
+#define SEGLAND_K7_PART_P(CASE) \
+  case 256: CASE(256);          \
+  case 512: CASE(512);
+#endif
+
+int segland_k7::SEGLAND_CAT(conv23_part, SEGLAND_PART)(const Conv23Args& a) {
+#define SEGLAND_LAUNCH(p) \
+  return conv3_width(a.C) == 128 ? launch_conv23<p, 128, false>(a)                            \
+                                 : launch_conv23<p, 64, false>(a);
+  switch (a.P) {
+    SEGLAND_K7_PART_P(SEGLAND_LAUNCH)
+    default: return -1;
+  }
+#undef SEGLAND_LAUNCH
+}
+
+int segland_k7::SEGLAND_CAT(conv23_attrs_part, SEGLAND_PART)(int C, int P, int* regs,
+                                                              int* local_bytes, int* smem) {
+#define SEGLAND_ATTRS(p)                                                                    \
+  return conv3_width(C) == 128                                                              \
+             ? kernel_attrs(bottleneck_conv23_kernel<p, 128, false>, Conv23Plan<p, 128>::SMEM, \
+                            regs, local_bytes, smem)                                        \
+             : kernel_attrs(bottleneck_conv23_kernel<p, 64, false>, Conv23Plan<p, 64>::SMEM,  \
+                            regs, local_bytes, smem);
+  switch (P) {
+    SEGLAND_K7_PART_P(SEGLAND_ATTRS)
+    default: return -1;
+  }
+#undef SEGLAND_ATTRS
+}
+#endif  // SEGLAND_PART == 4
+#endif  // SEGLAND_PART

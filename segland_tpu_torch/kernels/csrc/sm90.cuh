@@ -1,15 +1,21 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels: K1 (ln_mlp.cu),
 // K3 (attn_section.cu), K4 (swin_block.cu) and K5 (attn_section_v1.cu), whose
-// shared bodies are mlp_sm90.cuh and section_sm90.cuh.
+// shared bodies are mlp_sm90.cuh and section_sm90.cuh, and K7's int8 stages
+// (bottleneck_int8.cu).
 //
 //  - mbarrier init, arrive, expect-tx and wait with phase parity;
-//  - the TMA 2-D tile load, and the host-side tensor-map encoding
+//  - the TMA 2-D tile load (and K7's 4-D load and store), and the host-side
+//    tensor-map encoding
 //    (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
 //    library links against the runtime alone);
 //  - wgmma descriptors of the 128-byte-swizzled K-major layout, the fences and
 //    group waits, and the instruction wrappers (m64 x N x k16, bf16 in, fp32
 //    accumulate; A from shared memory or from registers);
-//  - named barriers, setmaxnreg, and the swizzled address of an element.
+//  - named barriers, setmaxnreg, and the swizzled address of an element;
+//  - for int8 operands: the 4-D TMA load, the 64-byte-swizzled layout and its
+//    descriptor, s8 wgmma wrappers with int32 accumulators (m64 x N x k32) and
+//    their fences, and tensor maps of 2 to 4 dimensions (int8, or bf16 rows
+//    that the int8 kernels read back: x, and K7's residual).
 //
 // The operand layout.  Every wgmma operand here is K-major and cut into tiles
 // of 64 K-columns (128 bytes a row).  A tile of R rows is R x 128 bytes at a
@@ -18,6 +24,15 @@
 // of {64, R}, and what a descriptor with layout SWIZZLE_128B and a stride of
 // 1024 bytes between 8-row groups reads.  The k-th 16-column step of a tile
 // is the same descriptor with its start address 32 * k bytes further on.
+//
+// The int8 layout.  An int8 operand is cut into tiles of 64 K-columns (64
+// bytes a row): row r at r * 64, its 16-byte chunk j stored at chunk
+// j ^ ((r / 2) % 4), the tile 512-byte aligned.  That is what TMA writes with
+// CU_TENSOR_MAP_SWIZZLE_64B for a box 64 bytes wide, and what a descriptor
+// with layout SWIZZLE_64B and 512 bytes between 8-row groups reads.  A k32
+// step is 32 bytes, so the second step of a tile is desc_step(d, 1).  One
+// layout serves every width a multiple of 64, P = 64 included, whose rows of
+// h1q are 64 bytes long.
 // Everything lives in an anonymous namespace, so each source gets its own copy.
 
 #pragma once
@@ -103,6 +118,35 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// the box at (c0, c1, c2, c3), innermost first, of a 4-D `map` into dst
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// the 4-D box at (c0, c1, c2, c3) of `map` from src, as one bulk group of this thread
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// this thread's bulk stores have read their shared memory (READ) or are done
+template <bool READ>
+__device__ __forceinline__ void tma_store_wait() {
+  if constexpr (READ)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // generic-proxy writes to shared memory made visible to wgmma and TMA reads
@@ -249,6 +293,17 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
 // the same descriptor k 16-column steps further along K
 __device__ __forceinline__ uint64_t desc_step(uint64_t d, int k) { return d + (uint64_t)(2 * k); }
 
+// byte offset of element (r, c), c < 64, of a 64-byte-swizzled int8 tile
+__device__ __forceinline__ uint32_t sw64(int r, int c) {
+  return (uint32_t)(r * 64 + ((((c >> 4) ^ (r >> 1)) & 3) << 4) + (c & 15));
+}
+// descriptor of a 64-byte-swizzled K-major int8 tile at p: start >> 4, leading
+// offset 1 (unused), 512 bytes between 8-row groups, SWIZZLE_64B
+__device__ __forceinline__ uint64_t desc_sw64(const void* p) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFFull) >> 4) | (1ull << 16) | ((uint64_t)(512 >> 4) << 32) | (2ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -265,6 +320,12 @@ template <int R>
 __device__ __forceinline__ void reg_fence(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void reg_fence(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 template <int R>
@@ -331,6 +392,50 @@ __device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// The s32 accumulator layout of m64nN is the fp32 one above.
+// d[0..32) += A (descriptor) x B (descriptor), m64n64k32, s8 in, s32 accumulate
+__device__ __forceinline__ void wgmma_s8_n64(int* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[0..64) += A (descriptor) x B (descriptor), m64n128k32, s8 in, s32 accumulate
+__device__ __forceinline__ void wgmma_s8_n128(int* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[0..128) += A (descriptor) x B (descriptor), m64n256k32, s8 in, s32 accumulate
+__device__ __forceinline__ void wgmma_s8_n256(int* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]), "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A x B over one k32 step, m64 x N x k32, N in 64, 128, 256
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int* d, uint64_t da, uint64_t db) {
+  if constexpr (N == 64) {
+    wgmma_s8_n64(d, da, db, 1);
+  } else if constexpr (N == 128) {
+    wgmma_s8_n128(d, da, db, 1);
+  } else {
+    static_assert(N == 256, "an s8 wgmma width of 64, 128 or 256");
+    wgmma_s8_n256(d, da, db, 1);
+  }
 }
 
 // ---- a ring of weight tiles, as its producer sees it ---------------------------------
@@ -429,11 +534,8 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// A map over a row-major bf16 matrix [rows, cols] (cols contiguous, a row a
-// multiple of 16 bytes) that loads boxes of {64 columns, box_rows rows} into
-// the swizzled layout above; a box reaching past the matrix is zero-filled.
-inline cudaError_t tile_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
-                            uint32_t box_rows) {
+// cuTensorMapEncodeTiled, looked up once at run time
+inline cudaError_t tiled_encoder(EncodeTiled* out) {
   static EncodeTiled encode = nullptr;
   if (!encode) {
     void* fn = nullptr;
@@ -444,6 +546,18 @@ inline cudaError_t tile_map(CUtensorMap* map, const void* base, uint64_t rows, u
     if (found != cudaDriverEntryPointSuccess || !fn) return cudaErrorNotSupported;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
+  *out = encode;
+  return cudaSuccess;
+}
+
+// A map over a row-major bf16 matrix [rows, cols] (cols contiguous, a row a
+// multiple of 16 bytes) that loads boxes of {64 columns, box_rows rows} into
+// the swizzled layout above; a box reaching past the matrix is zero-filled.
+inline cudaError_t tile_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                            uint32_t box_rows) {
+  EncodeTiled encode;
+  cudaError_t err = tiled_encoder(&encode);
+  if (err != cudaSuccess) return err;
   if ((cols * 2) % 16 || reinterpret_cast<uintptr_t>(base) % 16 || box_rows > 256)
     return cudaErrorInvalidValue;
   const cuuint64_t dims[2] = {cols, rows};
@@ -453,6 +567,40 @@ inline cudaError_t tile_map(CUtensorMap* map, const void* base, uint64_t rows, u
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A map over a dense row-major tensor of 2 to 4 dimensions, dims[0]
+// contiguous (a multiple of 16 bytes), whose boxes are 64 or 128 bytes wide
+// (box[0] * elem_bytes): a 64-byte box lands in the 64-byte-swizzled int8
+// layout above, a 128-byte one in the 128-byte-swizzled layout.  Whatever a
+// box reaches outside the tensor, at negative coordinates too, is zero-filled.
+inline cudaError_t tile_map_nd(CUtensorMap* map, const void* base, CUtensorMapDataType dtype,
+                               int elem_bytes, int rank, const uint64_t* dims,
+                               const uint32_t* box) {
+  EncodeTiled encode;
+  cudaError_t err = tiled_encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const uint32_t width = box[0] * (uint32_t)elem_bytes;
+  if (rank < 2 || rank > 4 || (dims[0] * elem_bytes) % 16 ||
+      reinterpret_cast<uintptr_t>(base) % 16 || (width != 64 && width != 128))
+    return cudaErrorInvalidValue;
+  cuuint64_t gdims[4], strides[3];
+  cuuint32_t gbox[4], elem[4];
+  uint64_t stride = (uint64_t)elem_bytes;
+  for (int i = 0; i < rank; ++i) {
+    if (box[i] < 1 || box[i] > 256) return cudaErrorInvalidValue;
+    gdims[i] = dims[i];
+    gbox[i] = box[i];
+    elem[i] = 1;
+    if (i) strides[i - 1] = stride;
+    stride *= dims[i];
+  }
+  const CUresult r = encode(map, dtype, (cuuint32_t)rank, const_cast<void*>(base), gdims,
+                            strides, gbox, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            width == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -7,6 +7,12 @@ CUDA tensors go to the kernels K7 and K8 (``kernels/csrc/bottleneck_int8.cu``)
 through :func:`bottleneck_int8` and :func:`conv3_residual`, CPU tensors to
 :func:`bottleneck_int8_reference` and :func:`conv3_residual_reference`.
 
+K7 is two kernels behind one call: conv1 writes h1q (int8, [B,H,W,P]) into a
+scratch tensor, conv23 reads it back by TMA, a box a tap, and runs conv2 and
+conv3 on an 8 x 16 pixel tile.  :func:`conv1_reference` and
+:func:`conv23_reference` are the plain versions of the two stages, and
+:func:`bottleneck_plan` the tile arithmetic of both.
+
     xq  = clip(rint(x / s_x))                           x bf16 [B,H,W,C]
     h1q = clip(rint(relu(xq @ w1 * a1 + b1) / s_h1))    w1 int8 [C,P]
     h2q = clip(rint(relu(conv3x3_d(h1q, w2) * a2 + b2) / s_h2))   w2 int8 [3,3,P,P]
@@ -52,6 +58,27 @@ def bottleneck_int8_reference(x, w1, w2, w3, a1, b1, a2, b2, a3, b3, s_x, s_h1, 
     return o.to(x.dtype)
 
 
+def conv1_reference(x, w1, a1, b1, s_x, s_h1):
+    """Plain version of K7's first kernel: h1q int8 [B,H,W,P] =
+    requant(relu(quant(x) @ w1 * a1 + b1)) over the image."""
+    xq = quantize_sym(x.float(), _scale(s_x, x))
+    h1 = torch.relu(int8_conv2d(xq, w1.t()[None, None]).float() * a1 + b1)
+    return quantize_sym(h1, _scale(s_h1, x))
+
+
+def conv23_reference(h1q, x, w2, w3, a2, b2, a3, b3, s_h2, *, dilation: int = 1,
+                     last_relu: bool = True):
+    """Plain version of K7's second kernel: conv2 over a given h1q int8
+    [B,H,W,P], zero-padded, then conv3 and the residual x [B,H,W,C]."""
+    d = (dilation, dilation)
+    acc2 = int8_conv2d(h1q, w2.permute(0, 1, 3, 2), padding=d, dilation=d)
+    h2q = quantize_sym(torch.relu(acc2.float() * a2 + b2), _scale(s_h2, x))
+    o = int8_conv2d(h2q, w3.t()[None, None]).float() * a3 + b3 + x.float()
+    if last_relu:
+        o = torch.relu(o)
+    return o.to(x.dtype)
+
+
 def conv3_residual_reference(h2q, res, w3, a3, b3, *, last_relu: bool = True):
     """Plain PyTorch version of conv3 + BN3 + residual (+ ReLU): h2q int8
     [M,P], res [M,C], w3 int8 [P,C], a3/b3 fp32 [C] -> [M,C] in res.dtype."""
@@ -85,11 +112,76 @@ def _aligned(what: str, *tensors):
         raise ValueError(f"{what} takes 16-byte aligned tensors")
 
 
-def bottleneck_int8(x, w1, w2, w3, a1, b1, a2, b2, a3, b3, s_x, s_h1, s_h2, *,
-                    dilation: int = 1, last_relu: bool = True):
-    """Launch kernel K7 on a CUDA x [B,H,W,C] (contiguous bfloat16).  Any H
-    and W; C and P multiples of 64; anything else raises.  The weights are
-    handed over out-major ([P,C], [9,P,P] as (tap, out, in), [C,P])."""
+# ---- K7's plan (Conv1Plan and Conv23Plan in kernels/csrc/bottleneck_int8.cu) ----------
+SMEM_MAX = 232448  # shared memory a block can have on sm_90
+K7_WIDTHS = (64, 128, 256)  # the s8 wgmma widths K7 is built with (m64 nN k32)
+K7_TILE = (8, 16)  # conv23's output tile, rows x columns: 128 pixels, 64 a warpgroup
+K7_CHUNK = 64  # bytes of K (int8 channels) a ring slot holds
+K7_SLOTS_MAX = 8
+_K7_FIXED = 128 + 1024  # room for the mbarriers, and slack to align the tiles
+K7_VEC = 256 * 8  # conv23: a pass's (a, b) columns, a warpgroup's
+
+
+def bottleneck_plan(c: int, p: int, dilation: int) -> dict:
+    """K7's plan at widths C, P: conv1's block rows, warpgroup columns, ring
+    slots and shared memory, and conv23's tile, conv2 and conv3 columns a
+    warpgroup and pass, ring slots and shared memory (bytes).  Raises
+    ValueError, with the arithmetic, for widths the kernels do not take."""
+    _check_widths("bottleneck_int8", c, p)
+    if int(dilation) < 1:
+        raise ValueError(f"bottleneck_int8 takes a dilation of 1 or more, not {dilation}")
+    nw = min(p, 256)
+    if nw not in K7_WIDTHS or p % nw:
+        raise ValueError(f"bottleneck_int8 at P={p}: a warpgroup holds min(P, 256) = {nw} "
+                         f"columns of conv1 and conv2, and its wgmma is built at widths "
+                         f"{K7_WIDTHS} dividing P")
+    cg = p // nw
+    if cg > 2:
+        raise ValueError(f"bottleneck_int8 at P={p}: conv1 keeps all P columns of its rows "
+                         f"accumulating, {p} / {nw} = {cg} warpgroups of m64n{nw} int32, "
+                         f"and a block has 2 consumer warpgroups")
+    rows1 = 64 * (2 // cg)
+    # a conv1 slot: the x rows as TMA brings them (bf16), their quantized rows, w1's slice;
+    # beside the ring, (a1, b1) by column
+    slot1 = rows1 * 2 * K7_CHUNK + rows1 * K7_CHUNK + p * K7_CHUNK
+    s1 = min(K7_SLOTS_MAX, (SMEM_MAX - _K7_FIXED - 8 * p) // slot1)
+    th, tw = K7_TILE
+    nw3 = 128 if c % 128 == 0 else 64
+    # a conv23 slot: a tap's h1q box and w2's slice, w3's slice, or 64 channels of residual
+    slot2 = max(th * tw * K7_CHUNK + nw * K7_CHUNK, nw3 * K7_CHUNK, th * tw * 2 * K7_CHUNK)
+    h2 = th * tw * p
+    s2 = min(K7_SLOTS_MAX, (SMEM_MAX - _K7_FIXED - h2 - 2 * K7_VEC) // slot2)
+    plan = dict(c=c, p=p, dilation=int(dilation),
+                conv1=dict(rows=rows1, nw=nw, cg=cg, slots=s1, slot=slot1,
+                           smem=s1 * slot1 + 8 * p + _K7_FIXED),
+                conv23=dict(th=th, tw=tw, nw=nw, passes2=p // nw, nw3=nw3, passes3=c // nw3,
+                            slots=s2, slot=slot2, h2=h2,
+                            smem=s2 * slot2 + h2 + 2 * K7_VEC + _K7_FIXED))
+    for stage, parts, least in (("conv1", f"{s1} slots x {slot1:,} + (a1, b1) {8 * p:,}", 2),
+                                ("conv23", f"{s2} slots x {slot2:,} + h2q {h2:,} + "
+                                           f"(a, b) 2 x {K7_VEC:,}", 2)):
+        if plan[stage]["slots"] < least or plan[stage]["smem"] > SMEM_MAX:
+            raise ValueError(f"bottleneck_int8 {stage} at C={c}, P={p}: {parts} + "
+                             f"{_K7_FIXED:,} = {plan[stage]['smem']:,} B of shared memory, "
+                             f"and its ring needs {least} slots within {SMEM_MAX:,}")
+    return plan
+
+
+def library_plan(c: int, p: int, dilation: int) -> dict:
+    """The plan the built library gives (segland_bottleneck_int8_plan), in
+    :func:`bottleneck_plan`'s terms, or None when it does not take the widths."""
+    out = (ctypes.c_int * 10)()
+    if not kernels.library().segland_bottleneck_int8_plan(c, p, int(dilation), out):
+        return None
+    rows, s1, slot1, smem1, th, tw, nw, nw3, s2, smem2 = list(out)
+    return dict(conv1=dict(rows=rows, slots=s1, slot=slot1, smem=smem1),
+                conv23=dict(th=th, tw=tw, nw=nw, nw3=nw3, slots=s2, smem=smem2))
+
+
+def bottleneck_operands(x, w1, w2, w3, a1, b1, a2, b2, a3, b3, *, dilation: int = 1):
+    """Checks K7's inputs and hands the weights over K-major: returns
+    (w1t [P,C], w2t [9,P,P] as (tap, out, in), w3t [C,P], the six fp32
+    vectors).  Anything the kernels do not take raises."""
     if not x.is_cuda:
         raise ValueError("bottleneck_int8 launches a CUDA kernel; got a tensor on "
                          + str(x.device))
@@ -97,40 +189,83 @@ def bottleneck_int8(x, w1, w2, w3, a1, b1, a2, b2, a3, b3, s_x, s_h1, s_h2, *,
         raise TypeError(f"bottleneck_int8 takes bfloat16, not {x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError("bottleneck_int8 takes a contiguous [B,H,W,C] tensor")
-    bsz, h, w, c = x.shape
-    p = w1.shape[1]
-    d = int(dilation)
-    _check_widths("bottleneck_int8", c, p)
-    if d < 1:
-        raise ValueError(f"dilation {dilation}")
+    c, p = x.shape[3], w1.shape[1]
+    bottleneck_plan(c, p, dilation)  # raises on widths the kernels do not take
     dev = x.device
-    bottleneck_tile(c, p, d)  # raises when no tile fits a block's shared memory
     w1t = _weight(w1, (c, p), dev).t().contiguous()
     w2t = _weight(w2, (3, 3, p, p), dev).permute(0, 1, 3, 2).reshape(9, p, p).contiguous()
     w3t = _weight(w3, (p, c), dev).t().contiguous()
-    va1, vb1, va2, vb2 = _vec(a1, p, dev), _vec(b1, p, dev), _vec(a2, p, dev), _vec(b2, p, dev)
-    va3, vb3 = _vec(a3, c, dev), _vec(b3, c, dev)
-    out = torch.empty_like(x)
-    _aligned("bottleneck_int8", x, out, w1t, w2t, w3t, va1, vb1, va2, vb2, va3, vb3)
+    vecs = (_vec(a1, p, dev), _vec(b1, p, dev), _vec(a2, p, dev), _vec(b2, p, dev),
+            _vec(a3, c, dev), _vec(b3, c, dev))
+    _aligned("bottleneck_int8", x, w1t, w2t, w3t, *vecs)
+    return w1t, w2t, w3t, vecs
+
+
+def _clocks(clocks, n: int, like):
+    """The measurement builds' clocks: a CUDA int64 tensor of n on like's device."""
+    if clocks.dtype != torch.int64 or clocks.numel() < n or clocks.device != like.device:
+        raise ValueError(f"clocks: an int64 tensor of {n} on {like.device}")
+    return (kernels.ptr(clocks),)
+
+
+def launch_conv1(x, w1t, a1, b1, s_x, s_h1, h1q, clocks=None):
+    """K7's first kernel into h1q [B,H,W,P] (int8, contiguous, CUDA).  Counts
+    nothing: :func:`bottleneck_int8` counts the block.  With ``clocks`` (an
+    int64 tensor of 5) it launches the measurement build instead, which adds
+    its consumers' clock64() time by phase (slot wait, quantize, wgmma,
+    epilogue) and their count to ``clocks``."""
+    bsz, h, w, c = x.shape
+    p = w1t.shape[0]
+    _aligned("bottleneck_int8", h1q)
     P = kernels.ptr
-    err = kernels.library().segland_bottleneck_int8(
-        P(x), P(w1t), P(w2t), P(w3t), P(va1), P(vb1), P(va2), P(vb2), P(va3), P(vb3), P(out),
-        bsz, h, w, c, p, d, int(bool(last_relu)), float(s_x), float(s_h1), float(s_h2),
-        dev.index, kernels.stream_of(x))
-    kernels.check(err, "bottleneck_int8")
+    lib = kernels.library()
+    fn, extra = ((lib.segland_bottleneck_conv1, ()) if clocks is None else
+                 (lib.segland_bottleneck_conv1_clocks, _clocks(clocks, 5, x)))
+    err = fn(P(x), P(w1t), P(a1), P(b1), P(h1q), bsz * h * w, c, p, float(s_x), float(s_h1),
+             *extra, x.device.index, kernels.stream_of(x))
+    kernels.check(err, "bottleneck_int8 conv1")
+    return h1q
+
+
+def launch_conv23(h1q, x, w2t, w3t, a2, b2, a3, b3, s_h2, dilation, last_relu, out,
+                  clocks=None):
+    """K7's second kernel: conv2 and conv3 from h1q into out [B,H,W,C] (bf16,
+    contiguous, CUDA).  Counts nothing: :func:`bottleneck_int8` counts the
+    block.  With ``clocks`` (an int64 tensor of 7; C a multiple of 128) it
+    launches the measurement build instead, which adds its consumers'
+    clock64() time by phase (conv2 slot wait, wgmma, epilogue; the same of
+    conv3) and their count to ``clocks``."""
+    bsz, h, w, c = x.shape
+    p = h1q.shape[3]
+    _aligned("bottleneck_int8", out)
+    P = kernels.ptr
+    lib = kernels.library()
+    fn, extra = ((lib.segland_bottleneck_conv23, ()) if clocks is None else
+                 (lib.segland_bottleneck_conv23_clocks, _clocks(clocks, 7, x)))
+    err = fn(P(h1q), P(x), P(w2t), P(w3t), P(a2), P(b2), P(a3), P(b3), P(out), bsz, h, w, c, p,
+             int(dilation), int(bool(last_relu)), float(s_h2), *extra, x.device.index,
+             kernels.stream_of(x))
+    kernels.check(err, "bottleneck_int8 conv23")
+    return out
+
+
+def bottleneck_int8(x, w1, w2, w3, a1, b1, a2, b2, a3, b3, s_x, s_h1, s_h2, *,
+                    dilation: int = 1, last_relu: bool = True):
+    """Launch K7 on a CUDA x [B,H,W,C] (contiguous bfloat16): conv1 into an
+    h1q scratch tensor, then conv23.  Any H and W; C a multiple of 64, P in
+    64, 128, 256, 512 (see :func:`bottleneck_plan`); anything else raises."""
+    w1t, w2t, w3t, (va1, vb1, va2, vb2, va3, vb3) = bottleneck_operands(
+        x, w1, w2, w3, a1, b1, a2, b2, a3, b3, dilation=dilation)
+    bsz, h, w, _ = x.shape
+    h1q = torch.empty(bsz, h, w, w1t.shape[0], dtype=torch.int8, device=x.device)
+    launch_conv1(x, w1t, va1, vb1, s_x, s_h1, h1q)
+    out = launch_conv23(h1q, x, w2t, w3t, va2, vb2, va3, vb3, s_h2, dilation, last_relu,
+                        torch.empty_like(x))
     bottleneck_int8.launches += 1
     return out
 
 
 bottleneck_int8.launches = 0
-
-
-def bottleneck_tile(c: int, p: int, dilation: int):
-    """(tile rows, tile columns, shared-memory bytes) K7 gives these widths."""
-    th, tw, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    if not kernels.library().segland_bottleneck_int8_tile(c, p, int(dilation), th, tw, smem):
-        raise ValueError(f"no tile fits C={c}, P={p}, dilation={dilation}")
-    return th.value, tw.value, smem.value
 
 
 def conv3_residual(h2q, res, w3, a3, b3, *, last_relu: bool = True):

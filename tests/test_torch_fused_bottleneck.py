@@ -11,6 +11,9 @@ atol 1e-3 (block) and 1e-2 (conv3), and the share of bit-equal elements is
 printed and held above 99%.  The CUDA kernels themselves are held to their
 plain versions on the card by chip_smoke.py."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -72,6 +75,120 @@ def test_block_reference_against_the_pallas_kernel_interpreted(shape):
     print(f"block {shape}: {equal:.6f} of elements bit-equal to the interpreted Pallas kernel")
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
     assert equal > 0.99
+
+
+@pytest.mark.parametrize("shape", BLOCK_SHAPES, ids=str)
+def test_k7_stages_chained_equal_the_block_reference_and_the_jax_oracle(shape):
+    """K7 is two kernels: conv1 writes h1q over the image, conv23 reads it
+    zero-padded.  Their plain versions chained give the block's bits."""
+    x, (w1, w2, w3, a1, b1, a2, b2, a3, b3) = _block_inputs(shape)
+    d, lr = shape[5], shape[6]
+    xb = t(x).bfloat16()
+    h1q = FB.conv1_reference(xb, t(w1), t(a1), t(b1), SCALES["s_x"], SCALES["s_h1"])
+    assert h1q.dtype == torch.int8 and h1q.shape == (*x.shape[:3], w1.shape[1])
+    got = FB.conv23_reference(h1q, xb, t(w2), t(w3), t(a2), t(b2), t(a3), t(b3),
+                              SCALES["s_h2"], dilation=d, last_relu=lr)
+    whole = FB.bottleneck_int8_reference(xb, t(w1), t(w2), t(w3), t(a1), t(b1), t(a2), t(b2),
+                                         t(a3), t(b3), dilation=d, last_relu=lr, **SCALES)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, whole)
+    want = np.asarray(J.bottleneck_int8_reference(
+        jnp.asarray(x, jnp.bfloat16), *[jnp.asarray(a) for a in (w1, w2, w3, a1, b1, a2, b2,
+                                                                 a3, b3)],
+        dilation=d, last_relu=lr, **SCALES), np.float32)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+# (C, P, d) of phase k7 in chip_smoke.py: resnet50's four layer shapes, then the ragged ones
+K7_SHAPES = [(256, 64, 1), (512, 128, 1), (1024, 256, 2), (2048, 512, 4), (256, 64, 1),
+             (512, 128, 2), (1024, 256, 4), (2048, 512, 4), (192, 64, 2)]
+
+
+@pytest.mark.parametrize("c,p,d", sorted(set(K7_SHAPES)), ids=str)
+def test_bottleneck_plan_fits_every_shape_of_phase_k7(c, p, d):
+    plan = FB.bottleneck_plan(c, p, d)
+    one, two = plan["conv1"], plan["conv23"]
+    assert 4 <= one["slots"] <= FB.K7_SLOTS_MAX and 2 <= two["slots"] <= FB.K7_SLOTS_MAX
+    assert one["smem"] <= FB.SMEM_MAX and two["smem"] <= FB.SMEM_MAX
+    # conv1 holds all P columns of its rows: two warpgroups of m64n<=256
+    assert one["nw"] * one["cg"] == p and one["nw"] <= 256 and one["rows"] * one["cg"] == 128
+    assert one["slot"] == (3 * one["rows"] + p) * FB.K7_CHUNK  # x as bf16, x quantized, w1
+    assert (two["th"], two["tw"]) == FB.K7_TILE and two["h2"] == 128 * p
+    assert two["nw"] * two["passes2"] == p and two["nw3"] * two["passes3"] == c
+    assert two["slot"] >= max(128 + two["nw"], two["nw3"], 256) * FB.K7_CHUNK
+
+
+@pytest.mark.parametrize("c,p,d,match", [
+    (2048, 1024, 4, r"1024 / 256 = 4 warpgroups"),
+    (192, 192, 2, r"min\(P, 256\) = 192"),
+    (1024, 384, 2, r"min\(P, 256\) = 256"),
+    (96, 64, 1, "multiples of 64"),
+    (256, 64, 0, "dilation of 1 or more")], ids=str)
+def test_bottleneck_plan_raises_with_its_arithmetic(c, p, d, match):
+    with pytest.raises(ValueError, match=match):
+        FB.bottleneck_plan(c, p, d)
+
+
+def test_bottleneck_plan_mirrors_the_kernel_source():
+    """The arithmetic bottleneck_plan shares with Conv1Plan and Conv23Plan."""
+    src = (Path(FB.__file__).resolve().parents[1] / "kernels" / "csrc"
+           / "bottleneck_int8.cu").read_text()
+    for pattern in (r"kChunk = 64;", r"kBarBytes = 128;", r"kAlign = 1024;",
+                    r"TH = 8, TW = 16,", r"NW = cmin\(P, 256\)",
+                    r"A_OFF = BM \* 2 \* kChunk, B_OFF = A_OFF \+ BM \* kChunk;",
+                    r"SLOT = B_OFF \+ P \* kChunk;", r"VEC = P \* 8;",
+                    r"S = cmin\(8, \(232448 - kAlign - kBarBytes - VEC\) / SLOT\);",
+                    r"SLOT = cmax\(cmax\(A_BYTES \+ NW \* kChunk, NW3 \* kChunk\), R_BYTES\);",
+                    r"H2_BYTES = BM \* P, VEC = 256 \* 8;",
+                    r"S = cmin\(8, \(232448 - kAlign - kBarBytes - H2_BYTES - 2 \* VEC\) / SLOT\);",
+                    r"C % 128 == 0 \? 128 : 64"):
+        assert re.search(pattern, src), pattern
+    assert (FB.K7_CHUNK, FB._K7_FIXED, FB.K7_TILE, FB.K7_VEC) == (64, 128 + 1024, (8, 16), 2048)
+
+
+def test_k7_builds_split_over_the_sources_parts():
+    """bottleneck_int8.cu is compiled as 5 nvcc processes: part 0 (K8, conv1,
+    the entries), 1 (conv23 at P = 64, 128), 2 (at P = 256, 512), 3 and 4 (the
+    measurement builds of conv1 and conv23)."""
+    from segland_tpu_torch import kernels
+
+    src = Path(kernels.__file__).resolve().parent / "csrc" / "bottleneck_int8.cu"
+    parts = [flags for s, flags in kernels.compile_units() if s == src]
+    assert parts == [(f"-DSEGLAND_PART={i}",) for i in range(5)]
+    text = src.read_text()
+    assert re.search(r"#if SEGLAND_PART == 1\n#define SEGLAND_K7_PART_P\(CASE\) \\\n"
+                     r"  case 64: CASE\(64\); +\\\n  case 128: CASE\(128\);", text)
+    assert "P <= 128 ? segland_k7::conv23_part1(a) : segland_k7::conv23_part2(a)" in text
+    assert re.search(r"#elif SEGLAND_PART == 3\n.*segland_bottleneck_conv1_clocks", text, re.S)
+    assert re.search(r"#if SEGLAND_PART == 4\n.*segland_bottleneck_conv23_clocks", text, re.S)
+
+
+def _quant_n(v, s):
+    """K7's quant_n in float32 on the CPU: clamp, round by adding 1.5 * 2^23,
+    read the integer from the sum's bits, and divide only at a near-tie."""
+    inv = torch.tensor(1.0, dtype=torch.float32) / s
+    t = torch.clamp(v * inv, -127.0, 127.0)
+    y = t + torch.tensor(12582912.0, dtype=torch.float32)
+    q = y.view(torch.int32) - 0x4B400000
+    near = ((t - (y - 12582912.0)).abs() - 0.5).abs() < 1e-3
+    exact = torch.clamp(torch.round(v / s), -127.0, 127.0).to(torch.int32)
+    return torch.where(near, exact, q), near
+
+
+def test_kernel_requantization_arithmetic_is_round_clip():
+    """The kernels' requantization (quant_n) gives quantize_sym's integers:
+    random values, exact ties, values a few ulps from a tie, and values far
+    past the clip, at the scales the tests and the model use."""
+    rng = np.random.RandomState(6)
+    for s_ in (0.05, 0.01, 4.0 / 127.0, 0.3, 1e-4):
+        s = torch.tensor(s_, dtype=torch.float32)
+        k = torch.tensor(rng.randint(-140, 140, 4000), dtype=torch.float32)
+        ties = (k + 0.5) * s
+        v = torch.cat([torch.tensor(rng.randn(20000) * 80 * s_, dtype=torch.float32), ties,
+                       torch.nextafter(ties, ties + 1), torch.nextafter(ties, ties - 1),
+                       torch.tensor([0.0, -0.0, 1e30, -1e30, 126.5 * s_, -126.5 * s_])])
+        got, near = _quant_n(v, s)
+        assert torch.equal(got.to(torch.int8), quantize_sym(v, s)), s_
+        assert 0 < int(near.sum()) < v.numel()  # the division path is taken, and rarely
 
 
 def _conv3_inputs(shape, seed=1):
@@ -215,6 +332,8 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="multiples of 64"):
         FB._check_widths("conv3_residual", 64, 0)
     FB._check_widths("bottleneck_int8", 2048, 512)
+    with pytest.raises(ValueError, match="bottleneck_int8 at P=192"):
+        FB.bottleneck_plan(192, 192, 1)
     with pytest.raises(ValueError, match="int8"):
         FB._weight(t(rest[0]).float(), (64, 16), torch.device("cpu"))
     with pytest.raises(ValueError, match="vector of 3"):
