@@ -12,18 +12,30 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      fails) and its functions' HGMMA and UTMALDG counts in the built SASS (a 0
      fails); per shape TFLOP/s, the stock-torch route's time on the same inputs
      (torch_route_ms) and the clock build's phase split;
-  4. K2 upsample_argmax vs its plain version at (8,256,256,8) -> (8,1024,1024);
+  4. K2 upsample_argmax vs its plain version at (8,256,256,8) -> (8,1024,1024),
+     the same with K = 12 and 255, the CPU tests' ragged shapes and two
+     downsampling shapes (no pixel may differ where the top-2 gap exceeds
+     1e-3; the count that differs at all is printed); per shape its plan
+     (tile, class passes, patch, shared memory; the library's must agree),
+     its time flushed (a 96 MB write before each launch) and back to back,
+     and its bound;
   5. K3 attn_section vs its plain version, bf16 at the four swin-s stage
      shapes of a batch of 8 1024^2 tiles, each with shift 0 and 3, two window
      counts that leave a block part-empty, and fp32 at one shape; the same
      build, SASS, TFLOP/s, torch_route_ms and phase-split lines as K1;
-  6. K6 window_attention vs its plain version at the stage-2 shape, with a
-     shared bias and with a per-window bias + shift mask, beside the time of
-     F.scaled_dot_product_attention on the same inputs (timed only);
+  6. K6 window_attention vs its plain version at the four swin-s stage
+     shapes, with a shared bias and with a per-window bias + shift mask, each
+     in bf16 and fp32, both bf16 bodies (ring and wmma), two ragged window
+     counts, and the fp32 body at one shape; per build its registers, local
+     bytes (a spill fails) and shared memory; per stage the ring plan (the
+     library's must agree), each body's time beside the bound, the share of
+     it, the body the host serves and F.scaled_dot_product_attention's time
+     on the same inputs (timed only); the sum over a forward beside its bound;
   6a. K4 swin_block vs its plain version at the same shapes and shifts as K3,
      and fp32 at one shape, half by half (the section's output, then the MLP
-     over it), beside the two-launch route (K3 then K1) on the same input; the
-     same build, SASS, TFLOP/s and phase-split lines as K3;
+     over it), beside the two-launch route (K3 then K1) on the same input,
+     which it must equal bit for bit; the same build, SASS, TFLOP/s and
+     phase-split lines as K3;
   6b. K5 attn_section_v1 vs its plain version for group in 1, 2, 4, 8 at the
      same shapes and shifts, with broadcast and per-window mask rows, with and
      without regions, a window count that no group divides, fp32 at one
@@ -90,6 +102,7 @@ plain version's time, bound, library call's time) and the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the rest of
 the repo beside it, it fails before printing any result.
 
+    python3 chip_smoke.py --phases k2,k6    # K2 and K6 at every shape of their phases
     python3 chip_smoke.py --phases k1,k3    # K1 and K3 with their build, SASS and phase lines
     python3 chip_smoke.py --phases k4,k5    # K4 and K5 with their build, SASS and phase lines
     python3 chip_smoke.py --phases k8,k7    # K8, and K7 with its build, SASS and per-kernel lines
@@ -146,6 +159,38 @@ def cuda_ms(fn, iters=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+SLEEP_CYCLES = 200_000  # a device sleep a queued launch: ~0.1 ms, more than the host takes
+
+
+def queued_ms(fn, iters=20, flush=None):
+    """ms a call of fn with every launch queued behind a device sleep, so the
+    host's time to launch stays out of the reading (a call of K2 or K6 can be
+    shorter than its Python wrapper).  With ``flush`` (a write of more than the
+    50 MB L2 cache), each call is timed on its own after one, so it reads its
+    inputs from device memory."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(iters if flush else 1)]
+    torch.cuda._sleep(SLEEP_CYCLES * iters)
+    if flush is None:
+        pairs[0][0].record()
+        for _ in range(iters):
+            fn()
+        pairs[0][1].record()
+        torch.cuda.synchronize()
+        return pairs[0][0].elapsed_time(pairs[0][1]) / iters
+    for start, end in pairs:
+        flush()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
 def mlp_inputs(m, c, dtype, dev, seed, with_res=True, with_ls=True):
@@ -341,36 +386,96 @@ def phase_k1(dev):
                 library_ms=None, torch_route_ms=torch_ms)
 
 
+# K2 at the serving shape (eval_base's K = 8, eval_ft's 12, the uint8 limit 255), the
+# CPU tests' shapes (ragged, one with each pixel's own two columns) and downsampling
+K2_SHAPES = (((BATCH, TILE // 4, TILE // 4, 8), (TILE, TILE)),
+             ((BATCH, TILE // 4, TILE // 4, 12), (TILE, TILE)),
+             ((BATCH, TILE // 4, TILE // 4, 255), (TILE, TILE)),
+             ((2, 64, 128, 5), (256, 512)), ((1, 32, 128, 12), (256, 1024)),
+             ((1, 256, 128, 3), (256, 256)), ((2, 7, 9, 4), (30, 17)),
+             ((1, 12, 10, 255), (40, 37)), ((1, 40, 52, 6), (9, 13)),
+             ((2, 1024, 1024, 8), (256, 256)))
+FLUSH_BYTES = 96 << 20  # written between flushed launches: more than the 50 MB L2
+
+
+def k2_plan_line(lib, b, h, w, k, oh, ow):
+    """K2's plan from ops/fused_epilogue.py:upsample_plan beside the library's
+    layout for it; fails where the two differ."""
+    import ctypes
+    from segland_tpu_torch import kernels
+    from segland_tpu_torch.ops.fused_epilogue import PIXELS, upsample_plan
+
+    plan = upsample_plan(h, w, k, oh, ow)
+    got = (ctypes.c_int * 5)()
+    kernels.check(lib.segland_upsample_argmax_plan(k, plan["txt"], plan["ty"], plan["groups"],
+                                                   plan["kc"], plan["prows"], plan["pcols"], b,
+                                                   oh, ow, got),
+                  "upsample_argmax_plan")
+    if tuple(got)[:3] != (plan["ppitch"], plan["cs"], plan["smem"]):
+        fail(f"K2 plan {plan}: the library's ppitch, cs, smem are {tuple(got)[:3]}")
+    rows = plan["ty"] * plan["groups"]
+    tiles = -(-ow // (PIXELS * plan["txt"])) * -(-oh // rows) * b
+    return (f"tile={PIXELS * plan['txt']}x{rows} threads={plan['txt'] * plan['ty']} "
+            f"tiles={tiles} blocks_per_sm={got[3]} grid={got[4]} classes_a_pass={plan['kc']} "
+            f"passes={plan['passes']} patch={plan['prows']}x{plan['pcols']} "
+            f"smem={plan['smem']}")
+
+
 def phase_k2(dev):
+    """K2 at K2_SHAPES against its plain version: no pixel may differ where the
+    plain upsample's top-2 gap exceeds 1e-3.  Per shape the plan, the count of
+    pixels that differ at all, and the time flushed (each launch after a 96 MB
+    write) and back to back (the logits in L2); the plain version's time at the
+    serving shapes.  The bound: logits read and classes written once, against
+    the operations of K2's order, a row lerp (3) per output row, source column
+    and class and a column lerp (3) and a compare per output pixel and class."""
     import torch
+    from segland_tpu_torch import kernels
     from segland_tpu_torch.ops.fused_epilogue import upsample_argmax, upsample_argmax_reference
     from segland_tpu_torch.ops.resize import resize_bilinear
 
+    lib = kernels.library()
+    scratch = torch.empty(FLUSH_BYTES // 4, device=dev)
+    flush = scratch.zero_
     g = torch.Generator(device=dev).manual_seed(11)
-    logits = 3.0 * torch.randn(BATCH, TILE // 4, TILE // 4, 8, device=dev, generator=g)
-    out_hw = (TILE, TILE)
-    got = upsample_argmax(logits, out_hw)
-    up = resize_bilinear(logits, out_hw, align_corners=True)
-    top2 = up.topk(2, dim=-1).values
-    gap = top2[..., 0] - top2[..., 1]
-    want = up.argmax(-1).to(torch.uint8)
-    differ = got != want
-    bad = int((differ & (gap > 1e-3)).sum())
-    # logit regret of the kernel's class under the plain fp32 upsample
-    regret = top2[..., 0] - up.gather(-1, got.long()[..., None])[..., 0]
-    err = float(regret.max())
-    ms = cuda_ms(lambda: upsample_argmax(logits, out_hw))
-    plain_ms = cuda_ms(lambda: upsample_argmax_reference(logits, out_hw))
-    print(f"K2 {tuple(logits.shape)}->{(BATCH,) + out_hw}: differing_pixels="
-          f"{int(differ.sum())} with_gap_gt_1e-3={bad} max_logit_regret={err:.6g} "
-          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
-    if bad:
-        fail(f"K2: {bad} pixels differ where the top-2 gap exceeds 1e-3")
-    # logits read and classes written once; per pixel and class 3 lerps and a compare
-    b_ms, b_by = bound(10 * 8 * BATCH * TILE * TILE, logits.numel() * 4 + BATCH * TILE * TILE,
-                       PEAK_FP32)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+    row = None
+    for shape, out_hw in K2_SHAPES:
+        b, h, w, k = shape
+        oh, ow = out_hw
+        logits = 3.0 * torch.randn(*shape, device=dev, generator=g)
+        plan = k2_plan_line(lib, b, h, w, k, oh, ow)
+        got = upsample_argmax(logits, out_hw)
+        up = resize_bilinear(logits, out_hw, align_corners=True)
+        top2 = up.topk(2, dim=-1).values if k > 1 else torch.cat([up, up - 1], -1)
+        gap = top2[..., 0] - top2[..., 1]
+        want = up.argmax(-1).to(torch.uint8)
+        differ = got != want
+        bad = int((differ & (gap > 1e-3)).sum())
+        # logit regret of the kernel's class under the plain fp32 upsample
+        err = float((top2[..., 0] - up.gather(-1, got.long()[..., None])[..., 0]).max())
+        del up, top2, gap, want
+        run = lambda: upsample_argmax(logits, out_hw)
+        ms, ms_l2 = queued_ms(run, flush=flush), queued_ms(run)
+        serving = (h, w, oh, ow) == (TILE // 4, TILE // 4, TILE, TILE)
+        plain_ms = cuda_ms(lambda: upsample_argmax_reference(logits, out_hw),
+                           iters=3) if serving and k <= 12 else None
+        b_ms, b_by = bound(b * oh * k * (3 * w + 4 * ow), logits.numel() * 4 + b * oh * ow,
+                           PEAK_FP32)
+        print(f"K2 {shape}->{(b,) + out_hw}: {plan} differing_pixels={int(differ.sum())} "
+              f"with_gap_gt_1e-3={bad} max_logit_regret={err:.6g} kernel_ms={ms:.4f} "
+              f"(flushed) back_to_back_ms={ms_l2:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"share_of_bound={b_ms / ms:.3f}"
+              + (f" plain_ms={plain_ms:.4f}" if plain_ms is not None else ""), flush=True)
+        if bad:
+            fail(f"K2 {shape}->{out_hw}: {bad} pixels differ where the top-2 gap exceeds 1e-3")
+        if row is None:  # the serving shape
+            row = dict(max_abs_err=err, ms=ms, ms_back_to_back=ms_l2, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        else:
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        del logits, got, differ
+    del scratch
+    return row
 
 
 def section_inputs(nw, c, nh, dtype, dev, seed):
@@ -535,9 +640,9 @@ def check_k4(dev, b, c, nh, side, pside, shift, dtype, atol, rtol, seed):
     Beside it, at the full tolerance with no outlier: K3's section output ``a``
     against attn_section_reference, and K4's output against the plain MLP half
     over K3's ``a``.  K4 runs K3's section body and K1's MLP body in the same
-    k order, so K3's ``a`` is K4's on-chip one where the two agree bit for bit
-    (the line prints whether K4 equals K3 then K1).  Every kernel gets its
-    weights as the models hand them (linear_layout)."""
+    k order, so K3's ``a`` is K4's on-chip one: K4's output must equal K3 then
+    K1 bit for bit, and any element that differs fails the check.  Every kernel
+    gets its weights as the models hand them (linear_layout)."""
     import torch
     from segland_tpu_torch.ops.fused_attn import (attn_section, attn_section_reference,
                                                   block_reference, swin_block,
@@ -578,7 +683,10 @@ def check_k4(dev, b, c, nh, side, pside, shift, dtype, atol, rtol, seed):
     k3 = compare(f"{tag}: K3 section under the MLP half", a_k, a_ref, atol, rtol)
     mlp_half = compare(tag + " over K3's section", got,
                        ln_mlp_reference(a_k.view(-1, c), *mlp).view_as(got), atol, rtol)
-    same = bool((two().view_as(got) == got).all())
+    differ = int((two().view_as(got) != got).sum())
+    if differ:
+        fail(f"{tag}: K4 is not K3 then K1 bit for bit: {differ} of {got.numel()} elements "
+             f"differ")
     del got, a_k, a_ref, want, d, lim
     ms, two_ms = cuda_ms(run, iters=5, warmup=1), cuda_ms(two, iters=5, warmup=1)
     plain_ms = cuda_ms(plain, iters=3, warmup=1)
@@ -588,7 +696,7 @@ def check_k4(dev, b, c, nh, side, pside, shift, dtype, atol, rtol, seed):
     print(f"{tag}: whole block vs block_reference max_abs_err={whole:.6g} "
           f"tol=|d|<={atol}+{rtol}*|ref| out_of_tol={bad} (at most {allowed}, none past "
           f"twice){far}; K3 section max_abs_err={k3:.6g} and over it the MLP half "
-          f"max_abs_err={mlp_half:.6g} out_of_tol=0; equal_to_k3_then_k1={same} "
+          f"max_abs_err={mlp_half:.6g} out_of_tol=0; equal_to_k3_then_k1=True "
           f"kernel_ms={ms:.4f} tflops={tflops:.1f} k3_then_k1_ms={two_ms:.4f} "
           f"plain_ms={plain_ms:.4f}{split}", flush=True)
     return whole, ms, two_ms, plain_ms
@@ -1101,50 +1209,141 @@ def phase_variants_probe():
     return {"section": ran}
 
 
+K6_BIASES = ("shared bf16", "shared fp32", "per-window+mask bf16", "per-window+mask fp32")
+
+
+def k6_plan_line(lib, nw, c, nh, nw_img, bias_dtype):
+    """K6's ring plan from ops/fused_attn.py:window_attention_plan beside the
+    library's as launched; fails where the two differ."""
+    import ctypes
+
+    import torch
+    from segland_tpu_torch import kernels
+    from segland_tpu_torch.ops.fused_attn import window_attention_plan
+
+    plan = window_attention_plan(nw, c, nh, nw_img, bias_dtype,
+                                 sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    got = (ctypes.c_int * 6)()
+    kernels.check(lib.segland_window_attention_plan(nw, c, nh, nw_img,
+                                                    int(bias_dtype == torch.bfloat16), got),
+                  "window_attention_plan")
+    want = tuple(plan[k] for k in ("stages", "stage_bytes", "smem", "blocks_per_sm", "grid",
+                                   "items"))
+    if tuple(got) != want:
+        fail(f"K6 plan NW={nw} C={c}: window_attention_plan {want}, the library {tuple(got)}")
+    return (f"stages={plan['stages']} stage_bytes={plan['stage_bytes']} smem={plan['smem']} "
+            f"blocks_per_sm={plan['blocks_per_sm']} grid={plan['grid']} items={plan['items']}")
+
+
 def phase_k6(dev):
-    """Stage-2 shape: 800 windows, C=384, 12 heads; per block of the stage."""
+    """K6 at the four swin-s stage shapes of a batch of 8 1024^2 tiles, with a
+    shared bias and a per-window bias + shift mask, each in bf16 and fp32, both
+    bf16 bodies (ring, wmma) against the plain version at |d| <= 0.02 +
+    0.01 * |ref| (none past it), plus two ragged window counts at stage 2; the
+    fp32 body on fp32 windows at stage 3.  Per stage and bias: each body's time
+    (launches queued behind a device sleep), the bound, the share of it, SDPA's
+    time on the same inputs and which body the host serves; then the sum over
+    a forward (2, 2, 18, 2 blocks, half with each bias, in bf16 as the model
+    hands it) beside its bound.  The kernels line takes stage 2's bf16 biases."""
     import torch
     import torch.nn.functional as F
+    from segland_tpu_torch import kernels
     from segland_tpu_torch.models.backbones.swin import _shift_attn_mask
-    from segland_tpu_torch.ops.fused_attn import window_attention, window_attention_reference
+    from segland_tpu_torch.ops.fused_attn import (WINDOW_BODIES, window_attention,
+                                                  window_attention_reference)
 
-    _, c, nh, _, pside = SWIN_STAGES[2]
-    nw_img = (pside // 7) ** 2
-    nw = BATCH * nw_img
+    lib = kernels.library()
+    build_attrs("segland_window_attention_attrs", [(1, 0), (0, 0), (1, 1), (0, 1)], "K6",
+                names=("bias_bf16", "body"))
     g = torch.Generator(device=dev).manual_seed(31)
-    qkv = torch.randn(nw, 49, 3 * c, device=dev, generator=g).to(torch.bfloat16)
-    rel = torch.randn(1, nh, 49, 49, device=dev, generator=g)
-    mask = torch.from_numpy(_shift_attn_mask(pside, pside, 7, 3)).to(dev)
-    biases = {"shared": rel.to(torch.bfloat16),
-              "per-window+mask": (rel + mask[:, None]).to(torch.bfloat16)}
-    out = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
-    q, k, v = (t.reshape(nw, 49, nh, 32).transpose(1, 2) for t in qkv.split(c, dim=-1))
-    for name, bias in biases.items():
-        got = window_attention(qkv, bias, nh).float()
+    fwd = {body: 0.0 for body in ("served", "ring", "wmma")}
+    fwd_bound = 0.0
+    row = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+
+    def check(tag, qkv, bias, nh, body, atol=2e-2, rtol=1e-2):
+        got = window_attention(qkv, bias, nh, body=body).float()
         want = window_attention_reference(qkv, bias, nh).float()
         torch.cuda.synchronize()
         err = (got - want).abs()
-        bad = int((err > 2e-2 + 1e-2 * want.abs()).sum())
-        ms = cuda_ms(lambda: window_attention(qkv, bias, nh))
-        plain_ms = cuda_ms(lambda: window_attention_reference(qkv, bias, nh), iters=5)
-        # the library call: one fused attention with the same bias as its mask
-        am = bias if bias.shape[0] == 1 else bias.repeat(BATCH, 1, 1, 1)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am))
-        lib = F.scaled_dot_product_attention(q, k, v, attn_mask=am).transpose(1, 2)
-        lib_err = float((lib.reshape(nw, 49, c).float() - want).abs().max())
-        print(f"K6 bf16 NW={nw} C={c} heads={nh} bias={name} {tuple(bias.shape)}: "
-              f"max_abs_err={float(err.max()):.6g} tol=|d|<=0.02+0.01*|ref| out_of_tol={bad} "
-              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
-              f"sdpa_max_abs_err={lib_err:.6g}", flush=True)
+        bad = int((err > atol + rtol * want.abs()).sum())
         if bad or not bool(got.isfinite().all()):
-            fail(f"K6 bias={name}: {bad} elements out of tolerance")
-        out["max_abs_err"] = max(out["max_abs_err"], float(err.max()))
-        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms)):
-            out[key] += val / len(biases)
-    # qkv read, out written, the shared bias once; QK^T and PV over real tokens
-    out["bound_ms"], out["bound_by"] = bound(
-        4 * nw * 49 * 49 * c, nw * 49 * 4 * c * 2 + nh * 49 * 49 * 4)
-    return out
+            fail(f"{tag} body={body}: {bad} elements out of tolerance |d|<={atol}+{rtol}*|ref| "
+                 f"(max_abs_err={float(err.max()):.6g})")
+        return float(err.max())
+
+    for si, (blocks, c, nh, _, pside) in enumerate(SWIN_STAGES):
+        nw_img = (pside // 7) ** 2
+        nw = BATCH * nw_img
+        qkv = torch.randn(nw, 49, 3 * c, device=dev, generator=g).to(torch.bfloat16)
+        rel = torch.randn(1, nh, 49, 49, device=dev, generator=g)
+        mask = torch.from_numpy(_shift_attn_mask(pside, pside, 7, 3)).to(dev)
+        biases = {"shared bf16": rel.to(torch.bfloat16), "shared fp32": rel,
+                  "per-window+mask bf16": (rel + mask[:, None]).to(torch.bfloat16),
+                  "per-window+mask fp32": rel + mask[:, None]}
+        served = WINDOW_BODIES[c]
+        q, k, v = (t.reshape(nw, 49, nh, 32).transpose(1, 2) for t in qkv.split(c, dim=-1))
+        for dt in (torch.bfloat16, torch.float32):
+            print(f"K6 stage {si} NW={nw} C={c} plan bias={str(dt)[6:]}: "
+                  f"shared {k6_plan_line(lib, nw, c, nh, 1, dt)}; per-window "
+                  f"{k6_plan_line(lib, nw, c, nh, nw_img, dt)}", flush=True)
+        times = {}
+        for name in K6_BIASES:
+            bias = biases[name]
+            tag = f"K6 stage {si} NW={nw} C={c} heads={nh} bias={name} {tuple(bias.shape)}"
+            err = max(check(tag, qkv, bias, nh, body) for body in ("ring", "wmma"))
+            ms = {body: queued_ms(lambda: window_attention(qkv, bias, nh, body=body))
+                  for body in ("ring", "wmma")}
+            b_ms, b_by = bound(4 * nw * 49 * 49 * c,
+                               nw * 49 * 4 * c * 2 + bias.numel() * bias.element_size())
+            am = bias.to(torch.bfloat16)
+            am = am if am.shape[0] == 1 else am.repeat(BATCH, 1, 1, 1)
+            sdpa_ms = queued_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am))
+            plain_ms = cuda_ms(lambda: window_attention_reference(qkv, bias, nh), iters=3)
+            print(f"{tag}: max_abs_err={err:.6g} tol=|d|<=0.02+0.01*|ref| out_of_tol=0 "
+                  f"ring_ms={ms['ring']:.4f} wmma_ms={ms['wmma']:.4f} served={served} "
+                  f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms[served]:.3f} "
+                  f"sdpa_ms={sdpa_ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
+            times[name] = (ms, b_ms)
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            if si == 2 and name.endswith("bf16"):
+                for key, val in (("ms", ms[served]), ("plain_ms", plain_ms),
+                                 ("library_ms", sdpa_ms), ("bound_ms", b_ms)):
+                    row[key] += val / 2
+                row["bound_by"] = b_by
+                row["ring_ms"], row["wmma_ms"] = ms["ring"], ms["wmma"]
+            del am
+        for name in ("shared bf16", "per-window+mask bf16"):  # the model's two blocks
+            ms, b_ms = times[name]
+            fwd["served"] += blocks / 2 * ms[served]
+            fwd["ring"] += blocks / 2 * ms["ring"]
+            fwd["wmma"] += blocks / 2 * ms["wmma"]
+            fwd_bound += blocks / 2 * b_ms
+        faster = min(("ring", "wmma"), key=lambda body: max(times[n][0][body] for n in K6_BIASES))
+        print(f"K6 stage {si} C={c}: served={served} faster_at_every_bias={faster} "
+              f"(ring/wmma by bias: " + ", ".join(
+                  f"{n} {times[n][0]['ring'] / times[n][0]['wmma']:.3f}" for n in K6_BIASES)
+              + ")", flush=True)
+        if si == 2:  # ragged: no block total divides the items
+            for nwr, nwi in ((803, 1), (3 * nw_img, nw_img)):
+                qr = torch.randn(nwr, 49, 3 * c, device=dev, generator=g).to(torch.bfloat16)
+                br = biases["shared bf16" if nwi == 1 else "per-window+mask bf16"]
+                tag = f"K6 ragged NW={nwr} C={c} nW_img={nwi}"
+                err = max(check(tag, qr, br, nh, body) for body in ("ring", "wmma"))
+                print(f"{tag}: {k6_plan_line(lib, nwr, c, nh, nwi, torch.bfloat16)} "
+                      f"max_abs_err={err:.6g} out_of_tol=0", flush=True)
+        if si == 3:  # the fp32 body on fp32 windows
+            tag = f"K6 fp32 NW={nw} C={c} heads={nh}"
+            err = check(tag, qkv.float(), biases["per-window+mask fp32"], nh, None, 1e-4, 1e-4)
+            print(f"{tag} bias=per-window+mask: max_abs_err={err:.6g} "
+                  f"tol=|d|<=1e-4+1e-4*|ref| out_of_tol=0", flush=True)
+            row["fp32_max_abs_err"] = err
+        del qkv, q, k, v, biases
+        torch.cuda.empty_cache()
+    print(f"K6 a forward (2, 2, 18, 2 blocks, bf16 biases): served {fwd['served']:.4f} ms "
+          f"(ring {fwd['ring']:.4f}, wmma {fwd['wmma']:.4f}) bound {fwd_bound:.4f} ms "
+          f"share_of_bound={fwd_bound / fwd['served']:.3f}", flush=True)
+    row["forward_ms"], row["forward_bound_ms"] = fwd["served"], fwd_bound
+    return row
 
 
 def ulp_distance(got, want):
@@ -1932,7 +2131,7 @@ def main(argv=None):
                                 replaces="segland_tpu/ops/fused_epilogue.py:143"),
         "attn_section": dict(source=csrc + "attn_section.cu",
                              replaces="segland_tpu/ops/pallas_attn.py:524"),
-        "window_attention": dict(source=csrc + "attn_section.cu",
+        "window_attention": dict(source=csrc + "window_attention.cu",
                                  replaces="segland_tpu/ops/pallas_attn.py:65"),
         "swin_block": dict(source=csrc + "swin_block.cu",
                            replaces="segland_tpu/ops/pallas_attn.py:773"),

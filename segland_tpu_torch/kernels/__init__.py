@@ -35,14 +35,15 @@ _ENTRIES = {
     # dtype, x, res, gamma, beta, w1, b1, w2, b2, ls, out, M, C, H, eps, device, stream
     "segland_ln_mlp": [_I] + [_P] * 10 + [ctypes.c_longlong, _I, _I, ctypes.c_float,
                                           _I, _P],
-    # logits, rlo, rhi, rw, clo, chi, cw, out, B, h, w, K, oh, ow, device, stream
-    "segland_upsample_argmax": [_P] * 8 + [_I] * 7 + [_P],
+    # logits, rlo, rhi, rw, clo, chi, cw, out, B, h, w, K, oh, ow, txt, ty, groups, kc,
+    # prows, pcols, device, stream
+    "segland_upsample_argmax": [_P] * 8 + [_I] * 13 + [_P],
     # dtype, x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, out, NW, C, nh,
     # h, w, hp, wp, ws, shift, eps, device, stream
     "segland_attn_section": [_I] + [_P] * 9 + [ctypes.c_longlong] + [_I] * 8
                             + [ctypes.c_float, _I, _P],
-    # dtype, qkv, bias, out, NW, C, nh, nw_img, device, stream
-    "segland_window_attention": [_I] + [_P] * 3 + [ctypes.c_longlong] + [_I] * 4 + [_P],
+    # dtype, qkv, bias_dtype, bias, out, NW, C, nh, nw_img, body, device, stream
+    "segland_window_attention": [_I, _P, _I, _P, _P, ctypes.c_longlong] + [_I] * 5 + [_P],
     # dtype, x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2, beta2, w1, b1, w2, b2,
     # out, NW, C, nh, H, h, w, hp, wp, ws, shift, eps, device, stream
     "segland_swin_block": [_I] + [_P] * 15 + [ctypes.c_longlong] + [_I] * 9
@@ -169,9 +170,17 @@ def library() -> ctypes.CDLL:
     # C, P, d -> K7's plan, 10 ints; returns 0 when K7 does not take them
     lib.segland_bottleneck_int8_plan.argtypes = [_I] * 3 + [ctypes.POINTER(_I)]
     lib.segland_bottleneck_int8_plan.restype = ctypes.c_int
-    # C (and K5's group, K7's P) -> registers at launch, local (spill) bytes, dynamic
-    # shared memory of a build
+    # K, txt, ty, groups, kc, prows, pcols, B, oh, ow -> K2's layout and launch, 5 ints
+    lib.segland_upsample_argmax_plan.argtypes = [_I] * 10 + [ctypes.POINTER(_I)]
+    lib.segland_upsample_argmax_plan.restype = ctypes.c_int
+    # NW, C, nh, nw_img, bias dtype -> K6's ring-body plan as launched, 6 ints
+    lib.segland_window_attention_plan.argtypes = [ctypes.c_longlong] + [_I] * 4 + [
+        ctypes.POINTER(_I)]
+    lib.segland_window_attention_plan.restype = ctypes.c_int
+    # C (and K5's group, K7's P; K6's bias dtype and body) -> registers at launch, local
+    # (spill) bytes, dynamic shared memory of a build
     for name, keys in (("segland_ln_mlp_attrs", 1), ("segland_attn_section_attrs", 1),
+                       ("segland_window_attention_attrs", 2),
                        ("segland_swin_block_attrs", 1), ("segland_attn_section_v1_attrs", 2),
                        ("segland_bottleneck_conv1_attrs", 2),
                        ("segland_bottleneck_conv23_attrs", 2)):

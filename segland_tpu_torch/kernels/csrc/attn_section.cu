@@ -1,11 +1,9 @@
-// The Swin attention section over window-partitioned tokens, and its inner
-// window-attention core.
+// The Swin attention section over window-partitioned tokens.
 //
 // Replaces: segland_tpu/ops/pallas_attn.py:_attn_section_v2_pallas (body
-// `_v2_attn_body`) as `segland_attn_section`, and
-// segland_tpu/ops/pallas_attn.py:window_attention_fused (body `_attn_kernel`)
-// as `segland_window_attention`.  Both use the per-head core of
-// attn_common.cuh (whose WMMA section body is swin_block.cu's first half).
+// `_v2_attn_body`) as `segland_attn_section`.  Its attention core is
+// attn_common.cuh's WMMA core; the window-attention core alone
+// (`segland_window_attention`) is window_attention.cu.
 //
 // attn_section, per window of N = 49 tokens and C channels (heads of 32):
 //   valid, rid = pad-token mask and shift-region id from the window index
@@ -122,31 +120,6 @@ attn_section_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
   clk.flush(clocks);
 }
 
-// ---- window_attention, bf16: one (window, head) a block of 4 warps ---------
-__global__ void __launch_bounds__(128)
-window_attention_bf16_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
-                             bf16* __restrict__ out, int C, int nh, int nw_img) {
-  __shared__ __align__(128) bf16 qs[3][64 * kLQ];
-  __shared__ __align__(128) float strips[4][kStrip];
-  __shared__ float bias_s[kN * kN];
-  const long long w = blockIdx.x / nh;
-  const int h = blockIdx.x % nh;
-  const int warp = threadIdx.x / 32;
-  const float* bsrc = bias + ((size_t)(w % nw_img) * nh + h) * kN * kN;
-  for (int i = threadIdx.x; i < kN * kN; i += 128) bias_s[i] = bsrc[i];
-  for (int i = threadIdx.x; i < 3 * 64 * 4; i += 128) {
-    const int which = i / 256, r = (i % 256) / 4, piece = i % 4;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < kN)
-      val = *reinterpret_cast<const uint4*>(qkv + ((size_t)w * kN + r) * 3 * C + which * C +
-                                            h * kHD + piece * 8);
-    *reinterpret_cast<uint4*>(&qs[which][r * kLQ + piece * 8]) = val;
-  }
-  __syncthreads();
-  attn_tile_bf16(qs[0], qs[1], qs[2], warp, bias_s, nullptr,
-                 rsqrtf((float)kHD), strips[warp], out + (size_t)w * kN * C + h * kHD, (size_t)C);
-}
-
 // ---- fp32: exact FMA loops --------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
 attn_section_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
@@ -159,24 +132,6 @@ attn_section_f32_kernel(const float* __restrict__ x, const float* __restrict__ g
   float* ow = out + (size_t)win * kN * C;
   section_f32(x + (size_t)win * kN * C, gamma, beta, wqkv, bqkv, wproj, bproj, bias, ow, C, win,
               g, eps, smem, [&](int row, int c, float v) { ow[(size_t)row * C + c] = v; });
-}
-
-__global__ void __launch_bounds__(128)
-window_attention_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
-                            float* __restrict__ out, int C, int nh, int nw_img) {
-  __shared__ float qs[3 * kN * kLQF];
-  __shared__ float S[kN * kLSF];
-  const long long w = blockIdx.x / nh;
-  const int h = blockIdx.x % nh;
-  for (int i = threadIdx.x; i < 3 * kN * kHD; i += 128) {
-    const int which = i / (kN * kHD), r = (i / kHD) % kN, d = i % kHD;
-    qs[which * kN * kLQF + r * kLQF + d] =
-        qkv[((size_t)w * kN + r) * 3 * C + which * C + h * kHD + d];
-  }
-  __syncthreads();
-  attn_head_f32(qs, qs + kN * kLQF, qs + 2 * kN * kLQF, S,
-                bias + ((size_t)(w % nw_img) * nh + h) * kN * kN, nullptr, rsqrtf((float)kHD),
-                out + (size_t)w * kN * C + h * kHD, (size_t)C);
 }
 
 template <typename Pl, bool CLK>
@@ -253,29 +208,6 @@ extern "C" int segland_attn_section(int dtype, const void* x, const void* gamma,
   attn_section_f32_kernel<<<(unsigned)NW, kThreads, smem, s>>>(
       (const float*)x, ga, be, (const float*)wqkv, bq, (const float*)wproj, bp, bi, (float*)out,
       C, g, eps);
-  return (int)cudaGetLastError();
-}
-
-// qkv [NW, 49, 3C] and out [NW, 49, C] in dtype; bias [nw_img, nh, 49, 49]
-// fp32, window w using bias[w % nw_img].  Heads of 32.  Returns a cudaError_t.
-extern "C" int segland_window_attention(int dtype, const void* qkv, const void* bias, void* out,
-                                        long long NW, int C, int nh, int nw_img, int device,
-                                        void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (nh * kHD != C || nw_img < 1 || NW * nh > 2147483647LL) return (int)cudaErrorInvalidValue;
-  if (NW <= 0) return (int)cudaSuccess;
-  cudaStream_t s = (cudaStream_t)stream;
-  const unsigned grid = (unsigned)(NW * nh);
-  if (dtype == 1) {
-    window_attention_bf16_kernel<<<grid, 128, 0, s>>>((const bf16*)qkv, (const float*)bias,
-                                                      (bf16*)out, C, nh, nw_img);
-  } else if (dtype == 0) {
-    window_attention_f32_kernel<<<grid, 128, 0, s>>>((const float*)qkv, (const float*)bias,
-                                                     (float*)out, C, nh, nw_img);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
   return (int)cudaGetLastError();
 }
 

@@ -146,7 +146,10 @@ class WindowAttention(nn.Module):
         qkv = linear(self.qkv, x)
         bias = self.rel_pos_bias()
         if self.use_pallas:
-            # bias and mask in bf16, as the JAX package hands them to its kernel
+            # bias and mask in bf16, as the JAX package hands them to its kernel; K6
+            # reads the bias in place, so it is built contiguous (rel_pos_bias is a
+            # permuted view: copying its [nh, N, N] makes the masked sum contiguous too)
+            bias = bias.contiguous()
             if mask is None:
                 bias_arr = bias[None].to(torch.bfloat16)
             else:

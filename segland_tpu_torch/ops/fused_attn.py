@@ -6,7 +6,7 @@ kernels under ``kernels/csrc/``: :func:`attn_section` (``attn_section.cu``,
 masks from ``geom``), :func:`attn_section_v1` (``attn_section_v1.cu``, masks
 shipped in, ``group`` windows a super-window), :func:`swin_block`
 (``swin_block.cu``, the section and the MLP in one launch) and
-:func:`window_attention`.  CPU tensors go to the plain versions
+:func:`window_attention` (``window_attention.cu``).  CPU tensors go to the plain versions
 :func:`attn_section_reference`, :func:`block_reference` and
 :func:`window_attention_reference`.
 
@@ -184,6 +184,48 @@ def v1_plan(c: int, group: int) -> dict:
         return plan
     plan["smem"] = _check_plan("attn_section_v1", c, plan["smem_parts"])
     return plan
+
+
+# ---- K6, window attention (window_attention.cu) -----------------------------------------
+# The bf16 body each width serves: "ring" (a persistent grid walking (window, head) items
+# through a cp.async ring, the core on mma.sync) or "wmma" (a block a (window, head), the
+# core through a shared-memory strip), whichever chip_smoke.py's phase k6 measured no
+# slower at that stage shape of swin-s (PERF.md).
+WINDOW_BODIES = {96: "ring", 192: "ring", 384: "ring", 768: "ring"}
+_WINDOW_BODY_IDS = {"ring": 0, "wmma": 1}
+WINDOW_STAGES = 4  # kRingStages: items a ring-body block holds
+_WINDOW_THREADS = 128
+_SM_SMEM, _BLOCK_RESERVED, _SM_THREADS = 233472, 1024, 2048  # an sm_90 SM
+
+
+def window_attention_plan(nw: int, c: int, nh: int, nw_img: int = 1,
+                          bias_dtype=torch.bfloat16, sms: int = 132) -> dict:
+    """K6's ring body as window_attention.cu launches it: ring stages, bytes a stage
+    (q, k, v as 3 x 64 rows of 64 bytes, then the bias slice with 2 bytes of slack at
+    each end, to 16), dynamic shared memory, blocks a SM (by shared memory: the card's
+    occupancy query may say fewer, which chip_smoke.py checks), grid (a multiple of
+    nh, at most one block an item), items and the most a block walks; and the body
+    that WINDOW_BODIES serves at this width.  Raises ValueError for shapes the
+    kernel refuses."""
+    if nh * _HEAD_DIM != c or nw_img < 1 or nw % nw_img or nw * nh > 2 ** 31 - 1 or nw < 1:
+        raise ValueError(f"window_attention: NW={nw}, C={c}, heads={nh}, nW_img={nw_img}: "
+                         f"heads of 32, nW_img dividing NW, NW*heads < 2^31")
+    esize = torch.finfo(bias_dtype).bits // 8
+    stage = 3 * 64 * 64 + -(-(_N * _N * esize + 4) // 16) * 16
+    smem = WINDOW_STAGES * stage
+    if smem > SMEM_MAX:
+        raise ValueError(f"window_attention ring: {WINDOW_STAGES} x {stage:,} B > {SMEM_MAX:,}")
+    per_sm = min(_SM_SMEM // (smem + _BLOCK_RESERVED), _SM_THREADS // _WINDOW_THREADS)
+    items = nw * nh
+    grid = sms * per_sm
+    if grid >= nh:
+        grid -= grid % nh
+    grid = min(grid, items)
+    return dict(body=WINDOW_BODIES.get(c, "ring"), stages=WINDOW_STAGES, stage_bytes=stage,
+                smem=smem, blocks_per_sm=per_sm, grid=grid, items=items,
+                items_per_block=-(-items // grid), one_head_per_block=grid % nh == 0)
+
+
 _GROUPS = (1, 2, 4, 8)
 _HEAD_DIM = 32
 _WINDOW = 7
@@ -551,23 +593,42 @@ def swin_block_clocks(clocks, x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj
     return out
 
 
-def window_attention(qkv, bias, num_heads: int):
-    """Launch the window-attention kernel on CUDA qkv [NW, 49, 3C] (contiguous
-    bf16 or fp32); bias [nW_img or 1, nh, 49, 49] of any float dtype."""
+def _window_bias(bias, qkv, num_heads, n):
+    """The bias as K6 reads it: bf16 or fp32, contiguous [nW_img or 1, nh, N, N] on
+    qkv's device, 4-byte aligned, nW_img dividing NW.  Raises ValueError otherwise.
+    The fp32 body takes an fp32 bias: for fp32 qkv the bias is cast."""
+    if bias.dtype not in _DTYPES:
+        raise ValueError(f"window_attention takes a bfloat16 or float32 bias, not {bias.dtype}")
+    if bias.device != qkv.device or bias.dim() != 4 or tuple(bias.shape[1:]) != (num_heads, n, n):
+        raise ValueError(f"bias {tuple(bias.shape)} on {bias.device}; want "
+                         f"[*, {num_heads}, {n}, {n}] on {qkv.device}")
+    if not bias.is_contiguous() or bias.data_ptr() % 4:
+        raise ValueError("window_attention takes a contiguous, 4-byte aligned bias")
+    if qkv.shape[0] % bias.shape[0]:
+        raise ValueError(f"{qkv.shape[0]} windows do not divide into images of {bias.shape[0]}")
+    return bias.float() if qkv.dtype == torch.float32 else bias
+
+
+def window_attention(qkv, bias, num_heads: int, body: str = None):
+    """Launch the window-attention kernel K6 on CUDA qkv [NW, 49, 3C] (contiguous
+    bf16 or fp32); bias [nW_img or 1, nh, 49, 49] in bf16 or fp32, read in its own
+    dtype (see _window_bias).  bf16 qkv runs ``body`` ("ring" or "wmma"), by default
+    WINDOW_BODIES' at this width; fp32 qkv the fp32 body."""
     _check_rows("window_attention", qkv)
     nw, n, c3 = qkv.shape
     c = c3 // 3
     if n != _WINDOW * _WINDOW or c3 != 3 * c or c != num_heads * _HEAD_DIM:
         raise ValueError(f"window_attention takes 7x7 windows and heads of 32; got N={n}, "
                          f"3C={c3}, heads={num_heads}")
-    b = _bias_f32(bias, qkv.device, num_heads, n)
-    if nw % b.shape[0]:
-        raise ValueError(f"{nw} windows do not divide into images of {b.shape[0]}")
+    b = _window_bias(bias, qkv, num_heads, n)
+    body = body or WINDOW_BODIES.get(c, "ring")
+    if body not in _WINDOW_BODY_IDS:
+        raise ValueError(f"window_attention has bodies {tuple(_WINDOW_BODY_IDS)}, not {body!r}")
     out = torch.empty((nw, n, c), dtype=qkv.dtype, device=qkv.device)
     P = kernels.ptr
     err = kernels.library().segland_window_attention(
-        _DTYPES[qkv.dtype], P(qkv), P(b), P(out), nw, c, num_heads, b.shape[0],
-        qkv.device.index, kernels.stream_of(qkv))
+        _DTYPES[qkv.dtype], P(qkv), _DTYPES[b.dtype], P(b), P(out), nw, c, num_heads,
+        b.shape[0], _WINDOW_BODY_IDS[body], qkv.device.index, kernels.stream_of(qkv))
     kernels.check(err, "window_attention")
     window_attention.launches += 1
     return out

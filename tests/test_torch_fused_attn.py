@@ -176,6 +176,79 @@ def test_window_attention_matches_jax(dtype, nw_img, b):
         np.testing.assert_allclose(got, np.asarray(want.astype(jnp.float32)), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("nw_img,b", [(1, 4), (4, 2)])
+def test_window_attention_bias_in_bf16_is_its_fp32_cast(nw_img, b):
+    """K6 reads a bf16 bias as it is; its plain version with that bias equals it
+    with the bias cast to fp32 (bf16 -> fp32 is exact) and both match the JAX
+    kernel in interpret mode given the bf16 bias."""
+    rng = np.random.RandomState(6)
+    c, nh = 64, 2
+    qkv = rng.randn(nw_img * b, N, 3 * c).astype(np.float32)
+    bias = (rng.randn(nw_img, nh, N, N) * 0.3).astype(np.float32)
+    if nw_img > 1:
+        bias[1, :, :, 20:] = -100.0
+    qkv_p, bias_p = _cast(qkv, "bfloat16", "port"), _cast(bias, "bfloat16", "port")
+    got = P.window_attention_reference(qkv_p, bias_p, nh)
+    assert torch.equal(got, P.window_attention_reference(qkv_p, bias_p.float(), nh))
+    want = J.window_attention_fused(_cast(qkv, "bfloat16", "jax"), _cast(bias, "bfloat16", "jax"),
+                                    nh, interpret=True)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+
+
+# swin-s at a batch of 8 1024^2 tiles: (NW, C, heads, nW_img with the shift mask)
+SWIN_S_WINDOWS = ((10952, 96, 3, 1369), (2888, 192, 6, 361), (800, 384, 12, 100),
+                  (200, 768, 24, 25))
+
+
+@pytest.mark.parametrize("nw,c,nh,nw_img", SWIN_S_WINDOWS + ((803, 384, 12, 1), (7, 768, 24, 7)),
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_window_attention_plan(nw, c, nh, nw_img, bias_dtype):
+    """K6's ring body: 4 stages of q, k, v and a bias slice within the shared
+    memory a block can have, a grid that is a multiple of the heads (a block
+    keeps one head, so a shared bias is copied once a stage) and walks every
+    item, ragged window counts included; the body WINDOW_BODIES serves."""
+    src = (ROOT / "segland_tpu_torch/kernels/csrc/window_attention.cu").read_text()
+    assert int(re.search(r"constexpr int kRingStages = (\d+);", src).group(1)) == P.WINDOW_STAGES
+    plan = P.window_attention_plan(nw, c, nh, nw_img, bias_dtype)
+    esize = 2 if bias_dtype == torch.bfloat16 else 4
+    assert plan["stage_bytes"] >= 3 * 64 * 64 + N * N * esize + 4
+    assert plan["stage_bytes"] % 16 == 0
+    assert plan["smem"] == plan["stages"] * plan["stage_bytes"] <= 232448
+    assert plan["blocks_per_sm"] == (3 if esize == 2 else 2)
+    assert plan["items"] == nw * nh
+    assert plan["grid"] % nh == 0 and plan["one_head_per_block"]
+    assert plan["grid"] * plan["items_per_block"] >= plan["items"]
+    assert plan["grid"] <= 132 * plan["blocks_per_sm"]
+    assert plan["body"] == P.WINDOW_BODIES[c] and plan["body"] in ("ring", "wmma")
+
+
+def test_window_attention_plan_refuses_what_the_kernel_refuses():
+    for args in ((800, 384, 11, 1), (800, 384, 12, 3), (0, 384, 12, 1), (2 ** 28, 384, 12, 1)):
+        with pytest.raises(ValueError, match="window_attention"):
+            P.window_attention_plan(*args)
+
+
+def test_window_attention_bias_checks():
+    """The bias K6 takes: bf16 or fp32, contiguous [nW_img, nh, 49, 49], 4-byte
+    aligned, nW_img dividing NW.  A bf16 bias with bf16 qkv goes as it is (no cast
+    pass); fp32 qkv (the fp32 body) gets it in fp32."""
+    qkv = torch.zeros(8, N, 3 * 64, dtype=torch.bfloat16)
+    bias = torch.zeros(4, 2, N, N, dtype=torch.bfloat16)
+    assert P._window_bias(bias, qkv, 2, N) is bias
+    assert P._window_bias(bias, qkv.float(), 2, N).dtype == torch.float32
+    bad = {"float16": (bias.half(), "bfloat16 or float32"),
+           "shape": (bias[:, :1], r"want \[\*, 2, 49, 49\]"),
+           "strided": (bias.transpose(2, 3), "contiguous"),
+           "misaligned": (torch.zeros(4 * 2 * N * N + 1, dtype=torch.bfloat16)[1:].view(
+               4, 2, N, N), "4-byte aligned"),
+           "images": (torch.zeros(3, 2, N, N, dtype=torch.bfloat16), "do not divide")}
+    for name, (b, msg) in bad.items():
+        with pytest.raises(ValueError, match=msg):
+            P._window_bias(b, qkv, 2, N)
+
+
 @pytest.mark.parametrize("geom", [
     (26, 19, 28, 21, WS, 0), (26, 19, 28, 21, WS, 3), (28, 28, 28, 28, WS, 3),
     (64, 64, 70, 70, WS, 3), (32, 32, 35, 35, WS, 0), (5, 9, 7, 14, WS, 3)],

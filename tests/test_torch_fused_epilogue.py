@@ -2,7 +2,14 @@
 version against the JAX Pallas kernel in interpret mode and an fp64 numpy
 oracle, and the CUDA kernel's arithmetic (host tables + 4-tap lerp, rows
 then columns, first max wins) replayed in torch against the same oracle.
-Classes may differ only where the oracle's top-2 gap is <= 1e-3."""
+Classes may differ only where the oracle's top-2 gap is <= 1e-3.  K2's plan
+(tile, patch, class passes) is checked to cover every tap of its tiles and to
+fit its shared-memory budget, and a tile-by-tile replay of K2's order (patch,
+row lerps into a strip, column lerps over a 3-column window) equals the 4-tap
+replay bit for bit."""
+
+import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,8 +19,12 @@ import torch
 from torch_helpers import t
 from segland_tpu.ops.fused_epilogue import upsample_argmax as j_upsample_argmax
 from segland_tpu.ops.resize import _interp_matrix
+from segland_tpu_torch.ops import fused_epilogue as FE
 from segland_tpu_torch.ops.fused_epilogue import upsample_argmax, upsample_argmax_reference
 from segland_tpu_torch.ops.resize import linear_table, resize_bilinear
+
+K2_SOURCE = (pathlib.Path(__file__).resolve().parents[1]
+             / "segland_tpu_torch/kernels/csrc/upsample_argmax.cu")
 
 SHAPES = [
     ((2, 64, 128, 5), (256, 512)),
@@ -36,8 +47,9 @@ def _logits(shape):
     return np.random.RandomState(0).randn(*shape).astype(np.float32) * 10.0
 
 
-def _kernel_replay(logits, oh, ow):
-    """The arithmetic of kernels/csrc/upsample_argmax.cu in torch fp32."""
+def _kernel_upsample(logits, oh, ow):
+    """The upsampled logits in the arithmetic of kernels/csrc/upsample_argmax.cu,
+    torch fp32: per output pixel, rows first, then columns."""
     x = t(logits)
     rlo, rhi, rw = map(t, linear_table(x.shape[1], oh, True))
     clo, chi, cw = map(t, linear_table(x.shape[2], ow, True))
@@ -45,7 +57,68 @@ def _kernel_replay(logits, oh, ow):
     wy, wx = rw[None, :, None, None], cw[None, None, :, None]
     left = a(rlo, clo) * (1 - wy) + a(rhi, clo) * wy
     right = a(rlo, chi) * (1 - wy) + a(rhi, chi) * wy
-    return (left * (1 - wx) + right * wx).argmax(-1).to(torch.uint8).numpy()
+    return left * (1 - wx) + right * wx
+
+
+def _kernel_replay(logits, oh, ow):
+    """The arithmetic of kernels/csrc/upsample_argmax.cu in torch fp32."""
+    return _kernel_upsample(logits, oh, ow).argmax(-1).to(torch.uint8).numpy()
+
+
+def _tiled_replay(logits, oh, ow):
+    """K2's order, tile by tile and pass by pass as upsample_plan cuts the work:
+    the tile's source patch; its row lerps into a strip (each output row and
+    patch column once); the column lerps of each thread's 4 pixels, over the 3
+    strip columns from its first pixel's left one with weights (1 - wx, wx, 0)
+    placed by column where its pixels span at most 3, else from each pixel's two
+    columns; the running argmax, replaced only by a strictly greater value.
+    Returns the class map and the winning values."""
+    x = t(logits)
+    nb, h, w, k = x.shape
+    plan = FE.upsample_plan(h, w, k, oh, ow)
+    rlo, rhi, rw = linear_table(h, oh, True)
+    clo, chi, cw = linear_table(w, ow, True)
+    tx, ty, kc = FE.PIXELS * plan["txt"], plan["ty"] * plan["groups"], plan["kc"]
+    classes = torch.zeros((nb, oh, ow), dtype=torch.long)
+    values = torch.zeros((nb, oh, ow))
+    for yt in range(0, oh, ty):
+        ys = np.arange(yt, min(yt + ty, oh))
+        r0, nr = rlo[ys[0]], rhi[ys[-1]] - rlo[ys[0]] + 1
+        assert nr <= plan["prows"]
+        wy = t(rw[ys])[:, None, None]
+        for xt in range(0, ow, tx):
+            xs = np.arange(xt, min(xt + tx, ow))
+            c0, nc = clo[xs[0]], chi[xs[-1]] - clo[xs[0]] + 1
+            assert nc <= plan["pcols"]
+            lo, hi, wx = clo[xs] - c0, chi[xs] - c0, cw[xs]
+            first = lo[(np.arange(len(xs)) // FE.PIXELS) * FE.PIXELS]  # the thread's cb
+            last = hi[np.minimum((np.arange(len(xs)) // FE.PIXELS + 1) * FE.PIXELS,
+                                 len(xs)) - 1]
+            win = t(last - first < 3)[None, :, None]
+            l, r = (1 - wx).astype(np.float32), wx
+            weights = [t(np.where(lo == first + i, l, np.float32(0))
+                         + np.where(hi == first + i, r, np.float32(0)))[None, :, None]
+                       for i in range(3)]
+            cols = [t(np.minimum(first + i, nc - 1)).long() for i in range(3)]
+            best = torch.full((nb, len(ys), len(xs)), -np.inf)
+            arg = torch.zeros((nb, len(ys), len(xs)), dtype=torch.long)
+            for k0 in range(0, k, kc):
+                patch = x[:, r0:r0 + nr, c0:c0 + nc, k0:k0 + kc]
+                strip = (patch[:, t(rlo[ys] - r0).long()] * (1 - wy)
+                         + patch[:, t(rhi[ys] - r0).long()] * wy)
+                v_win = (strip[:, :, cols[0]] * weights[0] + strip[:, :, cols[1]] * weights[1]
+                         + strip[:, :, cols[2]] * weights[2])
+                wxt = t(wx)[None, :, None]
+                v_dir = (strip[:, :, t(lo).long()] * (1 - wxt)
+                         + strip[:, :, t(hi).long()] * wxt)
+                v = torch.where(win, v_win, v_dir)
+                for j in range(v.shape[-1]):
+                    up = v[..., j] > best
+                    best = torch.where(up, v[..., j], best)
+                    arg = torch.where(up, torch.full_like(arg, k0 + j), arg)
+            classes[:, ys[0]:ys[-1] + 1, xs[0]:xs[-1] + 1] = arg
+            values[:, ys[0]:ys[-1] + 1, xs[0]:xs[-1] + 1] = best
+    return classes.to(torch.uint8).numpy(), values
 
 
 @pytest.mark.parametrize("shape,out_hw", SHAPES)
@@ -91,3 +164,61 @@ def test_linear_table_matches_jax_resize():
             resize_bilinear(t(x), (11, 9), align_corners=ac).numpy(),
             np.asarray(j_resize(jnp.asarray(x), (11, 9), align_corners=ac)),
             rtol=0, atol=1e-5)
+
+
+# K2's plan at the serving shape (K = 8, eval_ft's 12, the uint8 limit 255), the
+# test shapes above, and downsampling; the tables depend on (h, w) -> (oh, ow) only
+PLAN_SHAPES = [((256, 256, 8), (1024, 1024)), ((256, 256, 12), (1024, 1024)),
+               ((256, 256, 255), (1024, 1024))] + [
+    (s[1:], o) for s, o in SHAPES + [((2, 7, 9, 4), (30, 17))]] + [
+    ((1024, 1024, 8), (256, 256)), ((1024, 1024, 255), (100, 60)), ((40, 52, 6), (9, 13))]
+
+
+def test_plan_constants_match_the_source():
+    src = K2_SOURCE.read_text()
+    for name, val in (("kThreads", FE.THREADS), ("kPx", FE.PIXELS),
+                      ("kSmemBudget", FE.SMEM_BUDGET)):
+        assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == val
+
+
+@pytest.mark.parametrize("hwk,out_hw", PLAN_SHAPES, ids=lambda v: "x".join(map(str, v)))
+def test_plan_patch_covers_every_tap_and_fits(hwk, out_hw):
+    """Every output pixel's four taps lie in its tile's patch of prows x pcols,
+    every class is in one pass, and patch + strip fit the budget."""
+    h, w, k = hwk
+    oh, ow = out_hw
+    plan = FE.upsample_plan(h, w, k, oh, ow)
+    threads = plan["txt"] * plan["ty"]
+    assert threads % 32 == 0 and threads <= FE.THREADS
+    assert plan["smem"] <= FE.SMEM_BUDGET
+    assert plan["smem"] == FE.plan_layout(plan["txt"], plan["ty"], plan["groups"], plan["kc"],
+                                          plan["prows"], plan["pcols"])["smem"]
+    kc = plan["kc"]
+    assert kc == k or (kc % 4 == 0 or kc < 4) and plan["groups"] == 1
+    assert (plan["passes"] - 1) * kc < k <= plan["passes"] * kc
+    for lo, hi, n, tile, room in (
+            (*linear_table(h, oh, True)[:2], oh, plan["ty"] * plan["groups"], plan["prows"]),
+            (*linear_table(w, ow, True)[:2], ow, FE.PIXELS * plan["txt"], plan["pcols"])):
+        for s0 in range(0, n, tile):
+            first = lo[s0]
+            taps = np.concatenate([lo[s0:s0 + tile], hi[s0:s0 + tile]])
+            assert taps.min() >= first and taps.max() < first + room
+    if (h, w, k, oh, ow) == (256, 256, 8, 1024, 1024):  # the serving shape: one pass, 128 x 32
+        assert (plan["txt"], plan["ty"], plan["groups"], plan["passes"]) == (32, 8, 4, 1)
+
+
+@pytest.mark.parametrize("shape,out_hw", SHAPES + [
+    ((2, 7, 9, 4), (30, 17)), ((1, 12, 10, 255), (40, 37)), ((1, 40, 52, 6), (9, 13))],
+    ids=lambda v: "x".join(map(str, v)))
+def test_tiled_replay_is_the_kernel_arithmetic(shape, out_hw):
+    """K2's tiles, passes, strip and 3-column window give the 4-tap replay's
+    values and classes bit for bit, and the fp64 oracle's classes wherever its
+    top-2 gap exceeds 1e-3.  The shapes take one pass and several (K = 255),
+    the window and, downsampling, each pixel's own two columns."""
+    logits = _logits(shape)
+    classes, values = _tiled_replay(logits, *out_hw)
+    want = _kernel_upsample(logits, *out_hw)
+    assert torch.equal(values, want.max(-1).values)
+    np.testing.assert_array_equal(classes, _kernel_replay(logits, *out_hw))
+    ref, gap = _np_ref(logits, *out_hw)
+    assert ((classes == ref) | (gap <= 1e-3)).all()

@@ -63,6 +63,28 @@ def _run_both(route, hw, monkeypatch, port_kw=None):
     return got, want, port
 
 
+@pytest.mark.parametrize("hw", [(56, 56), (45, 30)], ids=["aligned", "padded"])
+def test_use_pallas_hands_the_kernel_a_bias_it_takes(hw, monkeypatch):
+    """The use_pallas route's bias passes K6's wrapper checks (bf16, contiguous,
+    4-byte aligned, nW_img dividing NW), as a run on the card needs: K6 reads it
+    in place, with no cast or copy pass."""
+    from segland_tpu_torch.models.backbones import swin as p_swin
+    from segland_tpu_torch.ops import fused_attn as P
+
+    seen = []
+
+    def checked(qkv, bias, nh):
+        P._window_bias(bias, qkv.to(torch.bfloat16), nh, qkv.shape[1])
+        seen.append((bias.dtype, bias.shape[0]))
+        return P.window_attention_reference(qkv, bias, nh)
+
+    monkeypatch.setattr(p_swin, "window_attention_fused", checked)
+    with torch.no_grad():
+        SwinTransformer(**CFG, use_pallas=True).eval()(torch.randn(1, 3, *hw))
+    assert seen and {dt for dt, _ in seen} == {torch.bfloat16}
+    assert any(n > 1 for _, n in seen)  # the shifted blocks' per-window bias + mask
+
+
 @pytest.mark.parametrize("route", sorted(ROUTES))
 @pytest.mark.parametrize("hw", [(56, 56), (45, 30)], ids=["aligned", "padded"])
 def test_backbone_matches_jax(route, hw, monkeypatch):
