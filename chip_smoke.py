@@ -25,12 +25,12 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      build, SASS, TFLOP/s, torch_route_ms and phase-split lines as K1;
   6. K6 window_attention vs its plain version at the four swin-s stage
      shapes, with a shared bias and with a per-window bias + shift mask, each
-     in bf16 and fp32, both bf16 bodies (ring and wmma), two ragged window
-     counts, and the fp32 body at one shape; per build its registers, local
-     bytes (a spill fails) and shared memory; per stage the ring plan (the
-     library's must agree), each body's time beside the bound, the share of
-     it, the body the host serves and F.scaled_dot_product_attention's time
-     on the same inputs (timed only); the sum over a forward beside its bound;
+     in bf16 and fp32, two ragged window counts, and the fp32 body at one
+     shape; per build its registers, local bytes (a spill fails) and shared
+     memory; per stage the ring plan (the library's must agree), the time
+     beside the bound, the share of it and F.scaled_dot_product_attention's
+     time on the same inputs (timed only); the sum over a forward beside its
+     bound;
   6a. K4 swin_block vs its plain version at the same shapes and shifts as K3,
      and fp32 at one shape, half by half (the section's output, then the MLP
      over it), beside the two-launch route (K3 then K1) on the same input,
@@ -1237,37 +1237,34 @@ def k6_plan_line(lib, nw, c, nh, nw_img, bias_dtype):
 
 def phase_k6(dev):
     """K6 at the four swin-s stage shapes of a batch of 8 1024^2 tiles, with a
-    shared bias and a per-window bias + shift mask, each in bf16 and fp32, both
-    bf16 bodies (ring, wmma) against the plain version at |d| <= 0.02 +
-    0.01 * |ref| (none past it), plus two ragged window counts at stage 2; the
-    fp32 body on fp32 windows at stage 3.  Per stage and bias: each body's time
-    (launches queued behind a device sleep), the bound, the share of it, SDPA's
-    time on the same inputs and which body the host serves; then the sum over
-    a forward (2, 2, 18, 2 blocks, half with each bias, in bf16 as the model
-    hands it) beside its bound.  The kernels line takes stage 2's bf16 biases."""
+    shared bias and a per-window bias + shift mask, each in bf16 and fp32, the
+    ring body against the plain version at |d| <= 0.02 + 0.01 * |ref| (none
+    past it), plus two ragged window counts at stage 2; the fp32 body on fp32
+    windows at stage 3.  Per stage and bias: the time (launches queued behind
+    a device sleep), the bound, the share of it and SDPA's time on the same
+    inputs; then the sum over a forward (2, 2, 18, 2 blocks, half with each
+    bias, in bf16 as the model hands it) beside its bound.  The kernels line
+    takes stage 2's bf16 biases."""
     import torch
     import torch.nn.functional as F
     from segland_tpu_torch import kernels
     from segland_tpu_torch.models.backbones.swin import _shift_attn_mask
-    from segland_tpu_torch.ops.fused_attn import (WINDOW_BODIES, window_attention,
-                                                  window_attention_reference)
+    from segland_tpu_torch.ops.fused_attn import window_attention, window_attention_reference
 
     lib = kernels.library()
-    build_attrs("segland_window_attention_attrs", [(1, 0), (0, 0), (1, 1), (0, 1)], "K6",
-                names=("bias_bf16", "body"))
+    build_attrs("segland_window_attention_attrs", [1, 0], "K6", names=("bias_bf16",))
     g = torch.Generator(device=dev).manual_seed(31)
-    fwd = {body: 0.0 for body in ("served", "ring", "wmma")}
-    fwd_bound = 0.0
+    fwd_ms = fwd_bound = 0.0
     row = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
 
-    def check(tag, qkv, bias, nh, body, atol=2e-2, rtol=1e-2):
-        got = window_attention(qkv, bias, nh, body=body).float()
+    def check(tag, qkv, bias, nh, atol=2e-2, rtol=1e-2):
+        got = window_attention(qkv, bias, nh).float()
         want = window_attention_reference(qkv, bias, nh).float()
         torch.cuda.synchronize()
         err = (got - want).abs()
         bad = int((err > atol + rtol * want.abs()).sum())
         if bad or not bool(got.isfinite().all()):
-            fail(f"{tag} body={body}: {bad} elements out of tolerance |d|<={atol}+{rtol}*|ref| "
+            fail(f"{tag}: {bad} elements out of tolerance |d|<={atol}+{rtol}*|ref| "
                  f"(max_abs_err={float(err.max()):.6g})")
         return float(err.max())
 
@@ -1280,7 +1277,6 @@ def phase_k6(dev):
         biases = {"shared bf16": rel.to(torch.bfloat16), "shared fp32": rel,
                   "per-window+mask bf16": (rel + mask[:, None]).to(torch.bfloat16),
                   "per-window+mask fp32": rel + mask[:, None]}
-        served = WINDOW_BODIES[c]
         q, k, v = (t.reshape(nw, 49, nh, 32).transpose(1, 2) for t in qkv.split(c, dim=-1))
         for dt in (torch.bfloat16, torch.float32):
             print(f"K6 stage {si} NW={nw} C={c} plan bias={str(dt)[6:]}: "
@@ -1290,9 +1286,8 @@ def phase_k6(dev):
         for name in K6_BIASES:
             bias = biases[name]
             tag = f"K6 stage {si} NW={nw} C={c} heads={nh} bias={name} {tuple(bias.shape)}"
-            err = max(check(tag, qkv, bias, nh, body) for body in ("ring", "wmma"))
-            ms = {body: queued_ms(lambda: window_attention(qkv, bias, nh, body=body))
-                  for body in ("ring", "wmma")}
+            err = check(tag, qkv, bias, nh)
+            ms = queued_ms(lambda: window_attention(qkv, bias, nh))
             b_ms, b_by = bound(4 * nw * 49 * 49 * c,
                                nw * 49 * 4 * c * 2 + bias.numel() * bias.element_size())
             am = bias.to(torch.bfloat16)
@@ -1300,49 +1295,39 @@ def phase_k6(dev):
             sdpa_ms = queued_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am))
             plain_ms = cuda_ms(lambda: window_attention_reference(qkv, bias, nh), iters=3)
             print(f"{tag}: max_abs_err={err:.6g} tol=|d|<=0.02+0.01*|ref| out_of_tol=0 "
-                  f"ring_ms={ms['ring']:.4f} wmma_ms={ms['wmma']:.4f} served={served} "
-                  f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms[served]:.3f} "
+                  f"ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms:.3f} "
                   f"sdpa_ms={sdpa_ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
             times[name] = (ms, b_ms)
             row["max_abs_err"] = max(row["max_abs_err"], err)
             if si == 2 and name.endswith("bf16"):
-                for key, val in (("ms", ms[served]), ("plain_ms", plain_ms),
+                for key, val in (("ms", ms), ("plain_ms", plain_ms),
                                  ("library_ms", sdpa_ms), ("bound_ms", b_ms)):
                     row[key] += val / 2
                 row["bound_by"] = b_by
-                row["ring_ms"], row["wmma_ms"] = ms["ring"], ms["wmma"]
             del am
         for name in ("shared bf16", "per-window+mask bf16"):  # the model's two blocks
             ms, b_ms = times[name]
-            fwd["served"] += blocks / 2 * ms[served]
-            fwd["ring"] += blocks / 2 * ms["ring"]
-            fwd["wmma"] += blocks / 2 * ms["wmma"]
+            fwd_ms += blocks / 2 * ms
             fwd_bound += blocks / 2 * b_ms
-        faster = min(("ring", "wmma"), key=lambda body: max(times[n][0][body] for n in K6_BIASES))
-        print(f"K6 stage {si} C={c}: served={served} faster_at_every_bias={faster} "
-              f"(ring/wmma by bias: " + ", ".join(
-                  f"{n} {times[n][0]['ring'] / times[n][0]['wmma']:.3f}" for n in K6_BIASES)
-              + ")", flush=True)
         if si == 2:  # ragged: no block total divides the items
             for nwr, nwi in ((803, 1), (3 * nw_img, nw_img)):
                 qr = torch.randn(nwr, 49, 3 * c, device=dev, generator=g).to(torch.bfloat16)
                 br = biases["shared bf16" if nwi == 1 else "per-window+mask bf16"]
                 tag = f"K6 ragged NW={nwr} C={c} nW_img={nwi}"
-                err = max(check(tag, qr, br, nh, body) for body in ("ring", "wmma"))
+                err = check(tag, qr, br, nh)
                 print(f"{tag}: {k6_plan_line(lib, nwr, c, nh, nwi, torch.bfloat16)} "
                       f"max_abs_err={err:.6g} out_of_tol=0", flush=True)
         if si == 3:  # the fp32 body on fp32 windows
             tag = f"K6 fp32 NW={nw} C={c} heads={nh}"
-            err = check(tag, qkv.float(), biases["per-window+mask fp32"], nh, None, 1e-4, 1e-4)
+            err = check(tag, qkv.float(), biases["per-window+mask fp32"], nh, 1e-4, 1e-4)
             print(f"{tag} bias=per-window+mask: max_abs_err={err:.6g} "
                   f"tol=|d|<=1e-4+1e-4*|ref| out_of_tol=0", flush=True)
             row["fp32_max_abs_err"] = err
         del qkv, q, k, v, biases
         torch.cuda.empty_cache()
-    print(f"K6 a forward (2, 2, 18, 2 blocks, bf16 biases): served {fwd['served']:.4f} ms "
-          f"(ring {fwd['ring']:.4f}, wmma {fwd['wmma']:.4f}) bound {fwd_bound:.4f} ms "
-          f"share_of_bound={fwd_bound / fwd['served']:.3f}", flush=True)
-    row["forward_ms"], row["forward_bound_ms"] = fwd["served"], fwd_bound
+    print(f"K6 a forward (2, 2, 18, 2 blocks, bf16 biases): {fwd_ms:.4f} ms "
+          f"bound {fwd_bound:.4f} ms share_of_bound={fwd_bound / fwd_ms:.3f}", flush=True)
+    row["forward_ms"], row["forward_bound_ms"] = fwd_ms, fwd_bound
     return row
 
 

@@ -42,8 +42,8 @@ _ENTRIES = {
     # h, w, hp, wp, ws, shift, eps, device, stream
     "segland_attn_section": [_I] + [_P] * 9 + [ctypes.c_longlong] + [_I] * 8
                             + [ctypes.c_float, _I, _P],
-    # dtype, qkv, bias_dtype, bias, out, NW, C, nh, nw_img, body, device, stream
-    "segland_window_attention": [_I, _P, _I, _P, _P, ctypes.c_longlong] + [_I] * 5 + [_P],
+    # dtype, qkv, bias_dtype, bias, out, NW, C, nh, nw_img, device, stream
+    "segland_window_attention": [_I, _P, _I, _P, _P, ctypes.c_longlong] + [_I] * 4 + [_P],
     # dtype, x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2, beta2, w1, b1, w2, b2,
     # out, NW, C, nh, H, h, w, hp, wp, ws, shift, eps, device, stream
     "segland_swin_block": [_I] + [_P] * 15 + [ctypes.c_longlong] + [_I] * 9
@@ -177,10 +177,10 @@ def library() -> ctypes.CDLL:
     lib.segland_window_attention_plan.argtypes = [ctypes.c_longlong] + [_I] * 4 + [
         ctypes.POINTER(_I)]
     lib.segland_window_attention_plan.restype = ctypes.c_int
-    # C (and K5's group, K7's P; K6's bias dtype and body) -> registers at launch, local
+    # C or K6's bias dtype (and K5's group, K7's P) -> registers at launch, local
     # (spill) bytes, dynamic shared memory of a build
     for name, keys in (("segland_ln_mlp_attrs", 1), ("segland_attn_section_attrs", 1),
-                       ("segland_window_attention_attrs", 2),
+                       ("segland_window_attention_attrs", 1),
                        ("segland_swin_block_attrs", 1), ("segland_attn_section_v1_attrs", 2),
                        ("segland_bottleneck_conv1_attrs", 2),
                        ("segland_bottleneck_conv23_attrs", 2)):

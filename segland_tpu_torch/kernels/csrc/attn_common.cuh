@@ -1,5 +1,5 @@
 // Device code shared by the Swin attention kernels: the token geometry, the
-// WMMA attention core of K3, K4 and K6 (attn_tile_bf16), the WMMA section
+// WMMA attention core of K3, K4 and K5 (attn_tile_bf16), the WMMA section
 // products of the variants probe (SecCfg, gemm96), the row LayerNorm of the
 // probes, and the fp32 bodies (exact FMA loops) of K3, K4 and K5.  The wgmma
 // section body of K3, K4 and K5 is section_sm90.cuh.  Everything lives in an
@@ -15,6 +15,8 @@
 #include <mma.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "cp_async.cuh"
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
@@ -74,16 +76,6 @@ __device__ __forceinline__ void token_geom(int win, int tok, const Geom& g, int*
     r = 3 * rh + rc;
   }
   *rid = r;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }

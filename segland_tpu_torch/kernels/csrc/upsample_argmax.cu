@@ -53,6 +53,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;       // the most threads a block
@@ -87,21 +89,6 @@ Plan make_plan(int txt, int ty, int groups, int kc, int prows, int pcols) {
   if (p.cs % 8 == 0) p.cs += 4;  // a quarter-warp's 16-byte column reads in distinct banks
   p.smem = 4 * (2 * prows * p.ppitch + p.ty * groups * pcols * p.cs);
   return p;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ float lerp(float lo, float hi, float w) {
@@ -364,7 +351,7 @@ upsample_argmax_kernel(const float* __restrict__ logits, const int* __restrict__
   for (;;) {
     const Tile u = tile_at(tx, tyi, b, pl, oh, ow, rlo, rhi, clo, chi);
     if (u.nr > pl.prows || u.nc > pl.pcols) __trap();  // the host's plan covers every tile
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncthreads();  // this pass's patch is in; the other buffer is free
     // the next unit: this tile's next pass, or the next tile's first
     const bool last = pass == passes - 1;

@@ -42,10 +42,7 @@
 //    ldmatrix.trans.
 //  - A warp's 16 context rows go through its own (consumed) q rows in the
 //    stage and out as 16-byte stores, 64 bytes a row.
-// The earlier WMMA body (window_attention_wmma_kernel: a block a (window,
-// head), the scores through a shared-memory strip, attn_common.cuh's core)
-// stays beside it; the host picks a body per width (ops/fused_attn.py:
-// WINDOW_BODIES, from chip_smoke.py's comparison of the two).  The fp32 body
+// It serves bf16 qkv at every width.  The fp32 body
 // (window_attention_f32_kernel, exact FMA loops) is checked for correctness
 // and serves no default.
 
@@ -84,10 +81,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // byte offset of 16-byte chunk `ch` (0-3) of row r in a stage's q, k or v tile
 __device__ __forceinline__ int qkv_off(int r, int ch) {
   return r * 64 + ((ch ^ ((r >> 1) & 3)) << 4);
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -318,32 +311,6 @@ window_attention_ring_kernel(const bf16* __restrict__ qkv, const BT* __restrict_
   cp_async_wait<0>();
 }
 
-// ---- the WMMA body: one (window, head) a block of 4 warps -----------------------
-template <typename BT>
-__global__ void __launch_bounds__(128)
-window_attention_wmma_kernel(const bf16* __restrict__ qkv, const BT* __restrict__ bias,
-                             bf16* __restrict__ out, int C, int nh, int nw_img) {
-  __shared__ __align__(128) bf16 qs[3][64 * kLQ];
-  __shared__ __align__(128) float strips[4][kStrip];
-  __shared__ float bias_s[kN * kN];
-  const long long w = blockIdx.x / nh;
-  const int h = blockIdx.x % nh;
-  const int warp = threadIdx.x / 32;
-  const BT* bsrc = bias + ((size_t)(w % nw_img) * nh + h) * kN * kN;
-  for (int i = threadIdx.x; i < kN * kN; i += 128) bias_s[i] = to_f32(bsrc[i]);
-  for (int i = threadIdx.x; i < 3 * 64 * 4; i += 128) {
-    const int which = i / 256, r = (i % 256) / 4, piece = i % 4;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < kN)
-      val = *reinterpret_cast<const uint4*>(qkv + ((size_t)w * kN + r) * 3 * C + which * C +
-                                            h * kHD + piece * 8);
-    *reinterpret_cast<uint4*>(&qs[which][r * kLQ + piece * 8]) = val;
-  }
-  __syncthreads();
-  attn_tile_bf16(qs[0], qs[1], qs[2], warp, bias_s, nullptr,
-                 rsqrtf((float)kHD), strips[warp], out + (size_t)w * kN * C + h * kHD, (size_t)C);
-}
-
 // ---- fp32: exact FMA loops --------------------------------------------------
 __global__ void __launch_bounds__(128)
 window_attention_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
@@ -419,39 +386,29 @@ bool bad_shape(long long NW, int C, int nh, int nw_img) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (qkv and out); bias_dtype the same for the
-// bias.  body: 0 = the ring body, 1 = the WMMA body (bf16 qkv; either bias
-// dtype); fp32 qkv runs the fp32 body and takes an fp32 bias.  qkv
+// bias.  bf16 qkv runs the ring body with either bias dtype; fp32 qkv runs
+// the fp32 body and takes an fp32 bias.  qkv
 // [NW, 49, 3C] and out [NW, 49, C]; bias [nw_img, nh, 49, 49], 4-byte aligned,
 // window w using bias[w % nw_img]; nw_img divides NW.  Heads of 32.  Returns
 // a cudaError_t.
 extern "C" int segland_window_attention(int dtype, const void* qkv, int bias_dtype,
                                         const void* bias, void* out, long long NW, int C, int nh,
-                                        int nw_img, int body, int device, void* stream) {
+                                        int nw_img, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (bad_shape(NW, C, nh, nw_img) || bias_dtype < 0 || bias_dtype > 1)
     return (int)cudaErrorInvalidValue;
   if (NW <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  const unsigned grid = (unsigned)(NW * nh);
   if (dtype == 0) {
     if (bias_dtype != 0) return (int)cudaErrorInvalidValue;
-    window_attention_f32_kernel<<<grid, 128, 0, s>>>((const float*)qkv, (const float*)bias,
-                                                     (float*)out, C, nh, nw_img);
+    window_attention_f32_kernel<<<(unsigned)(NW * nh), 128, 0, s>>>(
+        (const float*)qkv, (const float*)bias, (float*)out, C, nh, nw_img);
     return (int)cudaGetLastError();
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (body == 0)
-    return (int)(bias_dtype ? launch_ring<bf16>(qkv, bias, out, NW, C, nh, nw_img, s)
-                            : launch_ring<float>(qkv, bias, out, NW, C, nh, nw_img, s));
-  if (body != 1) return (int)cudaErrorInvalidValue;
-  if (bias_dtype)
-    window_attention_wmma_kernel<bf16><<<grid, 128, 0, s>>>((const bf16*)qkv, (const bf16*)bias,
-                                                            (bf16*)out, C, nh, nw_img);
-  else
-    window_attention_wmma_kernel<float><<<grid, 128, 0, s>>>(
-        (const bf16*)qkv, (const float*)bias, (bf16*)out, C, nh, nw_img);
-  return (int)cudaGetLastError();
+  return (int)(bias_dtype ? launch_ring<bf16>(qkv, bias, out, NW, C, nh, nw_img, s)
+                          : launch_ring<float>(qkv, bias, out, NW, C, nh, nw_img, s));
 }
 
 // The ring body's plan for these shapes and bias dtype, as launched:
@@ -475,21 +432,15 @@ extern "C" int segland_window_attention_plan(long long NW, int C, int nh, int nw
   return 0;
 }
 
-// Registers a thread, local (spill) bytes and dynamic shared memory of a bf16
-// build: body 0 (ring) or 1 (WMMA), by bias dtype.
-extern "C" int segland_window_attention_attrs(int bias_dtype, int body, int* regs,
-                                              int* local_bytes, int* smem) {
+// Registers a thread, local (spill) bytes and dynamic shared memory of the
+// ring body's build for a bias dtype (0 = float32, 1 = bfloat16).
+extern "C" int segland_window_attention_attrs(int bias_dtype, int* regs, int* local_bytes,
+                                              int* smem) {
   cudaFuncAttributes a;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (body == 0) {
-    err = bias_dtype ? cudaFuncGetAttributes(&a, window_attention_ring_kernel<bf16>)
-                     : cudaFuncGetAttributes(&a, window_attention_ring_kernel<float>);
-    *smem = bias_dtype ? ring_smem<bf16>() : ring_smem<float>();
-  } else if (body == 1) {
-    err = bias_dtype ? cudaFuncGetAttributes(&a, window_attention_wmma_kernel<bf16>)
-                     : cudaFuncGetAttributes(&a, window_attention_wmma_kernel<float>);
-    *smem = 0;
-  }
+  const cudaError_t err = bias_dtype
+                              ? cudaFuncGetAttributes(&a, window_attention_ring_kernel<bf16>)
+                              : cudaFuncGetAttributes(&a, window_attention_ring_kernel<float>);
+  *smem = bias_dtype ? ring_smem<bf16>() : ring_smem<float>();
   if (err != cudaSuccess) return (int)err;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;

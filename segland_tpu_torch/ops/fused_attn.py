@@ -187,12 +187,8 @@ def v1_plan(c: int, group: int) -> dict:
 
 
 # ---- K6, window attention (window_attention.cu) -----------------------------------------
-# The bf16 body each width serves: "ring" (a persistent grid walking (window, head) items
-# through a cp.async ring, the core on mma.sync) or "wmma" (a block a (window, head), the
-# core through a shared-memory strip), whichever chip_smoke.py's phase k6 measured no
-# slower at that stage shape of swin-s (PERF.md).
-WINDOW_BODIES = {96: "ring", 192: "ring", 384: "ring", 768: "ring"}
-_WINDOW_BODY_IDS = {"ring": 0, "wmma": 1}
+# bf16 qkv runs the ring body: a persistent grid walking (window, head) items through a
+# cp.async ring, the core on mma.sync.
 WINDOW_STAGES = 4  # kRingStages: items a ring-body block holds
 _WINDOW_THREADS = 128
 _SM_SMEM, _BLOCK_RESERVED, _SM_THREADS = 233472, 1024, 2048  # an sm_90 SM
@@ -204,9 +200,8 @@ def window_attention_plan(nw: int, c: int, nh: int, nw_img: int = 1,
     (q, k, v as 3 x 64 rows of 64 bytes, then the bias slice with 2 bytes of slack at
     each end, to 16), dynamic shared memory, blocks a SM (by shared memory: the card's
     occupancy query may say fewer, which chip_smoke.py checks), grid (a multiple of
-    nh, at most one block an item), items and the most a block walks; and the body
-    that WINDOW_BODIES serves at this width.  Raises ValueError for shapes the
-    kernel refuses."""
+    nh, at most one block an item), items and the most a block walks.  Raises
+    ValueError for shapes the kernel refuses."""
     if nh * _HEAD_DIM != c or nw_img < 1 or nw % nw_img or nw * nh > 2 ** 31 - 1 or nw < 1:
         raise ValueError(f"window_attention: NW={nw}, C={c}, heads={nh}, nW_img={nw_img}: "
                          f"heads of 32, nW_img dividing NW, NW*heads < 2^31")
@@ -221,7 +216,7 @@ def window_attention_plan(nw: int, c: int, nh: int, nw_img: int = 1,
     if grid >= nh:
         grid -= grid % nh
     grid = min(grid, items)
-    return dict(body=WINDOW_BODIES.get(c, "ring"), stages=WINDOW_STAGES, stage_bytes=stage,
+    return dict(stages=WINDOW_STAGES, stage_bytes=stage,
                 smem=smem, blocks_per_sm=per_sm, grid=grid, items=items,
                 items_per_block=-(-items // grid), one_head_per_block=grid % nh == 0)
 
@@ -609,11 +604,10 @@ def _window_bias(bias, qkv, num_heads, n):
     return bias.float() if qkv.dtype == torch.float32 else bias
 
 
-def window_attention(qkv, bias, num_heads: int, body: str = None):
+def window_attention(qkv, bias, num_heads: int):
     """Launch the window-attention kernel K6 on CUDA qkv [NW, 49, 3C] (contiguous
     bf16 or fp32); bias [nW_img or 1, nh, 49, 49] in bf16 or fp32, read in its own
-    dtype (see _window_bias).  bf16 qkv runs ``body`` ("ring" or "wmma"), by default
-    WINDOW_BODIES' at this width; fp32 qkv the fp32 body."""
+    dtype (see _window_bias).  bf16 qkv runs the ring body, fp32 qkv the fp32 body."""
     _check_rows("window_attention", qkv)
     nw, n, c3 = qkv.shape
     c = c3 // 3
@@ -621,14 +615,11 @@ def window_attention(qkv, bias, num_heads: int, body: str = None):
         raise ValueError(f"window_attention takes 7x7 windows and heads of 32; got N={n}, "
                          f"3C={c3}, heads={num_heads}")
     b = _window_bias(bias, qkv, num_heads, n)
-    body = body or WINDOW_BODIES.get(c, "ring")
-    if body not in _WINDOW_BODY_IDS:
-        raise ValueError(f"window_attention has bodies {tuple(_WINDOW_BODY_IDS)}, not {body!r}")
     out = torch.empty((nw, n, c), dtype=qkv.dtype, device=qkv.device)
     P = kernels.ptr
     err = kernels.library().segland_window_attention(
         _DTYPES[qkv.dtype], P(qkv), _DTYPES[b.dtype], P(b), P(out), nw, c, num_heads,
-        b.shape[0], _WINDOW_BODY_IDS[body], qkv.device.index, kernels.stream_of(qkv))
+        b.shape[0], qkv.device.index, kernels.stream_of(qkv))
     kernels.check(err, "window_attention")
     window_attention.launches += 1
     return out

@@ -1,7 +1,8 @@
 """Port's eval epilogue (segland_tpu_torch/ops/fused_epilogue.py): the plain
 version against the JAX Pallas kernel in interpret mode and an fp64 numpy
 oracle, and the CUDA kernel's arithmetic (host tables + 4-tap lerp, rows
-then columns, first max wins) replayed in torch against the same oracle.
+then columns, each lerp fma(hi, w, lo * (1 - w)) rounded as the card rounds
+it, first max wins) replayed in torch against the same oracle.
 Classes may differ only where the oracle's top-2 gap is <= 1e-3.  K2's plan
 (tile, patch, class passes) is checked to cover every tap of its tiles and to
 fit its shared-memory budget, and a tile-by-tile replay of K2's order (patch,
@@ -10,6 +11,7 @@ replay bit for bit."""
 
 import pathlib
 import re
+from fractions import Fraction
 
 import jax.numpy as jnp
 import numpy as np
@@ -47,17 +49,37 @@ def _logits(shape):
     return np.random.RandomState(0).randn(*shape).astype(np.float32) * 10.0
 
 
+def _fma(a, b, c):
+    """fp32 fma(a, b, c) with one rounding, as __fmaf_rn gives it: a * b is exact
+    in float64, two-sum recovers the float64 sum's rounding error e exactly, and
+    a sum that lies on the midpoint of two fp32 values goes the way e points."""
+    p, c = a.double() * b.double(), c.double()
+    s = p + c
+    z = s - p
+    e = (p - (s - z)) + (c - z)  # p + c == s + e exactly
+    r = s.float()
+    d = s - r.double()
+    o = torch.nextafter(r, torch.where(d > 0, torch.inf, -torch.inf).float())
+    tie = (d != 0) & (2 * d.abs() == (o.double() - r.double()).abs())
+    return torch.where(tie & (e * d > 0), o, r)
+
+
+def _lerp(lo, hi, w):
+    """The kernel's lerp: fma(hi, w, lo * (1 - w)), all fp32."""
+    return _fma(hi, w, lo * (1 - w))
+
+
 def _kernel_upsample(logits, oh, ow):
     """The upsampled logits in the arithmetic of kernels/csrc/upsample_argmax.cu,
-    torch fp32: per output pixel, rows first, then columns."""
+    torch fp32: per output pixel, rows first, then columns, each by _lerp."""
     x = t(logits)
     rlo, rhi, rw = map(t, linear_table(x.shape[1], oh, True))
     clo, chi, cw = map(t, linear_table(x.shape[2], ow, True))
     a = lambda r, c: x[:, r.long()][:, :, c.long()]
     wy, wx = rw[None, :, None, None], cw[None, None, :, None]
-    left = a(rlo, clo) * (1 - wy) + a(rhi, clo) * wy
-    right = a(rlo, chi) * (1 - wy) + a(rhi, chi) * wy
-    return left * (1 - wx) + right * wx
+    left = _lerp(a(rlo, clo), a(rhi, clo), wy)
+    right = _lerp(a(rlo, chi), a(rhi, chi), wy)
+    return _lerp(left, right, wx)
 
 
 def _kernel_replay(logits, oh, ow):
@@ -71,8 +93,8 @@ def _tiled_replay(logits, oh, ow):
     patch column once); the column lerps of each thread's 4 pixels, over the 3
     strip columns from its first pixel's left one with weights (1 - wx, wx, 0)
     placed by column where its pixels span at most 3, else from each pixel's two
-    columns; the running argmax, replaced only by a strictly greater value.
-    Returns the class map and the winning values."""
+    columns, in the kernel's fmas; the running argmax, replaced only by a
+    strictly greater value.  Returns the class map and the winning values."""
     x = t(logits)
     nb, h, w, k = x.shape
     plan = FE.upsample_plan(h, w, k, oh, ow)
@@ -104,13 +126,12 @@ def _tiled_replay(logits, oh, ow):
             arg = torch.zeros((nb, len(ys), len(xs)), dtype=torch.long)
             for k0 in range(0, k, kc):
                 patch = x[:, r0:r0 + nr, c0:c0 + nc, k0:k0 + kc]
-                strip = (patch[:, t(rlo[ys] - r0).long()] * (1 - wy)
-                         + patch[:, t(rhi[ys] - r0).long()] * wy)
-                v_win = (strip[:, :, cols[0]] * weights[0] + strip[:, :, cols[1]] * weights[1]
-                         + strip[:, :, cols[2]] * weights[2])
-                wxt = t(wx)[None, :, None]
-                v_dir = (strip[:, :, t(lo).long()] * (1 - wxt)
-                         + strip[:, :, t(hi).long()] * wxt)
+                strip = _lerp(patch[:, t(rlo[ys] - r0).long()],
+                              patch[:, t(rhi[ys] - r0).long()], wy)
+                a0, a1, a2 = (strip[:, :, c] for c in cols)
+                v_win = _fma(a2, weights[2], _fma(a1, weights[1], a0 * weights[0]))
+                v_dir = _lerp(strip[:, :, t(lo).long()], strip[:, :, t(hi).long()],
+                              t(wx)[None, :, None])
                 v = torch.where(win, v_win, v_dir)
                 for j in range(v.shape[-1]):
                     up = v[..., j] > best
@@ -138,6 +159,33 @@ def test_kernel_arithmetic_matches_fp64_oracle(shape, out_hw):
     logits = _logits(shape)
     ref, gap = _np_ref(logits, *out_hw)
     assert ((_kernel_replay(logits, *out_hw) == ref) | (gap <= 1e-3)).all()
+
+
+def _round_f32(q):
+    """The fp32 value nearest the rational q, ties to even."""
+    r = np.float32(float(q))
+    near = [np.nextafter(r, np.float32(-np.inf)), r, np.nextafter(r, np.float32(np.inf))]
+    dist = [abs(Fraction(float(v)) - q) for v in near]
+    best = [v for v, d in zip(near, dist) if d == min(dist)]
+    return best[0] if len(best) == 1 else next(v for v in best if v.view(np.int32) % 2 == 0)
+
+
+def test_fma_replay_rounds_once():
+    """_fma is a * b + c rounded once to fp32, as the card's fma rounds it: on
+    random triples, with cancellation, and where the float64 sum falls on an fp32
+    midpoint that the exact sum misses (1 + 2^-23 + (1 + 2^-15)(1 - 2^-15) 2^-24
+    rounds down to 1 + 2^-23; rounding through float64 gives 1 + 2^-22)."""
+    rs = np.random.RandomState(3)
+    a, b = (rs.randn(3000).astype(np.float32) for _ in range(2))
+    c = np.where(rs.rand(3000) < 0.5, -(a * b), rs.randn(3000)).astype(np.float32)
+    tie = np.float32([1 + 2 ** -15, 1 - 2 ** -15, 1 + 2 ** -23])
+    a, b, c = (np.append(v, x * (2 ** -24 if i == 1 else 1))
+               for i, (v, x) in enumerate(zip((a, b, c), tie)))
+    got = _fma(t(a), t(b), t(c)).numpy()
+    want = np.float32([_round_f32(Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z)))
+                       for x, y, z in zip(a, b, c)])
+    assert got[-1] == np.float32(1 + 2 ** -23)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 def test_any_shape_and_first_max_wins():
