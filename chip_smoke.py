@@ -85,13 +85,20 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      they give; then the
      head-group probe's entry point (benchmarks/swin_attn_hg.py), the path
      of K9 and K10;
- 13. K9 hg_section (head groups, masks shipped in) the same way with
-     per-window mask rows (shift 0 without, shift 3 with regions) and with
-     broadcast mask rows, beside K5 at group 1 on the same input;
- 14. K11 section (the variants probe's section) vs its plain version in all 8
-     modes and both score dtypes at C = 96, 192, 384, shift 0 and 3, one
-     image's windows; its full mode at a batch of 8 beside its plain version,
-     K5 at group 1 and K9 at hg = 1, every mode timed by CUDA graph; then the
+ 13. K9 hg_section (head groups, masks shipped in; the wgmma + TMA section
+     body with K6's mma.sync core) vs its plain version at the four swin-s
+     stage shapes with per-window mask rows (shift 0 without, shift 3 with
+     regions), every built hg, fp32 and (hg = 1) bf16 scores, wblk = W and a
+     ragged 7, and with broadcast mask rows; its builds' registers and spills
+     and SASS HGMMA/UTMALDG counts; per shape and hg its time at wblk = W and
+     32 beside K5 at group 1 and K3 on the same input, its share of the bound
+     and the clock build's phase split;
+ 14. K11 section (the variants probe's section, the same body, a kernel a
+     mode) vs its plain version in all 8 modes, both score dtypes, shift 0
+     and 3, wblk 32 and 7 at C = 96, 192, 384 (one image's windows); its
+     builds and SASS; its full mode at a batch of 8 beside its plain version,
+     K5 at group 1, K9 at hg = 1 and K3, every mode timed queued and by CUDA
+     graph, the phase split; then the
      variants probe's entry point (benchmarks/swin_attn_variants.py) at its
      three stages through chain_time, its launch count checked;
  15. f32: K9, K10 and K11 on fp32 windows (the fp32 body) vs their plain
@@ -958,62 +965,103 @@ def phase_k10(dev):
                 phase_split=split)
 
 
+def k9_builds(c):
+    """{hg: W} of K9's builds at width C (attn_section_hg_sm90.cu) and the JAX
+    package's production hg."""
+    from segland_tpu_torch.ops.hg_attn import HG_SM90_BUILDS, V2_HG
+
+    return ({hg: b.w for (cc, hg), b in sorted(HG_SM90_BUILDS.items()) if cc == c},
+            V2_HG[c // 32])
+
+
 def phase_k9(dev):
     """K9 hg_section at the four swin-s stage shapes (per-window mask rows),
     shift 0 without and shift 3 with regions, every built hg, against its plain
-    version, beside K5 at group 1 on the same input; then broadcast mask rows."""
-    from segland_tpu_torch.ops.fused_attn import attn_section_v1
-    from segland_tpu_torch.ops.hg_attn import hg_section, hg_section_reference
+    version (bf16 scores too at hg = 1), at wblk = W and 32, beside K5 at group 1
+    and K3 on the same input, with the clock build's phase split; then broadcast
+    mask rows."""
+    import torch
+    from segland_tpu_torch.ops.fused_attn import attn_section, attn_section_v1
+    from segland_tpu_torch.ops.hg_attn import (HG_SM90_BUILDS, hg_section, hg_section_clocks,
+                                               hg_section_reference)
 
-    worst, plain_ms, bounds, by_hg, k5_ms, main_ms = 0.0, 0.0, [], {}, 0.0, 0.0
+    build_attrs("segland_hg_section_attrs", sorted(HG_SM90_BUILDS), "K9", names=("C", "hg"))
+    sass_counts("6HgPlanI")  # hg_sm90_kernel<HgPlan<...>>
+    worst, plain_ms, bounds, by_hg, by_hg32, k5_ms, k3_ms, main_ms = 0.0, 0.0, [], {}, {}, 0.0, \
+        0.0, 0.0
+    split = {}
     cases = [(BATCH,) + s[1:] + (s[0], shift) for s in SWIN_STAGES for shift in (0, 3)]
     cases += [(2, 192, 6, 126, 126, 0, shift) for shift in (0, 3)]  # broadcast mask rows
     for i, (b, c, nh, side, pside, blocks, shift) in enumerate(cases):
         nw = b * (pside // 7) ** 2
-        hgs, hg_main = hg_builds(c)
+        hgs, hg_main = k9_builds(c)
         a, w, geom, mask, regions = hg_input(dev, b, c, nh, side, pside, shift, 140 + i)
         x = a["x"]
-        k5 = attn_section_v1(x, mask, *w, regions=regions)
-        t5 = cuda_ms(lambda: attn_section_v1(x, mask, *w, regions=regions), iters=5, warmup=1)
+        w_l = linear_weights(w, torch.bfloat16)  # K-major, as a model hands them over
+        k5 = attn_section_v1(x, mask, *w_l, regions=regions)
+        t5 = cuda_ms(lambda: attn_section_v1(x, mask, *w_l, regions=regions), iters=5, warmup=1)
+        t3 = cuda_ms(lambda: attn_section(x, geom, *w_l), iters=5, warmup=1) if blocks else 0.0
         k5_ms += blocks / 2 * t5
+        k3_ms += blocks / 2 * t3
         rows_bytes = (mask.numel() + (0 if regions is None else regions.numel())) * 4
         stage_t = {}
         for hg, wb in hgs.items():
             tag = (f"K9 bf16 NW={nw} C={c} heads={nh} mask_rows={mask.shape[0]} "
                    f"region_rows={0 if regions is None else regions.shape[0]} shift={shift} "
                    f"hg={hg} wblk={wb}")
-            got = hg_section(x, mask, regions, *w, hg=hg, wblk=wb)
-            want = hg_section_reference(x, mask, regions, *w, hg=hg)
-            e = compare(tag, got, want, 2e-2, 1e-2)
-            worst = max(worst, e)
-            d5 = float((got.float() - k5.float()).abs().max())
-            del got, want
-            t = cuda_ms(lambda: hg_section(x, mask, regions, *w, hg=hg, wblk=wb), iters=5,
+            for sf in (True, False) if hg == 1 else (True,):
+                got = hg_section(x, mask, regions, *w_l, hg=hg, wblk=wb, score_f32=sf)
+                want = hg_section_reference(x, mask, regions, *w, hg=hg, score_f32=sf)
+                e = compare(f"{tag} score_f32={sf}", got, want, 2e-2, 1e-2)
+                worst = max(worst, e)
+                if sf:
+                    d5 = float((got.float() - k5.float()).abs().max())
+                del got, want
+            # a ragged block and pass: 7 windows a block
+            got = hg_section(x, mask, regions, *w_l, hg=hg, wblk=7)
+            worst = max(worst, compare(f"{tag} wblk=7", got, hg_section_reference(
+                x, mask, regions, *w, hg=hg), 2e-2, 1e-2))
+            del got
+            t = cuda_ms(lambda: hg_section(x, mask, regions, *w_l, hg=hg, wblk=wb), iters=5,
                         warmup=1)
+            t32 = cuda_ms(lambda: hg_section(x, mask, regions, *w_l, hg=hg, wblk=HG_WBLK),
+                          iters=3, warmup=1)
             tp = cuda_ms(lambda: hg_section_reference(x, mask, regions, *w, hg=hg), iters=2,
                          warmup=0)
             stage_t[hg] = t
             b_ms = section_bound(nw, c, nh, rows_bytes)[0]
+            sp = ""
+            if blocks and shift == 0:
+                sp = " " + phase_split(lambda clk: hg_section_clocks(
+                    clk, x, mask, regions, *w_l, hg=hg, wblk=wb), K3_PHASES, dev)
+                split[f"C={c} hg={hg}"] = sp.strip()
             if blocks:
-                by_hg[f"C={c} hg={hg}"] = by_hg.get(f"C={c} hg={hg}", 0.0) + blocks / 2 * t
+                key = f"C={c} hg={hg}"
+                by_hg[key] = by_hg.get(key, 0.0) + blocks / 2 * t
+                by_hg32[key] = by_hg32.get(key, 0.0) + blocks / 2 * t32
                 if hg == hg_main:
                     plain_ms += blocks / 2 * tp
                     main_ms += blocks / 2 * t
             print(f"{tag}: max_abs_err={e:.6g} tol=|d|<=0.02+0.01*|ref| out_of_tol=0 "
-                  f"kernel_ms={t:.4f} plain_ms={tp:.4f} k5_group1_ms={t5:.4f} "
-                  f"max_abs_diff_vs_k5={d5:.6g} bound_ms={b_ms:.4f}", flush=True)
+                  f"kernel_ms={t:.4f} wblk{HG_WBLK}_ms={t32:.4f} ({-(-nw // HG_WBLK)} blocks) "
+                  f"plain_ms={tp:.4f} k5_group1_ms={t5:.4f} k3_ms={t3:.4f} "
+                  f"max_abs_diff_vs_k5={d5:.6g} bound_ms={b_ms:.4f} "
+                  f"share_of_bound={b_ms / t:.3f}{sp}", flush=True)
         if blocks:
             bounds += [section_bound(nw, c, nh, rows_bytes)] * (blocks // 2)
         if len(hgs) > 1 and len({round(t, 3) for t in stage_t.values()}) == 1:
             fail(f"K9 C={c}: every hg ran in the same time, {stage_t}: is hg a no-op?")
-        del a, x, w, k5
+        del a, x, w, w_l, k5
     b_ms, b_by = sum_bounds(bounds)
     print(f"K9 per forward of {BATCH} tiles (24 blocks) at the default hg: "
-          f"kernel_ms={main_ms:.4f} "
-          f"plain_ms={plain_ms:.4f} k5_group1_ms={k5_ms:.4f} bound_ms={b_ms:.4f} ({b_by}); by hg: "
-          + " ".join(f"{k}={v:.4f}" for k, v in by_hg.items()), flush=True)
+          f"kernel_ms={main_ms:.4f} plain_ms={plain_ms:.4f} k5_group1_ms={k5_ms:.4f} "
+          f"k3_ms={k3_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / main_ms:.3f}; "
+          "by hg: " + " ".join(f"{k}={v:.4f}" for k, v in by_hg.items()), flush=True)
+    print(f"K9 per forward at wblk={HG_WBLK} by hg: "
+          + " ".join(f"{k}={v:.4f}" for k, v in by_hg32.items()), flush=True)
     return dict(max_abs_err=worst, ms=main_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, k5_group1_ms=k5_ms, ms_by_hg=by_hg)
+                library_ms=None, k5_group1_ms=k5_ms, k3_ms=k3_ms, ms_by_hg=by_hg,
+                ms_by_hg_wblk32=by_hg32, phase_split=split)
 
 
 HG_PROBE_STAGE, HG_PROBE_ITERS = "stage2", 3
@@ -1062,71 +1110,98 @@ K11_WBLK = 32  # the JAX probe's default windows a thread block
 def phase_k11(dev):
     """K11 section against its plain version in all 8 modes and both score
     dtypes at C = 96, 192, 384 (one image's windows), shift 0 and 3 (with
-    regions); then its full mode at a batch of 8 at the three stage shapes,
-    timed beside its plain version, K5 at group 1 and K9 at hg = 1 on the same
-    inputs."""
-    from segland_tpu_torch.ops.fused_attn import attn_section_v1
+    regions), wblk 32 and 7; its builds and SASS; then every mode at a batch
+    of 8 at the three stage shapes, timed beside its plain version, K5 at
+    group 1, K9 at hg = 1 and K3 on the same inputs, with the clock build's
+    phase split."""
+    import torch
+    from segland_tpu_torch.ops.fused_attn import attn_section, attn_section_v1
     from segland_tpu_torch.ops.hg_attn import hg_section
     from segland_tpu_torch.ops.section_variants import (ABLATIONS, SECTION_BUILDS, section,
-                                                        section_reference)
+                                                        section_clocks, section_reference)
 
+    build_attrs("segland_section_variants_attrs",
+                [(c, m) for c in SECTION_BUILDS for m in range(len(ABLATIONS))], "K11",
+                names=("C", "mode"))
+    # variants_kernel<VarPlan<...>, mode, clocks>; mode io is io_kernel, which runs no product
+    sass_counts("7VarPlanI")
     worst = {}
     for i, (blocks, c, nh, side, pside) in enumerate(SWIN_STAGES[:3]):
         for shift in (0, 3):
             a, w, geom, mask, regions = hg_input(dev, 1, c, nh, side, pside, shift, 160 + i)
             x = a["x"]
+            w_l = linear_weights(w, torch.bfloat16)
             for ab in ABLATIONS:
-                for sf, wb in ((True, K11_WBLK), (False, 7)):  # 7: ragged passes and blocks
-                    tag = (f"K11 bf16 NW={x.shape[0]} C={c} shift={shift} ablate={ab} "
-                           f"score_f32={sf} wblk={wb}")
-                    got = section(x, mask, regions, *w, wblk=wb, score_f32=sf, ablate=ab)
+                for sf in (True, False):
                     want = section_reference(x, mask, regions, *w, score_f32=sf, ablate=ab)
-                    worst[ab] = max(worst.get(ab, 0.0), compare(tag, got, want, 2e-2, 1e-2))
-                    del got, want
-            del a, x, w
-    print("K11 bf16 largest error by mode (|d|<=0.02+0.01*|ref|, no element outside): "
+                    for wb in (K11_WBLK, 7):  # 7: ragged passes and blocks
+                        tag = (f"K11 bf16 NW={x.shape[0]} C={c} shift={shift} ablate={ab} "
+                               f"score_f32={sf} wblk={wb}")
+                        got = section(x, mask, regions, *w_l, wblk=wb, score_f32=sf, ablate=ab)
+                        worst[ab] = max(worst.get(ab, 0.0), compare(tag, got, want, 2e-2, 1e-2))
+                        del got
+                    del want
+            del a, x, w, w_l
+    print("K11 bf16 largest error by mode (|d|<=0.02+0.01*|ref|, no element outside; 8 modes x "
+          "2 score dtypes x shift 0, 3 x wblk 32, 7): "
           + " ".join(f"{k}={v:.6g}" for k, v in worst.items()), flush=True)
 
-    ms = plain_ms = k5_ms = k9_ms = 0.0
-    bounds, modes = [], {}
+    ms = plain_ms = k5_ms = k9_ms = k3_ms = 0.0
+    bounds, modes, split = [], {}, {}
     for i, (blocks, c, nh, side, pside) in enumerate(SWIN_STAGES[:3]):
         nw = BATCH * (pside // 7) ** 2
         wb = SECTION_BUILDS[c].w
         for shift in (0, 3):
             a, w, geom, mask, regions = hg_input(dev, BATCH, c, nh, side, pside, shift, 170 + i)
             x = a["x"]
+            w_l = linear_weights(w, torch.bfloat16)
             tag = f"K11 bf16 NW={nw} C={c} shift={shift} wblk={wb}"
-            compare(tag, section(x, mask, regions, *w, wblk=wb),
+            compare(tag, section(x, mask, regions, *w_l, wblk=wb),
                     section_reference(x, mask, regions, *w), 2e-2, 1e-2)
-            t = cuda_ms(lambda: section(x, mask, regions, *w, wblk=wb), iters=5, warmup=1)
-            t32 = cuda_ms(lambda: section(x, mask, regions, *w, wblk=K11_WBLK), iters=3, warmup=1)
+            t = cuda_ms(lambda: section(x, mask, regions, *w_l, wblk=wb), iters=5, warmup=1)
+            t32 = cuda_ms(lambda: section(x, mask, regions, *w_l, wblk=K11_WBLK), iters=3,
+                          warmup=1)
             tp = cuda_ms(lambda: section_reference(x, mask, regions, *w), iters=2, warmup=0)
-            t5 = cuda_ms(lambda: attn_section_v1(x, mask, *w, regions=regions), iters=5, warmup=1)
-            t9 = cuda_ms(lambda: hg_section(x, mask, regions, *w, hg=1,
-                                            wblk=hg_builds(c)[0][1]), iters=5, warmup=1)
+            t5 = cuda_ms(lambda: attn_section_v1(x, mask, *w_l, regions=regions), iters=5,
+                         warmup=1)
+            t9 = cuda_ms(lambda: hg_section(x, mask, regions, *w_l, hg=1,
+                                            wblk=k9_builds(c)[0][1]), iters=5, warmup=1)
+            t3 = cuda_ms(lambda: attn_section(x, geom, *w_l), iters=5, warmup=1)
             rows_bytes = (mask.numel() + (0 if regions is None else regions.numel())) * 4
             b_ms, b_by = section_bound(nw, c, nh, rows_bytes)
+            sp = ""
+            if shift == 0:
+                sp = " " + phase_split(lambda clk: section_clocks(
+                    clk, x, mask, regions, *w_l, wblk=wb), K3_PHASES, dev)
+                split[f"C={c}"] = sp.strip()
             print(f"{tag}: kernel_ms={t:.4f} wblk{K11_WBLK}_ms={t32:.4f} "
-                  f"({-(-nw // K11_WBLK)} blocks) plain_ms={tp:.4f} k5_group1_ms={t5:.4f} "
-                  f"k9_hg1_ms={t9:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
-            if shift:  # every mode at the full grid, ms a call by CUDA graph
-                modes[c] = {ab: chain_ms(lambda a: section(a, mask, regions, *w, wblk=wb,
-                                                           ablate=ab), x) for ab in ABLATIONS}
-                print(f"K11 C={c} wblk={wb} by mode, graph ms a call: "
-                      + " ".join(f"{k}={v:.4f}" for k, v in modes[c].items()), flush=True)
+                  f"({-(-nw // K11_WBLK)} blocks) plain_ms={tp:.4f} "
+                  f"k5_group1_ms={t5:.4f} k9_hg1_ms={t9:.4f} k3_ms={t3:.4f} "
+                  f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / t:.3f}{sp}", flush=True)
+            if shift:  # every mode: queued (host time out) and by CUDA graph
+                modes[c] = {ab: queued_ms(lambda: section(x, mask, regions, *w_l, wblk=wb,
+                                                          ablate=ab), iters=10)
+                            for ab in ABLATIONS}
+                graph = {ab: chain_ms(lambda v: section(v, mask, regions, *w_l, wblk=wb,
+                                                        ablate=ab), x) for ab in ABLATIONS}
+                print(f"K11 C={c} wblk={wb} by mode, ms a call (queued; CUDA graph): "
+                      + " ".join(f"{k}={modes[c][k]:.4f};{graph[k]:.4f}" for k in ABLATIONS),
+                      flush=True)
             ms += blocks / 2 * t
             plain_ms += blocks / 2 * tp
             k5_ms += blocks / 2 * t5
             k9_ms += blocks / 2 * t9
+            k3_ms += blocks / 2 * t3
             bounds += [(b_ms, b_by)] * (blocks // 2)
-            del a, x, w
+            del a, x, w, w_l
     b_ms, b_by = sum_bounds(bounds)
     print(f"K11 per forward of {BATCH} tiles, stages 0-2 (22 blocks): kernel_ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} k5_group1_ms={k5_ms:.4f} k9_hg1_ms={k9_ms:.4f} "
-          f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+          f"plain_ms={plain_ms:.4f} k5_group1_ms={k5_ms:.4f} "
+          f"k9_hg1_ms={k9_ms:.4f} k3_ms={k3_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+          f"share_of_bound={b_ms / ms:.3f}", flush=True)
     return dict(max_abs_err=max(worst.values()), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, k5_group1_ms=k5_ms, k9_hg1_ms=k9_ms,
-                max_abs_err_by_mode=worst, graph_ms_by_mode=modes)
+                k3_ms=k3_ms, max_abs_err_by_mode=worst, ms_by_mode=modes, phase_split=split)
 
 
 def phase_f32(dev):
@@ -2126,7 +2201,7 @@ def main(argv=None):
                                 replaces="segland_tpu/ops/pallas_bottleneck.py:155"),
         "conv3_residual": dict(source=csrc + "bottleneck_int8.cu",
                                replaces="segland_tpu/ops/pallas_bottleneck.py:269"),
-        "hg_section": dict(source=csrc + "attn_section_hg.cu",
+        "hg_section": dict(source=csrc + "attn_section_hg_sm90.cu",
                            replaces="benchmarks/swin_attn_hg.py:125"),
         "hg2_section": dict(source=csrc + "attn_section_hg.cu",
                             replaces="benchmarks/swin_attn_hg.py:354"),

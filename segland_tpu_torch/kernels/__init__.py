@@ -57,11 +57,14 @@ _ENTRIES = {
                                 + [_I, _P],
     # h1q, x, w2t, w3t, a2, b2, a3, b3, out, B, H, W, C, P, d, relu, s_h2, device, stream
     "segland_bottleneck_conv23": [_P] * 9 + [_I] * 7 + [ctypes.c_float, _I, _P],
+    # x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, out, NW, C, nh, hg, wblk, h, w, hp, wp,
+    # ws, shift, eps, ablate, score_f32, device, stream
+    "segland_hg2_section": [_P] * 9 + [ctypes.c_longlong] + [_I] * 10 + [ctypes.c_float]
+                           + [_I] * 3 + [_P],
     # x, mask_tok, rows_m, regions, rows_r, gamma, beta, wqkv, bqkv, wproj, bproj, bias, out,
-    # NW, C, nh, hg, wblk, h, w, hp, wp, ws, shift, eps, ablate, score_f32, device, stream
-    **{name: [_P, _P, _I, _P, _I] + [_P] * 8 + [ctypes.c_longlong] + [_I] * 10
-       + [ctypes.c_float] + [_I] * 3 + [_P]
-       for name in ("segland_hg_section", "segland_hg2_section")},
+    # NW, C, nh, hg, wblk, eps, score_f32, device, stream
+    "segland_hg_section": [_P, _P, _I, _P, _I] + [_P] * 8 + [ctypes.c_longlong] + [_I] * 4
+                          + [ctypes.c_float] + [_I] * 2 + [_P],
     # x, mask_tok, rows_m, regions, rows_r, gamma, beta, wqkv, bqkv, wproj, bproj, bias, out,
     # NW, C, nh, wblk, eps, mode, score_f32, device, stream
     "segland_section_variants": [_P, _P, _I, _P, _I] + [_P] * 8 + [ctypes.c_longlong]
@@ -70,9 +73,10 @@ _ENTRIES = {
     # NW, C, nh, wblk, h, w, hp, wp, ws, shift, eps, mode, norm_first, group, device, stream
     "segland_section_f32": [_P, _P, _I, _P, _I] + [_P] * 8 + [ctypes.c_longlong] + [_I] * 9
                            + [ctypes.c_float] + [_I] * 4 + [_P],
-    # the bf16 kernels of segland_ln_mlp, segland_attn_section, segland_swin_block and
-    # segland_attn_section_v1, and K7's two int8 kernels, with phase clocks: their
-    # arguments (without dtype), then clocks (uint64) before device and stream
+    # the bf16 kernels of segland_ln_mlp, segland_attn_section, segland_swin_block,
+    # segland_attn_section_v1, segland_hg_section and segland_section_variants (mode
+    # none), and K7's two int8 kernels, with phase clocks: their arguments (without
+    # dtype), then clocks (uint64) before device and stream
     "segland_ln_mlp_clocks": [_P] * 10 + [ctypes.c_longlong, _I, _I, ctypes.c_float, _P, _I,
                                           _P],
     "segland_attn_section_clocks": [_P] * 9 + [ctypes.c_longlong] + [_I] * 8
@@ -84,6 +88,10 @@ _ENTRIES = {
     "segland_bottleneck_conv1_clocks": [_P] * 5 + [ctypes.c_longlong, _I, _I]
                                        + [ctypes.c_float] * 2 + [_P, _I, _P],
     "segland_bottleneck_conv23_clocks": [_P] * 9 + [_I] * 7 + [ctypes.c_float, _P, _I, _P],
+    "segland_hg_section_clocks": [_P, _P, _I, _P, _I] + [_P] * 8 + [ctypes.c_longlong]
+                                 + [_I] * 4 + [ctypes.c_float, _I, _P, _I, _P],
+    "segland_section_variants_clocks": [_P, _P, _I, _P, _I] + [_P] * 8 + [ctypes.c_longlong]
+                                       + [_I] * 3 + [ctypes.c_float, _I, _I, _P, _I, _P],
     # h2q, res, w3t, a3, b3, out, M, P, C, relu, device, stream
     "segland_conv3_residual_int8": [_P] * 6 + [ctypes.c_longlong] + [_I] * 4 + [_P],
 }
@@ -177,11 +185,12 @@ def library() -> ctypes.CDLL:
     lib.segland_window_attention_plan.argtypes = [ctypes.c_longlong] + [_I] * 4 + [
         ctypes.POINTER(_I)]
     lib.segland_window_attention_plan.restype = ctypes.c_int
-    # C or K6's bias dtype (and K5's group, K7's P) -> registers at launch, local
-    # (spill) bytes, dynamic shared memory of a build
+    # C or K6's bias dtype (and K5's group, K7's P, K9's hg, K11's mode) -> registers at
+    # launch, local (spill) bytes, dynamic shared memory of a build
     for name, keys in (("segland_ln_mlp_attrs", 1), ("segland_attn_section_attrs", 1),
                        ("segland_window_attention_attrs", 1),
                        ("segland_swin_block_attrs", 1), ("segland_attn_section_v1_attrs", 2),
+                       ("segland_hg_section_attrs", 2), ("segland_section_variants_attrs", 2),
                        ("segland_bottleneck_conv1_attrs", 2),
                        ("segland_bottleneck_conv23_attrs", 2)):
         fn = getattr(lib, name)

@@ -1,9 +1,8 @@
-// Device code shared by the Swin attention kernels: the token geometry, the
-// WMMA attention core of K3, K4 and K5 (attn_tile_bf16), the WMMA section
-// products of the variants probe (SecCfg, gemm96), the row LayerNorm of the
-// probes, and the fp32 bodies (exact FMA loops) of K3, K4 and K5.  The wgmma
-// section body of K3, K4 and K5 is section_sm90.cuh.  Everything lives in an
-// anonymous namespace, so each source gets its own copy.
+// Device code shared by the Swin attention kernels: the shapes, the token
+// geometry, the row LayerNorm of K10, and the fp32 bodies (exact FMA loops) of
+// K3, K4 and K5.  The WMMA pieces (K3-K5's attention core) are attn_wmma.cuh;
+// the wgmma section body of K3, K4 and K5 is section_sm90.cuh.  Everything
+// lives in an anonymous namespace, so each source gets its own copy.
 //
 // Shapes: windows of N = 49 tokens (7 x 7), heads of 32 channels, 8 warps a
 // block.  T is bf16 or fp32.
@@ -12,13 +11,11 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "cp_async.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -27,7 +24,6 @@ constexpr int kN = 49;      // tokens a window (7 x 7)
 constexpr int kHD = 32;     // head dim
 constexpr int kLQ = 48;     // row stride of the q/k/v buffers: every row 32-byte aligned
 constexpr int kLS = 68;     // row stride of a score strip, floats
-constexpr int kLDB = 104;   // row stride of a staged weight chunk (96 + 8)
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kStrip = 16 * kLS;  // floats in one warp's strip
@@ -80,232 +76,6 @@ __device__ __forceinline__ void token_geom(int win, int tok, const Geom& g, int*
 
 __host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
 __host__ __device__ constexpr size_t max_size(size_t a, size_t b) { return a > b ? a : b; }
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// ---- the per-head core, bf16: one warp, 16 query rows of one window -------
-// q, k, v: row 0 of the window, [>= 64 rows, kLQ]; rows 49..63 finite.
-// bias: this head's [N, N] fp32, in shared memory.  rid: the window's N region ids, or null.
-// sink: row 0 of the window's output at this head's column, row stride ld.
-__device__ __forceinline__ void attn_tile_bf16(const bf16* q, const bf16* k, const bf16* v,
-                                               int rt, const float* bias,
-                                               const uint8_t* rid, float scale, float* strip,
-                                               bf16* sink, size_t ld) {
-  const int lane = threadIdx.x % 32;
-  {
-    FragC s[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(s[j], 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < kHD / 16; ++kk) {
-      FragA a;
-      wmma::load_matrix_sync(a, q + rt * 16 * kLQ + kk * 16, kLQ);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        FragBT b;
-        wmma::load_matrix_sync(b, k + j * 16 * kLQ + kk * 16, kLQ);
-        wmma::mma_sync(s[j], a, b, s[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(strip + j * 16, s[j], kLS, wmma::mem_row_major);
-  }
-  __syncwarp();
-  // softmax over the 49 real keys, two lanes a row (32 columns each, read in
-  // an order rotated by row and half so that no two lanes meet in a bank);
-  // the probabilities go as bf16 over the row's own scores (row stride
-  // 2 * kLS bf16) once every lane holds its scores in registers
-  bf16* p = reinterpret_cast<bf16*>(strip);
-  {
-    const int r = lane >> 1, hf = lane & 1;
-    const int qi = rt * 16 + r;
-    const int rot = hf + 2 * (r >> 3);  // bank = (4 * (r & 7) + rot + c) % 32, all distinct
-    const bool live = qi < kN;
-    const float* srow = strip + r * kLS + hf * 32;
-    const float* brow = bias + (live ? qi : 0) * kN + hf * 32;
-    const int rq = (rid && live) ? (rid[qi] & 127) : 0;
-    float e[32];
-    float m = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int col = (c + rot) & 31;
-      float v = -INFINITY;
-      if (live && hf * 32 + col < kN) {
-        v = srow[col] * scale + brow[col];
-        if (rid && (rid[hf * 32 + col] & 127) != rq) v += -100.0f;
-      }
-      e[c] = v;
-      m = fmaxf(m, v);
-    }
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-    float sum = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      e[c] = live ? __expf(e[c] - m) : 0.0f;
-      sum += e[c];
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    const float inv = live ? 1.0f / sum : 0.0f;
-    __syncwarp();  // every score is in a register: the rows may be overwritten
-    bf16* prow = p + r * 2 * kLS + hf * 32;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) prow[(c + rot) & 31] = __float2bfloat16(e[c] * inv);
-  }
-  __syncwarp();
-  FragC o[2];
-  wmma::fill_fragment(o[0], 0.0f);
-  wmma::fill_fragment(o[1], 0.0f);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    FragA a;
-    wmma::load_matrix_sync(a, p + kk * 16, 2 * kLS);
-#pragma unroll
-    for (int f = 0; f < 2; ++f) {
-      FragB b;
-      wmma::load_matrix_sync(b, v + kk * 16 * kLQ + f * 16, kLQ);
-      wmma::mma_sync(o[f], a, b, o[f]);
-    }
-  }
-  __syncwarp();  // every lane has loaded its probabilities: the strip is free
-  wmma::store_matrix_sync(strip, o[0], kLS, wmma::mem_row_major);
-  wmma::store_matrix_sync(strip + 16, o[1], kLS, wmma::mem_row_major);
-  __syncwarp();
-  for (int e = lane; e < 16 * kHD; e += 32) {
-    const int r = e / kHD, d = e % kHD;
-    const int qi = rt * 16 + r;
-    if (qi < kN) sink[(size_t)qi * ld + d] = __float2bfloat16(strip[r * kLS + d]);
-  }
-  __syncwarp();
-}
-
-// ---- the section's products, bf16 -------------------------------------------
-// W windows a block; P splits a row tile's 96 output columns over P warps;
-// KC weight rows a staged chunk; S chunk buffers in the ring.
-template <int C, int W, int P, int KC, int S>
-struct SecCfg {
-  static constexpr int R = W * kN;              // real rows
-  static constexpr int RT = (R + 15) / 16;      // row tiles
-  static constexpr int UNITS = RT * P;
-  static constexpr int ROUNDS = (UNITS + kWarps - 1) / kWarps;
-  static constexpr int NFR = 6 / P;             // fragments a unit
-  static constexpr int LDY = C + 8;
-  static constexpr int RQ = RT * 16 + 16;       // q/k/v rows: the last window's tile reaches R + 14
-  static constexpr int NH = C / kHD;
-  static constexpr size_t Y_BYTES = align128((size_t)R * LDY * sizeof(bf16));
-  static constexpr size_t OFF_CTX = Y_BYTES;
-  static constexpr size_t OFF_Q = 2 * Y_BYTES;
-  static constexpr size_t Q_BYTES = align128((size_t)RQ * kLQ * sizeof(bf16));
-  static constexpr size_t OFF_STRIP = OFF_Q + 3 * Q_BYTES;
-  static constexpr int NSTRIP = 4 * W < kWarps ? 4 * W : kWarps;  // attention tiles at once
-  static constexpr size_t OFF_STAGE = OFF_STRIP + (size_t)NSTRIP * kStrip * sizeof(float);
-  static_assert(NSTRIP * kStrip >= kWarps * 256, "every warp needs a 16 x 16 scratch tile");
-  static constexpr size_t STAGE_ELEMS = align128((size_t)KC * kLDB * sizeof(bf16)) / sizeof(bf16);
-  static constexpr size_t OFF_BIAS = OFF_STAGE + S * STAGE_ELEMS * sizeof(bf16);
-  static constexpr size_t OFF_TOK = OFF_BIAS + align128((size_t)kN * kN * sizeof(float));
-  static constexpr int NCH = C / KC;            // chunks a product
-  static constexpr int NCALL = NH + C / 96;     // products: one a head, then the projection's
-  static_assert(S >= 2, "the ring needs two buffers");
-  static constexpr size_t SMEM = OFF_TOK + align128(R);
-  static_assert(C % KC == 0 && KC % 16 == 0, "chunks must tile C");
-  static_assert(C % 96 == 0, "the projection walks 96 columns a pass");
-  static_assert(6 % P == 0 && kWarps % P == 0, "P must split 6 fragments and the warps");
-  static_assert(OFF_CTX + (size_t)RT * 16 * LDY * sizeof(bf16) <= SMEM,
-                "a row tile past ctx must stay inside the block's shared memory");
-  static_assert(SMEM <= kMaxSmem, "over the shared memory a block can have");
-};
-
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ src, int ldb, int k0,
-                                           int c0, int c1, int c2, int kc) {
-  for (int i = threadIdx.x; i < kc * 12; i += kThreads) {
-    const int r = i / 12, piece = i % 12;
-    const int blk = piece / 4, off = (piece % 4) * 8;
-    const int col = (blk == 0 ? c0 : (blk == 1 ? c1 : c2)) + off;
-    cp_async16(dst + r * kLDB + blk * 32 + off, src + (size_t)(k0 + r) * ldb + col);
-  }
-}
-
-// A block's weight stream: `total` chunks of KC rows; chunk g belongs to
-// product call0 + (g / NCH) % ncall, where products 0..NH-1 are a head's q,
-// k, v columns of wqkv and NH.. are 96 columns of wproj a pass.
-struct Stream {
-  int total, call0, ncall;
-};
-
-// Chunk g of the stream into its ring buffer.  Always commits a group, empty
-// past the end, so that cp.async.wait_group counts the same at every step.
-template <int C, int KC, int S, typename Cf>
-__device__ __forceinline__ void fetch_chunk(int g, const Stream& st, bf16* stage,
-                                            const bf16* __restrict__ wqkv,
-                                            const bf16* __restrict__ wproj) {
-  if (g < st.total) {
-    const int call = st.call0 + (g / Cf::NCH) % st.ncall, k0 = (g % Cf::NCH) * KC;
-    bf16* dst = stage + (g % S) * Cf::STAGE_ELEMS;
-    if (call < Cf::NH) {
-      stage_rows(dst, wqkv, 3 * C, k0, call * kHD, C + call * kHD, 2 * C + call * kHD, KC);
-    } else {
-      const int n0 = (call - Cf::NH) * 96;
-      stage_rows(dst, wproj, C, k0, n0, n0 + 32, n0 + 64, KC);
-    }
-  }
-  cp_async_commit();
-}
-
-// acc = A[rows, C] @ (96 weight columns of the product whose chunks start at
-// g0 of the stream), the chunks taken from the ring as they land, the ring
-// refilled S - 1 chunks ahead.  One barrier a chunk: it shows every thread's
-// copies of this chunk and frees the buffer of the chunk before.  With
-// `bias_src`, the head's [N, N] bias is copied to `bias_dst` on the way.
-// Every thread of the block calls it.
-template <int C, int KC, int S, typename Cf>
-__device__ __forceinline__ void gemm96(const bf16* A, int g0, const Stream& st, bf16* stage,
-                                       const bf16* __restrict__ wqkv,
-                                       const bf16* __restrict__ wproj,
-                                       FragC (&acc)[Cf::ROUNDS][Cf::NFR],
-                                       const float* __restrict__ bias_src, float* bias_dst) {
-  const int warp = threadIdx.x / 32;
-  constexpr int PP = Cf::UNITS / Cf::RT;
-  const int part = warp % PP;
-#pragma unroll
-  for (int rd = 0; rd < Cf::ROUNDS; ++rd)
-#pragma unroll
-    for (int f = 0; f < Cf::NFR; ++f) wmma::fill_fragment(acc[rd][f], 0.0f);
-  for (int ch = 0; ch < Cf::NCH; ++ch) {
-    const int g = g0 + ch;
-    cp_async_wait<S - 2>();
-    __syncthreads();
-    fetch_chunk<C, KC, S, Cf>(g + S - 1, st, stage, wqkv, wproj);
-    if (ch == 0 && bias_src) {
-      // this head's bias, behind the barrier that ends the head before's attention;
-      // the barrier before this head's attention shows it
-      for (int i = threadIdx.x; i < kN * kN; i += kThreads) bias_dst[i] = bias_src[i];
-    }
-    const bf16* cur = stage + (g % S) * Cf::STAGE_ELEMS;
-#pragma unroll
-    for (int kk = 0; kk < KC / 16; ++kk) {
-      FragA a[Cf::ROUNDS];
-#pragma unroll
-      for (int rd = 0; rd < Cf::ROUNDS; ++rd) {
-        const int u = warp + kWarps * rd;
-        if (u < Cf::UNITS)
-          wmma::load_matrix_sync(a[rd], A + (u / PP) * 16 * Cf::LDY + ch * KC + kk * 16, Cf::LDY);
-      }
-#pragma unroll
-      for (int f = 0; f < Cf::NFR; ++f) {
-        FragB b;
-        wmma::load_matrix_sync(b, cur + kk * 16 * kLDB + (part * Cf::NFR + f) * 16, kLDB);
-#pragma unroll
-        for (int rd = 0; rd < Cf::ROUNDS; ++rd) {
-          const int u = warp + kWarps * rd;
-          if (u < Cf::UNITS) wmma::mma_sync(acc[rd][f], a[rd], b, acc[rd][f]);
-        }
-      }
-    }
-  }
-}
 
 // One warp a row: dst[c] = T((LN(src) * gamma + beta) * m) for C channels,
 // fp32 statistics, fast variance.  The row sits in registers between passes.

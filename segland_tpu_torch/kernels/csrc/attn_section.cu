@@ -67,7 +67,7 @@
 #endif
 
 #include "attn_common.cuh"
-#include "section_sm90.cuh"
+#include "section_geom.cuh"
 #include "sm90.cuh"
 
 namespace {

@@ -1,15 +1,13 @@
-// The head-grouped Swin attention section of the head-group probe, with its
-// masks shipped in (K9) or taken from the window index (K10, with timing
-// ablations).
+// The head-grouped Swin attention section of the head-group probe with its
+// masks taken from the window index and timing ablations (K10).
 //
-// Replaces: benchmarks/swin_attn_hg.py:hg_section (body `_hg_kernel`) as
-// `segland_hg_section`, and benchmarks/swin_attn_hg.py:hg2_section (body
-// `_hg2_kernel`) as `segland_hg2_section`.  One body serves both; they differ
-// in where the pad mask and the shift regions come from.
+// Replaces: benchmarks/swin_attn_hg.py:hg2_section (body `_hg2_kernel`) as
+// `segland_hg2_section`.  A WMMA body, which K9 (masks shipped in,
+// benchmarks/swin_attn_hg.py:hg_section) shared until its Hopper body,
+// attn_section_hg_sm90.cu.
 //
 // Per window of N = 49 tokens and C channels (heads of 32), bf16 T:
-//   m, r = mask_tok[w % rows_m], regions[w % rows_r]          (K9)
-//        = pad flag and region id from the window index          (K10)
+//   m, r = pad flag and region id from the window index
 //   y    = T((LN(x) * gamma + beta) * m)             fp32 stats, fast variance
 //   qkv  = T(T(y @ wqkv) + T(bqkv))                  fp32 accumulate
 //   per group of hg heads, per head:
@@ -22,7 +20,7 @@
 // product over the context of all heads after the last group, the same fp32
 // sum in another order: a [rows, C] fp32 accumulator kept across groups would
 // take 96-192 registers a thread at C >= 384.
-// Ablations (K10 only; timing builds with defined outputs): ioraw out = x + x;
+// Ablations (timing builds with defined outputs): ioraw out = x + x;
 // io out = x + y, after the qkv products, whose results are stored and never
 // read; attn ctx = T(q * scale) and no attention; softmax p = 0.001 s with no
 // max and no exp, and the 15 pad keys of the JAX wrapper's bf16 layout (score
@@ -58,7 +56,7 @@
 // parallel: part p instantiates the builds of SEGLAND_HG_BUILDS marked p, and
 // part 0 holds the entry points.
 
-#include "attn_common.cuh"
+#include "attn_wmma.cuh"
 
 #ifndef SEGLAND_PART
 #define SEGLAND_PART 0
@@ -67,8 +65,7 @@
 namespace segland_hg {
 struct HgArgs {
   const bf16 *x, *wqkv, *wproj, *bias;
-  const float *mask_tok, *regions, *gamma, *beta, *bqkv, *bproj;
-  int rows_m, rows_r;
+  const float *gamma, *beta, *bqkv, *bproj;
   bf16* out;
   long long NW;
   int wblk, h, w, hp, wp, ws, shift;
@@ -321,8 +318,7 @@ __device__ __forceinline__ void hg_attn_tile(const bf16* q, const bf16* k, const
 
 template <typename Cf>
 __global__ void __launch_bounds__(kThreads)
-hg_section_kernel(const bf16* __restrict__ x, const float* __restrict__ mask_tok, int rows_m,
-                  const float* __restrict__ regions, int rows_r, const float* __restrict__ gamma,
+hg_section_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                   const float* __restrict__ beta, const bf16* __restrict__ wqkv,
                   const float* __restrict__ bqkv, const bf16* __restrict__ wproj,
                   const float* __restrict__ bproj, const bf16* __restrict__ bias,
@@ -358,8 +354,7 @@ hg_section_kernel(const bf16* __restrict__ x, const float* __restrict__ mask_tok
     }
     return;
   }
-  const bool shipped = mask_tok != nullptr;
-  const bool use_rid = shipped ? regions != nullptr : g.shift > 0;
+  const bool use_rid = g.shift > 0;
   const float score_scale = score_f32 ? kScale : 1.0f;
   const float scale_b = bf(kScale);
   const bool attend = ablate == kNone || ablate == kSoftmaxAb;
@@ -382,15 +377,10 @@ hg_section_kernel(const bf16* __restrict__ x, const float* __restrict__ mask_tok
       if (i < rows) {
         const long long w = win0 + i / kN;
         const int t = i % kN;
-        if (shipped) {
-          m = bf(mask_tok[(size_t)(w % rows_m) * kN + t]);
-          if (regions) r = regions[(size_t)(w % rows_r) * kN + t];
-        } else {
-          int valid, rid;
-          token_geom((int)w, t, g, &valid, &rid);
-          m = (float)valid;
-          r = (float)rid;
-        }
+        int valid, rid;
+        token_geom((int)w, t, g, &valid, &rid);
+        m = (float)valid;
+        r = (float)rid;
       }
       m_s[i] = m;
       rid_s[i] = r;
@@ -541,7 +531,7 @@ cudaError_t launch_hg(const HgArgs& a) {
   const unsigned grid = (unsigned)((a.NW + a.wblk - 1) / a.wblk);
   const Geom g = {a.h, a.w, a.hp, a.wp, a.ws, a.shift};
   kernel<<<grid, kThreads, Cf::SMEM, a.stream>>>(
-      a.x, a.mask_tok, a.rows_m, a.regions, a.rows_r, a.gamma, a.beta, a.wqkv, a.bqkv, a.wproj,
+      a.x, a.gamma, a.beta, a.wqkv, a.bqkv, a.wproj,
       a.bproj, a.bias, a.out, a.NW, a.wblk, g, a.eps, a.ablate, a.score_f32);
   return cudaGetLastError();
 }
@@ -607,43 +597,24 @@ static int hg_dispatch(const HgArgs& a, int C, int nh, int hg) {
   return (int)cudaErrorInvalidValue;
 }
 
-// bf16 x, wqkv, wproj, bias [nh, N, N] and out; fp32 vectors, mask_tok
-// [rows_m, N] and regions [rows_r, N] (or null).  Windows of 7 x 7 tokens and
-// heads of 32; ablate 0 = none, 1 = ioraw, 2 = io, 3 = attn, 4 = softmax.
-// Returns a cudaError_t.
-#define SEGLAND_HG_PARAMS                                                                      \
-  const void *x, const void *mask_tok, int rows_m, const void *regions, int rows_r,            \
-      const void *gamma, const void *beta, const void *wqkv, const void *bqkv,                 \
-      const void *wproj, const void *bproj, const void *bias, void *out, long long NW, int C, \
-      int nh, int hg, int wblk, int h, int w, int hp, int wp, int ws, int shift, float eps,    \
-      int ablate, int score_f32, int device, void *stream
-
-static int hg_entry(SEGLAND_HG_PARAMS) {
+// K10.  bf16 x, wqkv, wproj, bias [nh, N, N] and out; fp32 vectors; the pad
+// mask and the region ids from geom = (h, w, hp, wp, ws, shift).  Windows of
+// 7 x 7 tokens and heads of 32; ablate 0 = none, 1 = ioraw, 2 = io, 3 = attn,
+// 4 = softmax.  Returns a cudaError_t.
+extern "C" int segland_hg2_section(const void* x, const void* gamma, const void* beta,
+                                   const void* wqkv, const void* bqkv, const void* wproj,
+                                   const void* bproj, const void* bias, void* out, long long NW,
+                                   int C, int nh, int hg, int wblk, int h, int w, int hp, int wp,
+                                   int ws, int shift, float eps, int ablate, int score_f32,
+                                   int device, void* stream) {
+  if (ws * ws != kN || hp % ws || wp % ws || shift < 0 || shift >= ws)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const HgArgs a = {(const bf16*)x, (const bf16*)wqkv, (const bf16*)wproj, (const bf16*)bias,
-                    (const float*)mask_tok, (const float*)regions, (const float*)gamma,
-                    (const float*)beta, (const float*)bqkv, (const float*)bproj,
-                    rows_m, rows_r, (bf16*)out, NW, wblk, h, w, hp, wp, ws, shift, eps,
+                    (const float*)gamma, (const float*)beta, (const float*)bqkv,
+                    (const float*)bproj, (bf16*)out, NW, wblk, h, w, hp, wp, ws, shift, eps,
                     ablate, score_f32, (cudaStream_t)stream};
   return hg_dispatch(a, C, nh, hg);
-}
-
-// K9: the pad mask and the region ids from the tables; no ablation.
-extern "C" int segland_hg_section(SEGLAND_HG_PARAMS) {
-  if (!mask_tok || rows_m < 1 || (regions && rows_r < 1) || ablate != 0)
-    return (int)cudaErrorInvalidValue;
-  return hg_entry(x, mask_tok, rows_m, regions, rows_r, gamma, beta, wqkv, bqkv, wproj, bproj,
-                  bias, out, NW, C, nh, hg, wblk, h, w, hp, wp, ws, shift, eps, ablate, score_f32,
-                  device, stream);
-}
-
-// K10: the pad mask and the region ids from geom = (h, w, hp, wp, ws, shift).
-extern "C" int segland_hg2_section(SEGLAND_HG_PARAMS) {
-  if (mask_tok || regions || ws * ws != kN || hp % ws || wp % ws || shift < 0 || shift >= ws)
-    return (int)cudaErrorInvalidValue;
-  return hg_entry(x, mask_tok, rows_m, regions, rows_r, gamma, beta, wqkv, bqkv, wproj, bproj,
-                  bias, out, NW, C, nh, hg, wblk, h, w, hp, wp, ws, shift, eps, ablate, score_f32,
-                  device, stream);
 }
 #endif  // SEGLAND_PART == 0

@@ -66,7 +66,7 @@
 #define SEGLAND_PART 0
 #endif
 
-#include "attn_common.cuh"
+#include "attn_wmma.cuh"
 #include "section_sm90.cuh"
 
 namespace {

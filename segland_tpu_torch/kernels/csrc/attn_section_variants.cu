@@ -7,7 +7,7 @@
 //
 // Per window w of N = 49 tokens and C channels (heads of 32), bf16 T:
 //   m, r = mask_tok[w % rows_m], regions[w % rows_r] (or none)
-//   y    = T((LN(x) * gamma + beta) * m)                 fp32 stats, fast variance
+//   y    = T((LN(x) * gamma + beta) * T(m))             fp32 stats, fast variance
 //   qkv  = T(T(y @ wqkv) + T(bqkv))                      fp32 accumulate
 //   per head:
 //     s   = (q . k) * scale + T(bias) + (r_q != r_k ? -100 : 0)   fp32
@@ -16,484 +16,510 @@
 //     ctx = T(p @ v)
 //     acc += ctx @ wproj[the head's 32 rows]             fp32, head by head
 //   out  = x + T(T(acc) + T(bproj))
-// Modes (runtime): 0 none; 1 ln, y = x * m without the norm; 2 io, out =
-// x + y and nothing else (the JAX body computes a qkv product it discards);
-// 3 attn, ctx = q; 4 softmax, p = T(0.001 s) with no max, exp or sum, and the
-// 15 pad keys of the JAX wrapper's bf16 layout (score T(-1e9) * 0.001, value
-// T(bqkv)) in the product with v; 5 nomax, exp(s) / sum; 6 bf16sm, e =
-// exp(T(s - max)), p = T(T(e) / T(sum e)); 7 proj1, the heads' contexts
-// assembled in shared memory and projected by one [rows, C] x [C, C] product.
+// Modes (template parameters): 0 none; 1 ln, y = T(x * T(m)) without the
+// norm; 2 io, out = T(x + y) and nothing else (the probe's I/O floor; the JAX
+// body computes a qkv product it discards); 3 attn, ctx = q; 4 softmax,
+// p = T(0.001 s) with no max, exp or sum, and the 15 pad keys of the JAX
+// wrapper's bf16 layout (score T(-1e9) * 0.001, value T(bqkv)) in the product
+// with v; 5 nomax, exp(s) / sum; 6 bf16sm, e = exp(T(s - max)),
+// p = T(T(e) / T(sum e)); 7 proj1, the heads' contexts assembled and
+// projected by one [rows, C] x [C, C] product.
 //
 // What bounds it on an H100: operations, 2*NW*N*C*(4C + 2N) over real tokens
 // (as attn_section.cu) against one read and one write of [NW, N, C].
 //
-// Design: a block owns `wblk` windows (the grid is ceil(NW / wblk)) and walks
-// them W at a time (W from the build, what shared memory and registers hold).
-// A pass is K9's at one head a pass (attn_section_hg.cu): y of W windows in
-// shared memory, one [W*49, C] x [C, 96] WMMA product a head through the
-// cp.async ring of attn_common.cuh, warp-local attention tiles of 16 query rows.
-// What the TPU body does differently from K3 and K9 is kept:
-//   * the probabilities are normalised before PV (K9 divides after);
-//   * mode `none` never holds the whole context: each head's [W*49, 32]
-//     context goes through that head's 32 rows of wproj, staged in shared
-//     memory, into an fp32 accumulator of [W*49, C] that lives in registers
-//     for the whole pass, RT * C / 16 WMMA tiles over 8 warps (12 a warp at
-//     C = 384, W = 1: 96 registers a thread).  ptxas -v for sm_90a: 255
-//     registers and 36 B of spill stores at C = 384, 24 B at C = 96 (W = 2),
-//     none at C = 192 (245 registers).  So W stays at 1-2 windows a pass where
-//     K9 holds 3-4, and that, not the per-head projection (within 5% of
-//     proj1 at the same W), is what K11 loses to K9;
-//   * mode `proj1` assembles the context in shared memory and projects it 96
-//     columns a pass through the ring, as K3 does.
-// The builds (C, W, KC, S) are listed in SEGLAND_VARIANT_BUILDS below and in
+// Design (sm_90a): section_win.cuh's body.  A block owns `wblk` windows (the
+// grid is ceil(NW / wblk)) and walks them W at a time, a pass a [64 W, C]
+// padded row matrix; two warpgroups and nothing else (255 registers a thread
+// for ptxas, not 168), which stream the weights (K-major, as nn.Linear keeps
+// them) once a pass through a ring of 12 KB slots that they refill themselves
+// (section_win.cuh's HandBackRing).
+// Per head: its q, k, v product on wgmma into one of two sets of q, k, v
+// tiles, K6's register-resident core over the pass's 4 W query tiles (the
+// probabilities normalised before PV, as the JAX body has them), the context
+// left over q.  Then what the TPU body does differently from K3 and K9:
+//   * modes none, ln, attn, softmax, nomax and bf16sm project each head's
+//     context [64 W, 32] as it is, a K = 32 A operand in the 64-byte swizzle,
+//     against that head's 32 K-columns of wproj^T, which the producer streams
+//     as [96, 32] boxes (64-byte swizzle, a slot each), into an fp32
+//     accumulator [64 W, C] that the two warpgroups hold in registers across
+//     the heads (by columns at W = 1, by windows at W = 2): the JAX body's
+//     order of sums.  The next head's q, k, v go to the other set of tiles,
+//     so no barrier waits for the projection's wgmma;
+//   * proj1 writes the contexts to the output rows, brings them back into y's
+//     place after the last head and projects them 96 columns a slot, as K5;
+//   * io runs no product, so it has a kernel of its own with no ring and no
+//     shared memory: a warp a row of the block's windows (flat, unpadded),
+//     sm90::ln_rows' batch of rows in flight at once, out = T(x + y) stored
+//     as y is made, up to 16 warps a block.
+// The builds (C, W, S) are listed in SEGLAND_VARIANT_BUILDS below and in
 // ops/section_variants.py; a width that is not built raises there with its
 // arithmetic.
 
-#include "attn_common.cuh"
+// segland-parts: 8
+// kernels/__init__.py compiles this file once a mode, -DSEGLAND_PART=0..7, in
+// parallel: part p instantiates mode p at every width; part 0 also holds the
+// measurement builds (mode none with phase clocks) and the entry points.
 
-namespace {
+#ifndef SEGLAND_PART
+#define SEGLAND_PART 0
+#endif
 
-enum Mode { kNone = 0, kLn = 1, kIo = 2, kAttn = 3, kSoftmax = 4, kNoMax = 5, kBf16Sm = 6,
-            kProj1 = 7 };
-constexpr float kScale = 0.17677669529663687f;  // 32 ** -0.5
-constexpr float kPadBias = -998244352.0f;       // bf16(-1e9): the key bias of a pad token
-constexpr int kPadKeys = 15;                    // 64 - 49 pad tokens in the bf16 layout
+#include "section_win.cuh"
 
-template <int C_, int W_, int KC_, int S_>
-struct VarCfg {
-  static constexpr int C = C_, W = W_, KC = KC_, S = S_;
-  typedef SecCfg<C, W, 2, KC, S> Sec;            // the qkv and proj1 products (gemm96)
-  static constexpr int R = W * kN;               // rows of a pass
-  static constexpr int RT = (R + 15) / 16;       // row tiles
-  static constexpr int RQ = (R + 30) / 16 * 16;  // q/k/v rows: a last tile reaches R + 14
-  static constexpr int NH = C / kHD;
-  static constexpr int LDY = C + 8;
-  static constexpr int CT = C / 16;              // column tiles of the accumulator
-  static constexpr int UNITSP = RT * CT;         // accumulator tiles, 8 warps
-  static constexpr int RP = (UNITSP + kWarps - 1) / kWarps;
-  static constexpr size_t Y_BYTES = align128((size_t)RT * 16 * LDY * sizeof(bf16));
-  static constexpr size_t OFF_CTX = Y_BYTES;     // proj1's assembled context
-  static constexpr size_t Q_BYTES = align128((size_t)RQ * kLQ * sizeof(bf16));
-  static constexpr size_t OFF_Q = OFF_CTX + Y_BYTES;  // q, k, v, the head's context
-  static constexpr size_t OFF_STRIP = OFF_Q + 4 * Q_BYTES;
-  static constexpr size_t OFF_STAGE = OFF_STRIP + (size_t)kWarps * kStrip * sizeof(float);
-  static constexpr size_t OFF_WP = OFF_STAGE + S * Sec::STAGE_ELEMS * sizeof(bf16);
-  static constexpr size_t OFF_BIAS = OFF_WP + align128((size_t)kHD * LDY * sizeof(bf16));
-  static constexpr size_t OFF_TOK = OFF_BIAS + align128((size_t)kN * kN * sizeof(float));
-  static constexpr size_t TOK_BYTES = align128((size_t)R * sizeof(float));
-  static constexpr size_t SMEM = OFF_TOK + 2 * TOK_BYTES;
-  static_assert(C % KC == 0 && KC % 16 == 0, "chunks must tile C");
-  static_assert(C % 96 == 0, "the projection walks 96 columns a pass");
-  static_assert(S >= 2, "the ring needs two buffers");
-  static_assert(SMEM <= kMaxSmem, "over the shared memory a block can have");
-};
-
-// One head of 16 query rows (tile rt) of one window, by one warp: scores by
-// WMMA into the warp's strip, the mode's softmax two lanes a row, the bf16
-// probabilities over the scores, their product with v, T(ctx) to `sink` (row
-// 0 of the window at this head's columns, row stride ld).  q, k, v: row 0 of
-// the window, [>= 64 rows, kLQ], rows 49..63 finite.  bias: the head's [N, N]
-// fp32 (values of T); rid: the window's N region ids or null; vpad: the
-// head's 32 values of a pad token.
-__device__ __forceinline__ void var_attn_tile(const bf16* q, const bf16* k, const bf16* v, int rt,
-                                              const float* bias, const float* rid, float scale,
-                                              int mode, const float* __restrict__ vpad,
-                                              float* strip, bf16* sink, size_t ld) {
-  const int lane = threadIdx.x % 32;
-  {
-    FragC s[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(s[j], 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < kHD / 16; ++kk) {
-      FragA a;
-      wmma::load_matrix_sync(a, q + rt * 16 * kLQ + kk * 16, kLQ);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        FragBT b;
-        wmma::load_matrix_sync(b, k + j * 16 * kLQ + kk * 16, kLQ);
-        wmma::mma_sync(s[j], a, b, s[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(strip + j * 16, s[j], kLS, wmma::mem_row_major);
-  }
-  __syncwarp();
-  // two lanes a row, 32 columns each, in an order rotated so that no two
-  // lanes meet in a bank (attn_tile_bf16)
-  bf16* p = reinterpret_cast<bf16*>(strip);
-  {
-    const int r = lane >> 1, hf = lane & 1;
-    const int qi = rt * 16 + r;
-    const int rot = hf + 2 * (r >> 3);
-    const bool live = qi < kN;
-    const float* srow = strip + r * kLS + hf * 32;
-    const float* brow = bias + (live ? qi : 0) * kN + hf * 32;
-    const float rq = (rid && live) ? rid[qi] : 0.0f;
-    float e[32];
-    float m = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int col = (c + rot) & 31;
-      float val = -INFINITY;
-      if (live && hf * 32 + col < kN) {
-        val = srow[col] * scale + brow[col];
-        if (rid && rid[hf * 32 + col] != rq) val += -100.0f;
-      }
-      e[c] = val;
-      m = fmaxf(m, val);
-    }
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-    float sum = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const bool key = live && hf * 32 + ((c + rot) & 31) < kN;
-      float ev = 0.0f;
-      if (key) {
-        if (mode == kSoftmax) ev = 0.001f * e[c];
-        else if (mode == kNoMax) ev = __expf(e[c]);
-        else if (mode == kBf16Sm) ev = __expf(bf(e[c] - m));
-        else ev = __expf(e[c] - m);
-      }
-      e[c] = ev;
-      sum += ev;
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    const float inv = live ? 1.0f / (mode == kBf16Sm ? bf(sum) : sum) : 0.0f;
-    __syncwarp();  // every score is in a register: the rows may be overwritten
-    bf16* prow = p + r * 2 * kLS + hf * 32;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const float pv = mode == kSoftmax ? e[c] : (mode == kBf16Sm ? bf(e[c]) : e[c]) * inv;
-      prow[(c + rot) & 31] = __float2bfloat16(pv);
-    }
-  }
-  __syncwarp();
-  FragC o[2];
-  wmma::fill_fragment(o[0], 0.0f);
-  wmma::fill_fragment(o[1], 0.0f);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    FragA a;
-    wmma::load_matrix_sync(a, p + kk * 16, 2 * kLS);
-#pragma unroll
-    for (int f = 0; f < 2; ++f) {
-      FragB b;
-      wmma::load_matrix_sync(b, v + kk * 16 * kLQ + f * 16, kLQ);
-      wmma::mma_sync(o[f], a, b, o[f]);
-    }
-  }
-  __syncwarp();  // every lane has loaded its probabilities: the strip is free
-  wmma::store_matrix_sync(strip, o[0], kLS, wmma::mem_row_major);
-  wmma::store_matrix_sync(strip + 16, o[1], kLS, wmma::mem_row_major);
-  __syncwarp();
-  const float pad_term = mode == kSoftmax ? kPadKeys * bf(0.001f * kPadBias) * bf(vpad[lane]) : 0.0f;
-  for (int r = 0; r < 16; ++r) {
-    const int qi = rt * 16 + r;
-    if (qi < kN) sink[(size_t)qi * ld + lane] = __float2bfloat16(strip[r * kLS + lane] + pad_term);
-  }
-  __syncwarp();
-}
-
-template <typename Cf>
-__global__ void __launch_bounds__(kThreads, 1)
-section_variants_kernel(const bf16* __restrict__ x, const float* __restrict__ mask_tok,
-                        int rows_m, const float* __restrict__ regions, int rows_r,
-                        const float* __restrict__ gamma, const float* __restrict__ beta,
-                        const bf16* __restrict__ wqkv, const float* __restrict__ bqkv,
-                        const bf16* __restrict__ wproj, const float* __restrict__ bproj,
-                        const float* __restrict__ bias, bf16* __restrict__ out, long long NW,
-                        int wblk, float eps, int mode, int score_f32) {
-  typedef typename Cf::Sec Sec;
-  constexpr int C = Cf::C, W = Cf::W, KC = Cf::KC, S = Cf::S, R = Cf::R, LDY = Cf::LDY;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ys = reinterpret_cast<bf16*>(smem);
-  bf16* ctx_s = reinterpret_cast<bf16*>(smem + Cf::OFF_CTX);
-  bf16* qb = reinterpret_cast<bf16*>(smem + Cf::OFF_Q);
-  bf16* kb = reinterpret_cast<bf16*>(smem + Cf::OFF_Q + Cf::Q_BYTES);
-  bf16* vb = reinterpret_cast<bf16*>(smem + Cf::OFF_Q + 2 * Cf::Q_BYTES);
-  bf16* ch = reinterpret_cast<bf16*>(smem + Cf::OFF_Q + 3 * Cf::Q_BYTES);  // a head's context
-  float* strips = reinterpret_cast<float*>(smem + Cf::OFF_STRIP);
-  bf16* stage = reinterpret_cast<bf16*>(smem + Cf::OFF_STAGE);
-  bf16* wp_s = reinterpret_cast<bf16*>(smem + Cf::OFF_WP);
-  float* bias_s = reinterpret_cast<float*>(smem + Cf::OFF_BIAS);
-  float* m_s = reinterpret_cast<float*>(smem + Cf::OFF_TOK);
-  float* rid_s = reinterpret_cast<float*>(smem + Cf::OFF_TOK + Cf::TOK_BYTES);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long blk0 = (long long)blockIdx.x * wblk;
-  const int nblk = (int)((NW - blk0) < (long long)wblk ? (NW - blk0) : (long long)wblk);
-  const bool proj1 = mode == kProj1;
-  const bool attend = mode != kAttn;
-  const float scale = score_f32 ? kScale : 1.0f;
-  const float scale_b = bf(kScale);
-  const int nprod = mode == kIo ? 0 : Cf::NH + (proj1 ? C / 96 : 0);
-  const Stream st = {nprod * Sec::NCH, 0, nprod > 0 ? nprod : 1};
-  float* scratch = strips + warp * 256;  // this warp's 16 x 16 tile for the epilogues
-
-  for (int p0 = 0; p0 < nblk; p0 += W) {
-    const long long win0 = blk0 + p0;
-    const int nwin = nblk - p0 < W ? nblk - p0 : W;
-    const int rows = nwin * kN;  // real rows of this pass
-    cp_async_wait<0>();
-    __syncthreads();  // the pass before is done with every buffer
-    for (int c = 0; c < S - 1; ++c) fetch_chunk<C, KC, S, Sec>(c, st, stage, wqkv, wproj);
-
-    // mask value and region id of every token; zero tails of q, k, v and the context
-    for (int i = threadIdx.x; i < R; i += kThreads) {
-      float m = 0.0f, r = 0.0f;
-      if (i < rows) {
-        const long long w = win0 + i / kN;
-        const int t = i % kN;
-        m = bf(mask_tok[(size_t)(w % rows_m) * kN + t]);
-        if (regions) r = regions[(size_t)(w % rows_r) * kN + t];
-      }
-      m_s[i] = m;
-      rid_s[i] = r;
-    }
-    for (int i = threadIdx.x; i < 4 * (Cf::RQ - R) * kLQ; i += kThreads) {
-      const int b = i / ((Cf::RQ - R) * kLQ), e = i % ((Cf::RQ - R) * kLQ);
-      reinterpret_cast<bf16*>(smem + Cf::OFF_Q + b * Cf::Q_BYTES)[R * kLQ + e] =
-          __float2bfloat16(0.0f);
-    }
-    __syncthreads();
-    // y = LN(x) * m (ln: x * m), one warp a row; rows past the pass's windows are zero
-    for (int r = warp; r < Cf::RT * 16; r += kWarps) {
-      bf16* dst = ys + r * LDY;
-      if (r >= rows) {  // warp-uniform
-        for (int c = lane; c < C; c += 32) dst[c] = __float2bfloat16(0.0f);
-        continue;
-      }
-      const bf16* src = x + ((size_t)win0 * kN + r) * C;
-      if (mode == kLn) {
-        for (int c = lane; c < C; c += 32)
-          dst[c] = __float2bfloat16(__bfloat162float(src[c]) * m_s[r]);
-      } else {
-        ln_row_bf16<C>([&](int c) { return __bfloat162float(src[c]); }, gamma, beta, eps,
-                       m_s[r], dst);
-      }
-    }
-    if (mode == kIo) {  // out = x + y
-      __syncthreads();
-      for (int i = threadIdx.x; i < rows * (C / 8); i += kThreads) {
-        const int r = i / (C / 8), c = (i % (C / 8)) * 8;
-        const size_t at = ((size_t)win0 * kN + r) * C + c;
-        uint4 val = *reinterpret_cast<const uint4*>(x + at);
-        const uint4 yv = *reinterpret_cast<const uint4*>(ys + r * LDY + c);
-        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&val);
-        const __nv_bfloat162* hy = reinterpret_cast<const __nv_bfloat162*>(&yv);
-#pragma unroll
-        for (int t = 0; t < 4; ++t) h[t] = __hadd2(h[t], hy[t]);
-        *reinterpret_cast<uint4*>(out + at) = val;
-      }
-      continue;
-    }
-    // the first product's first barrier shows y and the token tables
-
-    FragC accp[Cf::RP];  // the per-head projection's fp32 accumulator
-#pragma unroll
-    for (int i = 0; i < Cf::RP; ++i) wmma::fill_fragment(accp[i], 0.0f);
-    FragC acc[Sec::ROUNDS][Sec::NFR];
-    for (int h = 0; h < Cf::NH; ++h) {
-      gemm96<C, KC, S, Sec>(ys, h * Sec::NCH, st, stage, wqkv, wproj, acc,
-                            bias + (size_t)h * kN * kN, bias_s);
-      // q, k, v of this head = T(T(acc) + T(bqkv)); q' = T(q * T(scale)) without
-      // fp32 scores; with mode attn the head's context is q
-#pragma unroll
-      for (int rd = 0; rd < Sec::ROUNDS; ++rd) {
-        const int u = warp + kWarps * rd;
-        if (u < Sec::UNITS) {
-#pragma unroll
-          for (int f = 0; f < Sec::NFR; ++f) {
-            const int rt = u / 2, colt = (u % 2) * Sec::NFR + f;
-            wmma::store_matrix_sync(scratch, acc[rd][f], 16, wmma::mem_row_major);
-            const int col = colt * 16 + lane % 16;  // this lane's column of the tile
-            const int which = col / kHD, d = col % kHD;
-            const float bcol = bf(bqkv[which * C + h * kHD + d]);
-            bf16* dstb = (which == 0 ? qb : (which == 1 ? kb : vb)) + d;
-            __syncwarp();
-#pragma unroll
-            for (int e = lane; e < 256; e += 32) {
-              const int row = rt * 16 + e / 16;
-              if (row < R) {
-                float val = bf(bf(scratch[e]) + bcol);
-                if (which == 0) {
-                  if (!attend) ch[row * kLQ + d] = __float2bfloat16(val);
-                  if (!score_f32) val = bf(val * scale_b);
-                }
-                dstb[row * kLQ] = __float2bfloat16(val);
-              }
-            }
-            __syncwarp();
-          }
-        }
-      }
-      if (!proj1) {  // the head's 32 rows of wproj, behind the product's barriers
-        for (int i = threadIdx.x; i < kHD * (C / 8); i += kThreads) {
-          const int r = i / (C / 8), c = (i % (C / 8)) * 8;
-          *reinterpret_cast<uint4*>(wp_s + r * LDY + c) =
-              *reinterpret_cast<const uint4*>(wproj + (size_t)(h * kHD + r) * C + c);
-        }
-      }
-      __syncthreads();
-      if (attend) {
-        for (int u = warp; u < nwin * 4; u += kWarps) {
-          const int wl = u / 4, rt = u % 4;
-          const int r0 = wl * kN;
-          bf16* sink = proj1 ? ctx_s + (size_t)r0 * LDY + h * kHD : ch + r0 * kLQ;
-          var_attn_tile(qb + r0 * kLQ, kb + r0 * kLQ, vb + r0 * kLQ, rt, bias_s,
-                        regions ? rid_s + r0 : nullptr, scale, mode, bqkv + 2 * C + h * kHD,
-                        strips + warp * kStrip, sink, proj1 ? (size_t)LDY : (size_t)kLQ);
-        }
-      }
-      if (!proj1) {
-        __syncthreads();  // the head's context is whole
-        // accp += ctx_h @ wproj[h rows]; unit u = warp + 8 i is tile (u / CT, u % CT)
-#pragma unroll
-        for (int i = 0; i < Cf::RP; ++i) {
-          const int u = warp + kWarps * i;
-          if (u < Cf::UNITSP) {
-            const int rt = u / Cf::CT, ct = u % Cf::CT;
-#pragma unroll
-            for (int kk = 0; kk < kHD / 16; ++kk) {
-              FragA a;
-              FragB b;
-              wmma::load_matrix_sync(a, ch + rt * 16 * kLQ + kk * 16, kLQ);
-              wmma::load_matrix_sync(b, wp_s + kk * 16 * LDY + ct * 16, LDY);
-              wmma::mma_sync(accp[i], a, b, accp[i]);
-            }
-          }
-        }
-      }
-      // the next product's first barrier comes before q, k, v, the context or
-      // the staged rows are touched again
-    }
-
-    if (!proj1) {  // out = x + T(T(acc) + T(bproj))
-#pragma unroll
-      for (int i = 0; i < Cf::RP; ++i) {
-        const int u = warp + kWarps * i;
-        if (u < Cf::UNITSP) {
-          const int rt = u / Cf::CT, ct = u % Cf::CT;
-          wmma::store_matrix_sync(scratch, accp[i], 16, wmma::mem_row_major);
-          const int col = ct * 16 + lane % 16;  // this lane's column of the tile
-          const float bcol = bf(bproj[col]);
-          float xr[8];  // the residual, fetched before the tile is read back
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int row = rt * 16 + lane / 16 + 2 * j;
-            xr[j] = row < rows ? __bfloat162float(x[((size_t)win0 * kN + row) * C + col]) : 0.0f;
-          }
-          __syncwarp();
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int row = rt * 16 + lane / 16 + 2 * j;
-            if (row < rows)
-              out[((size_t)win0 * kN + row) * C + col] =
-                  __float2bfloat16(xr[j] + bf(bf(scratch[lane + 32 * j]) + bcol));
-          }
-          __syncwarp();
-        }
-      }
-      continue;
-    }
-
-    // proj1: out = x + T(T(ctx @ wproj) + T(bproj)), 96 columns a pass
-    for (int n0 = 0; n0 < C; n0 += 96) {
-      gemm96<C, KC, S, Sec>(ctx_s, (Cf::NH + n0 / 96) * Sec::NCH, st, stage, wqkv, wproj, acc,
-                            nullptr, nullptr);
-#pragma unroll
-      for (int rd = 0; rd < Sec::ROUNDS; ++rd) {
-        const int u = warp + kWarps * rd;
-        if (u < Sec::UNITS) {
-#pragma unroll
-          for (int f = 0; f < Sec::NFR; ++f) {
-            const int rt = u / 2, colt = (u % 2) * Sec::NFR + f;
-            wmma::store_matrix_sync(scratch, acc[rd][f], 16, wmma::mem_row_major);
-            const int col = n0 + colt * 16 + lane % 16;
-            const float bcol = bf(bproj[col]);
-            float xr[8];
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              const int row = rt * 16 + lane / 16 + 2 * j;
-              xr[j] = row < rows ? __bfloat162float(x[((size_t)win0 * kN + row) * C + col]) : 0.0f;
-            }
-            __syncwarp();
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              const int row = rt * 16 + lane / 16 + 2 * j;
-              if (row < rows)
-                out[((size_t)win0 * kN + row) * C + col] =
-                    __float2bfloat16(xr[j] + bf(bf(scratch[lane + 32 * j]) + bcol));
-            }
-            __syncwarp();
-          }
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-}
-
-struct VarArgs {
-  const bf16 *x, *wqkv, *wproj;
-  const float *mask_tok, *regions, *gamma, *beta, *bqkv, *bproj, *bias;
+namespace segland_var {
+struct Args {
+  const bf16 *x, *wqkv, *wproj, *bias;
+  const float *mask_tok, *regions, *gamma, *beta, *bqkv, *bproj;
   int rows_m, rows_r;
   bf16* out;
   long long NW;
   int wblk;
   float eps;
-  int mode, score_f32;
+  int score_f32;
+  unsigned long long* clocks;  // the measurement builds only
   cudaStream_t stream;
 };
+// mode p's builds (part p): launch (a cudaError_t, or -1 where C has no
+// build) and their attributes
+int launch_part0(const Args& a, int C);
+int launch_part1(const Args& a, int C);
+int launch_part2(const Args& a, int C);
+int launch_part3(const Args& a, int C);
+int launch_part4(const Args& a, int C);
+int launch_part5(const Args& a, int C);
+int launch_part6(const Args& a, int C);
+int launch_part7(const Args& a, int C);
+int attrs_part0(int C, cudaFuncAttributes* fa, int* smem);
+int attrs_part1(int C, cudaFuncAttributes* fa, int* smem);
+int attrs_part2(int C, cudaFuncAttributes* fa, int* smem);
+int attrs_part3(int C, cudaFuncAttributes* fa, int* smem);
+int attrs_part4(int C, cudaFuncAttributes* fa, int* smem);
+int attrs_part5(int C, cudaFuncAttributes* fa, int* smem);
+int attrs_part6(int C, cudaFuncAttributes* fa, int* smem);
+int attrs_part7(int C, cudaFuncAttributes* fa, int* smem);
+}  // namespace segland_var
 
-template <typename Cf>
-cudaError_t launch_variants(const VarArgs& a) {
-  auto kernel = section_variants_kernel<Cf>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)Cf::SMEM);
+namespace {
+using segland_var::Args;
+
+enum Mode { kNone = 0, kLn = 1, kIo = 2, kAttn = 3, kSoftmax = 4, kNoMax = 5, kBf16Sm = 6,
+            kProj1 = 7 };
+
+// C channels, W windows a pass, S ring slots; two sets of q, k, v tiles, one
+// head's bias.  The per-head projection: NP pieces a head ([96 output
+// columns, 32 K-columns] of wproj^T, a slot each); a warpgroup takes NPC of
+// them at NBP columns a wgmma.  At W = 1 the warpgroups split the columns:
+// HALF (C = 96) one piece at 48 columns each, SPLIT (C > 96) a warpgroup its
+// own C / 192 pieces (the other's skipped); at W = 2 each takes every piece
+// for its window.
+template <int C_, int W_, int S_>
+struct VarPlan : WinPlan<C_, W_, S_, 2, 1> {
+  typedef WinPlan<C_, W_, S_, 2, 1> Base;
+  static constexpr int NP = C_ / 96;
+  static constexpr bool HALF = !Base::ROWS && C_ == 96;
+  static constexpr bool SPLIT = !Base::ROWS && C_ > 96;
+  static constexpr int NPC = Base::ROWS ? NP : (HALF ? 1 : NP / 2);
+  static constexpr int NBP = HALF ? 48 : 96;
+  static constexpr int ACCP = NBP / 2;         // registers of a piece's accumulator
+  static constexpr int PIECE = 96 * kHD * 2;   // bytes of a piece
+  static_assert(!SPLIT || NP % 2 == 0, "the pieces split evenly over two warpgroups");
+};
+
+// a pass's stream, item by item, in the order the consumers take it: a head's
+// q, k, v K tiles, then (per-head modes) its NP projection pieces; proj1 the
+// projection's K tiles after the last head
+template <typename Pl, int MODE>
+struct VarItems {
+  static constexpr int HEAD = Pl::KT + (MODE != kProj1 ? Pl::NP : 0);
+  static constexpr int PASS = Pl::NH * HEAD + (MODE == kProj1 ? Pl::C / 96 * Pl::KT : 0);
+  const CUtensorMap *mq, *mp, *mh;
+  __device__ __forceinline__ void operator()(int i, unsigned char* dst, uint64_t* bar) const {
+    const int j = i % PASS;
+    if (j >= Pl::NH * HEAD) {
+      const int k = j - Pl::NH * HEAD;
+      load_proj<Pl>(dst, bar, mp, k / Pl::KT * 96, k % Pl::KT);
+    } else if (j % HEAD < Pl::KT) {
+      load_qkv<Pl>(dst, bar, mq, j / HEAD, j % HEAD);
+    } else {  // [96, 32] of wproj^T: output columns 96 p.., the head's K-columns
+      sm90::mbar_expect_tx(bar, Pl::PIECE);
+      sm90::tma_load_2d(dst, mh, bar, j / HEAD * kHD, (j % HEAD - Pl::KT) * 96);
+    }
+  }
+};
+
+template <typename Pl>
+using AccP = float[Pl::NTW][Pl::NPC][Pl::ACCP];
+
+template <typename Pl>
+__device__ __forceinline__ void fence_accp(AccP<Pl>& accp) {
+#pragma unroll
+  for (int t = 0; t < Pl::NTW; ++t)
+#pragma unroll
+    for (int p = 0; p < Pl::NPC; ++p) sm90::reg_fence(accp[t][p]);
+}
+
+// accp += ctx_h @ wproj^T[:, 32 h .. 32 h + 31]^T: the head's context (its q
+// tiles, 64-byte swizzle) against the ring's next NP pieces
+template <typename Pl, typename Rg, typename Clk>
+__device__ __forceinline__ void head_projection(Rg& q, const unsigned char* ctx, int g,
+                                                AccP<Pl>& accp, Clk& clk) {
+  if constexpr (Pl::SPLIT) {
+    clk.template lap<kClkMma>();
+    ring_skip(q, g * Pl::NPC);
+    clk.template lap<kClkWait>();
+  }
+#pragma unroll
+  for (int p = 0; p < Pl::NPC; ++p) {
+    clk.template lap<kClkMma>();
+    unsigned char* b = ring_take(q);
+    clk.template lap<kClkWait>();
+    const uint64_t db = sm90::desc_sw64(b + (Pl::HALF ? 48 * kHD * 2 * g : 0));
+    fence_accp<Pl>(accp);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < Pl::NTW; ++t) {
+      const int rt = Pl::ROWS ? g + 2 * t : 0;
+      const uint64_t da = sm90::desc_sw64(ctx + rt * kTileQ);
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+        wgmma_n<Pl::NBP>(accp[t][p], sm90::desc_step(da, ks), sm90::desc_step(db, ks));
+    }
+    sm90::wgmma_commit();
+    ring_used(q);
+    fence_accp<Pl>(accp);
+    ring_next(q);
+  }
+  if constexpr (Pl::SPLIT) {
+    clk.template lap<kClkMma>();
+    ring_skip(q, (1 - g) * Pl::NPC);
+    clk.template lap<kClkWait>();
+  }
+  ring_drain(q);
+  clk.template lap<kClkMma>();
+  fence_accp<Pl>(accp);
+}
+
+// out = x + T(T(accp) + T(bproj)) of this warpgroup's rows and columns
+template <typename Pl>
+__device__ __forceinline__ void head_proj_epilogue(AccP<Pl>& accp, int g, int nwin,
+                                                   const float* __restrict__ bproj, const bf16* x,
+                                                   bf16* out) {
+  const int lane = threadIdx.x % 32, wrow = ((threadIdx.x / 32) % 4) * 16;
+#pragma unroll
+  for (int t = 0; t < Pl::NTW; ++t) {
+    const int rt = Pl::ROWS ? g + 2 * t : 0;
+#pragma unroll
+    for (int p = 0; p < Pl::NPC; ++p) {
+      const int c0 = Pl::HALF ? 48 * g : (Pl::SPLIT ? (g * Pl::NPC + p) * 96 : p * 96);
+#pragma unroll
+      for (int i = 0; i < Pl::ACCP; i += 2)
+        out_pair(rt * 64 + wrow + lane / 4 + 8 * ((i / 2) % 2), c0 + (i / 4) * 8 + (lane % 4) * 2,
+                 accp[t][p][i], accp[t][p][i + 1], nwin, Pl::C, bproj, x, out);
+    }
+  }
+}
+
+// y = T(x * T(m)) of the pass's real rows, zero elsewhere (mode ln)
+template <typename Pl>
+__device__ __forceinline__ void win_scale_rows(unsigned char* ys, const bf16* xb,
+                                               const float* __restrict__ mask_tok, int rows_m,
+                                               long long win0, int nwin) {
+  const int lane = threadIdx.x % 32;
+  for (int r = threadIdx.x / 32; r < Pl::R; r += kWarps) {
+    const int wl = r / kWinRows, t = r % kWinRows;
+    const bool real = t < kN && wl < nwin;
+    const float m = real ? bf(table_at(mask_tok, rows_m, win0, wl * kN + t)) : 0.0f;
+    const bf16* src = xb + (size_t)(wl * kN + t) * Pl::C;
+    for (int c = 2 * lane; c < Pl::C; c += 64) {
+      uint32_t v = 0u;
+      if (real) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src + c));
+        v = pack2(f.x * m, f.y * m);
+      }
+      *reinterpret_cast<uint32_t*>(ys + (c / 64) * Pl::YK + sm90::sw128(r, c % 64)) = v;
+    }
+  }
+}
+
+// Mode io: out = T(x + y), y = T((LN(x) * gamma + beta) * T(m)), of the
+// block's windows as flat rows, a warp a row (win_ln's arithmetic, unpadded).
+constexpr int kIoWarps = 16;  // a block's most warps (128 registers a thread)
+
+template <int C>
+__global__ void __launch_bounds__(kIoWarps * 32, 1)
+io_kernel(const bf16* __restrict__ x, const float* __restrict__ mask_tok, int rows_m,
+          const float* __restrict__ gamma, const float* __restrict__ beta,
+          bf16* __restrict__ out, long long NW, int wblk, float eps) {
+  const Passes ps = win_passes(NW, wblk, 1);
+  const bf16* xb = x + (size_t)ps.blk0 * kN * C;
+  bf16* ob = out + (size_t)ps.blk0 * kN * C;
+  sm90::ln_rows<C, sm90::kLnBatch<C>>(
+      [&](int r) { return xb + (size_t)r * C; }, threadIdx.x / 32, blockDim.x / 32,
+      ps.nblk * kN, gamma, beta, eps,
+      [&](int r, int c, uint32_t y, float2 xv) {
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r * C + c) =
+            __hadd2(__floats2bfloat162_rn(xv.x, xv.y), *reinterpret_cast<__nv_bfloat162*>(&y));
+      },
+      [&](int r) { return bf(table_at(mask_tok, rows_m, ps.blk0, r)); });
+}
+
+// warps a block of mode io: one for each batch of rows of wblk windows, up to kIoWarps
+template <int C>
+int io_warps(int wblk) {
+  const long long w = ((long long)wblk * kN + sm90::kLnBatch<C> - 1) / sm90::kLnBatch<C>;
+  return w < kIoWarps ? (int)w : kIoWarps;
+}
+
+template <int C>
+cudaError_t launch_io(const Args& a) {
+  const unsigned grid = (unsigned)((a.NW + a.wblk - 1) / a.wblk);
+  io_kernel<C><<<grid, io_warps<C>(a.wblk) * 32, 0, a.stream>>>(
+      a.x, a.mask_tok, a.rows_m, a.gamma, a.beta, a.out, a.NW, a.wblk, a.eps);
+  return cudaGetLastError();
+}
+
+template <typename Pl, int MODE, bool CLK>
+__global__ void __launch_bounds__(Pl::THREADS, 1)
+variants_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mp,
+                const __grid_constant__ CUtensorMap mh, const bf16* __restrict__ x,
+                const float* __restrict__ mask_tok, int rows_m, const float* __restrict__ regions,
+                int rows_r, const float* __restrict__ gamma, const float* __restrict__ beta,
+                const float* __restrict__ bqkv, const float* __restrict__ bproj,
+                const bf16* __restrict__ bias, bf16* __restrict__ out, long long NW, int wblk,
+                float eps, int score_f32, unsigned long long* __restrict__ clocks) {
+  constexpr int C = Pl::C, W = Pl::W, S = Pl::S;
+  static_assert(MODE != kIo, "mode io is io_kernel");
+  constexpr bool PER_HEAD = MODE != kProj1;
+  constexpr bool CORE = MODE != kAttn;
+  constexpr int CORE_MODE = MODE == kSoftmax ? kCoreLinear
+                            : MODE == kNoMax ? kCoreNoMax
+                            : MODE == kBf16Sm ? kCoreBf16Sm : kCoreNorm;
+  extern __shared__ unsigned char smem_raw[];
+  const Passes ps = win_passes(NW, wblk, W);
+  typedef VarItems<Pl, MODE> Items;
+  HandBackRing<Pl::SLOT, S, Items> q;
+  unsigned char* smem = win_smem<Pl>(smem_raw, q, Items{&mq, &mp, &mh}, ps.npass * Items::PASS);
+
+  // ---- two warpgroups, which refill the ring too -----------------------------------
+  unsigned char* ys = smem + Pl::OFF_Y;
+  bf16* bias_s = reinterpret_cast<bf16*>(smem + Pl::OFF_BIAS);
+  float* rid_s = reinterpret_cast<float*>(smem + Pl::OFF_TOK);
+  const int cw = threadIdx.x / 32, g = cw / 4;
+  const int cofs = Pl::ROWS ? 0 : 48 * g;  // the warpgroup's first column of a slot
+  const float scale = score_f32 ? kScale : 1.0f;
+  const bool scale_q = !score_f32 && MODE != kAttn;  // attn: the context is q itself
+  sm90::PhaseClocks<CLK, kClkPhases> clk;
+  clk.start();
+  float acc[Pl::NTW][Pl::ACC];
+  AccP<Pl> accp;
+  for (int p = 0; p < ps.npass; ++p) {
+    const long long win0 = ps.blk0 + (long long)p * W;
+    const int nwin = ps.nblk - p * W < W ? ps.nblk - p * W : W;
+    const bf16* xb = x + (size_t)win0 * kN * C;
+    bf16* ob = out + (size_t)win0 * kN * C;
+    if (p > 0) consumers_sync();  // the pass before is done with y, the tables, q, k, v
+    win_tables<Pl>(rid_s, regions, rows_r, win0, nwin);
+    if constexpr (MODE == kLn)
+      win_scale_rows<Pl>(ys, xb, mask_tok, rows_m, win0, nwin);
+    else
+      win_ln<Pl>(ys, xb, mask_tok, rows_m, win0, nwin, gamma, beta, eps);
+    sm90::fence_async_smem();
+    if constexpr (PER_HEAD) {
+#pragma unroll
+      for (int t = 0; t < Pl::NTW; ++t)
+#pragma unroll
+        for (int pc = 0; pc < Pl::NPC; ++pc)
+#pragma unroll
+          for (int i = 0; i < Pl::ACCP; ++i) accp[t][pc][i] = 0.0f;
+      fence_accp<Pl>(accp);
+    }
+    for (int h = 0; h < Pl::NH; ++h) {
+      // this head's bias: the barrier that ended the head before's attention is
+      // behind us, the one before this head's attention shows it
+      if constexpr (CORE) copy_bias(bias_s, bias, h, 1);
+      if (h == 0) consumers_sync();  // y and the tables, whole
+      clk.template lap<kClkSetup>();
+      section_product<Pl>(q, ys, g, cofs, acc, clk);
+      // q, k, v of this head into the set of tiles the head before last used
+      unsigned char* buf = smem + Pl::OFF_Q + (size_t)(h & 1) * 3 * Pl::QKV;
+      qkv_epilogue<Pl>(acc, g, cofs, h, Pl::R, bqkv, [&](int which, int row, int d, uint32_t v) {
+        store_qkv<Pl>(buf, which, row, d, v, scale_q);
+      });
+      if constexpr (MODE == kAttn) sm90::fence_async_smem();  // q is the projection's operand
+      consumers_sync();  // q, k, v and the bias, whole
+      clk.template lap<kClkQkv>();
+      if constexpr (CORE) {
+        for (int u = cw; u < nwin * 4; u += kWarps) {
+          const int wl = u / 4, qt = u % 4;
+          unsigned char* b = buf + wl * kTileQ;
+          win_core<CORE_MODE>(b, b + Pl::QKV, b + 2 * Pl::QKV, qt, bias_s,
+                              regions ? rid_s + wl * kWinRows : nullptr, scale,
+                              MODE == kProj1 ? ob + (size_t)wl * kN * C + h * kHD : nullptr, C);
+        }
+        if constexpr (PER_HEAD) sm90::fence_async_smem();  // the context is an operand
+        consumers_sync();  // the head's context, whole
+        clk.template lap<kClkAttn>();
+      }
+      if constexpr (PER_HEAD) head_projection<Pl>(q, buf, g, accp, clk);
+    }
+    if constexpr (MODE == kProj1) {
+      // the context back into y's place (y is dead), then 96 columns a slot
+      ctx_to_y<Pl>(ob, nwin, ys);
+      consumers_sync();
+      clk.template lap<kClkCtx>();
+      for (int n0 = 0; n0 < C; n0 += 96) {
+        section_product<Pl>(q, ys, g, cofs, acc, clk);
+        win_proj_epilogue<Pl>(acc, g, cofs, n0, nwin, bproj, xb, ob);
+        clk.template lap<kClkOut>();
+      }
+    } else {
+      head_proj_epilogue<Pl>(accp, g, nwin, bproj, xb, ob);
+      clk.template lap<kClkOut>();
+    }
+    ring_pass_end(q, (p + 1) * Items::PASS);
+  }
+  clk.flush(clocks);
+}
+
+template <typename Pl, int MODE, bool CLK>
+cudaError_t launch_variants(const Args& a) {
+  constexpr int C = Pl::C;
+  CUtensorMap mq, mp, mh;
+  cudaError_t err = win_qkv_map(&mq, a.wqkv, C);
+  if (err == cudaSuccess) err = sm90::tile_map(&mp, a.wproj, C, C, 96);
+  if (err == cudaSuccess) {
+    // [96, 32] boxes of wproj^T in the 64-byte swizzle: a head's pieces
+    const uint64_t dims[2] = {(uint64_t)C, (uint64_t)C};
+    const uint32_t box[2] = {(uint32_t)kHD, 96u};
+    err = sm90::tile_map_nd(&mh, a.wproj, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, dims, box);
+  }
+  if (err != cudaSuccess) return err;
+  auto kernel = variants_kernel<Pl, MODE, CLK>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Pl::SMEM);
   if (err != cudaSuccess) return err;
   const unsigned grid = (unsigned)((a.NW + a.wblk - 1) / a.wblk);
-  kernel<<<grid, kThreads, Cf::SMEM, a.stream>>>(
-      a.x, a.mask_tok, a.rows_m, a.regions, a.rows_r, a.gamma, a.beta, a.wqkv, a.bqkv, a.wproj,
-      a.bproj, a.bias, a.out, a.NW, a.wblk, a.eps, a.mode, a.score_f32);
+  kernel<<<grid, Pl::THREADS, Pl::SMEM, a.stream>>>(
+      mq, mp, mh, a.x, a.mask_tok, a.rows_m, a.regions, a.rows_r, a.gamma, a.beta, a.bqkv,
+      a.bproj, a.bias, a.out, a.NW, a.wblk, a.eps, a.score_f32, a.clocks);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// (C, W, KC, S); the same table is ops/section_variants.py:SECTION_BUILDS
+// (C, W, S); the same table is ops/section_variants.py:SECTION_BUILDS
 #define SEGLAND_VARIANT_BUILDS(X) \
-  X(96, 2, 48, 3)                 \
-  X(192, 1, 48, 3)                \
-  X(384, 1, 32, 3)
+  X(96, 2, 6)                     \
+  X(192, 2, 6)                    \
+  X(384, 1, 6)
 
-// bf16 x, wqkv, wproj and out; fp32 vectors, bias [nh, N, N] (values of bf16),
-// mask_tok [rows_m, N] and regions [rows_r, N] (or null).  Windows of 7 x 7
-// tokens and heads of 32; mode 0..7 as at the top.  Returns a cudaError_t.
-extern "C" int segland_section_variants(const void* x, const void* mask_tok, int rows_m,
-                                        const void* regions, int rows_r, const void* gamma,
-                                        const void* beta, const void* wqkv, const void* bqkv,
-                                        const void* wproj, const void* bproj, const void* bias,
-                                        void* out, long long NW, int C, int nh, int wblk,
-                                        float eps, int mode, int score_f32, int device,
-                                        void* stream) {
+#define SEGLAND_CAT2(a, b) a##b
+#define SEGLAND_CAT(a, b) SEGLAND_CAT2(a, b)
+
+// mode MODE at width C; mode none also with phase clocks
+template <int MODE>
+int launch_mode(const Args& a, int C) {
+#define SEGLAND_VARIANT_CASE(c, w, s)                                                 \
+  if (C == c) {                                                                       \
+    if constexpr (MODE == kIo) return (int)launch_io<c>(a);                           \
+    if constexpr (MODE == kNone) {                                                    \
+      if (a.clocks) return (int)launch_variants<VarPlan<c, w, s>, kNone, true>(a);    \
+    }                                                                                 \
+    if constexpr (MODE != kIo) return (int)launch_variants<VarPlan<c, w, s>, MODE, false>(a); \
+  }
+  SEGLAND_VARIANT_BUILDS(SEGLAND_VARIANT_CASE)
+#undef SEGLAND_VARIANT_CASE
+  return -1;
+}
+
+// the attributes and dynamic shared memory of mode MODE's kernel of plan Pl
+template <int MODE, typename Pl>
+int mode_attrs(cudaFuncAttributes* fa, int* smem) {
+  if constexpr (MODE == kIo) {
+    *smem = 0;
+    return (int)cudaFuncGetAttributes(fa, io_kernel<Pl::C>);
+  } else {
+    *smem = (int)Pl::SMEM;
+    return (int)cudaFuncGetAttributes(fa, variants_kernel<Pl, MODE, false>);
+  }
+}
+
+int segland_var::SEGLAND_CAT(launch_part, SEGLAND_PART)(const Args& a, int C) {
+  return launch_mode<SEGLAND_PART>(a, C);
+}
+
+int segland_var::SEGLAND_CAT(attrs_part, SEGLAND_PART)(int C, cudaFuncAttributes* fa, int* smem) {
+#define SEGLAND_VARIANT_CASE(c, w, s) \
+  if (C == c) return mode_attrs<SEGLAND_PART, VarPlan<c, w, s>>(fa, smem);
+  SEGLAND_VARIANT_BUILDS(SEGLAND_VARIANT_CASE)
+#undef SEGLAND_VARIANT_CASE
+  return -1;
+}
+
+#if SEGLAND_PART == 0
+#define SEGLAND_VAR_PARAMS                                                                     \
+  const void *x, const void *mask_tok, int rows_m, const void *regions, int rows_r,            \
+      const void *gamma, const void *beta, const void *wqkv, const void *bqkv,                 \
+      const void *wproj, const void *bproj, const void *bias, void *out, long long NW, int C, \
+      int nh, int wblk, float eps, int mode, int score_f32
+
+static int var_entry(SEGLAND_VAR_PARAMS, unsigned long long* clocks, int device, void* stream) {
   if (nh * kHD != C || wblk < 1 || mode < kNone || mode > kProj1 || !mask_tok || rows_m < 1 ||
-      (regions && rows_r < 1))
+      (regions && rows_r < 1) || (clocks && mode != kNone))
     return (int)cudaErrorInvalidValue;
   if (NW <= 0) return (int)cudaSuccess;
   if (NW > 2147483647LL / kN) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const VarArgs a = {(const bf16*)x, (const bf16*)wqkv, (const bf16*)wproj,
-                     (const float*)mask_tok, (const float*)regions, (const float*)gamma,
-                     (const float*)beta, (const float*)bqkv, (const float*)bproj,
-                     (const float*)bias, rows_m, rows_r, (bf16*)out, NW, wblk, eps, mode,
-                     score_f32, (cudaStream_t)stream};
-#define SEGLAND_VARIANT_CASE(c, w, kc, s) \
-  if (C == c) return (int)launch_variants<VarCfg<c, w, kc, s>>(a);
-  SEGLAND_VARIANT_BUILDS(SEGLAND_VARIANT_CASE)
-#undef SEGLAND_VARIANT_CASE
-  return (int)cudaErrorInvalidValue;
+  const Args a = {(const bf16*)x, (const bf16*)wqkv, (const bf16*)wproj, (const bf16*)bias,
+                  (const float*)mask_tok, (const float*)regions, (const float*)gamma,
+                  (const float*)beta, (const float*)bqkv, (const float*)bproj,
+                  rows_m, rows_r, (bf16*)out, NW, wblk, eps, score_f32, clocks,
+                  (cudaStream_t)stream};
+  int (*const parts[])(const Args&, int) = {
+      segland_var::launch_part0, segland_var::launch_part1, segland_var::launch_part2,
+      segland_var::launch_part3, segland_var::launch_part4, segland_var::launch_part5,
+      segland_var::launch_part6, segland_var::launch_part7};
+  const int r = parts[mode](a, C);
+  return r >= 0 ? r : (int)cudaErrorInvalidValue;
 }
+
+// K11.  bf16 x and out; K-major weights (read by every mode but io): wqkv^T
+// [3C, C] and wproj^T [C, C] (nn.Linear's [out, in]); bias [nh, 49, 56] bf16 (the
+// [nh, 49, 49] bias in T, its columns padded); fp32 vectors, mask_tok
+// [rows_m, N] and regions [rows_r, N] (or null).  Windows of 7 x 7 tokens and
+// heads of 32; mode 0..7 as at the top; C one of SEGLAND_VARIANT_BUILDS.
+// Returns a cudaError_t.
+extern "C" int segland_section_variants(SEGLAND_VAR_PARAMS, int device, void* stream) {
+  return var_entry(x, mask_tok, rows_m, regions, rows_r, gamma, beta, wqkv, bqkv, wproj, bproj,
+                   bias, out, NW, C, nh, wblk, eps, mode, score_f32, nullptr, device, stream);
+}
+
+// Mode none with its consumers' clock64() time by phase (setup, ring wait,
+// wgmma, q/k/v epilogue, attention core, context copy, output epilogue) added
+// to clocks[0..7) and the count of consumer warpgroups to clocks[7].
+extern "C" int segland_section_variants_clocks(SEGLAND_VAR_PARAMS, void* clocks, int device,
+                                               void* stream) {
+  if (!clocks) return (int)cudaErrorInvalidValue;
+  return var_entry(x, mask_tok, rows_m, regions, rows_r, gamma, beta, wqkv, bqkv, wproj, bproj,
+                   bias, out, NW, C, nh, wblk, eps, mode, score_f32, (unsigned long long*)clocks,
+                   device, stream);
+}
+
+// Registers a thread at launch, local (spill) bytes and dynamic shared memory
+// of the served build of width C and `mode`, by cudaFuncGetAttributes.
+extern "C" int segland_section_variants_attrs(int C, int mode, int* regs, int* local_bytes,
+                                              int* smem) {
+  int (*const parts[])(int, cudaFuncAttributes*, int*) = {
+      segland_var::attrs_part0, segland_var::attrs_part1, segland_var::attrs_part2,
+      segland_var::attrs_part3, segland_var::attrs_part4, segland_var::attrs_part5,
+      segland_var::attrs_part6, segland_var::attrs_part7};
+  if (mode < kNone || mode > kProj1) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes fa;
+  const int r = parts[mode](C, &fa, smem);
+  if (r != 0) return r > 0 ? r : (int)cudaErrorInvalidValue;
+  *regs = fa.numRegs;
+  *local_bytes = (int)fa.localSizeBytes;
+  return 0;
+}
+#endif  // SEGLAND_PART == 0

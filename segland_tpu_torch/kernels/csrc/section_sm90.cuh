@@ -10,7 +10,8 @@
 // produce_qkv (a head's q, k, v columns) and produce_proj (96 of the
 // projection's output columns).  The consumers' pieces: section_product (one
 // product over the ring's next K tiles), qkv_epilogue, ctx_to_operand,
-// proj_epilogue; section_rows composes them into K3's body.
+// proj_epilogue; section_rows composes them into K3's body (with K3's WMMA
+// core and masks: section_geom.cuh's geom_section).
 
 #pragma once
 
@@ -21,16 +22,15 @@
 
 namespace {
 
-// W windows a block, S ring slots, RR a producer warpgroup and setmaxnreg,
-// TOK bytes a token of the token table (K3 and K4: a region id and pad flag in
-// one byte; K5: the region id as fp32).  ops/fused_attn.py:section_plan
-// mirrors this arithmetic.
-template <int C_, int W_, int S_, bool RR_, int TOK_ = 1>
-struct SecPlan {
-  static constexpr int C = C_, W = W_, S = S_;
+// The products of a block of R rows: C channels, S ring slots, RR a producer
+// warpgroup and setmaxnreg.  What section_product, qkv_epilogue,
+// ctx_to_operand and proj_epilogue read of a plan; SecPlan adds K3's layout.
+template <int C_, int R_, int S_, bool RR_>
+struct SecShape {
+  static constexpr int C = C_, S = S_;
   static constexpr bool RR = RR_;               // a producer warpgroup and setmaxnreg
   static constexpr int THREADS = RR ? 384 : 288; // else a lone producer warp
-  static constexpr int R = W * kN;              // real rows
+  static constexpr int R = R_;                  // rows of the products
   static constexpr int RT = (R + 63) / 64;      // m64 row tiles
   static constexpr int RS = (R + 7) / 8 * 8;    // rows of a K tile of y
   static constexpr bool ROWS = RT >= 2;         // warpgroups split the rows, else the columns
@@ -42,6 +42,25 @@ struct SecPlan {
   static constexpr int NH = C / kHD;
   static constexpr int SLOT = 96 * 128;         // a ring slot: [96 rows, 64 bf16]
   static constexpr int YK = RS * 128;           // bytes a K tile of y
+  static_assert(RT == 1 || RT % 2 == 0, "row tiles split evenly over two warpgroups");
+  static_assert(C % 96 == 0, "the projection walks 96 columns a pass");
+};
+
+// K3's plan: W windows a block as W * 49 flat rows, TOK bytes a token of the
+// token table (K3 and K4: a region id and pad flag in one byte; K5: the region
+// id as fp32).  ops/fused_attn.py:section_plan mirrors this arithmetic.
+template <int C_, int W_, int S_, bool RR_, int TOK_ = 1>
+struct SecPlan : SecShape<C_, W_ * kN, S_, RR_> {
+  typedef SecShape<C_, W_ * kN, S_, RR_> Shape;
+  using Shape::C;
+  using Shape::R;
+  using Shape::RS;
+  using Shape::RT;
+  using Shape::S;
+  using Shape::SLOT;
+  using Shape::KT;
+  using Shape::YK;
+  static constexpr int W = W_;
   static constexpr int RQ = (R + 15) / 16 * 16 + 16;  // q/k/v rows: a window's tiles reach R + 14
   static constexpr int NSTRIP = 4 * W < kWarps ? 4 * W : kWarps;  // attention tiles at once
   static constexpr size_t OFF_Y = (size_t)S * SLOT;
@@ -52,8 +71,6 @@ struct SecPlan {
   static constexpr size_t OFF_TOK = OFF_BIAS + align128((size_t)kN * kN * sizeof(float));
   static constexpr size_t OFF_BAR = OFF_TOK + align128((size_t)R * TOK_);
   static constexpr size_t SMEM = OFF_BAR + 2 * S * sizeof(uint64_t) + 1024;  // + alignment
-  static_assert(RT == 1 || RT % 2 == 0, "row tiles split evenly over two warpgroups");
-  static_assert(C % 96 == 0, "the projection walks 96 columns a pass");
   static_assert((size_t)(RT * 64 - RS) * 128 <= OFF_BAR - OFF_Q,
                 "a row tile past y must stay inside the block's shared memory");
   static_assert(SMEM <= kMaxSmem, "over the shared memory a block can have");
@@ -108,10 +125,10 @@ __device__ __forceinline__ void wgmma_n(float* d, uint64_t da, uint64_t db) {
 }
 
 // acc[t] = A[row tiles of this warpgroup] @ (the ring's next KT slots, from
-// column cofs of each), taken slot by slot
-template <typename Pl, typename Clk>
-__device__ __forceinline__ void section_product(sm90::Ring<Pl::SLOT, Pl::S>& q,
-                                                const unsigned char* a, int g, int cofs,
+// column cofs of each), taken slot by slot.  The ring is an sm90::Ring or any
+// type with its ring_take / ring_used / ring_next / ring_drain (found by ADL).
+template <typename Pl, typename Rg, typename Clk>
+__device__ __forceinline__ void section_product(Rg& q, const unsigned char* a, int g, int cofs,
                                                 float (&acc)[Pl::NTW][Pl::ACC], Clk& clk) {
 #pragma unroll
   for (int t = 0; t < Pl::NTW; ++t) {
@@ -123,7 +140,7 @@ __device__ __forceinline__ void section_product(sm90::Ring<Pl::SLOT, Pl::S>& q,
   // k-steps of every wgmma are compile-time, none sits in a branch
   auto k_tile = [&](int kt, auto steps) {
     clk.template lap<kClkMma>();
-    unsigned char* b = sm90::ring_take(q);
+    unsigned char* b = ring_take(q);
     clk.template lap<kClkWait>();
     const uint64_t db = sm90::desc_sw128(b + cofs * 128);
 #pragma unroll
@@ -138,15 +155,15 @@ __device__ __forceinline__ void section_product(sm90::Ring<Pl::SLOT, Pl::S>& q,
         wgmma_n<Pl::NB>(acc[t], sm90::desc_step(da, ks), sm90::desc_step(db, ks));
     }
     sm90::wgmma_commit();
-    sm90::ring_used(q);
+    ring_used(q);
 #pragma unroll
     for (int t = 0; t < Pl::NTW; ++t) sm90::reg_fence(acc[t]);
-    sm90::ring_next(q);
+    ring_next(q);
   };
 #pragma unroll 1
   for (int kt = 0; kt < Pl::KS / 4; ++kt) k_tile(kt, std::integral_constant<int, 4>());
   if constexpr (Pl::KS % 4 != 0) k_tile(Pl::KS / 4, std::integral_constant<int, Pl::KS % 4>());
-  sm90::ring_drain(q);
+  ring_drain(q);
   clk.template lap<kClkMma>();
 #pragma unroll
   for (int t = 0; t < Pl::NTW; ++t) sm90::reg_fence(acc[t]);
@@ -292,48 +309,6 @@ __device__ __forceinline__ void section_rows(sm90::Ring<Pl::SLOT, Pl::S>& q, uns
     proj_epilogue<Pl>(acc, g, cofs, n0, rows, bproj, x, out);
     clk.template lap<kClkOut>();
   }
-}
-
-// section_rows with K3's masks: the region id and pad flag (bit 7) of every
-// token from the window index, a pad token's row zero, and K3's attention core
-// (16 query rows of one window a warp); K3's section and K4's first half
-template <typename Pl, typename Clk>
-__device__ __forceinline__ void geom_section(sm90::Ring<Pl::SLOT, Pl::S>& q, unsigned char* smem,
-                                             const bf16* x, bf16* out, int rows, long long win0,
-                                             const Geom& geo, const float* __restrict__ gamma,
-                                             const float* __restrict__ beta,
-                                             const float* __restrict__ bqkv,
-                                             const float* __restrict__ bproj,
-                                             const float* __restrict__ bias, float eps, Clk& clk) {
-  uint8_t* rids = smem + Pl::OFF_TOK;
-  section_rows<Pl>(
-      q, smem, x, out, rows, gamma, beta, bqkv, bproj, bias, eps,
-      [&] {
-        for (int i = threadIdx.x; i < Pl::R; i += 256) {
-          int valid = 0, rid = 0;
-          if (i < rows) token_geom((int)win0 + i / kN, i % kN, geo, &valid, &rid);
-          rids[i] = (uint8_t)(rid | (valid ? 0 : 128));
-        }
-      },
-      [&](int r) -> const bf16* {
-        int valid = 0, rid = 0;
-        token_geom((int)win0 + r / kN, r % kN, geo, &valid, &rid);
-        return valid ? x + (size_t)r * Pl::C : nullptr;
-      },
-      sm90::Unscaled(),
-      [&](int h, const bf16* qb, const bf16* kb, const bf16* vb, const float* bias_s,
-          float* strips) {
-        const int cw = threadIdx.x / 32;
-        for (int u = cw; u < Pl::W * 4; u += kWarps) {
-          const int wl = u / 4, rt = u % 4;
-          if (wl >= rows / kN) continue;
-          const int r0 = wl * kN;
-          attn_tile_bf16(qb + r0 * kLQ, kb + r0 * kLQ, vb + r0 * kLQ, rt, bias_s,
-                         geo.shift > 0 ? rids + r0 : nullptr, rsqrtf((float)kHD),
-                         strips + cw * kStrip, out + (size_t)r0 * Pl::C + h * kHD, (size_t)Pl::C);
-        }
-      },
-      clk);
 }
 
 }  // namespace

@@ -120,6 +120,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// the box at (c0, c1, c2), innermost first, of a 3-D `map` into dst
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // the box at (c0, c1, c2, c3), innermost first, of a 4-D `map` into dst
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
@@ -206,22 +216,21 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// ln_rows_sw128's default row scale: none
+// ln_rows' default row scale: none
 struct Unscaled {};
 
 // One warp, NR rows at a time: row r0 + k * step (k < NR; those at or past
 // `rows` skipped) gets T(LN(src(r)) * gamma + beta), or with a row scale
 // T((LN(src(r)) * gamma + beta) * scale(r)), fp32 statistics and fast
-// variance, into its row of a swizzled operand of C columns whose 64-column
-// tiles lie `tile_bytes` apart; src(r) null writes zeros.  Every load of a
-// batch is in flight before its first reduction, so a warp waits on memory once
-// a batch, not once a row.
-template <int C, int NR, typename Src, typename Scale = Unscaled>
-__device__ __forceinline__ void ln_rows_sw128(Src src, int r0, int step, int rows,
-                                              const float* __restrict__ gamma,
-                                              const float* __restrict__ beta, float eps,
-                                              unsigned char* dst, int tile_bytes,
-                                              Scale scale = Scale()) {
+// variance; sink(r, c, y, xv) takes columns c and c + 1 of row r, y the two
+// values of T packed, xv the two inputs (src(r) null: zeros for both).  Every
+// load of a batch is in flight before its first reduction, so a warp waits on
+// memory once a batch, not once a row.
+template <int C, int NR, typename Src, typename Sink, typename Scale = Unscaled>
+__device__ __forceinline__ void ln_rows(Src src, int r0, int step, int rows,
+                                        const float* __restrict__ gamma,
+                                        const float* __restrict__ beta, float eps, Sink sink,
+                                        Scale scale = Scale()) {
   constexpr bool SCALED = !std::is_same<Scale, Unscaled>::value;
   const int lane = threadIdx.x % 32;
   constexpr int NPAIR = C / 2, NI = (NPAIR + 31) / 32;
@@ -271,15 +280,31 @@ __device__ __forceinline__ void ln_rows_sw128(Src src, int r0, int step, int row
             }
             val = pack_bf16(lo, hi);
           }
-          *reinterpret_cast<uint32_t*>(dst + (c / kTileCols) * tile_bytes +
-                                       sw128(r, c % kTileCols)) = val;
+          sink(r, c, val, v[k][i]);
         }
       }
     }
   }
 }
 
-// rows a batch of ln_rows_sw128 that keep its loads within 32 registers a lane
+// ln_rows into the rows of a swizzled operand of C columns whose 64-column
+// tiles lie `tile_bytes` apart
+template <int C, int NR, typename Src, typename Scale = Unscaled>
+__device__ __forceinline__ void ln_rows_sw128(Src src, int r0, int step, int rows,
+                                              const float* __restrict__ gamma,
+                                              const float* __restrict__ beta, float eps,
+                                              unsigned char* dst, int tile_bytes,
+                                              Scale scale = Scale()) {
+  ln_rows<C, NR>(
+      src, r0, step, rows, gamma, beta, eps,
+      [&](int r, int c, uint32_t val, float2) {
+        *reinterpret_cast<uint32_t*>(dst + (c / kTileCols) * tile_bytes +
+                                     sw128(r, c % kTileCols)) = val;
+      },
+      scale);
+}
+
+// rows a batch of ln_rows that keep its loads within 32 registers a lane
 template <int C>
 constexpr int kLnBatch = 16 / ((C / 2 + 31) / 32) > 0 ? 16 / ((C / 2 + 31) / 32) : 1;
 

@@ -69,7 +69,7 @@
 
 #include "attn_common.cuh"
 #include "mlp_sm90.cuh"
-#include "section_sm90.cuh"
+#include "section_geom.cuh"
 
 namespace {
 

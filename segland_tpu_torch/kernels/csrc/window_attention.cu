@@ -39,7 +39,8 @@
 //    registers with quad shuffles; P rounded to bf16 in registers, where the
 //    accumulators of two key tiles are the A fragment of one k16 step of the
 //    PV product (no shared-memory strip); PV by mma.sync with V fragments from
-//    ldmatrix.trans.
+//    ldmatrix.trans (the fragment helpers are mma_sync.cuh's, which K9's and
+//    K11's section core shares).
 //  - A warp's 16 context rows go through its own (consumed) q rows in the
 //    stage and out as 16-byte stores, 64 bytes a row.
 // It serves bf16 qkv at every width.  The fp32 body
@@ -47,6 +48,7 @@
 // and serves no default.
 
 #include "attn_common.cuh"
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -73,44 +75,6 @@ __host__ __device__ constexpr int ring_smem() {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// byte offset of 16-byte chunk `ch` (0-3) of row r in a stage's q, k or v tile
-__device__ __forceinline__ int qkv_off(int r, int ch) {
-  return r * 64 + ((ch ^ ((r >> 1) & 3)) << 4);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// c += a (16x16 bf16, row) . b (16x8 bf16, col), fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // Where item `it` lives: its window, head and bias slice.
 struct Item {

@@ -672,8 +672,9 @@ def swin_block_fused(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bia
     The contract of :func:`swin_attn_section_fused` plus the MLP's parameters;
     ``geom`` is required.  The JAX function's ``hg`` is not taken here.  Its
     counterpart on this card, hg heads a pass, is the head-grouped section
-    of ``ops/hg_attn.py`` (K10); on an H100 it pays at C >= 192 and costs at
-    C = 96 (PERF.md), and no block or section route of a model runs it yet."""
+    of ``ops/hg_attn.py`` (K9, K10); on an H100, measured on K9 beside K3,
+    it does not pay (PERF.md, ROADMAP A6), and no block or section route of a
+    model runs it."""
     if geom is None:
         raise ValueError("swin_block_fused requires geom = (h, w, hp, wp, ws, shift)")
     if use_kernel(x_win):

@@ -3,11 +3,12 @@ probe.  Port of benchmarks/swin_attn_hg.py's ``hg_section`` (masks shipped in
 as ``[rows, 49]`` tables) and ``hg2_section`` (masks from the window index,
 plus timing ablations), with their names.
 
-A CUDA tensor goes to ``kernels/csrc/attn_section_hg.cu`` (K9, K10, bf16)
-or ``kernels/csrc/attn_section_f32.cu`` (fp32), or raises; a CPU tensor, or
+A CUDA tensor goes to ``kernels/csrc/attn_section_hg_sm90.cu`` (K9, bf16),
+``kernels/csrc/attn_section_hg.cu`` (K10, bf16) or
+``kernels/csrc/attn_section_f32.cu`` (fp32), or raises; a CPU tensor, or
 any tensor inside ``ops.plain_versions()``, goes to the plain versions
-:func:`hg_section_reference` and :func:`hg2_section_reference`.  Both follow the JAX bodies' order of
-arithmetic (T is x's dtype, bf16 or fp32):
+:func:`hg_section_reference` and :func:`hg2_section_reference`.  Both follow
+the JAX bodies' order of arithmetic (T is x's dtype, bf16 or fp32):
 
     y    = T((LN(x) * gamma + beta) * mask)               fp32 stats, fast variance
     qkv  = T(y @ wqkv) + T(bqkv)                          fp32 accumulate, bias in T
@@ -24,9 +25,10 @@ bias; the plain versions pad the same way.  Only the ``softmax`` ablation
 sees the pad keys (their -1e9 scores scaled by 1e-3 enter the sums).
 
 ``hg`` on the TPU packs the K and V of hg heads block-diagonally to fill its
-128 lanes; on Hopper the kernels take hg heads a pass: one
-``[rows, C] x [C, 96 hg]`` product makes q, k, v of the group, the group's
-attention tiles run together, and the scores stay per head.
+128 lanes; on Hopper the kernels take hg heads a pass and keep the scores per
+head: K10 makes q, k, v of the group with one ``[rows, C] x [C, 96 hg]``
+WMMA product, K9 with hg ``wgmma`` products back to back, and the group's
+attention tiles run together.
 """
 
 import collections
@@ -35,7 +37,8 @@ import numpy as np
 import torch
 
 from . import use_kernel
-from .fused_attn import _check_geom, _check_rows, _mask_rows, _mat, _vec
+from .fused_attn import (_check_clocks, _check_geom, _check_rows, _kmat, _mask_rows, _mat,
+                         _vec)
 from .. import kernels
 
 _WINDOW = 7
@@ -47,7 +50,7 @@ ABLATIONS = ("none", "ioraw", "io", "attn", "softmax")
 NO_BUILD = {"build": "no block-diagonal V is ever built on this card (hg heads a pass "
                      "keep per-head scores), so there is nothing to skip"}
 
-# ---- the kernels' builds --------------------------------------------------------
+# ---- K10's builds ----------------------------------------------------------------
 # One build a (C, hg): W windows a pass through shared memory, PP warps sharing a row
 # tile's columns in the qkv product, weight chunks of KC rows in a ring of S, the
 # group's [hg, 49, 49] bias and the context in shared memory or read from L2 / kept
@@ -97,8 +100,42 @@ def hg_layout(c: int, hg: int, b: HgBuild) -> dict:
 
 
 def _fmt(layout):
-    parts = " + ".join(f"{k} {v:,}" for k, v in layout.items() if k not in ("smem", "frags") and v)
+    parts = " + ".join(f"{k} {v:,}" for k, v in layout.items()
+                       if k not in ("smem", "frags", "acc") and v)
     return f"{parts} = {layout['smem']:,} B"
+
+
+# ---- K9's builds ------------------------------------------------------------------
+# One build a (C, hg) of section_win.cuh's body: W windows a pass (1, 2 or 4, a
+# 64-row tile of y each, rows 49-63 padding), S ring slots of one [96, 64] bf16
+# weight tile; hg sets of a head's q, k, v tiles [64 W, 32] and hg heads' bias
+# [49, 56] bf16 in shared memory.  attn_section_hg_sm90.cu instantiates exactly
+# these (a test reads them from there).
+HgSm90Build = collections.namedtuple("HgSm90Build", "w s")
+HG_SM90_BUILDS = {
+    (96, 1): HgSm90Build(4, 6), (96, 3): HgSm90Build(2, 6),
+    (192, 1): HgSm90Build(2, 6), (192, 2): HgSm90Build(2, 6), (192, 6): HgSm90Build(1, 6),
+    (384, 1): HgSm90Build(2, 6), (384, 2): HgSm90Build(2, 5), (384, 4): HgSm90Build(1, 6),
+    (768, 1): HgSm90Build(1, 6), (768, 4): HgSm90Build(1, 4),
+}
+MAX_ACC_REGS = 96  # fp32 accumulator registers a thread of an 8-warp block (ptxas: <= 255)
+_SLOT, _TILE_Q, _BIAS_HEAD = 96 * 128, 64 * 64, 49 * 56 * 2  # bytes: ring slot, q tile, bias
+
+
+def win_layout(c: int, w: int, s: int, nq: int, nbias: int) -> dict:
+    """Shared memory of section_win.cuh's WinPlan<C, W, S, NQ, NBIAS> by buffer in
+    bytes, and the fp32 accumulator registers a consumer thread of its products
+    (``acc``: m64 row tiles of 64 W rows, by rows over the two warpgroups from two
+    tiles on, at 96 columns a wgmma, else by columns at 48)."""
+    rows = 64 * w
+    parts = dict(ring=s * _SLOT, y=-(-c // 64) * rows * 128, qkv=nq * 3 * w * _TILE_Q,
+                 bias=_al(nbias * _BIAS_HEAD), tokens=rows * 4, barriers=2 * s * 8, align=1024)
+    return dict(parts, smem=sum(parts.values()), acc=(w // 2) * 48 if w >= 2 else 24)
+
+
+def hg_sm90_layout(c: int, hg: int, b: HgSm90Build) -> dict:
+    """K9's build (C, hg): the arithmetic of HgPlan in attn_section_hg_sm90.cu."""
+    return win_layout(c, b.w, b.s, hg, hg)
 
 
 # ---- the fp32 body of K9, K10 and K11 -----------------------------------------------
@@ -161,25 +198,51 @@ def launch_f32(entry, x_win, mask, regions, geom, gamma, beta, wqkv, bqkv, wproj
     return out
 
 
-def check_hg_build(c: int, num_heads: int, hg: int, dtype, wblk: int, ablate: str = "none"):
-    """The launchers' host-side checks, on the CPU too: heads of 32, ``hg``
-    dividing ``num_heads``, ``wblk >= 1``, a known ablation, a build for (C,
-    hg) in bf16 or for C in fp32.  Returns the HgBuild (bf16) or None (fp32);
-    raises ValueError with the reason (for a pair with no build, the
-    shared-memory and register arithmetic of its leanest layout)."""
+def _check_hg_args(c, num_heads, hg, dtype, wblk):
     if c != num_heads * _HEAD_DIM:
         raise ValueError(f"heads of {_HEAD_DIM} only: C={c} with {num_heads} heads")
     if hg < 1 or num_heads % hg:
         raise ValueError(f"hg={hg} does not divide num_heads={num_heads}")
     if wblk < 1:
         raise ValueError(f"wblk must be >= 1, got {wblk}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the head-grouped kernels are built for bfloat16 and float32, "
+                         f"not {dtype}")
+
+
+def check_hg_sm90_build(c: int, num_heads: int, hg: int, dtype, wblk: int):
+    """K9's host-side checks, on the CPU too: heads of 32, ``hg`` dividing
+    ``num_heads``, ``wblk >= 1``, a build for (C, hg) in bf16 or for C in fp32.
+    Returns the HgSm90Build (bf16) or None (fp32); raises ValueError with the
+    reason (for a pair with no build, the shared-memory and register arithmetic
+    of its leanest layout: one window a pass, two ring slots)."""
+    _check_hg_args(c, num_heads, hg, dtype, wblk)
+    if dtype == torch.float32:
+        check_f32_width(c)
+        return None
+    b = HG_SM90_BUILDS.get((c, hg))
+    if b is None:
+        lean = hg_sm90_layout(c, hg, HgSm90Build(1, 2))
+        fits = lean["smem"] <= SMEM_MAX and lean["acc"] <= MAX_ACC_REGS
+        raise ValueError(
+            f"hg_section has no build for C={c} hg={hg}: one window a pass needs {_fmt(lean)} "
+            f"({'<=' if lean['smem'] <= SMEM_MAX else '>'} {SMEM_MAX:,}) and {lean['acc']} "
+            f"accumulator registers a thread (of {MAX_ACC_REGS})"
+            + (f"; built at (C, hg) in {sorted(HG_SM90_BUILDS)} only" if fits else ""))
+    return b
+
+
+def check_hg_build(c: int, num_heads: int, hg: int, dtype, wblk: int, ablate: str = "none"):
+    """K10's host-side checks, on the CPU too: heads of 32, ``hg`` dividing
+    ``num_heads``, ``wblk >= 1``, a known ablation, a build for (C, hg) in bf16
+    or for C in fp32.  Returns the HgBuild (bf16) or None (fp32); raises
+    ValueError with the reason (for a pair with no build, the shared-memory and
+    register arithmetic of its leanest layout)."""
+    _check_hg_args(c, num_heads, hg, dtype, wblk)
     check_ablate(ablate)
     if dtype == torch.float32:
         check_f32_width(c)
         return None
-    if dtype != torch.bfloat16:
-        raise ValueError(f"the head-grouped kernels are built for bfloat16 and float32, "
-                         f"not {dtype}")
     b = HG_BUILDS.get((c, hg))
     if b is None:
         lean = hg_layout(c, hg, HgBuild(1, 8 if 6 * hg % 8 == 0 else 2, 16, 3, False, False))
@@ -334,31 +397,81 @@ def hg2_section_reference(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bi
 
 
 # ---- the kernels ------------------------------------------------------------------
-def _launch(entry, x_win, mask, regions, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
-            num_heads, eps, wblk, hg, score_f32, ablate):
+def _windows(entry, x_win):
     _check_rows(entry, x_win)
-    nw, n, c = x_win.shape
-    if n != _N:
-        raise ValueError(f"{entry} takes 7x7 windows, got N={n}")
-    check_hg_build(c, num_heads, hg, x_win.dtype, wblk, ablate)
-    if x_win.dtype == torch.float32:
-        return launch_f32(entry, x_win, mask, regions, geom, gamma, beta, wqkv, bqkv, wproj,
-                          bproj, bias, num_heads, eps, wblk, hg, ablate, norm_first=False)
-    dev = x_win.device
-    b = bias.float().to(torch.bfloat16).contiguous()  # rounded to T, as the JAX wrapper does
+    if x_win.shape[1] != _N:
+        raise ValueError(f"{entry} takes 7x7 windows, got N={x_win.shape[1]}")
+    return x_win.shape[0], x_win.shape[2], x_win.device
+
+
+def _bias_bf16(bias, num_heads, dev):
+    """The bias [1, nh, 49, 49] rounded to T, as the JAX wrappers do."""
+    b = bias.float().to(torch.bfloat16)
     if b.device != dev or tuple(b.shape) != (1, num_heads, _N, _N):
         raise ValueError(f"bias {tuple(bias.shape)} on {bias.device}; want "
                          f"[1, {num_heads}, 49, 49] on {dev}")
-    args = (_vec(gamma, c, dev), _vec(beta, c, dev), _mat(entry, wqkv, (c, 3 * c), x_win),
-            _vec(bqkv, 3 * c, dev), _mat(entry, wproj, (c, c), x_win), _vec(bproj, c, dev), b)
+    return b
+
+
+def win_args(entry, x_win, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads,
+             weights=True):
+    """The arguments of section_win.cuh's kernels (K9, K11) after the tables: the
+    vectors in fp32; the weights K-major in bf16 (nn.Linear's ``weight.T`` passes
+    without a copy), or as they come for a kernel that reads none
+    (``weights=False``); the bias in bf16 with its 49 columns padded to 56."""
+    c, dev = x_win.shape[2], x_win.device
+    for w, shape in ((wqkv, (c, 3 * c)), (wproj, (c, c))):
+        if w.device != dev or tuple(w.shape) != shape:
+            raise ValueError(f"weight {tuple(w.shape)} on {w.device}; want {shape} on {dev}")
+    if weights:
+        wqkv = _kmat(entry, wqkv, (c, 3 * c), x_win)
+        wproj = _kmat(entry, wproj, (c, c), x_win)
+    b = torch.nn.functional.pad(_bias_bf16(bias, num_heads, dev)[0], (0, 56 - _N)).contiguous()
+    return (_vec(gamma, c, dev), _vec(beta, c, dev), wqkv, _vec(bqkv, 3 * c, dev), wproj,
+            _vec(bproj, c, dev), b)
+
+
+def _launch(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads, eps, wblk, hg,
+            score_f32, ablate):
+    """K10 on bf16 windows (attn_section_hg.cu), or the fp32 body on fp32."""
+    nw, c, dev = _windows("hg2_section", x_win)
+    check_hg_build(c, num_heads, hg, x_win.dtype, wblk, ablate)
+    if x_win.dtype == torch.float32:
+        return launch_f32("hg2_section", x_win, None, None, geom, gamma, beta, wqkv, bqkv, wproj,
+                          bproj, bias, num_heads, eps, wblk, hg, ablate, norm_first=False)
+    b = _bias_bf16(bias, num_heads, dev).contiguous()
+    args = (_vec(gamma, c, dev), _vec(beta, c, dev), _mat("hg2_section", wqkv, (c, 3 * c), x_win),
+            _vec(bqkv, 3 * c, dev), _mat("hg2_section", wproj, (c, c), x_win),
+            _vec(bproj, c, dev), b)
     out = torch.empty_like(x_win)
     P = kernels.ptr
-    fn = getattr(kernels.library(), f"segland_{entry}")
-    rows = lambda t: 0 if t is None else t.shape[0]
-    err = fn(P(x_win), P(mask), rows(mask), P(regions), rows(regions), *(P(a) for a in args),
-             P(out), nw, c, num_heads, hg, wblk, *geom, eps,
-             ABLATIONS.index(ablate), int(bool(score_f32)), dev.index, kernels.stream_of(x_win))
-    kernels.check(err, entry)
+    err = kernels.library().segland_hg2_section(
+        P(x_win), *(P(a) for a in args), P(out), nw, c, num_heads, hg, wblk, *geom, eps,
+        ABLATIONS.index(ablate), int(bool(score_f32)), dev.index, kernels.stream_of(x_win))
+    kernels.check(err, "hg2_section")
+    return out
+
+
+def _launch_hg(x_win, mask_tok, regions, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads,
+               eps, wblk, hg, score_f32, clocks=None):
+    """K9 on bf16 windows (attn_section_hg_sm90.cu), or the fp32 body on fp32."""
+    nw, c, dev = _windows("hg_section", x_win)
+    check_hg_sm90_build(c, num_heads, hg, x_win.dtype, wblk)
+    m = _mask_rows("mask_tok", mask_tok, nw, dev)
+    r = None if regions is None else _mask_rows("regions", regions, nw, dev)
+    if x_win.dtype == torch.float32:
+        return launch_f32("hg_section", x_win, m, r, (0,) * 6, gamma, beta, wqkv, bqkv, wproj,
+                          bproj, bias, num_heads, eps, wblk, hg, "none", norm_first=False)
+    args = win_args("hg_section", x_win, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads)
+    out = torch.empty_like(x_win)
+    P, lib = kernels.ptr, kernels.library()
+    head = (P(x_win), P(m), m.shape[0], P(r), 0 if r is None else r.shape[0],
+            *(P(a) for a in args), P(out), nw, c, num_heads, hg, wblk, eps, int(bool(score_f32)))
+    if clocks is None:
+        err = lib.segland_hg_section(*head, dev.index, kernels.stream_of(x_win))
+    else:
+        err = lib.segland_hg_section_clocks(*head, P(clocks), dev.index, kernels.stream_of(x_win))
+    kernels.check(err, "hg_section")
     return out
 
 
@@ -367,18 +480,28 @@ def hg_section(x_win, mask_tok, regions, gamma, beta, wqkv, bqkv, wproj, bproj, 
                score_f32: bool = True):
     """The head-grouped section with shipped masks (K9 on a CUDA tensor):
     x_win [NW, 49, C], mask_tok [rows, 49], regions [rows, 49] or None (window
-    w takes row w % rows), bias [1, nh, 49, 49].  A thread block owns ``wblk``
-    windows; ``hg`` heads a pass."""
+    w takes row w % rows), bias [1, nh, 49, 49], weights [in, out] (read K-major
+    in bf16).  A thread block owns ``wblk`` windows; ``hg`` heads a pass."""
     if not use_kernel(x_win):
         return hg_section_reference(x_win, mask_tok, regions, gamma, beta, wqkv, bqkv, wproj,
                                     bproj, bias, num_heads, eps, hg, score_f32)
-    nw, dev = x_win.shape[0], x_win.device
-    m = _mask_rows("mask_tok", mask_tok, nw, dev)
-    r = None if regions is None else _mask_rows("regions", regions, nw, dev)
-    out = _launch("hg_section", x_win, m, r, (0,) * 6, gamma, beta, wqkv, bqkv, wproj, bproj,
-                  bias, num_heads, eps, wblk, hg, score_f32, "none")
+    out = _launch_hg(x_win, mask_tok, regions, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                     num_heads, eps, wblk, hg, score_f32)
     hg_section.launches += 1
     return out
+
+
+def hg_section_clocks(clocks, x_win, mask_tok, regions, gamma, beta, wqkv, bqkv, wproj, bproj,
+                      bias, num_heads: int, eps: float = 1e-5, wblk: int = 32, hg: int = 1,
+                      score_f32: bool = True):
+    """A measurement, not the served kernel: K9's bf16 body built to add its
+    consumers' clock64() time by phase (setup, ring wait, wgmma, q/k/v
+    epilogue, attention core, context copy, output epilogue) and their count
+    into ``clocks``, a CUDA int64 tensor of 8.  Takes hg_section's arguments;
+    not counted in ``hg_section.launches``."""
+    _check_clocks(clocks, x_win, 8)
+    return _launch_hg(x_win, mask_tok, regions, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                      num_heads, eps, wblk, hg, score_f32, clocks)
 
 
 hg_section.launches = 0
@@ -395,8 +518,8 @@ def hg2_section(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_he
         return hg2_section_reference(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
                                      num_heads, eps, hg, score_f32, ablate)
     g = _check_geom(geom, x_win.shape[0])
-    out = _launch("hg2_section", x_win, None, None, g, gamma, beta, wqkv, bqkv, wproj, bproj,
-                  bias, num_heads, eps, wblk, hg, score_f32, ablate)
+    out = _launch(x_win, g, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads, eps, wblk,
+                  hg, score_f32, ablate)
     hg2_section.launches += 1
     return out
 

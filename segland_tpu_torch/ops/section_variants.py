@@ -3,8 +3,9 @@ v1 Swin attention section with its knobs and ablation modes.  Port of
 benchmarks/swin_attn_variants.py's ``section`` (body ``_kernel``), which is
 itself a copy of segland_tpu/ops/pallas_attn.py's v1 section body.
 
-A CUDA tensor goes to ``kernels/csrc/attn_section_variants.cu`` (K11, bf16)
-or ``kernels/csrc/attn_section_f32.cu`` (fp32), or raises; a CPU tensor, or
+A CUDA tensor goes to ``kernels/csrc/attn_section_variants.cu`` (K11, bf16:
+section_win.cuh's body, a kernel a mode) or ``kernels/csrc/attn_section_f32.cu``
+(fp32), or raises; a CPU tensor, or
 any tensor inside ``ops.plain_versions()``, goes to the plain version
 :func:`section_reference`.  It follows the JAX body's order of arithmetic
 (T is x's dtype, bf16 or fp32):
@@ -37,8 +38,9 @@ import collections
 import torch
 
 from . import use_kernel
-from .fused_attn import _check_rows, _mask_rows, _mat, _vec
-from .hg_attn import SMEM_MAX, _PAD_BIAS, _al, _mm, check_f32_width, launch_f32
+from .fused_attn import _check_clocks, _mask_rows
+from .hg_attn import (MAX_ACC_REGS, SMEM_MAX, _PAD_BIAS, _mm, _windows, check_f32_width,
+                      launch_f32, win_args, win_layout)
 from .. import kernels
 
 _N = 49
@@ -46,33 +48,34 @@ _HEAD_DIM = 32
 ABLATIONS = ("none", "ln", "io", "attn", "softmax", "nomax", "bf16sm", "proj1")
 
 # ---- K11's builds ------------------------------------------------------------------
-# One build a width: W windows a pass through shared memory, KC weight rows a staged
-# chunk of the qkv products, S chunks in the ring.  attn_section_variants.cu
+# One build a width, every mode: section_win.cuh's body at W windows a pass (a 64-row
+# tile of y each) and S ring slots of one [96, 64] bf16 weight tile; two sets of a
+# head's q, k, v tiles and one head's bias in shared memory.  attn_section_variants.cu
 # instantiates exactly these (a test reads them from there).
-SectionBuild = collections.namedtuple("SectionBuild", "w kc s")
-SECTION_BUILDS = {96: SectionBuild(2, 48, 3), 192: SectionBuild(1, 48, 3),
-                  384: SectionBuild(1, 32, 3)}
-MAX_ACC_FRAGS = 12  # 16x16 fp32 tiles a warp of the per-head projection's accumulator
-_LQ, _LS, _WARPS = 48, 68, 8
+SectionBuild = collections.namedtuple("SectionBuild", "w s")
+SECTION_BUILDS = {96: SectionBuild(2, 6), 192: SectionBuild(2, 6), 384: SectionBuild(1, 6)}
 
 
 def section_layout(c: int, b: SectionBuild) -> dict:
-    """Shared memory of a K11 build, by buffer in bytes, with the per-head
-    projection accumulator's 16x16 tiles a warp (``acc``): the arithmetic of
-    VarCfg in attn_section_variants.cu."""
-    rows = b.w * _N
-    rt = (rows + 15) // 16
-    rq = (rows + 30) // 16 * 16  # the last window's row tiles reach 15 rows past it
-    y = _al(rt * 16 * (c + 8) * 2)
-    parts = dict(y=y, ctx=y, qkv=4 * _al(rq * _LQ * 2), strips=_WARPS * 16 * _LS * 4,
-                 ring=b.s * _al(b.kc * 104 * 2), wproj=_al(32 * (c + 8) * 2),
-                 bias=_al(_N * _N * 4), tokens=2 * _al(rows * 4))
-    return dict(parts, smem=sum(parts.values()), acc=-(-rt * (c // 16) // _WARPS))
+    """Shared memory of a K11 build by buffer in bytes, the fp32 accumulator
+    registers a consumer thread of the products (``acc``) and of the per-head
+    projection, held across the heads (``head_acc``): the arithmetic of VarPlan
+    in attn_section_variants.cu (mode io's kernel has none of it: no product,
+    no shared memory).  The per-head projection takes C / 96 pieces of
+    [96, 32] a head; by windows (W >= 2) a warpgroup takes every piece, by
+    columns (W = 1) half of them, or half of the one piece's columns at C = 96."""
+    lay = win_layout(c, b.w, b.s, 2, 1)
+    npieces = c // 96
+    if b.w >= 2:
+        npc, nbp = npieces, 96
+    else:
+        npc, nbp = (1, 48) if c == 96 else (npieces // 2, 96)
+    return dict(lay, head_acc=(b.w // 2 if b.w >= 2 else 1) * npc * nbp // 2)
 
 
 def _fmt(layout):
     parts = " + ".join(f"{k} {v:,}" for k, v in layout.items()
-                       if k not in ("smem", "acc") and v)
+                       if k not in ("smem", "acc", "head_acc") and v)
     return f"{parts} = {layout['smem']:,} B"
 
 
@@ -80,7 +83,8 @@ def check_section_build(c: int, num_heads: int, dtype, wblk: int, ablate: str = 
     """The launcher's host-side checks, on the CPU too: heads of 32,
     ``wblk >= 1``, a known mode, a build for (C, dtype).  Returns the
     SectionBuild (bf16) or None (fp32); raises ValueError with the reason (for
-    a width with no build, the arithmetic of its leanest layout)."""
+    a width with no build, the arithmetic of its leanest layout: one window a
+    pass, two ring slots)."""
     if c != num_heads * _HEAD_DIM:
         raise ValueError(f"heads of {_HEAD_DIM} only: C={c} with {num_heads} heads")
     if wblk < 1:
@@ -94,14 +98,18 @@ def check_section_build(c: int, num_heads: int, dtype, wblk: int, ablate: str = 
         raise ValueError(f"the section is built for bfloat16 and float32, not {dtype}")
     b = SECTION_BUILDS.get(c)
     if b is None:
-        lean = section_layout(c, SectionBuild(1, 16, 2))
+        lean = section_layout(c, SectionBuild(1, 2)) if c % 96 == 0 else None
         why = []
-        if lean["smem"] > SMEM_MAX:
-            why.append(f"one window a pass needs {_fmt(lean)} > {SMEM_MAX:,}")
-        if lean["acc"] > MAX_ACC_FRAGS:
-            why.append(f"the per-head projection's fp32 accumulator [64, {c}] needs "
-                       f"{lean['acc']} 16x16 tiles a warp ({8 * lean['acc']} registers a "
-                       f"thread) > {MAX_ACC_FRAGS}")
+        if lean is None:
+            why.append("the projection walks 96 columns a slot")
+        else:
+            if lean["smem"] > SMEM_MAX:
+                why.append(f"one window a pass needs {_fmt(lean)} > {SMEM_MAX:,}")
+            if lean["head_acc"] > MAX_ACC_REGS:
+                why.append(f"the per-head projection's fp32 accumulator [64, {c}] takes "
+                           f"{lean['head_acc']} registers a thread > {MAX_ACC_REGS}")
+            if not why:
+                why.append(f"built at C in {tuple(SECTION_BUILDS)} only")
         raise ValueError(f"no bfloat16 build for C={c}: " + "; ".join(why))
     return b
 
@@ -196,47 +204,62 @@ def section_reference(x_win, mask_tok, regions, gamma, beta, wqkv, bqkv, wproj, 
 
 
 # ---- the kernels ----------------------------------------------------------------------
+def _launch(x_win, mask_tok, regions, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads,
+            eps, wblk, score_f32, ablate, clocks=None):
+    """K11 on bf16 windows (attn_section_variants.cu), or the fp32 body on fp32."""
+    nw, c, dev = _windows("section", x_win)
+    check_section_build(c, num_heads, x_win.dtype, wblk, ablate)
+    m = _mask_rows("mask_tok", mask_tok, nw, dev)
+    r = None if regions is None else _mask_rows("regions", regions, nw, dev)
+    if x_win.dtype == torch.float32:
+        return launch_f32("section", x_win, m, r, (0,) * 6, gamma, beta, wqkv, bqkv, wproj,
+                          bproj, bias, num_heads, eps, wblk, 1, ablate, norm_first=True)
+    # mode io (out = x + y) reads no weight, so none is prepared for it
+    args = win_args("section", x_win, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads,
+                    weights=ablate != "io")
+    out = torch.empty_like(x_win)
+    P, lib = kernels.ptr, kernels.library()
+    head = (P(x_win), P(m), m.shape[0], P(r), 0 if r is None else r.shape[0],
+            *(P(a) for a in args), P(out), nw, c, num_heads, wblk, eps, ABLATIONS.index(ablate),
+            int(bool(score_f32)))
+    if clocks is None:
+        err = lib.segland_section_variants(*head, dev.index, kernels.stream_of(x_win))
+    else:
+        err = lib.segland_section_variants_clocks(*head, P(clocks), dev.index,
+                                                  kernels.stream_of(x_win))
+    kernels.check(err, "section")
+    return out
+
+
 def section(x_win, mask_tok, regions, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
             num_heads: int, eps: float = 1e-5, wblk: int = 32, score_f32: bool = True,
             ablate: str = "none"):
     """The variants probe's section (K11 on a bf16 CUDA tensor, the fp32 body
     on an fp32 one): x_win [NW, 49, C], mask_tok [rows, 49], regions [rows,
-    49] or None (window w takes row w % rows), bias [1, nh, 49, 49].  A thread
-    block owns ``wblk`` windows; ``score_f32`` takes the scores in fp32, else
-    q * scale is rounded to T first; ``ablate`` one of ABLATIONS."""
+    49] or None (window w takes row w % rows), bias [1, nh, 49, 49], weights
+    [in, out] (read K-major in bf16).  A thread block owns ``wblk`` windows;
+    ``score_f32`` takes the scores in fp32, else q * scale is rounded to T
+    first; ``ablate`` one of ABLATIONS."""
     if not use_kernel(x_win):
         return section_reference(x_win, mask_tok, regions, gamma, beta, wqkv, bqkv, wproj,
                                  bproj, bias, num_heads, eps, score_f32, ablate)
-    _check_rows("section", x_win)
-    nw, n, c = x_win.shape
-    if n != _N:
-        raise ValueError(f"section takes 7x7 windows, got N={n}")
-    check_section_build(c, num_heads, x_win.dtype, wblk, ablate)
-    dev = x_win.device
-    m = _mask_rows("mask_tok", mask_tok, nw, dev)
-    r = None if regions is None else _mask_rows("regions", regions, nw, dev)
-    if x_win.dtype == torch.float32:
-        out = launch_f32("section", x_win, m, r, (0,) * 6, gamma, beta, wqkv, bqkv, wproj,
-                         bproj, bias, num_heads, eps, wblk, 1, ablate, norm_first=True)
-        section.launches += 1
-        return out
-    # the bias rounded to T, as the JAX wrapper does, and passed as fp32
-    b = bias.float().to(torch.bfloat16).float().contiguous()
-    if b.device != dev or tuple(b.shape) != (1, num_heads, _N, _N):
-        raise ValueError(f"bias {tuple(bias.shape)} on {bias.device}; want "
-                         f"[1, {num_heads}, 49, 49] on {dev}")
-    args = (_vec(gamma, c, dev), _vec(beta, c, dev), _mat("section", wqkv, (c, 3 * c), x_win),
-            _vec(bqkv, 3 * c, dev), _mat("section", wproj, (c, c), x_win), _vec(bproj, c, dev),
-            b)
-    out = torch.empty_like(x_win)
-    P = kernels.ptr
-    err = kernels.library().segland_section_variants(
-        P(x_win), P(m), m.shape[0], P(r), 0 if r is None else r.shape[0], *(P(a) for a in args),
-        P(out), nw, c, num_heads, wblk, eps, ABLATIONS.index(ablate), int(bool(score_f32)),
-        dev.index, kernels.stream_of(x_win))
-    kernels.check(err, "section")
+    out = _launch(x_win, mask_tok, regions, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                  num_heads, eps, wblk, score_f32, ablate)
     section.launches += 1
     return out
 
 
 section.launches = 0
+
+
+def section_clocks(clocks, x_win, mask_tok, regions, gamma, beta, wqkv, bqkv, wproj, bproj,
+                   bias, num_heads: int, eps: float = 1e-5, wblk: int = 32,
+                   score_f32: bool = True):
+    """A measurement, not the served kernel: K11's bf16 body in mode none built
+    to add its consumers' clock64() time by phase (setup, ring wait, wgmma,
+    q/k/v epilogue, attention core, context copy, output epilogue) and their
+    count into ``clocks``, a CUDA int64 tensor of 8.  Takes section's
+    arguments; not counted in ``section.launches``."""
+    _check_clocks(clocks, x_win, 8)
+    return _launch(x_win, mask_tok, regions, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                   num_heads, eps, wblk, score_f32, "none", clocks)

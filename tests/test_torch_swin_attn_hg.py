@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import t
+from torch_helpers import t, win_blocks, win_kernel_env, win_stream, win_takes
 from segland_tpu_torch.ops import hg_attn as H
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -206,19 +206,36 @@ def test_tpu_layout_devices_raise(argv, match):
         swin_attn_hg.main(argv + ["--device", "cpu"])
 
 
-@pytest.mark.parametrize("c,nh,hg,dtype,wblk,ablate,match", [
-    (384, 12, 5, torch.bfloat16, 32, "none", "does not divide"),
-    (384, 12, 4, torch.float16, 32, "none", "bfloat16 and float32"),
-    (1536, 48, 4, torch.float32, 32, "none",
+@pytest.mark.parametrize("kernel,c,nh,hg,dtype,wblk,ablate,match", [
+    ("K10", 384, 12, 5, torch.bfloat16, 32, "none", "does not divide"),
+    ("K10", 384, 12, 4, torch.float16, 32, "none", "bfloat16 and float32"),
+    ("K10", 1536, 48, 4, torch.float32, 32, "none",
      r"no float32 build for C=1536: one window needs .* = 377,860 B > 232,448"),
-    (384, 12, 4, torch.bfloat16, 0, "none", "wblk"),
-    (384, 12, 4, torch.bfloat16, 32, "build", "block-diagonal"),
-    (384, 12, 6, torch.bfloat16, 32, "none", r"no build for C=384 hg=6: .* = 240,512 B > 232,448"),
-    (768, 24, 8, torch.bfloat16, 32, "none", "no build for C=768 hg=8"),
+    ("K10", 384, 12, 4, torch.bfloat16, 0, "none", "wblk"),
+    ("K10", 384, 12, 4, torch.bfloat16, 32, "build", "block-diagonal"),
+    ("K10", 384, 12, 6, torch.bfloat16, 32, "none",
+     r"no build for C=384 hg=6: .* = 240,512 B > 232,448"),
+    ("K10", 768, 24, 8, torch.bfloat16, 32, "none", "no build for C=768 hg=8"),
+    ("K9", 384, 12, 5, torch.bfloat16, 32, None, "does not divide"),
+    ("K9", 384, 12, 4, torch.float16, 32, None, "bfloat16 and float32"),
+    ("K9", 1536, 48, 4, torch.float32, 32, None,
+     r"no float32 build for C=1536: one window needs .* = 377,860 B > 232,448"),
+    ("K9", 384, 12, 4, torch.bfloat16, 0, None, "wblk"),
+    ("K9", 384, 12, 3, torch.bfloat16, 32, None,
+     r"hg_section has no build for C=384 hg=3: one window a pass needs .* = 128,416 B "
+     r"\(<= 232,448\) and 24 accumulator registers a thread \(of 96\); built at \(C, hg\) in "
+     r".*\(384, 4\)"),
+    ("K9", 768, 24, 8, torch.bfloat16, 32, None,
+     r"hg_section has no build for C=768 hg=8: one window a pass needs ring 24,576 \+ "
+     r"y 98,304 \+ qkv 98,304 \+ bias 43,904 \+ tokens 256 \+ barriers 32 \+ align 1,024 = "
+     r"266,400 B \(> 232,448\) and 24 accumulator registers a thread \(of 96\)$"),
 ])
-def test_host_checks_raise(c, nh, hg, dtype, wblk, ablate, match):
+def test_host_checks_raise(kernel, c, nh, hg, dtype, wblk, ablate, match):
     with pytest.raises(ValueError, match=match):
-        H.check_hg_build(c, nh, hg, dtype, wblk, ablate)
+        if kernel == "K9":
+            H.check_hg_sm90_build(c, nh, hg, dtype, wblk)
+        else:
+            H.check_hg_build(c, nh, hg, dtype, wblk, ablate)
 
 
 @pytest.mark.parametrize("c,hg", [(96, 3), (384, 6), (768, 8)])
@@ -229,27 +246,72 @@ def test_fp32_is_accepted_at_every_built_width(c, hg):
         assert H.check_hg_build(c, c // 32, hg, torch.float32, 32, ablate) is None
 
 
-def test_builds_match_the_source_and_fit():
-    """The CUDA source instantiates exactly HG_BUILDS; each fits the block's
-    shared memory and the register budget; hg = 1 and the JAX package's
-    production head group are built at every swin-s width."""
+@pytest.mark.parametrize("kernel", ["K10", "K9"])
+def test_builds_match_the_source_and_fit(kernel):
+    """The CUDA sources instantiate exactly HG_BUILDS (K10, attn_section_hg.cu)
+    and HG_SM90_BUILDS (K9, attn_section_hg_sm90.cu: its served builds in the
+    parts they name, their measurement builds in as many parts again); each
+    fits the block's shared memory and the register budget; hg = 1 and the JAX
+    package's production head group are built at every swin-s width."""
     from segland_tpu_torch import kernels
 
-    src = (ROOT / "segland_tpu_torch/kernels/csrc/attn_section_hg.cu")
-    rows = re.findall(r"^\s*X\((\d+), (\d+), (\d+), (\d+), (\d+), (\d+), (\d+), (true|false), "
-                      r"(true|false)\)", src.read_text(), re.M)
-    built = {(int(r[1]), int(r[2])): H.HgBuild(*map(int, r[3:7]), r[7] == "true", r[8] == "true")
-             for r in rows}
-    assert built == H.HG_BUILDS
+    if kernel == "K10":
+        src = (ROOT / "segland_tpu_torch/kernels/csrc/attn_section_hg.cu")
+        rows = re.findall(r"^\s*X\((\d+), (\d+), (\d+), (\d+), (\d+), (\d+), (\d+), "
+                          r"(true|false), (true|false)\)", src.read_text(), re.M)
+        built = {(int(r[1]), int(r[2])): H.HgBuild(*map(int, r[3:7]), r[7] == "true",
+                                                   r[8] == "true") for r in rows}
+        assert built == H.HG_BUILDS
+        nparts = len({int(r[0]) for r in rows})
+    else:
+        src = (ROOT / "segland_tpu_torch/kernels/csrc/attn_section_hg_sm90.cu")
+        rows = re.findall(r"^\s*X\((\d+), (\d+), (\d+), (\d+), (\d+)\)", src.read_text(),
+                          re.M)
+        built = {(int(r[1]), int(r[2])): H.HgSm90Build(int(r[3]), int(r[4])) for r in rows}
+        assert built == H.HG_SM90_BUILDS
+        nparts = 2 * len({int(r[0]) for r in rows})
     # each part is compiled by a process of its own and instantiates some builds
     parts = [flags for s, flags in kernels.compile_units() if s == src]
-    assert sorted({int(r[0]) for r in rows}) == list(range(len(parts)))
+    assert sorted({int(r[0]) for r in rows}) == list(range(nparts // (1 if kernel == "K10"
+                                                                      else 2)))
+    assert len(parts) == nparts
     for (c, hg), b in built.items():
-        lay = H.hg_layout(c, hg, b)
-        assert lay["smem"] <= H.SMEM_MAX and lay["frags"] <= H.MAX_FRAGS, (c, hg, lay)
-        assert H.check_hg_build(c, c // 32, hg, torch.bfloat16, 32) == b
+        if kernel == "K10":
+            lay = H.hg_layout(c, hg, b)
+            assert lay["smem"] <= H.SMEM_MAX and lay["frags"] <= H.MAX_FRAGS, (c, hg, lay)
+            assert H.check_hg_build(c, c // 32, hg, torch.bfloat16, 32) == b
+        else:
+            lay = H.hg_sm90_layout(c, hg, b)
+            assert lay["smem"] <= H.SMEM_MAX and lay["acc"] <= H.MAX_ACC_REGS, (c, hg, lay)
+            assert H.check_hg_sm90_build(c, c // 32, hg, torch.bfloat16, 32) == b
     for c, nh in ((96, 3), (192, 6), (384, 12), (768, 24)):
         assert (c, 1) in built and (c, H.V2_HG[nh]) in built
+
+
+@pytest.mark.parametrize("c,side", [(96, 259), (192, 133), (384, 70), (768, 35)])
+def test_pass_schedule_covers_each_window_once(c, side):
+    """A host replay of K9's schedule at a swin-s stage of a batch of 8, every
+    built hg, read from the sources (torch_helpers' C-source replay: the
+    launcher's grid, section_win.cuh's win_passes, the kernel's pass loop, the
+    plan structs): a block owns wblk windows (the last block what is left),
+    walked W at a time (the last pass what is left); every window is in exactly
+    one pass, and the stream (HgItems' PASS) fills as many ring slots a pass as
+    each consumer warpgroup takes (its section_product calls times the loops
+    around them), as ring_pass_end checks on the card."""
+    src = "attn_section_hg_sm90.cu"
+    nw = 8 * (side // 7) ** 2
+    for (cc, hg), b in H.HG_SM90_BUILDS.items():
+        if cc != c:
+            continue
+        for wblk in (32, 7, b.w):
+            blocks = win_blocks(src, "hg_sm90_kernel", nw, wblk, b.w)
+            seen = [w0 + i for passes in blocks for w0, n in passes for i in range(n)]
+            assert seen == list(range(nw)), (hg, wblk)
+            assert all(0 < n <= b.w for passes in blocks for _, n in passes)
+        for g in (0, 1):
+            env = win_kernel_env(src, "hg_sm90_kernel", "HgPlan", (c, hg, b.w, b.s), g=g)
+            stream = win_stream(src, "HgItems", env)
+            assert stream == win_takes(src, "hg_sm90_kernel", env) > 0, (hg, g)
 
 
 def test_window_tables_agree_with_the_section_kernel_masks():

@@ -23,7 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import t
+from torch_helpers import (c_block, c_enums, csrc, t, win_blocks, win_kernel_env, win_stream,
+                           win_takes)
 from segland_tpu_torch.ops import section_variants as S
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -172,7 +173,8 @@ def test_probe_argv_raises(argv, match):
     (384, 12, torch.bfloat16, 32, "build", "not one of"),
     (384, 12, torch.float16, 32, "none", "bfloat16 and float32"),
     (768, 24, torch.bfloat16, 32, "none",
-     r"no bfloat16 build for C=768: .* 24 16x16 tiles a warp \(192 registers a thread\) > 12"),
+     r"no bfloat16 build for C=768: the per-head projection's fp32 accumulator \[64, 768\] "
+     r"takes 192 registers a thread > 96"),
     (1536, 48, torch.float32, 32, "proj1", "no float32 build for C=1536"),
 ])
 def test_host_checks_raise(c, nh, dtype, wblk, ablate, match):
@@ -181,27 +183,90 @@ def test_host_checks_raise(c, nh, dtype, wblk, ablate, match):
 
 
 def test_builds_match_the_source_and_fit():
-    """attn_section_variants.cu builds exactly SECTION_BUILDS, each within a
-    block's shared memory and the accumulator's register budget, at the
-    probe's three widths; attn_section_f32.cu takes exactly F32_WIDTHS, whose
-    layout is f32_layout, and every mode is accepted in fp32 there."""
+    """attn_section_variants.cu builds exactly SECTION_BUILDS (one a width, each
+    mode a part of its own), each within a block's shared memory and the
+    accumulators' register budget at the probe's three widths, from
+    section_win.cuh's constants; attn_section_f32.cu takes exactly F32_WIDTHS,
+    whose layout is f32_layout, and every mode is accepted in fp32 there."""
+    from segland_tpu_torch import kernels
     from segland_tpu_torch.ops import hg_attn as H
 
-    src = (ROOT / "segland_tpu_torch/kernels/csrc/attn_section_variants.cu").read_text()
-    rows = re.findall(r"^\s*X\((\d+), (\d+), (\d+), (\d+)\)", src, re.M)
+    csrc = ROOT / "segland_tpu_torch/kernels/csrc"
+    src = csrc / "attn_section_variants.cu"
+    rows = re.findall(r"^\s*X\((\d+), (\d+), (\d+)\)", src.read_text(), re.M)
     built = {int(r[0]): S.SectionBuild(*map(int, r[1:])) for r in rows}
     assert built == S.SECTION_BUILDS and sorted(built) == [96, 192, 384]
+    parts = [flags for s_, flags in kernels.compile_units() if s_ == src]
+    assert len(parts) == len(S.ABLATIONS)
+    win = (csrc / "section_win.cuh").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", win))
+    assert (int(consts["kWinRows"]), int(consts["kBiasLd"])) == (64, 56)
+    assert H._TILE_Q == 64 * 64 and H._BIAS_HEAD == 49 * 56 * 2
     for c, b in built.items():
         lay = S.section_layout(c, b)
-        assert lay["smem"] <= H.SMEM_MAX and lay["acc"] <= S.MAX_ACC_FRAGS, (c, lay)
+        assert lay["smem"] <= H.SMEM_MAX and lay["head_acc"] <= H.MAX_ACC_REGS, (c, lay)
+        assert lay["acc"] + lay["head_acc"] <= 2 * H.MAX_ACC_REGS, (c, lay)
         assert S.check_section_build(c, c // 32, torch.bfloat16, 32) == b
-    f32 = (ROOT / "segland_tpu_torch/kernels/csrc/attn_section_f32.cu").read_text()
+    f32 = (csrc / "attn_section_f32.cu").read_text()
     widths = re.search(r"\(C != (\d+) && C != (\d+) && C != (\d+) && C != (\d+)\)", f32)
     assert tuple(map(int, widths.groups())) == H.F32_WIDTHS
     assert H.f32_layout(768)["smem"] == 205828 <= H.SMEM_MAX
     for c in H.F32_WIDTHS:
         for ab in S.ABLATIONS:
             assert S.check_section_build(c, c // 32, torch.float32, 32, ab) is None
+
+
+@pytest.mark.parametrize("c,nh,side", [(96, 3, 259), (192, 6, 133), (384, 12, 70)])
+def test_pass_schedule_covers_each_window_once(c, nh, side):
+    """A host replay of K11's schedule at a swin-s stage of a batch of 8, read
+    from the sources (torch_helpers' C-source replay: the launchers' grid,
+    section_win.cuh's win_passes, the kernel's pass loop, the plan structs): a
+    block owns wblk windows (the last block what is left), walked W at a time
+    (the last pass what is left, io a block at once); every window is in
+    exactly one pass.  In every mode but io (no ring) the stream (VarItems'
+    PASS) fills as many ring slots a pass as each consumer warpgroup takes or
+    skips (its section_product and head_projection calls times the loops and
+    guards around them), as ring_pass_end checks on the card."""
+    src = "attn_section_variants.cu"
+    nw = 8 * (side // 7) ** 2
+    w = S.SECTION_BUILDS[c].w
+    assert re.search(r"win_passes\(NW, wblk, 1\)", c_block(csrc(src), r"\bio_kernel\("))
+    for wblk in (32, 7, w):
+        for kernel_w in (w, 1):  # the section kernel's passes; io's block at once
+            blocks = win_blocks(src, "variants_kernel", nw, wblk, kernel_w)
+            assert len(blocks) == -(-nw // wblk)
+            seen = [w0 + i for passes in blocks for w0, n in passes for i in range(n)]
+            assert seen == list(range(nw)), (wblk, kernel_w)
+            assert all(0 < n <= kernel_w for passes in blocks for _, n in passes)
+    modes = c_enums(csrc(src))
+    assert [modes[k] for k in ("kNone", "kLn", "kIo", "kAttn", "kSoftmax", "kNoMax", "kBf16Sm",
+                               "kProj1")] == list(range(len(S.ABLATIONS)))
+    b = S.SECTION_BUILDS[c]
+    for mode, ab in enumerate(S.ABLATIONS):
+        if ab == "io":
+            continue
+        for g in (0, 1):
+            env = win_kernel_env(src, "variants_kernel", "VarPlan", (c, b.w, b.s), MODE=mode, g=g)
+            stream = win_stream(src, "VarItems", env)
+            assert stream == win_takes(src, "variants_kernel", env) > 0, (ab, g)
+
+
+def test_new_bodies_use_no_wmma():
+    """K9's and K11's sources, with every header they include, hold no
+    nvcuda::wmma: their products are wgmma and their core mma.sync."""
+    csrc = ROOT / "segland_tpu_torch/kernels/csrc"
+    for name in ("attn_section_variants.cu", "attn_section_hg_sm90.cu"):
+        todo, seen = [name], set()
+        while todo:
+            f = todo.pop()
+            if f in seen:
+                continue
+            seen.add(f)
+            text = (csrc / f).read_text()
+            code = "\n".join(line.split("//")[0] for line in text.splitlines())
+            assert "wmma" not in code and "<mma.h>" not in code, (name, f)
+            todo += re.findall(r'^#include "([\w.]+)"', text, re.M)
+        assert {"section_win.cuh", "mma_sync.cuh", "section_sm90.cuh", "sm90.cuh"} <= seen
 
 
 def test_mask_rows_must_divide_the_windows():
