@@ -845,11 +845,12 @@ def phase_k5(dev):
 
 
 def hg_builds(c):
-    """{hg: W} of the builds of K9 and K10 at width C (W, the windows a pass,
-    is the wblk that gives K3's grid), and the JAX package's production hg."""
-    from segland_tpu_torch.ops.hg_attn import HG_BUILDS, V2_HG
+    """{hg: W} of K10's builds at width C (attn_section_hg2_sm90.cu; W, the
+    windows a pass, is the wblk that gives each block one pass), and the JAX
+    package's production hg."""
+    from segland_tpu_torch.ops.hg_attn import HG2_BUILDS, V2_HG
 
-    return {hg: b.w for (cc, hg), b in sorted(HG_BUILDS.items()) if cc == c}, V2_HG[c // 32]
+    return {hg: b.w for (cc, hg), b in sorted(HG2_BUILDS.items()) if cc == c}, V2_HG[c // 32]
 
 
 HG_WBLK = 32  # the JAX probe's default windows a thread block
@@ -876,47 +877,81 @@ def hg_input(dev, b, c, nh, side, pside, shift, seed):
 
 def phase_k10(dev):
     """K10 hg2_section at the four swin-s stage shapes, shift 0 and 3, every
-    built hg, against its plain version, beside K3 on the same input; then each
-    ablation at hg = 1 and the default hg (shift 3), and the phase split."""
+    built hg, wblk = W and 32, against its plain version; its builds'
+    registers and spills and SASS HGMMA/UTMALDG counts; beside it on the same
+    input K3, K9 at the same hg and PR 6's WMMA body, and the clock builds'
+    phase split; then each ablation at hg = 1 and the default hg (shift 3)."""
     import torch
     from segland_tpu_torch.ops.fused_attn import attn_section
-    from segland_tpu_torch.ops.hg_attn import hg2_section, hg2_section_reference
+    from segland_tpu_torch.ops.hg_attn import (ABLATIONS, HG2_MODE_BUILDS, HG_BUILDS,
+                                               HG_SM90_BUILDS, hg2_section, hg2_section_clocks,
+                                               hg2_section_reference, hg2_section_wmma,
+                                               hg_section)
 
+    keys = [(c, hg, ABLATIONS.index(ab)) for c in (96, 192, 384, 768)
+            for hg in hg_builds(c)[0] for ab in ABLATIONS
+            if ab == "none" or (ab != "ioraw" and (c, hg) in HG2_MODE_BUILDS)]
+    build_attrs("segland_hg2_section_attrs", keys + [(96, 1, ABLATIONS.index("ioraw"))], "K10",
+                names=("C", "hg", "mode"))
+    sass_counts("9GeomMasks")  # hg_kernel<HgPlan<...>, GeomMasks, mode>; not the ioraw kernel
     worst, plain_ms, bounds, by_hg, by_hg32, k3_ms, split = 0.0, 0.0, [], {}, {}, 0.0, {}
-    main_ms = 0.0
+    main_ms, old_by_hg, k9_by_hg = 0.0, {}, {}
     for i, (blocks, c, nh, side, pside) in enumerate(SWIN_STAGES):
         nw = BATCH * (pside // 7) ** 2
         hgs, hg_main = hg_builds(c)
         stage_t = {hg: 0.0 for hg in hgs}
         for shift in (0, 3):
-            a, w, geom, _, _ = hg_input(dev, BATCH, c, nh, side, pside, shift, 120 + i)
+            a, w, geom, mask, regions = hg_input(dev, BATCH, c, nh, side, pside, shift, 120 + i)
             x = a["x"]
-            w3 = linear_weights(w, torch.bfloat16)
-            k3 = attn_section(x, geom, *w3)
-            t3 = cuda_ms(lambda: attn_section(x, geom, *w3), iters=5, warmup=1)
+            w_l = linear_weights(w, torch.bfloat16)  # K-major, as a model hands them over
+            k3 = attn_section(x, geom, *w_l)
+            t3 = cuda_ms(lambda: attn_section(x, geom, *w_l), iters=5, warmup=1)
             k3_ms += blocks / 2 * t3
             for hg, wb in hgs.items():
-                tag = f"K10 bf16 NW={nw} C={c} heads={nh} geom={geom} hg={hg} wblk={wb}"
-                got = hg2_section(x, geom, *w, hg=hg, wblk=wb)
-                e = compare(tag, got, hg2_section_reference(x, geom, *w, hg=hg), 2e-2, 1e-2)
+                key = f"C={c} hg={hg}"
+                tag = f"K10 bf16 NW={nw} C={c} heads={nh} geom={geom} hg={hg}"
+                want = hg2_section_reference(x, geom, *w, hg=hg)
+                e = 0.0
+                for blk in (wb, HG_WBLK):
+                    got = hg2_section(x, geom, *w_l, hg=hg, wblk=blk)
+                    e = max(e, compare(f"{tag} wblk={blk}", got, want, 2e-2, 1e-2))
                 worst = max(worst, e)
                 d3 = float((got.float() - k3.float()).abs().max())
-                del got
-                t = cuda_ms(lambda: hg2_section(x, geom, *w, hg=hg, wblk=wb), iters=5, warmup=1)
-                t32 = cuda_ms(lambda: hg2_section(x, geom, *w, hg=hg, wblk=HG_WBLK), iters=3,
+                del got, want
+                t = cuda_ms(lambda: hg2_section(x, geom, *w_l, hg=hg, wblk=wb), iters=5,
+                            warmup=1)
+                t32 = cuda_ms(lambda: hg2_section(x, geom, *w_l, hg=hg, wblk=HG_WBLK), iters=3,
                               warmup=1)
-                tp = cuda_ms(lambda: hg2_section_reference(x, geom, *w, hg=hg), iters=2, warmup=0)
-                by_hg32[f"C={c} hg={hg}"] = by_hg32.get(f"C={c} hg={hg}", 0.0) + blocks / 2 * t32
+                tp = cuda_ms(lambda: hg2_section_reference(x, geom, *w, hg=hg), iters=2,
+                             warmup=0)
+                t_old = cuda_ms(lambda: hg2_section_wmma(x, geom, *w, hg=hg,
+                                                         wblk=HG_BUILDS[(c, hg)].w),
+                                iters=5, warmup=1)
+                t9 = None
+                if (c, hg) in HG_SM90_BUILDS:
+                    t9 = cuda_ms(lambda: hg_section(x, mask, regions, *w_l, hg=hg,
+                                                    wblk=HG_SM90_BUILDS[(c, hg)].w),
+                                 iters=5, warmup=1)
+                    k9_by_hg[key] = k9_by_hg.get(key, 0.0) + blocks / 2 * t9
+                by_hg32[key] = by_hg32.get(key, 0.0) + blocks / 2 * t32
                 stage_t[hg] += blocks / 2 * t
-                by_hg[f"C={c} hg={hg}"] = by_hg.get(f"C={c} hg={hg}", 0.0) + blocks / 2 * t
+                by_hg[key] = by_hg.get(key, 0.0) + blocks / 2 * t
+                old_by_hg[key] = old_by_hg.get(key, 0.0) + blocks / 2 * t_old
                 if hg == hg_main:
                     plain_ms += blocks / 2 * tp
                     main_ms += blocks / 2 * t
+                sp = ""
+                if shift == 0 and (c, hg) in HG2_MODE_BUILDS:
+                    sp = " " + phase_split(lambda clk: hg2_section_clocks(
+                        clk, x, geom, *w_l, hg=hg, wblk=wb), K3_PHASES, dev)
+                    split[f"{key} clocks"] = sp.strip()
                 b_ms = section_bound(nw, c, nh)[0]
-                print(f"{tag}: max_abs_err={e:.6g} tol=|d|<=0.02+0.01*|ref| out_of_tol=0 "
-                      f"kernel_ms={t:.4f} wblk{HG_WBLK}_ms={t32:.4f} ({-(-nw // HG_WBLK)} blocks) "
-                      f"plain_ms={tp:.4f} k3_ms={t3:.4f} "
-                      f"max_abs_diff_vs_k3={d3:.6g} bound_ms={b_ms:.4f}", flush=True)
+                print(f"{tag} wblk={wb}: max_abs_err={e:.6g} tol=|d|<=0.02+0.01*|ref| "
+                      f"out_of_tol=0 (wblk={wb} and {HG_WBLK}) kernel_ms={t:.4f} "
+                      f"wblk{HG_WBLK}_ms={t32:.4f} ({-(-nw // HG_WBLK)} blocks) "
+                      f"wmma_body_ms={t_old:.4f} k9_ms={'-' if t9 is None else f'{t9:.4f}'} "
+                      f"plain_ms={tp:.4f} k3_ms={t3:.4f} max_abs_diff_vs_k3={d3:.6g} "
+                      f"bound_ms={b_ms:.4f} share_of_bound={b_ms / t:.3f}{sp}", flush=True)
             del k3
         bounds += [section_bound(nw, c, nh)] * blocks
         if len(hgs) > 1 and len({round(t, 3) for t in stage_t.values()}) == 1:
@@ -924,14 +959,15 @@ def phase_k10(dev):
         # the ablations at shift 3 (the full path: pad mask and regions)
         a, w, geom, _, _ = hg_input(dev, BATCH, c, nh, side, pside, 3, 130 + i)
         x = a["x"]
+        w_l = linear_weights(w, torch.bfloat16)
         for hg in sorted({1, hg_main}):
             times, gtimes, wb = {}, {}, hgs[hg]
-            for ab in ("none", "ioraw", "io", "attn", "softmax"):
+            for ab in ABLATIONS:
                 tag = f"K10 bf16 NW={nw} C={c} hg={hg} wblk={wb} ablate={ab}"
                 sums = []
                 want = hg2_section_reference(x, geom, *w, hg=hg, ablate=ab,
                                              sums=sums if ab == "softmax" else None)
-                got = hg2_section(x, geom, *w, hg=hg, ablate=ab, wblk=wb)
+                got = hg2_section(x, geom, *w_l, hg=hg, ablate=ab, wblk=wb)
                 held = ""
                 if ab == "softmax":  # rows whose every per-head sum has |s| > 0.05
                     rows = (sums[0].abs() > 0.05).all(-1)
@@ -939,10 +975,10 @@ def phase_k10(dev):
                     got, want = got[rows], want[rows]
                 worst = max(worst, compare(tag, got, want, 2e-2, 1e-2))
                 del got, want, sums
-                times[ab] = cuda_ms(lambda: hg2_section(x, geom, *w, hg=hg, ablate=ab, wblk=wb),
-                                    iters=5, warmup=1)
+                times[ab] = cuda_ms(lambda: hg2_section(x, geom, *w_l, hg=hg, ablate=ab,
+                                                        wblk=wb), iters=5, warmup=1)
                 gtimes[ab] = chain_ms(
-                    lambda a: hg2_section(a, geom, *w, hg=hg, ablate=ab, wblk=wb), x)
+                    lambda a: hg2_section(a, geom, *w_l, hg=hg, ablate=ab, wblk=wb), x)
                 print(f"{tag}: out_of_tol=0{held} kernel_ms={times[ab]:.4f} "
                       f"graph_ms={gtimes[ab]:.4f}", flush=True)
             for how, tt in (("eager", times), ("graph", gtimes)):
@@ -952,16 +988,25 @@ def phase_k10(dev):
                 split[f"C={c} hg={hg} {how}"] = sp
                 print(f"K10 C={c} hg={hg} phase split, ms a call ({how}): "
                       + " ".join(f"{k}={v:.4f}" for k, v in sp.items()), flush=True)
-        del a, x, w
+        del a, x, w, w_l
     b_ms, b_by = sum_bounds(bounds)
+    per_fwd = lambda d, hg_of: sum(v for k, v in d.items()
+                                   if int(k.split("hg=")[1]) == hg_of(int(k[2:].split()[0])))
+    default = lambda c: hg_builds(c)[1]
+    fwd = {what: {"default hg": per_fwd(d, default), "hg=1": per_fwd(d, lambda c: 1)}
+           for what, d in (("k10", by_hg), ("wmma_body", old_by_hg), ("k9", k9_by_hg))}
     print(f"K10 per forward of {BATCH} tiles (24 blocks) at the default hg: "
-          f"kernel_ms={main_ms:.4f} "
-          f"plain_ms={plain_ms:.4f} k3_ms={k3_ms:.4f} bound_ms={b_ms:.4f} ({b_by}); by hg: "
-          + " ".join(f"{k}={v:.4f}" for k, v in by_hg.items()), flush=True)
+          f"kernel_ms={main_ms:.4f} plain_ms={plain_ms:.4f} k3_ms={k3_ms:.4f} "
+          f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / main_ms:.3f}; a forward "
+          + "; ".join(f"{what} {k}={v:.4f}" for what, d in fwd.items() for k, v in d.items())
+          + "; by hg: " + " ".join(f"{k}={v:.4f}" for k, v in by_hg.items()), flush=True)
+    print("K10 WMMA body per forward by hg: "
+          + " ".join(f"{k}={v:.4f}" for k, v in old_by_hg.items()), flush=True)
     print(f"K10 per forward at wblk={HG_WBLK} by hg: "
           + " ".join(f"{k}={v:.4f}" for k, v in by_hg32.items()), flush=True)
     return dict(max_abs_err=worst, ms=main_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, k3_ms=k3_ms, ms_by_hg=by_hg, ms_by_hg_wblk32=by_hg32,
+                library_ms=None, k3_ms=k3_ms, forward_ms=fwd, ms_by_hg=by_hg,
+                wmma_body_ms_by_hg=old_by_hg, k9_ms_by_hg=k9_by_hg, ms_by_hg_wblk32=by_hg32,
                 phase_split=split)
 
 
@@ -986,7 +1031,7 @@ def phase_k9(dev):
                                                hg_section_reference)
 
     build_attrs("segland_hg_section_attrs", sorted(HG_SM90_BUILDS), "K9", names=("C", "hg"))
-    sass_counts("6HgPlanI")  # hg_sm90_kernel<HgPlan<...>>
+    sass_counts("12ShippedMasks")  # hg_kernel<HgPlan<...>, ShippedMasks, 0, ...>
     worst, plain_ms, bounds, by_hg, by_hg32, k5_ms, k3_ms, main_ms = 0.0, 0.0, [], {}, {}, 0.0, \
         0.0, 0.0
     split = {}
@@ -1452,44 +1497,79 @@ def conv3_inputs(m, p, c, dev, seed):
                 b3=torch.randn(c, device=dev, generator=g) * 0.1)
 
 
+K8_PHASES = ("wait", "wgmma", "res_wait", "epilogue")
+
+
 def phase_k8(dev):
     """K8 at the probe's two shapes, M = 8*128^2 and 16*128^2, with and
-    without the ReLU, and a ragged M."""
+    without the ReLU, and a ragged M; its builds' registers and spills, SASS
+    IGMMA/UTMALDG counts and plan (the library's against conv3_plan); per
+    shape its time beside PR 4's mma.sync body, the bound, torch._int_mm and
+    the epilogue in torch each alone, and the clock build's phase split."""
     import torch
-    from segland_tpu_torch.ops.fused_bottleneck import conv3_residual, conv3_residual_reference
+    from segland_tpu_torch.ops.fused_bottleneck import (conv3_plan, conv3_residual,
+                                                        conv3_residual_clocks,
+                                                        conv3_residual_mma,
+                                                        conv3_residual_reference,
+                                                        library_conv3_plan)
 
-    out = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, not_bit_equal=0)
+    build_attrs("segland_conv3_residual_attrs", [(c, p) for p, c in K8_SHAPES], "K8",
+                names=("C", "P"), kind="int8")
+    sass_counts("conv3_residual_kernel", mma="IGMMA")  # not the old conv3_residual_mma_kernel
+    out = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, not_bit_equal=0,
+               mma_body_ms=0.0, int_mm_ms=0.0, int_mm_rowmajor_b_ms=0.0, epilogue_ms=0.0,
+               by_shape={})
     bounds = []
     for i, (p, c) in enumerate(K8_SHAPES):
+        plan, lib = conv3_plan(c, p), library_conv3_plan(c, p)
+        print(f"K8 plan C={c} P={p}: {plan}; library {lib}", flush=True)
+        if lib is None or any(lib[k] != plan[k] for k in lib):
+            fail(f"K8 C={c} P={p}: the library's plan {lib} is not conv3_plan's {plan}")
         for m in (8 * 128 * 128, 16 * 128 * 128, 8 * 128 * 128 - 37):
             a = conv3_inputs(m, p, c, dev, 80 + i)
             args = (a["h2q"], a["res"], a["w3"], a["a3"], a["b3"])
-            differ = 0
+            differ, err = 0, 0.0
             for relu in (True, False):
                 e, n = compare_exact(f"K8 M={m} P={p} C={c} relu={relu}",
                                      conv3_residual(*args, last_relu=relu),
                                      conv3_residual_reference(*args, last_relu=relu))
-                out["max_abs_err"] = max(out["max_abs_err"], e)
+                err = max(err, e)
                 differ += n
+            out["max_abs_err"] = max(out["max_abs_err"], err)
             out["not_bit_equal"] += differ
             ms = cuda_ms(lambda: conv3_residual(*args), iters=5, warmup=1)
+            ms_old = cuda_ms(lambda: conv3_residual_mma(*args), iters=5, warmup=1)
             plain_ms = cuda_ms(lambda: conv3_residual_reference(*args), iters=3, warmup=1)
             w3t = a["w3"].t().contiguous()
-
-            def library():  # one cuBLASLt int8 product, then the epilogue in torch
-                acc = torch._int_mm(a["h2q"], w3t.t())
-                return torch.relu(acc.float() * a["a3"] + a["b3"] + a["res"].float()).bfloat16()
-
-            lib_ms = cuda_ms(library, iters=3, warmup=1)
+            # the library side, one call at a time: cuBLASLt's int8 product with B
+            # column-major (w3t.t(), its preferred operand) and row-major (w3 as
+            # it is), then the epilogue in torch on its int32 result
+            mm_ms = cuda_ms(lambda: torch._int_mm(a["h2q"], w3t.t()), iters=3, warmup=1)
+            mm_row_ms = cuda_ms(lambda: torch._int_mm(a["h2q"], a["w3"]), iters=3, warmup=1)
+            acc = torch._int_mm(a["h2q"], w3t.t())
+            epi_ms = cuda_ms(lambda: torch.relu(acc.float() * a["a3"] + a["b3"]
+                                                + a["res"].float()).bfloat16(),
+                             iters=3, warmup=1)
+            del acc
             # h2q and res read and out written once, the weight and the vectors once
             b_ms, b_by = bound(2 * m * p * c, m * p + 2 * m * c * 2 + p * c + 8 * c, PEAK_INT8)
-            print(f"K8 M={m} P={p} C={c}: max_abs_err={out['max_abs_err']:.6g} tol=1 bf16 ulp "
-                  f"out_of_tol=0 not_bit_equal={differ} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"int_mm_plus_epilogue_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+            sp = ""
+            if m == 16 * 128 * 128:
+                sp = " " + phase_split(lambda clk: conv3_residual_clocks(clk, *args), K8_PHASES,
+                                       dev)
+            print(f"K8 M={m} P={p} C={c}: max_abs_err={err:.6g} tol=1 bf16 ulp "
+                  f"out_of_tol=0 not_bit_equal={differ} kernel_ms={ms:.4f} "
+                  f"mma_body_ms={ms_old:.4f} plain_ms={plain_ms:.4f} int_mm_ms={mm_ms:.4f} "
+                  f"int_mm_rowmajor_b_ms={mm_row_ms:.4f} epilogue_ms={epi_ms:.4f} "
+                  f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms:.3f}{sp}", flush=True)
+            out["by_shape"][f"M={m} P={p} C={c}"] = dict(
+                ms=ms, mma_body_ms=ms_old, bound_ms=b_ms, int_mm_ms=mm_ms,
+                int_mm_rowmajor_b_ms=mm_row_ms, epilogue_ms=epi_ms, phase_split=sp.strip())
             if m == 16 * 128 * 128:  # the probe's own M: the kernel row sums its two shapes
-                out["ms"] += ms
-                out["plain_ms"] += plain_ms
-                out["library_ms"] += lib_ms
+                for k, v in (("ms", ms), ("mma_body_ms", ms_old), ("plain_ms", plain_ms),
+                             ("int_mm_ms", mm_ms), ("int_mm_rowmajor_b_ms", mm_row_ms),
+                             ("epilogue_ms", epi_ms)):
+                    out[k] += v
                 bounds.append((b_ms, b_by))
             del a, args, w3t
             torch.cuda.empty_cache()
@@ -2183,6 +2263,10 @@ def main(argv=None):
         elif "warning" in line or "error" in line or "(C75" in line:
             print(f"  ptxas: {line.strip()[:160]}")
     print(f"build: {info['seconds']:.1f}s built={info['built']} {info['path']}", flush=True)
+    if info["units"]:  # the nvcc processes that ended last, with their ends
+        last = sorted(info["units"].items(), key=lambda kv: -kv[1])[:8]
+        print("build: last nvcc processes to end (s from the start): "
+              + ", ".join(f"{u} {t:.1f}" for u, t in last), flush=True)
 
     csrc = "segland_tpu_torch/kernels/csrc/"
     kern = {
@@ -2203,7 +2287,7 @@ def main(argv=None):
                                replaces="segland_tpu/ops/pallas_bottleneck.py:269"),
         "hg_section": dict(source=csrc + "attn_section_hg_sm90.cu",
                            replaces="benchmarks/swin_attn_hg.py:125"),
-        "hg2_section": dict(source=csrc + "attn_section_hg.cu",
+        "hg2_section": dict(source=csrc + "attn_section_hg2_sm90.cu",
                             replaces="benchmarks/swin_attn_hg.py:354"),
         "section": dict(source=csrc + "attn_section_variants.cu",
                         replaces="benchmarks/swin_attn_variants.py:135"),

@@ -15,6 +15,7 @@ one.  Pointers and the stream are passed as ``ctypes.c_void_p`` (a bare
 Python int would be cut to 32 bits).
 """
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -61,6 +62,8 @@ _ENTRIES = {
     # ws, shift, eps, ablate, score_f32, device, stream
     "segland_hg2_section": [_P] * 9 + [ctypes.c_longlong] + [_I] * 10 + [ctypes.c_float]
                            + [_I] * 3 + [_P],
+    "segland_hg2_section_wmma": [_P] * 9 + [ctypes.c_longlong] + [_I] * 10 + [ctypes.c_float]
+                                + [_I] * 3 + [_P],
     # x, mask_tok, rows_m, regions, rows_r, gamma, beta, wqkv, bqkv, wproj, bproj, bias, out,
     # NW, C, nh, hg, wblk, eps, score_f32, device, stream
     "segland_hg_section": [_P, _P, _I, _P, _I] + [_P] * 8 + [ctypes.c_longlong] + [_I] * 4
@@ -74,9 +77,9 @@ _ENTRIES = {
     "segland_section_f32": [_P, _P, _I, _P, _I] + [_P] * 8 + [ctypes.c_longlong] + [_I] * 9
                            + [ctypes.c_float] + [_I] * 4 + [_P],
     # the bf16 kernels of segland_ln_mlp, segland_attn_section, segland_swin_block,
-    # segland_attn_section_v1, segland_hg_section and segland_section_variants (mode
-    # none), and K7's two int8 kernels, with phase clocks: their arguments (without
-    # dtype), then clocks (uint64) before device and stream
+    # segland_attn_section_v1, segland_hg_section, segland_hg2_section and
+    # segland_section_variants (mode none), and K7's two int8 kernels, with phase clocks:
+    # their arguments (without dtype), then clocks (uint64) before device and stream
     "segland_ln_mlp_clocks": [_P] * 10 + [ctypes.c_longlong, _I, _I, ctypes.c_float, _P, _I,
                                           _P],
     "segland_attn_section_clocks": [_P] * 9 + [ctypes.c_longlong] + [_I] * 8
@@ -92,8 +95,14 @@ _ENTRIES = {
                                  + [_I] * 4 + [ctypes.c_float, _I, _P, _I, _P],
     "segland_section_variants_clocks": [_P, _P, _I, _P, _I] + [_P] * 8 + [ctypes.c_longlong]
                                        + [_I] * 3 + [ctypes.c_float, _I, _I, _P, _I, _P],
+    "segland_hg2_section_clocks": [_P] * 9 + [ctypes.c_longlong] + [_I] * 10 + [ctypes.c_float]
+                                  + [_I] * 2 + [_P, _I, _P],
     # h2q, res, w3t, a3, b3, out, M, P, C, relu, device, stream
     "segland_conv3_residual_int8": [_P] * 6 + [ctypes.c_longlong] + [_I] * 4 + [_P],
+    "segland_conv3_residual_int8_mma": [_P] * 6 + [ctypes.c_longlong] + [_I] * 4 + [_P],
+    # the same, then clocks (uint64) before device and stream
+    "segland_conv3_residual_int8_clocks": [_P] * 6 + [ctypes.c_longlong] + [_I] * 3
+                                          + [_P, _I, _P],
 }
 
 
@@ -133,11 +142,13 @@ def library_path() -> Path:
 
 def build() -> dict:
     """Compile the kernels if this source hash has no library yet.  Returns
-    {"path", "seconds", "built", "log"}; ``log`` holds nvcc's ptxas report
-    (registers, shared memory, spills per kernel) when it built."""
+    {"path", "seconds", "built", "log"} and, when it built, "units": the
+    seconds from the start of the build at which each nvcc process ended;
+    ``log`` holds nvcc's ptxas report (registers, shared memory, spills per
+    kernel) when it built."""
     so = library_path()
     if so.exists():
-        return {"path": str(so), "seconds": 0.0, "built": False, "log": ""}
+        return {"path": str(so), "seconds": 0.0, "built": False, "log": "", "units": {}}
     BUILD.mkdir(parents=True, exist_ok=True)
     tag = f"{so.stem}.{os.getpid()}"
     nvcc = nvcc_path()
@@ -147,7 +158,16 @@ def build() -> dict:
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(obj), str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for (src, flags), obj in zip(units, objs)]
-    logs = [proc.communicate()[0] for proc in procs]
+
+    def finish(proc):  # a unit's output, and its seconds from the start of the build
+        out = proc.communicate()[0]
+        return out, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(procs)) as pool:
+        done = list(pool.map(finish, procs))
+    logs = [out for out, _ in done]
+    unit_seconds = {f"{src.name}{''.join(' ' + f for f in flags)}": sec
+                    for (src, flags), (_, sec) in zip(units, done)}
     try:
         for (src, flags), proc, out in zip(units, procs, logs):
             if proc.returncode != 0:
@@ -165,7 +185,7 @@ def build() -> dict:
     log = "".join(logs)
     (BUILD / "build.log").write_text(log)
     return {"path": str(so), "seconds": time.perf_counter() - t0, "built": True,
-            "log": log}
+            "log": log, "units": unit_seconds}
 
 
 @functools.cache
@@ -181,18 +201,24 @@ def library() -> ctypes.CDLL:
     # K, txt, ty, groups, kc, prows, pcols, B, oh, ow -> K2's layout and launch, 5 ints
     lib.segland_upsample_argmax_plan.argtypes = [_I] * 10 + [ctypes.POINTER(_I)]
     lib.segland_upsample_argmax_plan.restype = ctypes.c_int
+    # C, P -> K8's plan, 6 ints; returns 0 when K8 does not take them
+    lib.segland_conv3_residual_plan.argtypes = [_I] * 2 + [ctypes.POINTER(_I)]
+    lib.segland_conv3_residual_plan.restype = ctypes.c_int
     # NW, C, nh, nw_img, bias dtype -> K6's ring-body plan as launched, 6 ints
     lib.segland_window_attention_plan.argtypes = [ctypes.c_longlong] + [_I] * 4 + [
         ctypes.POINTER(_I)]
     lib.segland_window_attention_plan.restype = ctypes.c_int
-    # C or K6's bias dtype (and K5's group, K7's P, K9's hg, K11's mode) -> registers at
-    # launch, local (spill) bytes, dynamic shared memory of a build
+    # C or K6's bias dtype (and K5's group, K7's and K8's P, K9's hg, K10's hg and mode,
+    # K11's mode) -> registers at launch, local (spill) bytes, dynamic shared memory of a
+    # build
     for name, keys in (("segland_ln_mlp_attrs", 1), ("segland_attn_section_attrs", 1),
                        ("segland_window_attention_attrs", 1),
                        ("segland_swin_block_attrs", 1), ("segland_attn_section_v1_attrs", 2),
-                       ("segland_hg_section_attrs", 2), ("segland_section_variants_attrs", 2),
+                       ("segland_hg_section_attrs", 2), ("segland_hg2_section_attrs", 3),
+                       ("segland_section_variants_attrs", 2),
                        ("segland_bottleneck_conv1_attrs", 2),
-                       ("segland_bottleneck_conv23_attrs", 2)):
+                       ("segland_bottleneck_conv23_attrs", 2),
+                       ("segland_conv3_residual_attrs", 2)):
         fn = getattr(lib, name)
         fn.argtypes = [_I] * keys + [ctypes.POINTER(_I)] * 3
         fn.restype = ctypes.c_int

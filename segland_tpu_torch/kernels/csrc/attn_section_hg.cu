@@ -597,11 +597,12 @@ static int hg_dispatch(const HgArgs& a, int C, int nh, int hg) {
   return (int)cudaErrorInvalidValue;
 }
 
-// K10.  bf16 x, wqkv, wproj, bias [nh, N, N] and out; fp32 vectors; the pad
+// PR 6's WMMA body of K10, timed beside the new one until it is deleted.
+// bf16 x, wqkv, wproj, bias [nh, N, N] and out; fp32 vectors; the pad
 // mask and the region ids from geom = (h, w, hp, wp, ws, shift).  Windows of
 // 7 x 7 tokens and heads of 32; ablate 0 = none, 1 = ioraw, 2 = io, 3 = attn,
 // 4 = softmax.  Returns a cudaError_t.
-extern "C" int segland_hg2_section(const void* x, const void* gamma, const void* beta,
+extern "C" int segland_hg2_section_wmma(const void* x, const void* gamma, const void* beta,
                                    const void* wqkv, const void* bqkv, const void* wproj,
                                    const void* bproj, const void* bias, void* out, long long NW,
                                    int C, int nh, int hg, int wblk, int h, int w, int hp, int wp,

@@ -54,14 +54,23 @@
 // H and W; C a multiple of 64; P in 64, 128, 256, 512 (bottleneck_plan in
 // ops/fused_bottleneck.py says why).
 //
-// K8 keeps the pre-Hopper form: mma.sync.m16n8k32 with ldmatrix fragments
-// and a cp.async ring.
+// What bounds K8 on an H100: bytes.  At resnet50's layer4 (P 512, C 2048,
+// M = 16 x 128^2) res and out are 1.07 GB each and h2q 134 MB, 0.68 ms, against
+// 0.55 TOP of int8 products, 0.28 ms.  K8's design (sm_90a) is conv23's conv3
+// stage as a kernel of its own: persistent and warp-specialised like K7, a
+// block walks row tiles of 128 rows; a tile's h2q comes by TMA into shared
+// memory once and serves every column pass (the old body re-read it from L2
+// for each of C / 128 column blocks), w3's K-major slices stream through one
+// ring and the residual, 64 channels a piece, through another, a few passes
+// ahead; the epilogue writes the output over the residual's slot and TMA
+// stores it (clipped at M), its smem read awaited one piece later.
 
 // segland-parts: 5
 // kernels/__init__.py compiles this file five times, in parallel:
 // -DSEGLAND_PART=0 (K8, K7's conv1, the entry points), 1 and 2 (K7's conv23
 // builds at P = 64, 128 and at P = 256, 512), 3 and 4 (the measurement builds
-// of conv1 and conv23 with phase clocks, segland_bottleneck_conv1_clocks and
+// with phase clocks: K7's conv1 and K8, segland_bottleneck_conv1_clocks and
+// segland_conv3_residual_int8_clocks, and K7's conv23,
 // segland_bottleneck_conv23_clocks), so that those do not lengthen the rest.
 #ifndef SEGLAND_PART
 #define SEGLAND_PART 0
@@ -252,6 +261,31 @@ struct Conv23Plan {
   static_assert(S >= 2 && SMEM <= 232448, "over the shared memory a block can have");
 };
 
+// K8 on row tiles of BM = 128 rows (64 a warpgroup), NW3 output columns a
+// pass, P up to 64 KCMAX: h2q [BM, P] stays in shared memory (KC chunks of
+// [BM, 64] bytes); SW slots of w3's [NW3, 64] slices; SR slots of a residual
+// piece [BM, 64] bf16 (128-byte swizzle), over which the epilogue writes the
+// output; a pass's (a3, b3) columns (VEC bytes a warpgroup).  The residual
+// gets up to 6 slots (a few passes ahead), the slices what is left, up to 8.
+// ops/fused_bottleneck.py:conv3_plan mirrors this arithmetic.
+template <int NW3_, int KCMAX_>
+struct Conv3Plan {
+  static constexpr int NW3 = NW3_, KCMAX = KCMAX_;
+  static constexpr int BM = 128, PIECES = NW3 / 64;
+  static constexpr int H2_CHUNK = BM * kChunk, H2_BYTES = KCMAX * H2_CHUNK;
+  static constexpr int WSLOT = NW3 * kChunk, RSLOT = BM * 2 * kChunk, VEC = NW3 * 8;
+  static constexpr int BARS = 8 * (2 * 8 + 2 * 8 + 2 * KCMAX);  // W, R and h2q, full and empty
+  static constexpr int ROOM = 232448 - kAlign - BARS - H2_BYTES - 2 * VEC;
+  static constexpr int SR = cmin(6, (ROOM - 4 * WSLOT) / RSLOT);
+  static constexpr int SW = cmin(8, (ROOM - SR * RSLOT) / WSLOT);
+  static constexpr int OFF_W = H2_BYTES, OFF_R = OFF_W + SW * WSLOT;
+  static constexpr int OFF_VEC = OFF_R + SR * RSLOT, OFF_BAR = OFF_VEC + 2 * VEC;
+  static constexpr int SMEM = OFF_BAR + BARS + kAlign;
+  static_assert(NW3 == 64 || NW3 == 128, "a wgmma of 64 or 128 columns");
+  static_assert(SR >= PIECES + 1 && SW >= 2, "a pass's pieces and one more, two slices");
+  static_assert(SMEM <= 232448, "over the shared memory a block can have");
+};
+
 // the dynamic shared memory from its first kAlign-aligned byte (an offset
 // into the array, so that the compiler still sees shared memory)
 __device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
@@ -321,6 +355,7 @@ __device__ __forceinline__ void init_ring(uint64_t* full) {
 // phases of the consumers' clocks in the measurement builds (PhaseClocks)
 enum { kC1Wait, kC1Quant, kC1Mma, kC1Epi, kC1Phases };
 enum { kC2Wait, kC2Mma, kC2Epi, kC3Wait, kC3Mma, kC3Epi, kC23Phases };
+enum { kK8Wait, kK8Mma, kK8ResWait, kK8Epi, kK8Phases };
 
 #if SEGLAND_PART == 0
 // ---------------------------------------------------------------------------
@@ -328,7 +363,7 @@ enum { kC2Wait, kC2Mma, kC2Epi, kC3Wait, kC3Mma, kC3Epi, kC23Phases };
 // ---------------------------------------------------------------------------
 template <int NT>
 __global__ void __launch_bounds__(THREADS)
-conv3_residual_kernel(const int8_t* __restrict__ h2q, const __nv_bfloat16* __restrict__ res,
+conv3_residual_mma_kernel(const int8_t* __restrict__ h2q, const __nv_bfloat16* __restrict__ res,
                       const int8_t* __restrict__ w3t, const float* __restrict__ a3,
                       const float* __restrict__ b3, __nv_bfloat16* __restrict__ out, long long M,
                       int P, int C, int relu) {
@@ -684,6 +719,154 @@ bottleneck_conv23_kernel(const __grid_constant__ CUtensorMap mh1,
 
 #endif  // SEGLAND_PART == 0 || SEGLAND_PART == 3
 
+#if SEGLAND_PART == 0 || SEGLAND_PART == 3
+// ---------------------------------------------------------------------------
+// K8: out[M,C] = bf16(relu?(h2q[M,P] . w3 * a3 + b3 + res))
+// ---------------------------------------------------------------------------
+// Persistent: a block walks row tiles of BM = 128 rows (64 a consumer
+// warpgroup) blockIdx.x, + gridDim.x, ...  A tile's h2q [128, P] comes by TMA
+// once, a barrier a 64-channel chunk, and serves its C / NW3 column passes; a
+// pass streams w3's [NW3, 64] K-major slices through the W ring and its
+// residual, [128 rows, 64 channels] a piece, through the R ring, whose slot
+// the epilogue overwrites with the output for TMA to store.  The producer
+// takes a pass's residual before its slices (and the tile's h2q after its
+// first pass's residual), so the residual is read a few passes ahead.  In a
+// tile's last pass the consumers hand each h2q chunk back once its product is
+// done, so the next tile's h2q streams in during that pass's epilogue.
+// CLK builds add the consumers' clock64() time by phase to clocks.
+template <int NW3, int KCMAX, bool CLK>
+__global__ void __launch_bounds__(kK7Threads, 1)
+conv3_residual_kernel(const __grid_constant__ CUtensorMap mh, const __grid_constant__ CUtensorMap mw,
+                      const __grid_constant__ CUtensorMap mr, const __grid_constant__ CUtensorMap mo,
+                      const float* __restrict__ a3, const float* __restrict__ b3, int ntiles,
+                      int KC, int C, int relu, unsigned long long* __restrict__ clocks) {
+  typedef Conv3Plan<NW3, KCMAX> Pl;
+  constexpr int BM = Pl::BM, SW = Pl::SW, SR = Pl::SR;
+  extern __shared__ unsigned char k7_smem[];
+  unsigned char* smem = align_smem(k7_smem);
+  unsigned char* h2 = smem;  // h2q, KC chunks of [BM rows, 64 bytes]
+  uint64_t* wbar = reinterpret_cast<uint64_t*>(smem + Pl::OFF_BAR);  // SW full, SW empty
+  uint64_t* rbar = wbar + 2 * SW;                                     // SR full, SR empty
+  uint64_t* hbar = rbar + 2 * SR;                                     // KC full, KC empty
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int NP = C / NW3;
+  if (threadIdx.x == 0) {
+    for (int kc = 0; kc < KC; ++kc) {
+      sm90::mbar_init(&hbar[kc], 1);
+      sm90::mbar_init(&hbar[KCMAX + kc], 2);
+    }
+  }
+  init_ring<SW>(wbar);  // its fence and barrier cover the inits above
+  init_ring<SR>(rbar);
+
+  if (wg == 2) {
+    // ---- producer: one thread streams every slot in the consumers' order ----
+    if (t == 0) {
+      sm90::RingFill<Pl::WSLOT, SW> fw = {smem + Pl::OFF_W, wbar, 0, 0u};
+      sm90::RingFill<Pl::RSLOT, SR> fr = {smem + Pl::OFF_R, rbar, 0, 0u};
+      uint32_t par = 0;
+#pragma unroll 1
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, par ^= 1u)
+#pragma unroll 1
+        for (int n = 0; n < NP; ++n) {
+#pragma unroll 1
+          for (int j = 0; j < Pl::PIECES; ++j) fr.load(&mr, n * NW3 + 64 * j, tile * BM, Pl::RSLOT);
+          if (n == 0) {
+#pragma unroll 1
+            for (int kc = 0; kc < KC; ++kc) {
+              sm90::mbar_wait(&hbar[KCMAX + kc], par ^ 1u);  // the tile before is done with it
+              sm90::mbar_expect_tx(&hbar[kc], Pl::H2_CHUNK);
+              sm90::tma_load_2d(h2 + kc * Pl::H2_CHUNK, &mh, &hbar[kc], kc * kChunk, tile * BM);
+            }
+          }
+#pragma unroll 1
+          for (int kc = 0; kc < KC; ++kc) fw.load(&mw, kc * kChunk, n * NW3, Pl::WSLOT);
+        }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of each tile ----
+  sm90::Ring<Pl::WSLOT, SW> qw = {smem + Pl::OFF_W, wbar, 0, -1, 0u};
+  sm90::Ring<Pl::RSLOT, SR> qr = {smem + Pl::OFF_R, rbar, 0, -1, 0u};
+  float2* vec = reinterpret_cast<float2*>(smem + Pl::OFF_VEC + wg * Pl::VEC);  // a pass's (a3, b3)
+  int stored = -1;  // the R slot whose TMA store may still be reading it
+  uint32_t par = 0;
+  sm90::PhaseClocks<CLK, kK8Phases> clk;
+  clk.start();
+#pragma unroll 1
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, par ^= 1u) {
+#pragma unroll 1
+    for (int n = 0; n < NP; ++n) {
+      const bool last = n == NP - 1;
+      int acc[NW3 / 2];
+      zero_acc(acc);
+      // this thread's column of the pass's (a, b), in flight during the product
+      const float2 ab3 = t < NW3 ? make_float2(a3[n * NW3 + t], b3[n * NW3 + t])
+                                 : make_float2(0.0f, 0.0f);
+#pragma unroll 1
+      for (int kc = 0; kc < KC; ++kc) {
+        sm90::mbar_wait(&hbar[kc], par);
+        unsigned char* w = sm90::ring_take(qw);
+        clk.template lap<kK8Wait>();
+        mma_chunk<NW3>(qw, acc, sm90::desc_sw64(h2 + kc * Pl::H2_CHUNK + wg * 64 * kChunk),
+                       sm90::desc_sw64(w));
+        // the chunk before's product is done: in the last pass its h2q goes back
+        if (last && kc > 0 && t == 0) sm90::mbar_arrive(&hbar[KCMAX + kc - 1]);
+        clk.template lap<kK8Mma>();
+      }
+      sm90::ring_drain(qw);
+      sm90::reg_fence(acc);
+      if (last && t == 0) sm90::mbar_arrive(&hbar[KCMAX + KC - 1]);
+      clk.template lap<kK8Mma>();
+      sm90::named_sync(1 + wg, 128);  // the last epilogue is done with vec
+      if (t < NW3) vec[t] = ab3;
+      sm90::named_sync(1 + wg, 128);
+#pragma unroll
+      for (int j = 0; j < Pl::PIECES; ++j) {
+        clk.template lap<kK8Epi>();
+        // 64 channels of the residual, overwritten in place with the output
+        unsigned char* r = sm90::ring_take(qr);
+        clk.template lap<kK8ResWait>();
+#pragma unroll
+        for (int g = 32 * j; g < 32 * j + 32; g += 4) {  // a column pair in 2 rows
+          const int cp = acc_col(t, g) - 64 * j;
+          const float4 ab = *reinterpret_cast<const float4*>(vec + 64 * j + cp);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(
+                r + sm90::sw128(wg * 64 + acc_row(t, g + 2 * h), cp));
+            const float2 x2 = __bfloat1622float2(*o);
+            float o0 = __fadd_rn(__fadd_rn(__fmul_rn((float)acc[g + 2 * h], ab.x), ab.y), x2.x);
+            float o1 =
+                __fadd_rn(__fadd_rn(__fmul_rn((float)acc[g + 2 * h + 1], ab.z), ab.w), x2.y);
+            if (relu) {
+              o0 = fmaxf(o0, 0.0f);
+              o1 = fmaxf(o1, 0.0f);
+            }
+            *o = __floats2bfloat162_rn(o0, o1);
+          }
+        }
+        // the warpgroup's 64 rows of the piece go out by TMA, which clips the
+        // rows past M; the piece before's slot goes back once TMA has read it
+        sm90::fence_async_smem();
+        sm90::named_sync(1 + wg, 128);
+        if (t == 0) {
+          sm90::tma_store_2d(&mo, r + wg * 64 * 128, n * NW3 + 64 * j, tile * BM + wg * 64);
+          sm90::tma_store_wait<true, 1>();
+        }
+        sm90::ring_release(qr, stored);
+        stored = qr.slot;
+        sm90::ring_next(qr);
+      }
+      clk.template lap<kK8Epi>();
+    }
+  }
+  if (t == 0) sm90::tma_store_wait<false>();
+  clk.flush(clocks);
+}
+#endif  // SEGLAND_PART == 0 || SEGLAND_PART == 3
+
 template <class K>
 cudaError_t opt_in(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -766,6 +949,45 @@ cudaError_t launch_conv1(const void* x, const void* w1t, const void* a1, const v
   kernel<<<grid, kK7Threads, Pl::SMEM, (cudaStream_t)stream>>>(
       mx, mw1, (const float*)a1, (const float*)b1, (int8_t*)h1q, M, C, s_x, s_h1, clocks);
   return cudaGetLastError();
+}
+}  // namespace
+#endif
+
+#if SEGLAND_PART == 0 || SEGLAND_PART == 3
+namespace {
+template <int NW3, int KCMAX, bool CLK>
+cudaError_t launch_conv3(const void* h2q, const void* res, const void* w3t, const void* a3,
+                         const void* b3, void* out, long long M, int P, int C, int relu,
+                         unsigned long long* clocks, void* stream) {
+  typedef Conv3Plan<NW3, KCMAX> Pl;
+  CUtensorMap mh, mw, mr, mo;
+  const uint64_t dh[2] = {(uint64_t)P, (uint64_t)M}, dw[2] = {(uint64_t)P, (uint64_t)C};
+  const uint64_t dr[2] = {(uint64_t)C, (uint64_t)M};
+  const uint32_t bh[2] = {64, (uint32_t)Pl::BM}, bw[2] = {64, (uint32_t)NW3};
+  const uint32_t br[2] = {64, (uint32_t)Pl::BM}, bo[2] = {64, 64};  // a warpgroup's rows
+  cudaError_t err = sm90::tile_map_nd(&mh, h2q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 2, dh, bh);
+  if (err == cudaSuccess)
+    err = sm90::tile_map_nd(&mw, w3t, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 2, dw, bw);
+  if (err == cudaSuccess)
+    err = sm90::tile_map_nd(&mr, res, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, dr, br);
+  if (err == cudaSuccess)
+    err = sm90::tile_map_nd(&mo, out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, dr, bo);
+  const long long tiles = (M + Pl::BM - 1) / Pl::BM;
+  unsigned grid = 0;
+  if (err == cudaSuccess) err = persistent_grid(tiles, &grid);
+  auto kernel = conv3_residual_kernel<NW3, KCMAX, CLK>;
+  if (err == cudaSuccess) err = opt_in(kernel, Pl::SMEM);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kK7Threads, Pl::SMEM, (cudaStream_t)stream>>>(
+      mh, mw, mr, mo, (const float*)a3, (const float*)b3, (int)tiles, P / kChunk, C, relu, clocks);
+  return cudaGetLastError();
+}
+
+// K8 takes M rows (the tile rows within an int) and widths C, P that are
+// multiples of 64, P at most 1024
+inline bool k8_takes(long long M, int C, int P) {
+  return M < (1ll << 31) - 128 && C >= 64 && C % 64 == 0 && P >= 64 && P % 64 == 0 &&
+         P <= 16 * kChunk;
 }
 }  // namespace
 #endif
@@ -856,8 +1078,65 @@ extern "C" int segland_bottleneck_conv23_attrs(int C, int P, int* regs, int* loc
   return r < 0 ? (int)cudaErrorInvalidValue : r;
 }
 
-// Returns a cudaError_t.  h2q [M][P] int8, res and out [M][C] bf16, w3t [C][P].
+// K8, the build of widths C, P: NW3 = conv3_width(C), h2q room for P <= 512
+// or P <= 1024
+#define SEGLAND_K8_BUILD(C, P, CASE)                       \
+  if ((P) <= 8 * kChunk) {                                  \
+    if (conv3_width(C) == 128) CASE(128, 8) else CASE(64, 8) \
+  } else {                                                  \
+    if (conv3_width(C) == 128) CASE(128, 16) else CASE(64, 16) \
+  }
+
+// K8.  h2q [M][P] int8, res and out [M][C] bf16, w3t [C][P] int8 (K-major),
+// a3 and b3 [C] fp32.  Returns a cudaError_t.
 extern "C" int segland_conv3_residual_int8(const void* h2q, const void* res, const void* w3t,
+                                           const void* a3, const void* b3, void* out,
+                                           long long M, int P, int C, int relu, int device,
+                                           void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!k8_takes(M, C, P)) return (int)cudaErrorInvalidValue;
+  if (M == 0) return (int)cudaSuccess;
+#define SEGLAND_K8_LAUNCH(nw3, kcmax)                                                        \
+  return (int)launch_conv3<nw3, kcmax, false>(h2q, res, w3t, a3, b3, out, M, P, C, relu, nullptr, \
+                                               stream);
+  SEGLAND_K8_BUILD(C, P, SEGLAND_K8_LAUNCH)
+#undef SEGLAND_K8_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// Registers a thread, local (spill) bytes and dynamic shared memory of the
+// build K8 gives widths C, P.
+extern "C" int segland_conv3_residual_attrs(int C, int P, int* regs, int* local_bytes, int* smem) {
+  if (!k8_takes(0, C, P)) return (int)cudaErrorInvalidValue;
+#define SEGLAND_K8_ATTRS(nw3, kcmax)                                                       \
+  return kernel_attrs(conv3_residual_kernel<nw3, kcmax, false>, Conv3Plan<nw3, kcmax>::SMEM, \
+                      regs, local_bytes, smem);
+  SEGLAND_K8_BUILD(C, P, SEGLAND_K8_ATTRS)
+#undef SEGLAND_K8_ATTRS
+  return (int)cudaErrorInvalidValue;
+}
+
+// K8's plan at widths C, P: out[0..6) = tile rows, columns a pass, h2q chunks
+// it has room for, W slots, R slots, shared memory.  Returns 0 (and leaves out
+// alone) when K8 does not take C, P.
+extern "C" int segland_conv3_residual_plan(int C, int P, int* out) {
+  if (!k8_takes(0, C, P)) return 0;
+#define SEGLAND_K8_PLAN(nw3, kcmax)                                                    \
+  {                                                                                    \
+    typedef Conv3Plan<nw3, kcmax> Pl;                                                  \
+    const int o[6] = {Pl::BM, Pl::NW3, Pl::KCMAX, Pl::SW, Pl::SR, Pl::SMEM};           \
+    for (int i = 0; i < 6; ++i) out[i] = o[i];                                         \
+    return 1;                                                                          \
+  }
+  SEGLAND_K8_BUILD(C, P, SEGLAND_K8_PLAN)
+#undef SEGLAND_K8_PLAN
+  return 0;
+}
+
+// PR 4's mma.sync body of K8, timed beside the new one until it is deleted.
+// Returns a cudaError_t.  h2q [M][P] int8, res and out [M][C] bf16, w3t [C][P].
+extern "C" int segland_conv3_residual_int8_mma(const void* h2q, const void* res, const void* w3t,
                                            const void* a3, const void* b3, void* out,
                                            long long M, int P, int C, int relu, int device,
                                            void* stream) {
@@ -878,9 +1157,27 @@ extern "C" int segland_conv3_residual_int8(const void* h2q, const void* res, con
         (const float*)b3, (__nv_bfloat16*)out, M, P, C, relu);
     return cudaGetLastError();
   };
-  return (int)(wide ? launch(conv3_residual_kernel<8>) : launch(conv3_residual_kernel<4>));
+  return (int)(wide ? launch(conv3_residual_mma_kernel<8>) : launch(conv3_residual_mma_kernel<4>));
 }
 #elif SEGLAND_PART == 3
+// The measurement build of K8 at C a multiple of 128 and P <= 512
+// (segland_conv3_residual_int8's arguments, then clocks before device and
+// stream): its consumers' clock64() time by phase (slice wait, wgmma,
+// residual wait, epilogue) added to clocks[0..4) and the count of consumer
+// warpgroups to clocks[4].
+extern "C" int segland_conv3_residual_int8_clocks(const void* h2q, const void* res,
+                                                  const void* w3t, const void* a3, const void* b3,
+                                                  void* out, long long M, int P, int C, int relu,
+                                                  void* clocks, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!k8_takes(M, C, P) || conv3_width(C) != 128 || P > 8 * kChunk)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0) return (int)cudaSuccess;
+  return (int)launch_conv3<128, 8, true>(h2q, res, w3t, a3, b3, out, M, P, C, relu,
+                                         (unsigned long long*)clocks, stream);
+}
+
 // The measurement build of K7's conv1 (segland_bottleneck_conv1's arguments,
 // then clocks before device and stream): its consumers' clock64() time by
 // phase (slot wait, quantize, wgmma, epilogue) added to clocks[0..4) and the

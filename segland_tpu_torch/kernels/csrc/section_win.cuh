@@ -1,8 +1,9 @@
 // The attention section over padded windows: products on wgmma fed by a TMA
 // ring (section_sm90.cuh's pieces), the attention core on K6's
-// register-resident mma.sync core (mma_sync.cuh).  Shared by K9
-// (attn_section_hg_sm90.cu) and K11 (attn_section_variants.cu), whose masks are
-// shipped in as [rows, 49] tables, window w taking row w % rows.
+// register-resident mma.sync core (mma_sync.cuh).  Shared by K9 and K10
+// (section_hg.cuh) and K11 (attn_section_variants.cu); K9's and K11's masks are
+// shipped in as [rows, 49] tables, window w taking row w % rows, K10's come
+// from the window index.
 //
 // A pass of a block holds W windows (1, 2 or 4) as W m64 row tiles: window wl
 // at rows 64 wl .. 64 wl + 48 of y, rows 49..63 zero.  At those W a block of
@@ -249,12 +250,14 @@ __device__ __forceinline__ void copy_bias(bf16* dst, const bf16* __restrict__ bi
 }
 
 // ---- the core ---------------------------------------------------------------------
-// kCoreDivide: p = exp(s - max), ctx = T((T(p) @ v) / sum) (K9);
+// kCoreDivide: p = exp(s - max), ctx = T((T(p) @ v) / sum) (K9, K10);
 // kCoreNorm: p = T(exp(s - max) / sum) before PV (K11); kCoreNoMax: without
 // the max; kCoreBf16Sm: e = exp(T(s - max)), p = T(T(e) / T(sum e));
 // kCoreLinear: p = T(0.001 s), no max, exp or sum, the 15 pad keys included
-// (bias T(-1e9), region id -1, value T(bqkv)).
-enum { kCoreDivide, kCoreNorm, kCoreNoMax, kCoreBf16Sm, kCoreLinear };
+// (bias T(-1e9), the region id of the pad rows' table entries, value
+// T(bqkv)); kCoreLinearDiv: p = 0.001 s over the same 64 keys, ctx =
+// T((T(p) @ v) / sum p) (K10's softmax mode).
+enum { kCoreDivide, kCoreNorm, kCoreNoMax, kCoreBf16Sm, kCoreLinear, kCoreLinearDiv };
 
 template <int MODE>
 __device__ __forceinline__ uint32_t pack_p(float a, float b, float inv) {
@@ -279,7 +282,8 @@ __device__ __forceinline__ void win_core(unsigned char* qs, const unsigned char*
                                          const unsigned char* vs, int qt,
                                          const bf16* __restrict__ bias, const float* rid,
                                          float scale, bf16* sink, int ld) {
-  constexpr int NKT = MODE == kCoreLinear ? 8 : 7;  // key tiles of 8 (keys 56-63 only as pads)
+  constexpr bool LINEAR = MODE == kCoreLinear || MODE == kCoreLinearDiv;
+  constexpr int NKT = LINEAR ? 8 : 7;  // key tiles of 8 (keys 56-63 only as pads)
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int row0 = qt * 16;
   const uint32_t sq = smem_addr(qs), sk = smem_addr(ks), sv = smem_addr(vs);
@@ -319,7 +323,7 @@ __device__ __forceinline__ void win_core(unsigned char* qs, const unsigned char*
       for (int e = 0; e < 2; ++e) {
         float v = s[j][2 * hf + e] * scale + (c + e < kN ? (e ? b.y : b.x) : kPadBias);
         if (rid && (e ? rk.y : rk.x) != rq) v += -100.0f;
-        if (MODE != kCoreLinear && c + e >= kN) v = -INFINITY;
+        if (!LINEAR && c + e >= kN) v = -INFINITY;
         s[j][2 * hf + e] = v;
         m = fmaxf(m, v);
       }
@@ -332,7 +336,7 @@ __device__ __forceinline__ void win_core(unsigned char* qs, const unsigned char*
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float& p = s[j][2 * hf + e];
-        if constexpr (MODE == kCoreLinear)
+        if constexpr (LINEAR)
           p = 0.001f * p;
         else if constexpr (MODE == kCoreNoMax)
           p = __expf(p);
@@ -375,7 +379,7 @@ __device__ __forceinline__ void win_core(unsigned char* qs, const unsigned char*
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int r = row0 + g + 8 * hf;
-    const float f = MODE == kCoreDivide ? inv[hf] : 1.0f;
+    const float f = MODE == kCoreDivide || MODE == kCoreLinearDiv ? inv[hf] : 1.0f;
     if (r < kN) {
 #pragma unroll
       for (int n = 0; n < 4; ++n)

@@ -1,10 +1,10 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels: K1 (ln_mlp.cu),
 // K3 (attn_section.cu), K4 (swin_block.cu) and K5 (attn_section_v1.cu), whose
-// shared bodies are mlp_sm90.cuh and section_sm90.cuh, and K7's int8 stages
-// (bottleneck_int8.cu).
+// shared bodies are mlp_sm90.cuh and section_sm90.cuh, and the int8 kernels
+// K7 and K8 (bottleneck_int8.cu).
 //
 //  - mbarrier init, arrive, expect-tx and wait with phase parity;
-//  - the TMA 2-D tile load (and K7's 4-D load and store), and the host-side
+//  - the TMA 2-D tile load (and K7's 4-D load and store, K8's 2-D store), and the host-side
 //    tensor-map encoding
 //    (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
 //    library links against the runtime alone);
@@ -150,13 +150,23 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
-// this thread's bulk stores have read their shared memory (READ) or are done
-template <bool READ>
+// the 2-D box at (c0 = column, c1 = row) of `map` from src, as one bulk group of this thread
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+// all but this thread's last N bulk stores have read their shared memory (READ)
+// or are done
+template <bool READ, int N = 0>
 __device__ __forceinline__ void tma_store_wait() {
   if constexpr (READ)
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
   else
-    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // generic-proxy writes to shared memory made visible to wgmma and TMA reads

@@ -7,6 +7,11 @@ CUDA tensors go to the kernels K7 and K8 (``kernels/csrc/bottleneck_int8.cu``)
 through :func:`bottleneck_int8` and :func:`conv3_residual`, CPU tensors to
 :func:`bottleneck_int8_reference` and :func:`conv3_residual_reference`.
 
+K8 is a persistent kernel over row tiles of 128 rows: a tile's h2q comes into
+shared memory once and serves every column pass, w3's slices and the residual
+stream in through two rings, and the output is written over the residual and
+stored by TMA; :func:`conv3_plan` is its arithmetic.
+
 K7 is two kernels behind one call: conv1 writes h1q (int8, [B,H,W,P]) into a
 scratch tensor, conv23 reads it back by TMA, a box a tap, and runs conv2 and
 conv3 on an 8 x 16 pixel tile.  :func:`conv1_reference` and
@@ -268,9 +273,57 @@ def bottleneck_int8(x, w1, w2, w3, a1, b1, a2, b2, a3, b3, s_x, s_h1, s_h2, *,
 bottleneck_int8.launches = 0
 
 
-def conv3_residual(h2q, res, w3, a3, b3, *, last_relu: bool = True):
-    """Launch kernel K8: h2q int8 [M,P], res bfloat16 [M,C] (both contiguous,
-    CUDA), w3 int8 [P,C].  Any M; C and P multiples of 64."""
+# ---- K8's plan (Conv3Plan in kernels/csrc/bottleneck_int8.cu) ------------------------
+K8_ROWS = 128  # a row tile, 64 rows a consumer warpgroup
+
+
+def _k8_bars(kcmax: int) -> int:
+    """Bytes of K8's barriers: W, R and h2q, full and empty."""
+    return 8 * (2 * 8 + 2 * 8 + 2 * kcmax)
+
+
+def conv3_plan(c: int, p: int) -> dict:
+    """K8's plan at widths C, P: the row tile, columns a pass (NW3), the h2q
+    chunks its build has room for (KCMAX: P <= 512 or <= 1024), the slots of
+    its two rings (w3 slices, residual pieces) and the shared memory, in bytes.
+    Raises ValueError, with the arithmetic, for widths it does not take."""
+    _check_widths("conv3_residual", c, p)
+    kc = p // K7_CHUNK
+    if kc > 16:
+        raise ValueError(f"conv3_residual at P={p}: a tile's h2q [{K8_ROWS}, P] stays in shared "
+                         f"memory, {K8_ROWS * p:,} B, and its builds have room for P <= 1024")
+    kcmax = 8 if kc <= 8 else 16
+    nw3 = 128 if c % 128 == 0 else 64
+    h2 = kcmax * K8_ROWS * K7_CHUNK
+    wslot, rslot, vec = nw3 * K7_CHUNK, K8_ROWS * 2 * K7_CHUNK, nw3 * 8
+    room = SMEM_MAX - 1024 - _k8_bars(kcmax) - h2 - 2 * vec
+    sr = min(6, (room - 4 * wslot) // rslot)
+    sw = min(8, (room - sr * rslot) // wslot)
+    smem = h2 + sw * wslot + sr * rslot + 2 * vec + _k8_bars(kcmax) + 1024
+    return dict(rows=K8_ROWS, nw3=nw3, passes=c // nw3, pieces=nw3 // 64, kc=kc, kcmax=kcmax,
+                sw=sw, sr=sr, wslot=wslot, rslot=rslot, h2=h2, smem=smem)
+
+
+def library_conv3_plan(c: int, p: int) -> dict:
+    """The plan the built library gives (segland_conv3_residual_plan), in
+    :func:`conv3_plan`'s terms, or None when it does not take the widths."""
+    out = (ctypes.c_int * 6)()
+    if not kernels.library().segland_conv3_residual_plan(c, p, out):
+        return None
+    return dict(zip(("rows", "nw3", "kcmax", "sw", "sr", "smem"), out))
+
+
+def conv3_walk(m: int, c: int, p: int, grid: int) -> list:
+    """The (row tile, column pass) items each block of K8's persistent grid
+    takes, in its order: block b walks tiles b, b + grid, ... and each tile's
+    passes in turn (the kernel's loops)."""
+    plan = conv3_plan(c, p)
+    tiles = -(-m // plan["rows"])
+    return [[(tile, n) for tile in range(b, tiles, grid) for n in range(plan["passes"])]
+            for b in range(min(grid, tiles))]
+
+
+def _conv3_operands(h2q, res, w3, a3, b3):
     if not res.is_cuda:
         raise ValueError("conv3_residual launches a CUDA kernel; got a tensor on "
                          + str(res.device))
@@ -285,18 +338,44 @@ def conv3_residual(h2q, res, w3, a3, b3, *, last_relu: bool = True):
     if res.shape[0] != m or h2q.device != dev:
         raise ValueError(f"h2q {tuple(h2q.shape)} on {h2q.device} does not match res "
                          f"{tuple(res.shape)} on {dev}")
-    _check_widths("conv3_residual", c, p)
+    conv3_plan(c, p)  # raises on widths the kernel does not take
     w3t = _weight(w3, (p, c), dev).t().contiguous()
     va3, vb3 = _vec(a3, c, dev), _vec(b3, c, dev)
     out = torch.empty_like(res)
     _aligned("conv3_residual", h2q, res, out, w3t, va3, vb3)
-    P = kernels.ptr
-    err = kernels.library().segland_conv3_residual_int8(
-        P(h2q), P(res), P(w3t), P(va3), P(vb3), P(out), m, p, c, int(bool(last_relu)),
-        dev.index, kernels.stream_of(res))
+    return (h2q, res, w3t, va3, vb3, out), m, p, c
+
+
+def _launch_conv3(entry, h2q, res, w3, a3, b3, last_relu, extra=()):
+    args, m, p, c = _conv3_operands(h2q, res, w3, a3, b3)
+    err = getattr(kernels.library(), entry)(
+        *map(kernels.ptr, args), m, p, c, int(bool(last_relu)), *extra, res.device.index,
+        kernels.stream_of(res))
     kernels.check(err, "conv3_residual")
+    return args[-1]
+
+
+def conv3_residual(h2q, res, w3, a3, b3, *, last_relu: bool = True):
+    """Launch kernel K8: h2q int8 [M,P], res bfloat16 [M,C] (both contiguous,
+    CUDA), w3 int8 [P,C].  Any M; C and P multiples of 64, P at most 1024."""
+    out = _launch_conv3("segland_conv3_residual_int8", h2q, res, w3, a3, b3, last_relu)
     conv3_residual.launches += 1
     return out
+
+
+def conv3_residual_clocks(clocks, h2q, res, w3, a3, b3, *, last_relu: bool = True):
+    """A measurement, not the served kernel: K8 built to add its consumers'
+    clock64() time by phase (slice wait, wgmma, residual wait, epilogue) and
+    their count into ``clocks``, a CUDA int64 tensor of 5; C a multiple of 128,
+    P at most 512.  Not counted in ``conv3_residual.launches``."""
+    return _launch_conv3("segland_conv3_residual_int8_clocks", h2q, res, w3, a3, b3, last_relu,
+                         _clocks(clocks, 5, res))
+
+
+def conv3_residual_mma(h2q, res, w3, a3, b3, *, last_relu: bool = True):
+    """PR 4's mma.sync body of K8, timed beside the new one until it is
+    deleted.  Not counted in ``conv3_residual.launches``."""
+    return _launch_conv3("segland_conv3_residual_int8_mma", h2q, res, w3, a3, b3, last_relu)
 
 
 conv3_residual.launches = 0

@@ -4,8 +4,9 @@ as ``[rows, 49]`` tables) and ``hg2_section`` (masks from the window index,
 plus timing ablations), with their names.
 
 A CUDA tensor goes to ``kernels/csrc/attn_section_hg_sm90.cu`` (K9, bf16),
-``kernels/csrc/attn_section_hg.cu`` (K10, bf16) or
-``kernels/csrc/attn_section_f32.cu`` (fp32), or raises; a CPU tensor, or
+``kernels/csrc/attn_section_hg2_sm90.cu`` (K10, bf16; both on the body of
+``kernels/csrc/section_hg.cuh``) or ``kernels/csrc/attn_section_f32.cu``
+(fp32), or raises; a CPU tensor, or
 any tensor inside ``ops.plain_versions()``, goes to the plain versions
 :func:`hg_section_reference` and :func:`hg2_section_reference`.  Both follow
 the JAX bodies' order of arithmetic (T is x's dtype, bf16 or fp32):
@@ -26,9 +27,8 @@ sees the pad keys (their -1e9 scores scaled by 1e-3 enter the sums).
 
 ``hg`` on the TPU packs the K and V of hg heads block-diagonally to fill its
 128 lanes; on Hopper the kernels take hg heads a pass and keep the scores per
-head: K10 makes q, k, v of the group with one ``[rows, C] x [C, 96 hg]``
-WMMA product, K9 with hg ``wgmma`` products back to back, and the group's
-attention tiles run together.
+head: hg ``wgmma`` products back to back make q, k, v of the group, and the
+group's attention tiles run together.
 """
 
 import collections
@@ -118,6 +118,21 @@ HG_SM90_BUILDS = {
     (384, 1): HgSm90Build(2, 6), (384, 2): HgSm90Build(2, 5), (384, 4): HgSm90Build(1, 6),
     (768, 1): HgSm90Build(1, 6), (768, 4): HgSm90Build(1, 4),
 }
+# K10's builds, on the same body: every (C, hg) of HG2_BUILDS in mode none; the modes io,
+# attn and softmax (and the measurement build) at the pairs of HG2_MODE_BUILDS, hg = 1
+# and the JAX package's default hg at each swin-s width.  attn_section_hg2_sm90.cu
+# instantiates exactly these (a test reads them from there).
+HG2_BUILDS = {
+    (96, 1): HgSm90Build(4, 6), (96, 3): HgSm90Build(2, 6),
+    (192, 1): HgSm90Build(2, 6), (192, 2): HgSm90Build(2, 6), (192, 3): HgSm90Build(2, 6),
+    (192, 6): HgSm90Build(1, 6),
+    (384, 1): HgSm90Build(2, 6), (384, 2): HgSm90Build(2, 5), (384, 3): HgSm90Build(1, 6),
+    (384, 4): HgSm90Build(1, 6),
+    (768, 1): HgSm90Build(1, 6), (768, 2): HgSm90Build(1, 6), (768, 3): HgSm90Build(1, 6),
+    (768, 4): HgSm90Build(1, 4),
+}
+HG2_MODE_BUILDS = frozenset({(96, 1), (96, 3), (192, 1), (192, 6), (384, 1), (384, 4),
+                             (768, 1), (768, 4)})
 MAX_ACC_REGS = 96  # fp32 accumulator registers a thread of an 8-warp block (ptxas: <= 255)
 _SLOT, _TILE_Q, _BIAS_HEAD = 96 * 128, 64 * 64, 49 * 56 * 2  # bytes: ring slot, q tile, bias
 
@@ -210,6 +225,19 @@ def _check_hg_args(c, num_heads, hg, dtype, wblk):
                          f"not {dtype}")
 
 
+def _no_build(entry, c, hg, builds):
+    """ValueError for a pair with no build of section_win.cuh's body, with the
+    shared-memory and register arithmetic of its leanest layout: one window a
+    pass, two ring slots."""
+    lean = hg_sm90_layout(c, hg, HgSm90Build(1, 2))
+    fits = lean["smem"] <= SMEM_MAX and lean["acc"] <= MAX_ACC_REGS
+    return ValueError(
+        f"{entry} has no build for C={c} hg={hg}: one window a pass needs {_fmt(lean)} "
+        f"({'<=' if lean['smem'] <= SMEM_MAX else '>'} {SMEM_MAX:,}) and {lean['acc']} "
+        f"accumulator registers a thread (of {MAX_ACC_REGS})"
+        + (f"; built at (C, hg) in {sorted(builds)} only" if fits else ""))
+
+
 def check_hg_sm90_build(c: int, num_heads: int, hg: int, dtype, wblk: int):
     """K9's host-side checks, on the CPU too: heads of 32, ``hg`` dividing
     ``num_heads``, ``wblk >= 1``, a build for (C, hg) in bf16 or for C in fp32.
@@ -222,39 +250,29 @@ def check_hg_sm90_build(c: int, num_heads: int, hg: int, dtype, wblk: int):
         return None
     b = HG_SM90_BUILDS.get((c, hg))
     if b is None:
-        lean = hg_sm90_layout(c, hg, HgSm90Build(1, 2))
-        fits = lean["smem"] <= SMEM_MAX and lean["acc"] <= MAX_ACC_REGS
-        raise ValueError(
-            f"hg_section has no build for C={c} hg={hg}: one window a pass needs {_fmt(lean)} "
-            f"({'<=' if lean['smem'] <= SMEM_MAX else '>'} {SMEM_MAX:,}) and {lean['acc']} "
-            f"accumulator registers a thread (of {MAX_ACC_REGS})"
-            + (f"; built at (C, hg) in {sorted(HG_SM90_BUILDS)} only" if fits else ""))
+        raise _no_build("hg_section", c, hg, HG_SM90_BUILDS)
     return b
 
 
 def check_hg_build(c: int, num_heads: int, hg: int, dtype, wblk: int, ablate: str = "none"):
     """K10's host-side checks, on the CPU too: heads of 32, ``hg`` dividing
     ``num_heads``, ``wblk >= 1``, a known ablation, a build for (C, hg) in bf16
-    or for C in fp32.  Returns the HgBuild (bf16) or None (fp32); raises
-    ValueError with the reason (for a pair with no build, the shared-memory and
-    register arithmetic of its leanest layout)."""
+    (for io, attn and softmax one of HG2_MODE_BUILDS) or for C in fp32.
+    Returns the HgSm90Build (bf16) or None (fp32); raises ValueError with the
+    reason (for a pair with no build, the shared-memory and register arithmetic
+    of its leanest layout)."""
     _check_hg_args(c, num_heads, hg, dtype, wblk)
     check_ablate(ablate)
     if dtype == torch.float32:
         check_f32_width(c)
         return None
-    b = HG_BUILDS.get((c, hg))
+    b = HG2_BUILDS.get((c, hg))
     if b is None:
-        lean = hg_layout(c, hg, HgBuild(1, 8 if 6 * hg % 8 == 0 else 2, 16, 3, False, False))
-        why = []
-        if lean["smem"] > SMEM_MAX:
-            why.append(f"one window a pass with the bias and the context out of shared "
-                       f"memory needs {_fmt(lean)} > {SMEM_MAX:,}")
-        if lean["frags"] > MAX_FRAGS:
-            why.append(f"the [64, C] x [C, {96 * hg}] product needs {lean['frags']} 16x16 fp32 "
-                       f"accumulator tiles a warp ({8 * lean['frags']} registers a thread) > "
-                       f"{MAX_FRAGS}")
-        raise ValueError(f"no build for C={c} hg={hg}: " + "; ".join(why))
+        raise _no_build("hg2_section", c, hg, HG2_BUILDS)
+    if ablate not in ("none", "ioraw") and (c, hg) not in HG2_MODE_BUILDS:
+        raise ValueError(f"hg2_section builds ablate={ablate!r} at (C, hg) in "
+                         f"{sorted(HG2_MODE_BUILDS)} only (hg = 1 and the default hg), "
+                         f"not C={c} hg={hg}")
     return b
 
 
@@ -431,24 +449,49 @@ def win_args(entry, x_win, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_head
             _vec(bproj, c, dev), b)
 
 
-def _launch(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads, eps, wblk, hg,
-            score_f32, ablate):
-    """K10 on bf16 windows (attn_section_hg.cu), or the fp32 body on fp32."""
+def _launch_hg2(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads, eps, wblk,
+                hg, score_f32, ablate, clocks=None):
+    """K10 on bf16 windows (attn_section_hg2_sm90.cu), or the fp32 body on fp32."""
     nw, c, dev = _windows("hg2_section", x_win)
     check_hg_build(c, num_heads, hg, x_win.dtype, wblk, ablate)
     if x_win.dtype == torch.float32:
         return launch_f32("hg2_section", x_win, None, None, geom, gamma, beta, wqkv, bqkv, wproj,
                           bproj, bias, num_heads, eps, wblk, hg, ablate, norm_first=False)
+    args = win_args("hg2_section", x_win, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                    num_heads, weights=ablate != "ioraw")
+    out = torch.empty_like(x_win)
+    P, lib = kernels.ptr, kernels.library()
+    head = (P(x_win), *(P(a) for a in args), P(out), nw, c, num_heads, hg, wblk, *geom, eps,
+            ABLATIONS.index(ablate), int(bool(score_f32)))
+    if clocks is None:
+        err = lib.segland_hg2_section(*head, dev.index, kernels.stream_of(x_win))
+    else:
+        err = lib.segland_hg2_section_clocks(*head, P(clocks), dev.index,
+                                             kernels.stream_of(x_win))
+    kernels.check(err, "hg2_section")
+    return out
+
+
+def hg2_section_wmma(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads: int,
+                     eps: float = 1e-5, wblk: int = 32, hg: int = 1, score_f32: bool = True,
+                     ablate: str = "none"):
+    """PR 6's WMMA body of K10 (attn_section_hg.cu), timed beside the new one
+    until it is deleted: weights [in, out] as they come, bias [1, nh, 49, 49].
+    Not counted in ``hg2_section.launches``."""
+    nw, c, dev = _windows("hg2_section", x_win)
+    if (c, hg) not in HG_BUILDS:
+        raise ValueError(f"the WMMA body has no build for C={c} hg={hg}")
     b = _bias_bf16(bias, num_heads, dev).contiguous()
     args = (_vec(gamma, c, dev), _vec(beta, c, dev), _mat("hg2_section", wqkv, (c, 3 * c), x_win),
             _vec(bqkv, 3 * c, dev), _mat("hg2_section", wproj, (c, c), x_win),
             _vec(bproj, c, dev), b)
     out = torch.empty_like(x_win)
     P = kernels.ptr
-    err = kernels.library().segland_hg2_section(
-        P(x_win), *(P(a) for a in args), P(out), nw, c, num_heads, hg, wblk, *geom, eps,
-        ABLATIONS.index(ablate), int(bool(score_f32)), dev.index, kernels.stream_of(x_win))
-    kernels.check(err, "hg2_section")
+    err = kernels.library().segland_hg2_section_wmma(
+        P(x_win), *(P(a) for a in args), P(out), nw, c, num_heads, hg, wblk,
+        *_check_geom(geom, nw), eps, ABLATIONS.index(ablate), int(bool(score_f32)), dev.index,
+        kernels.stream_of(x_win))
+    kernels.check(err, "hg2_section (WMMA)")
     return out
 
 
@@ -512,16 +555,32 @@ def hg2_section(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_he
                 ablate: str = "none"):
     """The head-grouped section with masks from the window index (K10 on a
     CUDA tensor): geom = (h, w, hp, wp, ws, shift), bias [1, nh, 49, 49],
-    ``ablate`` one of ABLATIONS (timing builds with the outputs of
-    :func:`hg2_section_reference`)."""
+    weights [in, out] (read K-major in bf16), ``ablate`` one of ABLATIONS
+    (timing builds with the outputs of :func:`hg2_section_reference`)."""
     if not use_kernel(x_win):
         return hg2_section_reference(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
                                      num_heads, eps, hg, score_f32, ablate)
     g = _check_geom(geom, x_win.shape[0])
-    out = _launch(x_win, g, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads, eps, wblk,
-                  hg, score_f32, ablate)
+    out = _launch_hg2(x_win, g, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads, eps, wblk,
+                      hg, score_f32, ablate)
     hg2_section.launches += 1
     return out
+
+
+def hg2_section_clocks(clocks, x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                       num_heads: int, eps: float = 1e-5, wblk: int = 32, hg: int = 1,
+                       score_f32: bool = True):
+    """A measurement, not the served kernel: K10's body in mode none built to
+    add its consumers' clock64() time by phase (setup, ring wait, wgmma, q/k/v
+    epilogue, attention core, context copy, output epilogue) and their count
+    into ``clocks``, a CUDA int64 tensor of 8; (C, hg) one of HG2_MODE_BUILDS.
+    Takes hg2_section's arguments; not counted in ``hg2_section.launches``."""
+    _check_clocks(clocks, x_win, 8)
+    if (x_win.shape[2], hg) not in HG2_MODE_BUILDS:
+        raise ValueError(f"hg2_section's measurement builds are at (C, hg) in "
+                         f"{sorted(HG2_MODE_BUILDS)} only")
+    return _launch_hg2(x_win, _check_geom(geom, x_win.shape[0]), gamma, beta, wqkv, bqkv, wproj,
+                       bproj, bias, num_heads, eps, wblk, hg, score_f32, "none", clocks)
 
 
 hg2_section.launches = 0

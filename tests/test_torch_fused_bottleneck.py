@@ -145,10 +145,78 @@ def test_bottleneck_plan_mirrors_the_kernel_source():
     assert (FB.K7_CHUNK, FB._K7_FIXED, FB.K7_TILE, FB.K7_VEC) == (64, 128 + 1024, (8, 16), 2048)
 
 
+# (C, P) of K8's builds: the probe's two shapes, resnet50's other two layers, a C that
+# only 64 divides, the widest P, and a P with an odd count of 64-channel chunks
+K8_WIDTHS = [(2048, 512), (1024, 256), (512, 128), (256, 64), (192, 64), (2048, 1024), (320, 576)]
+
+
+def test_conv3_plan_mirrors_the_kernel_source():
+    """conv3_plan is Conv3Plan's arithmetic (bottleneck_int8.cu), read from the
+    source and evaluated for the build each width takes (NW3 by conv3_width,
+    KCMAX by SEGLAND_K8_BUILD): the row tile, the columns a pass, the slots of
+    both rings and the shared memory, within a block's 232,448 B, with room
+    for a pass's residual pieces and one more (the rings' order cannot lock)."""
+    from torch_helpers import CEnv, c_block, c_constants, csrc
+
+    text = csrc("bottleneck_int8.cu")
+    base = CEnv(dict(re.findall(r"^constexpr int (k\w+) = ([^;]+);", text, re.M)), cmin=min)
+    exprs = c_constants(c_block(text, r"struct Conv3Plan\b"))
+    assert re.search(r"conv3_width\(int C\) \{ return C % 128 == 0 \? 128 : 64; \}", text)
+    assert re.search(r"if \(\(P\) <= 8 \* kChunk\) \{", text)
+    assert "P <= 16 * kChunk" in text  # k8_takes
+    for c, p in K8_WIDTHS:
+        plan = FB.conv3_plan(c, p)
+        env = CEnv(exprs, base, NW3_=plan["nw3"], KCMAX_=plan["kcmax"])
+        assert (env["BM"], env["NW3"], env["PIECES"], env["SW"], env["SR"]) == \
+            (plan["rows"], plan["nw3"], plan["pieces"], plan["sw"], plan["sr"]), (c, p)
+        assert (env["WSLOT"], env["RSLOT"], env["H2_BYTES"], env["SMEM"]) == \
+            (plan["wslot"], plan["rslot"], plan["h2"], plan["smem"]), (c, p)
+        assert plan["kc"] == p // 64 <= plan["kcmax"] and plan["passes"] * plan["nw3"] == c
+        assert plan["smem"] <= FB.SMEM_MAX and plan["sr"] >= plan["pieces"] + 1
+        assert plan["sw"] >= 2
+    with pytest.raises(ValueError, match=r"139,264 B, and its builds have room for P <= 1024"):
+        FB.conv3_plan(2048, 1024 + 64)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        FB.conv3_plan(2048, 96)
+
+
+@pytest.mark.parametrize("m", [16 * 128 * 128, 8 * 128 * 128 - 37])
+def test_conv3_walk_covers_every_tile_and_pass_once(m):
+    """A host replay of K8's persistent walk: conv3_walk's loops are the
+    kernel's (found in its producer's and its consumers' code and in its
+    launcher: a grid of min(tiles, SMs) blocks, block b taking row tiles b,
+    b + grid, ... and each tile's C / NW3 column passes in turn), and on an
+    H100's 132 SMs every (row tile, column pass) of both probe shapes is taken
+    exactly once, at the probe's M and at a ragged M (whose last tile TMA
+    clips), the blocks within a tile of each other."""
+    from torch_helpers import c_block, csrc
+
+    text = csrc("bottleneck_int8.cu")
+    kernel = c_block(text, r"\bconv3_residual_kernel\(")
+    walk = r"for \(int tile = blockIdx\.x; tile < ntiles; tile \+= gridDim\.x, par \^= 1u\)"
+    assert len(re.findall(walk, kernel)) == 2  # the producer's and the consumers'
+    assert len(re.findall(r"for \(int n = 0; n < NP; \+\+n\)", kernel)) == 2
+    assert "const int NP = C / NW3;" in kernel
+    launch = c_block(text, r"cudaError_t launch_conv3\(")
+    assert "const long long tiles = (M + Pl::BM - 1) / Pl::BM;" in launch
+    assert "persistent_grid(tiles, &grid)" in launch and "(int)tiles" in launch
+    assert "*grid = (unsigned)(tiles < sms ? tiles : sms);" in text
+    for p, c in ((512, 2048), (256, 1024)):
+        plan = FB.conv3_plan(c, p)
+        tiles = -(-m // plan["rows"])
+        blocks = FB.conv3_walk(m, c, p, 132)
+        items = [item for block in blocks for item in block]
+        assert len(blocks) == min(132, tiles)
+        assert sorted(items) == [(tile, n) for tile in range(tiles)
+                                 for n in range(plan["passes"])], (p, c)
+        per_block = [len(b) for b in blocks]
+        assert max(per_block) - min(per_block) <= plan["passes"]
+
+
 def test_k7_builds_split_over_the_sources_parts():
     """bottleneck_int8.cu is compiled as 5 nvcc processes: part 0 (K8, conv1,
     the entries), 1 (conv23 at P = 64, 128), 2 (at P = 256, 512), 3 and 4 (the
-    measurement builds of conv1 and conv23)."""
+    measurement builds of conv1 and K8, and of conv23)."""
     from segland_tpu_torch import kernels
 
     src = Path(kernels.__file__).resolve().parent / "csrc" / "bottleneck_int8.cu"

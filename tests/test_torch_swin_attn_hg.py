@@ -213,9 +213,19 @@ def test_tpu_layout_devices_raise(argv, match):
      r"no float32 build for C=1536: one window needs .* = 377,860 B > 232,448"),
     ("K10", 384, 12, 4, torch.bfloat16, 0, "none", "wblk"),
     ("K10", 384, 12, 4, torch.bfloat16, 32, "build", "block-diagonal"),
-    ("K10", 384, 12, 6, torch.bfloat16, 32, "none",
-     r"no build for C=384 hg=6: .* = 240,512 B > 232,448"),
-    ("K10", 768, 24, 8, torch.bfloat16, 32, "none", "no build for C=768 hg=8"),
+    # the new body's arithmetic (section_win.cuh's layout, as K9's), under the old ids
+    pytest.param("K10", 384, 12, 6, torch.bfloat16, 32, "none",
+                 r"hg2_section has no build for C=384 hg=6: one window a pass needs .* = "
+                 r"181,792 B \(<= 232,448\) and 24 accumulator registers a thread \(of 96\); "
+                 r"built at \(C, hg\) in .*\(768, 4\)\] only$",
+                 id="K10-384-12-6-dtype5-32-none-no build for C=384 hg=6: .* = 240,512 B > "
+                    "232,448"),
+    pytest.param("K10", 768, 24, 8, torch.bfloat16, 32, "none",
+                 r"hg2_section has no build for C=768 hg=8: one window a pass needs ring 24,576 "
+                 r"\+ y 98,304 \+ qkv 98,304 \+ bias 43,904 \+ tokens 256 \+ barriers 32 \+ "
+                 r"align 1,024 = 266,400 B \(> 232,448\) and 24 accumulator registers a thread "
+                 r"\(of 96\)$",
+                 id="K10-768-24-8-dtype6-32-none-no build for C=768 hg=8"),
     ("K9", 384, 12, 5, torch.bfloat16, 32, None, "does not divide"),
     ("K9", 384, 12, 4, torch.float16, 32, None, "bfloat16 and float32"),
     ("K9", 1536, 48, 4, torch.float32, 32, None,
@@ -229,6 +239,9 @@ def test_tpu_layout_devices_raise(argv, match):
      r"hg_section has no build for C=768 hg=8: one window a pass needs ring 24,576 \+ "
      r"y 98,304 \+ qkv 98,304 \+ bias 43,904 \+ tokens 256 \+ barriers 32 \+ align 1,024 = "
      r"266,400 B \(> 232,448\) and 24 accumulator registers a thread \(of 96\)$"),
+    ("K10", 192, 6, 2, torch.bfloat16, 32, "attn",
+     r"hg2_section builds ablate='attn' at \(C, hg\) in .* only \(hg = 1 and the default hg\), "
+     r"not C=192 hg=2"),
 ])
 def test_host_checks_raise(kernel, c, nh, hg, dtype, wblk, ablate, match):
     with pytest.raises(ValueError, match=match):
@@ -248,70 +261,92 @@ def test_fp32_is_accepted_at_every_built_width(c, hg):
 
 @pytest.mark.parametrize("kernel", ["K10", "K9"])
 def test_builds_match_the_source_and_fit(kernel):
-    """The CUDA sources instantiate exactly HG_BUILDS (K10, attn_section_hg.cu)
-    and HG_SM90_BUILDS (K9, attn_section_hg_sm90.cu: its served builds in the
-    parts they name, their measurement builds in as many parts again); each
-    fits the block's shared memory and the register budget; hg = 1 and the JAX
-    package's production head group are built at every swin-s width."""
+    """The CUDA sources instantiate exactly HG2_BUILDS and HG2_MODE_BUILDS (K10,
+    attn_section_hg2_sm90.cu: its mode-none builds in the parts they name, the
+    mode and measurement builds of a pair in the part its modes row names) and
+    HG_SM90_BUILDS (K9, attn_section_hg_sm90.cu: its served builds in the parts
+    they name, their measurement builds in as many parts again); each fits the
+    block's shared memory and the register budget; hg = 1 and the JAX
+    package's production head group are built at every swin-s width, for K10
+    in every mode."""
     from segland_tpu_torch import kernels
 
-    if kernel == "K10":
-        src = (ROOT / "segland_tpu_torch/kernels/csrc/attn_section_hg.cu")
-        rows = re.findall(r"^\s*X\((\d+), (\d+), (\d+), (\d+), (\d+), (\d+), (\d+), "
-                          r"(true|false), (true|false)\)", src.read_text(), re.M)
-        built = {(int(r[1]), int(r[2])): H.HgBuild(*map(int, r[3:7]), r[7] == "true",
-                                                   r[8] == "true") for r in rows}
-        assert built == H.HG_BUILDS
-        nparts = len({int(r[0]) for r in rows})
-    else:
-        src = (ROOT / "segland_tpu_torch/kernels/csrc/attn_section_hg_sm90.cu")
-        rows = re.findall(r"^\s*X\((\d+), (\d+), (\d+), (\d+), (\d+)\)", src.read_text(),
-                          re.M)
-        built = {(int(r[1]), int(r[2])): H.HgSm90Build(int(r[3]), int(r[4])) for r in rows}
-        assert built == H.HG_SM90_BUILDS
-        nparts = 2 * len({int(r[0]) for r in rows})
+    name = "attn_section_hg2_sm90.cu" if kernel == "K10" else "attn_section_hg_sm90.cu"
+    src = ROOT / "segland_tpu_torch/kernels/csrc" / name
+    text = src.read_text()
+    rows = re.findall(r"^\s*X\((\d+), (\d+), (\d+), (\d+), (\d+)\)", text, re.M)
+    built = {(int(r[1]), int(r[2])): H.HgSm90Build(int(r[3]), int(r[4])) for r in rows}
+    served = sorted({int(r[0]) for r in rows})
     # each part is compiled by a process of its own and instantiates some builds
     parts = [flags for s, flags in kernels.compile_units() if s == src]
-    assert sorted({int(r[0]) for r in rows}) == list(range(nparts // (1 if kernel == "K10"
-                                                                      else 2)))
-    assert len(parts) == nparts
+    if kernel == "K10":
+        modes = re.findall(r"^\s*X\((\d+), (\d+), (\d+)\)\s*\\?$", text, re.M)
+        assert built == H.HG2_BUILDS
+        assert {(int(m[1]), int(m[2])) for m in modes} == H.HG2_MODE_BUILDS
+        assert len(modes) == len(H.HG2_MODE_BUILDS) and H.HG2_MODE_BUILDS <= set(built)
+        mode_parts = sorted({int(m[0]) for m in modes})
+        assert served + mode_parts == list(range(len(parts)))
+    else:
+        assert built == H.HG_SM90_BUILDS
+        assert served == list(range(len(parts) // 2))
     for (c, hg), b in built.items():
+        lay = H.hg_sm90_layout(c, hg, b)
+        assert lay["smem"] <= H.SMEM_MAX and lay["acc"] <= H.MAX_ACC_REGS, (c, hg, lay)
         if kernel == "K10":
-            lay = H.hg_layout(c, hg, b)
-            assert lay["smem"] <= H.SMEM_MAX and lay["frags"] <= H.MAX_FRAGS, (c, hg, lay)
             assert H.check_hg_build(c, c // 32, hg, torch.bfloat16, 32) == b
         else:
-            lay = H.hg_sm90_layout(c, hg, b)
-            assert lay["smem"] <= H.SMEM_MAX and lay["acc"] <= H.MAX_ACC_REGS, (c, hg, lay)
             assert H.check_hg_sm90_build(c, c // 32, hg, torch.bfloat16, 32) == b
     for c, nh in ((96, 3), (192, 6), (384, 12), (768, 24)):
         assert (c, 1) in built and (c, H.V2_HG[nh]) in built
+        if kernel == "K10":
+            assert {(c, 1), (c, H.V2_HG[nh])} <= H.HG2_MODE_BUILDS
+            for ab in H.ABLATIONS:
+                assert H.check_hg_build(c, nh, H.V2_HG[nh], torch.bfloat16, 32, ab) is not None
 
 
-@pytest.mark.parametrize("c,side", [(96, 259), (192, 133), (384, 70), (768, 35)])
-def test_pass_schedule_covers_each_window_once(c, side):
-    """A host replay of K9's schedule at a swin-s stage of a batch of 8, every
-    built hg, read from the sources (torch_helpers' C-source replay: the
-    launcher's grid, section_win.cuh's win_passes, the kernel's pass loop, the
-    plan structs): a block owns wblk windows (the last block what is left),
-    walked W at a time (the last pass what is left); every window is in exactly
-    one pass, and the stream (HgItems' PASS) fills as many ring slots a pass as
-    each consumer warpgroup takes (its section_product calls times the loops
-    around them), as ring_pass_end checks on the card."""
-    src = "attn_section_hg_sm90.cu"
+_STAGE_SIDES = [(96, 259), (192, 133), (384, 70), (768, 35)]
+
+
+@pytest.mark.parametrize("c,side,kernel", [pytest.param(c, side, "K9", id=f"{c}-{side}")
+                                           for c, side in _STAGE_SIDES]
+                         + [pytest.param(c, side, "K10", id=f"K10-{c}-{side}")
+                            for c, side in _STAGE_SIDES])
+def test_pass_schedule_covers_each_window_once(c, side, kernel):
+    """A host replay of the schedule of K9's and K10's kernel (section_hg.cuh's
+    hg_kernel) at a swin-s stage of a batch of 8, every built hg, read from
+    the sources (torch_helpers' C-source replay: the launcher's grid,
+    section_win.cuh's win_passes, the kernel's pass loop, the plan structs): a
+    block owns wblk windows (the last block what is left), walked W at a time
+    (the last pass what is left); every window is in exactly one pass, and in
+    every mode with a ring (K9: none; K10: none and, at the pairs of
+    HG2_MODE_BUILDS, io, attn and softmax) the stream (HgItems' PASS) fills as
+    many ring slots a pass as each consumer warpgroup takes (its
+    section_product calls times the loops and guards around them), as
+    ring_pass_end checks on the card."""
+    from torch_helpers import c_enums, csrc
+
+    src = "section_hg.cuh"
+    modes = c_enums(csrc(src))
+    assert [modes[k] for k in ("kHgNone", "kHgIoRaw", "kHgIo", "kHgAttn", "kHgSoftmax")] == \
+        list(range(len(H.ABLATIONS)))
     nw = 8 * (side // 7) ** 2
-    for (cc, hg), b in H.HG_SM90_BUILDS.items():
+    builds = H.HG_SM90_BUILDS if kernel == "K9" else H.HG2_BUILDS
+    for (cc, hg), b in builds.items():
         if cc != c:
             continue
         for wblk in (32, 7, b.w):
-            blocks = win_blocks(src, "hg_sm90_kernel", nw, wblk, b.w)
+            blocks = win_blocks(src, "hg_kernel", nw, wblk, b.w)
             seen = [w0 + i for passes in blocks for w0, n in passes for i in range(n)]
             assert seen == list(range(nw)), (hg, wblk)
             assert all(0 < n <= b.w for passes in blocks for _, n in passes)
-        for g in (0, 1):
-            env = win_kernel_env(src, "hg_sm90_kernel", "HgPlan", (c, hg, b.w, b.s), g=g)
-            stream = win_stream(src, "HgItems", env)
-            assert stream == win_takes(src, "hg_sm90_kernel", env) > 0, (hg, g)
+        ringed = ["none"] + (["io", "attn", "softmax"] if kernel == "K10"
+                             and (c, hg) in H.HG2_MODE_BUILDS else [])
+        for ab in ringed:
+            for g in (0, 1):
+                env = win_kernel_env(src, "hg_kernel", "HgPlan", (c, hg, b.w, b.s),
+                                     MODE=H.ABLATIONS.index(ab), g=g)
+                stream = win_stream(src, "HgItems", env)
+                assert stream == win_takes(src, "hg_kernel", env) > 0, (hg, ab, g)
 
 
 def test_window_tables_agree_with_the_section_kernel_masks():

@@ -252,10 +252,11 @@ def test_pass_schedule_covers_each_window_once(c, nh, side):
 
 
 def test_new_bodies_use_no_wmma():
-    """K9's and K11's sources, with every header they include, hold no
+    """K9's, K10's and K11's sources, with every header they include, hold no
     nvcuda::wmma: their products are wgmma and their core mma.sync."""
     csrc = ROOT / "segland_tpu_torch/kernels/csrc"
-    for name in ("attn_section_variants.cu", "attn_section_hg_sm90.cu"):
+    for name in ("attn_section_variants.cu", "attn_section_hg_sm90.cu",
+                 "attn_section_hg2_sm90.cu"):
         todo, seen = [name], set()
         while todo:
             f = todo.pop()
