@@ -60,8 +60,12 @@ Phases, each printing its result on its own line; any failure exits non-zero:
   9. K8 conv3_residual vs its plain version at the conv3 probe's two shapes
      (layer4 and layer3 of resnet50), M = 8*128^2 and 16*128^2 and a ragged M,
      with and without the ReLU, to 1 bf16 ulp (the count of elements that are
-     not bit-equal is printed), beside torch._int_mm + the epilogue in torch;
-     then the probe's own entry point (benchmarks/conv3_probe.py), K8's path;
+     not bit-equal is printed); its builds' registers and local bytes (a spill
+     fails), IGMMA and UTMALDG counts in the built SASS (a 0 fails) and plan
+     (the library's and conv3_plan's must agree); per shape its time beside
+     torch._int_mm and the epilogue in torch, each timed alone, and the clock
+     build's phase split; then the probe's own entry point
+     (benchmarks/conv3_probe.py), K8's path;
  10. K7 bottleneck_int8 (two kernels: conv1, then conv23) vs its plain version
      at the four layer shapes of resnet50 at output stride 8 for a batch of 8
      1024^2 tiles, both last_relu, and at images no tile divides with d in 1,
@@ -78,11 +82,13 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      ways: bf16 unquantized, --int8, --int8 --fused (K7 12 and K2 1 a batch,
      any other count fails) and --int8 --fused with the plain versions
      (>= 99% argmax agreement with the K7 route; int8 vs bf16 is printed);
- 12. K10 hg2_section (head groups, masks from the window index) vs its plain
-     version at the four swin-s stage shapes, shift 0 and 3, every built hg,
-     beside K3 on the same input; each ablation (ioraw, io, attn, softmax) at
-     hg = 1 and the default hg, eager and by CUDA graph, and the phase split
-     they give; then the
+ 12. K10 hg2_section (head groups, masks from the window index; K9's body)
+     vs its plain version at the four swin-s stage shapes, shift 0 and 3,
+     every built hg, wblk = W and 32; its builds' registers and spills (each
+     mode) and SASS HGMMA/UTMALDG counts; beside it on the same input K3 and
+     K9 at the same hg, and the clock builds' phase split at hg = 1 and the
+     default hg; each ablation (ioraw, io, attn, softmax) at those two hg,
+     eager and by CUDA graph, and the phase split they give; then the
      head-group probe's entry point (benchmarks/swin_attn_hg.py), the path
      of K9 and K10;
  13. K9 hg_section (head groups, masks shipped in; the wgmma + TMA section
@@ -113,7 +119,7 @@ the repo beside it, it fails before printing any result.
     python3 chip_smoke.py --phases k1,k3    # K1 and K3 with their build, SASS and phase lines
     python3 chip_smoke.py --phases k4,k5    # K4 and K5 with their build, SASS and phase lines
     python3 chip_smoke.py --phases k8,k7    # K8, and K7 with its build, SASS and per-kernel lines
-    python3 chip_smoke.py --phases k9,k10   # the head-group kernels and their probe
+    python3 chip_smoke.py --phases k8,k10,k9  # K8, the head-group kernels and their probe
     python3 chip_smoke.py --phases k11,f32  # the variants probe's kernel, the fp32 body
     python3 chip_smoke.py --phases profile  # torch.profiler over the swin and deeplab_pop slices
     python3 chip_smoke.py --phases dilated  # cuDNN's 3x3 at ASPP's dilations vs nine 1x1 taps
@@ -879,14 +885,13 @@ def phase_k10(dev):
     """K10 hg2_section at the four swin-s stage shapes, shift 0 and 3, every
     built hg, wblk = W and 32, against its plain version; its builds'
     registers and spills and SASS HGMMA/UTMALDG counts; beside it on the same
-    input K3, K9 at the same hg and PR 6's WMMA body, and the clock builds'
-    phase split; then each ablation at hg = 1 and the default hg (shift 3)."""
+    input K3 and K9 at the same hg, and the clock builds' phase split; then
+    each ablation at hg = 1 and the default hg (shift 3)."""
     import torch
     from segland_tpu_torch.ops.fused_attn import attn_section
-    from segland_tpu_torch.ops.hg_attn import (ABLATIONS, HG2_MODE_BUILDS, HG_BUILDS,
-                                               HG_SM90_BUILDS, hg2_section, hg2_section_clocks,
-                                               hg2_section_reference, hg2_section_wmma,
-                                               hg_section)
+    from segland_tpu_torch.ops.hg_attn import (ABLATIONS, HG2_MODE_BUILDS, HG_SM90_BUILDS,
+                                               hg2_section, hg2_section_clocks,
+                                               hg2_section_reference, hg_section)
 
     keys = [(c, hg, ABLATIONS.index(ab)) for c in (96, 192, 384, 768)
             for hg in hg_builds(c)[0] for ab in ABLATIONS
@@ -895,7 +900,7 @@ def phase_k10(dev):
                 names=("C", "hg", "mode"))
     sass_counts("9GeomMasks")  # hg_kernel<HgPlan<...>, GeomMasks, mode>; not the ioraw kernel
     worst, plain_ms, bounds, by_hg, by_hg32, k3_ms, split = 0.0, 0.0, [], {}, {}, 0.0, {}
-    main_ms, old_by_hg, k9_by_hg = 0.0, {}, {}
+    main_ms, k9_by_hg = 0.0, {}
     for i, (blocks, c, nh, side, pside) in enumerate(SWIN_STAGES):
         nw = BATCH * (pside // 7) ** 2
         hgs, hg_main = hg_builds(c)
@@ -924,9 +929,6 @@ def phase_k10(dev):
                               warmup=1)
                 tp = cuda_ms(lambda: hg2_section_reference(x, geom, *w, hg=hg), iters=2,
                              warmup=0)
-                t_old = cuda_ms(lambda: hg2_section_wmma(x, geom, *w, hg=hg,
-                                                         wblk=HG_BUILDS[(c, hg)].w),
-                                iters=5, warmup=1)
                 t9 = None
                 if (c, hg) in HG_SM90_BUILDS:
                     t9 = cuda_ms(lambda: hg_section(x, mask, regions, *w_l, hg=hg,
@@ -936,7 +938,6 @@ def phase_k10(dev):
                 by_hg32[key] = by_hg32.get(key, 0.0) + blocks / 2 * t32
                 stage_t[hg] += blocks / 2 * t
                 by_hg[key] = by_hg.get(key, 0.0) + blocks / 2 * t
-                old_by_hg[key] = old_by_hg.get(key, 0.0) + blocks / 2 * t_old
                 if hg == hg_main:
                     plain_ms += blocks / 2 * tp
                     main_ms += blocks / 2 * t
@@ -949,7 +950,7 @@ def phase_k10(dev):
                 print(f"{tag} wblk={wb}: max_abs_err={e:.6g} tol=|d|<=0.02+0.01*|ref| "
                       f"out_of_tol=0 (wblk={wb} and {HG_WBLK}) kernel_ms={t:.4f} "
                       f"wblk{HG_WBLK}_ms={t32:.4f} ({-(-nw // HG_WBLK)} blocks) "
-                      f"wmma_body_ms={t_old:.4f} k9_ms={'-' if t9 is None else f'{t9:.4f}'} "
+                      f"k9_ms={'-' if t9 is None else f'{t9:.4f}'} "
                       f"plain_ms={tp:.4f} k3_ms={t3:.4f} max_abs_diff_vs_k3={d3:.6g} "
                       f"bound_ms={b_ms:.4f} share_of_bound={b_ms / t:.3f}{sp}", flush=True)
             del k3
@@ -994,20 +995,17 @@ def phase_k10(dev):
                                    if int(k.split("hg=")[1]) == hg_of(int(k[2:].split()[0])))
     default = lambda c: hg_builds(c)[1]
     fwd = {what: {"default hg": per_fwd(d, default), "hg=1": per_fwd(d, lambda c: 1)}
-           for what, d in (("k10", by_hg), ("wmma_body", old_by_hg), ("k9", k9_by_hg))}
+           for what, d in (("k10", by_hg), ("k9", k9_by_hg))}
     print(f"K10 per forward of {BATCH} tiles (24 blocks) at the default hg: "
           f"kernel_ms={main_ms:.4f} plain_ms={plain_ms:.4f} k3_ms={k3_ms:.4f} "
           f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / main_ms:.3f}; a forward "
           + "; ".join(f"{what} {k}={v:.4f}" for what, d in fwd.items() for k, v in d.items())
           + "; by hg: " + " ".join(f"{k}={v:.4f}" for k, v in by_hg.items()), flush=True)
-    print("K10 WMMA body per forward by hg: "
-          + " ".join(f"{k}={v:.4f}" for k, v in old_by_hg.items()), flush=True)
     print(f"K10 per forward at wblk={HG_WBLK} by hg: "
           + " ".join(f"{k}={v:.4f}" for k, v in by_hg32.items()), flush=True)
     return dict(max_abs_err=worst, ms=main_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, k3_ms=k3_ms, forward_ms=fwd, ms_by_hg=by_hg,
-                wmma_body_ms_by_hg=old_by_hg, k9_ms_by_hg=k9_by_hg, ms_by_hg_wblk32=by_hg32,
-                phase_split=split)
+                k9_ms_by_hg=k9_by_hg, ms_by_hg_wblk32=by_hg32, phase_split=split)
 
 
 def k9_builds(c):
@@ -1504,21 +1502,19 @@ def phase_k8(dev):
     """K8 at the probe's two shapes, M = 8*128^2 and 16*128^2, with and
     without the ReLU, and a ragged M; its builds' registers and spills, SASS
     IGMMA/UTMALDG counts and plan (the library's against conv3_plan); per
-    shape its time beside PR 4's mma.sync body, the bound, torch._int_mm and
-    the epilogue in torch each alone, and the clock build's phase split."""
+    shape its time beside the bound, torch._int_mm and the epilogue in torch
+    each alone, and the clock build's phase split."""
     import torch
     from segland_tpu_torch.ops.fused_bottleneck import (conv3_plan, conv3_residual,
                                                         conv3_residual_clocks,
-                                                        conv3_residual_mma,
                                                         conv3_residual_reference,
                                                         library_conv3_plan)
 
     build_attrs("segland_conv3_residual_attrs", [(c, p) for p, c in K8_SHAPES], "K8",
                 names=("C", "P"), kind="int8")
-    sass_counts("conv3_residual_kernel", mma="IGMMA")  # not the old conv3_residual_mma_kernel
+    sass_counts("conv3_residual_kernel", mma="IGMMA")
     out = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, not_bit_equal=0,
-               mma_body_ms=0.0, int_mm_ms=0.0, int_mm_rowmajor_b_ms=0.0, epilogue_ms=0.0,
-               by_shape={})
+               int_mm_ms=0.0, int_mm_rowmajor_b_ms=0.0, epilogue_ms=0.0, by_shape={})
     bounds = []
     for i, (p, c) in enumerate(K8_SHAPES):
         plan, lib = conv3_plan(c, p), library_conv3_plan(c, p)
@@ -1538,7 +1534,6 @@ def phase_k8(dev):
             out["max_abs_err"] = max(out["max_abs_err"], err)
             out["not_bit_equal"] += differ
             ms = cuda_ms(lambda: conv3_residual(*args), iters=5, warmup=1)
-            ms_old = cuda_ms(lambda: conv3_residual_mma(*args), iters=5, warmup=1)
             plain_ms = cuda_ms(lambda: conv3_residual_reference(*args), iters=3, warmup=1)
             w3t = a["w3"].t().contiguous()
             # the library side, one call at a time: cuBLASLt's int8 product with B
@@ -1559,14 +1554,14 @@ def phase_k8(dev):
                                        dev)
             print(f"K8 M={m} P={p} C={c}: max_abs_err={err:.6g} tol=1 bf16 ulp "
                   f"out_of_tol=0 not_bit_equal={differ} kernel_ms={ms:.4f} "
-                  f"mma_body_ms={ms_old:.4f} plain_ms={plain_ms:.4f} int_mm_ms={mm_ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} int_mm_ms={mm_ms:.4f} "
                   f"int_mm_rowmajor_b_ms={mm_row_ms:.4f} epilogue_ms={epi_ms:.4f} "
                   f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms:.3f}{sp}", flush=True)
             out["by_shape"][f"M={m} P={p} C={c}"] = dict(
-                ms=ms, mma_body_ms=ms_old, bound_ms=b_ms, int_mm_ms=mm_ms,
+                ms=ms, bound_ms=b_ms, int_mm_ms=mm_ms,
                 int_mm_rowmajor_b_ms=mm_row_ms, epilogue_ms=epi_ms, phase_split=sp.strip())
             if m == 16 * 128 * 128:  # the probe's own M: the kernel row sums its two shapes
-                for k, v in (("ms", ms), ("mma_body_ms", ms_old), ("plain_ms", plain_ms),
+                for k, v in (("ms", ms), ("plain_ms", plain_ms),
                              ("int_mm_ms", mm_ms), ("int_mm_rowmajor_b_ms", mm_row_ms),
                              ("epilogue_ms", epi_ms)):
                     out[k] += v

@@ -62,8 +62,6 @@ _ENTRIES = {
     # ws, shift, eps, ablate, score_f32, device, stream
     "segland_hg2_section": [_P] * 9 + [ctypes.c_longlong] + [_I] * 10 + [ctypes.c_float]
                            + [_I] * 3 + [_P],
-    "segland_hg2_section_wmma": [_P] * 9 + [ctypes.c_longlong] + [_I] * 10 + [ctypes.c_float]
-                                + [_I] * 3 + [_P],
     # x, mask_tok, rows_m, regions, rows_r, gamma, beta, wqkv, bqkv, wproj, bproj, bias, out,
     # NW, C, nh, hg, wblk, eps, score_f32, device, stream
     "segland_hg_section": [_P, _P, _I, _P, _I] + [_P] * 8 + [ctypes.c_longlong] + [_I] * 4
@@ -99,7 +97,6 @@ _ENTRIES = {
                                   + [_I] * 2 + [_P, _I, _P],
     # h2q, res, w3t, a3, b3, out, M, P, C, relu, device, stream
     "segland_conv3_residual_int8": [_P] * 6 + [ctypes.c_longlong] + [_I] * 4 + [_P],
-    "segland_conv3_residual_int8_mma": [_P] * 6 + [ctypes.c_longlong] + [_I] * 4 + [_P],
     # the same, then clocks (uint64) before device and stream
     "segland_conv3_residual_int8_clocks": [_P] * 6 + [ctypes.c_longlong] + [_I] * 3
                                           + [_P, _I, _P],

@@ -1,6 +1,5 @@
 // Device code shared by the Swin attention kernels: the shapes, the token
-// geometry, the row LayerNorm of K10, and the fp32 bodies (exact FMA loops) of
-// K3, K4 and K5.  The WMMA pieces (K3-K5's attention core) are attn_wmma.cuh;
+// geometry and the fp32 bodies (exact FMA loops) of K3, K4 and K5.  The WMMA pieces (K3-K5's attention core) are attn_wmma.cuh;
 // the wgmma section body of K3, K4 and K5 is section_sm90.cuh.  Everything
 // lives in an anonymous namespace, so each source gets its own copy.
 //
@@ -76,34 +75,6 @@ __device__ __forceinline__ void token_geom(int win, int tok, const Geom& g, int*
 
 __host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
 __host__ __device__ constexpr size_t max_size(size_t a, size_t b) { return a > b ? a : b; }
-
-// One warp a row: dst[c] = T((LN(src) * gamma + beta) * m) for C channels,
-// fp32 statistics, fast variance.  The row sits in registers between passes.
-template <int C, typename Load>
-__device__ __forceinline__ void ln_row_bf16(Load load, const float* __restrict__ gamma,
-                                            const float* __restrict__ beta, float eps, float m,
-                                            bf16* dst) {
-  const int lane = threadIdx.x % 32;
-  float xv[C / 32];
-  float s = 0.0f, ss = 0.0f;
-#pragma unroll
-  for (int i = 0; i < C / 32; ++i) xv[i] = load(lane + 32 * i);
-#pragma unroll
-  for (int i = 0; i < C / 32; ++i) {
-    s += xv[i];
-    ss += xv[i] * xv[i];
-  }
-  s = warp_sum(s);
-  ss = warp_sum(ss);
-  const float mu = s / C;
-  const float var = fmaxf(ss / C - mu * mu, 0.0f);
-  const float rs = rsqrtf(var + eps);
-#pragma unroll
-  for (int i = 0; i < C / 32; ++i) {
-    const int c = lane + 32 * i;
-    dst[c] = __float2bfloat16((((xv[i] - mu) * rs) * gamma[c] + beta[c]) * m);
-  }
-}
 
 // ---- fp32: exact FMA loops --------------------------------------------------
 constexpr int kLQF = kHD + 1;  // q/k/v row stride, floats

@@ -1,8 +1,8 @@
 // The fp32 body of the probes' attention sections: K9 hg_section and K10
 // hg2_section (benchmarks/swin_attn_hg.py:hg_section, :hg2_section) and K11
 // section (benchmarks/swin_attn_variants.py:section) on fp32 windows, as
-// `segland_section_f32`.  Their bf16 builds are attn_section_hg.cu and
-// attn_section_variants.cu.
+// `segland_section_f32`.  Their bf16 builds are attn_section_hg_sm90.cu,
+// attn_section_hg2_sm90.cu and attn_section_variants.cu.
 //
 // One body: the pad mask and region ids come from shipped [rows, N] tables
 // (K9, K11) or from the window index (K10, geom); the probabilities are

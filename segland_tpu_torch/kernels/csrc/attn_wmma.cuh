@@ -1,6 +1,6 @@
 // The WMMA pieces of the Swin attention kernels: the fragment types (K5's
-// super-window walk and K10 use them too) and the attention core of K3, K4 and
-// K5 (attn_tile_bf16).  Everything lives in an anonymous namespace, so each
+// super-window walk uses them too) and the attention core of K3, K4 and K5
+// (attn_tile_bf16).  Everything lives in an anonymous namespace, so each
 // source gets its own copy.
 
 #pragma once

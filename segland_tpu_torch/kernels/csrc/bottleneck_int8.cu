@@ -59,8 +59,8 @@
 // 0.55 TOP of int8 products, 0.28 ms.  K8's design (sm_90a) is conv23's conv3
 // stage as a kernel of its own: persistent and warp-specialised like K7, a
 // block walks row tiles of 128 rows; a tile's h2q comes by TMA into shared
-// memory once and serves every column pass (the old body re-read it from L2
-// for each of C / 128 column blocks), w3's K-major slices stream through one
+// memory once and serves every column pass (a grid of output tiles would read
+// it from L2 once a block of columns), w3's K-major slices stream through one
 // ring and the residual, 64 channels a piece, through another, a few passes
 // ahead; the epilogue writes the output over the residual's slot and TMA
 // stores it (clipped at M), its smem read awaited one piece later.
@@ -76,35 +76,9 @@
 #define SEGLAND_PART 0
 #endif
 
-#include "cp_async.cuh"
 #include "sm90.cuh"
 
 namespace {
-
-constexpr int BK = 64;        // bytes of k in a staged chunk
-constexpr int LDS = BK + 16;  // its row stride: ldmatrix rows fall in distinct banks
-constexpr int THREADS = 256;  // K8: 8 warps, 4 along M by 2 along N
-constexpr int BSTAGES = 3;    // cp.async ring of weight chunks
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c += a (16x32 int8, row) . b (32x8 int8, col)
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // clip(rint(v / s), -127, 127) of N values at once.  v * (1/s) differs from
 // the true quotient by under 3e-5 wherever the result is not clipped, so the
@@ -148,57 +122,6 @@ __device__ __forceinline__ uint16_t pack2(int a, int b) {
 // relu(acc * a + b), multiply and add unfused as in the plain version
 __device__ __forceinline__ float affine_relu(int acc, float a, float b) {
   return fmaxf(__fadd_rn(__fmul_rn((float)acc, a), b), 0.0f);
-}
-
-// this lane's ldmatrix row within a 16-row A tile and its k offset
-__device__ __forceinline__ int a_lane_row(int lane) { return (lane & 7) + ((lane >> 3) & 1) * 8; }
-__device__ __forceinline__ int a_lane_k(int lane) { return (lane >> 4) * 16; }
-// the same within a pair of 8-column B tiles stored [n][k]
-__device__ __forceinline__ int b_lane_row(int lane) { return (lane & 7) + (lane >> 4) * 8; }
-__device__ __forceinline__ int b_lane_k(int lane) { return ((lane >> 3) & 1) * 16; }
-
-// One 64-byte k chunk of a warp's MT x NT tiles.  a_lane[i]: this lane's
-// ldmatrix row of m-tile i at the chunk's k = 0; b_lane: the same of the
-// warp's first pair of n-tiles in a staged chunk (row stride LDS).
-template <int MT, int NT>
-__device__ __forceinline__ void warp_mma_chunk(int (&acc)[MT][NT][4],
-                                               const int8_t* const (&a_lane)[MT],
-                                               const int8_t* b_lane) {
-#pragma unroll
-  for (int ks = 0; ks < BK; ks += 32) {
-    uint32_t a[MT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i) ldmatrix_x4(a[i], a_lane[i] + ks);
-#pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-      uint32_t b[4];
-      ldmatrix_x4(b, b_lane + j * 8 * LDS + ks);
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        mma_s8(acc[i][j], a[i], b[0], b[1]);
-        mma_s8(acc[i][j + 1], a[i], b[2], b[3]);
-      }
-    }
-  }
-}
-
-// NB rows of 64 bytes from a [n][k] weight (row stride ldb) into a stage
-template <int NB>
-__device__ __forceinline__ void load_b_chunk(int8_t* stage, const int8_t* src, int ldb, int tid) {
-  for (int i = tid; i < NB * 4; i += THREADS) {
-    const int r = i >> 2, s = i & 3;
-    cp_async16(stage + r * LDS + s * 16, src + (size_t)r * ldb + s * 16);
-  }
-}
-
-template <int MT, int NT>
-__device__ __forceinline__ void zero_acc(int (&acc)[MT][NT][4]) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 }
 
 // four bf16 (two a word, the lower address in the low half) -> four int8
@@ -356,84 +279,6 @@ __device__ __forceinline__ void init_ring(uint64_t* full) {
 enum { kC1Wait, kC1Quant, kC1Mma, kC1Epi, kC1Phases };
 enum { kC2Wait, kC2Mma, kC2Epi, kC3Wait, kC3Mma, kC3Epi, kC23Phases };
 enum { kK8Wait, kK8Mma, kK8ResWait, kK8Epi, kK8Phases };
-
-#if SEGLAND_PART == 0
-// ---------------------------------------------------------------------------
-// conv3 + residual: out[M,C] = bf16(relu?(h2q[M,P] . w3 * a3 + b3 + res))
-// ---------------------------------------------------------------------------
-template <int NT>
-__global__ void __launch_bounds__(THREADS)
-conv3_residual_mma_kernel(const int8_t* __restrict__ h2q, const __nv_bfloat16* __restrict__ res,
-                      const int8_t* __restrict__ w3t, const float* __restrict__ a3,
-                      const float* __restrict__ b3, __nv_bfloat16* __restrict__ out, long long M,
-                      int P, int C, int relu) {
-  constexpr int NB = 16 * NT;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  int8_t* As = reinterpret_cast<int8_t*>(smem_raw);  // BSTAGES x 128 x LDS
-  int8_t* Bs = As + BSTAGES * 128 * LDS;             // BSTAGES x NB x LDS
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1, g = lane >> 2, tig = lane & 3;
-  const int n_chunks = C / NB;  // the column chunk runs fastest: neighbours share rows of h2q
-  const long long m0 = (long long)(blockIdx.x / n_chunks) * 128;
-  const int n0 = (int)(blockIdx.x % n_chunks) * NB;
-  const int nk = P / BK;
-
-  auto load = [&](int kc, int st) {
-    for (int i = tid; i < 128 * 4; i += THREADS) {
-      const int r = i >> 2, s = i & 3;
-      long long row = m0 + r;
-      if (row >= M) row = M - 1;  // a tail row computes on the last row and is never stored
-      cp_async16(As + (st * 128 + r) * LDS + s * 16, h2q + row * P + kc * BK + s * 16);
-    }
-    load_b_chunk<NB>(Bs + st * NB * LDS, w3t + (size_t)n0 * P + kc * BK, P, tid);
-  };
-
-  int acc[2][NT][4];
-  zero_acc<2, NT>(acc);
-#pragma unroll
-  for (int s = 0; s < BSTAGES - 1; ++s) {
-    if (s < nk) load(s, s);
-    cp_async_commit();
-  }
-  const int a_off = (wm * 32 + a_lane_row(lane)) * LDS + a_lane_k(lane);
-  const int b_off = (wn * NT * 8 + b_lane_row(lane)) * LDS + b_lane_k(lane);
-  for (int kc = 0; kc < nk; ++kc) {
-    cp_async_wait<BSTAGES - 2>();
-    __syncthreads();
-    const int nx = kc + BSTAGES - 1;
-    if (nx < nk) load(nx, nx % BSTAGES);
-    cp_async_commit();
-    const int st = kc % BSTAGES;
-    const int8_t* a[2] = {As + st * 128 * LDS + a_off, As + st * 128 * LDS + a_off + 16 * LDS};
-    warp_mma_chunk<2, NT>(acc, a, Bs + st * NB * LDS + b_off);
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long row = m0 + wm * 32 + i * 16 + g + h * 8;
-      if (row >= M) continue;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int col = n0 + wn * NT * 8 + j * 8 + tig * 2;
-        const float2 a = *reinterpret_cast<const float2*>(a3 + col);
-        const float2 b = *reinterpret_cast<const float2*>(b3 + col);
-        const float2 r = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(res + row * C + col));
-        float o0 = __fadd_rn(__fadd_rn(__fmul_rn((float)acc[i][j][2 * h], a.x), b.x), r.x);
-        float o1 = __fadd_rn(__fadd_rn(__fmul_rn((float)acc[i][j][2 * h + 1], a.y), b.y), r.y);
-        if (relu) {
-          o0 = fmaxf(o0, 0.0f);
-          o1 = fmaxf(o1, 0.0f);
-        }
-        *reinterpret_cast<__nv_bfloat162*>(out + row * C + col) = __floats2bfloat162_rn(o0, o1);
-      }
-    }
-}
-
-#endif  // SEGLAND_PART == 0
 
 #if SEGLAND_PART == 0 || SEGLAND_PART == 3
 // ---------------------------------------------------------------------------
@@ -1134,31 +979,6 @@ extern "C" int segland_conv3_residual_plan(int C, int P, int* out) {
   return 0;
 }
 
-// PR 4's mma.sync body of K8, timed beside the new one until it is deleted.
-// Returns a cudaError_t.  h2q [M][P] int8, res and out [M][C] bf16, w3t [C][P].
-extern "C" int segland_conv3_residual_int8_mma(const void* h2q, const void* res, const void* w3t,
-                                           const void* a3, const void* b3, void* out,
-                                           long long M, int P, int C, int relu, int device,
-                                           void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (P < 64 || P % 64 || C < 64 || C % 64) return (int)cudaErrorInvalidValue;
-  if (M == 0) return (int)cudaSuccess;
-  const bool wide = C % 128 == 0;
-  const int nb = wide ? 128 : 64;
-  const long long blocks = ((M + 127) / 128) * (C / nb);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)BSTAGES * (128 + nb) * LDS;
-  auto launch = [&](auto kernel) {
-    cudaError_t e = opt_in(kernel, smem);
-    if (e != cudaSuccess) return e;
-    kernel<<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(
-        (const int8_t*)h2q, (const __nv_bfloat16*)res, (const int8_t*)w3t, (const float*)a3,
-        (const float*)b3, (__nv_bfloat16*)out, M, P, C, relu);
-    return cudaGetLastError();
-  };
-  return (int)(wide ? launch(conv3_residual_mma_kernel<8>) : launch(conv3_residual_mma_kernel<4>));
-}
 #elif SEGLAND_PART == 3
 // The measurement build of K8 at C a multiple of 128 and P <= 512
 // (segland_conv3_residual_int8's arguments, then clocks before device and

@@ -372,12 +372,6 @@ def conv3_residual_clocks(clocks, h2q, res, w3, a3, b3, *, last_relu: bool = Tru
                          _clocks(clocks, 5, res))
 
 
-def conv3_residual_mma(h2q, res, w3, a3, b3, *, last_relu: bool = True):
-    """PR 4's mma.sync body of K8, timed beside the new one until it is
-    deleted.  Not counted in ``conv3_residual.launches``."""
-    return _launch_conv3("segland_conv3_residual_int8_mma", h2q, res, w3, a3, b3, last_relu)
-
-
 conv3_residual.launches = 0
 
 

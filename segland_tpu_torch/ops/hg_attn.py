@@ -50,63 +50,23 @@ ABLATIONS = ("none", "ioraw", "io", "attn", "softmax")
 NO_BUILD = {"build": "no block-diagonal V is ever built on this card (hg heads a pass "
                      "keep per-head scores), so there is nothing to skip"}
 
-# ---- K10's builds ----------------------------------------------------------------
-# One build a (C, hg): W windows a pass through shared memory, PP warps sharing a row
-# tile's columns in the qkv product, weight chunks of KC rows in a ring of S, the
-# group's [hg, 49, 49] bias and the context in shared memory or read from L2 / kept
-# in the output buffer.  attn_section_hg.cu instantiates exactly these (a test reads
-# them from there).
-HgBuild = collections.namedtuple("HgBuild", "w pp kc s bias_smem ctx_smem")
-HG_BUILDS = {
-    (96, 1): HgBuild(4, 2, 48, 3, True, True),
-    (96, 3): HgBuild(1, 2, 48, 3, True, True),
-    (192, 1): HgBuild(4, 2, 48, 3, True, False),
-    (192, 2): HgBuild(2, 4, 16, 4, True, True),
-    (192, 3): HgBuild(1, 2, 48, 3, True, True),
-    (192, 6): HgBuild(1, 4, 16, 3, False, False),
-    (384, 1): HgBuild(3, 2, 32, 3, True, False),
-    (384, 2): HgBuild(2, 4, 16, 4, True, False),
-    (384, 3): HgBuild(1, 2, 16, 4, True, True),
-    (384, 4): HgBuild(1, 8, 16, 4, True, False),
-    (768, 1): HgBuild(1, 2, 32, 3, True, True),
-    (768, 2): HgBuild(1, 4, 48, 3, True, False),
-    (768, 3): HgBuild(1, 2, 16, 4, True, False),
-    (768, 4): HgBuild(1, 8, 16, 3, False, False),
-}
 # the JAX package's production head-group table (segland_tpu/ops/pallas_attn.py:_V2_HG)
 V2_HG = {3: 3, 6: 6, 12: 4, 24: 4}
 SMEM_MAX = 232448  # shared memory a block can have on sm_90
-MAX_FRAGS = 18     # 16x16 fp32 accumulator tiles a warp (8 registers each)
-_LQ, _LS, _WARPS = 48, 68, 8
 
 
 def _al(n):
     return (n + 127) // 128 * 128
 
 
-def hg_layout(c: int, hg: int, b: HgBuild) -> dict:
-    """Shared memory of a build, by buffer in bytes, and its accumulator
-    tiles a warp in the qkv product: the arithmetic of HgCfg in
-    attn_section_hg.cu."""
-    rows = b.w * _N
-    rt = (rows + 15) // 16
-    rq = (rows + 30) // 16 * 16  # the last window's row tiles reach 15 rows past it
-    y = _al(rows * (c + 8) * 2)
-    parts = dict(y=y, ctx=y if b.ctx_smem else 0, qkv=3 * hg * _al(rq * _LQ * 2),
-                 strips=_WARPS * 16 * _LS * 4, ring=b.s * _al(b.kc * (96 * hg + 8) * 2),
-                 bias=_al(hg * _N * _N * 2) if b.bias_smem else 0, tokens=2 * _al(rows * 4))
-    frags = -(-rt * b.pp // _WARPS) * (6 * hg // b.pp)
-    return dict(parts, smem=sum(parts.values()), frags=frags)
-
-
 def _fmt(layout):
     parts = " + ".join(f"{k} {v:,}" for k, v in layout.items()
-                       if k not in ("smem", "frags", "acc") and v)
+                       if k not in ("smem", "acc") and v)
     return f"{parts} = {layout['smem']:,} B"
 
 
-# ---- K9's builds ------------------------------------------------------------------
-# One build a (C, hg) of section_win.cuh's body: W windows a pass (1, 2 or 4, a
+# ---- K9's and K10's builds ----------------------------------------------------------
+# One build a (C, hg) of section_hg.cuh's body: W windows a pass (1, 2 or 4, a
 # 64-row tile of y each, rows 49-63 padding), S ring slots of one [96, 64] bf16
 # weight tile; hg sets of a head's q, k, v tiles [64 W, 32] and hg heads' bias
 # [49, 56] bf16 in shared memory.  attn_section_hg_sm90.cu instantiates exactly
@@ -469,29 +429,6 @@ def _launch_hg2(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_he
         err = lib.segland_hg2_section_clocks(*head, P(clocks), dev.index,
                                              kernels.stream_of(x_win))
     kernels.check(err, "hg2_section")
-    return out
-
-
-def hg2_section_wmma(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads: int,
-                     eps: float = 1e-5, wblk: int = 32, hg: int = 1, score_f32: bool = True,
-                     ablate: str = "none"):
-    """PR 6's WMMA body of K10 (attn_section_hg.cu), timed beside the new one
-    until it is deleted: weights [in, out] as they come, bias [1, nh, 49, 49].
-    Not counted in ``hg2_section.launches``."""
-    nw, c, dev = _windows("hg2_section", x_win)
-    if (c, hg) not in HG_BUILDS:
-        raise ValueError(f"the WMMA body has no build for C={c} hg={hg}")
-    b = _bias_bf16(bias, num_heads, dev).contiguous()
-    args = (_vec(gamma, c, dev), _vec(beta, c, dev), _mat("hg2_section", wqkv, (c, 3 * c), x_win),
-            _vec(bqkv, 3 * c, dev), _mat("hg2_section", wproj, (c, c), x_win),
-            _vec(bproj, c, dev), b)
-    out = torch.empty_like(x_win)
-    P = kernels.ptr
-    err = kernels.library().segland_hg2_section_wmma(
-        P(x_win), *(P(a) for a in args), P(out), nw, c, num_heads, hg, wblk,
-        *_check_geom(geom, nw), eps, ABLATIONS.index(ablate), int(bool(score_f32)), dev.index,
-        kernels.stream_of(x_win))
-    kernels.check(err, "hg2_section (WMMA)")
     return out
 
 
