@@ -850,13 +850,13 @@ def phase_k5(dev):
                 ms_by_group={str(g): t for g, t in per_group.items()})
 
 
-def hg_builds(c):
-    """{hg: W} of K10's builds at width C (attn_section_hg2_sm90.cu; W, the
-    windows a pass, is the wblk that gives each block one pass), and the JAX
-    package's production hg."""
-    from segland_tpu_torch.ops.hg_attn import HG2_BUILDS, V2_HG
+def hg_builds(c, table):
+    """{hg: W} of the builds of K9 (HG_SM90_BUILDS) or K10 (HG2_BUILDS) at
+    width C (W, the windows a pass, is the wblk that gives each block one
+    pass), and the JAX package's production hg."""
+    from segland_tpu_torch.ops.hg_attn import V2_HG
 
-    return {hg: b.w for (cc, hg), b in sorted(HG2_BUILDS.items()) if cc == c}, V2_HG[c // 32]
+    return {hg: b.w for (cc, hg), b in sorted(table.items()) if cc == c}, V2_HG[c // 32]
 
 
 HG_WBLK = 32  # the JAX probe's default windows a thread block
@@ -889,12 +889,12 @@ def phase_k10(dev):
     each ablation at hg = 1 and the default hg (shift 3)."""
     import torch
     from segland_tpu_torch.ops.fused_attn import attn_section
-    from segland_tpu_torch.ops.hg_attn import (ABLATIONS, HG2_MODE_BUILDS, HG_SM90_BUILDS,
-                                               hg2_section, hg2_section_clocks,
+    from segland_tpu_torch.ops.hg_attn import (ABLATIONS, HG2_BUILDS, HG2_MODE_BUILDS,
+                                               HG_SM90_BUILDS, hg2_section, hg2_section_clocks,
                                                hg2_section_reference, hg_section)
 
     keys = [(c, hg, ABLATIONS.index(ab)) for c in (96, 192, 384, 768)
-            for hg in hg_builds(c)[0] for ab in ABLATIONS
+            for hg in hg_builds(c, HG2_BUILDS)[0] for ab in ABLATIONS
             if ab == "none" or (ab != "ioraw" and (c, hg) in HG2_MODE_BUILDS)]
     build_attrs("segland_hg2_section_attrs", keys + [(96, 1, ABLATIONS.index("ioraw"))], "K10",
                 names=("C", "hg", "mode"))
@@ -903,7 +903,7 @@ def phase_k10(dev):
     main_ms, k9_by_hg = 0.0, {}
     for i, (blocks, c, nh, side, pside) in enumerate(SWIN_STAGES):
         nw = BATCH * (pside // 7) ** 2
-        hgs, hg_main = hg_builds(c)
+        hgs, hg_main = hg_builds(c, HG2_BUILDS)
         stage_t = {hg: 0.0 for hg in hgs}
         for shift in (0, 3):
             a, w, geom, mask, regions = hg_input(dev, BATCH, c, nh, side, pside, shift, 120 + i)
@@ -993,7 +993,7 @@ def phase_k10(dev):
     b_ms, b_by = sum_bounds(bounds)
     per_fwd = lambda d, hg_of: sum(v for k, v in d.items()
                                    if int(k.split("hg=")[1]) == hg_of(int(k[2:].split()[0])))
-    default = lambda c: hg_builds(c)[1]
+    default = lambda c: hg_builds(c, HG2_BUILDS)[1]
     fwd = {what: {"default hg": per_fwd(d, default), "hg=1": per_fwd(d, lambda c: 1)}
            for what, d in (("k10", by_hg), ("k9", k9_by_hg))}
     print(f"K10 per forward of {BATCH} tiles (24 blocks) at the default hg: "
@@ -1006,15 +1006,6 @@ def phase_k10(dev):
     return dict(max_abs_err=worst, ms=main_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, k3_ms=k3_ms, forward_ms=fwd, ms_by_hg=by_hg,
                 k9_ms_by_hg=k9_by_hg, ms_by_hg_wblk32=by_hg32, phase_split=split)
-
-
-def k9_builds(c):
-    """{hg: W} of K9's builds at width C (attn_section_hg_sm90.cu) and the JAX
-    package's production hg."""
-    from segland_tpu_torch.ops.hg_attn import HG_SM90_BUILDS, V2_HG
-
-    return ({hg: b.w for (cc, hg), b in sorted(HG_SM90_BUILDS.items()) if cc == c},
-            V2_HG[c // 32])
 
 
 def phase_k9(dev):
@@ -1037,7 +1028,7 @@ def phase_k9(dev):
     cases += [(2, 192, 6, 126, 126, 0, shift) for shift in (0, 3)]  # broadcast mask rows
     for i, (b, c, nh, side, pside, blocks, shift) in enumerate(cases):
         nw = b * (pside // 7) ** 2
-        hgs, hg_main = k9_builds(c)
+        hgs, hg_main = hg_builds(c, HG_SM90_BUILDS)
         a, w, geom, mask, regions = hg_input(dev, b, c, nh, side, pside, shift, 140 + i)
         x = a["x"]
         w_l = linear_weights(w, torch.bfloat16)  # K-major, as a model hands them over
@@ -1159,7 +1150,7 @@ def phase_k11(dev):
     phase split."""
     import torch
     from segland_tpu_torch.ops.fused_attn import attn_section, attn_section_v1
-    from segland_tpu_torch.ops.hg_attn import hg_section
+    from segland_tpu_torch.ops.hg_attn import HG_SM90_BUILDS, hg_section
     from segland_tpu_torch.ops.section_variants import (ABLATIONS, SECTION_BUILDS, section,
                                                         section_clocks, section_reference)
 
@@ -1208,7 +1199,7 @@ def phase_k11(dev):
             t5 = cuda_ms(lambda: attn_section_v1(x, mask, *w_l, regions=regions), iters=5,
                          warmup=1)
             t9 = cuda_ms(lambda: hg_section(x, mask, regions, *w_l, hg=1,
-                                            wblk=k9_builds(c)[0][1]), iters=5, warmup=1)
+                                            wblk=HG_SM90_BUILDS[(c, 1)].w), iters=5, warmup=1)
             t3 = cuda_ms(lambda: attn_section(x, geom, *w_l), iters=5, warmup=1)
             rows_bytes = (mask.numel() + (0 if regions is None else regions.numel())) * 4
             b_ms, b_by = section_bound(nw, c, nh, rows_bytes)
@@ -1546,6 +1537,9 @@ def phase_k8(dev):
                                                 + a["res"].float()).bfloat16(),
                              iters=3, warmup=1)
             del acc
+            # the card's practical stream rate here: a copy of the residual, read and written once
+            copy_ms = cuda_ms(lambda: torch.empty_like(a["res"]).copy_(a["res"]), iters=3,
+                              warmup=1)
             # h2q and res read and out written once, the weight and the vectors once
             b_ms, b_by = bound(2 * m * p * c, m * p + 2 * m * c * 2 + p * c + 8 * c, PEAK_INT8)
             sp = ""
@@ -1556,9 +1550,11 @@ def phase_k8(dev):
                   f"out_of_tol=0 not_bit_equal={differ} kernel_ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} int_mm_ms={mm_ms:.4f} "
                   f"int_mm_rowmajor_b_ms={mm_row_ms:.4f} epilogue_ms={epi_ms:.4f} "
-                  f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms:.3f}{sp}", flush=True)
+                  f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms:.3f} "
+                  f"res_copy_ms={copy_ms:.4f} ({4 * m * c / copy_ms / 1e9:.2f} TB/s; "
+                  f"K8 {(m * p + 4 * m * c) / ms / 1e9:.2f} TB/s){sp}", flush=True)
             out["by_shape"][f"M={m} P={p} C={c}"] = dict(
-                ms=ms, bound_ms=b_ms, int_mm_ms=mm_ms,
+                ms=ms, bound_ms=b_ms, res_copy_ms=copy_ms, int_mm_ms=mm_ms,
                 int_mm_rowmajor_b_ms=mm_row_ms, epilogue_ms=epi_ms, phase_split=sp.strip())
             if m == 16 * 128 * 128:  # the probe's own M: the kernel row sums its two shapes
                 for k, v in (("ms", ms), ("plain_ms", plain_ms),

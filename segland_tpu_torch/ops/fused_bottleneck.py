@@ -313,16 +313,6 @@ def library_conv3_plan(c: int, p: int) -> dict:
     return dict(zip(("rows", "nw3", "kcmax", "sw", "sr", "smem"), out))
 
 
-def conv3_walk(m: int, c: int, p: int, grid: int) -> list:
-    """The (row tile, column pass) items each block of K8's persistent grid
-    takes, in its order: block b walks tiles b, b + grid, ... and each tile's
-    passes in turn (the kernel's loops)."""
-    plan = conv3_plan(c, p)
-    tiles = -(-m // plan["rows"])
-    return [[(tile, n) for tile in range(b, tiles, grid) for n in range(plan["passes"])]
-            for b in range(min(grid, tiles))]
-
-
 def _conv3_operands(h2q, res, w3, a3, b3):
     if not res.is_cuda:
         raise ValueError("conv3_residual launches a CUDA kernel; got a tensor on "

@@ -180,9 +180,19 @@ def test_conv3_plan_mirrors_the_kernel_source():
         FB.conv3_plan(2048, 96)
 
 
+def _conv3_walk(m: int, c: int, p: int, grid: int) -> list:
+    """The (row tile, column pass) items each block of K8's persistent grid
+    takes, in its order: block b walks tiles b, b + grid, ... and each tile's
+    passes in turn (the kernel's loops)."""
+    plan = FB.conv3_plan(c, p)
+    tiles = -(-m // plan["rows"])
+    return [[(tile, n) for tile in range(b, tiles, grid) for n in range(plan["passes"])]
+            for b in range(min(grid, tiles))]
+
+
 @pytest.mark.parametrize("m", [16 * 128 * 128, 8 * 128 * 128 - 37])
 def test_conv3_walk_covers_every_tile_and_pass_once(m):
-    """A host replay of K8's persistent walk: conv3_walk's loops are the
+    """A host replay of K8's persistent walk: _conv3_walk's loops are the
     kernel's (found in its producer's and its consumers' code and in its
     launcher: a grid of min(tiles, SMs) blocks, block b taking row tiles b,
     b + grid, ... and each tile's C / NW3 column passes in turn), and on an
@@ -204,7 +214,7 @@ def test_conv3_walk_covers_every_tile_and_pass_once(m):
     for p, c in ((512, 2048), (256, 1024)):
         plan = FB.conv3_plan(c, p)
         tiles = -(-m // plan["rows"])
-        blocks = FB.conv3_walk(m, c, p, 132)
+        blocks = _conv3_walk(m, c, p, 132)
         items = [item for block in blocks for item in block]
         assert len(blocks) == min(132, tiles)
         assert sorted(items) == [(tile, n) for tile in range(tiles)
