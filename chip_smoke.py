@@ -49,6 +49,18 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      counts of that run, its mIoU and tiles/s; the same batches with the
      kernels' plain versions (>= 99% argmax agreement); an fp32 forward on
      the card against the same model on the CPU;
+  7a. train: convnext_pop / convnext-t base training through the port's entry
+     point (cli.train_base.main: bf16 --fused, batch 4, 768^2 crops, AdamW at
+     1e-3) on 1024^2 GeoTIFF tiles the script writes, 2 epochs of 4 steps with
+     2 validation batches in each: the loss dicts finite, epoch_N.pth and
+     best.pth written, best.pth through eval_base, K1 18 a train step and a
+     validation batch and K2 1 a validation batch (any other count fails);
+     one train step with the kernels against one with their plain versions
+     from the same weights and batch, every gradient held to what another
+     correct route does (fp32: twice the stock-torch blocks' relative error;
+     bf16: twice the plain route's distance from the fp32 gradient), the
+     worst tensor printed; the step's ms, 768^2 crops/s fused and --no-fused
+     in turns, and max_memory_allocated of each alone;
   8. the swin slice: swin_pop / swin-s at full width and depth the same way,
      once as eval_base runs it (K = 8) and once as eval_ft does (4 novel
      classes, K = 12, square_pad_eval), plus the unfused model's tiles/s and
@@ -115,6 +127,7 @@ plain version's time, bound, library call's time) and the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the rest of
 the repo beside it, it fails before printing any result.
 
+    python3 chip_smoke.py --phases train    # base training of convnext_pop (K1, K2) on the card
     python3 chip_smoke.py --phases k2,k6    # K2 and K6 at every shape of their phases
     python3 chip_smoke.py --phases k1,k3    # K1 and K3 with their build, SASS and phase lines
     python3 chip_smoke.py --phases k4,k5    # K4 and K5 with their build, SASS and phase lines
@@ -1951,6 +1964,249 @@ def phase_slice(dev, name, want_per_batch, is_ft=False, fp32_check=True, route="
     return launches, tps, tps_p
 
 
+TRAIN_BATCH, TRAIN_CROP, TRAIN_TILES, VAL_TILES, TRAIN_EPOCHS = 4, 768, 16, 4, 2
+
+
+def write_train_tiles(root):
+    """TRAIN_TILES + VAL_TILES uint8 RGB 1024^2 GeoTIFF tiles and their labels,
+    written by the port's own TIFF writer (this machine has no PIL): the label
+    is the red channel's octile (0..7, so the loss can fall), 255 in a band."""
+    from segland_tpu_torch.data.geotiff import write_tiff
+
+    rng = np.random.RandomState(0)
+    ids = [f"tile_{i}" for i in range(TRAIN_TILES + VAL_TILES)]
+    for d in ("images", "labels", "list"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    for tid in ids:
+        img = rng.randint(0, 256, (TILE, TILE, 3)).astype(np.uint8)
+        lab = (img[..., 0] // 32).astype(np.uint8)
+        lab[:, :TILE // 16] = 255
+        write_tiff(os.path.join(root, "images", tid + ".tif"), img)
+        write_tiff(os.path.join(root, "labels", tid + ".tif"), lab)
+    with open(os.path.join(root, "list", "train.txt"), "w") as f:
+        f.write("\n".join(ids[:TRAIN_TILES]) + "\n")
+    with open(os.path.join(root, "list", "val.txt"), "w") as f:
+        f.write("\n".join(ids[TRAIN_TILES:]) + "\n")
+
+
+def train_step_grads(model, img, mask):
+    """One train step of ``make_base_train_step`` at LR 0 and without a clip,
+    so the gradients it leaves in .grad are the raw ones and the weights stay:
+    (loss dict, {name: grad})."""
+    from segland_tpu_torch.train import TrainState, create_optimizer, make_base_train_step
+
+    state = TrainState(model, create_optimizer(model, 0.0, 1, 1, clip=None))
+    ld, _ = make_base_train_step(model)(state, img, mask)
+    return ld, {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def _cos_err(a, b):
+    """1 - cosine of two gradients (fp64)."""
+    a, b = a.double().flatten(), b.double().flatten()
+    return 1.0 - float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300))
+
+
+def _rel_err(a, b):
+    """|a - b| / |b| of two gradients (fp64)."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
+def check_train_steps(dev):
+    """One train step with the kernels and one inside ops.plain_versions(),
+    from the same weights (chip_smoke's convnext draw) and batch (768^2 x 4):
+    the loss, and every parameter's gradient.  A gradient deep in the network
+    sums many terms that cancel (the stem's over every pixel of a random
+    image), so rounding anywhere above it moves it by far more than the
+    rounding itself; each route is held to what another correct route does.
+    fp32 (TF32 off): the kernel route's relative error from the plain route,
+    per tensor, at most twice the stock-torch blocks' (--no-fused: torch's
+    LayerNorm, cuBLAS linears, GELU) plus 1e-6.  bf16: both routes against
+    the fp32 plain route's gradient, the kernel route's 1 - cosine at most
+    twice the bf16 plain route's plus 1e-4.  Prints the worst tensor of each."""
+    import torch
+    from segland_tpu_torch.ops import plain_versions
+
+    g = torch.Generator().manual_seed(4)
+    img = torch.randn(TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3, generator=g).to(dev)
+    mask = torch.randint(0, 8, (TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP), generator=g).to(dev)
+    runs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = build("convnext_pop", dtype, seed=3).to(dev)
+        k1 = counters()["ln_mlp"]
+        k1.launches = 0
+        runs[dtype, "kernels"] = train_step_grads(model, img, mask)
+        if k1.launches != 18:
+            fail(f"train step ({dtype}) launched K1 {k1.launches} times, want 18")
+        with plain_versions():
+            runs[dtype, "plain"] = train_step_grads(model, img, mask)
+        del model
+        if dtype == torch.float32:
+            model = build("convnext_pop", dtype, seed=3, fused=False).to(dev)
+            runs[dtype, "unfused"] = train_step_grads(model, img, mask)
+            del model
+        torch.cuda.empty_cache()
+    ref, gu = runs[torch.float32, "plain"][1], runs[torch.float32, "unfused"][1]
+    for dtype in (torch.float32, torch.bfloat16):
+        (ld_k, gk), (ld_p, gp) = runs[dtype, "kernels"], runs[dtype, "plain"]
+        worst, largest = (-1.0, "", ""), (-1.0, "", "")
+        for n in gp:
+            if dtype == torch.float32:
+                ek, eu = _rel_err(gk[n], gp[n]), _rel_err(gu[n], gp[n])
+                margin = ek - (2 * eu + 1e-6)
+                text = (f"relative error from the plain route: kernels {ek:.3g}, stock-torch "
+                        f"blocks {eu:.3g} (bar 2 x stock + 1e-6)")
+            else:
+                ek, ep = _cos_err(gk[n], ref[n]), _cos_err(gp[n], ref[n])
+                margin = ek - (2 * ep + 1e-4)
+                text = (f"1-cos vs fp32: kernels {ek:.3g}, plain {ep:.3g} (bar 2 x plain + 1e-4); "
+                        f"1-cos kernels vs plain {_cos_err(gk[n], gp[n]):.3g}")
+            used = ek / (ek - margin)  # the share of its bar the tensor takes
+            worst = max(worst, (used, n, text))
+            largest = max(largest, (ek, n, text))
+            if not margin <= 0:
+                fail(f"train step {dtype}: gradient of {n} off its plain version: {text}")
+        lk, lp = float(ld_k["total_loss"]), float(ld_p["total_loss"])
+        print(f"train step {str(dtype)[6:]} kernels vs plain versions ({TRAIN_BATCH}x"
+              f"{TRAIN_CROP}^2): loss {lk:.6f} vs {lp:.6f} (|d|={abs(lk - lp):.3g}); of "
+              f"{len(gp)} gradients the nearest its bar {worst[1]} ({worst[0]:.2f} of it): "
+              f"{worst[2]}; the farthest from the reference {largest[1]}: {largest[2]}",
+              flush=True)
+        if not abs(lk - lp) <= (1e-5 if dtype == torch.float32 else 1e-2) * abs(lp):
+            fail(f"train step {dtype}: loss {lk} vs {lp}")
+
+
+def train_setup(dev, fused):
+    """(state, step, img, mask): convnext_pop bf16 with AdamW at 1e-3 and a
+    768^2 x 4 batch already on the card."""
+    import torch
+    from segland_tpu_torch.models import build_model
+    from segland_tpu_torch.train import TrainState, create_optimizer, make_base_train_step
+
+    model = build_model("convnext_pop", None, n_base=7, dtype=torch.bfloat16, fused_mlp=fused,
+                        device=dev, generator=torch.Generator().manual_seed(0))
+    state = TrainState(model, create_optimizer(model, 1e-3, 200, 100))
+    g = torch.Generator().manual_seed(1)
+    img = torch.randn(TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3, generator=g).to(dev)
+    mask = torch.randint(0, 8, (TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP), generator=g).to(dev)
+    return state, make_base_train_step(model, skip_nonfinite=True), img, mask
+
+
+def train_peak(dev, fused):
+    """torch.cuda.max_memory_allocated over one train step of the route alone
+    on the card (weights, AdamW state and gradients included), after 2."""
+    import torch
+
+    torch.cuda.empty_cache()
+    state, step, img, mask = train_setup(dev, fused)
+    for _ in range(2):
+        step(state, img, mask)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(state, img, mask)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del state, step
+    torch.cuda.empty_cache()
+    return peak
+
+
+def train_ms(dev, fused, rounds=2, steps=6, warmup=3):
+    """Median ms of ``rounds`` x ``steps`` train steps (bf16, 768^2 x 4, AdamW
+    at 1e-3, batches already on the card) after ``warmup``.  A generator: one
+    round a next(), so that the caller can take the two routes in turns."""
+    import torch
+
+    state, step, img, mask = train_setup(dev, fused)
+    for _ in range(warmup):
+        step(state, img, mask)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            ld, _ = step(state, img, mask)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not bool(torch.isfinite(ld["total_loss"])):
+                fail("train step loss is not finite")
+        yield times
+
+
+def phase_train(dev):
+    """convnext_pop / convnext-t base training on the card through the port's
+    entry point: cli.train_base.main at bf16, batch 4, 768^2 crops, AdamW at
+    1e-3, TRAIN_EPOCHS epochs of 4 steps with validation (2 batches of 2) in
+    each; the loss dicts finite, the snapshots and best.pth written and
+    best.pth through eval_base; K1 18 a train step and a validation batch, K2
+    1 a validation batch, any other count fails.  Then one step with the
+    kernels against one with their plain versions (bf16, fp32) and the step's
+    time and memory fused and --no-fused, in turns."""
+    import tempfile
+
+    import torch
+    from segland_tpu_torch.cli import eval_base, train_base
+
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as root:
+        write_train_tiles(root)
+        snap = os.path.join(root, "snap")
+        lst = os.path.join(root, "list")
+        args = ["--data-dir", root, "--train-list", os.path.join(lst, "train.txt"),
+                "--val-list", os.path.join(lst, "val.txt"), "--model", "convnext_pop",
+                "--dtype", "bfloat16", "--fused", "--batch-size", str(TRAIN_BATCH),
+                "--input-size", f"{TRAIN_CROP},{TRAIN_CROP}", "--learning-rate", "1e-3",
+                "--num-epoch", str(TRAIN_EPOCHS), "--val-start", "0", "--val-frequency", "1",
+                "--snapshot-frequency", "1", "--test-batch-size", "2", "--print-frequency", "1",
+                "--metrics", "--num-workers", "4", "--snapshot-dir", snap]
+        t0 = time.time()
+        best, launches = counted(lambda: train_base.main(args))
+        wall = time.time() - t0
+        steps = TRAIN_EPOCHS * TRAIN_TILES // TRAIN_BATCH
+        val_batches = TRAIN_EPOCHS * VAL_TILES // 2
+        want = {"ln_mlp": 18 * (steps + val_batches), "upsample_argmax": val_batches}
+        rows = [json.loads(line) for line in open(os.path.join(snap, "metrics.jsonl"))]
+        losses = [r["value"] for r in rows if r["tag"] == "train/total_loss"]
+        print(f"train convnext_pop (cli.train_base, bf16 --fused, {TRAIN_BATCH}x{TRAIN_CROP}^2, "
+              f"{TRAIN_EPOCHS} epochs of {steps // TRAIN_EPOCHS} steps + {val_batches} val "
+              f"batches): {wall:.1f}s launches={launches} best_val_mIoU={best:.4f} "
+              f"total_loss {' '.join(f'{x:.4f}' for x in losses)}", flush=True)
+        if launches != want:
+            fail(f"train launch counts {launches}, want {want}")
+        if len(losses) != steps or not all(np.isfinite(r["value"]) for r in rows):
+            fail(f"train loss dicts: {len(losses)} of {steps} steps, or not finite")
+        for name in [f"epoch_{e + 1}.pth" for e in range(TRAIN_EPOCHS)] + ["best.pth"]:
+            if not os.path.exists(os.path.join(snap, name)):
+                fail(f"train_base wrote no {name}")
+        res = eval_base.main(["--data-dir", root, "--val-list", os.path.join(lst, "val.txt"),
+                              "--model", "convnext_pop", "--dtype", "bfloat16",
+                              "--restore-from", os.path.join(snap, "best.pth"),
+                              "--eval-batch", "2", "--num-workers", "4",
+                              "--save-path", os.path.join(root, "eval")])
+        total = res[123][2]
+        print(f"train: eval_base on best.pth: mIoU total={total:.4f}", flush=True)
+        if not 0.0 <= total <= 1.0:
+            fail(f"eval_base on best.pth gave mIoU {total}")
+    torch.cuda.empty_cache()
+    check_train_steps(dev)
+    peaks = {"fused": train_peak(dev, True), "--no-fused": train_peak(dev, False)}
+    routes = {"fused": train_ms(dev, True), "--no-fused": train_ms(dev, False)}
+    got = {}
+    for _ in range(2):  # the two routes in turns, a round each
+        for key, gen in routes.items():
+            got[key] = next(gen)
+    for key, times in got.items():
+        peak = peaks[key]
+        ms = float(np.median(times))
+        print(f"train convnext_pop bf16 {TRAIN_BATCH}x{TRAIN_CROP}^2 AdamW {key}: "
+              f"ms_per_step={ms:.2f} (median of {len(times)} after 3 warm-up; "
+              f"min {min(times):.2f} max {max(times):.2f}) crops_per_s="
+              f"{TRAIN_BATCH * 1e3 / ms:.2f} max_memory_allocated={peak / 2**30:.2f} GiB",
+              flush=True)
+    print(f"train phase: {time.time() - t_phase:.1f}s", flush=True)
+    return launches
+
+
 def build_resnet(name, dtype, dev, seed=0):
     """deeplab_pop or pspnet_pop over resnet50 on ``dev`` with seeded random
     weights that keep activations in a sane range through the 16 blocks:
@@ -2218,10 +2474,10 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,swin,deeplab,"
+                    default="k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,train,swin,deeplab,"
                             "pspnet",
-                    help="comma list of k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,swin,"
-                         "deeplab,pspnet (default: all sixteen); profile: a torch.profiler "
+                    help="comma list of k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,train,"
+                         "swin,deeplab,pspnet (default: all seventeen); profile: a torch.profiler "
                          "breakdown of the swin and deeplab_pop slices; dilated: cuDNN vs the "
                          "nine-tap 3x3 at large dilations")
     phases = set(ap.parse_args(argv).phases.split(","))
@@ -2239,7 +2495,7 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(f"device: {name} count={torch.cuda.device_count()} torch={torch.__version__} "
-          f"cuda={torch.version.cuda}", flush=True)
+          f"cuda={torch.version.cuda}; nvidia-smi: {smi}", flush=True)
 
     info = kernels.build()
     kernels.library()
@@ -2307,6 +2563,9 @@ def main(argv=None):
         _, _, tps_u = phase_unfused(dev, "convnext_pop")
         print(f"convnext_pop eval default: fused {tps_f:.2f} tiles/s, plain versions "
               f"{tps_p:.2f}, unfused {tps_u:.2f}", flush=True)
+        torch.cuda.empty_cache()
+    if "train" in phases:
+        paths["convnext_pop train"] = phase_train(dev)
         torch.cuda.empty_cache()
     if "swin" in phases:
         per_batch = {"ln_mlp": 24, "upsample_argmax": 1, "attn_section": 24}

@@ -77,12 +77,53 @@ EVAL_FUSED_DEFAULTS = {"convnext_pop": True, "swin_pop": True, "deeplab_pop": Fa
                        "pspnet_pop": False}
 
 
-def resolve_fused(args) -> bool:
-    """Explicit --fused/--no-fused wins; otherwise the eval default, which
-    covers --dtype bfloat16 only."""
+# Train default of --fused: off.  With --fused, K1 runs every ConvNeXt block's
+# LN+MLP forward and the backward recomputes the plain version and
+# differentiates it, as the JAX package's custom VJP does; that recompute is
+# 3x the stock-torch route's forward (PERF.md section 6, B1's plain version).
+# chip_smoke.py's train phase (NVIDIA H100 80GB HBM3, 700.00 W; bf16, batch 4,
+# 768^2 crops, AdamW, median of 12 steps, the routes in turns): fused 53.95 ms
+# a step against 32.57 unfused in a run of the phase alone, 62.24 against
+# 34.06 in the whole run of the committed tree (PERF.md section 5).
+TRAIN_FUSED_DEFAULTS = {"convnext_pop": False}
+
+
+def resolve_fused(args, mode: str = "eval") -> bool:
+    """Explicit --fused/--no-fused wins; otherwise the default of ``mode``
+    ('eval' or 'train'), which covers --dtype bfloat16 only."""
     if args.fused is not None:
         return bool(args.fused)
-    return args.dtype == "bfloat16" and EVAL_FUSED_DEFAULTS.get(args.model, False)
+    defaults = {"eval": EVAL_FUSED_DEFAULTS, "train": TRAIN_FUSED_DEFAULTS}[mode]
+    return args.dtype == "bfloat16" and defaults.get(args.model, False)
+
+
+def add_train_args(p: argparse.ArgumentParser):
+    """The training flags of segland_tpu/cli/common.py:add_train_args."""
+    p.add_argument("--learning-rate", type=float, default=1e-3)
+    p.add_argument("--weight-decay", type=float, default=1e-4)
+    p.add_argument("--momentum", type=float, default=0.9)
+    p.add_argument("--power", type=float, default=0.9)
+    p.add_argument("--num-epoch", type=int, default=200)
+    p.add_argument("--start-epoch", type=int, default=0)
+    p.add_argument("--val-start", type=int, default=35,
+                   help="epoch after which validation runs (reference train_base.py:294)")
+    p.add_argument("--val-frequency", type=int, default=10)
+    p.add_argument("--snapshot-frequency", type=int, default=10)
+    p.add_argument("--freeze-backbone", type=str2bool, nargs="?", const=True, default=False)
+    p.add_argument("--fix-lr", type=str2bool, nargs="?", const=True, default=False)
+    p.add_argument("--finetune", type=str2bool, nargs="?", const=True, default=False,
+                   help="restore backbone-only weights (reference train_base.py:198-201)")
+    p.add_argument("--fp16", type=str2bool, nargs="?", const=True, default=False,
+                   help="accepted for script compatibility; use --dtype bfloat16")
+    p.add_argument("--save-pred-every", type=int, default=None,
+                   help="alias for --snapshot-frequency")
+    p.add_argument("--test-batch-size", type=int, default=1, help="validation batch size")
+    p.add_argument("--fix-bn", action="store_true", default=False,
+                   help="freeze BatchNorm running statistics during training (normalization "
+                        "still uses the current batch)")
+    p.add_argument("--filter-novel", action="store_true", default=False,
+                   help="fine-tune base-support filter; no-op for the base oem dataset")
+    return p
 
 
 def parse_hw(s: str):

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .common import add_common_args, full_fp32, model_dtype, parse_hw, resolve_fused, str2bool
+from ..ckpt import load_pth
 from ..data import Loader, OEMValDataset
 from ..data import augment as A
 from ..data.tileio import OEM_COLORMAP, OEM_COLORMAP_FT
@@ -58,25 +59,6 @@ def get_parser():
                    help="use outlier-robust percentile activation calibration "
                         "(e.g. 99.9) instead of abs-max")
     return p
-
-
-def load_state_dict(model, path: str, logger):
-    """Load an upstream-keyed .pth (raw, or nested under 'state_dict' or
-    'model'; DDP 'module.' prefix stripped), non-strict like the reference's
-    load_model."""
-    if not path.endswith(".pth"):
-        raise NotImplementedError(
-            f"{path}: the port restores .pth state dicts only; flax .ckpt files "
-            "are read by the JAX package")
-    blob = torch.load(path, map_location="cpu", weights_only=False)
-    if isinstance(blob, dict) and "state_dict" in blob:
-        blob = blob["state_dict"]
-    elif isinstance(blob, dict) and "model" in blob:
-        blob = blob["model"]
-    sd = {(k[7:] if k.startswith("module.") else k): v for k, v in blob.items()}
-    missing, unexpected = model.load_state_dict(sd, strict=False)
-    logger.info(f"restored torch ckpt {path}: {len(sd) - len(unexpected)} tensors, "
-                f"{len(missing)} missing, {len(unexpected)} unexpected")
 
 
 def main(argv=None):
@@ -122,7 +104,9 @@ def main(argv=None):
                 seeded = f"{os.path.splitext(path)[0]}_{seed}.pth"
                 if os.path.exists(seeded):
                     path = seeded
-            load_state_dict(model, path, logger)  # logs the file it loaded
+            n, missing, unexpected = load_pth(model, path)
+            logger.info(f"restored torch ckpt {path}: {n} tensors, "
+                        f"{len(missing)} missing, {len(unexpected)} unexpected")
         evaluator = Evaluator(model, device, num_classes=args.num_classes, n_base=n_base,
                               ignore_label=args.ignore_label,
                               normalize_on_device=args.device_normalize,

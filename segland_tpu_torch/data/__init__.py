@@ -1,7 +1,10 @@
-"""Host-side tile I/O and eval datasets: the port's own copies of what the
-eval path needs from segland_tpu/data (numpy only; PIL, rasterio and scipy
-are imported at the call that needs them).  Train-side datasets come with
-training."""
+"""Host-side tile I/O and datasets: the port's own copies of what it needs
+from segland_tpu/data (numpy only; PIL, rasterio and scipy are imported at
+the call that needs them).  The fine-tune dataset (``oem_ft``) comes with
+ROADMAP item A5."""
 
 from .loader import Loader
-from .oem import OEMValDataset
+from .oem import OEMTrainDataset, OEMValDataset
+
+# registry replacing eval('dataset.'+name+...) (reference train_base.py:151)
+DATASETS = {"oem": (OEMTrainDataset, OEMValDataset)}

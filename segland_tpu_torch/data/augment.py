@@ -1,10 +1,16 @@
-"""Host-side numpy transforms of the eval path, matching reference
-dataset/base_dataset.py.  Own copy of the val-side part of
-segland_tpu/data/augment.py; the train-side augmentations come with
-training.  Resizes use PIL (imported at the call) in place of cv2: both
+"""Host-side numpy transforms, matching reference dataset/base_dataset.py.
+Own copy of segland_tpu/data/augment.py: the train pipeline (crop, retried
+while the label crop is all ignore -> pad -> random horizontal flip -> k*90
+degree rotate -> normalize; reference dataset/oem.py:69-74) and the eval
+side.  Resizes use PIL (imported at the call) in place of cv2: both
 implement the standard half-pixel bilinear, so results agree to rounding.
+
+Randomness: the train functions take a python ``random.Random`` or a numpy
+``RandomState``, as the reference uses both (crop offsets from np.random,
+flips and rotations from random.random; base_dataset.py:106-155).
 """
 
+import random as _random
 from typing import Sequence
 
 import numpy as np
@@ -43,6 +49,37 @@ def pad(output_size, image, label=None, ignore_label: int = IGNORE_LABEL):
         if label is not None:
             label = np.pad(label, ((0, pad_h), (0, pad_w)), constant_values=ignore_label)
     return (image, label) if label is not None else image
+
+
+def random_flip(rng: _random.Random, image, label, p: float = 0.5):
+    if rng.random() < p:
+        image = np.flip(image, axis=1)
+        label = np.flip(label, axis=1)
+    return image, label
+
+
+def fixed_random_rotate(rng: _random.Random, image, label):
+    """k*90-degree rotate, k uniform in {0,1,2,3} (base_dataset.py:134-138)."""
+    k = int(rng.random() // 0.25)
+    return np.rot90(image, k, (0, 1)), np.rot90(label, k, (0, 1))
+
+
+def crop_train(nprng: np.random.RandomState, image, label, crop_size,
+               ignore_label: int = IGNORE_LABEL):
+    """Random crop, re-drawn while the label crop is entirely ignore
+    (base_dataset.py:140-169)."""
+    img_h, img_w = label.shape
+    crop_h, crop_w = crop_size
+    margin_h = max(img_h - crop_h, 0)
+    margin_w = max(img_w - crop_w, 0)
+    while True:
+        h_off = nprng.randint(0, margin_h + 1)
+        w_off = nprng.randint(0, margin_w + 1)
+        label_c = label[h_off: h_off + crop_h, w_off: w_off + crop_w]
+        uniq = np.unique(label_c).tolist()
+        if not (len(uniq) == 1 and ignore_label in uniq):
+            break
+    return image[h_off: h_off + crop_h, w_off: w_off + crop_w], label_c
 
 
 def crop_val(image, label, crop_size):

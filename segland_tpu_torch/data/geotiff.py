@@ -131,3 +131,33 @@ def write_palette_geotiff(path: str, pred: np.ndarray, colormap: dict,
     out += payload
     with open(path, "wb") as f:
         f.write(bytes(out))
+
+
+def write_tiff(path: str, arr: np.ndarray):
+    """Write a uint8 [H,W] (grey) or [H,W,3] (RGB) array as a baseline TIFF:
+    one uncompressed strip, chunky samples, no geo tags.  What the readers
+    (``tileio``, the native decoder) take, written without PIL; for synthetic
+    tiles."""
+    arr = np.ascontiguousarray(arr, np.uint8)
+    h, w = arr.shape[:2]
+    spp = 1 if arr.ndim == 2 else arr.shape[2]
+    if spp not in (1, 3):
+        raise ValueError(f"write_tiff takes [H,W] or [H,W,3], got {arr.shape}")
+    n_tags = 9
+    ifd_end = 8 + 2 + n_tags * 12 + 4
+    bits_off = ifd_end  # BitsPerSample's 3 shorts do not fit in the entry
+    data_off = ifd_end + (6 if spp == 3 else 0)
+    tags = [(256, 3, 1, w), (257, 3, 1, h),
+            (258, 3, spp, 8 if spp == 1 else bits_off), (259, 3, 1, 1),
+            (262, 3, 1, 1 if spp == 1 else 2), (273, 4, 1, data_off), (277, 3, 1, spp),
+            (278, 3, 1, h), (279, 4, 1, arr.nbytes)]
+    out = bytearray(b"II*\0" + struct.pack("<I", 8) + struct.pack("<H", n_tags))
+    for tag, typ, cnt, val in tags:
+        out += struct.pack("<HHI", tag, typ, cnt)
+        out += struct.pack("<HH", val, 0) if typ == 3 and cnt == 1 else struct.pack("<I", val)
+    out += struct.pack("<I", 0)
+    if spp == 3:
+        out += struct.pack("<3H", 8, 8, 8)
+    out += arr.tobytes()
+    with open(path, "wb") as f:
+        f.write(bytes(out))

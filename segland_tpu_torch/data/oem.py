@@ -1,6 +1,6 @@
-"""OpenEarthMap eval dataset, host-side (reference dataset/oem.py).  Own copy
-of segland_tpu/data/oem.py:OEMValDataset; the train dataset comes with
-training.
+"""OpenEarthMap datasets, host-side (reference dataset/oem.py).  Own copy of
+segland_tpu/data/oem.py: ``OEMTrainDataset`` (its host path) and
+``OEMValDataset``.
 
 Returns NHWC images.  Class split: base {1..7}, novel {8..11}, 0 = background
 (reference oem.py:32-34).
@@ -8,6 +8,7 @@ Returns NHWC images.  Class split: base {1..7}, novel {8..11}, 0 = background
 
 import os
 import os.path as osp
+import random as _random
 
 import numpy as np
 
@@ -17,6 +18,52 @@ from .tileio import read_image, read_label
 NUM_CLASSES = 11
 BASE_CLASSES = tuple(range(1, 8))
 NOVEL_CLASSES = tuple(range(8, NUM_CLASSES + 1))
+
+
+class OEMTrainDataset:
+    """Base-training dataset (reference GFSSegTrain, oem.py:12-76).
+
+    Pipeline: crop -> pad -> flip -> rot90 -> normalize(0.5, 0.5, 0.5).  The
+    list is ``train.txt`` beside ``list_path``, as upstream reads it.  The
+    JAX package's ``device_augment`` (the raw tiles, augmented inside the
+    step) is ROADMAP A4's second PR here and raises."""
+
+    num_classes = NUM_CLASSES
+
+    def __init__(self, root: str, list_path: str, crop_size=(512, 512),
+                 ignore_label: int = 255, seed: int = 123, device_augment: bool = False):
+        if device_augment:
+            raise NotImplementedError(
+                "device_augment (the augmentations on the device) is not ported yet "
+                "(ROADMAP item A4, its second PR)")
+        self.root = root
+        self.crop_size = tuple(crop_size)
+        self.ignore_label = ignore_label
+        train_list = os.path.join(os.path.dirname(list_path), "train.txt")
+        if not os.path.exists(train_list):
+            raise FileNotFoundError(train_list)
+        with open(train_list) as f:
+            self.data_list = f.read().splitlines()
+        self.set_seed(seed)
+
+    def set_seed(self, seed: int):
+        """Per-epoch reseed (reference train_base.py:236-237)."""
+        self.rng = _random.Random(seed)
+        self.nprng = np.random.RandomState(seed)
+
+    def __len__(self):
+        return len(self.data_list)
+
+    def __getitem__(self, index: int):
+        tid = self.data_list[index]
+        image = read_image(osp.join(self.root, "images", f"{tid}.tif"))
+        label = read_label(osp.join(self.root, "labels", f"{tid}.tif")).astype(np.int32)
+        image, label = A.crop_train(self.nprng, image, label, self.crop_size, self.ignore_label)
+        image, label = A.pad(self.crop_size, image, label, self.ignore_label)
+        image, label = A.random_flip(self.rng, image, label)
+        image, label = A.fixed_random_rotate(self.rng, image, label)
+        image = A.normalize(image, A.OEM_TRAIN_MEAN, A.OEM_TRAIN_STD)
+        return np.ascontiguousarray(image), np.ascontiguousarray(label), tid
 
 
 class OEMValDataset:

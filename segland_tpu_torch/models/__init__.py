@@ -17,7 +17,7 @@ _POP_CONFIGS = {
     "seghr_pop": ("hrfpn", "hr-w32"),
     "vggunet_pop": ("identity", "vgg16bn-unet"),
 }
-_NOT_PORTED = {"pspplus_pop": "A7", "pspnet": "A7", "lsk_pop": "A9", "seghr_pop": "A8",
+NOT_PORTED = {"pspplus_pop": "A7", "pspnet": "A7", "lsk_pop": "A9", "seghr_pop": "A8",
                "vggunet_pop": "A9"}
 
 
@@ -29,9 +29,9 @@ def build_model(model: str, backbone: str | None = None, n_base: int = 7,
                 generator: torch.Generator | None = None):
     """Build ``model`` on ``device`` in eval mode, its weights drawn from
     ``generator`` (a CPU generator)."""
-    if model in _NOT_PORTED:
+    if model in NOT_PORTED:
         raise NotImplementedError(
-            f"model {model!r} is not ported yet (ROADMAP item {_NOT_PORTED[model]})")
+            f"model {model!r} is not ported yet (ROADMAP item {NOT_PORTED[model]})")
     if model not in _POP_CONFIGS:
         raise ValueError(f"unknown model: {model!r}; known: {MODEL_NAMES}")
     decoder, default_bk = _POP_CONFIGS[model]

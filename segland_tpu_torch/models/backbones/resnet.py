@@ -8,7 +8,8 @@ multigrid on layer4, ``last_relu`` control on the last block of layers 3 and
 4, and either the last feature map or the pyramid [x4, x3, x2, x1].
 
 Parameters stay fp32 and are cast to the compute dtype at use; activations
-run channels-last; BatchNorm runs on its running statistics (eval only).
+run channels-last; BatchNorm follows ``module.training`` (running statistics
+in eval mode, the batch's in train mode).
 Convolutions go through :func:`conv2d`, so an open ``quant_interceptor``
 (``quant/ptq.py``) takes them; a ``Bottleneck`` keeps ``stride``,
 ``dilation``, ``multi_grid``, ``has_downsample`` and ``last_relu`` as

@@ -3,8 +3,9 @@ upstream SegLand's module names: the convnext_pop decoder (FPN-OCR), the
 swin_pop decoder (UperNet+ over a PSP-v2 top), the pspnet_pop decoder
 (PSPModule) and the deeplab_pop decoder (ASPP); the others are ROADMAP items
 A7-A9.  Pyramid decoders take fine -> coarse lists (x[0] the finest); PSPModule
-and ASPP take the backbone's last map.  BatchNorm runs on its running
-statistics: the port is eval only so far."""
+and ASPP take the backbone's last map.  BatchNorm follows ``module.training``
+(``ops/layers.py:batch_norm``): running statistics in eval mode, the batch's
+in train mode."""
 
 import math
 from typing import Sequence
@@ -118,8 +119,9 @@ class PSPModule(nn.Module):
 
 class _ConvBN(nn.Module):
     """``conv`` (no bias) + ``bn`` + ReLU of the ASPP, under upstream's names.
-    BatchNorm momentum 0.999 as upstream sets it (networks/deeplab_pop.py:27);
-    it matters in training only."""
+    BatchNorm momentum 0.999 as upstream sets it (networks/deeplab_pop.py:27;
+    flax's 0.001): in training the running statistics are nearly the last
+    batch's."""
 
     def __init__(self, cin: int, cout: int, k: int, dilation: int = 1):
         super().__init__()

@@ -105,18 +105,25 @@ class GFSSModel(nn.Module):
             nn.init.orthogonal_(self.novel_emb, generator=generator)
 
     def extract_features(self, img):
-        """backbone + decoder -> [B, h, w, d_model] fp32 (channels-last view)."""
+        """backbone + decoder -> [B, h, w, d_model] fp32 (channels-last view).
+        BatchNorm follows ``module.training`` (``model.train()``), where the
+        JAX package passes ``train``; convnext_pop has no other train-only
+        layer (its DropPath rate is 0)."""
         if self.backbone_name.startswith("resnet"):
             feats = self.backbone(img, return_list=self.needs_pyramid)
         else:
             feats = self.backbone(img)
         return self.decoder(feats).float().permute(0, 2, 3, 1)
 
-    def forward_base(self, img):
-        """[B, 1+n_base, h, w] logits."""
+    def forward_base(self, img, train: bool = False):
+        """[B, 1+n_base, h, w] logits; with ``train`` also the prototypes'
+        cosine similarities [n_base, n_base], which the orth loss reads."""
         logits = pop_ops.pop_logits_base(
-            self.extract_features(img), self.base_emb, *self.classifier.weights())
-        return logits.permute(0, 3, 1, 2)
+            self.extract_features(img), self.base_emb,
+            *self.classifier.weights()).permute(0, 3, 1, 2)
+        if train:
+            return logits, pop_ops.proto_similarity(self.base_emb)
+        return logits
 
     def forward_all(self, img):
         """[B, 1+n_base+n_novel, h, w] logits for fine-tuned eval."""

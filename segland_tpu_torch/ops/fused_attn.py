@@ -30,7 +30,7 @@ import torch
 
 import collections
 
-from . import use_kernel
+from . import forward_only, use_kernel
 from .fused_mlp import SMEM_MAX, contiguous_as, kmajor, ln_mlp_reference
 from .. import kernels
 
@@ -402,6 +402,7 @@ def _section_launch_args(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bia
                          eps):
     """Checks the section kernel's inputs; returns its output buffer and the
     arguments that its C entries share (without dtype, device and stream)."""
+    forward_only("attn_section", x_win, gamma, beta, wqkv, bqkv, wproj, bproj, bias)
     _check_rows("attn_section", x_win)
     bf16 = x_win.dtype == torch.bfloat16
     if bf16:
@@ -467,6 +468,7 @@ def _v1_launch_args(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias
     """Checks the v1 kernel's inputs; returns its output buffer and the
     arguments that its C entries share (without dtype, device and stream).
     The scratch tensor is allocated only for a path that reads it."""
+    forward_only("attn_section_v1", x_win, gamma, beta, wqkv, bqkv, wproj, bproj, bias)
     if group not in _GROUPS:
         raise ValueError(f"attn_section_v1 is built for group in {_GROUPS}, not {group}")
     _check_rows("attn_section_v1", x_win)
@@ -528,6 +530,8 @@ def _block_launch_args(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
                        w1, b1, w2, b2, num_heads, eps):
     """Checks the whole-block kernel's inputs; returns its output buffer and the
     arguments that its C entries share (without dtype, device and stream)."""
+    forward_only("swin_block", x_win, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2, beta2,
+                 w1, b1, w2, b2)
     _check_rows("swin_block", x_win)
     nw, _, c = x_win.shape
     bf16 = x_win.dtype == torch.bfloat16
@@ -608,6 +612,7 @@ def window_attention(qkv, bias, num_heads: int):
     """Launch the window-attention kernel K6 on CUDA qkv [NW, 49, 3C] (contiguous
     bf16 or fp32); bias [nW_img or 1, nh, 49, 49] in bf16 or fp32, read in its own
     dtype (see _window_bias).  bf16 qkv runs the ring body, fp32 qkv the fp32 body."""
+    forward_only("window_attention", qkv, bias)
     _check_rows("window_attention", qkv)
     nw, n, c3 = qkv.shape
     c = c3 // 3

@@ -34,7 +34,7 @@ import ctypes
 
 import torch
 
-from . import use_kernel
+from . import forward_only, use_kernel
 from .int8 import int8_conv2d, int_matmul, quantize_sym
 from .. import kernels
 
@@ -187,6 +187,7 @@ def bottleneck_operands(x, w1, w2, w3, a1, b1, a2, b2, a3, b3, *, dilation: int 
     """Checks K7's inputs and hands the weights over K-major: returns
     (w1t [P,C], w2t [9,P,P] as (tap, out, in), w3t [C,P], the six fp32
     vectors).  Anything the kernels do not take raises."""
+    forward_only("bottleneck_int8", x, w1, w2, w3, a1, b1, a2, b2, a3, b3)
     if not x.is_cuda:
         raise ValueError("bottleneck_int8 launches a CUDA kernel; got a tensor on "
                          + str(x.device))
@@ -314,6 +315,7 @@ def library_conv3_plan(c: int, p: int) -> dict:
 
 
 def _conv3_operands(h2q, res, w3, a3, b3):
+    forward_only("conv3_residual", h2q, res, w3, a3, b3)
     if not res.is_cuda:
         raise ValueError("conv3_residual launches a CUDA kernel; got a tensor on "
                          + str(res.device))

@@ -24,7 +24,7 @@ import functools
 import numpy as np
 import torch
 
-from . import use_kernel
+from . import forward_only, use_kernel
 from .resize import linear_table, resize_bilinear
 from .. import kernels
 
@@ -110,6 +110,7 @@ def upsample_argmax(logits, out_hw):
     logits (B,h,w,K) -> (B,oh,ow) uint8."""
     if not use_kernel(logits):
         return upsample_argmax_reference(logits, out_hw)
+    forward_only("upsample_argmax", logits)
     if logits.dim() != 4 or not logits.is_contiguous():
         raise ValueError("upsample_argmax takes contiguous (B,h,w,K) logits")
     b, h, w, k = logits.shape

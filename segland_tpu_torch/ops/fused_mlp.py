@@ -3,7 +3,10 @@
 Port of segland_tpu/ops/pallas_mlp.py.  ``fused_ln_mlp`` dispatches on the
 device (see ``ops/__init__.py``): CUDA tensors go to the kernel K1
 (``kernels/csrc/ln_mlp.cu``) through :func:`ln_mlp`, CPU tensors to
-:func:`ln_mlp_reference`.
+:func:`ln_mlp_reference`.  Where a gradient is asked for, the same dispatch
+runs inside :class:`LnMlp`, whose backward recomputes the plain version and
+differentiates it, as the JAX package's custom VJP does with its XLA
+reference (pallas_mlp.py:195-218).
 
     y   = LayerNorm(x) * gamma + beta     (fp32 stats, fast variance)
     h   = gelu(y @ w1 + b1)               (tanh form in bf16, exact erf in fp32)
@@ -21,7 +24,7 @@ import collections
 import torch
 import torch.nn.functional as F
 
-from . import use_kernel
+from . import forward_only, use_kernel
 from .. import kernels
 
 
@@ -113,6 +116,7 @@ def kmajor(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def _launch_args(x2, gamma, beta, w1, b1, w2, b2, res2, ls, eps):
     """Checks K1's inputs; returns its output buffer and the arguments that
     its C entries share (without dtype, device and stream)."""
+    forward_only("ln_mlp", x2, gamma, beta, w1, b1, w2, b2, res2, ls)
     if not x2.is_cuda:
         raise ValueError("ln_mlp launches a CUDA kernel; got a tensor on " + str(x2.device))
     if x2.dtype not in _DTYPES:
@@ -188,15 +192,50 @@ def ln_mlp_clocks(clocks, x2, gamma, beta, w1, b1, w2, b2, res2=None, ls=None, e
     return out
 
 
+def _ln_mlp_rows(x2, gamma, beta, w1, b1, w2, b2, res2, ls, eps):
+    """The dispatch on [M, C] rows: K1 on CUDA, the plain version on the CPU."""
+    if use_kernel(x2):
+        return ln_mlp(x2, gamma, beta, w1, b1, w2, b2, res2, ls, eps)
+    return ln_mlp_reference(x2, gamma, beta, w1, b1, w2, b2, res2, ls, eps)
+
+
+class LnMlp(torch.autograd.Function):
+    """K1 made differentiable the way the JAX package makes B1 so: the
+    forward is the dispatch (the kernel on CUDA), and the backward recomputes
+    :func:`ln_mlp_reference` from the saved inputs and returns its gradients
+    for x, gamma, beta, w1, b1, w2, b2, res and ls.  The recompute keeps the
+    kernel's dtype rules (tanh-GELU in bf16, erf in fp32).  A caller's
+    ``weight.T`` view gets its gradient through the transpose."""
+
+    @staticmethod
+    def forward(ctx, x2, gamma, beta, w1, b1, w2, b2, res2, ls, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x2, gamma, beta, w1, b1, w2, b2, res2, ls)
+        return _ln_mlp_rows(x2, gamma, beta, w1, b1, w2, b2, res2, ls, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        need = ctx.needs_input_grad[:9]
+        inputs = [None if a is None else a.detach().requires_grad_(n)
+                  for a, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            out = ln_mlp_reference(*inputs, eps=ctx.eps)
+        wrt = [a for a in inputs if a is not None and a.requires_grad]
+        found = iter(torch.autograd.grad(out, wrt, grad))
+        return (*(next(found) if a is not None and a.requires_grad else None
+                  for a in inputs), None)
+
+
 def fused_ln_mlp(x, gamma, beta, w1, b1, w2, b2, *, res=None, ls=None, eps=1e-5):
-    """Fused LN+MLP(+layer-scale)+residual.  x: [..., C]; returns x's shape."""
+    """Fused LN+MLP(+layer-scale)+residual.  x: [..., C]; returns x's shape.
+    With grad enabled and an input that requires it, through :class:`LnMlp`."""
     c = x.shape[-1]
-    if use_kernel(x):
-        if not x.is_contiguous() or (res is not None and not res.is_contiguous()):
-            raise ValueError("fused_ln_mlp takes contiguous x and res on CUDA")
-        out = ln_mlp(x.view(-1, c), gamma, beta, w1, b1, w2, b2,
-                     None if res is None else res.view(-1, c), ls, eps)
+    if use_kernel(x) and (not x.is_contiguous() or (res is not None and not res.is_contiguous())):
+        raise ValueError("fused_ln_mlp takes contiguous x and res on CUDA")
+    args = (x.reshape(-1, c), gamma, beta, w1, b1, w2, b2,
+            None if res is None else res.reshape(-1, c), ls)
+    if torch.is_grad_enabled() and any(a is not None and a.requires_grad for a in args):
+        out = LnMlp.apply(*args, eps)
     else:
-        out = ln_mlp_reference(x.reshape(-1, c), gamma, beta, w1, b1, w2, b2,
-                               None if res is None else res.reshape(-1, c), ls, eps)
+        out = _ln_mlp_rows(*args, eps)
     return out.view(x.shape)

@@ -36,7 +36,7 @@ import collections
 import numpy as np
 import torch
 
-from . import use_kernel
+from . import forward_only, use_kernel
 from .fused_attn import (_check_clocks, _check_geom, _check_rows, _kmat, _mask_rows, _mat,
                          _vec)
 from .. import kernels
@@ -412,6 +412,7 @@ def win_args(entry, x_win, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_head
 def _launch_hg2(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads, eps, wblk,
                 hg, score_f32, ablate, clocks=None):
     """K10 on bf16 windows (attn_section_hg2_sm90.cu), or the fp32 body on fp32."""
+    forward_only("hg2_section", x_win, gamma, beta, wqkv, bqkv, wproj, bproj, bias)
     nw, c, dev = _windows("hg2_section", x_win)
     check_hg_build(c, num_heads, hg, x_win.dtype, wblk, ablate)
     if x_win.dtype == torch.float32:
@@ -435,6 +436,7 @@ def _launch_hg2(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_he
 def _launch_hg(x_win, mask_tok, regions, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads,
                eps, wblk, hg, score_f32, clocks=None):
     """K9 on bf16 windows (attn_section_hg_sm90.cu), or the fp32 body on fp32."""
+    forward_only("hg_section", x_win, gamma, beta, wqkv, bqkv, wproj, bproj, bias)
     nw, c, dev = _windows("hg_section", x_win)
     check_hg_sm90_build(c, num_heads, hg, x_win.dtype, wblk)
     m = _mask_rows("mask_tok", mask_tok, nw, dev)

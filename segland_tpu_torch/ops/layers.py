@@ -1,6 +1,7 @@
 """``nn.Conv2d``, ``nn.Linear`` and ``nn.BatchNorm2d`` as the port's models
 apply them: fp32 parameters cast to the input's dtype at use, as flax does;
-BatchNorm on its running statistics.
+BatchNorm on its running statistics in eval mode and, as flax's
+``nn.BatchNorm(use_running_average=False)``, on the batch's in train mode.
 
 ``conv2d`` and ``linear`` first look for a ``forward`` set on the instance:
 an open ``quant_interceptor`` (``quant/ptq.py``) puts its calibrating or quantized
@@ -57,9 +58,28 @@ def linear_plain(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 
 def batch_norm(m: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """Eval-mode BatchNorm on the running statistics (fp32 parameters, output
-    in x's dtype)."""
-    return F.batch_norm(x, m.running_mean, m.running_var, m.weight, m.bias, False, 0.0, m.eps)
+    """BatchNorm of an NCHW map with fp32 parameters, output in x's dtype.
+
+    Eval mode (``m.training`` False) normalises with the running statistics.
+    Train mode follows flax: the batch's mean and *biased* variance over
+    (B, H, W), taken in fp32 as E[x^2] - E[x]^2 (clamped at 0), normalise x,
+    and the running statistics move by ``m.momentum`` (torch's convention:
+    flax's momentum 0.9 is 0.1 here, ASPP's 0.001 is 0.999) towards them.
+    ``F.batch_norm`` would put the unbiased variance into ``running_var``
+    (and refuses a channel of one value), so the statistics are computed
+    here.  ``num_batches_tracked`` is not advanced: the momentum is fixed."""
+    if not m.training:
+        return F.batch_norm(x, m.running_mean, m.running_var, m.weight, m.bias, False, 0.0,
+                            m.eps)
+    xf = x.float()
+    mean = xf.mean((0, 2, 3))
+    var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+    with torch.no_grad():
+        m.running_mean.lerp_(mean, m.momentum)
+        m.running_var.lerp_(var, m.momentum)
+    scale = torch.rsqrt(var + m.eps) * m.weight
+    y = (xf - mean[:, None, None]) * scale[:, None, None] + m.bias[:, None, None]
+    return y.to(x.dtype)
 
 
 def conv2d(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:

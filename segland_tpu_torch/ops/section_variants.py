@@ -37,7 +37,7 @@ import collections
 
 import torch
 
-from . import use_kernel
+from . import forward_only, use_kernel
 from .fused_attn import _check_clocks, _mask_rows
 from .hg_attn import (MAX_ACC_REGS, SMEM_MAX, _PAD_BIAS, _mm, _windows, check_f32_width,
                       launch_f32, win_args, win_layout)
@@ -207,6 +207,7 @@ def section_reference(x_win, mask_tok, regions, gamma, beta, wqkv, bqkv, wproj, 
 def _launch(x_win, mask_tok, regions, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads,
             eps, wblk, score_f32, ablate, clocks=None):
     """K11 on bf16 windows (attn_section_variants.cu), or the fp32 body on fp32."""
+    forward_only("section", x_win, gamma, beta, wqkv, bqkv, wproj, bproj, bias)
     nw, c, dev = _windows("section", x_win)
     check_section_build(c, num_heads, x_win.dtype, wblk, ablate)
     m = _mask_rows("mask_tok", mask_tok, nw, dev)

@@ -29,7 +29,10 @@ MODULES = ["segland_tpu_torch", "segland_tpu_torch.ops.fused_mlp",
            "segland_tpu_torch.quant.ptq", "segland_tpu_torch.benchmarks.conv3_probe",
            "segland_tpu_torch.ops.hg_attn", "segland_tpu_torch.benchmarks.swin_attn_hg",
            "segland_tpu_torch.ops.section_variants",
-           "segland_tpu_torch.benchmarks.swin_attn_variants"]
+           "segland_tpu_torch.benchmarks.swin_attn_variants", "segland_tpu_torch.losses",
+           "segland_tpu_torch.train", "segland_tpu_torch.train.state",
+           "segland_tpu_torch.train.base", "segland_tpu_torch.ckpt.io",
+           "segland_tpu_torch.cli.train_base"]
 FOREIGN = ("jax", "flax", "PIL", "segland_tpu")
 
 PROBE = """
@@ -102,6 +105,46 @@ def test_eval_entry_points_run_without_jax_flax_pil_or_the_jax_package(tmp_path)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
     assert (tmp_path / "out" / "b" / "u.tif").exists()
+
+
+# train_base.main over tiles the port writes itself (no PIL), then the same check
+RUN_TRAIN = """
+import sys
+import numpy as np
+from segland_tpu_torch.cli import train_base
+from segland_tpu_torch.data.geotiff import write_tiff
+rng = np.random.RandomState(0)
+for d in ("images", "labels"):
+    __import__("os").makedirs({root!r} + "/" + d, exist_ok=True)
+for tid in ("a", "b", "c"):
+    img = rng.randint(0, 256, (32, 32, 3)).astype(np.uint8)
+    write_tiff({root!r} + "/images/" + tid + ".tif", img)
+    write_tiff({root!r} + "/labels/" + tid + ".tif", (img[..., 0] // 32).astype(np.uint8))
+open({root!r} + "/train.txt", "w").write("a\\nb\\n")
+open({root!r} + "/val.txt", "w").write("c\\n")
+best = train_base.main(["--data-dir", {root!r}, "--train-list", {root!r} + "/train.txt",
+                        "--val-list", {root!r} + "/val.txt", "--model", "convnext_pop",
+                        "--device", "cpu", "--fused", "--input-size", "32,32",
+                        "--base-size", "32,32", "--batch-size", "2", "--num-epoch", "1",
+                        "--val-start", "0", "--num-workers", "0", "--snapshot-dir", {out!r}])
+assert 0.0 <= best <= 1.0
+print(sorted(m for m in sys.modules if m.split('.')[0] in {foreign!r}))
+"""
+
+
+def test_train_entry_point_runs_without_jax_flax_pil_or_the_jax_package(tmp_path):
+    from segland_tpu_torch import native
+
+    if native.get_lib() is None:
+        pytest.skip("no C++ compiler or zlib here: tiles would be read through PIL")
+    code = RUN_TRAIN.format(root=str(tmp_path / "data"), out=str(tmp_path / "snap"),
+                            foreign=FOREIGN)
+    env = dict(os.environ, CUDA_HOME="/nonexistent")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    assert (tmp_path / "snap" / "best.pth").exists()
 
 
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
