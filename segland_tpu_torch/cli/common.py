@@ -83,8 +83,8 @@ EVAL_FUSED_DEFAULTS = {"convnext_pop": True, "swin_pop": True, "deeplab_pop": Fa
 # 3x the stock-torch route's forward (PERF.md section 6, B1's plain version).
 # chip_smoke.py's train phase (NVIDIA H100 80GB HBM3, 700.00 W; bf16, batch 4,
 # 768^2 crops, AdamW, median of 12 steps, the routes in turns): fused 53.95 ms
-# a step against 32.57 unfused in a run of the phase alone, 62.24 against
-# 34.06 in the whole run of the committed tree (PERF.md section 5).
+# a step against 32.57 unfused in a run of the phase alone, 62.24 and 62.77
+# against 34.06 and 35.27 in two whole runs (PERF.md section 5).
 TRAIN_FUSED_DEFAULTS = {"convnext_pop": False}
 
 
