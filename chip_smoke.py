@@ -140,6 +140,7 @@ the repo beside it, it fails before printing any result.
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1965,12 +1966,16 @@ def phase_slice(dev, name, want_per_batch, is_ft=False, fp32_check=True, route="
 
 
 TRAIN_BATCH, TRAIN_CROP, TRAIN_TILES, VAL_TILES, TRAIN_EPOCHS = 4, 768, 16, 4, 2
+TRAIN_BLOCK = 64  # the side of a tile's blocks of one colour and one class
 
 
 def write_train_tiles(root):
     """TRAIN_TILES + VAL_TILES uint8 RGB 1024^2 GeoTIFF tiles and their labels,
-    written by the port's own TIFF writer (this machine has no PIL): the label
-    is the red channel's octile (0..7, so the loss can fall), 255 in a band."""
+    written by the port's own TIFF writer (this machine has no PIL).  A tile is
+    TRAIN_BLOCK^2 blocks of one random colour each, and a block's label is its
+    red channel's octile (0..7), 255 in a band: a class covers 16 x 16 pixels
+    of the stride-4 output, so the network can learn it and the loss fall
+    (labels of per-pixel noise leave the loss at ln 8 whatever the weights)."""
     from segland_tpu_torch.data.geotiff import write_tiff
 
     rng = np.random.RandomState(0)
@@ -1978,7 +1983,8 @@ def write_train_tiles(root):
     for d in ("images", "labels", "list"):
         os.makedirs(os.path.join(root, d), exist_ok=True)
     for tid in ids:
-        img = rng.randint(0, 256, (TILE, TILE, 3)).astype(np.uint8)
+        blocks = rng.randint(0, 256, (TILE // TRAIN_BLOCK, TILE // TRAIN_BLOCK, 3))
+        img = blocks.repeat(TRAIN_BLOCK, 0).repeat(TRAIN_BLOCK, 1).astype(np.uint8)
         lab = (img[..., 0] // 32).astype(np.uint8)
         lab[:, :TILE // 16] = 255
         write_tiff(os.path.join(root, "images", tid + ".tif"), img)
@@ -2012,10 +2018,28 @@ def _rel_err(a, b):
     return float((a - b).norm() / b.norm().clamp_min(1e-300))
 
 
+def train_step_model(dtype, fused=True):
+    """chip_smoke's convnext draw with the POP classifier's three 1x1 convs
+    drawn at 2 / sqrt(fan-in): upstream's init leaves the logits within about
+    0.03 of each other, so the loss sits at ln 8 whatever the features are;
+    at this scale they spread by about 1 and the loss reads the network."""
+    import torch
+
+    model = build("convnext_pop", dtype, seed=3, fused=fused)
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for conv in model.classifier:
+            if isinstance(conv, torch.nn.Conv2d):
+                conv.weight.normal_(0.0, 2.0 * conv.in_channels ** -0.5, generator=g)
+    return model
+
+
 def check_train_steps(dev):
     """One train step with the kernels and one inside ops.plain_versions(),
-    from the same weights (chip_smoke's convnext draw) and batch (768^2 x 4):
-    the loss, and every parameter's gradient.  A gradient deep in the network
+    from the same weights (train_step_model) and batch (768^2 x 4): the seg
+    loss, and every parameter's gradient.  Each route's seg loss must stand
+    at least 0.1 above ln 8, its value for flat logits, so that the loss
+    check sees the network's output.  A gradient deep in the network
     sums many terms that cancel (the stem's over every pixel of a random
     image), so rounding anywhere above it moves it by far more than the
     rounding itself; each route is held to what another correct route does.
@@ -2032,7 +2056,7 @@ def check_train_steps(dev):
     mask = torch.randint(0, 8, (TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP), generator=g).to(dev)
     runs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        model = build("convnext_pop", dtype, seed=3).to(dev)
+        model = train_step_model(dtype).to(dev)
         k1 = counters()["ln_mlp"]
         k1.launches = 0
         runs[dtype, "kernels"] = train_step_grads(model, img, mask)
@@ -2042,7 +2066,7 @@ def check_train_steps(dev):
             runs[dtype, "plain"] = train_step_grads(model, img, mask)
         del model
         if dtype == torch.float32:
-            model = build("convnext_pop", dtype, seed=3, fused=False).to(dev)
+            model = train_step_model(dtype, fused=False).to(dev)
             runs[dtype, "unfused"] = train_step_grads(model, img, mask)
             del model
         torch.cuda.empty_cache()
@@ -2066,14 +2090,17 @@ def check_train_steps(dev):
             largest = max(largest, (ek, n, text))
             if not margin <= 0:
                 fail(f"train step {dtype}: gradient of {n} off its plain version: {text}")
-        lk, lp = float(ld_k["total_loss"]), float(ld_p["total_loss"])
+        lk, lp = float(ld_k["seg_loss"]), float(ld_p["seg_loss"])
         print(f"train step {str(dtype)[6:]} kernels vs plain versions ({TRAIN_BATCH}x"
-              f"{TRAIN_CROP}^2): loss {lk:.6f} vs {lp:.6f} (|d|={abs(lk - lp):.3g}); of "
+              f"{TRAIN_CROP}^2): seg_loss {lk:.6f} vs {lp:.6f} (|d|={abs(lk - lp):.3g}, "
+              f"ln 8 = {math.log(8):.6f}); of "
               f"{len(gp)} gradients the nearest its bar {worst[1]} ({worst[0]:.2f} of it): "
               f"{worst[2]}; the farthest from the reference {largest[1]}: {largest[2]}",
               flush=True)
+        if not min(lk, lp) >= math.log(8) + 0.1:
+            fail(f"train step {dtype}: seg_loss {lk}, {lp} within 0.1 of ln 8: flat logits")
         if not abs(lk - lp) <= (1e-5 if dtype == torch.float32 else 1e-2) * abs(lp):
-            fail(f"train step {dtype}: loss {lk} vs {lp}")
+            fail(f"train step {dtype}: seg_loss {lk} vs {lp}")
 
 
 def train_setup(dev, fused):
@@ -2137,7 +2164,8 @@ def phase_train(dev):
     """convnext_pop / convnext-t base training on the card through the port's
     entry point: cli.train_base.main at bf16, batch 4, 768^2 crops, AdamW at
     1e-3, TRAIN_EPOCHS epochs of 4 steps with validation (2 batches of 2) in
-    each; the loss dicts finite, the snapshots and best.pth written and
+    each; the loss dicts finite, the seg loss's mean over the last epoch below
+    its first step's, the snapshots and best.pth written and
     best.pth through eval_base; K1 18 a train step and a validation batch, K2
     1 a validation batch, any other count fails.  Then one step with the
     kernels against one with their plain versions (bf16, fp32) and the step's
@@ -2167,14 +2195,20 @@ def phase_train(dev):
         want = {"ln_mlp": 18 * (steps + val_batches), "upsample_argmax": val_batches}
         rows = [json.loads(line) for line in open(os.path.join(snap, "metrics.jsonl"))]
         losses = [r["value"] for r in rows if r["tag"] == "train/total_loss"]
+        seg = [r["value"] for r in rows if r["tag"] == "train/seg_loss"]
         print(f"train convnext_pop (cli.train_base, bf16 --fused, {TRAIN_BATCH}x{TRAIN_CROP}^2, "
               f"{TRAIN_EPOCHS} epochs of {steps // TRAIN_EPOCHS} steps + {val_batches} val "
               f"batches): {wall:.1f}s launches={launches} best_val_mIoU={best:.4f} "
-              f"total_loss {' '.join(f'{x:.4f}' for x in losses)}", flush=True)
+              f"total_loss {' '.join(f'{x:.4f}' for x in losses)} seg_loss "
+              f"{' '.join(f'{x:.4f}' for x in seg)}", flush=True)
         if launches != want:
             fail(f"train launch counts {launches}, want {want}")
         if len(losses) != steps or not all(np.isfinite(r["value"]) for r in rows):
             fail(f"train loss dicts: {len(losses)} of {steps} steps, or not finite")
+        last = float(np.mean(seg[-(steps // TRAIN_EPOCHS):]))
+        if not last < seg[0]:
+            fail(f"train seg_loss did not fall: the last epoch's mean {last} against the "
+                 f"first step's {seg[0]}")
         for name in [f"epoch_{e + 1}.pth" for e in range(TRAIN_EPOCHS)] + ["best.pth"]:
             if not os.path.exists(os.path.join(snap, name)):
                 fail(f"train_base wrote no {name}")

@@ -98,10 +98,12 @@ def resolve_fused(args, mode: str = "eval") -> bool:
 
 
 def add_train_args(p: argparse.ArgumentParser):
-    """The training flags of segland_tpu/cli/common.py:add_train_args."""
+    """The training flags of segland_tpu/cli/common.py:add_train_args that
+    base training reads.  Not taken: --fp16 (use --dtype bfloat16),
+    --save-pred-every (--snapshot-frequency), --momentum (the SGD of the
+    fine-tune, ROADMAP A5) and --filter-novel (the fine-tune's dataset, A5)."""
     p.add_argument("--learning-rate", type=float, default=1e-3)
     p.add_argument("--weight-decay", type=float, default=1e-4)
-    p.add_argument("--momentum", type=float, default=0.9)
     p.add_argument("--power", type=float, default=0.9)
     p.add_argument("--num-epoch", type=int, default=200)
     p.add_argument("--start-epoch", type=int, default=0)
@@ -113,16 +115,10 @@ def add_train_args(p: argparse.ArgumentParser):
     p.add_argument("--fix-lr", type=str2bool, nargs="?", const=True, default=False)
     p.add_argument("--finetune", type=str2bool, nargs="?", const=True, default=False,
                    help="restore backbone-only weights (reference train_base.py:198-201)")
-    p.add_argument("--fp16", type=str2bool, nargs="?", const=True, default=False,
-                   help="accepted for script compatibility; use --dtype bfloat16")
-    p.add_argument("--save-pred-every", type=int, default=None,
-                   help="alias for --snapshot-frequency")
     p.add_argument("--test-batch-size", type=int, default=1, help="validation batch size")
     p.add_argument("--fix-bn", action="store_true", default=False,
                    help="freeze BatchNorm running statistics during training (normalization "
                         "still uses the current batch)")
-    p.add_argument("--filter-novel", action="store_true", default=False,
-                   help="fine-tune base-support filter; no-op for the base oem dataset")
     return p
 
 

@@ -5,8 +5,8 @@ segland_tpu/cli/train_base.py on one device.
         --dtype bfloat16 --num-epoch 200 --batch-size 4 --input-size 768,768 \\
         --learning-rate 1e-3
 
-Trains ``convnext_pop`` (K1 in every block's forward with --fused, the bf16
-default), ``pspnet_pop`` and ``deeplab_pop`` (BatchNorm in train mode).
+Trains ``convnext_pop`` (K1 in every block's forward with --fused, off by
+default: see TRAIN_FUSED_DEFAULTS), ``pspnet_pop`` and ``deeplab_pop`` (BatchNorm in train mode).
 Snapshots ``epoch_N.pth`` every --snapshot-frequency epochs, validates after
 --val-start every --val-frequency epochs through the ``Evaluator`` (K2 on the
 card) and keeps the best as ``best.pth``.  Still to come, and raising here:
@@ -115,7 +115,6 @@ def main(argv=None):
                                       skip_nonfinite=args.skip_nonfinite, fix_bn=args.fix_bn)
     evaluator = Evaluator(model, device, num_classes=1 + n_base, n_base=n_base,
                           ignore_label=args.ignore_label)
-    snap_freq = args.save_pred_every or args.snapshot_frequency
 
     logger.info(f"device: {device} | fused: {fused} | steps/epoch: {steps_per_epoch}")
     best_miou, best_epoch = 0.0, 0
@@ -135,7 +134,7 @@ def main(argv=None):
                     writer.add_scalars("train", {**{k: float(v) for k, v in ld.items()},
                                                  "lr": lr, "grad_norm": float(gn)}, global_it)
         state.epoch = epoch_log
-        if epoch_log % snap_freq == 0 or epoch_log >= args.num_epoch:
+        if epoch_log % args.snapshot_frequency == 0 or epoch_log >= args.num_epoch:
             save_checkpoint(os.path.join(args.snapshot_dir, f"epoch_{epoch_log}.pth"), state)
             logger.info("taking snapshot ...")
         if epoch_log > args.val_start and (epoch_log % args.val_frequency == 0

@@ -71,7 +71,7 @@ def make_base_train_step(model, loss_name: str = "orth", double_step: bool = Fal
         if kept is not None and (fix_bn or not ok):
             torch._foreach_copy_(stats, kept)
         if ok:
-            state.tx.clip_(grads, float(norm))
+            state.tx.clip_(grads, norm)
             state.tx.apply()
             if double_step:
                 state.tx.apply()

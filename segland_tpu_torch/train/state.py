@@ -88,9 +88,10 @@ class Optimizer:
     def params(self):
         return [p for g in self.torch.param_groups for p in g["params"]]
 
-    def clip_(self, grads, norm: float):
-        if self.clip is not None and not norm < self.clip:
-            torch._foreach_mul_(grads, self.clip / norm)
+    def clip_(self, grads, norm: torch.Tensor):
+        """Scales by min(clip / norm, 1) on the norm's device: no wait for it."""
+        if self.clip is not None:
+            torch._foreach_mul_(grads, (self.clip / norm).clamp(max=1.0))
 
     def apply(self):
         """One update from the parameters' ``.grad``; the count moves by one."""

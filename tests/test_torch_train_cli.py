@@ -125,6 +125,17 @@ def test_what_does_not_train_yet_raises(root, tmp_path, extra, item):
         train_base.main(args + extra)
 
 
+@pytest.mark.parametrize("flag", [["--fp16"], ["--momentum", "0.9"], ["--filter-novel"],
+                                  ["--save-pred-every", "5"], ["--profile-dir", "p"],
+                                  ["--ckpt-format", "msgpack"]])
+def test_jax_flags_the_port_does_not_read_are_refused(root, tmp_path, flag, capsys):
+    """A flag of the JAX package's train_base that nothing here would read
+    stops the parse instead of being ignored."""
+    with pytest.raises(SystemExit):
+        train_base.main(_args(root, tmp_path) + flag)
+    assert "unrecognized arguments: " + flag[0] in capsys.readouterr().err
+
+
 def test_more_than_one_process_raises(root, tmp_path, monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(ValueError, match="DDP.*A4, its second PR"):

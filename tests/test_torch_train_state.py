@@ -97,7 +97,7 @@ def test_updates_match_optax(optimizer, fix_lr):
         gs = [p.grad for p in tx.params]
         norm = global_norm(gs)
         np.testing.assert_allclose(float(norm), float(optax.global_norm(g)), rtol=1e-6)
-        tx.clip_(gs, float(norm))
+        tx.clip_(gs, norm)
         tx.apply()
         for path, v in flax.traverse_util.flatten_dict(jp, sep=".").items():
             w, w0 = np.asarray(v), start[path]
