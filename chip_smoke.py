@@ -61,6 +61,22 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      bf16: twice the plain route's distance from the fp32 gradient), the
      worst tensor printed; the step's ms, 768^2 crops/s fused and --no-fused
      in turns, and max_memory_allocated of each alone;
+  7b. ft: few-shot fine-tuning through the port's entry points on 1024^2
+     GeoTIFF tiles the script writes (raw classes 0-11 in blocks), support
+     lists from cli.gen_fs_list: cli.ft_pop at scripts/ft_oem.sh's config
+     (bf16 --fused, 1024^2 crops, batch 1, SGD at 1e-4, --fix-lr
+     --freeze-backbone --update-base, 5 shots) for swin_pop / swin-s, and with
+     1 shot for convnext_pop, each from a base .pth, cut to 1 epoch and 2
+     validation tiles: K3 24 and K1 24 (swin) or K1 18 (convnext) a step and
+     a validation batch, K2 1 each (the step's pseudo-labels, the
+     validation's argmax), any other count fails; the loss dicts finite and
+     none skipped; best_123.pth's frozen tensors bit-equal to the base .pth,
+     its novel head moved; eval_ft on it (K = 12).  Then one ft step with the
+     kernels against one with their plain versions from the same weights and
+     episode (fp32, bf16: the trainable gradients held as the train phase
+     holds its own; the pseudo-labels equal on >= 99% of relabelled pixels),
+     and the ft step's ms fused and --no-fused for both models, in turns,
+     with max_memory_allocated of each alone;
   8. the swin slice: swin_pop / swin-s at full width and depth the same way,
      once as eval_base runs it (K = 8) and once as eval_ft does (4 novel
      classes, K = 12, square_pad_eval), plus the unfused model's tiles/s and
@@ -128,6 +144,7 @@ plain version's time, bound, library call's time) and the last line is
 the repo beside it, it fails before printing any result.
 
     python3 chip_smoke.py --phases train    # base training of convnext_pop (K1, K2) on the card
+    python3 chip_smoke.py --phases ft       # few-shot fine-tuning of swin_pop and convnext_pop
     python3 chip_smoke.py --phases k2,k6    # K2 and K6 at every shape of their phases
     python3 chip_smoke.py --phases k1,k3    # K1 and K3 with their build, SASS and phase lines
     python3 chip_smoke.py --phases k4,k5    # K4 and K5 with their build, SASS and phase lines
@@ -2018,14 +2035,15 @@ def _rel_err(a, b):
     return float((a - b).norm() / b.norm().clamp_min(1e-300))
 
 
-def train_step_model(dtype, fused=True):
-    """chip_smoke's convnext draw with the POP classifier's three 1x1 convs
-    drawn at 2 / sqrt(fan-in): upstream's init leaves the logits within about
-    0.03 of each other, so the loss sits at ln 8 whatever the features are;
-    at this scale they spread by about 1 and the loss reads the network."""
+def train_step_model(dtype, fused=True, name="convnext_pop", is_ft=False):
+    """chip_smoke's draw of ``name`` (convnext by default) with the POP
+    classifier's three 1x1 convs drawn at 2 / sqrt(fan-in): upstream's init
+    leaves the logits within about 0.03 of each other, so the loss sits at ln K
+    whatever the features are; at this scale they spread by about 1 and the
+    loss reads the network."""
     import torch
 
-    model = build("convnext_pop", dtype, seed=3, fused=fused)
+    model = build(name, dtype, seed=3, fused=fused, is_ft=is_ft)
     g = torch.Generator().manual_seed(5)
     with torch.no_grad():
         for conv in model.classifier:
@@ -2070,16 +2088,27 @@ def check_train_steps(dev):
             runs[dtype, "unfused"] = train_step_grads(model, img, mask)
             del model
         torch.cuda.empty_cache()
+    hold_steps(f"train step {TRAIN_BATCH}x{TRAIN_CROP}^2", runs, 8)
+
+
+def hold_steps(tag, runs, k, flat_check=True, fp32_floor=1e-6):
+    """check_train_steps' bars over ``runs`` {(dtype, route): (loss dict,
+    {name: grad}, ...)}, routes kernels, plain and (fp32) unfused, with
+    ``fp32_floor`` the fp32 bar's additive term; ``k`` classes, so that ln k is
+    the seg loss of flat logits, which each route's must stand 0.1 above where
+    ``flat_check``."""
+    import torch
+
     ref, gu = runs[torch.float32, "plain"][1], runs[torch.float32, "unfused"][1]
     for dtype in (torch.float32, torch.bfloat16):
-        (ld_k, gk), (ld_p, gp) = runs[dtype, "kernels"], runs[dtype, "plain"]
+        (ld_k, gk), (ld_p, gp) = runs[dtype, "kernels"][:2], runs[dtype, "plain"][:2]
         worst, largest = (-1.0, "", ""), (-1.0, "", "")
         for n in gp:
             if dtype == torch.float32:
                 ek, eu = _rel_err(gk[n], gp[n]), _rel_err(gu[n], gp[n])
-                margin = ek - (2 * eu + 1e-6)
+                margin = ek - (2 * eu + fp32_floor)
                 text = (f"relative error from the plain route: kernels {ek:.3g}, stock-torch "
-                        f"blocks {eu:.3g} (bar 2 x stock + 1e-6)")
+                        f"blocks {eu:.3g} (bar 2 x stock + {fp32_floor:.3g})")
             else:
                 ek, ep = _cos_err(gk[n], ref[n]), _cos_err(gp[n], ref[n])
                 margin = ek - (2 * ep + 1e-4)
@@ -2089,22 +2118,21 @@ def check_train_steps(dev):
             worst = max(worst, (used, n, text))
             largest = max(largest, (ek, n, text))
             if not margin <= 0:
-                fail(f"train step {dtype}: gradient of {n} off its plain version: {text}")
+                fail(f"{tag} {dtype}: gradient of {n} off its plain version: {text}")
         lk, lp = float(ld_k["seg_loss"]), float(ld_p["seg_loss"])
-        print(f"train step {str(dtype)[6:]} kernels vs plain versions ({TRAIN_BATCH}x"
-              f"{TRAIN_CROP}^2): seg_loss {lk:.6f} vs {lp:.6f} (|d|={abs(lk - lp):.3g}, "
-              f"ln 8 = {math.log(8):.6f}); of "
+        print(f"{tag} {str(dtype)[6:]} kernels vs plain versions: seg_loss {lk:.6f} vs "
+              f"{lp:.6f} (|d|={abs(lk - lp):.3g}, ln {k} = {math.log(k):.6f}); of "
               f"{len(gp)} gradients the nearest its bar {worst[1]} ({worst[0]:.2f} of it): "
               f"{worst[2]}; the farthest from the reference {largest[1]}: {largest[2]}",
               flush=True)
-        if not min(lk, lp) >= math.log(8) + 0.1:
-            fail(f"train step {dtype}: seg_loss {lk}, {lp} within 0.1 of ln 8: flat logits")
+        if flat_check and not min(lk, lp) >= math.log(k) + 0.1:
+            fail(f"{tag} {dtype}: seg_loss {lk}, {lp} within 0.1 of ln {k}: flat logits")
         if not abs(lk - lp) <= (1e-5 if dtype == torch.float32 else 1e-2) * abs(lp):
-            fail(f"train step {dtype}: seg_loss {lk} vs {lp}")
+            fail(f"{tag} {dtype}: seg_loss {lk} vs {lp}")
 
 
 def train_setup(dev, fused):
-    """(state, step, img, mask): convnext_pop bf16 with AdamW at 1e-3 and a
+    """(state, step, (img, mask)): convnext_pop bf16 with AdamW at 1e-3 and a
     768^2 x 4 batch already on the card."""
     import torch
     from segland_tpu_torch.models import build_model
@@ -2116,47 +2144,48 @@ def train_setup(dev, fused):
     g = torch.Generator().manual_seed(1)
     img = torch.randn(TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3, generator=g).to(dev)
     mask = torch.randint(0, 8, (TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP), generator=g).to(dev)
-    return state, make_base_train_step(model, skip_nonfinite=True), img, mask
+    return state, make_base_train_step(model, skip_nonfinite=True), (img, mask)
 
 
-def train_peak(dev, fused):
-    """torch.cuda.max_memory_allocated over one train step of the route alone
-    on the card (weights, AdamW state and gradients included), after 2."""
+def step_peak(setup):
+    """torch.cuda.max_memory_allocated over one step of a route alone on the
+    card (weights, optimizer state and gradients included), after 2.
+    ``setup()`` gives (state, step, batch): step(state, *batch)."""
     import torch
 
     torch.cuda.empty_cache()
-    state, step, img, mask = train_setup(dev, fused)
+    state, step, batch = setup()
     for _ in range(2):
-        step(state, img, mask)
+        step(state, *batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    step(state, img, mask)
+    step(state, *batch)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    del state, step
+    del state, step, batch
     torch.cuda.empty_cache()
     return peak
 
 
-def train_ms(dev, fused, rounds=2, steps=6, warmup=3):
-    """Median ms of ``rounds`` x ``steps`` train steps (bf16, 768^2 x 4, AdamW
-    at 1e-3, batches already on the card) after ``warmup``.  A generator: one
-    round a next(), so that the caller can take the two routes in turns."""
+def step_ms(setup, rounds=2, steps=6, warmup=3):
+    """Median ms of ``rounds`` x ``steps`` steps of ``setup()``'s route
+    (batches already on the card) after ``warmup``.  A generator: one round a
+    next(), so that the caller can take the routes in turns."""
     import torch
 
-    state, step, img, mask = train_setup(dev, fused)
+    state, step, batch = setup()
     for _ in range(warmup):
-        step(state, img, mask)
+        step(state, *batch)
     torch.cuda.synchronize()
     times = []
     for _ in range(rounds):
         for _ in range(steps):
             t0 = time.perf_counter()
-            ld, _ = step(state, img, mask)
+            ld, _ = step(state, *batch)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             if not bool(torch.isfinite(ld["total_loss"])):
-                fail("train step loss is not finite")
+                fail("step loss is not finite")
         yield times
 
 
@@ -2223,8 +2252,10 @@ def phase_train(dev):
             fail(f"eval_base on best.pth gave mIoU {total}")
     torch.cuda.empty_cache()
     check_train_steps(dev)
-    peaks = {"fused": train_peak(dev, True), "--no-fused": train_peak(dev, False)}
-    routes = {"fused": train_ms(dev, True), "--no-fused": train_ms(dev, False)}
+    setups = {"fused": lambda: train_setup(dev, True),
+              "--no-fused": lambda: train_setup(dev, False)}
+    peaks = {key: step_peak(setup) for key, setup in setups.items()}
+    routes = {key: step_ms(setup) for key, setup in setups.items()}
     got = {}
     for _ in range(2):  # the two routes in turns, a round each
         for key, gen in routes.items():
@@ -2239,6 +2270,281 @@ def phase_train(dev):
               flush=True)
     print(f"train phase: {time.time() - t_phase:.1f}s", flush=True)
     return launches
+
+
+# the fine-tune phase: tiles, and per model the support shot of its CLI run and the
+# launches of one forward of the frozen trunk (K2 adds one a step and a validation batch)
+FT_TILES, FT_VAL_TILES, FT_SEED = 8, 2, 123
+# The fp32 bodies of K1 and K3 sum in order, one FMA a term, where cuBLAS blocks its sums:
+# over K1's longest reduction (4C = 3072 terms at C = 768) that rounds a feature by about
+# sqrt(3072) * 2^-24 = 3.3e-6 of its terms.  The head's gradients are well conditioned (no
+# cancellation, unlike base training's deep ones), so the stock-torch blocks (cuBLAS, as the
+# plain versions) sit within 1e-6 of the plain route and this rounding sets the kernels'
+# distance: three times it is the fp32 bar's floor in the ft step.
+FP32_SUM_FLOOR = 3 * math.sqrt(4 * 768) * 2.0 ** -24
+FT_MODELS = {"swin_pop": dict(shot=5, per_forward={"ln_mlp": 24, "attn_section": 24}),
+             "convnext_pop": dict(shot=1, per_forward={"ln_mlp": 18})}
+
+
+def write_ft_tiles(root):
+    """FT_TILES + FT_VAL_TILES 1024^2 tiles of TRAIN_BLOCK^2 blocks of one
+    colour, as write_train_tiles writes them, but a block's label is its red
+    value // 22: the raw classes 0..11 (background, base 1-7, novel 8-11) in
+    every tile, 255 in a band; a train and a validation list; the support
+    lists of FT_MODELS' shots from the port's gen_fs_list."""
+    from segland_tpu_torch.cli import gen_fs_list
+    from segland_tpu_torch.data.geotiff import write_tiff
+
+    rng = np.random.RandomState(1)
+    ids = [f"ft_{i}" for i in range(FT_TILES + FT_VAL_TILES)]
+    for d in ("images", "labels", "list"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    for tid in ids:
+        blocks = rng.randint(0, 256, (TILE // TRAIN_BLOCK, TILE // TRAIN_BLOCK, 3))
+        img = blocks.repeat(TRAIN_BLOCK, 0).repeat(TRAIN_BLOCK, 1).astype(np.uint8)
+        lab = (img[..., 0] // 22).astype(np.uint8)
+        lab[:, :TILE // 16] = 255
+        write_tiff(os.path.join(root, "images", tid + ".tif"), img)
+        write_tiff(os.path.join(root, "labels", tid + ".tif"), lab)
+    lst = os.path.join(root, "list")
+    with open(os.path.join(lst, "train.txt"), "w") as f:
+        f.write("\n".join(ids[:FT_TILES]) + "\n")
+    with open(os.path.join(lst, "val.txt"), "w") as f:
+        f.write("\n".join(ids[FT_TILES:]) + "\n")
+    for shot in sorted({m["shot"] for m in FT_MODELS.values()}):
+        gen_fs_list.main(["--data-dir", root, "--train-list", os.path.join(lst, "train.txt"),
+                          "--shot", str(shot), "--seed", str(FT_SEED)])
+
+
+def ft_cli_run(dev, root, name):
+    """cli.ft_pop.main for ``name`` at scripts/ft_oem.sh's config (bf16 --fused,
+    1024^2 crops, batch 1, SGD at 1e-4, weight decay 1e-4, --fix-lr
+    --freeze-backbone --update-base --update-epoch 1) from a base .pth of
+    train_step_model's draw, cut to 1 epoch and FT_VAL_TILES validation tiles;
+    then eval_ft on its best_123.pth.  Fails on any launch count but the
+    trunk's per forward a step and a validation batch and K2 one each, on a
+    loss dict that is not finite or skipped a step, on a frozen tensor of
+    best_123.pth that differs from the base .pth, and on a novel head that did
+    not move.  Returns the launch counts."""
+    import torch
+    from segland_tpu_torch.ckpt import save_params
+    from segland_tpu_torch.cli import eval_ft, ft_pop
+    from segland_tpu_torch.models import build_model
+
+    cfg = FT_MODELS[name]
+    base_path = os.path.join(root, f"{name}_base.pth")
+    save_params(base_path, train_step_model(torch.bfloat16, name=name))
+    snap = os.path.join(root, f"{name}_snap")
+    lst = os.path.join(root, "list")
+    args = ["--data-dir", root, "--train-list", os.path.join(lst, "train.txt"),
+            "--val-list", os.path.join(lst, "val.txt"), "--model", name, "--dtype", "bfloat16",
+            "--fused", "--input-size", f"{TILE},{TILE}", "--base-size", f"{TILE},{TILE}",
+            "--batch-size", "1", "--learning-rate", "1e-4", "--weight-decay", "1e-4",
+            "--fix-lr", "--freeze-backbone", "--update-base", "--update-epoch", "1",
+            "--shot", str(cfg["shot"]), "--num-epoch", "1", "--val-frequency", "1",
+            "--random-seed", str(FT_SEED), "--restore-from", base_path, "--print-frequency", "1",
+            "--metrics", "--num-workers", "4", "--snapshot-dir", snap]
+    t0 = time.time()
+    res, launches = counted(lambda: ft_pop.main(args))
+    wall = time.time() - t0
+    steps = 7 * cfg["shot"]  # a base sample a step: shot a base class
+    n = steps + FT_VAL_TILES
+    want = {k: v * n for k, v in cfg["per_forward"].items()}
+    want["upsample_argmax"] = n
+    rows = [json.loads(line) for line in open(os.path.join(snap, "metrics.jsonl"))]
+    tag = f"seed{FT_SEED}/train/"
+    losses = [r["value"] for r in rows if r["tag"] == tag + "total_loss"]
+    skipped = [r["value"] for r in rows if r["tag"] == tag + "nonfinite_skipped"]
+    best = res[FT_SEED]
+    print(f"ft {name} (cli.ft_pop, bf16 --fused, 1x{TILE}^2 novel + 1x{TILE}^2 base a step, "
+          f"1 epoch of {steps} steps + {FT_VAL_TILES} val tiles): {wall:.1f}s "
+          f"launches={launches} best={best} total_loss {' '.join(f'{x:.4f}' for x in losses)}",
+          flush=True)
+    if launches != want:
+        fail(f"ft {name} launch counts {launches}, want {want}")
+    if len(losses) != steps or not all(np.isfinite(r["value"]) for r in rows) or any(skipped):
+        fail(f"ft {name} loss dicts: {len(losses)} of {steps} steps, not finite, or skipped "
+             f"({sum(skipped)})")
+    path = os.path.join(snap, f"best_{FT_SEED}.pth")
+    if not os.path.exists(path):
+        fail(f"ft {name} wrote no best_{FT_SEED}.pth (base mIoU {best['base']})")
+    base = torch.load(base_path, weights_only=False)
+    tuned = torch.load(path, weights_only=False)
+    frozen = [k for k in base if not torch.equal(base[k], tuned[k])]
+    if frozen or set(tuned) - set(base) != {"novel_emb", "classifier_n.0.weight",
+                                             "classifier_n.2.weight", "classifier_n.4.weight"}:
+        fail(f"ft {name}: frozen tensors changed {frozen[:5]} ({len(frozen)}), or the keys "
+             f"differ")
+    init = build_model(name, None, n_base=7, n_novel=4, is_ft=True, dtype=torch.bfloat16,
+                       generator=torch.Generator().manual_seed(FT_SEED)).state_dict()
+    moved = {k: float((tuned[k].float() - (base[k.replace("classifier_n", "classifier")]
+                                           if "classifier_n" in k else init[k]).float())
+                      .abs().max()) for k in set(tuned) - set(base)}
+    print(f"ft {name}: {len(base)} frozen tensors of best_{FT_SEED}.pth bit-equal to the base "
+          f".pth; the novel head's largest move from its start: {moved}", flush=True)
+    if not all(v > 0 for v in moved.values()):
+        fail(f"ft {name}: a trainable tensor did not move: {moved}")
+    res = eval_ft.main(["--data-dir", root, "--val-list", os.path.join(lst, "val.txt"),
+                        "--model", name, "--dtype", "bfloat16",
+                        "--restore-from", os.path.join(snap, "best.pth"), "--eval-batch", "2",
+                        "--num-workers", "4", "--save-path", os.path.join(root, f"{name}_eval")])
+    b, nv, tot, _ = res[FT_SEED]
+    print(f"ft {name}: eval_ft on best_{FT_SEED}.pth (K = 12): mIoU base={b:.4f} "
+          f"novel={nv:.4f} total={tot:.4f}", flush=True)
+    if not all(0.0 <= x <= 1.0 for x in (b, tot)):
+        fail(f"ft {name}: eval_ft gave mIoU {res[FT_SEED]}")
+    return launches
+
+
+def ft_batch(dev, seed=6):
+    """One ft episode on the card, batch 1 + 1 at TILE^2: random images, the
+    novel sample's labels TRAIN_BLOCK^2 blocks of 8..11 or ignored, the base
+    sample's blocks of 0..7 (background a block in eight: what the
+    pseudo-labels fill)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    side = TILE // TRAIN_BLOCK
+
+    def blocks(values):
+        idx = torch.randint(0, len(values), (1, side, side), generator=g)
+        lab = torch.tensor(values, dtype=torch.int32)[idx]
+        return lab.repeat_interleave(TRAIN_BLOCK, 1).repeat_interleave(TRAIN_BLOCK, 2)
+
+    img, img_b = (torch.randn(1, TILE, TILE, 3, generator=g) for _ in range(2))
+    batch = (img, blocks([8, 9, 10, 11, 255]), img_b, blocks(list(range(8))))
+    return tuple(a.to(dev) for a in batch)
+
+
+def ft_step_grads(model, batch):
+    """One ft step (make_ft_train_step) at LR 0, weight decay 0 and without a
+    clip: (loss dict, {name: raw grad} of the trainable tensors, the
+    pseudo-labels it trained on)."""
+    import segland_tpu_torch.train.ft as ft
+    from segland_tpu_torch.train import TrainState, create_optimizer
+
+    labels = []
+    plain = ft.pseudo_label
+
+    def recording(*a):
+        labels.append(plain(*a))
+        return labels[-1]
+
+    state = TrainState(model, create_optimizer(model, 0.0, 1, 1, weight_decay=0.0,
+                                               optimizer="sgd", clip=None,
+                                               trainable_fn=ft.ft_trainable))
+    ft.pseudo_label = recording
+    try:
+        ld, _ = ft.make_ft_train_step(model, 7)(state, *batch)
+    finally:
+        ft.pseudo_label = plain
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+    return ld, grads, labels[0]
+
+
+def check_ft_steps(dev, name):
+    """One ft step with the kernels and one inside ops.plain_versions(), from
+    the same weights (train_step_model's draw with the novel head, classifier_n
+    copied from classifier) and episode (ft_batch), fp32 and bf16, and fp32
+    through the stock-torch blocks: the trainable gradients held as
+    check_train_steps holds base training's (hold_steps; the fp32 floor
+    FP32_SUM_FLOOR), the pseudo-labels of
+    the two routes equal on >= 99% of the relabelled pixels and of more than
+    one class, and the kernel step's launches exactly the trunk's per forward
+    and K2 one."""
+    import torch
+    from segland_tpu_torch.ops import plain_versions
+    from segland_tpu_torch.train import init_cls_n
+
+    batch = ft_batch(dev)
+    want = dict(FT_MODELS[name]["per_forward"], upsample_argmax=1)
+    runs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for fused in (True, False) if dtype == torch.float32 else (True,):
+            model = train_step_model(dtype, fused, name=name, is_ft=True).to(dev)
+            init_cls_n(model)
+            if not fused:
+                runs[dtype, "unfused"] = ft_step_grads(model, batch)
+                continue
+            runs[dtype, "kernels"], launches = counted(lambda: ft_step_grads(model, batch))
+            if launches != want:
+                fail(f"ft step {name} {dtype} launch counts {launches}, want {want}")
+            with plain_versions():
+                runs[dtype, "plain"] = ft_step_grads(model, batch)
+            del model
+        torch.cuda.empty_cache()
+    # the pseudo-labels are the argmax of the logits, so the seg loss sits below ln 12 on
+    # them and above it elsewhere: the novel head reads the trunk where the pseudo-labels
+    # take more than one class
+    hold_steps(f"ft step {name} 1+1x{TILE}^2", runs, 12, flat_check=False,
+               fp32_floor=FP32_SUM_FLOOR)
+    relabelled = batch[3] == 0
+    for dtype in (torch.float32, torch.bfloat16):
+        lk, lp = runs[dtype, "kernels"][2], runs[dtype, "plain"][2]
+        agree = float((lk == lp)[relabelled].float().mean())
+        classes = torch.bincount(lk[relabelled].long(), minlength=12).tolist()
+        print(f"ft step {name} {str(dtype)[6:]}: pseudo-labels of the kernels and the plain "
+              f"versions agree on {agree:.6f} of {int(relabelled.sum())} relabelled pixels; "
+              f"the kernels' by class {classes}", flush=True)
+        if not agree >= 0.99:
+            fail(f"ft step {name} {dtype}: pseudo-labels agree on {agree} < 0.99")
+        if sum(c > 0 for c in classes) < 2:
+            fail(f"ft step {name} {dtype}: the pseudo-labels take one class: flat logits")
+
+
+def ft_setup(dev, name, fused):
+    """(state, step, episode): ``name`` bf16 as ft_pop builds it (upstream
+    init from a seeded generator, classifier_n copied), SGD at 1e-4 with
+    weight decay 1e-4 and a fixed LR over the trainable subset, an episode of
+    ft_batch already on the card."""
+    import torch
+    from segland_tpu_torch.models import build_model
+    from segland_tpu_torch.train import (TrainState, create_optimizer, ft_trainable, init_cls_n,
+                                         make_ft_train_step)
+
+    model = build_model(name, None, n_base=7, n_novel=4, is_ft=True, dtype=torch.bfloat16,
+                        fused_mlp=fused, fused_attn=fused, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    init_cls_n(model)
+    tx = create_optimizer(model, 1e-4, 1, 35, weight_decay=1e-4, optimizer="sgd", fix_lr=True,
+                          trainable_fn=ft_trainable)
+    return TrainState(model, tx), make_ft_train_step(model, 7, skip_nonfinite=True), ft_batch(dev)
+
+
+def phase_ft(dev):
+    """Few-shot fine-tuning on the card through the port's entry points, for
+    each model of FT_MODELS: ft_cli_run (cli.gen_fs_list's support lists,
+    cli.ft_pop, eval_ft), check_ft_steps, then the ft step's time and memory
+    fused and --no-fused, the four routes in turns.  Returns {path: launch
+    counts}."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.time()
+    paths = {}
+    with tempfile.TemporaryDirectory() as root:
+        write_ft_tiles(root)
+        for name in FT_MODELS:
+            paths[f"{name} ft"] = ft_cli_run(dev, root, name)
+            torch.cuda.empty_cache()
+    for name in FT_MODELS:
+        check_ft_steps(dev, name)
+    setups = {(name, key): (lambda n=name, f=fused: ft_setup(dev, n, f))
+              for name in FT_MODELS for key, fused in (("fused", True), ("--no-fused", False))}
+    peaks = {route: step_peak(setup) for route, setup in setups.items()}
+    routes = {route: step_ms(setup) for route, setup in setups.items()}
+    got = {}
+    for _ in range(2):  # the routes in turns, a round each
+        for route, gen in routes.items():
+            got[route] = next(gen)
+    for (name, key), times in got.items():
+        ms = float(np.median(times))
+        print(f"ft {name} bf16 1+1x{TILE}^2 SGD {key}: ms_per_step={ms:.2f} (median of "
+              f"{len(times)} after 3 warm-up; min {min(times):.2f} max {max(times):.2f}) "
+              f"max_memory_allocated={peaks[name, key] / 2**30:.2f} GiB", flush=True)
+    print(f"ft phase: {time.time() - t_phase:.1f}s", flush=True)
+    return paths
 
 
 def build_resnet(name, dtype, dev, seed=0):
@@ -2508,10 +2814,10 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,train,swin,deeplab,"
-                            "pspnet",
-                    help="comma list of k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,train,"
-                         "swin,deeplab,pspnet (default: all seventeen); profile: a torch.profiler "
+                    default="k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,train,ft,swin,"
+                            "deeplab,pspnet",
+                    help="comma list of k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,train,ft,"
+                         "swin,deeplab,pspnet (default: all eighteen); profile: a torch.profiler "
                          "breakdown of the swin and deeplab_pop slices; dilated: cuDNN vs the "
                          "nine-tap 3x3 at large dilations")
     phases = set(ap.parse_args(argv).phases.split(","))
@@ -2600,6 +2906,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "train" in phases:
         paths["convnext_pop train"] = phase_train(dev)
+        torch.cuda.empty_cache()
+    if "ft" in phases:
+        paths.update(phase_ft(dev))
         torch.cuda.empty_cache()
     if "swin" in phases:
         per_batch = {"ln_mlp": 24, "upsample_argmax": 1, "attn_section": 24}

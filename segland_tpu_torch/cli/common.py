@@ -4,6 +4,7 @@ drive both packages.  The port adds ``--device``."""
 
 import argparse
 
+import numpy as np
 import torch
 
 
@@ -88,20 +89,33 @@ EVAL_FUSED_DEFAULTS = {"convnext_pop": True, "swin_pop": True, "deeplab_pop": Fa
 TRAIN_FUSED_DEFAULTS = {"convnext_pop": False}
 
 
+# Fine-tune defaults of --fused.  The fine-tune runs the backbone and decoder frozen,
+# under torch.no_grad(), so K1 and K3 run forward-only there and a step is about a
+# forward of the novel and base tiles plus the POP head's backward.  chip_smoke.py's ft
+# phase (NVIDIA H100 80GB HBM3, 700.00 W; bf16, 1 + 1 tiles of 1024^2, SGD, median of 12
+# steps after 3 warm-up, the routes in turns, PERF.md section 5), the phase alone and a
+# whole run: swin_pop 21.39 and 20.57 ms a step fused against 26.87 and 32.61 unfused,
+# convnext_pop 12.58 and 12.22 against 12.97 and 12.64 (ahead in both, by less than the
+# spread of host-timed steps, as its eval default is), the same peak memory fused and
+# unfused.  So both are on for --dtype bfloat16.
+FT_FUSED_DEFAULTS = {"swin_pop": True, "convnext_pop": True}
+
+
 def resolve_fused(args, mode: str = "eval") -> bool:
     """Explicit --fused/--no-fused wins; otherwise the default of ``mode``
-    ('eval' or 'train'), which covers --dtype bfloat16 only."""
+    ('eval', 'train' or 'ft'), which covers --dtype bfloat16 only."""
     if args.fused is not None:
         return bool(args.fused)
-    defaults = {"eval": EVAL_FUSED_DEFAULTS, "train": TRAIN_FUSED_DEFAULTS}[mode]
+    defaults = {"eval": EVAL_FUSED_DEFAULTS, "train": TRAIN_FUSED_DEFAULTS,
+                "ft": FT_FUSED_DEFAULTS}[mode]
     return args.dtype == "bfloat16" and defaults.get(args.model, False)
 
 
 def add_train_args(p: argparse.ArgumentParser):
     """The training flags of segland_tpu/cli/common.py:add_train_args that
-    base training reads.  Not taken: --fp16 (use --dtype bfloat16),
-    --save-pred-every (--snapshot-frequency), --momentum (the SGD of the
-    fine-tune, ROADMAP A5) and --filter-novel (the fine-tune's dataset, A5)."""
+    base training reads.  Not taken: --fp16 (use --dtype bfloat16) and
+    --save-pred-every (--snapshot-frequency); --momentum (its SGD) and
+    --filter-novel (its dataset) are the fine-tune's, ``cli/ft_pop.py``."""
     p.add_argument("--learning-rate", type=float, default=1e-3)
     p.add_argument("--weight-decay", type=float, default=1e-4)
     p.add_argument("--power", type=float, default=0.9)
@@ -129,6 +143,12 @@ def parse_hw(s: str):
 
 def model_dtype(args) -> torch.dtype:
     return torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host batch on ``device``: pinned and copied without a wait on CUDA."""
+    t = torch.from_numpy(a)
+    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
 
 
 def full_fp32():

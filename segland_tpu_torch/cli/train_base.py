@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .common import (add_common_args, add_train_args, full_fp32, model_dtype, parse_hw,
-                     resolve_fused)
+                     resolve_fused, to_device)
 from ..ckpt import load_checkpoint, load_pth, save_checkpoint, save_params
 from ..data import DATASETS, Loader
 from ..evallib.infer import Evaluator
@@ -66,8 +66,9 @@ def check_trainable(args):
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise ValueError(f"training over more than one process (DDP) is not ported yet "
                          f"(ROADMAP {A4_SECOND})")
-    if args.dataset not in DATASETS:
-        raise ValueError(f"dataset {args.dataset!r} is not ported yet (ROADMAP A5)")
+    if args.dataset != "oem":  # oem_ft's items are (novel, base) pairs
+        raise ValueError(f"dataset {args.dataset!r} is the fine-tune's: train_base reads 'oem', "
+                         f"cli.ft_pop fine-tunes (ROADMAP A5)")
 
 
 def main(argv=None):
@@ -124,7 +125,7 @@ def main(argv=None):
         trainset.set_seed(seed + epoch)  # per-epoch reseed (train_base.py:236)
         train_loader.set_epoch(epoch)
         for i, (img, mask, _) in enumerate(train_loader):
-            ld, gn = train_step(state, _to(img, device), _to(mask, device))
+            ld, gn = train_step(state, to_device(img, device), to_device(mask, device))
             global_it += 1
             if i % args.print_frequency == 0:
                 lr = tx.lr_fn(global_it - 1)
@@ -149,11 +150,6 @@ def main(argv=None):
     if writer is not None:
         writer.close()
     return best_miou
-
-
-def _to(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(a)
-    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
 
 
 def validate(model, evaluator: Evaluator, val_loader) -> float:

@@ -1,10 +1,13 @@
 """Host-side tile I/O and datasets: the port's own copies of what it needs
 from segland_tpu/data (numpy only; PIL, rasterio and scipy are imported at
-the call that needs them).  The fine-tune dataset (``oem_ft``) comes with
-ROADMAP item A5."""
+the call that needs them)."""
 
 from .loader import Loader
 from .oem import OEMTrainDataset, OEMValDataset
+from .oem_ft import OEMFtTrainDataset
 
 # registry replacing eval('dataset.'+name+...) (reference train_base.py:151)
-DATASETS = {"oem": (OEMTrainDataset, OEMValDataset)}
+DATASETS = {
+    "oem": (OEMTrainDataset, OEMValDataset),
+    "oem_ft": (OEMFtTrainDataset, OEMValDataset),
+}

@@ -108,7 +108,8 @@ class GFSSModel(nn.Module):
         """backbone + decoder -> [B, h, w, d_model] fp32 (channels-last view).
         BatchNorm follows ``module.training`` (``model.train()``), where the
         JAX package passes ``train``; convnext_pop has no other train-only
-        layer (its DropPath rate is 0)."""
+        layer (its DropPath rate is 0), and swin_pop trains only its POP head
+        (``forward_novel``)."""
         if self.backbone_name.startswith("resnet"):
             feats = self.backbone(img, return_list=self.needs_pyramid)
         else:
@@ -131,6 +132,26 @@ class GFSSModel(nn.Module):
             self.extract_features(img), self.base_emb, self.novel_emb,
             self.classifier.weights(), self.classifier_n.weights())
         return logits.permute(0, 3, 1, 2)
+
+    def forward_novel(self, img):
+        """Fine-tune forward: (logits [B, 1+n_base+n_novel, h, w], the novel
+        head's logits [B, 1+n_novel, h, w], the prototypes' cosine
+        similarities [n_novel, n_base+n_novel]).  The caller concatenates the
+        novel-support and base batches first (reference pspnet_pop.py:197).
+
+        The backbone and decoder are frozen: they run in eval mode (BatchNorm
+        on its running statistics, upstream's ``train_mode()``,
+        pspnet_pop.py:80-85) and under ``torch.no_grad()``, so only the POP
+        head builds a graph and every kernel on the trunk runs forward-only."""
+        self.backbone.eval()
+        self.decoder.eval()
+        with torch.no_grad():
+            feats = self.extract_features(img)
+        logits, novel_logits = pop_ops.pop_logits_all(
+            feats, self.base_emb, self.novel_emb,
+            self.classifier.weights(), self.classifier_n.weights())
+        sim = pop_ops.proto_similarity(self.novel_emb, self.base_emb)
+        return logits.permute(0, 3, 1, 2), novel_logits.permute(0, 3, 1, 2), sim
 
     def forward(self, img):
         return self.forward_all(img) if self.is_ft else self.forward_base(img)

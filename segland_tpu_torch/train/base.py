@@ -7,7 +7,7 @@ import torch
 
 from ..losses import orth_loss
 from ..metrics import intersection_and_union
-from ..ops.resize import resize_bilinear
+from ..ops.fused_epilogue import upsample_argmax
 from .state import TrainState
 
 
@@ -81,15 +81,18 @@ def make_base_train_step(model, loss_name: str = "orth", double_step: bool = Fal
 
 
 def make_eval_step(model, num_classes: int, ignore_index: int = 255):
-    """Whole-tile eval step: logits upsampled to the label size
-    (align_corners=True, reference train_base.py:331-333), argmax, per-class
-    (intersection, union, target).  The model runs in eval mode."""
+    """Whole-tile eval step: the model's logits (``forward_all`` for a
+    fine-tuned model, as the JAX ``eval_step``'s ``model.apply`` picks)
+    upsampled to the label size (align_corners=True, reference
+    train_base.py:331-333) and argmaxed by ``ops.upsample_argmax`` (K2 on the
+    card), then per-class (intersection, union, target).  The model runs in
+    eval mode."""
 
     @torch.inference_mode()
     def eval_step(img, mask):
         model.eval()
-        logits = model.forward_base(img.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-        up = resize_bilinear(logits.float(), mask.shape[-2:], align_corners=True)
-        return intersection_and_union(up.argmax(-1), mask, num_classes, ignore_index)
+        logits = model(img.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        pred = upsample_argmax(logits.float().contiguous(), mask.shape[-2:])
+        return intersection_and_union(pred, mask, num_classes, ignore_index)
 
     return eval_step

@@ -12,7 +12,8 @@ train_base.py:113-128):
 The LR follows the count of updates applied, as optax's schedule reads its
 own count: ``--double-step`` moves it two a step, a skipped step not at all.
 ``freeze_backbone`` is accepted and changes nothing here, as in the JAX
-``create_optimizer`` (its ft-mode freezing is ROADMAP A5).
+``create_optimizer``: the fine-tune freezes through ``trainable_fn``
+(``train/ft.py:ft_trainable``).
 """
 
 import torch
@@ -62,9 +63,12 @@ class Optimizer:
     here does."""
 
     def __init__(self, model, base_lr, lr_fn, weight_decay=1e-4, optimizer="adamw",
-                 momentum=0.9, clip=5.0):
+                 momentum=0.9, clip=5.0, trainable_fn=None):
         labels = param_labels(model)
         named = dict(model.named_parameters())
+        if trainable_fn is not None:
+            for n in [n for n in named if not trainable_fn(n)]:
+                named.pop(n).requires_grad_(False)
         settings = {"backbone": (1.0, weight_decay), "head_bias": (HEAD_LR_SCALE, 0.0),
                     "head_weight": (HEAD_LR_SCALE, weight_decay)}
         groups = []
@@ -112,13 +116,14 @@ class Optimizer:
 def create_optimizer(model, base_lr: float, num_epochs: int, steps_per_epoch: int,
                      weight_decay: float = 1e-4, power: float = 0.9, optimizer: str = "adamw",
                      momentum: float = 0.9, clip: float = 5.0, freeze_backbone: bool = False,
-                     fix_lr: bool = False) -> Optimizer:
+                     fix_lr: bool = False, trainable_fn=None) -> Optimizer:
     del freeze_backbone  # accepted and unused, as in the JAX package
     if fix_lr:
         lr_fn = lambda step: base_lr  # reference ft --fix-lr (ft_oem.sh)
     else:
         lr_fn = poly_lr_schedule(base_lr, num_epochs, steps_per_epoch, power)
-    return Optimizer(model, base_lr, lr_fn, weight_decay, optimizer, momentum, clip)
+    return Optimizer(model, base_lr, lr_fn, weight_decay, optimizer, momentum, clip,
+                     trainable_fn)
 
 
 class TrainState:

@@ -32,7 +32,9 @@ MODULES = ["segland_tpu_torch", "segland_tpu_torch.ops.fused_mlp",
            "segland_tpu_torch.benchmarks.swin_attn_variants", "segland_tpu_torch.losses",
            "segland_tpu_torch.train", "segland_tpu_torch.train.state",
            "segland_tpu_torch.train.base", "segland_tpu_torch.ckpt.io",
-           "segland_tpu_torch.cli.train_base"]
+           "segland_tpu_torch.cli.train_base", "segland_tpu_torch.train.ft",
+           "segland_tpu_torch.data.oem_ft", "segland_tpu_torch.cli.ft_pop",
+           "segland_tpu_torch.cli.gen_fs_list"]
 FOREIGN = ("jax", "flax", "PIL", "segland_tpu")
 
 PROBE = """
@@ -145,6 +147,54 @@ def test_train_entry_point_runs_without_jax_flax_pil_or_the_jax_package(tmp_path
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
     assert (tmp_path / "snap" / "best.pth").exists()
+
+
+# gen_fs_list.main and ft_pop.main over tiles the port writes itself, from a base
+# model's .pth, then the same check
+RUN_FT = """
+import os, sys
+import numpy as np
+import torch
+from segland_tpu_torch.ckpt import save_params
+from segland_tpu_torch.cli import ft_pop, gen_fs_list
+from segland_tpu_torch.data.geotiff import write_tiff
+from segland_tpu_torch.models import build_model
+rng = np.random.RandomState(0)
+for d in ("images", "labels"):
+    os.makedirs({root!r} + "/" + d, exist_ok=True)
+ids = ["t%d" % i for i in range(6)]
+for i, tid in enumerate(ids):
+    lab = rng.randint(0, 12, (2, 2)).repeat(16, 0).repeat(16, 1).astype(np.uint8)
+    lab[0, 0] = 8 + i % 4
+    write_tiff({root!r} + "/images/" + tid + ".tif", rng.randint(0, 256, (32, 32, 3)).astype(np.uint8))
+    write_tiff({root!r} + "/labels/" + tid + ".tif", lab)
+open({root!r} + "/train.txt", "w").write("\\n".join(ids[:5]) + "\\n")
+open({root!r} + "/val.txt", "w").write(ids[5] + "\\n")
+gen_fs_list.main(["--data-dir", {root!r}, "--train-list", {root!r} + "/train.txt", "--shot", "1"])
+save_params({root!r} + "/base.pth", build_model("convnext_pop", n_base=7))
+res = ft_pop.main(["--data-dir", {root!r}, "--train-list", {root!r} + "/train.txt",
+                   "--val-list", {root!r} + "/val.txt", "--model", "convnext_pop", "--fused",
+                   "--device", "cpu", "--restore-from", {root!r} + "/base.pth",
+                   "--input-size", "32,32", "--base-size", "32,32", "--batch-size", "1",
+                   "--num-epoch", "1", "--shot", "1", "--update-base", "--fix-lr",
+                   "--num-workers", "0", "--snapshot-dir", {out!r}])
+assert set(res) == {{123}}
+print(sorted(m for m in sys.modules if m.split('.')[0] in {foreign!r}))
+"""
+
+
+def test_ft_entry_points_run_without_jax_flax_pil_or_the_jax_package(tmp_path):
+    from segland_tpu_torch import native
+
+    if native.get_lib() is None:
+        pytest.skip("no C++ compiler or zlib here: tiles would be read through PIL")
+    code = RUN_FT.format(root=str(tmp_path / "data"), out=str(tmp_path / "snap"),
+                         foreign=FOREIGN)
+    env = dict(os.environ, CUDA_HOME="/nonexistent")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]

@@ -86,6 +86,6 @@ def test_dataset_and_loader_give_the_jax_samples(root):
 
 
 def test_registry_and_device_augment():
-    assert set(DATASETS) == {"oem"}
+    assert set(DATASETS) == {"oem", "oem_ft"}
     with pytest.raises(NotImplementedError, match="A4, its second PR"):
         OEMTrainDataset("/nonexistent", "/nonexistent/train.txt", device_augment=True)
