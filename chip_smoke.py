@@ -49,18 +49,24 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      counts of that run, its mIoU and tiles/s; the same batches with the
      kernels' plain versions (>= 99% argmax agreement); an fp32 forward on
      the card against the same model on the CPU;
-  7a. train: convnext_pop / convnext-t base training through the port's entry
-     point (cli.train_base.main: bf16 --fused, batch 4, 768^2 crops, AdamW at
-     1e-3) on 1024^2 GeoTIFF tiles the script writes, 2 epochs of 4 steps with
-     2 validation batches in each: the loss dicts finite, epoch_N.pth and
-     best.pth written, best.pth through eval_base, K1 18 a train step and a
-     validation batch and K2 1 a validation batch (any other count fails);
-     one train step with the kernels against one with their plain versions
-     from the same weights and batch, every gradient held to what another
-     correct route does (fp32: twice the stock-torch blocks' relative error;
-     bf16: twice the plain route's distance from the fp32 gradient), the
-     worst tensor printed; the step's ms, 768^2 crops/s fused and --no-fused
-     in turns, and max_memory_allocated of each alone;
+  7a. train: base training of convnext_pop / convnext-t and of swin_pop /
+     swin-s (full width and depth, DropPath and the decoder's dropout live)
+     through the port's entry point (cli.train_base.main: bf16 --fused, batch
+     4, 768^2 crops, AdamW at 1e-3) on 1024^2 GeoTIFF tiles the script writes,
+     2 epochs of 4 steps with 2 validation batches in each: the loss dicts
+     finite, the seg loss falling, epoch_N.pth and best.pth written, best.pth
+     through eval_base, K1 18 (convnext) or K3 24 and K1 24 (swin) a train
+     step and a validation batch and K2 1 a validation batch (any other count
+     fails); for each model one train step with the kernels against one with
+     their plain versions from the same weights, batch and step generator,
+     every gradient held to what another correct route does (fp32: twice the
+     stock-torch blocks' relative error; bf16: twice the plain route's
+     distance from the fp32 gradient), the worst tensor printed; the swin
+     section's and whole block's autograd Functions at 768^2 stage shapes
+     (stage 0 and 2, shift 0 and 3, K5's dispatch at group 2): kernel
+     forward against the plain version, gradients against autograd through
+     the plain version; each model's step ms, 768^2 crops/s fused and
+     --no-fused in turns, and max_memory_allocated of each alone;
   7b. ft: few-shot fine-tuning through the port's entry points on 1024^2
      GeoTIFF tiles the script writes (raw classes 0-11 in blocks), support
      lists from cli.gen_fs_list: cli.ft_pop at scripts/ft_oem.sh's config
@@ -143,7 +149,7 @@ plain version's time, bound, library call's time) and the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the rest of
 the repo beside it, it fails before printing any result.
 
-    python3 chip_smoke.py --phases train    # base training of convnext_pop (K1, K2) on the card
+    python3 chip_smoke.py --phases train    # base training of convnext_pop and swin_pop on the card
     python3 chip_smoke.py --phases ft       # few-shot fine-tuning of swin_pop and convnext_pop
     python3 chip_smoke.py --phases k2,k6    # K2 and K6 at every shape of their phases
     python3 chip_smoke.py --phases k1,k3    # K1 and K3 with their build, SASS and phase lines
@@ -153,6 +159,7 @@ the repo beside it, it fails before printing any result.
     python3 chip_smoke.py --phases k11,f32  # the variants probe's kernel, the fp32 body
     python3 chip_smoke.py --phases profile  # torch.profiler over the swin and deeplab_pop slices
     python3 chip_smoke.py --phases dilated  # cuDNN's 3x3 at ASPP's dilations vs nine 1x1 taps
+    python3 chip_smoke.py --phases steprule # the fp32 train-step check's rule on correct routes
 """
 
 import contextlib
@@ -185,6 +192,13 @@ def sum_bounds(items):
     ms = sum(b for b, _ in items)
     ops = sum(b for b, by in items if by == "operations")
     return ms, "operations" if ops >= ms - ops else "bytes"
+
+
+def card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
 
 
 def fail(msg):
@@ -572,38 +586,16 @@ def check_k3(dev, b, c, nh, side, pside, shift, dtype, atol, rtol, seed):
 
 
 def torch_section_route(a, mask, regions, nh):
-    """The stock-torch route of the same section on the same windows, as the
-    unfused swin block runs it in x's dtype: F.layer_norm and the pad mask,
-    the qkv F.linear, q k^T with the rel-pos bias and the shift mask, softmax
-    in fp32, P V, the projection F.linear and the residual."""
-    import torch
-    import torch.nn.functional as F
+    """The stock-torch route of the same section on the same windows
+    (ops/fused_attn.py:attn_section_torch, the formulation that the section's
+    autograd Function differentiates): F.layer_norm and the pad mask, the qkv
+    F.linear, q k^T with the rel-pos bias and the shift penalty, softmax in
+    fp32, P V, the projection F.linear and the residual, in x's dtype."""
+    from segland_tpu_torch.ops.fused_attn import attn_section_torch
 
-    x = a["x"]
-    dt = x.dtype
-    nw, n, c = x.shape
-    hd = c // nh
-    gamma, beta = a["gamma"].to(dt), a["beta"].to(dt)
-    bqkv, bproj = a["bqkv"].to(dt), a["bproj"].to(dt)
-    m = mask.to(dt)[None, :, :, None] if mask.shape[0] > 1 else mask.to(dt)[0][None, :, None]
-    bias = a["bias"].to(dt)
-    if regions is not None:
-        pen = torch.where(regions[:, :, None] != regions[:, None, :], -100.0, 0.0).to(dt)
-        bias = bias + pen[:, None]  # [nW_img, nh, N, N]
-    nw_img = bias.shape[0]
-
-    def route():
-        y = F.layer_norm(x, (c,), gamma, beta, 1e-5)
-        y = (y.reshape(nw // m.shape[1], m.shape[1], n, c) * m).reshape(nw, n, c) \
-            if m.dim() == 4 else y * m
-        q, k, v = F.linear(y, a["wqkv"].t(), bqkv).reshape(nw, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
-        s = (q * hd ** -0.5) @ k.transpose(-1, -2)
-        s = (s.reshape(nw // nw_img, nw_img, nh, n, n) + bias).reshape(nw, nh, n, n)
-        p = torch.softmax(s.float(), dim=-1).to(dt)
-        ctx = (p @ v).permute(0, 2, 1, 3).reshape(nw, n, c)
-        return x + F.linear(ctx, a["wproj"].t(), bproj)
-
-    return route
+    args = (a["x"], mask, a["gamma"], a["beta"], a["wqkv"], a["bqkv"], a["wproj"], a["bproj"],
+            a["bias"], nh)
+    return lambda: attn_section_torch(*args, regions=regions)
 
 
 def phase_k3(dev):
@@ -1848,11 +1840,11 @@ def build(name, dtype, seed=0, fused=True, is_ft=False, attn_group=1):
     with torch.no_grad():
         for blk in model.modules():
             if isinstance(blk, ConvNeXtBlock):
-                # upstream's 1e-6 layer-scale would hide every block's MLP from the output
+                # the init's 1e-6 layer-scale would hide every block's MLP from the output
                 blk.gamma.copy_(torch.empty_like(blk.gamma).uniform_(0.1, 0.5, generator=g))
             elif isinstance(blk, SwinBlock):
-                # upstream's 0.02-scale weights and rel-pos table make every softmax
-                # near-uniform and every branch small beside the residual
+                # the init's 0.02-scale rel-pos table makes every softmax near-uniform;
+                # these draws also keep every branch well above the residual's rounding
                 for m in blk.modules():
                     if isinstance(m, nn.Linear):
                         m.weight.normal_(0.0, m.in_features ** -0.5, generator=g)
@@ -1984,6 +1976,26 @@ def phase_slice(dev, name, want_per_batch, is_ft=False, fp32_check=True, route="
 
 TRAIN_BATCH, TRAIN_CROP, TRAIN_TILES, VAL_TILES, TRAIN_EPOCHS = 4, 768, 16, 4, 2
 TRAIN_BLOCK = 64  # the side of a tile's blocks of one colour and one class
+# the models the train phase trains, and the launches of one forward (a train step's, none
+# in its backward, or a validation batch's)
+TRAIN_MODELS = {"convnext_pop": {"ln_mlp": 18}, "swin_pop": {"ln_mlp": 24, "attn_section": 24}}
+# The fp32 bodies of K1 and K3 sum in order, one FMA a term, where cuBLAS blocks its sums:
+# over K1's longest reduction (4C = 3072 terms at C = 768) that rounds a feature by about
+# sqrt(3072) * 2^-24 = 3.3e-6 of its terms.  The ft head's gradients are well conditioned (no
+# cancellation, unlike base training's deep ones), so the stock-torch blocks (cuBLAS, as the
+# plain versions) sit within 1e-6 of the plain route and this rounding sets the kernels'
+# distance: three times it is the fp32 bar's floor in the ft step.
+FP32_SUM_FLOOR = 3 * math.sqrt(4 * 768) * 2.0 ** -24
+# Models whose fp32 step check (hold_steps' ``perturbed``) holds the kernel route to the
+# farthest of three correct routes: the stock-torch blocks, and the plain route on the image
+# scaled by 1 + FP32_SUM_FLOOR and by 1 - FP32_SUM_FLOOR, a perturbation of the size by which
+# the kernels' fp32 bodies round a block's output away from cuBLAS's.  swin_pop's decoder
+# follows conv biases and each PSP stage's pooled map (1x1 at the coarsest: BatchNorm over the
+# batch's 4 values) with a BatchNorm in train mode, so some of its gradients are sums that
+# cancel almost to nothing, and the stock-torch blocks, whose rounding is cuBLAS's as the
+# plain route's is, understate how far rounding moves them.
+TRAIN_PERTURBED = ("swin_pop",)
+PERTURBED = {"plain x(1+e)": 1 + FP32_SUM_FLOOR, "plain x(1-e)": 1 - FP32_SUM_FLOOR}
 
 
 def write_train_tiles(root):
@@ -2037,10 +2049,11 @@ def _rel_err(a, b):
 
 def train_step_model(dtype, fused=True, name="convnext_pop", is_ft=False):
     """chip_smoke's draw of ``name`` (convnext by default) with the POP
-    classifier's three 1x1 convs drawn at 2 / sqrt(fan-in): upstream's init
-    leaves the logits within about 0.03 of each other, so the loss sits at ln K
-    whatever the features are; at this scale they spread by about 1 and the
-    loss reads the network."""
+    classifier's three 1x1 convs drawn at 2 / sqrt(fan-in): their init
+    (torch's Conv2d default, as the JAX package's) leaves the logits within
+    about 0.03 of each other, so the loss sits at ln K whatever the features
+    are; at this scale they spread by about 1 and the loss reads the
+    network."""
     import torch
 
     model = build(name, dtype, seed=3, fused=fused, is_ft=is_ft)
@@ -2052,63 +2065,79 @@ def train_step_model(dtype, fused=True, name="convnext_pop", is_ft=False):
     return model
 
 
-def check_train_steps(dev):
-    """One train step with the kernels and one inside ops.plain_versions(),
-    from the same weights (train_step_model) and batch (768^2 x 4): the seg
-    loss, and every parameter's gradient.  Each route's seg loss must stand
-    at least 0.1 above ln 8, its value for flat logits, so that the loss
-    check sees the network's output.  A gradient deep in the network
-    sums many terms that cancel (the stem's over every pixel of a random
-    image), so rounding anywhere above it moves it by far more than the
+def check_train_steps(dev, name="convnext_pop"):
+    """One train step of ``name`` with the kernels and one inside
+    ops.plain_versions(), from the same weights (train_step_model) and batch
+    (768^2 x 4): the seg loss, and every parameter's gradient.  The step draws
+    its DropPath and dropout masks (swin_pop) from the generator of (seed 0,
+    step 0) on the card, so every route draws the same masks.  Each route's
+    seg loss must stand at least 0.1 above ln 8, its value for flat logits,
+    so that the loss check sees the network's output.  A gradient deep in the
+    network sums many terms that cancel (the stem's over every pixel of a
+    random image), so rounding anywhere above it moves it by far more than the
     rounding itself; each route is held to what another correct route does.
     fp32 (TF32 off): the kernel route's relative error from the plain route,
     per tensor, at most twice the stock-torch blocks' (--no-fused: torch's
-    LayerNorm, cuBLAS linears, GELU) plus 1e-6.  bf16: both routes against
-    the fp32 plain route's gradient, the kernel route's 1 - cosine at most
-    twice the bf16 plain route's plus 1e-4.  Prints the worst tensor of each."""
+    LayerNorm, cuBLAS linears, GELU, softmax) plus 1e-6; for a model of
+    TRAIN_PERTURBED twice the farthest of the stock-torch blocks and the
+    plain route on the image scaled by 1 + FP32_SUM_FLOOR and 1 -
+    FP32_SUM_FLOOR.  bf16: both routes against the fp32 plain route's
+    gradient, the kernel route's 1 - cosine at most twice the bf16 plain
+    route's plus 1e-4.  Prints the worst tensor of each.  The kernel step
+    must launch exactly the model's kernels of one forward (TRAIN_MODELS),
+    none in the backward."""
     import torch
     from segland_tpu_torch.ops import plain_versions
 
     g = torch.Generator().manual_seed(4)
     img = torch.randn(TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3, generator=g).to(dev)
     mask = torch.randint(0, 8, (TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP), generator=g).to(dev)
+    want = TRAIN_MODELS[name]
     runs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        model = train_step_model(dtype).to(dev)
-        k1 = counters()["ln_mlp"]
-        k1.launches = 0
-        runs[dtype, "kernels"] = train_step_grads(model, img, mask)
-        if k1.launches != 18:
-            fail(f"train step ({dtype}) launched K1 {k1.launches} times, want 18")
+        model = train_step_model(dtype, name=name).to(dev)
+        runs[dtype, "kernels"], launches = counted(lambda: train_step_grads(model, img, mask))
+        if launches != want:
+            fail(f"train step {name} ({dtype}) launch counts {launches}, want {want}")
         with plain_versions():
             runs[dtype, "plain"] = train_step_grads(model, img, mask)
+            if dtype == torch.float32 and name in TRAIN_PERTURBED:
+                for route, f in PERTURBED.items():
+                    runs[dtype, route] = train_step_grads(model, img * f, mask)
         del model
         if dtype == torch.float32:
-            model = train_step_model(dtype, fused=False).to(dev)
+            model = train_step_model(dtype, fused=False, name=name).to(dev)
             runs[dtype, "unfused"] = train_step_grads(model, img, mask)
             del model
         torch.cuda.empty_cache()
-    hold_steps(f"train step {TRAIN_BATCH}x{TRAIN_CROP}^2", runs, 8)
+    tag = f"train step{'' if name == 'convnext_pop' else ' ' + name} {TRAIN_BATCH}x{TRAIN_CROP}^2"
+    hold_steps(tag, runs, 8, perturbed=name in TRAIN_PERTURBED)
 
 
-def hold_steps(tag, runs, k, flat_check=True, fp32_floor=1e-6):
+def hold_steps(tag, runs, k, flat_check=True, fp32_floor=1e-6, perturbed=False):
     """check_train_steps' bars over ``runs`` {(dtype, route): (loss dict,
     {name: grad}, ...)}, routes kernels, plain and (fp32) unfused, with
     ``fp32_floor`` the fp32 bar's additive term; ``k`` classes, so that ln k is
     the seg loss of flat logits, which each route's must stand 0.1 above where
-    ``flat_check``."""
+    ``flat_check``.  With ``perturbed``, runs also holds the fp32 PERTURBED
+    routes, and the fp32 bar of a tensor is twice the largest of the three
+    correct routes' relative errors (the stock-torch blocks and the two
+    PERTURBED) plus ``fp32_floor``."""
     import torch
 
-    ref, gu = runs[torch.float32, "plain"][1], runs[torch.float32, "unfused"][1]
+    ref = runs[torch.float32, "plain"][1]
+    correct = ["unfused"] + (list(PERTURBED) if perturbed else [])
+    errs = {r: {n: _rel_err(runs[torch.float32, r][1][n], ref[n]) for n in ref} for r in correct}
     for dtype in (torch.float32, torch.bfloat16):
         (ld_k, gk), (ld_p, gp) = runs[dtype, "kernels"][:2], runs[dtype, "plain"][:2]
         worst, largest = (-1.0, "", ""), (-1.0, "", "")
         for n in gp:
             if dtype == torch.float32:
-                ek, eu = _rel_err(gk[n], gp[n]), _rel_err(gu[n], gp[n])
+                ek, eu = _rel_err(gk[n], gp[n]), max(errs[r][n] for r in correct)
                 margin = ek - (2 * eu + fp32_floor)
-                text = (f"relative error from the plain route: kernels {ek:.3g}, stock-torch "
-                        f"blocks {eu:.3g} (bar 2 x stock + {fp32_floor:.3g})")
+                text = (f"relative error from the plain route: kernels {ek:.3g}, "
+                        + ", ".join(f"{r} {errs[r][n]:.3g}" for r in correct)
+                        + f" (bar 2 x the largest + {fp32_floor:.3g})")
             else:
                 ek, ep = _cos_err(gk[n], ref[n]), _cos_err(gp[n], ref[n])
                 margin = ek - (2 * ep + 1e-4)
@@ -2131,15 +2160,15 @@ def hold_steps(tag, runs, k, flat_check=True, fp32_floor=1e-6):
             fail(f"{tag} {dtype}: seg_loss {lk} vs {lp}")
 
 
-def train_setup(dev, fused):
-    """(state, step, (img, mask)): convnext_pop bf16 with AdamW at 1e-3 and a
+def train_setup(dev, fused, name="convnext_pop"):
+    """(state, step, (img, mask)): ``name`` bf16 with AdamW at 1e-3 and a
     768^2 x 4 batch already on the card."""
     import torch
     from segland_tpu_torch.models import build_model
     from segland_tpu_torch.train import TrainState, create_optimizer, make_base_train_step
 
-    model = build_model("convnext_pop", None, n_base=7, dtype=torch.bfloat16, fused_mlp=fused,
-                        device=dev, generator=torch.Generator().manual_seed(0))
+    model = build_model(name, None, n_base=7, dtype=torch.bfloat16, fused_mlp=fused,
+                        fused_attn=fused, device=dev, generator=torch.Generator().manual_seed(0))
     state = TrainState(model, create_optimizer(model, 1e-3, 200, 100))
     g = torch.Generator().manual_seed(1)
     img = torch.randn(TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3, generator=g).to(dev)
@@ -2189,99 +2218,216 @@ def step_ms(setup, rounds=2, steps=6, warmup=3):
         yield times
 
 
+def train_cli_run(dev, root, name):
+    """cli.train_base.main for ``name`` at bf16 --fused, batch 4, 768^2 crops,
+    AdamW at 1e-3, TRAIN_EPOCHS epochs of 4 steps with validation (2 batches
+    of 2) in each, on write_train_tiles' tiles: the loss dicts finite, the seg
+    loss's mean over the last epoch below its first step's, the snapshots and
+    best.pth written and best.pth through eval_base; TRAIN_MODELS' launches a
+    train step and a validation batch, K2 1 a validation batch, any other
+    count fails.  Returns the launch counts."""
+    from segland_tpu_torch.cli import eval_base, train_base
+
+    snap = os.path.join(root, f"{name}_snap")
+    lst = os.path.join(root, "list")
+    args = ["--data-dir", root, "--train-list", os.path.join(lst, "train.txt"),
+            "--val-list", os.path.join(lst, "val.txt"), "--model", name,
+            "--dtype", "bfloat16", "--fused", "--batch-size", str(TRAIN_BATCH),
+            "--input-size", f"{TRAIN_CROP},{TRAIN_CROP}", "--learning-rate", "1e-3",
+            "--num-epoch", str(TRAIN_EPOCHS), "--val-start", "0", "--val-frequency", "1",
+            "--snapshot-frequency", "1", "--test-batch-size", "2", "--print-frequency", "1",
+            "--metrics", "--num-workers", "4", "--snapshot-dir", snap]
+    t0 = time.time()
+    best, launches = counted(lambda: train_base.main(args))
+    wall = time.time() - t0
+    steps = TRAIN_EPOCHS * TRAIN_TILES // TRAIN_BATCH
+    val_batches = TRAIN_EPOCHS * VAL_TILES // 2
+    want = {k: n * (steps + val_batches) for k, n in TRAIN_MODELS[name].items()}
+    want["upsample_argmax"] = val_batches
+    rows = [json.loads(line) for line in open(os.path.join(snap, "metrics.jsonl"))]
+    losses = [r["value"] for r in rows if r["tag"] == "train/total_loss"]
+    seg = [r["value"] for r in rows if r["tag"] == "train/seg_loss"]
+    print(f"train {name} (cli.train_base, bf16 --fused, {TRAIN_BATCH}x{TRAIN_CROP}^2, "
+          f"{TRAIN_EPOCHS} epochs of {steps // TRAIN_EPOCHS} steps + {val_batches} val "
+          f"batches): {wall:.1f}s launches={launches} best_val_mIoU={best:.4f} "
+          f"total_loss {' '.join(f'{x:.4f}' for x in losses)} seg_loss "
+          f"{' '.join(f'{x:.4f}' for x in seg)}", flush=True)
+    if launches != want:
+        fail(f"train {name} launch counts {launches}, want {want}")
+    if len(losses) != steps or not all(np.isfinite(r["value"]) for r in rows):
+        fail(f"train {name} loss dicts: {len(losses)} of {steps} steps, or not finite")
+    last = float(np.mean(seg[-(steps // TRAIN_EPOCHS):]))
+    if not last < seg[0]:
+        fail(f"train {name} seg_loss did not fall: the last epoch's mean {last} against the "
+             f"first step's {seg[0]}")
+    for f in [f"epoch_{e + 1}.pth" for e in range(TRAIN_EPOCHS)] + ["best.pth"]:
+        if not os.path.exists(os.path.join(snap, f)):
+            fail(f"train_base ({name}) wrote no {f}")
+    res = eval_base.main(["--data-dir", root, "--val-list", os.path.join(lst, "val.txt"),
+                          "--model", name, "--dtype", "bfloat16",
+                          "--restore-from", os.path.join(snap, "best.pth"),
+                          "--eval-batch", "2", "--num-workers", "4",
+                          "--save-path", os.path.join(root, f"{name}_eval")])
+    total = res[123][2]
+    print(f"train {name}: eval_base on best.pth: mIoU total={total:.4f}", flush=True)
+    if not 0.0 <= total <= 1.0:
+        fail(f"eval_base on {name}'s best.pth gave mIoU {total}")
+    return launches
+
+
+# a 768^2 crop's swin-s stages: (C, heads, side, padded side); the op-level checks' shapes
+TRAIN_SWIN_STAGES = ((96, 3, 192, 196), (192, 6, 96, 98), (384, 12, 48, 49), (768, 24, 24, 28))
+# The Functions' gradients (a stock-torch recompute, ops/fused_attn.py) against autograd
+# through the plain version on the same inputs: in fp32 (TF32 off) the same function with
+# other rounding points, so the relative error per tensor stays within this bar.
+FUNCTION_FP32_BAR = 1e-5
+
+
+def function_grads(fn, ins, cot):
+    """(output, [gradient of sum(output * cot) per input]) of ``fn(*ins)``, the
+    inputs detached copies that require grad."""
+    import torch
+
+    ins = [a.detach().requires_grad_() for a in ins]
+    out = fn(*ins)
+    return out.detach(), list(torch.autograd.grad(out, ins, cot))
+
+
+def check_function_grads(dev, which, stage, shift, group=1, seed=40):
+    """The section (``which`` 'section') or whole-block autograd Function at a
+    stage shape of a batch of TRAIN_BATCH 768^2 crops, with the kernel
+    forward: its output against the plain version's (K3's bars), its launches
+    (the kernel once in the forward, nothing in the backward), its gradients
+    of a random cotangent for every differentiable input (the rel-pos bias's
+    included) against autograd through the plain version: fp32 within
+    FUNCTION_FP32_BAR relative, bf16 by the step's rule (1 - cosine to the
+    fp32 plain gradient at most twice the bf16 plain autograd's plus 1e-4).
+    ``group`` 2: K5's dispatch (no geom).  Returns the worst share of a bar."""
+    import torch
+    from segland_tpu_torch.ops.fused_attn import (attn_section_reference, block_reference,
+                                                  swin_attn_section_fused, swin_block_fused)
+
+    c, nh, side, pside = TRAIN_SWIN_STAGES[stage]
+    nw = TRAIN_BATCH * (pside // 7) ** 2
+    geom = (side, side, pside, pside, 7, shift)
+    mask, regions = masks_on(dev, geom)
+    worst, line = 0.0, []
+    grads = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        a = section_inputs(nw, c, nh, dtype, dev, seed)
+        names = ["x", "gamma", "beta", "wqkv", "bqkv", "wproj", "bproj", "bias"]
+        ins = [a[k] for k in names]
+        if which == "block":
+            m = mlp_inputs(1, c, dtype, dev, seed + 1, with_res=False, with_ls=False)
+            names += ["gamma2", "beta2", "w1", "b1", "w2", "b2"]
+            ins += [m[k] for k in ("gamma", "beta", "w1", "b1", "w2", "b2")]
+            fused = lambda x, *p: swin_block_fused(x, mask, *p, nh, regions=regions, geom=geom)
+            plain = lambda x, *p: block_reference(x, mask, *p, nh, regions=regions)
+        else:
+            kw = dict(regions=regions, group=group, geom=geom if group == 1 else None)
+            fused = lambda x, *p: swin_attn_section_fused(x, mask, *p, nh, **kw)
+            plain = lambda x, *p: attn_section_reference(x, mask, *p, nh, regions=regions)
+        ins = list(linear_weights(ins, dtype))  # the weights as the models hand them over
+        cot = torch.randn(nw, 49, c, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(seed + 2)).to(dtype)
+        (out, gk), launches = counted(lambda: function_grads(fused, ins, cot))
+        want = {("swin_block" if which == "block" else
+                 "attn_section" if group == 1 else "attn_section_v1"): 1}
+        if launches != want:
+            fail(f"{which} Function launches {launches}, want {want} (none in the backward)")
+        ref, gp = function_grads(plain, ins, cot)
+        grads[dtype] = (gk, gp)
+        atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1e-2)
+        tag = f"{which} Function {str(dtype)[6:]} C={c} shift={shift} group={group}"
+        if which == "block":  # K4's rule (check_k4): a few bf16 elements just past the bar
+            d = (out.float() - ref.float()).abs()
+            lim = atol + rtol * ref.float().abs()
+            bad, worse = int((d > lim).sum()), int((d > 2 * lim).sum())
+            allowed = int(K4_OUTLIERS * d.numel()) if dtype == torch.bfloat16 else 0
+            if not bool(out.isfinite().all()) or bad > allowed or worse:
+                fail(f"{tag}: {bad} elements past |d|<={atol}+{rtol}*|ref| (at most "
+                     f"{allowed}), {worse} past twice it (none), or not finite")
+            e = float(d.max())
+            del d, lim
+        else:
+            e = compare(tag, out, ref, atol, rtol)
+        line.append(f"{str(dtype)[6:]} out max_abs_err={e:.3g}")
+        del out, ref
+    (gk32, gp32), (gk16, gp16) = grads[torch.float32], grads[torch.bfloat16]
+    for n, k32, p32, k16, p16 in zip(names, gk32, gp32, gk16, gp16):
+        e32 = _rel_err(k32, p32)
+        ek, ep = _cos_err(k16, p32), _cos_err(p16, p32)
+        share = max(e32 / FUNCTION_FP32_BAR, ek / (2 * ep + 1e-4))
+        if share > worst:
+            worst, wname, wtext = share, n, (f"fp32 rel {e32:.3g} (bar {FUNCTION_FP32_BAR}); "
+                                             f"bf16 1-cos {ek:.3g}, plain autograd's {ep:.3g}")
+        if not e32 <= FUNCTION_FP32_BAR or not ek <= 2 * ep + 1e-4:
+            fail(f"{which} Function C={c} shift={shift} group={group}: gradient of {n}: fp32 "
+                 f"relative error {e32:.3g} (bar {FUNCTION_FP32_BAR}), bf16 1-cos {ek:.3g} "
+                 f"against the plain autograd's {ep:.3g} (bar 2x + 1e-4)")
+    print(f"{which} Function NW={nw} C={c} heads={nh} geom={geom} group={group}: "
+          f"{'; '.join(line)}; gradients of {len(names)} inputs, the nearest its bar "
+          f"{wname} ({worst:.2f} of it): {wtext}", flush=True)
+    del grads
+    torch.cuda.empty_cache()
+    return worst
+
+
+def check_swin_functions(dev):
+    """check_function_grads at stage 0 and stage 2 of a 768^2 crop (both padded:
+    192 -> 196 and 48 -> 49) with shift 0 and 3, the block at stage 2 with
+    shift 3, and K5's dispatch at group 2 at stage 2."""
+    worst = max(check_function_grads(dev, "section", stage, shift)
+                for stage in (0, 2) for shift in (0, 3))
+    worst = max(worst, check_function_grads(dev, "block", 2, 3),
+                check_function_grads(dev, "section", 2, 3, group=2))
+    print(f"train: the Functions' gradients, the worst share of a bar {worst:.2f}", flush=True)
+
+
 def phase_train(dev):
-    """convnext_pop / convnext-t base training on the card through the port's
-    entry point: cli.train_base.main at bf16, batch 4, 768^2 crops, AdamW at
-    1e-3, TRAIN_EPOCHS epochs of 4 steps with validation (2 batches of 2) in
-    each; the loss dicts finite, the seg loss's mean over the last epoch below
-    its first step's, the snapshots and best.pth written and
-    best.pth through eval_base; K1 18 a train step and a validation batch, K2
-    1 a validation batch, any other count fails.  Then one step with the
-    kernels against one with their plain versions (bf16, fp32) and the step's
-    time and memory fused and --no-fused, in turns."""
+    """Base training on the card through the port's entry point for each
+    model of TRAIN_MODELS (train_cli_run); then check_train_steps for each,
+    the swin Functions' op-level gradients (check_swin_functions), and the
+    step's time and memory fused and --no-fused, the routes in turns.
+    Returns {path: launch counts}."""
     import tempfile
 
     import torch
-    from segland_tpu_torch.cli import eval_base, train_base
 
     t_phase = time.time()
+    paths = {}
     with tempfile.TemporaryDirectory() as root:
         write_train_tiles(root)
-        snap = os.path.join(root, "snap")
-        lst = os.path.join(root, "list")
-        args = ["--data-dir", root, "--train-list", os.path.join(lst, "train.txt"),
-                "--val-list", os.path.join(lst, "val.txt"), "--model", "convnext_pop",
-                "--dtype", "bfloat16", "--fused", "--batch-size", str(TRAIN_BATCH),
-                "--input-size", f"{TRAIN_CROP},{TRAIN_CROP}", "--learning-rate", "1e-3",
-                "--num-epoch", str(TRAIN_EPOCHS), "--val-start", "0", "--val-frequency", "1",
-                "--snapshot-frequency", "1", "--test-batch-size", "2", "--print-frequency", "1",
-                "--metrics", "--num-workers", "4", "--snapshot-dir", snap]
-        t0 = time.time()
-        best, launches = counted(lambda: train_base.main(args))
-        wall = time.time() - t0
-        steps = TRAIN_EPOCHS * TRAIN_TILES // TRAIN_BATCH
-        val_batches = TRAIN_EPOCHS * VAL_TILES // 2
-        want = {"ln_mlp": 18 * (steps + val_batches), "upsample_argmax": val_batches}
-        rows = [json.loads(line) for line in open(os.path.join(snap, "metrics.jsonl"))]
-        losses = [r["value"] for r in rows if r["tag"] == "train/total_loss"]
-        seg = [r["value"] for r in rows if r["tag"] == "train/seg_loss"]
-        print(f"train convnext_pop (cli.train_base, bf16 --fused, {TRAIN_BATCH}x{TRAIN_CROP}^2, "
-              f"{TRAIN_EPOCHS} epochs of {steps // TRAIN_EPOCHS} steps + {val_batches} val "
-              f"batches): {wall:.1f}s launches={launches} best_val_mIoU={best:.4f} "
-              f"total_loss {' '.join(f'{x:.4f}' for x in losses)} seg_loss "
-              f"{' '.join(f'{x:.4f}' for x in seg)}", flush=True)
-        if launches != want:
-            fail(f"train launch counts {launches}, want {want}")
-        if len(losses) != steps or not all(np.isfinite(r["value"]) for r in rows):
-            fail(f"train loss dicts: {len(losses)} of {steps} steps, or not finite")
-        last = float(np.mean(seg[-(steps // TRAIN_EPOCHS):]))
-        if not last < seg[0]:
-            fail(f"train seg_loss did not fall: the last epoch's mean {last} against the "
-                 f"first step's {seg[0]}")
-        for name in [f"epoch_{e + 1}.pth" for e in range(TRAIN_EPOCHS)] + ["best.pth"]:
-            if not os.path.exists(os.path.join(snap, name)):
-                fail(f"train_base wrote no {name}")
-        res = eval_base.main(["--data-dir", root, "--val-list", os.path.join(lst, "val.txt"),
-                              "--model", "convnext_pop", "--dtype", "bfloat16",
-                              "--restore-from", os.path.join(snap, "best.pth"),
-                              "--eval-batch", "2", "--num-workers", "4",
-                              "--save-path", os.path.join(root, "eval")])
-        total = res[123][2]
-        print(f"train: eval_base on best.pth: mIoU total={total:.4f}", flush=True)
-        if not 0.0 <= total <= 1.0:
-            fail(f"eval_base on best.pth gave mIoU {total}")
-    torch.cuda.empty_cache()
-    check_train_steps(dev)
-    setups = {"fused": lambda: train_setup(dev, True),
-              "--no-fused": lambda: train_setup(dev, False)}
-    peaks = {key: step_peak(setup) for key, setup in setups.items()}
-    routes = {key: step_ms(setup) for key, setup in setups.items()}
+        for name in TRAIN_MODELS:
+            paths[f"{name} train"] = train_cli_run(dev, root, name)
+            torch.cuda.empty_cache()
+    for name in TRAIN_MODELS:
+        check_train_steps(dev, name)
+    check_swin_functions(dev)
+    setups = {(name, key): (lambda n=name, f=fused: train_setup(dev, f, n))
+              for name in TRAIN_MODELS for key, fused in (("fused", True), ("--no-fused", False))}
+    peaks = {route: step_peak(setup) for route, setup in setups.items()}
+    routes = {route: step_ms(setup) for route, setup in setups.items()}
     got = {}
-    for _ in range(2):  # the two routes in turns, a round each
-        for key, gen in routes.items():
-            got[key] = next(gen)
-    for key, times in got.items():
-        peak = peaks[key]
+    for _ in range(2):  # the routes in turns, a round each
+        for route, gen in routes.items():
+            got[route] = next(gen)
+    smi = card()
+    for (name, key), times in got.items():
+        peak = peaks[name, key]
         ms = float(np.median(times))
-        print(f"train convnext_pop bf16 {TRAIN_BATCH}x{TRAIN_CROP}^2 AdamW {key}: "
+        print(f"train {name} bf16 {TRAIN_BATCH}x{TRAIN_CROP}^2 AdamW {key}: "
               f"ms_per_step={ms:.2f} (median of {len(times)} after 3 warm-up; "
               f"min {min(times):.2f} max {max(times):.2f}) crops_per_s="
-              f"{TRAIN_BATCH * 1e3 / ms:.2f} max_memory_allocated={peak / 2**30:.2f} GiB",
-              flush=True)
+              f"{TRAIN_BATCH * 1e3 / ms:.2f} max_memory_allocated={peak / 2**30:.2f} GiB "
+              f"({smi})", flush=True)
     print(f"train phase: {time.time() - t_phase:.1f}s", flush=True)
-    return launches
+    return paths
 
 
 # the fine-tune phase: tiles, and per model the support shot of its CLI run and the
 # launches of one forward of the frozen trunk (K2 adds one a step and a validation batch)
 FT_TILES, FT_VAL_TILES, FT_SEED = 8, 2, 123
-# The fp32 bodies of K1 and K3 sum in order, one FMA a term, where cuBLAS blocks its sums:
-# over K1's longest reduction (4C = 3072 terms at C = 768) that rounds a feature by about
-# sqrt(3072) * 2^-24 = 3.3e-6 of its terms.  The head's gradients are well conditioned (no
-# cancellation, unlike base training's deep ones), so the stock-torch blocks (cuBLAS, as the
-# plain versions) sit within 1e-6 of the plain route and this rounding sets the kernels'
-# distance: three times it is the fp32 bar's floor in the ft step.
-FP32_SUM_FLOOR = 3 * math.sqrt(4 * 768) * 2.0 ** -24
 FT_MODELS = {"swin_pop": dict(shot=5, per_forward={"ln_mlp": 24, "attn_section": 24}),
              "convnext_pop": dict(shot=1, per_forward={"ln_mlp": 18})}
 
@@ -2493,7 +2639,7 @@ def check_ft_steps(dev, name):
 
 
 def ft_setup(dev, name, fused):
-    """(state, step, episode): ``name`` bf16 as ft_pop builds it (upstream
+    """(state, step, episode): ``name`` bf16 as ft_pop builds it (the port's
     init from a seeded generator, classifier_n copied), SGD at 1e-4 with
     weight decay 1e-4 and a fixed LR over the trainable subset, an episode of
     ft_batch already on the card."""
@@ -2807,6 +2953,48 @@ def phase_dilated(dev):
               flush=True)
 
 
+def phase_steprule(dev):
+    """What the fp32 step check's rule does with routes that are correct by
+    construction: for each model of TRAIN_MODELS and batch seeds 4 (the train
+    phase's), 5 and 6, the fp32 step's gradients (train_step_model's weights)
+    by the kernel route, the stock-torch blocks and the plain route on the
+    image scaled by 1 +- 2^-20 and by 1 +- FP32_SUM_FLOOR, each route's
+    relative error from the plain route; printed, per route, the largest share
+    of "2 x the stock-torch blocks' error + 1e-6" over the tensors, and the
+    kernel route's largest share of "2 x the farthest of the stock-torch blocks
+    and the 1 +- FP32_SUM_FLOOR routes + 1e-6" (TRAIN_PERTURBED's rule)."""
+    import torch
+    from segland_tpu_torch.ops import plain_versions
+
+    scales = {"x(1+2^-20)": 1 + 2 ** -20, "x(1-2^-20)": 1 - 2 ** -20}
+    scales.update({k[len("plain "):]: f for k, f in PERTURBED.items()})
+    for name in TRAIN_MODELS:
+        for seed in (4, 5, 6):
+            g = torch.Generator().manual_seed(seed)
+            img = torch.randn(TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3, generator=g).to(dev)
+            mask = torch.randint(0, 8, (TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP), generator=g).to(dev)
+            model = train_step_model(torch.float32, name=name).to(dev)
+            grads = {"kernels": train_step_grads(model, img, mask)[1]}
+            with plain_versions():
+                ref = train_step_grads(model, img, mask)[1]
+                for key, f in scales.items():
+                    grads["plain " + key] = train_step_grads(model, img * f, mask)[1]
+            del model
+            model = train_step_model(torch.float32, fused=False, name=name).to(dev)
+            grads["unfused"] = train_step_grads(model, img, mask)[1]
+            del model
+            torch.cuda.empty_cache()
+            err = {r: {n: _rel_err(x[n], ref[n]) for n in ref} for r, x in grads.items()}
+            share = lambda r, refs: max(
+                (err[r][n] / (2 * max(err[o][n] for o in refs) + 1e-6), n) for n in ref)
+            old = [f"{r} {v:.3f} ({n})" for r in grads if r != "unfused"
+                   for v, n in [share(r, ["unfused"])]]
+            v, n = share("kernels", ["unfused", "plain x(1+e)", "plain x(1-e)"])
+            print(f"steprule {name} fp32 batch seed {seed}: the largest share of 2 x stock + 1e-6: "
+                  f"{'; '.join(old)}; kernels against 2 x the farthest of stock and plain "
+                  f"x(1+-e) + 1e-6: {v:.3f} ({n})", flush=True)
+
+
 def main(argv=None):
     import argparse
 
@@ -2819,7 +3007,8 @@ def main(argv=None):
                     help="comma list of k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,train,ft,"
                          "swin,deeplab,pspnet (default: all eighteen); profile: a torch.profiler "
                          "breakdown of the swin and deeplab_pop slices; dilated: cuDNN vs the "
-                         "nine-tap 3x3 at large dilations")
+                         "nine-tap 3x3 at large dilations; steprule: the fp32 train-step "
+                         "check's rule on routes correct by construction")
     phases = set(ap.parse_args(argv).phases.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2831,9 +3020,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = card()
     print(f"device: {name} count={torch.cuda.device_count()} torch={torch.__version__} "
           f"cuda={torch.version.cuda}; nvidia-smi: {smi}", flush=True)
 
@@ -2905,7 +3092,7 @@ def main(argv=None):
               f"{tps_p:.2f}, unfused {tps_u:.2f}", flush=True)
         torch.cuda.empty_cache()
     if "train" in phases:
-        paths["convnext_pop train"] = phase_train(dev)
+        paths.update(phase_train(dev))
         torch.cuda.empty_cache()
     if "ft" in phases:
         paths.update(phase_ft(dev))
@@ -2965,6 +3152,8 @@ def main(argv=None):
         phase_profile(dev)
     if "dilated" in phases:
         phase_dilated(dev)
+    if "steprule" in phases:
+        phase_steprule(dev)
     if phases != set(ap.get_default("phases").split(",")):
         print(f"chip_smoke: phases {sorted(phases)} only; no result line", file=sys.stderr)
         return 3

@@ -78,15 +78,18 @@ EVAL_FUSED_DEFAULTS = {"convnext_pop": True, "swin_pop": True, "deeplab_pop": Fa
                        "pspnet_pop": False}
 
 
-# Train default of --fused: off.  With --fused, K1 runs every ConvNeXt block's
-# LN+MLP forward and the backward recomputes the plain version and
-# differentiates it, as the JAX package's custom VJP does; that recompute is
-# 3x the stock-torch route's forward (PERF.md section 6, B1's plain version).
-# chip_smoke.py's train phase (NVIDIA H100 80GB HBM3, 700.00 W; bf16, batch 4,
-# 768^2 crops, AdamW, median of 12 steps, the routes in turns): fused 53.95 ms
-# a step against 32.57 unfused in a run of the phase alone, 62.24 and 62.77
-# against 34.06 and 35.27 in two whole runs (PERF.md section 5).
-TRAIN_FUSED_DEFAULTS = {"convnext_pop": False}
+# Train defaults of --fused: off.  With --fused, K1 runs every ConvNeXt and Swin
+# block's LN+MLP forward and K3 every Swin block's attention section; the backward
+# recomputes and differentiates (K1 through its plain version, 3x the stock-torch
+# route's forward, PERF.md section 6, B1; the section through the stock-torch route),
+# as the JAX package's custom VJPs do.  chip_smoke.py's train phase (NVIDIA H100 80GB
+# HBM3, 700.00 W; bf16, batch 4, 768^2 crops, AdamW, median of 12 steps, the routes in
+# turns): convnext_pop fused 53.95 ms a step against 32.57 unfused in a run of the phase
+# alone, 62.24, 62.77, 66.20 and 69.08 against 34.06, 35.27, 38.32 and 42.36 in four
+# whole runs; swin_pop 189.70 and 219.82 against 147.01 and 158.56 in two, with 2.38-2.39
+# against 6.45 GiB of peak memory (PERF.md section 5).  Fused takes 0.37-0.48 of the
+# memory and 1.3-1.8x the time.
+TRAIN_FUSED_DEFAULTS = {"convnext_pop": False, "swin_pop": False}
 
 
 # Fine-tune defaults of --fused.  The fine-tune runs the backbone and decoder frozen,

@@ -20,7 +20,7 @@ from ``gen_fs_list`` beside --train-list); SGD trains ``novel_emb`` and
 and total mIoU) and writes ``best_<seed>.pth`` (upstream keys) where the base
 mIoU improved, which ``cli.eval_ft`` and the JAX package's
 ``load_torch_checkpoint`` read.  --update-base resamples the base samples every
---update-epoch epochs.  More than one process (DDP) is ROADMAP A4's second PR
+--update-epoch epochs.  More than one process (DDP) is ROADMAP A4c
 and raises.
 """
 
@@ -32,7 +32,7 @@ import torch
 
 from .common import (add_common_args, add_train_args, full_fp32, model_dtype, parse_hw,
                      resolve_fused, str2bool, to_device)
-from .train_base import A4_SECOND
+from .train_base import A4C
 from ..ckpt import load_pth, save_params
 from ..data import Loader, OEMFtTrainDataset, OEMValDataset
 from ..models import NOT_PORTED, build_model
@@ -63,7 +63,7 @@ def check_trainable(args):
         raise ValueError(f"{args.model} is not ported yet (ROADMAP item {NOT_PORTED[args.model]})")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise ValueError(f"fine-tuning over more than one process (DDP) is not ported yet "
-                         f"(ROADMAP {A4_SECOND})")
+                         f"(ROADMAP {A4C})")
 
 
 def main(argv=None):

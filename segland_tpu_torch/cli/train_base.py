@@ -5,13 +5,15 @@ segland_tpu/cli/train_base.py on one device.
         --dtype bfloat16 --num-epoch 200 --batch-size 4 --input-size 768,768 \\
         --learning-rate 1e-3
 
-Trains ``convnext_pop`` (K1 in every block's forward with --fused, off by
-default: see TRAIN_FUSED_DEFAULTS), ``pspnet_pop`` and ``deeplab_pop`` (BatchNorm in train mode).
+Trains ``convnext_pop`` (K1 in every block's forward with --fused),
+``swin_pop`` (K3 and K1 in every block's forward with --fused, each
+differentiable; DropPath and the decoder's dropout drawn from a generator
+seeded by --random-seed and the step), ``pspnet_pop`` and ``deeplab_pop``
+(BatchNorm in train mode); the default of --fused is TRAIN_FUSED_DEFAULTS'.
 Snapshots ``epoch_N.pth`` every --snapshot-frequency epochs, validates after
 --val-start every --val-frequency epochs through the ``Evaluator`` (K2 on the
 card) and keeps the best as ``best.pth``.  Still to come, and raising here:
-``swin_pop`` (its DropPath and the backward of K3 and K4), --device-augment
-and more than one process (DDP) are ROADMAP A4's second PR; the other
+--device-augment and more than one process (DDP) are ROADMAP A4c; the other
 models are their own ROADMAP items.
 """
 
@@ -30,9 +32,7 @@ from ..models import NOT_PORTED, build_model
 from ..train import TrainState, create_optimizer, make_base_train_step
 from ..utils import format_loss_dict, prep_experiment
 
-A4_SECOND = "A4, its second PR"
-# models that build but do not train yet, and what they lack
-NOT_TRAINED = {"swin_pop": f"{A4_SECOND}: swin's DropPath and the backward of K3 and K4"}
+A4C = "A4c"
 
 
 def get_parser():
@@ -48,7 +48,7 @@ def get_parser():
                    help="replicate the reference's double optimizer.step quirk "
                         "(train_base.py:262-264)")
     p.add_argument("--device-augment", action="store_true",
-                   help=f"augment on the device: not ported yet (ROADMAP {A4_SECOND}); raises")
+                   help=f"augment on the device: not ported yet (ROADMAP {A4C}); raises")
     p.add_argument("--metrics", action="store_true",
                    help="write train/val scalars to <snapshot-dir>/metrics.jsonl")
     return p
@@ -58,14 +58,11 @@ def check_trainable(args):
     """Raise, naming the ROADMAP item, for what this port cannot train yet."""
     if args.model in NOT_PORTED:
         raise ValueError(f"{args.model} is not ported yet (ROADMAP item {NOT_PORTED[args.model]})")
-    if args.model in NOT_TRAINED:
-        raise ValueError(f"{args.model} does not train in the port yet "
-                         f"(ROADMAP {NOT_TRAINED[args.model]})")
     if args.device_augment:
-        raise ValueError(f"--device-augment is not ported yet (ROADMAP {A4_SECOND})")
+        raise ValueError(f"--device-augment is not ported yet (ROADMAP {A4C})")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise ValueError(f"training over more than one process (DDP) is not ported yet "
-                         f"(ROADMAP {A4_SECOND})")
+                         f"(ROADMAP {A4C})")
     if args.dataset != "oem":  # oem_ft's items are (novel, base) pairs
         raise ValueError(f"dataset {args.dataset!r} is the fine-tune's: train_base reads 'oem', "
                          f"cli.ft_pop fine-tunes (ROADMAP A5)")
@@ -113,7 +110,8 @@ def main(argv=None):
         load_checkpoint(args.resume_from, state)
         logger.info(f"resumed from {args.resume_from} at epoch {state.epoch}")
     train_step = make_base_train_step(model, "orth", double_step=args.double_step,
-                                      skip_nonfinite=args.skip_nonfinite, fix_bn=args.fix_bn)
+                                      skip_nonfinite=args.skip_nonfinite, seed=seed,
+                                      fix_bn=args.fix_bn)
     evaluator = Evaluator(model, device, num_classes=1 + n_base, n_base=n_base,
                           ignore_label=args.ignore_label)
 

@@ -26,7 +26,7 @@ class OEMTrainDataset:
     Pipeline: crop -> pad -> flip -> rot90 -> normalize(0.5, 0.5, 0.5).  The
     list is ``train.txt`` beside ``list_path``, as upstream reads it.  The
     JAX package's ``device_augment`` (the raw tiles, augmented inside the
-    step) is ROADMAP A4's second PR here and raises."""
+    step) is ROADMAP A4c here and raises."""
 
     num_classes = NUM_CLASSES
 
@@ -35,7 +35,7 @@ class OEMTrainDataset:
         if device_augment:
             raise NotImplementedError(
                 "device_augment (the augmentations on the device) is not ported yet "
-                "(ROADMAP item A4, its second PR)")
+                "(ROADMAP item A4c)")
         self.root = root
         self.crop_size = tuple(crop_size)
         self.ignore_label = ignore_label

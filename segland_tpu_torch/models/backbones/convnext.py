@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from ...ops.fused_mlp import fused_ln_mlp
 from ...ops.layers import conv2d, linear
+from ..init import flax_defaults_
 
 
 def layer_norm_nhwc(m: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -79,16 +80,11 @@ class ConvNeXt(nn.Module):
             for i in range(4))
 
     def reset_parameters(self, generator=None):
-        """Upstream init: trunc-normal(0.02) conv/linear weights, zero biases,
-        unit norms, layer-scale 1e-6."""
+        """The JAX package's init: lecun-normal conv and linear weights, zero
+        biases, unit norms (``models/init.py``), layer-scale 1e-6."""
+        flax_defaults_(self, generator)
         for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                nn.init.trunc_normal_(m.weight, std=0.02, generator=generator)
-                nn.init.zeros_(m.bias)
-            elif isinstance(m, nn.LayerNorm):
-                nn.init.ones_(m.weight)
-                nn.init.zeros_(m.bias)
-            elif isinstance(m, ConvNeXtBlock):
+            if isinstance(m, ConvNeXtBlock):
                 nn.init.constant_(m.gamma, 1e-6)
 
     def forward(self, x):

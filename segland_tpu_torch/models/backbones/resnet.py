@@ -16,7 +16,6 @@ Convolutions go through :func:`conv2d`, so an open ``quant_interceptor``
 attributes for that interceptor's fused route.
 """
 
-import math
 from typing import Sequence
 
 import torch
@@ -25,6 +24,7 @@ import torch.nn.functional as F
 
 from ...ops.pooling import max_pool_3x3_s2
 from ...ops.layers import batch_norm, conv2d
+from ..init import flax_defaults_
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1, dilation: int = 1) -> nn.Conv2d:
@@ -113,14 +113,9 @@ class ResNet(nn.Module):
         self.layer4 = _make_layer(512, layers[3], 1024, last_relu=relu_l4, **l4)
 
     def reset_parameters(self, generator=None):
-        """Upstream init: normal(0, sqrt(2 / (k*k*out))) conv weights, unit
-        BatchNorm."""
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                n = m.kernel_size[0] * m.kernel_size[1] * m.out_channels
-                nn.init.normal_(m.weight, 0.0, math.sqrt(2.0 / n), generator=generator)
-            elif isinstance(m, nn.BatchNorm2d):
-                m.reset_parameters()
+        """The JAX package's init: lecun-normal conv weights, unit BatchNorm
+        (``models/init.py``)."""
+        flax_defaults_(self, generator)
 
     def _stem(self, x):
         x = F.relu(batch_norm(self.bn1, conv2d(self.conv1, x)))

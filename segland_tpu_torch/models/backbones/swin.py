@@ -1,4 +1,4 @@
-"""Swin Transformer backbone (T/S/B/L), PyTorch, eval only.
+"""Swin Transformer backbone (T/S/B/L), PyTorch.
 
 Port of segland_tpu/models/backbones/swin.py with upstream SegLand's module
 names (networks/backbones/swintransformer.py), so ``state_dict()`` keys are
@@ -10,7 +10,10 @@ Tokens run channels-last ([B,H,W,C]) inside the backbone; the pyramid comes
 out NCHW as views of that storage.  Parameters stay fp32 and are cast to the
 compute dtype at use.  The shifted-window mask, the pad-token mask and the
 region ids are static numpy tables of the map size, cached per device.
-DropPath is the identity at eval and comes with training.
+In train mode (``module.training``) each block drops its two residual
+branches per sample (``DropPath``, rates 0 -> ``drop_path_rate`` over the
+blocks, masks from the step's generator, ``droppath.py``); at eval DropPath
+is the identity.
 
 The routes through a block, as in the JAX package:
   * unfused: LN, pad, roll, partition, WindowAttention (stock torch);
@@ -22,10 +25,16 @@ The routes through a block, as in the JAX package:
   * ``attn_group != 1``: the same through the v1 kernel (``geom=None``: masks
     shipped in, ``attn_group`` windows a super-window);
   * ``fused_block_stages``: with ``fused_attn`` and ``fused_mlp``, the whole
-    block of those stages through ``swin_block_fused``, one kernel;
+    block of those stages through ``swin_block_fused``, one kernel, in a
+    block whose DropPath is inactive (eval, or rate 0);
   * ``SEGLAND_SWIN_WR=1`` with ``fused_attn`` and ``fused_mlp``: window-
-    resident stages (partition once a stage, the MLP in window layout).
-``fused_mlp`` routes LN2 + MLP + residual through ``fused_ln_mlp``.
+    resident stages (partition once a stage, the MLP in window layout), in
+    eval mode only.
+``fused_mlp`` routes LN2 + MLP + residual through ``fused_ln_mlp``.  The
+fused ops add the residual inside, so with DropPath active a block recovers
+each branch as (output - shortcut), as the JAX package does.  Under grad
+the fused section and block run through their autograd Functions
+(``ops/fused_attn.py``); ``use_pallas`` (K6) has no backward.
 """
 
 import functools
@@ -41,7 +50,9 @@ from ...ops.fused_attn import (swin_attn_section_fused, swin_block_fused,
                                 window_attention_fused)
 from ...ops.fused_mlp import fused_ln_mlp
 from ...ops.layers import conv2d, linear
+from ..init import flax_defaults_, truncated_normal_
 from .convnext import layer_norm_nhwc
+from .droppath import DropPath, drop_path_rates
 
 _CONFIGS = {
     "swin-t": dict(depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24), embed_dim=96),
@@ -182,11 +193,13 @@ class SwinBlock(nn.Module):
     """``attn_group``: windows fused into one super-window by the v1
     attention-section kernel (1 = the index-math kernel).  ``fused_block``:
     attention section and MLP in one kernel; engages only with ``fused_attn``,
-    ``fused_mlp`` and ``attn_group == 1``."""
+    ``fused_mlp``, ``attn_group == 1`` and no active DropPath.  ``drop_path``:
+    the block's DropPath rate (two DropPaths, no parameters)."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int = 7, shift_size: int = 0,
                  mlp_ratio: float = 4.0, use_pallas: bool = False, fused_mlp: bool = False,
-                 fused_attn: bool = False, attn_group: int = 1, fused_block: bool = False):
+                 fused_attn: bool = False, attn_group: int = 1, fused_block: bool = False,
+                 drop_path: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.window_size = window_size
@@ -199,6 +212,8 @@ class SwinBlock(nn.Module):
         self.attn = WindowAttention(dim, num_heads, window_size, use_pallas)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.drop_path1 = DropPath(drop_path)
+        self.drop_path2 = DropPath(drop_path)
 
     def _windows(self, x, pad_b, pad_r):
         """Pad, roll and partition [B,H,W,C] into windows."""
@@ -247,10 +262,11 @@ class SwinBlock(nn.Module):
         ws = self.window_size
         pad_b, pad_r = (-h) % ws, (-w) % ws
         hp, wp = h + pad_b, w + pad_r
+        dp = self.training and self.drop_path1.rate > 0.0
         if self.fused_attn:
             args, kw, geom = self._section_args(x, h, w, hp, wp)
             wins = self._windows(x, pad_b, pad_r).contiguous()
-            use_block = self.fused_block and self.fused_mlp and self.attn_group == 1
+            use_block = self.fused_block and self.fused_mlp and self.attn_group == 1 and not dp
             if use_block:
                 wins = swin_block_fused(wins, *args, *self._mlp_args(), self.num_heads,
                                         geom=geom, **kw)
@@ -258,22 +274,25 @@ class SwinBlock(nn.Module):
                 wins = self._attn_section(wins, args, kw, geom)
             # the residual was added inside, on the padded and rolled domain,
             # where it commutes with reverse, unroll and unpad
-            x = self._unwindows(wins, b, h, w, hp, wp)
+            out = self._unwindows(wins, b, h, w, hp, wp)
             if use_block:
-                return x  # attention and MLP both done
+                return out  # attention and MLP both done
+            # the branch for stochastic depth is what the section added
+            x = x + self.drop_path1(out - x) if dp else out
         else:
             y = layer_norm_nhwc(self.norm1, x)
             mask = (_table("shift_attn_mask", x.device, hp, wp, ws, self.shift_size)
                     if self.shift_size > 0 else None)
             wins = self.attn(self._windows(y, pad_b, pad_r), mask)
-            x = x + self._unwindows(wins, b, h, w, hp, wp)
+            x = x + self.drop_path1(self._unwindows(wins, b, h, w, hp, wp))
         if self.fused_mlp:
-            return fused_ln_mlp(x.contiguous(), *self._mlp_args(), eps=1e-5)
-        return x + self.mlp(layer_norm_nhwc(self.norm2, x))
+            out = fused_ln_mlp(x.contiguous(), *self._mlp_args(), eps=1e-5)
+            return x + self.drop_path2(out - x) if dp else out
+        return x + self.drop_path2(self.mlp(layer_norm_nhwc(self.norm2, x)))
 
     def _win_resident(self, wins, win_shape):
-        """Eval-only window-resident body; needs ``fused_attn`` and
-        ``fused_mlp``.  Every op of a block is token-local except attention,
+        """Eval-only window-resident body (no DropPath); needs ``fused_attn``
+        and ``fused_mlp``.  Every op of a block is token-local except attention,
         so an unshifted block runs with no layout change and a shifted one
         with two windows-to-windows permutations (reverse, roll, partition).
         Pad tokens ride through the MLP, masked in attention by ``mask_tok``,
@@ -336,12 +355,15 @@ class BasicLayer(nn.Module):
 class SwinTransformer(nn.Module):
     """``fused_attn_stages``: stages where ``fused_attn`` engages (None = all).
     ``fused_block_stages``: stages where the whole-block kernel engages (None
-    = none); needs ``fused_attn`` and ``fused_mlp`` at that stage.  Parameters
-    and state-dict keys are the same on every route."""
+    = none); needs ``fused_attn`` and ``fused_mlp`` at that stage.
+    ``drop_path_rate``: the last block's DropPath rate (upstream's default
+    0.2), the others on the linspace from 0.  Parameters and state-dict keys
+    are the same on every route."""
 
     def __init__(self, depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), embed_dim: int = 96,
-                 window_size: int = 7, patch_size: int = 4, use_pallas: bool = False,
+                 window_size: int = 7, patch_size: int = 4, drop_path_rate: float = 0.2,
+                 use_pallas: bool = False,
                  fused_mlp: bool = False, fused_attn: bool = False, fused_attn_stages=None,
                  fused_block_stages=None, attn_group: int = 1,
                  dtype: torch.dtype = torch.float32):
@@ -351,6 +373,7 @@ class SwinTransformer(nn.Module):
         self.fused_mlp = fused_mlp
         self.patch_embed = PatchEmbed(patch_size, embed_dim)
         layers = []
+        dpr = drop_path_rates(drop_path_rate, depths)
         for i, depth in enumerate(depths):
             dim = int(embed_dim * 2 ** i)
             fa = fused_attn and (fused_attn_stages is None or i in fused_attn_stages)
@@ -359,7 +382,8 @@ class SwinTransformer(nn.Module):
             blocks = [SwinBlock(dim, num_heads[i], window_size,
                                 shift_size=0 if j % 2 == 0 else window_size // 2,
                                 use_pallas=use_pallas, fused_mlp=fused_mlp,
-                                fused_attn=fa, attn_group=attn_group, fused_block=fb)
+                                fused_attn=fa, attn_group=attn_group, fused_block=fb,
+                                drop_path=dpr[sum(depths[:i]) + j])
                       for j in range(depth)]
             layers.append(BasicLayer(blocks,
                                      PatchMerging(dim) if i < len(depths) - 1 else None))
@@ -367,30 +391,20 @@ class SwinTransformer(nn.Module):
         self.layers = nn.ModuleList(layers)
 
     def reset_parameters(self, generator=None):
-        """Upstream init: trunc-normal(0.02) linear weights and rel-pos tables,
-        zero biases, unit norms; the patch-embed conv keeps torch's default."""
+        """The JAX package's init: lecun-normal linear and patch-embed weights,
+        zero biases, unit norms (``models/init.py``), rel-pos tables
+        truncated-normal at 0.02."""
+        flax_defaults_(self, generator)
         for m in self.modules():
-            if isinstance(m, nn.Linear):
-                nn.init.trunc_normal_(m.weight, std=0.02, generator=generator)
-                if m.bias is not None:
-                    nn.init.zeros_(m.bias)
-            elif isinstance(m, nn.LayerNorm):
-                nn.init.ones_(m.weight)
-                nn.init.zeros_(m.bias)
-            elif isinstance(m, WindowAttention):
-                nn.init.trunc_normal_(m.relative_position_bias_table, std=0.02,
-                                      generator=generator)
-            elif isinstance(m, nn.Conv2d):
-                nn.init.kaiming_uniform_(m.weight, a=5 ** 0.5, generator=generator)
-                bound = 1.0 / m.weight[0].numel() ** 0.5
-                nn.init.uniform_(m.bias, -bound, bound, generator=generator)
+            if isinstance(m, WindowAttention):
+                truncated_normal_(m.relative_position_bias_table, 0.02, generator)
 
     def forward(self, x):
         """[B,3,H,W] -> 4-level pyramid, fine -> coarse, NCHW."""
         x = self.patch_embed(x.to(self.dtype))
         outs = []
-        # read at call time, as the JAX package reads it at trace time
-        wr_env = os.environ.get("SEGLAND_SWIN_WR", "0") == "1"
+        # read at call time, as the JAX package reads it at trace time; eval only
+        wr_env = not self.training and os.environ.get("SEGLAND_SWIN_WR", "0") == "1"
         for i, layer in enumerate(self.layers):
             if wr_env and self.fused_mlp and layer.blocks[0].fused_attn:
                 # window-resident serving: partition once a stage

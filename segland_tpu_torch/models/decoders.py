@@ -5,7 +5,7 @@ swin_pop decoder (UperNet+ over a PSP-v2 top), the pspnet_pop decoder
 A7-A9.  Pyramid decoders take fine -> coarse lists (x[0] the finest); PSPModule
 and ASPP take the backbone's last map.  BatchNorm follows ``module.training``
 (``ops/layers.py:batch_norm``): running statistics in eval mode, the batch's
-in train mode."""
+in train mode; so does PSPModuleV2's dropout."""
 
 import math
 from typing import Sequence
@@ -18,28 +18,13 @@ from ..ops.pooling import adaptive_avg_pool
 from ..ops.resize import resize_bilinear
 from ..ops.layers import batch_norm, conv2d
 from .backbones.convnext import layer_norm_nhwc
-
-
-def _init_conv(conv: nn.Conv2d, generator=None):
-    """torch's Conv2d default init, drawn from ``generator``."""
-    nn.init.kaiming_uniform_(conv.weight, a=math.sqrt(5), generator=generator)
-    if conv.bias is not None:
-        bound = 1.0 / math.sqrt(conv.weight[0].numel())
-        nn.init.uniform_(conv.bias, -bound, bound, generator=generator)
+from .backbones.droppath import dropout
+from .init import flax_defaults_
 
 
 def _resize(x, hw):
     """align_corners=True bilinear resize of an NCHW map."""
     return resize_bilinear(x.permute(0, 2, 3, 1), hw, align_corners=True).permute(0, 3, 1, 2)
-
-
-def _reset(module: nn.Module, generator=None):
-    """torch's default init of every conv and BatchNorm under ``module``."""
-    for m in module.modules():
-        if isinstance(m, nn.Conv2d):
-            _init_conv(m, generator)
-        elif isinstance(m, nn.BatchNorm2d):
-            m.reset_parameters()
 
 
 class ConvBNReLU(nn.Sequential):
@@ -70,7 +55,12 @@ class PSPModuleV2(nn.Module):
     """swin/upernet-style PSP (reference networks/swin_pop.py:7-35): pooled
     priors through 1x1 conv + BN + ReLU, upsampled with align_corners=True,
     concatenated with the input, then a 1x1 bottleneck conv (no bias) + BN +
-    ReLU (+ Dropout2d(0.1), the identity at eval)."""
+    ReLU + dropout at 0.1 in train mode.  The dropout is the JAX package's
+    element-wise ``nn.Dropout`` (upstream drops whole channels,
+    ``Dropout2d``), its mask drawn from the step's generator
+    (``backbones/droppath.py``)."""
+
+    DROP = 0.1
 
     def __init__(self, features: int, out_features: int = 512,
                  sizes: Sequence[int] = (1, 2, 3, 6)):
@@ -82,7 +72,7 @@ class PSPModuleV2(nn.Module):
     def forward(self, feats):
         hw = tuple(feats.shape[-2:])
         priors = [_resize(stage(feats), hw) for stage in self.stages] + [feats]
-        return self.bottleneck(torch.cat(priors, dim=1))
+        return dropout(self.bottleneck(torch.cat(priors, dim=1)), self.DROP, self.training)
 
 
 class PSPModule(nn.Module):
@@ -104,7 +94,7 @@ class PSPModule(nn.Module):
             nn.Conv2d(out_features, out_features, 1))
 
     def reset_parameters(self, generator=None):
-        _reset(self, generator)
+        flax_defaults_(self, generator)
 
     def forward(self, feats):
         feats = feats.to(self.dtype)
@@ -162,7 +152,7 @@ class ASPP(nn.Module):
         self.fc = _ConvBN((len(rates) + 2) * out_features, out_features, 1)
 
     def reset_parameters(self, generator=None):
-        _reset(self, generator)
+        flax_defaults_(self, generator)
 
     def forward(self, feats):
         feats = feats.to(self.dtype)
@@ -207,7 +197,7 @@ class UperNetPlusDecoder(nn.Module):
         self.fpn_convs = nn.ModuleList(_scale_head(dim, n) for n in n_ups)
 
     def reset_parameters(self, generator=None):
-        _reset(self, generator)
+        flax_defaults_(self, generator)
 
     def forward(self, feats):
         feats = [f.to(self.dtype) for f in feats]
@@ -246,9 +236,7 @@ class FPNOCRDecoder(nn.Module):
         self.norm = nn.LayerNorm(out_features, eps=1e-5)
 
     def reset_parameters(self, generator=None):
-        _init_conv(self.conv, generator)
-        nn.init.ones_(self.norm.weight)
-        nn.init.zeros_(self.norm.bias)
+        flax_defaults_(self, generator)
 
     def forward(self, feats):
         dt = self.dtype

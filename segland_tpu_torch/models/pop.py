@@ -92,9 +92,10 @@ class GFSSModel(nn.Module):
         return self.decoder_name not in ("psp", "aspp", "identity")
 
     def reset_parameters(self, generator: torch.Generator | None = None):
-        """Upstream init, every draw from ``generator``: the backbone's and the
-        decoder's own schemes, torch's Conv2d default for the classifiers,
-        orthogonal prototypes."""
+        """The JAX package's init, every draw from ``generator``: the
+        backbone's and the decoder's (``models/init.py``), torch's Conv2d
+        default for the classifiers (the JAX package's ``_torch_conv_init``
+        and ``_w3_init``), orthogonal prototypes."""
         self.backbone.reset_parameters(generator)
         self.decoder.reset_parameters(generator)
         heads = [self.classifier] + ([self.classifier_n] if self.is_ft else [])
@@ -106,10 +107,11 @@ class GFSSModel(nn.Module):
 
     def extract_features(self, img):
         """backbone + decoder -> [B, h, w, d_model] fp32 (channels-last view).
-        BatchNorm follows ``module.training`` (``model.train()``), where the
-        JAX package passes ``train``; convnext_pop has no other train-only
-        layer (its DropPath rate is 0), and swin_pop trains only its POP head
-        (``forward_novel``)."""
+        The train-only layers follow ``module.training`` (``model.train()``),
+        where the JAX package passes ``train``: BatchNorm, and in swin_pop
+        each block's DropPath and PSPModuleV2's dropout, whose masks come from
+        the step's generator (``backbones/droppath.py``); convnext_pop's
+        DropPath rate is 0, as in the JAX package."""
         if self.backbone_name.startswith("resnet"):
             feats = self.backbone(img, return_list=self.needs_pyramid)
         else:

@@ -11,7 +11,12 @@ the card, and no product path opens it.
 A kernel writes its output into a fresh tensor that autograd knows nothing
 of.  So every kernel wrapper calls :func:`forward_only` before it launches:
 where a gradient was asked for, it raises instead of handing back a result
-cut off from its inputs.  K1 alone has a backward (``ops/fused_mlp.py``).
+cut off from its inputs.  K1, K3/K5 and K4 have a backward: the public op
+(``fused_ln_mlp``, ``swin_attn_section_fused``, ``swin_block_fused``) runs
+under grad inside an autograd Function, whose forward launches the kernel
+with grad off and whose backward recomputes a formulation in PyTorch and
+differentiates it, as the JAX package's custom VJPs do (``ops/fused_mlp.py``,
+``ops/fused_attn.py``).  K2 and K6-K11 have none.
 """
 
 import contextlib
@@ -40,12 +45,13 @@ def use_kernel(t) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
-def forward_only(op: str, *tensors) -> None:
-    """Raise RuntimeError, naming ``op``, where grad is enabled and one of
-    ``tensors`` (None entries allowed) requires grad: the kernel ``op`` has
-    no backward, and its output would carry no ``grad_fn``."""
+def forward_only(op: str, *tensors, why: str = "") -> None:
+    """Raise RuntimeError, naming ``op`` (and ``why``), where grad is enabled
+    and one of ``tensors`` (None entries allowed) requires grad: the kernel
+    ``op`` has no backward, and its output would carry no ``grad_fn``."""
     if torch.is_grad_enabled() and any(
             isinstance(a, torch.Tensor) and a.requires_grad for a in tensors):
         raise RuntimeError(
-            f"{op}: this CUDA kernel has no backward, and an input requires grad; run it "
-            f"under torch.no_grad() / torch.inference_mode(), or take the route without it")
+            f"{op}: this CUDA kernel has no backward{', ' + why if why else ''}, and an input "
+            f"requires grad; run it under torch.no_grad() / torch.inference_mode(), or take "
+            f"the route without it")

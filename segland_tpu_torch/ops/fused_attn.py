@@ -10,6 +10,14 @@ shipped in, ``group`` windows a super-window), :func:`swin_block`
 :func:`attn_section_reference`, :func:`block_reference` and
 :func:`window_attention_reference`.
 
+Where a gradient is asked for, the section and the block run inside
+:class:`AttnSection` and :class:`SwinBlockFn`: the forward is the same
+dispatch, and the backward recomputes the section through stock torch
+(:func:`attn_section_torch`; the block then adds ``ln_mlp_reference``, K1's
+backward recompute) and differentiates it, as the JAX package's custom VJPs
+recompute an XLA formulation (pallas_attn.py:653-689, 881-920).  The window
+attention core (K6) has no backward, as in the JAX package.
+
 Layouts (prepared by models/backbones/swin.py):
   x_win [NW, N, C]   raw window-partitioned tokens, NW = B * nW_img, N = ws*ws
   qkv   [NW, N, 3C]  pre-projected q | k | v, heads contiguous inside each
@@ -25,10 +33,11 @@ A pad token (mask 0) is zeroed after the norm, still gets bqkv and takes part
 as a key, as the reference backbone pads after norm1.
 """
 
+import collections
+
 import numpy as np
 import torch
-
-import collections
+import torch.nn.functional as F
 
 from . import forward_only, use_kernel
 from .fused_mlp import SMEM_MAX, contiguous_as, kmajor, ln_mlp_reference
@@ -287,6 +296,47 @@ def block_reference(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias
     nw, n, c = a.shape
     out = ln_mlp_reference(a.reshape(nw * n, c), gamma2, beta2, w1, b1, w2, b2, eps=eps)
     return out.reshape(nw, n, c)
+
+
+def attn_section_torch(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                       num_heads: int, eps: float = 1e-5, regions=None):
+    """The section through stock torch in x's dtype, as the unfused swin block
+    runs it: ``F.layer_norm`` and the pad mask, the qkv ``F.linear``, q k^T
+    with the rel-pos bias and the shift penalty, softmax in fp32, P V, the
+    projection ``F.linear`` and the residual.  The same function as
+    :func:`attn_section_reference` with other rounding points (in bf16:
+    gamma, beta and the scores rounded, torch's two-pass variance).  The
+    backward of :class:`AttnSection` and :class:`SwinBlockFn` differentiates
+    it; ``chip_smoke.py`` times it as ``torch_route_ms``."""
+    dt = x_win.dtype
+    nw, n, c = x_win.shape
+    hd = c // num_heads
+    y = F.layer_norm(x_win, (c,), gamma.to(dt), beta.to(dt), eps)
+    m = mask_tok.to(dt)
+    y = (y.reshape(nw // m.shape[0], m.shape[0], n, c) * m[None, :, :, None]).reshape(nw, n, c)
+    q, k, v = F.linear(y, wqkv.t().to(dt), bqkv.to(dt)).reshape(
+        nw, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    s = (q * hd ** -0.5) @ k.transpose(-1, -2)
+    b = bias.to(dt)
+    if regions is not None:
+        pen = torch.where(regions[:, :, None] != regions[:, None, :], -100.0, 0.0)
+        b = b + pen[:, None].to(dt)  # [nW_img, nh, N, N]
+    s = (s.reshape(nw // b.shape[0], b.shape[0], num_heads, n, n) + b).reshape(nw, num_heads, n, n)
+    p = torch.softmax(s.float(), dim=-1).to(dt)
+    ctx = (p @ v).permute(0, 2, 1, 3).reshape(nw, n, c)
+    return x_win + F.linear(ctx, wproj.t().to(dt), bproj.to(dt))
+
+
+def _block_torch(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2, beta2, w1,
+                 b1, w2, b2, num_heads, eps, regions):
+    """The whole block as :class:`SwinBlockFn`'s backward recomputes it: the
+    stock-torch section, then K1's recompute (tanh-GELU in bf16, erf in fp32)
+    over its [NW * N, C] rows."""
+    a = attn_section_torch(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                           num_heads, eps, regions)
+    nw, n, c = a.shape
+    return ln_mlp_reference(a.reshape(nw * n, c), gamma2, beta2, w1, b1, w2, b2,
+                            eps=eps).reshape(nw, n, c)
 
 
 def window_masks(n_windows: int, geom):
@@ -612,7 +662,8 @@ def window_attention(qkv, bias, num_heads: int):
     """Launch the window-attention kernel K6 on CUDA qkv [NW, 49, 3C] (contiguous
     bf16 or fp32); bias [nW_img or 1, nh, 49, 49] in bf16 or fp32, read in its own
     dtype (see _window_bias).  bf16 qkv runs the ring body, fp32 qkv the fp32 body."""
-    forward_only("window_attention", qkv, bias)
+    forward_only("window_attention", qkv, bias,
+                 why="as in the JAX package, whose window_attention_fused has no VJP")
     _check_rows("window_attention", qkv)
     nw, n, c3 = qkv.shape
     c = c3 // 3
@@ -641,23 +692,8 @@ def window_attention_fused(qkv, bias, num_heads: int):
     return window_attention_reference(qkv, bias, num_heads)
 
 
-def swin_attn_section_fused(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
-                            num_heads: int, eps: float = 1e-5, regions=None, group: int = 1,
-                            geom=None):
-    """Fused LN + qkv + window attention + proj + residual over partitioned
-    windows; x_win [NW, N, C] -> [NW, N, C].
-
-    With ``geom = (h, w, hp, wp, ws, shift)`` a CUDA tensor goes to the kernel
-    that derives the pad mask and the shift regions from it; ``mask_tok`` and
-    ``regions`` (which must agree with it) then feed the plain version only.
-    Without ``geom`` it goes to the v1 kernel, which reads ``mask_tok`` and
-    ``regions`` and attends ``group`` windows as one super-window.  ``group``
-    changes nothing in the plain version: the other windows' keys have weight
-    zero."""
-    if geom is not None and group != 1:
-        # ignoring it would make the knob a silent no-op
-        raise ValueError("group != 1 is a knob of the v1 kernel; with geom set the "
-                         "index-math kernel runs, which has no super-windows")
+def _section_dispatch(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads,
+                      eps, regions, group, geom):
     if use_kernel(x_win):
         if geom is None:
             return attn_section_v1(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
@@ -668,6 +704,103 @@ def swin_attn_section_fused(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bpr
                                   bias, num_heads, eps, regions=regions)
 
 
+def _block_dispatch(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2, beta2,
+                    w1, b1, w2, b2, num_heads, eps, regions, geom):
+    if use_kernel(x_win):
+        return swin_block(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2,
+                          beta2, w1, b1, w2, b2, num_heads, eps)
+    return block_reference(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                           gamma2, beta2, w1, b1, w2, b2, num_heads, eps, regions=regions)
+
+
+def _recompute_grads(ctx, n_diff, formulation, grad):
+    """The backward of the two Functions: the saved differentiable inputs
+    (the first ``n_diff`` saved tensors; then mask_tok and regions) through
+    ``formulation`` under grad, differentiated against ``grad``."""
+    saved = ctx.saved_tensors
+    need = ctx.needs_input_grad[:n_diff]
+    inputs = [a.detach().requires_grad_(r) for a, r in zip(saved[:n_diff], need)]
+    mask_tok, regions = saved[n_diff:]
+    with torch.enable_grad():
+        out = formulation(inputs[0], mask_tok, *inputs[1:], ctx.num_heads, ctx.eps, regions)
+    wrt = [a for a in inputs if a.requires_grad]
+    found = iter(torch.autograd.grad(out, wrt, grad))
+    return [next(found) if a.requires_grad else None for a in inputs]
+
+
+class AttnSection(torch.autograd.Function):
+    """K3 (``geom`` set) or K5 made differentiable as the JAX package's custom
+    VJP makes B3 and B5 so: the forward is the dispatch (the kernel on CUDA,
+    the plain version on the CPU), saving the inputs only; the backward
+    recomputes :func:`attn_section_torch` from them and returns its gradients
+    for x, gamma, beta, wqkv, bqkv, wproj, bproj and the rel-pos bias, whose
+    gradient trains ``relative_position_bias_table``.  mask_tok and regions
+    are constants.  A caller's ``weight.T`` view and bf16 cast of the gathered
+    bias get their gradients through the view, the cast and the gather."""
+
+    @staticmethod
+    def forward(ctx, x_win, gamma, beta, wqkv, bqkv, wproj, bproj, bias, mask_tok, regions,
+                num_heads, eps, group, geom):
+        ctx.num_heads, ctx.eps = num_heads, eps
+        ctx.save_for_backward(x_win, gamma, beta, wqkv, bqkv, wproj, bproj, bias, mask_tok,
+                              regions)
+        return _section_dispatch(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                                 num_heads, eps, regions, group, geom)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (*_recompute_grads(ctx, 8, attn_section_torch, grad),) + (None,) * 6
+
+
+class SwinBlockFn(torch.autograd.Function):
+    """K4 made differentiable as the JAX package's custom VJP makes B4 so: the
+    forward is the dispatch, saving the inputs only; the backward recomputes
+    the stock-torch section and K1's recompute over it (``_block_torch``) and
+    returns the gradients of all 14 differentiable inputs."""
+
+    @staticmethod
+    def forward(ctx, x_win, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2, beta2, w1, b1,
+                w2, b2, mask_tok, regions, num_heads, eps, geom):
+        ctx.num_heads, ctx.eps = num_heads, eps
+        ctx.save_for_backward(x_win, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2, beta2,
+                              w1, b1, w2, b2, mask_tok, regions)
+        return _block_dispatch(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                               gamma2, beta2, w1, b1, w2, b2, num_heads, eps, regions, geom)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (*_recompute_grads(ctx, 14, _block_torch, grad),) + (None,) * 5
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(a.requires_grad for a in tensors)
+
+
+def swin_attn_section_fused(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                            num_heads: int, eps: float = 1e-5, regions=None, group: int = 1,
+                            geom=None):
+    """Fused LN + qkv + window attention + proj + residual over partitioned
+    windows; x_win [NW, N, C] -> [NW, N, C].
+
+    With ``geom = (h, w, hp, wp, ws, shift)`` a CUDA tensor goes to the kernel
+    that derives the pad mask and the shift regions from it; ``mask_tok`` and
+    ``regions`` (which must agree with it) then feed the plain version and
+    the backward only.  Without ``geom`` it goes to the v1 kernel, which reads
+    ``mask_tok`` and ``regions`` and attends ``group`` windows as one
+    super-window.  ``group`` changes nothing in the plain version: the other
+    windows' keys have weight zero.  With grad enabled and an input that
+    requires it, through :class:`AttnSection`."""
+    if geom is not None and group != 1:
+        # ignoring it would make the knob a silent no-op
+        raise ValueError("group != 1 is a knob of the v1 kernel; with geom set the "
+                         "index-math kernel runs, which has no super-windows")
+    args = (x_win, gamma, beta, wqkv, bqkv, wproj, bproj, bias)
+    if _wants_grad(*args):
+        return AttnSection.apply(*args, mask_tok, regions, num_heads, eps, group, geom)
+    return _section_dispatch(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                             num_heads, eps, regions, group, geom)
+
+
 def swin_block_fused(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2,
                      beta2, w1, b1, w2, b2, num_heads: int, eps: float = 1e-5, regions=None,
                      geom=None):
@@ -675,15 +808,16 @@ def swin_block_fused(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bia
     partitioned windows in one kernel; x_win [NW, N, C] -> [NW, N, C].
 
     The contract of :func:`swin_attn_section_fused` plus the MLP's parameters;
-    ``geom`` is required.  The JAX function's ``hg`` is not taken here.  Its
-    counterpart on this card, hg heads a pass, is the head-grouped section
-    of ``ops/hg_attn.py`` (K9, K10); on an H100, measured on K9 beside K3,
-    it does not pay (PERF.md, ROADMAP A6), and no block or section route of a
-    model runs it."""
+    ``geom`` is required.  With grad enabled and an input that requires it,
+    through :class:`SwinBlockFn`.  The JAX function's ``hg`` is not taken
+    here.  Its counterpart on this card, hg heads a pass, is the head-grouped
+    section of ``ops/hg_attn.py`` (K9, K10); on an H100, measured on K9
+    beside K3, it does not pay (PERF.md, ROADMAP A6), and no block or section
+    route of a model runs it."""
     if geom is None:
         raise ValueError("swin_block_fused requires geom = (h, w, hp, wp, ws, shift)")
-    if use_kernel(x_win):
-        return swin_block(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2,
-                          beta2, w1, b1, w2, b2, num_heads, eps)
-    return block_reference(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
-                           gamma2, beta2, w1, b1, w2, b2, num_heads, eps, regions=regions)
+    args = (x_win, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2, beta2, w1, b1, w2, b2)
+    if _wants_grad(*args):
+        return SwinBlockFn.apply(*args, mask_tok, regions, num_heads, eps, geom)
+    return _block_dispatch(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2,
+                           beta2, w1, b1, w2, b2, num_heads, eps, regions, geom)

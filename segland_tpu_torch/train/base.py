@@ -1,11 +1,14 @@
 """Base-class train and eval steps (reference train_base.py:235-340).  Port
 of segland_tpu/train/base.py on one device; data parallelism (DDP +
-SyncBatchNorm) is ROADMAP A4's second PR.
+SyncBatchNorm) is ROADMAP A4c.  Each train step hands the forward a random
+generator seeded from (seed, step) for its DropPath and dropout masks, as
+the JAX step folds the step into its ``"dropout"`` key.
 """
 
 import torch
 
 from ..losses import orth_loss
+from ..models.backbones.droppath import dropout_generator, step_seed
 from ..metrics import intersection_and_union
 from ..ops.fused_epilogue import upsample_argmax
 from .state import TrainState
@@ -21,10 +24,15 @@ def _bn_stats(model):
 
 
 def make_base_train_step(model, loss_name: str = "orth", double_step: bool = False,
-                         skip_nonfinite: bool = False, fix_bn: bool = False):
+                         skip_nonfinite: bool = False, seed: int = 0, fix_bn: bool = False):
     """Returns train_step(state, img [B,H,W,3] normalized, mask [B,H,W] int) ->
     (loss_dict, grad_norm), updating ``state`` in place.  ``grad_norm`` is the
     global norm of the raw gradients, before the clip.
+
+    The forward draws its DropPath and dropout masks from a generator on the
+    batch's device seeded by ``droppath.step_seed(seed, state.step)``, so a
+    run resumed at a step draws what the uninterrupted run drew there (a CPU
+    and a CUDA generator draw different masks from one seed).
 
     double_step replicates a reference quirk: train_base.py:262-264 calls
     optimizer.step() a second time after the AMP scaler stepped, so each
@@ -56,7 +64,9 @@ def make_base_train_step(model, loss_name: str = "orth", double_step: bool = Fal
         params = state.tx.params
         for p in params:
             p.grad = None
-        logits, sim = model.forward_base(img.permute(0, 3, 1, 2), train=True)
+        gen = torch.Generator(device=img.device).manual_seed(step_seed(seed, state.step))
+        with dropout_generator(gen):
+            logits, sim = model.forward_base(img.permute(0, 3, 1, 2), train=True)
         ld = orth_loss(logits.permute(0, 2, 3, 1), mask, sim)
         ld["total_loss"].backward()
         for p in params:  # a parameter off the graph gets a zero gradient, as in jax.grad

@@ -172,7 +172,7 @@ def test_restore_refuses_a_ckpt_and_a_shape_mismatch(root, tmp_path):
 
 def test_more_than_one_process_raises(root, tmp_path, monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(ValueError, match="DDP.*A4, its second PR"):
+    with pytest.raises(ValueError, match="DDP.*A4c"):
         ft_pop.main(_args(root, tmp_path))
 
 

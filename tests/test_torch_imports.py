@@ -34,7 +34,8 @@ MODULES = ["segland_tpu_torch", "segland_tpu_torch.ops.fused_mlp",
            "segland_tpu_torch.train.base", "segland_tpu_torch.ckpt.io",
            "segland_tpu_torch.cli.train_base", "segland_tpu_torch.train.ft",
            "segland_tpu_torch.data.oem_ft", "segland_tpu_torch.cli.ft_pop",
-           "segland_tpu_torch.cli.gen_fs_list"]
+           "segland_tpu_torch.cli.gen_fs_list", "segland_tpu_torch.models.backbones.droppath",
+           "segland_tpu_torch.models.init"]
 FOREIGN = ("jax", "flax", "PIL", "segland_tpu")
 
 PROBE = """

@@ -113,10 +113,9 @@ def test_best_pth_runs_in_eval_base_and_loads_into_jax(root, trained, tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--model", "swin_pop"], "A4, its second PR: swin's DropPath"),
     (["--model", "lsk_pop"], "A9"),
     (["--model", "pspnet"], "A7"),
-    (["--device-augment"], "A4, its second PR"),
+    (["--device-augment"], "A4c"),
     (["--dataset", "oem_ft"], "A5"),
 ])
 def test_what_does_not_train_yet_raises(root, tmp_path, extra, item):
@@ -138,7 +137,7 @@ def test_jax_flags_the_port_does_not_read_are_refused(root, tmp_path, flag, caps
 
 def test_more_than_one_process_raises(root, tmp_path, monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(ValueError, match="DDP.*A4, its second PR"):
+    with pytest.raises(ValueError, match="DDP.*A4c"):
         train_base.main(_args(root, tmp_path))
 
 
@@ -153,13 +152,13 @@ def test_the_default_device_is_the_card(root, tmp_path):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_the_train_default_of_fused(dtype):
-    """Off for every model (K1's train route is slower than the stock-torch
-    blocks on the card, PERF.md); --fused and --no-fused win."""
+    """Off for every model (the kernels' train routes are slower than the
+    stock-torch blocks on the card, PERF.md); --fused and --no-fused win."""
     from segland_tpu_torch.cli.common import TRAIN_FUSED_DEFAULTS, resolve_fused
 
     parse = lambda extra: train_base.get_parser().parse_args(
         ["--data-dir", "x", "--model", "convnext_pop", "--dtype", dtype] + extra)
-    assert TRAIN_FUSED_DEFAULTS == {"convnext_pop": False}
+    assert TRAIN_FUSED_DEFAULTS == {"convnext_pop": False, "swin_pop": False}
     assert resolve_fused(parse([]), "train") is False
     assert resolve_fused(parse(["--fused"]), "train") is True
     assert resolve_fused(parse(["--no-fused"]), "train") is False

@@ -87,5 +87,5 @@ def test_dataset_and_loader_give_the_jax_samples(root):
 
 def test_registry_and_device_augment():
     assert set(DATASETS) == {"oem", "oem_ft"}
-    with pytest.raises(NotImplementedError, match="A4, its second PR"):
+    with pytest.raises(NotImplementedError, match="A4c"):
         OEMTrainDataset("/nonexistent", "/nonexistent/train.txt", device_augment=True)

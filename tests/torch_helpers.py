@@ -69,6 +69,23 @@ def load_port(module, variables, prefix: str = ""):
     return module
 
 
+def inject_masks(monkeypatch, masks):
+    """Hand the port's DropPath and dropout ``masks`` (bool tensors) in draw
+    order, in place of the step generator's draws; returns the queue, which a
+    test checks is empty after the forward."""
+    from segland_tpu_torch.models.backbones import droppath
+
+    queue = list(masks)
+
+    def keep_mask(shape, rate, device):
+        m = queue.pop(0)
+        assert tuple(m.shape) == tuple(shape), (tuple(m.shape), shape)
+        return m
+
+    monkeypatch.setattr(droppath, "keep_mask", keep_mask)
+    return queue
+
+
 def near_tie_pixels(logits_up: np.ndarray, tol: float = 1e-3) -> np.ndarray:
     """Mask of pixels whose top-2 classes lie within ``tol`` of each other."""
     top2 = np.sort(logits_up, axis=-1)[..., -2:]

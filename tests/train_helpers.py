@@ -26,18 +26,27 @@ def batches(n, hw, seed=0):
     return out
 
 
+def _opt_kw(optimizer, lr):
+    return dict(base_lr=lr, num_epochs=4, steps_per_epoch=1, optimizer=optimizer)
+
+
 def pair(name, backbone, hw, optimizer, fused=False, lr=1e-3, **step_kw):
     """(JAX state, jitted JAX step, port state, port step): the same weights,
     the optimizer of ``create_optimizer`` with the LR falling every step (one
-    step an epoch, 4 epochs)."""
-    jm = j_build(name, backbone=backbone, n_base=7, fused_mlp=fused)
+    step an epoch, 4 epochs).  ``fused`` sets both fused_mlp and fused_attn."""
+    jm = j_build(name, backbone=backbone, n_base=7, fused_mlp=fused, fused_attn=fused)
     v = random_variables(jm, jnp.zeros((1, hw, hw, 3)), seed=1)
-    kw = dict(base_lr=lr, num_epochs=4, steps_per_epoch=1, optimizer=optimizer)
-    jstate = create_train_state(jm, v, j_create(v["params"], **kw))
+    jstate = create_train_state(jm, v, j_create(v["params"], **_opt_kw(optimizer, lr)))
     jstep = jax.jit(j_make_step(jm, "orth", **step_kw))
-    pm = load_port(build_model(name, backbone, n_base=7, fused_mlp=fused), v)
-    state = TrainState(pm, create_optimizer(pm, **kw))
-    return jstate, jstep, state, make_base_train_step(pm, "orth", **step_kw)
+    return (jstate, jstep) + port_pair(name, backbone, v, optimizer, fused, lr, **step_kw)
+
+
+def port_pair(name, backbone, variables, optimizer, fused=False, lr=1e-3, **step_kw):
+    """(port state, port step) of ``pair`` from a JAX variable tree."""
+    pm = load_port(build_model(name, backbone, n_base=7, fused_mlp=fused, fused_attn=fused),
+                   variables)
+    state = TrainState(pm, create_optimizer(pm, **_opt_kw(optimizer, lr)))
+    return state, make_base_train_step(pm, "orth", **step_kw)
 
 
 def run(jstate, jstep, state, step, data):
