@@ -116,6 +116,19 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      ways: bf16 unquantized, --int8, --int8 --fused (K7 12 and K2 1 a batch,
      any other count fails) and --int8 --fused with the plain versions
      (>= 99% argmax agreement with the K7 route; int8 vs bf16 is printed);
+ 11a. seghr: seghr_pop / hr-w32 (HRNet, HRFPN; no kernel on its trunk) at
+     full width and depth: the eval slice as eval_base and as eval_ft run it
+     (K2 1 a batch and nothing else, tiles/s, >= 99% agreement with K2's
+     plain version, fp32 card vs CPU); base training through cli.train_base
+     at scripts/train_oem.sh's config on the train phase's tiles (2 epochs of
+     4 steps, 2 validation batches each: K2 1 a validation batch, none in a
+     step; the seg loss falling; best.pth through eval_base), one fp32 step on
+     the card against the CPU (losses within 1e-5; the worst gradient
+     printed), the step's ms, crops/s and memory; the fine-tune through
+     cli.ft_pop from that best.pth (1 shot, 1 epoch: K2 1 a step and a
+     validation batch; frozen tensors bit-equal; eval_ft), its step's ms and
+     memory; --int8 and --int8 --fused (no K7 launch, the fused request's
+     warning, agreement with bf16 printed);
  12. K10 hg2_section (head groups, masks from the window index; K9's body)
      vs its plain version at the four swin-s stage shapes, shift 0 and 3,
      every built hg, wblk = W and 32; its builds' registers and spills (each
@@ -151,6 +164,7 @@ the repo beside it, it fails before printing any result.
 
     python3 chip_smoke.py --phases train    # base training of convnext_pop and swin_pop on the card
     python3 chip_smoke.py --phases ft       # few-shot fine-tuning of swin_pop and convnext_pop
+    python3 chip_smoke.py --phases seghr    # seghr_pop / hr-w32: eval, base training, ft, int8
     python3 chip_smoke.py --phases k2,k6    # K2 and K6 at every shape of their phases
     python3 chip_smoke.py --phases k1,k3    # K1 and K3 with their build, SASS and phase lines
     python3 chip_smoke.py --phases k4,k5    # K4 and K5 with their build, SASS and phase lines
@@ -1826,13 +1840,17 @@ def environ(**env):
 
 
 def build(name, dtype, seed=0, fused=True, is_ft=False, attn_group=1):
-    """convnext_pop/convnext-t or swin_pop/swin-s with seeded random weights,
-    drawn so that every block's kernel reaches the output."""
+    """convnext_pop/convnext-t, swin_pop/swin-s or seghr_pop/hr-w32 with
+    seeded random weights, drawn so that every block's kernel reaches the
+    output (seghr_pop: so that its branches stay O(1))."""
     import torch
     import torch.nn as nn
     from segland_tpu_torch.models import build_model
     from segland_tpu_torch.models.backbones.convnext import ConvNeXtBlock
+    from segland_tpu_torch.models.backbones.hrnet import (BasicBlock, HighResolutionModule,
+                                                          StemBottleneck)
     from segland_tpu_torch.models.backbones.swin import SwinBlock, SwinTransformer
+    from segland_tpu_torch.ops import pop as pop_ops
 
     g = torch.Generator().manual_seed(seed)
     model = build_model(name, None, n_base=7, n_novel=4 if is_ft else 0, is_ft=is_ft,
@@ -1853,6 +1871,29 @@ def build(name, dtype, seed=0, fused=True, is_ft=False, attn_group=1):
                         m.weight.uniform_(0.5, 1.5, generator=g)
                         m.bias.normal_(0.0, 0.1, generator=g)
                 blk.attn.relative_position_bias_table.normal_(0.0, 1.0, generator=g)
+            elif isinstance(blk, (BasicBlock, StemBottleneck)):
+                # the init's unit BatchNorm lets HRNet's residual and fuse sums grow to ~2e3
+                # over its 8 modules (fp32 logits ~40); a residual branch's last BatchNorm
+                # at 0.3 and the fuse lattice's at 0.5 keep the branches about 1
+                (blk.bn2 if isinstance(blk, BasicBlock) else blk.bn3).weight.mul_(0.3)
+            elif isinstance(blk, HighResolutionModule):
+                for m in blk.fuse_layers.modules():
+                    if isinstance(m, nn.BatchNorm2d):
+                        m.weight.mul_(0.5)
+        if name == SEGHR:
+            # the classifiers spread as train_step_model spreads them (logits about 1), and
+            # the prototypes made orthogonal to the mean feature as build_resnet makes them,
+            # so that the classes compete pixel by pixel instead of background taking all
+            for conv in model.classifier:
+                if isinstance(conv, nn.Conv2d):
+                    conv.weight.normal_(0.0, 2.0 * conv.in_channels ** -0.5, generator=g)
+            mean = model.extract_features(torch.randn(1, 3, 128, 128, generator=g)).mean(
+                dim=(0, 1, 2))
+            unit = mean / mean.norm()
+            for emb in [model.base_emb] + ([model.novel_emb] if is_ft else []):
+                emb.sub_((emb @ unit)[:, None] * unit)
+            if float(pop_ops.classifier_apply(mean, *model.classifier.weights())) > 0:
+                model.classifier[4].weight.neg_()
     if attn_group != 1:
         # no CLI switch and no registry argument has it, as in the JAX package: the same
         # swin-s backbone and weights through the constructor's own argument
@@ -2218,21 +2259,25 @@ def step_ms(setup, rounds=2, steps=6, warmup=3):
         yield times
 
 
-def train_cli_run(dev, root, name):
-    """cli.train_base.main for ``name`` at bf16 --fused, batch 4, 768^2 crops,
+def train_cli_run(dev, root, name, per_forward=None, fused=True, fall_from="step"):
+    """cli.train_base.main for ``name`` at bf16 --fused (``fused`` False:
+    --no-fused), batch 4, 768^2 crops,
     AdamW at 1e-3, TRAIN_EPOCHS epochs of 4 steps with validation (2 batches
     of 2) in each, on write_train_tiles' tiles: the loss dicts finite, the seg
-    loss's mean over the last epoch below its first step's, the snapshots and
-    best.pth written and best.pth through eval_base; TRAIN_MODELS' launches a
-    train step and a validation batch, K2 1 a validation batch, any other
-    count fails.  Returns the launch counts."""
+    loss's mean over the last epoch below its first step's (``fall_from``
+    "epoch": below the first epoch's mean), the snapshots and
+    best.pth written and best.pth through eval_base; the launches of one
+    forward (``per_forward``, by default TRAIN_MODELS') a train step and a
+    validation batch, K2 1 a validation batch, any other count fails.  Returns
+    the launch counts."""
     from segland_tpu_torch.cli import eval_base, train_base
 
     snap = os.path.join(root, f"{name}_snap")
     lst = os.path.join(root, "list")
+    flag = "--fused" if fused else "--no-fused"
     args = ["--data-dir", root, "--train-list", os.path.join(lst, "train.txt"),
             "--val-list", os.path.join(lst, "val.txt"), "--model", name,
-            "--dtype", "bfloat16", "--fused", "--batch-size", str(TRAIN_BATCH),
+            "--dtype", "bfloat16", flag, "--batch-size", str(TRAIN_BATCH),
             "--input-size", f"{TRAIN_CROP},{TRAIN_CROP}", "--learning-rate", "1e-3",
             "--num-epoch", str(TRAIN_EPOCHS), "--val-start", "0", "--val-frequency", "1",
             "--snapshot-frequency", "1", "--test-batch-size", "2", "--print-frequency", "1",
@@ -2242,12 +2287,13 @@ def train_cli_run(dev, root, name):
     wall = time.time() - t0
     steps = TRAIN_EPOCHS * TRAIN_TILES // TRAIN_BATCH
     val_batches = TRAIN_EPOCHS * VAL_TILES // 2
-    want = {k: n * (steps + val_batches) for k, n in TRAIN_MODELS[name].items()}
+    per_forward = TRAIN_MODELS[name] if per_forward is None else per_forward
+    want = {k: n * (steps + val_batches) for k, n in per_forward.items()}
     want["upsample_argmax"] = val_batches
     rows = [json.loads(line) for line in open(os.path.join(snap, "metrics.jsonl"))]
     losses = [r["value"] for r in rows if r["tag"] == "train/total_loss"]
     seg = [r["value"] for r in rows if r["tag"] == "train/seg_loss"]
-    print(f"train {name} (cli.train_base, bf16 --fused, {TRAIN_BATCH}x{TRAIN_CROP}^2, "
+    print(f"train {name} (cli.train_base, bf16 {flag}, {TRAIN_BATCH}x{TRAIN_CROP}^2, "
           f"{TRAIN_EPOCHS} epochs of {steps // TRAIN_EPOCHS} steps + {val_batches} val "
           f"batches): {wall:.1f}s launches={launches} best_val_mIoU={best:.4f} "
           f"total_loss {' '.join(f'{x:.4f}' for x in losses)} seg_loss "
@@ -2257,9 +2303,10 @@ def train_cli_run(dev, root, name):
     if len(losses) != steps or not all(np.isfinite(r["value"]) for r in rows):
         fail(f"train {name} loss dicts: {len(losses)} of {steps} steps, or not finite")
     last = float(np.mean(seg[-(steps // TRAIN_EPOCHS):]))
-    if not last < seg[0]:
+    first = seg[0] if fall_from == "step" else float(np.mean(seg[:steps // TRAIN_EPOCHS]))
+    if not last < first:
         fail(f"train {name} seg_loss did not fall: the last epoch's mean {last} against the "
-             f"first step's {seg[0]}")
+             f"first {fall_from}'s {first}")
     for f in [f"epoch_{e + 1}.pth" for e in range(TRAIN_EPOCHS)] + ["best.pth"]:
         if not os.path.exists(os.path.join(snap, f)):
             fail(f"train_base ({name}) wrote no {f}")
@@ -2462,11 +2509,12 @@ def write_ft_tiles(root):
                           "--shot", str(shot), "--seed", str(FT_SEED)])
 
 
-def ft_cli_run(dev, root, name):
+def ft_cli_run(dev, root, name, cfg=None, base_path=None, fused=True):
     """cli.ft_pop.main for ``name`` at scripts/ft_oem.sh's config (bf16 --fused,
-    1024^2 crops, batch 1, SGD at 1e-4, weight decay 1e-4, --fix-lr
-    --freeze-backbone --update-base --update-epoch 1) from a base .pth of
-    train_step_model's draw, cut to 1 epoch and FT_VAL_TILES validation tiles;
+    or --no-fused where ``fused`` is False, 1024^2 crops, batch 1, SGD at 1e-4,
+    weight decay 1e-4, --fix-lr --freeze-backbone --update-base --update-epoch
+    1) from ``base_path`` or else a base .pth of train_step_model's draw, with
+    ``cfg`` (FT_MODELS' by default), cut to 1 epoch and FT_VAL_TILES validation tiles;
     then eval_ft on its best_123.pth.  Fails on any launch count but the
     trunk's per forward a step and a validation batch and K2 one each, on a
     loss dict that is not finite or skipped a step, on a frozen tensor of
@@ -2477,14 +2525,16 @@ def ft_cli_run(dev, root, name):
     from segland_tpu_torch.cli import eval_ft, ft_pop
     from segland_tpu_torch.models import build_model
 
-    cfg = FT_MODELS[name]
-    base_path = os.path.join(root, f"{name}_base.pth")
-    save_params(base_path, train_step_model(torch.bfloat16, name=name))
+    cfg = FT_MODELS[name] if cfg is None else cfg
+    if base_path is None:
+        base_path = os.path.join(root, f"{name}_base.pth")
+        save_params(base_path, train_step_model(torch.bfloat16, name=name))
     snap = os.path.join(root, f"{name}_snap")
     lst = os.path.join(root, "list")
+    flag = "--fused" if fused else "--no-fused"
     args = ["--data-dir", root, "--train-list", os.path.join(lst, "train.txt"),
             "--val-list", os.path.join(lst, "val.txt"), "--model", name, "--dtype", "bfloat16",
-            "--fused", "--input-size", f"{TILE},{TILE}", "--base-size", f"{TILE},{TILE}",
+            flag, "--input-size", f"{TILE},{TILE}", "--base-size", f"{TILE},{TILE}",
             "--batch-size", "1", "--learning-rate", "1e-4", "--weight-decay", "1e-4",
             "--fix-lr", "--freeze-backbone", "--update-base", "--update-epoch", "1",
             "--shot", str(cfg["shot"]), "--num-epoch", "1", "--val-frequency", "1",
@@ -2502,7 +2552,7 @@ def ft_cli_run(dev, root, name):
     losses = [r["value"] for r in rows if r["tag"] == tag + "total_loss"]
     skipped = [r["value"] for r in rows if r["tag"] == tag + "nonfinite_skipped"]
     best = res[FT_SEED]
-    print(f"ft {name} (cli.ft_pop, bf16 --fused, 1x{TILE}^2 novel + 1x{TILE}^2 base a step, "
+    print(f"ft {name} (cli.ft_pop, bf16 {flag}, 1x{TILE}^2 novel + 1x{TILE}^2 base a step, "
           f"1 epoch of {steps} steps + {FT_VAL_TILES} val tiles): {wall:.1f}s "
           f"launches={launches} best={best} total_loss {' '.join(f'{x:.4f}' for x in losses)}",
           flush=True)
@@ -2690,6 +2740,184 @@ def phase_ft(dev):
               f"{len(times)} after 3 warm-up; min {min(times):.2f} max {max(times):.2f}) "
               f"max_memory_allocated={peaks[name, key] / 2**30:.2f} GiB", flush=True)
     print(f"ft phase: {time.time() - t_phase:.1f}s", flush=True)
+    return paths
+
+
+# the seghr group: seghr_pop / hr-w32 (the registry's default backbone), the reference's
+# base-training model.  HRNet and HRFPN run stock cuDNN and torch ops: K2 is the only kernel
+# on its paths, 1 a batch, a validation batch and a fine-tune step.
+SEGHR = "seghr_pop"
+SEGHR_FT = dict(shot=1, per_forward={})
+SEGHR_STEP_CROP = 256  # the fp32 step on the card against the CPU: 4 crops (branch 3 8x8)
+
+
+class LogRecords:
+    """The messages that ``logger`` emits while the context is open."""
+
+    def __init__(self, logger):
+        import logging
+
+        self.logger, self.messages = logging.getLogger(logger), []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda record: self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self.messages
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        return False
+
+
+def seghr_fp32_step(dev):
+    """One fp32 train step of seghr_pop (train_step_model's draw: the POP
+    classifier spread so the loss reads the network; LR 0 and no clip, so
+    the gradients are the raw ones) on the card (TF32 off) and on the CPU from
+    the same weights and TRAIN_BATCH x SEGHR_STEP_CROP^2 batch: every loss of
+    the dict within 1e-5 of the total loss, relative; no kernel launched.
+    The worst gradient tensor's relative error is printed, not held: under
+    train-mode BatchNorm some gradients are sums that cancel and move far
+    under rounding (PERF.md section 6, PR 16)."""
+    import torch
+
+    g = torch.Generator().manual_seed(7)
+    side = SEGHR_STEP_CROP
+    img = torch.randn(TRAIN_BATCH, side, side, 3, generator=g)
+    mask = torch.randint(0, 8, (TRAIN_BATCH, side, side), generator=g)
+    model = train_step_model(torch.float32, fused=False, name=SEGHR)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    t0 = time.time()
+    ld_cpu, g_cpu = train_step_grads(model, img, mask)
+    cpu_s = time.time() - t0
+    model.load_state_dict(start)  # the step moved the BatchNorm statistics
+    model = model.to(dev)
+    (ld_dev, g_dev), launches = counted(lambda: train_step_grads(model, img.to(dev),
+                                                                 mask.to(dev)))
+    if launches:
+        fail(f"seghr fp32 step launched {launches}")
+    total = abs(float(ld_cpu["total_loss"]))
+    loss_err = {k: abs(float(ld_dev[k]) - float(v)) / total for k, v in ld_cpu.items()}
+    errs = sorted((_rel_err(g_dev[n].cpu(), g_cpu[n]), n) for n in g_cpu)
+    print(f"train {SEGHR} fp32 step card vs CPU ({TRAIN_BATCH}x{side}^2, TF32 off; the CPU's "
+          f"step {cpu_s:.1f}s): losses card "
+          f"{ {k: round(float(v), 6) for k, v in ld_dev.items()} } CPU "
+          f"{ {k: round(float(v), 6) for k, v in ld_cpu.items()} }, |d| / total_loss "
+          f"{ {k: float(f'{v:.3g}') for k, v in loss_err.items()} } (bar 1e-5); of {len(errs)} "
+          f"gradients the worst relative error {errs[-1][0]:.3g} ({errs[-1][1]}), the median "
+          f"{errs[len(errs) // 2][0]:.3g}", flush=True)
+    if not all(e <= 1e-5 for e in loss_err.values()):
+        fail(f"seghr fp32 step: the card's losses off the CPU's: {loss_err}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def seghr_int8(dev):
+    """One batch of the eval slice through Evaluator.run bf16, --int8 and
+    --int8 --fused (one calibration batch, taken in the warm-up run): K2 1 a
+    batch and nothing else (no K7: HRNet's stage-1 Bottlenecks are not the
+    fused route's), the fused request's warning, and the argmax agreement of
+    each int8 route with bf16 printed (random weights: only a trained model's
+    gate says whether int8 keeps the map).  Returns {path: launch counts}."""
+    import torch
+    from segland_tpu_torch.evallib import Evaluator
+    from segland_tpu_torch.quant import QuantConfig
+
+    model = build(SEGHR, torch.bfloat16).to(dev)
+    batches = synthetic_batches()[:1]
+    kw = dict(num_classes=12, n_base=7, normalize_on_device=True)
+    q = dict(int8=True, calib_batches=1)
+    routes = {"bf16": Evaluator(model, dev, **kw), "int8": Evaluator(model, dev, **q, **kw),
+              "int8 fused": Evaluator(model, dev, quant_cfg=QuantConfig(fused_blocks=True),
+                                      **q, **kw)}
+    launches, preds, tps = {}, {}, {}
+    for route, ev in routes.items():
+        with LogRecords("segland_tpu_torch.quant.ptq") as warned:
+            ev.run(batches)  # warm-up: calibration, cuDNN plans, allocators
+        torch.cuda.synchronize()
+        (cm, (base, _, total, _), tps[route]), launches[route] = counted_run(ev, batches)
+        print(f"slice {SEGHR} {route}: 1x{BATCH} tiles {TILE}^2: launches={launches[route]} "
+              f"mIoU base={base:.4f} total={total:.4f} tiles_per_s={tps[route]:.2f} "
+              f"warnings={warned}", flush=True)
+        if launches[route] != {"upsample_argmax": 1}:
+            fail(f"slice {SEGHR} {route} launch counts {launches[route]}, want K2 1 alone")
+        if route == "int8 fused" and not any("no Bottleneck has a fused-eligible" in m
+                                             for m in warned):
+            fail(f"slice {SEGHR} --int8 --fused: no warning that the request cannot take effect")
+        preds[route] = ev.predict_batch(batches[0][0], (TILE, TILE), want_logits=False)[1]
+    agree = lambda a, b: float((preds[a] == preds[b]).float().mean())
+    print(f"slice {SEGHR} int8 argmax agreement: int8 vs bf16 {agree('int8', 'bf16'):.6f}, "
+          f"int8 fused vs bf16 {agree('int8 fused', 'bf16'):.6f}, int8 fused vs int8 "
+          f"{agree('int8 fused', 'int8'):.6f}; tiles/s bf16 {tps['bf16']:.2f}, --int8 "
+          f"{tps['int8']:.2f}, --int8 --fused {tps['int8 fused']:.2f}", flush=True)
+    del routes, model
+    torch.cuda.empty_cache()
+    return {f"{SEGHR} int8": launches["int8"], f"{SEGHR} int8 fused": launches["int8 fused"]}
+
+
+def phase_seghr(dev):
+    """seghr_pop / hr-w32 at full width and depth, weights from a seeded
+    torch.Generator: (a) the eval slice as eval_base and as eval_ft run it
+    (phase_slice: K2 1 a batch and nothing else, tiles/s, K2's plain version
+    >= 99% argmax agreement, fp32 on the card against the CPU); (b) base
+    training through cli.train_base at scripts/train_oem.sh's config (bf16,
+    --no-fused as there, batch 4, 768^2 crops, AdamW at 1e-3, wd 1e-4) on the
+    train phase's tiles, cut to TRAIN_EPOCHS epochs of 4 steps and 2
+    validation batches each (K2 1 a validation batch, 0 in a step), one fp32
+    step on the card against the CPU, the bf16 step's ms (median of 12 after
+    3 warm-up), crops/s and max_memory_allocated; (c) the few-shot fine-tune
+    through cli.ft_pop from (b)'s best.pth, 1 shot, 1 epoch, FT_VAL_TILES
+    validation tiles (K2 1 a step and a validation batch), eval_ft on it, the
+    ft step's ms and memory; (d) --int8 and --int8 --fused (seghr_int8).
+    Returns {path: launch counts}."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.time()
+    paths = {}
+    paths[f"{SEGHR} eval_base"], tps, _ = phase_slice(dev, SEGHR, {"upsample_argmax": 1})
+    torch.cuda.empty_cache()
+    paths[f"{SEGHR} eval_ft"], _, _ = phase_slice(dev, SEGHR, {"upsample_argmax": 1}, is_ft=True,
+                                                  fp32_check=False)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        train_root, ft_root = os.path.join(root, "train"), os.path.join(root, "ft")
+        write_train_tiles(train_root)
+        # the first step's seg loss is ln 8 (the POP classifier's init leaves the logits
+        # flat), and AdamW's first steps at 1e-3 overshoot through HRFPN's 480 unnormalised
+        # channels (CPU rehearsal at 4 x 192^2: 2.08, 3.55, 193.5, 76.3, then 3.27 ... 4.65),
+        # so the loss is held to fall from the first epoch's mean, not from its first step
+        paths[f"{SEGHR} train"] = train_cli_run(dev, train_root, SEGHR, per_forward={},
+                                                fused=False, fall_from="epoch")
+        torch.cuda.empty_cache()
+        seghr_fp32_step(dev)
+        setup = lambda: train_setup(dev, False, SEGHR)
+        peak = step_peak(setup)
+        times = next(step_ms(setup, rounds=1, steps=12))
+        ms = float(np.median(times))
+        smi = card()
+        print(f"train {SEGHR} bf16 {TRAIN_BATCH}x{TRAIN_CROP}^2 AdamW: ms_per_step={ms:.2f} "
+              f"(median of {len(times)} after 3 warm-up; min {min(times):.2f} max "
+              f"{max(times):.2f}) crops_per_s={TRAIN_BATCH * 1e3 / ms:.2f} "
+              f"max_memory_allocated={peak / 2**30:.2f} GiB ({smi})", flush=True)
+        torch.cuda.empty_cache()
+        write_ft_tiles(ft_root)
+        best = os.path.join(train_root, f"{SEGHR}_snap", "best.pth")
+        paths[f"{SEGHR} ft"] = ft_cli_run(dev, ft_root, SEGHR, cfg=SEGHR_FT, base_path=best,
+                                          fused=False)
+        torch.cuda.empty_cache()
+    setup = lambda: ft_setup(dev, SEGHR, False)
+    peak = step_peak(setup)
+    times = next(step_ms(setup, rounds=1, steps=12))
+    ms = float(np.median(times))
+    print(f"ft {SEGHR} bf16 1+1x{TILE}^2 SGD: ms_per_step={ms:.2f} (median of {len(times)} "
+          f"after 3 warm-up; min {min(times):.2f} max {max(times):.2f}) "
+          f"max_memory_allocated={peak / 2**30:.2f} GiB ({smi})", flush=True)
+    torch.cuda.empty_cache()
+    paths.update(seghr_int8(dev))
+    print(f"{SEGHR} eval: {tps:.2f} tiles/s; seghr group: {time.time() - t_phase:.1f}s",
+          flush=True)
     return paths
 
 
@@ -3003,9 +3231,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,train,ft,swin,"
-                            "deeplab,pspnet",
+                            "deeplab,pspnet,seghr",
                     help="comma list of k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,train,ft,"
-                         "swin,deeplab,pspnet (default: all eighteen); profile: a torch.profiler "
+                         "swin,deeplab,pspnet,seghr (default: all nineteen); profile: a "
+                         "torch.profiler "
                          "breakdown of the swin and deeplab_pop slices; dilated: cuDNN vs the "
                          "nine-tap 3x3 at large dilations; steprule: the fp32 train-step "
                          "check's rule on routes correct by construction")
@@ -3146,6 +3375,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "pspnet" in phases:
         paths["pspnet_pop int8 fused"] = phase_int8_slice(dev, "pspnet_pop", n_batches=1)
+        torch.cuda.empty_cache()
+    if "seghr" in phases:
+        paths.update(phase_seghr(dev))
         torch.cuda.empty_cache()
 
     if "profile" in phases:

@@ -1,7 +1,8 @@
 """JAX variable tree -> the port's state_dict, importing only numpy.
 
-The inverse of the convnext_pop, swin_pop, pspnet_pop and deeplab_pop rules
-of segland_tpu/ckpt/torch_convert.py (ResNet backbone, PSPModule, ASPP): flax
+The inverse of the convnext_pop, swin_pop, pspnet_pop, deeplab_pop and
+seghr_pop rules of segland_tpu/ckpt/torch_convert.py (ResNet backbone,
+PSPModule, ASPP, ``_HRNET_RULES``; HRFPN has no parameters): flax
 paths map to upstream SegLand keys, dense kernels are transposed, conv
 kernels go HWIO -> OIHW (the depthwise (7,7,1,C) kernel becomes (C,1,7,7)),
 LayerNorm and BatchNorm ``scale`` becomes ``weight``, BatchNorm ``batch_stats`` mean/var become
@@ -62,6 +63,20 @@ _MODULES = [
     (r"decoder/(c\d)_(conv|bn)", "decoder.stages.{0}.{1}"),
     (r"decoder/imagepool_(conv|bn)", "decoder.stages.imagepool.conv.{0}"),
     (r"decoder/fc_(conv|bn)", "decoder.fc.{0}"),
+    # HRNet backbone: flat names, {module}_conv and {module}_bn; Sequential(conv, bn[, relu])
+    # modules take them at .0 and .1
+    (r"backbone/stem([12])_(conv|bn)", "backbone.{1}{0}"),
+    (r"backbone/layer1_(\d)_c([123])_(conv|bn)", "backbone.layer1.{0}.{2}{1}"),
+    (r"backbone/stage(\d)_(\d)_branches_(\d)_(\d)_c([12])_(conv|bn)",
+     "backbone.stage{0}.{1}.branches.{2}.{3}.{5}{4}"),
+    *[(rf"backbone/{path}_{kind}", f"backbone.{module}.{i}")
+      for path, module in ((r"layer1_(\d)_down", "layer1.{0}.downsample"),
+                           (r"transition1_0_0", "transition1.0"),
+                           (r"transition([123])_([123])_0", "transition{0}.{1}.0"),
+                           (r"stage(\d)_(\d)_fuse_(\d)_(\d)", "stage{0}.{1}.fuse_layers.{2}.{3}"),
+                           (r"stage(\d)_(\d)_fuse_(\d)_(\d)_(\d)",
+                            "stage{0}.{1}.fuse_layers.{2}.{3}.{4}"))
+      for i, kind in enumerate(("conv", "bn"))],
     (r"(classifier(?:_n)?)", "{0}"),
     (r"", ""),
 ]

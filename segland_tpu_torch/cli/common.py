@@ -49,8 +49,9 @@ def add_common_args(p: argparse.ArgumentParser):
     p.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"],
                    help="backbone/decoder compute dtype (POP head always fp32)")
     p.add_argument("--packed-train", action=argparse.BooleanOptionalAction, default=None,
-                   help="W-packing override of hrnet/lsknet/vggunet backbones "
-                        "(errors on other backbones)")
+                   help="the JAX package's W-packing switch: the port has no packed layout, "
+                        "so --packed-train raises; --no-packed-train builds hrnet's plain "
+                        "form (other backbones raise on either)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on, e.g. cuda, cuda:1, cpu")
     return p
@@ -74,8 +75,11 @@ def add_common_args(p: argparse.ArgumentParser):
 # SEGLAND_SWIN_V3_STAGES=all, 76.47; attn_group=2, 95.45) stay opt-in.
 # For the ResNet models --fused acts with --int8 only: the 12 stride-1 bottlenecks without
 # a downsample run through the fused int8 block kernel.  Off, see PERF.md section 5.
+# seghr_pop runs no kernel on its trunk (HRNet is stock cuDNN convs; its stage-1
+# Bottlenecks are not the int8 fused route's, as in the JAX package), so --fused builds the
+# same model; off in every mode.
 EVAL_FUSED_DEFAULTS = {"convnext_pop": True, "swin_pop": True, "deeplab_pop": False,
-                       "pspnet_pop": False}
+                       "pspnet_pop": False, "seghr_pop": False}
 
 
 # Train defaults of --fused: off.  With --fused, K1 runs every ConvNeXt and Swin
@@ -89,7 +93,7 @@ EVAL_FUSED_DEFAULTS = {"convnext_pop": True, "swin_pop": True, "deeplab_pop": Fa
 # whole runs; swin_pop 189.70 and 219.82 against 147.01 and 158.56 in two, with 2.38-2.39
 # against 6.45 GiB of peak memory (PERF.md section 5).  Fused takes 0.37-0.48 of the
 # memory and 1.3-1.8x the time.
-TRAIN_FUSED_DEFAULTS = {"convnext_pop": False, "swin_pop": False}
+TRAIN_FUSED_DEFAULTS = {"convnext_pop": False, "swin_pop": False, "seghr_pop": False}
 
 
 # Fine-tune defaults of --fused.  The fine-tune runs the backbone and decoder frozen,
@@ -101,7 +105,7 @@ TRAIN_FUSED_DEFAULTS = {"convnext_pop": False, "swin_pop": False}
 # convnext_pop 12.58 and 12.22 against 12.97 and 12.64 (ahead in both, by less than the
 # spread of host-timed steps, as its eval default is), the same peak memory fused and
 # unfused.  So both are on for --dtype bfloat16.
-FT_FUSED_DEFAULTS = {"swin_pop": True, "convnext_pop": True}
+FT_FUSED_DEFAULTS = {"swin_pop": True, "convnext_pop": True, "seghr_pop": False}
 
 
 def resolve_fused(args, mode: str = "eval") -> bool:

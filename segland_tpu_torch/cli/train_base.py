@@ -8,8 +8,10 @@ segland_tpu/cli/train_base.py on one device.
 Trains ``convnext_pop`` (K1 in every block's forward with --fused),
 ``swin_pop`` (K3 and K1 in every block's forward with --fused, each
 differentiable; DropPath and the decoder's dropout drawn from a generator
-seeded by --random-seed and the step), ``pspnet_pop`` and ``deeplab_pop``
-(BatchNorm in train mode); the default of --fused is TRAIN_FUSED_DEFAULTS'.
+seeded by --random-seed and the step), ``pspnet_pop``, ``deeplab_pop`` and
+``seghr_pop`` (BatchNorm in train mode; seghr_pop / hr-w32 is the reference's
+own base-training model, ``scripts/train_oem.sh``); the default of --fused is
+TRAIN_FUSED_DEFAULTS'.
 Snapshots ``epoch_N.pth`` every --snapshot-frequency epochs, validates after
 --val-start every --val-frequency epochs through the ``Evaluator`` (K2 on the
 card) and keeps the best as ``best.pth``.  Still to come, and raising here:

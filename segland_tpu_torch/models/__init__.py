@@ -1,6 +1,7 @@
 """Model registry with the JAX package's keys (segland_tpu/models/__init__.py).
-``convnext_pop``, ``swin_pop``, ``pspnet_pop`` and ``deeplab_pop`` build so
-far; the rest raise NotImplementedError naming their ROADMAP item."""
+``convnext_pop``, ``swin_pop``, ``pspnet_pop``, ``deeplab_pop`` and
+``seghr_pop`` build so far; the rest raise NotImplementedError naming their
+ROADMAP item."""
 
 import torch
 
@@ -17,8 +18,7 @@ _POP_CONFIGS = {
     "seghr_pop": ("hrfpn", "hr-w32"),
     "vggunet_pop": ("identity", "vgg16bn-unet"),
 }
-NOT_PORTED = {"pspplus_pop": "A7", "pspnet": "A7", "lsk_pop": "A9", "seghr_pop": "A8",
-               "vggunet_pop": "A9"}
+NOT_PORTED = {"pspplus_pop": "A7", "pspnet": "A7", "lsk_pop": "A9", "vggunet_pop": "A9"}
 
 
 def build_model(model: str, backbone: str | None = None, n_base: int = 7,

@@ -5,7 +5,6 @@ NotImplementedError naming their ROADMAP item."""
 import torch
 
 _NOT_PORTED = {
-    **{k: "A8" for k in ("hr-w18", "hr-w32", "hr-w48")},
     "lsk-t": "A9",
     "vgg16bn-unet": "A9",
 }
@@ -28,7 +27,7 @@ def get_backbone(name: str, dtype=torch.float32, fused_mlp: bool = False,
                  fused_attn: bool = False, **kw):
     """``fused_mlp`` routes each ConvNeXt or Swin block's LN+MLP section
     through the fused kernel, ``fused_attn`` each Swin block's attention
-    section; conv-only families take neither.  ``kw`` goes to the ResNet
+    section; conv-only families (ResNet, HRNet) take neither.  ``kw`` goes to the ResNet
     family (``os``, ``dilated``, ...)."""
     if name in ("resnet10", "resnet50", "resnet101", "resnet50v2", "resnet101v2"):
         from .resnet import get_resnet
@@ -42,6 +41,10 @@ def get_backbone(name: str, dtype=torch.float32, fused_mlp: bool = False,
         from .swin import get_swin
 
         return get_swin(name, dtype=dtype, fused_mlp=fused_mlp, fused_attn=fused_attn)
+    if name in ("hr-w18", "hr-w32", "hr-w48"):
+        from .hrnet import get_hrnet
+
+        return get_hrnet(name, dtype=dtype)
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"backbone {name!r} is not ported yet (ROADMAP item {_NOT_PORTED[name]})")

@@ -13,7 +13,8 @@ in eval mode, the batch's in train mode).
 Convolutions go through :func:`conv2d`, so an open ``quant_interceptor``
 (``quant/ptq.py``) takes them; a ``Bottleneck`` keeps ``stride``,
 ``dilation``, ``multi_grid``, ``has_downsample`` and ``last_relu`` as
-attributes for that interceptor's fused route.
+attributes for that interceptor's fused route, which takes only blocks whose
+``int8_fusable`` is set.
 """
 
 from typing import Sequence
@@ -33,6 +34,10 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1, dilation: int = 1) -> nn
 
 
 class Bottleneck(nn.Module):
+    # the int8 fused routes (quant/ptq.py) take it, as the JAX package's take its
+    # ResNet's Bottleneck modules
+    int8_fusable = True
+
     def __init__(self, inplanes: int, planes: int, stride: int = 1, dilation: int = 1,
                  multi_grid: int = 1, has_downsample: bool = False, last_relu: bool = True):
         super().__init__()

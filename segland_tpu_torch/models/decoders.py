@@ -1,9 +1,10 @@
 """Decoders, NCHW PyTorch.  Port of segland_tpu/models/decoders.py with
 upstream SegLand's module names: the convnext_pop decoder (FPN-OCR), the
 swin_pop decoder (UperNet+ over a PSP-v2 top), the pspnet_pop decoder
-(PSPModule) and the deeplab_pop decoder (ASPP); the others are ROADMAP items
-A7-A9.  Pyramid decoders take fine -> coarse lists (x[0] the finest); PSPModule
-and ASPP take the backbone's last map.  BatchNorm follows ``module.training``
+(PSPModule), the deeplab_pop decoder (ASPP) and the seghr_pop decoder
+(HRFPN); the others are ROADMAP items A7 and A9.  Pyramid decoders take fine
+-> coarse lists (x[0] the finest); PSPModule and ASPP take the backbone's last
+map.  BatchNorm follows ``module.training``
 (``ops/layers.py:batch_norm``): running statistics in eval mode, the batch's
 in train mode; so does PSPModuleV2's dropout."""
 
@@ -254,6 +255,23 @@ class FPNOCRDecoder(nn.Module):
         return layer_norm_nhwc(self.norm, x).permute(0, 3, 1, 2)
 
 
+class HRFPNDecoder(nn.Module):
+    """The seghr_pop decoder (reference networks/seghr_pop.py:8-24): the four
+    HRNet branches concatenated at the finest one's size, branches 1-3
+    resized there with align_corners=True.  No parameters."""
+
+    def __init__(self, in_channels: Sequence[int] = (), out_features: int = 0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+
+    def reset_parameters(self, generator=None):
+        pass
+
+    def forward(self, feats):
+        target = tuple(feats[0].shape[-2:])
+        return torch.cat([feats[0]] + [_resize(f, target) for f in feats[1:]], dim=1)
+
+
 DECODERS = {"fpn_ocr": FPNOCRDecoder, "upernetplus": UperNetPlusDecoder, "psp": PSPModule,
-            "aspp": ASPP}
-NOT_PORTED = {"pspplus": "A7", "simple": "A9", "hrfpn": "A8"}
+            "aspp": ASPP, "hrfpn": HRFPNDecoder}
+NOT_PORTED = {"pspplus": "A7", "simple": "A9"}

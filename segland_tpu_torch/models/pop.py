@@ -45,10 +45,15 @@ class GFSSModel(nn.Module):
         self.backbone_name = backbone_name
         self.decoder_name = decoder_name
         self.is_ft = is_ft
-        if packed_train is not None:
+        if packed_train and backbone_name.startswith("hr-"):
             raise ValueError(
-                f"packed_train is only supported by hrnet/lsknet/vggunet "
-                f"backbones, not {backbone_name!r}")
+                "packed_train=True asks for the W-packed branch chains of the JAX package's "
+                "hrnet, a TPU lane-layout device the port does not carry; hrnet builds its "
+                "plain form (packed_train None or False)")
+        if packed_train is not None and not backbone_name.startswith("hr-"):
+            raise ValueError(
+                f"packed_train picks the JAX package's W-packed layout, which the port does "
+                f"not carry; {backbone_name!r} takes no packed_train")
         if decoder_name in D.NOT_PORTED:
             raise NotImplementedError(
                 f"decoder {decoder_name!r} is not ported yet "

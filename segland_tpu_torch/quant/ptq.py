@@ -22,7 +22,8 @@ Skipped (stay bf16/fp32): grouped and depthwise convs, layers with fewer than
 never called as modules (models/pop.py).
 
 With ``fused_blocks`` (or ``fused_conv3``) each eligible ResNet ``Bottleneck``
-(stride 1, no downsample, bfloat16 input) runs whole: through the fused
+(stride 1, no downsample, bfloat16 input; HRNet's stage-1 blocks are not
+eligible, as in the JAX package) runs whole: through the fused
 kernel of ``ops/fused_bottleneck.py`` on CUDA (its plain version on the CPU
 with ``fused_interpret``), or as one chain of stock torch ops.
 """
@@ -89,11 +90,15 @@ def _act_scale(amax: torch.Tensor) -> torch.Tensor:
 
 
 def build_fused_block_inputs(model: nn.Module, quant: dict, cfg: QuantConfig = DEFAULT_CONFIG):
-    """The fused routes' inputs for every Bottleneck-shaped module (conv1,
-    bn1, conv2, conv3 and no downsample) whose three convs have calibrated
-    scales, keyed by module name; weights in the JAX package's layouts."""
+    """The fused routes' inputs for every ResNet Bottleneck (a module whose
+    ``int8_fusable`` is set, with conv1, bn1, conv2, conv3 and no downsample)
+    whose three convs have calibrated scales, keyed by module name; weights in
+    the JAX package's layouts.  HRNet's stage-1 Bottlenecks are left out, as
+    the JAX package's route leaves them (they are not Bottleneck modules there)."""
     out = {}
     for name, m in model.named_modules():
+        if not getattr(m, "int8_fusable", False):
+            continue
         convs = [getattr(m, k, None) for k in ("conv1", "conv2", "conv3")]
         bns = [getattr(m, k, None) for k in ("bn1", "bn2", "bn3")]
         keys = [f"{name}.{k}" if name else k for k in ("conv1", "conv2", "conv3")]
@@ -205,7 +210,7 @@ class quant_interceptor:
             if _conv_quantizable(name, m, self.cfg) or _dense_quantizable(name, m, self.cfg):
                 self._take(m, lambda x, _n=name, _m=m: self._layer(_n, _m, x))
             elif (self.fused_map and name in self.fused_map
-                  and type(m).__name__ == "Bottleneck" and getattr(m, "stride", None) == 1
+                  and getattr(m, "int8_fusable", False) and getattr(m, "stride", None) == 1
                   and not getattr(m, "has_downsample", True)):
                 self._take(m, lambda x, _n=name, _m=m: self._block(_n, _m, x))
         return self

@@ -3,7 +3,8 @@
 (port state_dict -> JAX tree) must round-trip the full-width convnext_pop
 tree and the swin_pop tree (swin-t with the UperNet+ decoder and its
 BatchNorm statistics) leaf for leaf, and the deeplab_pop and pspnet_pop trees
-(resnet50, ASPP, PSPModule) with the int8 activation scales beside them."""
+(resnet50, ASPP, PSPModule) with the int8 activation scales beside them, and
+the seghr_pop tree (hr-w32, BatchNorm statistics; HRFPN has no parameters)."""
 
 import jax
 import jax.numpy as jnp
@@ -117,8 +118,8 @@ def test_swin_pth_loads_into_the_jax_package(swin_trees, tmp_path):
 
 
 def test_unknown_leaf_raises():
-    with pytest.raises(KeyError):
-        from_jax_variables({"params": {"backbone": {"stage2_0_branches_0_0_c1_conv": {
+    with pytest.raises(KeyError):  # lsk_pop's, not ported (ROADMAP A9)
+        from_jax_variables({"params": {"backbone": {"patch_embed1_proj": {
             "kernel": np.zeros((1, 1, 2, 2), np.float32)}}}})
     with pytest.raises(KeyError):
         from_jax_variables({"batch_stats": {"x": {"mean": np.zeros(2, np.float32)}}})
@@ -128,6 +129,57 @@ def test_unknown_leaf_raises():
     with pytest.raises(KeyError):
         from_jax_variables({"params": {"backbone": {"layer1_0": {"conv4": {
             "kernel": np.zeros((1, 1, 2, 2), np.float32)}}}}})
+
+
+@pytest.fixture(scope="module")
+def hrnet_trees():
+    """seghr_pop / hr-w32 with its novel head: flat JAX names
+    (stage3_2_fuse_2_0_0_conv) to upstream's nested ones."""
+    kw = dict(n_base=7, n_novel=4, is_ft=True)
+    v = random_variables(j_build("seghr_pop", "hr-w32", **kw), jnp.zeros((1, 64, 64, 3)), seed=4)
+    return v, load_port(build_model("seghr_pop", "hr-w32", **kw), v)
+
+
+def test_hrnet_round_trip_through_the_jax_converter(hrnet_trees):
+    """The JAX package's converter under ``arch="hrnet"`` (``_HRNET_RULES``)
+    reads the port's state_dict back into the tree, leaf for leaf, BatchNorm
+    statistics included."""
+    v, port = hrnet_trees
+    assert "stage4_2_fuse_3_0_2_bn" in v["batch_stats"]["backbone"]
+    sd = {k: x.detach().numpy() for k, x in port.state_dict().items()}
+    converted, unexpected = convert_torch_state_dict(sd, arch="hrnet")
+    assert not unexpected
+    merged, missing, _ = merge_variables(jax.tree_util.tree_map(np.zeros_like, v), converted)
+    assert not missing
+    _assert_same_tree(v, merged)
+
+
+def test_hrnet_state_dict_keys_are_upstream_keys(hrnet_trees):
+    v, port = hrnet_trees
+    keys = set(from_jax_variables(v))
+    assert keys == set(port.state_dict())
+    assert {"backbone.conv1.weight", "backbone.bn2.running_mean",
+            "backbone.layer1.0.downsample.1.running_var", "backbone.layer1.2.conv3.weight",
+            "backbone.transition1.0.1.bias", "backbone.transition1.1.0.0.weight",
+            "backbone.transition2.2.0.1.running_mean", "backbone.transition3.3.0.0.weight",
+            "backbone.stage2.0.branches.0.3.bn2.weight",
+            "backbone.stage3.3.fuse_layers.0.2.1.running_var",
+            "backbone.stage4.2.fuse_layers.3.0.2.1.num_batches_tracked",
+            "classifier_n.4.weight", "novel_emb"} <= keys
+    sd = port.state_dict()
+    assert sd["backbone.stage4.0.fuse_layers.0.3.0.weight"].shape == (32, 256, 1, 1)
+    assert sd["backbone.stage4.0.fuse_layers.3.0.2.0.weight"].shape == (256, 32, 3, 3)
+    assert sd["base_emb"].shape == (7, 480)
+
+
+def test_hrnet_pth_loads_into_the_jax_package(hrnet_trees, tmp_path):
+    v, port = hrnet_trees
+    path = str(tmp_path / "seghr.pth")
+    torch.save({"state_dict": {"module." + k: x for k, x in port.state_dict().items()}}, path)
+    got, info = load_torch_checkpoint(path, jax.tree_util.tree_map(np.zeros_like, v),
+                                      is_restore=True, arch="hrnet")
+    assert not info["missing"] and not info["unexpected"]
+    _assert_same_tree(v, got)
 
 
 @pytest.fixture(scope="module", params=["deeplab_pop", "pspnet_pop"])

@@ -318,7 +318,7 @@ def test_fused_default_covers_bfloat16_only(model, dtype):
     assert resolve_fused(parse(base + ["--no-fused"])) is False
 
 
-@pytest.mark.parametrize("extra", [["--model", "seghr_pop"], ["--model", "pspplus_pop"],
+@pytest.mark.parametrize("extra", [["--model", "lsk_pop"], ["--model", "pspplus_pop"],
                                    ["--model", "pspnet"]])
 def test_unported_paths_raise(data_root, pth, tmp_path, extra):
     from segland_tpu_torch.cli.eval_base import main

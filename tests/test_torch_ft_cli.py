@@ -6,7 +6,8 @@ classifier, base_emb, BatchNorm statistics) bit-equal to the base model's and
 the novel head moved; its ``validate_ft`` numbers equal the JAX
 ``validate_ft``'s on the same weights (read by the JAX package's
 ``load_torch_checkpoint``, nothing missing) and tiles; the port's ``eval_ft``
-loads each seed's file.  Then what the CLI refuses."""
+loads each seed's file; ``seghr_pop`` / ``hr-w18`` fine-tunes for an epoch.  Then
+what the CLI refuses."""
 
 import json
 import types
@@ -159,6 +160,32 @@ def test_eval_ft_loads_each_seeds_best(root, tuned, tmp_path, monkeypatch):
     assert all(missing == [] and unexpected == [] for _, (_, missing, unexpected) in loaded)
     for seed in SEEDS:
         assert 0.0 <= res[seed][2] <= 1.0
+
+
+def test_seghr_fine_tunes_one_epoch(root, tmp_path):
+    """seghr_pop / hr-w18 from a base .pth for one epoch (--no-packed-train):
+    best_123.pth keeps every frozen tensor of the base bit for bit, and its
+    novel head moved from where it started."""
+    base_path = tmp_path / "seghr_base.pth"
+    save_params(str(base_path), build_model("seghr_pop", "hr-w18", n_base=7,
+                                            generator=torch.Generator().manual_seed(0)))
+    snap = tmp_path / "snap"
+    res = ft_pop.main(_args(root, snap) + ["--model", "seghr_pop", "--backbone", "hr-w18",
+                                           "--restore-from", str(base_path), "--num-epoch", "1",
+                                           "--no-packed-train"])
+    assert set(res) == {123} and res[123]["epoch"] == 1
+    base = torch.load(base_path, weights_only=False)
+    best = torch.load(snap / "best_123.pth", weights_only=False)
+    assert set(best) == set(base) | {"novel_emb", "classifier_n.0.weight",
+                                     "classifier_n.2.weight", "classifier_n.4.weight"}
+    for k, v in base.items():
+        assert torch.equal(best[k], v), k
+    fresh = build_model("seghr_pop", "hr-w18", n_base=7, n_novel=4, is_ft=True,
+                        generator=torch.Generator().manual_seed(123)).state_dict()
+    for k in best:
+        if ft_trainable(k):
+            init = base[k.replace("classifier_n", "classifier")] if "classifier" in k else fresh[k]
+            assert not torch.equal(best[k], init), k
 
 
 def test_restore_refuses_a_ckpt_and_a_shape_mismatch(root, tmp_path):

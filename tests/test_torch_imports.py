@@ -35,7 +35,7 @@ MODULES = ["segland_tpu_torch", "segland_tpu_torch.ops.fused_mlp",
            "segland_tpu_torch.cli.train_base", "segland_tpu_torch.train.ft",
            "segland_tpu_torch.data.oem_ft", "segland_tpu_torch.cli.ft_pop",
            "segland_tpu_torch.cli.gen_fs_list", "segland_tpu_torch.models.backbones.droppath",
-           "segland_tpu_torch.models.init"]
+           "segland_tpu_torch.models.init", "segland_tpu_torch.models.backbones.hrnet"]
 FOREIGN = ("jax", "flax", "PIL", "segland_tpu")
 
 PROBE = """

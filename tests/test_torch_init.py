@@ -1,7 +1,8 @@
 """The port's fresh init against the JAX package's (ROADMAP C6), on the CPU:
 every parameter and BatchNorm statistic of ``pspnet_pop`` / ``resnet10``,
 ``convnext_pop`` and ``swin_pop`` (narrow ``convnext-t`` and ``swin-t``,
-``tests/ft_helpers.py``) drawn by ``build_model`` from a seeded generator
+``tests/ft_helpers.py``) and ``seghr_pop`` / ``hr-w32`` (full depth; the JAX
+HRNet has no explicit initializer, its W-packed chains draw as nn.Conv does) drawn by ``build_model`` from a seeded generator
 and by the JAX module's ``init``, matched by upstream key.  A tensor that is
 constant on the JAX side (norm scales and shifts, biases, layer-scales,
 running statistics) must equal it; any other must have its standard
@@ -23,7 +24,8 @@ from segland_tpu.models import build_model as j_build
 from segland_tpu_torch.ckpt import from_jax_variables
 from segland_tpu_torch.models import build_model
 
-MODELS = [("pspnet_pop", "resnet10"), ("convnext_pop", "convnext-t"), ("swin_pop", "swin-t")]
+MODELS = [("pspnet_pop", "resnet10"), ("convnext_pop", "convnext-t"), ("swin_pop", "swin-t"),
+          ("seghr_pop", "hr-w32")]
 
 
 def _std_by_fan_in(name, a):
@@ -37,9 +39,14 @@ def _std_by_fan_in(name, a):
 def test_fresh_init_scales_match_jax(name, backbone, monkeypatch):
     narrow_backbones(monkeypatch)
     jm = j_build(name, backbone=backbone, n_base=7)
-    x = jnp.zeros((1, 32, 32, 3))
+    # seghr_pop at tests/test_torch_hrnet.py's input: a process that ran that file has
+    # compiled the forward's ops for it
+    x = jnp.zeros((2, 64, 64, 3) if name == "seghr_pop" else (1, 32, 32, 3))
+    # HRNet repeats a few dozen op shapes over its 8 modules: eager init compiles each once
+    # (~20 s), where jit compiles the whole graph (~40 s)
+    init = jm.init if name == "seghr_pop" else jax.jit(jm.init)
     want = {k: v for k, v in from_jax_variables(jax.tree_util.tree_map(
-        np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(0), x))).items()
+        np.asarray, init(jax.random.PRNGKey(0), x))).items()
         if not k.endswith("num_batches_tracked")}
     got = {k: v.numpy() for k, v in build_model(
         name, backbone, n_base=7, generator=torch.Generator().manual_seed(0)).state_dict().items()

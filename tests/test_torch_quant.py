@@ -7,7 +7,8 @@ values exactly (integers) or to 1e-6 relative (fp32 products of the same
 factors); calibrated scales agree to 1e-6 relative; int8 logits agree within
 5% of the largest logit (tests/test_quant.py's own bar; a scale that differs
 in its last bit flips single roundings), and within 1% when the scales are
-carried across."""
+carried across; seghr_pop / hr-w32's 304 int8 convs agree within 1% conv by
+conv and its logits within the 5% bar (see its test)."""
 
 import logging
 
@@ -26,6 +27,7 @@ from segland_tpu.quant import calibrate as j_calibrate
 from segland_tpu.quant import quantized_apply as j_quantized_apply
 from segland_tpu.quant import ptq as JP
 from segland_tpu_torch.ckpt import quant_from_jax, quant_to_jax
+from segland_tpu_torch.ckpt.convert import _module_name
 from segland_tpu_torch.models import build_model
 from segland_tpu_torch.models.backbones.resnet import _make_layer
 from segland_tpu_torch.quant import (ActScales, QuantConfig, build_fused_block_inputs, calibrate,
@@ -465,3 +467,113 @@ def test_evaluator_precalibrated_scales_skip_the_warm_up(deeplab):
                                 fused_epilogue=False).predict_batch(img * 5.0, (64, 64))
     assert np.abs(logits.numpy() - np.asarray(jlogits)).max() < 0.01 * np.abs(jlogits).max()
     assert (pred.numpy() == np.asarray(jpred)).mean() > 0.97
+
+
+# ---- seghr_pop / hr-w32: conv by conv, no fused block ----------------------
+@pytest.fixture(scope="module")
+def seghr():
+    """seghr_pop / hr-w32 and the JAX model with its branches unpacked: the JAX
+    package's W-packed chains (its default) run raw weights outside nn.Conv,
+    so its interceptor leaves their convs in fp32, where the port (which has
+    no packed layout) quantizes every conv of 32 channels or more."""
+    from torch_helpers import tame_hrnet
+    import segland_tpu.models.pop as jpop
+
+    kw = dict(n_base=7, n_novel=4, is_ft=True)  # tests/test_torch_hrnet.py's model
+    jm = j_build("seghr_pop", "hr-w32", **kw)
+    v = _np_tree(tame_hrnet(random_variables(jm, jnp.zeros((1, 64, 64, 3)), seed=0)))
+    port = load_port(build_model("seghr_pop", "hr-w32", **kw), v)
+    img = np.random.RandomState(1).randn(2, 64, 64, 3).astype(np.float32)
+    get = jpop.get_backbone
+
+    def unpacked(fn):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jpop, "get_backbone", lambda name, **kw: get(name, packed=False, **kw))
+            return fn()
+
+    return jm, v, port, img, unpacked
+
+
+def _jax_convs(jm, vq, img, unpacked):
+    """The JAX package's quantized_apply over ``img`` with every nn.Conv's
+    input and output recorded ({module path: (x, y)}, NHWC), and its logits."""
+    rec = {}
+
+    def record(next_fun, args, kwargs, context):
+        out = next_fun(*args, **kwargs)
+        if type(context.module) is fnn.Conv and context.method_name == "__call__":
+            rec["/".join(context.module.path)] = (np.asarray(args[0]), np.asarray(out))
+        return out
+
+    def run():
+        with fnn.intercept_methods(record):  # the outer one sees the call first
+            with fnn.intercept_methods(JP.quant_interceptor("int8")):
+                return jm.apply(vq, jnp.asarray(img))
+
+    return rec, np.asarray(unpacked(run))
+
+
+def test_seghr_int8_matches_jax_with_scales_carried_across(seghr):
+    """The port's calibration carried into the JAX tree (``quant_to_jax``):
+    every conv of the backbone but the stem's first (3 inputs) takes a scale.
+    Conv by conv, each of the port's int8 convs on the JAX conv's own input
+    within 1% of the JAX output's largest |value| (seen: equal).  The whole
+    model within 5% of the largest logit (tests/test_quant.py's own bar;
+    seen 2.6%): the two frameworks' fp32 sums differ in their last bits, a
+    value that sits on a rounding edge of the next quantization goes the
+    other way (first at layer1.2.conv2, 0.0026 of 1.27), and over 304
+    requantizations such flips decorrelate the roundings, so the whole-model
+    gap approaches int8's own distance from fp32, not the 1% of resnet10's 22
+    convs; quantized, and still the same model."""
+    jm, v, port, img, unpacked = seghr
+    quant = calibrate(port, [_nchw(img)])
+    convs = [n for n, m in port.named_modules() if isinstance(m, nn.Conv2d)
+             and n.startswith("backbone.")]
+    assert set(quant) == set(convs) - {"backbone.conv1"} and len(quant) == 304
+    vq = {**v, "quant": quant_to_jax({k: a.numpy() for k, a in quant.items()}, v["params"])}
+    rec, want = _jax_convs(jm, vq, img, unpacked)
+    modules = dict(port.named_modules())
+    names = {_module_name(p): p for p in rec}
+    assert set(names) == set(convs)
+    with torch.no_grad(), quant_interceptor(port, "int8", quant=quant) as q:
+        for name in quant:
+            x, y = rec[names[name]]
+            got_y = q._layer(name, modules[name], _nchw(x)).permute(0, 2, 3, 1).numpy()
+            assert np.abs(got_y - y).max() < 0.01 * np.abs(y).max(), name
+    with torch.no_grad():
+        got = quantized_apply(port)(quant, _nchw(img)).permute(0, 2, 3, 1).numpy()
+        fp32 = port(_nchw(img)).permute(0, 2, 3, 1).numpy()
+    scale = np.abs(want).max()
+    assert got.shape == want.shape == (2, 16, 16, 12)
+    assert np.abs(got - want).max() < 0.05 * scale
+    assert 0 < np.abs(got - fp32).max() < 0.1 * scale
+
+
+def test_fused_route_takes_no_hrnet_block(seghr, stage, monkeypatch, caplog):
+    """HRNet's stage-1 Bottlenecks (conv1-3, bn1-3, no downsample in blocks
+    1-3) are not the fused route's, as in the JAX package (its HRNet has no
+    Bottleneck module): no fused inputs on either side, the warning the JAX
+    package gives, and --int8 --fused equal to --int8 with no fused call.
+    The ResNet's blocks are still found."""
+    from segland_tpu_torch.ops import fused_bottleneck as FB
+
+    jm, v, port, img, _ = seghr
+    x = _nchw(img[:1, :32, :32]).bfloat16()
+    quant = calibrate(port, [x])
+    assert {f"backbone.layer1.{i}.conv{j}" for i in range(4) for j in (1, 2, 3)} <= set(quant)
+    cfg = QuantConfig(fused_blocks=True, fused_interpret=True)
+    assert build_fused_block_inputs(port, quant, cfg) == {}
+    assert JP.build_fused_block_inputs({**v, "quant": quant_to_jax(
+        {k: a.numpy() for k, a in quant.items()}, v["params"])}, JQuantConfig(fused_blocks=True)) == {}
+    _, _, _, resnet_layer, rquant, _ = stage
+    assert sorted(build_fused_block_inputs(resnet_layer, rquant, cfg)) == ["layer1.0", "layer1.1"]
+    calls = []
+    monkeypatch.setattr(FB, "bottleneck_int8_reference",
+                        lambda *a, _fn=FB.bottleneck_int8_reference, **kw:
+                        calls.append(1) or _fn(*a, **kw))
+    with caplog.at_level(logging.WARNING, logger="segland_tpu_torch.quant.ptq"):
+        with torch.no_grad():
+            fused = quantized_apply(port, cfg)(quant, x)
+            plain = quantized_apply(port)(quant, x)
+    assert "no Bottleneck has a fused-eligible weight set" in caplog.text
+    assert calls == [] and torch.equal(fused, plain)

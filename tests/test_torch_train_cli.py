@@ -5,7 +5,8 @@ every epoch, ``best.pth`` and ``--metrics``; a resumed run from
 ``epoch_2.pth`` ends on the same weights as the straight run (exactly: the
 CPU ops are deterministic); the port's ``eval_base`` runs ``best.pth``; the
 JAX package's ``load_torch_checkpoint`` reads it with nothing missing, and its
-forward equals the port's within the repo's 5e-4 bar.  Then what does not
+forward equals the port's within the repo's 5e-4 bar; ``seghr_pop`` / ``hr-w18``
+trains and its ``best.pth`` loads into the JAX package.  Then what does not
 train yet raises, naming its ROADMAP item."""
 
 import json
@@ -112,6 +113,42 @@ def test_best_pth_runs_in_eval_base_and_loads_into_jax(root, trained, tmp_path):
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-4)
 
 
+def test_seghr_trains_and_its_best_pth_loads_into_jax(root, tmp_path):
+    """seghr_pop at hr-w18 (the reference's base-training model, HRNet at its
+    narrowest) for 2 epochs with --no-packed-train, which builds HRNet's plain
+    form: finite losses, snapshots, best.pth through eval_base and into the
+    JAX package's load_torch_checkpoint (arch "hrnet") with nothing missing or
+    unexpected.  --packed-train asks for the JAX package's W-packed layout,
+    which the port does not carry, and raises."""
+    from segland_tpu.ckpt.torch_convert import arch_for, load_torch_checkpoint
+    from segland_tpu.models import build_model as j_build
+    from segland_tpu_torch.cli import eval_base
+    from torch_helpers import random_variables
+
+    hr = ["--model", "seghr_pop", "--backbone", "hr-w18", "--no-fused", "--num-epoch", "2"]
+    snap = tmp_path / "snap"
+    best = train_base.main(_args(root, snap, "--metrics", *hr, "--no-packed-train"))
+    assert 0.0 <= best <= 1.0
+    rows = [json.loads(line) for line in (snap / "metrics.jsonl").read_text().splitlines()]
+    assert sum(r["tag"] == "train/total_loss" for r in rows) == 2
+    assert all(np.isfinite(r["value"]) for r in rows)
+    for name in ("epoch_1.pth", "epoch_2.pth", "best.pth"):
+        assert (snap / name).exists(), name
+    res = eval_base.main(["--data-dir", str(root), "--val-list", str(root / "list" / "val.txt"),
+                          "--model", "seghr_pop", "--backbone", "hr-w18",
+                          "--restore-from", str(snap / "best.pth"), "--device", "cpu",
+                          "--base-size", "48,48", "--num-workers", "0",
+                          "--save-path", str(tmp_path / "eval")])
+    assert 0.0 <= res[123][2] <= 1.0
+    template = jax.tree_util.tree_map(np.zeros_like, random_variables(
+        j_build("seghr_pop", "hr-w18", n_base=7), jnp.zeros((1, 32, 32, 3))))
+    _, info = load_torch_checkpoint(str(snap / "best.pth"), template,
+                                    arch=arch_for("seghr_pop", "hr-w18"))
+    assert info["missing"] == [] and info["unexpected"] == [] and info["loaded"] > 1000
+    with pytest.raises(ValueError, match="W-packed"):
+        train_base.main(_args(root, tmp_path / "packed", *hr, "--packed-train"))
+
+
 @pytest.mark.parametrize("extra,item", [
     (["--model", "lsk_pop"], "A9"),
     (["--model", "pspnet"], "A7"),
@@ -158,7 +195,8 @@ def test_the_train_default_of_fused(dtype):
 
     parse = lambda extra: train_base.get_parser().parse_args(
         ["--data-dir", "x", "--model", "convnext_pop", "--dtype", dtype] + extra)
-    assert TRAIN_FUSED_DEFAULTS == {"convnext_pop": False, "swin_pop": False}
+    assert TRAIN_FUSED_DEFAULTS == {"convnext_pop": False, "swin_pop": False,
+                                    "seghr_pop": False}
     assert resolve_fused(parse([]), "train") is False
     assert resolve_fused(parse(["--fused"]), "train") is True
     assert resolve_fused(parse(["--no-fused"]), "train") is False

@@ -2,7 +2,8 @@
 ``make_base_train_step`` + ``create_optimizer`` on the CPU, fp32, 3 steps on
 the same weights and batches: ``pspnet_pop`` / ``resnet10`` (BatchNorm in
 train mode, with and without ``fix_bn``) and ``deeplab_pop`` / ``resnet10``, ``double_step`` and
-``skip_nonfinite``; and BatchNorm in train mode against flax's.
+``skip_nonfinite``; and BatchNorm in train mode against flax's; ``seghr_pop`` /
+``hr-w32`` under ``-m slow``.
 
 Bars: loss dicts 1e-5 relative (seen: 3.4e-7); the grad norm 5e-3 relative
 and the parameters and BatchNorm statistics 5e-4 of their tensor's largest
@@ -42,6 +43,27 @@ def test_resnet_step_matches_jax(name, fix_bn):
     stats = [k for k in before if k.endswith(("running_mean", "running_var"))]
     moved = [k for k in stats if not torch.equal(before[k], state.model.state_dict()[k])]
     assert moved == ([] if fix_bn else stats)
+
+
+@pytest.mark.slow
+def test_seghr_step_matches_jax():
+    """seghr_pop / hr-w32, the JAX step at its default packed_train=True (its
+    W-packed chains' batch statistics and gradients, exact by construction)
+    against the port's plain form, at 64^2 and LR 1e-4; under -m slow: the
+    JAX step compiles for about a minute.  At 32^2 branch 3 is 1x1, and
+    train-mode BatchNorm there normalises 2 values a channel: E[x^2] - E[x]^2
+    cancels to about the size of its rounding, and the two frameworks' sums
+    part (step 0's seg loss 1.5% apart, first at transition3's BatchNorm); at
+    64^2 each channel holds 8.  These random weights give a gradient norm of
+    175, so at LR 1e-3 a step moves the weights far enough that step 0's
+    gradient gap (6.3e-4 of the norm, the ReLU flips of the module docstring)
+    makes step 1's gradients 1.6% apart and its seg loss 7.6e-5; at 1e-4 the
+    gaps stay 5.8e-6 and 2.6e-3 (seen), inside the bars."""
+    jstate, jstep, state, step = pair("seghr_pop", "hr-w32", 64, "sgd", lr=1e-4)
+    jstate, log = run(jstate, jstep, state, step, batches(3, 64))
+    check_log(log, 1e-5, 5e-3)
+    check_weights(jstate, state.model, 5e-4)
+    assert state.step == 3
 
 
 def test_double_step_applies_each_gradient_twice():

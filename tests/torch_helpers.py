@@ -58,6 +58,24 @@ def random_variables(module, *args, seed: int = 0, **kwargs):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
+def tame_hrnet(variables, residual: float = 0.3, fuse: float = 0.5):
+    """``variables`` of a JAX seghr_pop with the scale and shift of every
+    residual branch's last BatchNorm (a BasicBlock's second, a stage-1
+    Bottleneck's third) times ``residual`` and of every fuse-lattice BatchNorm
+    times ``fuse``: with random_variables' draws as they are, the branches
+    grow to ~1e4 over HRNet's 8 modules; tamed they stay under ~10 and the
+    logits about 1, so the repo's absolute 5e-4 bar reads the network."""
+    import jax
+
+    v = jax.tree_util.tree_map(lambda a: a, variables)
+    bb = v["params"]["backbone"]
+    for k in bb:
+        f = (residual if ("branches" in k and k.endswith("_c2_bn")) or k.endswith("_c3_bn")
+             else fuse if "_fuse_" in k and k.endswith("_bn") else 1.0)
+        bb[k] = {n: a * np.float32(f) for n, a in bb[k].items()}
+    return v
+
+
 def load_port(module, variables, prefix: str = ""):
     """Load a JAX variable tree into a port module through
     ``from_jax_variables``; ``prefix`` selects one subtree's keys."""
