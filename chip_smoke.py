@@ -129,6 +129,16 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      validation batch; frozen tensors bit-equal; eval_ft), its step's ms and
      memory; --int8 and --int8 --fused (no K7 launch, the fused request's
      warning, agreement with bf16 printed);
+ 11b. ensemble: the reference's stage 4 (phase_ensemble): EnsembleEvaluator over
+     convnext_pop, swin_pop / swin-s and seghr_pop / hr-w32 at full width and
+     depth, bf16, 2 batches of 8 synthetic 1024^2 tiles (K1 42, K3 24, K2 1 a
+     batch, any other count fails; tiles/s of the kernels and of their plain
+     versions, >= 99% argmax agreement; the map equal to fusemat's order, each
+     member upsampled then summed, except at near-ties); cli.predict's device
+     path on a 4096^2 GeoTIFF scene with convnext_pop (25 tiles in 4 batches:
+     K1 72), equal to the host path except at near-ties, seconds a scene of
+     both paths; two members' .mat exports fused by fuse_prob_maps on the
+     card, equal to numpy's argmax of the float32 mean;
  12. K10 hg2_section (head groups, masks from the window index; K9's body)
      vs its plain version at the four swin-s stage shapes, shift 0 and 3,
      every built hg, wblk = W and 32; its builds' registers and spills (each
@@ -165,6 +175,7 @@ the repo beside it, it fails before printing any result.
     python3 chip_smoke.py --phases train    # base training of convnext_pop and swin_pop on the card
     python3 chip_smoke.py --phases ft       # few-shot fine-tuning of swin_pop and convnext_pop
     python3 chip_smoke.py --phases seghr    # seghr_pop / hr-w32: eval, base training, ft, int8
+    python3 chip_smoke.py --phases ensemble # ensemble serving, scene prediction, .mat fusion
     python3 chip_smoke.py --phases k2,k6    # K2 and K6 at every shape of their phases
     python3 chip_smoke.py --phases k1,k3    # K1 and K3 with their build, SASS and phase lines
     python3 chip_smoke.py --phases k4,k5    # K4 and K5 with their build, SASS and phase lines
@@ -2921,6 +2932,208 @@ def phase_seghr(dev):
     return paths
 
 
+ENSEMBLE = ("convnext_pop", "swin_pop", SEGHR)  # the reference's winning ensemble
+ENSEMBLE_PER_BATCH = {"ln_mlp": 18 + 24, "attn_section": 24, "upsample_argmax": 1}
+SCENE, SCENE_OVERLAP = 4096, 128  # 5 x 5 tiles of 1024^2: 4 batches of 8, the last padded
+NEAR_TIE = 1e-3  # a class may differ between two summation orders where the top-2 gap is <= it
+
+
+def differ_beyond_ties(pred, ref, logits):
+    """Pixels where pred and ref differ and ref's top-2 logits lie further apart
+    than NEAR_TIE (torch tensors on one device, or numpy arrays)."""
+    import torch
+
+    logits, pred, ref = (torch.as_tensor(a) for a in (logits, pred, ref))
+    top2 = logits.topk(2, dim=-1).values
+    return int(((pred.to(ref.device) != ref) & (top2[..., 0] - top2[..., 1] > NEAR_TIE)).sum())
+
+
+def ensemble_serving(dev, members, batches, kw):
+    """(a) of phase_ensemble.  Returns the serving run's launch counts."""
+    import torch
+    from segland_tpu_torch.evallib import EnsembleEvaluator, Evaluator
+
+    ens = EnsembleEvaluator(members, dev, **kw)
+    ens.run(batches)  # warm-up: cuDNN plans, device and pinned-host allocators
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (cm, (base, _, total, _), tps), launches = counted_run(ens, batches)
+    print(f"ensemble {'+'.join(ENSEMBLE)}: bf16 fused, {N_BATCHES}x{BATCH} tiles {TILE}^2: "
+          f"launches={launches} mIoU base={base:.4f} total={total:.4f} tiles_per_s={tps:.2f} "
+          f"pixels={int(cm.sum())} max_memory_allocated="
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the three members' weights "
+          f"included)", flush=True)
+    want = {key: n * N_BATCHES for key, n in ENSEMBLE_PER_BATCH.items()}
+    if launches != want:
+        fail(f"ensemble launch counts {launches}, want {want}")
+    if int(cm.sum()) != N_BATCHES * BATCH * (TILE - 16) * TILE:
+        fail("ensemble confusion matrix does not count every labelled pixel")
+    plain = EnsembleEvaluator(members, dev, plain_kernels=True, **kw)
+    plain.run(batches)
+    (_, (_, _, total_p, _), tps_p), plain_launches = counted_run(plain, batches)
+    if plain_launches:
+        fail(f"the plain ensemble run launched a kernel: {plain_launches}")
+    evs = [Evaluator(m, dev, **kw) for m in members]
+    agree = n = beyond = 0
+    for imgs, _, _ in batches:
+        pk = ens.predict_batch(imgs, (TILE, TILE))
+        agree += int((pk == plain.predict_batch(imgs, (TILE, TILE))).sum())
+        n += pk.numel()
+        # fusemat's order: each member's upsampled fp32 map, summed, argmaxed
+        acc = None
+        for ev in evs:
+            up, _ = ev.predict_batch(imgs, (TILE, TILE), want_logits=True)
+            acc = up if acc is None else acc + up
+            del up
+        if acc.shape != (BATCH, TILE, TILE, 8) or not bool(acc.isfinite().all()):
+            fail(f"ensemble logits {tuple(acc.shape)} not finite (B,{TILE},{TILE},8)")
+        beyond += differ_beyond_ties(pk, acc.argmax(-1).to(torch.uint8), acc)
+        del acc
+    frac = agree / n
+    print(f"ensemble plain versions on the card: total={total_p:.4f} tiles_per_s={tps_p:.2f} "
+          f"argmax_agreement={frac:.6f}; against fusemat's order (members upsampled, summed): "
+          f"{beyond} pixels differ beyond near-ties ({NEAR_TIE:g})", flush=True)
+    if frac < 0.99:
+        fail(f"ensemble: kernel vs plain argmax agreement {frac:.4f} < 0.99")
+    if beyond:
+        fail(f"ensemble: {beyond} pixels differ from fusemat's order beyond near-ties")
+    return launches
+
+
+def scene_prediction(dev, root, model):
+    """(b) of phase_ensemble: cli.predict's device path on a SCENE^2 GeoTIFF
+    (``model``'s weights through a .pth), then the two paths of
+    evallib.tiled on the same scene and weights, timed; the CLI's map and the
+    device path's equal the host path's except at near-ties.  Returns the
+    CLI run's launch counts."""
+    import torch
+    from segland_tpu_torch.ckpt import save_params
+    from segland_tpu_torch.cli import predict
+    from segland_tpu_torch.data import augment as A
+    from segland_tpu_torch.data.geotiff import write_tiff
+    from segland_tpu_torch.data.tileio import read_image, read_label
+    from segland_tpu_torch.evallib import Evaluator
+    from segland_tpu_torch.evallib.tiled import _tile_starts, predict_scene, predict_scene_device
+
+    n_tiles = len(_tile_starts(SCENE, TILE, TILE - SCENE_OVERLAP)) ** 2
+    path, pth = os.path.join(root, "scene.tif"), os.path.join(root, "convnext_pop.pth")
+    # 64^2 blocks of one colour with noise, so the model's classes are not all one
+    rng = np.random.RandomState(5)
+    blocks = rng.randint(0, 256, (SCENE // 64, SCENE // 64, 3)).repeat(64, 0).repeat(64, 1)
+    write_tiff(path, np.clip(blocks + rng.randint(-20, 21, blocks.shape), 0, 255))
+    save_params(pth, model)
+    argv = ["--data-dir", root, "--input", path, "--output", os.path.join(root, "pred"),
+            "--model", "convnext_pop", "--restore-from", pth, "--dtype", "bfloat16",
+            "--tile", str(TILE), "--overlap", str(SCENE_OVERLAP), "--eval-batch", str(BATCH)]
+    t0 = time.time()
+    n, launches = counted(lambda: predict.main(argv))
+    torch.cuda.synchronize()
+    cli_s = time.time() - t0
+    want = {"ln_mlp": 18 * -(-n_tiles // BATCH)}
+    if n != 1 or launches != want:
+        fail(f"predict: {n} scenes, launch counts {launches}, want 1 and {want}")
+    got_cli = read_label(os.path.join(root, "pred", "scene.tif"))
+
+    ev = Evaluator(model, dev, num_classes=8, n_base=7)
+    image = A.normalize(read_image(path), A.IMAGENET_MEAN, A.IMAGENET_STD)
+    apply_fn = lambda t: ev.predict_batch((t, t.shape[0]), (TILE, TILE))[0]
+    host_fn = lambda t: ev.predict_batch(t, (TILE, TILE))[0].cpu().numpy()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got_dev = predict_scene_device(apply_fn, image, 8, dev, tile=TILE, overlap=SCENE_OVERLAP,
+                                   batch=BATCH)
+    dev_s = time.time() - t0
+    t0 = time.time()
+    logits, want_host = predict_scene(host_fn, image, 8, tile=TILE, overlap=SCENE_OVERLAP,
+                                      batch=BATCH)
+    host_s = time.time() - t0
+    shares = np.bincount(want_host.ravel(), minlength=8) / want_host.size
+    bad = {tag: differ_beyond_ties(got, want_host, logits)
+           for tag, got in (("cli", got_cli), ("device", got_dev))}
+    print(f"scene {SCENE}^2 convnext_pop bf16 fused, tile {TILE} overlap {SCENE_OVERLAP}, "
+          f"{n_tiles} tiles in batches of {BATCH}: cli.predict {cli_s:.2f}s "
+          f"(launches={launches}; the model's build, the GeoTIFF read and write included), "
+          f"device path {dev_s:.3f} s/scene, host path {host_s:.3f} s/scene; pixels off the host "
+          f"path beyond near-ties {bad}; class shares {np.round(shares, 3).tolist()} "
+          f"({card()})", flush=True)
+    if got_cli.shape != (SCENE, SCENE) or any(bad.values()):
+        fail(f"scene prediction: the device path differs from the host path: {bad}")
+    return launches
+
+
+def fusion(dev, root, members):
+    """(c) of phase_ensemble: two members' .mat maps exported by
+    Evaluator.run over 2 unlabelled tiles, fused by fuse_prob_maps on the
+    card; equal to numpy's argmax of the float32 mean.  Returns the exports'
+    launch counts."""
+    import scipy.io
+    import torch
+    from segland_tpu_torch.evallib import Evaluator, fuse_prob_maps
+
+    imgs, _, ids = synthetic_batches()[0]
+    loader = [(imgs[:2], [None, None], ids[:2])]
+    dirs, launches = [], {}
+    for m in members:
+        d = os.path.join(root, f"prob_{len(dirs)}")
+        os.makedirs(d)
+        ev = Evaluator(m, dev, num_classes=8, n_base=7, normalize_on_device=True)
+        _, got = counted(lambda: ev.run(loader, prob_path=d))
+        for key, v in got.items():
+            launches[key] = launches.get(key, 0) + v
+        dirs.append(d)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fused = fuse_prob_maps(dirs, dev)
+    fuse_s = time.time() - t0
+    if sorted(fused) != sorted(f"{t}.mat" for t in ids[:2]):
+        fail(f"fusion: fused {sorted(fused)}")
+    off = 0
+    for f, idx in fused.items():
+        total = sum(scipy.io.loadmat(os.path.join(d, f))["outputs"][0].astype(np.float64)
+                    for d in dirs)
+        want = (total / len(dirs)).astype(np.float32).argmax(0)
+        off += int((idx != want).sum()) + (idx.shape != (TILE, TILE))
+    if launches != {"ln_mlp": 18}:
+        fail(f"fusion exports' launch counts {launches}, want K1 18 (convnext_pop's batch)")
+    print(f"fusion: 2 members' .mat maps (K=8, {TILE}^2) of 2 tiles, export launches={launches}; "
+          f"fuse_prob_maps on the card {fuse_s:.3f}s; pixels off numpy's argmax of the float32 "
+          f"mean: {off}", flush=True)
+    if off:
+        fail(f"fusion: {off} pixels differ from numpy's argmax of the float32 mean")
+    return launches
+
+
+def phase_ensemble(dev):
+    """The reference's stage 4 on the card, weights from build(): (a)
+    EnsembleEvaluator over convnext_pop / convnext-t, swin_pop / swin-s and
+    seghr_pop / hr-w32 (bf16, fused where the eval default is: K1 42, K3 24
+    and K2 1 a batch) on N_BATCHES batches of 8 synthetic 1024^2 tiles: tiles/s,
+    >= 99% argmax agreement with the kernels' plain versions, and the map equal
+    to fusemat's order (each member's upsampled fp32 logits from
+    Evaluator.predict_batch, summed, argmaxed) except at near-ties; (b)
+    cli.predict's device path on a SCENE^2 scene with convnext_pop (K1 18 a
+    batch of 8 tiles), equal to the host path except at near-ties, seconds a
+    scene of both paths; (c) fusion of two members' .mat exports on the card.
+    Returns {path: launch counts}."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.time()
+    members = [build(name, torch.bfloat16).to(dev) for name in ENSEMBLE]
+    kw = dict(num_classes=12, n_base=7, normalize_on_device=True)
+    paths = {"ensemble": ensemble_serving(dev, members, synthetic_batches(), kw)}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        paths["scene (cli.predict)"] = scene_prediction(dev, root, members[0])
+        torch.cuda.empty_cache()
+        paths["fusion exports"] = fusion(dev, root, [members[0], members[2]])
+    del members
+    torch.cuda.empty_cache()
+    print(f"ensemble phase: {time.time() - t_phase:.1f}s", flush=True)
+    return paths
+
+
 def build_resnet(name, dtype, dev, seed=0):
     """deeplab_pop or pspnet_pop over resnet50 on ``dev`` with seeded random
     weights that keep activations in a sane range through the 16 blocks:
@@ -3231,9 +3444,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,train,ft,swin,"
-                            "deeplab,pspnet,seghr",
+                            "deeplab,pspnet,seghr,ensemble",
                     help="comma list of k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,train,ft,"
-                         "swin,deeplab,pspnet,seghr (default: all nineteen); profile: a "
+                         "swin,deeplab,pspnet,seghr,ensemble (default: all twenty); profile: a "
                          "torch.profiler "
                          "breakdown of the swin and deeplab_pop slices; dilated: cuDNN vs the "
                          "nine-tap 3x3 at large dilations; steprule: the fp32 train-step "
@@ -3378,6 +3591,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "seghr" in phases:
         paths.update(phase_seghr(dev))
+        torch.cuda.empty_cache()
+    if "ensemble" in phases:
+        paths.update(phase_ensemble(dev))
         torch.cuda.empty_cache()
 
     if "profile" in phases:

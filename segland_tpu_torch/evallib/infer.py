@@ -25,24 +25,15 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
-class Evaluator:
-    """``plain_kernels=True`` runs every kernel's plain PyTorch version, even
-    on CUDA: it exists to hold the kernels against their plain versions, and
-    no CLI sets it.
+class Staging:
+    """What ``Evaluator`` and ``EnsembleEvaluator`` share: the device,
+    the class counts, normalization on the device, and host batches staged
+    in pinned memory by a thread ahead of the consumer."""
 
-    ``int8=True`` is the PTQ serving mode (``quant/ptq.py``): the first
-    ``calib_batches`` calls of ``predict_batch`` also run a calibration
-    forward (a running abs-max, so the scales always cover the current
-    batch), and every prediction takes the int8 conv/linear path.  ``quant``,
-    activation scales calibrated beforehand ({module name: act_amax}), skips
-    that warm-up."""
-
-    def __init__(self, model, device, num_classes: int = 12, n_base: int = 7,
+    def __init__(self, device, num_classes: int = 12, n_base: int = 7,
                  ignore_label: int = 255, normalize_on_device: bool = False,
-                 mean=IMAGENET_MEAN, std=IMAGENET_STD, plain_kernels: bool = False,
-                 int8: bool = False, calib_batches: int = 4, quant_cfg=None, quant=None):
+                 mean=IMAGENET_MEAN, std=IMAGENET_STD, plain_kernels: bool = False):
         self.device = torch.device(device)
-        self.model = model.to(self.device).eval()
         self.num_classes = num_classes
         self.n_base = n_base
         self.ignore_label = ignore_label
@@ -50,34 +41,6 @@ class Evaluator:
         self._mean = torch.tensor(mean, dtype=torch.float32, device=self.device)
         self._std = torch.tensor(std, dtype=torch.float32, device=self.device)
         self.plain_kernels = plain_kernels
-        self.int8 = int8
-        if int8:
-            from ..quant import DEFAULT_CONFIG, ActScales, quantized_apply
-
-            self._quant_cfg = quant_cfg or DEFAULT_CONFIG
-            self._quant = ActScales()
-            if quant:
-                self._quant.update({k: torch.as_tensor(v, dtype=torch.float32, device=self.device)
-                                    for k, v in quant.items()})
-                calib_batches = 0
-            elif calib_batches < 1:
-                raise ValueError("int8=True needs calib_batches >= 1 or pre-calibrated "
-                                 "scales in quant")
-            self._q_apply = quantized_apply(self.model, self._quant_cfg)
-        self.calib_batches = calib_batches
-        self._calib_seen = 0
-
-    def _forward(self, x):
-        """NCHW logits of a normalized batch, by the int8 path when asked."""
-        if not self.int8:
-            return self.model(x)
-        if self._calib_seen < self.calib_batches:
-            from ..quant import quant_interceptor
-
-            with quant_interceptor(self.model, "calibrate", self._quant_cfg, self._quant):
-                self.model(x)
-            self._calib_seen += 1
-        return self._q_apply(self._quant, x)
 
     def _pre(self, img):
         """[B,H,W,3] on the device -> normalized NCHW fp32 (channels-last)."""
@@ -86,13 +49,6 @@ class Evaluator:
             img = img.flip(-1).float() / 255.0
             img = (img - self._mean) / self._std
         return img.permute(0, 3, 1, 2)
-
-    def _postprocess(self, logits, out_h, out_w, want_logits=True):
-        """(B,h,w,K) logits -> (upsampled fp32 logits or None, uint8 preds)."""
-        if not want_logits:
-            return None, upsample_argmax(logits, (out_h, out_w))
-        up = resize_bilinear(logits.float(), (out_h, out_w), align_corners=True)
-        return up, up.argmax(-1).to(torch.uint8)
 
     def _host(self, a: np.ndarray) -> torch.Tensor:
         """A host copy of ``a`` the device can read asynchronously (pinned on
@@ -126,23 +82,6 @@ class Evaluator:
         if self.num_classes <= 255 and self.ignore_label == 255:
             labels = labels.astype(np.uint8)  # 4x less h2d than int32
         return self._host(labels)
-
-    @torch.inference_mode()
-    def predict_batch(self, images, out_hw, batch_pad: Optional[int] = None,
-                      want_logits: bool = True):
-        """images [B,H,W,3] -> (logits [B,oh,ow,K] fp32 or None, pred [B,oh,ow]
-        uint8), both on the device.  A ragged batch is zero-padded to
-        ``batch_pad`` and the padded rows are sliced off the outputs."""
-        host, b = images if isinstance(images, tuple) else self._stage(images, batch_pad)
-        img = host.to(self.device, non_blocking=True)
-        with plain_versions(self.plain_kernels):
-            logits = self._forward(self._pre(img)).permute(0, 2, 3, 1)
-            logits, pred = self._postprocess(logits.contiguous(), int(out_hw[0]),
-                                             int(out_hw[1]), want_logits)
-        if img.shape[0] != b:
-            logits = logits[:b] if logits is not None else None
-            pred = pred[:b]
-        return logits, pred
 
     @staticmethod
     def _prefetch(batches, depth: int = 2):
@@ -183,6 +122,79 @@ class Evaluator:
         finally:
             stop.set()
             t.join()
+
+
+class Evaluator(Staging):
+    """``plain_kernels=True`` runs every kernel's plain PyTorch version, even
+    on CUDA: it exists to hold the kernels against their plain versions, and
+    no CLI sets it.
+
+    ``int8=True`` is the PTQ serving mode (``quant/ptq.py``): the first
+    ``calib_batches`` calls of ``predict_batch`` also run a calibration
+    forward (a running abs-max, so the scales always cover the current
+    batch), and every prediction takes the int8 conv/linear path.  ``quant``,
+    activation scales calibrated beforehand ({module name: act_amax}), skips
+    that warm-up."""
+
+    def __init__(self, model, device, num_classes: int = 12, n_base: int = 7,
+                 ignore_label: int = 255, normalize_on_device: bool = False,
+                 mean=IMAGENET_MEAN, std=IMAGENET_STD, plain_kernels: bool = False,
+                 int8: bool = False, calib_batches: int = 4, quant_cfg=None, quant=None):
+        super().__init__(device, num_classes, n_base, ignore_label, normalize_on_device, mean,
+                         std, plain_kernels)
+        self.model = model.to(self.device).eval()
+        self.int8 = int8
+        if int8:
+            from ..quant import DEFAULT_CONFIG, ActScales, quantized_apply
+
+            self._quant_cfg = quant_cfg or DEFAULT_CONFIG
+            self._quant = ActScales()
+            if quant:
+                self._quant.update({k: torch.as_tensor(v, dtype=torch.float32, device=self.device)
+                                    for k, v in quant.items()})
+                calib_batches = 0
+            elif calib_batches < 1:
+                raise ValueError("int8=True needs calib_batches >= 1 or pre-calibrated "
+                                 "scales in quant")
+            self._q_apply = quantized_apply(self.model, self._quant_cfg)
+        self.calib_batches = calib_batches
+        self._calib_seen = 0
+
+    def _forward(self, x):
+        """NCHW logits of a normalized batch, by the int8 path when asked."""
+        if not self.int8:
+            return self.model(x)
+        if self._calib_seen < self.calib_batches:
+            from ..quant import quant_interceptor
+
+            with quant_interceptor(self.model, "calibrate", self._quant_cfg, self._quant):
+                self.model(x)
+            self._calib_seen += 1
+        return self._q_apply(self._quant, x)
+
+    def _postprocess(self, logits, out_h, out_w, want_logits=True):
+        """(B,h,w,K) logits -> (upsampled fp32 logits or None, uint8 preds)."""
+        if not want_logits:
+            return None, upsample_argmax(logits, (out_h, out_w))
+        up = resize_bilinear(logits.float(), (out_h, out_w), align_corners=True)
+        return up, up.argmax(-1).to(torch.uint8)
+
+    @torch.inference_mode()
+    def predict_batch(self, images, out_hw, batch_pad: Optional[int] = None,
+                      want_logits: bool = True):
+        """images [B,H,W,3] -> (logits [B,oh,ow,K] fp32 or None, pred [B,oh,ow]
+        uint8), both on the device.  A ragged batch is zero-padded to
+        ``batch_pad`` and the padded rows are sliced off the outputs."""
+        host, b = images if isinstance(images, tuple) else self._stage(images, batch_pad)
+        img = host.to(self.device, non_blocking=True)
+        with plain_versions(self.plain_kernels):
+            logits = self._forward(self._pre(img)).permute(0, 2, 3, 1)
+            logits, pred = self._postprocess(logits.contiguous(), int(out_hw[0]),
+                                             int(out_hw[1]), want_logits)
+        if img.shape[0] != b:
+            logits = logits[:b] if logits is not None else None
+            pred = pred[:b]
+        return logits, pred
 
     @torch.inference_mode()
     def run(self, loader, save_path: Optional[str] = None,

@@ -35,7 +35,12 @@ MODULES = ["segland_tpu_torch", "segland_tpu_torch.ops.fused_mlp",
            "segland_tpu_torch.cli.train_base", "segland_tpu_torch.train.ft",
            "segland_tpu_torch.data.oem_ft", "segland_tpu_torch.cli.ft_pop",
            "segland_tpu_torch.cli.gen_fs_list", "segland_tpu_torch.models.backbones.droppath",
-           "segland_tpu_torch.models.init", "segland_tpu_torch.models.backbones.hrnet"]
+           "segland_tpu_torch.models.init", "segland_tpu_torch.models.backbones.hrnet",
+           "segland_tpu_torch.evallib.ensemble", "segland_tpu_torch.evallib.tiled",
+           "segland_tpu_torch.evallib.fuse", "segland_tpu_torch.cli.ensemble_eval",
+           "segland_tpu_torch.cli.predict", "segland_tpu_torch.cli.fuse",
+           "segland_tpu_torch.cli.trans", "segland_tpu_torch.cli.translabel",
+           "segland_tpu_torch.cli.gen_new_samples", "segland_tpu_torch.cli.get_list"]
 FOREIGN = ("jax", "flax", "PIL", "segland_tpu")
 
 PROBE = """
@@ -196,6 +201,59 @@ def test_ft_entry_points_run_without_jax_flax_pil_or_the_jax_package(tmp_path):
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+# ensemble_eval.main over two resnet10 members at 32^2, then the check; then fuse.main and
+# trans.main, whose PNG writers import PIL at the call, and the check without PIL
+RUN_TOOLS = """
+import os, sys
+import numpy as np
+from segland_tpu_torch.ckpt import save_params
+from segland_tpu_torch.cli import ensemble_eval, fuse, trans
+from segland_tpu_torch.data.geotiff import write_tiff
+from segland_tpu_torch.data.tileio import OEM_COLORMAP, write_pred_tiff, write_prob_mat
+from segland_tpu_torch.models import build_model
+root = {root!r}
+rng = np.random.RandomState(0)
+for d in ("images", "labels", "m0", "m1", "preds"):
+    os.makedirs(root + "/" + d, exist_ok=True)
+for tid in ("a", "b"):
+    write_tiff(root + "/images/" + tid + ".tif", rng.randint(0, 256, (32, 32, 3)).astype(np.uint8))
+    write_tiff(root + "/labels/" + tid + ".tif", rng.randint(0, 12, (32, 32)).astype(np.uint8))
+    write_pred_tiff(root + "/preds/" + tid + ".tif", rng.randint(0, 8, (32, 32)), OEM_COLORMAP)
+    for m in ("m0", "m1"):
+        write_prob_mat(root + "/" + m + "/" + tid + ".mat",
+                       rng.randn(1, 8, 32, 32).astype(np.float32))
+open(root + "/val.txt", "w").write("a\\nb\\n")
+save_params(root + "/r.pth", build_model("pspnet_pop", "resnet10"))
+specs = ["pspnet_pop:resnet10:" + root + "/r.pth"] * 2
+res = ensemble_eval.main(["--data-dir", root, "--val-list", root + "/val.txt", "--members",
+                          ",".join(specs), "--base-size", "32,32", "--eval-batch", "2",
+                          "--num-workers", "0", "--device", "cpu", "--save-path", root + "/ens"])
+assert 0.0 <= res["total"] <= 1.0
+print(sorted(m for m in sys.modules if m.split('.')[0] in {foreign!r}))
+assert fuse.main(["--inputs", root + "/m0", root + "/m1", "--output", root + "/fused",
+                  "--device", "cpu"]) == ["a.mat", "b.mat"]
+assert trans.main(["--input", root + "/preds", "--output", root + "/png"]) == ["a.png", "b.png"]
+print(sorted(m for m in sys.modules if m.split('.')[0] in {foreign!r} and m.split('.')[0] != "PIL"))
+"""
+
+
+def test_tool_entry_points_run_without_jax_flax_or_the_jax_package(tmp_path):
+    """ensemble_eval loads none of the foreign modules; fuse and trans none
+    but PIL, which their PNG writers import at the call."""
+    from segland_tpu_torch import native
+
+    if native.get_lib() is None:
+        pytest.skip("no C++ compiler or zlib here: tiles would be read through PIL")
+    code = RUN_TOOLS.format(root=str(tmp_path / "data"), foreign=FOREIGN)
+    env = dict(os.environ, CUDA_HOME="/nonexistent")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert [ln for ln in out.stdout.splitlines() if ln.startswith("[")] == ["[]", "[]"]
+    assert (tmp_path / "data" / "ens" / "cmatrix_ensemble.npy").exists()
+    assert (tmp_path / "data" / "fused" / "b.png").exists()
 
 
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
