@@ -13,8 +13,9 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      fails); per shape TFLOP/s, the stock-torch route's time on the same inputs
      (torch_route_ms) and the clock build's phase split;
   4. K2 upsample_argmax vs its plain version at (8,256,256,8) -> (8,1024,1024),
-     the same with K = 12 and 255, the CPU tests' ragged shapes and two
-     downsampling shapes (no pixel may differ where the top-2 gap exceeds
+     the same with K = 12 and 255, the CPU tests' ragged shapes, two
+     downsampling shapes and vggunet_pop's factor-1 shapes (K = 8 and 12 at
+     (8,1024,1024), 5 at (1,1024,1024)) (no pixel may differ where the top-2 gap exceeds
      1e-3; the count that differs at all is printed); per shape its plan
      (tile, class passes, patch, shared memory; the library's must agree),
      its time flushed (a 96 MB write before each launch) and back to back,
@@ -129,6 +130,17 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      validation batch; frozen tensors bit-equal; eval_ft), its step's ms and
      memory; --int8 and --int8 --fused (no K7 launch, the fused request's
      warning, agreement with bf16 printed);
+ 11c. heads: pspplus_pop / resnet50v2, the plain pspnet / resnet50, lsk_pop / lsk-t
+     and vggunet_pop at full width and depth (phase_heads), each through the
+     eval slice as eval_base and as eval_ft run it (one batch: K2 1 and
+     nothing else; vggunet's logits at full resolution, K2 at factor 1),
+     base training through cli.train_base at scripts/train_oem.sh's config cut
+     to 1 epoch (K2 1 a validation batch; the plain pspnet's CE step with its
+     aux head), one fp32 step card vs CPU, the step's ms and memory, the
+     fine-tune of the three POP models from that best.pth (K2 1 a step and a
+     validation tile), and int8 (the ResNet pair --int8 --fused: K7 12 and K2
+     1 a batch, >= 99% agreement with the plain versions); each model's
+     predicted launch counts printed before it runs;
  11b. ensemble: the reference's stage 4 (phase_ensemble): EnsembleEvaluator over
      convnext_pop, swin_pop / swin-s and seghr_pop / hr-w32 at full width and
      depth, bf16, 2 batches of 8 synthetic 1024^2 tiles (K1 42, K3 24, K2 1 a
@@ -175,6 +187,7 @@ the repo beside it, it fails before printing any result.
     python3 chip_smoke.py --phases train    # base training of convnext_pop and swin_pop on the card
     python3 chip_smoke.py --phases ft       # few-shot fine-tuning of swin_pop and convnext_pop
     python3 chip_smoke.py --phases seghr    # seghr_pop / hr-w32: eval, base training, ft, int8
+    python3 chip_smoke.py --phases heads    # pspplus_pop, pspnet, lsk_pop, vggunet_pop
     python3 chip_smoke.py --phases ensemble # ensemble serving, scene prediction, .mat fusion
     python3 chip_smoke.py --phases k2,k6    # K2 and K6 at every shape of their phases
     python3 chip_smoke.py --phases k1,k3    # K1 and K3 with their build, SASS and phase lines
@@ -477,7 +490,11 @@ K2_SHAPES = (((BATCH, TILE // 4, TILE // 4, 8), (TILE, TILE)),
              ((2, 64, 128, 5), (256, 512)), ((1, 32, 128, 12), (256, 1024)),
              ((1, 256, 128, 3), (256, 256)), ((2, 7, 9, 4), (30, 17)),
              ((1, 12, 10, 255), (40, 37)), ((1, 40, 52, 6), (9, 13)),
-             ((2, 1024, 1024, 8), (256, 256)))
+             ((2, 1024, 1024, 8), (256, 256)),
+             # vggunet_pop's full-resolution logits (factor 1): eval, eval_ft, the ft
+             # step's pseudo-labels
+             ((BATCH, TILE, TILE, 8), (TILE, TILE)), ((BATCH, TILE, TILE, 12), (TILE, TILE)),
+             ((1, TILE, TILE, 5), (TILE, TILE)))
 FLUSH_BYTES = 96 << 20  # written between flushed launches: more than the 50 MB L2
 
 
@@ -1851,9 +1868,10 @@ def environ(**env):
 
 
 def build(name, dtype, seed=0, fused=True, is_ft=False, attn_group=1):
-    """convnext_pop/convnext-t, swin_pop/swin-s or seghr_pop/hr-w32 with
-    seeded random weights, drawn so that every block's kernel reaches the
-    output (seghr_pop: so that its branches stay O(1))."""
+    """convnext_pop/convnext-t, swin_pop/swin-s, seghr_pop/hr-w32 or a model of
+    HEADS at its default backbone with seeded random weights, drawn so that
+    every block's kernel reaches the output (seghr_pop: so that its branches
+    stay O(1); the ResNet pair as build_resnet draws its trunk)."""
     import torch
     import torch.nn as nn
     from segland_tpu_torch.models import build_model
@@ -1891,7 +1909,9 @@ def build(name, dtype, seed=0, fused=True, is_ft=False, attn_group=1):
                 for m in blk.fuse_layers.modules():
                     if isinstance(m, nn.BatchNorm2d):
                         m.weight.mul_(0.5)
-        if name == SEGHR:
+        if model.backbone_name.startswith("resnet"):
+            tame_resnet(model, g)
+        if name in (SEGHR,) + HEADS_POP:
             # the classifiers spread as train_step_model spreads them (logits about 1), and
             # the prototypes made orthogonal to the mean feature as build_resnet makes them,
             # so that the classes compete pixel by pixel instead of background taking all
@@ -1951,20 +1971,21 @@ def counted_run(ev, batches, **kw):
 
 
 def phase_slice(dev, name, want_per_batch, is_ft=False, fp32_check=True, route="",
-                attn_group=1, k1_rows=None):
-    """One model through Evaluator.run: the kernel path (launch counts, mIoU,
-    tiles/s), the same batches with the kernels' plain versions, and an fp32
-    forward on the card against the CPU.  The caller sets the environment
-    switches of ``route``; ``attn_group`` goes to the swin backbone.  ``k1_rows``:
-    the rows K1 must have been given per batch, which tells a window-resident
-    stage (every token of the padded windows) from a spatial one."""
+                attn_group=1, k1_rows=None, n_batches=N_BATCHES):
+    """One model through Evaluator.run over ``n_batches`` batches: the kernel
+    path (launch counts, mIoU, tiles/s), the same batches with the kernels'
+    plain versions, and an fp32 forward on the card against the CPU.  The
+    caller sets the environment switches of ``route``; ``attn_group`` goes to
+    the swin backbone.  ``k1_rows``: the rows K1 must have been given per
+    batch, which tells a window-resident stage (every token of the padded
+    windows) from a spatial one."""
     import torch
     from segland_tpu_torch.evallib import Evaluator
 
     tag = f"{name}{' ft' if is_ft else ''}{' ' + route if route else ''}"
     k = 12 if is_ft else 8
     model = build(name, torch.bfloat16, is_ft=is_ft, attn_group=attn_group).to(dev)
-    batches = synthetic_batches()
+    batches = synthetic_batches()[:n_batches]
     kw = dict(num_classes=12, n_base=7, normalize_on_device=True)
     run_kw = dict(square_pad_eval=is_ft)
     ev = Evaluator(model, dev, **kw)
@@ -1972,15 +1993,15 @@ def phase_slice(dev, name, want_per_batch, is_ft=False, fp32_check=True, route="
     torch.cuda.synchronize()
     (cm, (base, novel, total, _), tps), launches = counted_run(ev, batches, **run_kw)
     rows = counters()["ln_mlp"].rows
-    print(f"slice {tag}: bf16 fused, {N_BATCHES}x{BATCH} tiles {TILE}^2: launches={launches} "
+    print(f"slice {tag}: bf16 fused, {n_batches}x{BATCH} tiles {TILE}^2: launches={launches} "
           f"k1_rows={rows} mIoU base={base:.4f} total={total:.4f} tiles_per_s={tps:.2f} "
           f"pixels={int(cm.sum())}", flush=True)
-    want = {key: n * N_BATCHES for key, n in want_per_batch.items()}
+    want = {key: n * n_batches for key, n in want_per_batch.items()}
     if launches != want:
         fail(f"slice {tag} launch counts {launches}, want {want}")
-    if k1_rows is not None and rows != k1_rows * N_BATCHES:
-        fail(f"slice {tag}: K1 was given {rows} rows, want {k1_rows * N_BATCHES}")
-    if int(cm.sum()) != N_BATCHES * BATCH * (TILE - 16) * TILE:
+    if k1_rows is not None and rows != k1_rows * n_batches:
+        fail(f"slice {tag}: K1 was given {rows} rows, want {k1_rows * n_batches}")
+    if int(cm.sum()) != n_batches * BATCH * (TILE - 16) * TILE:
         fail("confusion matrix does not count every labelled pixel")
 
     ev_plain = Evaluator(model, dev, plain_kernels=True, **kw)
@@ -2076,14 +2097,20 @@ def write_train_tiles(root):
         f.write("\n".join(ids[TRAIN_TILES:]) + "\n")
 
 
-def train_step_grads(model, img, mask):
+def loss_of(name):
+    """The train step's loss for model ``name``, as cli.train_base picks it:
+    the orth loss of the POP heads, CE (with the aux head) otherwise."""
+    return "orth" if "pop" in name else "ce"
+
+
+def train_step_grads(model, img, mask, loss="orth"):
     """One train step of ``make_base_train_step`` at LR 0 and without a clip,
     so the gradients it leaves in .grad are the raw ones and the weights stay:
     (loss dict, {name: grad})."""
     from segland_tpu_torch.train import TrainState, create_optimizer, make_base_train_step
 
     state = TrainState(model, create_optimizer(model, 0.0, 1, 1, clip=None))
-    ld, _ = make_base_train_step(model)(state, img, mask)
+    ld, _ = make_base_train_step(model, loss)(state, img, mask)
     return ld, {n: p.grad.detach().clone() for n, p in model.named_parameters()}
 
 
@@ -2110,8 +2137,9 @@ def train_step_model(dtype, fused=True, name="convnext_pop", is_ft=False):
 
     model = build(name, dtype, seed=3, fused=fused, is_ft=is_ft)
     g = torch.Generator().manual_seed(5)
+    head = model.classifier  # the plain pspnet's is one linear conv
     with torch.no_grad():
-        for conv in model.classifier:
+        for conv in head if isinstance(head, torch.nn.Sequential) else [head]:
             if isinstance(conv, torch.nn.Conv2d):
                 conv.weight.normal_(0.0, 2.0 * conv.in_channels ** -0.5, generator=g)
     return model
@@ -2225,7 +2253,7 @@ def train_setup(dev, fused, name="convnext_pop"):
     g = torch.Generator().manual_seed(1)
     img = torch.randn(TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3, generator=g).to(dev)
     mask = torch.randint(0, 8, (TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP), generator=g).to(dev)
-    return state, make_base_train_step(model, skip_nonfinite=True), (img, mask)
+    return state, make_base_train_step(model, loss_of(name), skip_nonfinite=True), (img, mask)
 
 
 def step_peak(setup):
@@ -2270,13 +2298,15 @@ def step_ms(setup, rounds=2, steps=6, warmup=3):
         yield times
 
 
-def train_cli_run(dev, root, name, per_forward=None, fused=True, fall_from="step"):
+def train_cli_run(dev, root, name, per_forward=None, fused=True, fall_from="step",
+                  epochs=TRAIN_EPOCHS):
     """cli.train_base.main for ``name`` at bf16 --fused (``fused`` False:
     --no-fused), batch 4, 768^2 crops,
-    AdamW at 1e-3, TRAIN_EPOCHS epochs of 4 steps with validation (2 batches
+    AdamW at 1e-3, ``epochs`` epochs of 4 steps with validation (2 batches
     of 2) in each, on write_train_tiles' tiles: the loss dicts finite, the seg
-    loss's mean over the last epoch below its first step's (``fall_from``
-    "epoch": below the first epoch's mean), the snapshots and
+    loss (the plain pspnet's main loss) of the last epoch below its first
+    step's (``fall_from`` "epoch": below the first epoch's mean; None: printed,
+    not held), the snapshots and
     best.pth written and best.pth through eval_base; the launches of one
     forward (``per_forward``, by default TRAIN_MODELS') a train step and a
     validation batch, K2 1 a validation batch, any other count fails.  Returns
@@ -2290,35 +2320,37 @@ def train_cli_run(dev, root, name, per_forward=None, fused=True, fall_from="step
             "--val-list", os.path.join(lst, "val.txt"), "--model", name,
             "--dtype", "bfloat16", flag, "--batch-size", str(TRAIN_BATCH),
             "--input-size", f"{TRAIN_CROP},{TRAIN_CROP}", "--learning-rate", "1e-3",
-            "--num-epoch", str(TRAIN_EPOCHS), "--val-start", "0", "--val-frequency", "1",
+            "--num-epoch", str(epochs), "--val-start", "0", "--val-frequency", "1",
             "--snapshot-frequency", "1", "--test-batch-size", "2", "--print-frequency", "1",
             "--metrics", "--num-workers", "4", "--snapshot-dir", snap]
     t0 = time.time()
     best, launches = counted(lambda: train_base.main(args))
     wall = time.time() - t0
-    steps = TRAIN_EPOCHS * TRAIN_TILES // TRAIN_BATCH
-    val_batches = TRAIN_EPOCHS * VAL_TILES // 2
+    steps = epochs * TRAIN_TILES // TRAIN_BATCH
+    val_batches = epochs * VAL_TILES // 2
     per_forward = TRAIN_MODELS[name] if per_forward is None else per_forward
     want = {k: n * (steps + val_batches) for k, n in per_forward.items()}
     want["upsample_argmax"] = val_batches
     rows = [json.loads(line) for line in open(os.path.join(snap, "metrics.jsonl"))]
     losses = [r["value"] for r in rows if r["tag"] == "train/total_loss"]
-    seg = [r["value"] for r in rows if r["tag"] == "train/seg_loss"]
+    seg_tag = "seg_loss" if loss_of(name) == "orth" else "main_loss"
+    seg = [r["value"] for r in rows if r["tag"] == f"train/{seg_tag}"]
     print(f"train {name} (cli.train_base, bf16 {flag}, {TRAIN_BATCH}x{TRAIN_CROP}^2, "
-          f"{TRAIN_EPOCHS} epochs of {steps // TRAIN_EPOCHS} steps + {val_batches} val "
+          f"{epochs} epochs of {steps // epochs} steps + {val_batches} val "
           f"batches): {wall:.1f}s launches={launches} best_val_mIoU={best:.4f} "
-          f"total_loss {' '.join(f'{x:.4f}' for x in losses)} seg_loss "
+          f"total_loss {' '.join(f'{x:.4f}' for x in losses)} {seg_tag} "
           f"{' '.join(f'{x:.4f}' for x in seg)}", flush=True)
     if launches != want:
         fail(f"train {name} launch counts {launches}, want {want}")
-    if len(losses) != steps or not all(np.isfinite(r["value"]) for r in rows):
+    if len(losses) != steps or len(seg) != steps or not all(np.isfinite(r["value"])
+                                                             for r in rows):
         fail(f"train {name} loss dicts: {len(losses)} of {steps} steps, or not finite")
-    last = float(np.mean(seg[-(steps // TRAIN_EPOCHS):]))
-    first = seg[0] if fall_from == "step" else float(np.mean(seg[:steps // TRAIN_EPOCHS]))
-    if not last < first:
-        fail(f"train {name} seg_loss did not fall: the last epoch's mean {last} against the "
+    last = float(np.mean(seg[-(steps // epochs):]))
+    first = seg[0] if fall_from == "step" else float(np.mean(seg[:steps // epochs]))
+    if fall_from is not None and not last < first:
+        fail(f"train {name} {seg_tag} did not fall: the last epoch's mean {last} against the "
              f"first {fall_from}'s {first}")
-    for f in [f"epoch_{e + 1}.pth" for e in range(TRAIN_EPOCHS)] + ["best.pth"]:
+    for f in [f"epoch_{e + 1}.pth" for e in range(epochs)] + ["best.pth"]:
         if not os.path.exists(os.path.join(snap, f)):
             fail(f"train_base ({name}) wrote no {f}")
     res = eval_base.main(["--data-dir", root, "--val-list", os.path.join(lst, "val.txt"),
@@ -2781,36 +2813,44 @@ class LogRecords:
         return False
 
 
-def seghr_fp32_step(dev):
-    """One fp32 train step of seghr_pop (train_step_model's draw: the POP
+def fp32_step(dev, name=SEGHR, side=SEGHR_STEP_CROP):
+    """One fp32 train step of ``name`` (train_step_model's draw: the POP
     classifier spread so the loss reads the network; LR 0 and no clip, so
     the gradients are the raw ones) on the card (TF32 off) and on the CPU from
-    the same weights and TRAIN_BATCH x SEGHR_STEP_CROP^2 batch: every loss of
-    the dict within 1e-5 of the total loss, relative; no kernel launched.
-    The worst gradient tensor's relative error is printed, not held: under
-    train-mode BatchNorm some gradients are sums that cancel and move far
-    under rounding (PERF.md section 6, PR 16)."""
+    the same weights and TRAIN_BATCH x side^2 batch: every loss of the dict
+    within 1e-5 of the total loss, relative; no kernel launched.  The worst
+    gradient tensor's relative error is printed, not held: under train-mode
+    BatchNorm some gradients are sums that cancel and move far under rounding
+    (PERF.md section 6).  LSKNet's DropPath and MLP dropout are set to
+    0 for this check: a CPU and a CUDA generator draw different masks from
+    one seed."""
     import torch
+    from segland_tpu_torch.models.backbones.droppath import DropPath
+    from segland_tpu_torch.models.backbones.lsknet import Mlp
 
     g = torch.Generator().manual_seed(7)
-    side = SEGHR_STEP_CROP
     img = torch.randn(TRAIN_BATCH, side, side, 3, generator=g)
     mask = torch.randint(0, 8, (TRAIN_BATCH, side, side), generator=g)
-    model = train_step_model(torch.float32, fused=False, name=SEGHR)
+    model = train_step_model(torch.float32, fused=False, name=name)
+    for m in model.modules():
+        if isinstance(m, DropPath):
+            m.rate = 0.0
+        elif isinstance(m, Mlp):
+            m.drop = 0.0
     start = {k: v.clone() for k, v in model.state_dict().items()}
     t0 = time.time()
-    ld_cpu, g_cpu = train_step_grads(model, img, mask)
+    ld_cpu, g_cpu = train_step_grads(model, img, mask, loss_of(name))
     cpu_s = time.time() - t0
     model.load_state_dict(start)  # the step moved the BatchNorm statistics
     model = model.to(dev)
     (ld_dev, g_dev), launches = counted(lambda: train_step_grads(model, img.to(dev),
-                                                                 mask.to(dev)))
+                                                                 mask.to(dev), loss_of(name)))
     if launches:
-        fail(f"seghr fp32 step launched {launches}")
+        fail(f"{name} fp32 step launched {launches}")
     total = abs(float(ld_cpu["total_loss"]))
     loss_err = {k: abs(float(ld_dev[k]) - float(v)) / total for k, v in ld_cpu.items()}
     errs = sorted((_rel_err(g_dev[n].cpu(), g_cpu[n]), n) for n in g_cpu)
-    print(f"train {SEGHR} fp32 step card vs CPU ({TRAIN_BATCH}x{side}^2, TF32 off; the CPU's "
+    print(f"train {name} fp32 step card vs CPU ({TRAIN_BATCH}x{side}^2, TF32 off; the CPU's "
           f"step {cpu_s:.1f}s): losses card "
           f"{ {k: round(float(v), 6) for k, v in ld_dev.items()} } CPU "
           f"{ {k: round(float(v), 6) for k, v in ld_cpu.items()} }, |d| / total_loss "
@@ -2818,23 +2858,25 @@ def seghr_fp32_step(dev):
           f"gradients the worst relative error {errs[-1][0]:.3g} ({errs[-1][1]}), the median "
           f"{errs[len(errs) // 2][0]:.3g}", flush=True)
     if not all(e <= 1e-5 for e in loss_err.values()):
-        fail(f"seghr fp32 step: the card's losses off the CPU's: {loss_err}")
+        fail(f"{name} fp32 step: the card's losses off the CPU's: {loss_err}")
     del model
     torch.cuda.empty_cache()
 
 
-def seghr_int8(dev):
-    """One batch of the eval slice through Evaluator.run bf16, --int8 and
-    --int8 --fused (one calibration batch, taken in the warm-up run): K2 1 a
-    batch and nothing else (no K7: HRNet's stage-1 Bottlenecks are not the
-    fused route's), the fused request's warning, and the argmax agreement of
-    each int8 route with bf16 printed (random weights: only a trained model's
-    gate says whether int8 keeps the map).  Returns {path: launch counts}."""
+def per_conv_int8(dev, name=SEGHR):
+    """One batch of the eval slice of ``name`` (a model with no ResNet
+    Bottleneck) through Evaluator.run bf16, --int8 and --int8 --fused (one
+    calibration batch, taken in the warm-up run): K2 1 a batch and nothing
+    else (no K7: HRNet's stage-1 Bottlenecks are not the fused route's, and
+    LSKNet and the VGG U-Net have none), the fused request's warning, and the
+    argmax agreement of each int8 route with bf16 printed (random weights:
+    only a trained model's gate says whether int8 keeps the map).  Returns
+    {path: launch counts}."""
     import torch
     from segland_tpu_torch.evallib import Evaluator
     from segland_tpu_torch.quant import QuantConfig
 
-    model = build(SEGHR, torch.bfloat16).to(dev)
+    model = build(name, torch.bfloat16).to(dev)
     batches = synthetic_batches()[:1]
     kw = dict(num_classes=12, n_base=7, normalize_on_device=True)
     q = dict(int8=True, calib_batches=1)
@@ -2847,23 +2889,23 @@ def seghr_int8(dev):
             ev.run(batches)  # warm-up: calibration, cuDNN plans, allocators
         torch.cuda.synchronize()
         (cm, (base, _, total, _), tps[route]), launches[route] = counted_run(ev, batches)
-        print(f"slice {SEGHR} {route}: 1x{BATCH} tiles {TILE}^2: launches={launches[route]} "
+        print(f"slice {name} {route}: 1x{BATCH} tiles {TILE}^2: launches={launches[route]} "
               f"mIoU base={base:.4f} total={total:.4f} tiles_per_s={tps[route]:.2f} "
               f"warnings={warned}", flush=True)
         if launches[route] != {"upsample_argmax": 1}:
-            fail(f"slice {SEGHR} {route} launch counts {launches[route]}, want K2 1 alone")
+            fail(f"slice {name} {route} launch counts {launches[route]}, want K2 1 alone")
         if route == "int8 fused" and not any("no Bottleneck has a fused-eligible" in m
                                              for m in warned):
-            fail(f"slice {SEGHR} --int8 --fused: no warning that the request cannot take effect")
+            fail(f"slice {name} --int8 --fused: no warning that the request cannot take effect")
         preds[route] = ev.predict_batch(batches[0][0], (TILE, TILE), want_logits=False)[1]
     agree = lambda a, b: float((preds[a] == preds[b]).float().mean())
-    print(f"slice {SEGHR} int8 argmax agreement: int8 vs bf16 {agree('int8', 'bf16'):.6f}, "
+    print(f"slice {name} int8 argmax agreement: int8 vs bf16 {agree('int8', 'bf16'):.6f}, "
           f"int8 fused vs bf16 {agree('int8 fused', 'bf16'):.6f}, int8 fused vs int8 "
           f"{agree('int8 fused', 'int8'):.6f}; tiles/s bf16 {tps['bf16']:.2f}, --int8 "
           f"{tps['int8']:.2f}, --int8 --fused {tps['int8 fused']:.2f}", flush=True)
     del routes, model
     torch.cuda.empty_cache()
-    return {f"{SEGHR} int8": launches["int8"], f"{SEGHR} int8 fused": launches["int8 fused"]}
+    return {f"{name} int8": launches["int8"], f"{name} int8 fused": launches["int8 fused"]}
 
 
 def phase_seghr(dev):
@@ -2902,7 +2944,7 @@ def phase_seghr(dev):
         paths[f"{SEGHR} train"] = train_cli_run(dev, train_root, SEGHR, per_forward={},
                                                 fused=False, fall_from="epoch")
         torch.cuda.empty_cache()
-        seghr_fp32_step(dev)
+        fp32_step(dev)
         setup = lambda: train_setup(dev, False, SEGHR)
         peak = step_peak(setup)
         times = next(step_ms(setup, rounds=1, steps=12))
@@ -2926,9 +2968,99 @@ def phase_seghr(dev):
           f"after 3 warm-up; min {min(times):.2f} max {max(times):.2f}) "
           f"max_memory_allocated={peak / 2**30:.2f} GiB ({smi})", flush=True)
     torch.cuda.empty_cache()
-    paths.update(seghr_int8(dev))
+    paths.update(per_conv_int8(dev))
     print(f"{SEGHR} eval: {tps:.2f} tiles/s; seghr group: {time.time() - t_phase:.1f}s",
           flush=True)
+    return paths
+
+
+# the heads group: the last four models of the registry at their default backbones, full
+# width and depth.  K2 is the only kernel on their eval, train and fine-tune paths (1 a batch,
+# a validation batch and an ft step; vggunet_pop's logits are at full resolution, so K2 runs
+# at factor 1 there); the ResNet pair takes K7 in its 12 stride-1 Bottlenecks without a
+# downsample under --int8 --fused.
+HEADS = ("pspplus_pop", "pspnet", "lsk_pop", "vggunet_pop")
+HEADS_POP = ("pspplus_pop", "lsk_pop", "vggunet_pop")  # the plain pspnet has no POP head
+RESNET_MODELS = ("deeplab_pop", "pspnet_pop", "pspplus_pop", "pspnet")
+HEADS_EPOCHS = 1  # base training cut to one epoch of 4 steps and 2 validation batches
+HEADS_STEP_CROP = 192  # the fp32 step on the card against the CPU: 4 crops (stride 8: 24^2)
+
+
+def phase_heads(dev):
+    """The heads group at full width and depth, bf16, weights from a seeded
+    torch.Generator (build), each model in turn: (a) the eval slice as
+    eval_base and as eval_ft run it, one batch of 8 synthetic 1024^2 tiles
+    (phase_slice: K2 1 a batch and nothing else, tiles/s, >= 99% agreement
+    with K2's plain version, fp32 card vs CPU); (b) base training through
+    cli.train_base at scripts/train_oem.sh's config (bf16 --no-fused, batch 4,
+    768^2 crops, AdamW at 1e-3, wd 1e-4) cut to HEADS_EPOCHS epoch of 4 steps
+    and 2 validation batches (K2 1 a validation batch, none in a step; the
+    loss printed, not held: one epoch from a random draw), best.pth through
+    eval_base, one fp32 step on the card against the CPU (the plain pspnet's
+    CE step with its aux head), the bf16 step's ms (median of 12 after 3
+    warm-up), crops/s and max_memory_allocated; (c) the POP models' fine-tune
+    through cli.ft_pop from (b)'s best.pth (1 shot, 1 epoch: K2 1 a step and a
+    validation batch; frozen tensors bit-equal; eval_ft on it); (d) int8: the
+    ResNet pair through phase_int8_slice (--int8, --int8 --fused with K7 12 and
+    K2 1 a batch, its plain versions >= 99% agreement), lsk_pop and
+    vggunet_pop through per_conv_int8 (K2 alone; agreement with bf16 printed,
+    not held).  Each model's predicted launch counts are printed before it
+    runs.  Returns {path: launch counts}."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.time()
+    smi = card()
+    paths = {}
+    k2 = {"upsample_argmax": 1}
+    with tempfile.TemporaryDirectory() as root:
+        train_root, ft_root = os.path.join(root, "train"), os.path.join(root, "ft")
+        write_train_tiles(train_root)
+        write_ft_tiles(ft_root)
+        for name in HEADS:
+            t_model = time.time()
+            val = HEADS_EPOCHS * VAL_TILES // 2
+            ft = 7 * SEGHR_FT["shot"] + FT_VAL_TILES
+            int8 = ("K7 12 and K2 1 a batch with --int8 --fused, K2 1 with --int8"
+                    if name in RESNET_MODELS else "K2 1 a batch with --int8 and --int8 --fused")
+            print(f"heads {name}: predicted launches: eval_base K2 1 a batch, eval_ft K2 1 a "
+                  f"batch, train K2 {val} (1 a validation batch, none in a step)"
+                  + (f", ft K2 {ft} (1 a step and a validation tile)" if name in HEADS_POP
+                     else ", no fine-tune (no POP head)") + f"; {int8}", flush=True)
+            paths[f"{name} eval_base"], tps, _ = phase_slice(dev, name, k2, n_batches=1)
+            torch.cuda.empty_cache()
+            paths[f"{name} eval_ft"], _, _ = phase_slice(dev, name, k2, is_ft=True,
+                                                         fp32_check=False, n_batches=1)
+            torch.cuda.empty_cache()
+            paths[f"{name} train"] = train_cli_run(dev, train_root, name, per_forward={},
+                                                   fused=False, fall_from=None,
+                                                   epochs=HEADS_EPOCHS)
+            torch.cuda.empty_cache()
+            fp32_step(dev, name, HEADS_STEP_CROP)
+            setup = lambda n=name: train_setup(dev, False, n)
+            peak = step_peak(setup)
+            times = next(step_ms(setup, rounds=1, steps=12))
+            ms = float(np.median(times))
+            print(f"train {name} bf16 {TRAIN_BATCH}x{TRAIN_CROP}^2 AdamW: ms_per_step={ms:.2f} "
+                  f"(median of {len(times)} after 3 warm-up; min {min(times):.2f} max "
+                  f"{max(times):.2f}) crops_per_s={TRAIN_BATCH * 1e3 / ms:.2f} "
+                  f"max_memory_allocated={peak / 2**30:.2f} GiB ({smi})", flush=True)
+            torch.cuda.empty_cache()
+            if name in HEADS_POP:
+                best = os.path.join(train_root, f"{name}_snap", "best.pth")
+                paths[f"{name} ft"] = ft_cli_run(dev, ft_root, name, cfg=SEGHR_FT,
+                                                 base_path=best, fused=False)
+                torch.cuda.empty_cache()
+            if name in RESNET_MODELS:
+                paths[f"{name} int8 fused"] = phase_int8_slice(dev, name, n_batches=1)
+            else:
+                paths.update(per_conv_int8(dev, name))
+            torch.cuda.empty_cache()
+            got = {p: n for p, n in paths.items() if p.startswith(name + " ")}
+            print(f"heads {name}: launches by path {got}; eval {tps:.2f} tiles/s; "
+                  f"{time.time() - t_model:.1f}s ({smi})", flush=True)
+    print(f"heads phase: {time.time() - t_phase:.1f}s", flush=True)
     return paths
 
 
@@ -3134,28 +3266,18 @@ def phase_ensemble(dev):
     return paths
 
 
-def build_resnet(name, dtype, dev, seed=0):
-    """deeplab_pop or pspnet_pop over resnet50 on ``dev`` with seeded random
-    weights that keep activations in a sane range through the 16 blocks:
-    He-normal conv weights (std sqrt(2 / fan_in)) hold the second moment
-    through each conv + ReLU; BatchNorm statistics near the identity (mean
-    0.1 * randn, variance in [0.8, 1.2], bias 0.1 * randn); and a bn3 scale in
-    [0.2, 0.4], so that a block adds under a tenth of the residual stream's
-    variance and the stream grows by about 4x over the backbone, not by 2^16.
-
-    The POP head then sees features with a large common mean, which random
-    prototypes hand to the background logit at every pixel.  So the prototypes
-    are made orthogonal to the mean feature of one seeded 256^2 tile, and the
-    classifier's last layer takes the sign that makes the background logit of
-    that mean negative: the seven base classes then compete pixel by pixel."""
+def tame_resnet(model, g):
+    """A ResNet-backed model's trunk and decoder redrawn from ``g`` so that
+    activations stay in a sane range through the 16 blocks: He-normal conv
+    weights (std sqrt(2 / fan_in)) hold the second moment through each conv +
+    ReLU; BatchNorm statistics near the identity (mean 0.1 * randn, variance
+    in [0.8, 1.2], bias 0.1 * randn); and a bn3 scale in [0.2, 0.4], so that a
+    block adds under a tenth of the residual stream's variance and the stream
+    grows by about 4x over the backbone, not by 2^16."""
     import torch
     import torch.nn as nn
-    from segland_tpu_torch.models import build_model
     from segland_tpu_torch.models.backbones.resnet import Bottleneck
-    from segland_tpu_torch.ops import pop as pop_ops
 
-    g = torch.Generator().manual_seed(seed)
-    model = build_model(name, None, n_base=7, dtype=dtype, generator=g)
     with torch.no_grad():
         for part in (model.backbone, model.decoder):
             for m in part.modules():
@@ -3169,7 +3291,28 @@ def build_resnet(name, dtype, dev, seed=0):
         for blk in model.backbone.modules():
             if isinstance(blk, Bottleneck):
                 blk.bn3.weight.uniform_(0.2, 0.4, generator=g)
-        model = model.to(dev)
+
+
+def build_resnet(name, dtype, dev, seed=0):
+    """A model of RESNET_MODELS at its default backbone on ``dev``, its trunk
+    drawn by tame_resnet.  The POP head then sees features with a large
+    common mean, which random prototypes hand to the background logit at
+    every pixel.  So the prototypes are made orthogonal to the mean feature of
+    one seeded 256^2 tile, and the classifier's last layer takes the sign that
+    makes the background logit of that mean negative: the seven base classes
+    then compete pixel by pixel.  The plain pspnet's linear classifier keeps
+    its draw."""
+    import torch
+    from segland_tpu_torch.models import build_model
+    from segland_tpu_torch.ops import pop as pop_ops
+
+    g = torch.Generator().manual_seed(seed)
+    model = build_model(name, None, n_base=7, dtype=dtype, generator=g)
+    tame_resnet(model, g)
+    model = model.to(dev)
+    if not hasattr(model, "base_emb"):
+        return model
+    with torch.no_grad():
         tile = torch.randn(1, 3, 256, 256, generator=g).to(dev)
         mean = model.extract_features(tile).mean(dim=(0, 1, 2))
         unit = mean / mean.norm()
@@ -3180,7 +3323,8 @@ def build_resnet(name, dtype, dev, seed=0):
 
 
 def phase_int8_slice(dev, name, n_batches=N_BATCHES):
-    """deeplab_pop or pspnet_pop / resnet50 at output stride 8 through
+    """A model of RESNET_MODELS at its default backbone (resnet50, pspplus_pop's
+    resnet50v2) at output stride 8 through
     Evaluator.run four ways: bf16 unquantized, --int8 (conv by conv), --int8
     --fused (K7 in the 12 eligible bottlenecks), and the last with the
     kernels' plain versions.  One calibration batch, taken in the warm-up run."""
@@ -3444,9 +3588,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,train,ft,swin,"
-                            "deeplab,pspnet,seghr,ensemble",
+                            "deeplab,pspnet,seghr,heads,ensemble",
                     help="comma list of k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,train,ft,"
-                         "swin,deeplab,pspnet,seghr,ensemble (default: all twenty); profile: a "
+                         "swin,deeplab,pspnet,seghr,heads,ensemble (default: all twenty-one); "
+                         "profile: a "
                          "torch.profiler "
                          "breakdown of the swin and deeplab_pop slices; dilated: cuDNN vs the "
                          "nine-tap 3x3 at large dilations; steprule: the fp32 train-step "
@@ -3591,6 +3736,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "seghr" in phases:
         paths.update(phase_seghr(dev))
+        torch.cuda.empty_cache()
+    if "heads" in phases:
+        paths.update(phase_heads(dev))
         torch.cuda.empty_cache()
     if "ensemble" in phases:
         paths.update(phase_ensemble(dev))

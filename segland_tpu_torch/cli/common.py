@@ -50,8 +50,8 @@ def add_common_args(p: argparse.ArgumentParser):
                    help="backbone/decoder compute dtype (POP head always fp32)")
     p.add_argument("--packed-train", action=argparse.BooleanOptionalAction, default=None,
                    help="the JAX package's W-packing switch: the port has no packed layout, "
-                        "so --packed-train raises; --no-packed-train builds hrnet's plain "
-                        "form (other backbones raise on either)")
+                        "so --packed-train raises; --no-packed-train builds the plain form of "
+                        "hrnet, lsk-t and vgg16bn-unet (other backbones raise on either)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on, e.g. cuda, cuda:1, cpu")
     return p

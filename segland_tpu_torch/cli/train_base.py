@@ -5,18 +5,20 @@ segland_tpu/cli/train_base.py on one device.
         --dtype bfloat16 --num-epoch 200 --batch-size 4 --input-size 768,768 \\
         --learning-rate 1e-3
 
-Trains ``convnext_pop`` (K1 in every block's forward with --fused),
-``swin_pop`` (K3 and K1 in every block's forward with --fused, each
-differentiable; DropPath and the decoder's dropout drawn from a generator
-seeded by --random-seed and the step), ``pspnet_pop``, ``deeplab_pop`` and
-``seghr_pop`` (BatchNorm in train mode; seghr_pop / hr-w32 is the reference's
-own base-training model, ``scripts/train_oem.sh``); the default of --fused is
-TRAIN_FUSED_DEFAULTS'.
+Trains every model of the registry: ``convnext_pop`` (K1 in every block's
+forward with --fused), ``swin_pop`` (K3 and K1 in every block's forward with
+--fused, each differentiable; DropPath and the decoder's dropout drawn from a
+generator seeded by --random-seed and the step, as lsk_pop's DropPath and
+MLP dropout are), ``pspnet_pop``, ``pspplus_pop``, ``deeplab_pop``,
+``lsk_pop``, ``vggunet_pop`` and ``seghr_pop`` (BatchNorm in train mode;
+seghr_pop / hr-w32 is the reference's own base-training model,
+``scripts/train_oem.sh``) with the orth loss, and the plain ``pspnet`` with
+the CE loss and its aux head (the JAX CLI's pick: "pop" in the name or not);
+the default of --fused is TRAIN_FUSED_DEFAULTS'.
 Snapshots ``epoch_N.pth`` every --snapshot-frequency epochs, validates after
 --val-start every --val-frequency epochs through the ``Evaluator`` (K2 on the
 card) and keeps the best as ``best.pth``.  Still to come, and raising here:
---device-augment and more than one process (DDP) are ROADMAP A4c; the other
-models are their own ROADMAP items.
+--device-augment and more than one process (DDP) are ROADMAP A4c.
 """
 
 import argparse
@@ -30,7 +32,7 @@ from .common import (add_common_args, add_train_args, full_fp32, model_dtype, pa
 from ..ckpt import load_checkpoint, load_pth, save_checkpoint, save_params
 from ..data import DATASETS, Loader
 from ..evallib.infer import Evaluator
-from ..models import NOT_PORTED, build_model
+from ..models import build_model
 from ..train import TrainState, create_optimizer, make_base_train_step
 from ..utils import format_loss_dict, prep_experiment
 
@@ -58,8 +60,6 @@ def get_parser():
 
 def check_trainable(args):
     """Raise, naming the ROADMAP item, for what this port cannot train yet."""
-    if args.model in NOT_PORTED:
-        raise ValueError(f"{args.model} is not ported yet (ROADMAP item {NOT_PORTED[args.model]})")
     if args.device_augment:
         raise ValueError(f"--device-augment is not ported yet (ROADMAP {A4C})")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
@@ -111,7 +111,8 @@ def main(argv=None):
     if args.resume_from:
         load_checkpoint(args.resume_from, state)
         logger.info(f"resumed from {args.resume_from} at epoch {state.epoch}")
-    train_step = make_base_train_step(model, "orth", double_step=args.double_step,
+    loss_name = "orth" if "pop" in args.model else "ce"  # segland_tpu/cli/train_base.py:103
+    train_step = make_base_train_step(model, loss_name, double_step=args.double_step,
                                       skip_nonfinite=args.skip_nonfinite, seed=seed,
                                       fix_bn=args.fix_bn)
     evaluator = Evaluator(model, device, num_classes=1 + n_base, n_base=n_base,

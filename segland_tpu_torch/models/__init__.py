@@ -1,11 +1,10 @@
-"""Model registry with the JAX package's keys (segland_tpu/models/__init__.py).
-``convnext_pop``, ``swin_pop``, ``pspnet_pop``, ``deeplab_pop`` and
-``seghr_pop`` build so far; the rest raise NotImplementedError naming their
-ROADMAP item."""
+"""Model registry with the JAX package's keys (segland_tpu/models/__init__.py):
+the eight POP models and the plain ``pspnet``."""
 
 import torch
 
 from .pop import GFSSModel
+from .pspnet_plain import PlainPSPNet
 
 # model name -> (decoder_name, default_backbone)
 _POP_CONFIGS = {
@@ -18,7 +17,6 @@ _POP_CONFIGS = {
     "seghr_pop": ("hrfpn", "hr-w32"),
     "vggunet_pop": ("identity", "vgg16bn-unet"),
 }
-NOT_PORTED = {"pspplus_pop": "A7", "pspnet": "A7", "lsk_pop": "A9", "vggunet_pop": "A9"}
 
 
 def build_model(model: str, backbone: str | None = None, n_base: int = 7,
@@ -29,9 +27,13 @@ def build_model(model: str, backbone: str | None = None, n_base: int = 7,
                 generator: torch.Generator | None = None):
     """Build ``model`` on ``device`` in eval mode, its weights drawn from
     ``generator`` (a CPU generator)."""
-    if model in NOT_PORTED:
-        raise NotImplementedError(
-            f"model {model!r} is not ported yet (ROADMAP item {NOT_PORTED[model]})")
+    if model == "pspnet":
+        if packed_train is not None:
+            raise ValueError("packed_train is not supported by the plain pspnet model "
+                             "(resnet backbones have no packed path)")
+        net = PlainPSPNet(backbone_name=backbone or "resnet50", n_base=n_base, n_novel=n_novel,
+                          is_ft=is_ft, os=os, dilated=dilated, dtype=dtype, generator=generator)
+        return net.to(device).eval()
     if model not in _POP_CONFIGS:
         raise ValueError(f"unknown model: {model!r}; known: {MODEL_NAMES}")
     decoder, default_bk = _POP_CONFIGS[model]

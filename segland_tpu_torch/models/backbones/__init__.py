@@ -1,13 +1,7 @@
 """Backbone factory with the JAX package's string keys
-(segland_tpu/models/backbones/__init__.py).  Backbones not ported yet raise
-NotImplementedError naming their ROADMAP item."""
+(segland_tpu/models/backbones/__init__.py)."""
 
 import torch
-
-_NOT_PORTED = {
-    "lsk-t": "A9",
-    "vgg16bn-unet": "A9",
-}
 
 _FILTERS = {
     "swin-t": (96, 192, 384, 768),
@@ -27,8 +21,8 @@ def get_backbone(name: str, dtype=torch.float32, fused_mlp: bool = False,
                  fused_attn: bool = False, **kw):
     """``fused_mlp`` routes each ConvNeXt or Swin block's LN+MLP section
     through the fused kernel, ``fused_attn`` each Swin block's attention
-    section; conv-only families (ResNet, HRNet) take neither.  ``kw`` goes to the ResNet
-    family (``os``, ``dilated``, ...)."""
+    section; conv-only families (ResNet, HRNet, LSKNet, the VGG U-Net) take
+    neither.  ``kw`` goes to the ResNet family (``os``, ``dilated``, ...)."""
     if name in ("resnet10", "resnet50", "resnet101", "resnet50v2", "resnet101v2"):
         from .resnet import get_resnet
 
@@ -45,9 +39,14 @@ def get_backbone(name: str, dtype=torch.float32, fused_mlp: bool = False,
         from .hrnet import get_hrnet
 
         return get_hrnet(name, dtype=dtype)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"backbone {name!r} is not ported yet (ROADMAP item {_NOT_PORTED[name]})")
+    if name == "lsk-t":
+        from .lsknet import lsknet_tiny
+
+        return lsknet_tiny(dtype=dtype)
+    if name == "vgg16bn-unet":
+        from .vggunet import VGGUNet
+
+        return VGGUNet(dtype=dtype)
     raise ValueError(f"unknown backbone: {name}")
 
 

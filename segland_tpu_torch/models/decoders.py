@@ -1,12 +1,13 @@
 """Decoders, NCHW PyTorch.  Port of segland_tpu/models/decoders.py with
 upstream SegLand's module names: the convnext_pop decoder (FPN-OCR), the
-swin_pop decoder (UperNet+ over a PSP-v2 top), the pspnet_pop decoder
-(PSPModule), the deeplab_pop decoder (ASPP) and the seghr_pop decoder
-(HRFPN); the others are ROADMAP items A7 and A9.  Pyramid decoders take fine
--> coarse lists (x[0] the finest); PSPModule and ASPP take the backbone's last
-map.  BatchNorm follows ``module.training``
-(``ops/layers.py:batch_norm``): running statistics in eval mode, the batch's
-in train mode; so does PSPModuleV2's dropout."""
+swin_pop decoder (UperNet+ over a PSP-v2 top), the pspnet_pop and pspnet
+decoder (PSPModule), the pspplus_pop decoder (PSP+), the deeplab_pop decoder
+(ASPP), the lsk_pop decoder (SimpleDecoder), the seghr_pop decoder (HRFPN)
+and vggunet_pop's, which is none (``identity``: its U-Net is the decoder).
+Pyramid decoders take fine -> coarse lists (x[0] the finest); PSPModule and
+ASPP take the backbone's last map, PSP+ the pair [x4, x2].  BatchNorm follows
+``module.training`` (``ops/layers.py:batch_norm``): running statistics in eval
+mode, the batch's in train mode; so does PSPModuleV2's dropout."""
 
 import math
 from typing import Sequence
@@ -108,6 +109,38 @@ class PSPModule(nn.Module):
         return conv2d(b[3], x)
 
 
+class PSPPlusDecoder(nn.Module):
+    """The pspplus_pop decoder (reference networks/pspplus_pop.py:37-54), wired
+    as the JAX package wires it (the reference's forward is broken as shipped:
+    it indexes a tensor as a list; the JAX docstring says how the weights pin
+    the wiring down).  ``psp`` (a PSPModule) on x4, upsampled with
+    align_corners=True to x2's size; ``reduce`` (1x1 conv 512 -> 32, BN, ReLU)
+    on x2; the two concatenated [low, high] into ``fc`` (3x3 conv, BN, ReLU,
+    1x1 conv; both convs with bias)."""
+
+    def __init__(self, in_channels: Sequence[int], out_features: int = 512,
+                 reduced_feature: int = 32, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.psp = PSPModule(in_channels[:1], out_features, dtype=dtype)
+        self.reduce = nn.Sequential(nn.Conv2d(in_channels[2], reduced_feature, 1),
+                                    nn.BatchNorm2d(reduced_feature, eps=1e-5), nn.ReLU())
+        self.fc = nn.Sequential(
+            nn.Conv2d(reduced_feature + out_features, out_features, 3, padding=1),
+            nn.BatchNorm2d(out_features, eps=1e-5), nn.ReLU(),
+            nn.Conv2d(out_features, out_features, 1))
+
+    def reset_parameters(self, generator=None):
+        flax_defaults_(self, generator)
+
+    def forward(self, feats):
+        x4, x2 = (f.to(self.dtype) for f in feats)
+        low = F.relu(batch_norm(self.reduce[1], conv2d(self.reduce[0], x2)))
+        high = _resize(self.psp(x4), tuple(low.shape[-2:]))
+        x = F.relu(batch_norm(self.fc[1], conv2d(self.fc[0], torch.cat([low, high], dim=1))))
+        return conv2d(self.fc[3], x)
+
+
 class _ConvBN(nn.Module):
     """``conv`` (no bias) + ``bn`` + ReLU of the ASPP, under upstream's names.
     BatchNorm momentum 0.999 as upstream sets it (networks/deeplab_pop.py:27;
@@ -178,6 +211,13 @@ def _scale_head(dim: int, n_ups: int) -> nn.Sequential:
     return nn.Sequential(*mods)
 
 
+def _n_ups(filters: Sequence[int]):
+    """Each level's count of 2x upsamples back to level 0: log2 of its width
+    over level 0's, at least 1 (0 for level 0's own width)."""
+    return [0 if f == filters[0] else max(1, int(math.log2(f) - math.log2(filters[0])))
+            for f in filters]
+
+
 class UperNetPlusDecoder(nn.Module):
     """UperNet_Decoder_Plus (reference networks/swin_pop.py:104-173).
 
@@ -193,9 +233,7 @@ class UperNetPlusDecoder(nn.Module):
         dim = out_features
         self.psp = PSPModuleV2(filters[-1], dim)
         self.lateral_convs = nn.ModuleList(ConvBNReLU(f, dim, 3) for f in filters[:-1])
-        n_ups = [0 if f == filters[0] else
-                 max(1, int(math.log2(f) - math.log2(filters[0]))) for f in filters]
-        self.fpn_convs = nn.ModuleList(_scale_head(dim, n) for n in n_ups)
+        self.fpn_convs = nn.ModuleList(_scale_head(dim, n) for n in _n_ups(filters))
 
     def reset_parameters(self, generator=None):
         flax_defaults_(self, generator)
@@ -211,6 +249,42 @@ class UperNetPlusDecoder(nn.Module):
         out = None
         for head, lat in zip(self.fpn_convs, laterals):
             y = head(lat)
+            if tuple(y.shape[-2:]) != target:
+                y = _resize(y, target)
+            out = y if out is None else out + y
+        return out
+
+
+class SimpleDecoder(nn.Module):
+    """The lsk_pop decoder (reference networks/lsk_pop.py:104-165): every
+    level's lateral (3x3 conv + BN + ReLU) gated by a global semantic
+    embedding of the top level (mean-pooled, 1x1 conv without bias, sigmoid)
+    as l * sem + l, a log2 scale head a level, summed at level 0's size
+    (align_corners=True)."""
+
+    def __init__(self, in_channels: Sequence[int], out_features: int = 192,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        filters = tuple(in_channels)
+        dim = out_features
+        self.semantic_embedding = nn.Sequential(
+            nn.AdaptiveAvgPool2d(1), nn.Conv2d(filters[-1], dim, 1, bias=False), nn.Sigmoid())
+        self.lateral_convs = nn.ModuleList(ConvBNReLU(f, dim, 3) for f in filters)
+        self.fpn_convs = nn.ModuleList(_scale_head(dim, n) for n in _n_ups(filters))
+
+    def reset_parameters(self, generator=None):
+        flax_defaults_(self, generator)
+
+    def forward(self, feats):
+        feats = [f.to(self.dtype) for f in feats]
+        sem = torch.sigmoid(conv2d(self.semantic_embedding[1],
+                                   feats[-1].mean(dim=(2, 3), keepdim=True)))
+        target = tuple(feats[0].shape[-2:])
+        out = None
+        for lateral, head, f in zip(self.lateral_convs, self.fpn_convs, feats):
+            lat = lateral(f)
+            y = head(lat * sem + lat)
             if tuple(y.shape[-2:]) != target:
                 y = _resize(y, target)
             out = y if out is None else out + y
@@ -272,6 +346,20 @@ class HRFPNDecoder(nn.Module):
         return torch.cat([feats[0]] + [_resize(f, target) for f in feats[1:]], dim=1)
 
 
+class IdentityDecoder(nn.Module):
+    """vggunet_pop's: its trunk returns the features the head reads."""
+
+    def __init__(self, in_channels: Sequence[int] = (), out_features: int = 0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+
+    def reset_parameters(self, generator=None):
+        pass
+
+    def forward(self, feats):
+        return feats
+
+
 DECODERS = {"fpn_ocr": FPNOCRDecoder, "upernetplus": UperNetPlusDecoder, "psp": PSPModule,
-            "aspp": ASPP, "hrfpn": HRFPNDecoder}
-NOT_PORTED = {"pspplus": "A7", "simple": "A9"}
+            "pspplus": PSPPlusDecoder, "aspp": ASPP, "simple": SimpleDecoder,
+            "hrfpn": HRFPNDecoder, "identity": IdentityDecoder}

@@ -45,24 +45,25 @@ class GFSSModel(nn.Module):
         self.backbone_name = backbone_name
         self.decoder_name = decoder_name
         self.is_ft = is_ft
-        if packed_train and backbone_name.startswith("hr-"):
+        packs = backbone_name.startswith("hr-") or backbone_name in ("lsk-t", "vgg16bn-unet")
+        if packed_train and packs:
             raise ValueError(
-                "packed_train=True asks for the W-packed branch chains of the JAX package's "
-                "hrnet, a TPU lane-layout device the port does not carry; hrnet builds its "
-                "plain form (packed_train None or False)")
-        if packed_train is not None and not backbone_name.startswith("hr-"):
+                f"packed_train=True asks for the W-packed layout of the JAX package's "
+                f"{backbone_name!r}, a TPU lane-layout device the port does not carry; it "
+                f"builds its plain form (packed_train None or False)")
+        if packed_train is not None and not packs:
             raise ValueError(
                 f"packed_train picks the JAX package's W-packed layout, which the port does "
                 f"not carry; {backbone_name!r} takes no packed_train")
-        if decoder_name in D.NOT_PORTED:
-            raise NotImplementedError(
-                f"decoder {decoder_name!r} is not ported yet "
-                f"(ROADMAP item {D.NOT_PORTED[decoder_name]})")
         if decoder_name not in D.DECODERS:
             raise ValueError(decoder_name)
         bk = dict(os=os, dilated=dilated) if backbone_name.startswith("resnet") else {}
-        self.backbone = get_backbone(backbone_name, dtype=dtype, fused_mlp=fused_mlp,
-                                     fused_attn=fused_attn, **bk)
+        trunk = get_backbone(backbone_name, dtype=dtype, fused_mlp=fused_mlp,
+                             fused_attn=fused_attn, **bk)
+        if backbone_name == "vgg16bn-unet":
+            self.net = trunk  # upstream vggunet_pop's name for its U-Net
+        else:
+            self.backbone = trunk
         dm = self.d_model
         self.decoder = D.DECODERS[decoder_name](
             backbone_filters(backbone_name), out_features=dm, dtype=dtype)
@@ -74,6 +75,11 @@ class GFSSModel(nn.Module):
             self.novel_emb = nn.Parameter(torch.empty(n_novel, dm))
             self.classifier_n = Classifier(dm)
         self.reset_parameters(generator)
+
+    @property
+    def backbone(self) -> nn.Module:
+        """The trunk, whichever name upstream gives it (``net`` in vggunet_pop)."""
+        return self._modules["backbone"] if "backbone" in self._modules else self._modules["net"]
 
     @property
     def d_model(self) -> int:
@@ -119,6 +125,8 @@ class GFSSModel(nn.Module):
         DropPath rate is 0, as in the JAX package."""
         if self.backbone_name.startswith("resnet"):
             feats = self.backbone(img, return_list=self.needs_pyramid)
+            if self.decoder_name == "pspplus":
+                feats = [feats[0], feats[2]]  # [x4, x2]: reduce takes 512 channels
         else:
             feats = self.backbone(img)
         return self.decoder(feats).float().permute(0, 2, 3, 1)

@@ -15,3 +15,9 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     """MaxPool2d(kernel_size=3, stride=2, padding=1) on [B,H,W,C], the ResNet
     stem pool (reference networks/backbones/resnet.py:90)."""
     return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+
+
+def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """MaxPool2d(2, 2) on [B,H,W,C], the VGG pool (an odd last row or column
+    is dropped)."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)

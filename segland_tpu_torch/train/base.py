@@ -7,7 +7,7 @@ the JAX step folds the step into its ``"dropout"`` key.
 
 import torch
 
-from ..losses import orth_loss
+from ..losses import ce_loss, orth_loss
 from ..models.backbones.droppath import dropout_generator, step_seed
 from ..metrics import intersection_and_union
 from ..ops.fused_epilogue import upsample_argmax
@@ -48,12 +48,12 @@ def make_base_train_step(model, loss_name: str = "orth", double_step: bool = Fal
     fix_bn keeps the BatchNorm running statistics; normalization still uses
     the batch's (cli/common.py ``--fix-bn``).
 
-    Only the POP heads' orth loss has a model here: the CE step is that of
-    the plain ``pspnet``, ROADMAP A7."""
-    if loss_name != "orth":
-        raise NotImplementedError(
-            f"the {loss_name!r} train step belongs to the plain pspnet, which is not ported "
-            f"yet (ROADMAP item A7)")
+    ``loss_name`` "orth" trains a POP model (``forward_base``, the orth loss),
+    "ce" the plain ``pspnet`` (its logits and aux logits, the CE loss with
+    the aux head at 0.4), as the JAX step picks by the model's name."""
+    if loss_name not in ("orth", "ce"):
+        raise ValueError(f"unknown loss: {loss_name!r}")
+    is_pop = loss_name == "orth"
     del model  # the state carries it, as in the JAX step's state.apply_fn
 
     def train_step(state: TrainState, img, mask):
@@ -66,8 +66,12 @@ def make_base_train_step(model, loss_name: str = "orth", double_step: bool = Fal
             p.grad = None
         gen = torch.Generator(device=img.device).manual_seed(step_seed(seed, state.step))
         with dropout_generator(gen):
-            logits, sim = model.forward_base(img.permute(0, 3, 1, 2), train=True)
-        ld = orth_loss(logits.permute(0, 2, 3, 1), mask, sim)
+            if is_pop:
+                logits, sim = model.forward_base(img.permute(0, 3, 1, 2), train=True)
+                ld = orth_loss(logits.permute(0, 2, 3, 1), mask, sim)
+            else:
+                logits, aux = model(img.permute(0, 3, 1, 2), train=True)
+                ld = ce_loss(logits.permute(0, 2, 3, 1), mask, aux.permute(0, 2, 3, 1))
         ld["total_loss"].backward()
         for p in params:  # a parameter off the graph gets a zero gradient, as in jax.grad
             if p.grad is None:

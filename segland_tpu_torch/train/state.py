@@ -37,10 +37,11 @@ def poly_lr_schedule(base_lr: float, num_epochs: int, steps_per_epoch: int,
 def param_labels(model: torch.nn.Module) -> dict:
     """{parameter name: 'backbone' | 'head_bias' | 'head_weight'}, the JAX
     ``_param_labels`` on upstream names: a non-backbone parameter whose leaf
-    name contains 'bias' goes to the weight-decay-0 group."""
+    name contains 'bias' goes to the weight-decay-0 group.  vggunet_pop's
+    U-Net, ``net`` upstream, is the JAX package's ``backbone``."""
     out = {}
     for name, _ in model.named_parameters():
-        if name.startswith("backbone."):
+        if name.startswith(("backbone.", "net.")):
             out[name] = "backbone"
         elif "bias" in name.rsplit(".", 1)[-1]:
             out[name] = "head_bias"

@@ -118,8 +118,8 @@ def test_swin_pth_loads_into_the_jax_package(swin_trees, tmp_path):
 
 
 def test_unknown_leaf_raises():
-    with pytest.raises(KeyError):  # lsk_pop's, not ported (ROADMAP A9)
-        from_jax_variables({"params": {"backbone": {"patch_embed1_proj": {
+    with pytest.raises(KeyError):  # a module of no model
+        from_jax_variables({"params": {"backbone": {"patch_embed1_fc": {
             "kernel": np.zeros((1, 1, 2, 2), np.float32)}}}})
     with pytest.raises(KeyError):
         from_jax_variables({"batch_stats": {"x": {"mean": np.zeros(2, np.float32)}}})

@@ -320,11 +320,23 @@ def test_fused_default_covers_bfloat16_only(model, dtype):
 
 @pytest.mark.parametrize("extra", [["--model", "lsk_pop"], ["--model", "pspplus_pop"],
                                    ["--model", "pspnet"]])
-def test_unported_paths_raise(data_root, pth, tmp_path, extra):
+def test_unported_paths_raise(data_root, tmp_path, extra):
+    """Named when these keys raised (ROADMAP A7, A9); now each evaluates: the
+    model at a narrow size from its seeded init (lsk-t is narrow at full
+    width; the ResNet ones at resnet10), every labelled pixel counted and the
+    unlabeled tiles exported."""
     from segland_tpu_torch.cli.eval_base import main
 
-    with pytest.raises(NotImplementedError):
-        main(_args(data_root, "val.txt", pth[0], str(tmp_path)) + ["--device", "cpu"] + extra)
+    narrow = ["--backbone", "lsk-t" if extra[1] == "lsk_pop" else "resnet10"]
+    args = ["--data-dir", str(data_root), "--val-list", str(data_root / "list" / "val.txt"),
+            "--save-path", str(tmp_path)] + COMMON + ["--device", "cpu"] + extra + narrow
+    base, _, total, tps = main(args)[123]
+    cm = np.load(tmp_path / "cmatrix_123.npy")
+    assert cm.shape == (12, 12) and cm.sum() == 3 * 64 * 64
+    assert 0.0 <= base <= 1.0 and 0.0 <= total <= 1.0 and tps > 0
+    main(["--data-dir", str(data_root), "--val-list", str(data_root / "list" / "test.txt"),
+          "--save-path", str(tmp_path / "test")] + COMMON + ["--device", "cpu"] + extra + narrow)
+    assert sorted(os.listdir(tmp_path / "test" / "prob")) == ["test_0.mat", "test_1.mat"]
 
 
 def test_eval_ft_two_seeds_load_their_own_checkpoints(data_root, tmp_path_factory, tmp_path):

@@ -1,6 +1,9 @@
 """The port imports torch and never jax, flax, PIL or anything of
 segland_tpu, at import time or inside a function, and needs no nvcc to
-import: the kernels build at the first CUDA call."""
+import: the kernels build at the first CUDA call.  The entry points run in
+processes of their own, the eval ones over every model of the last slice
+(pspplus_pop, the plain pspnet, lsk_pop, vggunet_pop), train_base over the
+plain pspnet's CE step and lsk_pop, ft_pop over lsk_pop."""
 
 import os
 import pathlib
@@ -40,7 +43,9 @@ MODULES = ["segland_tpu_torch", "segland_tpu_torch.ops.fused_mlp",
            "segland_tpu_torch.evallib.fuse", "segland_tpu_torch.cli.ensemble_eval",
            "segland_tpu_torch.cli.predict", "segland_tpu_torch.cli.fuse",
            "segland_tpu_torch.cli.trans", "segland_tpu_torch.cli.translabel",
-           "segland_tpu_torch.cli.gen_new_samples", "segland_tpu_torch.cli.get_list"]
+           "segland_tpu_torch.cli.gen_new_samples", "segland_tpu_torch.cli.get_list",
+           "segland_tpu_torch.models.backbones.lsknet",
+           "segland_tpu_torch.models.backbones.vggunet", "segland_tpu_torch.models.pspnet_plain"]
 FOREIGN = ("jax", "flax", "PIL", "segland_tpu")
 
 PROBE = """
@@ -71,6 +76,11 @@ res = eval_base.main(int8 + ["--save-path", {out!r} + "/c"])
 assert 0.0 <= res[123][2] <= 1.0
 res = eval_base.main(int8 + ["--fused", "--dtype", "bfloat16", "--save-path", {out!r} + "/d"])
 assert 0.0 <= res[123][2] <= 1.0
+for i, (model, backbone) in enumerate((("pspplus_pop", "resnet10"), ("pspnet", "resnet10"),
+                                       ("lsk_pop", "lsk-t"), ("vggunet_pop", "vgg16bn-unet"))):
+    res = eval_base.main(common + ["--model", model, "--backbone", backbone, "--val-list",
+                                   {root!r} + "/val.txt", "--save-path", {out!r} + "/m%d" % i])
+    assert 0.0 <= res[123][2] <= 1.0
 print(sorted(m for m in sys.modules if m.split('.')[0] in {foreign!r}))
 """
 
@@ -136,6 +146,14 @@ best = train_base.main(["--data-dir", {root!r}, "--train-list", {root!r} + "/tra
                         "--base-size", "32,32", "--batch-size", "2", "--num-epoch", "1",
                         "--val-start", "0", "--num-workers", "0", "--snapshot-dir", {out!r}])
 assert 0.0 <= best <= 1.0
+for model, backbone in (("pspnet", "resnet10"), ("lsk_pop", "lsk-t")):
+    best = train_base.main(["--data-dir", {root!r}, "--train-list", {root!r} + "/train.txt",
+                            "--val-list", {root!r} + "/val.txt", "--model", model,
+                            "--backbone", backbone, "--device", "cpu", "--input-size", "32,32",
+                            "--base-size", "32,32", "--batch-size", "2", "--num-epoch", "1",
+                            "--val-start", "0", "--num-workers", "0",
+                            "--snapshot-dir", {out!r} + "_" + model])
+    assert 0.0 <= best <= 1.0
 print(sorted(m for m in sys.modules if m.split('.')[0] in {foreign!r}))
 """
 
@@ -184,6 +202,14 @@ res = ft_pop.main(["--data-dir", {root!r}, "--train-list", {root!r} + "/train.tx
                    "--input-size", "32,32", "--base-size", "32,32", "--batch-size", "1",
                    "--num-epoch", "1", "--shot", "1", "--update-base", "--fix-lr",
                    "--num-workers", "0", "--snapshot-dir", {out!r}])
+assert set(res) == {{123}}
+save_params({root!r} + "/lsk.pth", build_model("lsk_pop", n_base=7))
+res = ft_pop.main(["--data-dir", {root!r}, "--train-list", {root!r} + "/train.txt",
+                   "--val-list", {root!r} + "/val.txt", "--model", "lsk_pop",
+                   "--device", "cpu", "--restore-from", {root!r} + "/lsk.pth",
+                   "--input-size", "32,32", "--base-size", "32,32", "--batch-size", "1",
+                   "--num-epoch", "1", "--shot", "1", "--fix-lr", "--num-workers", "0",
+                   "--snapshot-dir", {out!r} + "_lsk"])
 assert set(res) == {{123}}
 print(sorted(m for m in sys.modules if m.split('.')[0] in {foreign!r}))
 """

@@ -1,8 +1,11 @@
 """The port's fresh init against the JAX package's (ROADMAP C6), on the CPU:
 every parameter and BatchNorm statistic of ``pspnet_pop`` / ``resnet10``,
 ``convnext_pop`` and ``swin_pop`` (narrow ``convnext-t`` and ``swin-t``,
-``tests/ft_helpers.py``) and ``seghr_pop`` / ``hr-w32`` (full depth; the JAX
-HRNet has no explicit initializer, its W-packed chains draw as nn.Conv does) drawn by ``build_model`` from a seeded generator
+``tests/ft_helpers.py``), ``seghr_pop`` / ``hr-w32`` (full depth; the JAX
+HRNet has no explicit initializer, its W-packed chains draw as nn.Conv does),
+``pspplus_pop`` and the plain ``pspnet`` / ``resnet10`` (its classifiers and
+aux head torch's Conv2d default) and ``lsk_pop`` / ``lsk-t`` (layer-scales at
+1e-2) and ``vggunet_pop`` at full width, drawn by ``build_model`` from a seeded generator
 and by the JAX module's ``init``, matched by upstream key.  A tensor that is
 constant on the JAX side (norm scales and shifts, biases, layer-scales,
 running statistics) must equal it; any other must have its standard
@@ -25,7 +28,8 @@ from segland_tpu_torch.ckpt import from_jax_variables
 from segland_tpu_torch.models import build_model
 
 MODELS = [("pspnet_pop", "resnet10"), ("convnext_pop", "convnext-t"), ("swin_pop", "swin-t"),
-          ("seghr_pop", "hr-w32")]
+          ("seghr_pop", "hr-w32"), ("pspplus_pop", "resnet10"), ("pspnet", "resnet10"),
+          ("lsk_pop", "lsk-t"), ("vggunet_pop", "vgg16bn-unet")]
 
 
 def _std_by_fan_in(name, a):
@@ -44,9 +48,10 @@ def test_fresh_init_scales_match_jax(name, backbone, monkeypatch):
     x = jnp.zeros((2, 64, 64, 3) if name == "seghr_pop" else (1, 32, 32, 3))
     # HRNet repeats a few dozen op shapes over its 8 modules: eager init compiles each once
     # (~20 s), where jit compiles the whole graph (~40 s)
-    init = jm.init if name == "seghr_pop" else jax.jit(jm.init)
+    init = jm.init if name == "seghr_pop" else jax.jit(jm.init, static_argnames="train")
+    # the plain pspnet's aux head is created by a train-mode init
     want = {k: v for k, v in from_jax_variables(jax.tree_util.tree_map(
-        np.asarray, init(jax.random.PRNGKey(0), x))).items()
+        np.asarray, init(jax.random.PRNGKey(0), x, train=name == "pspnet"))).items()
         if not k.endswith("num_batches_tracked")}
     got = {k: v.numpy() for k, v in build_model(
         name, backbone, n_base=7, generator=torch.Generator().manual_seed(0)).state_dict().items()

@@ -6,8 +6,9 @@ every epoch, ``best.pth`` and ``--metrics``; a resumed run from
 CPU ops are deterministic); the port's ``eval_base`` runs ``best.pth``; the
 JAX package's ``load_torch_checkpoint`` reads it with nothing missing, and its
 forward equals the port's within the repo's 5e-4 bar; ``seghr_pop`` / ``hr-w18``
-trains and its ``best.pth`` loads into the JAX package.  Then what does not
-train yet raises, naming its ROADMAP item."""
+trains and its ``best.pth`` loads into the JAX package; ``pspplus_pop``, the
+plain ``pspnet`` (the CE step), ``lsk_pop`` and ``vggunet_pop`` train.  Then
+what does not train yet raises, naming its ROADMAP item."""
 
 import json
 
@@ -149,9 +150,42 @@ def test_seghr_trains_and_its_best_pth_loads_into_jax(root, tmp_path):
         train_base.main(_args(root, tmp_path / "packed", *hr, "--packed-train"))
 
 
+@pytest.mark.parametrize("name,backbone", [("pspplus_pop", "resnet10"), ("pspnet", "resnet10"),
+                                           ("lsk_pop", "lsk-t"), ("vggunet_pop", "vgg16bn-unet")])
+def test_the_last_registry_models_train(root, tmp_path, name, backbone):
+    """The keys that raised before (ROADMAP A7, A9) train for 2 epochs: the POP
+    ones on the orth loss, the plain pspnet on the CE loss with its aux head
+    (the JAX CLI's pick by name); finite losses, snapshots, best.pth through
+    eval_base.  --packed-train asks for the JAX package's W-packed layout of
+    lsk-t and vgg16bn-unet and raises."""
+    from segland_tpu_torch.cli import eval_base
+
+    model = ["--model", name, "--backbone", backbone, "--no-fused", "--num-epoch", "2"]
+    snap = tmp_path / "snap"
+    best = train_base.main(_args(root, snap, "--metrics", *model))
+    assert 0.0 <= best <= 1.0
+    rows = [json.loads(line) for line in (snap / "metrics.jsonl").read_text().splitlines()]
+    tags = {r["tag"] for r in rows}
+    want = ({"train/main_loss", "train/aux_loss"} if name == "pspnet"
+            else {"train/seg_loss", "train/orth_loss"})
+    assert want | {"train/total_loss"} <= tags and not (tags & {"train/seg_loss",
+                                                                  "train/main_loss"}) - want
+    assert sum(r["tag"] == "train/total_loss" for r in rows) == 2
+    assert all(np.isfinite(r["value"]) for r in rows)
+    for f in ("epoch_1.pth", "epoch_2.pth", "best.pth"):
+        assert (snap / f).exists(), f
+    res = eval_base.main(["--data-dir", str(root), "--val-list", str(root / "list" / "val.txt"),
+                          "--model", name, "--backbone", backbone,
+                          "--restore-from", str(snap / "best.pth"), "--device", "cpu",
+                          "--base-size", "48,48", "--num-workers", "0",
+                          "--save-path", str(tmp_path / "eval")])
+    assert 0.0 <= res[123][2] <= 1.0
+    if name in ("lsk_pop", "vggunet_pop"):
+        with pytest.raises(ValueError, match="W-packed"):
+            train_base.main(_args(root, tmp_path / "packed", *model, "--packed-train"))
+
+
 @pytest.mark.parametrize("extra,item", [
-    (["--model", "lsk_pop"], "A9"),
-    (["--model", "pspnet"], "A7"),
     (["--device-augment"], "A4c"),
     (["--dataset", "oem_ft"], "A5"),
 ])
