@@ -151,6 +151,17 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      K1 72), equal to the host path except at near-ties, seconds a scene of
      both paths; two members' .mat exports fused by fuse_prob_maps on the
      card, equal to numpy's argmax of the float32 mean;
+ 11d. dist: training and eval over a process group (phase_dist): one NCCL rank
+     (WORLD_SIZE=1) and two ranks on cuda:0 over gloo, each a process of its
+     own: cli.train_base on convnext_pop (bf16 --fused, global batch 4 of 768^2
+     crops; the two ranks' weights bit-equal after every step; K1 18 a forward,
+     K2 1 a validation batch, per rank), one fp32 step of convnext_pop and
+     swin_pop over the ranks held to one process's by the step rule, cli.ft_pop
+     on swin_pop (global batch 2: K3 24, K1 24 and K2 1 a step), cli.eval_base
+     against one process at the ranks' batch (confusion matrices equal but for
+     near-ties, >= 99.99% agreement) and --device-augment (a forced draw
+     bitwise equal to the host pipeline, aug_fallback printed); ms/step and
+     memory per rank printed;
  12. K10 hg2_section (head groups, masks from the window index; K9's body)
      vs its plain version at the four swin-s stage shapes, shift 0 and 3,
      every built hg, wblk = W and 32; its builds' registers and spills (each
@@ -189,6 +200,7 @@ the repo beside it, it fails before printing any result.
     python3 chip_smoke.py --phases seghr    # seghr_pop / hr-w32: eval, base training, ft, int8
     python3 chip_smoke.py --phases heads    # pspplus_pop, pspnet, lsk_pop, vggunet_pop
     python3 chip_smoke.py --phases ensemble # ensemble serving, scene prediction, .mat fusion
+    python3 chip_smoke.py --phases dist     # training and eval over the ranks of a process group
     python3 chip_smoke.py --phases k2,k6    # K2 and K6 at every shape of their phases
     python3 chip_smoke.py --phases k1,k3    # K1 and K3 with their build, SASS and phase lines
     python3 chip_smoke.py --phases k4,k5    # K4 and K5 with their build, SASS and phase lines
@@ -2298,10 +2310,17 @@ def step_ms(setup, rounds=2, steps=6, warmup=3):
         yield times
 
 
+def dist_args(backend):
+    """The CLIs' --dist-backend, where a backend is asked for."""
+    return ("--dist-backend", backend) if backend else ()
+
+
 def train_cli_run(dev, root, name, per_forward=None, fused=True, fall_from="step",
-                  epochs=TRAIN_EPOCHS):
+                  epochs=TRAIN_EPOCHS, extra=(), suffix="", backend=None):
     """cli.train_base.main for ``name`` at bf16 --fused (``fused`` False:
-    --no-fused), batch 4, 768^2 crops,
+    --no-fused), batch 4, 768^2 crops, ``extra`` arguments appended (into
+    the snapshot dir ``<name>_snap<suffix>``; ``backend``: --dist-backend, here
+    and to eval_base),
     AdamW at 1e-3, ``epochs`` epochs of 4 steps with validation (2 batches
     of 2) in each, on write_train_tiles' tiles: the loss dicts finite, the seg
     loss (the plain pspnet's main loss) of the last epoch below its first
@@ -2313,7 +2332,7 @@ def train_cli_run(dev, root, name, per_forward=None, fused=True, fall_from="step
     the launch counts."""
     from segland_tpu_torch.cli import eval_base, train_base
 
-    snap = os.path.join(root, f"{name}_snap")
+    snap = os.path.join(root, f"{name}_snap{suffix}")
     lst = os.path.join(root, "list")
     flag = "--fused" if fused else "--no-fused"
     args = ["--data-dir", root, "--train-list", os.path.join(lst, "train.txt"),
@@ -2322,7 +2341,8 @@ def train_cli_run(dev, root, name, per_forward=None, fused=True, fall_from="step
             "--input-size", f"{TRAIN_CROP},{TRAIN_CROP}", "--learning-rate", "1e-3",
             "--num-epoch", str(epochs), "--val-start", "0", "--val-frequency", "1",
             "--snapshot-frequency", "1", "--test-batch-size", "2", "--print-frequency", "1",
-            "--metrics", "--num-workers", "4", "--snapshot-dir", snap]
+            "--metrics", "--num-workers", "4", "--snapshot-dir", snap, *extra,
+            *dist_args(backend)]
     t0 = time.time()
     best, launches = counted(lambda: train_base.main(args))
     wall = time.time() - t0
@@ -2335,7 +2355,7 @@ def train_cli_run(dev, root, name, per_forward=None, fused=True, fall_from="step
     losses = [r["value"] for r in rows if r["tag"] == "train/total_loss"]
     seg_tag = "seg_loss" if loss_of(name) == "orth" else "main_loss"
     seg = [r["value"] for r in rows if r["tag"] == f"train/{seg_tag}"]
-    print(f"train {name} (cli.train_base, bf16 {flag}, {TRAIN_BATCH}x{TRAIN_CROP}^2, "
+    print(f"train {name}{suffix} (cli.train_base, bf16 {flag}, {TRAIN_BATCH}x{TRAIN_CROP}^2, "
           f"{epochs} epochs of {steps // epochs} steps + {val_batches} val "
           f"batches): {wall:.1f}s launches={launches} best_val_mIoU={best:.4f} "
           f"total_loss {' '.join(f'{x:.4f}' for x in losses)} {seg_tag} "
@@ -2356,8 +2376,8 @@ def train_cli_run(dev, root, name, per_forward=None, fused=True, fall_from="step
     res = eval_base.main(["--data-dir", root, "--val-list", os.path.join(lst, "val.txt"),
                           "--model", name, "--dtype", "bfloat16",
                           "--restore-from", os.path.join(snap, "best.pth"),
-                          "--eval-batch", "2", "--num-workers", "4",
-                          "--save-path", os.path.join(root, f"{name}_eval")])
+                          "--eval-batch", "2", "--num-workers", "4", *dist_args(backend),
+                          "--save-path", os.path.join(root, f"{name}_eval{suffix}")])
     total = res[123][2]
     print(f"train {name}: eval_base on best.pth: mIoU total={total:.4f}", flush=True)
     if not 0.0 <= total <= 1.0:
@@ -2552,9 +2572,11 @@ def write_ft_tiles(root):
                           "--shot", str(shot), "--seed", str(FT_SEED)])
 
 
-def ft_cli_run(dev, root, name, cfg=None, base_path=None, fused=True):
+def ft_cli_run(dev, root, name, cfg=None, base_path=None, fused=True, batch=1, suffix="",
+               backend=None):
     """cli.ft_pop.main for ``name`` at scripts/ft_oem.sh's config (bf16 --fused,
-    or --no-fused where ``fused`` is False, 1024^2 crops, batch 1, SGD at 1e-4,
+    or --no-fused where ``fused`` is False, 1024^2 crops, batch 1 (or
+    ``batch``, the validation's too; ``backend``: --dist-backend), SGD at 1e-4,
     weight decay 1e-4, --fix-lr --freeze-backbone --update-base --update-epoch
     1) from ``base_path`` or else a base .pth of train_step_model's draw, with
     ``cfg`` (FT_MODELS' by default), cut to 1 epoch and FT_VAL_TILES validation tiles;
@@ -2572,22 +2594,23 @@ def ft_cli_run(dev, root, name, cfg=None, base_path=None, fused=True):
     if base_path is None:
         base_path = os.path.join(root, f"{name}_base.pth")
         save_params(base_path, train_step_model(torch.bfloat16, name=name))
-    snap = os.path.join(root, f"{name}_snap")
+    snap = os.path.join(root, f"{name}_snap{suffix}")
     lst = os.path.join(root, "list")
     flag = "--fused" if fused else "--no-fused"
     args = ["--data-dir", root, "--train-list", os.path.join(lst, "train.txt"),
             "--val-list", os.path.join(lst, "val.txt"), "--model", name, "--dtype", "bfloat16",
             flag, "--input-size", f"{TILE},{TILE}", "--base-size", f"{TILE},{TILE}",
-            "--batch-size", "1", "--learning-rate", "1e-4", "--weight-decay", "1e-4",
+            "--batch-size", str(batch), "--test-batch-size", str(batch),
+            "--learning-rate", "1e-4", "--weight-decay", "1e-4",
             "--fix-lr", "--freeze-backbone", "--update-base", "--update-epoch", "1",
             "--shot", str(cfg["shot"]), "--num-epoch", "1", "--val-frequency", "1",
             "--random-seed", str(FT_SEED), "--restore-from", base_path, "--print-frequency", "1",
-            "--metrics", "--num-workers", "4", "--snapshot-dir", snap]
+            "--metrics", "--num-workers", "4", "--snapshot-dir", snap, *dist_args(backend)]
     t0 = time.time()
     res, launches = counted(lambda: ft_pop.main(args))
     wall = time.time() - t0
-    steps = 7 * cfg["shot"]  # a base sample a step: shot a base class
-    n = steps + FT_VAL_TILES
+    steps = 7 * cfg["shot"] // batch  # a base sample an episode: shot a base class
+    n = steps + FT_VAL_TILES // batch  # this process's: with N ranks a tile each
     want = {k: v * n for k, v in cfg["per_forward"].items()}
     want["upsample_argmax"] = n
     rows = [json.loads(line) for line in open(os.path.join(snap, "metrics.jsonl"))]
@@ -2595,8 +2618,8 @@ def ft_cli_run(dev, root, name, cfg=None, base_path=None, fused=True):
     losses = [r["value"] for r in rows if r["tag"] == tag + "total_loss"]
     skipped = [r["value"] for r in rows if r["tag"] == tag + "nonfinite_skipped"]
     best = res[FT_SEED]
-    print(f"ft {name} (cli.ft_pop, bf16 {flag}, 1x{TILE}^2 novel + 1x{TILE}^2 base a step, "
-          f"1 epoch of {steps} steps + {FT_VAL_TILES} val tiles): {wall:.1f}s "
+    print(f"ft {name}{suffix} (cli.ft_pop, bf16 {flag}, {batch}x{TILE}^2 novel + {batch}x{TILE}^2 "
+          f"base a step, 1 epoch of {steps} steps + {FT_VAL_TILES} val tiles): {wall:.1f}s "
           f"launches={launches} best={best} total_loss {' '.join(f'{x:.4f}' for x in losses)}",
           flush=True)
     if launches != want:
@@ -2626,7 +2649,8 @@ def ft_cli_run(dev, root, name, cfg=None, base_path=None, fused=True):
     res = eval_ft.main(["--data-dir", root, "--val-list", os.path.join(lst, "val.txt"),
                         "--model", name, "--dtype", "bfloat16",
                         "--restore-from", os.path.join(snap, "best.pth"), "--eval-batch", "2",
-                        "--num-workers", "4", "--save-path", os.path.join(root, f"{name}_eval")])
+                        "--num-workers", "4", *dist_args(backend),
+                        "--save-path", os.path.join(root, f"{name}_eval{suffix}")])
     b, nv, tot, _ = res[FT_SEED]
     print(f"ft {name}: eval_ft on best_{FT_SEED}.pth (K = 12): mIoU base={b:.4f} "
           f"novel={nv:.4f} total={tot:.4f}", flush=True)
@@ -3580,6 +3604,456 @@ def phase_steprule(dev):
                   f"x(1+-e) + 1e-6: {v:.3f} ({n})", flush=True)
 
 
+# the dist phase: ranks of a process group, each a process of its own on cuda:0
+DIST_TIME_LIMIT = 480  # s the parent waits for a group of ranks before it kills them
+DIST_EVAL_TILES = 5  # eval_base's tiles in batches of 2: the last batch leaves rank 1 none
+DIST_STEP_MODELS = ("convnext_pop", "swin_pop")  # the fp32 step over the ranks (swin: BN)
+DIST_GROUPS = {"nccl": (1, ("train", "fp32")),  # backend: (world, the jobs its ranks run)
+               "gloo": (2, ("train", "fp32", "ft", "eval", "devaug"))}
+
+
+def weights_digest(model):
+    """A digest of every parameter's and buffer's bytes."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.blake2b(digest_size=16)
+    for v in model.state_dict().values():
+        h.update(v.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def recorded_steps(module):
+    """``module.make_base_train_step``'s steps, each timed alone (synchronized)
+    and followed by a digest of the model's weights: yields {"ms": [...],
+    "digests": [...]}."""
+    import torch
+
+    rec = {"ms": [], "digests": []}
+    make = module.make_base_train_step
+
+    def wrapped(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def timed(state, *batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, *batch)
+            torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["digests"].append(weights_digest(state.model))
+            return out
+
+        return timed
+
+    module.make_base_train_step = wrapped
+    try:
+        yield rec
+    finally:
+        module.make_base_train_step = make
+
+
+@contextlib.contextmanager
+def bn_reductions():
+    """Counts the all-reduces of BatchNorm's statistics (ops/layers.py)."""
+    from segland_tpu_torch.ops import layers
+
+    n, reduce = [0], layers.all_reduce_autograd
+
+    def count(*args, **kwargs):
+        n[0] += 1
+        return reduce(*args, **kwargs)
+
+    layers.all_reduce_autograd = count
+    try:
+        yield n
+    finally:
+        layers.all_reduce_autograd = reduce
+
+
+def dist_batch(dev):
+    """The fp32 step's global batch (TRAIN_BATCH x TRAIN_CROP^2): rank 0's rows
+    half ignored, so that the CE's global normalisation is exercised."""
+    import torch
+
+    g = torch.Generator().manual_seed(7)
+    img = torch.randn(TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3, generator=g)
+    mask = torch.randint(0, 8, (TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP), generator=g)
+    mask[:TRAIN_BATCH // 2, :, :TRAIN_CROP // 2] = 255
+    return img.to(dev), mask.to(dev)
+
+
+def dist_job_train(dev, root, backend):
+    from segland_tpu_torch.cli import train_base
+
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    with bn_reductions() as n_bn, recorded_steps(train_base) as rec:
+        launches = train_cli_run(dev, os.path.join(root, "train"), "convnext_pop",
+                                 suffix=f"_{backend}", backend=backend)
+    return dict(launches=launches, ms=rec["ms"], digests=rec["digests"], bn=n_bn[0],
+                peak=torch.cuda.max_memory_allocated())
+
+
+def dist_job_fp32(dev, root, backend):
+    """One fp32 step of each of DIST_STEP_MODELS on this rank's rows of
+    dist_batch at LR 0: rank 0 saves the (all-reduced) gradients and the loss
+    dict for the parent, which holds them to one process's."""
+    import torch
+
+    from segland_tpu_torch import dist
+
+    img, mask = dist_batch(dev)
+    lo, hi = dist.shard_rows(TRAIN_BATCH // dist.world())
+    out = {}
+    for name in DIST_STEP_MODELS:
+        model = train_step_model(torch.float32, name=name).to(dev)
+        with bn_reductions() as n_bn:
+            (ld, grads), launches = counted(lambda: train_step_grads(model, img[lo:hi],
+                                                                     mask[lo:hi]))
+        if dist.is_main():
+            torch.save(({k: float(v) for k, v in ld.items()}, {k: g.cpu() for k, g in
+                                                               grads.items()}),
+                       os.path.join(root, f"fp32_{name}_{backend}.pt"))
+        out[name] = dict(launches=launches, bn=n_bn[0], digest=weights_digest(model))
+        del model, grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_job_ft(dev, root, backend):
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dict(shot=1, per_forward=FT_MODELS["swin_pop"]["per_forward"])
+    launches = ft_cli_run(dev, os.path.join(root, "ft"), "swin_pop", cfg=cfg, batch=2,
+                          suffix=f"_{backend}", backend=backend)
+    return dict(launches=launches, peak=torch.cuda.max_memory_allocated())
+
+
+def dist_job_eval(dev, root, backend):
+    """eval_base over the ranks on DIST_EVAL_TILES labelled tiles (the
+    confusion matrix) and on the same tiles unlabelled (each rank's GTiff and
+    .mat exports)."""
+    ev = os.path.join(root, "eval")
+    _, launches = counted(lambda: eval_base_run(ev, "ranks", dist_args(backend)))
+    eval_base_run(ev, "ranks_nl", dist_args(backend), labelled=False)
+    return dict(launches=launches)
+
+
+def eval_base_run(ev, out, extra=(), labelled=True, batch=2):
+    from segland_tpu_torch.cli import eval_base
+
+    return eval_base.main(["--data-dir", os.path.join(ev, "data" if labelled else "nolabel"),
+                           "--val-list", os.path.join(ev, "val.txt"), "--model",
+                           "convnext_pop", "--dtype", "bfloat16", "--restore-from",
+                           os.path.join(ev, "model.pth"), "--eval-batch", str(batch),
+                           "--num-workers", "4", "--save-path", os.path.join(ev, out), *extra])
+
+
+def eval_agreement(ev, ids, ranks, one):
+    """(cm equal, agreement of the confusion matrices, pixels of the exports
+    that differ, of them beyond near-ties of ``one``'s logits) of the eval
+    outputs ``ranks`` and ``one`` (their unlabelled runs under ``<name>_nl``)."""
+    from scipy.io import loadmat
+
+    from segland_tpu_torch.data.tileio import read_label
+
+    cm2 = np.load(os.path.join(ev, ranks, "cmatrix_123.npy"))
+    cm1 = np.load(os.path.join(ev, one, "cmatrix_123.npy"))
+    beyond = differ = 0
+    for tid in ids:
+        p2 = read_label(os.path.join(ev, ranks + "_nl", tid + ".tif"))
+        p1 = read_label(os.path.join(ev, one + "_nl", tid + ".tif"))
+        logits = loadmat(os.path.join(ev, one + "_nl", "prob", tid + ".mat"))["outputs"][0]
+        differ += int((p2 != p1).sum())
+        beyond += differ_beyond_ties(p2, p1, np.ascontiguousarray(logits.transpose(1, 2, 0)))
+    return (bool(np.array_equal(cm2, cm1)), 1.0 - np.abs(cm2 - cm1).sum() / 2 / cm1.sum(),
+            differ, beyond)
+
+
+def dist_job_devaug(dev, root, backend):
+    """train_base --device-augment, one epoch over the ranks; the loss dicts'
+    aug_fallback."""
+    suffix = f"_aug_{backend}"
+    launches = train_cli_run(dev, os.path.join(root, "train"), "convnext_pop", epochs=1,
+                             extra=("--device-augment",), suffix=suffix, backend=backend,
+                             fall_from=None)
+    rows = [json.loads(line) for line in open(os.path.join(
+        root, "train", f"convnext_pop_snap{suffix}", "metrics.jsonl"))]
+    return dict(launches=launches,
+                aug_fallback=[r["value"] for r in rows if r["tag"] == "train/aug_fallback"])
+
+
+DIST_JOBS = {"train": dist_job_train, "fp32": dist_job_fp32, "ft": dist_job_ft,
+             "eval": dist_job_eval, "devaug": dist_job_devaug}
+
+
+def dist_worker(backend, root, jobs):
+    """One rank (chip_smoke.py --dist-worker BACKEND ROOT JOBS, torchrun's
+    environment set by the parent): the group on cuda:0, the jobs in turn,
+    what they saw into ROOT/<backend>_rank<r>.json."""
+    import torch
+
+    from segland_tpu_torch import dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = dist.init_from_env("cuda:0", backend)
+    import torch.distributed as tdist
+
+    out = {"backend": tdist.get_backend(), "world": dist.world(), "rank": dist.rank(),
+           "device": str(dev)}
+    if dev.type != "cuda" or out["backend"] != backend:
+        fail(f"rank {dist.rank()}: {dev} over {out['backend']}, want cuda over {backend}")
+    for job in jobs.split(","):
+        out[job] = DIST_JOBS[job](dev, root, backend)
+    with open(os.path.join(root, f"{backend}_rank{dist.rank()}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy()
+    return 0
+
+
+def dist_spawn(root, backend):
+    """The ranks of DIST_GROUPS[backend] as processes of their own on cuda:0;
+    waits for them within DIST_TIME_LIMIT (then kills them), fails with a
+    failed rank's output.  Returns each rank's results and the seconds."""
+    import socket
+
+    world, jobs = DIST_GROUPS[backend]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs, logs = [], []
+    t0 = time.time()
+    for r in range(world):
+        logs.append(os.path.join(root, f"{backend}_rank{r}.log"))
+        env = dict(os.environ, WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), GLOO_SOCKET_IFNAME="lo")
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-worker", backend, root,
+                 ",".join(jobs)], env=env, stdout=log, stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, t0 + DIST_TIME_LIMIT - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        text = open(logs[r]).read()
+        for line in text.splitlines():
+            if line.startswith(("train ", "ft ")):
+                print(f"  {backend} rank {r}/{world}: {line}", flush=True)
+        if p.returncode != 0:
+            fail(f"dist: rank {r} of {world} over {backend} ended with {p.returncode} "
+                 f"(limit {DIST_TIME_LIMIT} s):\n{text[-6000:]}")
+    res = [json.load(open(os.path.join(root, f"{backend}_rank{r}.json"))) for r in range(world)]
+    return res, time.time() - t0
+
+
+def write_eval_tiles(ev):
+    """DIST_EVAL_TILES random 1024^2 tiles with labels in data/ and the same
+    images without labels in nolabel/, and a convnext_pop draw (build) as
+    model.pth."""
+    import torch
+
+    from segland_tpu_torch.ckpt import save_params
+    from segland_tpu_torch.data.geotiff import write_tiff
+
+    rng = np.random.RandomState(2)
+    for d in ("data/images", "data/labels", "nolabel"):
+        os.makedirs(os.path.join(ev, d), exist_ok=True)
+    os.symlink(os.path.join(ev, "data", "images"), os.path.join(ev, "nolabel", "images"))
+    ids = [f"e{i}" for i in range(DIST_EVAL_TILES)]
+    for tid in ids:
+        write_tiff(os.path.join(ev, "data", "images", tid + ".tif"),
+                   rng.randint(0, 256, (TILE, TILE, 3)).astype(np.uint8))
+        lab = rng.randint(0, 12, (TILE // 64, TILE // 64)).repeat(64, 0).repeat(64, 1)
+        write_tiff(os.path.join(ev, "data", "labels", tid + ".tif"), lab.astype(np.uint8))
+    with open(os.path.join(ev, "val.txt"), "w") as f:
+        f.write("\n".join(ids) + "\n")
+    save_params(os.path.join(ev, "model.pth"), build("convnext_pop", torch.bfloat16))
+    return ids
+
+
+def dist_hold_step(name, backend, root, ref, perturbed):
+    """The fp32 step over ``backend``'s ranks against one process (``ref``:
+    loss dict, grads), by the step rule of hold_steps with ``perturbed``: each
+    gradient's relative error at most twice the farthest of the plain route
+    on the image scaled by 1 +- FP32_SUM_FLOOR, plus FP32_SUM_FLOOR; the seg
+    loss within 1e-5."""
+    import torch
+
+    ld, grads = torch.load(os.path.join(root, f"fp32_{name}_{backend}.pt"), weights_only=False)
+    worst = (-1.0, "", 0.0, 0.0)
+    for n, g in ref[1].items():
+        err = _rel_err(grads[n].to(g.device), g)
+        bar = 2 * max(_rel_err(p[1][n], g) for p in perturbed) + FP32_SUM_FLOOR
+        worst = max(worst, (err / bar, n, err, bar))
+        if not err <= bar:
+            fail(f"dist {name} fp32 step over {backend}: gradient of {n} {err:.3g} from one "
+                 f"process's, bar {bar:.3g}")
+    lk, lp = ld["seg_loss"], float(ref[0]["seg_loss"])
+    print(f"dist {name} fp32 step ({backend}, {TRAIN_BATCH}x{TRAIN_CROP}^2 over the ranks) vs "
+          f"one process: seg_loss {lk:.6f} vs {lp:.6f}; of {len(grads)} gradients the nearest "
+          f"its bar {worst[1]} ({worst[0]:.2f} of it: {worst[2]:.3g} against {worst[3]:.3g})",
+          flush=True)
+    if not abs(lk - lp) <= 1e-5 * abs(lp):
+        fail(f"dist {name} fp32 step over {backend}: seg_loss {lk} vs {lp}")
+
+
+def phase_dist(dev):
+    """Training and eval over the ranks of a process group (dist/process.py):
+    one NCCL rank (WORLD_SIZE=1) and two ranks on cuda:0 over gloo (NCCL
+    refuses two ranks on one card), each a process of its own (chip_smoke.py
+    --dist-worker), after the parent built the kernels and the TIFF decoder.
+    The ranks run cli.train_base on convnext_pop / convnext-t (bf16 --fused,
+    train_oem.sh's global batch 4 of 768^2 crops, AdamW at 1e-3, train_cli_run's
+    cut; the two ranks' weights bit-equal after every step; K1 18 a forward and
+    K2 1 a validation batch, per rank), one fp32 step of convnext_pop and of
+    swin_pop (DropPath live, BatchNorm in its decoder) held to one process's by
+    the step rule, and the gloo pair cli.ft_pop on swin_pop / swin-s --fused
+    (global batch 2: K3 24 and K1 24 a step and K2 1), cli.eval_base against
+    one process on DIST_EVAL_TILES tiles (at the ranks' per-process batch: the
+    confusion matrices equal but for argmax near-ties, agreement >= 99.99%; at
+    the global batch printed), and train_base --device-augment
+    (aug_fallback printed; a forced draw bitwise equal to the host pipeline on
+    the card).  The NCCL rank's group is initialised and its BatchNorm goes
+    through the all-reduce.  ms/step and max_memory_allocated per rank are
+    printed, not held: the ranks share one card.  Returns {path: launches}."""
+    import tempfile
+
+    import torch
+
+    from segland_tpu_torch import native
+    from segland_tpu_torch.data import augment as A
+    from segland_tpu_torch.data.tileio import read_image, read_label
+    from segland_tpu_torch.ops.device_aug import augment_forced
+
+    t_phase = time.time()
+    if native.get_lib() is None:
+        fail("dist: no native TIFF decoder")  # built here, before the ranks start
+    paths = {}
+    with tempfile.TemporaryDirectory() as root:
+        write_train_tiles(os.path.join(root, "train"))
+        write_ft_tiles(os.path.join(root, "ft"))
+        ev = os.path.join(root, "eval")
+        ids = write_eval_tiles(ev)
+        # a forced --device-augment draw on the card against the host pipeline, bit for bit
+        img = read_image(os.path.join(root, "train", "images", "tile_0.tif"))
+        lab = read_label(os.path.join(root, "train", "labels", "tile_0.tif")).astype(np.int32)
+        draws = [(0, 0, False, 0), (131, 7, True, 1), (256, 256, False, 2), (9, 200, True, 3)]
+        c = TRAIN_CROP
+        got_i, got_l = augment_forced(
+            torch.from_numpy(np.stack([img] * 4)).to(dev),
+            torch.from_numpy(np.stack([lab] * 4)).to(dev), (c, c), [d[:2] for d in draws],
+            [d[2] for d in draws], [d[3] for d in draws])
+        for i, (oy, ox, flip, k) in enumerate(draws):
+            hi, hl = img[oy:oy + c, ox:ox + c], lab[oy:oy + c, ox:ox + c]
+            if flip:
+                hi, hl = np.flip(hi, 1), np.flip(hl, 1)
+            hi, hl = np.rot90(hi, k, (0, 1)), np.rot90(hl, k, (0, 1))
+            hi = A.normalize(hi, A.OEM_TRAIN_MEAN, A.OEM_TRAIN_STD)
+            gi, gl = got_i[i].cpu().numpy(), got_l[i].cpu().numpy()
+            if not (np.array_equal(gi, hi) and np.array_equal(gl, hl)):
+                fail(f"dist: the device augmentation's draw {draws[i]} differs from the host "
+                     f"pipeline: {int((gi != hi).sum())} image values (largest "
+                     f"{float(np.abs(gi - hi).max()):.3g}), {int((gl != hl).sum())} labels")
+        print(f"dist: --device-augment's chain on the card equals the host pipeline bit for "
+              f"bit on {len(draws)} forced draws ({c}^2 crops of a {TILE}^2 tile)", flush=True)
+        del got_i, got_l
+        torch.cuda.empty_cache()
+
+        groups = {}
+        for backend in DIST_GROUPS:
+            groups[backend] = dist_spawn(root, backend)
+            torch.cuda.empty_cache()
+        smi = card()
+        (one,), t_one = groups["nccl"]
+        ranks, t_two = groups["gloo"]
+        if one["world"] != 1 or [r["world"] for r in ranks] != [2, 2]:
+            fail(f"dist: worlds {one['world']}, {[r['world'] for r in ranks]}")
+        # the NCCL rank's BatchNorm went through the all-reduce (swin_pop's decoder)
+        if not one["fp32"]["swin_pop"]["bn"] > 0 or not all(
+                r["fp32"]["swin_pop"]["bn"] > 0 for r in ranks):
+            fail(f"dist: BatchNorm's statistics were not all-reduced: "
+                 f"{[g['fp32']['swin_pop']['bn'] for g in [one] + ranks]}")
+        if ranks[0]["train"]["digests"] != ranks[1]["train"]["digests"]:
+            fail("dist: the two ranks' weights differ after a train step")
+        for name in DIST_STEP_MODELS:
+            if ranks[0]["fp32"][name]["digest"] != ranks[1]["fp32"][name]["digest"]:
+                fail(f"dist: the two ranks' {name} weights differ after the fp32 step")
+            got = [r["fp32"][name]["launches"] for r in [one] + ranks]
+            if any(g != TRAIN_MODELS[name] for g in got):
+                fail(f"dist {name} fp32 step launches {got}, want {TRAIN_MODELS[name]} a rank")
+        for job in ("train", "ft", "devaug"):
+            if ranks[0][job]["launches"] != ranks[1][job]["launches"]:
+                fail(f"dist {job}: the ranks' launches differ: "
+                     f"{[r[job]['launches'] for r in ranks]}")
+        want = {"ln_mlp": 18 * 3, "upsample_argmax": 3}, {"ln_mlp": 18 * 2, "upsample_argmax": 2}
+        if [r["eval"]["launches"] for r in ranks] != list(want):
+            fail(f"dist eval launches {[r['eval']['launches'] for r in ranks]}, want {want}")
+        for key, res, secs in (("nccl x1", [one], t_one), ("gloo x2", ranks, t_two)):
+            for r, rr in enumerate(res):
+                ms = rr["train"]["ms"][1:]  # the first step builds DDP's buckets
+                print(f"dist train convnext_pop ({key}, rank {r}): ms_per_step="
+                      f"{float(np.median(ms)):.2f} (median of {len(ms)}; min {min(ms):.2f} "
+                      f"max {max(ms):.2f}) max_memory_allocated="
+                      f"{rr['train']['peak'] / 2**30:.2f} GiB"
+                      + (f", ft swin_pop {rr['ft']['peak'] / 2**30:.2f} GiB" if "ft" in rr
+                         else "") + f" ({smi}; the ranks share the card)", flush=True)
+            print(f"dist {key}: the ranks' processes took {secs:.1f}s", flush=True)
+        print(f"dist --device-augment: aug_fallback a step {ranks[0]['devaug']['aug_fallback']}",
+              flush=True)
+        paths["convnext_pop train dist nccl x1"] = one["train"]["launches"]
+        for job, path in (("train", "convnext_pop train dist gloo x2"),
+                          ("ft", "swin_pop ft dist gloo x2"),
+                          ("eval", "convnext_pop eval_base dist gloo x2"),
+                          ("devaug", "convnext_pop train --device-augment dist gloo x2")):
+            paths[path] = {k: sum(r[job]["launches"].get(k, 0) for r in ranks)
+                           for k in ranks[0][job]["launches"]}
+
+        # eval: the ranks' confusion matrix and exports against one process's, held where the
+        # process runs the ranks' shapes (a tile a forward: each rank's share of a batch of 2),
+        # printed against one process at the global batch (bf16 rounds otherwise at batch 2)
+        for out, batch in (("one", 1), ("one_b2", 2)):
+            eval_base_run(ev, out, batch=batch)
+            eval_base_run(ev, out + "_nl", labelled=False, batch=batch)
+        for one, held in (("one", True), ("one_b2", False)):
+            same, agree, differ, beyond = eval_agreement(ev, ids, "ranks", one)
+            batch = 1 if held else 2
+            print(f"dist eval_base (gloo x2, {DIST_EVAL_TILES} {TILE}^2 tiles in global batches "
+                  f"of 2) vs one process at --eval-batch {batch}: confusion matrices "
+                  f"{'equal' if same else 'differ'}, agreement {100 * agree:.4f}%; exports: "
+                  f"{differ} pixels differ, {beyond} beyond near-ties"
+                  + ("" if held else " (printed, not held)"), flush=True)
+            if held and (beyond or agree < 0.9999):
+                fail(f"dist eval: {beyond} pixels differ beyond near-ties, agreement {agree}")
+
+        # the fp32 steps: each group's against one process's, by the step rule
+        img, mask = dist_batch(dev)
+        for name in DIST_STEP_MODELS:
+            model = train_step_model(torch.float32, name=name).to(dev)
+            ref = train_step_grads(model, img, mask)
+            perturbed = [train_step_grads(model, img * f, mask) for f in PERTURBED.values()]
+            for backend in DIST_GROUPS:
+                dist_hold_step(name, backend, root, ref, perturbed)
+            del model, ref, perturbed
+            torch.cuda.empty_cache()
+    print(f"dist phase: {time.time() - t_phase:.1f}s", flush=True)
+    return paths
+
+
 def main(argv=None):
     import argparse
 
@@ -3588,9 +4062,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,train,ft,swin,"
-                            "deeplab,pspnet,seghr,heads,ensemble",
+                            "deeplab,pspnet,seghr,heads,ensemble,dist",
                     help="comma list of k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,train,ft,"
-                         "swin,deeplab,pspnet,seghr,heads,ensemble (default: all twenty-one); "
+                         "swin,deeplab,pspnet,seghr,heads,ensemble,dist (default: all "
+                         "twenty-two); "
                          "profile: a "
                          "torch.profiler "
                          "breakdown of the swin and deeplab_pop slices; dilated: cuDNN vs the "
@@ -3743,6 +4218,9 @@ def main(argv=None):
     if "ensemble" in phases:
         paths.update(phase_ensemble(dev))
         torch.cuda.empty_cache()
+    if "dist" in phases:
+        paths.update(phase_dist(dev))
+        torch.cuda.empty_cache()
 
     if "profile" in phases:
         phase_profile(dev)
@@ -3768,6 +4246,8 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:  # a rank of phase_dist, started by the script
+        sys.exit(dist_worker(*sys.argv[2:]))
     t0 = time.time()
     rc = main()
     print(f"chip_smoke: {time.time() - t0:.1f}s", file=sys.stderr)

@@ -5,17 +5,25 @@ segland_tpu/ckpt/io.py for torch: no msgpack or orbax files.
     which ``--resume-from`` restores (model, optimizer, the LR's count, epoch);
   * ``best.pth``: a plain upstream-keyed state dict, which the port's
     ``eval_base`` and the JAX package's ``load_torch_checkpoint`` both read.
+
+Under a process group rank 0 alone writes (every rank holds the same
+weights), and every rank waits for the file at a barrier, so that any rank
+can read it next (``--resume-from``, eval).
 """
 
 import os
 
 import torch
 
+from .. import dist
 
-def _save(obj, path: str):
-    tmp = f"{path}.tmp{os.getpid()}"
-    torch.save(obj, tmp)
-    os.replace(tmp, path)
+
+def _save(make, path: str):
+    if dist.is_main():
+        tmp = f"{path}.tmp{os.getpid()}"
+        torch.save(make(), tmp)
+        os.replace(tmp, path)
+    dist.barrier()
 
 
 def _cpu(sd: dict) -> dict:
@@ -23,12 +31,12 @@ def _cpu(sd: dict) -> dict:
 
 
 def save_params(path: str, model: torch.nn.Module):
-    _save(_cpu(model.state_dict()), path)
+    _save(lambda: _cpu(model.state_dict()), path)
 
 
 def save_checkpoint(path: str, state):
-    _save({"state_dict": _cpu(state.model.state_dict()), "optimizer": state.tx.state_dict(),
-           "epoch": state.epoch}, path)
+    _save(lambda: {"state_dict": _cpu(state.model.state_dict()),
+                   "optimizer": state.tx.state_dict(), "epoch": state.epoch}, path)
 
 
 def load_checkpoint(path: str, state):

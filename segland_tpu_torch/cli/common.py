@@ -57,6 +57,27 @@ def add_common_args(p: argparse.ArgumentParser):
     return p
 
 
+def add_dist_args(p: argparse.ArgumentParser):
+    """The process group's flag.  The group itself comes from the launcher's
+    environment (torchrun: WORLD_SIZE, RANK, LOCAL_RANK, MASTER_ADDR,
+    MASTER_PORT; ``dist/process.py``); without WORLD_SIZE the run is one
+    process, as before."""
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="the process group's backend under WORLD_SIZE (default: nccl on "
+                        "CUDA, gloo on the CPU; two ranks on one card need gloo)")
+    return p
+
+
+def check_global_batch(batch: int, what: str = "--batch-size"):
+    """The global batch must split evenly over the processes, as over the
+    JAX package's data mesh."""
+    from .. import dist
+
+    if batch % dist.world():
+        raise ValueError(f"the global {what} {batch} does not divide by the {dist.world()} "
+                         f"processes")
+
+
 # Eval defaults of --fused, from chip_smoke.py on the card (NVIDIA H100 80GB
 # HBM3, 700.00 W; bf16, 2 batches of 8 1024^2 tiles after a warm-up run), which
 # runs each model three ways: fused kernels, the kernels' plain versions, and

@@ -1,5 +1,5 @@
-"""Ensemble evaluation on one device (the contest configuration as one
-program).  Port of segland_tpu/cli/ensemble_eval.py.
+"""Ensemble evaluation (the contest configuration as one program).  Port of
+segland_tpu/cli/ensemble_eval.py.
 
 The reference's ensemble is a 3-stage host pipeline: eval each model with
 prob export (eval_base.py:190-191), average the .mat maps (fusemat.py), and
@@ -17,7 +17,9 @@ Each member's ``--fused`` is the eval default of its model and dtype
 (``cli/common.py:EVAL_FUSED_DEFAULTS``) unless ``--fused`` / ``--no-fused`` is
 given.  ``--base-classes`` sets every member's base classes.  With GT labels:
 the confusion matrix (``cmatrix_ensemble.npy``) and mIoU.  Without:
-colormapped GTiff predictions.
+colormapped GTiff predictions.  Over several processes (``torchrun
+--nproc_per_node N -m segland_tpu_torch.cli.ensemble_eval ...``) each runs
+its share of each batch, as ``cli.eval_base`` does.
 """
 
 import argparse
@@ -26,7 +28,8 @@ import os
 import numpy as np
 import torch
 
-from .common import add_common_args, full_fp32, parse_hw, resolve_fused
+from .. import dist
+from .common import add_common_args, add_dist_args, full_fp32, parse_hw, resolve_fused
 from ..ckpt import load_pth
 from ..data import Loader, OEMValDataset
 from ..data.tileio import OEM_COLORMAP, write_pred_tiff
@@ -40,6 +43,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def get_parser():
     p = argparse.ArgumentParser(description="segland_tpu_torch ensemble eval")
     add_common_args(p)
+    add_dist_args(p)
     p.add_argument("--members", required=True,
                    help="comma list of model:backbone:ckpt[:dtype] specs")
     p.add_argument("--save-path", type=str, default="output")
@@ -72,8 +76,8 @@ def _load_member(spec, args, device, logger):
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
-    logger = get_logger()
-    device = torch.device(args.device)
+    device = dist.init_from_env(args.device, args.dist_backend)
+    logger = get_logger(rank=dist.rank())
     crop = parse_hw(args.base_size)
     members, dtypes = zip(*(_load_member(s, args, device, logger)
                             for s in args.members.split(",")))
@@ -82,13 +86,15 @@ def main(argv=None):
     valset = OEMValDataset(args.data_dir, args.val_list, base_size=crop,
                            use_novel=True, use_base=True, stats=args.norm_stats)
     loader = Loader(valset, args.eval_batch or 1, shuffle=False, drop_last=False,
+                    process_index=dist.rank(), process_count=dist.world(),
                     num_workers=args.num_workers)
     ens = EnsembleEvaluator(members, device, num_classes=args.num_classes,
                             n_base=args.base_classes, ignore_label=args.ignore_label)
     os.makedirs(args.save_path, exist_ok=True)
     if valset[0][1] is not None:
         cm, (base, novel, total, iou), tps = ens.run(loader, logger=logger)
-        np.save(os.path.join(args.save_path, "cmatrix_ensemble.npy"), cm)
+        if dist.is_main():
+            np.save(os.path.join(args.save_path, "cmatrix_ensemble.npy"), cm)
         logger.info(f"ensemble meanIoU---base: mIoU {base:.4f}.")
         logger.info(f"ensemble meanIoU---novel: mIoU {novel:.4f}.")
         logger.info(f"ensemble meanIoU---total: mIoU {total:.4f}.")

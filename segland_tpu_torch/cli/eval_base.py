@@ -17,6 +17,12 @@ ResNet bottlenecks without a downsample each run as one kernel launch.
 ``--is-ft`` (what ``cli.eval_ft`` appends) evaluates a fine-tuned base+novel
 model: a run per seed, square-longside logits against ignore-padded labels,
 the saturated novel colormap, no .mat export.
+
+Over several processes (``torchrun --nproc_per_node N -m
+segland_tpu_torch.cli.eval_base ...``) each process runs its contiguous share
+of each --eval-batch tiles, writes the exports of its own tiles, and the
+confusion matrices are summed, so every rank reports the same mIoU; rank 0
+writes ``cmatrix_<seed>.npy``.  --int8 runs in one process.
 """
 
 import argparse
@@ -25,7 +31,9 @@ import os
 import numpy as np
 import torch
 
-from .common import add_common_args, full_fp32, model_dtype, parse_hw, resolve_fused, str2bool
+from .. import dist
+from .common import (add_common_args, add_dist_args, full_fp32, model_dtype, parse_hw,
+                     resolve_fused, str2bool)
 from ..ckpt import load_pth
 from ..data import Loader, OEMValDataset
 from ..data import augment as A
@@ -38,6 +46,7 @@ from ..utils import get_logger
 def get_parser():
     p = argparse.ArgumentParser(description="segland_tpu_torch base evaluation")
     add_common_args(p)
+    add_dist_args(p)
     p.add_argument("--save-path", type=str, default="output")
     p.add_argument("--is-ft", action="store_true", help="evaluate a fine-tuned (base+novel) model")
     p.add_argument("--eval-batch", type=int, default=None,
@@ -64,8 +73,8 @@ def get_parser():
 def main(argv=None):
     args = get_parser().parse_args(argv)
     fused = resolve_fused(args)
-    logger = get_logger()
-    device = torch.device(args.device)
+    device = dist.init_from_env(args.device, args.dist_backend)
+    logger = get_logger(rank=dist.rank())
     if args.dtype == "float32":
         full_fp32()
     crop = parse_hw(args.base_size)
@@ -80,6 +89,7 @@ def main(argv=None):
                            use_novel=True, use_base=True,
                            device_normalize=args.device_normalize, stats=args.norm_stats)
     loader = Loader(valset, args.eval_batch or 1, shuffle=False, drop_last=False,
+                    process_index=dist.rank(), process_count=dist.world(),
                     num_workers=args.num_workers)
     ev_mean, ev_std = A.STATS[args.norm_stats]
     quant_cfg = None
@@ -122,7 +132,8 @@ def main(argv=None):
             loader, save_path=save_path, prob_path=prob_path, data_root=args.data_dir,
             colormap=OEM_COLORMAP_FT if args.is_ft else OEM_COLORMAP,
             square_pad_eval=args.is_ft, logger=logger)
-        np.save(os.path.join(args.save_path, f"cmatrix_{seed}.npy"), cm)
+        if dist.is_main():
+            np.save(os.path.join(args.save_path, f"cmatrix_{seed}.npy"), cm)
         logger.info(f">>>>>>> Current Seed {seed}: <<<<<<<")
         logger.info(f"meanIoU---base: mIoU {base:.4f}.")
         logger.info(f"meanIoU---novel: mIoU {novel:.4f}.")

@@ -21,8 +21,12 @@ and total mIoU) and writes ``best_<seed>.pth`` (upstream keys) where the base
 mIoU improved, which ``cli.eval_ft`` and the JAX package's
 ``load_torch_checkpoint`` read.  --update-base resamples the base samples every
 --update-epoch epochs.  Every POP model of the registry fine-tunes; the
-plain ``pspnet`` has no POP head, and raises as the JAX CLI fails on it.  More
-than one process (DDP) is ROADMAP A4c and raises.
+plain ``pspnet`` has no POP head, and raises as the JAX CLI fails on it.
+Over several processes (``torchrun --nproc_per_node N -m
+segland_tpu_torch.cli.ft_pop ...``, the global --batch-size divisible by N)
+each process takes its share of each global batch of episodes, the head's
+gradients are averaged, the validation's sums are summed over the ranks and
+rank 0 writes ``best_<seed>.pth``.
 """
 
 import argparse
@@ -31,9 +35,9 @@ import os
 import numpy as np
 import torch
 
-from .common import (add_common_args, add_train_args, full_fp32, model_dtype, parse_hw,
-                     resolve_fused, str2bool, to_device)
-from .train_base import A4C
+from .. import dist
+from .common import (add_common_args, add_dist_args, add_train_args, check_global_batch,
+                     full_fp32, model_dtype, parse_hw, resolve_fused, str2bool, to_device)
 from ..ckpt import load_pth, save_params
 from ..data import Loader, OEMFtTrainDataset, OEMValDataset
 from ..models import build_model
@@ -46,6 +50,7 @@ def get_parser():
     p = argparse.ArgumentParser(description="segland_tpu_torch novel-class fine-tuning")
     add_common_args(p)
     add_train_args(p)
+    add_dist_args(p)
     p.add_argument("--momentum", type=float, default=0.9)
     p.add_argument("--filter-novel", action="store_true", default=False,
                    help="restrict the base samples to novel-free tiles, lists read from "
@@ -59,15 +64,12 @@ def get_parser():
 
 
 def check_trainable(args):
-    """Raise for what the port cannot fine-tune (yet: naming the ROADMAP item)."""
+    """Raise for what the port cannot fine-tune."""
     if "pop" not in args.model:
         # the JAX CLI gets as far as make_ft_train_step, which reads the model class's
         # forward_novel (segland_tpu/train/ft.py:53) and raises AttributeError there
         raise ValueError(f"{args.model} has no POP head and no forward_novel, which the "
                          f"fine-tune step runs: the JAX package's ft_pop fails on it too")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise ValueError(f"fine-tuning over more than one process (DDP) is not ported yet "
-                         f"(ROADMAP {A4C})")
 
 
 def main(argv=None):
@@ -76,15 +78,17 @@ def main(argv=None):
     args = get_parser().parse_args(argv)
     check_trainable(args)
     fused = resolve_fused(args, "ft")
-    device = torch.device(args.device)
+    device = dist.init_from_env(args.device, args.dist_backend)
+    check_global_batch(args.batch_size)
     if args.dtype == "float32":
         full_fp32()
     writer = None
     if args.metrics:
-        writer, logger = prep_experiment(args.snapshot_dir, argv, need_writer=True)
+        writer, logger = prep_experiment(args.snapshot_dir, argv, rank=dist.rank(),
+                                         need_writer=True)
     else:
-        logger = prep_experiment(args.snapshot_dir, argv)
-    logger.info(f"device: {device} | fused: {fused}")
+        logger = prep_experiment(args.snapshot_dir, argv, rank=dist.rank())
+    logger.info(f"device: {device} | processes: {dist.world()} | fused: {fused}")
     results = {}
     for seed_str in args.random_seed.split(","):
         seed = int(seed_str)
@@ -102,9 +106,11 @@ def run_seed(args, seed, fused, device, logger, writer=None):
     valset = OEMValDataset(args.data_dir, args.val_list, base_size=parse_hw(args.base_size),
                            resize_label=True, use_novel=True, use_base=True,
                            stats=args.norm_stats)
+    rank, world = dist.rank(), dist.world()
     train_loader = Loader(trainset, args.batch_size, shuffle=True, drop_last=True, seed=seed,
-                          num_workers=args.num_workers)
-    val_loader = Loader(valset, args.test_batch_size, shuffle=False)
+                          process_index=rank, process_count=world, num_workers=args.num_workers)
+    val_loader = Loader(valset, args.test_batch_size, shuffle=False, process_index=rank,
+                        process_count=world)
 
     model = build_model(args.model, backbone=args.backbone, n_base=n_base, n_novel=n_novel,
                         is_ft=True, os=args.output_stride, dtype=model_dtype(args),
@@ -167,16 +173,17 @@ def run_seed(args, seed, fused, device, logger, writer=None):
 def validate_ft(eval_step, val_loader, device, num_classes: int, n_base: int):
     """(base, novel, total) mIoU: summed intersection / max(summed union, 1)
     per class, averaged over classes [0, n_base], (n_base, K) and all
-    (segland_tpu/cli/ft_pop.py:151-163).  Unlabelled batches are skipped."""
-    inter = np.zeros(num_classes)
-    union = np.zeros(num_classes)
+    (segland_tpu/cli/ft_pop.py:151-163).  Unlabelled batches are skipped.
+    Under a process group the sums are summed over the ranks."""
+    sums = torch.zeros((2, num_classes), dtype=torch.float64, device=device)
     for img, mask, _ in val_loader:
         if mask is None or (isinstance(mask, list) and mask[0] is None):
             continue
         mask = np.stack(mask, 0) if isinstance(mask, list) else np.asarray(mask)
         i, u, _ = eval_step(to_device(img, device), to_device(mask, device))
-        inter += i.cpu().numpy()
-        union += u.cpu().numpy()
+        sums[0] += i.double()
+        sums[1] += u.double()
+    inter, union = dist.all_reduce_sum(sums, group=dist.stats_group()).cpu().numpy()
     iou = inter / np.maximum(union, 1)
     return (float(np.mean(iou[: n_base + 1])), float(np.mean(iou[n_base + 1:])),
             float(np.mean(iou)))

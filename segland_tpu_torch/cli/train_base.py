@@ -17,32 +17,46 @@ the CE loss and its aux head (the JAX CLI's pick: "pop" in the name or not);
 the default of --fused is TRAIN_FUSED_DEFAULTS'.
 Snapshots ``epoch_N.pth`` every --snapshot-frequency epochs, validates after
 --val-start every --val-frequency epochs through the ``Evaluator`` (K2 on the
-card) and keeps the best as ``best.pth``.  Still to come, and raising here:
---device-augment and more than one process (DDP) are ROADMAP A4c.
+card) and keeps the best as ``best.pth``.
+
+More than one process, one a device, as torchrun launches them (the JAX
+package's data mesh):
+
+    torchrun --nproc_per_node 4 -m segland_tpu_torch.cli.train_base ... --batch-size 8
+
+The global --batch-size divides by the process count; each process loads its
+share of each global batch, DistributedDataParallel averages the gradients,
+BatchNorm takes the global batch's statistics, and rank 0 writes the
+snapshots, ``best.pth`` and the logs.  --device-augment ships the raw uint8
+tiles (each brought to --base-size) and crops, pads, flips, rotates and
+normalizes them on the device inside the step (``ops/device_aug.py``).
 """
 
 import argparse
+import functools
+import inspect
 import os
 
 import numpy as np
 import torch
 
-from .common import (add_common_args, add_train_args, full_fp32, model_dtype, parse_hw,
-                     resolve_fused, to_device)
+from .. import dist
+from .common import (add_common_args, add_dist_args, add_train_args, check_global_batch,
+                     full_fp32, model_dtype, parse_hw, resolve_fused, to_device)
 from ..ckpt import load_checkpoint, load_pth, save_checkpoint, save_params
 from ..data import DATASETS, Loader
 from ..evallib.infer import Evaluator
 from ..models import build_model
+from ..ops.device_aug import base_train_augment
 from ..train import TrainState, create_optimizer, make_base_train_step
 from ..utils import format_loss_dict, prep_experiment
-
-A4C = "A4c"
 
 
 def get_parser():
     p = argparse.ArgumentParser(description="segland_tpu_torch base training")
     add_common_args(p)
     add_train_args(p)
+    add_dist_args(p)
     p.add_argument("--resume-from", type=str, default=None,
                    help="epoch_N.pth to resume from (model, optimizer, LR count, epoch)")
     p.add_argument("--skip-nonfinite", action=argparse.BooleanOptionalAction, default=True,
@@ -52,19 +66,21 @@ def get_parser():
                    help="replicate the reference's double optimizer.step quirk "
                         "(train_base.py:262-264)")
     p.add_argument("--device-augment", action="store_true",
-                   help=f"augment on the device: not ported yet (ROADMAP {A4C}); raises")
+                   help="crop, pad, flip, rot90 and normalize on the device inside the step: "
+                        "uint8 tiles (each brought to --base-size) cross to it, the crop's "
+                        "retry is bounded (ops/device_aug.py)")
     p.add_argument("--metrics", action="store_true",
                    help="write train/val scalars to <snapshot-dir>/metrics.jsonl")
     return p
 
 
 def check_trainable(args):
-    """Raise, naming the ROADMAP item, for what this port cannot train yet."""
-    if args.device_augment:
-        raise ValueError(f"--device-augment is not ported yet (ROADMAP {A4C})")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise ValueError(f"training over more than one process (DDP) is not ported yet "
-                         f"(ROADMAP {A4C})")
+    """Raise for what train_base does not train."""
+    train_ds = DATASETS[args.dataset][0]
+    if args.device_augment and "device_augment" not in inspect.signature(train_ds).parameters:
+        # as the JAX CLI refuses it (segland_tpu/cli/train_base.py:77-84)
+        raise ValueError(f"--device-augment is not supported by dataset {args.dataset!r} (it has "
+                         f"no raw-tile path); drop the flag")
     if args.dataset != "oem":  # oem_ft's items are (novel, base) pairs
         raise ValueError(f"dataset {args.dataset!r} is the fine-tune's: train_base reads 'oem', "
                          f"cli.ft_pop fine-tunes (ROADMAP A5)")
@@ -74,25 +90,31 @@ def main(argv=None):
     args = get_parser().parse_args(argv)
     check_trainable(args)
     fused = resolve_fused(args, "train")
-    device = torch.device(args.device)
+    device = dist.init_from_env(args.device, args.dist_backend)
+    check_global_batch(args.batch_size)
+    rank, world = dist.rank(), dist.world()
     if args.dtype == "float32":
         full_fp32()
     writer = None
     if args.metrics:
-        writer, logger = prep_experiment(args.snapshot_dir, argv, need_writer=True)
+        writer, logger = prep_experiment(args.snapshot_dir, argv, rank=rank, need_writer=True)
     else:
-        logger = prep_experiment(args.snapshot_dir, argv)
+        logger = prep_experiment(args.snapshot_dir, argv, rank=rank)
 
     seed = int(args.random_seed.split(",")[0])
     crop = parse_hw(args.input_size)
     n_base = args.base_classes
     TrainDS, ValDS = DATASETS[args.dataset]
-    trainset = TrainDS(args.data_dir, args.train_list, crop_size=crop, seed=seed)
+    extra = {}
+    if args.device_augment:
+        extra = dict(device_augment=True, device_tile_size=parse_hw(args.base_size))
+    trainset = TrainDS(args.data_dir, args.train_list, crop_size=crop, seed=seed, **extra)
     valset = ValDS(args.data_dir, args.val_list, use_novel=False, use_base=True,
                    stats=args.norm_stats)
     train_loader = Loader(trainset, args.batch_size, shuffle=True, drop_last=True, seed=seed,
-                          num_workers=args.num_workers)
-    val_loader = Loader(valset, args.test_batch_size, shuffle=False)
+                          process_index=rank, process_count=world, num_workers=args.num_workers)
+    val_loader = Loader(valset, args.test_batch_size, shuffle=False, process_index=rank,
+                        process_count=world)
 
     model = build_model(args.model, backbone=args.backbone, n_base=n_base,
                         os=args.output_stride, dtype=model_dtype(args), fused_mlp=fused,
@@ -112,13 +134,18 @@ def main(argv=None):
         load_checkpoint(args.resume_from, state)
         logger.info(f"resumed from {args.resume_from} at epoch {state.epoch}")
     loss_name = "orth" if "pop" in args.model else "ce"  # segland_tpu/cli/train_base.py:103
+    augment_fn = None
+    if args.device_augment:
+        augment_fn = functools.partial(base_train_augment, crop_size=crop,
+                                       ignore_label=args.ignore_label)
     train_step = make_base_train_step(model, loss_name, double_step=args.double_step,
                                       skip_nonfinite=args.skip_nonfinite, seed=seed,
-                                      fix_bn=args.fix_bn)
+                                      fix_bn=args.fix_bn, augment_fn=augment_fn)
     evaluator = Evaluator(model, device, num_classes=1 + n_base, n_base=n_base,
                           ignore_label=args.ignore_label)
 
-    logger.info(f"device: {device} | fused: {fused} | steps/epoch: {steps_per_epoch}")
+    logger.info(f"device: {device} | processes: {world} | fused: {fused} | "
+                f"steps/epoch: {steps_per_epoch}")
     best_miou, best_epoch = 0.0, 0
     global_it = state.epoch * steps_per_epoch
     for epoch in range(state.epoch, args.num_epoch):

@@ -4,7 +4,11 @@ segland_tpu/data/loader.py.
 
 With several processes, pass process_index/process_count and each process
 loads its contiguous shard of the global batch (the DistributedSampler
-equivalent).  ``drop_last`` matches the reference train loader.
+equivalent).  ``drop_last`` matches the reference train loader, whose global
+batch must divide by the process count.  Without it (eval) a process's share
+is ceil(batch / count) rows, as the JAX mesh shards a batch padded to it, so
+a short batch may leave a process a short share or none: it then skips that
+batch.
 """
 
 import queue
@@ -44,9 +48,9 @@ class Loader:
         # intra-batch parallel decode (PIL/rasterio release the GIL);
         # replaces torch DataLoader workers (reference engine.py:81-96)
         self.num_workers = num_workers
-        if batch_size % process_count != 0:
+        if drop_last and batch_size % process_count != 0:
             raise ValueError("global batch must divide process count")
-        self.local_batch = batch_size // process_count
+        self.local_batch = -(-batch_size // process_count)
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
@@ -60,7 +64,9 @@ class Loader:
         for b in range(n_batches):
             chunk = idx[b * self.batch_size : (b + 1) * self.batch_size]
             lo = self.process_index * self.local_batch
-            yield chunk[lo : lo + self.local_batch]
+            share = chunk[lo : lo + self.local_batch]
+            if share:
+                yield share
 
     def __len__(self):
         n = len(self.dataset)

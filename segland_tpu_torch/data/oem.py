@@ -24,21 +24,22 @@ class OEMTrainDataset:
     """Base-training dataset (reference GFSSegTrain, oem.py:12-76).
 
     Pipeline: crop -> pad -> flip -> rot90 -> normalize(0.5, 0.5, 0.5).  The
-    list is ``train.txt`` beside ``list_path``, as upstream reads it.  The
-    JAX package's ``device_augment`` (the raw tiles, augmented inside the
-    step) is ROADMAP A4c here and raises."""
+    list is ``train.txt`` beside ``list_path``, as upstream reads it.  With
+    ``device_augment`` an item is the raw uint8 tile and its label, which the
+    train step augments on the device (``ops/device_aug.py``): every tile is
+    brought to ``device_tile_size`` so that a batch stacks to one shape (a
+    smaller tile padded, image 0 and label ignore; a larger one raises)."""
 
     num_classes = NUM_CLASSES
 
     def __init__(self, root: str, list_path: str, crop_size=(512, 512),
-                 ignore_label: int = 255, seed: int = 123, device_augment: bool = False):
-        if device_augment:
-            raise NotImplementedError(
-                "device_augment (the augmentations on the device) is not ported yet "
-                "(ROADMAP item A4c)")
+                 ignore_label: int = 255, seed: int = 123, device_augment: bool = False,
+                 device_tile_size=(1024, 1024)):
         self.root = root
         self.crop_size = tuple(crop_size)
         self.ignore_label = ignore_label
+        self.device_augment = device_augment
+        self.device_tile_size = tuple(device_tile_size)
         train_list = os.path.join(os.path.dirname(list_path), "train.txt")
         if not os.path.exists(train_list):
             raise FileNotFoundError(train_list)
@@ -58,12 +59,26 @@ class OEMTrainDataset:
         tid = self.data_list[index]
         image = read_image(osp.join(self.root, "images", f"{tid}.tif"))
         label = read_label(osp.join(self.root, "labels", f"{tid}.tif")).astype(np.int32)
+        if self.device_augment:
+            return self._raw_tile(tid, image, label)
         image, label = A.crop_train(self.nprng, image, label, self.crop_size, self.ignore_label)
         image, label = A.pad(self.crop_size, image, label, self.ignore_label)
         image, label = A.random_flip(self.rng, image, label)
         image, label = A.fixed_random_rotate(self.rng, image, label)
         image = A.normalize(image, A.OEM_TRAIN_MEAN, A.OEM_TRAIN_STD)
         return np.ascontiguousarray(image), np.ascontiguousarray(label), tid
+
+    def _raw_tile(self, tid, image, label):
+        """The tile at ``device_tile_size`` (segland_tpu/data/oem.py:62-75)."""
+        (h, w), (th, tw) = label.shape, self.device_tile_size
+        if h > th or w > tw:
+            raise ValueError(f"tile {tid} is {(h, w)}, larger than device_tile_size {(th, tw)}: "
+                             "--device-augment needs a uniform raw tile shape; raise "
+                             "device_tile_size or use the host augmentations")
+        if h < th or w < tw:
+            image = np.pad(image, ((0, th - h), (0, tw - w), (0, 0)))
+            label = np.pad(label, ((0, th - h), (0, tw - w)), constant_values=self.ignore_label)
+        return (np.ascontiguousarray(image.astype(np.uint8)), np.ascontiguousarray(label), tid)
 
 
 class OEMValDataset:

@@ -1,4 +1,4 @@
-"""Ensemble serving on one device: every member runs on the same batch, the
+"""Ensemble serving: every member runs on the same batch, the
 members' logits are summed on the device, and only the uint8 argmax leaves
 it.  Port of segland_tpu/evallib/ensemble.py.
 
@@ -12,7 +12,6 @@ then the argmax (the mean's 1/N cannot change the argmax).
 import time
 from typing import Optional, Sequence
 
-import numpy as np
 import torch
 
 from ..metrics import confusion_matrix, miou_from_cmatrix
@@ -27,7 +26,9 @@ class EnsembleEvaluator(Staging):
     in eval mode; they run on the same normalized batch and their logits are
     bilinear-upsampled (align_corners=True, the eval protocol) to the output
     size, summed and argmaxed.  ``plain_kernels=True`` runs every kernel's
-    plain version, as in ``Evaluator``.  One device: no mesh."""
+    plain version, as in ``Evaluator``.  Under a process group each rank runs
+    its share of each batch and ``run`` sums the confusion matrices over the
+    ranks, as ``Evaluator`` does."""
 
     def __init__(self, members: Sequence[torch.nn.Module], device, num_classes: int = 12,
                  n_base: int = 7, ignore_label: int = 255, normalize_on_device: bool = False,
@@ -100,8 +101,7 @@ class EnsembleEvaluator(Staging):
             pred = self.predict_batch(staged, gt.shape[-2:])
             cm_dev += confusion_matrix(gt, pred, self.num_classes, self.ignore_label)
             n_tiles += len(ids)
-        cm = cm_dev.cpu().numpy().astype(np.float64)
-        dt = time.perf_counter() - t0
+        cm, n_tiles, dt = self._across_ranks(cm_dev, n_tiles, t0)
         base, novel, total, iou = miou_from_cmatrix(cm, self.n_base)
         if logger:
             logger.info(f"ensemble eval: {n_tiles} tiles in {dt:.1f}s "

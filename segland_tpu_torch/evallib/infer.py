@@ -1,10 +1,16 @@
 """Whole-tile batched inference, confusion matrix on the device, export.
 
-Port of segland_tpu/evallib/infer.py for one device.  Batches arrive as
-[B,H,W,3] arrays (uint8 with ``normalize_on_device``, else normalized
-float32); logits are upsampled to label size with align_corners=True and
-argmaxed on the device (eval_base.py:168).  The mIoU path runs the fused
-epilogue (kernel K2 on CUDA) and only uint8 class maps ever exist.
+Port of segland_tpu/evallib/infer.py.  Batches arrive as [B,H,W,3] arrays
+(uint8 with ``normalize_on_device``, else normalized float32); logits are
+upsampled to label size with align_corners=True and argmaxed on the device
+(eval_base.py:168).  The mIoU path runs the fused epilogue (kernel K2 on
+CUDA) and only uint8 class maps ever exist.
+
+Under a process group each rank runs its share of each global batch (the
+``Loader``'s process shards, as the JAX mesh shards a batch), writes the
+exports of its own tiles, and the confusion matrices and tile counts are
+summed over the ranks at the end of ``run``, so every rank reports the same
+mIoU.
 """
 
 import os
@@ -16,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import dist
 from ..metrics import confusion_matrix, miou_from_cmatrix
 from ..ops import plain_versions
 from ..ops.fused_epilogue import upsample_argmax
@@ -41,6 +48,15 @@ class Staging:
         self._mean = torch.tensor(mean, dtype=torch.float32, device=self.device)
         self._std = torch.tensor(std, dtype=torch.float32, device=self.device)
         self.plain_kernels = plain_kernels
+
+    def _across_ranks(self, cm_dev, n_tiles: int, t0: float):
+        """(confusion matrix summed over the ranks as float64 numpy, tiles over
+        the ranks, seconds): the ranks wait for each other here."""
+        n = torch.tensor([n_tiles], dtype=torch.int64, device=self.device)
+        dist.all_reduce_sum(cm_dev, group=dist.stats_group())
+        dist.all_reduce_sum(n, group=dist.stats_group())
+        cm = cm_dev.cpu().numpy().astype(np.float64)
+        return cm, int(n), time.perf_counter() - t0
 
     def _pre(self, img):
         """[B,H,W,3] on the device -> normalized NCHW fp32 (channels-last)."""
@@ -144,6 +160,11 @@ class Evaluator(Staging):
                          std, plain_kernels)
         self.model = model.to(self.device).eval()
         self.int8 = int8
+        if int8 and dist.world() > 1:
+            # the calibration's running abs-max would be each rank's own; the JAX
+            # package calibrates on the whole global batch
+            raise ValueError("int8 calibration over more than one process is not supported: "
+                             "run --int8 in one process")
         if int8:
             from ..quant import DEFAULT_CONFIG, ActScales, quantized_apply
 
@@ -242,8 +263,7 @@ class Evaluator(Staging):
                         write_prob_mat(os.path.join(prob_path, f"{tid}.mat"),
                                        np.transpose(logits_np[i], (2, 0, 1))[None])
             n_tiles += len(ids)
-        cm = cm_dev.cpu().numpy().astype(np.float64)
-        dt = time.perf_counter() - t0
+        cm, n_tiles, dt = self._across_ranks(cm_dev, n_tiles, t0)
         base, novel, total, iou = miou_from_cmatrix(cm, self.n_base)
         if logger:
             logger.info(f"eval: {n_tiles} tiles in {dt:.1f}s "

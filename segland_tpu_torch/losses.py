@@ -3,11 +3,14 @@ segland_tpu/losses.py (reference loss/criterion.py): CELoss (optionally +
 0.4 * aux) and OrthLoss (CE + 10 * mean |upper triangle| of the prototype
 cosine matrix).  Logits are [B, h, w, K], the JAX package's layout, and are
 bilinearly upsampled to the label size with align_corners=True before the
-CE (loss/criterion.py:18,51).
+CE (loss/criterion.py:18,51).  Under a process group the CE is the global
+batch's mean (``cross_entropy``); the orth term is replicated and stays as
+it is.
 """
 
 import torch
 
+from .dist import all_reduce_sum, stats_group, world
 from .ops.resize import resize_bilinear
 
 ORTH_WEIGHT = 10.0  # reference loss/criterion.py:35
@@ -24,8 +27,19 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     valid = (labels != ignore_index) & (labels >= 0) & (labels < logits.shape[-1])
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     nll = -torch.log_softmax(logits, -1).gather(-1, safe[..., None])[..., 0]
-    count = valid.sum().clamp_min(1)
-    return torch.where(valid, nll, torch.zeros_like(nll)).sum() / count
+    total = torch.where(valid, nll, torch.zeros_like(nll)).sum()
+    group = stats_group()
+    if group is None:
+        return total / valid.sum().clamp_min(1)
+    # Under a process group the mean is the global batch's: the sum over every rank's
+    # pixels over their global count (segland_tpu/losses.py:32-33 under GSPMD).  DDP
+    # averages the ranks' gradients, so each rank differentiates its own sum over the
+    # global count times the world size; the value returned is the global mean.
+    sums = all_reduce_sum(torch.stack([total.detach().double(), valid.sum().double()]),
+                          group=group)
+    count = sums[1].clamp_min(1)
+    scaled = total / count.float() * world()
+    return scaled + ((sums[0] / count).float() - scaled).detach()
 
 
 def _upsampled_ce(logits, labels, ignore_index):

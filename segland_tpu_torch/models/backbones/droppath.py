@@ -43,9 +43,15 @@ def step_seed(seed: int, step: int) -> int:
 
 
 @contextlib.contextmanager
-def dropout_generator(generator: torch.Generator):
-    """Every mask drawn inside comes from ``generator``, in forward order."""
-    token = _GENERATOR.set(generator)
+def dropout_generator(generator: torch.Generator, shard=(0, 1)):
+    """Every mask drawn inside comes from ``generator``, in forward order.
+
+    ``shard`` (index, count): the forward sees share ``index`` of ``count``
+    equal shares of a global batch (a rank of a process group).  Each mask is
+    then drawn for the global batch and this share's rows are taken, so the
+    masks do not depend on the process count, as a JAX key split over the
+    global batch does not."""
+    token = _GENERATOR.set((generator, tuple(shard)))
     try:
         yield generator
     finally:
@@ -54,8 +60,8 @@ def dropout_generator(generator: torch.Generator):
 
 def keep_mask(shape, rate: float, device) -> torch.Tensor:
     """A bool mask of ``shape`` on ``device``, True with probability 1 - rate,
-    from the generator of :func:`dropout_generator`."""
-    g = _GENERATOR.get()
+    from the generator of :func:`dropout_generator`; its dim 0 is the batch's."""
+    g, (index, count) = _GENERATOR.get() or (None, (0, 1))
     if g is None:
         raise RuntimeError(
             "a training forward with a drop rate above 0 draws its masks from the step's "
@@ -64,7 +70,11 @@ def keep_mask(shape, rate: float, device) -> torch.Tensor:
     device = torch.device(device)
     if g.device.type != device.type:
         raise ValueError(f"the dropout generator is on {g.device}; the tensors are on {device}")
-    return torch.rand(shape, generator=g, device=device) < 1.0 - rate
+    if count == 1:
+        return torch.rand(shape, generator=g, device=device) < 1.0 - rate
+    n = shape[0]
+    full = torch.rand((n * count,) + tuple(shape[1:]), generator=g, device=device)
+    return full[index * n:(index + 1) * n] < 1.0 - rate
 
 
 def apply_mask(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:

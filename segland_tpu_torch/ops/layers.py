@@ -11,6 +11,9 @@ path there, and ``module(x)`` would find the same one.
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.distributed.nn.functional import all_reduce as all_reduce_autograd
+
+from ..dist import stats_group
 
 # cuDNN has no fast bfloat16 channels-last kernel for a 3x3 convolution whose
 # dilation is large: on an H100 (torch 2.11, CUDA 12.8) [8,2048,128,128] -> 256
@@ -67,13 +70,29 @@ def batch_norm(m: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     flax's momentum 0.9 is 0.1 here, ASPP's 0.001 is 0.999) towards them.
     ``F.batch_norm`` would put the unbiased variance into ``running_var``
     (and refuses a channel of one value), so the statistics are computed
-    here.  ``num_batches_tracked`` is not advanced: the momentum is fixed."""
+    here.  ``num_batches_tracked`` is not advanced: the momentum is fixed.
+
+    Under a process group (``dist.init_from_env``) the statistics are the
+    global batch's, as GSPMD takes them over the JAX package's data mesh:
+    each rank's per-channel sum, sum of squares and count are summed over the
+    ranks by an autograd-aware all-reduce (its backward sums the gradients
+    over the ranks), then the same E[x^2] - E[x]^2.  ``nn.SyncBatchNorm`` is
+    not used: it refuses CPU tensors and writes the unbiased variance."""
     if not m.training:
         return F.batch_norm(x, m.running_mean, m.running_var, m.weight, m.bias, False, 0.0,
                             m.eps)
     xf = x.float()
-    mean = xf.mean((0, 2, 3))
-    var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+    group = stats_group()
+    if group is None:
+        mean = xf.mean((0, 2, 3))
+        var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+    else:
+        c = xf.shape[1]
+        count = torch.full((1,), float(xf.numel() // c), device=xf.device)
+        sums = all_reduce_autograd(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]),
+                                   group=group)
+        mean = sums[:c] / sums[2 * c]
+        var = (sums[c:2 * c] / sums[2 * c] - mean * mean).clamp_min(0.0)
     with torch.no_grad():
         m.running_mean.lerp_(mean, m.momentum)
         m.running_var.lerp_(var, m.momentum)

@@ -1,6 +1,8 @@
 """Novel-class fine-tune step (reference ft_pop.py:242-256,
-networks/pspnet_pop.py:191-243).  Port of segland_tpu/train/ft.py on one
-device.
+networks/pspnet_pop.py:191-243).  Port of segland_tpu/train/ft.py; under a
+process group each rank holds its share of the global episode batch, the
+head's gradients are averaged by DistributedDataParallel and the CE is the
+global batch's mean (``train/base.py``).
 
 The reference concatenates the novel-support batch and the base batch, runs
 forward_novel, then overwrites mask_b in place with pseudo-labels from the
@@ -16,7 +18,7 @@ import torch
 
 from ..losses import orth_loss
 from ..ops.fused_epilogue import upsample_argmax
-from .base import global_norm
+from .base import data_parallel, finite_everywhere, global_norm
 from .state import TrainState
 
 # what the fine-tune leaves as it is (segland_tpu/train/ft.py:21)
@@ -60,7 +62,7 @@ def make_ft_train_step(model, n_base: int, skip_nonfinite: bool = False):
         params = state.tx.params
         for p in params:
             p.grad = None
-        logits, novel_logits, sim = model.forward_novel(
+        logits, novel_logits, sim = data_parallel(model, "forward_novel")(
             torch.cat([img, img_b]).permute(0, 3, 1, 2))
         nb = img.shape[0]
         mask_new = pseudo_label(mask_b, novel_logits[nb:].detach().permute(0, 2, 3, 1), n_base)
@@ -73,7 +75,7 @@ def make_ft_train_step(model, n_base: int, skip_nonfinite: bool = False):
         norm = global_norm(grads)
         ok = True
         if skip_nonfinite:
-            ok = bool(torch.isfinite(norm))
+            ok = finite_everywhere(norm)
             ld["nonfinite_skipped"] = torch.tensor(0.0 if ok else 1.0)
         if ok:
             state.tx.clip_(grads, norm)

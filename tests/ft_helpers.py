@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from torch_helpers import load_port, random_variables
+from torch_helpers import load_port, meta_build, random_variables
 from segland_tpu.models import build_model as j_build
 from segland_tpu.train import create_optimizer as j_create, create_train_state
 from segland_tpu.train.ft import ft_trainable as j_ft_trainable
@@ -65,8 +65,8 @@ def ft_models(name, backbone, hw, fused=False, seed=1):
     jm = j_build(name, backbone=backbone, n_base=7, n_novel=4, is_ft=True, fused_mlp=fused,
                  fused_attn=fused)
     v = random_variables(jm, jnp.zeros((1, hw, hw, 3)), seed=seed)
-    pm = load_port(build_model(name, backbone, n_base=7, n_novel=4, is_ft=True,
-                               fused_mlp=fused, fused_attn=fused), v)
+    pm = load_port(meta_build(build_model, name, backbone, n_base=7, n_novel=4, is_ft=True,
+                              fused_mlp=fused, fused_attn=fused), v)
     return jm, v, pm
 
 

@@ -12,12 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import load_port, random_variables
+from torch_helpers import load_port, meta_build, one_torch_thread, random_variables
 from segland_tpu.ckpt.torch_convert import (convert_torch_state_dict, load_torch_checkpoint,
                                             merge_variables)
 from segland_tpu.models import build_model as j_build
 from segland_tpu_torch.ckpt import from_jax_variables
 from segland_tpu_torch.models import build_model
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module")
@@ -25,8 +27,8 @@ def trees():
     jm = j_build("convnext_pop", "convnext-t", n_base=7, n_novel=4, is_ft=True,
                  fused_mlp=True)
     v = random_variables(jm, jnp.zeros((1, 64, 64, 3)), seed=0)
-    port = load_port(build_model("convnext_pop", "convnext-t", n_base=7, n_novel=4,
-                                 is_ft=True, fused_mlp=True), v)
+    port = load_port(meta_build(build_model, "convnext_pop", "convnext-t", n_base=7, n_novel=4,
+                                is_ft=True, fused_mlp=True), v)
     return v, port
 
 
@@ -74,7 +76,7 @@ def swin_trees():
     kw = dict(n_base=7, n_novel=4, is_ft=True, fused_mlp=True, fused_attn=True)
     jm = j_build("swin_pop", "swin-t", **kw)
     v = random_variables(jm, jnp.zeros((1, 64, 64, 3)), seed=1)
-    return v, load_port(build_model("swin_pop", "swin-t", **kw), v)
+    return v, load_port(meta_build(build_model, "swin_pop", "swin-t", **kw), v)
 
 
 def test_swin_round_trip_through_the_jax_converter(swin_trees):
@@ -137,7 +139,7 @@ def hrnet_trees():
     (stage3_2_fuse_2_0_0_conv) to upstream's nested ones."""
     kw = dict(n_base=7, n_novel=4, is_ft=True)
     v = random_variables(j_build("seghr_pop", "hr-w32", **kw), jnp.zeros((1, 64, 64, 3)), seed=4)
-    return v, load_port(build_model("seghr_pop", "hr-w32", **kw), v)
+    return v, load_port(meta_build(build_model, "seghr_pop", "hr-w32", **kw), v)
 
 
 def test_hrnet_round_trip_through_the_jax_converter(hrnet_trees):
@@ -187,7 +189,8 @@ def resnet_trees(request):
     kw = dict(n_base=7, n_novel=4, is_ft=True)
     jm = j_build(request.param, "resnet50", **kw)
     v = random_variables(jm, jnp.zeros((1, 64, 64, 3)), seed=2)
-    return request.param, jm, v, load_port(build_model(request.param, "resnet50", **kw), v)
+    port = load_port(meta_build(build_model, request.param, "resnet50", **kw), v)
+    return request.param, jm, v, port
 
 
 def test_resnet_round_trip_through_the_jax_converter(resnet_trees):

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from ft_helpers import narrow_backbones
-from torch_helpers import load_port, near_tie_pixels, random_variables
+from torch_helpers import load_port, near_tie_pixels, one_torch_thread, random_variables
 from segland_tpu.models import build_model as j_build
 from segland_tpu.ops.resize import resize_bilinear as j_resize
 from segland_tpu_torch.ckpt import save_params
@@ -25,6 +25,8 @@ from segland_tpu_torch.data.geotiff import write_tiff
 from segland_tpu_torch.evallib import EnsembleEvaluator
 from segland_tpu_torch.models import build_model
 from segland_tpu_torch.ops.resize import resize_bilinear
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 HW = 32
 # (model, backbone, seed): two pspnet_pop members logits at stride 8, convnext_pop at stride 4

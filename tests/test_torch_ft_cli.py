@@ -23,6 +23,9 @@ from segland_tpu_torch.cli import ft_pop, gen_fs_list
 from segland_tpu_torch.data.geotiff import write_tiff
 from segland_tpu_torch.models import build_model
 from segland_tpu_torch.train import ft_trainable
+from torch_helpers import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SEEDS = (123, 234)
 
@@ -198,8 +201,11 @@ def test_restore_refuses_a_ckpt_and_a_shape_mismatch(root, tmp_path):
 
 
 def test_more_than_one_process_raises(root, tmp_path, monkeypatch):
+    """WORLD_SIZE without the rest of the launcher's environment raises, naming
+    what is missing (a whole launch over two processes: tests/test_torch_dist.py)."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(ValueError, match="DDP.*A4c"):
+    monkeypatch.delenv("RANK", raising=False)
+    with pytest.raises(ValueError, match="RANK must be set"):
         ft_pop.main(_args(root, tmp_path))
 
 

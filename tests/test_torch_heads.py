@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from test_torch_fused_epilogue import _kernel_replay, _np_ref, _tiled_replay
-from torch_helpers import load_port, random_variables, t
+from torch_helpers import load_port, meta_build, one_torch_thread, random_variables, t
 import segland_tpu.models.pop as jpop
 from segland_tpu.ckpt.torch_convert import convert_torch_state_dict, merge_variables
 from segland_tpu.models import MODEL_NAMES as J_MODEL_NAMES
@@ -31,6 +31,8 @@ from segland_tpu.ops import packed as jpacked
 from segland_tpu_torch.ckpt import from_jax_variables
 from segland_tpu_torch.models import MODEL_NAMES, build_model
 from segland_tpu_torch.ops import fused_epilogue as FE
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ATOL = 5e-4
 # model -> (narrow backbone for the parity cases, the JAX converter's arch)
@@ -50,7 +52,7 @@ def pair(name, backbone, is_ft):
     jm = j_build(name, backbone, **_kw(is_ft))
     train = {"train": True} if name == "pspnet" and not is_ft else {}
     v = random_variables(jm, jnp.zeros((1, 64, 64, 3)), seed=1, **train)
-    return jm, v, load_port(build_model(name, backbone, **_kw(is_ft)), v)
+    return jm, v, load_port(meta_build(build_model, name, backbone, **_kw(is_ft)), v)
 
 
 def jax_apply(jm, v, x, packed=True):
@@ -109,7 +111,7 @@ def test_plain_pspnet_train_mode_returns_the_aux_logits():
     stride 8 and in fp32, each as the JAX model's (BatchNorm on the batch's
     statistics on both sides)."""
     jm, v, _ = pair("pspnet", "resnet10", False)
-    port = load_port(build_model("pspnet", "resnet10", **_kw(False)), v).train()
+    port = load_port(meta_build(build_model, "pspnet", "resnet10", **_kw(False)), v).train()
     x = _image((64, 64), seed=4)
     (want, want_aux), _ = jm.apply(v, jnp.asarray(x), train=True, mutable=["batch_stats"])
     got, aux = port(t(x).permute(0, 3, 1, 2), train=True)

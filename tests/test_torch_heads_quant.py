@@ -26,7 +26,7 @@ import pytest
 import torch
 import torch.nn as nn
 
-from torch_helpers import load_port, random_variables, t
+from torch_helpers import load_port, meta_build, one_torch_thread, random_variables, t
 import segland_tpu.models.pop as jpop
 from segland_tpu.models import build_model as j_build
 from segland_tpu.quant import QuantConfig as JQuantConfig
@@ -39,6 +39,8 @@ from segland_tpu_torch.models import build_model
 from segland_tpu_torch.models.backbones.lsknet import ParamConv
 from segland_tpu_torch.quant import (ActScales, QuantConfig, build_fused_block_inputs, calibrate,
                                      quant_interceptor, quantized_apply)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 KW = dict(n_base=7)
 
@@ -63,7 +65,7 @@ def unpacked(fn):
 def pair(name, backbone, hw=64, seed=0):
     jm = j_build(name, backbone, **KW)
     v = _np_tree(random_variables(jm, jnp.zeros((1, hw, hw, 3)), seed=seed))
-    port = load_port(build_model(name, backbone, **KW), v)
+    port = load_port(meta_build(build_model, name, backbone, **KW), v)
     img = np.random.RandomState(1).randn(2, hw, hw, 3).astype(np.float32)
     return jm, v, port, img
 
@@ -130,7 +132,7 @@ def _resnet_pair(name, backbone):
     jm = j_build(name, backbone, dtype=jnp.bfloat16, **KW)
     train = {"train": True} if name == "pspnet" else {}
     v = _np_tree(random_variables(jm, jnp.zeros((1, 32, 32, 3)), seed=2, **train))
-    port = load_port(build_model(name, backbone, dtype=torch.bfloat16, **KW), v)
+    port = load_port(meta_build(build_model, name, backbone, dtype=torch.bfloat16, **KW), v)
     img = np.random.RandomState(3).randn(1, 32, 32, 3).astype(np.float32)
     vq = _np_tree(j_calibrate(jm, v, [jnp.asarray(img)]))
     quant = ActScales({k: t(a) for k, a in quant_from_jax(vq["quant"]).items()})

@@ -20,7 +20,7 @@ import jax.numpy as jnp
 import pytest
 
 from ft_helpers import ft_batches, ft_pair, run_ft
-from torch_helpers import load_port, random_variables
+from torch_helpers import load_port, meta_build, random_variables
 from train_helpers import batches, check_log, check_weights, run
 from segland_tpu.models import build_model as j_build
 from segland_tpu.models.backbones import lsknet as JL
@@ -51,7 +51,7 @@ def step_pair(name, backbone, loss="orth", hw=HW):
     v = random_variables(jm, jnp.zeros((1, hw, hw, 3)), seed=1, **train)
     kw = dict(base_lr=1e-3, num_epochs=4, steps_per_epoch=1, optimizer="sgd")
     jstate = create_train_state(jm, v, j_create(v["params"], **kw))
-    pm = load_port(build_model(name, backbone, n_base=7), v)
+    pm = load_port(meta_build(build_model, name, backbone, n_base=7), v)
     state = TrainState(pm, create_optimizer(pm, **kw))
     return jstate, jax.jit(j_make_step(jm, loss)), state, make_base_train_step(pm, loss)
 

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import load_port, random_variables, t, tame_hrnet
+from torch_helpers import load_port, meta_build, random_variables, t, tame_hrnet
 import segland_tpu.models.pop as jpop
 from segland_tpu.models import build_model as j_build
 from segland_tpu.models import decoders as JD
@@ -59,7 +59,7 @@ def jax_route(packed: bool):
 def hr():
     jm = j_build("seghr_pop", "hr-w32", **KW)
     v = tame_hrnet(random_variables(jm, jnp.zeros((1, 64, 64, 3)), seed=0))
-    port = load_port(build_model("seghr_pop", "hr-w32", **KW), v)
+    port = load_port(meta_build(build_model, "seghr_pop", "hr-w32", **KW), v)
     return jm, v, port
 
 
@@ -129,7 +129,7 @@ def test_train_mode_forward_and_batch_stats_match_jax(hr):
     train mode: the logits, and every BatchNorm's moved running statistics
     within 5e-4 of their tensor's largest |value|."""
     jm, v, _ = hr
-    port = load_port(build_model("seghr_pop", "hr-w32", **KW), v).train()
+    port = load_port(meta_build(build_model, "seghr_pop", "hr-w32", **KW), v).train()
     x = _image((64, 64), seed=4)
     with jax_route(True) as runs:
         want, new = jm.apply(v, jnp.asarray(x), train=True, mutable=["batch_stats"])

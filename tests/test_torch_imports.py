@@ -3,7 +3,8 @@ segland_tpu, at import time or inside a function, and needs no nvcc to
 import: the kernels build at the first CUDA call.  The entry points run in
 processes of their own, the eval ones over every model of the last slice
 (pspplus_pop, the plain pspnet, lsk_pop, vggunet_pop), train_base over the
-plain pspnet's CE step and lsk_pop, ft_pop over lsk_pop."""
+plain pspnet's CE step and lsk_pop and as two ranks of a process group,
+ft_pop over lsk_pop."""
 
 import os
 import pathlib
@@ -45,8 +46,12 @@ MODULES = ["segland_tpu_torch", "segland_tpu_torch.ops.fused_mlp",
            "segland_tpu_torch.cli.trans", "segland_tpu_torch.cli.translabel",
            "segland_tpu_torch.cli.gen_new_samples", "segland_tpu_torch.cli.get_list",
            "segland_tpu_torch.models.backbones.lsknet",
-           "segland_tpu_torch.models.backbones.vggunet", "segland_tpu_torch.models.pspnet_plain"]
+           "segland_tpu_torch.models.backbones.vggunet", "segland_tpu_torch.models.pspnet_plain",
+           "segland_tpu_torch.dist", "segland_tpu_torch.dist.process",
+           "segland_tpu_torch.ops.device_aug"]
 FOREIGN = ("jax", "flax", "PIL", "segland_tpu")
+# The entry points' processes run torch on one thread (OMP_NUM_THREADS): by default each
+# takes every core of a machine that tier-1's workers share.
 
 PROBE = """
 import sys
@@ -86,7 +91,8 @@ print(sorted(m for m in sys.modules if m.split('.')[0] in {foreign!r}))
 
 
 def test_main_path_imports_no_jax_flax_or_pil():
-    env = dict(os.environ, PATH=os.path.dirname(sys.executable), CUDA_HOME="/nonexistent")
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable), CUDA_HOME="/nonexistent",
+               OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", PROBE.format(mods=MODULES, foreign=FOREIGN)],
                          cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
@@ -117,7 +123,7 @@ def test_eval_entry_points_run_without_jax_flax_pil_or_the_jax_package(tmp_path)
     (root / "val.txt").write_text("a\nb\nc\n")
     (root / "test.txt").write_text("u\n")
     code = RUN_CLI.format(root=str(root), out=str(tmp_path / "out"), foreign=FOREIGN)
-    env = dict(os.environ, CUDA_HOME="/nonexistent")
+    env = dict(os.environ, CUDA_HOME="/nonexistent", OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -165,12 +171,62 @@ def test_train_entry_point_runs_without_jax_flax_pil_or_the_jax_package(tmp_path
         pytest.skip("no C++ compiler or zlib here: tiles would be read through PIL")
     code = RUN_TRAIN.format(root=str(tmp_path / "data"), out=str(tmp_path / "snap"),
                             foreign=FOREIGN)
-    env = dict(os.environ, CUDA_HOME="/nonexistent")
+    env = dict(os.environ, CUDA_HOME="/nonexistent", OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
     assert (tmp_path / "snap" / "best.pth").exists()
+
+
+# train_base.main as one rank of two (gloo), --device-augment, on RUN_TRAIN's tiles
+RUN_TRAIN_RANK = """
+import sys
+from segland_tpu_torch import dist
+from segland_tpu_torch.cli import train_base
+best = train_base.main(["--data-dir", {root!r}, "--train-list", {root!r} + "/train.txt",
+                        "--val-list", {root!r} + "/val.txt", "--model", "convnext_pop",
+                        "--device", "cpu", "--fused", "--input-size", "32,32",
+                        "--base-size", "32,32", "--batch-size", "2", "--num-epoch", "1",
+                        "--val-start", "0", "--num-workers", "0", "--device-augment",
+                        "--snapshot-dir", {out!r}])
+assert dist.world() == 2 and 0.0 <= best <= 1.0
+print(sorted(m for m in sys.modules if m.split('.')[0] in {foreign!r}))
+"""
+
+
+def test_train_entry_point_runs_over_two_processes_without_the_foreign_modules(tmp_path):
+    """train_base under WORLD_SIZE=2 (gloo, --device-augment): both ranks end,
+    rank 0 writes the snapshots, and neither loads a foreign module."""
+    import socket
+
+    from segland_tpu_torch import native
+
+    if native.get_lib() is None:
+        pytest.skip("no C++ compiler or zlib here: tiles would be read through PIL")
+    root, snap = tmp_path / "data", tmp_path / "snap"
+    code = RUN_TRAIN.split("best = train_base.main")[0]  # the tiles, written once
+    assert subprocess.run([sys.executable, "-c", code.format(root=str(root))], cwd=ROOT,
+                          timeout=120).returncode == 0
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RUN_TRAIN_RANK.format(root=str(root), out=str(snap),
+                                                     foreign=FOREIGN)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, CUDA_HOME="/nonexistent", OMP_NUM_THREADS="1", WORLD_SIZE="2",
+                 RANK=str(r), LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=str(port), GLOO_SOCKET_IFNAME="lo")) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=180) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (stdout, stderr) in zip(procs, outs):
+        assert p.returncode == 0, stderr
+        assert stdout.strip().splitlines()[-1] == "[]"
+    assert (snap / "best.pth").exists() and (snap / "epoch_1.pth").exists()
 
 
 # gen_fs_list.main and ft_pop.main over tiles the port writes itself, from a base
@@ -222,7 +278,7 @@ def test_ft_entry_points_run_without_jax_flax_pil_or_the_jax_package(tmp_path):
         pytest.skip("no C++ compiler or zlib here: tiles would be read through PIL")
     code = RUN_FT.format(root=str(tmp_path / "data"), out=str(tmp_path / "snap"),
                          foreign=FOREIGN)
-    env = dict(os.environ, CUDA_HOME="/nonexistent")
+    env = dict(os.environ, CUDA_HOME="/nonexistent", OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -273,7 +329,7 @@ def test_tool_entry_points_run_without_jax_flax_or_the_jax_package(tmp_path):
     if native.get_lib() is None:
         pytest.skip("no C++ compiler or zlib here: tiles would be read through PIL")
     code = RUN_TOOLS.format(root=str(tmp_path / "data"), foreign=FOREIGN)
-    env = dict(os.environ, CUDA_HOME="/nonexistent")
+    env = dict(os.environ, CUDA_HOME="/nonexistent", OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr

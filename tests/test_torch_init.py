@@ -26,6 +26,9 @@ from ft_helpers import narrow_backbones
 from segland_tpu.models import build_model as j_build
 from segland_tpu_torch.ckpt import from_jax_variables
 from segland_tpu_torch.models import build_model
+from torch_helpers import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 MODELS = [("pspnet_pop", "resnet10"), ("convnext_pop", "convnext-t"), ("swin_pop", "swin-t"),
           ("seghr_pop", "hr-w32"), ("pspplus_pop", "resnet10"), ("pspnet", "resnet10"),

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import load_port, random_variables, t
+from torch_helpers import load_port, one_torch_thread, random_variables, t
 from segland_tpu.models import decoders as JD
 from segland_tpu.models.backbones import resnet as JR
 from segland_tpu.ops.pooling import max_pool_3x3_s2 as j_max_pool
@@ -18,6 +18,8 @@ from segland_tpu_torch.models import decoders as D
 from segland_tpu_torch.models.backbones import backbone_filters, get_backbone
 from segland_tpu_torch.models.backbones import resnet as R
 from segland_tpu_torch.ops.pooling import max_pool_3x3_s2
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ATOL = 5e-4
 

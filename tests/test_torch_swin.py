@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import load_port, random_variables, t
+from torch_helpers import load_port, one_torch_thread, random_variables, t
 from segland_tpu.models.backbones.swin import SwinBlock as JSwinBlock
 from segland_tpu.models.backbones.swin import SwinTransformer as JSwin
 from segland_tpu.models.decoders import UperNetPlusDecoder as JUperNet
@@ -26,6 +26,8 @@ from segland_tpu_torch.models.backbones import get_backbone
 from segland_tpu_torch.models.backbones.swin import SwinBlock, SwinTransformer, get_swin
 from segland_tpu_torch.models.decoders import UperNetPlusDecoder
 from segland_tpu_torch.ops.pooling import adaptive_avg_pool
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ATOL = 5e-4
 CFG = dict(depths=(2, 2), num_heads=(2, 4), embed_dim=32)

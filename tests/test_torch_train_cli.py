@@ -7,8 +7,8 @@ CPU ops are deterministic); the port's ``eval_base`` runs ``best.pth``; the
 JAX package's ``load_torch_checkpoint`` reads it with nothing missing, and its
 forward equals the port's within the repo's 5e-4 bar; ``seghr_pop`` / ``hr-w18``
 trains and its ``best.pth`` loads into the JAX package; ``pspplus_pop``, the
-plain ``pspnet`` (the CE step), ``lsk_pop`` and ``vggunet_pop`` train.  Then
-what does not train yet raises, naming its ROADMAP item."""
+plain ``pspnet`` (the CE step), ``lsk_pop`` and ``vggunet_pop`` train;
+``--device-augment`` trains.  Then what does not train raises."""
 
 import json
 
@@ -18,9 +18,11 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import t
+from torch_helpers import one_torch_thread, t
 from segland_tpu_torch.cli import train_base
 from segland_tpu_torch.data.geotiff import write_tiff
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module")
@@ -186,7 +188,7 @@ def test_the_last_registry_models_train(root, tmp_path, name, backbone):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--device-augment"], "A4c"),
+    (["--device-augment", "--dataset", "oem_ft"], "raw-tile"),
     (["--dataset", "oem_ft"], "A5"),
 ])
 def test_what_does_not_train_yet_raises(root, tmp_path, extra, item):
@@ -207,9 +209,25 @@ def test_jax_flags_the_port_does_not_read_are_refused(root, tmp_path, flag, caps
 
 
 def test_more_than_one_process_raises(root, tmp_path, monkeypatch):
+    """WORLD_SIZE without the rest of the launcher's environment raises, naming
+    what is missing, instead of waiting for a rendezvous (a whole launch over
+    two processes: tests/test_torch_dist.py)."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(ValueError, match="DDP.*A4c"):
+    monkeypatch.delenv("RANK", raising=False)
+    with pytest.raises(ValueError, match="RANK must be set"):
         train_base.main(_args(root, tmp_path))
+
+
+def test_device_augment_trains(root, tmp_path):
+    """--device-augment: the raw 48^2 tiles, brought to --base-size, are
+    augmented inside the step; the loss dicts carry aug_fallback."""
+    snap = tmp_path / "aug"
+    args = _args(root, snap, "--device-augment", "--metrics")
+    args[args.index("--num-epoch") + 1] = "1"
+    best = train_base.main(args)
+    rows = [json.loads(line) for line in (snap / "metrics.jsonl").read_text().splitlines()]
+    assert [r["value"] for r in rows if r["tag"] == "train/aug_fallback"] == [0.0]
+    assert all(np.isfinite(r["value"]) for r in rows) and 0.0 <= best <= 1.0
 
 
 def test_the_default_device_is_the_card(root, tmp_path):

@@ -85,7 +85,31 @@ def test_dataset_and_loader_give_the_jax_samples(root):
             assert gi.dtype == np.float32 and gi.shape == (2, 24, 24, 3)
 
 
-def test_registry_and_device_augment():
+def test_registry_and_device_augment(tmp_path):
+    """device_augment: the raw uint8 tile and its label, brought to
+    device_tile_size (image 0, label ignore; segland_tpu/data/oem.py:62-75),
+    and a larger tile raises."""
     assert set(DATASETS) == {"oem", "oem_ft"}
-    with pytest.raises(NotImplementedError, match="A4c"):
-        OEMTrainDataset("/nonexistent", "/nonexistent/train.txt", device_augment=True)
+    for d in ("images", "labels", "list"):
+        (tmp_path / d).mkdir()
+    rng = np.random.RandomState(0)
+    img = rng.randint(0, 256, (20, 24, 3)).astype(np.uint8)
+    lab = rng.randint(0, 8, (20, 24)).astype(np.uint8)
+    write_tiff(str(tmp_path / "images" / "a.tif"), img)
+    write_tiff(str(tmp_path / "labels" / "a.tif"), lab)
+    (tmp_path / "list" / "train.txt").write_text("a\n")
+    ds = OEMTrainDataset(str(tmp_path), str(tmp_path / "list" / "train.txt"),
+                         crop_size=(16, 16), device_augment=True, device_tile_size=(24, 32))
+    got_img, got_lab, tid = ds[0]
+    assert tid == "a" and got_img.dtype == np.uint8 and got_img.shape == (24, 32, 3)
+    np.testing.assert_array_equal(got_img[:20, :24], img)
+    assert not got_img[20:].any() and not got_img[:, 24:].any()
+    np.testing.assert_array_equal(got_lab[:20, :24], lab)
+    assert (got_lab[20:] == 255).all() and (got_lab[:, 24:] == 255).all()
+    want = JTrain(str(tmp_path), str(tmp_path / "list" / "train.txt"), crop_size=(16, 16),
+                  device_augment=True, device_tile_size=(24, 32))[0]
+    for g, w in zip((got_img, got_lab, tid), want):
+        np.testing.assert_array_equal(g, w)
+    ds.device_tile_size = (16, 16)
+    with pytest.raises(ValueError, match="larger than device_tile_size"):
+        ds[0]

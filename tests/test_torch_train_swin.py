@@ -35,7 +35,7 @@ import pytest
 import torch
 
 from ft_helpers import narrow_backbones
-from torch_helpers import inject_masks, load_port, random_variables, t
+from torch_helpers import inject_masks, load_port, one_torch_thread, random_variables, t
 from train_helpers import batches, check_log, check_weights, port_pair
 from segland_tpu.models import build_model as j_build
 from segland_tpu.models import decoders as jdec
@@ -48,6 +48,8 @@ from segland_tpu_torch.ckpt import from_jax_variables
 from segland_tpu_torch.models import decoders as pdec
 from segland_tpu_torch.models.backbones import swin as pswin
 from segland_tpu_torch.ops import fused_attn as P
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 WS, N = 7, 49
 GRAD_TOL = 2e-5

@@ -9,10 +9,24 @@ import pathlib
 import re
 
 import numpy as np
+import pytest
 import torch
 
 # tier-1 runs several xdist workers on few cores
 torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """The module's tests on one torch thread, the count restored after: on a
+    machine that xdist's workers share, each small op on two threads pays an
+    OpenMP fork and join that costs more than the op (a tier-1 run took 414 s
+    in tests/test_torch_ft_cli.py on two threads, 89 on one).  Used where the
+    tests passed on one thread; the CPU ops' results depend on the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def t(a) -> torch.Tensor:
@@ -85,6 +99,19 @@ def load_port(module, variables, prefix: str = ""):
           if k.startswith(prefix)}
     module.load_state_dict(sd, strict=True)
     return module
+
+
+def meta_build(build, *args, **kwargs):
+    """``build(*args, **kwargs)`` built on the meta device and given empty CPU
+    storage, for ``load_port`` (or a state dict) to fill: its own random init,
+    seconds of torch's truncated normal on the CPU, is not drawn."""
+    import inspect
+
+    with torch.device("meta"):
+        if "device" in inspect.signature(build).parameters:
+            kwargs.setdefault("device", "meta")
+        module = build(*args, **kwargs)
+    return module.to_empty(device="cpu")
 
 
 def inject_masks(monkeypatch, masks):

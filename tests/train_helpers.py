@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from torch_helpers import load_port, random_variables, t
+from torch_helpers import load_port, meta_build, random_variables, t
 from segland_tpu.models import build_model as j_build
 from segland_tpu.train import create_optimizer as j_create
 from segland_tpu.train import create_train_state, make_base_train_step as j_make_step
@@ -43,7 +43,8 @@ def pair(name, backbone, hw, optimizer, fused=False, lr=1e-3, **step_kw):
 
 def port_pair(name, backbone, variables, optimizer, fused=False, lr=1e-3, **step_kw):
     """(port state, port step) of ``pair`` from a JAX variable tree."""
-    pm = load_port(build_model(name, backbone, n_base=7, fused_mlp=fused, fused_attn=fused),
+    pm = load_port(meta_build(build_model, name, backbone, n_base=7, fused_mlp=fused,
+                              fused_attn=fused),
                    variables)
     state = TrainState(pm, create_optimizer(pm, **_opt_kw(optimizer, lr)))
     return state, make_base_train_step(pm, "orth", **step_kw)
