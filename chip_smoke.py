@@ -92,6 +92,17 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      every block; also as eval_ft), attn_group = 2 (K5 and K1 in every block)
      and SEGLAND_SWIN_WR=1 (window-resident stages, K3 and K1, K1 over every
      token of the padded windows: the rows it was given are checked).
+  8a. swinbl: swin_pop on swin-b and swin-l (phase_swinbl): K1 and K3 at
+     their eight stage shapes against the plain versions (the widths they add,
+     C = 128, 256, 512, 1024, 1536, also in fp32, with a ragged M and a
+     part-empty last block; those builds' registers and spills), each
+     forward's kernel ms beside its bound; then each model at full width and
+     depth through the eval slice as eval_base and as eval_ft run it (K3 24,
+     K1 24, K2 1 a batch; the weights drawn so that no class takes 90% of the
+     map; >= 99% agreement with the plain versions beyond near-ties, and the
+     kernel route as close to the fp32 stock-torch route as the plain
+     versions; tiles/s and max_memory_allocated), its --no-fused tiles/s and,
+     for swin-l, one batch through the use_pallas route;
   9. K8 conv3_residual vs its plain version at the conv3 probe's two shapes
      (layer4 and layer3 of resnet50), M = 8*128^2 and 16*128^2 and a ragged M,
      with and without the ReLU, to 1 bf16 ulp (the count of elements that are
@@ -203,6 +214,7 @@ the repo beside it, it fails before printing any result.
     python3 chip_smoke.py --phases dist     # training and eval over the ranks of a process group
     python3 chip_smoke.py --phases k2,k6    # K2 and K6 at every shape of their phases
     python3 chip_smoke.py --phases k1,k3    # K1 and K3 with their build, SASS and phase lines
+    python3 chip_smoke.py --phases swinbl   # swin_pop on swin-b and swin-l, K1 and K3 at their widths
     python3 chip_smoke.py --phases k4,k5    # K4 and K5 with their build, SASS and phase lines
     python3 chip_smoke.py --phases k8,k7    # K8, and K7 with its build, SASS and per-kernel lines
     python3 chip_smoke.py --phases k8,k10,k9  # K8, the head-group kernels and their probe
@@ -1879,9 +1891,9 @@ def environ(**env):
                 os.environ[k] = v
 
 
-def build(name, dtype, seed=0, fused=True, is_ft=False, attn_group=1):
+def build(name, dtype, seed=0, fused=True, is_ft=False, attn_group=1, backbone=None):
     """convnext_pop/convnext-t, swin_pop/swin-s, seghr_pop/hr-w32 or a model of
-    HEADS at its default backbone with seeded random weights, drawn so that
+    HEADS at its default backbone (or ``backbone``) with seeded random weights, drawn so that
     every block's kernel reaches the output (seghr_pop: so that its branches
     stay O(1); the ResNet pair as build_resnet draws its trunk)."""
     import torch
@@ -1894,7 +1906,7 @@ def build(name, dtype, seed=0, fused=True, is_ft=False, attn_group=1):
     from segland_tpu_torch.ops import pop as pop_ops
 
     g = torch.Generator().manual_seed(seed)
-    model = build_model(name, None, n_base=7, n_novel=4 if is_ft else 0, is_ft=is_ft,
+    model = build_model(name, backbone, n_base=7, n_novel=4 if is_ft else 0, is_ft=is_ft,
                         fused_mlp=fused, fused_attn=fused, dtype=dtype, generator=g)
     with torch.no_grad():
         for blk in model.modules():
@@ -1923,10 +1935,11 @@ def build(name, dtype, seed=0, fused=True, is_ft=False, attn_group=1):
                         m.weight.mul_(0.5)
         if model.backbone_name.startswith("resnet"):
             tame_resnet(model, g)
-        if name in (SEGHR,) + HEADS_POP:
+        if name in (SEGHR,) + HEADS_POP or backbone in SWIN_BL_STAGES:
             # the classifiers spread as train_step_model spreads them (logits about 1), and
             # the prototypes made orthogonal to the mean feature as build_resnet makes them,
             # so that the classes compete pixel by pixel instead of background taking all
+            # (as drawn, swin-b's and swin-l's maps were one class nearly everywhere)
             for conv in model.classifier:
                 if isinstance(conv, nn.Conv2d):
                     conv.weight.normal_(0.0, 2.0 * conv.in_channels ** -0.5, generator=g)
@@ -1937,6 +1950,14 @@ def build(name, dtype, seed=0, fused=True, is_ft=False, attn_group=1):
                 emb.sub_((emb @ unit)[:, None] * unit)
             if float(pop_ops.classifier_apply(mean, *model.classifier.weights())) > 0:
                 model.classifier[4].weight.neg_()
+            if is_ft and backbone in SWIN_BL_STAGES:
+                # forward_all scores the background and the novel classes by classifier_n:
+                # left at its init, one class took 97% of swin-b's eval_ft map
+                for conv in model.classifier_n:
+                    if isinstance(conv, nn.Conv2d):
+                        conv.weight.normal_(0.0, 2.0 * conv.in_channels ** -0.5, generator=g)
+                if float(pop_ops.classifier_apply(mean, *model.classifier_n.weights())) > 0:
+                    model.classifier_n[4].weight.neg_()
     if attn_group != 1:
         # no CLI switch and no registry argument has it, as in the JAX package: the same
         # swin-s backbone and weights through the constructor's own argument
@@ -1983,31 +2004,44 @@ def counted_run(ev, batches, **kw):
 
 
 def phase_slice(dev, name, want_per_batch, is_ft=False, fp32_check=True, route="",
-                attn_group=1, k1_rows=None, n_batches=N_BATCHES):
+                attn_group=1, k1_rows=None, n_batches=N_BATCHES, backbone=None,
+                max_class_share=None, near_tie=None):
     """One model through Evaluator.run over ``n_batches`` batches: the kernel
-    path (launch counts, mIoU, tiles/s), the same batches with the kernels'
-    plain versions, and an fp32 forward on the card against the CPU.  The
-    caller sets the environment switches of ``route``; ``attn_group`` goes to
-    the swin backbone.  ``k1_rows``: the rows K1 must have been given per
-    batch, which tells a window-resident stage (every token of the padded
-    windows) from a spatial one."""
+    path (launch counts, mIoU, tiles/s, max_memory_allocated), the same batches
+    with the kernels' plain versions, and an fp32 forward on the card against
+    the CPU.  The caller sets the environment switches of ``route``;
+    ``attn_group`` goes to the swin backbone, ``backbone`` names a backbone
+    other than the model's default.  ``k1_rows``: the rows K1 must have been
+    given per batch, which tells a window-resident stage (every token of the
+    padded windows) from a spatial one; ``max_class_share``: the most that one
+    class may take of the kernel route's map (an agreement over a map of one
+    class would say nothing).  With ``near_tie`` the agreement held is over
+    the pixels whose top-2 gap in the plain route's logits exceeds it (the
+    agreement over all pixels is printed), and one batch through the fp32
+    stock-torch route on the card, same weights, is the yardstick of both bf16
+    routes: the kernel route may agree with it on at most FP32_ROUTE_MARGIN
+    fewer pixels than the plain route does."""
     import torch
     from segland_tpu_torch.evallib import Evaluator
 
-    tag = f"{name}{' ft' if is_ft else ''}{' ' + route if route else ''}"
+    tag = (f"{name}{' ' + backbone if backbone else ''}{' ft' if is_ft else ''}"
+           f"{' ' + route if route else ''}")
     k = 12 if is_ft else 8
-    model = build(name, torch.bfloat16, is_ft=is_ft, attn_group=attn_group).to(dev)
+    model = build(name, torch.bfloat16, is_ft=is_ft, attn_group=attn_group,
+                  backbone=backbone).to(dev)
     batches = synthetic_batches()[:n_batches]
     kw = dict(num_classes=12, n_base=7, normalize_on_device=True)
     run_kw = dict(square_pad_eval=is_ft)
     ev = Evaluator(model, dev, **kw)
     ev.run(batches, **run_kw)  # warm-up: cuDNN plans, device and pinned-host allocators
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     (cm, (base, novel, total, _), tps), launches = counted_run(ev, batches, **run_kw)
+    peak = torch.cuda.max_memory_allocated()
     rows = counters()["ln_mlp"].rows
     print(f"slice {tag}: bf16 fused, {n_batches}x{BATCH} tiles {TILE}^2: launches={launches} "
           f"k1_rows={rows} mIoU base={base:.4f} total={total:.4f} tiles_per_s={tps:.2f} "
-          f"pixels={int(cm.sum())}", flush=True)
+          f"pixels={int(cm.sum())} max_memory_allocated={peak / 2**30:.2f} GiB", flush=True)
     want = {key: n * n_batches for key, n in want_per_batch.items()}
     if launches != want:
         fail(f"slice {tag} launch counts {launches}, want {want}")
@@ -2032,21 +2066,52 @@ def phase_slice(dev, name, want_per_batch, is_ft=False, fp32_check=True, route="
         if int(((pk != pred) & (top2[..., 0] - top2[..., 1] > 1e-3)).sum()):
             fail("fused epilogue and the logits path disagree beyond near-ties")
         del logits, top2, pred
+    counts = torch.zeros(k, dtype=torch.long)
+    agree_far = n_far = 0
     for imgs, _, _ in batches:
         _, pk = ev.predict_batch(imgs, (TILE, TILE), want_logits=False)
-        _, pp = ev_plain.predict_batch(imgs, (TILE, TILE), want_logits=False)
+        lp, pp = ev_plain.predict_batch(imgs, (TILE, TILE), want_logits=near_tie is not None)
         agree += int((pk == pp).sum())
         n += pp.numel()
-    frac = agree / n
+        counts += torch.bincount(pk.flatten().long().cpu(), minlength=k)[:k]
+        if near_tie is not None:
+            top2 = lp.topk(2, dim=-1).values
+            far = top2[..., 0] - top2[..., 1] > near_tie
+            agree_far += int(((pk == pp) & far).sum())
+            n_far += int(far.sum())
+            del lp, top2, far
+    frac, share = agree / n, float(counts.max()) / n
+    held = frac if near_tie is None else agree_far / n_far
+    beyond = "" if near_tie is None else (
+        f" beyond_near_ties(gap>{near_tie}: {n_far / n:.4f} of pixels)={held:.6f}")
     print(f"slice {tag} plain versions on the card: mIoU base={base_p:.4f} "
-          f"total={total_p:.4f} tiles_per_s={tps_p:.2f} argmax_agreement={frac:.6f} "
-          f"dmIoU_total={abs(total - total_p):.6f}", flush=True)
-    if frac < 0.99:
-        fail(f"slice {tag}: kernel vs plain argmax agreement {frac:.4f} < 0.99")
+          f"total={total_p:.4f} tiles_per_s={tps_p:.2f} argmax_agreement={frac:.6f}{beyond} "
+          f"dmIoU_total={abs(total - total_p):.6f} top_class_share={share:.4f}", flush=True)
+    if held < 0.99:
+        fail(f"slice {tag}: kernel vs plain argmax agreement {held:.4f} < 0.99")
+    if max_class_share is not None and share > max_class_share:
+        fail(f"slice {tag}: one class takes {share:.4f} of the map (> {max_class_share})")
+    if near_tie is not None:
+        # the fp32 stock-torch blocks on the card, the same weights, TF32 off
+        m32 = build(name, torch.float32, fused=False, is_ft=is_ft, backbone=backbone)
+        m32.load_state_dict(model.state_dict())
+        ev32 = Evaluator(m32.to(dev), dev, plain_kernels=True, **kw)
+        imgs = batches[0][0]
+        _, pf = ev32.predict_batch(imgs, (TILE, TILE), want_logits=False)
+        _, pk = ev.predict_batch(imgs, (TILE, TILE), want_logits=False)
+        _, pp = ev_plain.predict_batch(imgs, (TILE, TILE), want_logits=False)
+        kf, pf_ = float((pk == pf).float().mean()), float((pp == pf).float().mean())
+        print(f"slice {tag} against the fp32 stock-torch route (1 batch): kernel route "
+              f"{kf:.6f}, plain versions {pf_:.6f}", flush=True)
+        if kf < pf_ - FP32_ROUTE_MARGIN:
+            fail(f"slice {tag}: the kernel route agrees with fp32 on {kf:.6f}, the plain "
+                 f"versions on {pf_:.6f}")
+        del m32, ev32
 
     if fp32_check:
         # fp32 on the card (the fp32 kernel builds) vs the CPU's plain versions, small input
-        m32 = build(name, torch.float32, seed=1, is_ft=is_ft, attn_group=attn_group)
+        m32 = build(name, torch.float32, seed=1, is_ft=is_ft, attn_group=attn_group,
+                    backbone=backbone)
         x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(2))
         with torch.inference_mode():
             want32 = m32(x)
@@ -3421,45 +3486,183 @@ def phase_conv3_probe():
     return launches
 
 
-def phase_unfused(dev, name):
+def phase_unfused(dev, name, backbone=None):
     """The unfused model (stock torch blocks, --no-fused): what the eval
     default of --fused is set against.  Returns (model, evaluator, tiles/s)."""
     import torch
     from segland_tpu_torch.evallib import Evaluator
 
     batches = synthetic_batches()
-    model = build(name, torch.bfloat16, fused=False).to(dev)
+    model = build(name, torch.bfloat16, fused=False, backbone=backbone).to(dev)
     ev = Evaluator(model, dev, num_classes=12, n_base=7, normalize_on_device=True)
     ev.run(batches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     (_, (_, _, total_u, _), tps_u), launches = counted_run(ev, batches)
-    print(f"slice {name} unfused (--no-fused): mIoU total={total_u:.4f} "
-          f"tiles_per_s={tps_u:.2f} launches={launches}", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"slice {name}{' ' + backbone if backbone else ''} unfused (--no-fused): mIoU "
+          f"total={total_u:.4f} tiles_per_s={tps_u:.2f} launches={launches} "
+          f"max_memory_allocated={peak / 2**30:.2f} GiB", flush=True)
     if launches != {"upsample_argmax": N_BATCHES}:
         fail(f"unfused {name} launch counts {launches}")
     return model, ev, tps_u
 
 
-def phase_swin_routes(dev):
+def phase_swin_routes(dev, backbone=None, near_tie=None):
     """The unfused swin_pop model, then one batch of it through the use_pallas
-    route, which runs K6 in every block."""
+    route, which runs K6 in every block.  With ``near_tie`` the agreement held
+    is over the pixels whose top-2 gap in the unfused route's logits exceeds it
+    (phase_slice)."""
     from segland_tpu_torch.models.backbones.swin import WindowAttention
 
     batches = synthetic_batches()
-    model, ev, tps_u = phase_unfused(dev, "swin_pop")
-    _, pu = ev.predict_batch(batches[0][0], (TILE, TILE), want_logits=False)
+    model, ev, tps_u = phase_unfused(dev, "swin_pop", backbone)
+    lu, pu = ev.predict_batch(batches[0][0], (TILE, TILE), want_logits=near_tie is not None)
     for m in model.modules():
         if isinstance(m, WindowAttention):
             m.use_pallas = True
     (_, (_, _, total_p, _), tps_p), launches = counted_run(ev, batches[:1])
     _, pp = ev.predict_batch(batches[0][0], (TILE, TILE), want_logits=False)
-    frac = float((pu == pp).float().mean())
-    print(f"slice swin_pop use_pallas: launches={launches} mIoU total={total_p:.4f} "
-          f"tiles_per_s={tps_p:.2f} argmax_agreement_with_unfused={frac:.6f}", flush=True)
+    frac = held = float((pu == pp).float().mean())
+    beyond = ""
+    if near_tie is not None:
+        top2 = lu.topk(2, dim=-1).values
+        far = top2[..., 0] - top2[..., 1] > near_tie
+        held = float(((pu == pp) & far).sum()) / float(far.sum())
+        beyond = (f" beyond_near_ties(gap>{near_tie}: {float(far.float().mean()):.4f} of "
+                  f"pixels)={held:.6f}")
+        del lu, top2, far
+    print(f"slice swin_pop{' ' + backbone if backbone else ''} use_pallas: "
+          f"launches={launches} mIoU total={total_p:.4f} tiles_per_s={tps_p:.2f} "
+          f"argmax_agreement_with_unfused={frac:.6f}{beyond}", flush=True)
     if launches != {"window_attention": 24, "upsample_argmax": 1}:
         fail(f"use_pallas launch counts {launches}, want window_attention=24")
-    if frac < 0.99:
-        fail(f"use_pallas vs unfused argmax agreement {frac:.4f} < 0.99")
+    if held < 0.99:
+        fail(f"use_pallas vs unfused argmax agreement {held:.4f} < 0.99")
     return launches, tps_u
+
+
+# swin-b's and swin-l's stages of a batch of 8 1024^2 tiles, as SWIN_STAGES
+SWIN_BL_STAGES = {
+    "swin-b": ((2, 128, 4, 256, 259), (2, 256, 8, 128, 133), (18, 512, 16, 64, 70),
+               (2, 1024, 32, 32, 35)),
+    "swin-l": ((2, 192, 6, 256, 259), (2, 384, 12, 128, 133), (18, 768, 24, 64, 70),
+               (2, 1536, 48, 32, 35))}
+SWIN_BL_WIDTHS = (128, 256, 512, 1024, 1536)  # the widths whose K1 and K3 builds they add
+SWIN_BL_CLASS_SHARE = 0.9  # the most of a swinbl slice's map that one class may take
+# bf16 rounding through 24 random blocks moves the logits by 0.007 on average (0.3 at most)
+# on both bf16 routes alike, so their maps part where two classes nearly tie (PERF.md,
+# section 6): the agreement held is over pixels whose top-2 gap exceeds SWIN_BL_NEAR_TIE,
+# and fp32 judges both routes
+SWIN_BL_NEAR_TIE = 0.01
+FP32_ROUTE_MARGIN = 1e-3  # of pixels: the kernel route's agreement with fp32 below the plain
+
+
+def swinbl_kernels(dev):
+    """K1 and K3 at swin-b's and swin-l's stage shapes: the new builds'
+    registers and spills (a spill fails), each stage shape in bf16 (K3 with
+    shift 0 and 3) against the plain version with the bound, the plain and the
+    stock-torch route's ms and the clock build's phase split; the new widths
+    also in fp32, a ragged M (K1) and a part-empty last block (K3); each
+    forward's sum (24 blocks).  Returns {kernel: {"C=..": numbers}}."""
+    import torch
+    from segland_tpu_torch.ops.fused_attn import section_plan
+    from segland_tpu_torch.ops.fused_mlp import ln_mlp_plan
+
+    build_attrs("segland_ln_mlp_attrs", SWIN_BL_WIDTHS, "K1")
+    build_attrs("segland_attn_section_attrs", SWIN_BL_WIDTHS, "K3")
+    rows = {"ln_mlp": {}, "attn_section": {}}
+    for bb, stages in SWIN_BL_STAGES.items():
+        sums = {name: [0.0, 0.0, 0.0] for name in ("K1", "K3")}  # kernel, plain, torch route
+        k1_bounds, k3_bounds = [], []
+        for i, (blocks, c, nh, side, pside) in enumerate(stages):
+            m, nw = BATCH * side * side, BATCH * (pside // 7) ** 2
+            plan = ln_mlp_plan(c, 4 * c)
+            print(f"K1 plan C={c}: rows {plan['rows']} a tile, warpgroups {plan['rg']} x "
+                  f"{plan['cg']}, passes {plan['np']}, hidden chunk {plan['hc']}, ring "
+                  f"{plan['s']} x {plan['slot_bytes'] // 1024} KB, y "
+                  f"{'streamed' if plan['stream_y'] else 'resident'}, smem {plan['smem']:,} B, "
+                  f"accumulator and fragment registers {plan['acc_regs']}", flush=True)
+            e, t, tp, tt = check_k1(dev, m, c, torch.bfloat16, 2e-2, 1e-2, 40 + i)
+            b = bound(16 * m * c * c, 3 * m * c * 2 + 8 * c * c * 2)
+            print(f"K1 {bb} stage {i} M={m} C={c}: kernel_ms={t:.4f} bound_ms={b[0]:.4f} "
+                  f"({b[1]}) share={b[0] / t:.3f}", flush=True)
+            rows["ln_mlp"][f"C={c} M={m}"] = dict(max_abs_err=e, ms=t, plain_ms=tp,
+                                                  torch_route_ms=tt, bound_ms=b[0],
+                                                  bound_by=b[1])
+            sums["K1"] = [a + blocks * v for a, v in zip(sums["K1"], (t, tp, tt))]
+            k1_bounds += [b] * blocks
+            plan = section_plan(c)
+            print(f"K3 plan C={c}: {plan['w']} windows a block ({plan['row_tiles']} m64 row tiles, "
+                  f"split by {plan['split']}, n{plan['n']}, last pass {plan['last_pass']} "
+                  f"columns), ring {plan['s']} x {plan['slot_bytes'] // 1024} KB, y "
+                  f"{'streamed' if plan['stream_y'] else 'resident'}, smem {plan['smem']:,} B, "
+                  f"accumulator registers {plan['acc_regs']}", flush=True)
+            t3 = tp3 = tt3 = e3 = 0.0
+            for shift in (0, 3):  # the blocks of a stage alternate
+                e, t, tp, tt = check_k3(dev, BATCH, c, nh, side, pside, shift, torch.bfloat16,
+                                        2e-2, 1e-2, 50 + i)
+                e3, t3, tp3, tt3 = max(e3, e), t3 + t / 2, tp3 + tp / 2, tt3 + tt / 2
+            b = bound(2 * nw * 49 * c * (4 * c + 2 * 49),
+                      2 * nw * 49 * c * 2 + 4 * c * c * 2 + nh * 49 * 49 * 4)
+            print(f"K3 {bb} stage {i} NW={nw} C={c}: kernel_ms={t3:.4f} (shift 0 and 3) "
+                  f"bound_ms={b[0]:.4f} ({b[1]}) share={b[0] / t3:.3f}", flush=True)
+            rows["attn_section"][f"C={c} NW={nw}"] = dict(max_abs_err=e3, ms=t3, plain_ms=tp3,
+                                                          torch_route_ms=tt3, bound_ms=b[0],
+                                                          bound_by=b[1])
+            sums["K3"] = [a + blocks * v for a, v in zip(sums["K3"], (t3, tp3, tt3))]
+            k3_bounds += [b] * blocks
+            if c in SWIN_BL_WIDTHS:  # the new builds in fp32 too (TF32 off)
+                check_k1(dev, 2 * side * side, c, torch.float32, 1e-4, 1e-4, 60 + i)
+                check_k3(dev, 1, c, nh, side, pside, 3, torch.float32, 1e-4, 1e-4, 70 + i)
+        for name, bounds in (("K1", k1_bounds), ("K3", k3_bounds)):
+            b_ms, b_by = sum_bounds(bounds)
+            ms, plain_ms, torch_ms = sums[name]
+            print(f"{name} per {bb} forward of {BATCH} tiles (24 blocks): kernel_ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} torch_route_ms={torch_ms:.4f} bound_ms={b_ms:.4f} "
+                  f"({b_by})", flush=True)
+    # a ragged M (K1: y's last 64-row box zero-filled by TMA where y streams) and a
+    # part-empty last block (K3: 49 windows at 4 and 81 at 2 a block)
+    for m, c in ((BATCH * 32 * 32 - 19, 1536), (BATCH * 64 * 64 - 19, 512)):
+        check_k1(dev, m, c, torch.bfloat16, 2e-2, 1e-2, 80, with_res=False, with_ls=False)
+    check_k3(dev, 1, 128, 4, 45, 49, 3, torch.bfloat16, 2e-2, 1e-2, 81)
+    check_k3(dev, 1, 256, 8, 60, 63, 3, torch.bfloat16, 2e-2, 1e-2, 82)
+    return rows
+
+
+def phase_swinbl(dev):
+    """swin_pop on swin-b and swin-l (the fused route, K3 then K1 in every
+    block): the kernels at their shapes (swinbl_kernels), then each model at
+    full width and depth through the eval slice as eval_base and as eval_ft run
+    it (K3 24, K1 24, K2 1 a batch; >= 99% agreement with the plain versions;
+    tiles/s and max_memory_allocated; fp32 card vs CPU), the unfused model's
+    tiles/s and, for swin-l, one batch through the use_pallas route (K6).
+    Returns (the kernels' numbers by width, launches by path)."""
+    import torch
+
+    rows = swinbl_kernels(dev)
+    torch.cuda.empty_cache()
+    per_batch = {"ln_mlp": 24, "upsample_argmax": 1, "attn_section": 24}
+    paths = {}
+    for bb, stages in SWIN_BL_STAGES.items():
+        spatial = sum(blocks * BATCH * side * side for blocks, _, _, side, _ in stages)
+        paths[f"swin_pop {bb} eval_base"], tps_f, tps_p = phase_slice(
+            dev, "swin_pop", per_batch, k1_rows=spatial, backbone=bb,
+            max_class_share=SWIN_BL_CLASS_SHARE, near_tie=SWIN_BL_NEAR_TIE)
+        torch.cuda.empty_cache()
+        paths[f"swin_pop {bb} eval_ft"], _, _ = phase_slice(
+            dev, "swin_pop", per_batch, is_ft=True, fp32_check=False, backbone=bb,
+            max_class_share=SWIN_BL_CLASS_SHARE, near_tie=SWIN_BL_NEAR_TIE)
+        torch.cuda.empty_cache()
+        if bb == "swin-l":
+            paths[f"swin_pop {bb} use_pallas"], tps_u = phase_swin_routes(dev, bb,
+                                                                          SWIN_BL_NEAR_TIE)
+        else:
+            _, _, tps_u = phase_unfused(dev, "swin_pop", bb)
+        torch.cuda.empty_cache()
+        print(f"swin_pop {bb} eval default: fused {tps_f:.2f} tiles/s, plain versions "
+              f"{tps_p:.2f}, unfused {tps_u:.2f}", flush=True)
+    return rows, paths
 
 
 GROUPS = (("K7 bottleneck_int8", ("bottleneck_conv1_kernel", "bottleneck_conv23_kernel")),
@@ -4062,10 +4265,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,train,ft,swin,"
-                            "deeplab,pspnet,seghr,heads,ensemble,dist",
+                            "swinbl,deeplab,pspnet,seghr,heads,ensemble,dist",
                     help="comma list of k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,train,ft,"
-                         "swin,deeplab,pspnet,seghr,heads,ensemble,dist (default: all "
-                         "twenty-two); "
+                         "swin,swinbl,deeplab,pspnet,seghr,heads,ensemble,dist (default: all "
+                         "twenty-three); "
                          "profile: a "
                          "torch.profiler "
                          "breakdown of the swin and deeplab_pop slices; dilated: cuDNN vs the "
@@ -4194,6 +4397,14 @@ def main(argv=None):
               f"attn_group={K5_MAIN_GROUP} {tps_g:.2f}, window-resident {tps_w:.2f}, "
               f"plain versions {tps_p:.2f}, unfused {tps_u:.2f}", flush=True)
 
+    if "swinbl" in phases:
+        by_width, p = phase_swinbl(dev)
+        paths.update(p)
+        for key, widths in by_width.items():
+            kern[key]["by_swin_bl_stage"] = widths
+            kern[key]["max_abs_err"] = max([kern[key].get("max_abs_err", 0.0)]
+                                           + [w["max_abs_err"] for w in widths.values()])
+        torch.cuda.empty_cache()
     if "k8" in phases:
         paths["conv3_probe"] = phase_conv3_probe()
         torch.cuda.empty_cache()

@@ -33,15 +33,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ENTRIES = {
-    # dtype, x, res, gamma, beta, w1, b1, w2, b2, ls, out, M, C, H, eps, device, stream
-    "segland_ln_mlp": [_I] + [_P] * 10 + [ctypes.c_longlong, _I, _I, ctypes.c_float,
+    # dtype, x, res, gamma, beta, w1, b1, w2, b2, ls, out, scratch, M, C, H, eps, device,
+    # stream
+    "segland_ln_mlp": [_I] + [_P] * 11 + [ctypes.c_longlong, _I, _I, ctypes.c_float,
                                           _I, _P],
     # logits, rlo, rhi, rw, clo, chi, cw, out, B, h, w, K, oh, ow, txt, ty, groups, kc,
     # prows, pcols, device, stream
     "segland_upsample_argmax": [_P] * 8 + [_I] * 13 + [_P],
-    # dtype, x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, out, NW, C, nh,
+    # dtype, x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, out, scratch, NW, C, nh,
     # h, w, hp, wp, ws, shift, eps, device, stream
-    "segland_attn_section": [_I] + [_P] * 9 + [ctypes.c_longlong] + [_I] * 8
+    "segland_attn_section": [_I] + [_P] * 10 + [ctypes.c_longlong] + [_I] * 8
                             + [ctypes.c_float, _I, _P],
     # dtype, qkv, bias_dtype, bias, out, NW, C, nh, nw_img, device, stream
     "segland_window_attention": [_I, _P, _I, _P, _P, ctypes.c_longlong] + [_I] * 4 + [_P],
@@ -78,9 +79,9 @@ _ENTRIES = {
     # segland_attn_section_v1, segland_hg_section, segland_hg2_section and
     # segland_section_variants (mode none), and K7's two int8 kernels, with phase clocks:
     # their arguments (without dtype), then clocks (uint64) before device and stream
-    "segland_ln_mlp_clocks": [_P] * 10 + [ctypes.c_longlong, _I, _I, ctypes.c_float, _P, _I,
+    "segland_ln_mlp_clocks": [_P] * 11 + [ctypes.c_longlong, _I, _I, ctypes.c_float, _P, _I,
                                           _P],
-    "segland_attn_section_clocks": [_P] * 9 + [ctypes.c_longlong] + [_I] * 8
+    "segland_attn_section_clocks": [_P] * 10 + [ctypes.c_longlong] + [_I] * 8
                                    + [ctypes.c_float, _P, _I, _P],
     "segland_swin_block_clocks": [_P] * 15 + [ctypes.c_longlong] + [_I] * 9
                                  + [ctypes.c_float, _P, _I, _P],

@@ -241,4 +241,119 @@ __device__ __forceinline__ void section_f32(
   }
 }
 
+// ---- fp32, y streamed (C >= 1024, where y [N, C] does not fit) ---------------
+constexpr int kKC = 64;  // y's columns a chunk
+
+// Shared memory of the streamed fp32 section, in floats: a chunk of y [N, kKC],
+// q/k/v 3 x [N, kLQF], S [N, kLSF], rowbuf [kRowsP, C], each row's mean,
+// 1/std and mask, then N region ids.
+__host__ __device__ constexpr size_t section_f32_stream_floats(int C) {
+  return (size_t)kN * kKC + 3 * kN * kLQF + kN * kLSF + (size_t)kRowsP * C + 3 * kN;
+}
+
+// qkv_head_f32 with y made a chunk of kKC columns at a time from the rows'
+// statistics (stats: mean, 1/std, mask, kN each), the same values and the same
+// k order as y held whole
+template <typename Store>
+__device__ __forceinline__ void qkv_head_f32_stream(const float* __restrict__ xw, int C, int h,
+                                                    const float* __restrict__ gamma,
+                                                    const float* __restrict__ beta,
+                                                    const float* stats, float* ych,
+                                                    const float* __restrict__ wqkv,
+                                                    const float* __restrict__ bqkv, Store dst) {
+  const int j = threadIdx.x % 96, grp = threadIdx.x / 96;
+  const int which = j / kHD, d = j % kHD;
+  const int col = which * C + h * kHD + d;
+  const int r0 = grp * kRowsA;
+  float acc[kRowsA];
+#pragma unroll
+  for (int i = 0; i < kRowsA; ++i) acc[i] = 0.0f;
+  for (int k0 = 0; k0 < C; k0 += kKC) {
+    __syncthreads();  // the chunk before is read
+    for (int i = threadIdx.x; i < kN * kKC; i += blockDim.x) {
+      const int r = i / kKC, c = k0 + i % kKC;
+      ych[i] = (((xw[(size_t)r * C + c] - stats[r]) * stats[kN + r]) * gamma[c] + beta[c]) *
+               stats[2 * kN + r];
+    }
+    __syncthreads();
+    if (threadIdx.x < 192) {
+      for (int k = 0; k < kKC; ++k) {
+        const float wv = wqkv[(size_t)(k0 + k) * 3 * C + col];
+#pragma unroll
+        for (int i = 0; i < kRowsA; ++i) {
+          const int r = r0 + i < kN ? r0 + i : kN - 1;
+          acc[i] += ych[r * kKC + k] * wv;
+        }
+      }
+    }
+  }
+  if (threadIdx.x < 192) {
+    const float b = bqkv[col];
+#pragma unroll
+    for (int i = 0; i < kRowsA; ++i)
+      if (r0 + i < kN) dst(which, r0 + i, d, acc[i] + b);
+  }
+}
+
+// section_f32 with y streamed: each row's statistics once, y a chunk at a time
+// in every head's q, k, v product
+template <typename Sink>
+__device__ __forceinline__ void section_f32_stream(
+    const float* __restrict__ xw, const float* __restrict__ gamma,
+    const float* __restrict__ beta, const float* __restrict__ wqkv,
+    const float* __restrict__ bqkv, const float* __restrict__ wproj,
+    const float* __restrict__ bproj, const float* __restrict__ bias, float* ow, int C,
+    long long win, const Geom& g, float eps, unsigned char* smem, Sink sink) {
+  float* ych = reinterpret_cast<float*>(smem);  // [N, kKC]
+  float* qs = ych + kN * kKC;                    // 3 x [N, kLQF]
+  float* S = qs + 3 * kN * kLQF;                 // [N, kLSF]
+  float* rowbuf = S + kN * kLSF;                 // [kRowsP, C]
+  float* stats = rowbuf + kRowsP * C;            // mean, 1/std, mask
+  uint8_t* rids = reinterpret_cast<uint8_t*>(stats + 3 * kN);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nh = C / kHD;
+  const float scale = rsqrtf((float)kHD);
+
+  for (int r = warp; r < kN; r += kWarps) {
+    int valid, rid;
+    token_geom((int)win, r, g, &valid, &rid);
+    const float* src = xw + (size_t)r * C;
+    float s = 0.0f, ss = 0.0f;
+    for (int c = lane; c < C; c += 32) {
+      const float v = src[c];
+      s += v;
+      ss += v * v;
+    }
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    const float mu = s / C;
+    const float var = fmaxf(ss / C - mu * mu, 0.0f);
+    if (lane == 0) {
+      rids[r] = (uint8_t)rid;
+      stats[r] = mu;
+      stats[kN + r] = rsqrtf(var + eps);
+      stats[2 * kN + r] = valid ? 1.0f : 0.0f;
+    }
+  }
+
+  for (int h = 0; h < nh; ++h) {
+    qkv_head_f32_stream(xw, C, h, gamma, beta, stats, ych, wqkv, bqkv,
+                        [&](int which, int row, int d, float v) {
+                          qs[which * kN * kLQF + row * kLQF + d] = v;
+                        });
+    __syncthreads();
+    attn_head_f32(qs, qs + kN * kLQF, qs + 2 * kN * kLQF, S, bias + (size_t)h * kN * kN,
+                  g.shift > 0 ? rids : nullptr, scale, ow + h * kHD, (size_t)C);
+  }
+
+  for (int r0 = 0; r0 < kN; r0 += kRowsP) {
+    for (int i = threadIdx.x; i < kRowsP * C; i += kThreads) rowbuf[i] = ow[(size_t)r0 * C + i];
+    __syncthreads();
+    proj_rows_f32(rowbuf, C, wproj, bproj, r0, [&](int row, int c, float v) {
+      sink(row, c, xw[(size_t)row * C + c] + v);
+    });
+    __syncthreads();
+  }
+}
+
 }  // namespace

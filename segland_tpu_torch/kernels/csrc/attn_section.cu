@@ -55,13 +55,36 @@
 // (nn.Linear's [out, in]).  The attention core and the setup (LN, the token
 // tables, each head's bias copy) now take most of a call (PERF.md, phase
 // clocks).
+// swin-b's and swin-l's widths.  C = 128 (4 windows, a producer warpgroup, as
+// C = 96), 256 (2 windows), 512 and 1024 (1 window; at 512 so that a 10-slot
+// ring fits: 2 windows would leave 3).  Where 96 does not divide C (128, 256,
+// 512, 1024) the projection's last pass takes the last C % 96 columns: its
+// 96-row TMA box reaches past C and is zero-filled, and the pass's wgmma is
+// n64 or n32 (halved, a warpgroup, with one row tile), so nothing past C is
+// multiplied.  At C = 1536 one window's y is 172 KB and leaves no room for a
+// ring, so y streams: the consumers write y = LN(x) * valid to the block's rows
+// of a device scratch (64 rows a window, zeros past the 49 real ones), make
+// the stores visible to TMA (fence.proxy.async) and arrive on a `ready`
+// mbarrier that the producer waits on; each ring slot then carries the
+// window's [64, 64] K tile of y beside the [96, 64] weight tile (20 KB, 8
+// slots).  The attention core writes the context to a second scratch instead
+// of the output rows, announced the same way, and the projection's slots carry
+// its K tiles.  That reads the window's y (64 rows, 192 KB) back from L2 once a
+// head, two thirds of the weight tiles' bytes, where the resident builds read
+// it from shared memory.
 // The fp32 build uses exact fp32 FMA loops (no TF32), one window a block,
-// and keeps ctx in the output buffer until the projection overwrites it.
+// and keeps ctx in the output buffer until the projection overwrites it; at
+// C >= 1024, where y [49, C] does not fit, it keeps each row's statistics and
+// makes y 64 columns at a time for every head's product
+// (attn_common.cuh:section_f32_stream).
 
-// segland-parts: 2
-// kernels/__init__.py compiles this file twice, -DSEGLAND_PART=0 (the entry
-// points of the served kernels) and 1 (segland_attn_section_clocks, the bf16
-// builds with phase clocks).
+// segland-parts: 4
+// kernels/__init__.py compiles this file four times, in parallel:
+// -DSEGLAND_PART=0 (the entry points, the fp32 bodies and the served bf16
+// builds at C = 96, 192, 384, 768), 1 (their builds with phase clocks, reached
+// through segland_attn_section_clocks), 2 (the served bf16 builds at swin-b's
+// and swin-l's C = 128, 256, 512, 1024, 1536) and 3 (theirs with phase
+// clocks).
 #ifndef SEGLAND_PART
 #define SEGLAND_PART 0
 #endif
@@ -69,6 +92,32 @@
 #include "attn_common.cuh"
 #include "section_geom.cuh"
 #include "sm90.cuh"
+
+// The bf16 launches cross parts: segland_attn_section (part 0) hands a build's
+// arguments to the part that instantiates it.
+namespace segland_k3 {
+struct SectionArgs {
+  const void* x;
+  const float *gamma, *beta;
+  const void* wqkvt;
+  const float* bqkv;
+  const void* wprojt;
+  const float *bproj, *bias;
+  void *out, *scratch;  // scratch: y's and the context's rows, for the builds that stream y
+  long long NW;
+  int C, h, w, hp, wp, ws, shift;
+  float eps;
+  cudaStream_t stream;
+  unsigned long long* clocks;
+};
+// the served build of a width in part section_part(C), its clock build in the next
+int launch_part0(const SectionArgs& a);
+int launch_part1(const SectionArgs& a);
+int launch_part2(const SectionArgs& a);
+int launch_part3(const SectionArgs& a);
+int attrs_part0(int C, int* regs, int* local_bytes, int* smem);
+int attrs_part2(int C, int* regs, int* local_bytes, int* smem);
+}  // namespace segland_k3
 
 namespace {
 
@@ -79,48 +128,61 @@ namespace {
 template <typename Pl, bool CLK>
 __global__ void __launch_bounds__(Pl::THREADS, 1)
 attn_section_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
-                          const __grid_constant__ CUtensorMap mp, const bf16* __restrict__ x,
+                          const __grid_constant__ CUtensorMap mp,
+                          const __grid_constant__ CUtensorMap my,
+                          const __grid_constant__ CUtensorMap mc, const bf16* __restrict__ x,
                           const float* __restrict__ gamma, const float* __restrict__ beta,
                           const float* __restrict__ bqkv, const float* __restrict__ bproj,
-                          const float* __restrict__ bias, bf16* __restrict__ out, long long NW,
-                          Geom geo, float eps, unsigned long long* __restrict__ clocks) {
+                          const float* __restrict__ bias, bf16* __restrict__ out,
+                          bf16* __restrict__ scratch, long long NW, Geom geo, float eps,
+                          unsigned long long* __restrict__ clocks) {
   constexpr int W = Pl::W, S = Pl::S;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));  // swizzle atoms
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + Pl::OFF_BAR);  // then the empty ones
+  uint64_t* ready = full + 2 * S;  // Pl::YS: y written, then the context
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
       sm90::mbar_init(&full[s], 1);
       sm90::mbar_init(&full[S + s], 2);
     }
+    if constexpr (Pl::YS) sm90::mbar_init(ready, 1);
     sm90::mbar_init_fence();
   }
   __syncthreads();
+  const long long win0 = (long long)blockIdx.x * W;
 
   if (threadIdx.x >= 256) {
     // ---- producer: one thread streams every product's weight columns ---------------
     if constexpr (Pl::RR) sm90::regs_dec<sm90::kProducerRegs>();
     if (threadIdx.x == 256) {
       sm90::RingFill<Pl::SLOT, S> fill = {smem, full, 0, 0u};
-      produce_section<Pl>(fill, &mq, &mp);
+      if constexpr (Pl::YS)
+        produce_section_ys<Pl>(fill, &mq, &mp, &my, &mc, (int)(win0 * 64), ready);
+      else
+        produce_section<Pl>(fill, &mq, &mp);
     }
     return;
   }
 
   // ---- consumers: 8 warps --------------------------------------------------------
   if constexpr (Pl::RR) sm90::regs_inc<sm90::kConsumerRegs>();
-  const long long win0 = (long long)blockIdx.x * W;
   const int nwin = (int)((NW - win0) < (long long)W ? (NW - win0) : (long long)W);
   sm90::Ring<Pl::SLOT, S> q = {smem, full, 0, -1, 0u};
   sm90::PhaseClocks<CLK, kClkPhases> clk;
   clk.start();
+  // Pl::YS: the scratch holds y's rows, then the context's, 64 a window
+  bf16* ysg = Pl::YS ? scratch + (size_t)win0 * 64 * Pl::C : nullptr;
+  bf16* csg = Pl::YS ? scratch + ((size_t)NW + win0) * 64 * Pl::C : nullptr;
   geom_section<Pl>(q, smem, x + (size_t)win0 * kN * Pl::C, out + (size_t)win0 * kN * Pl::C,
-                   nwin * kN, win0, geo, gamma, beta, bqkv, bproj, bias, eps, clk);
+                   nwin * kN, win0, geo, gamma, beta, bqkv, bproj, bias, eps, clk, csg, ysg,
+                   ready);
   clk.flush(clocks);
 }
 
-// ---- fp32: exact FMA loops --------------------------------------------------
+// ---- fp32: exact FMA loops (STREAM: y a chunk at a time, C >= 1024) ------------
+template <bool STREAM>
 __global__ void __launch_bounds__(kThreads)
 attn_section_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
                         const float* __restrict__ beta, const float* __restrict__ wqkv,
@@ -130,27 +192,54 @@ attn_section_f32_kernel(const float* __restrict__ x, const float* __restrict__ g
   extern __shared__ __align__(128) unsigned char smem[];
   const long long win = blockIdx.x;
   float* ow = out + (size_t)win * kN * C;
-  section_f32(x + (size_t)win * kN * C, gamma, beta, wqkv, bqkv, wproj, bproj, bias, ow, C, win,
-              g, eps, smem, [&](int row, int c, float v) { ow[(size_t)row * C + c] = v; });
+  auto sink = [&](int row, int c, float v) { ow[(size_t)row * C + c] = v; };
+  if constexpr (STREAM)
+    section_f32_stream(x + (size_t)win * kN * C, gamma, beta, wqkv, bqkv, wproj, bproj, bias, ow,
+                       C, win, g, eps, smem, sink);
+  else
+    section_f32(x + (size_t)win * kN * C, gamma, beta, wqkv, bqkv, wproj, bproj, bias, ow, C,
+                win, g, eps, smem, sink);
+}
+
+template <bool STREAM>
+cudaError_t launch_section_f32(const float* x, const float* gamma, const float* beta,
+                               const float* wqkv, const float* bqkv, const float* wproj,
+                               const float* bproj, const float* bias, float* out, long long NW,
+                               int C, Geom g, float eps, cudaStream_t stream) {
+  const size_t smem =
+      (STREAM ? section_f32_stream_floats(C) : section_f32_floats(C)) * sizeof(float) + 128;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = attn_section_f32_kernel<STREAM>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)NW, kThreads, smem, stream>>>(x, gamma, beta, wqkv, bqkv, wproj, bproj,
+                                                   bias, out, C, g, eps);
+  return cudaGetLastError();
 }
 
 template <typename Pl, bool CLK>
-cudaError_t launch_section_bf16(const void* x, const float* gamma, const float* beta,
-                                const void* wqkvt, const float* bqkv, const void* wprojt,
-                                const float* bproj, const float* bias, void* out, long long NW,
-                                Geom g, float eps, cudaStream_t stream,
-                                unsigned long long* clocks = nullptr) {
-  CUtensorMap mq, mp;
-  cudaError_t err = sm90::tile_map(&mq, wqkvt, 3 * (uint64_t)Pl::C, Pl::C, 32);
+cudaError_t launch_section_bf16(const segland_k3::SectionArgs& a) {
+  CUtensorMap mq, mp, my{}, mc{};
+  cudaError_t err = sm90::tile_map(&mq, a.wqkvt, 3 * (uint64_t)Pl::C, Pl::C, 32);
   if (err != cudaSuccess) return err;
-  err = sm90::tile_map(&mp, wprojt, Pl::C, Pl::C, 96);
+  err = sm90::tile_map(&mp, a.wprojt, Pl::C, Pl::C, 96);
   if (err != cudaSuccess) return err;
+  if constexpr (Pl::YS) {
+    // y's rows then the context's, 64 a window, [2 * NW * 64, C]
+    if (!a.scratch) return cudaErrorInvalidValue;
+    const bf16* ctx = (const bf16*)a.scratch + (size_t)a.NW * 64 * Pl::C;
+    err = sm90::tile_map(&my, a.scratch, (uint64_t)a.NW * 64, Pl::C, 64);
+    if (err == cudaSuccess) err = sm90::tile_map(&mc, ctx, (uint64_t)a.NW * 64, Pl::C, 64);
+    if (err != cudaSuccess) return err;
+  }
   auto kernel = attn_section_wgmma_kernel<Pl, CLK>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Pl::SMEM);
   if (err != cudaSuccess) return err;
-  const unsigned grid = (unsigned)((NW + Pl::W - 1) / Pl::W);
-  kernel<<<grid, Pl::THREADS, Pl::SMEM, stream>>>(mq, mp, (const bf16*)x, gamma, beta, bqkv,
-                                                   bproj, bias, (bf16*)out, NW, g, eps, clocks);
+  const unsigned grid = (unsigned)((a.NW + Pl::W - 1) / Pl::W);
+  kernel<<<grid, Pl::THREADS, Pl::SMEM, a.stream>>>(
+      mq, mp, my, mc, (const bf16*)a.x, a.gamma, a.beta, a.bqkv, a.bproj, a.bias, (bf16*)a.out,
+      (bf16*)a.scratch, a.NW, Geom{a.h, a.w, a.hp, a.wp, a.ws, a.shift}, a.eps, a.clocks);
   return cudaGetLastError();
 }
 
@@ -159,79 +248,143 @@ cudaError_t launch_section_bf16(const void* x, const float* gamma, const float* 
 // The bf16 builds, <C, W, S, RR> (ops/fused_attn.py:SECTION_BUILDS).
 #define SEGLAND_SECTION_BUILDS(X) \
   X(96, 4, 4, 1)                  \
+  X(128, 4, 5, 1)                 \
   X(192, 2, 6, 0)                 \
+  X(256, 2, 7, 0)                 \
   X(384, 2, 4, 0)                 \
-  X(768, 1, 6, 0)
+  X(512, 1, 10, 0)                \
+  X(768, 1, 6, 0)                 \
+  X(1024, 1, 5, 0)                \
+  X(1536, 1, 8, 0)
+
+namespace {
+
+// the part that compiles a width's served build: swin-t/s's widths 0, swin-b's
+// and swin-l's 2 (their clock builds in parts 1 and 3)
+constexpr int section_part(int c) {
+  return (c == 96 || c == 192 || c == 384 || c == 768) ? 0 : 2;
+}
+
+// build <c, ...> launched from part P: its served build in part
+// section_part(c), its clock build in the part after it; elsewhere not
+// instantiated
+template <int P, int c, int w, int st, int rr>
+int launch_in_part(const segland_k3::SectionArgs& a) {
+  if constexpr (section_part(c) == (P & ~1))
+    return (int)launch_section_bf16<SecPlan<c, w, st, rr>, (P & 1) != 0>(a);
+  else
+    return (int)cudaErrorInvalidValue;
+}
+
+template <int P, int c, int w, int st, int rr>
+int attrs_in_part(int* regs, int* local_bytes, int* smem) {
+  if constexpr (section_part(c) == P) {
+    typedef SecPlan<c, w, st, rr> Pl;
+    cudaFuncAttributes fa;
+    const cudaError_t err = cudaFuncGetAttributes(&fa, attn_section_wgmma_kernel<Pl, false>);
+    if (err != cudaSuccess) return (int)err;
+    *regs = fa.numRegs;
+    *local_bytes = (int)fa.localSizeBytes;
+    *smem = (int)Pl::SMEM;
+    return 0;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+#define SEGLAND_CAT2(a, b) a##b
+#define SEGLAND_CAT(a, b) SEGLAND_CAT2(a, b)
+
+int segland_k3::SEGLAND_CAT(launch_part, SEGLAND_PART)(const SectionArgs& a) {
+  switch (a.C) {
+#define SEGLAND_CASE(c, w, st, rr) \
+  case c: return launch_in_part<SEGLAND_PART, c, w, st, rr>(a);
+    SEGLAND_SECTION_BUILDS(SEGLAND_CASE)
+#undef SEGLAND_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+#if SEGLAND_PART == 0 || SEGLAND_PART == 2
+int segland_k3::SEGLAND_CAT(attrs_part, SEGLAND_PART)(int C, int* regs, int* local_bytes,
+                                                      int* smem) {
+  switch (C) {
+#define SEGLAND_CASE(c, w, st, rr) \
+  case c: return attrs_in_part<SEGLAND_PART, c, w, st, rr>(regs, local_bytes, smem);
+    SEGLAND_SECTION_BUILDS(SEGLAND_CASE)
+#undef SEGLAND_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+#endif
 
 #if SEGLAND_PART == 0
+namespace {
+// the bf16 build at width C, its served build or (clocks) its clock build
+int launch_build(const segland_k3::SectionArgs& a, bool clocks) {
+  switch (section_part(a.C) + (clocks ? 1 : 0)) {
+    case 0: return segland_k3::launch_part0(a);
+    case 1: return segland_k3::launch_part1(a);
+    case 2: return segland_k3::launch_part2(a);
+    default: return segland_k3::launch_part3(a);
+  }
+}
+
+bool bad_shape(int C, int nh, int hp, int wp, int ws, int shift) {
+  return ws * ws != kN || nh * kHD != C || hp % ws || wp % ws || shift < 0 || shift >= ws;
+}
+}  // namespace
+
 // dtype: 0 = float32, 1 = bfloat16 (x, wqkv, wproj, out); vectors and bias
 // [nh, N, N] are fp32.  fp32 weights are input-major (wqkv [C, 3C], wproj
 // [C, C]); bf16 weights K-major (wqkv^T [3C, C], wproj^T [C, C]: nn.Linear's
 // [out, in]).  Windows of 7 x 7 tokens and heads of 32 only; bf16 has builds
-// for C in {96, 192, 384, 768}.  Returns a cudaError_t.
+// for C in {96, 128, 192, 256, 384, 512, 768, 1024, 1536}; scratch is bf16
+// [2 * NW * 64, C] for the build that streams y (C = 1536,
+// ops/fused_attn.py:section_plan's "stream_y"), else null.  Returns a
+// cudaError_t.
 extern "C" int segland_attn_section(int dtype, const void* x, const void* gamma,
                                     const void* beta, const void* wqkv, const void* bqkv,
                                     const void* wproj, const void* bproj, const void* bias,
-                                    void* out, long long NW, int C, int nh, int h, int w, int hp,
-                                    int wp, int ws, int shift, float eps, int device,
-                                    void* stream) {
+                                    void* out, void* scratch, long long NW, int C, int nh, int h,
+                                    int w, int hp, int wp, int ws, int shift, float eps,
+                                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (ws * ws != kN || nh * kHD != C || hp % ws || wp % ws || shift < 0 || shift >= ws)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(C, nh, hp, wp, ws, shift)) return (int)cudaErrorInvalidValue;
   if (NW <= 0) return (int)cudaSuccess;
-  if (NW > 2147483647LL / kN) return (int)cudaErrorInvalidValue;
+  if (NW > 2147483647LL / 64) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  Geom g = {h, w, hp, wp, ws, shift};
   const float* ga = (const float*)gamma;
   const float* be = (const float*)beta;
   const float* bq = (const float*)bqkv;
   const float* bp = (const float*)bproj;
   const float* bi = (const float*)bias;
-#define SEGLAND_ARGS x, ga, be, wqkv, bq, wproj, bp, bi, out, NW, g, eps, s
   if (dtype == 1) {
-    switch (C) {
-#define SEGLAND_CASE(c, w, st, rr) \
-  case c: return (int)launch_section_bf16<SecPlan<c, w, st, rr>, false>(SEGLAND_ARGS);
-      SEGLAND_SECTION_BUILDS(SEGLAND_CASE)
-#undef SEGLAND_CASE
-      default: return (int)cudaErrorInvalidValue;
-    }
+    const segland_k3::SectionArgs a = {x,  ga, be, wqkv, bq, wproj, bp,    bi,  out, scratch, NW,
+                                       C,  h,  w,  hp,   wp, ws,    shift, eps, s,   nullptr};
+    return launch_build(a, false);
   }
-#undef SEGLAND_ARGS
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = section_f32_floats(C) * sizeof(float) + 128;
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(attn_section_f32_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attn_section_f32_kernel<<<(unsigned)NW, kThreads, smem, s>>>(
-      (const float*)x, ga, be, (const float*)wqkv, bq, (const float*)wproj, bp, bi, (float*)out,
-      C, g, eps);
-  return (int)cudaGetLastError();
+  const Geom g = {h, w, hp, wp, ws, shift};
+  // y [N, C] resident where it fits, else streamed a chunk at a time (C >= 1024)
+  const bool streamed = section_f32_floats(C) * sizeof(float) + 128 > kMaxSmem;
+  const float *xf = (const float*)x, *wq = (const float*)wqkv, *wp_ = (const float*)wproj;
+  return (int)(streamed ? launch_section_f32<true>(xf, ga, be, wq, bq, wp_, bp, bi, (float*)out,
+                                                 NW, C, g, eps, s)
+                        : launch_section_f32<false>(xf, ga, be, wq, bq, wp_, bp, bi,
+                                                    (float*)out, NW, C, g, eps, s));
 }
 
 // Registers a thread at launch, local (spill) bytes and dynamic shared memory
 // of the bf16 build at width C, by cudaFuncGetAttributes.
 extern "C" int segland_attn_section_attrs(int C, int* regs, int* local_bytes, int* smem) {
-  cudaFuncAttributes a;
-  cudaError_t err = cudaErrorInvalidValue;
-  switch (C) {
-#define SEGLAND_CASE(c, w, st, rr)                                              \
-  case c:                                                                       \
-    err = cudaFuncGetAttributes(&a, attn_section_wgmma_kernel<SecPlan<c, w, st, rr>, false>); \
-    *smem = (int)SecPlan<c, w, st, rr>::SMEM;                                   \
-    break;
-    SEGLAND_SECTION_BUILDS(SEGLAND_CASE)
-#undef SEGLAND_CASE
-    default: break;
-  }
-  if (err != cudaSuccess) return (int)err;
-  *regs = a.numRegs;
-  *local_bytes = (int)a.localSizeBytes;
-  return 0;
+  return section_part(C) == 0 ? segland_k3::attrs_part0(C, regs, local_bytes, smem)
+                              : segland_k3::attrs_part2(C, regs, local_bytes, smem);
 }
-#else
+
 // The bf16 kernel of segland_attn_section with its consumers' clock64() time by
 // phase (setup, ring wait, wgmma, q/k/v epilogue, attention core, context copy,
 // output epilogue) added to clocks[0..7) and the count of consumer warpgroups
@@ -239,25 +392,35 @@ extern "C" int segland_attn_section_attrs(int C, int* regs, int* local_bytes, in
 extern "C" int segland_attn_section_clocks(const void* x, const void* gamma, const void* beta,
                                            const void* wqkv, const void* bqkv, const void* wproj,
                                            const void* bproj, const void* bias, void* out,
-                                           long long NW, int C, int nh, int h, int w, int hp,
-                                           int wp, int ws, int shift, float eps, void* clocks,
-                                           int device, void* stream) {
+                                           void* scratch, long long NW, int C, int nh, int h,
+                                           int w, int hp, int wp, int ws, int shift, float eps,
+                                           void* clocks, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (ws * ws != kN || nh * kHD != C || hp % ws || wp % ws || shift < 0 || shift >= ws)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(C, nh, hp, wp, ws, shift)) return (int)cudaErrorInvalidValue;
   if (NW <= 0) return (int)cudaSuccess;
-  const Geom g = {h, w, hp, wp, ws, shift};
-  switch (C) {
-#define SEGLAND_CASE(c, w_, st, rr)                                                            \
-  case c:                                                                                      \
-    return (int)launch_section_bf16<SecPlan<c, w_, st, rr>, true>(                             \
-        x, (const float*)gamma, (const float*)beta, wqkv, (const float*)bqkv, wproj,           \
-        (const float*)bproj, (const float*)bias, out, NW, g, eps, (cudaStream_t)stream,        \
-        (unsigned long long*)clocks);
-    SEGLAND_SECTION_BUILDS(SEGLAND_CASE)
-#undef SEGLAND_CASE
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (NW > 2147483647LL / 64) return (int)cudaErrorInvalidValue;
+  const segland_k3::SectionArgs a = {x,
+                                     (const float*)gamma,
+                                     (const float*)beta,
+                                     wqkv,
+                                     (const float*)bqkv,
+                                     wproj,
+                                     (const float*)bproj,
+                                     (const float*)bias,
+                                     out,
+                                     scratch,
+                                     NW,
+                                     C,
+                                     h,
+                                     w,
+                                     hp,
+                                     wp,
+                                     ws,
+                                     shift,
+                                     eps,
+                                     (cudaStream_t)stream,
+                                     (unsigned long long*)clocks};
+  return launch_build(a, true);
 }
-#endif  // SEGLAND_PART
+#endif  // SEGLAND_PART == 0

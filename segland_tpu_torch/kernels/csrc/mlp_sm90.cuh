@@ -9,6 +9,8 @@
 // warpgroups; mlp_item then walks the hidden dimension chunk by chunk and
 // writes out = T(res + T(T(T(y @ w1 ...) @ w2) + T(b2)) * T(ls)).  The producer
 // streams each item's tiles with produce_item, in the order mlp_item takes them.
+// Where y does not fit resident (K1 at C = 1536), y is in device memory and
+// produce_item_ys / mlp_item_ys carry its K tiles through the ring beside w1's.
 
 #pragma once
 
@@ -21,10 +23,13 @@ typedef __nv_bfloat16 bf16;
 
 // The tile arithmetic of a build: RG consumer warpgroups down the rows, CG
 // across the output columns (RG * CG = 2), NP passes over the output columns,
-// HS hidden columns a warpgroup and chunk.
-template <int C_, int RG_, int CG_, int NP_, int HS_>
+// HS hidden columns a warpgroup and chunk; YS: y streamed through the ring
+// (each first-product slot holds a K tile of y beside the chunk's w1 tiles,
+// each second-product slot the CG warpgroups' w2 tiles) instead of resident.
+template <int C_, int RG_, int CG_, int NP_, int HS_, bool YS_ = false>
 struct MlpTiles {
   static constexpr int C = C_, RG = RG_, CG = CG_, NP = NP_, HS = HS_;
+  static constexpr bool YS = YS_;
   static constexpr int NWG = RG * CG;            // consumer warpgroups
   static constexpr int BM = 64 * RG;             // rows a work item
   static constexpr int HC = CG * HS;             // hidden columns a chunk
@@ -39,7 +44,10 @@ struct MlpTiles {
   static constexpr bool HREG = CG == 1;          // h stays in registers
   static constexpr int TILE = 8192;              // a weight tile: [64 rows, 64 bf16]
   static constexpr size_t H_BYTES = HREG ? 0 : (size_t)RG * 2 * KT2 * TILE;  // h, double-buffered
+  static constexpr int SLOT = YS ? (1 + CG * NT1) * TILE : TILE;  // bytes a ring slot
   static_assert(NWG == 2, "two consumer warpgroups and a producer");
+  static_assert(!YS || (RG == 1 && CG == 2 && NT1 == 1 && C % 64 == 0),
+                "a streamed y: one row group, two column groups, one n tile of h each");
   static_assert(C % 32 == 0 && HS % 64 == 0 && C % (NP * CG) == 0, "tile shapes");
   static_assert(LW == 64 || LW == 32, "the last output tile is n64 or n32");
   static_assert(HREG || LW == 64, "the shared-h path takes whole n64 tiles");
@@ -83,11 +91,104 @@ __device__ __forceinline__ void produce_item(Fill& fill, const CUtensorMap* m1,
   }
 }
 
+// produce_item where y is streamed (Ml::YS): a chunk's slots hold, K tile by K
+// tile, y's [64 rows, 64] tile (rows row0.. of my, zero-filled past M) and the
+// CG warpgroups' w1 tiles, then, n tile by n tile, the CG warpgroups' w2 tiles.
+template <typename Ml, typename Fill>
+__device__ __forceinline__ void produce_item_ys(Fill& fill, const CUtensorMap* m1,
+                                                const CUtensorMap* m2, const CUtensorMap* my,
+                                                int row0, int p, int nch) {
+  constexpr int TILE = Ml::TILE;
+#pragma unroll 1
+  for (int j = 0; j < nch; ++j) {
+#pragma unroll 1
+    for (int kt = 0; kt < Ml::KT1; ++kt) {
+      unsigned char* dst = fill.next((1 + Ml::CG) * TILE);
+      sm90::tma_load_2d(dst, my, fill.bar(), kt * 64, row0);
+      for (int g = 0; g < Ml::CG; ++g)
+        sm90::tma_load_2d(dst + (1 + g) * TILE, m1, fill.bar(), kt * 64, j * Ml::HC + g * Ml::HS);
+      fill.advance();
+    }
+#pragma unroll 1
+    for (int i = 0; i < Ml::KT2 * Ml::NT2; ++i) {
+      const int kt = i / Ml::NT2, n = i % Ml::NT2;
+      unsigned char* dst = fill.next(Ml::CG * TILE);
+      for (int g = 0; g < Ml::CG; ++g)
+        sm90::tma_load_2d(dst + g * TILE, m2, fill.bar(), j * Ml::HC + kt * 64,
+                          p * Ml::CP + g * Ml::CS + n * 64);
+      fill.advance();
+    }
+  }
+}
+
 // Which phase of the caller's PhaseClocks each part of an item adds to.
 template <int WAIT, int MMA, int H, int OUT>
 struct ItemClocks {
   static constexpr int wait = WAIT, mma = MMA, h = H, out = OUT;
 };
+
+// h[:, chunk j] = T(gelu(T(T(acc1) + T(b1)))) of column group cg, swizzled
+// into the chunk's h tile hb (the shared-h path, CG > 1)
+template <typename Ml>
+__device__ __forceinline__ void h_store(const float (&acc1)[Ml::NT1][32], unsigned char* hb,
+                                        int cg, int j, const float* __restrict__ b1) {
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int n = 0; n < Ml::NT1; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int c = cg * Ml::HS + n * 64 + (i / 4) * 8 + (lane % 4) * 2;  // in the chunk
+      const int r = warp * 16 + lane / 4 + 8 * ((i / 2) % 2);
+      const float2 bb = *reinterpret_cast<const float2*>(b1 + j * Ml::HC + c);
+      *reinterpret_cast<uint32_t*>(hb + (c / 64) * Ml::TILE + sm90::sw128(r, c % 64)) =
+          sm90::pack_bf16(bias_gelu(acc1[n][i], bb.x), bias_gelu(acc1[n][i + 1], bb.y));
+    }
+}
+
+// out = T(res + T(T(T(acc2) + T(b2)) * T(ls))) at pass p's columns of column
+// group cg, rows row0.. (row stride C), rows past M masked; a 64-column tile's
+// residual pairs are all loaded before the first is used
+template <typename Ml>
+__device__ __forceinline__ void mlp_out(const float (&acc2)[Ml::NT2][32], int p, int cg,
+                                        const float* __restrict__ b2,
+                                        const float* __restrict__ ls, const bf16* res, bf16* out,
+                                        long long row0, long long M) {
+  constexpr int C = Ml::C;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int n = 0; n < Ml::NT2; ++n) {
+    uint32_t rv[16];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int cl = n * 64 + (i / 4) * 8 + (lane % 4) * 2;
+      const long long row = row0 + warp * 16 + lane / 4 + 8 * ((i / 2) % 2);
+      rv[i / 2] = 0u;
+      if (cl < Ml::CS && row < M)
+        rv[i / 2] = *reinterpret_cast<const uint32_t*>(
+            res + (size_t)row * C + p * Ml::CP + cg * Ml::CS + cl);
+    }
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int cl = n * 64 + (i / 4) * 8 + (lane % 4) * 2;
+      const long long row = row0 + warp * 16 + lane / 4 + 8 * ((i / 2) % 2);
+      if (cl < Ml::CS && row < M) {
+        const int col = p * Ml::CP + cg * Ml::CS + cl;
+        const float2 bb = *reinterpret_cast<const float2*>(b2 + col);
+        float o0 = sm90::round_bf16(sm90::round_bf16(acc2[n][i]) + sm90::round_bf16(bb.x));
+        float o1 = sm90::round_bf16(sm90::round_bf16(acc2[n][i + 1]) + sm90::round_bf16(bb.y));
+        if (ls) {
+          const float2 l = *reinterpret_cast<const float2*>(ls + col);
+          o0 = sm90::round_bf16(o0 * sm90::round_bf16(l.x));
+          o1 = sm90::round_bf16(o1 * sm90::round_bf16(l.y));
+        }
+        const float2 r =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rv[i / 2]));
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * C + col) =
+            __floats2bfloat162_rn(r.x + o0, r.y + o1);
+      }
+    }
+  }
+}
 
 // One work item by one consumer warpgroup (column group cg of its row group):
 // ys is this warpgroup's 64 rows of y, K tiles YK bytes apart; hs the row
@@ -102,8 +203,8 @@ __device__ __forceinline__ void mlp_item(sm90::Ring<B, S>& q, const unsigned cha
                                          const float* __restrict__ b2,
                                          const float* __restrict__ ls, const bf16* res, bf16* out,
                                          long long row0, long long M, Clk& clk) {
-  constexpr int C = Ml::C, TILE = Ml::TILE;
-  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  constexpr int TILE = Ml::TILE;
+  const int lane = threadIdx.x % 32;
   float acc2[Ml::NT2][32];
 #pragma unroll
   for (int n = 0; n < Ml::NT2; ++n)
@@ -197,16 +298,7 @@ __device__ __forceinline__ void mlp_item(sm90::Ring<B, S>& q, const unsigned cha
       sm90::reg_fence(ha);
     } else {
       unsigned char* hb = hs + (size_t)(hbuf & 1u) * Ml::KT2 * TILE;
-#pragma unroll
-      for (int n = 0; n < Ml::NT1; ++n)
-#pragma unroll
-        for (int i = 0; i < 32; i += 2) {
-          const int c = cg * Ml::HS + n * 64 + (i / 4) * 8 + (lane % 4) * 2;  // in the chunk
-          const int r = warp * 16 + lane / 4 + 8 * ((i / 2) % 2);
-          const float2 bb = *reinterpret_cast<const float2*>(b1 + j * Ml::HC + c);
-          *reinterpret_cast<uint32_t*>(hb + (c / 64) * TILE + sm90::sw128(r, c % 64)) =
-              sm90::pack_bf16(bias_gelu(acc1[n][i], bb.x), bias_gelu(acc1[n][i + 1], bb.y));
-        }
+      h_store<Ml>(acc1, hb, cg, j, b1);
       sm90::fence_async_smem();
       sm90::named_sync(bar_id, bar_n);  // the chunk's h, whole
       clk.template lap<Ph::h>();
@@ -246,41 +338,93 @@ __device__ __forceinline__ void mlp_item(sm90::Ring<B, S>& q, const unsigned cha
     for (int n = 0; n < Ml::NT2; ++n) sm90::reg_fence(acc2[n]);
   }
 
-  // out = T(res + T(T(T(acc2) + T(b2)) * T(ls))), rows past M masked; a
-  // 64-column tile's residual pairs are all loaded before the first is used
+  mlp_out<Ml>(acc2, p, cg, b2, ls, res, out, row0, M);
+  clk.template lap<Ph::out>();
+}
+
+// mlp_item where y is streamed (Ml::YS, one row group of 64 rows, two column
+// groups): each first-product slot holds y's K tile at its start and the
+// column groups' w1 tiles after it, each second-product slot the column
+// groups' w2 tiles, so both warpgroups take every slot and read their part.
+// The h tile is shared as in mlp_item's shared-h path.
+template <typename Ml, typename Ph, int B, int S, typename Clk>
+__device__ __forceinline__ void mlp_item_ys(sm90::Ring<B, S>& q, unsigned char* hs,
+                                            uint32_t& hbuf, int cg, int bar_id, int bar_n,
+                                            int nch, int p, const float* __restrict__ b1,
+                                            const float* __restrict__ b2,
+                                            const float* __restrict__ ls, const bf16* res,
+                                            bf16* out, long long row0, long long M, Clk& clk) {
+  constexpr int TILE = Ml::TILE;
+  static_assert(Ml::YS && B == Ml::SLOT, "the streamed-y ring");
+  float acc2[Ml::NT2][32];
 #pragma unroll
-  for (int n = 0; n < Ml::NT2; ++n) {
-    uint32_t rv[16];
+  for (int n = 0; n < Ml::NT2; ++n)
 #pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int cl = n * 64 + (i / 4) * 8 + (lane % 4) * 2;
-      const long long row = row0 + warp * 16 + lane / 4 + 8 * ((i / 2) % 2);
-      rv[i / 2] = 0u;
-      if (cl < Ml::CS && row < M)
-        rv[i / 2] = *reinterpret_cast<const uint32_t*>(
-            res + (size_t)row * C + p * Ml::CP + cg * Ml::CS + cl);
+    for (int i = 0; i < 32; ++i) acc2[n][i] = 0.0f;
+
+#pragma unroll 1
+  for (int j = 0; j < nch; ++j) {
+    // h[:, chunk] = y @ w1[:, chunk], y's K tiles from the ring
+    float acc1[1][32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc1[0][i] = 0.0f;
+    sm90::reg_fence(acc1[0]);
+#pragma unroll 1
+    for (int kt = 0; kt < Ml::KT1; ++kt) {
+      clk.template lap<Ph::mma>();
+      unsigned char* b = sm90::ring_take(q);
+      clk.template lap<Ph::wait>();
+      const uint64_t da = sm90::desc_sw128(b);
+      const uint64_t db = sm90::desc_sw128(b + (1 + cg) * TILE);
+      sm90::reg_fence(acc1[0]);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        sm90::wgmma_ss_n64(acc1[0], sm90::desc_step(da, ks), sm90::desc_step(db, ks), 1);
+      sm90::wgmma_commit();
+      sm90::ring_used(q);
+      sm90::reg_fence(acc1[0]);
+      sm90::ring_next(q);
     }
+    sm90::ring_drain(q);
+    clk.template lap<Ph::mma>();
+    sm90::reg_fence(acc1[0]);
+
+    // the bias and GELU epilogue into the shared h tile, then acc2 += h @ w2[chunk, :]
+    unsigned char* hb = hs + (size_t)(hbuf & 1u) * Ml::KT2 * TILE;
+    h_store<Ml>(acc1, hb, cg, j, b1);
+    sm90::fence_async_smem();
+    sm90::named_sync(bar_id, bar_n);  // the chunk's h, whole
+    clk.template lap<Ph::h>();
 #pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int cl = n * 64 + (i / 4) * 8 + (lane % 4) * 2;
-      const long long row = row0 + warp * 16 + lane / 4 + 8 * ((i / 2) % 2);
-      if (cl < Ml::CS && row < M) {
-        const int col = p * Ml::CP + cg * Ml::CS + cl;
-        const float2 bb = *reinterpret_cast<const float2*>(b2 + col);
-        float o0 = sm90::round_bf16(sm90::round_bf16(acc2[n][i]) + sm90::round_bf16(bb.x));
-        float o1 = sm90::round_bf16(sm90::round_bf16(acc2[n][i + 1]) + sm90::round_bf16(bb.y));
-        if (ls) {
-          const float2 l = *reinterpret_cast<const float2*>(ls + col);
-          o0 = sm90::round_bf16(o0 * sm90::round_bf16(l.x));
-          o1 = sm90::round_bf16(o1 * sm90::round_bf16(l.y));
-        }
-        const float2 r =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rv[i / 2]));
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * C + col) =
-            __floats2bfloat162_rn(r.x + o0, r.y + o1);
+    for (int n = 0; n < Ml::NT2; ++n) sm90::reg_fence(acc2[n]);
+#pragma unroll
+    for (int kt = 0; kt < Ml::KT2; ++kt) {
+      const uint64_t da = sm90::desc_sw128(hb + kt * TILE);
+#pragma unroll
+      for (int n = 0; n < Ml::NT2; ++n) {
+        clk.template lap<Ph::mma>();
+        unsigned char* b = sm90::ring_take(q);
+        clk.template lap<Ph::wait>();
+        const uint64_t db = sm90::desc_sw128(b + cg * TILE);
+        sm90::reg_fence(acc2[n]);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          sm90::wgmma_ss_n64(acc2[n], sm90::desc_step(da, ks), sm90::desc_step(db, ks), 1);
+        sm90::wgmma_commit();
+        sm90::ring_used(q);
+        sm90::reg_fence(acc2[n]);
+        sm90::ring_next(q);
       }
     }
+    sm90::ring_drain(q);
+    clk.template lap<Ph::mma>();
+    ++hbuf;
+#pragma unroll
+    for (int n = 0; n < Ml::NT2; ++n) sm90::reg_fence(acc2[n]);
   }
+  mlp_out<Ml>(acc2, p, cg, b2, ls, res, out, row0, M);
   clk.template lap<Ph::out>();
 }
 

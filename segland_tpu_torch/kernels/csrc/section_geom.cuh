@@ -10,7 +10,9 @@ namespace {
 
 // section_rows with K3's masks: the region id and pad flag (bit 7) of every
 // token from the window index, a pad token's row zero, and K3's attention core
-// (16 query rows of one window a warp); K3's section and K4's first half
+// (16 query rows of one window a warp); K3's section and K4's first half.
+// Pl::YS: the context goes to ctx and y to ysg (the block's scratch rows,
+// announced on `ready`), as section_rows says.
 template <typename Pl, typename Clk>
 __device__ __forceinline__ void geom_section(sm90::Ring<Pl::SLOT, Pl::S>& q, unsigned char* smem,
                                              const bf16* x, bf16* out, int rows, long long win0,
@@ -18,8 +20,11 @@ __device__ __forceinline__ void geom_section(sm90::Ring<Pl::SLOT, Pl::S>& q, uns
                                              const float* __restrict__ beta,
                                              const float* __restrict__ bqkv,
                                              const float* __restrict__ bproj,
-                                             const float* __restrict__ bias, float eps, Clk& clk) {
+                                             const float* __restrict__ bias, float eps, Clk& clk,
+                                             bf16* ctx = nullptr, bf16* ysg = nullptr,
+                                             uint64_t* ready = nullptr) {
   uint8_t* rids = smem + Pl::OFF_TOK;
+  bf16* cdst = Pl::YS ? ctx : out;  // where the attention core writes the context
   section_rows<Pl>(
       q, smem, x, out, rows, gamma, beta, bqkv, bproj, bias, eps,
       [&] {
@@ -44,10 +49,10 @@ __device__ __forceinline__ void geom_section(sm90::Ring<Pl::SLOT, Pl::S>& q, uns
           const int r0 = wl * kN;
           attn_tile_bf16(qb + r0 * kLQ, kb + r0 * kLQ, vb + r0 * kLQ, rt, bias_s,
                          geo.shift > 0 ? rids + r0 : nullptr, rsqrtf((float)kHD),
-                         strips + cw * kStrip, out + (size_t)r0 * Pl::C + h * kHD, (size_t)Pl::C);
+                         strips + cw * kStrip, cdst + (size_t)r0 * Pl::C + h * kHD, (size_t)Pl::C);
         }
       },
-      clk);
+      clk, ysg, ready);
 }
 
 }  // namespace

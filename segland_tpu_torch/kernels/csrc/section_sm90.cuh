@@ -11,7 +11,11 @@
 // projection's output columns).  The consumers' pieces: section_product (one
 // product over the ring's next K tiles), qkv_epilogue, ctx_to_operand,
 // proj_epilogue; section_rows composes them into K3's body (with K3's WMMA
-// core and masks: section_geom.cuh's geom_section).
+// core and masks: section_geom.cuh's geom_section).  Where 96 does not divide
+// C the projection's last pass is narrower (n64 / n32 / n16); where y does not
+// fit resident (SecPlan::YS, K3 at C = 1536) produce_section_ys streams y and
+// then the context from the block's scratch rows, each slot an A tile beside
+// the weight tile.
 
 #pragma once
 
@@ -42,13 +46,22 @@ struct SecShape {
   static constexpr int NH = C / kHD;
   static constexpr int SLOT = 96 * 128;         // a ring slot: [96 rows, 64 bf16]
   static constexpr int YK = RS * 128;           // bytes a K tile of y
+  static constexpr int LW = C - 96 * ((C - 1) / 96);  // the projection's last pass: 96, 64 or 32
+  static constexpr bool YS = false;             // y resident (SecPlan may stream it)
+  static constexpr int A_BYTES = 0;             // no A tile in a ring slot
   static_assert(RT == 1 || RT % 2 == 0, "row tiles split evenly over two warpgroups");
-  static_assert(C % 96 == 0, "the projection walks 96 columns a pass");
+  static_assert(C % 32 == 0 && LW % 32 == 0,
+                "the projection walks 96 columns a pass, the last 64 or 32 where 96 does not "
+                "divide C");
 };
 
 // K3's plan: W windows a block as W * 49 flat rows, TOK bytes a token of the
 // token table (K3 and K4: a region id and pad flag in one byte; K5: the region
-// id as fp32).  ops/fused_attn.py:section_plan mirrors this arithmetic.
+// id as fp32).  Where y would not fit resident (C = 1536: 172 KB for one
+// window), y and then the context stream through the ring instead (YS): each
+// slot holds the window's [64 rows, 64] A tile of them at its start, from the
+// scratch rows the block writes, beside the [96, 64] weight tile.
+// ops/fused_attn.py:section_plan mirrors this arithmetic.
 template <int C_, int W_, int S_, bool RR_, int TOK_ = 1>
 struct SecPlan : SecShape<C_, W_ * kN, S_, RR_> {
   typedef SecShape<C_, W_ * kN, S_, RR_> Shape;
@@ -57,22 +70,32 @@ struct SecPlan : SecShape<C_, W_ * kN, S_, RR_> {
   using Shape::RS;
   using Shape::RT;
   using Shape::S;
-  using Shape::SLOT;
   using Shape::KT;
   using Shape::YK;
   static constexpr int W = W_;
   static constexpr int RQ = (R + 15) / 16 * 16 + 16;  // q/k/v rows: a window's tiles reach R + 14
   static constexpr int NSTRIP = 4 * W < kWarps ? 4 * W : kWarps;  // attention tiles at once
-  static constexpr size_t OFF_Y = (size_t)S * SLOT;
-  static constexpr size_t OFF_Q = OFF_Y + (size_t)KT * YK;
   static constexpr size_t Q_BYTES = align128((size_t)RQ * kLQ * sizeof(bf16));
+  // q, k, v, the strips, a head's bias and the token table
+  static constexpr size_t REST = 3 * Q_BYTES + (size_t)NSTRIP * kStrip * sizeof(float) +
+                                 align128((size_t)kN * kN * sizeof(float)) +
+                                 align128((size_t)R * TOK_);
+  static constexpr size_t RESIDENT =
+      (size_t)S * Shape::SLOT + (size_t)KT * YK + REST + 2 * S * sizeof(uint64_t) + 1024;
+  static constexpr bool YS = RESIDENT > kMaxSmem;
+  static constexpr int A_BYTES = YS ? 64 * 128 : 0;  // a slot's A tile (YS)
+  static constexpr int SLOT = A_BYTES + Shape::SLOT;
+  static constexpr size_t OFF_Y = (size_t)S * SLOT;
+  static constexpr size_t OFF_Q = OFF_Y + (YS ? 0 : (size_t)KT * YK);
   static constexpr size_t OFF_STRIP = OFF_Q + 3 * Q_BYTES;
   static constexpr size_t OFF_BIAS = OFF_STRIP + (size_t)NSTRIP * kStrip * sizeof(float);
   static constexpr size_t OFF_TOK = OFF_BIAS + align128((size_t)kN * kN * sizeof(float));
   static constexpr size_t OFF_BAR = OFF_TOK + align128((size_t)R * TOK_);
-  static constexpr size_t SMEM = OFF_BAR + 2 * S * sizeof(uint64_t) + 1024;  // + alignment
-  static_assert((size_t)(RT * 64 - RS) * 128 <= OFF_BAR - OFF_Q,
+  // full and empty barriers a slot; YS: then `ready` (y written, then the context)
+  static constexpr size_t SMEM = OFF_BAR + (2 * S + (YS ? 1 : 0)) * sizeof(uint64_t) + 1024;
+  static_assert(YS || (size_t)(RT * 64 - RS) * 128 <= OFF_BAR - OFF_Q,
                 "a row tile past y must stay inside the block's shared memory");
+  static_assert(!YS || (W == 1 && C % 64 == 0), "a streamed y: one window, whole K tiles");
   static_assert(SMEM <= kMaxSmem, "over the shared memory a block can have");
 };
 
@@ -115,25 +138,67 @@ __device__ __forceinline__ void produce_section(Fill& f, const CUtensorMap* mq,
   for (int n0 = 0; n0 < Pl::C; n0 += 96) produce_proj<Pl>(f, mp, n0);
 }
 
+// produce_section where y and the context stream (Pl::YS): a slot holds the
+// window's [64, 64] tile of y (then of the context) from its scratch rows row0..
+// of my (mc) beside the weight tile; y's tiles go once `ready` has completed
+// its first phase (the consumers wrote y), the context's once its second
+template <typename Pl, typename Fill>
+__device__ __forceinline__ void produce_section_ys(Fill& f, const CUtensorMap* mq,
+                                                   const CUtensorMap* mp, const CUtensorMap* my,
+                                                   const CUtensorMap* mc, int row0,
+                                                   uint64_t* ready) {
+  sm90::mbar_wait(ready, 0u);
+#pragma unroll 1
+  for (int h = 0; h < Pl::NH; ++h)
+#pragma unroll 1
+    for (int kt = 0; kt < Pl::KT; ++kt) {
+      unsigned char* dst = f.next(Pl::SLOT);
+      sm90::tma_load_2d(dst, my, f.bar(), kt * 64, row0);
+      for (int which = 0; which < 3; ++which)  // q, k, v columns of head h: 32 rows each
+        sm90::tma_load_2d(dst + Pl::A_BYTES + which * 32 * 128, mq, f.bar(), kt * 64,
+                          which * Pl::C + h * kHD);
+      f.advance();
+    }
+  sm90::mbar_wait(ready, 1u);
+#pragma unroll 1
+  for (int n0 = 0; n0 < Pl::C; n0 += 96)
+#pragma unroll 1
+    for (int kt = 0; kt < Pl::KT; ++kt) {
+      unsigned char* dst = f.next(Pl::SLOT);
+      sm90::tma_load_2d(dst, mc, f.bar(), kt * 64, row0);
+      sm90::tma_load_2d(dst + Pl::A_BYTES, mp, f.bar(), kt * 64, n0);
+      f.advance();
+    }
+}
+
 // ---- the consumers' pieces ----------------------------------------------------------
 template <int NB>
 __device__ __forceinline__ void wgmma_n(float* d, uint64_t da, uint64_t db) {
-  if constexpr (NB == 96)
+  if constexpr (NB == 96) {
     sm90::wgmma_ss_n96(d, da, db, 1);
-  else
+  } else if constexpr (NB == 64) {
+    sm90::wgmma_ss_n64(d, da, db, 1);
+  } else if constexpr (NB == 48) {
     sm90::wgmma_ss_n48(d, da, db, 1);
+  } else if constexpr (NB == 32) {
+    sm90::wgmma_ss_n32(d, da, db, 1);
+  } else {
+    static_assert(NB == 16, "n96, n64, n48, n32 or n16");
+    sm90::wgmma_ss_n16(d, da, db, 1);
+  }
 }
 
 // acc[t] = A[row tiles of this warpgroup] @ (the ring's next KT slots, from
-// column cofs of each), taken slot by slot.  The ring is an sm90::Ring or any
+// column cofs of each), taken slot by slot, NB columns a wgmma (Pl::YS: A is
+// each slot's own A tile).  The ring is an sm90::Ring or any
 // type with its ring_take / ring_used / ring_next / ring_drain (found by ADL).
-template <typename Pl, typename Rg, typename Clk>
+template <typename Pl, int NB = Pl::NB, typename Rg, typename Clk>
 __device__ __forceinline__ void section_product(Rg& q, const unsigned char* a, int g, int cofs,
-                                                float (&acc)[Pl::NTW][Pl::ACC], Clk& clk) {
+                                                float (&acc)[Pl::NTW][NB / 2], Clk& clk) {
 #pragma unroll
   for (int t = 0; t < Pl::NTW; ++t) {
 #pragma unroll
-    for (int i = 0; i < Pl::ACC; ++i) acc[t][i] = 0.0f;
+    for (int i = 0; i < NB / 2; ++i) acc[t][i] = 0.0f;
     sm90::reg_fence(acc[t]);
   }
   // whole K tiles, then (C = 96) the half tile of the last 32 columns: the
@@ -142,17 +207,18 @@ __device__ __forceinline__ void section_product(Rg& q, const unsigned char* a, i
     clk.template lap<kClkMma>();
     unsigned char* b = ring_take(q);
     clk.template lap<kClkWait>();
-    const uint64_t db = sm90::desc_sw128(b + cofs * 128);
+    const uint64_t db = sm90::desc_sw128(b + Pl::A_BYTES + cofs * 128);
 #pragma unroll
     for (int t = 0; t < Pl::NTW; ++t) sm90::reg_fence(acc[t]);
     sm90::wgmma_fence();
 #pragma unroll
     for (int t = 0; t < Pl::NTW; ++t) {
       const int rt = Pl::ROWS ? g + 2 * t : 0;
-      const uint64_t da = sm90::desc_sw128(a + kt * Pl::YK + rt * 64 * 128);
+      const uint64_t da = Pl::YS ? sm90::desc_sw128(b)
+                                 : sm90::desc_sw128(a + kt * Pl::YK + rt * 64 * 128);
 #pragma unroll
       for (int ks = 0; ks < decltype(steps)::value; ++ks)
-        wgmma_n<Pl::NB>(acc[t], sm90::desc_step(da, ks), sm90::desc_step(db, ks));
+        wgmma_n<NB>(acc[t], sm90::desc_step(da, ks), sm90::desc_step(db, ks));
     }
     sm90::wgmma_commit();
     ring_used(q);
@@ -207,10 +273,11 @@ __device__ __forceinline__ void ctx_to_operand(const bf16* ctx, int rows, unsign
   sm90::fence_async_smem();
 }
 
-// out = x + T(T(acc) + T(bproj)) at the projection's columns n0.., this
-// warpgroup's rows below `rows` (x and out: the block's first row, stride C)
-template <typename Pl>
-__device__ __forceinline__ void proj_epilogue(const float (&acc)[Pl::NTW][Pl::ACC], int g,
+// out = x + T(T(acc) + T(bproj)) at the projection's columns n0.., NB of them
+// a warpgroup, this warpgroup's rows below `rows` (x and out: the block's first
+// row, stride C)
+template <typename Pl, int NB = Pl::NB>
+__device__ __forceinline__ void proj_epilogue(const float (&acc)[Pl::NTW][NB / 2], int g,
                                               int cofs, int n0, int rows,
                                               const float* __restrict__ bproj, const bf16* x,
                                               bf16* out) {
@@ -219,7 +286,7 @@ __device__ __forceinline__ void proj_epilogue(const float (&acc)[Pl::NTW][Pl::AC
   for (int t = 0; t < Pl::NTW; ++t) {
     const int rt = Pl::ROWS ? g + 2 * t : 0;
 #pragma unroll
-    for (int i = 0; i < Pl::ACC; i += 2) {
+    for (int i = 0; i < NB / 2; i += 2) {
       const int row = rt * 64 + wrow + lane / 4 + 8 * ((i / 2) % 2);
       const int col = n0 + cofs + (i / 4) * 8 + (lane % 4) * 2;
       if (row < rows) {
@@ -240,8 +307,12 @@ __device__ __forceinline__ void proj_epilogue(const float (&acc)[Pl::NTW][Pl::AC
 // the q, k, v product and its epilogue into shared memory, then attend(h, q, k,
 // v, bias, strips), which writes the head's context into out at its columns;
 // after the last head the context goes back into y's place and the projection
-// writes a = x + T(T(ctx @ wproj) + T(bproj)) over it.  Ends with each
-// warpgroup's wgmma drained; y is free once both warpgroups are past a barrier.
+// writes a = x + T(T(ctx @ wproj) + T(bproj)) over it, 96 columns a pass (the
+// last pass LW).  Pl::YS (produce_section_ys): y goes to the block's scratch
+// rows ysg instead (64 a window, zeros past the real ones) and attend writes
+// the context to the scratch the producer reads it from; each is made visible
+// to TMA and announced on `ready`.  Ends with each warpgroup's wgmma drained;
+// y is free once both warpgroups are past a barrier.
 template <typename Pl, typename Clk, typename Tables, typename Src, typename Scale,
           typename Attend>
 __device__ __forceinline__ void section_rows(sm90::Ring<Pl::SLOT, Pl::S>& q, unsigned char* smem,
@@ -252,7 +323,8 @@ __device__ __forceinline__ void section_rows(sm90::Ring<Pl::SLOT, Pl::S>& q, uns
                                              const float* __restrict__ bproj,
                                              const float* __restrict__ bias, float eps,
                                              Tables tables, Src src, Scale scale, Attend attend,
-                                             Clk& clk) {
+                                             Clk& clk, bf16* ysg = nullptr,
+                                             uint64_t* ready = nullptr) {
   constexpr int C = Pl::C;
   unsigned char* ys = smem + Pl::OFF_Y;
   bf16* qb = reinterpret_cast<bf16*>(smem + Pl::OFF_Q);
@@ -272,11 +344,25 @@ __device__ __forceinline__ void section_rows(sm90::Ring<Pl::SLOT, Pl::S>& q, uns
     kb[Pl::R * kLQ + i] = z;
     vb[Pl::R * kLQ + i] = z;
   }
-  // y = LN(x) * mask, a warp a row; rows past the real ones are zero
-  sm90::ln_rows_sw128<C, sm90::kLnBatch<C>>(
-      [&](int r) -> const bf16* { return r < rows ? src(r) : nullptr; }, cw, kWarps, Pl::RS,
-      gamma, beta, eps, ys, Pl::YK, scale);
-  sm90::fence_async_smem();
+  if constexpr (Pl::YS) {
+    // y = LN(x) * mask, a warp a row, into the scratch rows that TMA reads back
+    sm90::ln_rows<C, sm90::kLnBatch<C>>(
+        [&](int r) -> const bf16* { return r < rows ? src(r) : nullptr; }, cw, kWarps,
+        64 * Pl::W, gamma, beta, eps,
+        [&](int r, int c, uint32_t val, float2) {
+          *reinterpret_cast<uint32_t*>(ysg + (size_t)r * C + c) = val;
+        },
+        scale);
+    sm90::fence_async_all();
+    consumers_sync();
+    if (threadIdx.x == 0) sm90::mbar_arrive(ready);
+  } else {
+    // y = LN(x) * mask, a warp a row; rows past the real ones are zero
+    sm90::ln_rows_sw128<C, sm90::kLnBatch<C>>(
+        [&](int r) -> const bf16* { return r < rows ? src(r) : nullptr; }, cw, kWarps, Pl::RS,
+        gamma, beta, eps, ys, Pl::YK, scale);
+    sm90::fence_async_smem();
+  }
 
   float acc[Pl::NTW][Pl::ACC];
   for (int h = 0; h < Pl::NH; ++h) {
@@ -298,15 +384,32 @@ __device__ __forceinline__ void section_rows(sm90::Ring<Pl::SLOT, Pl::S>& q, uns
     clk.template lap<kClkAttn>();
   }
 
-  // the context, back from the output rows into y's place (y is dead)
-  ctx_to_operand<Pl>(out, rows, ys);
-  consumers_sync();
+  if constexpr (Pl::YS) {
+    // every thread's context stores, visible to the projection's TMA loads
+    sm90::fence_async_all();
+    consumers_sync();
+    if (threadIdx.x == 0) sm90::mbar_arrive(ready);
+  } else {
+    // the context, back from the output rows into y's place (y is dead)
+    ctx_to_operand<Pl>(out, rows, ys);
+    consumers_sync();
+  }
   clk.template lap<kClkCtx>();
 
   // a = x + T(T(ctx @ wproj) + T(bproj)), 96 columns a pass
-  for (int n0 = 0; n0 < C; n0 += 96) {
+  for (int n0 = 0; n0 + 96 <= C; n0 += 96) {
     section_product<Pl>(q, ys, g, cofs, acc, clk);
     proj_epilogue<Pl>(acc, g, cofs, n0, rows, bproj, x, out);
+    clk.template lap<kClkOut>();
+  }
+  if constexpr (Pl::LW != 96) {
+    // the last LW columns (C = 128, 256, 512, 1024): the TMA box past C is zero-filled
+    // and left unread by an n64 / n32 product (n32 / n16 a warpgroup with one row tile)
+    constexpr int NBL = Pl::ROWS ? Pl::LW : Pl::LW / 2;
+    const int cofsl = Pl::ROWS ? 0 : NBL * g;
+    float accl[Pl::NTW][NBL / 2];
+    section_product<Pl, NBL>(q, ys, g, cofsl, accl, clk);
+    proj_epilogue<Pl, NBL>(accl, g, cofsl, C - Pl::LW, rows, bproj, x, out);
     clk.template lap<kClkOut>();
   }
 }

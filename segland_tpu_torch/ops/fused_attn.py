@@ -44,15 +44,21 @@ from .fused_mlp import SMEM_MAX, contiguous_as, kmajor, ln_mlp_reference
 from .. import kernels
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SECTION_CHANNELS = (96, 192, 384, 768)
+# the whole-block (K4) and v1 (K5) kernels' widths: swin-t/s's
+_BLOCK_CHANNELS = (96, 192, 384, 768)
 
 # ---- the bf16 section kernel's builds (SEGLAND_SECTION_BUILDS in attn_section.cu) --------
-# w windows a block, s ring slots of one [96, 64] bf16 weight tile each, rr: a producer
+# w windows a block, s ring slots of one [96, 64] bf16 weight tile each (where y streams,
+# of the window's [64, 64] tile of y or the context beside it), rr: a producer
 # warpgroup and setmaxnreg (240 registers a consumer thread), else a lone producer warp
 # (168 a thread, ptxas' cap for 9 warps): whichever the build compiles without spills.
+# swin-t/s's widths, then swin-b's and swin-l's.
 SectionBuild = collections.namedtuple("SectionBuild", "w s rr")
-SECTION_BUILDS = {96: SectionBuild(4, 4, True), 192: SectionBuild(2, 6, False),
-                  384: SectionBuild(2, 4, False), 768: SectionBuild(1, 6, False)}
+SECTION_BUILDS = {96: SectionBuild(4, 4, True), 128: SectionBuild(4, 5, True),
+                  192: SectionBuild(2, 6, False), 256: SectionBuild(2, 7, False),
+                  384: SectionBuild(2, 4, False), 512: SectionBuild(1, 10, False),
+                  768: SectionBuild(1, 6, False), 1024: SectionBuild(1, 5, False),
+                  1536: SectionBuild(1, 8, False)}
 # ---- the bf16 whole-block kernel's builds (SEGLAND_BLOCK_BUILDS in swin_block.cu) --------
 # the section's w windows a block and s ring slots (a producer warpgroup always), then
 # ln_mlp's rg warpgroups down the rows, cg across the output columns, np passes and hs
@@ -88,7 +94,8 @@ def _check_plan(name, c, parts):
 
 def _section_layout(c, w, s, tok_bytes=1):
     """SecPlan<C, W, S, RR, TOK> of section_sm90.cuh: rows, row tiles and how the two
-    consumer warpgroups split them, and shared memory by buffer."""
+    consumer warpgroups split them, the projection's last pass, whether y streams (it
+    would not fit resident), and shared memory by buffer."""
     rows = w * _N
     rt = -(-rows // 64)
     rs = -(-rows // 8) * 8
@@ -96,29 +103,40 @@ def _section_layout(c, w, s, tok_bytes=1):
     nb = 96 if split_rows else 48
     kt = -(-c // 64)
     rq = -(-rows // 16) * 16 + 16
-    parts = dict(ring=s * _SLOT, y=kt * rs * 128, qkv=3 * _al128(rq * _LQ * 2),
-                 strips=min(4 * w, 8) * _STRIP, bias=_al128(_N * _N * 4),
-                 tokens=_al128(rows * tok_bytes), barriers=2 * s * 8, align=1024)
+    rest = dict(qkv=3 * _al128(rq * _LQ * 2), strips=min(4 * w, 8) * _STRIP,
+                bias=_al128(_N * _N * 4), tokens=_al128(rows * tok_bytes))
+    y = kt * rs * 128
+    stream_y = s * _SLOT + y + sum(rest.values()) + 2 * s * 8 + 1024 > SMEM_MAX
+    slot = _SLOT + (64 * 128 if stream_y else 0)
+    parts = dict(ring=s * slot, y=0 if stream_y else y, **rest,
+                 barriers=(2 * s + (1 if stream_y else 0)) * 8, align=1024)
+    last = c - 96 * ((c - 1) // 96)  # the projection's last pass: 96, 64 or 32 columns
     return dict(w=w, s=s, c=c, rows=rows, row_tiles=rt, y_rows=rs,
                 split="rows" if split_rows else "columns", n=nb, k_tiles=kt,
-                slot_bytes=_SLOT, smem_parts=parts,
+                last_pass=last, last_n=last if split_rows else last // 2,
+                stream_y=stream_y, slot_bytes=slot, smem_parts=parts,
                 acc_regs=(rt // 2 if split_rows else 1) * nb // 2,
-                overrun=(rt * 64 - rs) * 128)
+                overrun=0 if stream_y else (rt * 64 - rs) * 128)
 
 
 def section_plan(c: int) -> dict:
     """The bf16 section kernel's plan at width C: the arithmetic of SecPlan in
     section_sm90.cuh.  Windows a block, m64 row tiles and how the two consumer
     warpgroups split them, ring depth, shared memory by buffer and in all
-    (bytes), and the accumulator registers a consumer thread holds.  Raises
-    ValueError, with the arithmetic, for a width that has no build."""
+    (bytes), and the accumulator registers a consumer thread holds.
+    ``last_pass``: the projection's last pass of columns (96, or C % 96 where
+    96 does not divide C, an n64 or n32 product); ``stream_y``: y and then
+    the context stream through the ring from a scratch of 2 x [NW * 64, C]
+    (C = 1536).  Raises ValueError, with the arithmetic, for a width that has
+    no build."""
     if c not in SECTION_BUILDS:
         raise ValueError(f"attn_section has no bfloat16 build for C={c}: built at C in "
-                         f"{tuple(SECTION_BUILDS)} (heads of 32, the projection 96 columns "
-                         f"a pass)")
+                         f"{tuple(SECTION_BUILDS)} (heads of 32)")
     b = SECTION_BUILDS[c]
     plan = _section_layout(c, b.w, b.s)
-    plan.update(rr=b.rr, slots_per_block=(c // 32 + c // 96) * plan["k_tiles"])
+    if plan["stream_y"] and b.w != 1:
+        raise ValueError(f"attn_section at C={c}: a streamed y takes one window a block")
+    plan.update(rr=b.rr, slots_per_block=(c // 32 + -(-c // 96)) * plan["k_tiles"])
     plan["smem"] = _check_plan("attn_section", c, plan["smem_parts"])
     return plan
 
@@ -429,8 +447,6 @@ def _section_args(name, x_win, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_
     if n != _WINDOW * _WINDOW or c != num_heads * _HEAD_DIM:
         raise ValueError(f"{name} takes 7x7 windows and heads of 32; got N={n}, "
                          f"C={c}, heads={num_heads}")
-    if x_win.dtype == torch.bfloat16 and c not in _SECTION_CHANNELS:
-        raise ValueError(f"{name} has no bfloat16 build for C={c}")
     dev = x_win.device
     b = _bias_f32(bias, dev, num_heads, n)
     if b.shape[0] != 1:
@@ -455,17 +471,20 @@ def _section_launch_args(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bia
     forward_only("attn_section", x_win, gamma, beta, wqkv, bqkv, wproj, bproj, bias)
     _check_rows("attn_section", x_win)
     bf16 = x_win.dtype == torch.bfloat16
-    if bf16:
-        section_plan(x_win.shape[-1])  # raises for a width the kernel has no build for
+    # raises for a width the kernel has no build for
+    stream_y = bf16 and section_plan(x_win.shape[-1])["stream_y"]
     # the bf16 (wgmma) body reads its weights K-major
     g, be, wq, bq, wp_, bp, b = _section_args("attn_section", x_win, gamma, beta, wqkv, bqkv,
                                                wproj, bproj, bias, num_heads, k_major=bf16)
     nw, _, c = x_win.shape
     h, w, hp, wp, ws, shift = _check_geom(geom, nw)
     out = torch.empty_like(x_win)
+    # a streamed y: the windows' y rows, then their context's, 64 rows a window
+    scratch = (torch.empty((2 * nw * 64, c), dtype=x_win.dtype, device=x_win.device)
+               if stream_y else None)
     P = kernels.ptr
-    return out, (P(x_win), P(g), P(be), P(wq), P(bq), P(wp_), P(bp), P(b), P(out), nw, c,
-                 num_heads, h, w, hp, wp, ws, shift, eps)
+    return out, (P(x_win), P(g), P(be), P(wq), P(bq), P(wp_), P(bp), P(b), P(out), P(scratch),
+                 nw, c, num_heads, h, w, hp, wp, ws, shift, eps)
 
 
 def attn_section(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias, num_heads: int,
@@ -588,7 +607,7 @@ def _block_launch_args(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
     hidden = w1.shape[-1]
     if bf16:
         block_plan(c, hidden)  # raises for a shape the kernel has no build for
-    elif c not in _SECTION_CHANNELS or hidden % 64:
+    elif c not in _BLOCK_CHANNELS or hidden % 64:
         raise ValueError(f"swin_block has no float32 build for C={c}, H={hidden}")
     # the bf16 (wgmma) body reads every weight K-major
     g, be, wq, bq, wp_, bp, b = _section_args("swin_block", x_win, gamma, beta, wqkv, bqkv,

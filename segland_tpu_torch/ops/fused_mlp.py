@@ -54,34 +54,44 @@ def contiguous_as(a: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_CHANNELS = (96, 192, 384, 768)
+# convnext-t's and swin-t/s's stage widths, then swin-b's and swin-l's
+_CHANNELS = (96, 128, 192, 256, 384, 512, 768, 1024, 1536)
 
 # ---- the bf16 kernel's builds (SEGLAND_MLP_BUILDS in kernels/csrc/ln_mlp.cu) ----------
 # rg consumer warpgroups down the rows and cg across the output columns (two in all),
 # np passes over the output columns, hs hidden columns a warpgroup and chunk, s ring
-# slots of one [64, 64] bf16 weight tile each.
+# slots of one [64, 64] bf16 weight tile each (where y streams, of y's K tile beside the
+# two warpgroups' w1 tiles).
 MlpBuild = collections.namedtuple("MlpBuild", "rg cg np hs s")
 MLP_BUILDS = {
     96: MlpBuild(2, 1, 1, 128, 12),
+    128: MlpBuild(2, 1, 1, 128, 16),
     192: MlpBuild(2, 1, 1, 64, 16),
+    256: MlpBuild(2, 1, 1, 64, 16),
     384: MlpBuild(1, 2, 1, 64, 16),
+    512: MlpBuild(1, 2, 1, 64, 16),
     768: MlpBuild(1, 2, 2, 64, 12),
+    1024: MlpBuild(1, 2, 2, 64, 8),
+    1536: MlpBuild(1, 2, 3, 64, 8),
 }
 SMEM_MAX = 232448  # shared memory a block can have on sm_90
 CONSUMER_REGS = 240  # registers a consumer thread gets by setmaxnreg (sm90.cuh)
-TILE_BYTES = 64 * 64 * 2  # a ring slot
+TILE_BYTES = 64 * 64 * 2  # a weight tile
 
 
 def ln_mlp_plan(c: int, hidden: int) -> dict:
     """The bf16 kernel's plan at width C and hidden width H: the arithmetic of
     MlpPlan in ln_mlp.cu.  Tile sizes, ring depth, shared memory by buffer and
     in all (bytes), and the accumulator and fragment registers a consumer
-    thread holds.  Raises ValueError, with the arithmetic, for a shape that has
-    no build."""
+    thread holds.  ``stream_y``: the row group's y tile does not fit resident
+    beside the ring and the h tile (C = 1536), so a first kernel writes y to a
+    [M, C] scratch and each first-product ring slot carries y's K tile beside
+    the warpgroups' w1 tiles.  Raises ValueError, with the arithmetic, for a
+    shape that has no build."""
     if c not in MLP_BUILDS:
         raise ValueError(f"ln_mlp has no bfloat16 build for C={c}: built at C in "
                          f"{tuple(MLP_BUILDS)} (two warpgroups of m64 wgmma hold at most "
-                         f"2 x 192 output columns a pass)")
+                         f"2 x 256 output columns a pass)")
     b = MLP_BUILDS[c]
     hc = b.cg * b.hs  # hidden columns a chunk
     if hidden <= 0 or hidden % hc:
@@ -89,14 +99,17 @@ def ln_mlp_plan(c: int, hidden: int) -> dict:
                          f"{b.hs} = {hc} columns; H={hidden} is not a multiple of {hc}")
     cs = c // b.np // b.cg  # output columns a warpgroup and pass
     kt1, nt1, kt2, nt2 = -(-c // 64), b.hs // 64, hc // 64, -(-cs // 64)
-    parts = dict(ring=b.s * TILE_BYTES, y=b.rg * kt1 * TILE_BYTES,
-                 h=0 if b.cg == 1 else b.rg * 2 * kt2 * TILE_BYTES,
+    h_bytes = 0 if b.cg == 1 else b.rg * 2 * kt2 * TILE_BYTES
+    y_bytes = b.rg * kt1 * TILE_BYTES
+    stream_y = b.s * TILE_BYTES + y_bytes + h_bytes + 2 * b.s * 8 + 1024 > SMEM_MAX
+    slot = (1 + b.cg * nt1) * TILE_BYTES if stream_y else TILE_BYTES
+    parts = dict(ring=b.s * slot, y=0 if stream_y else y_bytes, h=h_bytes,
                  barriers=2 * b.s * 8, align=1024)
     regs = dict(acc1=nt1 * 32, acc2=nt2 * 32, h_frags=b.hs // 4 if b.cg == 1 else 0)
     plan = dict(b._asdict(), c=c, hidden=hidden, rows=64 * b.rg, hc=hc, cs=cs,
                 chunks=hidden // hc, tiles_per_chunk=kt1 * b.cg * nt1 + kt2 * b.cg * nt2,
-                smem_parts=parts, smem=sum(parts.values()), regs=regs,
-                acc_regs=sum(regs.values()))
+                stream_y=stream_y, slot_bytes=slot, smem_parts=parts,
+                smem=sum(parts.values()), regs=regs, acc_regs=sum(regs.values()))
     if plan["smem"] > SMEM_MAX:
         raise ValueError(f"ln_mlp at C={c}: " + " + ".join(f"{k} {v:,}" for k, v in parts.items())
                          + f" = {plan['smem']:,} B > {SMEM_MAX:,}")
@@ -125,8 +138,9 @@ def _launch_args(x2, gamma, beta, w1, b1, w2, b2, res2, ls, eps):
         raise ValueError("ln_mlp takes contiguous [M, C] rows")
     m, c = x2.shape
     hidden = w1.shape[-1]
+    stream_y = False
     if x2.dtype == torch.bfloat16:
-        ln_mlp_plan(c, hidden)  # raises for a shape the kernel has no build for
+        stream_y = ln_mlp_plan(c, hidden)["stream_y"]  # raises for a shape without a build
     elif c not in _CHANNELS or hidden % 64:
         raise ValueError(f"ln_mlp has no float32 build for C={c}, H={hidden}")
     if tuple(w1.shape) != (c, hidden) or tuple(w2.shape) != (hidden, c):
@@ -153,11 +167,12 @@ def _launch_args(x2, gamma, beta, w1, b1, w2, b2, res2, ls, eps):
     l = None if ls is None else vec(ls, c)
     ww1, ww2 = mat(w1), mat(w2)
     out = torch.empty_like(x2)
+    scratch = torch.empty_like(x2) if stream_y else None  # y = LN(x), read back by TMA
     if any(t.data_ptr() % 16 for t in (x2, res2, ww1, ww2, out) if t is not None):
         raise ValueError("ln_mlp takes 16-byte aligned rows and weights")
     P = kernels.ptr
-    return out, (P(x2), P(res2), P(g), P(b), P(ww1), P(bb1), P(ww2), P(bb2), P(l), P(out), m,
-                 c, hidden, eps)
+    return out, (P(x2), P(res2), P(g), P(b), P(ww1), P(bb1), P(ww2), P(bb2), P(l), P(out),
+                 P(scratch), m, c, hidden, eps)
 
 
 def ln_mlp(x2, gamma, beta, w1, b1, w2, b2, res2=None, ls=None, eps=1e-5):

@@ -25,15 +25,16 @@ from segland_tpu_torch.ops.fused_mlp import ln_mlp_plan
 WS, N = 7, 49
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SWIN_S_WIDTHS = (96, 192, 384, 768)  # embed 96, doubled a stage; heads of 32
+SWIN_BL_WIDTHS = (128, 256, 512, 1024, 1536)  # swin-b's (embed 128) and swin-l's last (192)
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
-def _section_inputs(seed, nw, c, nh):
+def _section_inputs(seed, nw, c, nh, w=0.1):
     rng = np.random.RandomState(seed)
     f = lambda *s: rng.randn(*s).astype(np.float32)
     return dict(x=f(nw, N, c) * 0.5, gamma=rng.rand(c).astype(np.float32) + 0.5,
-                beta=f(c) * 0.1, wqkv=f(c, 3 * c) * 0.1, bqkv=f(3 * c) * 0.1,
-                wproj=f(c, c) * 0.1, bproj=f(c) * 0.1, bias=f(1, nh, N, N) * 0.3)
+                beta=f(c) * 0.1, wqkv=f(c, 3 * c) * w, bqkv=f(3 * c) * 0.1,
+                wproj=f(c, c) * w, bproj=f(c) * 0.1, bias=f(1, nh, N, N) * 0.3)
 
 
 def _cast(a, dtype, lib):
@@ -79,6 +80,21 @@ def test_attn_section_matches_jax(dtype, shift, against):
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
     # the dispatching op takes the plain version on a CPU tensor
     np.testing.assert_array_equal(_run_section("port", a, dtype, nh, geom, batch), got)
+
+
+@pytest.mark.parametrize("shift", [0, 3])
+@pytest.mark.parametrize("c", SWIN_BL_WIDTHS[:1] + SWIN_BL_WIDTHS[-2:])
+def test_attn_section_wide_matches_jax_reference(c, shift):
+    """The plain version at swin-b's and swin-l's widths (C = 128, 1024,
+    1536; heads of 32) against the JAX attn_section_reference, fp32 within
+    1e-5: a 10x12 map padded to 14x14, batch 1, four windows.  The weights
+    scale by fan-in (as 0.1 does at C = 48), so that q, k and the output stay
+    O(1) and the bar reads the arithmetic, not the order of long sums."""
+    geom = (10, 12, 14, 14, WS, shift)
+    a = _section_inputs(11 + shift, 4, c, c // 32, w=0.1 * (48 / c) ** 0.5)
+    want = _run_section("jax", a, "float32", c // 32, geom, 1, interpret=False)
+    got = _run_section("port", a, "float32", c // 32, geom, 1, interpret=False)
+    np.testing.assert_allclose(got, want, rtol=TOL["float32"], atol=TOL["float32"])
 
 
 def _mlp_inputs(seed, c):
@@ -320,24 +336,36 @@ def test_group_and_geom_are_checked():
         P.swin_block_fused(x, None, *[None] * 13, 3)
 
 
-@pytest.mark.parametrize("c", SWIN_S_WIDTHS)
+@pytest.mark.parametrize("c", SWIN_S_WIDTHS + SWIN_BL_WIDTHS)
 def test_every_swin_s_stage_has_a_bf16_section_plan(c):
-    """The wgmma section's plan at each swin-s width fits a block's shared
-    memory, its m64 row tiles split evenly over the two consumer warpgroups
-    (or, with one tile, its columns), and the accumulators leave a consumer
-    thread most of its 168 registers for the attention core."""
+    """The wgmma section's plan at each swin-s, swin-b and swin-l width fits
+    a block's shared memory, its m64 row tiles split evenly over the two
+    consumer warpgroups (or, with one tile, its columns), and the accumulators
+    leave a consumer thread most of its 168 registers for the attention core.
+    Where 96 does not divide C the projection's last pass takes the rest (an
+    n64 or n32 product, halved with one row tile); only C = 1536 streams y, one
+    window a block, each slot a [64, 64] tile of y or the context beside the
+    weights'."""
     plan = P.section_plan(c)
     assert plan["smem"] == sum(plan["smem_parts"].values()) <= P.SMEM_MAX
     assert plan["rows"] == plan["w"] * N
     assert plan["row_tiles"] == -(-plan["rows"] // 64)
     assert (plan["split"] == "rows") == (plan["row_tiles"] % 2 == 0)
     assert plan["acc_regs"] <= 96
-    # y's last row tile reads past y into the buffer after it, never past the block's memory
-    overrun = (plan["row_tiles"] * 64 - -(-plan["rows"] // 8) * 8) * 128
-    assert overrun <= plan["smem_parts"]["qkv"]
+    assert plan["last_pass"] == (c % 96 or 96) and plan["last_pass"] in (32, 64, 96)
+    assert plan["last_n"] == plan["last_pass"] // (1 if plan["split"] == "rows" else 2)
+    assert plan["stream_y"] == (c == 1536)
+    if plan["stream_y"]:
+        assert plan["w"] == 1 and plan["smem_parts"]["y"] == 0 and plan["overrun"] == 0
+        assert plan["slot_bytes"] == 64 * 128 + 96 * 128
+    else:
+        # y's last row tile reads past y into the buffer after it, never past the block's
+        # memory
+        overrun = (plan["row_tiles"] * 64 - -(-plan["rows"] // 8) * 8) * 128
+        assert overrun <= plan["smem_parts"]["qkv"]
 
 
-@pytest.mark.parametrize("c", [64, 128, 480, 1536])
+@pytest.mark.parametrize("c", [64, 160, 480, 2048])
 def test_section_widths_without_a_build_raise(c):
     with pytest.raises(ValueError, match="no bfloat16 build"):
         P.section_plan(c)
@@ -519,3 +547,20 @@ def test_v1_allocates_the_scratch_tensor_only_on_its_scratch_path(recorded, c, g
         assert scratch is None
     assert args[8].data_ptr() == wqkv.data_ptr() and args[10].data_ptr() == wproj.data_ptr()
     assert args[15:19] == (nw, c, nh, group) and P.attn_section_v1.launches == 1
+
+
+def test_kernel_outputs_compare_flags_any_difference(tmp_path, capsys):
+    """The builds' fingerprint (benchmarks/kernel_outputs.py): ``compare``
+    passes equal files and fails on one differing element or a missing tensor;
+    ``save`` refuses a device without the kernels."""
+    from segland_tpu_torch.benchmarks import kernel_outputs
+
+    a = {"K1 bfloat16 C=96": torch.arange(6.0).to(torch.bfloat16), "K3": torch.zeros(2, 3)}
+    b = {**a, "K3": torch.tensor([[0.0, 0.0, 0.0], [0.0, 1e-7, 0.0]])}
+    for name, t_ in (("a", a), ("b", b), ("c", {"K3": a["K3"]})):
+        torch.save(t_, tmp_path / f"{name}.pt")
+    run = lambda x, y: kernel_outputs.main(["compare", str(tmp_path / x), str(tmp_path / y)])
+    assert run("a.pt", "a.pt") == 0
+    assert run("a.pt", "b.pt") == 1 and "1 of 2 tensors differ" in capsys.readouterr().out
+    assert run("a.pt", "c.pt") == 1
+    assert kernel_outputs.main(["save", str(tmp_path / "d.pt"), "--device", "cpu"]) == 2

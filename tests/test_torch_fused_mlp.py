@@ -20,15 +20,21 @@ from segland_tpu_torch.ops.fused_mlp import (CONSUMER_REGS, MLP_BUILDS, SMEM_MAX
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # stage widths whose LN+MLP sections K1 runs: ConvNeXt-T's (convnext.py: dims) and
-# Swin-S's (embed 96, doubled a stage); both have hidden width 4C
-STAGE_WIDTHS = {"convnext-t": (96, 192, 384, 768), "swin-s": (96, 192, 384, 768)}
+# Swin-S's, Swin-B's and Swin-L's (embed 96, 128, 192, doubled a stage); all have hidden
+# width 4C
+STAGE_WIDTHS = {"convnext-t": (96, 192, 384, 768), "swin-s": (96, 192, 384, 768),
+                "swin-b": (128, 256, 512, 1024), "swin-l": (192, 384, 768, 1536)}
 
 
 def _params(c, hid, seed):
     rng = np.random.RandomState(seed)
     f = lambda *s: rng.randn(*s).astype(np.float32)
-    return dict(gamma=1.0 + 0.1 * f(c), beta=0.1 * f(c), w1=f(c, hid) * 0.05,
-                b1=0.05 * f(hid), w2=f(hid, c) * 0.05, b2=0.05 * f(c))
+    # weights 0.05 up to C = 128, then scaled by fan-in, so that h and the output stay
+    # O(1) at every width and an fp32 bar of 1e-5 reads the arithmetic, not the order
+    # in which sums of thousands of terms round
+    w = 0.05 * min(1.0, (128 / c) ** 0.5)
+    return dict(gamma=1.0 + 0.1 * f(c), beta=0.1 * f(c), w1=f(c, hid) * w,
+                b1=0.05 * f(hid), w2=f(hid, c) * w, b2=0.05 * f(c))
 
 
 def _rows(shape, seed):
@@ -36,7 +42,7 @@ def _rows(shape, seed):
 
 
 @pytest.mark.parametrize("with_res,with_ls", [(False, False), (True, False), (True, True)])
-@pytest.mark.parametrize("c", [96, 128])
+@pytest.mark.parametrize("c", [96, 128, 1024, 1536])
 def test_plain_fp32_matches_jax_reference(c, with_res, with_ls):
     p = _params(c, 4 * c, seed=c)
     x = _rows((37, c), 1)
@@ -106,19 +112,28 @@ def test_kernel_weights_are_row_major_in_the_compute_dtype(src, dst):
 def test_every_stage_shape_has_a_bf16_plan(model, c):
     """The wgmma kernel's plan at each stage shape fits a block's shared
     memory and leaves a consumer thread 64 of its registers beyond the
-    accumulators and h fragments; its chunks tile the hidden width."""
+    accumulators and h fragments; its chunks tile the hidden width.  Only
+    swin-l's last stage streams y (its 192 KB tile would leave no ring): a
+    first-product slot then carries y's K tile beside both warpgroups' w1
+    tiles, and y takes no shared memory of its own."""
     plan = ln_mlp_plan(c, 4 * c)
     assert plan["smem"] == sum(plan["smem_parts"].values()) <= SMEM_MAX
     assert plan["acc_regs"] <= CONSUMER_REGS - 64
     assert plan["chunks"] * plan["hc"] == 4 * c
     assert plan["rg"] * plan["cg"] == 2  # two consumer warpgroups
     assert plan["np"] * plan["cg"] * plan["cs"] == c
-    assert plan["regs"]["acc2"] <= 96  # the second product's accumulator, a thread
+    assert plan["regs"]["acc2"] <= 128  # the second product's accumulator, a thread
+    assert plan["stream_y"] == (c == 1536)
+    if plan["stream_y"]:
+        assert plan["smem_parts"]["y"] == 0 and plan["rg"] == 1 and plan["cg"] == 2
+        assert plan["slot_bytes"] == 3 * 64 * 64 * 2  # y's tile and two w1 tiles
+    else:
+        assert plan["smem_parts"]["y"] == plan["rg"] * -(-c // 64) * 64 * 64 * 2
 
 
 @pytest.mark.parametrize("c,hidden,match", [(64, 256, "no bfloat16 build"),
-                                            (128, 512, "no bfloat16 build"),
-                                            (1536, 6144, "no bfloat16 build"),
+                                            (160, 640, "no bfloat16 build"),
+                                            (2048, 8192, "no bfloat16 build"),
                                             (96, 4 * 96 + 64, "multiple of 128"),
                                             (384, 4 * 384 + 64, "multiple of 128")])
 def test_shapes_without_a_build_raise_with_the_arithmetic(c, hidden, match):
@@ -138,6 +153,11 @@ def test_the_build_table_matches_the_source():
     assert ln_mlp_plan(384, 1536)["smem_parts"] == dict(ring=16 * 8192, y=6 * 8192,
                                                         h=2 * 2 * 8192, barriers=256,
                                                         align=1024)
+    assert ln_mlp_plan(1536, 6144)["smem_parts"] == dict(ring=8 * 3 * 8192, y=0,
+                                                         h=2 * 2 * 8192, barriers=128,
+                                                         align=1024)
+    # y streams where the resident tile would not fit, by MlpPlan's own test
+    assert "resident_smem(C_, RG_, CG_, HS_, S_) > kSmemMax" in src
 
 
 def test_kmajor_copy_is_the_transpose_and_follows_the_weight():

@@ -16,13 +16,18 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import load_port, one_torch_thread, random_variables, t
+from torch_helpers import load_port, meta_build, one_torch_thread, random_variables, t
+from segland_tpu.models import build_model as j_build
+from segland_tpu.models.backbones import swin as j_swin_mod
 from segland_tpu.models.backbones.swin import SwinBlock as JSwinBlock
 from segland_tpu.models.backbones.swin import SwinTransformer as JSwin
 from segland_tpu.models.decoders import UperNetPlusDecoder as JUperNet
 from segland_tpu.ops import pallas_attn as J
 from segland_tpu.ops.pooling import adaptive_avg_pool as j_pool
+from segland_tpu.models.pop import GFSSModel as JGFSS
+from segland_tpu_torch.models import build_model
 from segland_tpu_torch.models.backbones import get_backbone
+from segland_tpu_torch.models.backbones import swin as p_swin_mod
 from segland_tpu_torch.models.backbones.swin import SwinBlock, SwinTransformer, get_swin
 from segland_tpu_torch.models.decoders import UperNetPlusDecoder
 from segland_tpu_torch.ops.pooling import adaptive_avg_pool
@@ -224,10 +229,15 @@ def test_state_dict_keys_are_upstream_keys():
 
 
 @pytest.mark.parametrize("make,item", [
-    (lambda: get_swin("swin-b", fused_attn=True, fused_mlp=True), "A6"),
-    (lambda: get_swin("swin-l", fused_attn=True), "A6"),
+    (lambda: get_swin("swin-b", fused_attn=True, fused_mlp=True, fused_block_stages=(0, 3)),
+     "A14"),
+    (lambda: SwinTransformer(depths=(2, 2, 18, 2), num_heads=(6, 12, 24, 48), embed_dim=192,
+                             fused_attn=True, fused_mlp=True, attn_group=2), "A14"),
 ], ids=["swin-b-fused", "swin-l-fused"])
 def test_unported_options_raise(make, item):
+    """Fused swin-b and swin-l build (K3 and K1 at every width), but the
+    whole-block kernel (K4) and the v1 kernel (K5, attn_group) have no build at
+    their widths: those routes raise when the model is built."""
     with pytest.raises(NotImplementedError, match=item):
         make()
 
@@ -238,13 +248,64 @@ def test_unported_options_raise(make, item):
 def test_env_switches_build(monkeypatch, env, value, stages):
     """The JAX package's switches no longer raise: SEGLAND_SWIN_V3_STAGES picks
     the whole-block stages when the model is built, SEGLAND_SWIN_WR is read at
-    the forward.  Fused swin-b / swin-l still raise under them."""
+    the forward.  Fused swin-b builds under them, except where the whole-block
+    switch asks for K4 at its widths (ROADMAP item A14)."""
     monkeypatch.setenv(env, value)
     m = get_swin("swin-t", fused_attn=True, fused_mlp=True)
     on = tuple(i for i, layer in enumerate(m.layers) if layer.blocks[0].fused_block)
     assert on == (stages or ())
     assert not any(b.fused_block for layer in get_swin("swin-t", fused_attn=True).layers
                    for b in layer.blocks)  # needs fused_mlp too
-    with pytest.raises(NotImplementedError, match="A6"):
-        get_swin("swin-b", fused_attn=True, fused_mlp=True)
-    assert get_swin("swin-b").layers[3].blocks[0].num_heads == 32  # unfused swin-b builds
+    with torch.device("meta"):
+        if stages:
+            with pytest.raises(NotImplementedError, match="A14"):
+                get_swin("swin-b", fused_attn=True, fused_mlp=True)
+        else:
+            fused = get_swin("swin-b", fused_attn=True, fused_mlp=True)
+            assert all(b.fused_attn and not b.fused_block for layer in fused.layers
+                       for b in layer.blocks)
+        assert get_swin("swin-b").layers[3].blocks[0].num_heads == 32  # unfused swin-b builds
+
+
+# ---- swin_pop on swin-b and swin-l, fused, at full width --------------------------------
+# their widths and heads, the depth cut to two blocks a stage (one shifted)
+WIDE_CUT = {"swin-b": dict(depths=(2, 2, 2, 2), num_heads=(4, 8, 16, 32), embed_dim=128),
+            "swin-l": dict(depths=(2, 2, 2, 2), num_heads=(6, 12, 24, 48), embed_dim=192)}
+
+
+@pytest.fixture(scope="module", params=sorted(WIDE_CUT))
+def wide_swin_pop(request):
+    """swin_pop on swin-b or swin-l at full width on both sides, the fused route
+    (both packages run their plain references on the CPU), one weight tree
+    carried by from_jax_variables; the 18-block stage cut to 2 through the
+    configs table, as tests/test_torch_slice_swin.py cuts swin-s."""
+    name = request.param
+    kw = dict(n_base=7, n_novel=4, is_ft=True, fused_mlp=True, fused_attn=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(j_swin_mod._CONFIGS, name, WIDE_CUT[name])
+        mp.setitem(p_swin_mod._CONFIGS, name, WIDE_CUT[name])
+        jm = j_build("swin_pop", name, **kw)
+        v = random_variables(jm, jnp.zeros((1, 64, 64, 3)), seed=9)
+        port = load_port(meta_build(build_model, "swin_pop", name, **kw), v)
+        blocks = [b for layer in port.backbone.layers for b in layer.blocks]
+        assert len(blocks) == 8 and all(b.fused_attn and b.fused_mlp for b in blocks)
+        yield name, jm, v, port
+
+
+@pytest.mark.parametrize("method", ["forward_base", "forward_all"])
+def test_wide_swin_pop_matches_jax(wide_swin_pop, method):
+    """forward_base (eval_base's logits) and the ft forward (eval_ft's, 4 novel
+    classes) of fused swin_pop on swin-b and swin-l against the JAX model,
+    fp32, atol 5e-4 (the repo's parity bar); a 60x44 image pads every stage's
+    windows."""
+    import jax
+
+    name, jm, v, port = wide_swin_pop
+    image = np.random.RandomState(10).randn(1, 60, 44, 3).astype(np.float32)
+    kw = dict(method=JGFSS.forward_base) if method == "forward_base" else {}
+    # jitted: the eager apply compiles op by op (30 s a model here, 5 s jitted)
+    want = np.asarray(jax.jit(lambda v_, x: jm.apply(v_, x, **kw))(v, jnp.asarray(image)))
+    with torch.no_grad():
+        got = getattr(port, method)(t(image).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
+    assert got.shape == want.shape == (1, 15, 11, 8 if method == "forward_base" else 12)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
