@@ -62,7 +62,10 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      their plain versions from the same weights, batch and step generator,
      every gradient held to what another correct route does (fp32: twice the
      stock-torch blocks' relative error; bf16: twice the plain route's
-     distance from the fp32 gradient), the worst tensor printed; the swin
+     distance from the fp32 gradient), the worst tensor printed, but the
+     gradients that are zero in exact arithmetic (shift_invariant: the loss
+     does not move when they are shifted), held finite and zero where the
+     plain route's is; the swin
      section's and whole block's autograd Functions at 768^2 stage shapes
      (stage 0 and 2, shift 0 and 3, K5's dispatch at group 2): kernel
      forward against the plain version, gradients against autograd through
@@ -172,7 +175,17 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      against one process at the ranks' batch (confusion matrices equal but for
      near-ties, >= 99.99% agreement) and --device-augment (a forced draw
      bitwise equal to the host pipeline, aug_fallback printed); ms/step and
-     memory per rank printed;
+     memory per rank printed; cli.eval_base --int8 on deeplab_pop / resnet50
+     over both groups (fp32 abs-max and --calib-percentile, bf16; the gloo
+     pair also --int8 --fused: K7 12 a forward and K2 1 a batch per rank)
+     against one process at the global batch: the ranks' scales equal, the
+     fp32 ones within 1e-5 of one process's (bf16: the worst ratio printed),
+     the maps at >= 99.9% agreement and equal beyond near-ties;
+ 11e. exports: convnext_pop / convnext-t bf16 --fused through Evaluator.run
+     over 32 unlabeled 1024^2 GeoTIFF tiles in batches of 8, writing GTiffs
+     (K1 18, K2 1 a batch) and then GTiffs and .mat logits (K1 18 a batch),
+     each at export_workers 4 and 1: the files byte-equal between the two,
+     tiles/s of each run beside predict_batch alone on the same batches;
  12. K10 hg2_section (head groups, masks from the window index; K9's body)
      vs its plain version at the four swin-s stage shapes, shift 0 and 3,
      every built hg, wblk = W and 32; its builds' registers and spills (each
@@ -212,6 +225,7 @@ the repo beside it, it fails before printing any result.
     python3 chip_smoke.py --phases heads    # pspplus_pop, pspnet, lsk_pop, vggunet_pop
     python3 chip_smoke.py --phases ensemble # ensemble serving, scene prediction, .mat fusion
     python3 chip_smoke.py --phases dist     # training and eval over the ranks of a process group
+    python3 chip_smoke.py --phases exports  # the eval loop's GTiff and .mat writes on a thread pool
     python3 chip_smoke.py --phases k2,k6    # K2 and K6 at every shape of their phases
     python3 chip_smoke.py --phases k1,k3    # K1 and K3 with their build, SASS and phase lines
     python3 chip_smoke.py --phases swinbl   # swin_pop on swin-b and swin-l, K1 and K3 at their widths
@@ -2203,6 +2217,81 @@ def _rel_err(a, b):
     return float((a - b).norm() / b.norm().clamp_min(1e-300))
 
 
+# shift_invariant's bar: the loss's move, relative, under a shift of a parameter it does not see
+SHIFT_INVARIANT_RTOL = 1e-6
+_SHIFT_INVARIANT = {}  # name: shift_invariant's set, drawn once a run
+
+
+def shift_invariant(name, dev):
+    """The names of the parameters of POP model ``name`` (train_step_model's
+    fp32 draw) whose train-step gradient is zero in exact arithmetic: those the step's
+    total loss moves by at most SHIFT_INVARIANT_RTOL of itself when every
+    element is shifted by a draw of N(0, (mean |value| + 1)^2), the others
+    kept (the plain route, TRAIN_BATCH random crops of TRAIN_CROP / 4, the
+    step's mask generator).  In swin_pop these are the decoder's conv biases
+    and the last stage's LayerNorm bias (convnext_pop has none): every path
+    from them to the loss runs through a conv and a train-mode BatchNorm,
+    which takes a per-channel shift away, so what any route leaves in their
+    gradient is rounding alone (its direction is noise: 1 - cosine anywhere in
+    [0, 2]), and none of those paths runs through a kernel.  Prints the
+    largest relative move among them and the smallest among the others."""
+    import torch
+    from segland_tpu_torch.losses import orth_loss
+    from segland_tpu_torch.models.backbones.droppath import dropout_generator, step_seed
+    from segland_tpu_torch.ops import plain_versions
+
+    if name in _SHIFT_INVARIANT:
+        return _SHIFT_INVARIANT[name]
+    model = train_step_model(torch.float32, name=name).to(dev).train()
+    g = torch.Generator().manual_seed(7)
+    crop = TRAIN_CROP // 4
+    img = torch.randn(TRAIN_BATCH, crop, crop, 3, generator=g).to(dev).permute(0, 3, 1, 2)
+    mask = torch.randint(0, 8, (TRAIN_BATCH, crop, crop), generator=g).to(dev)
+
+    def loss():
+        gen = torch.Generator(device=dev).manual_seed(step_seed(0, 0))
+        with torch.no_grad(), plain_versions(), dropout_generator(gen):
+            logits, sim = model.forward_base(img, train=True)
+            return float(orth_loss(logits.permute(0, 2, 3, 1), mask, sim)["total_loss"])
+
+    base = loss()
+    moves = []
+    for n, p in model.named_parameters():
+        kept = p.detach().clone()
+        with torch.no_grad():
+            p.add_(torch.randn(p.shape, generator=g).to(dev) * (p.abs().mean() + 1))
+        move = abs(loss() - base) / abs(base)
+        moves.append((move if math.isfinite(move) else math.inf, n))
+        with torch.no_grad():
+            p.copy_(kept)
+    del model
+    torch.cuda.empty_cache()
+    zero = frozenset(n for m, n in moves if m <= SHIFT_INVARIANT_RTOL)
+    inside = max(((m, n) for m, n in moves if n in zero), default=(0.0, "none"))
+    outside = min(((m, n) for m, n in moves if n not in zero), default=(math.inf, "none"))
+    print(f"shift-invariant parameters of {name}: {len(zero)} of {len(moves)} "
+          f"({', '.join(sorted(zero))}); the loss's largest relative move among them "
+          f"{inside[0]:.3g} ({inside[1]}), the smallest among the others {outside[0]:.3g} "
+          f"({outside[1]}); bar {SHIFT_INVARIANT_RTOL:g}", flush=True)
+    _SHIFT_INVARIANT[name] = zero
+    return zero
+
+
+def hold_zero_grads(tag, zero, grads, plain):
+    """The shift_invariant gradients ``zero`` of a route (``grads``) against
+    the plain route's (``plain``): finite, and exactly zero where the plain
+    route's is (a branch no path reaches: a DropPath mask that drops it for
+    every crop)."""
+    import torch
+
+    for n in sorted(zero):
+        g = grads[n]
+        if not bool(torch.isfinite(g).all()):
+            fail(f"{tag}: gradient of {n} (shift-invariant) not finite")
+        if not bool(plain[n].any()) and bool(g.any()):
+            fail(f"{tag}: gradient of {n} (shift-invariant) non-zero where the plain route's is 0")
+
+
 def train_step_model(dtype, fused=True, name="convnext_pop", is_ft=False):
     """chip_smoke's draw of ``name`` (convnext by default) with the POP
     classifier's three 1x1 convs drawn at 2 / sqrt(fan-in): their init
@@ -2268,10 +2357,11 @@ def check_train_steps(dev, name="convnext_pop"):
             del model
         torch.cuda.empty_cache()
     tag = f"train step{'' if name == 'convnext_pop' else ' ' + name} {TRAIN_BATCH}x{TRAIN_CROP}^2"
-    hold_steps(tag, runs, 8, perturbed=name in TRAIN_PERTURBED)
+    hold_steps(tag, runs, 8, perturbed=name in TRAIN_PERTURBED, zero=shift_invariant(name, dev))
 
 
-def hold_steps(tag, runs, k, flat_check=True, fp32_floor=1e-6, perturbed=False):
+def hold_steps(tag, runs, k, flat_check=True, fp32_floor=1e-6, perturbed=False,
+               zero=frozenset()):
     """check_train_steps' bars over ``runs`` {(dtype, route): (loss dict,
     {name: grad}, ...)}, routes kernels, plain and (fp32) unfused, with
     ``fp32_floor`` the fp32 bar's additive term; ``k`` classes, so that ln k is
@@ -2279,7 +2369,9 @@ def hold_steps(tag, runs, k, flat_check=True, fp32_floor=1e-6, perturbed=False):
     ``flat_check``.  With ``perturbed``, runs also holds the fp32 PERTURBED
     routes, and the fp32 bar of a tensor is twice the largest of the three
     correct routes' relative errors (the stock-torch blocks and the two
-    PERTURBED) plus ``fp32_floor``."""
+    PERTURBED) plus ``fp32_floor``.  The gradients named in ``zero``
+    (shift_invariant: zero in exact arithmetic, rounding alone on every route)
+    are held by hold_zero_grads instead."""
     import torch
 
     ref = runs[torch.float32, "plain"][1]
@@ -2288,7 +2380,10 @@ def hold_steps(tag, runs, k, flat_check=True, fp32_floor=1e-6, perturbed=False):
     for dtype in (torch.float32, torch.bfloat16):
         (ld_k, gk), (ld_p, gp) = runs[dtype, "kernels"][:2], runs[dtype, "plain"][:2]
         worst, largest = (-1.0, "", ""), (-1.0, "", "")
+        hold_zero_grads(f"{tag} {dtype}", zero, gk, gp)
         for n in gp:
+            if n in zero:
+                continue
             if dtype == torch.float32:
                 ek, eu = _rel_err(gk[n], gp[n]), max(errs[r][n] for r in correct)
                 margin = ek - (2 * eu + fp32_floor)
@@ -2308,7 +2403,8 @@ def hold_steps(tag, runs, k, flat_check=True, fp32_floor=1e-6, perturbed=False):
         lk, lp = float(ld_k["seg_loss"]), float(ld_p["seg_loss"])
         print(f"{tag} {str(dtype)[6:]} kernels vs plain versions: seg_loss {lk:.6f} vs "
               f"{lp:.6f} (|d|={abs(lk - lp):.3g}, ln {k} = {math.log(k):.6f}); of "
-              f"{len(gp)} gradients the nearest its bar {worst[1]} ({worst[0]:.2f} of it): "
+              f"{len(gp) - len(zero)} gradients ({len(zero)} shift-invariant held finite "
+              f"apart) the nearest its bar {worst[1]} ({worst[0]:.2f} of it): "
               f"{worst[2]}; the farthest from the reference {largest[1]}: {largest[2]}",
               flush=True)
         if flat_check and not min(lk, lp) >= math.log(k) + 0.1:
@@ -3811,8 +3907,18 @@ def phase_steprule(dev):
 DIST_TIME_LIMIT = 480  # s the parent waits for a group of ranks before it kills them
 DIST_EVAL_TILES = 5  # eval_base's tiles in batches of 2: the last batch leaves rank 1 none
 DIST_STEP_MODELS = ("convnext_pop", "swin_pop")  # the fp32 step over the ranks (swin: BN)
-DIST_GROUPS = {"nccl": (1, ("train", "fp32")),  # backend: (world, the jobs its ranks run)
-               "gloo": (2, ("train", "fp32", "ft", "eval", "devaug"))}
+DIST_GROUPS = {"nccl": (1, ("train", "fp32", "int8")),  # backend: (world, the jobs its ranks run)
+               "gloo": (2, ("train", "fp32", "ft", "eval", "devaug", "int8"))}
+# eval_base --int8 on deeplab_pop / resnet50 over DIST_EVAL_TILES tiles: tag: (flags, labelled);
+# the unlabelled runs export GTiffs and .mat logits, whose maps are compared with one process's
+DIST_INT8 = {"fp32": (("--dtype", "float32", "--int8"), False),
+             "fp32 percentile": (("--dtype", "float32", "--int8", "--calib-percentile", "99.9"),
+                                 True),
+             "bf16": (("--dtype", "bfloat16", "--int8"), False),
+             "bf16 fused": (("--dtype", "bfloat16", "--int8", "--fused"), True)}
+DIST_INT8_RUNS = {"nccl": ("fp32", "fp32 percentile", "bf16"), "gloo": tuple(DIST_INT8)}
+DIST_INT8_SCALE_RTOL = 1e-5  # fp32 scales over the ranks against one process at the global batch
+DIST_INT8_AGREEMENT = 0.999  # int8 maps over the ranks against one process's
 
 
 def weights_digest(model):
@@ -3947,33 +4053,69 @@ def dist_job_eval(dev, root, backend):
     return dict(launches=launches)
 
 
-def eval_base_run(ev, out, extra=(), labelled=True, batch=2):
+def eval_base_run(ev, out, extra=(), labelled=True, batch=2,
+                  model=("--model", "convnext_pop", "--dtype", "bfloat16"), ckpt="model.pth"):
     from segland_tpu_torch.cli import eval_base
 
     return eval_base.main(["--data-dir", os.path.join(ev, "data" if labelled else "nolabel"),
-                           "--val-list", os.path.join(ev, "val.txt"), "--model",
-                           "convnext_pop", "--dtype", "bfloat16", "--restore-from",
-                           os.path.join(ev, "model.pth"), "--eval-batch", str(batch),
+                           "--val-list", os.path.join(ev, "val.txt"), *model, "--restore-from",
+                           os.path.join(ev, ckpt), "--eval-batch", str(batch),
                            "--num-workers", "4", "--save-path", os.path.join(ev, out), *extra])
+
+
+@contextlib.contextmanager
+def made_evaluators():
+    """The Evaluators cli.eval_base makes while open (a list)."""
+    from segland_tpu_torch.cli import eval_base
+
+    made, plain = [], eval_base.Evaluator
+
+    class Recorded(plain):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    eval_base.Evaluator = Recorded
+    try:
+        yield made
+    finally:
+        eval_base.Evaluator = plain
+
+
+def int8_eval_run(ev, tag, out, extra=(), batch=2):
+    """cli.eval_base with DIST_INT8[tag] on deeplab_pop / resnet50 (int8.pth):
+    (its launches, its Evaluator's scales as floats)."""
+    flags, labelled = DIST_INT8[tag]
+    with made_evaluators() as made:
+        _, launches = counted(lambda: eval_base_run(
+            ev, out, extra, labelled, batch, ("--model", "deeplab_pop", "--backbone", "resnet50",
+                                              *flags), "int8.pth"))
+    return launches, {k: float(v) for k, v in made[-1]._quant.items()}
+
+
+def dist_job_int8(dev, root, backend):
+    """eval_base --int8 over the ranks, each of DIST_INT8_RUNS[backend] (the
+    outputs to eval/int8_<tag>_<backend>): its launches and scales."""
+    ev = os.path.join(root, "eval")
+    out = {}
+    for tag in DIST_INT8_RUNS[backend]:
+        launches, scales = int8_eval_run(ev, tag, int8_dir(tag, backend), dist_args(backend))
+        out[tag] = dict(launches=launches, scales=scales)
+    return out
+
+
+def int8_dir(tag, who):
+    return f"int8_{tag.replace(' ', '_')}_{who}"
 
 
 def eval_agreement(ev, ids, ranks, one):
     """(cm equal, agreement of the confusion matrices, pixels of the exports
     that differ, of them beyond near-ties of ``one``'s logits) of the eval
     outputs ``ranks`` and ``one`` (their unlabelled runs under ``<name>_nl``)."""
-    from scipy.io import loadmat
-
-    from segland_tpu_torch.data.tileio import read_label
-
     cm2 = np.load(os.path.join(ev, ranks, "cmatrix_123.npy"))
     cm1 = np.load(os.path.join(ev, one, "cmatrix_123.npy"))
-    beyond = differ = 0
-    for tid in ids:
-        p2 = read_label(os.path.join(ev, ranks + "_nl", tid + ".tif"))
-        p1 = read_label(os.path.join(ev, one + "_nl", tid + ".tif"))
-        logits = loadmat(os.path.join(ev, one + "_nl", "prob", tid + ".mat"))["outputs"][0]
-        differ += int((p2 != p1).sum())
-        beyond += differ_beyond_ties(p2, p1, np.ascontiguousarray(logits.transpose(1, 2, 0)))
+    _, differ, beyond = map_agreement(os.path.join(ev, ranks + "_nl"),
+                                      os.path.join(ev, one + "_nl"), ids)
     return (bool(np.array_equal(cm2, cm1)), 1.0 - np.abs(cm2 - cm1).sum() / 2 / cm1.sum(),
             differ, beyond)
 
@@ -3992,7 +4134,7 @@ def dist_job_devaug(dev, root, backend):
 
 
 DIST_JOBS = {"train": dist_job_train, "fp32": dist_job_fp32, "ft": dist_job_ft,
-             "eval": dist_job_eval, "devaug": dist_job_devaug}
+             "eval": dist_job_eval, "devaug": dist_job_devaug, "int8": dist_job_int8}
 
 
 def dist_worker(backend, root, jobs):
@@ -4064,10 +4206,10 @@ def dist_spawn(root, backend):
     return res, time.time() - t0
 
 
-def write_eval_tiles(ev):
+def write_eval_tiles(ev, dev):
     """DIST_EVAL_TILES random 1024^2 tiles with labels in data/ and the same
-    images without labels in nolabel/, and a convnext_pop draw (build) as
-    model.pth."""
+    images without labels in nolabel/, a convnext_pop draw (build) as
+    model.pth and a deeplab_pop / resnet50 draw (build_resnet) as int8.pth."""
     import torch
 
     from segland_tpu_torch.ckpt import save_params
@@ -4086,20 +4228,25 @@ def write_eval_tiles(ev):
     with open(os.path.join(ev, "val.txt"), "w") as f:
         f.write("\n".join(ids) + "\n")
     save_params(os.path.join(ev, "model.pth"), build("convnext_pop", torch.bfloat16))
+    save_params(os.path.join(ev, "int8.pth"), build_resnet("deeplab_pop", torch.float32, dev))
     return ids
 
 
-def dist_hold_step(name, backend, root, ref, perturbed):
+def dist_hold_step(name, backend, root, ref, perturbed, zero):
     """The fp32 step over ``backend``'s ranks against one process (``ref``:
     loss dict, grads), by the step rule of hold_steps with ``perturbed``: each
     gradient's relative error at most twice the farthest of the plain route
     on the image scaled by 1 +- FP32_SUM_FLOOR, plus FP32_SUM_FLOOR; the seg
-    loss within 1e-5."""
+    loss within 1e-5; the shift_invariant gradients ``zero`` by
+    hold_zero_grads."""
     import torch
 
     ld, grads = torch.load(os.path.join(root, f"fp32_{name}_{backend}.pt"), weights_only=False)
+    hold_zero_grads(f"dist {name} fp32 step over {backend}", zero, grads, ref[1])
     worst = (-1.0, "", 0.0, 0.0)
     for n, g in ref[1].items():
+        if n in zero:
+            continue
         err = _rel_err(grads[n].to(g.device), g)
         bar = 2 * max(_rel_err(p[1][n], g) for p in perturbed) + FP32_SUM_FLOOR
         worst = max(worst, (err / bar, n, err, bar))
@@ -4108,11 +4255,103 @@ def dist_hold_step(name, backend, root, ref, perturbed):
                  f"process's, bar {bar:.3g}")
     lk, lp = ld["seg_loss"], float(ref[0]["seg_loss"])
     print(f"dist {name} fp32 step ({backend}, {TRAIN_BATCH}x{TRAIN_CROP}^2 over the ranks) vs "
-          f"one process: seg_loss {lk:.6f} vs {lp:.6f}; of {len(grads)} gradients the nearest "
+          f"one process: seg_loss {lk:.6f} vs {lp:.6f}; of {len(grads) - len(zero)} gradients "
+          f"({len(zero)} shift-invariant held finite apart) the nearest "
           f"its bar {worst[1]} ({worst[0]:.2f} of it: {worst[2]:.3g} against {worst[3]:.3g})",
           flush=True)
     if not abs(lk - lp) <= 1e-5 * abs(lp):
         fail(f"dist {name} fp32 step over {backend}: seg_loss {lk} vs {lp}")
+
+
+def map_agreement(ranks_dir, one_dir, ids):
+    """(agreement, pixels that differ, of them beyond near-ties of one_dir's
+    .mat logits) of the GTiffs of two unlabelled eval runs."""
+    from scipy.io import loadmat
+
+    from segland_tpu_torch.data.tileio import read_label
+
+    differ = beyond = total = 0
+    for tid in ids:
+        p2 = read_label(os.path.join(ranks_dir, tid + ".tif"))
+        p1 = read_label(os.path.join(one_dir, tid + ".tif"))
+        logits = loadmat(os.path.join(one_dir, "prob", tid + ".mat"))["outputs"][0]
+        differ += int((p2 != p1).sum())
+        beyond += differ_beyond_ties(p2, p1, np.ascontiguousarray(logits.transpose(1, 2, 0)))
+        total += p1.size
+    return 1.0 - differ / total, differ, beyond
+
+
+def rank_batches(world, rank, n=DIST_EVAL_TILES, batch=2):
+    """The batches of the Loader's shares of ``n`` tiles in global batches of
+    ``batch`` that give ``rank`` of ``world`` rows."""
+    local = -(-batch // world)
+    return sum(1 for b in range(0, n, batch) if rank * local < min(batch, n - b))
+
+
+def int8_launches(tag, n_batches):
+    """DIST_INT8[tag]'s launches over ``n_batches`` batches: K2 1 a labelled
+    batch, K7 12 a forward with --fused (none in a calibration forward)."""
+    flags, labelled = DIST_INT8[tag]
+    per_batch = dict(({"upsample_argmax": 1} if labelled else {}),
+                     **({"bottleneck_int8": 12} if "--fused" in flags else {}))
+    return {k: v * n_batches for k, v in per_batch.items()}
+
+
+def check_dist_int8(ev, ids, groups):
+    """eval_base --int8 over each group's ranks against one process at the
+    global batch (--eval-batch 2), run here: the ranks hold the same scales;
+    in fp32 (TF32 off) each within DIST_INT8_SCALE_RTOL of one process's (a
+    rank runs a tile a forward, one process two: the convs round otherwise),
+    in bf16 the worst ratio printed; the maps (GTiffs, or the confusion
+    matrix of a labelled run) at DIST_INT8_AGREEMENT or more, with the pixels
+    that differ beyond near-ties of one process's logits; K7 12 a forward and
+    K2 1 a labelled batch on every rank."""
+    one = {tag: int8_eval_run(ev, tag, int8_dir(tag, "one")) for tag in DIST_INT8}
+    for tag, (launches, _) in one.items():
+        if launches != int8_launches(tag, rank_batches(1, 0)):
+            fail(f"int8 {tag} in one process: launches {launches}")
+    for backend, (res, _) in groups.items():
+        key = f"{backend} x{len(res)}"
+        for tag in DIST_INT8_RUNS[backend]:
+            flags, labelled = DIST_INT8[tag]
+            got = [r["int8"][tag] for r in res]
+            if any(g["scales"] != got[0]["scales"] for g in got):
+                fail(f"dist int8 {tag} ({key}): the ranks' scales differ")
+            want = one[tag][1]
+            if set(got[0]["scales"]) != set(want):
+                fail(f"dist int8 {tag} ({key}): scales of {sorted(got[0]['scales'])} against "
+                     f"one process's {sorted(want)}")
+            # a percentile may be 0 (a layer's input at least 99.9% zeros): 0 against 0 agrees
+            ratio, worst = max((0.0 if got[0]["scales"][k] == want[k] else
+                                abs(got[0]["scales"][k] / want[k] - 1.0) if want[k] else math.inf,
+                                k) for k in want)
+            held = tag.startswith("fp32")
+            for r, g in enumerate(got):
+                want_l = int8_launches(tag, rank_batches(len(res), r))
+                if g["launches"] != want_l:
+                    fail(f"dist int8 {tag} ({key}) rank {r}: launches {g['launches']}, "
+                         f"want {want_l}")
+            if labelled:
+                cm2 = np.load(os.path.join(ev, int8_dir(tag, backend), "cmatrix_123.npy"))
+                cm1 = np.load(os.path.join(ev, int8_dir(tag, "one"), "cmatrix_123.npy"))
+                differ = int(np.abs(cm2 - cm1).sum() / 2)
+                agree, beyond = 1.0 - differ / cm1.sum(), None
+            else:
+                agree, differ, beyond = map_agreement(os.path.join(ev, int8_dir(tag, backend)),
+                                                      os.path.join(ev, int8_dir(tag, "one")),
+                                                      ids)
+            print(f"dist int8 {tag} (deeplab_pop / resnet50, {key}, {DIST_EVAL_TILES} {TILE}^2 "
+                  f"tiles in global batches of 2) vs one process at --eval-batch 2: "
+                  f"{len(want)} scales, worst ratio |s/s_one - 1| {ratio:.3g} ({worst})"
+                  f"{' held' if held else ' printed'}; maps: agreement {100 * agree:.4f}%, "
+                  f"{differ} pixels differ"
+                  + ("" if beyond is None else f", {beyond} beyond near-ties")
+                  + f"; launches a rank {[g['launches'] for g in got]}", flush=True)
+            if held and not ratio <= DIST_INT8_SCALE_RTOL:
+                fail(f"dist int8 {tag} ({key}): scale {worst} {ratio:.3g} from one process's")
+            if not agree >= DIST_INT8_AGREEMENT or beyond:
+                fail(f"dist int8 {tag} ({key}): agreement {agree}, {beyond} pixels beyond "
+                     f"near-ties")
 
 
 def phase_dist(dev):
@@ -4129,9 +4368,9 @@ def phase_dist(dev):
     (global batch 2: K3 24 and K1 24 a step and K2 1), cli.eval_base against
     one process on DIST_EVAL_TILES tiles (at the ranks' per-process batch: the
     confusion matrices equal but for argmax near-ties, agreement >= 99.99%; at
-    the global batch printed), and train_base --device-augment
-    (aug_fallback printed; a forced draw bitwise equal to the host pipeline on
-    the card).  The NCCL rank's group is initialised and its BatchNorm goes
+    the global batch printed), train_base --device-augment (aug_fallback
+    printed; a forced draw bitwise equal to the host pipeline on the card),
+    and eval_base --int8 on deeplab_pop / resnet50 (check_dist_int8).  The NCCL rank's group is initialised and its BatchNorm goes
     through the all-reduce.  ms/step and max_memory_allocated per rank are
     printed, not held: the ranks share one card.  Returns {path: launches}."""
     import tempfile
@@ -4151,7 +4390,7 @@ def phase_dist(dev):
         write_train_tiles(os.path.join(root, "train"))
         write_ft_tiles(os.path.join(root, "ft"))
         ev = os.path.join(root, "eval")
-        ids = write_eval_tiles(ev)
+        ids = write_eval_tiles(ev, dev)
         # a forced --device-augment draw on the card against the host pipeline, bit for bit
         img = read_image(os.path.join(root, "train", "images", "tile_0.tif"))
         lab = read_label(os.path.join(root, "train", "labels", "tile_0.tif")).astype(np.int32)
@@ -4219,6 +4458,9 @@ def phase_dist(dev):
         print(f"dist --device-augment: aug_fallback a step {ranks[0]['devaug']['aug_fallback']}",
               flush=True)
         paths["convnext_pop train dist nccl x1"] = one["train"]["launches"]
+        paths["deeplab_pop eval_base --int8 --fused dist gloo x2"] = {
+            k: sum(r["int8"]["bf16 fused"]["launches"].get(k, 0) for r in ranks)
+            for k in ranks[0]["int8"]["bf16 fused"]["launches"]}
         for job, path in (("train", "convnext_pop train dist gloo x2"),
                           ("ft", "swin_pop ft dist gloo x2"),
                           ("eval", "convnext_pop eval_base dist gloo x2"),
@@ -4243,17 +4485,125 @@ def phase_dist(dev):
             if held and (beyond or agree < 0.9999):
                 fail(f"dist eval: {beyond} pixels differ beyond near-ties, agreement {agree}")
 
+        check_dist_int8(ev, ids, groups)
+
         # the fp32 steps: each group's against one process's, by the step rule
         img, mask = dist_batch(dev)
         for name in DIST_STEP_MODELS:
             model = train_step_model(torch.float32, name=name).to(dev)
             ref = train_step_grads(model, img, mask)
             perturbed = [train_step_grads(model, img * f, mask) for f in PERTURBED.values()]
+            zero = shift_invariant(name, dev)
             for backend in DIST_GROUPS:
-                dist_hold_step(name, backend, root, ref, perturbed)
+                dist_hold_step(name, backend, root, ref, perturbed, zero)
             del model, ref, perturbed
             torch.cuda.empty_cache()
     print(f"dist phase: {time.time() - t_phase:.1f}s", flush=True)
+    return paths
+
+
+EXPORT_TILES = 32  # unlabeled 1024^2 tiles through Evaluator.run, in batches of BATCH
+EXPORT_WORKERS = (4, 1)  # export_workers: the default pool, and one thread
+
+
+def export_digests(out, ids, mats):
+    """{file: digest} of a run's GTiffs and .mat files (a .mat's header text
+    without its date: scipy writes the time of the call there)."""
+    import hashlib
+
+    out_files = {}
+    for tid in ids:
+        names = [f"{tid}.tif"] + ([os.path.join("prob", f"{tid}.mat")] if mats else [])
+        for name in names:
+            data = open(os.path.join(out, name), "rb").read()
+            if name.endswith(".mat"):
+                data = data[:116].split(b", Created on:")[0] + data[116:]
+            out_files[name] = hashlib.blake2b(data, digest_size=16).hexdigest()
+    return out_files
+
+
+def phase_exports(dev):
+    """The eval loop's exports on a pool of threads (Evaluator.run's
+    export_workers): convnext_pop / convnext-t bf16 --fused with
+    normalize_on_device through Evaluator.run over EXPORT_TILES unlabeled
+    1024^2 GeoTIFF tiles in batches of BATCH, read by the Loader (4 decode
+    threads), writing the colormapped GTiffs alone (K1 18 and K2 1 a batch)
+    and then with the .mat logits (K1 18 a batch, no K2: the upsampled fp32
+    logits are written), each at export_workers 4 and 1: the files byte-equal
+    between the two, tiles/s of each run and of the same batches'
+    predict_batch with its device-to-host copies and no write.  Each run's
+    folder is removed before the next (32 .mat files are 1 GiB).  Returns
+    {path: launches}."""
+    import shutil
+    import tempfile
+
+    import torch
+    from segland_tpu_torch.data import Loader, OEMValDataset
+    from segland_tpu_torch.data.geotiff import write_tiff
+    from segland_tpu_torch.evallib import Evaluator
+
+    t_phase = time.time()
+    model = build("convnext_pop", torch.bfloat16).to(dev)
+    ev = Evaluator(model, dev, num_classes=12, n_base=7, normalize_on_device=True)
+    n_batches = EXPORT_TILES // BATCH
+    paths = {}
+    with tempfile.TemporaryDirectory() as root:
+        os.makedirs(os.path.join(root, "images"))
+        rng = np.random.RandomState(5)
+        ids = [f"x{i}" for i in range(EXPORT_TILES)]
+        for tid in ids:
+            write_tiff(os.path.join(root, "images", tid + ".tif"),
+                       rng.randint(0, 256, (TILE, TILE, 3)).astype(np.uint8))
+        with open(os.path.join(root, "list.txt"), "w") as f:
+            f.write("\n".join(ids) + "\n")
+        ds = OEMValDataset(root, os.path.join(root, "list.txt"), base_size=(TILE, TILE),
+                           device_normalize=True)
+        loader = lambda: Loader(ds, BATCH, num_workers=4)
+        host = [images for images, _, _ in loader()]
+        ev.predict_batch(host[0], (TILE, TILE), want_logits=False)  # warm-up: cuDNN plans
+        alone = {}
+        for mats in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for images in host:
+                logits, pred = ev.predict_batch(images, (TILE, TILE), want_logits=mats)
+                pred.cpu()
+                if mats:
+                    logits.cpu()
+            torch.cuda.synchronize()
+            alone[mats] = EXPORT_TILES / (time.perf_counter() - t0)
+            del logits, pred
+        smi = card()
+        for mats in (False, True):
+            kind = "GTiff + .mat" if mats else "GTiff"
+            digests = {}
+            for workers in EXPORT_WORKERS:
+                out = os.path.join(root, "out")
+                os.makedirs(os.path.join(out, "prob"))
+                torch.cuda.synchronize()
+                (_, _, tps), launches = counted(lambda: ev.run(
+                    loader(), save_path=out,
+                    prob_path=os.path.join(out, "prob") if mats else None, data_root=root,
+                    export_workers=workers))
+                want = {"ln_mlp": 18 * n_batches, **({} if mats else
+                                                    {"upsample_argmax": n_batches})}
+                print(f"exports {kind} (export_workers={workers}): {EXPORT_TILES} {TILE}^2 "
+                      f"tiles in {n_batches} batches of {BATCH}: tiles_per_s={tps:.2f}, "
+                      f"predict_batch alone {alone[mats]:.2f}; launches={launches} ({smi})",
+                      flush=True)
+                if launches != want:
+                    fail(f"exports {kind} (export_workers={workers}): launches {launches}, "
+                         f"want {want}")
+                digests[workers] = export_digests(out, ids, mats)
+                shutil.rmtree(out)
+                paths[f"convnext_pop eval_base exports {kind} x{workers}"] = launches
+            a, b = (digests[w] for w in EXPORT_WORKERS)
+            if a != b or len(a) != EXPORT_TILES * (2 if mats else 1):
+                fail(f"exports {kind}: {sum(a[k] != b.get(k) for k in a)} of {len(a)} files "
+                     f"differ between export_workers {EXPORT_WORKERS}")
+            print(f"exports {kind}: the {len(a)} files byte-equal at export_workers "
+                  f"{EXPORT_WORKERS[0]} and {EXPORT_WORKERS[1]}", flush=True)
+    print(f"exports phase: {time.time() - t_phase:.1f}s", flush=True)
     return paths
 
 
@@ -4265,10 +4615,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,train,ft,swin,"
-                            "swinbl,deeplab,pspnet,seghr,heads,ensemble,dist",
+                            "swinbl,deeplab,pspnet,seghr,heads,ensemble,dist,exports",
                     help="comma list of k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,train,ft,"
-                         "swin,swinbl,deeplab,pspnet,seghr,heads,ensemble,dist (default: all "
-                         "twenty-three); "
+                         "swin,swinbl,deeplab,pspnet,seghr,heads,ensemble,dist,exports (default: "
+                         "all twenty-four); "
                          "profile: a "
                          "torch.profiler "
                          "breakdown of the swin and deeplab_pop slices; dilated: cuDNN vs the "
@@ -4431,6 +4781,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "dist" in phases:
         paths.update(phase_dist(dev))
+        torch.cuda.empty_cache()
+    if "exports" in phases:
+        paths.update(phase_exports(dev))
         torch.cuda.empty_cache()
 
     if "profile" in phases:

@@ -14,6 +14,8 @@ probability .mat maps for ensemble fusion.
 ``--int8`` calibrates on the first ``--calib-batches`` batches and serves
 every large conv in int8 (``quant/ptq.py``); with ``--fused`` the stride-1
 ResNet bottlenecks without a downsample each run as one kernel launch.
+Unlabeled tiles' GTiff and .mat files are written on a pool of 4 threads
+while the next batch runs (``Evaluator.run``'s ``export_workers``).
 ``--is-ft`` (what ``cli.eval_ft`` appends) evaluates a fine-tuned base+novel
 model: a run per seed, square-longside logits against ignore-padded labels,
 the saturated novel colormap, no .mat export.
@@ -22,7 +24,9 @@ Over several processes (``torchrun --nproc_per_node N -m
 segland_tpu_torch.cli.eval_base ...``) each process runs its contiguous share
 of each --eval-batch tiles, writes the exports of its own tiles, and the
 confusion matrices are summed, so every rank reports the same mIoU; rank 0
-writes ``cmatrix_<seed>.npy``.  --int8 runs in one process.
+writes ``cmatrix_<seed>.npy``.  With --int8 each calibration batch is a
+global batch: the abs-max (or --calib-percentile's sample) is taken over the
+ranks' rows together, so the scales are one process's at --eval-batch.
 """
 
 import argparse

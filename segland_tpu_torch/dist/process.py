@@ -103,6 +103,27 @@ def all_reduce_max(t: torch.Tensor, group=None) -> torch.Tensor:
     return t
 
 
+def all_gather(t: torch.Tensor, group=None) -> list:
+    """Every rank's ``t`` in rank order (no gradient; ``[t]`` without a group).
+    The tensors may differ in length along dim 0; each is padded to the
+    longest for the collective and cut back after it.  gloo gathers host
+    copies, as it takes CUDA tensors in its all-reduce only."""
+    if not is_initialized():
+        return [t]
+    world_ = dist.get_world_size(group)
+    on = torch.device("cpu") if dist.get_backend(group) == "gloo" else t.device
+    x = t.detach().to(on).contiguous()
+    n = torch.tensor([x.shape[0]], dtype=torch.int64, device=on)
+    sizes = [torch.empty_like(n) for _ in range(world_)]
+    dist.all_gather(sizes, n, group=group)
+    sizes = [int(s) for s in sizes]
+    padded = x.new_zeros((max(sizes),) + tuple(x.shape[1:]))
+    padded[:x.shape[0]] = x
+    out = [torch.empty_like(padded) for _ in range(world_)]
+    dist.all_gather(out, padded, group=group)
+    return [o[:k].to(t.device) for o, k in zip(out, sizes)]
+
+
 def shard_rows(n_local: int):
     """(first, last) of this rank's rows in a global batch of ``world()``
     equal shares of ``n_local`` rows: the rows a one-process run of the

@@ -6,17 +6,26 @@ upsampled to label size with align_corners=True and argmaxed on the device
 (eval_base.py:168).  The mIoU path runs the fused epilogue (kernel K2 on
 CUDA) and only uint8 class maps ever exist.
 
+Without labels ``run`` hands each batch's GTiff and .mat writes to a pool of
+``export_workers`` threads, as the JAX ``Evaluator`` does, so that the next
+batch's forward does not wait for the disk; the device-to-host copies stay
+on the loop's thread.
+
 Under a process group each rank runs its share of each global batch (the
 ``Loader``'s process shards, as the JAX mesh shards a batch), writes the
 exports of its own tiles, and the confusion matrices and tile counts are
 summed over the ranks at the end of ``run``, so every rank reports the same
-mIoU.
+mIoU.  int8 calibration takes each global batch whole
+(``quant.calibrate_across_ranks``), as the JAX package calibrates on the
+mesh's global batch.
 """
 
+import collections
 import os
 import queue
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -49,14 +58,20 @@ class Staging:
         self._std = torch.tensor(std, dtype=torch.float32, device=self.device)
         self.plain_kernels = plain_kernels
 
-    def _across_ranks(self, cm_dev, n_tiles: int, t0: float):
+    def _across_ranks(self, cm_dev, n_tiles: int, t0: float, error=None):
         """(confusion matrix summed over the ranks as float64 numpy, tiles over
-        the ranks, seconds): the ranks wait for each other here."""
-        n = torch.tensor([n_tiles], dtype=torch.int64, device=self.device)
+        the ranks, seconds): the ranks wait for each other here.  ``error``, an
+        export error of this rank, is raised after the all-reduce, and every
+        other rank raises too, so that none is left waiting in a collective."""
+        n = torch.tensor([n_tiles, error is not None], dtype=torch.int64, device=self.device)
         dist.all_reduce_sum(cm_dev, group=dist.stats_group())
         dist.all_reduce_sum(n, group=dist.stats_group())
+        if error is not None:
+            raise error
+        if int(n[1]):
+            raise RuntimeError(f"the exports of {int(n[1])} of {dist.world()} ranks failed")
         cm = cm_dev.cpu().numpy().astype(np.float64)
-        return cm, int(n), time.perf_counter() - t0
+        return cm, int(n[0]), time.perf_counter() - t0
 
     def _pre(self, img):
         """[B,H,W,3] on the device -> normalized NCHW fp32 (channels-last)."""
@@ -150,7 +165,11 @@ class Evaluator(Staging):
     forward (a running abs-max, so the scales always cover the current
     batch), and every prediction takes the int8 conv/linear path.  ``quant``,
     activation scales calibrated beforehand ({module name: act_amax}), skips
-    that warm-up."""
+    that warm-up.  Under a process group (one rank included) a calibration
+    forward is one of the global batch, and every rank makes it: ``run``
+    makes it with an empty share for the global batches that leave this rank
+    none, so that each rank calibrates on ``min(calib_batches, len(loader))``
+    global batches."""
 
     def __init__(self, model, device, num_classes: int = 12, n_base: int = 7,
                  ignore_label: int = 255, normalize_on_device: bool = False,
@@ -160,11 +179,6 @@ class Evaluator(Staging):
                          std, plain_kernels)
         self.model = model.to(self.device).eval()
         self.int8 = int8
-        if int8 and dist.world() > 1:
-            # the calibration's running abs-max would be each rank's own; the JAX
-            # package calibrates on the whole global batch
-            raise ValueError("int8 calibration over more than one process is not supported: "
-                             "run --int8 in one process")
         if int8:
             from ..quant import DEFAULT_CONFIG, ActScales, quantized_apply
 
@@ -186,12 +200,21 @@ class Evaluator(Staging):
         if not self.int8:
             return self.model(x)
         if self._calib_seen < self.calib_batches:
-            from ..quant import quant_interceptor
+            self._calibrate(x)
+        return self._q_apply(self._quant, x)
 
+    def _calibrate(self, x):
+        """One calibration forward; over ranks, of the global batch whose share
+        of this rank is ``x`` (None: empty)."""
+        from ..quant import calibrate_across_ranks, quant_interceptor
+
+        if dist.is_initialized():
+            calibrate_across_ranks(self.model, x, self._quant, self._quant_cfg,
+                                   dist.stats_group())
+        else:
             with quant_interceptor(self.model, "calibrate", self._quant_cfg, self._quant):
                 self.model(x)
-            self._calib_seen += 1
-        return self._q_apply(self._quant, x)
+        self._calib_seen += 1
 
     def _postprocess(self, logits, out_h, out_w, want_logits=True):
         """(B,h,w,K) logits -> (upsampled fp32 logits or None, uint8 preds)."""
@@ -220,13 +243,19 @@ class Evaluator(Staging):
     @torch.inference_mode()
     def run(self, loader, save_path: Optional[str] = None,
             prob_path: Optional[str] = None, data_root: Optional[str] = None,
-            colormap=None, square_pad_eval: bool = False, logger=None):
+            colormap=None, square_pad_eval: bool = False, logger=None,
+            export_workers: int = 4):
         """Full eval epoch.  Returns (cmatrix, (base, novel, total, iou),
         tiles/sec).
 
         With GT: accumulate the confusion matrix on the device.  Without GT:
         write colormapped GTiff predictions and, with ``prob_path``, per-tile
-        .mat maps of the upsampled logits (reference eval_base.py:160-191).
+        .mat maps of the upsampled logits (reference eval_base.py:160-191), on
+        a pool of ``export_workers`` threads.  The loop waits for the oldest
+        batch's writes once ``2 * export_workers`` batches are pending, which
+        bounds the host memory they hold; a write error is raised before
+        ``run`` returns (at once in one process; over ranks after the
+        confusion matrices' all-reduce, on every rank).
 
         square_pad_eval: eval_ft protocol -- upsample logits to (longside,
         longside) and ignore-pad the GT (eval_ft.py:168-178).
@@ -235,37 +264,67 @@ class Evaluator(Staging):
                              device=self.device)
         n_tiles = 0
         t0 = time.perf_counter()
+        # the global batches this run calibrates on, each rank on every one of them
+        calib_due = (min(self.calib_batches, self._calib_seen + len(loader))
+                     if self.int8 and dist.is_initialized() else 0)
+        pending = collections.deque()
+        error = None
+
+        def settle(keep):
+            nonlocal error
+            while len(pending) > keep:
+                try:
+                    pending.popleft().result()
+                except Exception as e:
+                    if dist.world() == 1:
+                        raise
+                    error = error or e  # raised on every rank after the all-reduce
+
         # decode and pin on the host, off the thread that feeds the device
         batches = self._prefetch(
             (self._stage(images), self._stage_labels(labels, square_pad_eval), ids)
             for images, labels, ids in loader)
-        for staged, labels, ids in batches:
-            if labels is not None:
-                gt = labels.to(self.device, non_blocking=True)
-                _, pred = self.predict_batch(staged, gt.shape[-2:], want_logits=False)
-                cm_dev += confusion_matrix(gt, pred, self.num_classes, self.ignore_label)
-            else:
-                from ..data.tileio import OEM_COLORMAP, write_pred_tiff, write_prob_mat
-
-                lh, lw = staged[0].shape[1:3]
-                logits, pred = self.predict_batch(staged, (lh, lw),
-                                                  want_logits=prob_path is not None)
-                pred_np = pred.cpu().numpy()
-                logits_np = logits.cpu().numpy() if prob_path else None
-                for i, tid in enumerate(ids):
-                    if save_path:
-                        src = (os.path.join(data_root, "images", f"{tid}.tif")
-                               if data_root else None)
-                        write_pred_tiff(os.path.join(save_path, f"{tid}.tif"), pred_np[i],
-                                        colormap or OEM_COLORMAP, src)
-                    if prob_path:
-                        # NCHW layout for fusemat byte-compat (eval_base.py:190)
-                        write_prob_mat(os.path.join(prob_path, f"{tid}.mat"),
-                                       np.transpose(logits_np[i], (2, 0, 1))[None])
-            n_tiles += len(ids)
-        cm, n_tiles, dt = self._across_ranks(cm_dev, n_tiles, t0)
+        pool = ThreadPoolExecutor(export_workers, thread_name_prefix="segland-export")
+        try:
+            for staged, labels, ids in batches:
+                if labels is not None:
+                    gt = labels.to(self.device, non_blocking=True)
+                    _, pred = self.predict_batch(staged, gt.shape[-2:], want_logits=False)
+                    cm_dev += confusion_matrix(gt, pred, self.num_classes, self.ignore_label)
+                else:
+                    lh, lw = staged[0].shape[1:3]
+                    logits, pred = self.predict_batch(staged, (lh, lw),
+                                                      want_logits=prob_path is not None)
+                    pred_np = pred.cpu().numpy() if save_path else None
+                    logits_np = logits.cpu().numpy() if prob_path else None
+                    if error is None:
+                        pending.append(pool.submit(self._export, ids, pred_np, logits_np,
+                                                   save_path, prob_path, data_root, colormap))
+                        settle(2 * export_workers)
+                n_tiles += len(ids)
+            while self._calib_seen < calib_due:  # this rank's shares of them were empty
+                self._calibrate(None)
+            settle(0)
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+        cm, n_tiles, dt = self._across_ranks(cm_dev, n_tiles, t0, error)
         base, novel, total, iou = miou_from_cmatrix(cm, self.n_base)
         if logger:
             logger.info(f"eval: {n_tiles} tiles in {dt:.1f}s "
                         f"({n_tiles / max(dt, 1e-9):.1f} tiles/s)")
         return cm, (base, novel, total, iou), n_tiles / max(dt, 1e-9)
+
+    @staticmethod
+    def _export(ids, pred_np, logits_np, save_path, prob_path, data_root, colormap):
+        """One batch's files, on an export thread."""
+        from ..data.tileio import OEM_COLORMAP, write_pred_tiff, write_prob_mat
+
+        for i, tid in enumerate(ids):
+            if save_path:
+                src = os.path.join(data_root, "images", f"{tid}.tif") if data_root else None
+                write_pred_tiff(os.path.join(save_path, f"{tid}.tif"), pred_np[i],
+                                colormap or OEM_COLORMAP, src)
+            if prob_path:
+                # NCHW layout for fusemat byte-compat (eval_base.py:190)
+                write_prob_mat(os.path.join(prob_path, f"{tid}.mat"),
+                               np.transpose(logits_np[i], (2, 0, 1))[None])

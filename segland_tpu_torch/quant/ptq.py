@@ -186,7 +186,12 @@ class quant_interceptor:
 
     mode="calibrate": the forward is numerically unchanged; the running
     abs-max (or percentile) of every quantizable layer's input goes into
-    ``quant`` (an :class:`ActScales`, updated in place).
+    ``quant`` (an :class:`ActScales`, updated in place).  With ``shard``
+    (first row, rows of the global batch, this rank's rows: the input holds
+    a rank's contiguous rows of a global batch) a layer's entry is instead
+    this rank's part of the estimate for :func:`calibrate_across_ranks`: its
+    abs-max, or the elements of the global batch's strided percentile sample
+    that fall in its rows.
     mode="int8": the quantized path; ``quant`` must hold a scale for every
     layer that is reached.  ``fused_map`` (:func:`build_fused_block_inputs`)
     turns on the fused routes of ``cfg``; ``cache`` (a dict the caller keeps)
@@ -195,12 +200,13 @@ class quant_interceptor:
 
     def __init__(self, model: nn.Module, mode: str, cfg: QuantConfig = DEFAULT_CONFIG,
                  quant: dict | None = None, fused_map: dict | None = None,
-                 cache: dict | None = None):
+                 cache: dict | None = None, shard: Tuple[int, int, int] | None = None):
         if mode not in ("calibrate", "int8"):
             raise ValueError(f"unknown quant mode: {mode}")
         if quant is None:
             raise ValueError("quant_interceptor needs the ActScales to fill or to read")
         self.model, self.mode, self.cfg, self.quant = model, mode, cfg, quant
+        self.shard = shard
         self.fused_map = fused_map if mode == "int8" else None
         self.cache = {} if cache is None else cache
         self._taken = []
@@ -251,8 +257,14 @@ class quant_interceptor:
         # a deterministic strided subsample, taken in channels-last order as
         # the JAX package takes it (a full sort would be 10^8 elements at 1024^2)
         flat = (mag.permute(0, 2, 3, 1) if is_conv else mag).reshape(-1)
-        stride = max(1, flat.numel() // 65536)
-        return torch.quantile(flat[::stride], self.cfg.percentile / 100.0)
+        if self.shard is None:
+            stride = max(1, flat.numel() // 65536)
+            return torch.quantile(flat[::stride], self.cfg.percentile / 100.0)
+        # this rank's rows of the global batch: the global stride's elements among them
+        first, rows, local = self.shard
+        per_row = flat.numel() // local
+        stride = max(1, rows * per_row // 65536)
+        return flat[(-first * per_row) % stride::stride]
 
     def _weights(self, m: nn.Module, is_conv: bool):
         """(int8 weight, out-major per tap for a conv, and its scales), cached
@@ -278,6 +290,9 @@ class quant_interceptor:
         if self.mode == "calibrate":
             est = self._estimate(x, is_conv)
             seen = self.quant.get(name)
+            if seen is not None and est.dim():
+                raise ValueError(f"{name!r} ran twice in one forward: percentile calibration "
+                                 "over ranks takes one input a layer")
             self.quant[name] = est if seen is None else torch.maximum(
                 torch.as_tensor(seen, dtype=torch.float32, device=est.device), est)
             return _plain(m, x)
@@ -312,6 +327,58 @@ def calibrate(model: nn.Module, batches, cfg: QuantConfig = DEFAULT_CONFIG,
             n += 1
     if n == 0 and not quant:
         raise ValueError("calibrate: no batches provided")
+    return quant
+
+
+def calibrate_across_ranks(model: nn.Module, x: torch.Tensor | None, quant: ActScales,
+                           cfg: QuantConfig = DEFAULT_CONFIG, group=None) -> ActScales:
+    """One calibration forward of a global batch whose rows are spread over the
+    ranks of ``group`` in rank order: ``x`` holds this rank's contiguous rows,
+    or is None where its share is empty (every rank makes the call, for the
+    collectives).  The scales then equal one process's calibration of the
+    whole global batch: the abs-max is reduced by a maximum over the ranks (one
+    collective over every layer); the percentile is taken of the global
+    batch's strided sample, each rank giving the elements of the global stride
+    that fall in its rows, gathered in rank order.  ``quant`` keeps the
+    running maximum, as :func:`calibrate` does."""
+    from .. import dist
+
+    names = [n for n, m in model.named_modules()
+             if _conv_quantizable(n, m, cfg) or _dense_quantizable(n, m, cfg)]
+    dev = x.device if x is not None else next(model.parameters()).device
+    rows = 0 if x is None else x.shape[0]
+    shard = None
+    if cfg.act_estimator == "percentile":
+        counts = torch.cat(dist.all_gather(torch.tensor([rows], device=dev), group)).tolist()
+        shard = (sum(counts[:dist.rank()]), sum(counts), rows)
+    local = {}
+    if rows:
+        with torch.inference_mode(), quant_interceptor(model, "calibrate", cfg, local,
+                                                       shard=shard):
+            model(x)
+    if shard is None:
+        # -1 marks a layer this rank did not reach (an abs-max is >= 0)
+        amax = torch.stack([local[n].reshape(()) if n in local
+                            else torch.tensor(-1.0, device=dev) for n in names])
+        dist.all_reduce_max(amax, group)
+        new = {n: a for n, a, reached in zip(names, amax, (amax >= 0).tolist()) if reached}
+    else:
+        sizes = torch.tensor([local[n].numel() if n in local else 0 for n in names], device=dev)
+        flat = (torch.cat([local[n] for n in names if n in local]) if local
+                else torch.zeros(0, device=dev))
+        parts = [f.split(c.tolist()) for f, c in zip(dist.all_gather(flat, group),
+                                                      dist.all_gather(sizes, group))]
+        new = {}
+        for i, n in enumerate(names):
+            sample = torch.cat([p[i] for p in parts])
+            if sample.numel():
+                new[n] = torch.quantile(sample, cfg.percentile / 100.0)
+    for n, v in new.items():
+        seen = quant.get(n)
+        quant[n] = v if seen is None else torch.maximum(
+            torch.as_tensor(seen, dtype=torch.float32, device=v.device), v)
+    if isinstance(quant, ActScales):
+        quant.version += 1
     return quant
 
 

@@ -262,3 +262,101 @@ def test_eval_ft_two_seeds_load_their_own_checkpoints(data_root, tmp_path_factor
         cms[d.name] = [np.load(os.path.join(out, f"cmatrix_{s}.npy")) for s in (123, 456)]
     assert not np.array_equal(*cms["seeded"])
     assert np.array_equal(*cms["alone"]) and np.array_equal(cms["alone"][0], cms["seeded"][0])
+
+
+# ---- the export pool (Evaluator.run's export_workers) ------------------------
+EXPORT_IDS = [f"x{i}" for i in range(5)]  # 3 batches of 2: the last one short
+
+
+@pytest.fixture(scope="module")
+def export_tiles(tmp_path_factory):
+    """5 unlabeled 32^2 tiles, a narrow model (one strided conv: stride-4
+    logits, 8 classes) and the port's loader over them."""
+    from segland_tpu_torch.data.geotiff import write_tiff
+
+    root = tmp_path_factory.mktemp("exports")
+    (root / "images").mkdir()
+    rng = np.random.RandomState(11)
+    for tid in EXPORT_IDS:
+        write_tiff(str(root / "images" / f"{tid}.tif"),
+                   rng.randint(0, 256, (32, 32, 3)).astype(np.uint8))
+    (root / "list.txt").write_text("\n".join(EXPORT_IDS) + "\n")
+    model = torch.nn.Conv2d(3, 8, 3, stride=4, padding=1)
+    with torch.no_grad():
+        model.weight.copy_(torch.from_numpy(rng.randn(8, 3, 3, 3).astype(np.float32)))
+    return root, model.eval()
+
+
+def _export_run(root, model, out, workers):
+    from segland_tpu_torch.data import Loader, OEMValDataset
+    from segland_tpu_torch.evallib import Evaluator
+
+    os.makedirs(os.path.join(out, "prob"))
+    ds = OEMValDataset(str(root), str(root / "list.txt"), base_size=(32, 32))
+    Evaluator(model, "cpu", num_classes=8).run(
+        Loader(ds, 2, num_workers=0), save_path=out, prob_path=os.path.join(out, "prob"),
+        data_root=str(root), export_workers=workers)
+    return ds
+
+
+def _mat_bytes(path):
+    """A .mat file's bytes but for the date in its header text (scipy writes
+    the time of the call there)."""
+    data = open(path, "rb").read()
+    return data[:116].split(b", Created on:")[0] + data[116:]
+
+
+def test_export_pool_writes_the_same_bytes_at_1_and_4_workers(export_tiles, tmp_path):
+    """Every GTiff and .mat file is byte-equal at export_workers 1 and 4 (at 1
+    the loop waits for the oldest batch once 2 are pending), and equal to the
+    JAX package's write_pred_tiff / write_prob_mat of the same arrays."""
+    from segland_tpu.data.tileio import OEM_COLORMAP, write_pred_tiff, write_prob_mat
+    from segland_tpu_torch.data import Loader
+    from segland_tpu_torch.evallib import Evaluator
+
+    root, model = export_tiles
+    outs = {w: str(tmp_path / f"w{w}") for w in (1, 4)}
+    for w, out in outs.items():
+        ds = _export_run(root, model, out, w)
+    jax_out = tmp_path / "jax"
+    (jax_out / "prob").mkdir(parents=True)
+    ev = Evaluator(model, "cpu", num_classes=8)
+    for images, _, ids in Loader(ds, 2, num_workers=0):  # the run's batches
+        logits, pred = ev.predict_batch(images, (32, 32))
+        for i, tid in enumerate(ids):
+            write_pred_tiff(str(jax_out / f"{tid}.tif"), pred[i].numpy(), OEM_COLORMAP,
+                            str(root / "images" / f"{tid}.tif"))
+            write_prob_mat(str(jax_out / "prob" / f"{tid}.mat"),
+                           np.transpose(logits[i].numpy(), (2, 0, 1))[None])
+    for tid in EXPORT_IDS:
+        tifs = [open(os.path.join(p, f"{tid}.tif"), "rb").read()
+                for p in (outs[1], outs[4], str(jax_out))]
+        mats = [_mat_bytes(os.path.join(p, "prob", f"{tid}.mat"))
+                for p in (outs[1], outs[4], str(jax_out))]
+        assert tifs[0] == tifs[1] == tifs[2], tid
+        assert mats[0] == mats[1] == mats[2], tid
+    assert len(set(open(os.path.join(outs[4], f"{t}.tif"), "rb").read()
+                   for t in EXPORT_IDS)) == len(EXPORT_IDS)  # five maps, not one
+
+
+@pytest.mark.parametrize("workers", [1, 4])
+def test_an_export_error_reaches_the_caller_and_no_thread_stays(export_tiles, tmp_path,
+                                                                monkeypatch, workers):
+    """A .mat write that raises on the second tile makes run raise that error,
+    and no export thread is alive afterwards."""
+    import threading
+
+    from segland_tpu_torch.data import tileio
+
+    root, model = export_tiles
+    plain = tileio.write_prob_mat
+
+    def second_fails(path, probs):
+        if os.path.basename(path) == f"{EXPORT_IDS[1]}.mat":
+            raise OSError(f"no room for {os.path.basename(path)}")
+        plain(path, probs)
+
+    monkeypatch.setattr(tileio, "write_prob_mat", second_fails)
+    with pytest.raises(OSError, match="no room for x1.mat"):
+        _export_run(root, model, str(tmp_path / "out"), workers)
+    assert [t.name for t in threading.enumerate() if t.name.startswith("segland-export")] == []

@@ -102,8 +102,9 @@ def _write_inputs(d):
         if i >= 2:
             write_tiff(os.path.join(data, "labels", tid + ".tif"),
                        rng.randint(0, 12, (HW, HW)).astype(np.uint8))
-    with open(os.path.join(data, "list", "val.txt"), "w") as f:
-        f.write("\n".join(ids) + "\n")
+    for name, some in (("val.txt", ids), ("val4.txt", ids[:4]), ("labelled.txt", ids[2:])):
+        with open(os.path.join(data, "list", name), "w") as f:
+            f.write("\n".join(some) + "\n")
     return v, vft
 
 
@@ -322,3 +323,138 @@ def test_eval_over_processes_equals_one_process(ranks):
         key = [k for k in want if not k.startswith("__")][0]
         _close(got[key], want[key], 1e-5)
     assert sorted(os.listdir(two)) == sorted(os.listdir(one))
+
+
+def _one_process(d, out, **kw):
+    """cli.eval_base in this process as the ranks ran it: the scales of its
+    Evaluator (int8 flags in ``flags``)."""
+    from torch_dist_worker import eval_args, recorded_scales
+    from segland_tpu_torch.cli import eval_base
+
+    flags = kw.pop("flags", [])
+    return recorded_scales(lambda: eval_base.main(eval_args(d, out, **kw) + flags))[0]
+
+
+def _same_scales(got, want, rtol=1e-6):
+    assert set(got) == set(want) and len(want) == 22
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=rtol, atol=0, err_msg=k)
+
+
+def _global_batch_scales(inputs, estimator):
+    """One process's running scales over calibration batches whose layer inputs
+    are the ranks' ``inputs`` (per rank, one {name: input} a batch) joined in
+    rank order: each estimate is the port's one-process code on the global
+    batch's rows."""
+    from segland_tpu_torch.quant import QuantConfig, quant_interceptor
+
+    one = quant_interceptor(None, "calibrate", QuantConfig(act_estimator=estimator), {})
+    scales = {}
+    for batch in zip(*inputs):
+        for name in batch[0]:
+            rows = torch.cat([r[name] for r in batch if name in r])
+            est = float(one._estimate(rows, rows.dim() == 4))
+            scales[name] = max(scales.get(name, est), est)
+    return scales
+
+
+@pytest.mark.parametrize("estimator", ["absmax", "percentile"])
+def test_int8_eval_over_processes_equals_one_process(ranks, estimator):
+    """cli.eval_base --int8 over two ranks on 5 tiles in batches of 2: the last
+    calibration batch leaves rank 1 no rows, and it still takes part in the
+    calibration's collectives (else rank 0 would wait for it).  Both ranks
+    hold the same scales: bit for bit what one process's calibration gives on
+    the global batches of the activations the ranks computed; within 1e-5 of
+    cli.eval_base in one process at the global batch (seen: 10 of 22 part, by
+    at most 9.6e-7), whose fp32 convs round otherwise at a batch of 2.  The
+    confusion matrix and the GTiffs are one process's but where int8 carries
+    those roundings into a pixel's class (seen: 7 and 20 of 3,072 pixels, on
+    random weights whose classes lie close): at most 1% of the pixels."""
+    from torch_dist_worker import INT8
+    from segland_tpu_torch.data.tileio import read_label
+
+    d, out, _ = ranks
+    (a, inputs0), (b, inputs1) = (o["int8"][estimator] for o in out)
+    assert a == b and len(inputs0) == len(inputs1) == 3 and inputs1[-1] == {}
+    assert a == _global_batch_scales([inputs0, inputs1], estimator)
+    _same_scales(a, _one_process(d, f"int8_{estimator}_one", flags=INT8[estimator]), 1e-5)
+    two, one = (os.path.join(d, f"int8_{estimator}{x}") for x in ("", "_one"))
+    cm2, cm1 = (np.load(os.path.join(p, "cmatrix_123.npy")) for p in (two, one))
+    assert cm2.sum() == cm1.sum() == 3 * HW * HW
+    assert np.abs(cm2 - cm1).sum() / 2 <= 0.01 * cm1.sum()
+    for tid in ("t0", "t1"):
+        p2, p1 = (read_label(os.path.join(p, tid + ".tif")) for p in (two, one))
+        assert (p2 != p1).mean() <= 0.01
+
+
+@pytest.mark.parametrize("estimator", ["absmax", "percentile"])
+def test_int8_over_processes_matches_the_jax_mesh(ranks, estimator):
+    """On 4 tiles (full calibration batches: the JAX mesh pads none) the
+    ranks' scales equal the JAX Evaluator's (int8) over a 2-device CPU mesh,
+    which calibrates on each global batch, at test_torch_quant.py's bar."""
+    from segland_tpu.data import Loader as JLoader, OEMValDataset as JValDataset
+    from segland_tpu.dist import make_mesh
+    from segland_tpu.evallib import Evaluator as JEvaluator
+    from segland_tpu.models import build_model as j_build
+    from segland_tpu.quant import QuantConfig as JQuantConfig
+    from segland_tpu_torch.ckpt import quant_from_jax
+
+    d, out, (v, _) = ranks
+    data = os.path.join(d, "data")
+    ev = JEvaluator(j_build("pspnet_pop", backbone="resnet10", n_base=7), v, num_classes=12,
+                    mesh=make_mesh(2), int8=True, fused_epilogue=False,
+                    quant_cfg=JQuantConfig(act_estimator=estimator))
+    ev.run(JLoader(JValDataset(data, os.path.join(data, "list", "val4.txt"), base_size=(HW, HW),
+                               use_novel=True, use_base=True), 2, shuffle=False))
+    want = {k: float(a) for k, a in quant_from_jax(jax.tree_util.tree_map(
+        np.asarray, ev._quant)).items()}
+    for o in out:
+        _same_scales(o["int8"][estimator + "_full"], want)
+
+
+def test_eval_ft_over_processes_equals_one_process(ranks):
+    """cli.eval_ft over the two ranks: the confusion matrix and the GTiffs of
+    the unlabelled tiles equal one process's."""
+    from torch_dist_worker import eval_args
+    from segland_tpu_torch.cli import eval_ft
+    from segland_tpu_torch.data.tileio import read_label
+
+    d, _, _ = ranks
+    eval_ft.main(eval_args(d, "eval_ft_one", ckpt="ft.pth"))
+    two, one = (os.path.join(d, f"eval_ft_{x}") for x in ("ranks", "one"))
+    cm = np.load(os.path.join(two, "cmatrix_123.npy"))
+    np.testing.assert_array_equal(cm, np.load(os.path.join(one, "cmatrix_123.npy")))
+    assert cm.sum() == 3 * HW * HW
+    for tid in ("t0", "t1"):
+        np.testing.assert_array_equal(read_label(os.path.join(two, tid + ".tif")),
+                                      read_label(os.path.join(one, tid + ".tif")))
+    assert sorted(os.listdir(two)) == sorted(os.listdir(one))  # no .mat from eval_ft
+
+
+def test_ensemble_eval_over_processes_equals_one_process(ranks):
+    """cli.ensemble_eval over the two ranks on the 3 labelled tiles (the last
+    batch leaves rank 1 nothing): every rank's mIoU and rank 0's confusion
+    matrix equal one process's."""
+    from torch_dist_worker import ensemble_args
+    from segland_tpu_torch.cli import ensemble_eval
+
+    d, out, _ = ranks
+    want = ensemble_eval.main(ensemble_args(d, "ens_one"))
+    for o in out:
+        assert {k: o["ensemble"][k] for k in ("base", "novel", "total")} == {
+            k: want[k] for k in ("base", "novel", "total")}
+    cm = np.load(os.path.join(d, "ens_ranks", "cmatrix_ensemble.npy"))
+    np.testing.assert_array_equal(cm, np.load(os.path.join(d, "ens_one", "cmatrix_ensemble.npy")))
+    assert cm.sum() == 3 * HW * HW
+
+
+def test_an_export_error_on_one_rank_ends_both(ranks):
+    """Rank 1's .mat write raises: rank 1 raises that error and rank 0 an error
+    naming the failed rank, both after the confusion matrices' all-reduce (the
+    pair ended within its time limit: no rank was left in a collective), and
+    neither leaves an export thread behind."""
+    _, out, _ = ranks
+    (err0, alive0), (err1, alive1) = (o["export_error"] for o in out)
+    assert err1 == ("OSError", "no room for t1.mat")
+    assert err0 == ("RuntimeError", "the exports of 1 of 2 ranks failed")
+    assert alive0 == alive1 == []

@@ -179,11 +179,12 @@ def test_train_entry_point_runs_without_jax_flax_pil_or_the_jax_package(tmp_path
     assert (tmp_path / "snap" / "best.pth").exists()
 
 
-# train_base.main as one rank of two (gloo), --device-augment, on RUN_TRAIN's tiles
+# train_base.main as one rank of two (gloo), --device-augment, then eval_base --int8
+# --calib-percentile (dist.all_gather), on RUN_TRAIN's tiles
 RUN_TRAIN_RANK = """
 import sys
 from segland_tpu_torch import dist
-from segland_tpu_torch.cli import train_base
+from segland_tpu_torch.cli import eval_base, train_base
 best = train_base.main(["--data-dir", {root!r}, "--train-list", {root!r} + "/train.txt",
                         "--val-list", {root!r} + "/val.txt", "--model", "convnext_pop",
                         "--device", "cpu", "--fused", "--input-size", "32,32",
@@ -191,13 +192,20 @@ best = train_base.main(["--data-dir", {root!r}, "--train-list", {root!r} + "/tra
                         "--val-start", "0", "--num-workers", "0", "--device-augment",
                         "--snapshot-dir", {out!r}])
 assert dist.world() == 2 and 0.0 <= best <= 1.0
+res = eval_base.main(["--data-dir", {root!r}, "--val-list", {root!r} + "/train.txt",
+                      "--model", "deeplab_pop", "--backbone", "resnet10", "--device", "cpu",
+                      "--base-size", "32,32", "--eval-batch", "2", "--num-workers", "0",
+                      "--int8", "--calib-percentile", "99.9", "--save-path", {out!r} + "_int8"])
+assert 0.0 <= res[123][2] <= 1.0
 print(sorted(m for m in sys.modules if m.split('.')[0] in {foreign!r}))
 """
 
 
 def test_train_entry_point_runs_over_two_processes_without_the_foreign_modules(tmp_path):
-    """train_base under WORLD_SIZE=2 (gloo, --device-augment): both ranks end,
-    rank 0 writes the snapshots, and neither loads a foreign module."""
+    """train_base under WORLD_SIZE=2 (gloo, --device-augment), then eval_base
+    --int8 --calib-percentile over the same ranks (the calibration's
+    all_gather): both ranks end, rank 0 writes the snapshots and the
+    confusion matrix, and neither loads a foreign module."""
     import socket
 
     from segland_tpu_torch import native
@@ -227,6 +235,7 @@ def test_train_entry_point_runs_over_two_processes_without_the_foreign_modules(t
         assert p.returncode == 0, stderr
         assert stdout.strip().splitlines()[-1] == "[]"
     assert (snap / "best.pth").exists() and (snap / "epoch_1.pth").exists()
+    assert (tmp_path / "snap_int8" / "cmatrix_123.npy").exists()
 
 
 # gen_fs_list.main and ft_pop.main over tiles the port writes itself, from a base

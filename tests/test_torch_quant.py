@@ -472,6 +472,91 @@ def test_evaluator_precalibrated_scales_skip_the_warm_up(deeplab):
     assert (pred.numpy() == np.asarray(jpred)).mean() > 0.97
 
 
+# ---- a global batch over ranks (calibrate_across_ranks) --------------------
+def _one_layer(kind):
+    """A conv or a linear layer and an input of 3 rows whose rows hold 72,380
+    and 72,415 values: the global percentile sample takes every third value,
+    so the ranks' first values fall at offsets 1 and 2 of the stride."""
+    rng = np.random.RandomState(9)
+    if kind == "conv":
+        return nn.Conv2d(35, 40, 1).eval(), t(rng.randn(3, 35, 44, 47).astype(np.float32))
+    return nn.Linear(35, 40).eval(), t(rng.randn(3, 2069, 35).astype(np.float32))
+
+
+@pytest.mark.parametrize("kind", ["conv", "linear"])
+@pytest.mark.parametrize("estimator", ["absmax", "percentile"])
+def test_ranks_shares_give_one_process_scales_exactly(kind, estimator):
+    """Rows of one global batch split over ranks in every way (an empty share
+    included): each share's part of the estimate, joined as
+    calibrate_across_ranks joins them (the maximum; the samples in rank order,
+    then the quantile), equals one process's scale bit for bit.  Without a
+    process group calibrate_across_ranks is calibrate."""
+    from segland_tpu_torch.quant import calibrate_across_ranks
+
+    layer, x = _one_layer(kind)
+    net = nn.Sequential(layer)
+    cfg = QuantConfig(act_estimator=estimator)
+    want = float(calibrate(net, [x], cfg)["0"])
+    for shares in ([3], [2, 1], [1, 2], [1, 1, 1], [1, 0, 2]):
+        parts, first = [], 0
+        for n in shares:
+            local = {}
+            if n:
+                shard = (first, 3, n) if estimator == "percentile" else None
+                with torch.no_grad(), quant_interceptor(net, "calibrate", cfg, local,
+                                                        shard=shard):
+                    net(x[first:first + n])
+                parts.append(local["0"])
+            first += n
+        if estimator == "percentile":
+            got = torch.quantile(torch.cat(parts), cfg.percentile / 100.0)
+        else:
+            got = torch.stack(parts).max()
+        assert float(got) == want, shares
+    alone = calibrate_across_ranks(net, x, ActScales(), cfg)
+    assert float(alone["0"]) == want and alone.version == 1
+
+
+# ---- convnext_pop and swin_pop: whole models, dense layers in int8 ----------
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+@pytest.mark.parametrize("name", ["convnext_pop", "swin_pop"])
+def test_transformer_int8_matches_jax_with_scales_carried_across(monkeypatch, name, direction):
+    """convnext_pop and swin_pop at a narrow width (tests/ft_helpers.py's
+    backbones), every large conv and nn.Linear / nn.Dense in int8
+    (``quantize_dense``, the default): the calibrations agree layer by layer at
+    this file's scale bar, and with the scales carried across the logits agree
+    within 1% of the largest, as the ResNet models' do."""
+    from ft_helpers import narrow_backbones
+
+    narrow_backbones(monkeypatch)
+    backbone = "convnext-t" if name == "convnext_pop" else "swin-t"
+    jm = j_build(name, backbone=backbone, n_base=7)
+    v = _np_tree(random_variables(jm, jnp.zeros((1, 64, 64, 3)), seed=3))
+    port = load_port(meta_build(build_model, name, backbone, n_base=7), v).eval()
+    img = np.random.RandomState(4).randn(2, 64, 64, 3).astype(np.float32)
+    own = calibrate(port, [_nchw(img)])
+    vq = j_calibrate(jm, v, [jnp.asarray(img)])
+    jown = quant_from_jax(_np_tree(vq["quant"]))
+    dense = [n for n, m in port.named_modules() if type(m) is nn.Linear and n in own]
+    assert set(own) == set(jown)
+    assert len(dense) >= 6  # the MLPs of the blocks 32 channels or wider (swin: qkv, proj)
+    for k in own:
+        np.testing.assert_allclose(float(own[k]), float(jown[k]), rtol=1e-6, err_msg=k)
+    if direction == "jax_to_port":
+        quant = ActScales({k: t(a) for k, a in jown.items()})
+    else:
+        quant = own
+        vq = {**v, "quant": quant_to_jax({k: a.numpy() for k, a in own.items()}, v["params"])}
+    want = np.asarray(j_quantized_apply(jm)(vq, jnp.asarray(img)))
+    with torch.no_grad():
+        got = quantized_apply(port)(quant, _nchw(img)).permute(0, 2, 3, 1).numpy()
+        fp32 = port(_nchw(img)).permute(0, 2, 3, 1).numpy()
+    scale = np.abs(want).max()
+    assert got.shape == want.shape == (2, 16, 16, 8)
+    assert np.abs(got - want).max() < 0.01 * scale
+    assert 0 < np.abs(got - fp32).max() < 0.1 * scale  # quantized, and still the same model
+
+
 # ---- seghr_pop / hr-w32: conv by conv, no fused block ----------------------
 @pytest.fixture(scope="module")
 def seghr():

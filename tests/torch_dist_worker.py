@@ -11,25 +11,34 @@ every scenario in turn and saves what it saw to DIR/rank<r>.pt:
   ft      one fine-tune step;
   devaug  one base train step on raw uint8 tiles with --device-augment's
           augmentation;
-  eval    cli.eval_base over the ranks (its outputs go to DIR/eval_ranks).
+  eval    cli.eval_base over the ranks (its outputs go to DIR/eval_ranks);
+  int8    cli.eval_base --int8, abs-max and --calib-percentile 99.9, on the 5
+          tiles (outputs to DIR/int8_<estimator>; the scales and the quantized
+          layers' inputs of each calibration forward) and on 4 (full
+          calibration batches; the scales);
+  ft_eval cli.eval_ft with ft.pth (outputs to DIR/eval_ft_ranks);
+  ensemble cli.ensemble_eval on the labelled tiles (outputs to DIR/ens_ranks):
+          its result;
+  export_error  cli.eval_base with rank 1's .mat writes raising: the error
+          each rank raised and the export threads left alive.
 """
 
+import contextlib
 import copy
 import functools
 import os
 import sys
+import threading
 
 import numpy as np
 import torch
 
-torch.set_num_threads(1)  # as the test module runs (one_torch_thread)
-
-from segland_tpu_torch import dist  # noqa: E402
-from segland_tpu_torch.ckpt import load_checkpoint, save_checkpoint  # noqa: E402
-from segland_tpu_torch.models import build_model  # noqa: E402
-from segland_tpu_torch.ops.device_aug import base_train_augment  # noqa: E402
-from segland_tpu_torch.ops.layers import batch_norm  # noqa: E402
-from segland_tpu_torch.train import (TrainState, create_optimizer, ft_trainable,  # noqa: E402
+from segland_tpu_torch import dist
+from segland_tpu_torch.ckpt import load_checkpoint, save_checkpoint
+from segland_tpu_torch.models import build_model
+from segland_tpu_torch.ops.device_aug import base_train_augment
+from segland_tpu_torch.ops.layers import batch_norm
+from segland_tpu_torch.train import (TrainState, create_optimizer, ft_trainable,
                                      make_base_train_step, make_ft_train_step)
 
 LR = dict(base_lr=1e-3, num_epochs=4, steps_per_epoch=1, optimizer="sgd")
@@ -113,8 +122,110 @@ def devaug(d, model):
     return dict(ld=floats(ld), gn=float(gn), after=model.state_dict())
 
 
-def main(d):
+def eval_args(d, out, ckpt="base.pth", lst="val.txt"):
+    """cli.eval_base's arguments as tests/test_torch_dist.py runs it in one process."""
+    return ["--data-dir", os.path.join(d, "data"), "--val-list",
+            os.path.join(d, "data", "list", lst), "--model", "pspnet_pop", "--backbone",
+            "resnet10", "--restore-from", os.path.join(d, ckpt), "--device", "cpu",
+            "--base-size", "32,32", "--eval-batch", "2", "--num-workers", "0", "--save-path",
+            os.path.join(d, out)]
+
+
+def ensemble_args(d, out):
+    """cli.ensemble_eval's, on the labelled tiles with base.pth as its member."""
+    return ["--data-dir", os.path.join(d, "data"), "--val-list",
+            os.path.join(d, "data", "list", "labelled.txt"), "--members",
+            "pspnet_pop:resnet10:" + os.path.join(d, "base.pth"), "--device", "cpu",
+            "--base-size", "32,32", "--eval-batch", "2", "--num-workers", "0", "--save-path",
+            os.path.join(d, out)]
+
+
+@contextlib.contextmanager
+def layer_inputs(into):
+    """Every quantized layer's input of the calibration forwards run while
+    open, into ``into`` ({module name: input})."""
+    from segland_tpu_torch.quant import ptq
+
+    plain = ptq.quant_interceptor._layer
+
+    def layer(self, name, m, x):
+        if self.mode == "calibrate":
+            into[name] = x.clone()
+        return plain(self, name, m, x)
+
+    ptq.quant_interceptor._layer = layer
+    try:
+        yield
+    finally:
+        ptq.quant_interceptor._layer = plain
+
+
+def recorded_scales(fn):
+    """fn() with cli.eval_base's Evaluator recorded: (the scales of the last one
+    made, as floats; its calibration forwards' layer inputs, one dict a
+    calibration batch, empty where this rank's share was)."""
     from segland_tpu_torch.cli import eval_base
+
+    made = []
+
+    class Recorded(eval_base.Evaluator):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.calib_inputs = []
+            made.append(self)
+
+        def _calibrate(self, x):
+            self.calib_inputs.append({})
+            with layer_inputs(self.calib_inputs[-1]):
+                super()._calibrate(x)
+
+    plain, eval_base.Evaluator = eval_base.Evaluator, Recorded
+    try:
+        fn()
+    finally:
+        eval_base.Evaluator = plain
+    return {k: float(v) for k, v in made[-1]._quant.items()}, made[-1].calib_inputs
+
+
+INT8 = {"absmax": ["--int8"], "percentile": ["--int8", "--calib-percentile", "99.9"]}
+
+
+def int8(d):
+    from segland_tpu_torch.cli import eval_base
+
+    out = {}
+    for est, flags in INT8.items():
+        out[est] = recorded_scales(lambda: eval_base.main(eval_args(d, f"int8_{est}") + flags))
+        out[est + "_full"] = recorded_scales(lambda: eval_base.main(
+            eval_args(d, f"int8_{est}_full", lst="val4.txt") + flags))[0]
+    return out
+
+
+def export_error(d):
+    """cli.eval_base with rank 1's .mat writes raising: (the error's type and
+    message, or None, the export threads alive after) a rank."""
+    from segland_tpu_torch.cli import eval_base
+    from segland_tpu_torch.data import tileio
+
+    def refuse(path, probs):
+        raise OSError(f"no room for {os.path.basename(path)}")
+
+    plain = tileio.write_prob_mat
+    if dist.rank() == 1:
+        tileio.write_prob_mat = refuse
+    try:
+        eval_base.main(eval_args(d, "export_error"))
+        err = None
+    except Exception as e:
+        err = (type(e).__name__, str(e))
+    finally:
+        tileio.write_prob_mat = plain
+    alive = [t.name for t in threading.enumerate() if t.name.startswith("segland-export")]
+    return err, alive
+
+
+def main(d):
+    from segland_tpu_torch.cli import ensemble_eval, eval_base, eval_ft
 
     dist.init_from_env("cpu")
     out = {"world": dist.world(), "bn": bn(d)}
@@ -122,15 +233,16 @@ def main(d):
     out["devaug"] = devaug(d, copy.deepcopy(model))
     out["train"] = train(d, model)
     out["ft"] = ft(d)
-    eval_base.main(["--data-dir", os.path.join(d, "data"), "--val-list",
-                    os.path.join(d, "data", "list", "val.txt"), "--model", "pspnet_pop",
-                    "--backbone", "resnet10", "--restore-from", os.path.join(d, "base.pth"),
-                    "--device", "cpu", "--base-size", "32,32", "--eval-batch", "2",
-                    "--num-workers", "0", "--save-path", os.path.join(d, "eval_ranks")])
+    eval_base.main(eval_args(d, "eval_ranks"))
+    out["int8"] = int8(d)
+    eval_ft.main(eval_args(d, "eval_ft_ranks", ckpt="ft.pth"))
+    out["ensemble"] = ensemble_eval.main(ensemble_args(d, "ens_ranks"))
+    out["export_error"] = export_error(d)
     torch.save(out, os.path.join(d, f"rank{dist.rank()}.pt"))
     dist.barrier()
     dist.destroy()
 
 
 if __name__ == "__main__":
+    torch.set_num_threads(1)  # as the test module runs (one_torch_thread)
     main(sys.argv[1])
