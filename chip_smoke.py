@@ -99,13 +99,19 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      their eight stage shapes against the plain versions (the widths they add,
      C = 128, 256, 512, 1024, 1536, also in fp32, with a ragged M and a
      part-empty last block; those builds' registers and spills), each
-     forward's kernel ms beside its bound; then each model at full width and
-     depth through the eval slice as eval_base and as eval_ft run it (K3 24,
-     K1 24, K2 1 a batch; the weights drawn so that no class takes 90% of the
-     map; >= 99% agreement with the plain versions beyond near-ties, and the
-     kernel route as close to the fp32 stock-torch route as the plain
-     versions; tiles/s and max_memory_allocated), its --no-fused tiles/s and,
-     for swin-l, one batch through the use_pallas route;
+     forward's kernel ms beside its bound; K4 and K5 the same way
+     (swinbl_blocks: K4 against block_reference and bit for bit against K3
+     then K1, K5 at every group against its plain version and at group 1
+     against K3, the new builds' registers and spills, fp32 at the new widths,
+     K4's k3_then_k1_ms); then each model at full width and depth through the
+     eval slice as eval_base and as eval_ft run it (K3 24, K1 24, K2 1 a
+     batch; the weights drawn so that no class takes 90% of the map; >= 99%
+     agreement with the plain versions beyond near-ties, and the kernel route
+     as close to the fp32 stock-torch route as the plain versions; tiles/s and
+     max_memory_allocated), its --no-fused tiles/s and, for swin-l, one batch
+     through the use_pallas route; and one batch of each model through
+     SEGLAND_SWIN_V3_STAGES=all (K4 24, K2 1) and attn_group = 2 (K5 24, K1
+     24, K2 1), held the same way;
   9. K8 conv3_residual vs its plain version at the conv3 probe's two shapes
      (layer4 and layer3 of resnet50), M = 8*128^2 and 16*128^2 and a ragged M,
      with and without the ReLU, to 1 bf16 ulp (the count of elements that are
@@ -228,7 +234,7 @@ the repo beside it, it fails before printing any result.
     python3 chip_smoke.py --phases exports  # the eval loop's GTiff and .mat writes on a thread pool
     python3 chip_smoke.py --phases k2,k6    # K2 and K6 at every shape of their phases
     python3 chip_smoke.py --phases k1,k3    # K1 and K3 with their build, SASS and phase lines
-    python3 chip_smoke.py --phases swinbl   # swin_pop on swin-b and swin-l, K1 and K3 at their widths
+    python3 chip_smoke.py --phases swinbl   # swin_pop on swin-b and swin-l, K1, K3, K4 and K5 at their widths
     python3 chip_smoke.py --phases k4,k5    # K4 and K5 with their build, SASS and phase lines
     python3 chip_smoke.py --phases k8,k7    # K8, and K7 with its build, SASS and per-kernel lines
     python3 chip_smoke.py --phases k8,k10,k9  # K8, the head-group kernels and their probe
@@ -760,9 +766,9 @@ def check_k4(dev, b, c, nh, side, pside, shift, dtype, atol, rtol, seed):
     K1 bit for bit, and any element that differs fails the check.  Every kernel
     gets its weights as the models hand them (linear_layout)."""
     import torch
-    from segland_tpu_torch.ops.fused_attn import (attn_section, attn_section_reference,
-                                                  block_reference, swin_block,
-                                                  swin_block_clocks)
+    from segland_tpu_torch.ops.fused_attn import (CLOCK_WIDTHS, attn_section,
+                                                  attn_section_reference, block_reference,
+                                                  swin_block, swin_block_clocks)
     from segland_tpu_torch.ops.fused_mlp import ln_mlp, ln_mlp_reference
 
     nw = b * (pside // 7) ** 2
@@ -807,7 +813,7 @@ def check_k4(dev, b, c, nh, side, pside, shift, dtype, atol, rtol, seed):
     ms, two_ms = cuda_ms(run, iters=5, warmup=1), cuda_ms(two, iters=5, warmup=1)
     plain_ms = cuda_ms(plain, iters=3, warmup=1)
     tflops = (2 * nw * 49 * c * (4 * c + 2 * 49) + 16 * nw * 49 * c * c) / ms / 1e9
-    split = "" if dtype != torch.bfloat16 else " " + phase_split(
+    split = "" if dtype != torch.bfloat16 or c not in CLOCK_WIDTHS else " " + phase_split(
         lambda clk: swin_block_clocks(clk, a["x"], geom, *sec_l, *mlp_l, nh), K4_PHASES, dev)
     print(f"{tag}: whole block vs block_reference max_abs_err={whole:.6g} "
           f"tol=|d|<={atol}+{rtol}*|ref| out_of_tol={bad} (at most {allowed}, none past "
@@ -863,9 +869,9 @@ def check_k5(dev, b, c, nh, side, pside, shift, dtype, atol, rtol, seed, groups=
     TFLOP/s (the function's operations, K3's count) and the clock build's
     phase split.  The kernels get their weights as the models hand them."""
     import torch
-    from segland_tpu_torch.ops.fused_attn import (attn_section, attn_section_reference,
-                                                  attn_section_v1, attn_section_v1_clocks,
-                                                  v1_plan)
+    from segland_tpu_torch.ops.fused_attn import (CLOCK_WIDTHS, attn_section,
+                                                  attn_section_reference, attn_section_v1,
+                                                  attn_section_v1_clocks, v1_plan)
 
     nw = b * (pside // 7) ** 2
     geom = (side, side, pside, pside, 7, shift)
@@ -885,10 +891,11 @@ def check_k5(dev, b, c, nh, side, pside, shift, dtype, atol, rtol, seed, groups=
         if timed:
             times[g] = cuda_ms(run, iters=5, warmup=1)
             if dtype == torch.bfloat16:
-                split = phase_split(lambda clk: attn_section_v1_clocks(
-                    clk, a["x"], mask, *w_l, regions=regions, group=g), K5_PHASES, dev)
+                split = "" if c not in CLOCK_WIDTHS else " " + phase_split(
+                    lambda clk: attn_section_v1_clocks(
+                        clk, a["x"], mask, *w_l, regions=regions, group=g), K5_PHASES, dev)
                 print(f"{tag} group={g}: path={v1_plan(c, g)['path']} kernel_ms={times[g]:.4f} "
-                      f"tflops={flops / times[g] / 1e9:.1f} {split}", flush=True)
+                      f"tflops={flops / times[g] / 1e9:.1f}{split}", flush=True)
     k3 = ""
     if against_k3:
         got = attn_section_v1(a["x"], mask, *w_l, regions=regions, group=1)
@@ -1974,10 +1981,11 @@ def build(name, dtype, seed=0, fused=True, is_ft=False, attn_group=1, backbone=N
                     model.classifier_n[4].weight.neg_()
     if attn_group != 1:
         # no CLI switch and no registry argument has it, as in the JAX package: the same
-        # swin-s backbone and weights through the constructor's own argument
+        # swin-s (or ``backbone``) backbone and weights through the constructor's own argument
+        stages = SWIN_BL_STAGES.get(backbone, SWIN_STAGES)
         grouped = SwinTransformer(
-            depths=tuple(s[0] for s in SWIN_STAGES), num_heads=tuple(s[2] for s in SWIN_STAGES),
-            embed_dim=SWIN_STAGES[0][1], fused_mlp=fused, fused_attn=fused,
+            depths=tuple(s[0] for s in stages), num_heads=tuple(s[2] for s in stages),
+            embed_dim=stages[0][1], fused_mlp=fused, fused_attn=fused,
             attn_group=attn_group, dtype=dtype)
         grouped.load_state_dict(model.backbone.state_dict())
         model.backbone = grouped.eval()
@@ -3726,17 +3734,106 @@ def swinbl_kernels(dev):
     return rows
 
 
+def swinbl_blocks(dev):
+    """K4 and K5 at swin-b's and swin-l's stage shapes: the new builds'
+    registers and spills (a spill fails; K5 every group, so both paths), each
+    stage shape in bf16 with shift 0 and 3, K4 against block_reference and
+    bit for bit against K3 then K1 (check_k4), K5 at every group against
+    attn_section_reference and at group 1 against K3 (check_k5), with the
+    kernel, plain and (K4) K3-then-K1 ms and the bound; the new widths also in
+    fp32 (TF32 off, 1e-4); each forward's sum (24 blocks; K5 at the main
+    path's group).  Returns {kernel: {"C=..": numbers}}."""
+    import torch
+    from segland_tpu_torch.ops.fused_attn import block_plan, v1_plan
+
+    build_attrs("segland_swin_block_attrs", SWIN_BL_WIDTHS, "K4")
+    build_attrs("segland_attn_section_v1_attrs",
+                [(c, g) for c in SWIN_BL_WIDTHS for g in K5_GROUPS], "K5", names=("C", "group"))
+    bf = torch.bfloat16
+    rows = {"swin_block": {}, "attn_section_v1": {}}
+    for bb, stages in SWIN_BL_STAGES.items():
+        sums = {"K4": [0.0, 0.0, 0.0], "K5": [0.0, 0.0]}  # kernel, plain (K4: K3 then K1)
+        k4_bounds, k5_bounds = [], []
+        for i, (blocks, c, nh, side, pside) in enumerate(stages):
+            nw = BATCH * (pside // 7) ** 2
+            plan = block_plan(c)
+            print(f"K4 plan C={c}: {plan['w']} windows a block ({plan['row_tiles']} m64 row "
+                  f"tiles, last pass {plan['last_pass']} columns), ring {plan['s']} x "
+                  f"{plan['slot_bytes'] // 1024} KB ({plan['slots_per_block']} slots a block), y "
+                  f"{'streamed' if plan['stream_y'] else 'resident'}, MLP warpgroups "
+                  f"{plan['rg']} x {plan['cg']}, passes {plan['np']}, hidden chunk {plan['hc']}, "
+                  f"{plan['items']} work items, smem {plan['smem']:,} B", flush=True)
+            e4 = t4 = t2 = tp4 = 0.0
+            for shift in (0, 3):  # the blocks of a stage alternate
+                e, t, tt, tp = check_k4(dev, BATCH, c, nh, side, pside, shift, bf, 2e-2, 1e-2,
+                                        90 + i)
+                e4, t4, t2, tp4 = max(e4, e), t4 + t / 2, t2 + tt / 2, tp4 + tp / 2
+            b = bound(2 * nw * 49 * c * (4 * c + 2 * 49) + 16 * nw * 49 * c * c,
+                      2 * nw * 49 * c * 2 + 24 * c * c + nh * 49 * 49 * 4)
+            print(f"K4 {bb} stage {i} NW={nw} C={c}: kernel_ms={t4:.4f} (shift 0 and 3) "
+                  f"k3_then_k1_ms={t2:.4f} bound_ms={b[0]:.4f} ({b[1]}) share={b[0] / t4:.3f}",
+                  flush=True)
+            rows["swin_block"][f"C={c} NW={nw}"] = dict(max_abs_err=e4, ms=t4, plain_ms=tp4,
+                                                        k3_then_k1_ms=t2, bound_ms=b[0],
+                                                        bound_by=b[1])
+            sums["K4"] = [a + blocks * v for a, v in zip(sums["K4"], (t4, tp4, t2))]
+            k4_bounds += [b] * blocks
+            for g in K5_GROUPS:
+                plan = v1_plan(c, g)
+                print(f"K5 plan C={c} group={g}: {plan['path']} path, {plan['windows_a_block']} "
+                      f"windows a block, ring {plan['s']} x {plan['slot_bytes'] // 1024} KB, y "
+                      f"{'streamed' if plan['stream_y'] else 'resident'}, smem {plan['smem']:,} "
+                      f"B, scratch tensor {'yes' if plan['scratch'] else 'no'}", flush=True)
+            e5, by_group, tp5 = 0.0, {g: 0.0 for g in K5_GROUPS}, 0.0
+            for shift in (0, 3):  # per-window mask rows; regions with the shift
+                e, times, tp = check_k5(dev, BATCH, c, nh, side, pside, shift, bf, 2e-2, 1e-2,
+                                        100 + i, timed=True, against_k3=True)
+                e5, tp5 = max(e5, e), tp5 + tp / 2
+                for g, t in times.items():
+                    by_group[g] += t / 2
+            nbytes = (2 * nw * 49 * c * 2 + 8 * c * c + nh * 49 * 49 * 4
+                      + 2 * (pside // 7) ** 2 * 49 * 4)
+            b = bound(2 * nw * 49 * c * (4 * c + 2 * 49), nbytes)
+            t5 = by_group[K5_MAIN_GROUP]
+            print(f"K5 {bb} stage {i} NW={nw} C={c}: "
+                  + " ".join(f"g{g}_ms={t:.4f}" for g, t in by_group.items())
+                  + f" (shift 0 and 3) plain_ms={tp5:.4f} bound_ms={b[0]:.4f} ({b[1]}) "
+                  f"share(group={K5_MAIN_GROUP})={b[0] / t5:.3f}", flush=True)
+            rows["attn_section_v1"][f"C={c} NW={nw}"] = dict(
+                max_abs_err=e5, ms=t5, plain_ms=tp5, bound_ms=b[0], bound_by=b[1],
+                ms_by_group={str(g): t for g, t in by_group.items()})
+            sums["K5"] = [a + blocks * v for a, v in zip(sums["K5"], (t5, tp5))]
+            k5_bounds += [b] * blocks
+            if c in SWIN_BL_WIDTHS:  # the new builds in fp32 too (TF32 off)
+                check_k4(dev, 1, c, nh, side, pside, 3, torch.float32, 1e-4, 1e-4, 110 + i)
+                check_k5(dev, 1, c, nh, side, pside, 3, torch.float32, 1e-4, 1e-4, 120 + i)
+        for name, bounds in (("K4", k4_bounds), ("K5", k5_bounds)):
+            b_ms, b_by = sum_bounds(bounds)
+            extra = (f" k3_then_k1_ms={sums['K4'][2]:.4f}" if name == "K4"
+                     else f" (group={K5_MAIN_GROUP})")
+            print(f"{name} per {bb} forward of {BATCH} tiles (24 blocks): "
+                  f"kernel_ms={sums[name][0]:.4f}{extra} plain_ms={sums[name][1]:.4f} "
+                  f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+    # a part-empty last block (K5's windows path at two windows a block: 81 windows)
+    check_k5(dev, 1, 256, 8, 60, 63, 3, bf, 2e-2, 1e-2, 130)
+    return rows
+
+
 def phase_swinbl(dev):
     """swin_pop on swin-b and swin-l (the fused route, K3 then K1 in every
-    block): the kernels at their shapes (swinbl_kernels), then each model at
-    full width and depth through the eval slice as eval_base and as eval_ft run
-    it (K3 24, K1 24, K2 1 a batch; >= 99% agreement with the plain versions;
-    tiles/s and max_memory_allocated; fp32 card vs CPU), the unfused model's
-    tiles/s and, for swin-l, one batch through the use_pallas route (K6).
-    Returns (the kernels' numbers by width, launches by path)."""
+    block): the kernels at their shapes (swinbl_kernels, swinbl_blocks), then
+    each model at full width and depth through the eval slice as eval_base and
+    as eval_ft run it (K3 24, K1 24, K2 1 a batch; >= 99% agreement with the
+    plain versions; tiles/s and max_memory_allocated; fp32 card vs CPU), the
+    unfused model's tiles/s and, for swin-l, one batch through the use_pallas
+    route (K6); then one batch of each model by the whole-block route (K4 24)
+    and by attn_group = 2 (K5 24, K1 24), each held to its plain versions and
+    to the fp32 stock-torch route as the fused route is.  Returns (the
+    kernels' numbers by width, launches by path)."""
     import torch
 
     rows = swinbl_kernels(dev)
+    rows.update(swinbl_blocks(dev))
     torch.cuda.empty_cache()
     per_batch = {"ln_mlp": 24, "upsample_argmax": 1, "attn_section": 24}
     paths = {}
@@ -3756,7 +3853,21 @@ def phase_swinbl(dev):
         else:
             _, _, tps_u = phase_unfused(dev, "swin_pop", bb)
         torch.cuda.empty_cache()
-        print(f"swin_pop {bb} eval default: fused {tps_f:.2f} tiles/s, plain versions "
+        # the whole-block kernel in every block, and super-window groups (K5 then K1)
+        with environ(SEGLAND_SWIN_V3_STAGES="all"):
+            paths[f"swin_pop {bb} whole-block"], tps_b, _ = phase_slice(
+                dev, "swin_pop", {"swin_block": 24, "upsample_argmax": 1}, fp32_check=False,
+                route="SEGLAND_SWIN_V3_STAGES=all", n_batches=1, backbone=bb,
+                max_class_share=SWIN_BL_CLASS_SHARE, near_tie=SWIN_BL_NEAR_TIE)
+        torch.cuda.empty_cache()
+        paths[f"swin_pop {bb} attn_group"], tps_g, _ = phase_slice(
+            dev, "swin_pop", {"attn_section_v1": 24, "ln_mlp": 24, "upsample_argmax": 1},
+            fp32_check=False, route=f"attn_group={K5_MAIN_GROUP}", attn_group=K5_MAIN_GROUP,
+            k1_rows=spatial, n_batches=1, backbone=bb, max_class_share=SWIN_BL_CLASS_SHARE,
+            near_tie=SWIN_BL_NEAR_TIE)
+        torch.cuda.empty_cache()
+        print(f"swin_pop {bb} eval default: fused {tps_f:.2f} tiles/s, whole-block "
+              f"{tps_b:.2f}, attn_group={K5_MAIN_GROUP} {tps_g:.2f}, plain versions "
               f"{tps_p:.2f}, unfused {tps_u:.2f}", flush=True)
     return rows, paths
 

@@ -47,12 +47,12 @@ _ENTRIES = {
     # dtype, qkv, bias_dtype, bias, out, NW, C, nh, nw_img, device, stream
     "segland_window_attention": [_I, _P, _I, _P, _P, ctypes.c_longlong] + [_I] * 4 + [_P],
     # dtype, x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2, beta2, w1, b1, w2, b2,
-    # out, NW, C, nh, H, h, w, hp, wp, ws, shift, eps, device, stream
-    "segland_swin_block": [_I] + [_P] * 15 + [ctypes.c_longlong] + [_I] * 9
+    # out, scratch, NW, C, nh, H, h, w, hp, wp, ws, shift, eps, device, stream
+    "segland_swin_block": [_I] + [_P] * 16 + [ctypes.c_longlong] + [_I] * 9
                           + [ctypes.c_float, _I, _P],
     # dtype, x, mask_tok, rows_m, regions, rows_r, gamma, beta, wqkv, bqkv, wproj, bproj,
-    # bias, scratch, out, NW, C, nh, group, eps, device, stream
-    "segland_attn_section_v1": [_I, _P, _P, _I, _P, _I] + [_P] * 9 + [ctypes.c_longlong]
+    # bias, scratch, ysc, out, NW, C, nh, group, eps, device, stream
+    "segland_attn_section_v1": [_I, _P, _P, _I, _P, _I] + [_P] * 10 + [ctypes.c_longlong]
                                + [_I] * 3 + [ctypes.c_float, _I, _P],
     # x, w1t, a1, b1, h1q, M, C, P, s_x, s_h1, device, stream
     "segland_bottleneck_conv1": [_P] * 5 + [ctypes.c_longlong, _I, _I] + [ctypes.c_float] * 2
@@ -83,9 +83,9 @@ _ENTRIES = {
                                           _P],
     "segland_attn_section_clocks": [_P] * 10 + [ctypes.c_longlong] + [_I] * 8
                                    + [ctypes.c_float, _P, _I, _P],
-    "segland_swin_block_clocks": [_P] * 15 + [ctypes.c_longlong] + [_I] * 9
+    "segland_swin_block_clocks": [_P] * 16 + [ctypes.c_longlong] + [_I] * 9
                                  + [ctypes.c_float, _P, _I, _P],
-    "segland_attn_section_v1_clocks": [_P, _P, _I, _P, _I] + [_P] * 9 + [ctypes.c_longlong]
+    "segland_attn_section_v1_clocks": [_P, _P, _I, _P, _I] + [_P] * 10 + [ctypes.c_longlong]
                                       + [_I] * 3 + [ctypes.c_float, _P, _I, _P],
     "segland_bottleneck_conv1_clocks": [_P] * 5 + [ctypes.c_longlong, _I, _I]
                                        + [ctypes.c_float] * 2 + [_P, _I, _P],

@@ -22,6 +22,10 @@ typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 // q, k, v: row 0 of the window, [>= 64 rows, kLQ]; rows 49..63 finite.
 // bias: this head's [N, N] fp32, in shared memory.  rid: the window's N region ids, or null.
 // sink: row 0 of the window's output at this head's column, row stride ld.
+// OPAQUE: the rotation opaque to the compiler, so that the column offsets and
+// masks derived from it are not hoisted out of the caller's head loop, where
+// they held registers across the products (K4 at C = 128 spilled 12-16 B).
+template <bool OPAQUE = false>
 __device__ __forceinline__ void attn_tile_bf16(const bf16* q, const bf16* k, const bf16* v,
                                                int rt, const float* bias,
                                                const uint8_t* rid, float scale, float* strip,
@@ -55,7 +59,8 @@ __device__ __forceinline__ void attn_tile_bf16(const bf16* q, const bf16* k, con
   {
     const int r = lane >> 1, hf = lane & 1;
     const int qi = rt * 16 + r;
-    const int rot = hf + 2 * (r >> 3);  // bank = (4 * (r & 7) + rot + c) % 32, all distinct
+    int rot = hf + 2 * (r >> 3);  // bank = (4 * (r & 7) + rot + c) % 32, all distinct
+    if constexpr (OPAQUE) asm volatile("" : "+r"(rot));
     const bool live = qi < kN;
     const float* srow = strip + r * kLS + hf * 32;
     const float* brow = bias + (live ? qi : 0) * kN + hf * 32;

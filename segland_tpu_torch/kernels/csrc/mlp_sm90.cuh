@@ -326,6 +326,10 @@ __device__ __forceinline__ void mlp_item(sm90::Ring<B, S>& q, const unsigned cha
           sm90::reg_fence(acc2[n]);
           sm90::ring_next(q);
         }
+        // a ring of at most NT2 + 1 slots (K4 at C = 1024): the slot this
+        // warpgroup still holds is the one the producer fills for its next
+        // take, so it goes back before the other warpgroup's tiles are passed
+        if constexpr (S <= Ml::NT2 + 1) sm90::ring_drain(q);
         clk.template lap<Ph::mma>();
         sm90::ring_skip(q, (Ml::CG - 1 - cg) * Ml::NT2);
         clk.template lap<Ph::wait>();
@@ -355,7 +359,7 @@ __device__ __forceinline__ void mlp_item_ys(sm90::Ring<B, S>& q, unsigned char* 
                                             const float* __restrict__ ls, const bf16* res,
                                             bf16* out, long long row0, long long M, Clk& clk) {
   constexpr int TILE = Ml::TILE;
-  static_assert(Ml::YS && B == Ml::SLOT, "the streamed-y ring");
+  static_assert(Ml::YS && B >= Ml::SLOT, "the streamed-y ring");
   float acc2[Ml::NT2][32];
 #pragma unroll
   for (int n = 0; n < Ml::NT2; ++n)

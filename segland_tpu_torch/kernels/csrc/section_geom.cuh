@@ -11,9 +11,10 @@ namespace {
 // section_rows with K3's masks: the region id and pad flag (bit 7) of every
 // token from the window index, a pad token's row zero, and K3's attention core
 // (16 query rows of one window a warp); K3's section and K4's first half.
+// OPAQUE: attn_tile_bf16's opaque rotation.
 // Pl::YS: the context goes to ctx and y to ysg (the block's scratch rows,
 // announced on `ready`), as section_rows says.
-template <typename Pl, typename Clk>
+template <typename Pl, bool OPAQUE = false, typename Clk>
 __device__ __forceinline__ void geom_section(sm90::Ring<Pl::SLOT, Pl::S>& q, unsigned char* smem,
                                              const bf16* x, bf16* out, int rows, long long win0,
                                              const Geom& geo, const float* __restrict__ gamma,
@@ -47,7 +48,7 @@ __device__ __forceinline__ void geom_section(sm90::Ring<Pl::SLOT, Pl::S>& q, uns
           const int wl = u / 4, rt = u % 4;
           if (wl >= rows / kN) continue;
           const int r0 = wl * kN;
-          attn_tile_bf16(qb + r0 * kLQ, kb + r0 * kLQ, vb + r0 * kLQ, rt, bias_s,
+          attn_tile_bf16<OPAQUE>(qb + r0 * kLQ, kb + r0 * kLQ, vb + r0 * kLQ, rt, bias_s,
                          geo.shift > 0 ? rids + r0 : nullptr, rsqrtf((float)kHD),
                          strips + cw * kStrip, cdst + (size_t)r0 * Pl::C + h * kHD, (size_t)Pl::C);
         }

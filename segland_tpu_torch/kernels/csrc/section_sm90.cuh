@@ -45,6 +45,7 @@ struct SecShape {
   static constexpr int KS = C / 16;             // k16 steps
   static constexpr int NH = C / kHD;
   static constexpr int SLOT = 96 * 128;         // a ring slot: [96 rows, 64 bf16]
+  static constexpr int LOAD = SLOT;             // bytes that a slot's loads bring
   static constexpr int YK = RS * 128;           // bytes a K tile of y
   static constexpr int LW = C - 96 * ((C - 1) / 96);  // the projection's last pass: 96, 64 or 32
   static constexpr bool YS = false;             // y resident (SecPlan may stream it)
@@ -60,9 +61,11 @@ struct SecShape {
 // id as fp32).  Where y would not fit resident (C = 1536: 172 KB for one
 // window), y and then the context stream through the ring instead (YS): each
 // slot holds the window's [64 rows, 64] A tile of them at its start, from the
-// scratch rows the block writes, beside the [96, 64] weight tile.
+// scratch rows the block writes, beside the [96, 64] weight tile.  RING: the
+// least bytes a ring slot spans (K4 at C = 1536, whose MLP slots are larger
+// than the section's); a slot's loads still bring LOAD bytes.
 // ops/fused_attn.py:section_plan mirrors this arithmetic.
-template <int C_, int W_, int S_, bool RR_, int TOK_ = 1>
+template <int C_, int W_, int S_, bool RR_, int TOK_ = 1, int RING_ = 0>
 struct SecPlan : SecShape<C_, W_ * kN, S_, RR_> {
   typedef SecShape<C_, W_ * kN, S_, RR_> Shape;
   using Shape::C;
@@ -84,7 +87,8 @@ struct SecPlan : SecShape<C_, W_ * kN, S_, RR_> {
       (size_t)S * Shape::SLOT + (size_t)KT * YK + REST + 2 * S * sizeof(uint64_t) + 1024;
   static constexpr bool YS = RESIDENT > kMaxSmem;
   static constexpr int A_BYTES = YS ? 64 * 128 : 0;  // a slot's A tile (YS)
-  static constexpr int SLOT = A_BYTES + Shape::SLOT;
+  static constexpr int LOAD = A_BYTES + Shape::SLOT;
+  static constexpr int SLOT = LOAD > RING_ ? LOAD : RING_;
   static constexpr size_t OFF_Y = (size_t)S * SLOT;
   static constexpr size_t OFF_Q = OFF_Y + (YS ? 0 : (size_t)KT * YK);
   static constexpr size_t OFF_STRIP = OFF_Q + 3 * Q_BYTES;
@@ -114,7 +118,7 @@ template <typename Pl, typename Fill>
 __device__ __forceinline__ void produce_qkv(Fill& f, const CUtensorMap* mq, int h) {
 #pragma unroll 1
   for (int kt = 0; kt < Pl::KT; ++kt) {
-    unsigned char* dst = f.next(Pl::SLOT);
+    unsigned char* dst = f.next(Pl::LOAD);
     for (int which = 0; which < 3; ++which)  // q, k, v columns of head h: 32 rows each
       sm90::tma_load_2d(dst + which * 32 * 128, mq, f.bar(), kt * 64, which * Pl::C + h * kHD);
     f.advance();
@@ -125,7 +129,7 @@ __device__ __forceinline__ void produce_qkv(Fill& f, const CUtensorMap* mq, int 
 template <typename Pl, typename Fill>
 __device__ __forceinline__ void produce_proj(Fill& f, const CUtensorMap* mp, int n0) {
 #pragma unroll 1
-  for (int kt = 0; kt < Pl::KT; ++kt) f.load(mp, kt * 64, n0, Pl::SLOT);
+  for (int kt = 0; kt < Pl::KT; ++kt) f.load(mp, kt * 64, n0, Pl::LOAD);
 }
 
 // section_rows' stream: every head's q, k, v, then the projection
@@ -138,37 +142,43 @@ __device__ __forceinline__ void produce_section(Fill& f, const CUtensorMap* mq,
   for (int n0 = 0; n0 < Pl::C; n0 += 96) produce_proj<Pl>(f, mp, n0);
 }
 
-// produce_section where y and the context stream (Pl::YS): a slot holds the
-// window's [64, 64] tile of y (then of the context) from its scratch rows row0..
-// of my (mc) beside the weight tile; y's tiles go once `ready` has completed
-// its first phase (the consumers wrote y), the context's once its second
+// produce_section where y and the context stream (Pl::YS), over `nwin`
+// windows of 64 scratch rows each from row0 (K3 and K4: the block's window;
+// K5's scratch path: its super-window, a window a chunk): a slot holds a
+// window's [64, 64] tile of y (then of the context) from my (mc) beside the
+// weight tile; y's tiles go once `ready` has completed its first phase (the
+// consumers wrote y), the context's once its second
 template <typename Pl, typename Fill>
 __device__ __forceinline__ void produce_section_ys(Fill& f, const CUtensorMap* mq,
                                                    const CUtensorMap* mp, const CUtensorMap* my,
                                                    const CUtensorMap* mc, int row0,
-                                                   uint64_t* ready) {
+                                                   uint64_t* ready, int nwin = 1) {
   sm90::mbar_wait(ready, 0u);
 #pragma unroll 1
-  for (int h = 0; h < Pl::NH; ++h)
+  for (int w = 0; w < nwin; ++w)
 #pragma unroll 1
-    for (int kt = 0; kt < Pl::KT; ++kt) {
-      unsigned char* dst = f.next(Pl::SLOT);
-      sm90::tma_load_2d(dst, my, f.bar(), kt * 64, row0);
-      for (int which = 0; which < 3; ++which)  // q, k, v columns of head h: 32 rows each
-        sm90::tma_load_2d(dst + Pl::A_BYTES + which * 32 * 128, mq, f.bar(), kt * 64,
-                          which * Pl::C + h * kHD);
-      f.advance();
-    }
+    for (int h = 0; h < Pl::NH; ++h)
+#pragma unroll 1
+      for (int kt = 0; kt < Pl::KT; ++kt) {
+        unsigned char* dst = f.next(Pl::LOAD);
+        sm90::tma_load_2d(dst, my, f.bar(), kt * 64, row0 + 64 * w);
+        for (int which = 0; which < 3; ++which)  // q, k, v columns of head h: 32 rows each
+          sm90::tma_load_2d(dst + Pl::A_BYTES + which * 32 * 128, mq, f.bar(), kt * 64,
+                            which * Pl::C + h * kHD);
+        f.advance();
+      }
   sm90::mbar_wait(ready, 1u);
 #pragma unroll 1
-  for (int n0 = 0; n0 < Pl::C; n0 += 96)
+  for (int w = 0; w < nwin; ++w)
 #pragma unroll 1
-    for (int kt = 0; kt < Pl::KT; ++kt) {
-      unsigned char* dst = f.next(Pl::SLOT);
-      sm90::tma_load_2d(dst, mc, f.bar(), kt * 64, row0);
-      sm90::tma_load_2d(dst + Pl::A_BYTES, mp, f.bar(), kt * 64, n0);
-      f.advance();
-    }
+    for (int n0 = 0; n0 < Pl::C; n0 += 96)
+#pragma unroll 1
+      for (int kt = 0; kt < Pl::KT; ++kt) {
+        unsigned char* dst = f.next(Pl::LOAD);
+        sm90::tma_load_2d(dst, mc, f.bar(), kt * 64, row0 + 64 * w);
+        sm90::tma_load_2d(dst + Pl::A_BYTES, mp, f.bar(), kt * 64, n0);
+        f.advance();
+      }
 }
 
 // ---- the consumers' pieces ----------------------------------------------------------
@@ -300,6 +310,31 @@ __device__ __forceinline__ void proj_epilogue(const float (&acc)[Pl::NTW][NB / 2
   }
 }
 
+// a = x + T(T(ctx @ wproj) + T(bproj)) over the ring's next projection
+// slots: 96 columns a pass, the last pass LW (C = 128, 256, 512, 1024: the
+// TMA box past C is zero-filled and left unread by an n64 / n32 product, n32 /
+// n16 a warpgroup with one row tile); ys is the context in y's place (Pl::YS:
+// each slot's A tile), x and out the first of `rows` rows, row stride C
+template <typename Pl, typename Rg, typename Clk>
+__device__ __forceinline__ void proj_passes(Rg& q, const unsigned char* ys, int g, int cofs,
+                                            int rows, const float* __restrict__ bproj,
+                                            const bf16* x, bf16* out,
+                                            float (&acc)[Pl::NTW][Pl::ACC], Clk& clk) {
+  for (int n0 = 0; n0 + 96 <= Pl::C; n0 += 96) {
+    section_product<Pl>(q, ys, g, cofs, acc, clk);
+    proj_epilogue<Pl>(acc, g, cofs, n0, rows, bproj, x, out);
+    clk.template lap<kClkOut>();
+  }
+  if constexpr (Pl::LW != 96) {
+    constexpr int NBL = Pl::ROWS ? Pl::LW : Pl::LW / 2;
+    const int cofsl = Pl::ROWS ? 0 : NBL * g;
+    float accl[Pl::NTW][NBL / 2];
+    section_product<Pl, NBL>(q, ys, g, cofsl, accl, clk);
+    proj_epilogue<Pl, NBL>(accl, g, cofsl, Pl::C - Pl::LW, rows, bproj, x, out);
+    clk.template lap<kClkOut>();
+  }
+}
+
 // ---- the section of a block's rows, K3's body ------------------------------------------
 // The consumers' side of produce_section over the block's W windows (`rows`
 // real rows; x and out at the block's first row).  tables() fills the token
@@ -313,9 +348,9 @@ __device__ __forceinline__ void proj_epilogue(const float (&acc)[Pl::NTW][NB / 2
 // the context to the scratch the producer reads it from; each is made visible
 // to TMA and announced on `ready`.  Ends with each warpgroup's wgmma drained;
 // y is free once both warpgroups are past a barrier.
-template <typename Pl, typename Clk, typename Tables, typename Src, typename Scale,
+template <typename Pl, typename Rg, typename Clk, typename Tables, typename Src, typename Scale,
           typename Attend>
-__device__ __forceinline__ void section_rows(sm90::Ring<Pl::SLOT, Pl::S>& q, unsigned char* smem,
+__device__ __forceinline__ void section_rows(Rg& q, unsigned char* smem,
                                              const bf16* x, bf16* out, int rows,
                                              const float* __restrict__ gamma,
                                              const float* __restrict__ beta,
@@ -396,22 +431,8 @@ __device__ __forceinline__ void section_rows(sm90::Ring<Pl::SLOT, Pl::S>& q, uns
   }
   clk.template lap<kClkCtx>();
 
-  // a = x + T(T(ctx @ wproj) + T(bproj)), 96 columns a pass
-  for (int n0 = 0; n0 + 96 <= C; n0 += 96) {
-    section_product<Pl>(q, ys, g, cofs, acc, clk);
-    proj_epilogue<Pl>(acc, g, cofs, n0, rows, bproj, x, out);
-    clk.template lap<kClkOut>();
-  }
-  if constexpr (Pl::LW != 96) {
-    // the last LW columns (C = 128, 256, 512, 1024): the TMA box past C is zero-filled
-    // and left unread by an n64 / n32 product (n32 / n16 a warpgroup with one row tile)
-    constexpr int NBL = Pl::ROWS ? Pl::LW : Pl::LW / 2;
-    const int cofsl = Pl::ROWS ? 0 : NBL * g;
-    float accl[Pl::NTW][NBL / 2];
-    section_product<Pl, NBL>(q, ys, g, cofsl, accl, clk);
-    proj_epilogue<Pl, NBL>(accl, g, cofsl, C - Pl::LW, rows, bproj, x, out);
-    clk.template lap<kClkOut>();
-  }
+  // a = x + T(T(ctx @ wproj) + T(bproj)), 96 columns a pass, the last LW
+  proj_passes<Pl>(q, ys, g, cofs, rows, bproj, x, out, acc, clk);
 }
 
 }  // namespace

@@ -30,9 +30,8 @@ The routes through a block, as in the JAX package:
   * ``SEGLAND_SWIN_WR=1`` with ``fused_attn`` and ``fused_mlp``: window-
     resident stages (partition once a stage, the MLP in window layout), in
     eval mode only.
-The section kernel (K3) and K1 are built at every stage width of swin-t/s/b/l;
-the whole-block (K4) and v1 (K5) kernels at swin-t/s's only, so at swin-b's
-and swin-l's those two routes raise when the model is built (``check_routes``).
+The section (K3), whole-block (K4) and v1 (K5) kernels and K1 are built at
+every stage width of swin-t/s/b/l.
 ``fused_mlp`` routes LN2 + MLP + residual through ``fused_ln_mlp``.  The
 fused ops add the residual inside, so with DropPath active a block recovers
 each branch as (output - shortcut), as the JAX package does.  Under grad
@@ -49,8 +48,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...ops.fused_attn import (BLOCK_BUILDS, SECTION_BUILDS, V1_BUILDS,
-                                swin_attn_section_fused, swin_block_fused,
+from ...ops.fused_attn import (swin_attn_section_fused, swin_block_fused,
                                 window_attention_fused)
 from ...ops.fused_mlp import fused_ln_mlp
 from ...ops.layers import conv2d, linear
@@ -119,24 +117,6 @@ _TABLES = {"rel_pos_index": _rel_pos_index, "shift_regions": _shift_regions,
 def _table(name: str, device: torch.device, *args) -> torch.Tensor:
     """One of the static tables above as a tensor on ``device``."""
     return torch.from_numpy(np.ascontiguousarray(_TABLES[name](*args))).to(device)
-
-
-def check_routes(dims, fused_attn_stages, fused_block_stages, attn_group):
-    """Raise NotImplementedError, when the model is built, for a route whose
-    kernel has no build at a stage width that the section kernel (K3) has one
-    for: the whole-block kernel (K4) and the v1 kernel (K5, ``attn_group``)
-    are built at swin-t/s's widths only (ROADMAP item A14)."""
-    for i, dim in enumerate(dims):
-        if dim not in SECTION_BUILDS or i not in fused_attn_stages:
-            continue
-        if i in fused_block_stages and dim not in BLOCK_BUILDS:
-            raise NotImplementedError(
-                f"the whole-block kernel (K4, SEGLAND_SWIN_V3_STAGES) has no build for stage "
-                f"{i}'s C={dim}: built at C in {tuple(BLOCK_BUILDS)} (ROADMAP item A14)")
-        if attn_group != 1 and dim not in V1_BUILDS:
-            raise NotImplementedError(
-                f"the v1 section kernel (K5, attn_group={attn_group}) has no build for stage "
-                f"{i}'s C={dim}: built at C in {tuple(V1_BUILDS)} (ROADMAP item A14)")
 
 
 def _window_partition(x, ws):
@@ -390,11 +370,6 @@ class SwinTransformer(nn.Module):
                  fused_block_stages=None, attn_group: int = 1,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        dims = [int(embed_dim * 2 ** i) for i in range(len(depths))]
-        if fused_attn:
-            stages = range(len(depths)) if fused_attn_stages is None else fused_attn_stages
-            check_routes(dims, stages, (fused_block_stages or ()) if fused_mlp else (),
-                         attn_group)
         self.dtype = dtype
         self.window_size = window_size
         self.fused_mlp = fused_mlp

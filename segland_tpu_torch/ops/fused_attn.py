@@ -44,8 +44,8 @@ from .fused_mlp import SMEM_MAX, contiguous_as, kmajor, ln_mlp_reference
 from .. import kernels
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the whole-block (K4) and v1 (K5) kernels' widths: swin-t/s's
-_BLOCK_CHANNELS = (96, 192, 384, 768)
+# the widths whose bf16 whole-block (K4) and v1 (K5) builds have a clock build: swin-t/s's
+CLOCK_WIDTHS = (96, 192, 384, 768)
 
 # ---- the bf16 section kernel's builds (SEGLAND_SECTION_BUILDS in attn_section.cu) --------
 # w windows a block, s ring slots of one [96, 64] bf16 weight tile each (where y streams,
@@ -63,20 +63,30 @@ SECTION_BUILDS = {96: SectionBuild(4, 4, True), 128: SectionBuild(4, 5, True),
 # the section's w windows a block and s ring slots (a producer warpgroup always), then
 # ln_mlp's rg warpgroups down the rows, cg across the output columns, np passes and hs
 # hidden columns a warpgroup and chunk: SECTION_BUILDS' and MLP_BUILDS' at the same
-# width, but at C = 96 a hidden chunk of 64, not 128 (the same k order, so the same
-# result), and more ring slots where the shared memory has room.
+# width, but at C = 96 and 128 a hidden chunk of 64, not 128 (the same k order, so the
+# same result), at C = 128 two windows, not four (four spilled 12 B; two spill-free
+# only with the attention tile's rotation opaque, swin_block.cu), and the ring slots
+# that the shared memory has room for (at C = 1536 the slots span the MLP's
+# 24 KB).  A block's output does not depend on its windows or its ring.
 BlockBuild = collections.namedtuple("BlockBuild", "w s rg cg np hs")
-BLOCK_BUILDS = {96: BlockBuild(4, 5, 2, 1, 1, 64), 192: BlockBuild(2, 8, 2, 1, 1, 64),
-                384: BlockBuild(2, 5, 1, 2, 1, 64), 768: BlockBuild(1, 7, 1, 2, 2, 64)}
+BLOCK_BUILDS = {96: BlockBuild(4, 5, 2, 1, 1, 64), 128: BlockBuild(2, 8, 2, 1, 1, 64),
+                192: BlockBuild(2, 8, 2, 1, 1, 64), 256: BlockBuild(2, 7, 2, 1, 1, 64),
+                384: BlockBuild(2, 5, 1, 2, 1, 64), 512: BlockBuild(1, 10, 1, 2, 1, 64),
+                768: BlockBuild(1, 7, 1, 2, 2, 64), 1024: BlockBuild(1, 5, 1, 2, 2, 64),
+                1536: BlockBuild(1, 7, 1, 2, 3, 64)}
 # ---- the bf16 v1 kernel's builds (SEGLAND_V1_BUILDS in attn_section_v1.cu) ---------------
 # w windows a block (the windows path takes group <= w, the scratch path the rest in
-# chunks of w), s ring slots, a lone producer warp.  At C = 96 two windows, not
+# chunks of w), s ring slots, a lone producer warp.  At C = 96 and 128 two windows, not
 # SECTION_BUILDS' four: two row tiles a warpgroup beside the super-window walk spilled.
+# From C = 512 one window: with two the scratch path's phase 2 leaves no room.
 V1Build = collections.namedtuple("V1Build", "w s")
-V1_BUILDS = {96: V1Build(2, 5), 192: V1Build(2, 5), 384: V1Build(2, 5), 768: V1Build(1, 5)}
+V1_BUILDS = {96: V1Build(2, 5), 128: V1Build(2, 5), 192: V1Build(2, 5), 256: V1Build(2, 5),
+             384: V1Build(2, 5), 512: V1Build(1, 5), 768: V1Build(1, 5), 1024: V1Build(1, 5),
+             1536: V1Build(1, 8)}
 _N = 49
 _LQ, _STRIP = 48, 16 * 68 * 4  # q/k/v row stride (bf16), an attention strip (bytes)
 _SLOT = 96 * 128  # a ring slot of the section kernels
+_TILE = 64 * 128  # an MLP weight tile, or a [64, 64] tile of y
 _MAX_GROUP = 8
 
 
@@ -92,10 +102,11 @@ def _check_plan(name, c, parts):
     return smem
 
 
-def _section_layout(c, w, s, tok_bytes=1):
-    """SecPlan<C, W, S, RR, TOK> of section_sm90.cuh: rows, row tiles and how the two
-    consumer warpgroups split them, the projection's last pass, whether y streams (it
-    would not fit resident), and shared memory by buffer."""
+def _section_layout(c, w, s, tok_bytes=1, ring=0):
+    """SecPlan<C, W, S, RR, TOK, RING> of section_sm90.cuh: rows, row tiles and how the
+    two consumer warpgroups split them, the projection's last pass, whether y streams
+    (it would not fit resident), a ring slot's bytes (at least ``ring``) and shared
+    memory by buffer."""
     rows = w * _N
     rt = -(-rows // 64)
     rs = -(-rows // 8) * 8
@@ -107,7 +118,7 @@ def _section_layout(c, w, s, tok_bytes=1):
                 bias=_al128(_N * _N * 4), tokens=_al128(rows * tok_bytes))
     y = kt * rs * 128
     stream_y = s * _SLOT + y + sum(rest.values()) + 2 * s * 8 + 1024 > SMEM_MAX
-    slot = _SLOT + (64 * 128 if stream_y else 0)
+    slot = max(_SLOT + (64 * 128 if stream_y else 0), ring)
     parts = dict(ring=s * slot, y=0 if stream_y else y, **rest,
                  barriers=(2 * s + (1 if stream_y else 0)) * 8, align=1024)
     last = c - 96 * ((c - 1) // 96)  # the projection's last pass: 96, 64 or 32 columns
@@ -147,34 +158,44 @@ def block_plan(c: int, hidden: int = None) -> dict:
     producer warpgroup, then ln_mlp's tiling over the block's row tiles: work
     items (row group, pass) a full block, the h tile over the dead q, k, v
     buffers, ring slots a block (the section's tiles, then the MLP's); shared
-    memory by buffer and in all.  Raises
-    ValueError, with the arithmetic, for a shape that has no build."""
+    memory by buffer and in all.  ``stream_y`` (C = 1536): the section streams
+    y as K3's build there does and the MLP streams y2 = LN2(a) as K1's does, from
+    the block's scratch rows, and a ring slot spans the MLP's larger slot.
+    Raises ValueError, with the arithmetic, for a shape that has no build."""
     if c not in BLOCK_BUILDS:
         raise ValueError(f"swin_block has no bfloat16 build for C={c}: built at C in "
                          f"{tuple(BLOCK_BUILDS)}")
     b = BLOCK_BUILDS[c]
-    plan = _section_layout(c, b.w, b.s)
     hc = b.cg * b.hs
     hidden = 4 * c if hidden is None else hidden
     if hidden <= 0 or hidden % hc:
         raise ValueError(f"swin_block at C={c} walks the hidden width in chunks of {b.cg} x "
                          f"{b.hs} = {hc} columns; H={hidden} is not a multiple of {hc}")
+    cs = c // b.np // b.cg
+    kt1, nt1, kt2, nt2 = -(-c // 64), b.hs // 64, hc // 64, -(-cs // 64)
+    stream_y = _section_layout(c, b.w, b.s)["stream_y"]
+    mlp_slot = (1 + b.cg * nt1) * _TILE if stream_y else _TILE
+    plan = _section_layout(c, b.w, b.s, ring=mlp_slot)
     if plan["row_tiles"] % b.rg:
         raise ValueError(f"swin_block at C={c}: {plan['row_tiles']} row tiles do not split "
                          f"into row groups of {b.rg}")
-    cs = c // b.np // b.cg
-    kt1, nt1, kt2, nt2 = -(-c // 64), b.hs // 64, hc // 64, -(-cs // 64)
-    h_bytes = 0 if b.cg == 1 else b.rg * 2 * kt2 * 8192
+    if stream_y and (b.w != 1 or b.rg != 1 or b.cg != 2 or nt1 != 1):
+        raise ValueError(f"swin_block at C={c}: a streamed y takes one window a block and K1's "
+                         f"streamed tiling (one row group, two column groups, hs 64)")
+    h_bytes = 0 if b.cg == 1 else b.rg * 2 * kt2 * _TILE
     behind_y = sum(plan["smem_parts"][k] for k in ("qkv", "strips", "bias", "tokens"))
     if h_bytes > behind_y:
         raise ValueError(f"swin_block at C={c}: the h tile ({h_bytes:,} B) does not fit "
                          f"behind y ({behind_y:,} B)")
     items = plan["row_tiles"] // b.rg * b.np
+    # a hidden chunk's slots: w1's tiles then w2's, a warpgroup's each (streamed: y2's K
+    # tile beside both warpgroups' w1 tiles, then both warpgroups' w2 tiles, a slot each)
+    per_chunk = kt1 + kt2 * nt2 if stream_y else kt1 * b.cg * nt1 + kt2 * b.cg * nt2
     plan.update(b._asdict(), rr=True, hidden=hidden, hc=hc, cs=cs, chunks=hidden // hc,
-                items=items, h_bytes=h_bytes,
+                items=items, h_bytes=h_bytes, mlp_slot_bytes=mlp_slot,
                 mlp_regs=nt1 * 32 + nt2 * 32 + (b.hs // 4 if b.cg == 1 else 0),
-                slots_per_block=(c // 32 + c // 96) * plan["k_tiles"]
-                + items * (hidden // hc) * (kt1 * b.cg * nt1 + kt2 * b.cg * nt2))
+                slots_per_block=(c // 32 + -(-c // 96)) * plan["k_tiles"]
+                + items * (hidden // hc) * per_chunk)
     plan["smem"] = _check_plan("swin_block", c, plan["smem_parts"])
     return plan
 
@@ -185,8 +206,11 @@ def v1_plan(c: int, group: int) -> dict:
     windows a block) owns whole super-windows with q, k and v in shared memory,
     the section's layout with fp32 region ids; the scratch path owns one
     super-window in chunks and keeps q, k and v in a [NW, 49, 3C] scratch
-    tensor, its phase 2 over y.  Raises ValueError, with the arithmetic, for a
-    width or group that has no build."""
+    tensor, its phase 2 over y.  ``stream_y`` (C = 1536): on both paths y and
+    then the context stream through the ring from a scratch of 2 x [NW * 64, C]
+    rows, as in K3's build there, and the scratch path's phase 2 lies over the
+    ring.  Raises ValueError, with the arithmetic, for a width or group that
+    has no build."""
     if c not in V1_BUILDS:
         raise ValueError(f"attn_section_v1 has no bfloat16 build for C={c}: built at C in "
                          f"{tuple(V1_BUILDS)}")
@@ -194,6 +218,8 @@ def v1_plan(c: int, group: int) -> dict:
         raise ValueError(f"attn_section_v1 is built for group in {_GROUPS}, not {group}")
     b = V1_BUILDS[c]
     plan = _section_layout(c, b.w, b.s, tok_bytes=4)
+    if plan["stream_y"] and b.w != 1:
+        raise ValueError(f"attn_section_v1 at C={c}: a streamed y takes one window a block")
     plan.update(rr=False, group=group)
     if group <= b.w:
         plan.update(path="windows", scratch=False, windows_a_block=b.w)
@@ -205,9 +231,11 @@ def v1_plan(c: int, group: int) -> dict:
         plan.update(path="scratch", scratch=True, windows_a_block=group, chunks=-(-group // b.w),
                     smem_parts=dict(ring=p["ring"], phase2=phase2, phase13=phase13,
                                     barriers=p["barriers"], align=p["align"]))
+        # phase 2 over y, or (a streamed y) over the ring, idle then
+        over = (dict(ring_or_phase2=max(p["ring"], phase2)) if plan["stream_y"]
+                else dict(ring=p["ring"], over_y=max(phase2, phase13)))
         plan["smem"] = _check_plan("attn_section_v1", c, dict(
-            ring=p["ring"], over_y=max(phase2, phase13), barriers=p["barriers"],
-            align=p["align"]))
+            **over, barriers=p["barriers"], align=p["align"]))
         return plan
     plan["smem"] = _check_plan("attn_section_v1", c, plan["smem_parts"])
     return plan
@@ -399,10 +427,12 @@ def _check_rows(name, t):
         raise ValueError(f"{name} takes a contiguous, 16-byte aligned [NW, N, C] tensor")
 
 
-def _check_clocks(clocks, x_win, n):
+def _check_clocks(clocks, x_win, n, widths=None):
     if x_win.dtype != torch.bfloat16 or clocks.dtype != torch.int64 or clocks.numel() < n \
             or clocks.device != x_win.device:
         raise ValueError(f"clocks: an int64 tensor of {n} on the device, bf16 windows only")
+    if widths is not None and x_win.shape[-1] not in widths:
+        raise ValueError(f"no clock build at C={x_win.shape[-1]}: built at C in {widths}")
 
 
 def _bias_f32(bias, dev, num_heads, n):
@@ -554,10 +584,13 @@ def _v1_launch_args(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias
     scratch = None  # q, k, v of the super-windows (fp32: then the context)
     if plan is None or plan["scratch"]:
         scratch = torch.empty((nw, n, 3 * c), dtype=x_win.dtype, device=dev)
+    # a streamed y: the windows' y rows, then their context's, 64 rows a window
+    ysc = (torch.empty((2 * nw * 64, c), dtype=x_win.dtype, device=dev)
+           if plan is not None and plan["stream_y"] else None)
     P = kernels.ptr
     return out, (P(x_win), P(m), m.shape[0], P(r), 0 if r is None else r.shape[0], P(g), P(be),
-                 P(wq), P(bq), P(wp_), P(bp), P(b), P(scratch), P(out), nw, c, num_heads, group,
-                 eps)
+                 P(wq), P(bq), P(wp_), P(bp), P(b), P(scratch), P(ysc), P(out), nw, c, num_heads,
+                 group, eps)
 
 
 def attn_section_v1(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
@@ -585,8 +618,9 @@ def attn_section_v1_clocks(clocks, x_win, mask_tok, gamma, beta, wqkv, bqkv, wpr
     add its consumers' clock64() time by phase (setup, ring wait, wgmma, q/k/v
     epilogue, attention core with the super-window's key walk, context copy,
     output epilogue) and their count into ``clocks``, a CUDA int64 tensor of 8.
-    Takes attn_section_v1's arguments; not counted in its ``launches``."""
-    _check_clocks(clocks, x_win, 8)
+    Takes attn_section_v1's arguments; not counted in its ``launches``.  Built at
+    swin-t/s's widths only."""
+    _check_clocks(clocks, x_win, 8, CLOCK_WIDTHS)
     out, args = _v1_launch_args(x_win, mask_tok, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
                                 num_heads, eps, regions, group)
     err = kernels.library().segland_attn_section_v1_clocks(
@@ -605,9 +639,10 @@ def _block_launch_args(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
     nw, _, c = x_win.shape
     bf16 = x_win.dtype == torch.bfloat16
     hidden = w1.shape[-1]
-    if bf16:
-        block_plan(c, hidden)  # raises for a shape the kernel has no build for
-    elif c not in _BLOCK_CHANNELS or hidden % 64:
+    # raises for a shape the kernel has no build for; the fp32 body is built at the
+    # bf16 builds' widths
+    plan = block_plan(c, hidden) if bf16 else None
+    if not bf16 and (c not in BLOCK_BUILDS or hidden % 64):
         raise ValueError(f"swin_block has no float32 build for C={c}, H={hidden}")
     # the bf16 (wgmma) body reads every weight K-major
     g, be, wq, bq, wp_, bp, b = _section_args("swin_block", x_win, gamma, beta, wqkv, bqkv,
@@ -620,10 +655,13 @@ def _block_launch_args(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
     ww1 = mat("swin_block", w1, (c, hidden), x_win)
     ww2 = mat("swin_block", w2, (hidden, c), x_win)
     out = torch.empty_like(x_win)
+    # a streamed y: the windows' y rows (then y2's), then their context's, 64 a window
+    scratch = (torch.empty((2 * nw * 64, c), dtype=x_win.dtype, device=dev)
+               if plan is not None and plan["stream_y"] else None)
     P = kernels.ptr
     return out, (P(x_win), P(g), P(be), P(wq), P(bq), P(wp_), P(bp), P(b), P(g2), P(be2),
-                 P(ww1), P(bb1), P(ww2), P(bb2), P(out), nw, c, num_heads, hidden, h, w, hp, wp,
-                 ws, shift, eps)
+                 P(ww1), P(bb1), P(ww2), P(bb2), P(out), P(scratch), nw, c, num_heads, hidden, h,
+                 w, hp, wp, ws, shift, eps)
 
 
 def swin_block(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2, beta2, w1, b1,
@@ -651,8 +689,8 @@ def swin_block_clocks(clocks, x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj
     built to add its consumers' clock64() time by phase (the section's seven,
     then LN2, the h epilogue and the MLP's output epilogue) and their count
     into ``clocks``, a CUDA int64 tensor of 11.  Takes swin_block's arguments;
-    not counted in ``swin_block.launches``."""
-    _check_clocks(clocks, x_win, 11)
+    not counted in ``swin_block.launches``.  Built at swin-t/s's widths only."""
+    _check_clocks(clocks, x_win, 11, CLOCK_WIDTHS)
     out, args = _block_launch_args(x_win, geom, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
                                    gamma2, beta2, w1, b1, w2, b2, num_heads, eps)
     err = kernels.library().segland_swin_block_clocks(

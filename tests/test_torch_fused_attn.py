@@ -173,6 +173,54 @@ def test_grouped_v1_section_matches_jax(group, shift):
     np.testing.assert_allclose(run("port"), run("jax"), rtol=2e-5, atol=2e-5)
 
 
+WIDE_WIDTHS = SWIN_BL_WIDTHS[:1] + SWIN_BL_WIDTHS[-2:]  # C = 128, 1024, 1536
+
+
+def _wide_inputs(seed, nw, c):
+    """Section inputs at swin-b's and swin-l's widths, weights scaled by fan-in
+    (as 0.1 does at C = 48), so that q, k and the output stay O(1) and the bar
+    reads the arithmetic, not the order of long sums."""
+    return _section_inputs(seed, nw, c, c // 32, w=0.1 * (48 / c) ** 0.5)
+
+
+@pytest.mark.parametrize("c", WIDE_WIDTHS)
+def test_block_reference_wide_matches_jax(c):
+    """The whole block's plain version at swin-b's and swin-l's widths against
+    the JAX block_reference, fp32 within 2e-5: a 10x12 map padded to 14x14,
+    shifted, four windows."""
+    geom = (10, 12, 14, 14, WS, 3)
+    a, m = _wide_inputs(21, 4, c), _mlp_inputs(23, c)
+    jargs, jreg = _block_args("jax", a, m, "float32", c // 32, geom)
+    pargs, preg = _block_args("port", a, m, "float32", c // 32, geom)
+    want = np.asarray(J.block_reference(*jargs, regions=jreg))
+    got = P.block_reference(*pargs, regions=preg).numpy()
+    np.testing.assert_allclose(got, want, rtol=BLOCK_TOL["float32"], atol=BLOCK_TOL["float32"])
+
+
+@pytest.mark.parametrize("c", WIDE_WIDTHS)
+def test_grouped_v1_section_wide_matches_jax(c):
+    """The v1 section at group 2 at swin-b's and swin-l's widths: the port's
+    plain version against the JAX v1 Pallas kernel in interpret mode, fp32
+    within 2e-5, on a 13x12 map padded to 14x14 (per-window mask rows),
+    shifted (regions), three windows, which 2 does not divide."""
+    geom = (13, 12, 14, 14, WS, 3)
+    a = _wide_inputs(25, 3, c)
+    nh = c // 32
+
+    def run(lib):
+        mod, conv = (j_swin, jnp.asarray) if lib == "jax" else (p_swin, t)
+        mask = mod._pad_token_mask(*geom)[:3]
+        regions = conv(mod._shift_regions(14, 14, WS, 3)[:3])
+        args = (conv(a["x"]), conv(mask), conv(a["gamma"]), conv(a["beta"]), conv(a["wqkv"]),
+                conv(a["bqkv"]), conv(a["wproj"]), conv(a["bproj"]), conv(a["bias"]), nh)
+        if lib == "jax":
+            return np.asarray(J.swin_attn_section_fused(*args, regions=regions, interpret=True,
+                                                        group=2))
+        return P.swin_attn_section_fused(*args, regions=regions, group=2).numpy()
+
+    np.testing.assert_allclose(run("port"), run("jax"), rtol=2e-5, atol=2e-5)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("nw_img,b", [(1, 4), (4, 2)])
 def test_window_attention_matches_jax(dtype, nw_img, b):
@@ -380,28 +428,39 @@ def test_section_build_table_matches_the_source():
     assert built == {c: tuple(b) for c, b in P.SECTION_BUILDS.items()}
 
 
-@pytest.mark.parametrize("c", SWIN_S_WIDTHS)
+@pytest.mark.parametrize("c", SWIN_S_WIDTHS + SWIN_BL_WIDTHS)
 def test_every_swin_s_stage_has_a_bf16_block_plan(c):
-    """The whole-block kernel's plan at each swin-s width: the section's
-    layout within a block's shared memory (K3's windows a block), its row
-    tiles cut into ln_mlp's row groups, ln_mlp's MLP tiling
-    at the same width (at C = 96 half its hidden chunk, which keeps the hidden
-    columns in the same k order), the shared h tile behind y, and
-    accumulators and h fragments well inside the 168 registers ptxas gives a
-    thread of a 384-thread block."""
+    """The whole-block kernel's plan at each swin-s, swin-b and swin-l width:
+    the section's layout within a block's shared memory, its row tiles cut into ln_mlp's row groups, ln_mlp's MLP tiling
+    at the same width (at C = 96 and 128 half its hidden chunk, which keeps
+    the hidden columns in the same k order), the shared h tile behind y, and
+    accumulators and h fragments no more than K1's at that width, which
+    compiles without spills.  Only C = 1536 streams y, in both halves: one
+    window a block, K1's streamed tiling, ring slots of the MLP's 24 KB."""
     plan = P.block_plan(c)
     assert plan["smem"] == sum(plan["smem_parts"].values()) <= P.SMEM_MAX
-    assert plan["rows"] == plan["w"] * N and plan["rr"] and plan["w"] == P.SECTION_BUILDS[c].w
+    # K3's windows a block (at C = 128 two, not four: four spilled beside the MLP)
+    assert plan["rows"] == plan["w"] * N and plan["rr"]
+    assert plan["w"] == (2 if c == 128 else P.SECTION_BUILDS[c].w)
     assert plan["row_tiles"] % plan["rg"] == 0
     assert plan["items"] == plan["row_tiles"] // plan["rg"] * plan["np"]
     mlp = ln_mlp_plan(c, 4 * c)
     assert {k: plan[k] for k in ("rg", "cg", "np", "cs")} == \
         {k: mlp[k] for k in ("rg", "cg", "np", "cs")}
-    assert plan["hs"] == (64 if c == 96 else mlp["hs"]) and plan["hc"] * plan["chunks"] == 4 * c
-    assert plan["mlp_regs"] <= 144  # K1's at C = 192, which compiles without spills
+    assert plan["hs"] == (64 if c in (96, 128) else mlp["hs"])
+    assert plan["hc"] * plan["chunks"] == 4 * c
+    assert plan["mlp_regs"] <= min(mlp["acc_regs"], 176)
+    assert plan["last_pass"] == (c % 96 or 96)
+    assert plan["stream_y"] == mlp["stream_y"] == (c == 1536)
     kt1, kt2 = -(-c // 64), plan["hc"] // 64
     nt1, nt2 = plan["hs"] // 64, -(-plan["cs"] // 64)
-    tiles_per_chunk = plan["cg"] * (kt1 * nt1 + kt2 * nt2)
+    if plan["stream_y"]:
+        assert plan["w"] == 1 and plan["smem_parts"]["y"] == 0
+        assert plan["slot_bytes"] == plan["mlp_slot_bytes"] == mlp["slot_bytes"] == 3 * 8192
+        tiles_per_chunk = kt1 + kt2 * nt2  # y2's tile beside both w1 tiles; both w2 tiles
+    else:
+        assert plan["slot_bytes"] == 96 * 128
+        tiles_per_chunk = plan["cg"] * (kt1 * nt1 + kt2 * nt2)
     behind_y = sum(plan["smem_parts"][k] for k in ("qkv", "strips", "bias", "tokens"))
     assert plan["h_bytes"] <= behind_y and plan["overrun"] <= behind_y
     # the ring carries K3's section stream, then every item's MLP tiles
@@ -410,15 +469,18 @@ def test_every_swin_s_stage_has_a_bf16_block_plan(c):
 
 
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
-@pytest.mark.parametrize("c", SWIN_S_WIDTHS)
+@pytest.mark.parametrize("c", SWIN_S_WIDTHS + SWIN_BL_WIDTHS)
 def test_every_swin_s_stage_has_a_v1_plan(c, group):
-    """The v1 kernel's plan at each swin-s width and built group: the windows
-    path (whole super-windows in a block, q, k, v in shared memory) where the
-    group fits the build's windows, which the attn_group=2 route gets at C <=
-    384, else the scratch path in chunks of the build's windows; either within
-    a block's shared memory, the scratch tensor only on its path."""
+    """The v1 kernel's plan at each swin-s, swin-b and swin-l width and built
+    group: the windows path (whole super-windows in a block, q, k, v in shared
+    memory) where the group fits the build's windows, which the attn_group=2
+    route gets at C <= 384, else the scratch path in chunks of the build's
+    windows; either within a block's shared memory, the scratch tensor only on
+    its path.  At C = 1536 y streams on both paths (one window a block), and
+    the scratch path's phase 2 lies over the ring."""
     plan = P.v1_plan(c, group)
     assert plan["smem"] <= P.SMEM_MAX and plan["group"] == group
+    assert plan["stream_y"] == (c == 1536) and (plan["w"] == 1 or not plan["stream_y"])
     if group <= plan["w"]:
         assert plan["path"] == "windows" and not plan["scratch"]
         assert plan["w"] % group == 0 and plan["windows_a_block"] == plan["w"]
@@ -428,15 +490,19 @@ def test_every_swin_s_stage_has_a_v1_plan(c, group):
         assert plan["path"] == "scratch" and plan["scratch"]
         assert plan["windows_a_block"] == group and plan["chunks"] == -(-group // plan["w"])
         parts = plan["smem_parts"]
-        assert parts["phase13"] == plan["k_tiles"] * plan["y_rows"] * 128 + plan["overrun"]
-        assert plan["smem"] == (parts["ring"] + max(parts["phase2"], parts["phase13"])
-                                + parts["barriers"] + parts["align"])
+        rest = parts["barriers"] + parts["align"]
+        if plan["stream_y"]:
+            assert parts["phase13"] == 0
+            assert plan["smem"] == max(parts["ring"], parts["phase2"]) + rest
+        else:
+            assert parts["phase13"] == plan["k_tiles"] * plan["y_rows"] * 128 + plan["overrun"]
+            assert plan["smem"] == parts["ring"] + max(parts["phase2"], parts["phase13"]) + rest
     assert (plan["path"] == "windows") == (group == 1 or (group == 2 and c <= 384))
 
 
 @pytest.mark.parametrize("call,match", [
-    (lambda: P.block_plan(128), "no bfloat16 build"),
-    (lambda: P.block_plan(1536), "no bfloat16 build"),
+    (lambda: P.block_plan(160), "no bfloat16 build"),
+    (lambda: P.block_plan(2048), "no bfloat16 build"),
     (lambda: P.block_plan(96, hidden=352), "not a multiple of 64"),
     (lambda: P.block_plan(384, hidden=1000), "not a multiple of 128"),
     (lambda: P.v1_plan(64, 1), "no bfloat16 build"),
@@ -523,14 +589,17 @@ def test_swin_block_hands_k_major_weights_to_the_kernel(recorded, dtype):
     else:
         for name, want in (("wqkv", wqkv_v), ("wproj", wproj_v), ("w1", w1_v), ("w2", w2_in)):
             assert got[name].is_contiguous() and torch.equal(got[name], want), name
-    assert args[16:20] == (nw, c, nh, 4 * c)
+    assert args[16] is None  # no streamed y at this width: no scratch
+    assert args[17:21] == (nw, c, nh, 4 * c)
 
 
 @pytest.mark.parametrize("c,group", [(96, 2), (96, 8), (192, 2), (192, 4), (768, 1),
-                                     (768, 2)])
+                                     (768, 2), (1536, 1), (1536, 4)])
 def test_v1_allocates_the_scratch_tensor_only_on_its_scratch_path(recorded, c, group):
     """The bf16 v1 kernel gets a [NW, 49, 3C] scratch tensor only where its
-    plan takes the scratch path (NULL otherwise), and K-major weights."""
+    plan takes the scratch path (NULL otherwise), a [2 * NW * 64, C] one for
+    y's and the context's rows only where y streams (C = 1536), and K-major
+    weights."""
     rng = np.random.RandomState(4)
     nh, nw = c // 32, 10
     x = t(rng.randn(nw, N, c).astype(np.float32)).to(torch.bfloat16)
@@ -540,13 +609,17 @@ def test_v1_allocates_the_scratch_tensor_only_on_its_scratch_path(recorded, c, g
     P.attn_section_v1(x, torch.ones(1, N), vec(c), vec(c), wqkv_v, vec(3 * c), wproj_v, vec(c),
                       torch.zeros(1, nh, N, N), nh, group=group)
     args = recorded.calls["segland_attn_section_v1"]
-    scratch = args[13]
+    scratch, ysc = args[13], args[14]
     if P.v1_plan(c, group)["scratch"]:
         assert scratch.shape == (nw, N, 3 * c) and scratch.dtype == torch.bfloat16
     else:
         assert scratch is None
+    if c == 1536:
+        assert ysc.shape == (2 * nw * 64, c) and ysc.dtype == torch.bfloat16
+    else:
+        assert ysc is None
     assert args[8].data_ptr() == wqkv.data_ptr() and args[10].data_ptr() == wproj.data_ptr()
-    assert args[15:19] == (nw, c, nh, group) and P.attn_section_v1.launches == 1
+    assert args[16:20] == (nw, c, nh, group) and P.attn_section_v1.launches == 1
 
 
 def test_kernel_outputs_compare_flags_any_difference(tmp_path, capsys):

@@ -228,18 +228,25 @@ def test_state_dict_keys_are_upstream_keys():
     assert not any("relative_position_index" in k for k in keys)
 
 
-@pytest.mark.parametrize("make,item", [
-    (lambda: get_swin("swin-b", fused_attn=True, fused_mlp=True, fused_block_stages=(0, 3)),
-     "A14"),
+@pytest.mark.parametrize("make,route", [
+    (lambda: get_swin("swin-b", fused_attn=True, fused_mlp=True, fused_block_stages=(0, 1, 2, 3)),
+     "fused_block"),
     (lambda: SwinTransformer(depths=(2, 2, 18, 2), num_heads=(6, 12, 24, 48), embed_dim=192,
-                             fused_attn=True, fused_mlp=True, attn_group=2), "A14"),
+                             fused_attn=True, fused_mlp=True, attn_group=2), "attn_group"),
 ], ids=["swin-b-fused", "swin-l-fused"])
-def test_unported_options_raise(make, item):
-    """Fused swin-b and swin-l build (K3 and K1 at every width), but the
-    whole-block kernel (K4) and the v1 kernel (K5, attn_group) have no build at
-    their widths: those routes raise when the model is built."""
-    with pytest.raises(NotImplementedError, match=item):
-        make()
+def test_unported_options_raise(make, route):
+    """The options that raised while the whole-block kernel (K4) and the v1
+    kernel (K5, attn_group) had no build at swin-b's and swin-l's widths now
+    build, with the route on in every stage: K4 and K5 are built at every
+    width of swin-t/s/b/l."""
+    with torch.device("meta"):
+        m = make()
+    blocks = [b for layer in m.layers for b in layer.blocks]
+    assert len(blocks) == 24 and all(b.fused_attn and b.fused_mlp for b in blocks)
+    if route == "fused_block":
+        assert all(b.fused_block and b.attn_group == 1 for b in blocks)
+    else:
+        assert all(b.attn_group == 2 and not b.fused_block for b in blocks)
 
 
 @pytest.mark.parametrize("env,value,stages", [
@@ -248,8 +255,8 @@ def test_unported_options_raise(make, item):
 def test_env_switches_build(monkeypatch, env, value, stages):
     """The JAX package's switches no longer raise: SEGLAND_SWIN_V3_STAGES picks
     the whole-block stages when the model is built, SEGLAND_SWIN_WR is read at
-    the forward.  Fused swin-b builds under them, except where the whole-block
-    switch asks for K4 at its widths (ROADMAP item A14)."""
+    the forward.  Fused swin-b builds under them, with the whole-block kernel
+    in the stages the switch names."""
     monkeypatch.setenv(env, value)
     m = get_swin("swin-t", fused_attn=True, fused_mlp=True)
     on = tuple(i for i, layer in enumerate(m.layers) if layer.blocks[0].fused_block)
@@ -257,13 +264,9 @@ def test_env_switches_build(monkeypatch, env, value, stages):
     assert not any(b.fused_block for layer in get_swin("swin-t", fused_attn=True).layers
                    for b in layer.blocks)  # needs fused_mlp too
     with torch.device("meta"):
-        if stages:
-            with pytest.raises(NotImplementedError, match="A14"):
-                get_swin("swin-b", fused_attn=True, fused_mlp=True)
-        else:
-            fused = get_swin("swin-b", fused_attn=True, fused_mlp=True)
-            assert all(b.fused_attn and not b.fused_block for layer in fused.layers
-                       for b in layer.blocks)
+        fused = get_swin("swin-b", fused_attn=True, fused_mlp=True)
+        assert all(b.fused_attn and b.fused_block == (i in (stages or ()))
+                   for i, layer in enumerate(fused.layers) for b in layer.blocks)
         assert get_swin("swin-b").layers[3].blocks[0].num_heads == 32  # unfused swin-b builds
 
 
@@ -309,3 +312,38 @@ def test_wide_swin_pop_matches_jax(wide_swin_pop, method):
         got = getattr(port, method)(t(image).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
     assert got.shape == want.shape == (1, 15, 11, 8 if method == "forward_base" else 12)
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("route", ["whole_block", "attn_group"])
+def test_wide_swin_pop_routes_match_jax(wide_swin_pop, route, monkeypatch):
+    """forward_base of swin_pop on swin-b and swin-l by the whole-block route
+    (SEGLAND_SWIN_V3_STAGES=all: K4's plain version in every block) and by
+    super-window groups (attn_group=2: K5's plain version, then K1's) against
+    the JAX model with the same switch, fp32, atol 5e-4.  The JAX backbone has
+    no attn_group (its fused route gives the same values, the other windows'
+    keys having weight zero), so that route is held to the JAX fused model."""
+    import jax
+
+    name, jm, v, port = wide_swin_pop
+    image = np.random.RandomState(11).randn(1, 60, 44, 3).astype(np.float32)
+    kw = dict(n_base=7, n_novel=4, is_ft=True, fused_mlp=True, fused_attn=True)
+    if route == "whole_block":
+        monkeypatch.setenv("SEGLAND_SWIN_V3_STAGES", "all")
+        jm = j_build("swin_pop", name, **kw)
+        routed = meta_build(build_model, "swin_pop", name, **kw)
+        routed.load_state_dict(port.state_dict())
+    else:
+        cfg = p_swin_mod._CONFIGS[name]
+        routed = meta_build(build_model, "swin_pop", name, **kw)
+        routed.load_state_dict(port.state_dict())
+        routed.backbone = SwinTransformer(**cfg, fused_attn=True, fused_mlp=True,
+                                          attn_group=2).eval()
+        routed.backbone.load_state_dict(port.backbone.state_dict())
+    blocks = [b for layer in routed.backbone.layers for b in layer.blocks]
+    assert len(blocks) == 8 and all(
+        (b.fused_block if route == "whole_block" else b.attn_group == 2) for b in blocks)
+    want = np.asarray(jax.jit(lambda v_, x: jm.apply(v_, x, method=JGFSS.forward_base))(
+        v, jnp.asarray(image)))
+    with torch.no_grad():
+        got = routed.eval().forward_base(t(image).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
