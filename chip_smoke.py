@@ -218,7 +218,21 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      variants probe's entry point (benchmarks/swin_attn_variants.py) at its
      three stages through chain_time, its launch count checked;
  15. f32: K9, K10 and K11 on fp32 windows (the fp32 body) vs their plain
-     versions at C = 96..768 in every mode, and both probes' check on the card.
+     versions at C = 96..768 in every mode, and both probes' check on the card;
+ 16. gates: the trained-model accuracy gates (benchmarks/accuracy_gates.py)
+     on the card: convnext_pop / convnext-t, pspnet_pop / resnet10, swin_pop /
+     swin-s, deeplab_pop / resnet50 and seghr_pop / hr-w32 trained at full
+     width through cli.train_base on the synthetic colour task (bf16, batch
+     4, 32^2 crops or, deeplab_pop and seghr_pop, whole 64^2 tiles;
+     deterministic algorithms, so every run trains the same weights, whose
+     fingerprints it prints), each best.pth scored on the base validation
+     tiles by the stock-torch route and by each kernel route that serves the
+     model (G1 K1, G3 K3 and K1, G3b K4, G3c K5, G3d K6, G4 and G4p K7; K2 in every
+     kernel arm; G2 and G5 the int8 path), bf16 and, where the kernel has an
+     fp32 build, fp32: a failed hard gate (|d mIoU| > 0.002 or agreement <
+     0.99), a model below 0.30 best val mIoU or 4 predicted classes, or a
+     kernel arm's launches other than counted fail; G5 (int8 of deeplab_pop
+     and seghr_pop against bf16) is printed.
 Every launch count is set to 0 just before a path is driven and read just
 after.  The second-to-last line is a JSON object of per-kernel numbers (time,
 plain version's time, bound, library call's time) and the last line is
@@ -242,6 +256,7 @@ the repo beside it, it fails before printing any result.
     python3 chip_smoke.py --phases profile  # torch.profiler over the swin and deeplab_pop slices
     python3 chip_smoke.py --phases dilated  # cuDNN's 3x3 at ASPP's dilations vs nine 1x1 taps
     python3 chip_smoke.py --phases steprule # the fp32 train-step check's rule on correct routes
+    python3 chip_smoke.py --phases gates    # the trained-model accuracy gates
 """
 
 import contextlib
@@ -4718,6 +4733,26 @@ def phase_exports(dev):
     return paths
 
 
+def phase_gates(dev):
+    """benchmarks/accuracy_gates.py on the card: five models trained through
+    cli.train_base with deterministic algorithms, a process a model, every
+    gate in bf16 and (K1, K3-K6) fp32.  Fails on a
+    degenerate model, a failed hard gate or a kernel arm's launches other than
+    counted (each arm's counts set to 0 just before it runs and read just
+    after).  Returns {path: launches} of the kernel arms."""
+    from segland_tpu_torch.benchmarks import accuracy_gates as AG
+
+    t_phase = time.time()
+    trained, records = AG.run_gates(dev, jobs=len(AG.MODELS))
+    print(f"gates phase: {time.time() - t_phase:.1f}s, {len(records)} gates, "
+          f"{sum(r['ok'] for r in records)} within the bars ({card()})", flush=True)
+    print("gates " + json.dumps(dict(trained=trained, gates=records)), flush=True)
+    for msg in AG.faults(trained, records, dev):
+        fail(msg)
+    return {f"gates {r['gate']} {r['dtype']} {r['arm_b']}": r["launches_b"]
+            for r in records if r["launches_b"]}
+
+
 def main(argv=None):
     import argparse
 
@@ -4726,10 +4761,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,train,ft,swin,"
-                            "swinbl,deeplab,pspnet,seghr,heads,ensemble,dist,exports",
+                            "swinbl,deeplab,pspnet,seghr,heads,ensemble,dist,exports,gates",
                     help="comma list of k1,k2,k3,k6,k4,k5,k8,k7,k10,k9,k11,f32,convnext,train,ft,"
-                         "swin,swinbl,deeplab,pspnet,seghr,heads,ensemble,dist,exports (default: "
-                         "all twenty-four); "
+                         "swin,swinbl,deeplab,pspnet,seghr,heads,ensemble,dist,exports,gates "
+                         "(default: all twenty-five); "
                          "profile: a "
                          "torch.profiler "
                          "breakdown of the swin and deeplab_pop slices; dilated: cuDNN vs the "
@@ -4895,6 +4930,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "exports" in phases:
         paths.update(phase_exports(dev))
+        torch.cuda.empty_cache()
+    if "gates" in phases:
+        paths.update(phase_gates(dev))
         torch.cuda.empty_cache()
 
     if "profile" in phases:

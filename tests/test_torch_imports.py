@@ -48,7 +48,8 @@ MODULES = ["segland_tpu_torch", "segland_tpu_torch.ops.fused_mlp",
            "segland_tpu_torch.models.backbones.lsknet",
            "segland_tpu_torch.models.backbones.vggunet", "segland_tpu_torch.models.pspnet_plain",
            "segland_tpu_torch.dist", "segland_tpu_torch.dist.process",
-           "segland_tpu_torch.ops.device_aug"]
+           "segland_tpu_torch.ops.device_aug", "segland_tpu_torch.benchmarks.synthtask",
+           "segland_tpu_torch.benchmarks.accuracy_gates"]
 FOREIGN = ("jax", "flax", "PIL", "segland_tpu")
 # The entry points' processes run torch on one thread (OMP_NUM_THREADS): by default each
 # takes every core of a machine that tier-1's workers share.
